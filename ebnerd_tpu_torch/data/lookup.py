@@ -1,0 +1,65 @@
+"""id -> row index -> dense value matrix (copy of ``ebnerd_tpu/data/lookup.py``,
+numpy ``map_ids`` path).
+
+The id->index mapping runs once over whole ragged columns (vectorized
+searchsorted) and yields int32 index arrays; the value matrix lives on
+the device and the gather ``matrix[indices]`` happens there. Row 0 is the
+unknown/padding row, so missing ids and ragged padding share index 0.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from .ragged import Ragged
+
+__all__ = ["Lookup"]
+
+
+@dataclass(frozen=True)
+class Lookup:
+    """matrix[0] is the unknown/padding row; known id ``ids[i]`` maps to row
+    ``i + 1``."""
+
+    ids: np.ndarray       # sorted unique known ids, shape [V]
+    matrix: np.ndarray    # [V + 1, ...] with row 0 = unknown representation
+
+    @staticmethod
+    def from_values(
+        ids: np.ndarray, values: np.ndarray, unknown_representation: str = "zeros"
+    ) -> "Lookup":
+        ids = np.asarray(ids)
+        values = np.asarray(values)
+        if ids.ndim != 1 or len(ids) != len(values):
+            raise ValueError("ids must be 1-D and aligned with values")
+        order = np.argsort(ids, kind="stable")
+        ids, values = ids[order], values[order]
+        if len(ids) > 1 and (ids[1:] == ids[:-1]).any():
+            raise ValueError("duplicate ids in lookup")
+        if unknown_representation == "zeros":
+            unknown = np.zeros_like(values[:1])
+        elif unknown_representation == "mean":
+            unknown = np.mean(values, axis=0, dtype=values.dtype, keepdims=True)
+        else:
+            raise ValueError(
+                f"'{unknown_representation}' is not a specified method. "
+                "Can be either 'zeros' or 'mean'."
+            )
+        return Lookup(ids=ids, matrix=np.concatenate([unknown, values], axis=0))
+
+    def map_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Vectorized id -> row index; unknown ids -> 0."""
+        ids = np.asarray(ids)
+        pos = np.searchsorted(self.ids, ids)
+        pos_c = np.minimum(pos, len(self.ids) - 1)
+        found = self.ids[pos_c] == ids
+        return np.where(found, pos_c + 1, 0).astype(np.int32)
+
+    def map_ragged(self, col: Ragged) -> Ragged:
+        """Map a ragged id column to a ragged row-index column in one pass."""
+        return Ragged(self.map_ids(col.values), col.offsets.copy())
+
+    @property
+    def n_rows(self) -> int:
+        return self.matrix.shape[0]

@@ -1,0 +1,137 @@
+"""The port's fused news encoder (plain version, which the CUDA kernel is
+held against on the card) equals the JAX package's Pallas kernel run in
+interpret mode and its XLA reference, in fp32."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ebnerd_tpu.ops.news_encoder import fused_news_encoder as jax_fused
+from ebnerd_tpu.ops.news_encoder import news_encoder_reference as jax_reference
+from ebnerd_tpu_torch.ops import news_encoder as port
+
+torch.set_num_threads(1)
+
+SHAPES = [
+    # n, t, din, heads, head_dim, a, block (JAX block_n)
+    (10, 30, 256, 4, 32, 64, 4),     # uneven N vs block
+    (8, 30, 128, 20, 20, 200, 8),    # NRMS head geometry (20 x 20)
+    (5, 12, 64, 2, 16, 32, 2),
+    (9, 30, 64, 20, 20, 200, 8),     # 20 x 20 at title length 30
+    (7, 20, 400, 20, 20, 200, 8),    # 20 x 20 at history length 20 (user tower)
+]
+
+
+def _inputs(seed, n, t, din, heads, head_dim, a):
+    rng = np.random.default_rng(seed)
+    d = heads * head_dim
+    x = rng.standard_normal((n, t, din), dtype=np.float32)
+    mk = lambda *s: rng.standard_normal(s, dtype=np.float32) * 0.05
+    return x, (mk(din, d), mk(din, d), mk(din, d), mk(d, a), mk(a), mk(a, 1))
+
+
+@pytest.mark.parametrize("n,t,din,heads,head_dim,a,block", SHAPES)
+def test_plain_matches_jax_kernel_and_reference(n, t, din, heads, head_dim, a, block):
+    x, ws = _inputs(0, n, t, din, heads, head_dim, a)
+    jx, jws = jnp.asarray(x), [jnp.asarray(w) for w in ws]
+    kern = np.asarray(jax_fused(jx, *jws, num_heads=heads, block_n=block, interpret=True))
+    ref = np.asarray(jax_reference(jx, *jws, num_heads=heads))
+    out = port.fused_news_encoder(torch.from_numpy(x), *map(torch.from_numpy, ws),
+                                  num_heads=heads)
+    assert out.dtype == torch.float32 and out.shape == (n, heads * head_dim)
+    np.testing.assert_allclose(out.numpy(), kern, atol=3e-5)
+    np.testing.assert_allclose(out.numpy(), ref, atol=3e-5)
+
+
+@pytest.mark.parametrize("n_valid", [0, 3, 8])
+def test_n_valid_rows_are_zero(n_valid):
+    """Articles at or past n_valid are exactly 0; the rest equal the full
+    computation. The JAX kernel zeroes whole blocks past n_valid, so rows
+    of its blocks wholly past n_valid are 0 too."""
+    n, t, din, heads, head_dim, a, block = 12, 30, 64, 4, 16, 32, 4
+    x, ws = _inputs(1, n, t, din, heads, head_dim, a)
+    jx, jws = jnp.asarray(x), [jnp.asarray(w) for w in ws]
+    kern = np.asarray(jax_fused(jx, *jws, num_heads=heads, block_n=block, interpret=True,
+                                n_valid=jnp.int32(n_valid)))
+    out = port.fused_news_encoder(torch.from_numpy(x), *map(torch.from_numpy, ws),
+                                  num_heads=heads, n_valid=n_valid).numpy()
+    assert (out[n_valid:] == 0).all()
+    np.testing.assert_allclose(out[:n_valid], kern[:n_valid], atol=3e-5)
+    past = -(-n_valid // block) * block
+    assert (kern[past:] == 0).all()
+
+
+def test_bf16_rounding_points_match_jax_kernel():
+    """In bf16 the plain version rounds where the TPU kernel does (operands
+    of every product in bf16, fp32 accumulation), so it tracks the JAX
+    kernel closely; the bound is a few bf16 ulps of the output scale."""
+    n, t, din, heads, head_dim, a = 8, 30, 128, 20, 20, 200
+    x, ws = _inputs(2, n, t, din, heads, head_dim, a)
+    xb = x.astype(jnp.bfloat16)
+    kern = np.asarray(jax_fused(jnp.asarray(xb), *[jnp.asarray(w) for w in ws],
+                                num_heads=heads, block_n=8, interpret=True,
+                                compute_dtype="bfloat16"))
+    out = port.fused_news_encoder(torch.from_numpy(x).to(torch.bfloat16),
+                                  *map(torch.from_numpy, ws), num_heads=heads,
+                                  compute_dtype=torch.bfloat16).numpy()
+    scale = np.abs(kern).max()
+    assert np.abs(out - kern).max() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("heads,head_dim", [(20, 20), (6, 20), (2, 16)])
+def test_pack_qkv_layout(heads, head_dim):
+    """Head-group panels of 256 columns: Q, K and V of gh heads each, zeros
+    elsewhere (including the missing heads of a short last group)."""
+    rng = np.random.default_rng(3)
+    d = heads * head_dim
+    ws = [torch.from_numpy(rng.standard_normal((16, d), dtype=np.float32)) for _ in range(3)]
+    packed, gh = port.pack_qkv(*ws, heads, torch.float32)
+    assert gh == 256 // (3 * head_dim)
+    n_groups = -(-heads // gh)
+    assert packed.shape == (16, n_groups * 256) and packed.is_contiguous()
+    panels = packed.reshape(16, n_groups, 256)
+    seen = torch.zeros_like(panels, dtype=torch.bool)
+    for g in range(n_groups):
+        for h in range(g * gh, min(heads, (g + 1) * gh)):
+            for i, w in enumerate(ws):
+                col = i * gh * head_dim + (h - g * gh) * head_dim
+                torch.testing.assert_close(panels[:, g, col:col + head_dim],
+                                           w[:, h * head_dim:(h + 1) * head_dim],
+                                           rtol=0, atol=0)
+                seen[:, g, col:col + head_dim] = True
+    assert (panels[~seen] == 0).all()
+
+
+def test_pack_weights_pads_and_checks():
+    """The kernel's operands: QKV panels and W_att (zero columns up to a
+    multiple of 16) in the compute dtype, b and q flat in fp32; shapes past
+    the kernel's limits are refused."""
+    _, ws = _inputs(6, 3, 30, 64, 20, 20, 200)
+    tw = [torch.from_numpy(w) for w in ws]
+    p = port.pack_weights(*tw, num_heads=20, compute_dtype=torch.bfloat16)
+    wqkv, gh = port.pack_qkv(*tw[:3], 20, torch.bfloat16)
+    torch.testing.assert_close(p.wqkv, wqkv, rtol=0, atol=0)
+    assert p.heads_per_group == gh == 4 and p.num_heads == 20
+    assert p.w_att.shape == (400, 208) and p.w_att.dtype == torch.bfloat16
+    torch.testing.assert_close(p.w_att[:, :200], tw[3].to(torch.bfloat16), rtol=0, atol=0)
+    assert (p.w_att[:, 200:] == 0).all()
+    assert p.b_att.dtype == p.q_att.dtype == torch.float32 and p.q_att.shape == (200,)
+    torch.testing.assert_close(p.q_att, tw[5][:, 0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="head_dim"):
+        port.pack_weights(*tw, num_heads=10, compute_dtype=torch.float32)  # head_dim 40
+
+
+def test_dropout_not_ported():
+    x, ws = _inputs(4, 2, 4, 8, 2, 4, 8)
+    args = (torch.from_numpy(x), *map(torch.from_numpy, ws))
+    with pytest.raises(NotImplementedError, match="dropout"):
+        port.fused_news_encoder(*args, num_heads=2, keep_prob=0.8)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        port.fused_news_encoder(*args, num_heads=2, rng_seed=torch.tensor([1]))
+
+
+def test_cpu_call_does_not_count_launches():
+    before = port.fused_news_encoder.launches
+    x, ws = _inputs(5, 2, 4, 8, 2, 4, 8)
+    port.fused_news_encoder(torch.from_numpy(x), *map(torch.from_numpy, ws), num_heads=2)
+    assert port.fused_news_encoder.launches == before
