@@ -3,19 +3,40 @@
 
 Phases:
   1. report the card (name and power limit from nvidia-smi);
-  2. build every CUDA kernel of the serving path from ``ebnerd_tpu_torch/csrc``;
-  3. hold each kernel against its plain PyTorch version at small shapes
-     (fp32, n_valid) and at the shapes the serving path gives it (bf16);
-  4. run NRMS two-tower serving at full width (250,002 x 1,024 vocabulary,
+  2. build every CUDA kernel from ``ebnerd_tpu_torch/csrc`` (one nvcc per
+     source, all started together);
+  3. hold each kernel against its plain PyTorch version:
+     - K1, the fused encoder's forward: fp32 small shapes (n_valid, other
+       head geometries), bf16 at the serving shapes, and with dropout
+       (Philox masks and an external mask in fp32, Philox in bf16 at the
+       training step's news-tower shape);
+     - K4, the mask dump: bit-equal to the plain generator, keep rate,
+       reproducible, and seeded by all 64 bits;
+     - K2, the recompute backward, against autograd of the plain version
+       under the cotangent of sum(sin(out) * c): fp32 (small, n_valid with
+       g = 0 on pad rows, Philox dropout, external mask) and bf16 at the
+       step's two shapes; its GEMM and reduction kernels on their own;
+  4. the mask-check path of ``scripts/check_rng_dropout.py``: K1's Philox
+     path against its external-mask path fed the dumped masks;
+  5. NRMS two-tower serving at full width (250,002 x 1,024 vocabulary,
      25,000 articles, title 30, history 20, 20 x 20 heads, attention 200,
-     bf16, fused encoder): ArticleIndex.build() then TwoTowerScorer.score()
-     on a ragged feed, counting the kernel's launches in each tower, and
-     compare the scores with the same scorer on the plain version; check a
-     small fp32 model's fused scores against its unfused layers;
-  5. print the ``kernels`` JSON line, then the ``ok`` line last.
+     bf16, fused encoder), against the same scorer on the plain version;
+     a small fp32 model's fused scores against its unfused layers;
+  6. the NRMS training step at full width (the step of ``bench.py``: batch
+     16,384, npratio 4, dropout 0.2 from the kernels' Philox masks, host
+     dedup, bf16, fused, Adam lr 1e-4): one step's loss and gradients on
+     the kernels against the plain version with the same seed; 3 steps
+     counting K1 and K2 launches in both towers; warm steps timed; a small
+     fp32 model trained 3 steps on the kernels against its unfused layers
+     and against the per-slot path (no dedup) on the kernels;
+  7. print the ``kernels`` JSON line, the card line, then the ``ok`` line
+     last.
 
-Any failed check exits non-zero. Needs one CUDA card, nvcc (sm_90a) and
-no network. Details go to build/chip_smoke.json.
+Each path (mask check, serving, training) is driven with every launch
+count set to 0 just before it and read just after; launches made to
+compare a kernel with its plain version are not counted. Any failed check
+exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
+go to build/chip_smoke.json.
 
 Run: python3 chip_smoke.py
 """
@@ -34,14 +55,38 @@ import torch
 
 VOCAB, EMB, N_ART, T, H = 250_002, 1_024, 25_000, 30, 20
 HEADS, HEAD_DIM, ATT = 20, 20, 200
+D = HEADS * HEAD_DIM
 N_IMP, BATCH, CHUNK = 4_096, 1_024, 4_096
+TRAIN_BS, NPRATIO, DROPOUT, LR = 16_384, 4, 0.2, 1e-4
+KEEP = 1.0 - DROPOUT
+TRAIN_STEPS, WARM_STEPS = 3, 5
 WARM_WINDOWS = 5      # warm repeats of the index build and of scoring, timed each
 BF16_REL_TOL = 2e-2   # max|kernel - plain| <= tol * max|plain| in bf16
-FP32_ATOL = 1e-4      # fp32: only the summation order differs
+FP32_ATOL = 1e-4      # fp32 forward: only the summation order differs
+FP32_GRAD_REL = 1e-4  # fp32 gradients: max|kernel - plain| <= tol * scale per tensor
+# The scale of a gradient is max|plain| of the tensor, except for the pooling
+# bias and query (db, dq): they are sums over tokens of terms that cancel
+# (the pooling softmax's datt sums to 0 over each article), so their scale
+# is max(max|db or dq|, max|dW|): dW sums the same dz terms times o (|o| ~ 1)
+# without that cancellation.
+STEP_REL_TOL = 5e-2   # full-width bf16 step, kernel path vs plain path: per gradient tensor,
+# |g_kernel - g_plain|_2 <= tol * max(|g_plain|_2, 1e-3 * the largest |g_plain|_2 of its tower).
+# The floor covers gradients that cancel at a random init (the user tower's
+# pooling: near-uniform attention makes datt ~ 0, gradients ~1e-9 against
+# ~1e-3 for its other weights), where bf16 rounding decides the digits.
+STEP_TOWER_FLOOR = 1e-3
 SCORE_ATOL = 2e-2     # sigmoid scores, kernel path vs plain path, bf16 model
 SMALL_ATOL = 1e-4     # sigmoid scores, fp32 model, fused kernel vs unfused layers
+SMALL_PARAM_ATOL = 1e-5  # fp32 model after 3 steps, fused kernels vs unfused layers
+# Adam turns fp32 rounding in gradient elements near its eps (1e-8) into
+# steps of up to lr, so the small model trains at SMALL_LR: a gradient of
+# the wrong sign in any step still moves a parameter by >= 2 * SMALL_LR
+# = 6e-5 (caught), while rounding stays near 3e-6 (at lr 1e-4 it reached
+# 9.97e-6 on an H100, against the same 1e-5).
+SMALL_LR = 3e-5
 DEV = "cuda"
 EMB_SCALE = 200.0     # Glorot's bound for 250,002 x 1,024 is 0.0049; x200 gives about 1
+SEED64 = (0x5EED << 32) | 0x1234ABCD  # a seed whose high word matters
 
 # Published dense peaks (NVIDIA data sheets) by part: bf16 tensor FLOP/s,
 # fp32 (non-tensor) FLOP/s, memory bytes/s.
@@ -82,6 +127,30 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def counters() -> dict:
+    """Every kernel wrapper of the port, by the name the kernels line uses."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.ops import philox
+
+    return {"news_encoder_fwd": ne.fused_news_encoder, "news_encoder_bwd": ne.fused_news_encoder_bwd,
+            "news_encoder_bwd_gemm": ne.bwd_gemm, "news_encoder_bwd_reduce": ne.reduce_rows,
+            "philox_mask_dump": philox.dump_masks}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def bound(flops, nbytes, peak_ops, peaks):
+    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / peaks[2] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def encoder_work(n_valid, t, din, d, heads, a, elem):
     """(FLOPs, bytes) the encoder needs for n_valid articles: QKV GEMM,
     attention (QK and PV), pooling projection, pooling logits, weighted
@@ -95,23 +164,58 @@ def encoder_work(n_valid, t, din, d, heads, a, elem):
     return flops, nbytes
 
 
+def backward_work(n_valid, t, din, d, heads, a, elem):
+    """(FLOPs, bytes) of the recompute backward for n_valid articles: the
+    forward again, then dx and dWqkv (each 2 t din 3d), the attention's
+    four products, do and dW (each 2 t d a), dq and dvals; x and g read,
+    dx and the weight gradients written once."""
+    hd = d // heads
+    fwd, _ = encoder_work(n_valid, t, din, d, heads, a, elem)
+    flops = fwd + n_valid * (2 * 2 * t * din * 3 * d + 4 * 2 * heads * t * t * hd
+                             + 2 * 2 * t * d * a + 2 * t * a + 2 * t * d)
+    nbytes = (2 * n_valid * t * din * elem + n_valid * d * 4 + 3 * din * d * elem
+              + (d * a + 2 * a) * 4 + (3 * din * d + d * a + 2 * a) * 4)
+    return flops, nbytes
+
+
+def grad_scales(ref: dict, w_name: str, pooled: tuple) -> dict:
+    """Each gradient's scale for the tolerance (see FP32_GRAD_REL): its
+    max|plain|, and for the pooling bias and query at least max|dW|."""
+    out = {k: v.float().abs().max().item() for k, v in ref.items()}
+    for k in pooled:
+        out[k] = max(out[k], out[w_name])
+    return out
+
+
+def make_inputs(n, t, din, cdt, gen, heads=HEADS, head_dim=HEAD_DIM, a=ATT):
+    d = heads * head_dim
+    x = torch.randn(n, t, din, generator=gen, device=DEV).to(cdt)
+    ws = [torch.randn(*s, generator=gen, device=DEV) * 0.05
+          for s in ((din, d), (din, d), (din, d), (d, a), (a,), (a, 1))]
+    return x, ws
+
+
 def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
-                heads=HEADS, head_dim=HEAD_DIM, a=ATT):
-    """Kernel vs plain version on one shape; returns the case record. The
-    wrapper is called as the model calls it, with the weights packed once."""
+                heads=HEADS, head_dim=HEAD_DIM, a=ATT, drop=None):
+    """K1 vs its plain version on one shape; returns the case record. The
+    wrapper is called as the model calls it, with the weights packed once.
+    ``drop``: "rng" (Philox, keep 0.8 on x and o) or "mask" (external
+    0/1 mask, keep 0.8)."""
     from ebnerd_tpu_torch.ops.news_encoder import (fused_news_encoder, news_encoder_reference,
                                                    pack_weights)
 
     d = heads * head_dim
-    dev = torch.device(DEV)
-    x = torch.randn(n, t, din, generator=gen, device=dev).to(cdt)
-    ws = [torch.randn(*s, generator=gen, device=dev) * 0.05
-          for s in ((din, d), (din, d), (din, d), (d, a), (a,), (a, 1))]
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a)
     kw = dict(num_heads=heads, compute_dtype=cdt, n_valid=n_valid)
+    if drop == "rng":
+        kw.update(keep_prob=KEEP, emb_keep_prob=KEEP, rng_seed=SEED64)
+    elif drop == "mask":
+        kw.update(keep_prob=KEEP,
+                  drop_mask=(torch.rand(n, t, d, generator=gen, device=DEV) < KEEP).float())
     packed = pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
     out = fused_news_encoder(x, *ws, **kw, packed=packed)
     check(torch.equal(out, fused_news_encoder(x, *ws, **kw)),
-          f"{name}: weights packed by the caller and by the wrapper disagree")
+          f"{name}: weights packed by the caller and by the wrapper disagree (or not reproducible)")
     torch.cuda.synchronize()
     ref = news_encoder_reference(x, *ws, **kw)
     err = (out - ref).abs().max().item()
@@ -123,20 +227,199 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     if nv < n:
         check(bool((out[nv:] == 0).all()), f"{name}: rows past n_valid are not zero")
     ms = time_ms(lambda: fused_news_encoder(x, *ws, **kw, packed=packed), iters)
-    plain_ms = time_ms(lambda: news_encoder_reference(x, *ws, **kw), max(2, iters // 4))
+    plain_ms = time_ms(lambda: news_encoder_reference(x, *ws, **kw), max(2, iters // 4), warmup=1)
     flops, nbytes = encoder_work(nv, t, din, d, heads, a, x.element_size())
-    peak_ops = peaks[0] if cdt == torch.bfloat16 else peaks[1]
-    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / peaks[2] * 1e3
+    b_ms, b_by = bound(flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
-           "dtype": str(cdt).replace("torch.", ""),
+           "dtype": str(cdt).replace("torch.", ""), "dropout": drop,
            "n_valid": nv, "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None}
-    print(f"[kernel] {name}: {n}x{t}x{din} heads {heads}x{head_dim} A {a} {rec['dtype']} n_valid={nv} "
-          f"max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) library: none", flush=True)
+    print(f"[kernel] {name}: {n}x{t}x{din} heads {heads}x{head_dim} A {a} {rec['dtype']} "
+          f"n_valid={nv} dropout={drop} max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library: none", flush=True)
     return rec
+
+
+def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEADS,
+             head_dim=HEAD_DIM, a=ATT, drop=None):
+    """K2 vs autograd of the plain version under the cotangent of
+    sum(sin(out) * c), c fixed and random; g is zero on rows past n_valid
+    (as slot gathers guarantee). Returns the case record."""
+    from ebnerd_tpu_torch.ops.news_encoder import (fused_news_encoder_bwd,
+                                                   news_encoder_bwd_reference,
+                                                   news_encoder_reference, pack_weights)
+
+    d = heads * head_dim
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a)
+    kw = dict(num_heads=heads, compute_dtype=cdt, n_valid=n_valid)
+    if drop == "rng":
+        kw.update(keep_prob=KEEP, emb_keep_prob=KEEP, rng_seed=SEED64)
+    elif drop == "mask":
+        kw.update(keep_prob=KEEP,
+                  drop_mask=(torch.rand(n, t, d, generator=gen, device=DEV) < KEEP).float())
+    c = torch.randn(n, d, generator=gen, device=DEV)
+    g = (torch.cos(news_encoder_reference(x, *ws, **kw)) * c).contiguous()
+    nv = n if n_valid is None else n_valid
+    g[nv:] = 0
+    packed = pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+    grads = fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed)
+    torch.cuda.synchronize()
+    again = fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed)
+    check(all(torch.equal(u, v) for u, v in zip(grads, again)),
+          f"{name}: two backward runs differ (the reductions must be deterministic)")
+    ref = news_encoder_bwd_reference(x, *ws, g, **kw)
+    rel = FP32_GRAD_REL if cdt == torch.float32 else BF16_REL_TOL
+    errs = {}
+    names = ("dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+    scales = grad_scales(dict(zip(names, ref)), "dw", ("db", "dq"))
+    for nm, u, v in zip(names, grads, ref):
+        check(u.shape == v.shape and u.dtype == v.dtype, f"{name}: {nm} {u.shape}/{u.dtype} "
+                                                         f"vs {v.shape}/{v.dtype}")
+        check(bool(torch.isfinite(u).all()), f"{name}: non-finite {nm}")
+        err = (u.float() - v.float()).abs().max().item()
+        errs[nm] = [err, scales[nm]]
+        check(err <= rel * scales[nm],
+              f"{name}: {nm} max|kernel - plain| = {err} > {rel} * {scales[nm]}")
+    if nv < n:
+        check(bool((grads[0][nv:] == 0).all()), f"{name}: dx past n_valid is not zero")
+    ms = time_ms(lambda: fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed), iters)
+    plain_ms = time_ms(lambda: news_encoder_bwd_reference(x, *ws, g, **kw),
+                       max(1, iters // 5), warmup=1)
+    flops, nbytes = backward_work(nv, t, din, d, heads, a, x.element_size())
+    b_ms, b_by = bound(flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
+    worst = max(e / max(s, 1e-30) for e, s in errs.values())
+    rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
+           "dtype": str(cdt).replace("torch.", ""), "dropout": drop, "n_valid": nv,
+           "errors": errs, "max_rel_err": worst, "rel_tol": rel,
+           "max_abs_err": max(e for e, _ in errs.values()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None}
+    print(f"[kernel] {name}: K2 {n}x{t}x{din} {rec['dtype']} n_valid={nv} dropout={drop} "
+          + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items())
+          + f" (rel tol {rel}) ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
+            f"({b_by}) library: none", flush=True)
+    return rec
+
+
+def gemm_cases(rows, din, p_cols, peaks, gen):
+    """The backward's GEMM (the dWqkv product, masked by Philox stream 0,
+    and the dx product) and its fixed-order reduction on their own at the
+    news tower's training shape, against their plain versions; the
+    yardsticks are torch.matmul and torch.sum of the same operands."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    cdt = torch.bfloat16
+    a = torch.randn(rows, din, generator=gen, device=DEV).to(cdt)
+    b = torch.randn(rows, p_cols, generator=gen, device=DEV).to(cdt)
+    drop = ne.dropout_config(1, 1, 4, KEEP, KEEP, SEED64)
+    splits = ne._splits(din, p_cols, rows)
+    part = ne.bwd_gemm(a, b, dx=False, rows=rows, drop=drop, splits=splits)
+    out = ne.reduce_rows(part).reshape(din, p_cols)
+    ref = ne.bwd_gemm_reference(a, b, dx=False, rows=rows, drop=drop, seed=SEED64, emb_keep=KEEP)
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= BF16_REL_TOL * scale, f"dWqkv GEMM: max|kernel - plain| = {err} > tol")
+    red_ref = part.sum(0)
+    red_err = (out - red_ref).abs().max().item()
+    check(red_err <= 1e-5 * red_ref.abs().max().item(), f"reduction: {red_err}")
+    w = torch.randn(din, p_cols, generator=gen, device=DEV).to(cdt)
+    dx = ne.bwd_gemm(b, w, dx=True, rows=rows - 7, drop=drop)
+    dx_ref = ne.bwd_gemm_reference(b, w, dx=True, rows=rows - 7, drop=drop, seed=SEED64,
+                                   emb_keep=KEEP)
+    dx_err = (dx.float() - dx_ref.float()).abs().max().item()
+    check(dx_err <= BF16_REL_TOL * dx_ref.float().abs().max().item(), f"dx GEMM: {dx_err}")
+    check(bool((dx[rows - 7:] == 0).all()), "dx GEMM: rows past n_valid are not zero")
+    del dx, dx_ref
+    ms = time_ms(lambda: ne.bwd_gemm(a, b, dx=False, rows=rows, drop=drop, splits=splits), 10)
+    plain_ms = time_ms(lambda: ne.bwd_gemm_reference(a, b, dx=False, rows=rows, drop=drop,
+                                                     seed=SEED64, emb_keep=KEEP), 2, warmup=1)
+    lib_ms = time_ms(lambda: a.T @ b, 10)
+    flops = 2 * rows * din * p_cols
+    nbytes = (rows * din + rows * p_cols) * 2 + splits * din * p_cols * 4
+    b_ms, b_by = bound(flops, nbytes, peaks[0], peaks)
+    red_ms = time_ms(lambda: ne.reduce_rows(part), 20)
+    red_lib = time_ms(lambda: part.sum(0), 20)
+    r_bytes = part.numel() * 4 + din * p_cols * 4
+    r_ms, r_by = bound(part.numel(), r_bytes, peaks[1], peaks)
+    gemm = {"case": "dwqkv_gemm", "rows": rows, "m_n": [din, p_cols], "splits": splits,
+            "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    red = {"case": "dwqkv_reduce", "rows": splits, "cols": din * p_cols, "max_abs_err": red_err,
+           "ms": red_ms, "plain_ms": red_lib, "bound_ms": r_ms, "bound_by": r_by,
+           "library_ms": red_lib}
+    print(f"[kernel] bwd GEMM dWqkv: {rows} rows -> {din}x{p_cols} bf16, {splits} slices, "
+          f"max_abs_err={err:.3e} (max|ref| {scale:.3e}) ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) library (torch.matmul) ms={lib_ms:.3f}", flush=True)
+    print(f"[kernel] bwd reduce: {splits} x {din * p_cols} fp32 max_abs_err={red_err:.3e} "
+          f"ms={red_ms:.4f} plain/library (torch.sum) ms={red_lib:.4f} bound_ms={r_ms:.4f} "
+          f"({r_by})", flush=True)
+    return gemm, red
+
+
+def mask_dump_case(peaks):
+    """K4: masks through the kernels' device function equal the plain
+    generator bit for bit (both streams), keep 0.8 within 0.01, the same
+    seed reproduces, another seed or one differing in its high 32 bits
+    differs."""
+    from ebnerd_tpu_torch.ops import philox
+
+    rows = 64 * T  # scripts/check_rng_dropout.py: N 64, T 30, E 128, D 64
+    recs = []
+    for stream, width in ((philox.STREAM_EMB, 128), (philox.STREAM_ATT, 64)):
+        m = philox.dump_masks(SEED64, stream, rows, width, KEEP)
+        torch.cuda.synchronize()
+        check(torch.equal(m, philox.mask(SEED64, stream, rows, width, KEEP, device=DEV)),
+              f"stream {stream}: kernel masks differ from the plain generator")
+        rate = (m > 0).float().mean().item()
+        check(abs(rate - KEEP) < 0.01, f"stream {stream}: keep rate {rate}")
+        check(torch.equal(m, philox.dump_masks(SEED64, stream, rows, width, KEEP)), "reproducible")
+        check(not torch.equal(m, philox.dump_masks(SEED64 + 1, stream, rows, width, KEEP)),
+              "another seed gives the same mask")
+        check(not torch.equal(m, philox.dump_masks(SEED64 ^ (1 << 40), stream, rows, width, KEEP)),
+              "the seed's high word is ignored")
+        recs.append({"stream": stream, "rows": rows, "width": width, "keep_rate": rate})
+    big_rows, big_w = 4096 * T, EMB
+    m = philox.dump_masks(SEED64, philox.STREAM_EMB, big_rows, big_w, KEEP)
+    ref = philox.mask(SEED64, philox.STREAM_EMB, big_rows, big_w, KEEP, device=DEV)
+    check(torch.equal(m, ref), "large stream-0 mask differs from the plain generator")
+    ms = time_ms(lambda: philox.dump_masks(SEED64, 0, big_rows, big_w, KEEP), 20)
+    plain_ms = time_ms(lambda: philox.mask(SEED64, 0, big_rows, big_w, KEEP, device=DEV), 2,
+                       warmup=1)
+    b_ms, b_by = bound(0, big_rows * big_w * 4, peaks[1], peaks)
+    rec = {"checks": recs, "shape": [big_rows, big_w], "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"[kernel] mask dump: streams 0/1 bit-equal to the plain generator, keep rates "
+          + ", ".join(f"{r['keep_rate']:.4f}" for r in recs)
+          + f"; [{big_rows}, {big_w}] ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
+            f"({b_by}) library: none", flush=True)
+    return rec
+
+
+def rng_check_path(gen):
+    """The path of scripts/check_rng_dropout.py on the card: dump the
+    step's masks, feed stream 1 (as 0/1) and x pre-masked with stream 0 to
+    K1's external-mask path, and compare with K1's Philox path. Launches
+    of this run are K4's main-path count."""
+    from ebnerd_tpu_torch.ops import philox
+    from ebnerd_tpu_torch.ops.news_encoder import fused_news_encoder
+
+    n, din = 64, 128
+    x, ws = make_inputs(n, T, din, torch.float32, gen, heads=4, head_dim=16, a=32)
+    reset_counts()
+    m0 = philox.dump_masks(SEED64, philox.STREAM_EMB, n * T, din, KEEP).reshape(n, T, din)
+    m1 = philox.dump_masks(SEED64, philox.STREAM_ATT, n * T, 64, KEEP).reshape(n, T, 64)
+    rng = fused_news_encoder(x, *ws, num_heads=4, keep_prob=KEEP, emb_keep_prob=KEEP,
+                             rng_seed=SEED64)
+    ext = fused_news_encoder(x * m0, *ws, num_heads=4, keep_prob=KEEP,
+                             drop_mask=(m1 > 0).float())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    err = (rng - ext).abs().max().item()
+    check(err <= FP32_ATOL, f"Philox path vs external-mask path: {err}")
+    check(counts["philox_mask_dump"] == 2, f"mask dump launches {counts}")
+    print(f"[masks] K1 Philox path vs external-mask path fed the dumped masks: "
+          f"max|d|={err:.3e}; launches {counts}", flush=True)
+    return {"max_abs_diff": err, "launches": counts}
 
 
 def synthetic_feed(n_imp, n_art, hist, seed):
@@ -159,8 +442,9 @@ def synthetic_feed(n_imp, n_art, hist, seed):
     })
 
 
-def plain_encoder(*args, keep_prob=1.0, drop_mask=None, rng_seed=None, packed=None, **kw):
-    """The plain version under the wrapper's signature (for the comparison run)."""
+def plain_encoder(*args, packed=None, **kw):
+    """The plain version under the model's call signature (for the
+    comparison runs); differentiable by autograd."""
     from ebnerd_tpu_torch.ops.news_encoder import news_encoder_reference
 
     return news_encoder_reference(*args, **kw)
@@ -175,11 +459,10 @@ def serve(model, lookup, feed, batch_size):
 
 
 def serving_full_width(gen):
-    """Phase 4: the port's serving path at full width; returns its record."""
+    """The port's serving path at full width; returns its record."""
     from ebnerd_tpu_torch.data import EvalFeed, Lookup
     from ebnerd_tpu_torch.models import NRMS, HParamsNRMS
     from ebnerd_tpu_torch.models import newsrec
-    from ebnerd_tpu_torch.ops.news_encoder import fused_news_encoder
     from ebnerd_tpu_torch.serving import ArticleIndex, TwoTowerScorer
 
     model = NRMS(HParamsNRMS(), vocab_size=VOCAB, word_emb_dim=EMB, dtype=torch.bfloat16,
@@ -193,31 +476,35 @@ def serving_full_width(gen):
     torch.cuda.synchronize()
 
     # the main path, counted
-    fused_news_encoder.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     index = ArticleIndex(model, {"title": lookup.matrix}, batch_size=CHUNK, device=DEV)
     vecs = index.build()
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    art_launches = fused_news_encoder.launches
+    art_launches = read_counts()["news_encoder_fwd"]
     t0 = time.perf_counter()
     scores = TwoTowerScorer(index).score(feed)
     t_score = time.perf_counter() - t0
-    user_launches = fused_news_encoder.launches - art_launches
+    counts = read_counts()
+    user_launches = counts["news_encoder_fwd"] - art_launches
     n_batches = len(feed)
 
     check(art_launches == math.ceil(lookup.n_rows / CHUNK),
           f"article tower launched the kernel {art_launches} times")
     check(user_launches == n_batches, f"user tower launched the kernel {user_launches} "
                                       f"times for {n_batches} batches")
-    check(vecs.shape == (N_ART + 1, HEADS * HEAD_DIM), f"index shape {tuple(vecs.shape)}")
+    check(counts["news_encoder_bwd"] == 0, "serving launched the backward")
+    check(vecs.shape == (N_ART + 1, D), f"index shape {tuple(vecs.shape)}")
     check(bool(torch.isfinite(vecs).all()), "non-finite article vectors")
     check(scores.values.shape == (feed.inview.total,), "score count")
     check(bool(np.isfinite(scores.values).all()), "non-finite scores")
-    check(bool(((scores.values > 0) & (scores.values < 1)).all()), "scores outside (0, 1)")
+    inside = float(((scores.values > 0) & (scores.values < 1)).mean())
+    check(bool(((scores.values >= 0) & (scores.values <= 1)).all()), "scores outside [0, 1]")
+    check(inside > 0.5, f"only {inside:.3f} of the scores lie strictly inside (0, 1)")
 
     # warm windows of both towers (host clock, synchronised); the rate is
-    # all the work over all the time of the windows
+    # all the work of the windows over all their time
     builds_warm, scores_warm = [], []
     for _ in range(WARM_WINDOWS):
         t0 = time.perf_counter()
@@ -230,7 +517,7 @@ def serving_full_width(gen):
     t_build_warm, t_score_warm = sum(builds_warm), sum(scores_warm)
 
     # the same scorer on the plain version
-    with mock.patch.object(newsrec, "fused_news_encoder", plain_encoder):
+    with mock.patch.object(newsrec, "news_encoder", plain_encoder):
         pindex, pscores = serve(model, lookup, feed, CHUNK)
     vec_err = (vecs.float() - pindex.vectors.float()).abs().max().item()
     vec_scale = pindex.vectors.float().abs().max().item()
@@ -249,8 +536,7 @@ def serving_full_width(gen):
            "impressions_per_s": N_IMP / t_score,
            "impressions_per_s_warm": WARM_WINDOWS * N_IMP / t_score_warm,
            "max_abs_vec_diff_vs_plain": vec_err, "max_abs_vec_plain": vec_scale,
-           "max_abs_score_diff_vs_plain": score_err,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "max_abs_score_diff_vs_plain": score_err, "scores_inside_0_1": inside}
     ms = lambda ts: ", ".join(f"{s * 1e3:.3f}" for s in ts)
     print(f"[serve] index build: {N_ART + 1} articles in {t_build * 1e3:.1f} ms cold "
           f"({rec['articles_per_s']:,.0f} articles/s); warm windows {ms(builds_warm)} ms "
@@ -261,7 +547,8 @@ def serving_full_width(gen):
           f"({rec['impressions_per_s_warm']:,.0f} imp/s); {user_launches} kernel launches "
           f"over {n_batches} batches", flush=True)
     print(f"[serve] kernel vs plain: max|dvec|={vec_err:.3e} (max|vec| {vec_scale:.3e}), "
-          f"max|dscore|={score_err:.3e}", flush=True)
+          f"max|dscore|={score_err:.3e}; {inside:.4f} of the scores strictly inside (0, 1)",
+          flush=True)
     return rec
 
 
@@ -290,6 +577,173 @@ def small_reference(gen):
     return {"max_abs_score_diff": err}
 
 
+def small_training():
+    """fp32 model at small size, dropout 0: 3 Adam steps on the fused
+    kernels (forward and backward) leave the same parameters as 3 steps on
+    the unfused layers, on dedup batches; and the per-slot path (no dedup,
+    every slot encoded) on the kernels leaves the same parameters as the
+    dedup path."""
+    from ebnerd_tpu_torch.bench import batches
+    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    vocab, emb, n_art, bs = 1_000, 128, 300, 64
+    title = np.random.default_rng(5).integers(1, vocab, (n_art + 1, T)).astype(np.int32)
+    raw = batches(6, 3, bs, n_art + 1)
+    params = {}
+    for fused, dedup in ((True, True), (False, True), (True, False)):
+        model = NRMS(HParamsNRMS(dropout=0.0), vocab_size=vocab, word_emb_dim=emb,
+                     dtype=torch.float32, use_fused_encoder=fused, device=DEV, seed=3)
+        with torch.no_grad():
+            model.word_embedding.embedding.mul_(50.0)
+        tr = Trainer(model, {"title": title}, token_batch,
+                     TrainerConfig(learning_rate=SMALL_LR, seed=0, dedup_articles=dedup),
+                     device=DEV)
+        reset_counts()
+        for i in range(3):
+            check(bool(torch.isfinite(tr.train_step({k: v[i] for k, v in raw.items()}))),
+                  "small training: non-finite loss")
+        if fused:
+            counts = read_counts()
+            check(counts["news_encoder_fwd"] == 6 and counts["news_encoder_bwd"] == 6,
+                  f"small fused training (dedup={dedup}) launches {counts}")
+        params[fused, dedup] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rec = {}
+    for name, other in (("unfused layers", (False, True)), ("per-slot kernels", (True, False))):
+        diffs = {k: (params[True, True][k] - params[other][k]).abs().max().item()
+                 for k in params[other]}
+        worst = max(diffs, key=diffs.get)
+        err = diffs[worst]
+        print(f"[small] fp32 3 training steps, dedup kernels vs {name}: max|dparam|={err:.3e} "
+              f"({worst}); " + ", ".join(f"{k}={v:.1e}" for k, v in diffs.items()), flush=True)
+        check(err <= SMALL_PARAM_ATOL, f"small fp32 training: {name} params differ by {err}")
+        rec[name] = {"max_abs_param_diff": err, "by_param": diffs}
+    return rec
+
+
+def training_data():
+    """The step's data, as bench.py makes it: Zipf token table and article
+    draws; the first batch's host dedup gives the news tower's shape."""
+    from ebnerd_tpu_torch.bench import batches, token_table
+    from ebnerd_tpu_torch.training import prep_dedup_batch
+
+    table = token_table(np.random.default_rng(0), "zipf")
+    n_steps = 2 + TRAIN_STEPS + 2 + WARM_STEPS
+    all_b = batches(2, n_steps, TRAIN_BS, N_ART + 1, "zipf")
+    raws = [{k: v[i] for k, v in all_b.items()} for i in range(n_steps)]
+    t0 = time.perf_counter()
+    preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
+    prep_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    return table, preps, prep_ms
+
+
+def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_user):
+    """The port's training step at full width; returns its record."""
+    from ebnerd_tpu_torch.bench import flops_per_impression
+    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, newsrec, token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
+                 dtype=torch.bfloat16, use_fused_encoder=True, device=DEV, seed=0)
+    with torch.no_grad():  # as bench.py's init, the gradients are all ~0 (loss = ln 5)
+        model.word_embedding.embedding.mul_(EMB_SCALE)
+    trainer = Trainer(model, {"title": table}, token_batch,
+                      TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
+    staged = [trainer.prepare(r) for r in preps]
+    torch.cuda.synchronize()
+    slots = TRAIN_BS * (H + NPRATIO + 1)
+    uniq_frac = float(np.mean([p["n_uniq"] for p in preps]) / slots)
+
+    # 1. one step's loss and gradients: kernels vs the plain version, same seed
+    model.train()
+
+    def loss_and_grads(batch):
+        model.zero_grad(set_to_none=True)
+        logits = model(dict(batch, dropout_seed=SEED64))
+        loss = trainer.loss_fn(logits, batch["labels"])
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads(staged[0])
+    with mock.patch.object(newsrec, "news_encoder", plain_encoder):
+        loss_p, grads_p = loss_and_grads(staged[0])
+    model.zero_grad(set_to_none=True)
+    rows = torch.unique(staged[0]["uniq_tokens"][: staged[0]["art_n_uniq"]])
+    diffs, norms, grad_errs = {}, {}, {}
+    for k in grads_p:
+        gk, gp = grads_k[k], grads_p[k]
+        if k == "word_embedding.embedding":  # the rows the step touched
+            check(bool(torch.isin((gk.abs().sum(1) != 0).nonzero().flatten(), rows).all()),
+                  "embedding gradient outside the touched rows")
+            gk, gp = gk[rows], gp[rows]
+        check(bool(torch.isfinite(gk).all()), f"non-finite gradient {k}")
+        diffs[k], norms[k] = (gk - gp).norm().item(), gp.norm().item()
+        grad_errs[k] = {"max_abs_err": (gk - gp).abs().max().item(),
+                        "max_abs_ref": gp.abs().max().item()}
+    del grads_k, grads_p
+    tower = lambda k: "user" if k.startswith("user") else "news"
+    top = {tw: max(v for k, v in norms.items() if tower(k) == tw) for tw in ("news", "user")}
+    for k in norms:
+        scale = max(norms[k], STEP_TOWER_FLOOR * top[tower(k)])
+        grad_errs[k].update(norm_err=diffs[k], norm_ref=norms[k], rel=diffs[k] / scale)
+    print(f"[train] one step, kernels vs plain (same seed): loss {loss_k:.6f} vs {loss_p:.6f}; "
+          + ", ".join(f"{k}={e['rel']:.2e} (max {e['max_abs_err']:.1e}/{e['max_abs_ref']:.1e})"
+                      for k, e in grad_errs.items())
+          + f" (|dg|_2 relative, tol {STEP_REL_TOL})", flush=True)
+    for k, e in grad_errs.items():
+        check(e["rel"] <= STEP_REL_TOL, f"step gradient {k}: |kernel - plain|_2 = "
+                                        f"{e['norm_err']} > {STEP_REL_TOL} x scale ({e})")
+    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-2 * max(1.0, abs(loss_p)),
+          f"step loss: kernels {loss_k}, plain {loss_p}")
+
+    # 2. the main path, counted: TRAIN_STEPS optimizer steps
+    losses, per_step = [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        reset_counts()
+        losses.append(trainer.step(staged[i]).item())
+        per_step.append(read_counts())
+    for c in per_step:
+        check(c["news_encoder_fwd"] == 2 and c["news_encoder_bwd"] == 2,
+              f"a step launched K1 {c['news_encoder_fwd']} and K2 {c['news_encoder_bwd']} times")
+        check(c["news_encoder_bwd_gemm"] == 6 and c["news_encoder_bwd_reduce"] == 8,
+              f"a step's backward GEMM/reduce launches {c}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    main_counts = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    print(f"[train] {TRAIN_STEPS} steps: losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"launches per step {per_step[0]}", flush=True)
+
+    # 3. warm steps, host clock, synchronised
+    first = 1 + TRAIN_STEPS
+    for i in range(first, first + 2):
+        trainer.step(staged[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(first + 2, first + 2 + WARM_STEPS):
+        loss = trainer.step(staged[i])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss)), "non-finite warm loss")
+    step_ms = dt / WARM_STEPS * 1e3
+    ips = TRAIN_BS * WARM_STEPS / dt
+    mfu = ips * flops_per_impression(uniq_frac, True, D, ATT) / peaks[0] * 100
+    buckets = sorted({int(p["art_uniq"].shape[0]) for p in preps})
+    rec = {"batch": TRAIN_BS, "npratio": NPRATIO, "dropout": DROPOUT, "lr": LR,
+           "loss_kernels": loss_k, "loss_plain": loss_p, "grad_errors": grad_errs,
+           "losses": losses, "launches_per_step": per_step, "launches": main_counts,
+           "step_ms": step_ms, "impressions_per_s": ips, "mfu_pct": mfu,
+           "uniq_frac": uniq_frac, "n_uniq_first": int(preps[0]["n_uniq"]), "buckets": buckets,
+           "host_dedup_ms": prep_ms, "k1_ms": {"news": k_news, "user": k_user},
+           "k2_ms": {"news": b_news, "user": b_user},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[train] warm: {step_ms:.2f} ms/step, {ips:,.0f} impressions/s, mfu {mfu:.2f}% "
+          f"(bench.py's FLOPs over {peaks[0] / 1e12:g} TFLOP/s); unique fraction {uniq_frac:.4f}, "
+          f"buckets {buckets}; host dedup {prep_ms:.2f} ms/batch; K1 {k_news:.3f} (news) + "
+          f"{k_user:.3f} (user) ms, K2 {b_news:.3f} + {b_user:.3f} ms at the step's shapes; "
+          f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -298,6 +752,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from ebnerd_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -319,6 +774,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    table, preps, prep_ms = training_data()
+    bucket, n_uniq = int(preps[0]["art_uniq"].shape[0]), int(preps[0]["n_uniq"])
+    print(f"[data] first training batch: {n_uniq} unique articles in a bucket of {bucket}; "
+          f"host dedup {prep_ms:.2f} ms per batch", flush=True)
+
     gen = torch.Generator(device=DEV).manual_seed(0)
     cases = [
         kernel_case("fp32_small", 37, 30, 128, torch.float32, peaks, gen),
@@ -331,31 +791,89 @@ def main() -> int:
         kernel_case("bf16_heads_2x16", 11, 12, 64, torch.bfloat16, peaks, gen,
                     heads=2, head_dim=16, a=32),
         kernel_case("bf16_article_chunk", CHUNK, T, EMB, torch.bfloat16, peaks, gen),
-        kernel_case("bf16_user_batch", BATCH, H, HEADS * HEAD_DIM, torch.bfloat16, peaks, gen),
+        kernel_case("bf16_user_batch", BATCH, H, D, torch.bfloat16, peaks, gen),
+        kernel_case("fp32_rng_dropout", 37, 30, 128, torch.float32, peaks, gen, n_valid=30,
+                    drop="rng"),
+        kernel_case("fp32_mask_dropout", 37, 30, 128, torch.float32, peaks, gen, drop="mask"),
+        kernel_case("bf16_train_news", bucket, T, EMB, torch.bfloat16, peaks, gen,
+                    n_valid=n_uniq, iters=10, drop="rng"),
+        kernel_case("bf16_train_user", TRAIN_BS, H, D, torch.bfloat16, peaks, gen, iters=10),
     ]
     record["cases"] = cases
+    bwd = [
+        bwd_case("bwd_fp32_small", 37, 30, 128, torch.float32, peaks, gen),
+        bwd_case("bwd_fp32_n_valid", 50, 20, 400, torch.float32, peaks, gen, n_valid=29),
+        bwd_case("bwd_fp32_rng_dropout", 37, 30, 128, torch.float32, peaks, gen, n_valid=33,
+                 drop="rng"),
+        bwd_case("bwd_fp32_mask_dropout", 12, 30, 64, torch.float32, peaks, gen, heads=4,
+                 head_dim=16, a=32, drop="mask"),
+        bwd_case("bwd_bf16_train_news", bucket, T, EMB, torch.bfloat16, peaks, gen,
+                 n_valid=n_uniq, iters=5, drop="rng"),
+        bwd_case("bwd_bf16_train_user", TRAIN_BS, H, D, torch.bfloat16, peaks, gen, iters=5),
+    ]
+    record["bwd_cases"] = bwd
+    gemm, red = gemm_cases(n_uniq * T, EMB, 5 * 256, peaks, gen)
+    record["gemm"], record["reduce"] = gemm, red
+    dump = mask_dump_case(peaks)
+    record["mask_dump"] = dump
+    record["rng_check"] = rng_check_path(gen)
     record["small_reference"] = small_reference(gen)
-    serving = serving_full_width(gen)
+    serving = serving_full_width(torch.Generator(device=DEV).manual_seed(0))
     record["serving"] = serving
+    record["small_training"] = small_training()
+    by = {c["case"]: c for c in cases + bwd}
+    training = training_full_width(table, preps, prep_ms, peaks,
+                                   by["bf16_train_news"]["ms"], by["bf16_train_user"]["ms"],
+                                   by["bwd_bf16_train_news"]["ms"], by["bwd_bf16_train_user"]["ms"])
+    record["training"] = training
 
-    art = next(c for c in cases if c["case"] == "bf16_article_chunk")
-    kernels = {"kernels": [{
-        "name": "news_encoder_fwd", "route": "cuda",
-        "source": "ebnerd_tpu_torch/csrc/news_encoder.cu",
-        "replaces": "ebnerd_tpu/ops/news_encoder.py:231",
-        "launches": serving["launches_article_tower"] + serving["launches_user_tower"],
-        "launches_article_tower": serving["launches_article_tower"],
-        "launches_user_tower": serving["launches_user_tower"],
-        "max_abs_err": art["max_abs_err"], "ms": art["ms"], "plain_ms": art["plain_ms"],
-        "bound_ms": art["bound_ms"], "bound_by": art["bound_by"], "library_ms": None,
-        "checked": True,
-        "cases": [{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "bound_by")} for c in cases],
-    }]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main_l = training["launches"]
+    k1, k2 = by["bf16_train_news"], by["bwd_bf16_train_news"]
+    kernels = {"kernels": [
+        dict({"name": "news_encoder_fwd", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/news_encoder.cu",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:231",
+              "launches": main_l["news_encoder_fwd"],
+              "launches_serving": serving["launches_article_tower"] + serving["launches_user_tower"],
+              "note": "forward with in-kernel Philox dropout (emb + attention-out) and external-mask "
+                      "dropout; timed at the training step's news-tower shape",
+              "checked": True}, **{k: k1[k] for k in keys},
+             cases=[{k: c[k] for k in ("case",) + keys} for c in cases]),
+        dict({"name": "news_encoder_bwd", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
+              "launches": main_l["news_encoder_bwd"],
+              "note": "per-block recompute backward; ms is the whole backward (this kernel, "
+                      "3 GEMMs, 4 reductions) at the news-tower shape",
+              "checked": True}, **{k: k2[k] for k in keys},
+             cases=[{k: c[k] for k in ("case",) + keys} for c in bwd]),
+        dict({"name": "news_encoder_bwd_gemm", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
+              "launches": main_l["news_encoder_bwd_gemm"],
+              "note": "dx and the row-reduced weight-gradient products of K2; timed on dWqkv",
+              "checked": True}, **{k: gemm[k] for k in keys}),
+        dict({"name": "news_encoder_bwd_reduce", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
+              "launches": main_l["news_encoder_bwd_reduce"],
+              "note": "fixed-order sum of K2's partials; timed on the dWqkv slices",
+              "checked": True}, **{k: red[k] for k in keys}),
+        dict({"name": "philox_mask_dump", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/philox.cu",
+              "replaces": "scripts/check_rng_dropout.py:46",
+              "launches": record["rng_check"]["launches"]["philox_mask_dump"],
+              "note": "launches counted on the mask-check path (check_rng_dropout.py's flow)",
+              "checked": True}, **{k: dump[k] for k in keys}),
+    ]}
+    record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(record, **kernels), indent=1))
+    print(f"[done] total {record['total_s']:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,0 +1,189 @@
+"""NRMS training throughput on one CUDA card (counterpart of the repo's
+``bench.py``): impressions per second of the training step at the
+reference configuration (ebnerd_small: history 20, title 30, npratio 4,
+20 heads x 20, attention 200, a 250,002 x 1,024 word table), token table
+resident on the card, bf16 compute with fp32 parameters, the fused news
+encoder (forward and recompute backward on the port's CUDA kernels),
+dropout 0.2 from the kernel's Philox masks, unique-article dedup, dense
+Adam at lr 1e-4. Batches are dedup-prepped and staged on the card before
+the timed steps (what a prefetch thread provides in production).
+
+Prints ONE JSON line with the keys of ``bench.py`` except ``vs_baseline``
+and ``vs_gpu_estimate``: metric, value, unit, mfu_pct, step_ms, config,
+dedup_uniq_frac, prep_ms, sparse_rows. ``mfu_pct`` is ``bench.py``'s
+dedup-aware analytic FLOPs over the card's own dense bf16 peak, taken from
+its name.
+
+Knobs (environment): BENCH_BS (16384), BENCH_STEPS (30), BENCH_WARMUP (5),
+BENCH_DTYPE (float32 for fp32 compute), BENCH_FUSED (0 = unfused layers),
+BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
+uniform), BENCH_DEDUP (0 = per slot). BENCH_SPARSE and BENCH_MU_DTYPE
+raise (ROADMAP A12, A3); BENCH_FUSED_BLOCK is a TPU block size and does
+not apply.
+
+Run: python -m ebnerd_tpu_torch.bench
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+VOCAB = 250_002      # xlm-roberta-large vocab
+EMB = 1_024          # xlm-roberta-large word-embedding dim
+N_ARTICLES = 25_000  # ebnerd_small-scale article table
+TITLE = 30
+HISTORY = 20
+NPRATIO = 4
+
+# published dense bf16 tensor peaks (NVIDIA data sheets) by H100 part
+BF16_PEAK = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+
+
+def bf16_peak(name: str) -> tuple[str, float]:
+    """(part, dense bf16 FLOP/s) of the card named ``name``."""
+    for part in ("PCIe", "NVL"):
+        if part in name:
+            return part, BF16_PEAK[part]
+    return "SXM", BF16_PEAK["SXM"]
+
+
+def article_flops(d: int = 400, a: int = 200) -> float:
+    """Analytic news-encoder FLOPs for ONE article forward (bench.py)."""
+    t = TITLE
+    return 3 * t * EMB * d * 2 + 2 * t * t * d * 2 + t * d * a * 2 + t * a * 2
+
+
+def user_flops(d: int = 400, a: int = 200) -> float:
+    h = HISTORY
+    return 3 * h * d * d * 2 + 2 * h * h * d * 2 + h * d * a * 2
+
+
+def flops_per_impression(uniq_frac: float, dedup: bool, d: int = 400, a: int = 200) -> float:
+    """bench.py's train-step FLOPs per impression (forward x3): on the
+    dedup path each unique article encodes once (pad rows excluded)."""
+    k = NPRATIO + 1
+    slots = HISTORY + k
+    art = uniq_frac * slots if dedup else slots
+    return 3.0 * (art * article_flops(d, a) + user_flops(d, a) + k * d * 2)
+
+
+def zipf_indices(rng: np.random.Generator, n_rows: int, shape: tuple,
+                 a: float = 1.07) -> np.ndarray:
+    """Article row draws with Zipf(a) popularity over a shuffled
+    rank->article assignment (bench.py ``_zipf_indices``)."""
+    m = int(np.prod(shape))
+    ranks = rng.zipf(a, size=3 * m)
+    ranks = ranks[ranks <= n_rows][:m] - 1
+    while len(ranks) < m:
+        extra = rng.zipf(a, size=m)
+        ranks = np.concatenate([ranks, extra[extra <= n_rows] - 1])[:m]
+    perm = rng.permutation(n_rows).astype(np.int32)
+    return perm[ranks].reshape(shape).astype(np.int32)
+
+
+def batches(seed: int, steps: int, bs: int, n_rows: int, dist: str = "zipf") -> dict:
+    """Index batches [steps, bs, ...] (bench.py ``_batches``)."""
+    r = np.random.default_rng(seed)
+    k = NPRATIO + 1
+    labels = np.zeros((steps, bs, k), np.float32)
+    labels[..., 0] = 1.0
+    if dist == "uniform":
+        hist = r.integers(0, n_rows, (steps, bs, HISTORY)).astype(np.int32)
+        cand = r.integers(0, n_rows, (steps, bs, k)).astype(np.int32)
+    else:
+        hist = zipf_indices(r, n_rows, (steps, bs, HISTORY))
+        cand = zipf_indices(r, n_rows, (steps, bs, k))
+    return {"hist_idx": hist, "cand_idx": cand, "labels": labels}
+
+
+def token_table(rng: np.random.Generator, dist: str) -> np.ndarray:
+    """The [N+1, T] article token table, Zipf(1.07) token ids over the
+    vocabulary with a shuffled rank->id assignment (bench.py)."""
+    shape = (N_ARTICLES + 1, TITLE)
+    if dist == "uniform":
+        return rng.integers(0, VOCAB, size=shape).astype(np.int32)
+    m = shape[0] * shape[1]
+    ranks = rng.zipf(1.07, size=3 * m)
+    ranks = ranks[ranks <= VOCAB][:m] - 1
+    perm = rng.permutation(VOCAB).astype(np.int32)
+    return perm[ranks].reshape(shape).astype(np.int32)
+
+
+def main() -> int:
+    from .models import NRMS, HParamsNRMS, token_batch
+    from .training import Trainer, TrainerConfig, prep_dedup_batch
+
+    if os.environ.get("BENCH_SPARSE", "0") != "0":
+        raise NotImplementedError("row-sparse embeddings are not ported yet (ROADMAP A12)")
+    if os.environ.get("BENCH_MU_DTYPE"):
+        raise NotImplementedError("a bf16 Adam first moment is not ported yet (ROADMAP A3)")
+    if not torch.cuda.is_available():
+        print("bench: needs a CUDA card", file=sys.stderr)
+        return 2
+    bs = int(os.environ.get("BENCH_BS", "16384"))
+    steps = int(os.environ.get("BENCH_STEPS", "30"))
+    warmup = int(os.environ.get("BENCH_WARMUP", "5"))
+    dtype = torch.float32 if os.environ.get("BENCH_DTYPE") == "float32" else torch.bfloat16
+    fused = os.environ.get("BENCH_FUSED", "1") != "0"
+    dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))
+    token_dist = os.environ.get("BENCH_TOKEN_DIST", "zipf")
+    art_dist = os.environ.get("BENCH_ARTICLE_DIST", "zipf")
+    dedup = os.environ.get("BENCH_DEDUP", "1") != "0"
+
+    hp = HParamsNRMS(dropout=dropout)
+    model = NRMS(hp, vocab_size=VOCAB, word_emb_dim=EMB, dtype=dtype, use_fused_encoder=fused,
+                 device="cuda", seed=0)
+    table = token_table(np.random.default_rng(0), token_dist)
+    trainer = Trainer(model, {"title": table}, token_batch,
+                      TrainerConfig(learning_rate=1e-4, seed=0, dedup_articles=dedup),
+                      device="cuda")
+    all_b = batches(2, warmup + steps, bs, N_ARTICLES + 1, art_dist)
+    raws = [{k: v[i] for k, v in all_b.items()} for i in range(warmup + steps)]
+    t_prep = time.perf_counter()
+    uniq_frac = 1.0
+    if dedup:
+        slots = bs * (HISTORY + NPRATIO + 1)
+        raws = [prep_dedup_batch(r, min_bucket=512) for r in raws]
+        uniq_frac = float(np.mean([r["n_uniq"] for r in raws]) / slots)
+    prep_ms = (time.perf_counter() - t_prep) / (warmup + steps) * 1000
+    staged = [trainer.prepare(r) for r in raws]
+    torch.cuda.synchronize()
+
+    loss = None
+    for i in range(warmup):
+        loss = trainer.step(staged[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        loss = trainer.step(staged[i])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not torch.isfinite(loss):
+        raise RuntimeError(f"non-finite loss {loss.item()}")
+    ips = bs * steps / dt
+    part, peak = bf16_peak(torch.cuda.get_device_name(0))
+    d, a = hp.head_num * hp.head_dim, hp.attention_hidden_dim
+    mfu = ips * flops_per_impression(uniq_frac, dedup, d, a) / peak * 100.0
+    print(json.dumps({
+        "metric": "nrms_train_impressions_per_sec_per_chip",
+        "value": round(ips, 1),
+        "unit": "impressions/s",
+        "mfu_pct": round(mfu, 2),
+        "step_ms": round(dt / steps * 1000, 2),
+        "config": (f"bs{bs} {str(dtype).replace('torch.', '')} fused={int(fused)} sparse=0 "
+                   f"dedup={int(dedup)} tok={token_dist} art={art_dist} steps{steps} "
+                   f"card={torch.cuda.get_device_name(0)} peak={part}"),
+        "dedup_uniq_frac": round(uniq_frac, 4),
+        "prep_ms": round(prep_ms, 2),
+        "sparse_rows": 0,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,11 @@
-"""Eval feed over ragged impressions (copy of the eval half of
-``ebnerd_tpu/data/dataloader.py``).
+"""Training and eval feeds (copy of ``ebnerd_tpu/data/dataloader.py``).
 
 Batches carry int32 row indices ([B, H] and [B, K]) into the article
-value table; the gather ``table[idx]`` happens on the device. Impressions
-keep all their candidates in one row, padded to the width of their
-bucket, with a candidate mask; ``unpad`` returns one flat score stream
-aligned with the inview column.
+value table; the gather ``table[idx]`` happens on the device.
+``NewsrecFeed`` yields fixed-shape training batches in a seeded shuffle
+order. ``EvalFeed`` keeps all of an impression's candidates in one row,
+padded to the width of its bucket, with a candidate mask; ``unpad``
+returns one flat score stream aligned with the inview column.
 """
 from __future__ import annotations
 
@@ -17,13 +17,14 @@ import numpy as np
 from ..constants import (
     DEFAULT_HISTORY_ARTICLE_ID_COL,
     DEFAULT_INVIEW_ARTICLES_COL,
+    DEFAULT_LABELS_COL,
     DEFAULT_USER_COL,
 )
 from .lookup import Lookup
 from .ragged import Ragged
 from .table import Table
 
-__all__ = ["EvalFeed", "pad_to_multiple"]
+__all__ = ["NewsrecFeed", "EvalFeed", "pad_to_multiple"]
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -54,6 +55,88 @@ def _dense_indices(
     mapped = lookup.map_ragged(col)
     dense, mask = mapped.to_padded(width, pad_value=0, align=align)
     return dense.astype(np.int32), mask
+
+
+@dataclass
+class NewsrecFeed:
+    """Training feed: fixed-shape batches of row indices + labels.
+
+    Expects behaviors that went through the wu2019 negative sampler and
+    ``create_binary_labels_column``, so every row has exactly
+    ``npratio + 1`` candidates. Each ``epoch()`` reshuffles with
+    ``numpy.random.default_rng(seed + epoch)``, as the JAX feed does.
+
+    Output batch:
+      hist_idx  int32 [B, H]   rows into the article value table
+      cand_idx  int32 [B, K]
+      labels    float32 [B, K]
+      user_idx  int32 [B]      (when ``user_mapping`` is given)
+    """
+
+    behaviors: Table
+    lookup: Lookup
+    history_size: int
+    batch_size: int
+    user_mapping: Optional[dict[int, int]] = None
+    history_col: str = DEFAULT_HISTORY_ARTICLE_ID_COL
+    inview_col: str = DEFAULT_INVIEW_ARTICLES_COL
+    label_col: str = DEFAULT_LABELS_COL
+    user_col: str = DEFAULT_USER_COL
+    seed: int = 0
+    drop_remainder: bool = True
+
+    def __post_init__(self):
+        df = self.behaviors
+        inview: Ragged = df[self.inview_col]
+        k = np.unique(inview.lengths)
+        if len(k) != 1:
+            raise ValueError(
+                f"training feed needs a fixed candidate count; got lengths {k}. "
+                "Run sampling_strategy_wu2019 first.")
+        self.n_candidates = int(k[0])
+        self.hist_idx, self.hist_mask = _dense_indices(
+            df[self.history_col], self.lookup, self.history_size, align="right")
+        self.cand_idx, _ = _dense_indices(inview, self.lookup, self.n_candidates, align="left")
+        labels: Ragged = df[self.label_col]
+        self.labels = labels.values.reshape(len(df), self.n_candidates).astype(np.float32)
+        if self.user_mapping is not None:
+            self.user_idx = _map_users(df[self.user_col], self.user_mapping)
+        else:
+            self.user_idx = None
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = self.hist_idx.shape[0]
+        return n // self.batch_size if self.drop_remainder else -(-n // self.batch_size)
+
+    @property
+    def n_rows(self) -> int:
+        return self.hist_idx.shape[0]
+
+    def epoch(self, shuffle: bool = True,
+              epoch: Optional[int] = None) -> Iterator[dict[str, np.ndarray]]:
+        """One epoch of batches; each call reshuffles deterministically.
+        ``epoch`` pins the order to that epoch index without advancing the
+        internal counter."""
+        n = self.n_rows
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        order = np.arange(n)
+        if shuffle:
+            order = np.random.default_rng(self.seed + epoch).permutation(n)
+        bs = self.batch_size
+        stop = (n // bs) * bs if self.drop_remainder else n
+        for start in range(0, stop, bs):
+            idx = order[start : start + bs]
+            batch = {
+                "hist_idx": self.hist_idx[idx],
+                "cand_idx": self.cand_idx[idx],
+                "labels": self.labels[idx],
+            }
+            if self.user_idx is not None:
+                batch["user_idx"] = self.user_idx[idx]
+            yield batch
 
 
 def _choose_bucket_widths(lengths: np.ndarray, n_buckets: int,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library goes into ``build/`` at the repo root (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is
-rebuilt at its next use. Nothing is compiled at import time.
+named by a hash of the source, the headers of ``csrc/`` and the flags, so
+an edited source or header is rebuilt at its next use. Nothing is
+compiled at import time.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "build_variants", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("news_encoder",)
+SOURCES = ("news_encoder", "news_encoder_bwd", "philox")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,6 +41,7 @@ def _nvcc() -> str:
 
 def _target(name: str, flags: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + list(flags)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,16 +1,26 @@
-"""Fused NRMS news encoder: the Hopper kernel's wrapper and its plain version.
+"""Fused NRMS news encoder: the Hopper kernels' wrappers and their plain versions.
 
 ``fused_news_encoder`` is the port of the Pallas TPU kernel
-``ebnerd_tpu/ops/news_encoder.py:fused_news_encoder`` (its forward, eval
-mode). Per article it computes the packed QKV projection, multi-head
-self-attention (no biases, no output projection, scale 1/sqrt(head_dim),
-softmax per head) and additive pooling ``softmax_t(tanh(oW+b)·q)``
-(max-subtracted, +1e-8) followed by the weighted sum over t.
+``ebnerd_tpu/ops/news_encoder.py:fused_news_encoder`` (its forward, with
+the dropout branches). Per article it computes the packed QKV projection,
+multi-head self-attention (no biases, no output projection, scale
+1/sqrt(head_dim), softmax per head) and additive pooling
+``softmax_t(tanh(oW+b)·q)`` (max-subtracted, +1e-8) followed by the
+weighted sum over t. Dropout comes either from ``rng_seed`` (a 64-bit
+seed: the Philox masks of ``ops/philox.py``, stream 0 on x with
+``emb_keep_prob``, stream 1 on the attention output with ``keep_prob``) or
+from an external 0/1 ``drop_mask`` [N, T, D] with ``keep_prob``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/news_encoder.cu`` (see the note there on what bounds it); on a CPU
-tensor it calls ``news_encoder_reference``, the plain PyTorch version,
-which the CPU tests and ``chip_smoke.py`` hold the kernel against.
+``fused_news_encoder_bwd`` is the port of the recompute backward
+``_news_encoder_bwd`` (``csrc/news_encoder_bwd.cu``: a per-block kernel,
+a tiled GEMM for dx and the weight gradients, and a fixed-order
+reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
+``torch.autograd.Function`` whose forward launches K1 and whose backward
+launches K2; on the CPU autograd of the plain version.
+
+On a CUDA tensor each wrapper launches its kernel (see the notes in
+``csrc/``) or raises; on a CPU tensor it calls the plain version, which the
+CPU tests and ``chip_smoke.py`` hold the kernels against.
 
 Layouts follow the JAX package: x [N, T, Din]; wq/wk/wv [Din, D];
 w_att [D, A]; b_att [A]; q_att [A, 1]; output [N, D] fp32.
@@ -23,15 +33,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, philox
 
-__all__ = ["PackedWeights", "fused_news_encoder", "news_encoder_reference", "pack_weights"]
+__all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "news_encoder",
+           "news_encoder_reference", "news_encoder_bwd_reference", "pack_weights", "pack_qkv",
+           "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "reduce_rows", "NewsEncoderFunction"]
 
 _PANEL = 256         # packed QKV columns per head group (one GEMM panel of the kernel)
 _MAX_T = 32          # one warp lane per token in the kernel's pooling softmax
 _MAX_HEAD_DIM = 32
 _MAX_ATT_DIM = 256   # padded attention width: one pooling column per thread
 _SMEM_LIMIT = 232448
+_GEMM_TILE = 128     # rows and columns of one GEMM tile (csrc/news_encoder_bwd.cu)
 
 
 def _round(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -40,21 +53,77 @@ def _round(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return t.to(cdt).to(torch.float32)
 
 
+def _inv(keep: float) -> float:
+    """1 / keep computed in fp32, as the masks' scale."""
+    return float(torch.tensor(1.0, dtype=torch.float32) / torch.tensor(keep, dtype=torch.float32))
+
+
+class Dropout(NamedTuple):
+    """One launch's dropout, as the kernels take it: Philox key and 24-bit
+    thresholds (0 = stream off) with their 1/keep, or an external fp32
+    0/1 mask [N*T, D] with 1/keep."""
+    seed_lo: int = 0
+    seed_hi: int = 0
+    thr_emb: int = 0
+    thr_att: int = 0
+    inv_emb: float = 1.0
+    inv_att: float = 1.0
+    ext_mask: Optional[torch.Tensor] = None
+    inv_ext: float = 1.0
+
+
+def dropout_config(n: int, t: int, d: int, keep_prob: float = 1.0, emb_keep_prob: float = 1.0,
+                   rng_seed=None, drop_mask=None, device=None) -> Dropout:
+    """Check the dropout arguments as ``fused_news_encoder`` takes them and
+    turn them into the kernels' parameters. ``rng_seed`` with
+    ``keep_prob`` / ``emb_keep_prob`` < 1: Philox streams 1 / 0; else
+    ``drop_mask`` with ``keep_prob`` < 1; a mask at keep 1 is ignored, as
+    in the JAX package."""
+    for name, k in (("keep_prob", keep_prob), ("emb_keep_prob", emb_keep_prob)):
+        if not 0.0 < k <= 1.0:
+            raise ValueError(f"{name} must be in (0, 1], got {k}")
+    if rng_seed is not None and (keep_prob < 1.0 or emb_keep_prob < 1.0):
+        lo, hi = philox.split_seed(rng_seed)
+        return Dropout(lo, hi,
+                       philox.threshold(emb_keep_prob) if emb_keep_prob < 1.0 else 0,
+                       philox.threshold(keep_prob) if keep_prob < 1.0 else 0,
+                       _inv(emb_keep_prob), _inv(keep_prob))
+    if emb_keep_prob < 1.0:
+        raise ValueError("emb_keep_prob < 1 needs rng_seed (the embedding mask is in-kernel only)")
+    if keep_prob < 1.0:
+        if drop_mask is None:
+            raise ValueError("keep_prob < 1 needs drop_mask or rng_seed")
+        if tuple(drop_mask.shape) != (n, t, d):
+            raise ValueError(f"drop_mask must be [{n}, {t}, {d}], got {tuple(drop_mask.shape)}")
+        ext = drop_mask.detach().to(device=device, dtype=torch.float32).reshape(n * t, d)
+        return Dropout(ext_mask=ext.contiguous(), inv_ext=_inv(keep_prob))
+    return Dropout()
+
+
 def news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
                            compute_dtype: torch.dtype = torch.float32,
-                           n_valid: Optional[int] = None) -> torch.Tensor:
+                           n_valid: Optional[int] = None, keep_prob: float = 1.0,
+                           emb_keep_prob: float = 1.0, rng_seed=None,
+                           drop_mask=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (mirrors
-    ``ebnerd_tpu/ops/news_encoder.py:news_encoder_reference``), rounding to
-    ``compute_dtype`` where the kernel does: x and the weights before the
-    QKV product, Q/K/V after it, the attention probabilities before the
-    product with V, and o, W_att, tanh(.) and q_att before the pooling
-    products. Sums are fp32. Articles at or past ``n_valid`` are zeros."""
+    ``ebnerd_tpu/ops/news_encoder.py:news_encoder_reference`` and the TPU
+    kernel's dropout), rounding to ``compute_dtype`` where the kernel does:
+    x (after its embedding mask) and the weights before the QKV product,
+    Q/K/V after it, the attention probabilities before the product with V,
+    and o (after its dropout), W_att, tanh(.) and q_att before the pooling
+    products. Sums are fp32. Articles at or past ``n_valid`` are zeros.
+    Differentiable: autograd of it is the backward's plain version."""
     n, t, din = x.shape
     d = wq.shape[1]
     hd = d // num_heads
     nv = n if n_valid is None else max(0, min(int(n_valid), n))
     cdt = compute_dtype
-    xf = _round(x[:nv], cdt)
+    drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
+    xf = x[:nv].to(torch.float32)
+    if drop.thr_emb:
+        xf = xf * philox.mask(rng_seed, philox.STREAM_EMB, nv * t, din, emb_keep_prob,
+                              device=x.device).reshape(nv, t, din)
+    xf = _round(xf, cdt)
 
     def proj(w):
         return _round(xf @ _round(w, cdt), cdt).reshape(nv, t, num_heads, hd)
@@ -64,24 +133,36 @@ def news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int
     logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * scale
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("nhqk,nkhd->nqhd", _round(probs, cdt), vh).reshape(nv, t, d)
+    if drop.thr_att:
+        o = o * philox.mask(rng_seed, philox.STREAM_ATT, nv * t, d, keep_prob,
+                            device=x.device).reshape(nv, t, d)
+    elif drop.ext_mask is not None:
+        o = o * (drop.ext_mask.reshape(n, t, d)[:nv] * drop.inv_ext)
     att = torch.tanh(_round(o, cdt) @ _round(w_att, cdt) + b_att.float())
-    att = (_round(att, cdt) @ _round(q_att, cdt))[..., 0]
+    att = (_round(att, cdt) @ _round(q_att.reshape(-1, 1), cdt))[..., 0]
     att = att - att.max(dim=-1, keepdim=True).values
     expo = torch.exp(att)
     weight = expo / (expo.sum(dim=-1, keepdim=True) + 1e-8)
     pooled = torch.einsum("ntd,nt->nd", o, weight)
     if nv == n:
         return pooled
-    out = torch.zeros(n, d, dtype=torch.float32, device=x.device)
-    out[:nv] = pooled
-    return out
+    return torch.cat([pooled, pooled.new_zeros(n - nv, d)])
+
+
+def news_encoder_bwd_reference(x, wq, wk, wv, w_att, b_att, q_att, g, **kw) -> tuple:
+    """Plain version of the backward: autograd of ``news_encoder_reference``
+    under the cotangent g [N, D]; returns (dx, dwq, dwk, dwv, dw, db, dq)."""
+    with torch.enable_grad():
+        ins = [v.detach().requires_grad_(True) for v in (x, wq, wk, wv, w_att, b_att, q_att)]
+        out = news_encoder_reference(*ins, **kw)
+        return torch.autograd.grad(out, ins, g)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points' signatures on a loaded kernel library."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.news_encoder_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
+    """Declare the forward's C entry points on a loaded kernel library."""
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.news_encoder_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i,
+                                     u, u, u, u, f, f, p, f, p]
     lib.news_encoder_fwd.restype = i
     lib.news_encoder_smem_bytes.argtypes = [i, i, i]
     lib.news_encoder_smem_bytes.restype = ctypes.c_longlong
@@ -90,13 +171,33 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the backward's C entry points on a loaded kernel library."""
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.news_encoder_bwd_core.argtypes = [p] * 11 + [i] * 9 + [f, i, u, u, u, u, f, f, p, f, p]
+    lib.news_encoder_bwd_core.restype = i
+    lib.news_encoder_gemm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, u, u, u, f, p]
+    lib.news_encoder_gemm.restype = i
+    lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, p, p]
+    lib.news_encoder_reduce.restype = i
+    lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.news_encoder_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.news_encoder_bwd_error_string.argtypes = [i]
+    lib.news_encoder_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     return bind(_build.load("news_encoder"))
 
 
+def _library_bwd() -> ctypes.CDLL:
+    return bind_bwd(_build.load("news_encoder_bwd"))
+
+
 class PackedWeights(NamedTuple):
-    """The kernel's weight operands, made once per set of weights by
-    ``pack_weights`` and reused by every launch."""
+    """The kernels' weight operands, made once per set of weights by
+    ``pack_weights`` and reused by every launch, forward and backward."""
     wqkv: torch.Tensor   # [Din, n_groups * 256] compute dtype, head-group panels
     heads_per_group: int
     w_att: torch.Tensor  # [D, a_pad] compute dtype, zero columns past A
@@ -122,6 +223,16 @@ def pack_qkv(wq, wk, wv, num_heads: int, cdt: torch.dtype) -> tuple[torch.Tensor
         heads[:, :d] = w
         out[:, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(din, n_groups, gh * hd)
     return out.reshape(din, n_groups * _PANEL), gh
+
+
+def unpack_qkv(wqkv: torch.Tensor, num_heads: int, d: int) -> tuple:
+    """Inverse of ``pack_qkv``: [Din, n_groups * 256] -> three [Din, D]."""
+    din = wqkv.shape[0]
+    hd = d // num_heads
+    gh = _PANEL // (3 * hd)
+    panels = wqkv.reshape(din, -1, _PANEL)
+    return tuple(panels[:, :, i * gh * hd:(i + 1) * gh * hd].reshape(din, -1)[:, :d]
+                 for i in range(3))
 
 
 def pack_weights(wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
@@ -154,47 +265,49 @@ def pack_weights(wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
                          q_att.reshape(-1).to(torch.float32).contiguous(), num_heads)
 
 
+def _check_compute(compute_dtype):
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+
+
+def _packed_for(x, weights, packed, num_heads, compute_dtype) -> PackedWeights:
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if packed is None:
+        return pack_weights(*weights, num_heads=num_heads, compute_dtype=compute_dtype)
+    if packed.num_heads != num_heads or packed.wqkv.dtype != compute_dtype:
+        raise ValueError("packed weights were made for other heads or another compute dtype")
+    return packed
+
+
 def fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
                        compute_dtype: torch.dtype = torch.float32,
                        n_valid: Optional[int] = None, keep_prob: float = 1.0,
-                       drop_mask=None, rng_seed=None,
+                       emb_keep_prob: float = 1.0, drop_mask=None, rng_seed=None,
                        packed: Optional[PackedWeights] = None) -> torch.Tensor:
     """Pooled article vectors [N, D] fp32. CPU tensors take the plain
     version; CUDA tensors launch the kernel (or raise), with ``packed``
     (``pack_weights`` of these weights, kept by the caller across calls) or
-    else weights packed for this call. Dropout is not ported yet:
-    ``keep_prob < 1``, ``drop_mask`` and ``rng_seed`` raise."""
-    if keep_prob < 1.0 or drop_mask is not None or rng_seed is not None:
-        raise NotImplementedError(
-            "in-kernel dropout is not ported yet (ROADMAP: training slice)")
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    else weights packed for this call."""
+    _check_compute(compute_dtype)
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, n_valid=n_valid,
+              keep_prob=keep_prob, emb_keep_prob=emb_keep_prob, rng_seed=rng_seed,
+              drop_mask=drop_mask)
     if x.device.type == "cpu":
-        return news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att,
-                                      num_heads=num_heads, compute_dtype=compute_dtype,
-                                      n_valid=n_valid)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if packed is None:
-        packed = pack_weights(wq, wk, wv, w_att, b_att, q_att, num_heads=num_heads,
-                              compute_dtype=compute_dtype)
-    elif packed.num_heads != num_heads or packed.wqkv.dtype != compute_dtype:
-        raise ValueError("packed weights were made for other heads or another compute dtype")
-    out = launch(_library(), x, packed, n_valid)
+        return news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, **kw)
+    packed = _packed_for(x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype)
+    n, t, _ = x.shape
+    drop = dropout_config(n, t, wq.shape[1], keep_prob, emb_keep_prob, rng_seed, drop_mask,
+                          x.device)
+    out = launch(_library(), x, packed, n_valid, drop)
     fused_news_encoder.launches += 1
     return out
 
 
-def launch(lib: ctypes.CDLL, x, packed: PackedWeights,
-           n_valid: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel library ``lib`` on x [N, T, Din] (in the packed
-    weights' compute dtype) on the current stream; raises if the launch is
-    refused. ``fused_news_encoder`` passes the library built from
-    ``csrc/news_encoder.cu``; the profiling tool passes variants of it."""
+def _check_x(x, packed: PackedWeights, drop: Dropout):
     n, t, din = x.shape
     cdt = packed.wqkv.dtype
-    d, a_pad = packed.w_att.shape
-    a = packed.b_att.shape[0]
+    d = packed.w_att.shape[0]
     if x.dtype != cdt:
         raise ValueError(f"x is {x.dtype}; the kernel takes x in the compute dtype {cdt}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -205,23 +318,256 @@ def launch(lib: ctypes.CDLL, x, packed: PackedWeights,
     vec = 16 // x.element_size()
     if t > _MAX_T or din % vec:
         raise ValueError(f"kernel takes T <= {_MAX_T}, Din % {vec} == 0; got T={t}, Din={din}")
-    is_bf16 = int(cdt == torch.bfloat16)
+    if (drop.thr_emb or drop.thr_att) and (din % 4 or d % 4):
+        raise ValueError(f"in-kernel dropout takes Din % 4 == D % 4 == 0; got {din}, {d}")
+
+
+def _check_launch(lib, err: int, what: str, error_string) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: " + error_string(err).decode())
+
+
+def launch(lib: ctypes.CDLL, x, packed: PackedWeights, n_valid: Optional[int] = None,
+           drop: Dropout = Dropout()) -> torch.Tensor:
+    """Launch the forward kernel library ``lib`` on x [N, T, Din] (in the
+    packed weights' compute dtype) on the current stream; raises if the
+    launch is refused. ``fused_news_encoder`` passes the library built from
+    ``csrc/news_encoder.cu``; the profiling tool passes variants of it."""
+    _check_x(x, packed, drop)
+    n, t, din = x.shape
+    d, a_pad = packed.w_att.shape
+    a = packed.b_att.shape[0]
+    is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
     smem = lib.news_encoder_smem_bytes(d, a_pad, is_bf16)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory per block (> {_SMEM_LIMIT})")
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
     nv = n if n_valid is None else max(0, min(int(n_valid), n))
     scale = 1.0 / math.sqrt(d // packed.num_heads)
+    ext = drop.ext_mask
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.news_encoder_fwd(
             x.data_ptr(), packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), out.data_ptr(), n, t, din, d,
-            packed.num_heads, packed.heads_per_group, a, a_pad, nv, scale, is_bf16, stream)
-    if err != 0:
-        raise RuntimeError("news_encoder_fwd launch failed: "
-                           + lib.news_encoder_error_string(err).decode())
+            packed.num_heads, packed.heads_per_group, a, a_pad, nv, scale, is_bf16,
+            drop.seed_lo, drop.seed_hi, drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att,
+            None if ext is None else ext.data_ptr(), drop.inv_ext, stream)
+    _check_launch(lib, err, "news_encoder_fwd", lib.news_encoder_error_string)
     return out
 
 
 fused_news_encoder.launches = 0
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
+             drop: Dropout = Dropout(), splits: int = 1) -> torch.Tensor:
+    """The backward's tiled GEMM (``csrc/news_encoder_bwd.cu``) on CUDA
+    tensors in the compute dtype, masked by Philox stream 0 when
+    ``drop.thr_emb``:
+
+    - ``dx=True``: a = dqkv [M, K], b = wqkv [N, K] -> (a b^T) * mask
+      [M, N] in a's dtype, rows at or past ``rows`` zero;
+    - ``dx=False``: a [R, M], b [R, N] -> fp32 partials [splits, M, N] of
+      round(a * mask)^T b over rows [0, rows), cut into ``splits`` slices
+      (``reduce_rows`` sums them)."""
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("a and b must share the compute dtype (float32 or bfloat16)")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    if dx:
+        (m, k), n = a.shape, b.shape[0]
+        if b.shape[1] != k:
+            raise ValueError(f"a is [{m}, {k}], b is {tuple(b.shape)}")
+        out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+        kk, lda, ldb = k, k, k
+    else:
+        m, n = a.shape[1], b.shape[1]
+        if not 0 <= rows <= min(a.shape[0], b.shape[0]):
+            raise ValueError(f"rows={rows} outside [0, {min(a.shape[0], b.shape[0])}]")
+        out = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
+        kk, lda, ldb = rows, m, n
+    lib = _library_bwd()
+    with torch.cuda.device(a.device):
+        err = lib.news_encoder_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, kk, lda,
+                                    ldb, int(dx), splits, rows, int(a.dtype == torch.bfloat16),
+                                    drop.seed_lo, drop.seed_hi, drop.thr_emb, drop.inv_emb,
+                                    _stream(a.device))
+    _check_launch(lib, err, "news_encoder_gemm", lib.news_encoder_bwd_error_string)
+    bwd_gemm.launches += 1
+    return out
+
+
+bwd_gemm.launches = 0
+
+
+def bwd_gemm_reference(a, b, *, dx: bool, rows: int, drop: Dropout = Dropout(),
+                       seed=None, emb_keep: float = 1.0) -> torch.Tensor:
+    """Plain version of ``bwd_gemm`` (the dx product, or the sum of the
+    weight-gradient partials) in fp32 from the rounded operands; ``seed``
+    and ``emb_keep`` regenerate the stream-0 mask."""
+    af, bf = a.float(), b.float()
+    if dx:
+        out = af @ bf.T
+        if drop.thr_emb:
+            out = out * philox.mask(seed, philox.STREAM_EMB, out.shape[0], out.shape[1],
+                                    emb_keep, device=a.device)
+        out[rows:] = 0
+        return out.to(a.dtype)
+    af = af[:rows]
+    if drop.thr_emb:
+        af = _round(af * philox.mask(seed, philox.STREAM_EMB, rows, af.shape[1], emb_keep,
+                                     device=a.device), a.dtype)
+    return af.T @ bf[:rows]
+
+
+def reduce_rows(part: torch.Tensor) -> torch.Tensor:
+    """Sum of ``part`` [R, C] fp32 (CUDA) over its rows in a fixed order
+    (the same bits on every run) -> [C]."""
+    if part.device.type != "cuda":
+        raise ValueError(f"no kernel for device {part.device}")
+    part = part.reshape(part.shape[0], -1)
+    if part.dtype != torch.float32 or not part.is_contiguous():
+        raise ValueError("part must be contiguous fp32")
+    out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
+    lib = _library_bwd()
+    with torch.cuda.device(part.device):
+        err = lib.news_encoder_reduce(part.data_ptr(), part.shape[0], part.shape[1],
+                                      out.data_ptr(), _stream(part.device))
+    _check_launch(lib, err, "news_encoder_reduce", lib.news_encoder_bwd_error_string)
+    reduce_rows.launches += 1
+    return out
+
+
+reduce_rows.launches = 0
+
+
+def _splits(m: int, n: int, rows: int) -> int:
+    """Row slices of a weight-gradient GEMM: about 8 blocks per SM of an
+    H100 SXM (132 SMs), each slice at least 1,024 rows. Fixed by the shapes
+    alone, so a gradient's summation order (and its bits) is the same on
+    every run and every card."""
+    tiles = -(-m // _GEMM_TILE) * -(-n // _GEMM_TILE)
+    return max(1, min(-(-8 * 132 // tiles), -(-rows // 1024)))
+
+
+def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: int,
+                           compute_dtype: torch.dtype = torch.float32,
+                           n_valid: Optional[int] = None, keep_prob: float = 1.0,
+                           emb_keep_prob: float = 1.0, drop_mask=None, rng_seed=None,
+                           packed: Optional[PackedWeights] = None) -> tuple:
+    """Gradients (dx, dwq, dwk, dwv, dw, db, dq) of ``fused_news_encoder``
+    under the cotangent g [N, D], with the forward's arguments. CPU tensors
+    take the plain version (autograd of ``news_encoder_reference``); CUDA
+    tensors launch the recompute backward (or raise). g must be contiguous
+    fp32; rows of g at or past ``n_valid`` are ignored, as the forward's
+    output there does not depend on the inputs."""
+    _check_compute(compute_dtype)
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, n_valid=n_valid,
+              keep_prob=keep_prob, emb_keep_prob=emb_keep_prob, rng_seed=rng_seed,
+              drop_mask=drop_mask)
+    if x.device.type == "cpu":
+        return news_encoder_bwd_reference(x, wq, wk, wv, w_att, b_att, q_att, g, **kw)
+    packed = _packed_for(x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype)
+    n, t, din = x.shape
+    d = wq.shape[1]
+    drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
+    _check_x(x, packed, drop)
+    if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
+        raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
+    if din % 4 or d % 8:
+        raise ValueError(f"the backward takes Din % 4 == 0 and D % 8 == 0; got {din}, {d}")
+    lib = _library_bwd()
+    cdt = packed.wqkv.dtype
+    is_bf16 = int(cdt == torch.bfloat16)
+    a_pad = packed.w_att.shape[1]
+    a = packed.b_att.shape[0]
+    smem = lib.news_encoder_bwd_smem_bytes(d, a_pad, is_bf16)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"shape needs {smem} B of shared memory per block (> {_SMEM_LIMIT})")
+    nv = n if n_valid is None else max(0, min(int(n_valid), n))
+    nb = 64 // t
+    n_blocks, nv_blocks = -(-n // nb), -(-nv // nb)
+    p_cols = packed.wqkv.shape[1]
+    dev = x.device
+    qkv = torch.empty(n * t, p_cols, dtype=cdt, device=dev)
+    o_c = torch.empty(n * t, d, dtype=cdt, device=dev)
+    dz_c = torch.empty(n * t, a_pad, dtype=cdt, device=dev)
+    db_part = torch.empty(n_blocks, a_pad, dtype=torch.float32, device=dev)
+    dq_part = torch.empty_like(db_part)
+    ext = drop.ext_mask
+    with torch.cuda.device(dev):
+        err = lib.news_encoder_bwd_core(
+            x.data_ptr(), packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
+            packed.b_att.data_ptr(), packed.q_att.data_ptr(), g.data_ptr(), qkv.data_ptr(),
+            o_c.data_ptr(), dz_c.data_ptr(), db_part.data_ptr(), dq_part.data_ptr(),
+            n, t, din, d, num_heads, packed.heads_per_group, a, a_pad, nv,
+            1.0 / math.sqrt(d // num_heads), is_bf16, drop.seed_lo, drop.seed_hi, drop.thr_emb,
+            drop.thr_att, drop.inv_emb, drop.inv_att, None if ext is None else ext.data_ptr(),
+            drop.inv_ext, _stream(dev))
+    _check_launch(lib, err, "news_encoder_bwd_core", lib.news_encoder_bwd_error_string)
+    fused_news_encoder_bwd.launches += 1
+    rows = nv * t
+    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop).reshape(n, t, din)
+    x2 = x.reshape(n * t, din)
+    dwqkv = reduce_rows(bwd_gemm(x2, qkv, dx=False, rows=rows, drop=drop,
+                                 splits=_splits(din, p_cols, rows))).reshape(din, p_cols)
+    dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows,
+                              splits=_splits(d, a_pad, rows))).reshape(d, a_pad)
+    db = reduce_rows(db_part[:nv_blocks])
+    dq = reduce_rows(dq_part[:nv_blocks])
+    dwq, dwk, dwv = unpack_qkv(dwqkv, num_heads, d)
+    return dx, dwq, dwk, dwv, dw[:, :a], db[:a], dq[:a].reshape(a, 1)
+
+
+fused_news_encoder_bwd.launches = 0
+
+
+class NewsEncoderFunction(torch.autograd.Function):
+    """The fused encoder on CUDA with its recompute backward: the forward
+    launches K1, the backward K2 (``fused_news_encoder_bwd``) with the same
+    packed weights and dropout, so the masks are regenerated bit for bit.
+    The seed, ``n_valid`` and the mask get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, w_att, b_att, q_att, packed, num_heads, compute_dtype,
+                n_valid, keep_prob, emb_keep_prob, rng_seed, drop_mask):
+        kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, n_valid=n_valid,
+                  keep_prob=keep_prob, emb_keep_prob=emb_keep_prob, rng_seed=rng_seed,
+                  drop_mask=drop_mask)
+        packed = _packed_for(x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads,
+                             compute_dtype)
+        out = fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, packed=packed, **kw)
+        ctx.save_for_backward(x, wq, wk, wv, w_att, b_att, q_att)
+        ctx.packed, ctx.kw = packed, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_news_encoder_bwd(*ctx.saved_tensors, g.contiguous().float(),
+                                       packed=ctx.packed, **ctx.kw)
+        return (*grads,) + (None,) * 8
+
+
+def news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
+                 compute_dtype: torch.dtype = torch.float32, n_valid: Optional[int] = None,
+                 keep_prob: float = 1.0, emb_keep_prob: float = 1.0, drop_mask=None,
+                 rng_seed=None, packed: Optional[PackedWeights] = None) -> torch.Tensor:
+    """Differentiable fused news encoder (counterpart of the JAX custom VJP
+    ``news_encoder``): on CUDA the kernels (forward K1, recompute backward
+    K2); on the CPU the plain version, differentiated by autograd."""
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, n_valid=n_valid,
+              keep_prob=keep_prob, emb_keep_prob=emb_keep_prob, rng_seed=rng_seed,
+              drop_mask=drop_mask)
+    if x.device.type == "cpu":
+        _check_compute(compute_dtype)
+        return news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, **kw)
+    return NewsEncoderFunction.apply(x, wq, wk, wv, w_att, b_att, q_att, packed, num_heads,
+                                     compute_dtype, n_valid, keep_prob, emb_keep_prob,
+                                     rng_seed, drop_mask)

@@ -1,0 +1,135 @@
+"""Where the NRMS training step's time goes, on the card.
+
+Builds the step of ``python -m ebnerd_tpu_torch.bench`` (same data, model,
+knobs and defaults), runs warm-up steps, then traces a window of warm steps
+with ``torch.profiler`` (CPU and CUDA activities) and sums device time by
+kernel name into the step's parts: K1 (``news_encoder_fwd_kernel``), K2's
+per-block kernel, GEMM and reduction, Adam, the embedding's gather and
+scatter, and the rest. It also reports the window's wall time on the
+synchronised host clock and the device's busy and idle share (union of
+kernel intervals over the window).
+
+Run: python -m ebnerd_tpu_torch.tools.step_profile [--steps 5] [--out FILE]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import bench
+
+# kernel-name substrings -> part of the step (first match wins)
+PARTS = (
+    ("K1 news_encoder_fwd", ("news_encoder_fwd_kernel",)),
+    ("K2 per-block kernel", ("news_encoder_bwd_kernel",)),
+    ("K2 GEMM", ("gemm_kernel",)),
+    ("K2 reduction", ("reduce_rows_kernel",)),
+    ("Adam", ("adam", "Adam", "multi_tensor_apply", "foreach")),
+    ("embedding scatter (backward)", ("index_put", "indexing_backward", "embedding_backward",
+                                      "scatter", "sort", "Sort", "radix", "cub::")),
+    ("gathers", ("index_select", "gather", "index_elementwise", "IndexKernel", "indexFunc")),
+    ("casts and copies", ("copy", "Copy", "cast", "convert")),
+    ("fill / zero", ("fill", "Fill", "zero")),
+)
+
+
+def part_of(name: str) -> str:
+    for part, keys in PARTS:
+        if any(k in name for k in keys):
+            return part
+    return "other"
+
+
+def busy_ms(events) -> float:
+    """Union of the device intervals of ``events`` (ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # us -> ms
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5, help="traced warm steps")
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--out", help="also write the record to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("step_profile: needs a CUDA card", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..models import NRMS, HParamsNRMS, token_batch
+    from ..training import Trainer, TrainerConfig, prep_dedup_batch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(card, flush=True)
+    bs = int(os.environ.get("BENCH_BS", "16384"))
+    dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))
+    model = NRMS(HParamsNRMS(dropout=dropout), vocab_size=bench.VOCAB, word_emb_dim=bench.EMB,
+                 dtype=torch.bfloat16, use_fused_encoder=True, device="cuda", seed=0)
+    trainer = Trainer(model, {"title": bench.token_table(np.random.default_rng(0), "zipf")},
+                      token_batch, TrainerConfig(learning_rate=1e-4, seed=0), device="cuda")
+    n = args.warmup + args.steps
+    all_b = bench.batches(2, n, bs, bench.N_ARTICLES + 1, "zipf")
+    staged = [trainer.prepare(prep_dedup_batch({k: v[i] for k, v in all_b.items()}, 512))
+              for i in range(n)]
+    for i in range(args.warmup):
+        trainer.step(staged[i])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.warmup, n):
+            trainer.step(staged[i])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: user-annotation ranges (e.g. Optimizer.step#Adam.step)
+    # span kernels that are counted themselves
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    by_part: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_part[part_of(e.name)] = by_part.get(part_of(e.name), 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy = busy_ms(kernels)
+    steps = args.steps
+    rec = {"card": card, "batch": bs, "steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+           "parts_ms_per_step": {k: v / steps for k, v in sorted(by_part.items(),
+                                                                 key=lambda kv: -kv[1])},
+           "top_kernels_ms_per_step": {k[:120]: v / steps for k, v in
+                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:25]}}
+    print(f"[profile] {steps} traced steps: {rec['wall_ms_per_step']:.2f} ms/step wall (traced), "
+          f"device busy {rec['device_busy_ms_per_step']:.2f} ms/step, idle share "
+          f"{rec['device_idle_share']:.3f}", flush=True)
+    for k, v in rec["parts_ms_per_step"].items():
+        print(f"[profile] {k}: {v:.3f} ms/step", flush=True)
+    for k, v in rec["top_kernels_ms_per_step"].items():
+        print(f"[profile]   {v:8.3f} ms/step  {k}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

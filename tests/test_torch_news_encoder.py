@@ -122,12 +122,17 @@ def test_pack_weights_pads_and_checks():
 
 
 def test_dropout_not_ported():
+    """Dropout is ported now (Philox masks or an external mask); what the
+    kernel cannot draw is refused: embedding dropout without a seed, and
+    attention dropout with neither a mask nor a seed."""
     x, ws = _inputs(4, 2, 4, 8, 2, 4, 8)
     args = (torch.from_numpy(x), *map(torch.from_numpy, ws))
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="drop_mask or rng_seed"):
         port.fused_news_encoder(*args, num_heads=2, keep_prob=0.8)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port.fused_news_encoder(*args, num_heads=2, rng_seed=torch.tensor([1]))
+    with pytest.raises(ValueError, match="needs rng_seed"):
+        port.fused_news_encoder(*args, num_heads=2, emb_keep_prob=0.8)
+    out = port.fused_news_encoder(*args, num_heads=2, keep_prob=0.8, rng_seed=torch.tensor([1]))
+    assert out.shape == (2, 8) and torch.isfinite(out).all()
 
 
 def test_cpu_call_does_not_count_launches():

@@ -98,9 +98,19 @@ def test_cuda_default_raises_without_cuda():
 
 
 def test_unported_paths_raise():
+    """The dense stack is still unported (A6); the dedup batch, unported in
+    the serving slice, now gives the per-slot logits."""
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         NRMS(HParamsNRMS(**HP, newsencoder_units_per_layer=(8,)), vocab_size=VOCAB,
              word_emb_dim=EMB, device="cpu")
+    with pytest.raises(ValueError, match="transposed_self_att"):
+        NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu",
+             use_fused_encoder=True, transposed_self_att=True)
     m = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        m({"uniq_tokens": torch.zeros(2, T, dtype=torch.long)})
+    tokens = torch.randint(1, VOCAB, (3, T), generator=torch.Generator().manual_seed(0))
+    slots = {"hist_slot": torch.tensor([[0, 1, 2, 0, 1]]), "cand_slot": torch.tensor([[2, 1, 0, 0]])}
+    with torch.no_grad():
+        ded = m(dict(slots, uniq_tokens=tokens, art_n_uniq=3))
+        per_slot = m({"hist_tokens": tokens[slots["hist_slot"]],
+                      "cand_tokens": tokens[slots["cand_slot"]]})
+    torch.testing.assert_close(ded, per_slot, rtol=0, atol=1e-6)
