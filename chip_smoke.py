@@ -29,10 +29,25 @@ Phases:
      counting K1 and K2 launches in both towers; warm steps timed; a small
      fp32 model trained 3 steps on the kernels against its unfused layers
      and against the per-slot path (no dedup) on the kernels;
-  7. print the ``kernels`` JSON line, the card line, then the ``ok`` line
+  7. K3, the seed-recompute dropout, against its plain version: bit-equal
+     outputs and masks in fp32 and bf16 (sizes with a tail, a
+     non-contiguous input, an unaligned pointer, element offsets past 2**34
+     that set the counter's high word), keep rate, reproducible, seeded by
+     the high word and by the stream, a backward that re-applies the mask;
+     bf16 at the four dropout shapes of LSTUR and NAML training, timed
+     against the plain version and ``F.dropout``;
+  8. LSTUR (ini) and NAML training at full width (the configuration of
+     ``scripts/profile_models.py`` with PM_BS=4096 PM_PRNGDROP=1: batch
+     4,096, npratio 4, the 250,002 x 1,024 table, filter 400, window 3,
+     attention 200, GRU 400, 50,000 users, dropout 0.2 on K3, host dedup,
+     bf16, Adam lr 1e-4): one step's loss and gradients on K3 against its
+     plain version with the same seed; 3 steps counting K3's launches; warm
+     steps timed; a small fp32 model of each trained 3 steps on the dedup
+     path against the per-slot path;
+  9. print the ``kernels`` JSON line, the card line, then the ``ok`` line
      last.
 
-Each path (mask check, serving, training) is driven with every launch
+Each path (mask check, serving, NRMS, LSTUR and NAML training) is driven with every launch
 count set to 0 just before it and read just after; launches made to
 compare a kernel with its plain version are not counted. Any failed check
 exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
@@ -84,6 +99,15 @@ SMALL_PARAM_ATOL = 1e-5  # fp32 model after 3 steps, fused kernels vs unfused la
 # = 6e-5 (caught), while rounding stays near 3e-6 (at lr 1e-4 it reached
 # 9.97e-6 on an H100, against the same 1e-5).
 SMALL_LR = 3e-5
+FAM_BS = 4_096        # LSTUR and NAML batch (scripts/profile_models.py, PM_BS=4096)
+FAM_TRAIN_STEPS, FAM_WARM_STEPS = 3, 5
+FAM_LAUNCHES = {"lstur": 4, "naml": 8}  # K3 per step: 2 and 4 dropout sites, forward + backward
+# LSTUR/NAML full-width step, K3 vs its plain version: per gradient tensor
+# |g_kernel - g_plain|_2 <= tol * |g_plain|_2. The masks are bit-equal and
+# cuDNN is made deterministic for the comparison, so the two runs differ only
+# where a library reduction's order differs between runs (expected: nowhere).
+FAM_STEP_REL_TOL = 1e-3
+KEEP_RATE_TOL = 2e-3  # K3's keep fraction over 2**24 elements (its std is 1e-4)
 DEV = "cuda"
 EMB_SCALE = 200.0     # Glorot's bound for 250,002 x 1,024 is 0.0049; x200 gives about 1
 SEED64 = (0x5EED << 32) | 0x1234ABCD  # a seed whose high word matters
@@ -129,12 +153,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def counters() -> dict:
     """Every kernel wrapper of the port, by the name the kernels line uses."""
+    from ebnerd_tpu_torch.ops import dropout
     from ebnerd_tpu_torch.ops import news_encoder as ne
     from ebnerd_tpu_torch.ops import philox
 
     return {"news_encoder_fwd": ne.fused_news_encoder, "news_encoder_bwd": ne.fused_news_encoder_bwd,
             "news_encoder_bwd_gemm": ne.bwd_gemm, "news_encoder_bwd_reduce": ne.reduce_rows,
-            "philox_mask_dump": philox.dump_masks}
+            "philox_mask_dump": philox.dump_masks, "prng_dropout": dropout.dropout_apply}
 
 
 def reset_counts() -> None:
@@ -637,6 +662,23 @@ def training_data():
     return table, preps, prep_ms
 
 
+def timed_steps(trainer, staged, first: int, n: int) -> float:
+    """Two untimed steps on staged[first:], then ``n`` steps timed on the
+    synchronised host clock (peak memory counted over them); returns the
+    seconds."""
+    for i in range(first, first + 2):
+        trainer.step(staged[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(first + 2, first + 2 + n):
+        loss = trainer.step(staged[i])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss)), "non-finite loss in the timed steps")
+    return dt
+
+
 def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_user):
     """The port's training step at full width; returns its record."""
     from ebnerd_tpu_torch.bench import flops_per_impression
@@ -713,17 +755,7 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
           f"launches per step {per_step[0]}", flush=True)
 
     # 3. warm steps, host clock, synchronised
-    first = 1 + TRAIN_STEPS
-    for i in range(first, first + 2):
-        trainer.step(staged[i])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i in range(first + 2, first + 2 + WARM_STEPS):
-        loss = trainer.step(staged[i])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(bool(torch.isfinite(loss)), "non-finite warm loss")
+    dt = timed_steps(trainer, staged, 1 + TRAIN_STEPS, WARM_STEPS)
     step_ms = dt / WARM_STEPS * 1e3
     ips = TRAIN_BS * WARM_STEPS / dt
     mfu = ips * flops_per_impression(uniq_frac, True, D, ATT) / peaks[0] * 100
@@ -741,6 +773,237 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
           f"buckets {buckets}; host dedup {prep_ms:.2f} ms/batch; K1 {k_news:.3f} (news) + "
           f"{k_user:.3f} (user) ms, K2 {b_news:.3f} + {b_user:.3f} ms at the step's shapes; "
           f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+    return rec
+
+
+def k3_checks(gen):
+    """K3 against its plain version at small and odd shapes, bit for bit:
+    outputs, and the masks (K3 applied to ones in fp32); keep rate,
+    reproducibility, seed and stream sensitivity, and the backward."""
+    from ebnerd_tpu_torch.ops import dropout as k3
+
+    inv = float(torch.tensor(1.0) / torch.tensor(KEEP))
+    names = []
+
+    def same(name, x, stream=3, offset=0):
+        y = k3.dropout_apply(x, SEED64, stream, KEEP, offset)
+        torch.cuda.synchronize()
+        ref = k3.dropout_reference(x, SEED64, stream, KEEP, offset)
+        check(y.dtype == x.dtype and y.shape == x.shape and torch.equal(y, ref),
+              f"K3 {name}: kernel output differs from the plain version")
+        m = k3.dropout_apply(torch.ones(x.shape, device=DEV), SEED64, stream, KEEP, offset)
+        want = k3.keep_mask(x.numel(), SEED64, stream, KEEP, offset, DEV).reshape(x.shape)
+        check(torch.equal(m, want.float() * inv), f"K3 {name}: kernel mask differs")
+        names.append(name)
+
+    for cdt in (torch.float32, torch.bfloat16):
+        tag = str(cdt).replace("torch.", "")
+        for n in (3, 8, 8_005):
+            same(f"{tag} n={n}", torch.randn(n, generator=gen, device=DEV).to(cdt))
+        same(f"{tag} non-contiguous [64, 30, 17]",
+             torch.randn(64, 17, 30, generator=gen, device=DEV).to(cdt).transpose(1, 2), 1)
+        same(f"{tag} unaligned pointer",
+             torch.randn(1_001, generator=gen, device=DEV).to(cdt)[1:], 2)
+        for off in ((1 << 34) + 8, (1 << 34) + 5):  # counter high word 1; aligned, unaligned
+            same(f"{tag} offset {off}", torch.randn(1 << 20, generator=gen, device=DEV).to(cdt),
+                 0, off)
+    ones = torch.ones(1 << 24, device=DEV)
+    m = k3.dropout_apply(ones, SEED64, 0, KEEP)
+    rate = (m > 0).float().mean().item()
+    check(abs(rate - KEEP) <= KEEP_RATE_TOL, f"K3 keep rate {rate}")
+    check(torch.equal(m, k3.dropout_apply(ones, SEED64, 0, KEEP)), "K3 is not reproducible")
+    check(not torch.equal(m, k3.dropout_apply(ones, SEED64 ^ (1 << 40), 0, KEEP)),
+          "K3 ignores the seed's high word")
+    check(not torch.equal(m, k3.dropout_apply(ones, SEED64, 1, KEEP)), "K3 ignores the stream")
+    x = torch.randn(4_096, 1_024, generator=gen, device=DEV).requires_grad_()
+    y = k3.prng_dropout(x, SEED64, 2, KEEP)
+    y.backward(torch.ones_like(y))
+    mask = k3.dropout_apply(torch.ones_like(y), SEED64, 2, KEEP)
+    check(torch.equal(x.grad, mask), "K3 backward on ones is not the forward's mask / keep")
+    check(torch.equal(y, x.detach() * mask), "K3 forward is not x * mask / keep")
+    print(f"[k3] bit-equal to the plain version (outputs and masks): {', '.join(names)}; keep rate "
+          f"{rate:.5f} over 2**24 (tol {KEEP_RATE_TOL}); reproducible; the seed's high word and "
+          f"the stream change the mask; backward on ones = mask / keep", flush=True)
+    return {"cases": names, "keep_rate": rate}
+
+
+def k3_full_case(name, shape, peaks, gen):
+    """K3 in bf16 at one of LSTUR's and NAML's dropout shapes: bit-equal to
+    the plain version; timed with the plain version and F.dropout (which
+    draws and stores a mask, the framework route)."""
+    from ebnerd_tpu_torch.ops import dropout as k3
+
+    x = torch.randn(*shape, generator=gen, device=DEV).to(torch.bfloat16)
+    y = k3.dropout_apply(x, SEED64, 0, KEEP)
+    torch.cuda.synchronize()
+    ref = k3.dropout_reference(x, SEED64, 0, KEEP)
+    check(torch.equal(y, ref), f"K3 {name}: kernel differs from the plain version")
+    err = (y.float() - ref.float()).abs().max().item()
+    del y, ref
+    ms = time_ms(lambda: k3.dropout_apply(x, SEED64, 0, KEEP), 20)
+    plain_ms = time_ms(lambda: k3.dropout_reference(x, SEED64, 0, KEEP), 2, warmup=1)
+    lib_ms = time_ms(lambda: torch.nn.functional.dropout(x, DROPOUT, True), 20)
+    nbytes = 2 * x.numel() * x.element_size()
+    b_ms, b_by = bound(0, nbytes, peaks[1], peaks)
+    rec = {"case": name, "shape": list(shape), "dtype": "bfloat16", "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib_ms, "gbytes": nbytes / 1e9}
+    print(f"[k3] {name} {list(shape)} bf16: bit-equal; ms={ms:.4f} plain_ms={plain_ms:.2f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) library (F.dropout fwd, stores its mask) "
+          f"ms={lib_ms:.4f}", flush=True)
+    return rec
+
+
+def family_data():
+    """LSTUR's and NAML's step data (one draw for both: NAML ignores the
+    user rows): Zipf articles, users uniform in [0, 50,000), host dedup."""
+    from ebnerd_tpu_torch.bench import N_USERS, batches
+    from ebnerd_tpu_torch.training import prep_dedup_batch
+
+    n_steps = 1 + FAM_TRAIN_STEPS + 2 + FAM_WARM_STEPS
+    all_b = batches(3, n_steps, FAM_BS, N_ART + 1, "zipf", N_USERS)
+    raws = [{k: v[i] for k, v in all_b.items()} for i in range(n_steps)]
+    t0 = time.perf_counter()
+    preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
+    return preps, (time.perf_counter() - t0) / n_steps * 1e3
+
+
+def plain_dropout(x, seed, stream, keep, offset=0):
+    """K3's plain version under the wrapper's signature (comparison runs)."""
+    from ebnerd_tpu_torch.ops import dropout as k3
+
+    return k3.dropout_reference(x, seed, stream, keep, offset)
+
+
+def family_training(name, preps, prep_ms, k3_ms):
+    """LSTUR or NAML training at full width on K3; returns its record."""
+    from ebnerd_tpu_torch.bench import make_family
+    from ebnerd_tpu_torch.ops import dropout as k3
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    model, tables, builder, _ = make_family(name, torch.bfloat16, DROPOUT, "zipf", prng=True,
+                                            device=DEV)
+    with torch.no_grad():  # unit-scale embeddings, as the NRMS phase: gradients well above 0
+        model.word_embedding.embedding.mul_(EMB_SCALE)
+    trainer = Trainer(model, tables, builder,
+                      TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
+    staged = [trainer.prepare(p) for p in preps]
+    torch.cuda.synchronize()
+
+    # 1. one step's loss and gradients: K3 vs its plain version, same seed
+    model.train()
+
+    def loss_and_grads(batch):
+        model.zero_grad(set_to_none=True)
+        loss = trainer.loss_fn(model(dict(batch, dropout_seed=SEED64)), batch["labels"])
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, grads_k = loss_and_grads(staged[0])
+        with mock.patch.object(k3, "dropout_apply", plain_dropout):
+            loss_p, grads_p = loss_and_grads(staged[0])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    model.zero_grad(set_to_none=True)
+    grad_errs = {}
+    for k, gp in grads_p.items():
+        gk = grads_k[k]
+        check(bool(torch.isfinite(gk).all()), f"{name}: non-finite gradient {k}")
+        ref = gp.norm().item()
+        check(ref > 0, f"{name}: gradient {k} is zero")
+        err = (gk - gp).norm().item()
+        grad_errs[k] = {"norm_err": err, "norm_ref": ref, "rel": err / ref,
+                        "max_abs_err": (gk - gp).abs().max().item()}
+    del grads_k, grads_p
+    worst = max(grad_errs, key=lambda k: grad_errs[k]["rel"])
+    print(f"[{name}] one step, K3 vs its plain version (same seed): loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; worst |dg|_2 relative {grad_errs[worst]['rel']:.2e} ({worst}; tol "
+          f"{FAM_STEP_REL_TOL}); " + ", ".join(f"{k}={e['rel']:.1e}" for k, e in grad_errs.items()),
+          flush=True)
+    for k, e in grad_errs.items():
+        check(e["rel"] <= FAM_STEP_REL_TOL, f"{name} step gradient {k}: {e}")
+    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * max(1.0, abs(loss_p)),
+          f"{name} step loss: kernels {loss_k}, plain {loss_p}")
+
+    # 2. the main path, counted
+    losses, per_step = [], []
+    for i in range(1, 1 + FAM_TRAIN_STEPS):
+        reset_counts()
+        losses.append(trainer.step(staged[i]).item())
+        per_step.append(read_counts())
+    for c in per_step:
+        others = {k: v for k, v in c.items() if k != "prng_dropout" and v}
+        check(c["prng_dropout"] == FAM_LAUNCHES[name] and not others,
+              f"{name}: a step's launches {c} (K3 expected {FAM_LAUNCHES[name]})")
+    check(all(math.isfinite(v) for v in losses), f"{name}: non-finite losses {losses}")
+
+    # 3. warm steps, host clock, synchronised
+    dt = timed_steps(trainer, staged, 1 + FAM_TRAIN_STEPS, FAM_WARM_STEPS)
+    step_ms = dt / FAM_WARM_STEPS * 1e3
+    ips = FAM_BS * FAM_WARM_STEPS / dt
+    slots = FAM_BS * (H + NPRATIO + 1)
+    rec = {"batch": FAM_BS, "dropout": DROPOUT, "lr": LR, "loss_kernels": loss_k,
+           "loss_plain": loss_p, "grad_errors": grad_errs, "losses": losses,
+           "launches_per_step": per_step, "launches": sum(c["prng_dropout"] for c in per_step),
+           "step_ms": step_ms, "impressions_per_s": ips,
+           "uniq_frac": float(np.mean([p["n_uniq"] for p in preps]) / slots),
+           "buckets": sorted({int(p["art_uniq"].shape[0]) for p in preps}),
+           "host_dedup_ms": prep_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    k3_step = sum(k3_ms[s] for s in (("title_emb", "title_conv") if name == "lstur"
+                                     else ("title_emb", "title_conv", "body_emb", "body_conv")))
+    print(f"[{name}] {FAM_TRAIN_STEPS} steps: losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"K3 launches per step {per_step[0]['prng_dropout']}; warm: {step_ms:.2f} ms/step, "
+          f"{ips:,.0f} impressions/s; K3 forward at the step's shapes {k3_step:.3f} ms (x2 with "
+          f"the backward); unique fraction {rec['uniq_frac']:.4f}, buckets {rec['buckets']}; "
+          f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+    del trainer, model, staged
+    torch.cuda.empty_cache()
+    return rec
+
+
+def small_family_training():
+    """A small fp32 LSTUR and NAML, dropout 0: 3 Adam steps on the dedup
+    path leave the same parameters as 3 steps on the per-slot path."""
+    from ebnerd_tpu_torch.bench import batches
+    from ebnerd_tpu_torch.models import (LSTUR, NAML, HParamsLSTUR, HParamsNAML, naml_batch,
+                                         token_batch)
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    vocab, emb, n_art, bs, n_users = 1_000, 128, 300, 64, 50
+    rng = np.random.default_rng(7)
+    tables = {"title": rng.integers(1, vocab, (n_art + 1, T)).astype(np.int32),
+              "body": rng.integers(1, vocab, (n_art + 1, 40)).astype(np.int32),
+              "cat": rng.integers(0, 100, n_art + 1).astype(np.int32),
+              "subcat": rng.integers(0, 100, n_art + 1).astype(np.int32)}
+    raw = batches(8, 3, bs, n_art + 1, "zipf", n_users)
+    common = dict(vocab_size=vocab, word_emb_dim=emb, dtype=torch.float32, prng_dropout=True,
+                  device=DEV, seed=3)
+    make = {"lstur": lambda: (LSTUR(HParamsLSTUR(n_users=n_users, dropout=0.0, filter_num=64,
+                                                 gru_unit=64, attention_hidden_dim=32),
+                                    **common), token_batch),
+            "naml": lambda: (NAML(HParamsNAML(dropout=0.0, filter_num=64, attention_hidden_dim=32),
+                                  **common), naml_batch)}
+    rec = {}
+    for name, build in make.items():
+        params = {}
+        for dedup in (True, False):
+            model, builder = build()
+            tr = Trainer(model, tables, builder,
+                         TrainerConfig(learning_rate=SMALL_LR, seed=0, dedup_articles=dedup),
+                         device=DEV)
+            for i in range(3):
+                check(bool(torch.isfinite(tr.train_step({k: v[i] for k, v in raw.items()}))),
+                      f"small {name}: non-finite loss")
+            params[dedup] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        diffs = {k: (params[True][k] - params[False][k]).abs().max().item() for k in params[True]}
+        worst = max(diffs, key=diffs.get)
+        print(f"[small] fp32 {name}, 3 training steps, dedup vs per-slot: max|dparam|="
+              f"{diffs[worst]:.3e} ({worst})", flush=True)
+        check(diffs[worst] <= SMALL_PARAM_ATOL,
+              f"small fp32 {name}: dedup vs per-slot params differ by {diffs[worst]}")
+        rec[name] = {"max_abs_param_diff": diffs[worst], "by_param": diffs}
     return rec
 
 
@@ -826,6 +1089,21 @@ def main() -> int:
                                    by["bf16_train_news"]["ms"], by["bf16_train_user"]["ms"],
                                    by["bwd_bf16_train_news"]["ms"], by["bwd_bf16_train_user"]["ms"])
     record["training"] = training
+    del table, preps
+
+    record["k3_checks"] = k3_checks(gen)
+    fam_preps, fam_prep_ms = family_data()
+    fam_bucket = int(fam_preps[0]["art_uniq"].shape[0])
+    print(f"[data] first LSTUR/NAML batch: {int(fam_preps[0]['n_uniq'])} unique articles in a "
+          f"bucket of {fam_bucket}; host dedup {fam_prep_ms:.2f} ms per batch", flush=True)
+    k3_cases = [k3_full_case(nm, shape, peaks, gen) for nm, shape in (
+        ("title_emb", (fam_bucket, T, EMB)), ("title_conv", (fam_bucket, T, 400)),
+        ("body_emb", (fam_bucket, 40, EMB)), ("body_conv", (fam_bucket, 40, 400)))]
+    record["k3_cases"] = k3_cases
+    k3_ms = {c["case"]: c["ms"] for c in k3_cases}
+    record["small_family_training"] = small_family_training()
+    fam = {name: family_training(name, fam_preps, fam_prep_ms, k3_ms) for name in ("lstur", "naml")}
+    record["lstur"], record["naml"] = fam["lstur"], fam["naml"]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
@@ -866,6 +1144,15 @@ def main() -> int:
               "launches": record["rng_check"]["launches"]["philox_mask_dump"],
               "note": "launches counted on the mask-check path (check_rng_dropout.py's flow)",
               "checked": True}, **{k: dump[k] for k in keys}),
+        dict({"name": "prng_dropout", "route": "cuda", "source": "ebnerd_tpu_torch/csrc/dropout.cu",
+              "replaces": "ebnerd_tpu/ops/dropout.py:54",
+              "launches": fam["lstur"]["launches"] + fam["naml"]["launches"],
+              "launches_lstur": fam["lstur"]["launches"], "launches_naml": fam["naml"]["launches"],
+              "note": "seed-recompute dropout; timed at the title-embedding shape [bucket, 30, 1024] "
+                      "bf16 (cases: all four dropout shapes); library_ms is F.dropout's forward, "
+                      "which draws and stores its mask",
+              "checked": True}, **{k: k3_cases[0][k] for k in keys},
+             cases=[{k: c[k] for k in ("case",) + keys} for c in k3_cases]),
     ]}
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "build"

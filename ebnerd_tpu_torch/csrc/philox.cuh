@@ -9,11 +9,17 @@
 // (bits >> 8) < thr, thr = floor(keep * 2^24), and then scaled by 1/keep.
 // Each element has its own counter, so masks do not depend on how rows
 // are split into blocks. The plain version is ebnerd_tpu_torch/ops/philox.py.
+//
+// The standalone dropout kernel (dropout.cu) draws from the same generator
+// with counters (index low word, index high word, stream, DROPOUT_TAG); the
+// encoder's counters carry 0 in that word, so the two never share one.
 #pragma once
 
 #include <stdint.h>
 
 namespace philox {
+
+constexpr uint32_t DROPOUT_TAG = 0x4B330001u;
 
 struct Key {
   uint32_t lo, hi;

@@ -1,13 +1,15 @@
-"""Model hyper-parameter bundles (copy of ``HParamsBase`` and ``HParamsNRMS``
-from ``ebnerd_tpu/models/config.py``; the same fields and defaults)."""
+"""Model hyper-parameter bundles (copy of ``HParamsBase``, ``HParamsNRMS``,
+``HParamsLSTUR`` and ``HParamsNAML`` from ``ebnerd_tpu/models/config.py``;
+the same fields and defaults)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 
 DEFAULT_TITLE_SIZE = 30
+DEFAULT_BODY_SIZE = 40
 
-__all__ = ["HParamsBase", "HParamsNRMS"]
+__all__ = ["HParamsBase", "HParamsNRMS", "HParamsLSTUR", "HParamsNAML"]
 
 
 @dataclass(frozen=True)
@@ -33,3 +35,28 @@ class HParamsNRMS(HParamsBase):
     attention_hidden_dim: int = 200
     newsencoder_units_per_layer: tuple[int, ...] | None = None
     newsencoder_l2_regularization: float = 1e-4
+
+
+@dataclass(frozen=True)
+class HParamsLSTUR(HParamsBase):
+    n_users: int = 50000
+    cnn_activation: str = "relu"
+    type: str = "ini"
+    attention_hidden_dim: int = 200
+    gru_unit: int = 400
+    filter_num: int = 400
+    window_size: int = 3
+
+
+@dataclass(frozen=True)
+class HParamsNAML(HParamsBase):
+    body_size: int = DEFAULT_BODY_SIZE
+    vert_num: int = 100
+    vert_emb_dim: int = 10
+    subvert_num: int = 100
+    subvert_emb_dim: int = 10
+    dense_activation: str = "relu"
+    cnn_activation: str = "relu"
+    attention_hidden_dim: int = 200
+    filter_num: int = 400
+    window_size: int = 3

@@ -3,15 +3,16 @@
 
 The feed ships int32 row indices; a builder moves them to the tables'
 device and gathers the features there, so the host never touches a token
-matrix. ``tables`` holds device tensors built once per run, e.g.
-``"title"``: int64 [V+1, T], the token table.
+matrix. ``tables`` holds device tensors built once per run:
+``"title"`` int64 [V+1, T] (the token table), and for NAML ``"body"``
+[V+1, Tb], ``"cat"`` [V+1] and ``"subcat"`` [V+1].
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["token_batch"]
+__all__ = ["token_batch", "naml_batch", "builder_for"]
 
 
 def _index(v, device) -> torch.Tensor:
@@ -25,6 +26,14 @@ def _user(raw: dict, out: dict, device) -> dict:
     return out
 
 
+def _slots(raw: dict, out: dict, dev) -> dict:
+    out["hist_slot"] = _index(raw["hist_slot"], dev)
+    out["cand_slot"] = _index(raw["cand_slot"], dev)
+    if "art_n_uniq" in raw:
+        out["art_n_uniq"] = int(np.asarray(raw["art_n_uniq"]).reshape(-1)[0])
+    return _user(raw, out, dev)
+
+
 def token_batch(tables: dict, raw: dict) -> dict:
     """NRMS / LSTUR / NPA / Fastformer: title tokens (+ optional user id).
 
@@ -34,11 +43,36 @@ def token_batch(tables: dict, raw: dict) -> dict:
     title = tables["title"]
     dev = title.device
     if "art_uniq" in raw:
-        out = {"uniq_tokens": title[_index(raw["art_uniq"], dev)],
-               "hist_slot": _index(raw["hist_slot"], dev),
-               "cand_slot": _index(raw["cand_slot"], dev)}
-        if "art_n_uniq" in raw:
-            out["art_n_uniq"] = int(np.asarray(raw["art_n_uniq"]).reshape(-1)[0])
-        return _user(raw, out, dev)
+        return _slots(raw, {"uniq_tokens": title[_index(raw["art_uniq"], dev)]}, dev)
     return _user(raw, {"hist_tokens": title[_index(raw["hist_idx"], dev)],
                        "cand_tokens": title[_index(raw["cand_idx"], dev)]}, dev)
+
+
+_NAML_TABLES = (("tokens", "title"), ("body", "body"), ("cat", "cat"), ("subcat", "subcat"))
+
+
+def naml_batch(tables: dict, raw: dict) -> dict:
+    """NAML: title and body tokens and (sub)category ids, all gathered from
+    the same row-index space."""
+    dev = tables["title"].device
+    if "art_uniq" in raw:
+        u = _index(raw["art_uniq"], dev)
+        return _slots(raw, {f"uniq_{k}": tables[t][u] for k, t in _NAML_TABLES}, dev)
+    hist, cand = _index(raw["hist_idx"], dev), _index(raw["cand_idx"], dev)
+    out = {}
+    for k, t in _NAML_TABLES:
+        out[f"hist_{k}"], out[f"cand_{k}"] = tables[t][hist], tables[t][cand]
+    return _user(raw, out, dev)
+
+
+def builder_for(model_name: str):
+    """The batch builder of a model family, as the JAX package maps them;
+    NRMSDocVec's ``docvec_batch`` is not ported yet (ROADMAP A6)."""
+    name = model_name.lower()
+    if name in ("nrms", "lstur", "npa", "fastformer"):
+        return token_batch
+    if name in ("nrmsdocvec", "nrms_docvec"):
+        raise NotImplementedError(f"{model_name}'s batch builder is not ported yet (ROADMAP A6)")
+    if name == "naml":
+        return naml_batch
+    raise ValueError(f"no batch builder for model '{model_name}'")

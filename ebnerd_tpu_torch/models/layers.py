@@ -1,10 +1,13 @@
-"""NRMS layers as ``nn.Module``s (counterparts of ``WordEmbed``,
-``AdditiveAttention`` and ``SelfAttention`` in ``ebnerd_tpu/models/layers.py``).
+"""Model layers as ``nn.Module``s (counterparts of ``WordEmbed``,
+``AdditiveAttention``, ``SelfAttention``, ``PrngDropout``, ``ConvEncoder``,
+``MaskedGRU`` and flax's ``Dense`` and ``Embed`` as the JAX package uses
+them, ``ebnerd_tpu/models/layers.py``).
 
 Weights are fp32 parameters; ``dtype`` is the compute dtype the inputs
 and weights are cast to, as the flax modules do. Linear maps keep
-``nn.Linear``'s [out, in] layout (``bridge.py`` transposes the JAX
-[in, out] kernels).
+``nn.Linear``'s [out, in] layout and convolutions ``Conv1d``'s
+[out, in, window] (``bridge.py`` transposes the JAX [in, out] and
+[window, in, out] kernels).
 """
 from __future__ import annotations
 
@@ -15,7 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["WordEmbed", "AdditiveAttention", "SelfAttention", "glorot_"]
+from ..ops.dropout import prng_dropout
+
+__all__ = ["WordEmbed", "AdditiveAttention", "SelfAttention", "PrngDropout", "ConvEncoder",
+           "MaskedGRU", "Dense", "Embed", "glorot_", "fold_seed", "draw_seed",
+           "generator_dropout"]
 
 
 def glorot_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -25,6 +32,89 @@ def glorot_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> tor
     bound = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         return w.uniform_(-bound, bound, generator=generator)
+
+
+def fold_seed(seed: int) -> int:
+    """The 64-bit seed for a ``torch.Generator``: the CPU generator keeps
+    only the low 32 bits, so the high word is mixed into them."""
+    hi = seed >> 32
+    return seed ^ ((hi * 0x9E3779B9) & 0xFFFFFFFF)
+
+
+def draw_seed() -> int:
+    """A 64-bit dropout seed from torch's global generator."""
+    lo, hi = torch.randint(0, 1 << 32, (2,)).tolist()
+    return (hi << 32) | lo
+
+
+def generator_dropout(x: torch.Tensor, keep: float, gen: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``gen`` (flax's
+    ``where(mask, x / keep, 0)``)."""
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class PrngDropout(nn.Module):
+    """Dropout at one rate for the call sites of a model (flax's
+    ``PrngDropout`` / ``nn.Dropout`` in the conv families). Each call names
+    the step's 64-bit ``seed`` and the site's ``stream``; ``row0`` is the
+    global row of x[0] when a caller encodes a tensor in chunks of rows, so
+    the chunks get the masks of the whole.
+
+    ``use_kernel=True``: ``ops.dropout.prng_dropout``, the seed-recompute
+    kernel on CUDA tensors (its plain version on the CPU), masks regenerated
+    in the backward. ``use_kernel=False``: a mask from a ``torch.Generator``
+    seeded with (seed, stream, row0), kept by autograd. Identity in eval
+    mode and at rate 0."""
+
+    def __init__(self, rate: float, use_kernel: bool = True):
+        super().__init__()
+        self.rate = rate
+        self.use_kernel = use_kernel
+
+    def forward(self, x: torch.Tensor, seed: int, stream: int, row0: int = 0) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        if self.use_kernel:
+            return prng_dropout(x, seed, stream, keep, offset=row0 * x[0].numel())
+        mixed = (seed ^ (stream * 0x9E3779B97F4A7C15) ^ (row0 * 0xBF58476D1CE4E5B9)) & ((1 << 64) - 1)
+        gen = torch.Generator(device=x.device).manual_seed(fold_seed(mixed))
+        return generator_dropout(x, keep, gen)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with a compute dtype: x and the fp32 weight and
+    bias are cast to ``dtype``. Glorot-uniform weight, zero bias."""
+
+    def __init__(self, din: int, dout: int, dtype: torch.dtype, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(din, dout, bias=True, device=device)
+        self.dtype = dtype
+        glorot_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed`` (the user and category tables): an fp32 table
+    [num, features], gathered in fp32. ``zero=True`` starts it at zeros
+    (LSTUR's user embedding), else normal with std 1/sqrt(features), flax's
+    default scale."""
+
+    def __init__(self, num: int, features: int, device: torch.device,
+                 generator: Optional[torch.Generator] = None, zero: bool = False):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(num, features, device=device))
+        if not zero:
+            with torch.no_grad():
+                self.embedding.normal_(0.0, 1.0 / math.sqrt(features), generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding)
 
 
 class WordEmbed(nn.Module):
@@ -111,3 +201,85 @@ class SelfAttention(nn.Module):
         else:
             out = torch.einsum("...hqk,...khd->...qhd", weights, vh)
         return out.reshape(*out.shape[:-2], self.num_heads * self.head_dim)
+
+
+class ConvEncoder(nn.Module):
+    """1-D convolution over tokens with SAME padding and relu: x [N, L, C]
+    -> [N, L, filters]. ``weight`` is [filters, C, window] (flax keeps
+    [window, C, filters]); SAME pads (window - 1) // 2 on the left and the
+    rest on the right, as flax does. The convolution is PyTorch's
+    ``conv2d`` in ``dtype`` over x as it lies: [N, L, C] is the
+    channels-last layout of [N, C, 1, L], so cuDNN converts no layout and
+    the output is [N, L, filters] contiguous. It pads both sides by the
+    right-hand amount and, for an even window, drops the one extra leading
+    position."""
+
+    def __init__(self, cin: int, filters: int, window: int, dtype: torch.dtype,
+                 device: torch.device, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(filters, cin, window, device=device))
+        self.bias = nn.Parameter(torch.zeros(filters, device=device))
+        bound = math.sqrt(6.0 / ((cin + filters) * window))  # Glorot over [window, C, filters]
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        w = self.weight.shape[-1]
+        left = (w - 1) // 2
+        right = w - 1 - left
+        x4 = x.to(dt).transpose(1, 2).unsqueeze(2)  # [N, C, 1, L], channels-last strides
+        k4 = self.weight.to(dt).unsqueeze(2).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(x4, k4, self.bias.to(dt), padding=(0, right))[..., right - left:]
+        return F.relu(y.squeeze(2).transpose(1, 2))
+
+
+class MaskedGRU(nn.Module):
+    """GRU over x [B, L, D] with per-step masking: steps where mask == 0
+    keep the state. Returns the final state.
+
+    The cell is flax's ``GRUCell`` with its exact parameters: ``ir``,
+    ``iz``, ``in_`` (flax ``in``) map the input with a bias, ``hr`` and
+    ``hz`` the state without one, ``hn`` with one;
+    r = sig(ir x + hr h), z = sig(iz x + hz h), n = tanh(in x + r * hn h),
+    h' = (1 - z) n + z h. As in the JAX model the cell computes in fp32 and
+    casts the new state back to the caller's state dtype each step. The
+    input maps of all steps run as one matmul; its per-step gate inputs
+    come from ``unbind`` and ``split``, whose backward is one stack and a
+    cat per step (a slice of it would fill and add a gradient of the full
+    [B, L, 3U] per gate and step)."""
+
+    def __init__(self, din: int, units: int, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.units = units
+        for name, n_in, bias in (("ir", din, True), ("iz", din, True), ("in_", din, True),
+                                 ("hr", units, False), ("hz", units, False), ("hn", units, True)):
+            lin = nn.Linear(n_in, units, bias=bias, device=device)
+            glorot_(lin.weight, generator)
+            if bias:
+                nn.init.zeros_(lin.bias)
+            setattr(self, name, lin)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                initial_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, steps, _ = x.shape
+        u = self.units
+        h = (torch.zeros(b, u, dtype=x.dtype, device=x.device) if initial_state is None
+             else initial_state)
+        w_i = torch.cat([self.ir.weight, self.iz.weight, self.in_.weight])
+        b_i = torch.cat([self.ir.bias, self.iz.bias, self.in_.bias])
+        xi = F.linear(x.to(torch.float32), w_i, b_i).unbind(1)    # L x [B, 3U]
+        w_h = torch.cat([self.hr.weight, self.hz.weight, self.hn.weight])
+        keep = mask.bool().unbind(1)
+        for t in range(steps):
+            hf = h.to(torch.float32)
+            h_r, h_z, h_n = (hf @ w_h.T).split(u, dim=-1)
+            x_r, x_z, x_n = xi[t].split(u, dim=-1)
+            r = torch.sigmoid(x_r + h_r)
+            z = torch.sigmoid(x_z + h_z)
+            n = torch.tanh(x_n + r * (h_n + self.hn.bias))
+            new = ((1.0 - z) * n + z * hf).to(h.dtype)
+            h = torch.where(keep[t][:, None], new, h)
+        return h

@@ -1,5 +1,6 @@
-"""NRMS (Wu et al., EMNLP 2019) as an ``nn.Module``; counterpart of
-``NRMS`` in ``ebnerd_tpu/models/newsrec.py``.
+"""The newsrec families NRMS, LSTUR and NAML as ``nn.Module``s;
+counterparts of the same classes in ``ebnerd_tpu/models/newsrec.py``.
+LSTUR's and NAML's own notes are in their docstrings; this one is NRMS's.
 
 One module scores K candidates at once and returns raw logits [B, K].
 ``use_fused_encoder=True`` routes both towers through the fused news
@@ -31,14 +32,16 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import resolve_device
 from ..ops.news_encoder import PackedWeights, news_encoder, pack_weights
-from .config import HParamsNRMS
-from .layers import AdditiveAttention, SelfAttention, WordEmbed
+from .config import HParamsLSTUR, HParamsNAML, HParamsNRMS
+from .layers import (AdditiveAttention, ConvEncoder, Dense, Embed, MaskedGRU, PrngDropout,
+                     SelfAttention, WordEmbed, draw_seed, fold_seed, generator_dropout)
 
-__all__ = ["NRMS"]
+__all__ = ["NRMS", "LSTUR", "NAML"]
 
 
 def _encode_both(encode, hist: torch.Tensor, cand: torch.Tensor):
@@ -51,6 +54,21 @@ def _encode_both(encode, hist: torch.Tensor, cand: torch.Tensor):
     return vecs[: b * h].reshape(b, h, -1), vecs[b * h:].reshape(b, k, -1)
 
 
+def _dot_scores(news: torch.Tensor, user: torch.Tensor) -> torch.Tensor:
+    """logits[b, k] = <news[b, k], user[b]>."""
+    return torch.einsum("bkd,bd->bk", news, user)
+
+
+def _maybe_remat(fn, enabled: bool):
+    """``fn`` under ``torch.utils.checkpoint`` when ``enabled``: the backward
+    recomputes the article encoder instead of keeping its per-token
+    activations (flax ``nn.remat``). Exact: its dropout masks are
+    regenerated from the same seed."""
+    if not enabled:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _dedup_gather(art_vecs: torch.Tensor, batch: dict):
     """[C, D] unique-article vectors -> ([B, H, D], [B, K, D]) by slot
     gathers; their backward sums the slot cotangents into [C, D] (by
@@ -58,19 +76,6 @@ def _dedup_gather(art_vecs: torch.Tensor, batch: dict):
     articles fill thousands of slots)."""
     return (F.embedding(batch["hist_slot"], art_vecs),
             F.embedding(batch["cand_slot"], art_vecs))
-
-
-def _fold_seed(seed: int) -> int:
-    """The 64-bit seed for a ``torch.Generator``: the CPU generator keeps
-    only the low 32 bits, so the high word is mixed into them."""
-    hi = seed >> 32
-    return seed ^ ((hi * 0x9E3779B9) & 0xFFFFFFFF)
-
-
-def _draw_seed() -> int:
-    """A 64-bit dropout seed from torch's global generator."""
-    lo, hi = torch.randint(0, 1 << 32, (2,)).tolist()
-    return (hi << 32) | lo
 
 
 class NRMS(nn.Module):
@@ -145,13 +150,6 @@ class NRMS(nn.Module):
             rng_seed=seed if keep < 1.0 else None, packed=packed)
         return out.to(self.dtype)
 
-    @staticmethod
-    def _dropout(x: torch.Tensor, keep: float, gen: torch.Generator) -> torch.Tensor:
-        """Inverted dropout with a mask drawn from ``gen`` (flax's
-        ``where(mask, x / keep, 0)``)."""
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
-
     def encode_news(self, tokens: torch.Tensor, n_valid: Optional[int] = None,
                     seed: Optional[int] = None) -> torch.Tensor:
         """tokens [N, T] -> news vectors [N, head_num*head_dim]. In training
@@ -159,14 +157,14 @@ class NRMS(nn.Module):
         x = self.word_embedding(tokens)
         keep = self._keep()
         if keep < 1.0 and seed is None:
-            seed = _draw_seed()
+            seed = draw_seed()
         if self.use_fused_encoder:
             return self._fused(x, "news", n_valid, seed)
         if keep == 1.0:
             return self.news_pool(self.news_self_att(x, x, x))
-        gen = torch.Generator(device=x.device).manual_seed(_fold_seed(seed))
-        x = self._dropout(x, keep, gen)
-        return self.news_pool(self._dropout(self.news_self_att(x, x, x), keep, gen))
+        gen = torch.Generator(device=x.device).manual_seed(fold_seed(seed))
+        x = generator_dropout(x, keep, gen)
+        return self.news_pool(generator_dropout(self.news_self_att(x, x, x), keep, gen))
 
     def encode_user(self, hist_vecs: torch.Tensor) -> torch.Tensor:
         """hist_vecs [B, H, D] -> user vector [B, D]. No history mask: a
@@ -186,4 +184,166 @@ class NRMS(nn.Module):
                 lambda x: self.encode_news(x, seed=seed), batch["hist_tokens"],
                 batch["cand_tokens"])
         user = self.encode_user(hist_vecs)
-        return torch.einsum("bkd,bd->bk", cand_vecs, user)
+        return _dot_scores(cand_vecs, user)
+
+
+class LSTUR(nn.Module):
+    """Long- and Short-term User Representations (An et al., ACL 2019);
+    counterpart of ``LSTUR`` in ``ebnerd_tpu/models/newsrec.py``.
+
+    Article tower: word embedding, dropout (stream 0), ``ConvEncoder``,
+    dropout (stream 1), the token mask, masked additive pooling; an article
+    whose tokens are all padding encodes to zeros. User tower: a masked GRU
+    over the clicked articles' vectors, seeded with the long-term user
+    embedding (``type="ini"``) or concatenated with it and projected
+    (``"con"``). ``prng_dropout=True`` takes the seed-recompute dropout
+    kernel (``ops/dropout.py``), else generator-seeded masks;
+    ``remat_encoder`` recomputes the article tower in the backward.
+
+    Batch: per slot ``hist_tokens`` [B, H, T], ``cand_tokens`` [B, K, T], or
+    deduped ``uniq_tokens`` [C, T], ``hist_slot`` [B, H], ``cand_slot``
+    [B, K]; and ``user_id`` [B]. ``dropout_seed`` as in ``NRMS``."""
+
+    def __init__(self, hparams: HParamsLSTUR, vocab_size: int = 32000, word_emb_dim: int = 300,
+                 dtype: torch.dtype = torch.float32, remat_encoder: bool = False,
+                 prng_dropout: bool = False, device="cuda", seed: int = 0):
+        super().__init__()
+        hp = hparams
+        if hp.type not in ("ini", "con"):
+            raise ValueError(f"unknown LSTUR type: {hp.type}")
+        self.device = resolve_device(device)
+        self.hparams, self.dtype, self.remat_encoder = hp, dtype, remat_encoder
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        kw = dict(device=self.device, generator=gen)
+        self.drop = PrngDropout(hp.dropout, use_kernel=prng_dropout)
+        self.word_embedding = WordEmbed(vocab_size, word_emb_dim, dtype=dtype, **kw)
+        self.user_embedding = Embed(hp.n_users + 1, hp.gru_unit, zero=True, **kw)
+        self.conv = ConvEncoder(word_emb_dim, hp.filter_num, hp.window_size, dtype, **kw)
+        self.news_pool = AdditiveAttention(hp.filter_num, hp.attention_hidden_dim, dtype=dtype, **kw)
+        self.gru = MaskedGRU(hp.filter_num, hp.gru_unit, **kw)
+        if hp.type == "con":
+            self.con_dense = Dense(2 * hp.gru_unit, hp.gru_unit, dtype, **kw)
+        self.eval()
+
+    def encode_news(self, tokens: torch.Tensor, seed: int) -> torch.Tensor:
+        """tokens [N, T] -> article vectors [N, filter_num]."""
+        token_mask = (tokens != 0).to(self.dtype)
+        x = self.drop(self.word_embedding(tokens), seed, 0)
+        x = self.drop(self.conv(x), seed, 1)
+        x = x * token_mask[..., None]
+        return self.news_pool(x, mask=token_mask)
+
+    def encode_user(self, hist_vecs: torch.Tensor, hist_mask: torch.Tensor,
+                    user_id: torch.Tensor) -> torch.Tensor:
+        long_u = self.user_embedding(user_id)
+        if self.hparams.type == "ini":
+            return self.gru(hist_vecs, hist_mask, initial_state=long_u.to(hist_vecs.dtype))
+        short_u = self.gru(hist_vecs, hist_mask)
+        return self.con_dense(torch.cat([short_u, long_u.to(short_u.dtype)], -1))
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        seed = batch.get("dropout_seed")
+        if seed is None and self.training and self.hparams.dropout > 0:
+            seed = draw_seed()
+        encode = _maybe_remat(self.encode_news, self.remat_encoder)
+        if "uniq_tokens" in batch:
+            art = encode(batch["uniq_tokens"], seed)
+            hist_vecs, cand_vecs = _dedup_gather(art, batch)
+            art_mask = (batch["uniq_tokens"] != 0).any(-1)
+            hist_mask = art_mask[batch["hist_slot"]].to(self.dtype)
+        else:
+            hist_vecs, cand_vecs = _encode_both(lambda x: encode(x, seed), batch["hist_tokens"],
+                                                batch["cand_tokens"])
+            hist_mask = (batch["hist_tokens"] != 0).any(-1).to(self.dtype)
+        user = self.encode_user(hist_vecs, hist_mask, batch["user_id"])
+        return _dot_scores(cand_vecs, user)
+
+
+class NAML(nn.Module):
+    """Neural News Recommendation with Attentive Multi-View Learning (Wu et
+    al., IJCAI 2019); counterpart of ``NAML`` in ``ebnerd_tpu/models/newsrec.py``.
+
+    Four views per article: title and body (embedding, dropout, conv,
+    dropout, additive pooling; dropout streams 0-1 for the title, 2-3 for
+    the body), category and subcategory (embedding, relu Dense); an
+    additive pooling over the views, and one over the history for the user.
+    ``encode_chunks`` (dedup path only) encodes the unique-article axis in
+    that many chunks of rows, each under ``remat_encoder``'s checkpoint when
+    on, with the element offsets that keep every dropout mask equal to the
+    unchunked encode's; on the per-slot path it raises.
+
+    Batch: per slot ``{hist,cand}_{tokens,body,cat,subcat}``, or deduped
+    ``uniq_{tokens,body,cat,subcat}`` with ``hist_slot``/``cand_slot``
+    (``models/inputs.naml_batch``)."""
+
+    def __init__(self, hparams: HParamsNAML, vocab_size: int = 32000, word_emb_dim: int = 300,
+                 dtype: torch.dtype = torch.float32, remat_encoder: bool = False,
+                 encode_chunks: int = 1, prng_dropout: bool = False, device="cuda",
+                 seed: int = 0):
+        super().__init__()
+        hp = hparams
+        if encode_chunks < 1:
+            raise ValueError(f"encode_chunks must be >= 1, got {encode_chunks}")
+        self.device = resolve_device(device)
+        self.hparams, self.dtype = hp, dtype
+        self.remat_encoder, self.encode_chunks = remat_encoder, encode_chunks
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        kw = dict(device=self.device, generator=gen)
+        f, a = hp.filter_num, hp.attention_hidden_dim
+        self.drop = PrngDropout(hp.dropout, use_kernel=prng_dropout)
+        self.word_embedding = WordEmbed(vocab_size, word_emb_dim, dtype=dtype, **kw)
+        self.title_conv = ConvEncoder(word_emb_dim, f, hp.window_size, dtype, **kw)
+        self.title_pool = AdditiveAttention(f, a, dtype=dtype, **kw)
+        self.body_conv = ConvEncoder(word_emb_dim, f, hp.window_size, dtype, **kw)
+        self.body_pool = AdditiveAttention(f, a, dtype=dtype, **kw)
+        self.vert_embedding = Embed(hp.vert_num, hp.vert_emb_dim, **kw)
+        self.vert_dense = Dense(hp.vert_emb_dim, f, dtype, **kw)
+        self.subvert_embedding = Embed(hp.subvert_num, hp.subvert_emb_dim, **kw)
+        self.subvert_dense = Dense(hp.subvert_emb_dim, f, dtype, **kw)
+        self.view_pool = AdditiveAttention(f, a, dtype=dtype, **kw)
+        self.user_pool = AdditiveAttention(f, a, dtype=dtype, **kw)
+        self.eval()
+
+    def _text_view(self, tokens, conv, pool, seed, stream, row0):
+        x = self.drop(self.word_embedding(tokens), seed, stream, row0)
+        return pool(self.drop(conv(x), seed, stream + 1, row0))
+
+    def encode_news(self, title, body, vert, subvert, seed: int, row0: int = 0) -> torch.Tensor:
+        """Four views -> [N, filter_num]; ``row0`` is the global row of the
+        first article (chunked encodes)."""
+        title_r = self._text_view(title, self.title_conv, self.title_pool, seed, 0, row0)
+        body_r = self._text_view(body, self.body_conv, self.body_pool, seed, 2, row0)
+        vert_r = F.relu(self.vert_dense(self.vert_embedding(vert).to(self.dtype)))
+        subvert_r = F.relu(self.subvert_dense(self.subvert_embedding(subvert).to(self.dtype)))
+        return self.view_pool(torch.stack([title_r, body_r, vert_r, subvert_r], dim=-2))
+
+    def _encode_chunked(self, title, body, vert, subvert, seed):
+        n, c = self.encode_chunks, title.shape[0]
+        if c % n:
+            raise ValueError(f"encode_chunks={n} must divide C={c}")
+        step = c // n
+        encode = _maybe_remat(self.encode_news, self.remat_encoder)
+        return torch.cat([encode(title[r:r + step], body[r:r + step], vert[r:r + step],
+                                 subvert[r:r + step], seed, r) for r in range(0, c, step)])
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        seed = batch.get("dropout_seed")
+        if seed is None and self.training and self.hparams.dropout > 0:
+            seed = draw_seed()
+        if "uniq_tokens" in batch:
+            art = self._encode_chunked(batch["uniq_tokens"], batch["uniq_body"],
+                                       batch["uniq_cat"], batch["uniq_subcat"], seed)
+            hist_vecs, cand_vecs = _dedup_gather(art, batch)
+            return _dot_scores(cand_vecs, self.user_pool(hist_vecs))
+        if self.encode_chunks > 1:
+            raise ValueError("encode_chunks applies to the dedup path only; this batch is per slot")
+        (b, h), k = batch["hist_tokens"].shape[:2], batch["cand_tokens"].shape[1]
+
+        def both(name):
+            x, y = batch[f"hist_{name}"], batch[f"cand_{name}"]
+            return torch.cat([x.reshape(b * h, *x.shape[2:]), y.reshape(b * k, *y.shape[2:])])
+
+        encode = _maybe_remat(self.encode_news, self.remat_encoder)
+        vecs = encode(both("tokens"), both("body"), both("cat"), both("subcat"), seed)
+        hist_vecs, cand_vecs = vecs[:b * h].reshape(b, h, -1), vecs[b * h:].reshape(b, k, -1)
+        return _dot_scores(cand_vecs, self.user_pool(hist_vecs))

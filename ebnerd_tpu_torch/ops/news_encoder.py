@@ -53,11 +53,6 @@ def _round(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return t.to(cdt).to(torch.float32)
 
 
-def _inv(keep: float) -> float:
-    """1 / keep computed in fp32, as the masks' scale."""
-    return float(torch.tensor(1.0, dtype=torch.float32) / torch.tensor(keep, dtype=torch.float32))
-
-
 class Dropout(NamedTuple):
     """One launch's dropout, as the kernels take it: Philox key and 24-bit
     thresholds (0 = stream off) with their 1/keep, or an external fp32
@@ -87,7 +82,7 @@ def dropout_config(n: int, t: int, d: int, keep_prob: float = 1.0, emb_keep_prob
         return Dropout(lo, hi,
                        philox.threshold(emb_keep_prob) if emb_keep_prob < 1.0 else 0,
                        philox.threshold(keep_prob) if keep_prob < 1.0 else 0,
-                       _inv(emb_keep_prob), _inv(keep_prob))
+                       philox.inverse(emb_keep_prob), philox.inverse(keep_prob))
     if emb_keep_prob < 1.0:
         raise ValueError("emb_keep_prob < 1 needs rng_seed (the embedding mask is in-kernel only)")
     if keep_prob < 1.0:
@@ -96,7 +91,7 @@ def dropout_config(n: int, t: int, d: int, keep_prob: float = 1.0, emb_keep_prob
         if tuple(drop_mask.shape) != (n, t, d):
             raise ValueError(f"drop_mask must be [{n}, {t}, {d}], got {tuple(drop_mask.shape)}")
         ext = drop_mask.detach().to(device=device, dtype=torch.float32).reshape(n * t, d)
-        return Dropout(ext_mask=ext.contiguous(), inv_ext=_inv(keep_prob))
+        return Dropout(ext_mask=ext.contiguous(), inv_ext=philox.inverse(keep_prob))
     return Dropout()
 
 

@@ -29,7 +29,7 @@ import torch
 
 from . import _build
 
-__all__ = ["philox4x32", "threshold", "split_seed", "mask", "dump_masks"]
+__all__ = ["philox4x32", "threshold", "inverse", "split_seed", "mask", "dump_masks"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -70,6 +70,11 @@ def threshold(keep: float) -> int:
     return int(keep * (1 << 24))
 
 
+def inverse(keep: float) -> float:
+    """1 / keep computed in fp32: the kept elements' scale in every kernel."""
+    return float(torch.tensor(1.0, dtype=torch.float32) / torch.tensor(keep, dtype=torch.float32))
+
+
 def split_seed(seed) -> tuple[int, int]:
     """A 64-bit seed (Python int, or a one-element integer tensor) as its
     (low, high) 32-bit words."""
@@ -89,7 +94,7 @@ def mask(seed, stream: int, rows: int, width: int, keep: float, *,
     1/keep) of global rows [row0, row0 + rows) of ``stream``."""
     key = split_seed(seed)
     thr = threshold(keep)
-    scale = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(keep, dtype=torch.float32)
+    scale = torch.tensor(inverse(keep), dtype=torch.float32)
     groups = -(-width // 4)
     n = rows * groups
     out = torch.empty(n, 4, dtype=torch.float32, device=device)

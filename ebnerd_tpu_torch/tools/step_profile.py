@@ -1,13 +1,16 @@
-"""Where the NRMS training step's time goes, on the card.
+"""Where a training step's time goes, on the card.
 
-Builds the step of ``python -m ebnerd_tpu_torch.bench`` (same data, model,
-knobs and defaults), runs warm-up steps, then traces a window of warm steps
-with ``torch.profiler`` (CPU and CUDA activities) and sums device time by
+Builds the step of ``python -m ebnerd_tpu_torch.bench`` for the family in
+``BENCH_MODEL`` (nrms, lstur or naml; the same data, model, knobs and
+defaults), runs warm-up steps, then traces a window of warm steps with
+``torch.profiler`` (CPU and CUDA activities) and sums device time by
 kernel name into the step's parts: K1 (``news_encoder_fwd_kernel``), K2's
-per-block kernel, GEMM and reduction, Adam, the embedding's gather and
-scatter, and the rest. It also reports the window's wall time on the
-synchronised host clock and the device's busy and idle share (union of
-kernel intervals over the window).
+per-block kernel, GEMM and reduction, K3 (``dropout_kernel``), cuDNN's
+convolutions, cuBLAS's matmuls, Adam, the embedding's gather and scatter,
+elementwise kernels, and the rest. It also reports the window's wall time
+on the synchronised host clock, the device's busy and idle share (union
+of kernel intervals over the window) and the host operators with the most
+self time.
 
 Run: python -m ebnerd_tpu_torch.tools.step_profile [--steps 5] [--out FILE]
 """
@@ -20,7 +23,6 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 from .. import bench
@@ -29,14 +31,19 @@ from .. import bench
 PARTS = (
     ("K1 news_encoder_fwd", ("news_encoder_fwd_kernel",)),
     ("K2 per-block kernel", ("news_encoder_bwd_kernel",)),
-    ("K2 GEMM", ("gemm_kernel",)),
+    ("K2 GEMM", ("::gemm_kernel",)),
     ("K2 reduction", ("reduce_rows_kernel",)),
+    ("K3 prng_dropout", ("::dropout_kernel",)),
     ("Adam", ("adam", "Adam", "multi_tensor_apply", "foreach")),
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "implicit_gemm", "convolve")),
+    ("matmuls (cuBLAS)", ("gemm", "gemv", "Kernel2", "cutlass", "nvjet")),
     ("embedding scatter (backward)", ("index_put", "indexing_backward", "embedding_backward",
                                       "scatter", "sort", "Sort", "radix", "cub::")),
     ("gathers", ("index_select", "gather", "index_elementwise", "IndexKernel", "indexFunc")),
     ("casts and copies", ("copy", "Copy", "cast", "convert")),
     ("fill / zero", ("fill", "Fill", "zero")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reductions", ("reduce", "Reduce")),
 )
 
 
@@ -74,20 +81,20 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from ..models import NRMS, HParamsNRMS, token_batch
     from ..training import Trainer, TrainerConfig, prep_dedup_batch
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     print(card, flush=True)
-    bs = int(os.environ.get("BENCH_BS", "16384"))
+    name = os.environ.get("BENCH_MODEL", "nrms").lower()
+    bs = int(os.environ.get("BENCH_BS", "16384" if name == "nrms" else "4096"))
     dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))
-    model = NRMS(HParamsNRMS(dropout=dropout), vocab_size=bench.VOCAB, word_emb_dim=bench.EMB,
-                 dtype=torch.bfloat16, use_fused_encoder=True, device="cuda", seed=0)
-    trainer = Trainer(model, {"title": bench.token_table(np.random.default_rng(0), "zipf")},
-                      token_batch, TrainerConfig(learning_rate=1e-4, seed=0), device="cuda")
+    model, tables, builder, n_users = bench.make_family(
+        name, torch.bfloat16, dropout, prng=os.environ.get("BENCH_PRNGDROP", "1") != "0")
+    trainer = Trainer(model, tables, builder, TrainerConfig(learning_rate=1e-4, seed=0),
+                      device="cuda")
     n = args.warmup + args.steps
-    all_b = bench.batches(2, n, bs, bench.N_ARTICLES + 1, "zipf")
+    all_b = bench.batches(2, n, bs, bench.N_ARTICLES + 1, "zipf", n_users)
     staged = [trainer.prepare(prep_dedup_batch({k: v[i] for k, v in all_b.items()}, 512))
               for i in range(n)]
     for i in range(args.warmup):
@@ -111,13 +118,16 @@ def main(argv=None) -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = busy_ms(kernels)
     steps = args.steps
-    rec = {"card": card, "batch": bs, "steps": steps, "wall_ms_per_step": wall_ms / steps,
+    rec = {"card": card, "model": name, "batch": bs, "steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_busy_ms_per_step": busy / steps,
            "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
            "parts_ms_per_step": {k: v / steps for k, v in sorted(by_part.items(),
                                                                  key=lambda kv: -kv[1])},
            "top_kernels_ms_per_step": {k[:120]: v / steps for k, v in
-                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:25]}}
+                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:25]},
+           "top_host_ops_self_ms_per_step": {
+               e.key[:120]: e.self_cpu_time_total / 1e3 / steps for e in sorted(
+                   prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]}}
     print(f"[profile] {steps} traced steps: {rec['wall_ms_per_step']:.2f} ms/step wall (traced), "
           f"device busy {rec['device_busy_ms_per_step']:.2f} ms/step, idle share "
           f"{rec['device_idle_share']:.3f}", flush=True)
@@ -125,6 +135,8 @@ def main(argv=None) -> int:
         print(f"[profile] {k}: {v:.3f} ms/step", flush=True)
     for k, v in rec["top_kernels_ms_per_step"].items():
         print(f"[profile]   {v:8.3f} ms/step  {k}", flush=True)
+    for k, v in rec["top_host_ops_self_ms_per_step"].items():
+        print(f"[profile]   host {v:8.3f} ms/step self  {k}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)

@@ -20,16 +20,17 @@ import numpy as np
 __all__ = ["dedup_bucket", "prep_dedup_batch", "pad_dedup_to", "dedup_capable"]
 
 # families whose port is still queued, with their ROADMAP item
-_QUEUED = {"nrmsdocvec": "A6", "nrms_docvec": "A6", "lstur": "A7", "naml": "A8", "npa": "A9",
-           "fastformer": "A10", "fastformerwu": "A10"}
+_QUEUED = {"nrmsdocvec": "A6", "nrms_docvec": "A6", "npa": "A9", "fastformer": "A10",
+           "fastformerwu": "A10"}
 
 
 def dedup_capable(model) -> tuple[bool, str]:
     """(capable, reason-if-not) for one model instance. The port trains
-    NRMS, whose article tower is user-independent, so it dedups fully.
-    The families still to port raise, naming their ROADMAP item."""
+    NRMS, LSTUR and NAML, whose article towers are user-independent, so
+    they dedup fully. The families still to port raise, naming their
+    ROADMAP item."""
     name = type(model).__name__.lower()
-    if name == "nrms":
+    if name in ("nrms", "lstur", "naml"):
         return True, ""
     if name in _QUEUED:
         raise NotImplementedError(

@@ -53,3 +53,22 @@ def test_unported_knobs_raise_and_no_card_refuses(monkeypatch, capsys):
     if not torch.cuda.is_available():
         assert bench.main() == 2
         assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def test_user_rows_leave_the_article_draws_alone():
+    """LSTUR's batches add user rows in [0, n_users) after the article draws,
+    so LSTUR and NAML (and NRMS) see the same articles from one seed."""
+    plain = bench.batches(3, 2, 64, bench.N_ARTICLES + 1)
+    users = bench.batches(3, 2, 64, bench.N_ARTICLES + 1, n_users=bench.N_USERS)
+    for k in plain:
+        np.testing.assert_array_equal(users[k], plain[k], err_msg=k)
+    assert users["user_idx"].shape == (2, 64) and users["user_idx"].dtype == np.int32
+    assert 0 <= users["user_idx"].min() and users["user_idx"].max() < bench.N_USERS
+
+
+def test_body_table_and_unknown_family(monkeypatch):
+    body = bench.token_table(np.random.default_rng(0), "uniform", bench.BODY)
+    assert body.shape == (bench.N_ARTICLES + 1, bench.BODY)
+    monkeypatch.setenv("BENCH_MODEL", "npa")
+    with pytest.raises(ValueError, match="BENCH_MODEL"):
+        bench.main()

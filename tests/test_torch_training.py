@@ -84,11 +84,15 @@ def test_dedup_bucket_matches_jax(n):
 
 
 def test_dedup_capable_nrms_only():
+    """NRMS, LSTUR and NAML dedup fully; NPA is not ported yet and raises
+    naming its ROADMAP item."""
     model = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
     assert dedup_capable(model) == (True, "")
-    lstur = type("LSTUR", (), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        dedup_capable(lstur)
+    for name in ("LSTUR", "NAML"):
+        assert dedup_capable(type(name, (), {})()) == (True, "")
+    npa = type("NPA", (), {})()
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        dedup_capable(npa)
     assert dedup_capable(object())[0] is False
 
 
