@@ -15,7 +15,15 @@ Phases:
      - K2, the recompute backward, against autograd of the plain version
        under the cotangent of sum(sin(out) * c): fp32 (small, n_valid with
        g = 0 on pad rows, Philox dropout, external mask) and bf16 at the
-       step's two shapes; its GEMM and reduction kernels on their own;
+       step's two shapes; its GEMM on its own on each of the step's six
+       products (dx, dWqkv with and without the stream-0 mask, dW; news
+       and user towers) and on ragged shapes (tiles cut by M, N and rows,
+       rows < the tensor's rows, more tiles than SMs), each against its
+       plain version, dx past `rows` exactly 0, weight gradients bit-equal
+       over two launches; its reduction on each partial shape the step
+       sums, against torch.sum and bit-equal over two launches; its mask
+       kernel (the stream-0 mask drawn once for dx and dWqkv: round(x *
+       mask) and keep bits), bit-equal to its plain version;
   4. the mask-check path of ``scripts/check_rng_dropout.py``: K1's Philox
      path against its external-mask path fed the dumped masks;
   5. NRMS two-tower serving at full width (250,002 x 1,024 vocabulary,
@@ -54,6 +62,8 @@ exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
 go to build/chip_smoke.json.
 
 Run: python3 chip_smoke.py
+     python3 chip_smoke.py --gemm-only   (build, then K2's GEMM and reduction
+                                          cases alone; prints their records)
 """
 from __future__ import annotations
 
@@ -77,6 +87,11 @@ KEEP = 1.0 - DROPOUT
 TRAIN_STEPS, WARM_STEPS = 3, 5
 WARM_WINDOWS = 5      # warm repeats of the index build and of scoring, timed each
 BF16_REL_TOL = 2e-2   # max|kernel - plain| <= tol * max|plain| in bf16
+# K2's weight-gradient GEMMs and their reduction accumulate in fp32 from bf16
+# operands: max|kernel - plain| <= tol * max|plain|. About 17x the largest
+# reading on an H100 (5.7e-5, dWqkv at the news shape), and under what one
+# 64-row k-tile dropped or added twice moves dWqkv there (about 8 of 4,568).
+WGRAD_REL_TOL = 1e-3
 FP32_ATOL = 1e-4      # fp32 forward: only the summation order differs
 FP32_GRAD_REL = 1e-4  # fp32 gradients: max|kernel - plain| <= tol * scale per tensor
 # The scale of a gradient is max|plain| of the tensor, except for the pooling
@@ -151,6 +166,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn`` call: ``iters`` calls captured in a CUDA
+    graph, replayed and timed with CUDA events, so the host's cost of
+    launching (Python, ctypes) is left out. For kernels of a few
+    microseconds, where back-to-back calls from Python time the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
 def counters() -> dict:
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from ebnerd_tpu_torch.ops import dropout
@@ -159,6 +196,7 @@ def counters() -> dict:
 
     return {"news_encoder_fwd": ne.fused_news_encoder, "news_encoder_bwd": ne.fused_news_encoder_bwd,
             "news_encoder_bwd_gemm": ne.bwd_gemm, "news_encoder_bwd_reduce": ne.reduce_rows,
+            "news_encoder_bwd_mask": ne.emb_mask,
             "philox_mask_dump": philox.dump_masks, "prng_dropout": dropout.dropout_apply}
 
 
@@ -327,58 +365,166 @@ def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEA
     return rec
 
 
-def gemm_cases(rows, din, p_cols, peaks, gen):
-    """The backward's GEMM (the dWqkv product, masked by Philox stream 0,
-    and the dx product) and its fixed-order reduction on their own at the
-    news tower's training shape, against their plain versions; the
-    yardsticks are torch.matmul and torch.sum of the same operands."""
+def gemm_case(name, m, n, k_rows, rows, dx, masked, peaks, gen, timed=True, iters=10):
+    """K2's GEMM on one product against ``bwd_gemm_reference`` in bf16. dx:
+    a = dqkv [k_rows, n], b = wqkv [m, n], out [k_rows, m] within
+    BF16_REL_TOL of max|plain|, rows at or past ``rows`` exactly 0; else a
+    [k_rows, m], b [k_rows, n] over rows [0, rows), its partials summed by
+    ``reduce_rows`` within WGRAD_REL_TOL, and two launches of both
+    bit-equal. ``masked``: Philox stream 0 at keep 0.8, drawn by
+    ``emb_mask`` as the step draws it: keep bits for dx, round(a * mask)
+    for the weight gradient (timed as the mask kernel plus the GEMM). Timed
+    (when ``timed``) with its plain version and torch.matmul of the same
+    operands. Returns (record, partials or None)."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     cdt = torch.bfloat16
-    a = torch.randn(rows, din, generator=gen, device=DEV).to(cdt)
-    b = torch.randn(rows, p_cols, generator=gen, device=DEV).to(cdt)
+    drop = ne.dropout_config(1, 1, 4, KEEP, KEEP, SEED64) if masked else ne.Dropout()
+    keep = None
+    if dx:
+        a = torch.randn(k_rows, n, generator=gen, device=DEV).to(cdt)
+        b = torch.randn(m, n, generator=gen, device=DEV).to(cdt)
+        if masked:  # the keep bits as the step draws them, once, before the GEMM
+            keep = ne.emb_mask(rows, m, drop, device=DEV)[1]
+        run = lambda: ne.bwd_gemm(a, b, dx=True, rows=rows, drop=drop, keep=keep)
+        lib = lambda: a[:rows] @ b.T
+        flops, nbytes = 2 * rows * m * n, (rows * n + m * n + k_rows * m) * 2
+        splits = 1
+    else:
+        a = torch.randn(k_rows, m, generator=gen, device=DEV).to(cdt)
+        b = torch.randn(k_rows, n, generator=gen, device=DEV).to(cdt)
+        splits = ne.gemm_splits(m, n, rows)
+        # the masked product: round(a * mask) drawn by the mask kernel, then the GEMM
+        a_of = (lambda: ne.emb_mask(rows, m, drop, device=DEV, x=a)[0]) if masked else (lambda: a)
+        wgrad = lambda: ne.bwd_gemm(a_of(), b, dx=False, rows=rows, splits=splits)
+        run = lambda: ne.reduce_rows(wgrad()).reshape(m, n)
+        lib = lambda: a[:rows].T @ b[:rows]
+        flops, nbytes = 2 * rows * m * n, (rows * m + rows * n) * 2 + m * n * 4
+    out = run()
+    torch.cuda.synchronize()
+    ref = ne.bwd_gemm_reference(a, b, dx=dx, rows=rows, drop=drop, seed=SEED64, emb_keep=KEEP)
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = (BF16_REL_TOL if dx else WGRAD_REL_TOL) * scale
+    check(bool(torch.isfinite(out).all()), f"GEMM {name}: non-finite output")
+    check(err <= tol, f"GEMM {name}: max|kernel - plain| = {err} > {tol}")
+    if dx:
+        check(bool((out[rows:] == 0).all()), f"GEMM {name}: dx rows past `rows` are not zero")
+    else:
+        check(torch.equal(out, run()), f"GEMM {name}: two launches differ")
+    del ref
+    part = None if dx else wgrad()
+    rec = {"case": name, "m_n_k": [m, n, k_rows], "rows": rows, "dx": dx, "masked": masked,
+           "splits": splits, "max_abs_err": err, "max_abs_ref": scale, "tol": tol, "ms": None,
+           "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
+    if timed:
+        # the GEMM alone (the reduction is timed on its own below)
+        one = (lambda: ne.bwd_gemm(a, b, dx=True, rows=rows, drop=drop, keep=keep)) if dx else wgrad
+        rec["ms"] = time_ms(one, iters)
+        rec["plain_ms"] = time_ms(lambda: ne.bwd_gemm_reference(
+            a, b, dx=dx, rows=rows, drop=drop, seed=SEED64, emb_keep=KEEP), 2, warmup=1)
+        rec["library_ms"] = time_ms(lib, iters)
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peaks[0], peaks)
+        rec["tflops"] = flops / rec["ms"] / 1e9
+    print(f"[gemm] {name}: {'dx' if dx else 'weight grad'} m={m} n={n} rows={rows}/{k_rows} "
+          f"mask={masked} slices={splits} max_abs_err={err:.3e} (tol {tol:.3e}, max|ref| {scale:.3e})"
+          + (f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
+             f"({rec['bound_by']}) library (torch.matmul) ms={rec['library_ms']:.4f} "
+             f"({rec['tflops']:.1f} TFLOP/s)" if timed else ""), flush=True)
+    return rec, part
+
+
+def mask_case(name, rows, k_rows, width, peaks, gen):
+    """K2's mask kernel (``emb_mask``: the stream-0 mask drawn once for dx
+    and dWqkv) against its plain version: round(x * mask) and the keep
+    bits bit-equal; timed with the plain version."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    x = torch.randn(k_rows, width, generator=gen, device=DEV).to(torch.bfloat16)
     drop = ne.dropout_config(1, 1, 4, KEEP, KEEP, SEED64)
-    splits = ne._splits(din, p_cols, rows)
-    part = ne.bwd_gemm(a, b, dx=False, rows=rows, drop=drop, splits=splits)
-    out = ne.reduce_rows(part).reshape(din, p_cols)
-    ref = ne.bwd_gemm_reference(a, b, dx=False, rows=rows, drop=drop, seed=SEED64, emb_keep=KEEP)
-    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
-    check(err <= BF16_REL_TOL * scale, f"dWqkv GEMM: max|kernel - plain| = {err} > tol")
-    red_ref = part.sum(0)
-    red_err = (out - red_ref).abs().max().item()
-    check(red_err <= 1e-5 * red_ref.abs().max().item(), f"reduction: {red_err}")
-    w = torch.randn(din, p_cols, generator=gen, device=DEV).to(cdt)
-    dx = ne.bwd_gemm(b, w, dx=True, rows=rows - 7, drop=drop)
-    dx_ref = ne.bwd_gemm_reference(b, w, dx=True, rows=rows - 7, drop=drop, seed=SEED64,
-                                   emb_keep=KEEP)
-    dx_err = (dx.float() - dx_ref.float()).abs().max().item()
-    check(dx_err <= BF16_REL_TOL * dx_ref.float().abs().max().item(), f"dx GEMM: {dx_err}")
-    check(bool((dx[rows - 7:] == 0).all()), "dx GEMM: rows past n_valid are not zero")
-    del dx, dx_ref
-    ms = time_ms(lambda: ne.bwd_gemm(a, b, dx=False, rows=rows, drop=drop, splits=splits), 10)
-    plain_ms = time_ms(lambda: ne.bwd_gemm_reference(a, b, dx=False, rows=rows, drop=drop,
-                                                     seed=SEED64, emb_keep=KEEP), 2, warmup=1)
-    lib_ms = time_ms(lambda: a.T @ b, 10)
-    flops = 2 * rows * din * p_cols
-    nbytes = (rows * din + rows * p_cols) * 2 + splits * din * p_cols * 4
-    b_ms, b_by = bound(flops, nbytes, peaks[0], peaks)
-    red_ms = time_ms(lambda: ne.reduce_rows(part), 20)
-    red_lib = time_ms(lambda: part.sum(0), 20)
-    r_bytes = part.numel() * 4 + din * p_cols * 4
-    r_ms, r_by = bound(part.numel(), r_bytes, peaks[1], peaks)
-    gemm = {"case": "dwqkv_gemm", "rows": rows, "m_n": [din, p_cols], "splits": splits,
-            "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    red = {"case": "dwqkv_reduce", "rows": splits, "cols": din * p_cols, "max_abs_err": red_err,
-           "ms": red_ms, "plain_ms": red_lib, "bound_ms": r_ms, "bound_by": r_by,
-           "library_ms": red_lib}
-    print(f"[kernel] bwd GEMM dWqkv: {rows} rows -> {din}x{p_cols} bf16, {splits} slices, "
-          f"max_abs_err={err:.3e} (max|ref| {scale:.3e}) ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={b_ms:.4f} ({b_by}) library (torch.matmul) ms={lib_ms:.3f}", flush=True)
-    print(f"[kernel] bwd reduce: {splits} x {din * p_cols} fp32 max_abs_err={red_err:.3e} "
-          f"ms={red_ms:.4f} plain/library (torch.sum) ms={red_lib:.4f} bound_ms={r_ms:.4f} "
-          f"({r_by})", flush=True)
-    return gemm, red
+    xm, keep = ne.emb_mask(rows, width, drop, device=DEV, x=x)
+    torch.cuda.synchronize()
+    ref_xm, ref_keep = ne.emb_mask_reference(rows, width, SEED64, KEEP, x=x)
+    check(torch.equal(xm, ref_xm), f"mask {name}: round(x * mask) differs from the plain version")
+    check(torch.equal(keep, ref_keep.to(DEV)), f"mask {name}: keep bits differ from the plain version")
+    rate = (xm != 0).float().mean().item()
+    ms = time_ms(lambda: ne.emb_mask(rows, width, drop, device=DEV, x=x), 20)
+    plain_ms = time_ms(lambda: ne.emb_mask_reference(rows, width, SEED64, KEEP, x=x), 2, warmup=1)
+    nbytes = 2 * rows * width * 2 + keep.numel() * 4
+    b_ms, b_by = bound(0, nbytes, peaks[1], peaks)
+    rec = {"case": name, "shape": [rows, width], "max_abs_err": 0.0, "nonzero_rate": rate,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"[mask] {name}: [{rows}, {width}] bf16 + keep bits: bit-equal to the plain version "
+          f"(nonzero {rate:.4f}); ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
+          f"({b_by}) library: none", flush=True)
+    return rec
+
+
+def reduce_case(name, part, peaks):
+    """K2's fixed-order reduction on partials [R, C] against part.sum(0)
+    (1e-5 of max|sum|; fp32 sums in another order), bit-equal over two
+    launches; timed (device time, ``graph_ms``) with torch.sum, which is
+    also its plain version."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    out = ne.reduce_rows(part)
+    torch.cuda.synchronize()
+    ref = part.sum(0)
+    err = (out - ref).abs().max().item()
+    check(err <= 1e-5 * max(ref.abs().max().item(), 1e-30), f"reduce {name}: {err}")
+    check(torch.equal(out, ne.reduce_rows(part)), f"reduce {name}: two launches differ")
+    ms = graph_ms(lambda: ne.reduce_rows(part))
+    lib_ms = graph_ms(lambda: part.sum(0))
+    b_ms, b_by = bound(part.numel(), (part.numel() + part.shape[1]) * 4, peaks[1], peaks)
+    rec = {"case": name, "shape": list(part.shape), "max_abs_err": err, "ms": ms,
+           "plain_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    print(f"[reduce] {name}: {list(part.shape)} fp32 max_abs_err={err:.3e} ms={ms:.4f} "
+          f"plain/library (torch.sum) ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return rec
+
+
+def gemm_cases(n_uniq, bucket, peaks, gen):
+    """K2's GEMM on each of the six products of the NRMS step (dx, dWqkv
+    with and without the stream-0 mask, dW; news tower [bucket * 30 rows,
+    n_uniq * 30 valid] and user tower [16,384 * 20]) and on ragged shapes
+    (M, N and rows off the tiles; rows < the tensor's rows), and K2's
+    reduction on each partial shape the step sums: the GEMM slices and the
+    per-block db/dq partials. Returns (GEMM records, reduction records)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    p_cols, a_pad = 5 * 256, -(-ATT // 16) * 16
+    news_rows, news_k = n_uniq * T, bucket * T
+    user_rows = TRAIN_BS * H
+    gemms, parts = [], {}
+    for name, m, n, k_rows, rows, dx, masked in (
+            ("dx_news", EMB, p_cols, news_k, news_rows, True, True),
+            ("dwqkv_news_mask", EMB, p_cols, news_k, news_rows, False, True),
+            ("dwqkv_news", EMB, p_cols, news_k, news_rows, False, False),
+            ("dw_news", D, a_pad, news_k, news_rows, False, False),
+            ("dx_user", D, p_cols, user_rows, user_rows, True, False),
+            ("dwqkv_user", D, p_cols, user_rows, user_rows, False, False),
+            ("dw_user", D, a_pad, user_rows, user_rows, False, False)):
+        rec, part = gemm_case(name, m, n, k_rows, rows, dx, masked, peaks, gen)
+        gemms.append(rec)
+        if name in ("dwqkv_news_mask", "dw_news", "dwqkv_user", "dw_user"):
+            parts[name.replace("_mask", "")] = part.reshape(part.shape[0], -1)
+        torch.cuda.empty_cache()
+    for name, m, n, k_rows, rows, dx, masked in (  # ragged: tile edges, partial k-tiles, n_valid
+            ("ragged_dw_400x208", D, a_pad, 4_200, 4_099, False, True),
+            ("ragged_dw_72x40", 72, 40, 130, 67, False, False),
+            ("ragged_dx_4099x400", D, p_cols, 4_200, 4_099, True, True),
+            ("ragged_dx_67x72", 72, 48, 130, 67, True, False),
+            ("ragged_dx_multi_tile", EMB, p_cols, 40_000, 39_000, True, True)):  # > 132 tiles
+        gemms.append(gemm_case(name, m, n, k_rows, rows, dx, masked, peaks, gen, timed=False)[0])
+    nb_news, nb_user = 64 // T, 64 // H  # articles per block of the per-block kernel
+    parts["db_news"] = torch.randn(-(-n_uniq // nb_news), a_pad, generator=gen, device=DEV)
+    parts["db_user"] = torch.randn(-(-TRAIN_BS // nb_user), a_pad, generator=gen, device=DEV)
+    reds = [reduce_case(name, parts[name], peaks)
+            for name in ("dwqkv_news", "dw_news", "db_news", "dwqkv_user", "dw_user", "db_user")]
+    del parts
+    masks = [mask_case("x_news", news_rows, news_k, EMB, peaks, gen),
+             mask_case("ragged_400", 4_099, 4_200, D, peaks, gen)]
+    return gemms, reds, masks
 
 
 def mask_dump_case(peaks):
@@ -747,8 +893,9 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
     for c in per_step:
         check(c["news_encoder_fwd"] == 2 and c["news_encoder_bwd"] == 2,
               f"a step launched K1 {c['news_encoder_fwd']} and K2 {c['news_encoder_bwd']} times")
-        check(c["news_encoder_bwd_gemm"] == 6 and c["news_encoder_bwd_reduce"] == 8,
-              f"a step's backward GEMM/reduce launches {c}")
+        check(c["news_encoder_bwd_gemm"] == 6 and c["news_encoder_bwd_reduce"] == 8
+              and c["news_encoder_bwd_mask"] == 1,
+              f"a step's backward GEMM/reduce/mask launches {c}")
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     main_counts = {k: sum(c[k] for c in per_step) for k in per_step[0]}
     print(f"[train] {TRAIN_STEPS} steps: losses {', '.join(f'{v:.6f}' for v in losses)}; "
@@ -1007,7 +1154,8 @@ def small_family_training():
     return rec
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    gemm_only = "--gemm-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -1032,10 +1180,13 @@ def main() -> int:
     logs = _build.build()
     record["build_s"] = time.perf_counter() - t0
     print(f"[build] {', '.join(_build.SOURCES)} in {record['build_s']:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+    record["ptxas"] = {}
+    for name, log in logs.items():  # -Xptxas -v: each kernel's name, spills and registers
+        lines = [ln.strip() for ln in log.splitlines()
+                 if any(w in ln for w in ("entry function", "spill", "registers", "arning"))]
+        record["ptxas"][name] = lines
+        for line in lines:
+            print(f"[build] {name}: {line}", flush=True)
 
     table, preps, prep_ms = training_data()
     bucket, n_uniq = int(preps[0]["art_uniq"].shape[0]), int(preps[0]["n_uniq"])
@@ -1043,6 +1194,10 @@ def main() -> int:
           f"host dedup {prep_ms:.2f} ms per batch", flush=True)
 
     gen = torch.Generator(device=DEV).manual_seed(0)
+    if gemm_only:  # K2's GEMM, reduction and mask alone (a quick call; not the contract's run)
+        gemms, reds, masks = gemm_cases(n_uniq, bucket, peaks, gen)
+        print(json.dumps({"gemm": gemms, "reduce": reds, "mask": masks}), flush=True)
+        return 0
     cases = [
         kernel_case("fp32_small", 37, 30, 128, torch.float32, peaks, gen),
         kernel_case("fp32_n_valid", 50, 20, 400, torch.float32, peaks, gen, n_valid=29),
@@ -1075,8 +1230,8 @@ def main() -> int:
         bwd_case("bwd_bf16_train_user", TRAIN_BS, H, D, torch.bfloat16, peaks, gen, iters=5),
     ]
     record["bwd_cases"] = bwd
-    gemm, red = gemm_cases(n_uniq * T, EMB, 5 * 256, peaks, gen)
-    record["gemm"], record["reduce"] = gemm, red
+    gemms, reds, masks = gemm_cases(n_uniq, bucket, peaks, gen)
+    record["gemm"], record["reduce"], record["mask"] = gemms, reds, masks
     dump = mask_dump_case(peaks)
     record["mask_dump"] = dump
     record["rng_check"] = rng_check_path(gen)
@@ -1108,6 +1263,7 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
     k1, k2 = by["bf16_train_news"], by["bwd_bf16_train_news"]
+    gem = {c["case"]: c for c in gemms}
     kernels = {"kernels": [
         dict({"name": "news_encoder_fwd", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder.cu",
@@ -1123,21 +1279,34 @@ def main() -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd"],
               "note": "per-block recompute backward; ms is the whole backward (this kernel, "
-                      "3 GEMMs, 4 reductions) at the news-tower shape",
+                      "the mask kernel, 3 GEMMs, 4 reductions) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
              cases=[{k: c[k] for k in ("case",) + keys} for c in bwd]),
         dict({"name": "news_encoder_bwd_gemm", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_gemm"],
-              "note": "dx and the row-reduced weight-gradient products of K2; timed on dWqkv",
-              "checked": True}, **{k: gemm[k] for k in keys}),
+              "note": "dx and the row-reduced weight-gradient products of K2; the top-level "
+                      "numbers are dWqkv at the news shape with the stream-0 mask (cases: the "
+                      "six products of the NRMS step, and ragged shapes, untimed)",
+              "checked": True}, **{k: gem["dwqkv_news_mask"][k] for k in keys},
+             cases=[{k: c[k] for k in ("case",) + keys} for c in gemms]),
         dict({"name": "news_encoder_bwd_reduce", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_reduce"],
-              "note": "fixed-order sum of K2's partials; timed on the dWqkv slices",
-              "checked": True}, **{k: red[k] for k in keys}),
+              "note": "fixed-order sum of K2's partials; the top-level numbers are the news "
+                      "tower's dWqkv slices (cases: every partial shape of the NRMS step)",
+              "checked": True}, **{k: reds[0][k] for k in keys},
+             cases=[{k: c[k] for k in ("case", "shape") + keys} for c in reds]),
+        dict({"name": "news_encoder_bwd_mask", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
+              "launches": main_l["news_encoder_bwd_mask"],
+              "note": "the stream-0 (embedding) mask drawn once per step for dx and dWqkv: "
+                      "round(x * mask) and keep bits; timed at the news tower's shape",
+              "checked": True}, **{k: masks[0][k] for k in keys},
+             cases=[{k: c[k] for k in ("case", "shape") + keys} for c in masks]),
         dict({"name": "philox_mask_dump", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/philox.cu",
               "replaces": "scripts/check_rng_dropout.py:46",

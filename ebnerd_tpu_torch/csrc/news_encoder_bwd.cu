@@ -6,7 +6,7 @@
 // cotangent g [N, D] fp32, it returns dx [N, T, Din] (x's dtype), the
 // packed dWqkv [Din, P] and dW [D, A], db [A], dq [A] in fp32.
 //
-// Three kernels:
+// The kernels:
 //   1. news_encoder_bwd_kernel, one block per 64 rows, as the forward:
 //      recompute QKV panel by panel (with the stream-0 mask on x) and the
 //      attention, keeping the fp32 o; dropout on o; the pooling forward
@@ -20,14 +20,17 @@
 //      kernel's `_cdot`/`_bdot` round them. It writes per row: dQ|dK|dV in
 //      the packed panel layout (dqkv, compute dtype), round(o) and
 //      round(dz) for the weight products.
-//   2. gemm_kernel, a tiled wmma GEMM (128 x 128 tiles, 8 warps, a 3-stage
-//      cp.async pipeline; FMA in fp32): dx = (dqkv Wqkv^T) * stream-0 mask, and
-//      the weight gradients dWqkv = round(x * mask)^T dqkv and
-//      dW = round(o)^T round(dz), which reduce over all N*T rows. Those are
-//      split along the rows into a fixed number of slices, each writing
-//      its own fp32 partial;
+//   2. bwd_gemm_wgmma_kernel (bf16): dx = (dqkv Wqkv^T) * stream-0 mask,
+//      and the weight gradients dWqkv = round(x * mask)^T dqkv and
+//      dW = round(o)^T round(dz), which reduce over all N*T rows: split
+//      along the rows into a number of slices fixed by the shapes, each
+//      writing its own fp32 partial. bwd_mask_x_kernel draws the x
+//      (stream-0) mask once for both: round(x * mask) for dWqkv and one
+//      keep bit per element for dx. bwd_gemm_fma_kernel computes the same
+//      products in fp32 (the fp32 checks), drawing the mask itself.
 //   3. reduce_rows_kernel sums partials (the GEMM slices, the per-block
-//      db and dq) in a fixed order.
+//      db and dq) in a fixed order, in one pass or, for tall narrow
+//      partials, in row chunks and then the chunk sums.
 // So every weight gradient is the same bits on every run: no atomics.
 //
 // Blocks wholly past n_valid do nothing: their rows are left out of the
@@ -41,18 +44,33 @@
 // and dWqkv 74 each, the attention 5, pooling 5), so about 235 MFLOP per
 // article: bf16 tensor-core operations bound it, not the bytes (x read
 // twice, dx written, the dqkv scratch written and read twice).
-// What the design does about it: every product is on the tensor cores;
-// the QKV GEMM runs once (the recompute) and its panels are kept in the
-// dqkv scratch (L2-resident while the block runs), so the attention
-// backward re-reads them instead of a second recompute; dx and the weight
-// gradients are large GEMMs over all rows instead of per-block products
-// accumulated across blocks. What is left: wmma instead of wgmma, no TMA,
-// and the dqkv round trip through device memory.
-//
+// The GEMM: dx and dWqkv are bound by operations (2 x 671,100 x 1,024 x
+// 1,280 = 1.76 TFLOP each at the news shape, 1.78 ms at 989 TFLOP/s; over
+// 500 FLOP per byte moved, past the card's 295), dW by bytes (round(o) and
+// round(dz) read once, 0.82 GB). Only wgmma reaches the tensor cores' rate,
+// so the GEMM is warp-specialised: one producer thread keeps a 3- or
+// 4-stage ring of 128 x 64 and 256 x 64 bf16 tiles in flight by TMA
+// (128-byte swizzled, zeros past
+// each operand's extent, so pad rows past n_valid add nothing without a
+// branch), and two consumer warpgroups run m64n256k16 wgmma on them,
+// reading dWqkv's and dW's [rows, features] operands through wgmma's
+// transpose bits as they lie; registers move from the producer to the
+// consumers (setmaxnreg). The x mask is one pass over x before the
+// products: inside the main loop it would be regenerated for every column
+// tile, and its Philox work slows the GEMM wherever it runs there (see
+// bwd_gemm_wgmma_kernel). The reduction is bound by bytes: 16-byte
+// loads, columns spread over enough blocks, and tall narrow partials cut
+// into row chunks so that they fill the card too.
+// What is left: the dqkv round trip through device memory, the per-block
+// kernel on wmma, and the x mask's extra pass (2.8 GB moved).
+
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on
 // the caller's stream and returns cudaGetLastError().
 
+#include <algorithm>
+
+#include "hopper.cuh"
 #include "news_encoder_common.cuh"
 
 namespace {
@@ -422,58 +440,309 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
                            min(p.gh, p.heads - g * p.gh), p.scale, R, B);
 }
 
-// ---- tiled GEMM ----
-// kDx: C [M, N] (compute dtype) = A [M, K] B[N, K]^T, times the stream-0
-//      mask of (row m, column n); rows m >= m_valid are zeros.
+// ---- the weight-gradient and dx GEMM, bf16: warp-specialised wgmma ----
+// kDx: C [M, N] bf16 = A [M, K] B[N, K]^T, times the stream-0 mask of
+//      (row m, column n); rows m >= m_valid are zeros. Both operands are
+//      K-major (rows of dqkv, rows of wqkv).
 // else: partial C_z [M, N] fp32 = sum over rows k of slice z of
-//      A[k, m] B[k, n], with A = round(x * stream-0 mask) when thr != 0.
-// 128 x 128 tiles, 8 warps (bf16: each 64 x 32 of wmma fragments; fp32:
-// each thread 8 x 8 by FMA), kGStages-deep cp.async pipeline over 64-byte
-// contraction chunks.
+//      A[k, m] B[k, n]: both operands M/N-major as they lie ([rows,
+//      features]); wgmma reads them through its transpose bits. The rows
+//      past K arrive from TMA as zeros.
+// Persistent: one CTA per SM walks the 128 x kWBN output tiles (and row
+// slices) in a fixed order, column tiles fastest, so the CTAs that run
+// together share their A rows in L2; each tile, slice by slice, is
+// computed whole by one CTA in k order, so its bits do not depend on the
+// CTA count. Warpgroup 0 gives up registers; one of its threads issues the
+// TMA loads of a kWStages-deep ring of 64-deep k-tiles, one stream across
+// all the CTA's tiles (so the next tile's loads overlap this tile's
+// epilogue), handed over through full/empty mbarriers. Warpgroups 1 and 2
+// each own 64 rows of the tile and issue m64n256k16 wgmma with fp32
+// accumulators in registers, one k-tile's products in flight while the
+// next is issued. The epilogue stores from the accumulators: the partials
+// as fp32 pairs, dx in bf16 after a transpose within each quad of lanes,
+// so that every lane stores 16 bytes and each store fills whole sectors.
+// A masked dx reads the stream-0 keep bits that bwd_mask_x_kernel drew,
+// one per element: on an H100, Philox work inside this kernel (in the
+// epilogue, in idle producer warps or beside the main loop's wgmma) cost
+// the news tower's dx 0.5-1.0 ms.
+// The ring is 4 stages deep, 3 for the weight gradients of outputs of at
+// most 512 rows (dW, the user tower's dWqkv); launch_gemm_bf16 chooses by
+// the shape, and the depth does not change the summation order.
+constexpr int kWBM = 128, kWBN = 256, kWBK = 64, kWThreads = 384;
+constexpr int kWAtom = kWBK * 128;  // one [64 k][64 m or n] box of an M/N-major operand
+constexpr int kWABytes = kWBM * kWBK * 2, kWBBytes = kWBN * kWBK * 2;
+constexpr int kWStage = kWABytes + kWBBytes;
+// the ring, its full and empty barriers, and room to align it to 1,024 bytes
+constexpr int wg_smem(int stages) { return stages * kWStage + 2 * stages * 8 + 1024; }
+constexpr int kWKeepWords = kWBN / 32;  // keep-bit words of one tile row
+static_assert(kWBK * 2 == 128, "a k-tile row is one 128-byte swizzle span");
+static_assert(kWABytes % 1024 == 0 && kWStage % 1024 == 0, "tiles stay 1,024-byte aligned");
+static_assert(wg_smem(4) <= kSmemLimit, "the ring fits in shared memory");
+
+struct WgArgs {
+  void* out;
+  int M, N, K, k_per_split, splits, m_valid;
+  const uint32_t* keep;  // dx: keep bits [m_valid, keep_ld] of the mask, or null (no mask)
+  int keep_ld;
+  float inv;             // 1 / keep probability: a kept element's scale
+};
+
+// Tile t of the walk: column tile fastest, then row tile, then slice.
+struct WgTile {
+  int m0, n0, z, k_begin, nk;
+};
+
+template <bool kDx>
+__device__ __forceinline__ WgTile wg_tile(const WgArgs& p, int t) {
+  const int n_tiles = (p.N + kWBN - 1) / kWBN, m_tiles = (p.M + kWBM - 1) / kWBM;
+  WgTile w;
+  w.n0 = (t % n_tiles) * kWBN;
+  w.m0 = (t / n_tiles % m_tiles) * kWBM;
+  w.z = t / (n_tiles * m_tiles);
+  w.k_begin = w.z * p.k_per_split;
+  const int k_end = min(p.K, w.k_begin + p.k_per_split);
+  w.nk = k_end > w.k_begin ? (k_end - w.k_begin + kWBK - 1) / kWBK : 0;
+  if (kDx && w.m0 >= p.m_valid) w.nk = 0;  // rows past n_valid: zeros, nothing loaded
+  return w;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <bool kDx, int kWStages>
+__global__ void __launch_bounds__(kWThreads, 1)
+    bwd_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb, WgArgs p) {
+  extern __shared__ __align__(1024) unsigned char wsm_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wsm_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kWStages * kWStage);
+  uint64_t* empty = full + kWStages;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int tiles = ((p.N + kWBN - 1) / kWBN) * ((p.M + kWBM - 1) / kWBM) * (kDx ? 1 : p.splits);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      hop::tma_prefetch_map(&ta);
+      hop::tma_prefetch_map(&tb);
+      int it = 0;  // k-tiles issued by this CTA
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const WgTile w = wg_tile<kDx>(p, t);
+        for (int kt = 0; kt < w.nk; ++kt, ++it) {
+          const int s = it % kWStages;
+          hop::mbar_wait(&empty[s], ((it / kWStages) & 1) ^ 1);
+          hop::mbar_expect_tx(&full[s], kWStage);
+          unsigned char* a_s = sm + s * kWStage;
+          unsigned char* b_s = a_s + kWABytes;
+          const int k0 = w.k_begin + kt * kWBK;
+          if constexpr (kDx) {
+            hop::tma_load_2d(a_s, &ta, &full[s], k0, w.m0);
+            hop::tma_load_2d(b_s, &tb, &full[s], k0, w.n0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kWBM / 64; ++j)
+              hop::tma_load_2d(a_s + j * kWAtom, &ta, &full[s], w.m0 + 64 * j, k0);
+#pragma unroll
+            for (int j = 0; j < kWBN / 64; ++j)
+              hop::tma_load_2d(b_s + j * kWAtom, &tb, &full[s], w.n0 + 64 * j, k0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of each tile;
+  // thread (warp, lane) holds rows r and r + 8, columns
+  // 8 i + 2 (lane % 4) + {0, 1} of each 8-column group i
+  hop::regs_inc<232>();
+  const int cw = wg - 1;
+  float acc[kWBN / 2];
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WgTile w = wg_tile<kDx>(p, t);
+    const int r = w.m0 + cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < kWBN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < w.nk; ++kt, ++it) {
+      const int s = it % kWStages;
+      hop::mbar_wait(&full[s], (it / kWStages) & 1);
+      const unsigned char* a_s = sm + s * kWStage;
+      const unsigned char* b_s = a_s + kWABytes;
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWBK / 16; ++kk) {
+        const uint64_t da = kDx ? hop::smem_desc(a_s + cw * 64 * 128 + kk * 32, 16, 1024)
+                                : hop::smem_desc(a_s + cw * kWAtom + kk * 2048, kWAtom, 1024);
+        const uint64_t db = kDx ? hop::smem_desc(b_s + kk * 32, 16, 1024)
+                                : hop::smem_desc(b_s + kk * 2048, kWAtom, 1024);
+        hop::wgmma_m64n256k16<kDx ? 0 : 1, kDx ? 0 : 1>(acc, da, db);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // k-tile it - 1 is consumed: hand its stage back
+      if (kt > 0 && lane == 0) hop::mbar_arrive(&empty[(it - 1) % kWStages]);
+    }
+    hop::wgmma_wait<0>();
+    if (w.nk > 0 && lane == 0) hop::mbar_arrive(&empty[(it - 1) % kWStages]);
+    hop::fence_regs(acc);
+
+    if constexpr (kDx) {
+      // keep bits of rows r and r + 8 over the tile's columns (word q:
+      // columns n0 + 32 q + [0, 32)); all kept without a mask
+      uint32_t k0[kWKeepWords], k8[kWKeepWords];
+#pragma unroll
+      for (int q = 0; q < kWKeepWords; ++q) {
+        const bool in = p.keep != nullptr && w.n0 + 32 * q < p.N;
+        k0[q] = in && r < p.m_valid ? p.keep[size_t(r) * p.keep_ld + w.n0 / 32 + q] : ~0u;
+        k8[q] = in && r + 8 < p.m_valid ? p.keep[size_t(r + 8) * p.keep_ld + w.n0 / 32 + q] : ~0u;
+      }
+      const float inv = p.keep != nullptr ? p.inv : 1.f;
+      bf16* C = static_cast<bf16*>(p.out);
+      const int qd = lane % 4;
+#pragma unroll
+      for (int i2 = 0; i2 < kWBN / 16; ++i2) {
+        // this lane's bf16 pairs of groups 2 i2 and 2 i2 + 1, rows r and r + 8
+        uint32_t v[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * i2 + h;
+          const int sh = 8 * (i % 4) + 2 * (lane % 4);
+          const uint32_t b0 = k0[i / 4] >> sh, b8 = k8[i / 4] >> sh;
+          v[h] = pack_bf16(acc[4 * i] * (b0 & 1 ? inv : 0.f), acc[4 * i + 1] * (b0 & 2 ? inv : 0.f));
+          v[2 + h] =
+              pack_bf16(acc[4 * i + 2] * (b8 & 1 ? inv : 0.f), acc[4 * i + 3] * (b8 & 2 ? inv : 0.f));
+        }
+        // 4 x 4 transpose in the quad: lane qd gathers (row r + 8 (qd / 2),
+        // group 2 i2 + qd % 2), the four lanes' pairs in column order
+        uint32_t o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int src = qd ^ k;
+          const uint32_t send = src == 0 ? v[0] : src == 1 ? v[1] : src == 2 ? v[2] : v[3];
+          const uint32_t got = k ? __shfl_xor_sync(0xffffffffu, send, k) : send;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j == src) o[j] = got;
+        }
+        const int row = r + 8 * (qd / 2), col = w.n0 + 16 * i2 + 8 * (qd % 2);
+        if (row < p.M && col < p.N)
+          *reinterpret_cast<uint4*>(C + size_t(row) * p.N + col) =
+              row < p.m_valid ? make_uint4(o[0], o[1], o[2], o[3]) : make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      float* C = static_cast<float*>(p.out) + size_t(w.z) * p.M * p.N;
+#pragma unroll
+      for (int i = 0; i < kWBN / 8; ++i) {
+        const int c = w.n0 + 8 * i + 2 * (lane % 4);
+        if (c >= p.N) continue;
+        if (r < p.M)
+          *reinterpret_cast<float2*>(C + size_t(r) * p.N + c) = make_float2(acc[4 * i], acc[4 * i + 1]);
+        if (r + 8 < p.M)
+          *reinterpret_cast<float2*>(C + size_t(r + 8) * p.N + c) =
+              make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+    }
+  }
+}
+
+// The stream-0 mask of rows [0, rows) and columns [0, cols), drawn once
+// for both products that need it: xm [rows, cols] = round(a * mask) in
+// bf16 (when xm is given; a has row stride lda) and the keep bits [rows,
+// keep_ld] (when keep is given; bit j of word q is column 32 q + j, 0 past
+// cols). A quad of lanes per 32-column word, 8 columns a lane: two Philox
+// calls, one 16-byte load and store, so that a warp reads and writes 512
+// contiguous bytes; the quad ORs its four bytes of the word together.
+// Grid-stride; rows * words * 4 < 2^31 and cols % 8 == 0.
+__global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict__ a, int lda,
+                                                         bf16* __restrict__ xm,
+                                                         uint32_t* __restrict__ keep, int keep_ld,
+                                                         int rows, int cols, philox::Key key,
+                                                         uint32_t thr, float inv) {
+  const int words = (cols + 31) / 32, n = rows * words * 4, j = threadIdx.x % 4;
+  const unsigned quad = 0xFu << (threadIdx.x % 32 & ~3);
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
+    const int r = i / 4 / words, q = i / 4 % words, c = 32 * q + 8 * j;
+    uint32_t b = 0;
+    if (c < cols)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 x = philox::philox4x32_10(make_uint4(uint32_t(r), uint32_t(c / 4 + h), 0u, 0u), key);
+        b |= (uint32_t((x.x >> 8) < thr) | uint32_t((x.y >> 8) < thr) << 1 |
+              uint32_t((x.z >> 8) < thr) << 2 | uint32_t((x.w >> 8) < thr) << 3)
+             << (4 * h);
+      }
+    if (keep != nullptr) {
+      uint32_t word = b << (8 * j);
+      word |= __shfl_xor_sync(quad, word, 1);
+      word |= __shfl_xor_sync(quad, word, 2);
+      if (j == 0) keep[size_t(r) * keep_ld + q] = word;
+    }
+    if (xm != nullptr && c < cols) {
+      uint4 u = *reinterpret_cast<const uint4*>(a + size_t(r) * lda + c);
+      bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        e[k] = __float2bfloat16_rn(__bfloat162float(e[k]) * ((b >> k) & 1 ? inv : 0.f));
+      *reinterpret_cast<uint4*>(xm + size_t(r) * cols + c) = u;
+    }
+  }
+}
+
+// ---- the same products in fp32 (the fp32 checks): FMA ----
+// 128 x 128 tiles, 256 threads each 8 x 8 by FMA, kGStages-deep cp.async
+// pipeline over 64-byte contraction chunks; the weight gradient's A is
+// masked in shared memory when thr != 0.
 constexpr int kBM = 128, kBN = 128, kGThreads = 256, kGBytes = 64, kGStages = 3;
 
-template <typename T, bool kDx>
+template <bool kDx>
 struct GemmTiles {
-  static constexpr int VE = 16 / sizeof(T);
-  static constexpr int BK = kGBytes / sizeof(T);
+  static constexpr int VE = 4;
+  static constexpr int BK = kGBytes / 4;
   // A: kDx [BM][BK + VE] (m rows), else [BK][BM + VE] (k rows)
   static constexpr int lda = kDx ? BK + VE : kBM + VE;
   static constexpr int a_elems = kDx ? kBM * lda : BK * lda;
   // B: kDx [BN][BK + VE] (n rows), else [BK][BN + VE] (k rows)
   static constexpr int ldb = kDx ? BK + VE : kBN + VE;
   static constexpr int b_elems = kDx ? kBN * ldb : BK * ldb;
-  static constexpr int stage = ((a_elems + b_elems) * int(sizeof(T)) + 127) / 128 * 128;
-  static constexpr int scratch = kGThreads / 32 * 16 * 16 * 4;  // one fragment per warp
-  static constexpr int total = kGStages * stage + scratch;
+  static constexpr int stage = ((a_elems + b_elems) * 4 + 127) / 128 * 128;
+  static constexpr int total = kGStages * stage;
 };
 
-template <typename T, bool kDx>
-__global__ void __launch_bounds__(kGThreads) gemm_kernel(const T* __restrict__ A,
-                                                         const T* __restrict__ Bm, void* out,
-                                                         int M, int N, int K, int lda_g, int ldb_g,
-                                                         int k_per_split, int m_valid,
-                                                         philox::Key key, uint32_t thr, float inv) {
-  using G = GemmTiles<T, kDx>;
+template <bool kDx>
+__global__ void __launch_bounds__(kGThreads) bwd_gemm_fma_kernel(
+    const float* __restrict__ A, const float* __restrict__ Bm, float* out, int M, int N, int K,
+    int lda_g, int ldb_g, int k_per_split, int m_valid, philox::Key key, uint32_t thr, float inv) {
+  using G = GemmTiles<kDx>;
   constexpr int VE = G::VE, BK = G::BK;
   extern __shared__ __align__(128) unsigned char sm[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int k_begin = blockIdx.z * k_per_split, k_end = min(K, k_begin + k_per_split);
 
   if (kDx && m0 >= m_valid) {  // rows past n_valid: zeros
-    T* C = static_cast<T*>(out);
     for (int i = tid; i < kBM * kBN; i += kGThreads) {
       const int m = m0 + i / kBN, n = n0 + i % kBN;
-      if (m < M && n < N) C[size_t(m) * N + n] = from_f<T>(0.f);
+      if (m < M && n < N) out[size_t(m) * N + n] = 0.f;
     }
     return;
   }
-  auto As = [&](int s) { return reinterpret_cast<T*>(sm + s * G::stage); };
-  auto Bs = [&](int s) { return reinterpret_cast<T*>(sm + s * G::stage) + G::a_elems; };
+  auto As = [&](int s) { return reinterpret_cast<float*>(sm + s * G::stage); };
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(sm + s * G::stage) + G::a_elems; };
   auto issue = [&](int kc, int s) {
     const int k0 = k_begin + kc * BK;
-    T* a_s = As(s);
-    T* b_s = Bs(s);
+    float* a_s = As(s);
+    float* b_s = Bs(s);
     if constexpr (kDx) {
       for (int i = tid; i < kBM * (BK / VE); i += kGThreads) {
         const int r = i / (BK / VE), c = (i % (BK / VE)) * VE, m = m0 + r, k = k0 + c;
@@ -498,145 +767,100 @@ __global__ void __launch_bounds__(kGThreads) gemm_kernel(const T* __restrict__ A
       }
     }
   };
-  // A = round(x * mask) for the weight gradient: rows k, columns m
-  auto mask_a = [&](int kc, int s) {
-    if (!kDx && thr) {
+  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  // thread (ty, tx) owns rows ty*8 + [0,8) and columns tx + 16*[0,8)
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  pipeline<kGStages>(nk, issue, [&](int kc, int s) {
+    if (!kDx && thr) {  // A = x * mask for the weight gradient: rows k, columns m
       const int k0 = k_begin + kc * BK;
-      mask_x_tile<T>(As(s), G::lda, k_end - k0, BK, m0, kBM, M, EmbDrop{key, thr, inv, k0});
+      mask_x_tile<float>(As(s), G::lda, k_end - k0, BK, m0, kBM, M, EmbDrop{key, thr, inv, k0});
       __syncthreads();
     }
-  };
-  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<kDx, wmma::row_major, wmma::col_major>::type;
-    using LB = typename std::conditional<kDx, wmma::col_major, wmma::row_major>::type;
-    const int wm = warp / 4, wn = warp % 4;  // warp tile: rows wm*64, cols wn*32
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+    const float* a_s = As(s);
+    const float* b_s = Bs(s);
+    for (int k = 0; k < BK; ++k) {
+      float av[8], bv[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    pipeline<kGStages>(nk, issue, [&](int kc, int s) {
-      mask_a(kc, s);
-      const T* a_s = As(s);
-      const T* b_s = Bs(s);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> af[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int mm = wm * 64 + i * 16;
-          wmma::load_matrix_sync(af[i], kDx ? a_s + mm * G::lda + kk : a_s + kk * G::lda + mm,
-                                 G::lda);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int nn = wn * 32 + j * 16;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> bfr;
-          wmma::load_matrix_sync(bfr, kDx ? b_s + nn * G::ldb + kk : b_s + kk * G::ldb + nn,
-                                 G::ldb);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-        }
+      for (int i = 0; i < 8; ++i) {
+        const int mm = ty * 8 + i;
+        av[i] = kDx ? a_s[mm * G::lda + k] : a_s[k * G::lda + mm];
       }
-    });
-    // epilogue, one fragment at a time through the warp's scratch tile
-    float* sc = reinterpret_cast<float*>(sm + kGStages * G::stage) + warp * 256;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int mb = m0 + wm * 64 + i * 16, nb = n0 + wn * 32 + j * 16;
-        if constexpr (kDx) {
-          T* C = static_cast<T*>(out);
-          for (int e4 = lane; e4 < 64; e4 += 32) {
-            const int r = e4 / 4, c = (e4 % 4) * 4, m = mb + r, n = nb + c;
-            if (m >= M) continue;
-            float4 mk = make_float4(1.f, 1.f, 1.f, 1.f);
-            if (thr && m < m_valid && n < N)
-              mk = philox::mask4(key, uint32_t(m), uint32_t(n >> 2), 0u, thr, inv);
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (n + q < N)
-                C[size_t(m) * N + n + q] =
-                    from_f<T>(m < m_valid ? sc[r * 16 + c + q] * philox::pick(mk, q) : 0.f);
-          }
-        } else {
-          float* C = static_cast<float*>(out) + size_t(blockIdx.z) * M * N;
-          for (int e = lane; e < 256; e += 32) {
-            const int m = mb + e / 16, n = nb + e % 16;
-            if (m < M && n < N) C[size_t(m) * N + n] = sc[e];
-          }
-        }
-        __syncwarp();
-      }
-  } else {
-    // fp32: thread (ty, tx) owns rows ty*8 + [0,8) and columns tx + 16*[0,8)
-    const int ty = tid / 16, tx = tid % 16;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    pipeline<kGStages>(nk, issue, [&](int kc, int s) {
-      mask_a(kc, s);
-      const T* a_s = As(s);
-      const T* b_s = Bs(s);
-      for (int k = 0; k < BK; ++k) {
-        float av[8], bv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int mm = ty * 8 + i;
-          av[i] = to_f<T>(kDx ? a_s[mm * G::lda + k] : a_s[k * G::lda + mm]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int nn = tx + 16 * j;
-          bv[j] = to_f<T>(kDx ? b_s[nn * G::ldb + k] : b_s[k * G::ldb + nn]);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
-      }
-    });
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int m = m0 + ty * 8 + i, n = n0 + tx + 16 * j;
-        if (m >= M || n >= N) continue;
-        if constexpr (kDx) {
-          const float mk = thr && m < m_valid ? philox::mask1(key, m, n, 0u, thr, inv) : 1.f;
-          static_cast<T*>(out)[size_t(m) * N + n] = from_f<T>(m < m_valid ? acc[i][j] * mk : 0.f);
-        } else {
-          (static_cast<float*>(out) + size_t(blockIdx.z) * M * N)[size_t(m) * N + n] = acc[i][j];
-        }
+        const int nn = tx + 16 * j;
+        bv[j] = kDx ? b_s[nn * G::ldb + k] : b_s[k * G::ldb + nn];
       }
-  }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = m0 + ty * 8 + i, n = n0 + tx + 16 * j;
+      if (m >= M || n >= N) continue;
+      if constexpr (kDx) {
+        const float mk = thr && m < m_valid ? philox::mask1(key, m, n, 0u, thr, inv) : 1.f;
+        out[size_t(m) * N + n] = m < m_valid ? acc[i][j] * mk : 0.f;
+      } else {
+        out[size_t(blockIdx.z) * M * N + size_t(m) * N + n] = acc[i][j];
+      }
+    }
 }
 
-// out[c] = sum over r of part[r, c], r in order within each of 8 warps,
-// then the 8 warp sums in order: the same bits on every run.
-__global__ void reduce_rows_kernel(const float* __restrict__ part, int nrows, long long ncols,
-                                   float* __restrict__ out) {
-  __shared__ float s[8][33];
+// ---- fixed-order reduction ----
+// out_y[c] = sum of part[r, c] over the rows r of chunk y (rows_per_chunk
+// rows each). V columns (one 16-byte load when V = 4) per lane; the 8
+// warps of a block either stride the chunk's rows together (rw = 8; the
+// warp sums are then added in warp order) or each take other columns
+// (rw = 1). The order is a function of the shape and the plan alone.
+template <int V>
+__global__ void __launch_bounds__(256) reduce_rows_kernel(const float* __restrict__ part,
+                                                          int nrows, long long ncols,
+                                                          int rows_per_chunk, int rw,
+                                                          float* __restrict__ out) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  __shared__ Vec s[8][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long c = blockIdx.x * 32LL + lane;
-  float acc = 0.f;
-  if (c < ncols)
-    for (int r = warp; r < nrows; r += 8) acc += part[r * ncols + c];
-  s[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && c < ncols) {
-    float v = 0.f;
+  const int wr = warp % rw, wc = warp / rw;
+  const long long nvec = ncols / V;
+  const long long g = (blockIdx.x * (8LL / rw) + wc) * 32 + lane;
+  const int r0 = blockIdx.y * rows_per_chunk, r1 = min(nrows, r0 + rows_per_chunk);
+  const Vec* src = reinterpret_cast<const Vec*>(part);
+  float a[V];
 #pragma unroll
-    for (int w = 0; w < 8; ++w) v += s[w][lane];
-    out[c] = v;
+  for (int j = 0; j < V; ++j) a[j] = 0.f;
+  if (g < nvec) {
+#pragma unroll 4
+    for (int r = r0 + wr; r < r1; r += rw) {
+      const Vec v = src[r * nvec + g];
+      const float* e = reinterpret_cast<const float*>(&v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) a[j] += e[j];
+    }
   }
+  if (rw > 1) {
+    *reinterpret_cast<Vec*>(&s[warp][lane]) = *reinterpret_cast<const Vec*>(a);
+    __syncthreads();
+    if (wr != 0) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) a[j] = 0.f;
+    for (int q = 0; q < rw; ++q) {
+      const float* e = reinterpret_cast<const float*>(&s[wc * rw + q][lane]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) a[j] += e[j];
+    }
+  }
+  if (g < nvec)
+    reinterpret_cast<Vec*>(out + blockIdx.y * ncols)[g] = *reinterpret_cast<const Vec*>(a);
 }
 
 template <typename T>
@@ -659,23 +883,117 @@ int launch_core(BwdArgs& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <typename T, bool kDx>
-int launch_gemm(const void* A, const void* Bm, void* out, int M, int N, int K, int lda, int ldb,
-                int splits, int m_valid, philox::Key key, uint32_t thr, float inv,
-                cudaStream_t stream) {
-  constexpr int VE = 16 / sizeof(T), BK = GemmTiles<T, kDx>::BK;
-  if (M < 1 || N < 1 || K < 0 || splits < 1 || lda % VE || ldb % VE ||
-      (kDx ? K % VE : (M % VE || N % VE)) || (thr && (kDx ? N % 4 : M % 4)))
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime, so the
+// library links against nothing beyond the CUDA runtime.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major bf16 matrix [outer][inner] (row stride ld elements) as a
+// tensor map of [box_outer][box_inner] boxes, 128-byte swizzled; reads
+// past the extent give zeros.
+bool bf16_map(CUtensorMap* map, const void* ptr, int inner, int outer, int ld, int box_inner,
+              int box_outer) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 8) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(std::max(inner, 1)), cuuint64_t(std::max(outer, 1))};
+  const cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
+  const cuuint32_t box[2] = {cuuint32_t(box_inner), cuuint32_t(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kDx, int kWStages>
+int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, const WgArgs& p, long long tiles,
+                 cudaStream_t stream) {
+  auto kern = bwd_gemm_wgmma_kernel<kDx, kWStages>;
+  constexpr int smem = wg_smem(kWStages);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return int(e);
+  kern<<<unsigned(std::min<long long>(tiles, sms)), kWThreads, smem, stream>>>(ta, tb, p);
+  return int(cudaGetLastError());
+}
+
+template <bool kDx>
+int launch_gemm_bf16(const void* A, const void* Bm, void* out, const uint32_t* keep, int keep_ld,
+                     int M, int N, int K, int lda, int ldb, int splits, int kps, int m_valid,
+                     float inv, cudaStream_t stream) {
+  const int m_tiles = (M + kWBM - 1) / kWBM, n_tiles = (N + kWBN - 1) / kWBN;
+  if (M < 1 || N < 1 || K < 0 || N % (kDx ? 8 : 2) ||
+      (long long)m_tiles * n_tiles * splits > (1LL << 31) - 1 ||
+      (keep != nullptr && keep_ld < (N + 31) / 32) ||
+      (!kDx && (splits < 1 || kps < kWBK || kps % kWBK)))
     return int(cudaErrorInvalidValue);
-  const int kps = kDx ? K : ((K + splits - 1) / splits + BK - 1) / BK * BK;
-  auto kern = gemm_kernel<T, kDx>;
-  constexpr int smem = GemmTiles<T, kDx>::total;
+  CUtensorMap ta, tb;
+  const bool ok = kDx ? bf16_map(&ta, A, K, M, lda, kWBK, kWBM) && bf16_map(&tb, Bm, K, N, ldb, kWBK, kWBN)
+                      : bf16_map(&ta, A, M, K, lda, 64, kWBK) && bf16_map(&tb, Bm, N, K, ldb, 64, kWBK);
+  if (!ok) return int(cudaErrorInvalidValue);
+  const long long tiles = (long long)n_tiles * m_tiles * (kDx ? 1 : splits);
+  const WgArgs p{out, M, N, K, kDx ? K : kps, kDx ? 1 : splits, kDx ? m_valid : 0, keep, keep_ld, inv};
+  // the ring's depth: 3 stages for the weight gradient of an output of at
+  // most 512 rows, where 3 beat 4 on an H100 (PERF.md), else 4
+  if constexpr (!kDx)
+    if (M <= 4 * kWBM) return launch_wgmma<false, 3>(ta, tb, p, tiles, stream);
+  return launch_wgmma<kDx, 4>(ta, tb, p, tiles, stream);
+}
+
+template <bool kDx>
+int launch_gemm_fp32(const void* A, const void* Bm, void* out, int M, int N, int K, int lda,
+                     int ldb, int splits, int kps, int m_valid, philox::Key key, uint32_t thr,
+                     float inv, cudaStream_t stream) {
+  if (M < 1 || N < 1 || K < 0 || lda % 4 || ldb % 4 || (kDx ? K % 4 : (M % 4 || N % 4)) ||
+      (thr && (kDx ? N % 4 : M % 4)) || (!kDx && (splits < 1 || kps < 1)))
+    return int(cudaErrorInvalidValue);
+  auto kern = bwd_gemm_fma_kernel<kDx>;
+  constexpr int smem = GemmTiles<kDx>::total;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, kDx ? 1 : splits);
-  kern<<<grid, kGThreads, smem, stream>>>(
-      static_cast<const T*>(A), static_cast<const T*>(Bm), out, M, N, K, lda, ldb,
-      kps > 0 ? kps : BK, m_valid, key, thr, inv);
+  kern<<<grid, kGThreads, smem, stream>>>(static_cast<const float*>(A),
+                                           static_cast<const float*>(Bm), static_cast<float*>(out),
+                                           M, N, K, lda, ldb, kDx ? std::max(K, 1) : kps, m_valid, key,
+                                           thr, inv);
+  return int(cudaGetLastError());
+}
+
+// One pass of the reduction: chunks of rows_per_chunk rows of part
+// [nrows, ncols] into out [chunks, ncols].
+int reduce_pass(const float* part, int nrows, long long ncols, int rows_per_chunk, float* out,
+                cudaStream_t stream) {
+  const int rw = rows_per_chunk > 32 ? 8 : 1;
+  const int chunks = (nrows + rows_per_chunk - 1) / rows_per_chunk;
+  const bool v4 = ncols % 4 == 0 && reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long nvec = v4 ? ncols / 4 : ncols;
+  const long long per_block = 32LL * (8 / rw);
+  const dim3 grid(unsigned((nvec + per_block - 1) / per_block), unsigned(std::max(chunks, 1)));
+  if (v4)
+    reduce_rows_kernel<4><<<grid, 256, 0, stream>>>(part, nrows, ncols, rows_per_chunk, rw, out);
+  else
+    reduce_rows_kernel<1><<<grid, 256, 0, stream>>>(part, nrows, ncols, rows_per_chunk, rw, out);
   return int(cudaGetLastError());
 }
 
@@ -708,30 +1026,68 @@ int news_encoder_bwd_core(const void* x, const void* wqkv, const void* w_att, co
 }
 
 // is_dx: out [M, N] (compute dtype) = A [M, K] (row stride lda) times
-//   B [N, K]^T (row stride ldb), times the stream-0 mask when thr != 0;
-//   rows >= m_valid are zeros.
+//   B [N, K]^T (row stride ldb), times the stream-0 mask; rows >= m_valid
+//   are zeros.
 // else: out [splits, M, N] fp32 partials of A^T B over rows [0, K) cut into
-//   `splits` slices, A [K, M] (stride lda; masked by stream 0 when
-//   thr != 0), B [K, N] (stride ldb).
-int news_encoder_gemm(const void* A, const void* B, void* out, int M, int N, int K, int lda,
-                      int ldb, int is_dx, int splits, int m_valid, int is_bf16, unsigned seed_lo,
+//   `splits` slices of k_per_split rows (a multiple of 64), A [K, M]
+//   (stride lda; times the stream-0 mask), B [K, N] (stride ldb).
+// bf16 runs on the tensor cores and takes the mask as news_encoder_mask_x
+// draws it: dx reads its keep bits [m_valid, keep_ld] (null: no mask) and
+// scales kept elements by inv; the weight gradient's A comes masked. fp32
+// draws the mask in the kernel from (seed, thr, inv); thr = 0: no mask.
+int news_encoder_gemm(const void* A, const void* B, void* out, const void* keep, int keep_ld,
+                      int M, int N, int K, int lda, int ldb, int is_dx, int splits,
+                      int k_per_split, int m_valid, int is_bf16, unsigned seed_lo,
                       unsigned seed_hi, unsigned thr, float inv, void* stream) {
   const philox::Key key{seed_lo, seed_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* kb = static_cast<const uint32_t*>(keep);
   if (is_bf16)
-    return is_dx ? launch_gemm<bf16, true>(A, B, out, M, N, K, lda, ldb, 1, m_valid, key, thr, inv, s)
-                 : launch_gemm<bf16, false>(A, B, out, M, N, K, lda, ldb, splits, 0, key, thr, inv, s);
-  return is_dx ? launch_gemm<float, true>(A, B, out, M, N, K, lda, ldb, 1, m_valid, key, thr, inv, s)
-               : launch_gemm<float, false>(A, B, out, M, N, K, lda, ldb, splits, 0, key, thr, inv, s);
+    return is_dx ? launch_gemm_bf16<true>(A, B, out, kb, keep_ld, M, N, K, lda, ldb, 1, 0, m_valid,
+                                          inv, s)
+                 : launch_gemm_bf16<false>(A, B, out, nullptr, 0, M, N, K, lda, ldb, splits,
+                                           k_per_split, 0, inv, s);
+  return is_dx ? launch_gemm_fp32<true>(A, B, out, M, N, K, lda, ldb, 1, 0, m_valid, key, thr, inv, s)
+               : launch_gemm_fp32<false>(A, B, out, M, N, K, lda, ldb, splits, k_per_split, 0, key,
+                                         thr, inv, s);
 }
 
-// out [ncols] = sum of part [nrows, ncols] over rows, in a fixed order.
-int news_encoder_reduce(const void* part, int nrows, long long ncols, void* out, void* stream) {
-  if (nrows < 0 || ncols < 1) return int(cudaErrorInvalidValue);
-  const long long blocks = (ncols + 31) / 32;
-  reduce_rows_kernel<<<unsigned(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), nrows, ncols, static_cast<float*>(out));
+// The stream-0 mask of rows [0, rows), columns [0, cols): xm [rows, cols]
+// = round(x * mask) in bf16 (x [rows, cols] with row stride ldx; skipped
+// when xm is null) and the keep bits [rows, keep_ld] (skipped when keep is
+// null).
+int news_encoder_mask_x(const void* x, int ldx, void* xm, void* keep, int keep_ld, int rows,
+                        int cols, unsigned seed_lo, unsigned seed_hi, unsigned thr, float inv,
+                        void* stream) {
+  const long long n = (long long)rows * ((cols + 31) / 32) * 4;
+  if (rows < 0 || cols < 1 || cols % 8 || thr == 0 || n >= (1LL << 31) ||
+      (keep != nullptr && keep_ld < (cols + 31) / 32) ||
+      (xm != nullptr && (x == nullptr || ldx % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+                         reinterpret_cast<uintptr_t>(xm) % 16)))
+    return int(cudaErrorInvalidValue);
+  if (n > 0)
+    bwd_mask_x_kernel<<<unsigned(std::min((n + 255) / 256, 132LL * 16)), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x), ldx, static_cast<bf16*>(xm), static_cast<uint32_t*>(keep),
+        keep_ld, rows, cols, philox::Key{seed_lo, seed_hi}, thr, inv);
   return int(cudaGetLastError());
+}
+
+// out [ncols] = sum of part [nrows, ncols] over rows, in a fixed order:
+// chunks of rows_per_chunk rows, summed into scratch [chunks, ncols]
+// when there is more than one chunk, then the chunk sums in order.
+int news_encoder_reduce(const void* part, int nrows, long long ncols, int rows_per_chunk,
+                        void* scratch, void* out, void* stream) {
+  if (nrows < 0 || ncols < 1 || rows_per_chunk < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(part);
+  float* dst = static_cast<float*>(out);
+  if (nrows <= rows_per_chunk) return reduce_pass(src, nrows, ncols, std::max(nrows, 1), dst, s);
+  if (scratch == nullptr) return int(cudaErrorInvalidValue);
+  const int chunks = (nrows + rows_per_chunk - 1) / rows_per_chunk;
+  const int e = reduce_pass(src, nrows, ncols, rows_per_chunk, static_cast<float*>(scratch), s);
+  if (e != 0) return e;
+  return reduce_pass(static_cast<const float*>(scratch), chunks, ncols, chunks, dst, s);
 }
 
 const char* news_encoder_bwd_error_string(int code) {

@@ -13,8 +13,8 @@ from an external 0/1 ``drop_mask`` [N, T, D] with ``keep_prob``.
 
 ``fused_news_encoder_bwd`` is the port of the recompute backward
 ``_news_encoder_bwd`` (``csrc/news_encoder_bwd.cu``: a per-block kernel,
-a tiled GEMM for dx and the weight gradients, and a fixed-order
-reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
+the x mask drawn once, a wgmma GEMM for dx and the weight gradients, and
+a fixed-order reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
 ``torch.autograd.Function`` whose forward launches K1 and whose backward
 launches K2; on the CPU autograd of the plain version.
 
@@ -28,6 +28,7 @@ w_att [D, A]; b_att [A]; q_att [A, 1]; output [N, D] fp32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -37,14 +38,22 @@ from . import _build, philox
 
 __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "news_encoder",
            "news_encoder_reference", "news_encoder_bwd_reference", "pack_weights", "pack_qkv",
-           "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "reduce_rows", "NewsEncoderFunction"]
+           "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
+           "emb_mask", "emb_mask_reference", "pack_bits",
+           "reduce_rows", "reduce_plan", "NewsEncoderFunction"]
 
 _PANEL = 256         # packed QKV columns per head group (one GEMM panel of the kernel)
 _MAX_T = 32          # one warp lane per token in the kernel's pooling softmax
 _MAX_HEAD_DIM = 32
 _MAX_ATT_DIM = 256   # padded attention width: one pooling column per thread
 _SMEM_LIMIT = 232448
-_GEMM_TILE = 128     # rows and columns of one GEMM tile (csrc/news_encoder_bwd.cu)
+_GEMM_TILE = (128, 256)  # rows and columns of one bf16 GEMM tile (csrc/news_encoder_bwd.cu)
+_GEMM_K_TILE = 64        # rows of a k-tile; a weight-gradient slice is a multiple of it
+_SMS = 132               # streaming multiprocessors of an H100 SXM
+_MAX_SLICES = 64         # weight-gradient slices at most (partials: slices x M x N fp32)
+_MIN_SLICE_ROWS = 4096   # rows of a slice at least (64 k-tiles)
+_REDUCE_BLOCKS = 2 * _SMS  # blocks the reduction aims for (two per SM)
+_REDUCE_MIN_ROWS = 64    # rows of a reduction chunk at least
 
 
 def _round(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -171,9 +180,11 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.news_encoder_bwd_core.argtypes = [p] * 11 + [i] * 9 + [f, i, u, u, u, u, f, f, p, f, p]
     lib.news_encoder_bwd_core.restype = i
-    lib.news_encoder_gemm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, u, u, u, f, p]
+    lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 11 + [u, u, u, f, p]
     lib.news_encoder_gemm.restype = i
-    lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, p, p]
+    lib.news_encoder_mask_x.argtypes = [p, i, p, p, i, i, i, u, u, u, f, p]
+    lib.news_encoder_mask_x.restype = i
+    lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, i, p, p, p]
     lib.news_encoder_reduce.restype = i
     lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i]
     lib.news_encoder_bwd_smem_bytes.restype = ctypes.c_longlong
@@ -182,10 +193,12 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     return bind(_build.load("news_encoder"))
 
 
+@functools.lru_cache(maxsize=None)
 def _library_bwd() -> ctypes.CDLL:
     return bind_bwd(_build.load("news_encoder_bwd"))
 
@@ -359,39 +372,73 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def gemm_splits(m: int, n: int, rows: int) -> int:
+    """Row slices of a weight-gradient GEMM [rows] -> [m, n], one fp32
+    partial each. Of the slice counts s up to ``_MAX_SLICES`` that keep a
+    slice at ``_MIN_SLICE_ROWS`` rows or more, the one with the least waves
+    of CTAs per slice's share of the rows, ceil(tiles * s / 132) / s
+    (tiles: 128 x 256 output tiles), or the smallest s within 2% of it. A
+    function of the shapes alone, so a gradient's summation order (and its
+    bits) is the same on every run and every card."""
+    tiles = -(-m // _GEMM_TILE[0]) * -(-n // _GEMM_TILE[1])
+    top = max(1, min(_MAX_SLICES, rows // _MIN_SLICE_ROWS))
+    cost = {s: -(-tiles * s // _SMS) / s for s in range(1, top + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.02 * best)
+
+
+def slice_rows(rows: int, splits: int) -> int:
+    """Rows of each slice: the rows cut into ``splits`` slices, rounded up
+    to a whole k-tile (the last slice takes what is left, or nothing)."""
+    per = -(-rows // splits)
+    return max(1, -(-per // _GEMM_K_TILE)) * _GEMM_K_TILE
+
+
 def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
-             drop: Dropout = Dropout(), splits: int = 1) -> torch.Tensor:
-    """The backward's tiled GEMM (``csrc/news_encoder_bwd.cu``) on CUDA
-    tensors in the compute dtype, masked by Philox stream 0 when
-    ``drop.thr_emb``:
+             drop: Dropout = Dropout(), splits: int = 1, keep=None) -> torch.Tensor:
+    """The backward's GEMM (``csrc/news_encoder_bwd.cu``) on CUDA tensors in
+    the compute dtype, masked by Philox stream 0 when ``drop.thr_emb``:
 
     - ``dx=True``: a = dqkv [M, K], b = wqkv [N, K] -> (a b^T) * mask
       [M, N] in a's dtype, rows at or past ``rows`` zero;
     - ``dx=False``: a [R, M], b [R, N] -> fp32 partials [splits, M, N] of
       round(a * mask)^T b over rows [0, rows), cut into ``splits`` slices
-      (``reduce_rows`` sums them)."""
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
+      of ``slice_rows`` rows (``reduce_rows`` sums them).
+
+    bf16 runs on the tensor cores (wgmma, TMA) and takes the mask as
+    ``emb_mask`` draws it: dx from ``keep``, its keep bits (scaled by
+    ``drop.inv_emb``); the weight gradient from a masked a, with
+    ``Dropout()``. fp32 runs by FMA and draws the mask in the kernel."""
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("a and b must share the compute dtype (float32 or bfloat16)")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
+    is_bf16 = a.dtype == torch.bfloat16
+    if is_bf16 and drop.thr_emb and not (dx and keep is not None):
+        raise ValueError("bf16 takes the stream-0 mask as emb_mask draws it (keep bits or a masked a)")
+    if keep is not None and (keep.dtype != torch.int32 or not keep.is_contiguous()
+                             or keep.shape[0] < rows):
+        raise ValueError("keep must be contiguous int32 [rows, words]")
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
     if dx:
         (m, k), n = a.shape, b.shape[0]
         if b.shape[1] != k:
             raise ValueError(f"a is [{m}, {k}], b is {tuple(b.shape)}")
         out = torch.empty(m, n, dtype=a.dtype, device=a.device)
-        kk, lda, ldb = k, k, k
+        kk, lda, ldb, kps = k, k, k, k
     else:
         m, n = a.shape[1], b.shape[1]
         if not 0 <= rows <= min(a.shape[0], b.shape[0]):
             raise ValueError(f"rows={rows} outside [0, {min(a.shape[0], b.shape[0])}]")
         out = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
-        kk, lda, ldb = rows, m, n
+        kk, lda, ldb, kps = rows, m, n, slice_rows(rows, splits)
     lib = _library_bwd()
     with torch.cuda.device(a.device):
-        err = lib.news_encoder_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, kk, lda,
-                                    ldb, int(dx), splits, rows, int(a.dtype == torch.bfloat16),
+        err = lib.news_encoder_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    None if keep is None else keep.data_ptr(),
+                                    0 if keep is None else keep.shape[1], m, n, kk,
+                                    lda, ldb, int(dx), splits, kps, rows, int(is_bf16),
                                     drop.seed_lo, drop.seed_hi, drop.thr_emb, drop.inv_emb,
                                     _stream(a.device))
     _check_launch(lib, err, "news_encoder_gemm", lib.news_encoder_bwd_error_string)
@@ -400,6 +447,56 @@ def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
 
 
 bwd_gemm.launches = 0
+
+
+def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None) -> tuple:
+    """The stream-0 (embedding) mask of rows [0, rows), columns [0, width),
+    drawn once by K2's mask kernel (CUDA) for both products that need it:
+    (xm, keep) with xm = round(x[:rows] * mask) [rows, width] in bf16 (None
+    when x is None) and keep [rows, ceil(width / 32)] int32, bit j of word
+    q keeping column 32 q + j."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if not drop.thr_emb:
+        raise ValueError("emb_mask needs the stream-0 mask (drop.thr_emb)")
+    keep = torch.empty(rows, -(-width // 32), dtype=torch.int32, device=dev)
+    xm = None
+    if x is not None:
+        if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[1] != width:
+            raise ValueError(f"x must be contiguous bf16 [R, {width}]")
+        xm = torch.empty(rows, width, dtype=x.dtype, device=dev)
+    lib = _library_bwd()
+    with torch.cuda.device(dev):
+        err = lib.news_encoder_mask_x(None if x is None else x.data_ptr(), width,
+                                      None if xm is None else xm.data_ptr(), keep.data_ptr(),
+                                      keep.shape[1], rows, width, drop.seed_lo, drop.seed_hi,
+                                      drop.thr_emb, drop.inv_emb, _stream(dev))
+    _check_launch(lib, err, "news_encoder_mask_x", lib.news_encoder_bwd_error_string)
+    emb_mask.launches += 1
+    return xm, keep
+
+
+emb_mask.launches = 0
+
+
+def pack_bits(kept: torch.Tensor) -> torch.Tensor:
+    """[rows, width] bool -> [rows, ceil(width / 32)] int32, bit j of word q
+    holding column 32 q + j (zeros past width): the layout of ``emb_mask``."""
+    rows, width = kept.shape
+    words = -(-width // 32)
+    padded = torch.zeros(rows, words * 32, dtype=torch.int64, device=kept.device)
+    padded[:, :width] = kept.to(torch.int64)
+    vals = (padded.reshape(rows, words, 32) << torch.arange(32, device=kept.device)).sum(-1)
+    return torch.where(vals >= 1 << 31, vals - (1 << 32), vals).to(torch.int32)
+
+
+def emb_mask_reference(rows: int, width: int, seed, emb_keep: float, x=None) -> tuple:
+    """Plain version of ``emb_mask`` from ``philox.mask``."""
+    device = "cpu" if x is None else x.device
+    m = philox.mask(seed, philox.STREAM_EMB, rows, width, emb_keep, device=device)
+    xm = None if x is None else (x[:rows].float() * m).to(x.dtype)
+    return xm, pack_bits(m > 0)
 
 
 def bwd_gemm_reference(a, b, *, dx: bool, rows: int, drop: Dropout = Dropout(),
@@ -422,6 +519,20 @@ def bwd_gemm_reference(a, b, *, dx: bool, rows: int, drop: Dropout = Dropout(),
     return af.T @ bf[:rows]
 
 
+def reduce_plan(nrows: int, ncols: int) -> int:
+    """Rows per chunk of ``reduce_rows``' first pass. One chunk (one pass)
+    when the columns alone give ``_REDUCE_BLOCKS`` blocks; else the rows
+    are cut into chunks of at least ``_REDUCE_MIN_ROWS`` rows, as many as
+    that many blocks need (or the rows allow), and a second pass adds the
+    chunk sums in order.
+    Depends on the shape alone."""
+    vec = 4 if ncols % 4 == 0 else 1
+    per_block = 32 * (1 if nrows > 32 else 8)  # column groups of a block (csrc)
+    blocks = -(-(ncols // vec) // per_block)
+    chunks = min(-(-_REDUCE_BLOCKS // blocks), nrows // _REDUCE_MIN_ROWS)
+    return -(-nrows // chunks) if chunks > 1 else max(nrows, 1)
+
+
 def reduce_rows(part: torch.Tensor) -> torch.Tensor:
     """Sum of ``part`` [R, C] fp32 (CUDA) over its rows in a fixed order
     (the same bits on every run) -> [C]."""
@@ -430,10 +541,15 @@ def reduce_rows(part: torch.Tensor) -> torch.Tensor:
     part = part.reshape(part.shape[0], -1)
     if part.dtype != torch.float32 or not part.is_contiguous():
         raise ValueError("part must be contiguous fp32")
-    out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
+    nrows, ncols = part.shape
+    per_chunk = reduce_plan(nrows, ncols)
+    out = torch.empty(ncols, dtype=torch.float32, device=part.device)
+    scratch = (torch.empty(-(-nrows // per_chunk), ncols, dtype=torch.float32, device=part.device)
+               if nrows > per_chunk else None)
     lib = _library_bwd()
     with torch.cuda.device(part.device):
-        err = lib.news_encoder_reduce(part.data_ptr(), part.shape[0], part.shape[1],
+        err = lib.news_encoder_reduce(part.data_ptr(), nrows, ncols, per_chunk,
+                                      None if scratch is None else scratch.data_ptr(),
                                       out.data_ptr(), _stream(part.device))
     _check_launch(lib, err, "news_encoder_reduce", lib.news_encoder_bwd_error_string)
     reduce_rows.launches += 1
@@ -441,15 +557,6 @@ def reduce_rows(part: torch.Tensor) -> torch.Tensor:
 
 
 reduce_rows.launches = 0
-
-
-def _splits(m: int, n: int, rows: int) -> int:
-    """Row slices of a weight-gradient GEMM: about 8 blocks per SM of an
-    H100 SXM (132 SMs), each slice at least 1,024 rows. Fixed by the shapes
-    alone, so a gradient's summation order (and its bits) is the same on
-    every run and every card."""
-    tiles = -(-m // _GEMM_TILE) * -(-n // _GEMM_TILE)
-    return max(1, min(-(-8 * 132 // tiles), -(-rows // 1024)))
 
 
 def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: int,
@@ -509,12 +616,15 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
     _check_launch(lib, err, "news_encoder_bwd_core", lib.news_encoder_bwd_error_string)
     fused_news_encoder_bwd.launches += 1
     rows = nv * t
-    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop).reshape(n, t, din)
-    x2 = x.reshape(n * t, din)
-    dwqkv = reduce_rows(bwd_gemm(x2, qkv, dx=False, rows=rows, drop=drop,
-                                 splits=_splits(din, p_cols, rows))).reshape(din, p_cols)
+    x2, keep, x_drop = x.reshape(n * t, din), None, drop
+    if is_bf16 and drop.thr_emb:  # the x mask, drawn once for dx and dWqkv
+        x2, keep = emb_mask(rows, din, drop, device=dev, x=x2)
+        x_drop = Dropout()
+    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep).reshape(n, t, din)
+    dwqkv = reduce_rows(bwd_gemm(x2, qkv, dx=False, rows=rows, drop=x_drop,
+                                 splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
     dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows,
-                              splits=_splits(d, a_pad, rows))).reshape(d, a_pad)
+                              splits=gemm_splits(d, a_pad, rows))).reshape(d, a_pad)
     db = reduce_rows(db_part[:nv_blocks])
     dq = reduce_rows(dq_part[:nv_blocks])
     dwq, dwk, dwv = unpack_qkv(dwqkv, num_heads, d)

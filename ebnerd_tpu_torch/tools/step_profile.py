@@ -31,7 +31,7 @@ from .. import bench
 PARTS = (
     ("K1 news_encoder_fwd", ("news_encoder_fwd_kernel",)),
     ("K2 per-block kernel", ("news_encoder_bwd_kernel",)),
-    ("K2 GEMM", ("::gemm_kernel",)),
+    ("K2 GEMM", ("bwd_gemm_", "bwd_mask_x_kernel")),
     ("K2 reduction", ("reduce_rows_kernel",)),
     ("K3 prng_dropout", ("::dropout_kernel",)),
     ("Adam", ("adam", "Adam", "multi_tensor_apply", "foreach")),
