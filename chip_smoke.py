@@ -9,13 +9,19 @@ Phases:
      - K1, the fused encoder's forward: fp32 small shapes (n_valid, other
        head geometries), bf16 at the serving shapes, and with dropout
        (Philox masks and an external mask in fp32, Philox in bf16 at the
-       training step's news-tower shape);
+       training step's news-tower shape, where K1 runs on round(x * mask)
+       drawn once by the mask kernel, as the step runs it); bf16 block
+       counts odd against the QKV stage's cluster of CTAs, n_valid inside
+       a cluster and a partial last block;
      - K4, the mask dump: bit-equal to the plain generator, keep rate,
        reproducible, and seeded by all 64 bits;
      - K2, the recompute backward, against autograd of the plain version
        under the cotangent of sum(sin(out) * c): fp32 (small, n_valid with
-       g = 0 on pad rows, Philox dropout, external mask) and bf16 at the
-       step's two shapes; its GEMM on its own on each of the step's six
+       g = 0 on pad rows, Philox dropout, external mask), bf16 at the
+       step's two shapes and at the odd cluster shapes; its per-block
+       kernel alone against its plain version (``bwd_core_reference``) at
+       the step's two shapes and the odd cluster shapes; its GEMM on its
+       own on each of the step's six
        products (dx, dWqkv with and without the stream-0 mask, dW; news
        and user towers) and on ragged shapes (tiles cut by M, N and rows,
        rows < the tensor's rows, more tiles than SMs), each against its
@@ -54,6 +60,10 @@ Phases:
      path against the per-slot path;
   9. print the ``kernels`` JSON line, the card line, then the ``ok`` line
      last.
+
+The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
+their QKV product alone (their yardstick; neither kernel has a one-call
+PyTorch equivalent).
 
 Each path (mask check, serving, NRMS, LSTUR and NAML training) is driven with every launch
 count set to 0 just before it and read just after; launches made to
@@ -195,6 +205,7 @@ def counters() -> dict:
     from ebnerd_tpu_torch.ops import philox
 
     return {"news_encoder_fwd": ne.fused_news_encoder, "news_encoder_bwd": ne.fused_news_encoder_bwd,
+            "news_encoder_bwd_block": ne.launch_bwd_core,
             "news_encoder_bwd_gemm": ne.bwd_gemm, "news_encoder_bwd_reduce": ne.reduce_rows,
             "news_encoder_bwd_mask": ne.emb_mask,
             "philox_mask_dump": philox.dump_masks, "prng_dropout": dropout.dropout_apply}
@@ -241,6 +252,29 @@ def backward_work(n_valid, t, din, d, heads, a, elem):
     return flops, nbytes
 
 
+def block_work(n_valid, t, din, d, heads, a, elem, p_cols):
+    """(FLOPs, bytes) of K2's per-block kernel for n_valid articles: the
+    forward recomputed, dvals, the pooling backward, do (2 t d a) and the
+    attention's four products; x and g read once, dQ|dK|dV [rows, P],
+    round(o), round(dz) and the partials written once."""
+    hd = d // heads
+    fwd, _ = encoder_work(n_valid, t, din, d, heads, a, elem)
+    flops = fwd + n_valid * (2 * t * d + 4 * t * a + 2 * t * d * a + 4 * 2 * heads * t * t * hd)
+    rows, a_pad = n_valid * t, -(-a // 16) * 16
+    nbytes = (rows * din * elem + n_valid * d * 4 + 3 * din * d * elem + (d * a + 2 * a) * 4
+              + rows * (p_cols + d + a_pad) * elem + 2 * -(-n_valid // (64 // t)) * a_pad * 4)
+    return flops, nbytes
+
+
+def qkv_matmul_ms(rows, din, p_cols, gen, iters=10):
+    """torch.matmul of [rows, din] x [din, P] bf16: the QKV stage's yardstick."""
+    a = torch.randn(rows, din, generator=gen, device=DEV).to(torch.bfloat16)
+    b = torch.randn(din, p_cols, generator=gen, device=DEV).to(torch.bfloat16)
+    ms = time_ms(lambda: a @ b, iters)
+    del a, b
+    return ms
+
+
 def grad_scales(ref: dict, w_name: str, pooled: tuple) -> dict:
     """Each gradient's scale for the tolerance (see FP32_GRAD_REL): its
     max|plain|, and for the pooling bias and query at least max|dW|."""
@@ -258,12 +292,28 @@ def make_inputs(n, t, din, cdt, gen, heads=HEADS, head_dim=HEAD_DIM, a=ATT):
     return x, ws
 
 
+def qkv_plan_of(n, t, din, d, a, cdt, fwd):
+    """The (stages, cluster) plan K1 (fwd) or K2's per-block kernel takes
+    for this shape in bf16, or None in fp32."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    if cdt != torch.bfloat16:
+        return None
+    a_pad = -(-a // 16) * 16
+    lib = ne._library() if fwd else ne._library_bwd()
+    smem = lib.news_encoder_smem_bytes if fwd else lib.news_encoder_bwd_smem_bytes
+    return list(ne.qkv_plan(n, t, din, lambda s: smem(d, a_pad, 1, s), forward=fwd))
+
+
 def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
-                heads=HEADS, head_dim=HEAD_DIM, a=ATT, drop=None):
+                heads=HEADS, head_dim=HEAD_DIM, a=ATT, drop=None, yardstick=False):
     """K1 vs its plain version on one shape; returns the case record. The
-    wrapper is called as the model calls it, with the weights packed once.
-    ``drop``: "rng" (Philox, keep 0.8 on x and o) or "mask" (external
-    0/1 mask, keep 0.8)."""
+    wrapper is called as the model calls it, with the weights packed once
+    (with Philox dropout in bf16 it draws the x mask once, with the mask
+    kernel, and K1 reads round(x * mask)). ``drop``: "rng" (Philox, keep
+    0.8 on x and o) or "mask" (external 0/1 mask, keep 0.8).
+    ``yardstick``: also time torch.matmul of the QKV product alone."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
     from ebnerd_tpu_torch.ops.news_encoder import (fused_news_encoder, news_encoder_reference,
                                                    pack_weights)
 
@@ -289,18 +339,31 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     nv = n if n_valid is None else n_valid
     if nv < n:
         check(bool((out[nv:] == 0).all()), f"{name}: rows past n_valid are not zero")
-    ms = time_ms(lambda: fused_news_encoder(x, *ws, **kw, packed=packed), iters)
+    # K1 alone, on x as the step hands it over (with Philox dropout in bf16:
+    # round(x * mask), drawn once beforehand by the mask kernel, timed on its own)
+    xin, _, drop_in = ne.kernel_input(x, nv, ne.dropout_config(
+        n, t, d, kw.get("keep_prob", 1.0), kw.get("emb_keep_prob", 1.0), kw.get("rng_seed"),
+        kw.get("drop_mask"), x.device))
+    k1 = lambda: ne.launch(ne._library(), xin, packed, nv, drop_in, n=n, t=t)
+    check(torch.equal(k1(), out), f"{name}: K1 on the kernels' x differs from the wrapper's call")
+    ms = time_ms(k1, iters)
     plain_ms = time_ms(lambda: news_encoder_reference(x, *ws, **kw), max(2, iters // 4), warmup=1)
     flops, nbytes = encoder_work(nv, t, din, d, heads, a, x.element_size())
     b_ms, b_by = bound(flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
+    plan = qkv_plan_of(n, t, din, d, a, cdt, fwd=True)
+    mm_ms = (qkv_matmul_ms(nv * t, din, packed.wqkv.shape[1], gen, iters)
+             if cdt == torch.bfloat16 and yardstick else None)
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
            "dtype": str(cdt).replace("torch.", ""), "dropout": drop,
            "n_valid": nv, "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None}
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None,
+           "qkv_plan": plan, "qkv_matmul_ms": mm_ms}
     print(f"[kernel] {name}: {n}x{t}x{din} heads {heads}x{head_dim} A {a} {rec['dtype']} "
-          f"n_valid={nv} dropout={drop} max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library: none", flush=True)
+          f"n_valid={nv} dropout={drop} qkv plan (stages, cluster) {plan} max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"library: none" + (f"; QKV product alone, torch.matmul ms={mm_ms:.4f}" if mm_ms else ""),
+          flush=True)
     return rec
 
 
@@ -346,7 +409,13 @@ def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEA
               f"{name}: {nm} max|kernel - plain| = {err} > {rel} * {scales[nm]}")
     if nv < n:
         check(bool((grads[0][nv:] == 0).all()), f"{name}: dx past n_valid is not zero")
-    ms = time_ms(lambda: fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed), iters)
+    # the backward as the step runs it: on the forward's kernel x and keep bits
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    dropc = ne.dropout_config(n, t, d, kw.get("keep_prob", 1.0), kw.get("emb_keep_prob", 1.0),
+                              kw.get("rng_seed"), kw.get("drop_mask"), x.device)
+    xin, keep_bits, _ = ne.kernel_input(x, nv, dropc)
+    ms = time_ms(lambda: ne._backward(xin, keep_bits, packed, g, n, t, nv, dropc), iters)
     plain_ms = time_ms(lambda: news_encoder_bwd_reference(x, *ws, g, **kw),
                        max(1, iters // 5), warmup=1)
     flops, nbytes = backward_work(nv, t, din, d, heads, a, x.element_size())
@@ -354,6 +423,7 @@ def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEA
     worst = max(e / max(s, 1e-30) for e, s in errs.values())
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
            "dtype": str(cdt).replace("torch.", ""), "dropout": drop, "n_valid": nv,
+           "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False),
            "errors": errs, "max_rel_err": worst, "rel_tol": rel,
            "max_abs_err": max(e for e, _ in errs.values()),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -362,6 +432,67 @@ def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEA
           + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items())
           + f" (rel tol {rel}) ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
             f"({b_by}) library: none", flush=True)
+    return rec
+
+
+def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True, iters=10,
+               heads=HEADS, head_dim=HEAD_DIM, a=ATT):
+    """K2's per-block kernel alone (``launch_bwd_core``, bf16, on x as the
+    step gives it: round(x * mask) with Philox dropout) against its plain
+    version ``bwd_core_reference`` over the valid rows: dQ|dK|dV, round(o)
+    and round(dz) within BF16_REL_TOL of max|plain|, the db and dq
+    partials within BF16_REL_TOL of max(max|partial|, max|dW|) (sums that
+    cancel, see FP32_GRAD_REL), the outputs bit-equal over two launches.
+    Timed with its plain version, and torch.matmul of its QKV product
+    alone. Returns the case record."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    cdt, d = torch.bfloat16, heads * head_dim
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a)
+    nv = n if n_valid is None else n_valid
+    keep = KEEP if drop == "rng" else 1.0
+    dropc = ne.dropout_config(n, t, d, keep, keep, SEED64 if drop == "rng" else None)
+    packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+    xin, _, drop_in = ne.kernel_input(x, nv, dropc)
+    g = (torch.randn(n, d, generator=gen, device=DEV) * 1e-2).contiguous()
+    g[nv:] = 0
+    run = lambda: ne.launch_bwd_core(ne._library_bwd(), xin, packed, g, nv, drop_in, n=n, t=t)
+    rows, blocks = nv * t, -(-nv // (64 // t))
+    valid = lambda o: (o[0][:rows], o[1][:rows], o[2][:rows], o[3][:blocks, :a], o[4][:blocks, :a])
+    got = valid(run())  # the rows and blocks past nv are left unwritten
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(got, valid(run()))),
+          f"block {name}: two launches differ")
+    ref = ne.bwd_core_reference(xin, packed, g, t=t, nv=nv, drop=drop_in, seed=SEED64,
+                                keep_prob=keep)
+    dw_max = (ref[1].float().T @ ref[2][:, :a].float()).abs().max().item()
+    errs = {}
+    for nm, u, v in zip(("dqkv", "o", "dz", "db_part", "dq_part"), got, ref):
+        check(bool(torch.isfinite(u).all()), f"block {name}: non-finite {nm}")
+        scale = max(v.float().abs().max().item(), dw_max if nm in ("db_part", "dq_part") else 0.0)
+        err = (u.float() - v.float()).abs().max().item()
+        errs[nm] = [err, scale]
+        check(err <= BF16_REL_TOL * scale,
+              f"block {name}: {nm} max|kernel - plain| = {err} > {BF16_REL_TOL} * {scale}")
+    del ref, got
+    rec = {"case": name, "shape": [n, t, din], "n_valid": nv, "dropout": drop,
+           "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False),
+           "errors": errs,
+           "max_abs_err": max(e for e, _ in errs.values()), "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": None, "library_ms": None, "qkv_matmul_ms": None}
+    if timed:
+        rec["ms"] = time_ms(run, iters)
+        rec["plain_ms"] = time_ms(lambda: ne.bwd_core_reference(
+            xin, packed, g, t=t, nv=nv, drop=drop_in, seed=SEED64, keep_prob=keep), 2, warmup=1)
+        flops, nbytes = block_work(nv, t, din, d, heads, a, 2, packed.wqkv.shape[1])
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peaks[0], peaks)
+        rec["gflop"], rec["mbytes"] = flops / 1e9, nbytes / 1e6
+        rec["qkv_matmul_ms"] = qkv_matmul_ms(rows, din, packed.wqkv.shape[1], gen, iters)
+    print(f"[block] {name}: K2 per-block {n}x{t}x{din} bf16 n_valid={nv} dropout={drop} plan "
+          f"{rec['qkv_plan']} " + " ".join(f"{k}={e:.2e}/{s_:.2e}" for k, (e, s_) in errs.items())
+          + (f" ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
+             f"({rec['bound_by']}) library: none; QKV product alone, torch.matmul "
+             f"ms={rec['qkv_matmul_ms']:.4f}" if timed else ""), flush=True)
     return rec
 
 
@@ -825,7 +956,7 @@ def timed_steps(trainer, staged, first: int, n: int) -> float:
     return dt
 
 
-def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_user):
+def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_user, k2_block):
     """The port's training step at full width; returns its record."""
     from ebnerd_tpu_torch.bench import flops_per_impression
     from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, newsrec, token_batch
@@ -891,8 +1022,10 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
         losses.append(trainer.step(staged[i]).item())
         per_step.append(read_counts())
     for c in per_step:
-        check(c["news_encoder_fwd"] == 2 and c["news_encoder_bwd"] == 2,
-              f"a step launched K1 {c['news_encoder_fwd']} and K2 {c['news_encoder_bwd']} times")
+        check(c["news_encoder_fwd"] == 2 and c["news_encoder_bwd"] == 2
+              and c["news_encoder_bwd_block"] == 2,
+              f"a step launched K1 {c['news_encoder_fwd']} and K2 {c['news_encoder_bwd']} times "
+              f"(its per-block kernel {c['news_encoder_bwd_block']})")
         check(c["news_encoder_bwd_gemm"] == 6 and c["news_encoder_bwd_reduce"] == 8
               and c["news_encoder_bwd_mask"] == 1,
               f"a step's backward GEMM/reduce/mask launches {c}")
@@ -913,7 +1046,7 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
            "step_ms": step_ms, "impressions_per_s": ips, "mfu_pct": mfu,
            "uniq_frac": uniq_frac, "n_uniq_first": int(preps[0]["n_uniq"]), "buckets": buckets,
            "host_dedup_ms": prep_ms, "k1_ms": {"news": k_news, "user": k_user},
-           "k2_ms": {"news": b_news, "user": b_user},
+           "k2_ms": {"news": b_news, "user": b_user}, "k2_block_ms": k2_block,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"[train] warm: {step_ms:.2f} ms/step, {ips:,.0f} impressions/s, mfu {mfu:.2f}% "
           f"(bench.py's FLOPs over {peaks[0] / 1e12:g} TFLOP/s); unique fraction {uniq_frac:.4f}, "
@@ -1208,14 +1341,23 @@ def main(argv=None) -> int:
                     heads=6, head_dim=20, a=200),
         kernel_case("bf16_heads_2x16", 11, 12, 64, torch.bfloat16, peaks, gen,
                     heads=2, head_dim=16, a=32),
+        # a head width that is not a multiple of 4: the attention's element-wise tile copies
+        kernel_case("bf16_heads_4x10", 9, 20, 128, torch.bfloat16, peaks, gen, n_valid=7,
+                    heads=4, head_dim=10, a=32),
         kernel_case("bf16_article_chunk", CHUNK, T, EMB, torch.bfloat16, peaks, gen),
         kernel_case("bf16_user_batch", BATCH, H, D, torch.bfloat16, peaks, gen),
         kernel_case("fp32_rng_dropout", 37, 30, 128, torch.float32, peaks, gen, n_valid=30,
                     drop="rng"),
         kernel_case("fp32_mask_dropout", 37, 30, 128, torch.float32, peaks, gen, drop="mask"),
         kernel_case("bf16_train_news", bucket, T, EMB, torch.bfloat16, peaks, gen,
-                    n_valid=n_uniq, iters=10, drop="rng"),
-        kernel_case("bf16_train_user", TRAIN_BS, H, D, torch.bfloat16, peaks, gen, iters=10),
+                    n_valid=n_uniq, iters=10, drop="rng", yardstick=True),
+        kernel_case("bf16_train_user", TRAIN_BS, H, D, torch.bfloat16, peaks, gen, iters=10,
+                    yardstick=True),
+        # the QKV stage's clusters: 5 blocks (odd), n_valid 5 inside the cluster of blocks
+        # 2 and 3, a last block of 1 article; 5 blocks of 3, 3, 3, 3, 1 articles
+        kernel_case("bf16_cluster_odd_news", 9, T, EMB, torch.bfloat16, peaks, gen, n_valid=5,
+                    drop="rng"),
+        kernel_case("bf16_cluster_odd_user", 13, H, D, torch.bfloat16, peaks, gen),
     ]
     record["cases"] = cases
     bwd = [
@@ -1228,8 +1370,21 @@ def main(argv=None) -> int:
         bwd_case("bwd_bf16_train_news", bucket, T, EMB, torch.bfloat16, peaks, gen,
                  n_valid=n_uniq, iters=5, drop="rng"),
         bwd_case("bwd_bf16_train_user", TRAIN_BS, H, D, torch.bfloat16, peaks, gen, iters=5),
+        bwd_case("bwd_bf16_cluster_odd_news", 9, T, EMB, torch.bfloat16, peaks, gen, n_valid=5,
+                 drop="rng"),
+        bwd_case("bwd_bf16_cluster_odd_user", 13, H, D, torch.bfloat16, peaks, gen),
     ]
     record["bwd_cases"] = bwd
+    blocks = [
+        block_case("block_train_news", bucket, T, EMB, peaks, gen, n_valid=n_uniq, drop="rng"),
+        block_case("block_train_user", TRAIN_BS, H, D, peaks, gen),
+        block_case("block_cluster_odd_news", 9, T, EMB, peaks, gen, n_valid=5, drop="rng",
+                   timed=False),
+        block_case("block_cluster_odd_user", 13, H, D, peaks, gen, timed=False),
+        block_case("block_heads_4x10", 9, H, 128, peaks, gen, n_valid=7, drop="rng",
+                   timed=False, heads=4, head_dim=10, a=32),
+    ]
+    record["block_cases"] = blocks
     gemms, reds, masks = gemm_cases(n_uniq, bucket, peaks, gen)
     record["gemm"], record["reduce"], record["mask"] = gemms, reds, masks
     dump = mask_dump_case(peaks)
@@ -1242,7 +1397,8 @@ def main(argv=None) -> int:
     by = {c["case"]: c for c in cases + bwd}
     training = training_full_width(table, preps, prep_ms, peaks,
                                    by["bf16_train_news"]["ms"], by["bf16_train_user"]["ms"],
-                                   by["bwd_bf16_train_news"]["ms"], by["bwd_bf16_train_user"]["ms"])
+                                   by["bwd_bf16_train_news"]["ms"], by["bwd_bf16_train_user"]["ms"],
+                                   {"news": blocks[0]["ms"], "user": blocks[1]["ms"]})
     record["training"] = training
     del table, preps
 
@@ -1262,7 +1418,7 @@ def main(argv=None) -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
-    k1, k2 = by["bf16_train_news"], by["bwd_bf16_train_news"]
+    k1, k2, k2b = by["bf16_train_news"], by["bwd_bf16_train_news"], blocks[0]
     gem = {c["case"]: c for c in gemms}
     kernels = {"kernels": [
         dict({"name": "news_encoder_fwd", "route": "cuda",
@@ -1270,18 +1426,29 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:231",
               "launches": main_l["news_encoder_fwd"],
               "launches_serving": serving["launches_article_tower"] + serving["launches_user_tower"],
-              "note": "forward with in-kernel Philox dropout (emb + attention-out) and external-mask "
-                      "dropout; timed at the training step's news-tower shape",
-              "checked": True}, **{k: k1[k] for k in keys},
+              "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
+                      "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
+                      "and external-mask dropout; timed at the training step's news-tower shape; "
+                      "qkv_matmul_ms is torch.matmul of the QKV product alone",
+              "checked": True, "qkv_matmul_ms": k1["qkv_matmul_ms"]}, **{k: k1[k] for k in keys},
              cases=[{k: c[k] for k in ("case",) + keys} for c in cases]),
         dict({"name": "news_encoder_bwd", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd"],
-              "note": "per-block recompute backward; ms is the whole backward (this kernel, "
-                      "the mask kernel, 3 GEMMs, 4 reductions) at the news-tower shape",
+              "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
+                      "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
              cases=[{k: c[k] for k in ("case",) + keys} for c in bwd]),
+        dict({"name": "news_encoder_bwd_block", "route": "cuda",
+              "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
+              "launches": main_l["news_encoder_bwd_block"],
+              "note": "K2's per-block recompute kernel alone (QKV stage on TMA-fed wgmma, "
+                      "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
+                      "of its QKV product alone",
+              "checked": True, "qkv_matmul_ms": k2b["qkv_matmul_ms"]}, **{k: k2b[k] for k in keys},
+             cases=[{k: c[k] for k in ("case",) + keys} for c in blocks]),
         dict({"name": "news_encoder_bwd_gemm", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",

@@ -1,15 +1,18 @@
 // Fused NRMS news encoder, recompute backward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_news_encoder_bwd` / `_bwd_kernel` /
-// `_bwd_body` in ebnerd_tpu/ops/news_encoder.py. Given x, the packed
-// weights, the dropout (Philox seed or external mask) and the output
-// cotangent g [N, D] fp32, it returns dx [N, T, Din] (x's dtype), the
-// packed dWqkv [Din, P] and dW [D, A], db [A], dq [A] in fp32.
+// `_bwd_body` in ebnerd_tpu/ops/news_encoder.py. Given x (in bf16 with
+// the embedding mask: round(x * mask) and its keep bits, as the forward
+// drew them), the packed weights, the dropout (Philox seed or external
+// mask) and the output cotangent g [N, D] fp32, it returns dx [N, T, Din]
+// (x's dtype), the packed dWqkv [Din, P] and dW [D, A], db [A], dq [A] in
+// fp32.
 //
 // The kernels:
 //   1. news_encoder_bwd_kernel, one block per 64 rows, as the forward:
-//      recompute QKV panel by panel (with the stream-0 mask on x) and the
-//      attention, keeping the fp32 o; dropout on o; the pooling forward
+//      recompute QKV panel by panel (bf16: the forward's QKV stage, TMA-fed
+//      wgmma, on the masked x, in clusters of 1 by its measured plan; fp32:
+//      FMA, drawing the stream-0 mask) and the attention, keeping the fp32 o; dropout on o; the pooling forward
 //      (z, tanh, weights) and backward (dvals = round(o).round(g), datt,
 //      per-block partials of dq = round(tanh)^T round(datt) and db = sum
 //      dz); do = (w g + round(dz) round(W)^T) * mask, kept in the compute
@@ -25,9 +28,10 @@
 //      dW = round(o)^T round(dz), which reduce over all N*T rows: split
 //      along the rows into a number of slices fixed by the shapes, each
 //      writing its own fp32 partial. bwd_mask_x_kernel draws the x
-//      (stream-0) mask once for both: round(x * mask) for dWqkv and one
-//      keep bit per element for dx. bwd_gemm_fma_kernel computes the same
-//      products in fp32 (the fp32 checks), drawing the mask itself.
+//      (stream-0) mask once per step, before the forward: round(x * mask)
+//      for K1, this kernel and dWqkv, and one keep bit per element for
+//      dx. bwd_gemm_fma_kernel computes the same products in fp32 (the
+//      fp32 checks), drawing the mask itself.
 //   3. reduce_rows_kernel sums partials (the GEMM slices, the per-block
 //      db and dq) in a fixed order, in one pass or, for tall narrow
 //      partials, in row chunks and then the chunk sums.
@@ -56,17 +60,20 @@
 // reading dWqkv's and dW's [rows, features] operands through wgmma's
 // transpose bits as they lie; registers move from the producer to the
 // consumers (setmaxnreg). The x mask is one pass over x before the
-// products: inside the main loop it would be regenerated for every column
-// tile, and its Philox work slows the GEMM wherever it runs there (see
-// bwd_gemm_wgmma_kernel). The reduction is bound by bytes: 16-byte
+// forward: inside a product's main loop it would be regenerated for every
+// column tile, and its Philox work slows the GEMM wherever it runs there
+// (see bwd_gemm_wgmma_kernel). The reduction is bound by bytes: 16-byte
 // loads, columns spread over enough blocks, and tall narrow partials cut
 // into row chunks so that they fill the card too.
 // What is left: the dqkv round trip through device memory, the per-block
-// kernel on wmma, and the x mask's extra pass (2.8 GB moved).
+// kernel's attention, pooling and attention backward on wmma, in series
+// with its QKV stage.
 
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on
 // the caller's stream and returns cudaGetLastError().
+
+#include <string.h>
 
 #include <algorithm>
 
@@ -81,20 +88,22 @@ constexpr int kDoRows = 32;  // W_att rows (columns of do) per staged chunk
 
 // Shared memory of the backward kernel: region R (reused by phase), then o
 // [kRows][ldf] fp32 (later do in the compute dtype [kRows][ldo] at its
-// start), then att, wts, dvals, datt [kRows] fp32 each. R holds, in turn,
+// start), then att, wts, dvals, datt [kRows] fp32 each, then (bf16) the
+// QKV stage's barriers; bf16 offsets from the 1,024-aligned base, as the
+// forward's. R holds, in turn,
 // the forward's phases (Layout), then the pooling backward (hact / dz fp32
-// [kRows][ldz] at R, or the W_att chunk of the do product and per-warp
-// scratch; dz in the compute dtype [kRows][lda] at dzc), then the per-warp
+// [kRows][ldz] at R, or the two W_att chunks of the do product and
+// per-warp scratch; dz in the compute dtype [kRows][lda] at dzc), then the per-warp
 // attention-backward tiles (Q, K, V, dO in the compute dtype, one fp32).
 struct BwdLayout {
   Layout f;
   int ldt, ldF, att_warps;
-  size_t tile, warp_bytes, dzc, r, o, small, total;
+  size_t tile, warp_bytes, dzc, r, o, small, bars, total;
 };
 
-__host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem) {
+__host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem, int stages) {
   BwdLayout B;
-  B.f = make_layout(d, a_pad, elem);
+  B.f = make_layout(d, a_pad, elem, stages);
   const bool bf = elem == 2;
   B.ldt = bf ? kTileLd : 33;
   B.ldF = bf ? kTileLdF : 33;
@@ -102,13 +111,15 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem)
   B.tile = size_t(32) * B.ldt * elem;
   B.warp_bytes = align128(4 * B.tile + size_t(32) * B.ldF * 4);
   const size_t z = align128(size_t(kRows) * B.f.ldz * 4);
-  const size_t wchunk = align128(size_t(kDoRows) * B.f.lda * elem) + size_t(kWarps) * 1024;
+  const size_t wchunk = 2 * align128(size_t(kDoRows) * B.f.lda * elem) + size_t(kWarps) * 1024;
   B.dzc = smax(z, wchunk);
   const size_t pool_bwd = B.dzc + align128(size_t(kRows) * B.f.lda * elem);
-  B.r = align128(smax(smax(B.f.r, pool_bwd), B.att_warps * B.warp_bytes));
+  const size_t r = smax(smax(B.f.r, pool_bwd), B.att_warps * B.warp_bytes);
+  B.r = bf ? align1024(r) : align128(r);
   B.o = B.r;
   B.small = B.o + align128(size_t(kRows) * B.f.ldf * 4);
-  B.total = B.small + size_t(4) * kRows * 4;
+  B.bars = B.small + size_t(4) * kRows * 4;
+  B.total = bf ? B.bars + align128(2 * kQkvMaxStages * 8) + 1024 : B.bars;
   return B;
 }
 
@@ -163,6 +174,16 @@ __device__ __forceinline__ void warp_mm(const T* A, const T* Bm, int ld, float* 
 // (row stride P).
 template <typename T>
 __device__ __forceinline__ void store_tile(const float* F, int ldF, T* dst, int P, int t, int hd) {
+  if (std::is_same<T, bf16>::value && hd % 4 == 0) {  // 8 bytes a lane (see warp_tiles)
+    const int q4 = hd / 4;
+    for (int i = threadIdx.x % 32; i < t * q4; i += 32) {
+      const int r = i / q4, c = (i % q4) * 4;
+      const float4 f = *reinterpret_cast<const float4*>(F + r * ldF + c);
+      *reinterpret_cast<uint2*>(dst + size_t(r) * P + c) =
+          make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
+    }
+    return;
+  }
   for (int i = threadIdx.x % 32; i < t * hd; i += 32) {
     const int r = i / hd, e = i % hd;
     dst[size_t(r) * P + e] = from_f<T>(F[r * ldF + e]);
@@ -192,56 +213,80 @@ __device__ void attention_bwd_group(T* qkv, int P, int col0, const T* doc, int l
     T* k = q + gh * hd;
     T* v = q + 2 * gh * hd;
     const T* dob = doc + an * t * ldo + (h0 + hl) * hd;
-    for (int i = lane; i < 32 * 32; i += 32) {
-      const int r = i / 32, c = i % 32;
-      const bool ok = r < t && c < hd;
-      const size_t g = size_t(r) * P + c;
-      Qs[r * ld + c] = ok ? q[g] : zero;
-      Ks[r * ld + c] = ok ? k[g] : zero;
-      Vs[r * ld + c] = ok ? v[g] : zero;
-      Os[r * ld + c] = ok ? dob[r * ldo + c] : zero;
+    if constexpr (std::is_same<T, bf16>::value) {
+      T* const dst[4] = {Qs, Ks, Vs, Os};
+      const T* const src[4] = {q, k, v, dob};
+      const int lds[4] = {P, P, P, ldo};
+      warp_tiles<4>(dst, src, lds, t, hd);
+    } else {
+      for (int i = lane; i < 32 * 32; i += 32) {
+        const int r = i / 32, c = i % 32;
+        const bool ok = r < t && c < hd;
+        const size_t g = size_t(r) * P + c;
+        Qs[r * ld + c] = ok ? q[g] : zero;
+        Ks[r * ld + c] = ok ? k[g] : zero;
+        Vs[r * ld + c] = ok ? v[g] : zero;
+        Os[r * ld + c] = ok ? dob[r * ldo + c] : zero;
+      }
     }
     __syncwarp();
     warp_mm<T, false, true>(Qs, Ks, ld, F, B.ldF);  // S = Q K^T
     __syncwarp();
     float p[32], ds[32];
-    {  // softmax of query row `lane` over the t real keys (rows past t: 0)
+    // one lane's row of F (bf16: 16 bytes at a time, see load_row32)
+    auto row_of_f = [&](float (&v)[32]) {
+      if constexpr (std::is_same<T, bf16>::value) {
+        load_row32(v, F + lane * B.ldF);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) v[c] = F[lane * B.ldF + c];
+      }
+    };
+    auto row_to_tile = [&](T* tile, const float (&v)[32]) {
+      if constexpr (std::is_same<T, bf16>::value) {
+        store_row32(tile + lane * ld, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) tile[lane * ld + c] = from_f<T>(v[c]);
+      }
+    };
+    {  // softmax of query row `lane` over the t real keys (rows past t: 0);
+       // bf16 as the forward's (exp2, reciprocal: see kLog2e)
+      constexpr bool kFast = std::is_same<T, bf16>::value;
       float m = -INFINITY;
+      row_of_f(p);
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
-        p[c] = F[lane * B.ldF + c] * scale;
+        p[c] *= kFast ? scale * kLog2e : scale;
         if (c < t) m = fmaxf(m, p[c]);
       }
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
-        p[c] = c < t && lane < t ? expf(p[c] - m) : 0.f;
+        p[c] = c < t && lane < t ? (kFast ? exp2f(p[c] - m) : expf(p[c] - m)) : 0.f;
         sum += p[c];
       }
+      const float inv = 1.f / sum;
 #pragma unroll
-      for (int c = 0; c < 32; ++c) p[c] = lane < t ? p[c] / sum : 0.f;
+      for (int c = 0; c < 32; ++c) p[c] = lane < t ? (kFast ? p[c] * inv : p[c] / sum) : 0.f;
     }
     __syncwarp();
     warp_mm<T, false, true>(Os, Vs, ld, F, B.ldF);  // dP = dO V^T
     __syncwarp();
     {
       float ip = 0.f;
+      row_of_f(ds);
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        ds[c] = F[lane * B.ldF + c];
-        ip += p[c] * ds[c];
-      }
+      for (int c = 0; c < 32; ++c) ip += p[c] * ds[c];
 #pragma unroll
       for (int c = 0; c < 32; ++c) ds[c] = p[c] * (ds[c] - ip) * scale;
     }
-#pragma unroll
-    for (int c = 0; c < 32; ++c) Vs[lane * ld + c] = from_f<T>(p[c]);  // P over the spent V
+    row_to_tile(Vs, p);  // P over the spent V
     __syncwarp();
     warp_mm<T, true, false>(Vs, Os, ld, F, B.ldF);  // dV = P^T dO
     __syncwarp();
     store_tile<T>(F, B.ldF, v, P, t, hd);
-#pragma unroll
-    for (int c = 0; c < 32; ++c) Os[lane * ld + c] = from_f<T>(ds[c]);  // dS over the spent dO
+    row_to_tile(Os, ds);  // dS over the spent dO
     __syncwarp();
     warp_mm<T, false, false>(Os, Ks, ld, F, B.ldF);  // dQ = dS K
     __syncwarp();
@@ -266,17 +311,21 @@ struct BwdArgs {
   void* dz_c;       // [n*t, a_pad] compute dtype: round(dz)
   float* db_part;   // [blocks, a_pad]
   float* dq_part;   // [blocks, a_pad]
-  int n, t, din, d, heads, gh, a, a_pad, n_valid, nb;
+  int n, t, din, d, heads, gh, a, a_pad, n_valid, nb, stages, cluster;
   float scale;
   philox::Dropout dr;
   const float* ext_mask;
   float inv_ext;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T));
+template <typename T, int kCta>
+__global__ void __launch_bounds__(kCta, 1)
+    news_encoder_bwd_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap wmap, BwdArgs p) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = kBf ? align_smem(smem_raw) : smem_raw;
+  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages);
   const Layout& L = B.f;
   unsigned char* R = smem;
   float* o = reinterpret_cast<float*>(smem + B.o);
@@ -289,34 +338,75 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int t = p.t, d = p.d, a = p.a, a_pad = p.a_pad, din = p.din;
   const int g0 = blockIdx.x * p.nb;
-  if (g0 >= p.n_valid) return;  // left out of the GEMMs and the reductions
-  const int na = min(p.nb, p.n - g0);
+  const bool active = g0 < p.n_valid;  // blocks past it are left out of the GEMMs and reductions
+  const int na = max(0, min(p.nb, p.n - g0));
   const int rows = na * t, row0 = g0 * t;
   const int hd = d / p.heads;
   const int n_groups = (p.heads + p.gh - 1) / p.gh;
   const int P = n_groups * kPanel;
-  const T* xb = static_cast<const T*>(p.x) + size_t(row0) * din;
-  const T* wqkv = static_cast<const T*>(p.wqkv);
   const T* w_att = static_cast<const T*>(p.w_att);
   T* qkv = static_cast<T*>(p.qkv) + size_t(row0) * P;
 
   // 1. recompute the forward: QKV panels (kept in the dqkv scratch) and o
-  const EmbDrop ed{p.dr.key, p.dr.thr_emb, p.dr.inv_emb, row0};
-  for (int g = 0; g < n_groups; ++g) {
-    qkv_panel<T>(xb, rows, din, wqkv + g * kPanel, P, L, R, ed);
-    __syncthreads();
+  // (each panel copied out of R before that group's attention)
+  auto keep_panel = [&](int g) {
     const T* panel = reinterpret_cast<const T*>(R);
     for (int i = tid; i < rows * (kPanel / VE); i += kThreads) {
       const int r = i / (kPanel / VE), c = (i % (kPanel / VE)) * VE;
       *reinterpret_cast<uint4*>(qkv + size_t(r) * P + g * kPanel + c) =
           *reinterpret_cast<const uint4*>(panel + r * L.ldw + c);
     }
-    attention_group<T>(panel, L.ldw, o, L.ldf, na, t, hd, p.gh, g * p.gh,
-                       min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
-    __syncthreads();
+  };
+  auto attend = [&](int g) {
+    if (NE_PHASES & 2)
+      attention_group<T>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
+                         g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
+  };
+  if constexpr (kBf) {
+    const int nk = (din + kQkvBK - 1) / kQkvBK;
+    // the cluster's CTAs run the QKV stage together when its first block is valid
+    const bool run_qkv = int(blockIdx.x) / p.cluster * p.cluster * p.nb < p.n_valid;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + B.bars);
+    const QkvRing q{smem, bars, bars + kQkvMaxStages, p.stages, p.cluster};
+    if (tid == 0) qkv_ring_init(q);
+    hop::cluster_sync();
+    if (tid >= kThreads) {  // the producer warpgroup
+      hop::regs_dec<40>();
+      if (tid == kThreads && run_qkv && (NE_PHASES & 1))
+        qkv_produce(q, &xmap, &wmap, row0, n_groups, nk);
+      return;
+    }
+    hop::regs_inc<232>();
+    if (!run_qkv) return;
+    int it = 0;
+    for (int g = 0; g < n_groups; ++g) {
+      if (NE_PHASES & 1) qkv_panel_wgmma(q, it, nk, reinterpret_cast<bf16*>(R), L.ldw);
+      csync();
+      if (active) {
+        keep_panel(g);
+        attend(g);
+      }
+      if (NE_PHASES & 1)
+        qkv_panel_done(q, it);  // the ring is free to refill
+      else
+        csync();
+    }
+    if (!active) return;
+  } else {
+    if (!active) return;
+    const float* xb = static_cast<const float*>(p.x) + size_t(row0) * din;
+    const EmbDrop ed{p.dr.key, p.dr.thr_emb, p.dr.inv_emb, row0};
+    for (int g = 0; g < n_groups; ++g) {
+      if (NE_PHASES & 1)
+        qkv_panel_fp32(xb, rows, din, static_cast<const float*>(p.wqkv) + g * kPanel, P, L, R, ed);
+      csync();
+      keep_panel(g);
+      attend(g);
+      csync();
+    }
   }
   drop_o(o, L.ldf, rows, d, row0, p.dr, p.ext_mask, p.inv_ext);
-  __syncthreads();
+  csync();
 
   // 2. round(o) for dW; dvals[r] = round(o[r]) . round(g[article])
   T* o_c = static_cast<T*>(p.o_c) + size_t(row0) * d;
@@ -330,13 +420,15 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     if (lane == 0) dvals[r] = v;
   }
-  __syncthreads();
+  csync();
 
   // 3. pooling forward: z = round(o) W, hact = tanh(z + b) kept in place, weights
-  pooling_logits<T>(o, rows, d, w_att, a_pad, L, R);
-  __syncthreads();
   float* hz = reinterpret_cast<float*>(R);
-  pooling_weights<T>(hz, L.ldz, p.b_att, p.q_att, a, rows, na, t, att, wts, true);
+  if (NE_PHASES & 4) {
+    pooling_logits<T>(o, rows, d, w_att, a_pad, L, R);
+    csync();
+    pooling_weights<T>(hz, L.ldz, p.b_att, p.q_att, a, rows, na, t, att, wts, true);
+  }
 
   // 4. datt = w (dvals - sum_t w dvals); zero for articles past n_valid
   for (int an = warp; an < na; an += kWarps) {
@@ -347,12 +439,12 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
     for (int off = 16; off > 0; off >>= 1) inner += __shfl_xor_sync(0xffffffffu, inner, off);
     if (lane < t) datt[r] = g0 + an < p.n_valid ? wts[r] * (dvals[r] - inner) : 0.f;
   }
-  __syncthreads();
+  csync();
 
   // 5. per column j: dq += round(hact) round(datt); dz = round(datt) round(q) (1 - hact^2);
   //    db += dz; round(dz) kept for do and written for dW
   T* dzc = reinterpret_cast<T*>(R + B.dzc);
-  for (int j = tid; j < a_pad; j += kThreads) {
+  for (int j = tid; j < ((NE_PHASES & 4) ? a_pad : 0); j += kThreads) {
     const float qj = j < a ? rnd<T>(p.q_att[j]) : 0.f;
     float dq = 0.f, db = 0.f;
     for (int r = 0; r < kRows; ++r) {
@@ -368,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
     p.db_part[size_t(blockIdx.x) * a_pad + j] = db;
     p.dq_part[size_t(blockIdx.x) * a_pad + j] = j < a ? dq : 0.f;
   }
-  __syncthreads();
+  csync();
   T* dz_g = static_cast<T*>(p.dz_c) + size_t(row0) * a_pad;
   for (int i = tid; i < rows * (a_pad / VE); i += kThreads) {
     const int r = i / (a_pad / VE), c = (i % (a_pad / VE)) * VE;
@@ -377,16 +469,23 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
   }
 
   // 6. do = (w g + round(dz) round(W)^T) * dropout mask, in the compute
-  //    dtype over o (spent), kDoRows columns at a time
+  //    dtype over o (spent), kDoRows columns at a time; the W_att chunks
+  //    double-buffered by cp.async, 16 bytes a copy (a_pad % 16 == 0)
   T* doc = reinterpret_cast<T*>(o);
-  T* ws = reinterpret_cast<T*>(R);
-  float* scr = reinterpret_cast<float*>(R + align128(size_t(kDoRows) * L.lda * sizeof(T)));
-  for (int c0 = 0; c0 < d; c0 += kDoRows) {
-    for (int i = tid; i < kDoRows * a_pad; i += kThreads) {
-      const int rr = i / a_pad, j = i % a_pad;
-      ws[rr * L.lda + j] = c0 + rr < d ? w_att[size_t(c0 + rr) * a_pad + j] : from_f<T>(0.f);
+  const size_t wchunk = align128(size_t(kDoRows) * L.lda * sizeof(T));
+  auto wsc = [&](int s) { return reinterpret_cast<T*>(R + s * wchunk); };
+  float* scr = reinterpret_cast<float*>(R + 2 * wchunk);
+  auto issue_w = [&](int kc, int s) {
+    T* dst = wsc(s);
+    for (int i = tid; i < kDoRows * (a_pad / VE); i += kThreads) {
+      const int rr = i / (a_pad / VE), j = (i % (a_pad / VE)) * VE, r = kc * kDoRows + rr;
+      cp_async16(dst + rr * L.lda + j, r < d ? w_att + size_t(r) * a_pad + j : w_att, r < d);
     }
-    __syncthreads();
+  };
+  const int n_do = (NE_PHASES & 8) ? (d + kDoRows - 1) / kDoRows : 0;
+  pipeline<2>(n_do, issue_w, [&](int kc, int s) {
+    const int c0 = kc * kDoRows;
+    const T* ws = wsc(s);
     // each warp: a 16 x 16 tile (rows mi*16, columns c0 + nj*16); fp32 also per tile
     const int mi = warp / 2, nj = warp % 2;
     float* sc = scr + warp * 256;
@@ -431,11 +530,10 @@ __global__ void __launch_bounds__(kThreads, 1) news_encoder_bwd_kernel(BwdArgs p
         doc[r * L.ldo + c + j] = from_f<T>((wts[r] * gv + sc[rr * 16 + cc + j]) * mj);
       }
     }
-    __syncthreads();
-  }
+  });
 
   // 7. attention backward, head group by head group
-  for (int g = 0; g < n_groups; ++g)
+  for (int g = 0; g < ((NE_PHASES & 16) ? n_groups : 0); ++g)
     attention_bwd_group<T>(qkv, P, g * kPanel, doc, L.ldo, na, t, hd, p.gh, g * p.gh,
                            min(p.gh, p.heads - g * p.gh), p.scale, R, B);
 }
@@ -504,11 +602,6 @@ __device__ __forceinline__ WgTile wg_tile(const WgArgs& p, int t) {
   w.nk = k_end > w.k_begin ? (k_end - w.k_begin + kWBK - 1) / kWBK : 0;
   if (kDx && w.m0 >= p.m_valid) w.nk = 0;  // rows past n_valid: zeros, nothing loaded
   return w;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <bool kDx, int kWStages>
@@ -864,62 +957,52 @@ __global__ void __launch_bounds__(256) reduce_rows_kernel(const float* __restric
 }
 
 template <typename T>
-int launch_core(BwdArgs& p, cudaStream_t stream) {
+int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
   const int hd = p.heads > 0 ? p.d / p.heads : 0;
+  const int nk = (p.din + kQkvBK - 1) / kQkvBK;
   if (p.t < 1 || p.t > kMaxT || p.heads < 1 || p.d % p.heads || hd > kMaxHeadDim || p.gh < 1 ||
       3 * p.gh * hd > kPanel || p.a > p.a_pad || p.a_pad > kMaxAtt || p.a_pad % 16 ||
-      p.din % (16 / int(sizeof(T))) || p.din % 4 || p.d % 4)
+      p.din % (16 / int(sizeof(T))) || p.din % 4 || p.d % 4 ||
+      (kBf && (p.dr.thr_emb || p.stages < (nk > 1 ? 2 : 1) || p.stages > kQkvMaxStages ||
+               p.stages > nk ||
+               (p.cluster != 1 && p.cluster != 2))))
     return int(cudaErrorInvalidValue);
-  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T));
+  if (!kBf) p.stages = p.cluster = 1;
+  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages);
   if (B.total > size_t(kSmemLimit)) return int(cudaErrorInvalidValue);
-  auto kern = news_encoder_bwd_kernel<T>;
+  constexpr int kCta = kBf ? kQkvThreads : kThreads;
+  auto kern = news_encoder_bwd_kernel<T, kCta>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(B.total));
   if (e != cudaSuccess) return int(e);
   p.nb = kRows / p.t;
-  const int grid = (p.n + p.nb - 1) / p.nb;
-  if (grid == 0) return 0;
-  kern<<<grid, kThreads, B.total, stream>>>(p);
+  const int blocks = (p.n + p.nb - 1) / p.nb;
+  if (blocks == 0) return 0;
+  CUtensorMap xmap, wmap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&wmap, 0, sizeof(wmap));
+  const int P = (p.heads + p.gh - 1) / p.gh * kPanel;
+  // bf16: x [x_rows, din] (rows past it arrive as zeros), wqkv [din, P]
+  if (kBf && x_rows > 0 && p.n_valid > 0 &&
+      !(hop::bf16_map(&xmap, p.x, p.din, x_rows, p.din, kQkvBK, kRows) &&
+        hop::bf16_map(&wmap, p.wqkv, P, p.din, P, 64, kQkvBK)))
+    return int(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(p.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(unsigned((blocks + p.cluster - 1) / p.cluster * p.cluster));
+  cfg.blockDim = dim3(kCta);
+  cfg.dynamicSmemBytes = B.total;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, xmap, wmap, p);
+  if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime, so the
-// library links against nothing beyond the CUDA runtime.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major bf16 matrix [outer][inner] (row stride ld elements) as a
-// tensor map of [box_outer][box_inner] boxes, 128-byte swizzled; reads
-// past the extent give zeros.
-bool bf16_map(CUtensorMap* map, const void* ptr, int inner, int outer, int ld, int box_inner,
-              int box_outer) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 8) return false;
-  const cuuint64_t dims[2] = {cuuint64_t(std::max(inner, 1)), cuuint64_t(std::max(outer, 1))};
-  const cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
-  const cuuint32_t box[2] = {cuuint32_t(box_inner), cuuint32_t(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool kDx, int kWStages>
@@ -948,8 +1031,10 @@ int launch_gemm_bf16(const void* A, const void* Bm, void* out, const uint32_t* k
       (!kDx && (splits < 1 || kps < kWBK || kps % kWBK)))
     return int(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
-  const bool ok = kDx ? bf16_map(&ta, A, K, M, lda, kWBK, kWBM) && bf16_map(&tb, Bm, K, N, ldb, kWBK, kWBN)
-                      : bf16_map(&ta, A, M, K, lda, 64, kWBK) && bf16_map(&tb, Bm, N, K, ldb, 64, kWBK);
+  const bool ok = kDx ? hop::bf16_map(&ta, A, K, M, lda, kWBK, kWBM) &&
+                            hop::bf16_map(&tb, Bm, K, N, ldb, kWBK, kWBN)
+                      : hop::bf16_map(&ta, A, M, K, lda, 64, kWBK) &&
+                            hop::bf16_map(&tb, Bm, N, K, ldb, 64, kWBK);
   if (!ok) return int(cudaErrorInvalidValue);
   const long long tiles = (long long)n_tiles * m_tiles * (kDx ? 1 : splits);
   const WgArgs p{out, M, N, K, kDx ? K : kps, kDx ? 1 : splits, kDx ? m_valid : 0, keep, keep_ld, inv};
@@ -1001,28 +1086,30 @@ int reduce_pass(const float* part, int nrows, long long ncols, int rows_per_chun
 
 extern "C" {
 
-long long news_encoder_bwd_smem_bytes(int d, int a_pad, int is_bf16) {
-  return (long long)make_bwd_layout(d, a_pad, is_bf16 ? 2 : 4).total;
+long long news_encoder_bwd_smem_bytes(int d, int a_pad, int is_bf16, int stages) {
+  return (long long)make_bwd_layout(d, a_pad, is_bf16 ? 2 : 4, stages).total;
 }
 
-// The per-block backward kernel. Inputs as news_encoder_fwd, plus g [n, d]
+// The per-block backward kernel. Inputs as news_encoder_fwd (x [x_rows,
+// din]: in bf16 already masked, as the forward read it), plus g [n, d]
 // fp32. Writes qkv [n*t, P] (dQ|dK|dV in the packed panel layout), o_c
 // [n*t, d], dz_c [n*t, a_pad] (compute dtype), db_part and dq_part
 // [ceil(n / (64 / t)), a_pad] fp32, for the blocks before n_valid only.
-int news_encoder_bwd_core(const void* x, const void* wqkv, const void* w_att, const void* b_att,
-                          const void* q_att, const void* g, void* qkv, void* o_c, void* dz_c,
-                          void* db_part, void* dq_part, int n, int t, int din, int d, int heads,
-                          int gh, int a, int a_pad, int n_valid, float scale, int is_bf16,
-                          unsigned seed_lo, unsigned seed_hi, unsigned thr_emb, unsigned thr_att,
-                          float inv_emb, float inv_att, const void* ext_mask, float inv_ext,
+int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const void* w_att,
+                          const void* b_att, const void* q_att, const void* g, void* qkv,
+                          void* o_c, void* dz_c, void* db_part, void* dq_part, int n, int t,
+                          int din, int d, int heads, int gh, int a, int a_pad, int n_valid,
+                          float scale, int is_bf16, unsigned seed_lo, unsigned seed_hi,
+                          unsigned thr_emb, unsigned thr_att, float inv_emb, float inv_att,
+                          const void* ext_mask, float inv_ext, int stages, int cluster,
                           void* stream) {
   BwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
             static_cast<const float*>(g), qkv, o_c, dz_c, static_cast<float*>(db_part),
-            static_cast<float*>(dq_part), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, scale,
-            philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
+            static_cast<float*>(dq_part), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
+            cluster, scale, philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
             static_cast<const float*>(ext_mask), inv_ext};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_core<bf16>(p, s) : launch_core<float>(p, s);
+  return is_bf16 ? launch_core<bf16>(p, x_rows, s) : launch_core<float>(p, x_rows, s);
 }
 
 // is_dx: out [M, N] (compute dtype) = A [M, K] (row stride lda) times

@@ -1,9 +1,34 @@
 // Device code shared by the fused NRMS news encoder's forward
 // (news_encoder.cu) and its recompute backward (news_encoder_bwd.cu): the
-// block layout, the cp.async pipeline, the head-group QKV panel GEMM (with
-// the embedding-dropout mask applied to x as it is staged), the per-head
-// attention of one panel, the attention-output dropout and the pooling
-// projection. See news_encoder.cu for the design of the forward.
+// block layout, the QKV stage (bf16: TMA-fed wgmma, see below; fp32: a
+// cp.async pipeline and FMA, with the embedding-dropout mask applied to x
+// as it is staged), the per-head attention of one panel, the
+// attention-output dropout and the pooling projection. See news_encoder.cu
+// for the design of the forward.
+//
+// The bf16 QKV stage. A block of 64 rows computes Q|K|V one head-group
+// panel of 256 columns at a time: [64 x Din] x [Din x 256], 64-deep
+// k-tiles. The CTA has three warpgroups: warpgroups 0 and 1 are the 8
+// compute warps of every phase (threads [0, 256), synchronised among
+// themselves by a named barrier, csync), warpgroup 2 the producer. One
+// producer thread streams the k-tiles of all panels by TMA (128-byte
+// swizzle, zeros past each tensor's extent) into a ring of `stages`
+// stages, each { x box [64 rows][64 k], 4 weight boxes [64 k][64 n] },
+// handed over through full/empty mbarriers. Each compute warpgroup runs
+// m64n128k16 wgmma on its half of the panel's columns (the weight read
+// N-major through wgmma's transpose bit), with fp32 accumulators in
+// registers, one k-tile's products in flight while the next is issued;
+// the epilogue writes Q|K|V in bf16 straight from the accumulators. The
+// panel and the attention's tiles reuse the ring's bytes: the consumers
+// release the panel's last `stages` k-tiles only once they are done with
+// the panel. Registers move from the producer to the consumers
+// (setmaxnreg). With `cluster` > 1, the CTAs of a thread-block cluster
+// (consecutive row blocks) share every weight k-tile: CTA rank r loads
+// boxes r, r + cluster, ... and multicasts them to all, and each
+// consumer warp releases a stage to every CTA of the cluster, so the
+// weight is read from L2 once per cluster instead of once per block. The
+// CTAs of a cluster run the stage together, including blocks past
+// n_valid or past N beside a valid one (zeros in, nothing out).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,13 +39,18 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 // Profiling switch: tools/kernel_phases.py builds variants of the forward
-// that leave phases out to see where the time goes. Without all three bits
-// the result is wrong: such a build is for timing only.
+// and of the backward's per-block kernel that leave phases out to see where
+// the time goes. Without all bits the result is wrong: such a build is for
+// timing only. Bit 0: the QKV product (recomputed in the backward), bit 1:
+// the attention (recomputed), bit 2: the pooling product (forward) or the
+// pooling forward and backward (backward), bit 3: the backward's do
+// product, bit 4: the attention backward.
 #ifndef NE_PHASES
-#define NE_PHASES 7  // bit 0: QKV GEMM, bit 1: attention, bit 2: pooling GEMM
+#define NE_PHASES 31
 #endif
 
 namespace ne {
@@ -47,6 +77,17 @@ constexpr int kTileLdF = 36;
 constexpr int kAttWarpBytes = 3 * 32 * kTileLd * 2;
 static_assert(32 * kTileLdF * 4 <= 2 * 32 * kTileLd * 2, "S and O fit over Q and K");
 
+// the bf16 QKV stage (see the top of this file)
+constexpr int kProducerThreads = 128;               // the producer warpgroup
+constexpr int kQkvThreads = kThreads + kProducerThreads;
+constexpr int kQkvBK = 64;                          // contraction depth of a k-tile
+constexpr int kQkvBox = kRows * kQkvBK * 2;         // one [64][64] bf16 box: 8,192 B
+constexpr int kQkvStage = kQkvBox * (1 + kPanel / 64);  // x box + 4 weight boxes: 40,960 B
+constexpr int kQkvMaxStages = 3;
+static_assert(kQkvBK * 2 == 128 && kRows == 64, "a k-tile row is one 128-byte swizzle span; "
+                                                "one m64 wgmma covers the block");
+static_assert(kPanel == 2 * 128, "two compute warpgroups of m64n128 cover a panel");
+
 static_assert(kWarps == 8, "GEMM warp maps assume 8 warps");
 static_assert(kChunkBytes % 32 == 0 && kPoolRows % 16 == 0 && kStages >= 2 && kPoolStages >= 2,
               "chunks hold whole wmma k-steps; pipelines are at least double-buffered");
@@ -54,26 +95,28 @@ static_assert(kRows == 2 * 32 && kPanel == 4 * 64, "QKV GEMM: 2 x 4 warps of 32 
 static_assert(kAttWarpBytes % 128 == 0 && kAttWarpBytes >= 1024, "per-warp attention tiles");
 
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
+__host__ __device__ constexpr size_t align1024(size_t v) { return (v + 1023) & ~size_t(1023); }
 __host__ __device__ constexpr size_t smax(size_t a, size_t b) { return a > b ? a : b; }
 
 // Shared memory of the forward: region R (reused by phase), then o
-// [kRows][ldf] fp32, then the pooling logits and weights [2][kRows] fp32.
-// R holds, in turn:
-//   GEMM:      kStages stages of { x chunk [kRows][ldx], W chunk [kc][ldw] }
-//   attention: Q|K|V of one head group [kRows][ldw], then per-warp tiles
-//              (bf16; the first KB of a warp's tiles is also its GEMM
-//              epilogue scratch)
+// [kRows][ldf] fp32, then the pooling logits and weights [2][kRows] fp32,
+// then (bf16) the QKV stage's full and empty mbarriers. R holds, in turn:
+//   QKV:       bf16: `stages` TMA stages of kQkvStage bytes;
+//              fp32: kStages stages of { x chunk [kRows][ldx], W chunk [kc][ldw] }
+//   attention: Q|K|V of one head group [kRows][ldw], then per-warp tiles (bf16)
 //   pooling:   bf16 o [kRows][ldo] + kPoolStages W_att chunks [kPoolRows][lda]
 //              (fp32 mode: one W_att chunk, FMA)
 //   logits:    z = o W [kRows][ldz] fp32
-// o's rows are ldf = d | 1 floats apart: odd, so column writes do not
-// collide in a bank.
+// bf16 offsets are from the dynamic shared memory's start rounded up to
+// 1,024 bytes (the swizzled TMA boxes' alignment); `total` includes that
+// slack. o's rows are ldf = d | 1 floats apart: odd, so column writes do
+// not collide in a bank.
 struct Layout {
   int ldx, ldw, ldo, lda, ldz, ldf, kc, d_pad;
-  size_t stage, xs_bytes, panel, pool_w, r, o, small, total;
+  size_t stage, xs_bytes, panel, pool_w, r, o, small, bars, total;
 };
 
-__host__ __device__ inline Layout make_layout(int d, int a_pad, int elem) {
+__host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int stages) {
   const bool bf = elem == 2;
   const int ve = 16 / elem;
   Layout L;
@@ -89,16 +132,35 @@ __host__ __device__ inline Layout make_layout(int d, int a_pad, int elem) {
   L.stage = L.xs_bytes + align128(size_t(L.kc) * L.ldw * elem);
   L.panel = align128(size_t(kRows) * L.ldw * elem);
   L.pool_w = align128(size_t(kPoolRows) * L.lda * elem);
-  const size_t gemm = kStages * L.stage;
+  const size_t gemm = bf ? size_t(stages) * kQkvStage : kStages * L.stage;
   const size_t att = L.panel + (bf ? size_t(kWarps) * kAttWarpBytes : 0);
   const size_t pool =
       bf ? align128(size_t(kRows) * L.ldo * elem) + kPoolStages * L.pool_w : L.pool_w;
   const size_t z = size_t(kRows) * L.ldz * 4;
-  L.r = align128(smax(smax(gemm, att), smax(pool, z)));
+  const size_t r = smax(smax(gemm, att), smax(pool, z));
+  L.r = bf ? align1024(r) : align128(r);
   L.o = L.r;
   L.small = L.o + align128(size_t(kRows) * L.ldf * 4);
-  L.total = L.small + align128(size_t(2) * kRows * 4);
+  L.bars = L.small + align128(size_t(2) * kRows * 4);
+  L.total = bf ? L.bars + align128(2 * kQkvMaxStages * 8) + 1024 : L.bars;
   return L;
+}
+
+// The bf16 kernels' shared-memory base: the dynamic shared memory's start
+// rounded up to 1,024 bytes (the same offset in every CTA of a cluster).
+// An offset added to the shared array, not a rounded integer cast back to
+// a pointer: the compiler then still knows the pointer is shared and
+// accesses it with shared-memory instructions, not generic ones (which
+// made the phases after the QKV stage up to 35% slower on an H100).
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  return raw + ((1024u - (hop::smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// Barrier among the 8 compute warps (threads [0, kThreads)): the bf16
+// kernels' producer warpgroup does not take part. The same as
+// __syncthreads in a CTA of kThreads threads.
+__device__ __forceinline__ void csync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -124,9 +186,10 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A multi-stage cp.async pipeline over nk chunks: issue(k, stage) starts
-// the copies of chunk k, compute(k, stage) consumes a landed chunk. One
-// __syncthreads per chunk; the staging space is free again when it returns.
+// A multi-stage cp.async pipeline over nk chunks, run by kThreads threads:
+// issue(k, stage) starts the copies of chunk k, compute(k, stage) consumes
+// a landed chunk. One csync per chunk; the staging space is free again
+// when it returns.
 template <int S, typename Issue, typename Compute>
 __device__ __forceinline__ void pipeline(int nk, Issue issue, Compute compute) {
 #pragma unroll
@@ -136,13 +199,13 @@ __device__ __forceinline__ void pipeline(int nk, Issue issue, Compute compute) {
   }
   for (int k = 0; k < nk; ++k) {
     cp_async_wait<S - 2>();
-    __syncthreads();  // chunk k has landed for all; chunk k-1's stage is consumed
+    csync();  // chunk k has landed for all; chunk k-1's stage is consumed
     if (k + S - 1 < nk) issue(k + S - 1, (k + S - 1) % S);
     cp_async_commit();
     compute(k, k % S);
   }
   cp_async_wait<0>();
-  __syncthreads();
+  csync();
 }
 
 // The embedding-dropout mask (stream 0) of one block: rows of the block
@@ -160,7 +223,7 @@ template <typename T>
 __device__ __forceinline__ void mask_x_tile(T* xs, int ld, int rows, int nrow_tile, int k0,
                                             int kc, int din, const EmbDrop& ed) {
   const int g4 = kc / 4;
-  for (int i = threadIdx.x; i < nrow_tile * g4; i += blockDim.x) {
+  for (int i = threadIdx.x; i < nrow_tile * g4; i += kThreads) {
     const int r = i / g4, c = (i % g4) * 4;
     if (r >= rows || k0 + c >= din) continue;
     const float4 m = philox::mask4(ed.key, uint32_t(ed.row0 + r), uint32_t((k0 + c) >> 2), 0u,
@@ -171,15 +234,17 @@ __device__ __forceinline__ void mask_x_tile(T* xs, int ld, int rows, int nrow_ti
   }
 }
 
-// One head group's Q|K|V = round(x_block * emb mask) @ wqkv[:, panel],
-// written to the start of R ([kRows][ldw], compute dtype). x rows
-// [0, rows) and contraction [0, din) are real, the rest zero-filled. The
-// wrapper guarantees din % (16 / sizeof(T)) == 0 and 16-byte aligned x
-// and wqkv.
-template <typename T>
-__device__ void qkv_panel(const T* __restrict__ xb, int rows, int din, const T* __restrict__ wp,
-                          int np_cols, const Layout& L, unsigned char* R, const EmbDrop& ed) {
-  constexpr int VE = 16 / sizeof(T);
+// fp32: one head group's Q|K|V = x_block * emb mask @ wqkv[:, panel],
+// written to the start of R ([kRows][ldw]). x rows [0, rows) and
+// contraction [0, din) are real, the rest zero-filled. The wrapper
+// guarantees din % 4 == 0 and 16-byte aligned x and wqkv. Thread (ty, tx)
+// owns rows ty*8 + [0,8) and columns tx + 32*[0,8), FMA over a cp.async
+// pipeline.
+__device__ void qkv_panel_fp32(const float* __restrict__ xb, int rows, int din,
+                               const float* __restrict__ wp, int np_cols, const Layout& L,
+                               unsigned char* R, const EmbDrop& ed) {
+  using T = float;
+  constexpr int VE = 4;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nk = (din + L.kc - 1) / L.kc;
   auto xs = [&](int s) { return reinterpret_cast<T*>(R + s * L.stage); };
@@ -199,80 +264,219 @@ __device__ void qkv_panel(const T* __restrict__ xb, int rows, int din, const T* 
       cp_async16(w_s + kr * L.ldw + c, ok ? wp + size_t(k) * np_cols + c : wp, ok);
     }
   };
-  auto mask_chunk = [&](int kc, int s) {
+  T* qkv = reinterpret_cast<T*>(R);
+  const int tx = lane, ty = warp;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  pipeline<kStages>(nk, issue, [&](int kc, int s) {
     if (ed.thr) {
       mask_x_tile<T>(xs(s), L.ldx, rows, kRows, kc * L.kc, L.kc, din, ed);
-      __syncthreads();
+      csync();
     }
-  };
-  T* qkv = reinterpret_cast<T*>(R);
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    const int wm = warp / 4, wn = warp % 4;  // warp tile: rows wm*32 + [0,32), cols wn*64 + [0,64)
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+    const T* x_s = xs(s);
+    const T* w_s = ws(s);
+    for (int k = 0; k < L.kc; ++k) {
+      float wv[8], xv[8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 8; ++j) wv[j] = w_s[k * L.ldw + tx + 32 * j];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    pipeline<kStages>(nk, issue, [&](int kc, int s) {
-      mask_chunk(kc, s);
-      const T* x_s = xs(s);
-      const T* w_s = ws(s);
+      for (int i = 0; i < 8; ++i) xv[i] = x_s[(ty * 8 + i) * L.ldx + k];
 #pragma unroll
-      for (int kk = 0; kk < kChunkBytes / 2; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], x_s + (wm * 32 + i * 16) * L.ldx + kk, L.ldx);
+        for (int j = 0; j < 8; ++j) acc[i][j] += xv[i] * wv[j];
+    }
+  });
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, w_s + kk * L.ldw + wn * 64 + j * 16, L.ldw);
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-        }
+    for (int j = 0; j < 8; ++j) qkv[(ty * 8 + i) * L.ldw + tx + 32 * j] = acc[i][j];
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The bf16 QKV stage's ring (see the top of this file): `stages` stages of
+// kQkvStage bytes at `ring` (1,024-byte aligned), their full and empty
+// mbarriers, and the cluster size.
+struct QkvRing {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, cluster;
+};
+
+// One thread, before the cluster's first cluster_sync: a full barrier
+// takes its producer's arrival and the stage's bytes, an empty barrier one
+// arrival from each compute warp of each CTA of the cluster.
+__device__ __forceinline__ void qkv_ring_init(const QkvRing& q) {
+  for (int s = 0; s < q.stages; ++s) {
+    hop::mbar_init(&q.full[s], 1);
+    hop::mbar_init(&q.empty[s], kWarps * q.cluster);
+  }
+  hop::fence_barrier_init();
+}
+
+// The producer (one thread): the k-tiles of panels [0, n_groups) in
+// order, the x box of rows [row0, row0 + 64) and this CTA's share of the
+// weight boxes (multicast to the cluster); then it waits until every
+// stage is released by every consumer warp of the cluster, so that no
+// CTA exits while another may still arrive on its barriers.
+__device__ void qkv_produce(const QkvRing& q, const CUtensorMap* xmap, const CUtensorMap* wmap,
+                            int row0, int n_groups, int nk) {
+  const int rank = q.cluster > 1 ? int(hop::cluster_ctarank()) : 0;
+  const uint16_t all = uint16_t((1u << q.cluster) - 1);
+  hop::tma_prefetch_map(xmap);
+  hop::tma_prefetch_map(wmap);
+  int it = 0;
+  for (int g = 0; g < n_groups; ++g)
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % q.stages;
+      hop::mbar_wait(&q.empty[s], ((it / q.stages) & 1) ^ 1);
+      hop::mbar_expect_tx(&q.full[s], kQkvStage);
+      unsigned char* st = q.ring + size_t(s) * kQkvStage;
+      hop::tma_load_2d(st, xmap, &q.full[s], kt * kQkvBK, row0);
+      for (int j = rank; j < kPanel / 64; j += q.cluster) {
+        unsigned char* dst = st + kQkvBox * (1 + j);
+        if (q.cluster > 1)
+          hop::tma_load_2d_multicast(dst, wmap, &q.full[s], g * kPanel + 64 * j, kt * kQkvBK, all);
+        else
+          hop::tma_load_2d(dst, wmap, &q.full[s], g * kPanel + 64 * j, kt * kQkvBK);
       }
-    });
-    // epilogue: accumulators -> compute dtype, through a per-warp scratch tile
-    float* sc = reinterpret_cast<float*>(R + L.panel + size_t(warp) * kAttWarpBytes);
+    }
+  for (int i = 0; i < q.stages; ++i, ++it)
+    hop::mbar_wait(&q.empty[it % q.stages], ((it / q.stages) & 1) ^ 1);
+}
+
+// One compute warp hands stage s back to the producers of its cluster.
+__device__ __forceinline__ void qkv_release(const QkvRing& q, int s) {
+  if (threadIdx.x % 32 != 0) return;
+  if (q.cluster == 1) {
+    hop::mbar_arrive(&q.empty[s]);
+    return;
+  }
+  for (int c = 0; c < q.cluster; ++c) hop::mbar_arrive_cluster(&q.empty[s], uint32_t(c));
+}
+
+// The compute warps: k-tiles it .. it + nk - 1 (one panel) on wgmma, each
+// warpgroup cw the columns [128 cw, 128 cw + 128); the stages are handed
+// back as they are consumed, but for the panel's last `stages` k-tiles
+// (qkv_panel_done). Then Q|K|V in bf16 from the accumulators to
+// panel [kRows][ldw] (over the ring). Requires 2 <= stages <= nk, or
+// stages = nk = 1: a k-tile's stage is handed back only after the next
+// k-tile's products are issued.
+__device__ void qkv_panel_wgmma(const QkvRing& q, int& it, int nk, bf16* panel, int ldw) {
+  const int tid = threadIdx.x, cw = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  float acc[64];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt, ++it) {
+    const int s = it % q.stages;
+    hop::mbar_wait(&q.full[s], (it / q.stages) & 1);
+    const unsigned char* st = q.ring + size_t(s) * kQkvStage;
+    hop::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          qkv[(wm * 32 + i * 16 + e / 16) * L.ldw + wn * 64 + j * 16 + e % 16] = from_f<T>(sc[e]);
-        __syncwarp();
-      }
-  } else {
-    // fp32: thread (ty, tx) owns rows ty*8 + [0,8) and columns tx + 32*[0,8)
-    const int tx = lane, ty = warp;
-    float acc[8][8];
+    for (int kk = 0; kk < kQkvBK / 16; ++kk)
+      hop::wgmma_m64n128k16<0, 1>(acc, hop::smem_desc(st + kk * 32, 16, 1024),
+                                  hop::smem_desc(st + kQkvBox * (1 + 2 * cw) + kk * 2048, kQkvBox,
+                                                 1024));
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();  // k-tile it - 1 is consumed
+    if (kt > 0 && kt - 1 < nk - q.stages) qkv_release(q, (it - 1) % q.stages);
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_regs(acc);
+  csync();  // both warpgroups are done with the ring before the panel overwrites it
+  // thread (warp, lane) holds rows r and r + 8, columns 8 j + 2 (lane % 4) + {0, 1}
+  const int r = warp * 16 + lane / 4, c = 128 * cw + 2 * (lane % 4);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<uint32_t*>(panel + r * ldw + c + 8 * j) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(panel + (r + 8) * ldw + c + 8 * j) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The compute warps, once done with the panel and everything else they
+// wrote over the ring: hand back the panel's last `stages` k-tiles (it is
+// one past the panel's last).
+__device__ __forceinline__ void qkv_panel_done(const QkvRing& q, int it) {
+  hop::fence_proxy_async();  // this thread's writes over the ring come before TMA's
+  csync();
+  for (int i = it - q.stages; i < it; ++i) qkv_release(q, i % q.stages);
+}
+
+// One lane's row of a 32 x 32 attention tile, 16 bytes at a time, so that
+// each quarter of a warp reaches 8 rows in distinct banks (lane by lane,
+// column by column, 4 lanes shared each bank): 32 fp32 values from a
+// [32][kTileLdF] tile, or 32 values rounded to bf16 into a [32][kTileLd]
+// tile.
+__device__ __forceinline__ void load_row32(float (&v)[32], const float* row) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    pipeline<kStages>(nk, issue, [&](int kc, int s) {
-      mask_chunk(kc, s);
-      const T* x_s = xs(s);
-      const T* w_s = ws(s);
-      for (int k = 0; k < L.kc; ++k) {
-        float wv[8], xv[8];
+  for (int q = 0; q < 8; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(row)[q];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
+__device__ __forceinline__ void store_row32(bf16* row, const float (&v)[32]) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) wv[j] = to_f<T>(w_s[k * L.ldw + tx + 32 * j]);
+  for (int q = 0; q < 4; ++q)
+    reinterpret_cast<uint4*>(row)[q] =
+        make_uint4(pack_bf16(v[8 * q], v[8 * q + 1]), pack_bf16(v[8 * q + 2], v[8 * q + 3]),
+                   pack_bf16(v[8 * q + 4], v[8 * q + 5]), pack_bf16(v[8 * q + 6], v[8 * q + 7]));
+}
+static_assert(kTileLdF % 4 == 0 && kTileLd % 8 == 0, "tile rows hold whole 16-byte pieces");
+
+// bf16 softmaxes take exp(x) as exp2(x log2 e) (the hardware's ex2, within
+// a few fp32 ulp of expf, far under the bf16 rounding of the
+// probabilities) and divide by the row sum through its reciprocal: expf
+// and 32 divisions a row weighed more in the attention backward's time on
+// an H100 than its products.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One warp copies rows [0, t) and columns [0, hd) of N bf16 matrices
+// (src[m] with row stride lds[m] elements) into zero-padded 32 x 32 tiles
+// dst[m] ([32][kTileLd]). With hd % 4 == 0 (then every source row is
+// 8-byte aligned in the panel layout) 8 bytes a lane, all loads issued
+// before any store so that they are in flight together; else element by
+// element.
+template <int N>
+__device__ __forceinline__ void warp_tiles(bf16* const (&dst)[N], const bf16* const (&src)[N],
+                                           const int (&lds)[N], int t, int hd) {
+  const int lane = threadIdx.x % 32;
+  if (hd % 4 == 0) {
+    uint2 v[N][8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) xv[i] = to_f<T>(x_s[(ty * 8 + i) * L.ldx + k]);
+    for (int j = 0; j < 8; ++j) {
+      const int i = lane + 32 * j, r = i / 8, c = (i % 8) * 4;
+      const bool ok = r < t && c < hd;
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int m = 0; m < N; ++m)
+        v[m][j] = ok ? *reinterpret_cast<const uint2*>(src[m] + size_t(r) * lds[m] + c)
+                     : make_uint2(0u, 0u);
+    }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += xv[i] * wv[j];
-      }
-    });
+    for (int j = 0; j < 8; ++j) {
+      const int i = lane + 32 * j, r = i / 8, c = (i % 8) * 4;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int m = 0; m < N; ++m) *reinterpret_cast<uint2*>(dst[m] + r * kTileLd + c) = v[m][j];
+    }
+    return;
+  }
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = lane; i < 32 * 32; i += 32) {
+    const int r = i / 32, c = i % 32;
+    const bool ok = r < t && c < hd;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) qkv[(ty * 8 + i) * L.ldw + tx + 32 * j] = from_f<T>(acc[i][j]);
+    for (int m = 0; m < N; ++m) dst[m][r * kTileLd + c] = ok ? src[m][size_t(r) * lds[m] + c] : zero;
   }
 }
 
@@ -296,18 +500,13 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
     bf16* Vs = Ks + 32 * kTileLd;
     float* Ss = reinterpret_cast<float*>(Qs);  // S, later O, over the spent Q and K
     bf16* Ps = Qs;                             // P over S, from rows held in registers
-    const bf16 zero = __float2bfloat16_rn(0.f);
     for (int pair = warp; pair < na * nh; pair += kWarps) {
       const int an = pair / nh, hl = pair % nh;
       const bf16* src = qkv + an * t * ldp + hl * hd;
-      for (int i = lane; i < 32 * 32; i += 32) {
-        const int r = i / 32, c = i % 32;
-        const bool ok = r < t && c < hd;
-        const bf16* e = src + r * ldp + c;
-        Qs[r * kTileLd + c] = ok ? e[0] : zero;
-        Ks[r * kTileLd + c] = ok ? e[gh * hd] : zero;
-        Vs[r * kTileLd + c] = ok ? e[2 * gh * hd] : zero;
-      }
+      bf16* const dst[3] = {Qs, Ks, Vs};
+      const bf16* const srcs[3] = {src, src + gh * hd, src + 2 * gh * hd};
+      const int lds[3] = {ldp, ldp, ldp};
+      warp_tiles<3>(dst, srcs, lds, t, hd);
       __syncwarp();
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -337,8 +536,9 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
       __syncwarp();
       {  // softmax of query row `lane` over the t real keys
         float sr[32];
+        load_row32(sr, Ss + lane * kTileLdF);
 #pragma unroll
-        for (int c = 0; c < 32; ++c) sr[c] = Ss[lane * kTileLdF + c] * scale;
+        for (int c = 0; c < 32; ++c) sr[c] *= scale * kLog2e;
         __syncwarp();  // every row is in registers before P overwrites S
         float m = -INFINITY;
 #pragma unroll
@@ -347,12 +547,13 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
         float sum = 0.f;
 #pragma unroll
         for (int c = 0; c < 32; ++c) {
-          sr[c] = c < t ? expf(sr[c] - m) : 0.f;
+          sr[c] = c < t ? exp2f(sr[c] - m) : 0.f;
           sum += sr[c];
         }
+        const float inv = 1.f / sum;
 #pragma unroll
-        for (int c = 0; c < 32; ++c)
-          Ps[lane * kTileLd + c] = c < t ? __float2bfloat16_rn(sr[c] / sum) : zero;
+        for (int c = 0; c < 32; ++c) sr[c] = c < t ? sr[c] * inv : 0.f;
+        store_row32(Ps + lane * kTileLd, sr);
       }
       __syncwarp();
 #pragma unroll
@@ -448,7 +649,7 @@ __device__ __forceinline__ void drop_o(float* o, int ldf, int rows, int d, int r
                                        float inv_ext) {
   if (dr.thr_att) {
     const int g4 = d / 4;  // the wrapper requires d % 4 == 0 with dropout
-    for (int i = threadIdx.x; i < rows * g4; i += blockDim.x) {
+    for (int i = threadIdx.x; i < rows * g4; i += kThreads) {
       const int r = i / g4, c = (i % g4) * 4;
       const float4 m =
           philox::mask4(dr.key, uint32_t(row0 + r), uint32_t(c >> 2), 1u, dr.thr_att, dr.inv_att);
@@ -456,7 +657,7 @@ __device__ __forceinline__ void drop_o(float* o, int ldf, int rows, int d, int r
       for (int j = 0; j < 4; ++j) o[r * ldf + c + j] *= philox::pick(m, j);
     }
   } else if (ext != nullptr) {
-    for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
+    for (int i = threadIdx.x; i < rows * d; i += kThreads) {
       const int r = i / d, c = i % d;
       o[r * ldf + c] *= ext[size_t(row0 + r) * d + c] * inv_ext;
     }
@@ -538,7 +739,7 @@ __device__ void pooling_logits(const float* o, int rows, int d, const T* __restr
         const int k = kc * kPoolRows + i / a_pad;
         ws[i] = k < d ? w_att[size_t(k) * a_pad + i % a_pad] : from_f<T>(0.f);
       }
-      __syncthreads();
+      csync();
       if (tid < a_pad) {
         const int kn = min(kPoolRows, d - kc * kPoolRows);
         for (int kr = 0; kr < kn; ++kr) {
@@ -549,7 +750,7 @@ __device__ void pooling_logits(const float* o, int rows, int d, const T* __restr
             if (r < rows) zr[r] += o[r * L.ldf + c] * w;
         }
       }
-      __syncthreads();
+      csync();
     }
     if (tid < a_pad) {
 #pragma unroll
@@ -578,7 +779,7 @@ __device__ void pooling_weights(float* z, int ldz, const float* __restrict__ b_a
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     if (lane == 0) att[r] = v;
   }
-  __syncthreads();
+  csync();
   for (int an = warp; an < na; an += kWarps) {
     const float v = lane < t ? att[an * t + lane] : -INFINITY;
     float mx = v;
@@ -590,7 +791,7 @@ __device__ void pooling_weights(float* z, int ldz, const float* __restrict__ b_a
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (lane < t) wts[an * t + lane] = e / (sum + 1e-8f);
   }
-  __syncthreads();
+  csync();
 }
 
 }  // namespace ne

@@ -13,10 +13,16 @@ from an external 0/1 ``drop_mask`` [N, T, D] with ``keep_prob``.
 
 ``fused_news_encoder_bwd`` is the port of the recompute backward
 ``_news_encoder_bwd`` (``csrc/news_encoder_bwd.cu``: a per-block kernel,
-the x mask drawn once, a wgmma GEMM for dx and the weight gradients, and
-a fixed-order reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
+a wgmma GEMM for dx and the weight gradients, and a fixed-order
+reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
 ``torch.autograd.Function`` whose forward launches K1 and whose backward
 launches K2; on the CPU autograd of the plain version.
+
+In bf16 with the Philox embedding mask, the mask is drawn once per call
+of ``news_encoder`` (``kernel_input``: K2's mask kernel gives round(x *
+mask) and one keep bit per element): K1 and K2's per-block kernel read
+the masked x, the dWqkv product reads it, dx takes the keep bits, and the
+function keeps them for its backward instead of x.
 
 On a CUDA tensor each wrapper launches its kernel (see the notes in
 ``csrc/``) or raises; on a CPU tensor it calls the plain version, which the
@@ -39,7 +45,8 @@ from . import _build, philox
 __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "news_encoder",
            "news_encoder_reference", "news_encoder_bwd_reference", "pack_weights", "pack_qkv",
            "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
-           "emb_mask", "emb_mask_reference", "pack_bits",
+           "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
+           "launch_bwd_core", "bwd_core_reference",
            "reduce_rows", "reduce_plan", "NewsEncoderFunction"]
 
 _PANEL = 256         # packed QKV columns per head group (one GEMM panel of the kernel)
@@ -50,6 +57,14 @@ _SMEM_LIMIT = 232448
 _GEMM_TILE = (128, 256)  # rows and columns of one bf16 GEMM tile (csrc/news_encoder_bwd.cu)
 _GEMM_K_TILE = 64        # rows of a k-tile; a weight-gradient slice is a multiple of it
 _SMS = 132               # streaming multiprocessors of an H100 SXM
+_QKV_K_TILE = 64         # contraction depth of a k-tile of the bf16 QKV stage
+_QKV_STAGES = 3          # its TMA ring's depth where shared memory allows (PERF.md)
+# CTAs sharing each weight k-tile by multicast (PERF.md, on an H100): K1
+# gains from clusters of 2 at both towers' shapes; K2's per-block kernel,
+# whose QKV stage is a smaller share of its time, loses 1-2.5% with them at
+# the news tower's and gains nothing at the user tower's
+_FWD_CLUSTER = 2
+_BWD_CLUSTER = 1
 _MAX_SLICES = 64         # weight-gradient slices at most (partials: slices x M x N fp32)
 _MIN_SLICE_ROWS = 4096   # rows of a slice at least (64 k-tiles)
 _REDUCE_BLOCKS = 2 * _SMS  # blocks the reduction aims for (two per SM)
@@ -120,7 +135,7 @@ def news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int
     n, t, din = x.shape
     d = wq.shape[1]
     hd = d // num_heads
-    nv = n if n_valid is None else max(0, min(int(n_valid), n))
+    nv = _n_valid(n, n_valid)
     cdt = compute_dtype
     drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
     xf = x[:nv].to(torch.float32)
@@ -162,13 +177,85 @@ def news_encoder_bwd_reference(x, wq, wk, wv, w_att, b_att, q_att, g, **kw) -> t
         return torch.autograd.grad(out, ins, g)
 
 
+def _pack_panels(parts, num_heads: int, gh: int) -> torch.Tensor:
+    """Q, K, V (or their gradients) [rows, D] -> [rows, n_groups * 256] in
+    ``pack_qkv``'s head-group panel layout (zeros elsewhere)."""
+    rows, d = parts[0].shape
+    hd = d // num_heads
+    n_groups = -(-num_heads // gh)
+    out = parts[0].new_zeros(rows, n_groups, _PANEL)
+    for i, v in enumerate(parts):
+        heads = v.new_zeros(rows, n_groups * gh * hd)
+        heads[:, :d] = v
+        out[:, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(rows, n_groups, gh * hd)
+    return out.reshape(rows, n_groups * _PANEL)
+
+
+def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: "Dropout",
+                       seed=None, keep_prob: float = 1.0) -> tuple:
+    """Plain version of the backward's per-block kernel (``launch_bwd_core``)
+    on ``kernel_input``'s x [rows, Din] (no stream-0 mask left to draw),
+    in fp32 from the rounded operands, rounding where the kernel does.
+    Returns, for the nv * T valid rows: dQ|dK|dV [rows, P] in the panel
+    layout, round(o) [rows, D] and round(dz) [rows, a_pad] in the compute
+    dtype, and the per-block partials of db and dq [blocks, A] fp32 (the
+    blocks of 64 // T articles before nv). ``seed`` (64-bit) and
+    ``keep_prob`` regenerate the stream-1 mask when ``drop.thr_att``."""
+    if drop.thr_emb:
+        raise ValueError("bwd_core_reference takes x with its stream-0 mask applied")
+    cdt = packed.wqkv.dtype
+    heads, gh = packed.num_heads, packed.heads_per_group
+    d, a_pad = packed.w_att.shape
+    a, din = packed.b_att.shape[0], x.shape[1]
+    hd, rows = d // heads, nv * t
+    scale = 1.0 / math.sqrt(hd)
+    wq, wk, wv = (w.float() for w in unpack_qkv(packed.wqkv, heads, d))
+    xv = x[:rows].float()
+    q, k, v = (_round(xv @ w, cdt).reshape(nv, t, heads, hd) for w in (wq, wk, wv))
+    probs = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k) * scale, dim=-1)
+    o = torch.einsum("nhqk,nkhd->nqhd", _round(probs, cdt), v).reshape(nv, t, d)
+    mask = torch.ones_like(o)
+    if drop.thr_att:
+        mask = philox.mask(seed, philox.STREAM_ATT, rows, d, keep_prob,
+                           device=x.device).reshape(nv, t, d)
+    elif drop.ext_mask is not None:
+        mask = drop.ext_mask[:rows].reshape(nv, t, d) * drop.inv_ext
+    o = o * mask
+    o_c = _round(o, cdt)
+    hact = torch.tanh(o_c @ packed.w_att[:, :a].float() + packed.b_att)
+    att = _round(hact, cdt) @ _round(packed.q_att, cdt)
+    expo = torch.exp(att - att.max(dim=-1, keepdim=True).values)
+    w = expo / (expo.sum(dim=-1, keepdim=True) + 1e-8)
+    gv = g[:nv].float()
+    dvals = (o_c * _round(gv, cdt)[:, None, :]).sum(-1)
+    datt = _round(w * (dvals - (w * dvals).sum(-1, keepdim=True)), cdt)
+    dz = datt[..., None] * _round(packed.q_att, cdt) * (1 - hact * hact)
+    nb = 64 // t
+    blocks = -(-nv // nb)
+    pad = blocks * nb - nv
+    per_block = lambda v_: torch.cat([v_, v_.new_zeros(pad, t, a)]).reshape(blocks, nb * t, a).sum(1)
+    db_part = per_block(dz)
+    dq_part = per_block(_round(hact, cdt) * datt[..., None])
+    dz_c = _round(torch.nn.functional.pad(dz, (0, a_pad - a)), cdt)
+    do = _round((w[..., None] * gv[:, None, :] + dz_c @ packed.w_att.float().T) * mask, cdt)
+    do = do.reshape(nv, t, heads, hd)
+    dp = torch.einsum("nqhd,nkhd->nhqk", do, v)
+    ds = _round(probs * (dp - (probs * dp).sum(-1, keepdim=True)) * scale, cdt)
+    dv = torch.einsum("nhqk,nqhd->nkhd", _round(probs, cdt), do)
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k)
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q)
+    dqkv = _pack_panels([_round(u.reshape(rows, d), cdt) for u in (dq, dk, dv)], heads, gh)
+    return (dqkv.to(cdt), o_c.reshape(rows, d).to(cdt), dz_c.reshape(rows, a_pad).to(cdt),
+            db_part, dq_part)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the forward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.news_encoder_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i,
-                                     u, u, u, u, f, f, p, f, p]
+    lib.news_encoder_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i,
+                                     u, u, u, u, f, f, p, f, i, i, p]
     lib.news_encoder_fwd.restype = i
-    lib.news_encoder_smem_bytes.argtypes = [i, i, i]
+    lib.news_encoder_smem_bytes.argtypes = [i, i, i, i]
     lib.news_encoder_smem_bytes.restype = ctypes.c_longlong
     lib.news_encoder_error_string.argtypes = [i]
     lib.news_encoder_error_string.restype = ctypes.c_char_p
@@ -178,7 +265,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.news_encoder_bwd_core.argtypes = [p] * 11 + [i] * 9 + [f, i, u, u, u, u, f, f, p, f, p]
+    lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 10 + [i] * 9
+                                          + [f, i, u, u, u, u, f, f, p, f, i, i, p])
     lib.news_encoder_bwd_core.restype = i
     lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 11 + [u, u, u, f, p]
     lib.news_encoder_gemm.restype = i
@@ -186,7 +274,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.news_encoder_mask_x.restype = i
     lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, i, p, p, p]
     lib.news_encoder_reduce.restype = i
-    lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i, i]
     lib.news_encoder_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.news_encoder_bwd_error_string.argtypes = [i]
     lib.news_encoder_bwd_error_string.restype = ctypes.c_char_p
@@ -303,16 +391,32 @@ def fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
               drop_mask=drop_mask)
     if x.device.type == "cpu":
         return news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, **kw)
-    packed = _packed_for(x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype)
+    return _forward(x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype,
+                    n_valid, keep_prob, emb_keep_prob, rng_seed, drop_mask)[0]
+
+
+def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, emb_keep_prob,
+             rng_seed, drop_mask) -> tuple:
+    """K1 on a CUDA x [N, T, Din]: (out, xin, keep, packed, drop, nv), with
+    xin and keep from ``kernel_input`` (what the backward needs), the packed
+    weights, the call's dropout and its valid article count."""
+    packed = _packed_for(x, weights, packed, num_heads, compute_dtype)
     n, t, _ = x.shape
-    drop = dropout_config(n, t, wq.shape[1], keep_prob, emb_keep_prob, rng_seed, drop_mask,
-                          x.device)
-    out = launch(_library(), x, packed, n_valid, drop)
-    fused_news_encoder.launches += 1
-    return out
+    drop = dropout_config(n, t, weights[0].shape[1], keep_prob, emb_keep_prob, rng_seed,
+                          drop_mask, x.device)
+    _check_x(x, packed, drop)
+    nv = _n_valid(n, n_valid)
+    xin, keep, drop_in = kernel_input(x, nv, drop)
+    out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t)
+    return out, xin, keep, packed, drop, nv
+
+
+def _n_valid(n: int, n_valid: Optional[int]) -> int:
+    return n if n_valid is None else max(0, min(int(n_valid), n))
 
 
 def _check_x(x, packed: PackedWeights, drop: Dropout):
+    """x [N, T, Din] as the kernels take it, before ``kernel_input``."""
     n, t, din = x.shape
     cdt = packed.wqkv.dtype
     d = packed.w_att.shape[0]
@@ -335,33 +439,88 @@ def _check_launch(lib, err: int, what: str, error_string) -> None:
         raise RuntimeError(f"{what} launch failed: " + error_string(err).decode())
 
 
-def launch(lib: ctypes.CDLL, x, packed: PackedWeights, n_valid: Optional[int] = None,
-           drop: Dropout = Dropout()) -> torch.Tensor:
-    """Launch the forward kernel library ``lib`` on x [N, T, Din] (in the
-    packed weights' compute dtype) on the current stream; raises if the
-    launch is refused. ``fused_news_encoder`` passes the library built from
-    ``csrc/news_encoder.cu``; the profiling tool passes variants of it."""
-    _check_x(x, packed, drop)
+def kernel_input(x, nv: int, drop: Dropout) -> tuple:
+    """The kernels' x operand for x [N, T, Din] with ``nv`` valid articles:
+    (x2, keep, drop_in). In bf16 with the stream-0 (embedding) mask, x2 is
+    round(x * mask) of the nv * T valid rows and keep its keep bits, drawn
+    once by ``emb_mask`` for both kernels and the backward's products, and
+    drop_in is ``drop`` without stream 0, which the kernels then do not
+    draw. Else x2 is x as [N * T, Din], keep None and drop_in ``drop`` (fp32
+    draws the mask in its kernels)."""
     n, t, din = x.shape
+    x2 = x.reshape(n * t, din)
+    if x.dtype != torch.bfloat16 or not drop.thr_emb:
+        return x2, None, drop
+    xm, keep = emb_mask(nv * t, din, drop, device=x.device, x=x2)
+    # with no valid row, x2 stands in for the empty xm: the kernels read nothing
+    return (xm if nv else x2), keep, drop._replace(thr_emb=0, inv_emb=1.0)
+
+
+def qkv_plan(n: int, t: int, din: int, smem_bytes, *, forward: bool) -> tuple[int, int]:
+    """(ring stages, cluster size) of the bf16 QKV stage for x [N, T, Din]
+    in K1 (``forward``) or K2's per-block kernel, a function of the shapes
+    and the kernel alone: the deepest ring up to ``_QKV_STAGES`` stages (and
+    no deeper than Din's 64-deep k-tiles; at least 2 where there are 2
+    k-tiles, as the kernel needs) whose shared memory, ``smem_bytes(stages)``,
+    fits a block; and the kernel's cluster size (``_FWD_CLUSTER``,
+    ``_BWD_CLUSTER``), or 1 when there are fewer blocks than that."""
+    blocks = -(-n // (64 // t))
+    nk = max(1, -(-din // _QKV_K_TILE))
+    low, top = min(2, nk), min(_QKV_STAGES, nk)
+    fits = [s for s in range(low, top + 1) if smem_bytes(s) <= _SMEM_LIMIT]
+    cluster = _FWD_CLUSTER if forward else _BWD_CLUSTER
+    return (max(fits) if fits else low), (cluster if blocks >= cluster else 1)
+
+
+def _kernel_x(x, packed: PackedWeights, nv: int, n: int, t: int):
+    """x as the kernels take it from ``kernel_input`` ([rows, Din]), with
+    the rows they read: bf16 at most nv * T (the rest are zeros to TMA),
+    fp32 all N * T."""
+    rows, din = x.shape
+    if x.dtype != packed.wqkv.dtype or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous, 16-byte aligned, in the compute dtype")
+    if packed.wqkv.shape[0] != din or packed.wqkv.device != x.device:
+        raise ValueError("packed weights do not match x")
+    if x.dtype == torch.bfloat16:
+        if rows < nv * t:
+            raise ValueError(f"x has {rows} rows; the {nv} valid articles need {nv * t}")
+        return min(rows, nv * t)
+    if rows != n * t:
+        raise ValueError(f"fp32 x must have all {n * t} rows, got {rows}")
+    return rows
+
+
+def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int,
+           t: int) -> torch.Tensor:
+    """Launch the forward kernel library ``lib`` on the current stream, on x
+    [rows, Din] from ``kernel_input`` for N articles of T tokens, ``nv``
+    valid, and count the launch in ``fused_news_encoder.launches``; raises
+    if the launch is refused. ``fused_news_encoder`` passes the library
+    built from ``csrc/news_encoder.cu``; the profiling tool passes variants
+    of it."""
+    x_rows = _kernel_x(x, packed, nv, n, t)
+    din = x.shape[1]
     d, a_pad = packed.w_att.shape
     a = packed.b_att.shape[0]
     is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
-    smem = lib.news_encoder_smem_bytes(d, a_pad, is_bf16)
+    smem_of = lambda s: lib.news_encoder_smem_bytes(d, a_pad, is_bf16, s)
+    stages, cluster = qkv_plan(n, t, din, smem_of, forward=True) if is_bf16 else (1, 1)
+    smem = smem_of(stages)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory per block (> {_SMEM_LIMIT})")
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
-    nv = n if n_valid is None else max(0, min(int(n_valid), n))
     scale = 1.0 / math.sqrt(d // packed.num_heads)
     ext = drop.ext_mask
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.news_encoder_fwd(
-            x.data_ptr(), packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
+            x.data_ptr(), x_rows, packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), out.data_ptr(), n, t, din, d,
             packed.num_heads, packed.heads_per_group, a, a_pad, nv, scale, is_bf16,
             drop.seed_lo, drop.seed_hi, drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att,
-            None if ext is None else ext.data_ptr(), drop.inv_ext, stream)
+            None if ext is None else ext.data_ptr(), drop.inv_ext, stages, cluster, stream)
     _check_launch(lib, err, "news_encoder_fwd", lib.news_encoder_error_string)
+    fused_news_encoder.launches += 1
     return out
 
 
@@ -581,21 +740,65 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
     d = wq.shape[1]
     drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
     _check_x(x, packed, drop)
+    nv = _n_valid(n, n_valid)
+    xin, keep, _ = kernel_input(x, nv, drop)
+    return _backward(xin, keep, packed, g, n, t, nv, drop)
+
+
+def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
+              drop: Dropout) -> tuple:
+    """K2 on ``kernel_input``'s (xin, keep) for N articles of T tokens, nv
+    valid, under the call's dropout ``drop``: the per-block kernel, dx,
+    dWqkv and dW products and the reductions."""
+    din, d = xin.shape[1], packed.w_att.shape[0]
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
     if din % 4 or d % 8:
         raise ValueError(f"the backward takes Din % 4 == 0 and D % 8 == 0; got {din}, {d}")
-    lib = _library_bwd()
+    masked = keep is not None  # bf16 with the stream-0 mask: xin is round(x * mask)
+    drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
+    qkv, o_c, dz_c, db_part, dq_part = launch_bwd_core(_library_bwd(), xin, packed, g, nv,
+                                                       drop_in, n=n, t=t)
+    fused_news_encoder_bwd.launches += 1
+    a_pad, a, p_cols = packed.w_att.shape[1], packed.b_att.shape[0], packed.wqkv.shape[1]
+    nv_blocks = -(-nv // (64 // t))
+    rows = nv * t
+    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep).reshape(n, t, din)
+    dwqkv = reduce_rows(bwd_gemm(xin, qkv, dx=False, rows=rows, drop=drop_in,
+                                 splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
+    dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows,
+                              splits=gemm_splits(d, a_pad, rows))).reshape(d, a_pad)
+    db = reduce_rows(db_part[:nv_blocks])
+    dq = reduce_rows(dq_part[:nv_blocks])
+    dwq, dwk, dwv = unpack_qkv(dwqkv, packed.num_heads, d)
+    return dx, dwq, dwk, dwv, dw[:, :a], db[:a], dq[:a].reshape(a, 1)
+
+
+fused_news_encoder_bwd.launches = 0
+
+
+def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop: Dropout, *,
+                    n: int, t: int) -> tuple:
+    """Launch the backward's per-block kernel from the library ``lib`` on
+    the current stream, on x [rows, Din] from ``kernel_input``: (dqkv
+    [N*T, P], round(o) [N*T, D], round(dz) [N*T, a_pad] in the compute
+    dtype, db and dq partials [blocks, a_pad] fp32; rows and blocks past
+    ``nv`` articles are left unwritten). Raises if the launch is refused.
+    ``fused_news_encoder_bwd`` passes the
+    library built from ``csrc/news_encoder_bwd.cu``; the profiling tool
+    variants."""
+    x_rows = _kernel_x(x, packed, nv, n, t)
+    din = x.shape[1]
+    d, a_pad = packed.w_att.shape
+    a = packed.b_att.shape[0]
     cdt = packed.wqkv.dtype
     is_bf16 = int(cdt == torch.bfloat16)
-    a_pad = packed.w_att.shape[1]
-    a = packed.b_att.shape[0]
-    smem = lib.news_encoder_bwd_smem_bytes(d, a_pad, is_bf16)
+    smem_of = lambda s: lib.news_encoder_bwd_smem_bytes(d, a_pad, is_bf16, s)
+    stages, cluster = qkv_plan(n, t, din, smem_of, forward=False) if is_bf16 else (1, 1)
+    smem = smem_of(stages)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory per block (> {_SMEM_LIMIT})")
-    nv = n if n_valid is None else max(0, min(int(n_valid), n))
-    nb = 64 // t
-    n_blocks, nv_blocks = -(-n // nb), -(-nv // nb)
+    n_blocks = -(-n // (64 // t))
     p_cols = packed.wqkv.shape[1]
     dev = x.device
     qkv = torch.empty(n * t, p_cols, dtype=cdt, device=dev)
@@ -606,57 +809,44 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
     ext = drop.ext_mask
     with torch.cuda.device(dev):
         err = lib.news_encoder_bwd_core(
-            x.data_ptr(), packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
+            x.data_ptr(), x_rows, packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), g.data_ptr(), qkv.data_ptr(),
             o_c.data_ptr(), dz_c.data_ptr(), db_part.data_ptr(), dq_part.data_ptr(),
-            n, t, din, d, num_heads, packed.heads_per_group, a, a_pad, nv,
-            1.0 / math.sqrt(d // num_heads), is_bf16, drop.seed_lo, drop.seed_hi, drop.thr_emb,
-            drop.thr_att, drop.inv_emb, drop.inv_att, None if ext is None else ext.data_ptr(),
-            drop.inv_ext, _stream(dev))
+            n, t, din, d, packed.num_heads, packed.heads_per_group, a, a_pad, nv,
+            1.0 / math.sqrt(d // packed.num_heads), is_bf16, drop.seed_lo, drop.seed_hi,
+            drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att,
+            None if ext is None else ext.data_ptr(), drop.inv_ext, stages, cluster, _stream(dev))
     _check_launch(lib, err, "news_encoder_bwd_core", lib.news_encoder_bwd_error_string)
-    fused_news_encoder_bwd.launches += 1
-    rows = nv * t
-    x2, keep, x_drop = x.reshape(n * t, din), None, drop
-    if is_bf16 and drop.thr_emb:  # the x mask, drawn once for dx and dWqkv
-        x2, keep = emb_mask(rows, din, drop, device=dev, x=x2)
-        x_drop = Dropout()
-    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep).reshape(n, t, din)
-    dwqkv = reduce_rows(bwd_gemm(x2, qkv, dx=False, rows=rows, drop=x_drop,
-                                 splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
-    dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows,
-                              splits=gemm_splits(d, a_pad, rows))).reshape(d, a_pad)
-    db = reduce_rows(db_part[:nv_blocks])
-    dq = reduce_rows(dq_part[:nv_blocks])
-    dwq, dwk, dwv = unpack_qkv(dwqkv, num_heads, d)
-    return dx, dwq, dwk, dwv, dw[:, :a], db[:a], dq[:a].reshape(a, 1)
+    launch_bwd_core.launches += 1
+    return qkv, o_c, dz_c, db_part, dq_part
 
 
-fused_news_encoder_bwd.launches = 0
+launch_bwd_core.launches = 0
 
 
 class NewsEncoderFunction(torch.autograd.Function):
     """The fused encoder on CUDA with its recompute backward: the forward
-    launches K1, the backward K2 (``fused_news_encoder_bwd``) with the same
-    packed weights and dropout, so the masks are regenerated bit for bit.
-    The seed, ``n_valid`` and the mask get no gradient."""
+    launches K1 on ``kernel_input``'s x (in bf16 with the embedding mask:
+    round(x * mask), drawn once here), the backward K2 with the same packed
+    weights and dropout, so the attention-output mask is regenerated bit
+    for bit. It keeps the kernels' x and the keep bits, not x. The seed,
+    ``n_valid`` and the mask get no gradient."""
 
     @staticmethod
     def forward(ctx, x, wq, wk, wv, w_att, b_att, q_att, packed, num_heads, compute_dtype,
                 n_valid, keep_prob, emb_keep_prob, rng_seed, drop_mask):
-        kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, n_valid=n_valid,
-                  keep_prob=keep_prob, emb_keep_prob=emb_keep_prob, rng_seed=rng_seed,
-                  drop_mask=drop_mask)
-        packed = _packed_for(x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads,
-                             compute_dtype)
-        out = fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, packed=packed, **kw)
-        ctx.save_for_backward(x, wq, wk, wv, w_att, b_att, q_att)
-        ctx.packed, ctx.kw = packed, kw
+        _check_compute(compute_dtype)
+        out, xin, keep, packed, drop, nv = _forward(
+            x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype, n_valid,
+            keep_prob, emb_keep_prob, rng_seed, drop_mask)
+        ctx.save_for_backward(xin, keep)
+        ctx.packed, ctx.shape, ctx.drop = packed, (*x.shape[:2], nv), drop
         return out
 
     @staticmethod
     def backward(ctx, g):
-        grads = fused_news_encoder_bwd(*ctx.saved_tensors, g.contiguous().float(),
-                                       packed=ctx.packed, **ctx.kw)
+        xin, keep = ctx.saved_tensors
+        grads = _backward(xin, keep, ctx.packed, g.contiguous().float(), *ctx.shape, ctx.drop)
         return (*grads,) + (None,) * 8
 
 

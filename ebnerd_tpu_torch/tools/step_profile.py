@@ -4,8 +4,9 @@ Builds the step of ``python -m ebnerd_tpu_torch.bench`` for the family in
 ``BENCH_MODEL`` (nrms, lstur or naml; the same data, model, knobs and
 defaults), runs warm-up steps, then traces a window of warm steps with
 ``torch.profiler`` (CPU and CUDA activities) and sums device time by
-kernel name into the step's parts: K1 (``news_encoder_fwd_kernel``), K2's
-per-block kernel, GEMM and reduction, K3 (``dropout_kernel``), cuDNN's
+kernel name into the step's parts: K1 (``news_encoder_fwd_kernel``), the
+x mask drawn once before it, K2's per-block kernel, GEMM and reduction,
+K3 (``dropout_kernel``), cuDNN's
 convolutions, cuBLAS's matmuls, Adam, the embedding's gather and scatter,
 elementwise kernels, and the rest. It also reports the window's wall time
 on the synchronised host clock, the device's busy and idle share (union
@@ -31,7 +32,8 @@ from .. import bench
 PARTS = (
     ("K1 news_encoder_fwd", ("news_encoder_fwd_kernel",)),
     ("K2 per-block kernel", ("news_encoder_bwd_kernel",)),
-    ("K2 GEMM", ("bwd_gemm_", "bwd_mask_x_kernel")),
+    ("x mask (emb_mask, before K1)", ("bwd_mask_x_kernel",)),
+    ("K2 GEMM", ("bwd_gemm_",)),
     ("K2 reduction", ("reduce_rows_kernel",)),
     ("K3 prng_dropout", ("::dropout_kernel",)),
     ("Adam", ("adam", "Adam", "multi_tensor_apply", "foreach")),
