@@ -40,33 +40,52 @@ Phases:
      16,384, npratio 4, dropout 0.2 from the kernels' Philox masks, host
      dedup, bf16, fused, Adam lr 1e-4): one step's loss and gradients on
      the kernels against the plain version with the same seed; 3 steps
-     counting K1 and K2 launches in both towers; warm steps timed; a small
-     fp32 model trained 3 steps on the kernels against its unfused layers
-     and against the per-slot path (no dedup) on the kernels;
-  7. K3, the seed-recompute dropout, against its plain version: bit-equal
+     counting K1 and K2 launches in both towers; warm steps timed; the index
+     built after the steps, the model in training mode, bit-equal to the
+     eval-mode index (the model's mode restored); a small fp32 model trained
+     3 steps on the kernels against its unfused layers and against the
+     per-slot path (no dedup) on the kernels;
+  7. ``Trainer.fit`` at the same width: 2 epochs of 4 steps from a
+     NewsrecFeed of bench.py's Zipf draws (built with Ragged.from_lengths),
+     host dedup on the prefetch thread (prefetch 2), validation on 4,096
+     impressions of 5-15 candidates with one positive each, the best weights
+     restored: finite losses, val AUC in [0, 1], launches per step as the
+     staged step's, two-tower val scores against the full forward, the
+     restored weights' scores against a fresh model loaded with the best
+     snapshot; training impressions/s (the epochs' steps, validation left
+     out) beside the staged step's, host dedup ms per batch, validation
+     seconds; then a small fp32 NRMS with dropout 0.2 on the kernels: fit
+     with prefetch 0 and 2 bit-equal, a run stopped after epoch 1 and
+     resumed from its checkpoint (under build/, removed afterwards)
+     bit-equal to an uninterrupted run;
+  8. K3, the seed-recompute dropout, against its plain version: bit-equal
      outputs and masks in fp32 and bf16 (sizes with a tail, a
      non-contiguous input, an unaligned pointer, element offsets past 2**34
      that set the counter's high word), keep rate, reproducible, seeded by
      the high word and by the stream, a backward that re-applies the mask;
      bf16 at the four dropout shapes of LSTUR and NAML training, timed
      against the plain version and ``F.dropout``;
-  8. LSTUR (ini) and NAML training at full width (the configuration of
+  9. LSTUR (ini) and NAML training at full width (the configuration of
      ``scripts/profile_models.py`` with PM_BS=4096 PM_PRNGDROP=1: batch
      4,096, npratio 4, the 250,002 x 1,024 table, filter 400, window 3,
      attention 200, GRU 400, 50,000 users, dropout 0.2 on K3, host dedup,
      bf16, Adam lr 1e-4): one step's loss and gradients on K3 against its
      plain version with the same seed; 3 steps counting K3's launches; warm
-     steps timed; a small fp32 model of each trained 3 steps on the dedup
-     path against the per-slot path;
-  9. print the ``kernels`` JSON line, the card line, then the ``ok`` line
+     steps timed; then each served two-tower from the model in training mode
+     (index over 25,001 articles, 4,096 impressions; LSTUR with its user
+     ids), against ``Trainer.score(two_tower=False)``, warm rates; a small
+     fp32 model of each trained 3 steps on the dedup path against the
+     per-slot path;
+  10. print the ``kernels`` JSON line, the card line, then the ``ok`` line
      last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
 their QKV product alone (their yardstick; neither kernel has a one-call
 PyTorch equivalent).
 
-Each path (mask check, serving, NRMS, LSTUR and NAML training) is driven with every launch
-count set to 0 just before it and read just after; launches made to
+Each path (mask check, serving, NRMS training, fit, LSTUR and NAML training
+and serving) is driven with every launch count set to 0 just before it and
+read just after; launches made to
 compare a kernel with its plain version are not counted. Any failed check
 exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
 go to build/chip_smoke.json.
@@ -125,6 +144,8 @@ SMALL_PARAM_ATOL = 1e-5  # fp32 model after 3 steps, fused kernels vs unfused la
 # 9.97e-6 on an H100, against the same 1e-5).
 SMALL_LR = 3e-5
 FAM_BS = 4_096        # LSTUR and NAML batch (scripts/profile_models.py, PM_BS=4096)
+FIT_EPOCHS, FIT_STEPS = 2, 4  # Trainer.fit at full width: epochs x steps per epoch
+FIT_VAL_IMP = 4_096   # its validation impressions, 5-15 candidates, one positive each
 FAM_TRAIN_STEPS, FAM_WARM_STEPS = 3, 5
 FAM_LAUNCHES = {"lstur": 4, "naml": 8}  # K3 per step: 2 and 4 dropout sites, forward + backward
 # LSTUR/NAML full-width step, K3 vs its plain version: per gradient tensor
@@ -960,6 +981,7 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
     """The port's training step at full width; returns its record."""
     from ebnerd_tpu_torch.bench import flops_per_impression
     from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, newsrec, token_batch
+    from ebnerd_tpu_torch.serving import ArticleIndex
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
     model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
@@ -1040,7 +1062,23 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
     ips = TRAIN_BS * WARM_STEPS / dt
     mfu = ips * flops_per_impression(uniq_frac, True, D, ATT) / peaks[0] * 100
     buckets = sorted({int(p["art_uniq"].shape[0]) for p in preps})
-    rec = {"batch": TRAIN_BS, "npratio": NPRATIO, "dropout": DROPOUT, "lr": LR,
+
+    # 4. C1: an index built with the model in training mode (where the steps
+    # left it) equals the eval-mode index bit for bit; the mode is restored
+    check(model.training, "the training steps left the model in eval mode")
+    index_train = ArticleIndex(model, {"title": table}, batch_size=CHUNK, device=DEV).build()
+    check(model.training, "building the index changed the model's mode")
+    model.eval()
+    index_eval = ArticleIndex(model, {"title": table}, batch_size=CHUNK, device=DEV).build()
+    model.train()
+    c1_equal = bool(torch.equal(index_train, index_eval))
+    check(c1_equal, "index built in training mode differs from the eval-mode index: max|d| = "
+                    f"{(index_train.float() - index_eval.float()).abs().max().item()}")
+    print(f"[train] C1: the index built after the steps, model in training mode, equals the "
+          f"eval-mode index bit for bit ({tuple(index_train.shape)}); mode restored", flush=True)
+    del index_train, index_eval
+
+    rec = {"batch": TRAIN_BS, "npratio": NPRATIO, "dropout": DROPOUT, "lr": LR, "c1_equal": c1_equal,
            "loss_kernels": loss_k, "loss_plain": loss_p, "grad_errors": grad_errs,
            "losses": losses, "launches_per_step": per_step, "launches": main_counts,
            "step_ms": step_ms, "impressions_per_s": ips, "mfu_pct": mfu,
@@ -1053,6 +1091,317 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
           f"buckets {buckets}; host dedup {prep_ms:.2f} ms/batch; K1 {k_news:.3f} (news) + "
           f"{k_user:.3f} (user) ms, K2 {b_news:.3f} + {b_user:.3f} ms at the step's shapes; "
           f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+    return rec
+
+
+def train_table(n_imp, n_art, seed):
+    """bench.py's draws as a behaviors table, built with Ragged.from_lengths:
+    Zipf(1.07) history (H articles) and candidates (npratio + 1, the
+    positive first) over article ids 0..n_art (id = table row)."""
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.bench import zipf_indices
+    from ebnerd_tpu_torch.data import Ragged, Table
+
+    rng = np.random.default_rng(seed)
+    k = NPRATIO + 1
+    labels = np.zeros((n_imp, k), np.int8)
+    labels[:, 0] = 1
+    return Table({
+        c.DEFAULT_IMPRESSION_ID_COL: np.arange(n_imp, dtype=np.uint32),
+        c.DEFAULT_HISTORY_ARTICLE_ID_COL: Ragged.from_lengths(
+            zipf_indices(rng, n_art + 1, (n_imp * H,)), np.full(n_imp, H)),
+        c.DEFAULT_INVIEW_ARTICLES_COL: Ragged.from_lengths(
+            zipf_indices(rng, n_art + 1, (n_imp * k,)), np.full(n_imp, k)),
+        c.DEFAULT_LABELS_COL: Ragged.from_lengths(labels.reshape(-1), np.full(n_imp, k)),
+    })
+
+
+def val_table(n_imp, n_art, seed, n_users=0):
+    """Validation impressions built with Ragged.from_lengths: 5-15
+    candidates each with exactly one positive (so every impression has an
+    AUC), 1-H history articles, uniform article ids in 1..n_art; with
+    ``n_users``, user ids uniform in [0, n_users)."""
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.data import Ragged, Table
+
+    rng = np.random.default_rng(seed)
+    n_cand, n_hist = rng.integers(5, 16, n_imp), rng.integers(1, H + 1, n_imp)
+    inview = Ragged.from_lengths(rng.integers(1, n_art + 1, int(n_cand.sum())), n_cand)
+    labels = np.zeros(inview.total, np.int8)
+    labels[inview.offsets[:-1] + rng.integers(0, n_cand)] = 1
+    cols = {c.DEFAULT_IMPRESSION_ID_COL: np.arange(n_imp, dtype=np.uint32),
+            c.DEFAULT_INVIEW_ARTICLES_COL: inview,
+            c.DEFAULT_LABELS_COL: Ragged(labels, inview.offsets.copy()),
+            c.DEFAULT_HISTORY_ARTICLE_ID_COL: Ragged.from_lengths(
+                rng.integers(1, n_art + 1, int(n_hist.sum())), n_hist)}
+    if n_users:
+        cols[c.DEFAULT_USER_COL] = rng.integers(0, n_users, n_imp)
+    return Table(cols)
+
+
+def fit_full_width(training):
+    """``Trainer.fit`` at the full width of the NRMS step (``training``: the
+    staged step's record): FIT_EPOCHS epochs of FIT_STEPS steps from a
+    NewsrecFeed, host dedup on the prefetch thread (prefetch 2), validation
+    on FIT_VAL_IMP impressions after each epoch, the best weights restored
+    at the end. Returns its record."""
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.bench import token_table
+    from ebnerd_tpu_torch.data import EvalFeed, Lookup, NewsrecFeed
+    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+    from ebnerd_tpu_torch.training import trainer as trainer_module
+
+    t_setup = time.perf_counter()
+    lookup = Lookup.from_values(np.arange(1, N_ART + 1),
+                                token_table(np.random.default_rng(0), "zipf")[1:])
+    train_feed = NewsrecFeed(train_table(TRAIN_BS * FIT_STEPS, N_ART, seed=4), lookup,
+                             history_size=H, batch_size=TRAIN_BS, seed=0)
+    val = val_table(FIT_VAL_IMP, N_ART, seed=5)
+    val_feed, val_labels = EvalFeed(val, lookup, history_size=H, batch_size=BATCH), val[
+        c.DEFAULT_LABELS_COL]
+
+    def make_model():
+        model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
+                     dtype=torch.bfloat16, use_fused_encoder=True, device=DEV, seed=0)
+        with torch.no_grad():  # unit-scale embeddings, as the training phase
+            model.word_embedding.embedding.mul_(EMB_SCALE)
+        return model
+
+    cfg = TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True, prefetch=2)
+    trainer = Trainer(make_model(), {"title": lookup.matrix}, token_batch, cfg, device=DEV,
+                      log_fn=lambda m: print(f"[fit] {m}", flush=True))
+    t_setup = time.perf_counter() - t_setup
+
+    # instrument the run: the epochs' steps (synchronised at their end), the
+    # val scoring, the host dedup on the prefetch thread, each step's launches
+    # and the best-weight snapshot fit restores
+    timing = {"train_s": [], "score_s": [], "dedup_s": []}
+    per_step, best = [], []
+    run_epoch, score, step, snapshot = (trainer._run_epoch, trainer.score, trainer.step,
+                                        trainer._snapshot)
+
+    def timed_epoch(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(*a, **kw)
+        torch.cuda.synchronize()
+        timing["train_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_score(*a, **kw):
+        t0 = time.perf_counter()
+        out = score(*a, **kw)  # returns host scores: synchronised
+        timing["score_s"].append(time.perf_counter() - t0)
+        return out
+
+    def counted_step(batch):
+        before = read_counts()
+        loss = step(batch)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return loss
+
+    def kept_snapshot():
+        best[:] = [snapshot()]
+        return best[0]
+
+    dedup = trainer_module.prep_dedup_batch
+
+    def timed_dedup(*a, **kw):
+        t0 = time.perf_counter()
+        out = dedup(*a, **kw)
+        timing["dedup_s"].append(time.perf_counter() - t0)
+        return out
+
+    trainer._run_epoch, trainer.score, trainer.step = timed_epoch, timed_score, counted_step
+    trainer._snapshot = kept_snapshot
+    torch.cuda.synchronize()
+
+    # the main path, counted
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer_module, "prep_dedup_batch", timed_dedup):
+        history = trainer.fit(train_feed, val_feed, val_labels, epochs=FIT_EPOCHS,
+                              steps_per_epoch=FIT_STEPS)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = read_counts()
+    trainer._run_epoch, trainer.score, trainer.step, trainer._snapshot = (run_epoch, score, step,
+                                                                          snapshot)
+
+    n_steps = FIT_EPOCHS * FIT_STEPS
+    check(len(history) == FIT_EPOCHS and len(per_step) == n_steps,
+          f"fit ran {len(history)} epochs and {len(per_step)} steps")
+    check(all(math.isfinite(h["loss"]) for h in history), f"non-finite fit losses {history}")
+    check(all(0.0 <= h["val_auc"] <= 1.0 for h in history), f"val AUC outside [0, 1]: {history}")
+    for cnt in per_step:
+        check(cnt["news_encoder_fwd"] == 2 and cnt["news_encoder_bwd"] == 2
+              and cnt["news_encoder_bwd_block"] == 2 and cnt["news_encoder_bwd_gemm"] == 6
+              and cnt["news_encoder_bwd_reduce"] == 8 and cnt["news_encoder_bwd_mask"] == 1,
+              f"a fit step's launches {cnt}")
+    check(counts["news_encoder_bwd"] == 2 * n_steps, f"fit launches {counts}")
+
+    tt = trainer.score(val_feed, two_tower=True)
+    full = trainer.score(val_feed, two_tower=False)
+    tt_err = float(np.abs(tt.values - full.values).max())
+    check(tt.values.shape == (val_feed.inview.total,) and bool(np.isfinite(tt.values).all()),
+          "two-tower val scores: shape or non-finite values")
+    check(tt_err <= SCORE_ATOL, f"val scores: two-tower vs full forward differ by {tt_err}")
+    # the restored best weights score as a fresh model loaded with the snapshot
+    fresh = make_model()
+    fresh.load_state_dict(best[0])
+    restored_equal = bool(np.array_equal(
+        Trainer(fresh, {"title": lookup.matrix}, token_batch, cfg, device=DEV).score(val_feed).values,
+        tt.values))
+    check(restored_equal, "the restored best weights score unlike a fresh model loaded with them")
+    del fresh, best
+
+    train_s, dedup_ms = sum(timing["train_s"]), float(np.mean(timing["dedup_s"]) * 1e3)
+    step_ms = train_s / n_steps * 1e3
+    ips = TRAIN_BS * n_steps / train_s
+    rec = {"epochs": FIT_EPOCHS, "steps_per_epoch": FIT_STEPS, "batch": TRAIN_BS, "prefetch": 2,
+           "val_impressions": FIT_VAL_IMP, "history": history, "launches": counts,
+           "launches_per_step": per_step, "setup_s": t_setup, "fit_s": t_fit,
+           "train_s": timing["train_s"], "val_score_s": timing["score_s"],
+           "impressions_per_s": ips, "step_ms": step_ms,
+           "impressions_per_s_epoch": [TRAIN_BS * FIT_STEPS / t for t in timing["train_s"]],
+           "staged_impressions_per_s": training["impressions_per_s"],
+           "staged_step_ms": training["step_ms"], "host_dedup_ms": dedup_ms,
+           "dedup_batches": len(timing["dedup_s"]),
+           "bound_by": "host dedup" if dedup_ms >= training["step_ms"] else "device step",
+           "max_abs_score_diff_two_tower_vs_full": tt_err, "restored_best_equal": restored_equal}
+    print(f"[fit] {FIT_EPOCHS} epochs x {FIT_STEPS} steps of {TRAIN_BS}: losses "
+          f"{', '.join(f'{h['loss']:.6f}' for h in history)}, val AUC "
+          f"{', '.join(f'{h['val_auc']:.6f}' for h in history)}; training "
+          f"{ips:,.0f} impressions/s ({step_ms:.2f} ms/step; per epoch "
+          f"{', '.join(f'{v:,.0f}' for v in rec['impressions_per_s_epoch'])}) against the staged "
+          f"step's {training['impressions_per_s']:,.0f} ({training['step_ms']:.2f} ms); host "
+          f"dedup {dedup_ms:.2f} ms per batch on the prefetch thread: bound by the "
+          f"{rec['bound_by']}; val scoring {', '.join(f'{v:.3f}' for v in timing['score_s'])} s; "
+          f"launches per step {per_step[0]}; two-tower vs full forward max|d|={tt_err:.3e}; "
+          f"restored best weights score as a fresh model loaded with them: {restored_equal}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def small_fit_resume():
+    """fp32 NRMS at small size, dropout 0.2 on the kernels' Philox masks:
+    fit with prefetch 0 and with prefetch 2 leave bit-equal parameters; a
+    run stopped after epoch 1 and resumed from its checkpoint (under
+    build/, removed afterwards) into a fresh Trainer gives the history and
+    bit-equal parameters of an uninterrupted run."""
+    import shutil
+
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.data import EvalFeed, Lookup, NewsrecFeed
+    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    vocab, emb, n_art, bs, steps = 1_000, 128, 300, 64, 3
+    lookup = Lookup.from_values(np.arange(1, n_art + 1), np.random.default_rng(5).integers(
+        1, vocab, (n_art, T)).astype(np.int32))
+    train, val = train_table(bs * steps, n_art, seed=8), val_table(256, n_art, seed=9)
+
+    def run(prefetch, epochs, **kw):
+        model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=vocab, word_emb_dim=emb,
+                     dtype=torch.float32, use_fused_encoder=True, device=DEV, seed=3)
+        with torch.no_grad():
+            model.word_embedding.embedding.mul_(50.0)
+        tr = Trainer(model, {"title": lookup.matrix}, token_batch,
+                     TrainerConfig(learning_rate=1e-3, seed=0, prefetch=prefetch,
+                                   early_stopping_patience=None, lr_patience=1),
+                     device=DEV, log_fn=lambda m: None)
+        hist = tr.fit(NewsrecFeed(train, lookup, history_size=H, batch_size=bs, seed=0),
+                      EvalFeed(val, lookup, history_size=H, batch_size=64),
+                      val[c.DEFAULT_LABELS_COL], epochs=epochs, steps_per_epoch=steps, **kw)
+        return hist, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    ckpt = Path(__file__).resolve().parent / "build" / "fit_resume_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    reset_counts()
+    try:
+        _, p0 = run(0, 2)
+        _, p2 = run(2, 2)
+        hist_u, params_u = run(2, 3)
+        run(2, 1, ckpt_dir=ckpt)
+        hist_r, params_r = run(2, 3, ckpt_dir=ckpt, resume=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    counts = read_counts()
+    check(counts["news_encoder_fwd"] > 0 and counts["news_encoder_bwd"] > 0,
+          f"small fit launched {counts}")
+    prefetch_equal, resume_equal = same(p0, p2), same(params_u, params_r)
+    check(prefetch_equal, "fit with prefetch 0 and 2 left different parameters")
+    check(hist_r == hist_u, f"resumed history {hist_r} != uninterrupted {hist_u}")
+    check(resume_equal, "resumed run's parameters differ from the uninterrupted run's")
+    print(f"[small] fp32 fit, dropout {DROPOUT}: prefetch 0 vs 2 bit-equal; stopped after epoch "
+          f"1 and resumed: history equal ({', '.join(f'{h['val_auc']:.4f}' for h in hist_u)} val "
+          f"AUC, lr {hist_u[-1]['lr']:g} last), parameters bit-equal; launches {counts}",
+          flush=True)
+    return {"prefetch_bit_equal": prefetch_equal, "resume_bit_equal": resume_equal,
+            "history": hist_u, "launches": counts}
+
+
+def family_serving(name, trainer, tables):
+    """Two-tower serving of a trained LSTUR or NAML at full width (25,001
+    articles, FIT_VAL_IMP impressions, LSTUR with its user ids), the model
+    left in training mode by its steps: scores against
+    ``Trainer.score(two_tower=False)``, warm rates. Returns its record."""
+    from ebnerd_tpu_torch.bench import N_USERS
+    from ebnerd_tpu_torch.data import EvalFeed, Lookup
+    from ebnerd_tpu_torch.serving import ArticleIndex, TwoTowerScorer
+
+    n_users = N_USERS if name == "lstur" else 0
+    val = val_table(FIT_VAL_IMP, N_ART, seed=6, n_users=n_users)
+    lookup = Lookup.from_values(np.arange(1, N_ART + 1), np.arange(N_ART))  # ids -> rows
+    feed = EvalFeed(val, lookup, history_size=H, batch_size=BATCH,
+                    user_mapping={u: u for u in range(n_users)} if n_users else None)
+    model = trainer.model
+    check(model.training, f"{name}: the steps left the model in eval mode")
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    index = ArticleIndex(model, tables, batch_size=CHUNK, device=DEV)
+    vecs = index.build()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = TwoTowerScorer(index).score(feed)
+    t_score = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(counts.values()), f"{name} serving launched {counts} (eval: no dropout)")
+    check(model.training, f"{name}: serving changed the model's mode")
+    check(vecs.shape[0] == N_ART + 1 and bool(torch.isfinite(vecs).all()),
+          f"{name}: article vectors {tuple(vecs.shape)}, or non-finite")
+    builds, scorings = [], []
+    for _ in range(WARM_WINDOWS):
+        t0 = time.perf_counter()
+        index.build()
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        TwoTowerScorer(index).score(feed)
+        scorings.append(time.perf_counter() - t0)
+    full = trainer.score(feed, two_tower=False)
+    err = float(np.abs(scores.values - full.values).max())
+    check(bool(np.isfinite(scores.values).all()), f"{name}: non-finite two-tower scores")
+    check(err <= SCORE_ATOL, f"{name}: two-tower vs Trainer.score(two_tower=False): {err}")
+    rec = {"articles": N_ART + 1, "impressions": FIT_VAL_IMP, "build_s": t_build,
+           "score_s": t_score, "build_warm_s": builds, "score_warm_s": scorings,
+           "articles_per_s_warm": WARM_WINDOWS * (N_ART + 1) / sum(builds),
+           "impressions_per_s_warm": WARM_WINDOWS * FIT_VAL_IMP / sum(scorings),
+           "max_abs_score_diff_vs_full": err, "launches": counts}
+    print(f"[{name}] two-tower serving: index of {N_ART + 1} articles {t_build * 1e3:.1f} ms cold, "
+          f"{rec['articles_per_s_warm']:,.0f} articles/s warm; {FIT_VAL_IMP} impressions "
+          f"{t_score * 1e3:.1f} ms cold, {rec['impressions_per_s_warm']:,.0f} imp/s warm; vs "
+          f"Trainer.score(two_tower=False) max|d|={err:.3e}", flush=True)
     return rec
 
 
@@ -1238,6 +1587,7 @@ def family_training(name, preps, prep_ms, k3_ms):
           f"{ips:,.0f} impressions/s; K3 forward at the step's shapes {k3_step:.3f} ms (x2 with "
           f"the backward); unique fraction {rec['uniq_frac']:.4f}, buckets {rec['buckets']}; "
           f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+    rec["serving"] = family_serving(name, trainer, tables)
     del trainer, model, staged
     torch.cuda.empty_cache()
     return rec
@@ -1401,6 +1751,8 @@ def main(argv=None) -> int:
                                    {"news": blocks[0]["ms"], "user": blocks[1]["ms"]})
     record["training"] = training
     del table, preps
+    record["fit"] = fit_full_width(training)
+    record["small_fit_resume"] = small_fit_resume()
 
     record["k3_checks"] = k3_checks(gen)
     fam_preps, fam_prep_ms = family_data()
@@ -1426,6 +1778,7 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:231",
               "launches": main_l["news_encoder_fwd"],
               "launches_serving": serving["launches_article_tower"] + serving["launches_user_tower"],
+              "launches_fit": record["fit"]["launches"]["news_encoder_fwd"],
               "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
                       "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
                       "and external-mask dropout; timed at the training step's news-tower shape; "
@@ -1436,6 +1789,7 @@ def main(argv=None) -> int:
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd"],
+              "launches_fit": record["fit"]["launches"]["news_encoder_bwd"],
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},

@@ -60,6 +60,10 @@ class Ragged:
     def total(self) -> int:
         return int(self.offsets[-1])
 
+    def row_ids(self) -> np.ndarray:
+        """[total] array mapping each value to its row index."""
+        return np.repeat(np.arange(len(self), dtype=np.int64), self.lengths)
+
     def row(self, i: int) -> np.ndarray:
         return self.values[self.offsets[i] : self.offsets[i + 1]]
 

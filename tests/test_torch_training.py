@@ -273,8 +273,8 @@ def test_trainer_three_steps_match_jax(dedup):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("accumulation_steps", 2, "A5"), ("scan_steps", 4, "A5"),
-    ("sparse_embedding", True, "A12"), ("adam_mu_dtype", "bfloat16", "A3")])
+    ("scan_steps", 4, "A5"), ("sparse_embedding", True, "A12"),
+    ("adam_mu_dtype", "bfloat16", "A3")])
 def test_unported_trainer_options_raise(field, value, item):
     model = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
