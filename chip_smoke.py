@@ -63,8 +63,9 @@ Phases:
      non-contiguous input, an unaligned pointer, element offsets past 2**34
      that set the counter's high word), keep rate, reproducible, seeded by
      the high word and by the stream, a backward that re-applies the mask;
-     bf16 at the four dropout shapes of LSTUR and NAML training, timed
-     against the plain version and ``F.dropout``;
+     at every dropout shape of LSTUR, NAML, NPA and Fastformer training, in
+     the dtype the step gives it (bf16; Fastformer's embedding site fp32),
+     timed against the plain version and ``F.dropout``;
   9. LSTUR (ini) and NAML training at full width (the configuration of
      ``scripts/profile_models.py`` with PM_BS=4096 PM_PRNGDROP=1: batch
      4,096, npratio 4, the 250,002 x 1,024 table, filter 400, window 3,
@@ -74,16 +75,27 @@ Phases:
      steps timed; then each served two-tower from the model in training mode
      (index over 25,001 articles, 4,096 impressions; LSTUR with its user
      ids), against ``Trainer.score(two_tower=False)``, warm rates; a small
-     fp32 model of each trained 3 steps on the dedup path against the
-     per-slot path;
-  10. print the ``kernels`` JSON line, the card line, then the ``ok`` line
+     fp32 model of each family trained 3 steps on the dedup path against
+     the per-slot path;
+  10. NPA, Fastformer and NRMSDocVec training at full width, the same
+     script's configurations (``HParamsNPA``, ``HParamsFastformer`` and
+     ``HParamsNRMSDocVec`` defaults; NPA and Fastformer on the 250,002 x
+     1,024 table with K3 on every dropout site, NRMSDocVec on a 25,001 x 768
+     fp32 docvec table with no kernel): NPA's and Fastformer's step on K3
+     against its plain version, NRMSDocVec's step finite with its BN running
+     stats moved and no launch; 3 steps counting K3's launches (8, 10, 0);
+     warm steps timed; Fastformer and NRMSDocVec served two-tower from the
+     model in training mode against ``Trainer.score(two_tower=False)``, NPA
+     scored by ``Trainer.score`` (the full forward); then FastformerWu's
+     ``loss_and_logits`` forward and backward at the Fastformer width;
+  11. print the ``kernels`` JSON line, the card line, then the ``ok`` line
      last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
 their QKV product alone (their yardstick; neither kernel has a one-call
 PyTorch equivalent).
 
-Each path (mask check, serving, NRMS training, fit, LSTUR and NAML training
+Each path (mask check, serving, NRMS training, fit, each family's training
 and serving) is driven with every launch count set to 0 just before it and
 read just after; launches made to
 compare a kernel with its plain version are not counted. Any failed check
@@ -147,7 +159,14 @@ FAM_BS = 4_096        # LSTUR and NAML batch (scripts/profile_models.py, PM_BS=4
 FIT_EPOCHS, FIT_STEPS = 2, 4  # Trainer.fit at full width: epochs x steps per epoch
 FIT_VAL_IMP = 4_096   # its validation impressions, 5-15 candidates, one positive each
 FAM_TRAIN_STEPS, FAM_WARM_STEPS = 3, 5
-FAM_LAUNCHES = {"lstur": 4, "naml": 8}  # K3 per step: 2 and 4 dropout sites, forward + backward
+# K3 per step: 2, 4, 4 and 5 dropout sites (Fastformer at 2 layers), forward + backward;
+# NRMSDocVec's dense stack draws generator masks (no kernel)
+FAM_LAUNCHES = {"lstur": 4, "naml": 8, "npa": 8, "fastformer": 10, "nrms_docvec": 0}
+# K3's shapes in a step of each family (k3_full_case names), once per forward site
+FAM_K3_SITES = {"lstur": ("title_emb", "title_conv"),
+                "naml": ("title_emb", "title_conv", "body_emb", "body_conv"),
+                "npa": ("title_emb", "title_conv", "title_conv", "npa_news_values"),
+                "fastformer": ("ff_emb",) + ("ff_layer",) * 4, "nrms_docvec": ()}
 # LSTUR/NAML full-width step, K3 vs its plain version: per gradient tensor
 # |g_kernel - g_plain|_2 <= tol * |g_plain|_2. The masks are bit-equal and
 # cuDNN is made deterministic for the comparison, so the two runs differ only
@@ -1349,9 +1368,9 @@ def small_fit_resume():
 
 
 def family_serving(name, trainer, tables):
-    """Two-tower serving of a trained LSTUR or NAML at full width (25,001
-    articles, FIT_VAL_IMP impressions, LSTUR with its user ids), the model
-    left in training mode by its steps: scores against
+    """Two-tower serving of a trained LSTUR, NAML, Fastformer or NRMSDocVec
+    at full width (25,001 articles, FIT_VAL_IMP impressions, LSTUR with its
+    user ids), the model left in training mode by its steps: scores against
     ``Trainer.score(two_tower=False)``, warm rates. Returns its record."""
     from ebnerd_tpu_torch.bench import N_USERS
     from ebnerd_tpu_torch.data import EvalFeed, Lookup
@@ -1456,13 +1475,13 @@ def k3_checks(gen):
     return {"cases": names, "keep_rate": rate}
 
 
-def k3_full_case(name, shape, peaks, gen):
-    """K3 in bf16 at one of LSTUR's and NAML's dropout shapes: bit-equal to
-    the plain version; timed with the plain version and F.dropout (which
-    draws and stores a mask, the framework route)."""
+def k3_full_case(name, shape, peaks, gen, dtype=torch.bfloat16):
+    """K3 at one of the families' dropout shapes, in the dtype the step gives
+    it: bit-equal to the plain version; timed with the plain version and
+    F.dropout (which draws and stores a mask, the framework route)."""
     from ebnerd_tpu_torch.ops import dropout as k3
 
-    x = torch.randn(*shape, generator=gen, device=DEV).to(torch.bfloat16)
+    x = torch.randn(*shape, generator=gen, device=DEV).to(dtype)
     y = k3.dropout_apply(x, SEED64, 0, KEEP)
     torch.cuda.synchronize()
     ref = k3.dropout_reference(x, SEED64, 0, KEEP)
@@ -1474,18 +1493,20 @@ def k3_full_case(name, shape, peaks, gen):
     lib_ms = time_ms(lambda: torch.nn.functional.dropout(x, DROPOUT, True), 20)
     nbytes = 2 * x.numel() * x.element_size()
     b_ms, b_by = bound(0, nbytes, peaks[1], peaks)
-    rec = {"case": name, "shape": list(shape), "dtype": "bfloat16", "max_abs_err": err,
+    tag = str(dtype).replace("torch.", "")
+    rec = {"case": name, "shape": list(shape), "dtype": tag, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": lib_ms, "gbytes": nbytes / 1e9}
-    print(f"[k3] {name} {list(shape)} bf16: bit-equal; ms={ms:.4f} plain_ms={plain_ms:.2f} "
+    print(f"[k3] {name} {list(shape)} {tag}: bit-equal; ms={ms:.4f} plain_ms={plain_ms:.2f} "
           f"bound_ms={b_ms:.4f} ({b_by}) library (F.dropout fwd, stores its mask) "
           f"ms={lib_ms:.4f}", flush=True)
     return rec
 
 
 def family_data():
-    """LSTUR's and NAML's step data (one draw for both: NAML ignores the
-    user rows): Zipf articles, users uniform in [0, 50,000), host dedup."""
+    """The families' step data (one draw for all: those without a user
+    tower ignore the user rows): Zipf articles, users uniform in [0,
+    50,000), host dedup."""
     from ebnerd_tpu_torch.bench import N_USERS, batches
     from ebnerd_tpu_torch.training import prep_dedup_batch
 
@@ -1504,16 +1525,34 @@ def plain_dropout(x, seed, stream, keep, offset=0):
     return k3.dropout_reference(x, seed, stream, keep, offset)
 
 
+def cancelling(name: str, param: str) -> bool:
+    """Parameters whose gradient is 0 but for rounding under the step's loss:
+    Fastformer's per-head attention biases (a shift shared by every token
+    cancels in the softmax over tokens) and, under the softmax cross-entropy
+    over candidates, its user pool and head bias (the user term is the same
+    for every candidate)."""
+    return name == "fastformer" and (param.endswith(("query_att.bias", "key_att.bias",
+                                                     "output_layer.bias"))
+                                     or param.startswith("user_pool."))
+
+
 def family_training(name, preps, prep_ms, k3_ms):
-    """LSTUR or NAML training at full width on K3; returns its record."""
+    """LSTUR, NAML, NPA, Fastformer or NRMSDocVec training at full width
+    (K3 on every dropout site but NRMSDocVec's); returns its record."""
     from ebnerd_tpu_torch.bench import make_family
     from ebnerd_tpu_torch.ops import dropout as k3
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
     model, tables, builder, _ = make_family(name, torch.bfloat16, DROPOUT, "zipf", prng=True,
                                             device=DEV)
-    with torch.no_grad():  # unit-scale embeddings, as the NRMS phase: gradients well above 0
-        model.word_embedding.embedding.mul_(EMB_SCALE)
+    if name in ("lstur", "naml", "npa"):
+        with torch.no_grad():  # unit-scale embeddings, as the NRMS phase: gradients well above 0
+            model.word_embedding.embedding.mul_(EMB_SCALE)
+    if name == "npa":  # zero-initialised users would give the query weights no gradient;
+        with torch.no_grad():  # flax's default Embed scale instead
+            model.user_embedding.embedding.normal_(
+                0.0, model.hparams.user_emb_dim ** -0.5,
+                generator=torch.Generator(device=DEV).manual_seed(1))
     trainer = Trainer(model, tables, builder,
                       TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
     staged = [trainer.prepare(p) for p in preps]
@@ -1528,33 +1567,46 @@ def family_training(name, preps, prep_ms, k3_ms):
         loss.backward()
         return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
-    torch.backends.cudnn.deterministic = True
-    try:
-        loss_k, grads_k = loss_and_grads(staged[0])
-        with mock.patch.object(k3, "dropout_apply", plain_dropout):
-            loss_p, grads_p = loss_and_grads(staged[0])
-    finally:
-        torch.backends.cudnn.deterministic = False
-    model.zero_grad(set_to_none=True)
     grad_errs = {}
-    for k, gp in grads_p.items():
-        gk = grads_k[k]
-        check(bool(torch.isfinite(gk).all()), f"{name}: non-finite gradient {k}")
-        ref = gp.norm().item()
-        check(ref > 0, f"{name}: gradient {k} is zero")
-        err = (gk - gp).norm().item()
-        grad_errs[k] = {"norm_err": err, "norm_ref": ref, "rel": err / ref,
-                        "max_abs_err": (gk - gp).abs().max().item()}
-    del grads_k, grads_p
-    worst = max(grad_errs, key=lambda k: grad_errs[k]["rel"])
-    print(f"[{name}] one step, K3 vs its plain version (same seed): loss {loss_k:.6f} vs "
-          f"{loss_p:.6f}; worst |dg|_2 relative {grad_errs[worst]['rel']:.2e} ({worst}; tol "
-          f"{FAM_STEP_REL_TOL}); " + ", ".join(f"{k}={e['rel']:.1e}" for k, e in grad_errs.items()),
-          flush=True)
-    for k, e in grad_errs.items():
-        check(e["rel"] <= FAM_STEP_REL_TOL, f"{name} step gradient {k}: {e}")
-    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * max(1.0, abs(loss_p)),
-          f"{name} step loss: kernels {loss_k}, plain {loss_p}")
+    if name == "nrms_docvec":  # no kernel: a finite step that moves the BN running stats
+        stats0 = {k: v.clone() for k, v in model.named_buffers()}
+        reset_counts()
+        loss_k = loss_p = loss_and_grads(staged[0])[0]
+        counts = read_counts()
+        check(not any(counts.values()), f"{name}: a step launched {counts}")
+        for k, v in model.named_buffers():
+            check(bool(torch.isfinite(v).all()) and not torch.equal(v, stats0[k]),
+                  f"{name}: running stat {k} non-finite or unchanged")
+        print(f"[{name}] one step: loss {loss_k:.6f}, every BN running stat moved and finite, "
+              f"launches {counts}", flush=True)
+    else:
+        torch.backends.cudnn.deterministic = True
+        try:
+            loss_k, grads_k = loss_and_grads(staged[0])
+            with mock.patch.object(k3, "dropout_apply", plain_dropout):
+                loss_p, grads_p = loss_and_grads(staged[0])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        top = max(g.norm().item() for g in grads_p.values())
+        for k, gp in grads_p.items():
+            gk = grads_k[k]
+            check(bool(torch.isfinite(gk).all()), f"{name}: non-finite gradient {k}")
+            ref = gp.norm().item()
+            check(ref > 0 or cancelling(name, k), f"{name}: gradient {k} is zero")
+            err = (gk - gp).norm().item()
+            scale = ref if not cancelling(name, k) else max(ref, STEP_TOWER_FLOOR * top)
+            grad_errs[k] = {"norm_err": err, "norm_ref": ref, "rel": err / scale,
+                            "max_abs_err": (gk - gp).abs().max().item()}
+        del grads_k, grads_p
+        worst = max(grad_errs, key=lambda k: grad_errs[k]["rel"])
+        print(f"[{name}] one step, K3 vs its plain version (same seed): loss {loss_k:.6f} vs "
+              f"{loss_p:.6f}; worst |dg|_2 relative {grad_errs[worst]['rel']:.2e} ({worst}; tol "
+              f"{FAM_STEP_REL_TOL}); " + ", ".join(f"{k}={e['rel']:.1e}"
+                                                  for k, e in grad_errs.items()), flush=True)
+        for k, e in grad_errs.items():
+            check(e["rel"] <= FAM_STEP_REL_TOL, f"{name} step gradient {k}: {e}")
+        check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * max(1.0, abs(loss_p)),
+              f"{name} step loss: kernels {loss_k}, plain {loss_p}")
 
     # 2. the main path, counted
     losses, per_step = [], []
@@ -1580,25 +1632,102 @@ def family_training(name, preps, prep_ms, k3_ms):
            "uniq_frac": float(np.mean([p["n_uniq"] for p in preps]) / slots),
            "buckets": sorted({int(p["art_uniq"].shape[0]) for p in preps}),
            "host_dedup_ms": prep_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    k3_step = sum(k3_ms[s] for s in (("title_emb", "title_conv") if name == "lstur"
-                                     else ("title_emb", "title_conv", "body_emb", "body_conv")))
+    k3_step = sum(k3_ms[s] for s in FAM_K3_SITES[name])
     print(f"[{name}] {FAM_TRAIN_STEPS} steps: losses {', '.join(f'{v:.6f}' for v in losses)}; "
           f"K3 launches per step {per_step[0]['prng_dropout']}; warm: {step_ms:.2f} ms/step, "
           f"{ips:,.0f} impressions/s; K3 forward at the step's shapes {k3_step:.3f} ms (x2 with "
           f"the backward); unique fraction {rec['uniq_frac']:.4f}, buckets {rec['buckets']}; "
           f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
-    rec["serving"] = family_serving(name, trainer, tables)
+    rec["serving"] = (npa_scoring(trainer) if name == "npa"
+                      else family_serving(name, trainer, tables))
     del trainer, model, staged
     torch.cuda.empty_cache()
     return rec
 
 
+def npa_scoring(trainer):
+    """``Trainer.score`` of a trained NPA (its article tower depends on the
+    user, so no two-tower serving; the full forward in eval mode) over the
+    FIT_VAL_IMP impressions with their user ids: finite scores, no kernel
+    launch, cold and warm impressions/s. Returns its record."""
+    from ebnerd_tpu_torch.bench import N_USERS
+    from ebnerd_tpu_torch.data import EvalFeed, Lookup
+
+    val = val_table(FIT_VAL_IMP, N_ART, seed=6, n_users=N_USERS)
+    lookup = Lookup.from_values(np.arange(1, N_ART + 1), np.arange(N_ART))
+    feed = EvalFeed(val, lookup, history_size=H, batch_size=BATCH,
+                    user_mapping={u: u for u in range(N_USERS)})
+    check(trainer.model.training, "npa: the steps left the model in eval mode")
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = trainer.score(feed)
+    t_score = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(counts.values()), f"npa scoring launched {counts} (eval: no dropout)")
+    check(trainer.model.training, "npa: scoring changed the model's mode")
+    check(np.array_equal(scores.offsets, feed.inview.offsets)
+          and bool(np.isfinite(scores.values).all()), "npa: scores misaligned or non-finite")
+    warm = []
+    for _ in range(WARM_WINDOWS):
+        t0 = time.perf_counter()
+        trainer.score(feed)
+        warm.append(time.perf_counter() - t0)
+    rec = {"impressions": FIT_VAL_IMP, "score_s": t_score, "score_warm_s": warm,
+           "impressions_per_s_warm": WARM_WINDOWS * FIT_VAL_IMP / sum(warm), "launches": counts}
+    print(f"[npa] Trainer.score (full forward; no two-tower): {FIT_VAL_IMP} impressions "
+          f"{t_score * 1e3:.1f} ms cold, {rec['impressions_per_s_warm']:,.0f} imp/s warm; "
+          f"scores finite", flush=True)
+    return rec
+
+
+def fastformer_wu_check():
+    """FastformerWu at the Fastformer width (the 250,002 x 1,024 table, 256
+    wide, 2 layers, bf16, dropout 0.2 from generator masks): forward and
+    backward of ``loss_and_logits`` on 1,024 inputs of 30 tokens; a finite
+    loss and gradients, no kernel launch. Returns its record."""
+    from ebnerd_tpu_torch.models import FastformerWu, HParamsFastformer
+
+    model = FastformerWu(HParamsFastformer(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
+                         dtype=torch.bfloat16, device=DEV, seed=0).train()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    ids = torch.randint(1, VOCAB, (1_024, T), generator=gen, device=DEV)
+    ids[:, 20:] = 0  # padded tails
+    targets = torch.randint(0, 4, (1_024,), generator=gen, device=DEV)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, logits = model.loss_and_logits(ids, targets, SEED64)
+        loss.backward()
+        return loss, logits
+
+    reset_counts()
+    loss, logits = step()
+    counts = read_counts()
+    check(not any(counts.values()), f"fastformer_wu launched {counts} (generator dropout)")
+    check(bool(torch.isfinite(loss)) and logits.shape == (1_024, 4), "fastformer_wu: loss/logits")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None),
+          "fastformer_wu: non-finite gradients")
+    ms = time_ms(step, 5)
+    rec = {"batch": 1_024, "tokens": T, "loss": loss.item(), "fwd_bwd_ms": ms,
+           "launches": counts}
+    print(f"[fastformer_wu] loss_and_logits forward + backward on [1024, {T}] tokens: loss "
+          f"{loss.item():.6f} (ln 4 = {math.log(4):.6f}), {ms:.2f} ms; no kernel launch",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def small_family_training():
-    """A small fp32 LSTUR and NAML, dropout 0: 3 Adam steps on the dedup
-    path leave the same parameters as 3 steps on the per-slot path."""
+    """A small fp32 model of each family trained on K3, dropout 0: 3 Adam
+    steps on the dedup path leave the same parameters (and NRMSDocVec's
+    running stats) as 3 steps on the per-slot path. Fastformer trains on
+    the log loss (see ``cancelling``); its per-head attention biases, whose
+    gradients are rounding, may only drift by Adam's steps of at most lr."""
     from ebnerd_tpu_torch.bench import batches
-    from ebnerd_tpu_torch.models import (LSTUR, NAML, HParamsLSTUR, HParamsNAML, naml_batch,
-                                         token_batch)
+    from ebnerd_tpu_torch.models import (LSTUR, NAML, NPA, Fastformer, HParamsFastformer,
+                                         HParamsLSTUR, HParamsNAML, HParamsNPA, HParamsNRMSDocVec,
+                                         NRMSDocVec, docvec_batch, naml_batch, token_batch)
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
     vocab, emb, n_art, bs, n_users = 1_000, 128, 300, 64, 50
@@ -1606,7 +1735,8 @@ def small_family_training():
     tables = {"title": rng.integers(1, vocab, (n_art + 1, T)).astype(np.int32),
               "body": rng.integers(1, vocab, (n_art + 1, 40)).astype(np.int32),
               "cat": rng.integers(0, 100, n_art + 1).astype(np.int32),
-              "subcat": rng.integers(0, 100, n_art + 1).astype(np.int32)}
+              "subcat": rng.integers(0, 100, n_art + 1).astype(np.int32),
+              "docvec": rng.standard_normal((n_art + 1, 64)).astype(np.float32)}
     raw = batches(8, 3, bs, n_art + 1, "zipf", n_users)
     common = dict(vocab_size=vocab, word_emb_dim=emb, dtype=torch.float32, prng_dropout=True,
                   device=DEV, seed=3)
@@ -1614,20 +1744,36 @@ def small_family_training():
                                                  gru_unit=64, attention_hidden_dim=32),
                                     **common), token_batch),
             "naml": lambda: (NAML(HParamsNAML(dropout=0.0, filter_num=64, attention_hidden_dim=32),
-                                  **common), naml_batch)}
+                                  **common), naml_batch),
+            "npa": lambda: (NPA(HParamsNPA(n_users=n_users, dropout=0.0, filter_num=64,
+                                           attention_hidden_dim=32, user_emb_dim=48),
+                                **common), token_batch),
+            "fastformer": lambda: (Fastformer(HParamsFastformer(
+                dropout=0.0, embedding_dim=64, n_heads=4, intermediate_dim=64), **common),
+                token_batch),
+            "nrms_docvec": lambda: (NRMSDocVec(HParamsNRMSDocVec(
+                dropout=0.0, title_size=64, head_num=4, head_dim=16, attention_hidden_dim=32,
+                newsencoder_units_per_layer=(64, 64)), dtype=torch.float32, device=DEV, seed=3),
+                docvec_batch)}
     rec = {}
     for name, build in make.items():
         params = {}
+        loss = "log_loss" if name == "fastformer" else "cross_entropy_loss"
         for dedup in (True, False):
             model, builder = build()
+            start = {k: v.detach().clone() for k, v in model.state_dict().items()}
             tr = Trainer(model, tables, builder,
-                         TrainerConfig(learning_rate=SMALL_LR, seed=0, dedup_articles=dedup),
-                         device=DEV)
+                         TrainerConfig(learning_rate=SMALL_LR, seed=0, dedup_articles=dedup,
+                                       loss=loss), device=DEV)
             for i in range(3):
                 check(bool(torch.isfinite(tr.train_step({k: v[i] for k, v in raw.items()}))),
                       f"small {name}: non-finite loss")
             params[dedup] = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        diffs = {k: (params[True][k] - params[False][k]).abs().max().item() for k in params[True]}
+        diffs = {k: (params[True][k] - params[False][k]).abs().max().item() for k in params[True]
+                 if not k.endswith(("query_att.bias", "key_att.bias"))}
+        for k in params[True].keys() - diffs.keys():
+            drift = max((params[d][k] - start[k]).abs().max().item() for d in (True, False))
+            check(drift <= 3 * SMALL_LR * 1.001, f"small {name}: {k} drifted {drift}")
         worst = max(diffs, key=diffs.get)
         print(f"[small] fp32 {name}, 3 training steps, dedup vs per-slot: max|dparam|="
               f"{diffs[worst]:.3e} ({worst})", flush=True)
@@ -1757,16 +1903,23 @@ def main(argv=None) -> int:
     record["k3_checks"] = k3_checks(gen)
     fam_preps, fam_prep_ms = family_data()
     fam_bucket = int(fam_preps[0]["art_uniq"].shape[0])
-    print(f"[data] first LSTUR/NAML batch: {int(fam_preps[0]['n_uniq'])} unique articles in a "
+    print(f"[data] first family batch: {int(fam_preps[0]['n_uniq'])} unique articles in a "
           f"bucket of {fam_bucket}; host dedup {fam_prep_ms:.2f} ms per batch", flush=True)
-    k3_cases = [k3_full_case(nm, shape, peaks, gen) for nm, shape in (
-        ("title_emb", (fam_bucket, T, EMB)), ("title_conv", (fam_bucket, T, 400)),
-        ("body_emb", (fam_bucket, 40, EMB)), ("body_conv", (fam_bucket, 40, 400)))]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    k3_cases = [k3_full_case(nm, shape, peaks, gen, dt) for nm, shape, dt in (
+        ("title_emb", (fam_bucket, T, EMB), bf16), ("title_conv", (fam_bucket, T, 400), bf16),
+        ("body_emb", (fam_bucket, 40, EMB), bf16), ("body_conv", (fam_bucket, 40, 400), bf16),
+        # NPA's news-pool values, per slot; Fastformer's embedding site (fp32: LayerNorm's
+        # output) and its four layer sites (bf16: the Dense outputs)
+        ("npa_news_values", (FAM_BS, H, 400), bf16), ("ff_emb", (fam_bucket, T, 256), fp32),
+        ("ff_layer", (fam_bucket, T, 256), bf16))]
     record["k3_cases"] = k3_cases
     k3_ms = {c["case"]: c["ms"] for c in k3_cases}
     record["small_family_training"] = small_family_training()
-    fam = {name: family_training(name, fam_preps, fam_prep_ms, k3_ms) for name in ("lstur", "naml")}
-    record["lstur"], record["naml"] = fam["lstur"], fam["naml"]
+    fam = {name: family_training(name, fam_preps, fam_prep_ms, k3_ms)
+           for name in ("lstur", "naml", "npa", "fastformer", "nrms_docvec")}
+    record.update(fam)
+    record["fastformer_wu"] = fastformer_wu_check()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
@@ -1835,14 +1988,17 @@ def main(argv=None) -> int:
               "note": "launches counted on the mask-check path (check_rng_dropout.py's flow)",
               "checked": True}, **{k: dump[k] for k in keys}),
         dict({"name": "prng_dropout", "route": "cuda", "source": "ebnerd_tpu_torch/csrc/dropout.cu",
-              "replaces": "ebnerd_tpu/ops/dropout.py:54",
-              "launches": fam["lstur"]["launches"] + fam["naml"]["launches"],
+              "replaces": "ebnerd_tpu/ops/dropout.py:55",
+              "launches": sum(fam[n]["launches"] for n in ("lstur", "naml", "npa", "fastformer")),
               "launches_lstur": fam["lstur"]["launches"], "launches_naml": fam["naml"]["launches"],
+              "launches_npa": fam["npa"]["launches"],
+              "launches_fastformer": fam["fastformer"]["launches"],
               "note": "seed-recompute dropout; timed at the title-embedding shape [bucket, 30, 1024] "
-                      "bf16 (cases: all four dropout shapes); library_ms is F.dropout's forward, "
-                      "which draws and stores its mask",
+                      "bf16 (cases: every dropout shape of LSTUR, NAML, NPA and Fastformer, in the "
+                      "dtype each step gives it); library_ms is F.dropout's forward, which draws "
+                      "and stores its mask",
               "checked": True}, **{k: k3_cases[0][k] for k in keys},
-             cases=[{k: c[k] for k in ("case",) + keys} for c in k3_cases]),
+             cases=[{k: c[k] for k in ("case", "shape", "dtype") + keys} for c in k3_cases]),
     ]}
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "build"

@@ -1,5 +1,5 @@
 """Training throughput on one CUDA card (counterpart of the repo's
-``bench.py``, and for LSTUR and NAML of ``scripts/profile_models.py``):
+``bench.py``, and for the other families of ``scripts/profile_models.py``):
 impressions per second of the training step.
 
 ``BENCH_MODEL=nrms`` (the default) runs the reference configuration of
@@ -12,21 +12,29 @@ kernel's Philox masks, unique-article dedup, dense Adam at lr 1e-4.
 ``profile_models.py`` with ``PM_BS=4096 PM_PRNGDROP=1``: the same table,
 25,001 articles, body 40 (NAML), filter 400, window 3, attention 200, GRU
 400 (LSTUR ``ini``), 50,000 users, dropout 0.2 on the seed-recompute
-dropout kernel, batch 4,096. Batches are dedup-prepped and staged on the
-card before the timed steps (what a prefetch thread provides in
-production).
+dropout kernel, batch 4,096. ``BENCH_MODEL=npa`` (``HParamsNPA``: filter
+400, window 3, attention 200, user embedding 400, 50,000 users; partial
+dedup) and ``fastformer`` (``HParamsFastformer``: 256 wide, 2 layers, 8
+heads, intermediate 256, the word table then a 1,024 -> 256 transform)
+take the same table, batch and K3 dropout; ``nrms_docvec``
+(``HParamsNRMSDocVec``: 768-d document vectors, 16 x 16 heads, dense 512 x
+3 with BatchNorm, attention 200) reads a 25,001 x 768 fp32 ``docvec``
+table of standard normals and has no dropout kernel. Batches are
+dedup-prepped and staged on the card before the timed steps (what a
+prefetch thread provides in production).
 
 Prints ONE JSON line with the keys of ``bench.py`` except ``vs_baseline``
 and ``vs_gpu_estimate``: metric, value, unit, mfu_pct, step_ms, config,
 dedup_uniq_frac, prep_ms, sparse_rows. ``mfu_pct`` is ``bench.py``'s
 dedup-aware analytic FLOPs over the card's own dense bf16 peak, taken from
-its name; LSTUR and NAML have no analytic FLOP count in the JAX package, so
-their line has no ``mfu_pct``.
+its name; the other families have no analytic FLOP count in the JAX
+package, so their line has no ``mfu_pct``.
 
 Knobs (environment): BENCH_MODEL (nrms), BENCH_BS (16384 for NRMS, 4096
 for LSTUR and NAML), BENCH_STEPS (30), BENCH_WARMUP (5), BENCH_DTYPE
 (float32 for fp32 compute), BENCH_FUSED (0 = unfused layers; NRMS),
-BENCH_PRNGDROP (0 = generator-seeded dropout; LSTUR, NAML), BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
+BENCH_PRNGDROP (0 = generator-seeded dropout; LSTUR, NAML, NPA, Fastformer),
+BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
 uniform), BENCH_DEDUP (0 = per slot). BENCH_SPARSE and BENCH_MU_DTYPE raise
 (ROADMAP A12, A3); BENCH_FUSED_BLOCK is a TPU block size and does not
 apply.
@@ -50,7 +58,9 @@ TITLE = 30
 HISTORY = 20
 NPRATIO = 4
 BODY = 40            # NAML's body tokens (HParamsNAML.body_size)
-N_USERS = 50_000     # LSTUR's users (scripts/profile_models.py)
+N_USERS = 50_000     # LSTUR's and NPA's users (scripts/profile_models.py)
+DOCVEC = 768         # NRMSDocVec's document-vector width (HParamsNRMSDocVec.title_size)
+FAMILIES = ("nrms", "lstur", "naml", "npa", "fastformer", "nrms_docvec")
 
 # published dense bf16 tensor peaks (NVIDIA data sheets) by H100 part
 BF16_PEAK = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
@@ -136,10 +146,15 @@ def make_family(name: str, dtype: torch.dtype, dropout: float, token_dist: str =
     """(model, value tables, batch builder, n_users) of one family at the
     bench's configuration, weights from seed 0. The category ids of NAML's
     tables lie in [0, vert_num) and [0, subvert_num)."""
-    from .models import (LSTUR, NAML, NRMS, HParamsLSTUR, HParamsNAML, HParamsNRMS,
-                         naml_batch, token_batch)
+    from .models import (LSTUR, NAML, NPA, NRMS, Fastformer, HParamsFastformer, HParamsLSTUR,
+                         HParamsNAML, HParamsNPA, HParamsNRMS, HParamsNRMSDocVec, NRMSDocVec,
+                         docvec_batch, naml_batch, token_batch)
 
     rng = np.random.default_rng(0)
+    if name == "nrms_docvec":
+        docvec = rng.standard_normal((N_ARTICLES + 1, DOCVEC)).astype(np.float32)
+        return (NRMSDocVec(HParamsNRMSDocVec(dropout=dropout), dtype=dtype, device=device, seed=0),
+                {"docvec": docvec}, docvec_batch, 0)
     tables = {"title": token_table(rng, token_dist)}
     common = dict(vocab_size=VOCAB, word_emb_dim=EMB, dtype=dtype, device=device, seed=0)
     if name == "nrms":
@@ -155,7 +170,13 @@ def make_family(name: str, dtype: torch.dtype, dropout: float, token_dist: str =
         tables["cat"] = rng.integers(0, hp.vert_num, N_ARTICLES + 1).astype(np.int32)
         tables["subcat"] = rng.integers(0, hp.subvert_num, N_ARTICLES + 1).astype(np.int32)
         return NAML(hp, prng_dropout=prng, **common), tables, naml_batch, 0
-    raise ValueError(f"BENCH_MODEL must be nrms, lstur or naml; got {name!r}")
+    if name == "npa":
+        model = NPA(HParamsNPA(n_users=N_USERS, dropout=dropout), prng_dropout=prng, **common)
+        return model, tables, token_batch, N_USERS
+    if name == "fastformer":
+        return (Fastformer(HParamsFastformer(dropout=dropout), prng_dropout=prng, **common),
+                tables, token_batch, 0)
+    raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
 
 
 def main() -> int:
@@ -166,8 +187,8 @@ def main() -> int:
     if os.environ.get("BENCH_MU_DTYPE"):
         raise NotImplementedError("a bf16 Adam first moment is not ported yet (ROADMAP A3)")
     name = os.environ.get("BENCH_MODEL", "nrms").lower()
-    if name not in ("nrms", "lstur", "naml"):
-        raise ValueError(f"BENCH_MODEL must be nrms, lstur or naml; got {name!r}")
+    if name not in FAMILIES:
+        raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
     if not torch.cuda.is_available():
         print("bench: needs a CUDA card", file=sys.stderr)
         return 2
@@ -217,7 +238,8 @@ def main() -> int:
         hp = model.hparams
         d, a = hp.head_num * hp.head_dim, hp.attention_hidden_dim
         out["mfu_pct"] = round(ips * flops_per_impression(uniq_frac, dedup, d, a) / peak * 100, 2)
-    variant = f"fused={int(fused)}" if name == "nrms" else f"prngdrop={int(prng)}"
+    variant = {"nrms": f"fused={int(fused)}", "nrms_docvec": "no-kernel"}.get(
+        name, f"prngdrop={int(prng)}")
     out.update({
         "step_ms": round(dt / steps * 1000, 2),
         "config": (f"{name} bs{bs} {str(dtype).replace('torch.', '')} {variant} sparse=0 "

@@ -1,4 +1,4 @@
-"""Carry NRMS, LSTUR and NAML weights from the JAX package into the port.
+"""Carry the weights of every family from the JAX package into the port.
 
 ``load_nrms_params(model, params)`` takes the JAX NRMS ``params`` tree as
 a nested dict of numpy arrays (``jax.device_get`` of ``variables["params"]``)
@@ -23,6 +23,25 @@ NAML. Beyond the pooling layout above:
   gru/GRUCell_0/{hr,hz}/kernel     -> gru.{hr,hz}.weight (no bias)
   gru/GRUCell_0/hn/kernel, bias    -> gru.hn.weight, .bias
   {user,vert,subvert}_embedding/embedding -> <name>.embedding
+
+The newer families are loaded with ``model.load_state_dict(<family>_state_dict(...),
+strict=True)``. ``npa_state_dict``: the conv and embeddings as above, plus
+``{word,news}_query`` Denses and ``{word,news}_pool/att_proj``.
+
+The dense stack (NRMS with ``newsencoder_units_per_layer``, NRMSDocVec)
+takes ``batch_stats`` beside ``params``:
+
+  news_dense/l2_dense_<i>/kernel, bias -> news_dense.l2_dense_<i>.weight, .bias
+  news_dense/bn_<i>/scale, bias        -> news_dense.bn_<i>.scale, .bias
+  batch_stats news_dense/bn_<i>/mean, var -> news_dense.bn_<i>.mean, .var (buffers)
+
+``fastformer_state_dict`` (Fastformer or FastformerWu): every Dense
+as above, LayerNorms ``scale``/``bias`` -> ``.scale``/``.bias``, and
+
+  layer_<i>/FastSelfAttention_0/<dense> -> layers.<i>.attention.<dense>
+  layer_<i>/{att_out,ffn_out}/Dense_0   -> layers.<i>.{att_out,ffn_out}.dense
+  layer_<i>/{att_out,ffn_out}/LayerNorm_0 -> layers.<i>.{att_out,ffn_out}.norm
+  layer_<i>/Dense_0                     -> layers.<i>.intermediate
 """
 from __future__ import annotations
 
@@ -32,7 +51,8 @@ import numpy as np
 import torch
 
 __all__ = ["nrms_state_dict", "load_nrms_params", "lstur_state_dict", "load_lstur_params",
-           "naml_state_dict", "load_naml_params"]
+           "naml_state_dict", "load_naml_params", "npa_state_dict", "nrms_docvec_state_dict",
+           "fastformer_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -60,16 +80,90 @@ def _embed(sd: dict, name: str, params: Mapping) -> None:
     sd[f"{name}.embedding"] = _t(params[name]["embedding"])
 
 
-def nrms_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """JAX NRMS params tree -> the port NRMS's ``state_dict`` (fp32, CPU)."""
+def _self_att(sd: dict, name: str, att: Mapping) -> None:
+    for w in ("WQ", "WK", "WV"):
+        sd[f"{name}.{w}.weight"] = _t(att[w]).T.contiguous()
+
+
+def _norm(sd: dict, name: str, norm: Mapping) -> None:
+    sd[f"{name}.scale"] = _t(norm["scale"])
+    sd[f"{name}.bias"] = _t(norm["bias"])
+
+
+def _dense_stack(sd: dict, params: Mapping, batch_stats: Mapping) -> None:
+    stack, stats = params["news_dense"], batch_stats["news_dense"]
+    for name, sub in stack.items():
+        if name.startswith("l2_dense_"):
+            _dense(sd, f"news_dense.{name}", sub)
+        else:  # bn_<i>
+            _norm(sd, f"news_dense.{name}", sub)
+            for buf in ("mean", "var"):
+                sd[f"news_dense.{name}.{buf}"] = _t(stats[name][buf])
+
+
+def nrms_state_dict(params: Mapping, batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """JAX NRMS params tree (and, with the dense stack, its ``batch_stats``)
+    -> the port NRMS's ``state_dict`` (fp32, CPU)."""
     sd = {}
     _embed(sd, "word_embedding", params)
     for tower in ("news", "user"):
-        att = params[f"{tower}_self_att"]
-        for w in ("WQ", "WK", "WV"):
-            sd[f"{tower}_self_att.{w}.weight"] = _t(att[w]).T.contiguous()
+        _self_att(sd, f"{tower}_self_att", params[f"{tower}_self_att"])
         _pool(sd, f"{tower}_pool", params[f"{tower}_pool"])
+    if "news_dense" in params:
+        _dense_stack(sd, params, batch_stats)
     return sd
+
+
+def nrms_docvec_state_dict(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """JAX NRMSDocVec ``params`` and ``batch_stats`` -> the port's
+    ``state_dict`` (fp32, CPU; the BN running stats as buffers)."""
+    sd = {}
+    _dense_stack(sd, params, batch_stats)
+    _dense(sd, "news_out", params["news_out"])
+    _self_att(sd, "user_self_att", params["user_self_att"])
+    _pool(sd, "user_pool", params["user_pool"])
+    return sd
+
+
+def npa_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX NPA params tree -> the port NPA's ``state_dict`` (fp32, CPU)."""
+    sd = {}
+    for name in ("word_embedding", "user_embedding"):
+        _embed(sd, name, params)
+    _conv(sd, "conv", params["conv"])
+    for name in ("word_query", "news_query"):
+        _dense(sd, name, params[name])
+    for name in ("word_pool", "news_pool"):
+        _dense(sd, f"{name}.att_proj", params[name]["att_proj"])
+    return sd
+
+
+def fastformer_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX Fastformer or FastformerWu params tree -> the port module's
+    ``state_dict`` (fp32, CPU); the tree decides which pools there are."""
+    sd = {}
+    for name in ("word_embedding", "position_embedding"):
+        _embed(sd, name, params)
+    for name in ("embedding_transform", "output_layer"):
+        _dense(sd, name, params[name])
+    _norm(sd, "emb_norm", params["emb_norm"])
+    for name in ("token_pool", "user_pool"):
+        if name in params:
+            _pool(sd, name, params[name])
+    i = 0
+    while f"layer_{i}" in params:
+        _fastformer_layer(sd, f"layers.{i}.", params[f"layer_{i}"])
+        i += 1
+    return sd
+
+
+def _fastformer_layer(sd: dict, prefix: str, layer: Mapping) -> None:
+    for name, dense in layer["FastSelfAttention_0"].items():
+        _dense(sd, f"{prefix}attention.{name}", dense)
+    for name in ("att_out", "ffn_out"):
+        _dense(sd, f"{prefix}{name}.dense", layer[name]["Dense_0"])
+        _norm(sd, f"{prefix}{name}.norm", layer[name]["LayerNorm_0"])
+    _dense(sd, f"{prefix}intermediate", layer["Dense_0"])
 
 
 def lstur_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
@@ -103,10 +197,12 @@ def naml_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_nrms_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
-    """Copy a JAX NRMS params tree into ``model`` (strict: every key and
-    shape must match)."""
-    model.load_state_dict(nrms_state_dict(params), strict=True)
+def load_nrms_params(model: torch.nn.Module, params: Mapping,
+                     batch_stats: Mapping | None = None) -> torch.nn.Module:
+    """Copy a JAX NRMS params tree (with the dense stack, and its
+    ``batch_stats``) into ``model`` (strict: every key and shape must
+    match)."""
+    model.load_state_dict(nrms_state_dict(params, batch_stats), strict=True)
     return model
 
 

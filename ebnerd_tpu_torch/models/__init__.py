@@ -1,7 +1,12 @@
-"""Model families of the port (NRMS, LSTUR, NAML so far)."""
-from .config import HParamsBase, HParamsLSTUR, HParamsNAML, HParamsNRMS
-from .inputs import builder_for, naml_batch, token_batch
-from .newsrec import LSTUR, NAML, NRMS
+"""Model families of the port: NRMS (with its dense stack), NRMSDocVec,
+LSTUR, NPA, NAML, Fastformer and FastformerWu."""
+from .config import (HParamsBase, HParamsFastformer, HParamsLSTUR, HParamsNAML, HParamsNPA,
+                     HParamsNRMS, HParamsNRMSDocVec)
+from .fastformer import Fastformer, FastformerWu
+from .inputs import builder_for, device_tables, docvec_batch, naml_batch, token_batch
+from .newsrec import LSTUR, NAML, NPA, NRMS, NRMSDocVec
 
-__all__ = ["HParamsBase", "HParamsNRMS", "HParamsLSTUR", "HParamsNAML", "NRMS", "LSTUR", "NAML",
-           "token_batch", "naml_batch", "builder_for"]
+__all__ = ["HParamsBase", "HParamsNRMS", "HParamsNRMSDocVec", "HParamsLSTUR", "HParamsNPA",
+           "HParamsNAML", "HParamsFastformer", "NRMS", "NRMSDocVec", "LSTUR", "NPA", "NAML",
+           "Fastformer", "FastformerWu", "token_batch", "docvec_batch", "naml_batch",
+           "builder_for", "device_tables"]

@@ -4,15 +4,28 @@
 The feed ships int32 row indices; a builder moves them to the tables'
 device and gathers the features there, so the host never touches a token
 matrix. ``tables`` holds device tensors built once per run:
-``"title"`` int64 [V+1, T] (the token table), and for NAML ``"body"``
-[V+1, Tb], ``"cat"`` [V+1] and ``"subcat"`` [V+1].
+``"title"`` int64 [V+1, T] (the token table), for NRMSDocVec ``"docvec"``
+float32 [V+1, Dv] (document vectors), and for NAML ``"body"`` [V+1, Tb],
+``"cat"`` [V+1] and ``"subcat"`` [V+1]. ``device_tables`` moves a dict of
+them to the device: integer tables as int64, float tables as float32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["token_batch", "naml_batch", "builder_for"]
+__all__ = ["token_batch", "docvec_batch", "naml_batch", "builder_for", "device_tables"]
+
+
+def device_tables(tables: dict, device) -> dict:
+    """Value tables (numpy arrays or tensors) on ``device``: integer and
+    bool tables as int64 (index and token tables), floating tables as
+    float32 (NRMSDocVec's document vectors), never truncated."""
+    out = {}
+    for k, v in tables.items():
+        t = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+        out[k] = t.to(device, torch.float32 if t.is_floating_point() else torch.long)
+    return out
 
 
 def _index(v, device) -> torch.Tensor:
@@ -31,6 +44,10 @@ def _slots(raw: dict, out: dict, dev) -> dict:
     out["cand_slot"] = _index(raw["cand_slot"], dev)
     if "art_n_uniq" in raw:
         out["art_n_uniq"] = int(np.asarray(raw["art_n_uniq"]).reshape(-1)[0])
+    if "art_counts" in raw:  # slot counts: the BN row weights of the dense stack
+        c = raw["art_counts"]
+        out["art_counts"] = torch.as_tensor(np.asarray(c) if not isinstance(c, torch.Tensor)
+                                            else c).to(dev, torch.float32, non_blocking=True)
     return _user(raw, out, dev)
 
 
@@ -46,6 +63,16 @@ def token_batch(tables: dict, raw: dict) -> dict:
         return _slots(raw, {"uniq_tokens": title[_index(raw["art_uniq"], dev)]}, dev)
     return _user(raw, {"hist_tokens": title[_index(raw["hist_idx"], dev)],
                        "cand_tokens": title[_index(raw["cand_idx"], dev)]}, dev)
+
+
+def docvec_batch(tables: dict, raw: dict) -> dict:
+    """NRMSDocVec: the float document vectors of the ``docvec`` table."""
+    dv = tables["docvec"]
+    dev = dv.device
+    if "art_uniq" in raw:
+        return _slots(raw, {"uniq_vecs": dv[_index(raw["art_uniq"], dev)]}, dev)
+    return _user(raw, {"hist_vecs": dv[_index(raw["hist_idx"], dev)],
+                       "cand_vecs": dv[_index(raw["cand_idx"], dev)]}, dev)
 
 
 _NAML_TABLES = (("tokens", "title"), ("body", "body"), ("cat", "cat"), ("subcat", "subcat"))
@@ -66,13 +93,12 @@ def naml_batch(tables: dict, raw: dict) -> dict:
 
 
 def builder_for(model_name: str):
-    """The batch builder of a model family, as the JAX package maps them;
-    NRMSDocVec's ``docvec_batch`` is not ported yet (ROADMAP A6)."""
+    """The batch builder of a model family, as the JAX package maps them."""
     name = model_name.lower()
     if name in ("nrms", "lstur", "npa", "fastformer"):
         return token_batch
     if name in ("nrmsdocvec", "nrms_docvec"):
-        raise NotImplementedError(f"{model_name}'s batch builder is not ported yet (ROADMAP A6)")
+        return docvec_batch
     if name == "naml":
         return naml_batch
     raise ValueError(f"no batch builder for model '{model_name}'")

@@ -1,7 +1,8 @@
 """Model layers as ``nn.Module``s (counterparts of ``WordEmbed``,
-``AdditiveAttention``, ``SelfAttention``, ``PrngDropout``, ``ConvEncoder``,
-``MaskedGRU`` and flax's ``Dense`` and ``Embed`` as the JAX package uses
-them, ``ebnerd_tpu/models/layers.py``).
+``AdditiveAttention``, ``SelfAttention``, ``PersonalizedAttentivePooling``,
+``WeightedBatchNorm``, ``PrngDropout``, ``ConvEncoder``, ``MaskedGRU`` and
+flax's ``Dense`` and ``Embed`` as the JAX package uses them,
+``ebnerd_tpu/models/layers.py``).
 
 Weights are fp32 parameters; ``dtype`` is the compute dtype the inputs
 and weights are cast to, as the flax modules do. Linear maps keep
@@ -20,9 +21,9 @@ from torch import nn
 
 from ..ops.dropout import prng_dropout
 
-__all__ = ["WordEmbed", "AdditiveAttention", "SelfAttention", "PrngDropout", "ConvEncoder",
-           "MaskedGRU", "Dense", "Embed", "glorot_", "fold_seed", "draw_seed",
-           "generator_dropout"]
+__all__ = ["WordEmbed", "AdditiveAttention", "SelfAttention", "PersonalizedAttentivePooling",
+           "WeightedBatchNorm", "PrngDropout", "ConvEncoder", "MaskedGRU", "Dense", "Embed",
+           "glorot_", "fold_seed", "draw_seed", "generator_dropout"]
 
 
 def glorot_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -201,6 +202,85 @@ class SelfAttention(nn.Module):
         else:
             out = torch.einsum("...hqk,...khd->...qhd", weights, vh)
         return out.reshape(*out.shape[:-2], self.num_heads * self.head_dim)
+
+
+class PersonalizedAttentivePooling(nn.Module):
+    """Query-conditioned attention pooling (NPA's): values [..., L, D] and a
+    query [..., A] -> [..., D]. Dropout on the values (``drop_values``), a
+    tanh projection of them (``project``, ``att_proj``: per position, so it
+    commutes with slot gathers), then the query dot, a softmax over L and
+    the weighted sum of the dropped values (``pool``). The three are
+    separate because NPA's dedup path runs the first two per unique article
+    and only ``pool`` per slot. ``pool`` broadcasts the query over the
+    leading axes it lacks (a [B, 1, A] query pools [B, N, L, D] values)."""
+
+    def __init__(self, din: int, attention_dim: int, rate: float, dtype: torch.dtype,
+                 device: torch.device, generator: Optional[torch.Generator] = None,
+                 use_kernel: bool = False):
+        super().__init__()
+        self.att_proj = Dense(din, attention_dim, dtype, device, generator)
+        self.value_drop = PrngDropout(rate, use_kernel=use_kernel)
+
+    def drop_values(self, values: torch.Tensor, seed: int, stream: int) -> torch.Tensor:
+        return self.value_drop(values, seed, stream)
+
+    def project(self, values_dropped: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.att_proj(values_dropped))
+
+    @staticmethod
+    def pool(values_dropped: torch.Tensor, proj: torch.Tensor,
+             query: torch.Tensor) -> torch.Tensor:
+        att = (proj @ query.to(proj.dtype)[..., :, None])[..., 0]
+        weight = torch.softmax(att, dim=-1)
+        return (values_dropped * weight[..., None].to(values_dropped.dtype)).sum(dim=-2)
+
+    def forward(self, values: torch.Tensor, query: torch.Tensor, seed: int,
+                stream: int) -> torch.Tensor:
+        vd = self.drop_values(values, seed, stream)
+        return self.pool(vd, self.project(vd), query)
+
+
+class WeightedBatchNorm(nn.Module):
+    """BatchNorm over every axis but the last, whose training-mode moments
+    weight each leading-axis row (the JAX ``WeightedBatchNorm``): with
+    ``weights`` [N], mean = sum w x / (sum w * prod(inner dims)) and the
+    biased var = E_w[x**2] - mean**2; without, the plain batch moments. The
+    dedup path passes each unique article's slot count, which reproduces
+    the per-slot moments exactly, and pad rows weigh 0. The running stats
+    (buffers ``mean`` and ``var``) follow ra = m * ra + (1 - m) * batch,
+    m = 0.99, in every training call; eval mode normalises by them.
+    Computes in fp32 and returns fp32. ``torch.nn.BatchNorm1d`` keeps the
+    unbiased variance and takes no row weights."""
+
+    MOMENTUM = 0.99  # flax's
+    EPSILON = 1e-3  # Keras BatchNormalization's, as the JAX stack sets it
+
+    def __init__(self, features: int, device: torch.device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            red = tuple(range(x.dim() - 1))
+            if weights is None:
+                mean = xf.mean(red)
+                var = xf.square().mean(red) - mean.square()
+            else:
+                w = weights.to(torch.float32).reshape(-1, *([1] * (x.dim() - 1)))
+                denom = w.sum() * float(math.prod(x.shape[1:-1]))
+                mean = (xf * w).sum(red) / denom
+                var = (xf.square() * w).sum(red) / denom - mean.square()
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        return (xf - mean) * torch.rsqrt(var + self.EPSILON) * self.scale + self.bias
 
 
 class ConvEncoder(nn.Module):

@@ -3,11 +3,12 @@ per-request user encoder (counterpart of ``ebnerd_tpu/serving.py``).
 
 The article tower runs once over the corpus (``ArticleIndex.build``);
 scoring an impression is then a gather, the user tower and a dot
-(``TwoTowerScorer.score``). The port serves NRMS, LSTUR and NAML; the
-other families raise. Both towers always run in eval mode, as the JAX
-functions pass ``train=False``: the model is switched for the call and
-its mode restored afterwards, so an index built between training steps
-draws no dropout.
+(``TwoTowerScorer.score``). NRMS, NRMSDocVec, LSTUR, NAML and Fastformer
+are served; NPA's article tower depends on the user, so it raises. Both
+towers always run in eval mode, as the JAX functions pass
+``train=False``: the model is switched for the call and its mode
+restored afterwards, so an index built between training steps draws no
+dropout.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from . import resolve_device
 from .data.dataloader import EvalFeed
 from .data.ragged import Ragged
+from .models.inputs import device_tables
 
 __all__ = [
     "ArticleIndex",
@@ -36,7 +38,6 @@ __all__ = [
 ]
 
 _USER_INDEPENDENT = {"nrms", "nrms_docvec", "nrmsdocvec", "lstur", "naml", "fastformer"}
-_PORTED = {"nrms", "lstur", "naml"}
 # eval batches in flight (scores not yet on the host), as the JAX Trainer.score
 EVAL_WINDOW = 8
 
@@ -54,10 +55,6 @@ def _require_kind(model) -> str:
         raise ValueError(
             f"{type(model).__name__} has a user-dependent news encoder "
             "(personalized attention); two-tower serving does not apply.")
-    if kind not in _PORTED:
-        raise ValueError(
-            f"two-tower serving of {type(model).__name__} is not ported yet; "
-            "the port serves NRMS, LSTUR and NAML")
     return kind
 
 
@@ -82,6 +79,10 @@ def encode_article_rows(model, tables: dict, idx: torch.Tensor) -> torch.Tensor:
             return model.encode_news(tables["title"][idx])
         if kind == "lstur":
             return model.encode_news(tables["title"][idx], None)
+        if kind in ("nrms_docvec", "nrmsdocvec"):
+            return model.encode_news(tables["docvec"][idx])
+        if kind == "fastformer":
+            return model.encode_articles(tables["title"][idx])
         return model.encode_news(tables["title"][idx], tables["body"][idx], tables["cat"][idx],
                                  tables["subcat"][idx], None)
 
@@ -103,8 +104,9 @@ def encode_corpus(model, tables: dict, batch_size: int) -> torch.Tensor:
 
 def article_validity(tables: dict) -> Optional[torch.Tensor]:
     """Per-article-row flag [V+1]: the token row is not all zeros (padding
-    row 0 and empty titles are invalid); LSTUR's history mask, as the full
-    forward's ``(hist_tokens != 0).any(-1)``. NRMS and NAML do not read it."""
+    row 0 and empty titles are invalid); LSTUR's and Fastformer's history
+    mask, as the full forward's ``(hist_tokens != 0).any(-1)``. None
+    without a token table (NRMSDocVec); NRMS and NAML do not read it."""
     title = tables.get("title")
     if title is None:
         return None
@@ -116,19 +118,24 @@ def two_tower_logits(model, art_vecs: torch.Tensor, raw: dict,
                      art_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """User tower in eval mode + scoring from precomputed article vectors.
     ``raw`` holds ``hist_idx`` [B, H], ``cand_idx`` [B, K] and, for LSTUR,
-    ``user_idx`` [B], on the vectors' device. NRMS's user tower has no
-    history mask: a padded slot gathers ``art_vecs[0]``, the padding
-    title's encoding, as the full forward pass does. LSTUR masks its GRU
-    steps by ``art_valid`` (or, without it, by ``hist_idx != 0``)."""
+    ``user_idx`` [B], on the vectors' device. NRMS's and NRMSDocVec's user
+    towers have no history mask: a padded slot gathers ``art_vecs[0]``, the
+    padding article's encoding, as the full forward pass does. LSTUR and
+    Fastformer mask the history by ``art_valid`` (or, without it, by
+    ``hist_idx != 0``); Fastformer scores by its concat head, not a dot."""
     kind = _require_kind(model)
     hist_vecs = art_vecs[raw["hist_idx"]]
     cand_vecs = art_vecs[raw["cand_idx"]]
+    if kind in ("lstur", "fastformer"):
+        valid = art_valid[raw["hist_idx"]] if art_valid is not None else raw["hist_idx"] != 0
+        hist_mask = valid.to(model.dtype)
     with eval_mode(model):
-        if kind == "nrms":
+        if kind == "fastformer":
+            return model.score(hist_vecs, hist_mask, cand_vecs)
+        if kind in ("nrms", "nrms_docvec", "nrmsdocvec"):
             user = model.encode_user(hist_vecs)
         elif kind == "lstur":
-            valid = art_valid[raw["hist_idx"]] if art_valid is not None else raw["hist_idx"] != 0
-            user = model.encode_user(hist_vecs, valid.to(model.dtype), raw["user_idx"])
+            user = model.encode_user(hist_vecs, hist_mask, raw["user_idx"])
         else:
             user = model.user_pool(hist_vecs)
     return torch.einsum("bkd,bd->bk", cand_vecs, user)
@@ -177,8 +184,7 @@ class ArticleIndex:
         self.kind = _require_kind(model)
         self.model = model
         self.device = resolve_device(device)
-        self.tables = {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.long)
-                       for k, v in tables.items()}
+        self.tables = device_tables(tables, self.device)
         self.batch_size = batch_size
         self.vectors: Optional[torch.Tensor] = None
         self.validity = article_validity(self.tables)

@@ -1,17 +1,17 @@
 """Where a training step's time goes, on the card.
 
 Builds the step of ``python -m ebnerd_tpu_torch.bench`` for the family in
-``BENCH_MODEL`` (nrms, lstur or naml; the same data, model, knobs and
-defaults), runs warm-up steps, then traces a window of warm steps with
-``torch.profiler`` (CPU and CUDA activities) and sums device time by
-kernel name into the step's parts: K1 (``news_encoder_fwd_kernel``), the
-x mask drawn once before it, K2's per-block kernel, GEMM and reduction,
-K3 (``dropout_kernel``), cuDNN's
+``BENCH_MODEL`` (nrms, lstur, naml, npa, fastformer or nrms_docvec; the
+same data, model, knobs and defaults), runs warm-up steps, then traces a
+window of warm steps with ``torch.profiler`` (CPU and CUDA activities) and
+sums device time by kernel name into the step's parts: K1
+(``news_encoder_fwd_kernel``), the x mask drawn once before it, K2's
+per-block kernel, GEMM and reduction, K3 (``dropout_kernel``), cuDNN's
 convolutions, cuBLAS's matmuls, Adam, the embedding's gather and scatter,
-elementwise kernels, and the rest. It also reports the window's wall time
-on the synchronised host clock, the device's busy and idle share (union
-of kernel intervals over the window) and the host operators with the most
-self time.
+LayerNorm, softmax, elementwise kernels, and the rest. It also reports the
+window's wall time on the synchronised host clock, the device's busy and
+idle share (union of kernel intervals over the window) and the host
+operators with the most self time.
 
 Run: python -m ebnerd_tpu_torch.tools.step_profile [--steps 5] [--out FILE]
 """
@@ -40,8 +40,11 @@ PARTS = (
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "implicit_gemm", "convolve")),
     ("matmuls (cuBLAS)", ("gemm", "gemv", "Kernel2", "cutlass", "nvjet")),
     ("embedding scatter (backward)", ("index_put", "indexing_backward", "embedding_backward",
-                                      "scatter", "sort", "Sort", "radix", "cub::")),
+                                      "compute_grad_weight", "scatter", "sort", "Sort", "radix",
+                                      "cub::")),
     ("gathers", ("index_select", "gather", "index_elementwise", "IndexKernel", "indexFunc")),
+    ("LayerNorm", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("softmax", ("softmax", "Softmax", "SoftMax")),
     ("casts and copies", ("copy", "Copy", "cast", "convert")),
     ("fill / zero", ("fill", "Fill", "zero")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),

@@ -19,23 +19,19 @@ import numpy as np
 
 __all__ = ["dedup_bucket", "prep_dedup_batch", "pad_dedup_to", "dedup_capable"]
 
-# families whose port is still queued, with their ROADMAP item
-_QUEUED = {"nrmsdocvec": "A6", "nrms_docvec": "A6", "npa": "A9", "fastformer": "A10",
-           "fastformerwu": "A10"}
-
-
 def dedup_capable(model) -> tuple[bool, str]:
-    """(capable, reason-if-not) for one model instance. The port trains
-    NRMS, LSTUR and NAML, whose article towers are user-independent, so
-    they dedup fully. The families still to port raise, naming their
-    ROADMAP item."""
-    name = type(model).__name__.lower()
-    if name in ("nrms", "lstur", "naml"):
-        return True, ""
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"{type(model).__name__} is not ported yet (ROADMAP {_QUEUED[name]})")
-    return False, "unknown model family: no slot path implemented for article dedup"
+    """(capable, reason-if-not) for one model instance. Families whose
+    article tower is user-independent dedup fully; BatchNorm towers
+    (NRMSDocVec, NRMS with the dense stack) through slot-count-weighted
+    moments (``layers.WeightedBatchNorm``). NPA dedups partially: its
+    embedding -> conv prefix runs per unique article, its personalized
+    pooling per slot. Unknown families (FastformerWu among them) are
+    excluded."""
+    from ..serving import model_kind
+
+    if model_kind(model) is None and type(model).__name__.lower() != "npa":
+        return False, "unknown model family: no slot path implemented for article dedup"
+    return True, ""
 
 
 def dedup_bucket(n: int, minimum: int = 512) -> int:

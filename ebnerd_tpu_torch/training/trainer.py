@@ -38,6 +38,7 @@ from .. import resolve_device
 from ..data.dataloader import EvalFeed, NewsrecFeed
 from ..data.ragged import Ragged
 from ..evaluation.ranking import per_impression_auc
+from ..models.inputs import device_tables
 from ..serving import ScoreWindow, article_validity, encode_corpus, eval_mode, model_kind
 from ..serving import two_tower_scores
 from .checkpoint import CheckpointManager, restore_checkpoint
@@ -173,9 +174,7 @@ class Trainer:
         self.config = config
         self.builder = batch_builder
         self.log = log_fn
-        self.tables = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                                          else v).to(self.device, torch.long)
-                       for k, v in tables.items()}
+        self.tables = device_tables(tables, self.device)
         dedup_ok, why = dedup_capable(model)
         if config.dedup_articles is True and not dedup_ok:
             raise ValueError(f"dedup_articles: {type(model).__name__}: {why}")

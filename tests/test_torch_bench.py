@@ -69,6 +69,30 @@ def test_user_rows_leave_the_article_draws_alone():
 def test_body_table_and_unknown_family(monkeypatch):
     body = bench.token_table(np.random.default_rng(0), "uniform", bench.BODY)
     assert body.shape == (bench.N_ARTICLES + 1, bench.BODY)
-    monkeypatch.setenv("BENCH_MODEL", "npa")
+    monkeypatch.setenv("BENCH_MODEL", "fastformerwu")
     with pytest.raises(ValueError, match="BENCH_MODEL"):
         bench.main()
+
+
+@pytest.mark.parametrize("name", ["npa", "fastformer", "nrms_docvec"])
+def test_new_families_are_bench_models(monkeypatch, capsys, name):
+    """BENCH_MODEL takes every family; without a card main() refuses after
+    the name is accepted."""
+    assert name in bench.FAMILIES
+    monkeypatch.setenv("BENCH_MODEL", name)
+    if not torch.cuda.is_available():
+        assert bench.main() == 2
+        assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def test_nrms_docvec_family_reads_a_float_docvec_table():
+    from ebnerd_tpu_torch.models import HParamsNRMSDocVec, NRMSDocVec, docvec_batch
+
+    model, tables, builder, n_users = bench.make_family("nrms_docvec", torch.float32, 0.2,
+                                                        device="cpu")
+    assert isinstance(model, NRMSDocVec) and model.hparams == HParamsNRMSDocVec(dropout=0.2)
+    assert builder is docvec_batch and n_users == 0 and list(tables) == ["docvec"]
+    assert tables["docvec"].shape == (bench.N_ARTICLES + 1, bench.DOCVEC)
+    assert tables["docvec"].dtype == np.float32
+    with pytest.raises(ValueError, match="BENCH_MODEL"):
+        bench.make_family("fastformerwu", torch.float32, 0.2, device="cpu")

@@ -26,7 +26,7 @@ from ebnerd_tpu.training.trainer import Trainer as JaxTrainer
 from ebnerd_tpu.training.trainer import TrainerConfig as JaxConfig
 from ebnerd_tpu_torch import bridge
 from ebnerd_tpu_torch.models import (LSTUR, NAML, HParamsLSTUR, HParamsNAML, builder_for,
-                                     config, naml_batch, token_batch)
+                                     config, docvec_batch, naml_batch, token_batch)
 from ebnerd_tpu_torch.models.layers import ConvEncoder, MaskedGRU
 from ebnerd_tpu_torch.training import (Trainer, TrainerConfig, dedup_capable, losses,
                                        prep_dedup_batch)
@@ -336,10 +336,8 @@ def test_naml_batch_bit_equal_to_jax(dedup):
     ref = jax_inputs.naml_batch({k: jnp.asarray(v) for k, v in _tables().items()},
                                 {k: jnp.asarray(v) for k, v in raw.items() if k != "n_uniq"})
     ours = naml_batch({k: torch.from_numpy(v).long() for k, v in _tables().items()}, raw)
-    assert set(ours) == set(ref) - {"art_counts"}  # the port has no BN tower to weight
+    assert set(ours) == set(ref)
     for k in ref:
-        if k == "art_counts":
-            continue
         want = np.asarray(ref[k])
         got = np.asarray(ours[k]) if k == "art_n_uniq" else ours[k].numpy()
         np.testing.assert_array_equal(got.reshape(want.shape), want, err_msg=k)
@@ -349,8 +347,7 @@ def test_builder_for_and_dedup_capable():
     assert builder_for("NAML") is naml_batch
     for name in ("nrms", "lstur", "npa", "fastformer"):
         assert builder_for(name) is token_batch
-    with pytest.raises(NotImplementedError, match="A6"):
-        builder_for("nrms_docvec")
+    assert builder_for("nrms_docvec") is builder_for("NRMSDocVec") is docvec_batch
     with pytest.raises(ValueError):
         builder_for("bert")
     for family in FAMILIES:

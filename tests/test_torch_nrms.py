@@ -98,11 +98,13 @@ def test_cuda_default_raises_without_cuda():
 
 
 def test_unported_paths_raise():
-    """The dense stack is still unported (A6); the dedup batch, unported in
-    the serving slice, now gives the per-slot logits."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    """The fused kernel takes no dense stack (the unfused model does, see
+    tests/test_torch_docvec.py); the dedup batch gives the per-slot logits."""
+    with pytest.raises(ValueError, match="dense stack"):
         NRMS(HParamsNRMS(**HP, newsencoder_units_per_layer=(8,)), vocab_size=VOCAB,
-             word_emb_dim=EMB, device="cpu")
+             word_emb_dim=EMB, device="cpu", use_fused_encoder=True)
+    NRMS(HParamsNRMS(**HP, newsencoder_units_per_layer=(8,)), vocab_size=VOCAB,
+         word_emb_dim=EMB, device="cpu")
     with pytest.raises(ValueError, match="transposed_self_att"):
         NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu",
              use_fused_encoder=True, transposed_self_att=True)

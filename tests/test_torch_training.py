@@ -84,16 +84,15 @@ def test_dedup_bucket_matches_jax(n):
 
 
 def test_dedup_capable_nrms_only():
-    """NRMS, LSTUR and NAML dedup fully; NPA is not ported yet and raises
-    naming its ROADMAP item."""
+    """Every family the JAX package dedups dedups here (NPA partially);
+    unknown families, FastformerWu among them, do not, with JAX's reason."""
     model = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
     assert dedup_capable(model) == (True, "")
-    for name in ("LSTUR", "NAML"):
+    for name in ("LSTUR", "NAML", "NPA", "Fastformer", "NRMSDocVec"):
         assert dedup_capable(type(name, (), {})()) == (True, "")
-    npa = type("NPA", (), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        dedup_capable(npa)
-    assert dedup_capable(object())[0] is False
+    for other in (object(), type("FastformerWu", (), {})()):
+        assert dedup_capable(other) == jax_dedup.dedup_capable(other)
+        assert dedup_capable(other)[0] is False
 
 
 def _split(mod_ragged, mod_table, n_rows=37):
