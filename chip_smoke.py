@@ -12,13 +12,19 @@ Phases:
        training step's news-tower shape, where K1 runs on round(x * mask)
        drawn once by the mask kernel, as the step runs it); bf16 block
        counts odd against the QKV stage's cluster of CTAs, n_valid inside
-       a cluster and a partial last block;
+       a cluster and a partial last block; a Din that is not a whole 16
+       bytes: the CLI's news tower [512, 30, 300] with dropout (bf16, Din
+       padded to 304 on the kernel side, the x mask drawn into the padded
+       width), without (bf16, padded by a copy of x, timed), fp32 at 300
+       (unpadded) and at 30 (padded to 32);
      - K4, the mask dump: bit-equal to the plain generator, keep rate,
        reproducible, and seeded by all 64 bits;
      - K2, the recompute backward, against autograd of the plain version
        under the cotangent of sum(sin(out) * c): fp32 (small, n_valid with
        g = 0 on pad rows, Philox dropout, external mask), bf16 at the
-       step's two shapes and at the odd cluster shapes; its per-block
+       step's two shapes and at the odd cluster shapes, bf16 and fp32 at
+       the CLI's news shape [512, 30, 300] and fp32 at Din 30, with
+       dropout (dx and dWqkv cut back to Din); its per-block
        kernel alone against its plain version (``bwd_core_reference``) at
        the step's two shapes and the odd cluster shapes; its GEMM on its
        own on each of the step's six
@@ -88,7 +94,22 @@ Phases:
      model in training mode against ``Trainer.score(two_tower=False)``, NPA
      scored by ``Trainer.score`` (the full forward); then FastformerWu's
      ``loss_and_logits`` forward and backward at the Fastformer width;
-  11. print the ``kernels`` JSON line, the card line, then the ``ok`` line
+  11. the one-CLI entry point, ``train_newsrec.main`` in process on the
+     card: NRMS at the reference's reproduction widths (``--synthetic
+     --use_fused_encoder --dtype bfloat16``: batch 32, history 20, npratio
+     4, title 30, 20 x 20 heads, attention 200, dropout 0.2, the 300-wide
+     word table over the synthetic vocabulary, so K1 and K2 at Din 300; 2
+     epochs instead of 5) with each training step's K1/K2 launches equal to
+     the staged step's of phase 6, and NAML (``--prng_dropout``, 1 epoch)
+     with 8 K3 launches a step and its body, category and subcategory
+     tables; each run's results.json finite with AUC in [0, 1] and its zip
+     holding every validation impression once with a permutation of ranks;
+     training impressions/s, seconds per epoch and validation seconds
+     printed; build/cli_* removed; then the host data path at a real scale
+     (100,000 impressions, 20,000 articles, 20,000 users: the in-memory
+     synthetic split, truncation and join, the sampler, labels and a
+     NewsrecFeed), timed per stage;
+  12. print the ``kernels`` JSON line, the card line, then the ``ok`` line
      last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
@@ -96,7 +117,7 @@ their QKV product alone (their yardstick; neither kernel has a one-call
 PyTorch equivalent).
 
 Each path (mask check, serving, NRMS training, fit, each family's training
-and serving) is driven with every launch count set to 0 just before it and
+and serving, each CLI run) is driven with every launch count set to 0 just before it and
 read just after; launches made to
 compare a kernel with its plain version are not counted. Any failed check
 exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
@@ -123,6 +144,10 @@ VOCAB, EMB, N_ART, T, H = 250_002, 1_024, 25_000, 30, 20
 HEADS, HEAD_DIM, ATT = 20, 20, 200
 D = HEADS * HEAD_DIM
 N_IMP, BATCH, CHUNK = 4_096, 1_024, 4_096
+# the CLI's news tower (train_newsrec.py --synthetic, batch 32, history 20, npratio 4): the
+# 300-wide word table, a dedup bucket of 512 articles
+CLI_EMB, CLI_BUCKET, CLI_NV = 300, 512, 461
+CLI_EPOCHS = 2  # the CLI's default is 5
 TRAIN_BS, NPRATIO, DROPOUT, LR = 16_384, 4, 0.2, 1e-4
 KEEP = 1.0 - DROPOUT
 TRAIN_STEPS, WARM_STEPS = 3, 5
@@ -352,7 +377,10 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     (with Philox dropout in bf16 it draws the x mask once, with the mask
     kernel, and K1 reads round(x * mask)). ``drop``: "rng" (Philox, keep
     0.8 on x and o) or "mask" (external 0/1 mask, keep 0.8).
-    ``yardstick``: also time torch.matmul of the QKV product alone."""
+    ``yardstick``: also time torch.matmul of the QKV product alone. Where
+    Din is not a whole 16 bytes the kernels take x padded (``padded_din``):
+    the record times that pad's copy of x too, which the calls without the
+    bf16 x mask pay."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
     from ebnerd_tpu_torch.ops.news_encoder import (fused_news_encoder, news_encoder_reference,
                                                    pack_weights)
@@ -393,16 +421,24 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     plan = qkv_plan_of(n, t, din, d, a, cdt, fwd=True)
     mm_ms = (qkv_matmul_ms(nv * t, din, packed.wqkv.shape[1], gen, iters)
              if cdt == torch.bfloat16 and yardstick else None)
+    width = ne.padded_din(din, cdt)
+    check(xin.shape[1] == width and packed.wqkv.shape[0] == width,
+          f"{name}: the kernels' x is {tuple(xin.shape)}, Wqkv {tuple(packed.wqkv.shape)}; "
+          f"Din {din} pads to {width}")
+    x2 = x.reshape(n * t, din)
+    pad_ms = (graph_ms(lambda: torch.nn.functional.pad(x2, (0, width - din)))
+              if width != din else None)  # device time: a short copy
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
            "dtype": str(cdt).replace("torch.", ""), "dropout": drop,
            "n_valid": nv, "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None,
-           "qkv_plan": plan, "qkv_matmul_ms": mm_ms}
+           "qkv_plan": plan, "qkv_matmul_ms": mm_ms, "padded_din": width, "pad_copy_ms": pad_ms}
     print(f"[kernel] {name}: {n}x{t}x{din} heads {heads}x{head_dim} A {a} {rec['dtype']} "
           f"n_valid={nv} dropout={drop} qkv plan (stages, cluster) {plan} max_abs_err={err:.3e} "
           f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-          f"library: none" + (f"; QKV product alone, torch.matmul ms={mm_ms:.4f}" if mm_ms else ""),
+          f"library: none" + (f"; QKV product alone, torch.matmul ms={mm_ms:.4f}" if mm_ms else "")
+          + (f"; Din padded to {width}, the pad's copy of x ms={pad_ms:.4f}" if pad_ms else ""),
           flush=True)
     return rec
 
@@ -605,29 +641,36 @@ def gemm_case(name, m, n, k_rows, rows, dx, masked, peaks, gen, timed=True, iter
     return rec, part
 
 
-def mask_case(name, rows, k_rows, width, peaks, gen):
+def mask_case(name, rows, k_rows, width, peaks, gen, x_cols=None):
     """K2's mask kernel (``emb_mask``: the stream-0 mask drawn once for dx
     and dWqkv) against its plain version: round(x * mask) and the keep
-    bits bit-equal; timed with the plain version."""
+    bits bit-equal; timed with the plain version. ``x_cols`` < ``width``:
+    x is narrower than the mask (a Din padded for the kernels: its rows are
+    not 16-byte aligned, and xm is zero past them); timed by CUDA-graph
+    replay (device time) as the kernel is short there."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
-    x = torch.randn(k_rows, width, generator=gen, device=DEV).to(torch.bfloat16)
+    x_cols = x_cols or width
+    x = torch.randn(k_rows, x_cols, generator=gen, device=DEV).to(torch.bfloat16)
     drop = ne.dropout_config(1, 1, 4, KEEP, KEEP, SEED64)
     xm, keep = ne.emb_mask(rows, width, drop, device=DEV, x=x)
     torch.cuda.synchronize()
     ref_xm, ref_keep = ne.emb_mask_reference(rows, width, SEED64, KEEP, x=x)
     check(torch.equal(xm, ref_xm), f"mask {name}: round(x * mask) differs from the plain version")
     check(torch.equal(keep, ref_keep.to(DEV)), f"mask {name}: keep bits differ from the plain version")
-    rate = (xm != 0).float().mean().item()
-    ms = time_ms(lambda: ne.emb_mask(rows, width, drop, device=DEV, x=x), 20)
+    check(bool((xm[:, x_cols:] == 0).all()), f"mask {name}: xm is not zero past x's columns")
+    rate = (xm[:, :x_cols] != 0).float().mean().item()
+    run = lambda: ne.emb_mask(rows, width, drop, device=DEV, x=x)
+    ms = graph_ms(run) if x_cols != width else time_ms(run, 20)
     plain_ms = time_ms(lambda: ne.emb_mask_reference(rows, width, SEED64, KEEP, x=x), 2, warmup=1)
-    nbytes = 2 * rows * width * 2 + keep.numel() * 4
+    nbytes = rows * (x_cols + width) * 2 + keep.numel() * 4
     b_ms, b_by = bound(0, nbytes, peaks[1], peaks)
-    rec = {"case": name, "shape": [rows, width], "max_abs_err": 0.0, "nonzero_rate": rate,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    print(f"[mask] {name}: [{rows}, {width}] bf16 + keep bits: bit-equal to the plain version "
-          f"(nonzero {rate:.4f}); ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
-          f"({b_by}) library: none", flush=True)
+    rec = {"case": name, "shape": [rows, width], "x_cols": x_cols, "max_abs_err": 0.0,
+           "nonzero_rate": rate, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    print(f"[mask] {name}: [{rows}, {width}] bf16 (x {x_cols} wide) + keep bits: bit-equal to "
+          f"the plain version (nonzero {rate:.4f}); ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) library: none", flush=True)
     return rec
 
 
@@ -694,7 +737,10 @@ def gemm_cases(n_uniq, bucket, peaks, gen):
             for name in ("dwqkv_news", "dw_news", "db_news", "dwqkv_user", "dw_user", "db_user")]
     del parts
     masks = [mask_case("x_news", news_rows, news_k, EMB, peaks, gen),
-             mask_case("ragged_400", 4_099, 4_200, D, peaks, gen)]
+             mask_case("ragged_400", 4_099, 4_200, D, peaks, gen),
+             # the CLI's news tower: x 300 wide (600-byte rows), the mask 304 wide
+             mask_case("x_cli_din300", CLI_NV * T, CLI_BUCKET * T, 304, peaks, gen,
+                       x_cols=CLI_EMB)]
     return gemms, reds, masks
 
 
@@ -1783,6 +1829,179 @@ def small_family_training():
     return rec
 
 
+def cli_run(name, argv, staged_step, keys):
+    """``train_newsrec.main(argv)`` in this process, on the card: every launch
+    count set to 0 just before it and read just after; each training step's
+    launches (of the kernels in ``keys``) checked equal to ``staged_step``
+    (the staged step's); each epoch's steps timed, synchronised at its end,
+    and each scoring (validation after every epoch, then the final one);
+    results.json finite, AUC in [0, 1], the validation zip holding every
+    impression once with a permutation of ranks. Returns the record and the
+    run's trainer."""
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch import train_newsrec as cli
+    from ebnerd_tpu_torch.training.trainer import Trainer
+
+    args = cli.get_args(argv)
+    out_dir = Path(args.out_dir)
+    per_step, epoch_s, rows, score_s, trainers = [], [], [], [], []
+    init, step, run_epoch, score = Trainer.__init__, Trainer.step, Trainer._run_epoch, Trainer.score
+
+    def kept_init(self, *a, **kw):
+        init(self, *a, **kw)
+        trainers.append(self)
+
+    def counted_step(self, batch):
+        before = read_counts()
+        loss = step(self, batch)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return loss
+
+    def timed_epoch(self, feed, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(self, feed, *a, **kw)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        rows.append(feed.n_rows)
+        return out
+
+    def timed_score(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = score(self, *a, **kw)  # host scores: synchronised
+        score_s.append(time.perf_counter() - t0)
+        return out
+
+    with mock.patch.multiple(Trainer, __init__=kept_init, step=counted_step,
+                             _run_epoch=timed_epoch, score=timed_score):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = read_counts()
+    trainer = trainers[0]
+    check(len(epoch_s) == args.epochs and len(per_step) == args.epochs * (rows[0] // args.bs_train),
+          f"cli {name}: {len(epoch_s)} epochs, {len(per_step)} steps")
+    for cnt in per_step:
+        check(all(cnt[k] == staged_step[k] for k in keys),
+              f"cli {name}: a step's launches {cnt}, the staged step's {staged_step}")
+    check(all(math.isfinite(v) for v in results.values()) and 0.0 <= results["auc"] <= 1.0,
+          f"cli {name}: results {results}")
+    check(json.loads((out_dir / "results.json").read_text()) == results,
+          f"cli {name}: results.json differs from what main returned")
+    val, _ = cli._synthetic_split("validation", args.seed, args.history_size)
+    lengths = dict(zip(np.asarray(val[c.DEFAULT_IMPRESSION_ID_COL]).tolist(),
+                       val[c.DEFAULT_INVIEW_ARTICLES_COL].lengths.tolist()))
+    import zipfile
+
+    with zipfile.ZipFile(out_dir / f"{args.model}_predictions.zip") as z:
+        lines = [ln for ln in z.read(z.namelist()[0]).decode().split("\n") if ln]
+    ranks = {int(ln.split(" ")[0]): json.loads(ln.split(" ", 1)[1]) for ln in lines}
+    check(len(lines) == len(ranks) == len(lengths) and set(ranks) == set(lengths)
+          and all(sorted(r) == list(range(1, lengths[i] + 1)) for i, r in ranks.items()),
+          f"cli {name}: the zip is not every validation impression once with its ranks")
+    train_imp_s = sum(rows) / sum(epoch_s)
+    rec = {"argv": argv, "results": results, "total_s": total_s, "epoch_s": epoch_s,
+           "train_rows": rows[0], "steps_per_epoch": len(per_step) // args.epochs,
+           "training_impressions_per_s": train_imp_s, "val_score_s": score_s[:-1],
+           "final_score_s": score_s[-1], "launches": counts, "launches_per_step": per_step[0],
+           "tables": {k: list(v.shape) for k, v in trainer.tables.items()},
+           "word_table": list(trainer.model.word_embedding.embedding.shape)}
+    print(f"[cli] {name}: {' '.join(argv)}: {args.epochs} epochs of {rec['steps_per_epoch']} "
+          f"steps over {rows[0]:,} impressions: training {train_imp_s:,.1f} impressions/s, "
+          f"seconds per epoch {', '.join(f'{v:.3f}' for v in epoch_s)}, validation seconds "
+          f"{', '.join(f'{v:.3f}' for v in score_s[:-1])} (final scoring {score_s[-1]:.3f}); "
+          f"results.json {results}; launches per step {per_step[0]}; tables "
+          f"{rec['tables']}; word table {rec['word_table']}; main {total_s:.1f} s", flush=True)
+    return rec, trainer
+
+
+def cli_phase(staged_step, naml_step):
+    """The one-CLI entry point on the card (``python -m
+    ebnerd_tpu_torch.train_newsrec``, called in process): NRMS at the
+    reference's reproduction widths on K1 and K2 (the 300-wide word table:
+    Din 300, padded to 304 for the kernels), NAML on K3; then the host data
+    path at a real scale. Removes build/cli_* afterwards."""
+    import shutil
+
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    build = Path(__file__).resolve().parent / "build"
+    k12 = ("news_encoder_fwd", "news_encoder_bwd", "news_encoder_bwd_block",
+           "news_encoder_bwd_gemm", "news_encoder_bwd_reduce", "news_encoder_bwd_mask",
+           "prng_dropout")
+    nrms, trainer = cli_run("nrms", ["--model", "nrms", "--synthetic", "--use_fused_encoder",
+                                     "--dtype", "bfloat16", "--epochs", str(CLI_EPOCHS),
+                                     "--out_dir", str(build / "cli_nrms")], staged_step, k12)
+    din = trainer.model.word_embedding.embedding.shape[1]
+    check(din == CLI_EMB and ne.padded_din(din, torch.bfloat16) != din,
+          f"cli nrms: the news tower's Din is {din}; the kernels should take it padded")
+    check(nrms["launches"]["news_encoder_fwd"] > 2 * len(nrms["epoch_s"]) * nrms["steps_per_epoch"],
+          "cli nrms: no K1 launch in validation and scoring")
+    del trainer
+    naml, trainer = cli_run("naml", ["--model", "naml", "--synthetic", "--prng_dropout",
+                                     "--dtype", "bfloat16", "--epochs", "1",
+                                     "--out_dir", str(build / "cli_naml")], naml_step, k12)
+    check(set(trainer.tables) == {"title", "body", "cat", "subcat"}
+          and trainer.tables["body"].shape[1] == 40,
+          f"cli naml: tables {naml['tables']}")
+    del trainer
+    for d in build.glob("cli_*"):
+        shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    return {"nrms": nrms, "naml": naml, "host_data": host_data_path()}
+
+
+def host_data_path():
+    """The CLI's host data path at a real scale, timed per stage, no card
+    work: the in-memory synthetic split (100,000 impressions, 20,000
+    articles, 20,000 users), the history truncation and join, Wu et al.'s
+    sampler, the labels, and a NewsrecFeed (built, then one epoch of
+    batches of 32)."""
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.data import (Lookup, NewsrecFeed, create_binary_labels_column,
+                                       ebnerd_from_tables, sampling_strategy_wu2019,
+                                       synthetic_ebnerd_tables)
+
+    sec = {}
+    t = time.perf_counter()
+
+    def lap(stage):
+        nonlocal t
+        now = time.perf_counter()
+        sec[stage] = now - t
+        t = now
+
+    history, behaviors, articles = synthetic_ebnerd_tables(
+        n_users=20_000, n_articles=20_000, n_impressions=100_000, seed=7)
+    lap("synthetic")
+    df = ebnerd_from_tables(behaviors, history, history_size=H)
+    lap("truncate_join")
+    df = sampling_strategy_wu2019(df, npratio=NPRATIO, shuffle=True, seed=42)
+    lap("wu2019")
+    df = create_binary_labels_column(df, shuffle=True, seed=42)
+    lap("labels")
+    ids = np.asarray(articles[c.DEFAULT_ARTICLE_ID_COL])
+    tokens = np.random.default_rng(0).integers(1, 50, (len(ids), T)).astype(np.int32)
+    feed = NewsrecFeed(df, Lookup.from_values(ids, tokens), history_size=H, batch_size=32,
+                       seed=42)
+    lap("feed")
+    n_batches = sum(1 for _ in feed.epoch())
+    lap("feed_epoch")
+    check(len(behaviors) == 100_000 and n_batches == len(df) // 32 and len(df) > 100_000,
+          f"host data path: {len(behaviors)} impressions, {len(df)} rows, {n_batches} batches")
+    rec = {"impressions": len(behaviors), "train_rows": len(df), "batches": n_batches,
+           "seconds": sec, "total_s": sum(sec.values())}
+    print(f"[cli] host data path: {len(behaviors):,} impressions -> {len(df):,} training rows, "
+          f"{n_batches:,} batches of 32; seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sec.items())
+          + f"; total {rec['total_s']:.2f} s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     gemm_only = "--gemm-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -1854,6 +2073,15 @@ def main(argv=None) -> int:
         kernel_case("bf16_cluster_odd_news", 9, T, EMB, torch.bfloat16, peaks, gen, n_valid=5,
                     drop="rng"),
         kernel_case("bf16_cluster_odd_user", 13, H, D, torch.bfloat16, peaks, gen),
+        # a Din that is not a whole 16 bytes: the CLI's 300-wide word table at its news-tower
+        # shape, dropout 0.2 (bf16: the x mask drawn into the padded width 304); bf16 without
+        # dropout pads by a copy of x; fp32 at 300 takes it unpadded, 30 padded to 32
+        kernel_case("bf16_din300_cli_news", CLI_BUCKET, T, CLI_EMB, torch.bfloat16, peaks, gen,
+                    n_valid=CLI_NV, drop="rng", yardstick=True),
+        kernel_case("bf16_din300_eval", CLI_BUCKET, T, CLI_EMB, torch.bfloat16, peaks, gen),
+        kernel_case("fp32_din300_cli_news", CLI_BUCKET, T, CLI_EMB, torch.float32, peaks, gen,
+                    n_valid=CLI_NV, drop="rng"),
+        kernel_case("fp32_din30", 37, T, 30, torch.float32, peaks, gen, n_valid=33, drop="rng"),
     ]
     record["cases"] = cases
     bwd = [
@@ -1869,6 +2097,11 @@ def main(argv=None) -> int:
         bwd_case("bwd_bf16_cluster_odd_news", 9, T, EMB, torch.bfloat16, peaks, gen, n_valid=5,
                  drop="rng"),
         bwd_case("bwd_bf16_cluster_odd_user", 13, H, D, torch.bfloat16, peaks, gen),
+        bwd_case("bwd_bf16_din300_cli_news", CLI_BUCKET, T, CLI_EMB, torch.bfloat16, peaks, gen,
+                 n_valid=CLI_NV, drop="rng"),
+        bwd_case("bwd_fp32_din300_cli_news", CLI_BUCKET, T, CLI_EMB, torch.float32, peaks, gen,
+                 n_valid=CLI_NV, drop="rng"),
+        bwd_case("bwd_fp32_din30", 37, T, 30, torch.float32, peaks, gen, n_valid=33, drop="rng"),
     ]
     record["bwd_cases"] = bwd
     blocks = [
@@ -1920,9 +2153,11 @@ def main(argv=None) -> int:
            for name in ("lstur", "naml", "npa", "fastformer", "nrms_docvec")}
     record.update(fam)
     record["fastformer_wu"] = fastformer_wu_check()
+    record["cli"] = cli_phase(training["launches_per_step"][0], fam["naml"]["launches_per_step"][0])
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
+    cli_l = {k: v["launches"] for k, v in record["cli"].items() if k != "host_data"}
     k1, k2, k2b = by["bf16_train_news"], by["bwd_bf16_train_news"], blocks[0]
     gem = {c["case"]: c for c in gemms}
     kernels = {"kernels": [
@@ -1932,6 +2167,7 @@ def main(argv=None) -> int:
               "launches": main_l["news_encoder_fwd"],
               "launches_serving": serving["launches_article_tower"] + serving["launches_user_tower"],
               "launches_fit": record["fit"]["launches"]["news_encoder_fwd"],
+              "launches_cli": cli_l["nrms"]["news_encoder_fwd"],
               "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
                       "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
                       "and external-mask dropout; timed at the training step's news-tower shape; "
@@ -1943,6 +2179,7 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd"],
               "launches_fit": record["fit"]["launches"]["news_encoder_bwd"],
+              "launches_cli": cli_l["nrms"]["news_encoder_bwd"],
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
@@ -1951,6 +2188,7 @@ def main(argv=None) -> int:
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_block"],
+              "launches_cli": cli_l["nrms"]["news_encoder_bwd_block"],
               "note": "K2's per-block recompute kernel alone (QKV stage on TMA-fed wgmma, "
                       "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
                       "of its QKV product alone",
@@ -1960,6 +2198,7 @@ def main(argv=None) -> int:
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_gemm"],
+              "launches_cli": cli_l["nrms"]["news_encoder_bwd_gemm"],
               "note": "dx and the row-reduced weight-gradient products of K2; the top-level "
                       "numbers are dWqkv at the news shape with the stream-0 mask (cases: the "
                       "six products of the NRMS step, and ragged shapes, untimed)",
@@ -1969,6 +2208,7 @@ def main(argv=None) -> int:
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_reduce"],
+              "launches_cli": cli_l["nrms"]["news_encoder_bwd_reduce"],
               "note": "fixed-order sum of K2's partials; the top-level numbers are the news "
                       "tower's dWqkv slices (cases: every partial shape of the NRMS step)",
               "checked": True}, **{k: reds[0][k] for k in keys},
@@ -1977,6 +2217,7 @@ def main(argv=None) -> int:
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_mask"],
+              "launches_cli": cli_l["nrms"]["news_encoder_bwd_mask"],
               "note": "the stream-0 (embedding) mask drawn once per step for dx and dWqkv: "
                       "round(x * mask) and keep bits; timed at the news tower's shape",
               "checked": True}, **{k: masks[0][k] for k in keys},
@@ -1993,6 +2234,7 @@ def main(argv=None) -> int:
               "launches_lstur": fam["lstur"]["launches"], "launches_naml": fam["naml"]["launches"],
               "launches_npa": fam["npa"]["launches"],
               "launches_fastformer": fam["fastformer"]["launches"],
+              "launches_cli_naml": cli_l["naml"]["prng_dropout"],
               "note": "seed-recompute dropout; timed at the title-embedding shape [bucket, 30, 1024] "
                       "bf16 (cases: every dropout shape of LSTUR, NAML, NPA and Fastformer, in the "
                       "dtype each step gives it); library_ms is F.dropout's forward, which draws "

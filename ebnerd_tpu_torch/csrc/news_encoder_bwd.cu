@@ -751,13 +751,16 @@ __global__ void __launch_bounds__(kWThreads, 1)
 
 // The stream-0 mask of rows [0, rows) and columns [0, cols), drawn once
 // for both products that need it: xm [rows, cols] = round(a * mask) in
-// bf16 (when xm is given; a has row stride lda) and the keep bits [rows,
+// bf16 (when xm is given; a is [rows, a_cols], a_cols <= cols, and xm is
+// zero past a_cols: the kernels' zero-padded x) and the keep bits [rows,
 // keep_ld] (when keep is given; bit j of word q is column 32 q + j, 0 past
 // cols). A quad of lanes per 32-column word, 8 columns a lane: two Philox
 // calls, one 16-byte load and store, so that a warp reads and writes 512
 // contiguous bytes; the quad ORs its four bytes of the word together.
-// Grid-stride; rows * words * 4 < 2^31 and cols % 8 == 0.
-__global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict__ a, int lda,
+// Where a's rows are not 16-byte aligned (a_cols % 8 != 0) or the 8
+// columns cross a_cols, the lane loads them one by one. Grid-stride;
+// rows * words * 4 < 2^31 and cols % 8 == 0.
+__global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict__ a, int a_cols,
                                                          bf16* __restrict__ xm,
                                                          uint32_t* __restrict__ keep, int keep_ld,
                                                          int rows, int cols, philox::Key key,
@@ -782,8 +785,16 @@ __global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict_
       if (j == 0) keep[size_t(r) * keep_ld + q] = word;
     }
     if (xm != nullptr && c < cols) {
-      uint4 u = *reinterpret_cast<const uint4*>(a + size_t(r) * lda + c);
+      const bf16* src = a + size_t(r) * a_cols + c;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
       bf16* e = reinterpret_cast<bf16*>(&u);
+      if (a_cols % 8 == 0 && c + 8 <= a_cols) {
+        u = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (c + k < a_cols) e[k] = src[k];
+      }
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         e[k] = __float2bfloat16_rn(__bfloat162float(e[k]) * ((b >> k) & 1 ? inv : 0.f));
@@ -1140,23 +1151,25 @@ int news_encoder_gemm(const void* A, const void* B, void* out, const void* keep,
 }
 
 // The stream-0 mask of rows [0, rows), columns [0, cols): xm [rows, cols]
-// = round(x * mask) in bf16 (x [rows, cols] with row stride ldx; skipped
-// when xm is null) and the keep bits [rows, keep_ld] (skipped when keep is
-// null).
-int news_encoder_mask_x(const void* x, int ldx, void* xm, void* keep, int keep_ld, int rows,
+// = round(x * mask) in bf16 (x [rows, x_cols], contiguous, x_cols <= cols;
+// xm zero past x_cols; skipped when xm is null) and the keep bits [rows,
+// keep_ld] (skipped when keep is null).
+int news_encoder_mask_x(const void* x, int x_cols, void* xm, void* keep, int keep_ld, int rows,
                         int cols, unsigned seed_lo, unsigned seed_hi, unsigned thr, float inv,
                         void* stream) {
   const long long n = (long long)rows * ((cols + 31) / 32) * 4;
   if (rows < 0 || cols < 1 || cols % 8 || thr == 0 || n >= (1LL << 31) ||
       (keep != nullptr && keep_ld < (cols + 31) / 32) ||
-      (xm != nullptr && (x == nullptr || ldx % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      (xm != nullptr && (x == nullptr || x_cols < 1 || x_cols > cols ||
+                         reinterpret_cast<uintptr_t>(x) % 16 ||
                          reinterpret_cast<uintptr_t>(xm) % 16)))
     return int(cudaErrorInvalidValue);
   if (n > 0)
     bwd_mask_x_kernel<<<unsigned(std::min((n + 255) / 256, 132LL * 16)), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(x), ldx, static_cast<bf16*>(xm), static_cast<uint32_t*>(keep),
-        keep_ld, rows, cols, philox::Key{seed_lo, seed_hi}, thr, inv);
+        static_cast<const bf16*>(x), x_cols, static_cast<bf16*>(xm),
+        static_cast<uint32_t*>(keep), keep_ld, rows, cols, philox::Key{seed_lo, seed_hi}, thr,
+        inv);
   return int(cudaGetLastError());
 }
 

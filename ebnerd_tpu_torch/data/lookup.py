@@ -14,7 +14,7 @@ import numpy as np
 
 from .ragged import Ragged
 
-__all__ = ["Lookup"]
+__all__ = ["Lookup", "create_lookup_objects", "map_list_article_id_to_value"]
 
 
 @dataclass(frozen=True)
@@ -63,3 +63,31 @@ class Lookup:
     @property
     def n_rows(self) -> int:
         return self.matrix.shape[0]
+
+
+def map_list_article_id_to_value(col: Ragged, lookup: Lookup) -> Ragged:
+    """Map a ragged article-id column to row indices in one vectorized pass
+    (the JAX package's alias for ``Lookup.map_ragged``)."""
+    return lookup.map_ragged(col)
+
+
+def create_lookup_objects(
+    lookup_dictionary: dict[int, np.ndarray], unknown_representation: str = "zeros"
+) -> tuple[dict[int, int], np.ndarray]:
+    """Dict API: ({id: row_index}, matrix) with matrix[0] the unknown row
+    and the ids in the dict's order from row 1. Prefer ``Lookup`` for bulk
+    mapping."""
+    ids = np.asarray(list(lookup_dictionary.keys()))
+    values = np.stack([np.asarray(v) for v in lookup_dictionary.values()])
+    if unknown_representation == "zeros":
+        unknown = np.zeros_like(values[:1])
+    elif unknown_representation == "mean":
+        unknown = np.mean(values, axis=0, dtype=values.dtype, keepdims=True)
+    else:
+        raise ValueError(
+            f"'{unknown_representation}' is not a specified method. "
+            "Can be either 'zeros' or 'mean'."
+        )
+    matrix = np.concatenate([unknown, values], axis=0)
+    indexes = {int(id_): i for i, id_ in enumerate(ids, start=1)}
+    return indexes, matrix

@@ -1,7 +1,8 @@
 """Ragged (list-valued) column as offsets + values.
 
-Copy of the numpy paths of ``ebnerd_tpu/data/ragged.py`` (no native
-ctypes branch; the two agree bit for bit). A ``Ragged`` holds ``n``
+Copy of the numpy paths of ``ebnerd_tpu/data/ragged.py`` (not its native
+g++ branch, ``ebnerd_tpu/native/ragged_kernels.cc``, which gives the same
+bits faster; ROADMAP A15). A ``Ragged`` holds ``n``
 variable-length rows as:
 
     values : np.ndarray, shape [total]
@@ -49,6 +50,13 @@ class Ragged:
         np.cumsum(lengths, out=offsets[1:])
         return Ragged(np.asarray(values), offsets)
 
+    @staticmethod
+    def from_dense(matrix: np.ndarray) -> "Ragged":
+        """Every row gets the full width of a dense [n, k] matrix."""
+        n, k = matrix.shape
+        offsets = np.arange(n + 1, dtype=np.int64) * k
+        return Ragged(matrix.reshape(-1), offsets)
+
     def __len__(self) -> int:
         return len(self.offsets) - 1
 
@@ -86,6 +94,16 @@ class Ragged:
         vals = self.values[_ranges(self.offsets[indices], lengths, total)]
         return Ragged(vals, out_offsets)
 
+    def tail(self, n: int) -> "Ragged":
+        """Keep the last ``n`` values of every row (``truncate_history``
+        without padding)."""
+        keep = np.minimum(self.lengths, n)
+        starts = self.offsets[1:] - keep
+        out_offsets = np.zeros(len(self) + 1, dtype=np.int64)
+        np.cumsum(keep, out=out_offsets[1:])
+        vals = self.values[_ranges(starts, keep, int(out_offsets[-1]))]
+        return Ragged(vals, out_offsets)
+
     def to_padded(self, width: int, pad_value=0, align: str = "right") -> tuple[np.ndarray, np.ndarray]:
         """Densify into a [n, width] matrix plus a boolean validity mask.
 
@@ -112,6 +130,49 @@ class Ragged:
         mask[rows, cols] = True
         return out, mask
 
+    def isin_per_row(self, other: "Ragged") -> np.ndarray:
+        """For every value v in row i of self: is v in row i of ``other``?
+        A [self.total] bool array, aligned with self.values (the kernel
+        behind binary labels)."""
+        if len(self) != len(other):
+            raise ValueError("row counts differ")
+        self_keys = _row_scoped_keys(self.row_ids(), self.values)
+        other_keys = _row_scoped_keys(other.row_ids(), other.values)
+        return np.isin(self_keys, other_keys)
+
+    def filter_values(self, keep: np.ndarray) -> "Ragged":
+        """Drop values where keep==False, preserving row structure."""
+        keep = np.asarray(keep, dtype=bool)
+        new_lengths = np.bincount(self.row_ids()[keep], minlength=len(self)).astype(np.int64)
+        out_offsets = np.zeros(len(self) + 1, dtype=np.int64)
+        np.cumsum(new_lengths, out=out_offsets[1:])
+        return Ragged(self.values[keep], out_offsets)
+
+    def explode_with_row_ids(self) -> tuple[np.ndarray, np.ndarray]:
+        """(values, row_ids): one entry per value with the row it came from."""
+        return self.values, self.row_ids()
+
+    def concat_values(self, other: "Ragged") -> "Ragged":
+        """Per-row concatenation: out row i = self row i ++ other row i."""
+        if len(self) != len(other):
+            raise ValueError("row counts differ")
+        la, lb = self.lengths, other.lengths
+        out_offsets = np.zeros(len(self) + 1, dtype=np.int64)
+        np.cumsum(la + lb, out=out_offsets[1:])
+        out = np.empty(int(out_offsets[-1]), dtype=np.result_type(self.values, other.values))
+        out[_ranges(out_offsets[:-1], la, int(la.sum()))] = self.values
+        out[_ranges(out_offsets[:-1] + la, lb, int(lb.sum()))] = other.values
+        return Ragged(out, out_offsets)
+
+    def shuffle_within_rows(self, rng: np.random.Generator) -> tuple["Ragged", np.ndarray]:
+        """Shuffle the values inside each row independently: (the shuffled
+        ragged, the permutation into self.values), so that parallel columns
+        (labels) can be shuffled the same way. Draws ``total`` uniforms from
+        ``rng``."""
+        keys = self.row_ids().astype(np.float64) * 2.0 + rng.random(self.total)
+        perm = np.argsort(keys, kind="stable")
+        return Ragged(self.values[perm], self.offsets.copy()), perm
+
 
 def _ranges(starts: np.ndarray, lengths: np.ndarray, total: int) -> np.ndarray:
     """Concatenate [arange(s, s+l) for s, l in zip(starts, lengths)] without a
@@ -129,3 +190,12 @@ def _ranges(starts: np.ndarray, lengths: np.ndarray, total: int) -> np.ndarray:
     flat[row_start_pos] = np.concatenate(([starts[0]], starts[1:] - ends[:-1] + 1))
     np.cumsum(flat, out=flat)
     return flat
+
+
+def _row_scoped_keys(row_ids: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """(row, value) as one int64 key for vectorized membership; values must
+    be in uint32 range (EB-NeRD's article and user ids are)."""
+    v = values.astype(np.int64)
+    if v.size and (v.min() < 0 or v.max() >= (1 << 32)):
+        raise ValueError("values out of uint32 range for row-scoped keys")
+    return (row_ids.astype(np.int64) << 32) | v

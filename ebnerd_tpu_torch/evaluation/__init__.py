@@ -1,5 +1,5 @@
-"""Ranking metrics and the metric evaluator (copies of ``ebnerd_tpu.evaluation``'s
-``ranking`` and ``protocols``; beyond-accuracy metrics are ROADMAP A14)."""
+"""Ranking metrics, the metric evaluator and the beyond-accuracy metrics
+(copies of ``ebnerd_tpu.evaluation``)."""
 from .protocols import (
     AccuracyScore,
     AucScore,
@@ -11,6 +11,15 @@ from .protocols import (
     NdcgScore,
     RootMeanSquaredError,
 )
+from .beyond_accuracy import (
+    Coverage,
+    Distribution,
+    IntralistDiversity,
+    Novelty,
+    Sentiment,
+    Serendipity,
+)
 
-__all__ = ["AccuracyScore", "AucScore", "F1Score", "LogLossScore", "Metric", "MetricEvaluator",
-           "MrrScore", "NdcgScore", "RootMeanSquaredError"]
+__all__ = ["AccuracyScore", "AucScore", "Coverage", "Distribution", "F1Score",
+           "IntralistDiversity", "LogLossScore", "Metric", "MetricEvaluator", "MrrScore",
+           "NdcgScore", "Novelty", "RootMeanSquaredError", "Sentiment", "Serendipity"]

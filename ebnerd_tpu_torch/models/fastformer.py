@@ -127,7 +127,7 @@ class _Encoder(nn.Module):
     modules."""
 
     def __init__(self, hp: HParamsFastformer, vocab_size: int, word_emb_dim: Optional[int],
-                 dtype, device, seed: int, use_kernel: bool):
+                 dtype, device, seed: int, use_kernel: bool, word_emb_init=None):
         super().__init__()
         self.device = resolve_device(device)
         self.hparams, self.dtype = hp, dtype
@@ -144,6 +144,8 @@ class _Encoder(nn.Module):
         with torch.no_grad():
             self.word_embedding.embedding.normal_(0.0, _STD, generator=gen)
             self.position_embedding.embedding.normal_(0.0, _STD, generator=gen)
+        if word_emb_init is not None:
+            self.word_embedding.load_(word_emb_init)
         self.embedding_transform = _normal_dense(emb_dim, d, **kw)
         self.emb_norm = LayerNorm(d, self.device)
         self.emb_drop = PrngDropout(hp.dropout, use_kernel=use_kernel)
@@ -175,8 +177,9 @@ class Fastformer(_Encoder):
 
     def __init__(self, hparams: HParamsFastformer, vocab_size: int = 32000,
                  word_emb_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 prng_dropout: bool = False, device="cuda", seed: int = 0):
-        super().__init__(hparams, vocab_size, word_emb_dim, dtype, device, seed, prng_dropout)
+                 prng_dropout: bool = False, device="cuda", seed: int = 0, word_emb_init=None):
+        super().__init__(hparams, vocab_size, word_emb_dim, dtype, device, seed, prng_dropout,
+                         word_emb_init)
         d = hparams.embedding_dim
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         kw = dict(dtype=dtype, device=self.device, generator=gen)
@@ -216,8 +219,10 @@ class FastformerWu(_Encoder):
 
     def __init__(self, hparams: HParamsFastformer, vocab_size: int = 32000,
                  word_emb_dim: Optional[int] = None, n_classes: int = 4,
-                 dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0):
-        super().__init__(hparams, vocab_size, word_emb_dim, dtype, device, seed, False)
+                 dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0,
+                 word_emb_init=None):
+        super().__init__(hparams, vocab_size, word_emb_dim, dtype, device, seed, False,
+                         word_emb_init)
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.output_layer = _normal_dense(hparams.embedding_dim, n_classes, dtype, self.device,
                                           gen)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -135,6 +136,17 @@ class WordEmbed(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens, self.embedding).to(self.dtype)
+
+    def load_(self, matrix) -> None:
+        """Copy a pretrained [V, E] matrix (numpy or a tensor) into the table,
+        cast to its fp32, as the JAX modules' ``word_emb_init``
+        (``embedding_initializer``) loads one; raises on another shape."""
+        m = matrix if isinstance(matrix, torch.Tensor) else torch.from_numpy(np.asarray(matrix))
+        if tuple(m.shape) != tuple(self.embedding.shape):
+            raise ValueError(f"embedding shape {tuple(self.embedding.shape)} != matrix "
+                             f"{tuple(m.shape)}")
+        with torch.no_grad():
+            self.embedding.copy_(m.to(torch.float32))
 
 
 class AdditiveAttention(nn.Module):

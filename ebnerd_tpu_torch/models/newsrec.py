@@ -128,12 +128,15 @@ class NRMS(nn.Module):
 
     ``dtype`` is the compute dtype (``torch.bfloat16`` or ``torch.float32``);
     parameters are fp32 on ``device``, initialised from ``seed`` with a
-    ``torch.Generator`` on that device."""
+    ``torch.Generator`` on that device. ``word_emb_init``, a pretrained
+    [V, E] matrix (numpy or a tensor), then replaces the word table's values,
+    as the JAX modules' ``word_emb_init`` does; the other parameters are the
+    same as without it. LSTUR, NPA, NAML and both Fastformers take it too."""
 
     def __init__(self, hparams: HParamsNRMS, vocab_size: int = 32000,
                  word_emb_dim: int = 300, dtype: torch.dtype = torch.float32,
                  use_fused_encoder: bool = False, transposed_self_att: bool = False,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, word_emb_init=None):
         super().__init__()
         hp = hparams
         if use_fused_encoder and hp.newsencoder_units_per_layer:
@@ -148,6 +151,8 @@ class NRMS(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         kw = dict(dtype=dtype, device=self.device, generator=gen)
         self.word_embedding = WordEmbed(vocab_size, word_emb_dim, **kw)
+        if word_emb_init is not None:
+            self.word_embedding.load_(word_emb_init)
         self.news_self_att = SelfAttention(word_emb_dim, hp.head_num, hp.head_dim,
                                            transposed=transposed_self_att, **kw)
         units = tuple(hp.newsencoder_units_per_layer or ())
@@ -309,7 +314,8 @@ class LSTUR(nn.Module):
 
     def __init__(self, hparams: HParamsLSTUR, vocab_size: int = 32000, word_emb_dim: int = 300,
                  dtype: torch.dtype = torch.float32, remat_encoder: bool = False,
-                 prng_dropout: bool = False, device="cuda", seed: int = 0):
+                 prng_dropout: bool = False, device="cuda", seed: int = 0,
+                 word_emb_init=None):
         super().__init__()
         hp = hparams
         if hp.type not in ("ini", "con"):
@@ -320,6 +326,8 @@ class LSTUR(nn.Module):
         kw = dict(device=self.device, generator=gen)
         self.drop = PrngDropout(hp.dropout, use_kernel=prng_dropout)
         self.word_embedding = WordEmbed(vocab_size, word_emb_dim, dtype=dtype, **kw)
+        if word_emb_init is not None:
+            self.word_embedding.load_(word_emb_init)
         self.user_embedding = Embed(hp.n_users + 1, hp.gru_unit, zero=True, **kw)
         self.conv = ConvEncoder(word_emb_dim, hp.filter_num, hp.window_size, dtype, **kw)
         self.news_pool = AdditiveAttention(hp.filter_num, hp.attention_hidden_dim, dtype=dtype, **kw)
@@ -386,7 +394,8 @@ class NPA(nn.Module):
 
     def __init__(self, hparams: HParamsNPA, vocab_size: int = 32000, word_emb_dim: int = 300,
                  dtype: torch.dtype = torch.float32, remat_encoder: bool = False,
-                 prng_dropout: bool = False, device="cuda", seed: int = 0):
+                 prng_dropout: bool = False, device="cuda", seed: int = 0,
+                 word_emb_init=None):
         super().__init__()
         hp = hparams
         self.device = resolve_device(device)
@@ -396,6 +405,8 @@ class NPA(nn.Module):
         f, a, u = hp.filter_num, hp.attention_hidden_dim, hp.user_emb_dim
         self.drop = PrngDropout(hp.dropout, use_kernel=prng_dropout)
         self.word_embedding = WordEmbed(vocab_size, word_emb_dim, dtype=dtype, **kw)
+        if word_emb_init is not None:
+            self.word_embedding.load_(word_emb_init)
         self.user_embedding = Embed(hp.n_users + 1, u, zero=True, **kw)
         self.conv = ConvEncoder(word_emb_dim, f, hp.window_size, dtype, **kw)
         self.word_query = Dense(u, a, dtype, **kw)
@@ -455,7 +466,7 @@ class NAML(nn.Module):
     def __init__(self, hparams: HParamsNAML, vocab_size: int = 32000, word_emb_dim: int = 300,
                  dtype: torch.dtype = torch.float32, remat_encoder: bool = False,
                  encode_chunks: int = 1, prng_dropout: bool = False, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, word_emb_init=None):
         super().__init__()
         hp = hparams
         if encode_chunks < 1:
@@ -468,6 +479,8 @@ class NAML(nn.Module):
         f, a = hp.filter_num, hp.attention_hidden_dim
         self.drop = PrngDropout(hp.dropout, use_kernel=prng_dropout)
         self.word_embedding = WordEmbed(vocab_size, word_emb_dim, dtype=dtype, **kw)
+        if word_emb_init is not None:
+            self.word_embedding.load_(word_emb_init)
         self.title_conv = ConvEncoder(word_emb_dim, f, hp.window_size, dtype, **kw)
         self.title_pool = AdditiveAttention(f, a, dtype=dtype, **kw)
         self.body_conv = ConvEncoder(word_emb_dim, f, hp.window_size, dtype, **kw)

@@ -18,6 +18,15 @@ reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
 ``torch.autograd.Function`` whose forward launches K1 and whose backward
 launches K2; on the CPU autograd of the plain version.
 
+The kernels read rows of x with 16-byte vector loads and TMA, so they take
+a Din that is a multiple of 8 in bf16 (4 in fp32). Any other Din is padded
+on the kernel side only: ``pack_weights`` gives Wqkv zero rows and
+``kernel_input`` gives x zero columns up to that multiple, and the
+backward drops the pad columns of dx and the pad rows of dWqkv. No
+parameter changes shape. The stream-0 mask is keyed by (row, column
+group), not by the row's width, so padding leaves the mask of the first
+Din columns as it is.
+
 In bf16 with the Philox embedding mask, the mask is drawn once per call
 of ``news_encoder`` (``kernel_input``: K2's mask kernel gives round(x *
 mask) and one keep bit per element): K1 and K2's per-block kernel read
@@ -46,7 +55,7 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "news_encoder_reference", "news_encoder_bwd_reference", "pack_weights", "pack_qkv",
            "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
-           "launch_bwd_core", "bwd_core_reference",
+           "launch_bwd_core", "bwd_core_reference", "padded_din",
            "reduce_rows", "reduce_plan", "NewsEncoderFunction"]
 
 _PANEL = 256         # packed QKV columns per head group (one GEMM panel of the kernel)
@@ -294,31 +303,42 @@ def _library_bwd() -> ctypes.CDLL:
 class PackedWeights(NamedTuple):
     """The kernels' weight operands, made once per set of weights by
     ``pack_weights`` and reused by every launch, forward and backward."""
-    wqkv: torch.Tensor   # [Din, n_groups * 256] compute dtype, head-group panels
+    wqkv: torch.Tensor   # [din_pad, n_groups * 256] compute dtype, head-group panels
     heads_per_group: int
     w_att: torch.Tensor  # [D, a_pad] compute dtype, zero columns past A
     b_att: torch.Tensor  # [A] fp32
     q_att: torch.Tensor  # [A] fp32
     num_heads: int
+    din: int             # x's width; wqkv's rows past it are zeros (``padded_din``)
 
 
-def pack_qkv(wq, wk, wv, num_heads: int, cdt: torch.dtype) -> tuple[torch.Tensor, int]:
-    """[Din, D] x3 -> ([Din, n_groups * 256] in ``cdt``, heads per group).
+def padded_din(din: int, dtype: torch.dtype) -> int:
+    """The width the kernels take for x [..., Din] in ``dtype``: Din rounded
+    up to a whole 16 bytes (a multiple of 8 in bf16, 4 in fp32)."""
+    vec = 16 // dtype.itemsize
+    return -(-din // vec) * vec
+
+
+def pack_qkv(wq, wk, wv, num_heads: int, cdt: torch.dtype,
+             rows: Optional[int] = None) -> tuple[torch.Tensor, int]:
+    """[Din, D] x3 -> ([rows, n_groups * 256] in ``cdt``, heads per group),
+    ``rows`` >= Din (default Din) with zero rows past Din.
 
     The kernel computes Q/K/V one head group at a time: panel g holds Q of
     heads [g*gh, (g+1)*gh) at columns [0, gh*hd), K at [gh*hd, 2*gh*hd) and
     V at [2*gh*hd, 3*gh*hd); the remaining columns, and the heads past
     ``num_heads`` in the last group, are zero."""
     din, d = wq.shape
+    rows = din if rows is None else rows
     hd = d // num_heads
     gh = _PANEL // (3 * hd)
     n_groups = -(-num_heads // gh)
-    out = torch.zeros(din, n_groups, _PANEL, dtype=cdt, device=wq.device)
+    out = torch.zeros(rows, n_groups, _PANEL, dtype=cdt, device=wq.device)
     for i, w in enumerate((wq, wk, wv)):
         heads = torch.zeros(din, n_groups * gh * hd, dtype=cdt, device=wq.device)
         heads[:, :d] = w
-        out[:, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(din, n_groups, gh * hd)
-    return out.reshape(din, n_groups * _PANEL), gh
+        out[:din, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(din, n_groups, gh * hd)
+    return out.reshape(rows, n_groups * _PANEL), gh
 
 
 def unpack_qkv(wqkv: torch.Tensor, num_heads: int, d: int) -> tuple:
@@ -334,8 +354,9 @@ def unpack_qkv(wqkv: torch.Tensor, num_heads: int, d: int) -> tuple:
 def pack_weights(wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
                  compute_dtype: torch.dtype) -> PackedWeights:
     """Check the weights against the kernel's limits and pack them into its
-    operands: the QKV head-group panels and W_att with zero columns up to a
-    multiple of 16, both in ``compute_dtype``; b and q flat in fp32."""
+    operands: the QKV head-group panels, with zero rows up to
+    ``padded_din``, and W_att with zero columns up to a multiple of 16, both
+    in ``compute_dtype``; b and q flat in fp32."""
     wq, wk, wv, w_att, b_att, q_att = (w.detach() for w in (wq, wk, wv, w_att, b_att, q_att))
     din, d = wq.shape
     a = w_att.shape[1]
@@ -354,11 +375,11 @@ def pack_weights(wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
     if d // num_heads > _MAX_HEAD_DIM or a > _MAX_ATT_DIM:
         raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM}, A <= {_MAX_ATT_DIM}; "
                          f"got head_dim={d // num_heads}, A={a}")
-    wqkv, gh = pack_qkv(wq, wk, wv, num_heads, compute_dtype)
+    wqkv, gh = pack_qkv(wq, wk, wv, num_heads, compute_dtype, padded_din(din, compute_dtype))
     a_pad = -(-a // 16) * 16
     w_pad = torch.nn.functional.pad(w_att.to(compute_dtype), (0, a_pad - a)).contiguous()
     return PackedWeights(wqkv, gh, w_pad, b_att.to(torch.float32).contiguous(),
-                         q_att.reshape(-1).to(torch.float32).contiguous(), num_heads)
+                         q_att.reshape(-1).to(torch.float32).contiguous(), num_heads, din)
 
 
 def _check_compute(compute_dtype):
@@ -424,14 +445,13 @@ def _check_x(x, packed: PackedWeights, drop: Dropout):
         raise ValueError(f"x is {x.dtype}; the kernel takes x in the compute dtype {cdt}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
-    if packed.wqkv.device != x.device or packed.wqkv.shape[0] != din:
-        raise ValueError(f"packed weights are [{packed.wqkv.shape[0]}, ...] on "
+    if packed.wqkv.device != x.device or packed.din != din:
+        raise ValueError(f"packed weights are for Din {packed.din} on "
                          f"{packed.wqkv.device}; x is [..., {din}] on {x.device}")
-    vec = 16 // x.element_size()
-    if t > _MAX_T or din % vec:
-        raise ValueError(f"kernel takes T <= {_MAX_T}, Din % {vec} == 0; got T={t}, Din={din}")
-    if (drop.thr_emb or drop.thr_att) and (din % 4 or d % 4):
-        raise ValueError(f"in-kernel dropout takes Din % 4 == D % 4 == 0; got {din}, {d}")
+    if t > _MAX_T:
+        raise ValueError(f"kernel takes T <= {_MAX_T}; got T={t}")
+    if (drop.thr_emb or drop.thr_att) and d % 4:
+        raise ValueError(f"in-kernel dropout takes D % 4 == 0; got {d}")
 
 
 def _check_launch(lib, err: int, what: str, error_string) -> None:
@@ -441,19 +461,27 @@ def _check_launch(lib, err: int, what: str, error_string) -> None:
 
 def kernel_input(x, nv: int, drop: Dropout) -> tuple:
     """The kernels' x operand for x [N, T, Din] with ``nv`` valid articles:
-    (x2, keep, drop_in). In bf16 with the stream-0 (embedding) mask, x2 is
-    round(x * mask) of the nv * T valid rows and keep its keep bits, drawn
-    once by ``emb_mask`` for both kernels and the backward's products, and
-    drop_in is ``drop`` without stream 0, which the kernels then do not
-    draw. Else x2 is x as [N * T, Din], keep None and drop_in ``drop`` (fp32
-    draws the mask in its kernels)."""
+    (x2, keep, drop_in), x2 ``padded_din`` wide (zero columns past Din). In
+    bf16 with the stream-0 (embedding) mask, x2 is round(x * mask) of the
+    nv * T valid rows and keep its keep bits, drawn once by ``emb_mask``
+    (into the padded width, so padding costs no copy there) for both
+    kernels and the backward's products, and drop_in is ``drop`` without
+    stream 0, which the kernels then do not draw. Else x2 is x as
+    [N * T, Din] (a padded copy when Din is not the padded width), keep None
+    and drop_in ``drop`` (fp32 draws the mask in its kernels)."""
     n, t, din = x.shape
+    width = padded_din(din, x.dtype)
     x2 = x.reshape(n * t, din)
-    if x.dtype != torch.bfloat16 or not drop.thr_emb:
-        return x2, None, drop
-    xm, keep = emb_mask(nv * t, din, drop, device=x.device, x=x2)
-    # with no valid row, x2 stands in for the empty xm: the kernels read nothing
-    return (xm if nv else x2), keep, drop._replace(thr_emb=0, inv_emb=1.0)
+    keep, drop_in = None, drop
+    if x.dtype == torch.bfloat16 and drop.thr_emb:
+        xm, keep = emb_mask(nv * t, width, drop, device=x.device, x=x2)
+        drop_in = drop._replace(thr_emb=0, inv_emb=1.0)
+        if nv:
+            return xm, keep, drop_in
+        # with no valid row, x2 stands in for the empty xm: the kernels read nothing
+    if width != din:
+        x2 = torch.nn.functional.pad(x2, (0, width - din))
+    return x2, keep, drop_in
 
 
 def qkv_plan(n: int, t: int, din: int, smem_bytes, *, forward: bool) -> tuple[int, int]:
@@ -612,8 +640,9 @@ def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None) -> tuple:
     """The stream-0 (embedding) mask of rows [0, rows), columns [0, width),
     drawn once by K2's mask kernel (CUDA) for both products that need it:
     (xm, keep) with xm = round(x[:rows] * mask) [rows, width] in bf16 (None
-    when x is None) and keep [rows, ceil(width / 32)] int32, bit j of word
-    q keeping column 32 q + j."""
+    when x is None; x may be narrower than ``width``, and xm is zero past
+    its columns) and keep [rows, ceil(width / 32)] int32, bit j of word q
+    keeping column 32 q + j."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -622,12 +651,13 @@ def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None) -> tuple:
     keep = torch.empty(rows, -(-width // 32), dtype=torch.int32, device=dev)
     xm = None
     if x is not None:
-        if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[1] != width:
-            raise ValueError(f"x must be contiguous bf16 [R, {width}]")
+        if x.dtype != torch.bfloat16 or not x.is_contiguous() or not 0 < x.shape[1] <= width:
+            raise ValueError(f"x must be contiguous bf16 [R, C], 0 < C <= {width}")
         xm = torch.empty(rows, width, dtype=x.dtype, device=dev)
+    x_cols = width if x is None else x.shape[1]
     lib = _library_bwd()
     with torch.cuda.device(dev):
-        err = lib.news_encoder_mask_x(None if x is None else x.data_ptr(), width,
+        err = lib.news_encoder_mask_x(None if x is None else x.data_ptr(), x_cols,
                                       None if xm is None else xm.data_ptr(), keep.data_ptr(),
                                       keep.shape[1], rows, width, drop.seed_lo, drop.seed_hi,
                                       drop.thr_emb, drop.inv_emb, _stream(dev))
@@ -654,7 +684,10 @@ def emb_mask_reference(rows: int, width: int, seed, emb_keep: float, x=None) -> 
     """Plain version of ``emb_mask`` from ``philox.mask``."""
     device = "cpu" if x is None else x.device
     m = philox.mask(seed, philox.STREAM_EMB, rows, width, emb_keep, device=device)
-    xm = None if x is None else (x[:rows].float() * m).to(x.dtype)
+    xm = None
+    if x is not None:
+        xf = torch.nn.functional.pad(x[:rows].float(), (0, width - x.shape[1]))
+        xm = (xf * m).to(x.dtype)
     return xm, pack_bits(m > 0)
 
 
@@ -755,6 +788,7 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
     if din % 4 or d % 8:
         raise ValueError(f"the backward takes Din % 4 == 0 and D % 8 == 0; got {din}, {d}")
+    din_x = packed.din
     masked = keep is not None  # bf16 with the stream-0 mask: xin is round(x * mask)
     drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
     qkv, o_c, dz_c, db_part, dq_part = launch_bwd_core(_library_bwd(), xin, packed, g, nv,
@@ -763,14 +797,15 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     a_pad, a, p_cols = packed.w_att.shape[1], packed.b_att.shape[0], packed.wqkv.shape[1]
     nv_blocks = -(-nv // (64 // t))
     rows = nv * t
-    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep).reshape(n, t, din)
+    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep)
+    dx = (dx if din == din_x else dx[:, :din_x]).reshape(n, t, din_x)
     dwqkv = reduce_rows(bwd_gemm(xin, qkv, dx=False, rows=rows, drop=drop_in,
                                  splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
     dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows,
                               splits=gemm_splits(d, a_pad, rows))).reshape(d, a_pad)
     db = reduce_rows(db_part[:nv_blocks])
     dq = reduce_rows(dq_part[:nv_blocks])
-    dwq, dwk, dwv = unpack_qkv(dwqkv, packed.num_heads, d)
+    dwq, dwk, dwv = (w[:din_x] for w in unpack_qkv(dwqkv, packed.num_heads, d))
     return dx, dwq, dwk, dwv, dw[:, :a], db[:a], dq[:a].reshape(a, 1)
 
 

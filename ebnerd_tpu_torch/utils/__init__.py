@@ -1,5 +1,6 @@
-"""Submission files and scalar logging (copies from ``ebnerd_tpu.utils``)."""
-from .logging import ScalarLogger
+"""Submission files, logging and timing, and general helpers (copies and
+counterparts of ``ebnerd_tpu.utils``)."""
+from .logging import ScalarLogger, StepTimer, trace_profile
 from .submission import (
     rank_predictions_by_score,
     rank_ragged_scores,
@@ -8,5 +9,6 @@ from .submission import (
     zip_submission_file,
 )
 
-__all__ = ["ScalarLogger", "rank_predictions_by_score", "rank_ragged_scores",
-           "read_submission_file", "write_submission_file", "zip_submission_file"]
+__all__ = ["ScalarLogger", "StepTimer", "trace_profile", "rank_predictions_by_score",
+           "rank_ragged_scores", "read_submission_file", "write_submission_file",
+           "zip_submission_file"]

@@ -1,18 +1,23 @@
-"""Scalar logging for training (copy of ``ScalarLogger`` from
-``ebnerd_tpu/utils/logging.py``; its ``StepTimer`` and ``trace_profile``
-call JAX and are ROADMAP A13).
+"""Training observability (counterpart of ``ebnerd_tpu/utils/logging.py``):
+scalar logging, step timing and profiler traces.
 
 Scalars always go to a JSONL file (greppable, dependency-free); a
 TensorBoard event file is written too when a SummaryWriter
-implementation is importable.
+implementation is importable. ``StepTimer`` synchronises the result's
+CUDA device before it reads the clock (the JAX one blocks on the result);
+``trace_profile`` records ``torch.profiler`` and writes a Chrome trace.
 """
 from __future__ import annotations
 
 import json
 import time
+from contextlib import contextmanager
 from pathlib import Path
+from typing import Optional
 
-__all__ = ["ScalarLogger"]
+import torch
+
+__all__ = ["ScalarLogger", "StepTimer", "trace_profile"]
 
 
 class ScalarLogger:
@@ -55,3 +60,59 @@ class ScalarLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _cuda_devices(result) -> set:
+    """The CUDA devices of the tensors in ``result`` (nested lists, tuples
+    and dicts)."""
+    if isinstance(result, torch.Tensor):
+        return {result.device} if result.is_cuda else set()
+    if isinstance(result, dict):
+        result = list(result.values())
+    if isinstance(result, (list, tuple)):
+        return set().union(*(_cuda_devices(r) for r in result)) if result else set()
+    return set()
+
+
+class StepTimer:
+    """Wall-clock step timing, synchronised: ``stop(result)`` waits for the
+    CUDA devices that hold ``result``'s tensors before it reads the clock,
+    so a step's time includes its device work (impressions/s as the bench
+    measures it)."""
+
+    def __init__(self):
+        self._t0: Optional[float] = None
+        self.history: list[float] = []
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, result=None) -> float:
+        if result is not None:
+            for dev in _cuda_devices(result):
+                torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - self._t0
+        self.history.append(dt)
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return sum(self.history) / max(len(self.history), 1)
+
+
+@contextmanager
+def trace_profile(log_dir, enabled: bool = True):
+    """Record the block with ``torch.profiler`` (CPU, and CUDA when a card
+    is there) and write a Chrome trace, ``trace.json``, into ``log_dir``
+    (open it with Perfetto or chrome://tracing)."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(str(log_dir / "trace.json"))
