@@ -50,7 +50,23 @@ Phases:
      built after the steps, the model in training mode, bit-equal to the
      eval-mode index (the model's mode restored); a small fp32 model trained
      3 steps on the kernels against its unfused layers and against the
-     per-slot path (no dedup) on the kernels;
+     per-slot path (no dedup) on the kernels; then the row-sparse word table
+     (``sparse_embedding``) at the same width: the host prep of every batch
+     timed (from the unique articles, bit-equal to the JAX function's
+     every-slot version, also timed; then the dedup), step 1 of a sparse and
+     a dense trainer from one init and one seed (losses equal, the touched
+     rows and their first moment within SMALL_PARAM_ATOL, every untouched
+     row bit-equal to the dense step's and to the init, the other
+     parameters within SMALL_PARAM_ATOL), 5 dense steps timed, 3 sparse
+     steps counting K1 and K2 launches (as the staged step's), 5 timed;
+     then ``adam_mu_dtype="bfloat16"`` on the dense step from the same init:
+     4 losses against the fp32 moment's (within MU_LOSS_TOL), one
+     parameter's stored bf16 first moment bit-equal to the same Adam
+     replayed on the CPU from the card's gradients, 5 steps timed, the
+     optimizer alone against ``torch.optim.Adam``; then the word table's
+     gradient-and-optimizer slab per strategy (``tools/embed_grad.py``:
+     dense, dense with the bf16 moment, host dedup with the row-wise Adam;
+     batch 512 and 16,384, uniform and Zipf(1.07) tokens);
   7. ``Trainer.fit`` at the same width: 2 epochs of 4 steps from a
      NewsrecFeed of bench.py's Zipf draws (built with Ragged.from_lengths),
      host dedup on the prefetch thread (prefetch 2), validation on 4,096
@@ -63,7 +79,10 @@ Phases:
      seconds; then a small fp32 NRMS with dropout 0.2 on the kernels: fit
      with prefetch 0 and 2 bit-equal, a run stopped after epoch 1 and
      resumed from its checkpoint (under build/, removed afterwards)
-     bit-equal to an uninterrupted run;
+     bit-equal to an uninterrupted run; the same fit in the sparse mode
+     (launches per step, two-tower against the full forward, the restored
+     best weights; its impressions/s beside the staged sparse step's, the
+     prefetch thread's sparse and dedup ms per batch);
   8. K3, the seed-recompute dropout, against its plain version: bit-equal
      outputs and masks in fp32 and bf16 (sizes with a tail, a
      non-contiguous input, an unaligned pointer, element offsets past 2**34
@@ -105,7 +124,10 @@ Phases:
      tables; each run's results.json finite with AUC in [0, 1] and its zip
      holding every validation impression once with a permutation of ranks;
      training impressions/s, seconds per epoch and validation seconds
-     printed; build/cli_* removed; then the host data path at a real scale
+     printed; then each again with ``--sparse_embedding``, 1 epoch (NRMS:
+     launches per step as the staged step's; NAML: title and body through
+     the shared table, 8 K3 a step); build/cli_* removed; then the host data
+     path at a real scale
      (100,000 impressions, 20,000 articles, 20,000 users: the in-memory
      synthetic split, truncation and join, the sampler, labels and a
      NewsrecFeed), timed per stage;
@@ -116,8 +138,8 @@ The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
 their QKV product alone (their yardstick; neither kernel has a one-call
 PyTorch equivalent).
 
-Each path (mask check, serving, NRMS training, fit, each family's training
-and serving, each CLI run) is driven with every launch count set to 0 just before it and
+Each path (mask check, serving, NRMS training, the sparse steps, fit, each
+family's training and serving, each CLI run) is driven with every launch count set to 0 just before it and
 read just after; launches made to
 compare a kernel with its plain version are not counted. Any failed check
 exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
@@ -174,6 +196,10 @@ STEP_TOWER_FLOOR = 1e-3
 SCORE_ATOL = 2e-2     # sigmoid scores, kernel path vs plain path, bf16 model
 SMALL_ATOL = 1e-4     # sigmoid scores, fp32 model, fused kernel vs unfused layers
 SMALL_PARAM_ATOL = 1e-5  # fp32 model after 3 steps, fused kernels vs unfused layers
+# bf16 against fp32 Adam first moment, the loss after 3 updates at lr 1e-4: about ten times the
+# reading on an H100 80GB HBM3 at 700 W (4.6e-5; PERF.md)
+MU_LOSS_TOL = 5e-4
+MU_CHECK_PARAM = "news_self_att.WQ.weight"  # [1024, 400]: its first moment is replayed
 # Adam turns fp32 rounding in gradient elements near its eps (1e-8) into
 # steps of up to lr, so the small model trains at SMALL_LR: a gradient of
 # the wrong sign in any step still moves a parameter by >= 2 * SMALL_LR
@@ -1011,7 +1037,8 @@ def small_training():
 
 def training_data():
     """The step's data, as bench.py makes it: Zipf token table and article
-    draws; the first batch's host dedup gives the news tower's shape."""
+    draws (the raw index batches, and each after the host dedup); the first
+    batch's host dedup gives the news tower's shape."""
     from ebnerd_tpu_torch.bench import batches, token_table
     from ebnerd_tpu_torch.training import prep_dedup_batch
 
@@ -1022,7 +1049,7 @@ def training_data():
     t0 = time.perf_counter()
     preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
     prep_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    return table, preps, prep_ms
+    return table, raws, preps, prep_ms
 
 
 def timed_steps(trainer, staged, first: int, n: int) -> float:
@@ -1045,16 +1072,11 @@ def timed_steps(trainer, staged, first: int, n: int) -> float:
 def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_user, k2_block):
     """The port's training step at full width; returns its record."""
     from ebnerd_tpu_torch.bench import flops_per_impression
-    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, newsrec, token_batch
+    from ebnerd_tpu_torch.models import newsrec
     from ebnerd_tpu_torch.serving import ArticleIndex
-    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
-    model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
-                 dtype=torch.bfloat16, use_fused_encoder=True, device=DEV, seed=0)
-    with torch.no_grad():  # as bench.py's init, the gradients are all ~0 (loss = ln 5)
-        model.word_embedding.embedding.mul_(EMB_SCALE)
-    trainer = Trainer(model, {"title": table}, token_batch,
-                      TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
+    trainer = full_width_trainer(table)
+    model = trainer.model
     staged = [trainer.prepare(r) for r in preps]
     torch.cuda.synchronize()
     slots = TRAIN_BS * (H + NPRATIO + 1)
@@ -1159,6 +1181,283 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
     return rec
 
 
+def prep_sparse_every_slot(raw, host_tables, names, vocab_size, min_bucket):
+    """The JAX function's host prep as it is written: the tokens of every
+    slot (``host_tables[name][idx]`` over hist_idx and cand_idx), a copy
+    to hold the port's (from the unique articles) against and to time."""
+    from ebnerd_tpu_torch.training.sparse_embed import bucket_size
+
+    idx = np.concatenate([np.asarray(raw["hist_idx"]).ravel(), np.asarray(raw["cand_idx"]).ravel()])
+    seen = np.zeros(vocab_size, dtype=bool)
+    for name in names:
+        seen[host_tables[name][idx].ravel()] = True
+    uniq = np.flatnonzero(seen).astype(np.int32)
+    uniq_pad = np.zeros(bucket_size(len(uniq), min_bucket), np.int32)
+    uniq_pad[: len(uniq)] = uniq
+    valid = np.zeros(len(uniq_pad), np.float32)
+    valid[: len(uniq)] = 1.0
+    remap = np.zeros(vocab_size, np.int32)
+    remap[uniq] = np.arange(len(uniq), dtype=np.int32)
+    return dict(raw, emb_uniq=uniq_pad, emb_valid=valid, emb_remap=remap)
+
+
+def full_width_model():
+    """The NRMS step's model, seed 0, the word table scaled to unit size (at
+    bench.py's init the gradients are all ~0: loss = ln 5)."""
+    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS
+
+    model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
+                 dtype=torch.bfloat16, use_fused_encoder=True, device=DEV, seed=0)
+    with torch.no_grad():
+        model.word_embedding.embedding.mul_(EMB_SCALE)
+    return model
+
+
+def full_width_trainer(table, sparse=False, mu_dtype=None):
+    """``full_width_model`` and its Trainer at the step's settings, dense or
+    row-sparse, fp32 or bf16 Adam first moment."""
+    from ebnerd_tpu_torch.models import token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    return Trainer(full_width_model(), {"title": table}, token_batch,
+                   TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True,
+                                 sparse_embedding=sparse, adam_mu_dtype=mu_dtype), device=DEV)
+
+
+K12 = ("news_encoder_fwd", "news_encoder_bwd", "news_encoder_bwd_block", "news_encoder_bwd_gemm",
+       "news_encoder_bwd_reduce", "news_encoder_bwd_mask")
+
+
+def sparse_full_width(table, raws, preps, training):
+    """The row-sparse word-table updates at the NRMS step's full width
+    (``training``: the staged dense step's record; ``raws`` its index
+    batches, ``preps`` the same after the host dedup): the host prep timed
+    (the port's from the unique articles, bit-equal to the JAX function's
+    every-slot version, which is timed too; then the dedup); step 1 from one
+    init and one seed against the dense step (losses, the touched rows, every
+    untouched row bit-equal, the other parameters); 3 sparse steps counted
+    (launches as the staged step's) and 5 timed; then a fresh dense trainer
+    from the same init alone: its first 4 losses (for the bf16-moment phase)
+    and 5 steps timed. Each trainer's peak memory is taken with it alone on
+    the card. Returns its record."""
+    from ebnerd_tpu_torch.training import prep_dedup_batch
+    from ebnerd_tpu_torch.training.sparse_embed import prep_sparse_batch
+
+    dense, sparse = full_width_trainer(table), full_width_trainer(table, sparse=True)
+    host, names = sparse._host_tables, sparse._sparse_tables
+    check(names == ("title",) and sparse._vocab_size == VOCAB, f"sparse tables {names}")
+    t_sparse, t_every, t_dedup, sp_raws = [], [], [], []
+    for i, raw in enumerate(raws):
+        t0 = time.perf_counter()
+        p = prep_sparse_batch(raw, host, names, VOCAB, sparse.config.sparse_min_bucket)
+        t1 = time.perf_counter()
+        if i < 3:  # the every-slot version: bit-equal, and its time
+            ref = prep_sparse_every_slot(raw, host, names, VOCAB, sparse.config.sparse_min_bucket)
+            t_every.append(time.perf_counter() - t1)
+            for k in ("emb_uniq", "emb_valid", "emb_remap"):
+                check(np.array_equal(p[k], ref[k]) and p[k].dtype == ref[k].dtype,
+                      f"sparse prep {k} differs from the every-slot version")
+        t2 = time.perf_counter()
+        sp_raws.append(prep_dedup_batch(p, min_bucket=512))
+        t_sparse.append(t1 - t0)
+        t_dedup.append(time.perf_counter() - t2)
+    rows = [int(p["emb_valid"].sum()) for p in sp_raws]
+    buckets = sorted({int(p["emb_uniq"].shape[0]) for p in sp_raws})
+    staged_s = [sparse.prepare(p) for p in sp_raws]
+    staged_d = [dense.prepare(p) for p in preps]
+    torch.cuda.synchronize()
+
+    # 1. step 1 from one init and one seed: sparse against dense
+    table0 = dense.model.word_embedding.embedding.detach().clone()
+    check(torch.equal(table0, sparse.model.word_embedding.embedding), "the two inits differ")
+    loss_d, loss_s = dense.step(staged_d[0]).item(), sparse.step(staged_s[0]).item()
+    td, ts = dense.model.word_embedding.embedding.detach(), sparse._emb_table
+    touched = staged_s[0]["emb_uniq"]
+    is_touched = torch.zeros(VOCAB, dtype=torch.bool, device=DEV)
+    is_touched[touched] = True
+    moved_d = (td != table0).any(1)
+    untouched_equal = (not bool((ts != td).any(1)[~is_touched].any())
+                       and not bool((ts != table0).any(1)[~is_touched].any())
+                       and not bool(moved_d[~is_touched].any()))
+    touched_err = (ts[touched] - td[touched]).abs().max().item()
+    sd_d, sd_s = dense.model.state_dict(), sparse.model.state_dict()
+    rest = {k: (sd_s[k] - sd_d[k]).abs().max().item() for k in sd_d
+            if k != "word_embedding.embedding"}
+    worst = max(rest, key=rest.get)
+    m_err = (sparse._emb_m[touched]
+             - dense.optimizer.state[dense.model.word_embedding.embedding]["exp_avg"][touched]
+             ).abs().max().item()
+    print(f"[sparse] step 1 against the dense step (one init, one seed, kernels on): loss "
+          f"{loss_s:.6f} vs {loss_d:.6f} (|d| {abs(loss_s - loss_d):.1e}); {rows[0]:,} touched "
+          f"rows max|d| {touched_err:.3e} ({int(moved_d.sum()):,} rows moved by the dense step), "
+          f"first moment max|d| {m_err:.3e}; untouched rows bit-equal to the dense step's and to "
+          f"the init: {untouched_equal}; other parameters max|d| {rest[worst]:.3e} ({worst})",
+          flush=True)
+    check(math.isfinite(loss_s) and abs(loss_s - loss_d) <= 1e-6 * max(1.0, abs(loss_d)),
+          f"sparse step 1 loss {loss_s}, dense {loss_d}")
+    check(untouched_equal, "a row the batch did not touch differs from the dense step's")
+    check(touched_err <= SMALL_PARAM_ATOL and m_err <= SMALL_PARAM_ATOL,
+          f"touched rows differ from the dense step's by {touched_err} (moments {m_err})")
+    check(rest[worst] <= SMALL_PARAM_ATOL, f"sparse step 1: {worst} differs by {rest[worst]}")
+    del table0, is_touched, moved_d, sd_d, sd_s, td, ts, touched, dense
+    torch.cuda.empty_cache()
+
+    # 2. the sparse path, counted: TRAIN_STEPS steps
+    losses, per_step = [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        reset_counts()
+        losses.append(sparse.step(staged_s[i]).item())
+        per_step.append(read_counts())
+    staged_step = training["launches_per_step"][0]
+    for c in per_step:
+        check(all(c[k] == staged_step[k] for k in K12),
+              f"a sparse step launched {c}; the staged dense step {staged_step}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite sparse losses {losses}")
+    counts = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    check(sparse._emb_table.grad is None, "the sparse mode made a dense table gradient")
+
+    # 3. warm steps, host clock, synchronised
+    dt_s = timed_steps(sparse, staged_s, 1 + TRAIN_STEPS, WARM_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del sparse, staged_s
+    torch.cuda.empty_cache()
+
+    # 4. the dense step from the same init, alone: its losses (for the
+    # bf16-moment phase) and its warm steps
+    dense = full_width_trainer(table)
+    dense_losses = [dense.step(staged_d[i]).item() for i in range(1 + TRAIN_STEPS)]
+    check(dense_losses[0] == loss_d, f"a fresh dense step 1 gave {dense_losses[0]}, not {loss_d}")
+    dt_d = timed_steps(dense, staged_d, 1 + TRAIN_STEPS, WARM_STEPS)
+    dense_peak = torch.cuda.max_memory_allocated() / 1e9
+    del dense, staged_d
+    torch.cuda.empty_cache()
+    step_ms, dense_ms = dt_s / WARM_STEPS * 1e3, dt_d / WARM_STEPS * 1e3
+    ms = lambda v: float(np.mean(v) * 1e3)
+    rec = {"loss_sparse": loss_s, "loss_dense": loss_d, "touched_rows_first": rows[0],
+           "touched_rows": rows, "buckets": buckets, "max_abs_touched_rows_diff": touched_err,
+           "max_abs_first_moment_diff": m_err, "untouched_bit_equal": untouched_equal,
+           "max_abs_other_param_diff": rest, "losses": losses, "launches_per_step": per_step,
+           "launches": counts, "step_ms": step_ms, "impressions_per_s": TRAIN_BS / step_ms * 1e3,
+           "peak_mem_gb": peak, "dense_step_ms": dense_ms,
+           "dense_impressions_per_s": TRAIN_BS / dense_ms * 1e3, "dense_peak_mem_gb": dense_peak,
+           "dense_losses": dense_losses, "host_sparse_prep_ms": ms(t_sparse),
+           "host_sparse_prep_every_slot_ms": ms(t_every), "host_dedup_ms": ms(t_dedup),
+           "staged_dense_step_ms": training["step_ms"]}
+    print(f"[sparse] {TRAIN_STEPS} steps: losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"launches per step {per_step[0]} (the staged dense step's)", flush=True)
+    print(f"[sparse] warm: {step_ms:.2f} ms/step, {rec['impressions_per_s']:,.0f} impressions/s, "
+          f"peak {peak:.2f} GB; the dense step of the same init {dense_ms:.2f} ms, "
+          f"{rec['dense_impressions_per_s']:,.0f} impressions/s, peak {dense_peak:.2f} GB; touched "
+          f"rows {min(rows):,}-{max(rows):,} (first {rows[0]:,}; host arrays padded to buckets "
+          f"{buckets}, the card takes the valid count); host prep "
+          f"per batch: sparse {rec['host_sparse_prep_ms']:.2f} ms from the unique articles "
+          f"({rec['host_sparse_prep_every_slot_ms']:.2f} ms from every slot, as the JAX function "
+          f"reads them; bit-equal), then dedup {rec['host_dedup_ms']:.2f} ms", flush=True)
+    return rec
+
+
+def mu_bf16_full_width(table, preps, dense_losses, peaks):
+    """``adam_mu_dtype="bfloat16"`` on the dense NRMS step at full width, from
+    the sparse phase's init and seed: the first TRAIN_STEPS + 1 losses
+    against the fp32-moment run's (``dense_losses``); one parameter's
+    (``MU_CHECK_PARAM``) stored first moment bit-equal, and its value within
+    1e-3 lr, to the same Adam replayed on the CPU from the card's gradients
+    (the CPU tests hold that Adam to optax's); 5 warm steps timed, then the
+    optimizer alone (its ``step`` on the last gradients) against
+    ``torch.optim.Adam`` over the same parameters. Returns its record."""
+    from ebnerd_tpu_torch.training.adam import Adam
+
+    tr = full_width_trainer(table, mu_dtype="bfloat16")
+    check(type(tr.optimizer) is Adam and tr.optimizer.mu_dtype is torch.bfloat16,
+          f"optimizer {type(tr.optimizer)}")
+    staged = [tr.prepare(p) for p in preps]
+    watched = dict(tr.model.named_parameters())[MU_CHECK_PARAM]
+    p0, grads, losses = watched.detach().cpu().clone(), [], []
+    for i in range(1 + TRAIN_STEPS):
+        losses.append(tr.step(staged[i]).item())
+        grads.append(watched.grad.detach().cpu().clone())
+    diffs = [abs(a - b) for a, b in zip(losses, dense_losses)]
+    spread = max(dense_losses) - min(dense_losses)
+    check(diffs[0] <= 1e-6 * max(1.0, abs(dense_losses[0])),
+          f"bf16-moment step 1 loss {losses[0]} != {dense_losses[0]} (no update has run yet)")
+    check(all(math.isfinite(v) for v in losses) and max(diffs) <= MU_LOSS_TOL,
+          f"bf16-moment losses {losses} against fp32-moment {dense_losses} (tol {MU_LOSS_TOL})")
+    # the CPU replay of the same updates, and a wrong one (b1 * m rounded in fp32)
+    replay = torch.nn.Parameter(p0.clone())
+    opt = Adam([replay], lr=LR, betas=(0.9, 0.999), eps=1e-8, mu_dtype="bfloat16")
+    m_wrong = torch.zeros_like(p0, dtype=torch.bfloat16)
+    for g in grads:
+        replay.grad = g
+        opt.step()
+        m_wrong = (g * (1 - 0.9) + m_wrong.float() * 0.9).to(torch.bfloat16)
+    m_card = tr.optimizer.state[watched]["exp_avg"].cpu()
+    m_replay = opt.state[replay]["exp_avg"]
+    m_mismatch = int((m_card.view(torch.int16) != m_replay.view(torch.int16)).sum())
+    wrong_differs = int((m_wrong.view(torch.int16) != m_replay.view(torch.int16)).sum())
+    p_err = (watched.detach().cpu() - replay.detach()).abs().max().item()
+    print(f"[mu-bf16] {MU_CHECK_PARAM} {tuple(p0.shape)} after {len(grads)} updates against the "
+          f"CPU replay from the card's gradients: stored first moment {m_mismatch} elements differ "
+          f"(an Adam rounding b1 * m in fp32 would differ in {wrong_differs}), parameter max|d| "
+          f"{p_err:.3e}", flush=True)
+    check(m_card.dtype == torch.bfloat16 and m_mismatch == 0,
+          f"bf16 first moment of {MU_CHECK_PARAM}: {m_mismatch} elements differ from the replay")
+    check(p_err <= 1e-3 * LR, f"{MU_CHECK_PARAM} differs from the replay by {p_err}")
+    dt = timed_steps(tr, staged, 1 + TRAIN_STEPS, WARM_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m_dtypes = {str(s["exp_avg"].dtype) for s in tr.optimizer.state.values()}
+    check(m_dtypes == {"torch.bfloat16"}, f"first moments {m_dtypes}")
+    opt_ms = time_ms(tr.optimizer.step, 10)
+    ref = torch.optim.Adam(tr.model.parameters(), lr=LR, betas=(0.9, 0.999), eps=1e-8)
+    ref_ms = time_ms(ref.step, 10)
+    n = sum(p.numel() for p in tr.model.parameters())
+    del tr, staged, ref
+    torch.cuda.empty_cache()
+    # bytes once: p, g, v fp32 read, m bf16 read; p, v fp32, m bf16 written
+    bound_ms = n * (3 * 4 + 2 + 2 * 4 + 2) / peaks[2] * 1e3
+    ref_bound_ms = n * (4 * 4 + 3 * 4) / peaks[2] * 1e3
+    step_ms = dt / WARM_STEPS * 1e3
+    rec = {"losses": losses, "fp32_moment_losses": dense_losses, "loss_diffs": diffs,
+           "fp32_moment_loss_spread": spread, "loss_tol": MU_LOSS_TOL,
+           "replay_moment_mismatches": m_mismatch, "replay_wrong_moment_differs": wrong_differs,
+           "replay_param_max_abs_diff": p_err, "step_ms": step_ms,
+           "impressions_per_s": TRAIN_BS / step_ms * 1e3, "peak_mem_gb": peak,
+           "optimizer_ms": opt_ms, "torch_adam_ms": ref_ms, "optimizer_bound_ms": bound_ms,
+           "torch_adam_bound_ms": ref_bound_ms, "params": n}
+    print(f"[mu-bf16] dense step, bf16 Adam first moment: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)} against the fp32 moment's "
+          f"{', '.join(f'{v:.6f}' for v in dense_losses)} (max|d| {max(diffs):.2e}; the fp32 "
+          f"run's own spread {spread:.2e}); warm {step_ms:.2f} ms/step, "
+          f"{rec['impressions_per_s']:,.0f} impressions/s, peak {peak:.2f} GB; the optimizer "
+          f"alone {opt_ms:.3f} ms (bytes bound {bound_ms:.3f}) against torch.optim.Adam "
+          f"{ref_ms:.3f} ms (bound {ref_bound_ms:.3f}) over {n:,} parameters", flush=True)
+    return rec
+
+
+def embed_grad_table():
+    """The word table's gradient-and-optimizer slab per strategy
+    (``tools/embed_grad.py``: dense, dense with the bf16 first moment, host
+    dedup with the row-wise Adam) at batch 512 and 16,384, uniform and
+    Zipf(1.07) tokens: every time finite, hostdedup touching the dense
+    strategies' rows. Returns the tool's record."""
+    import gc
+
+    from ebnerd_tpu_torch.tools import embed_grad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[embed_grad] {torch.cuda.memory_allocated() / 1e9:.2f} GB held by this process, "
+          f"{free / 1e9:.1f} of {total / 1e9:.1f} GB free", flush=True)
+    out = embed_grad.run((512, TRAIN_BS), iters=10, log=lambda line: print(line, flush=True))
+    by = {(c["batch"], c["dist"], c["strategy"]): c for c in out["cases"]}
+    check(len(by) == 12 and all(math.isfinite(c["ms"]) and c["ms"] > 0 for c in by.values()),
+          f"embed_grad cases {sorted(by)}")
+    for (bs, dist, strategy), c in by.items():
+        check(c["rows"] == by[bs, dist, "dense"]["rows"],
+              f"embed_grad {bs} {dist}: {strategy} rows {c['rows']}")
+    return out
+
+
 def train_table(n_imp, n_art, seed):
     """bench.py's draws as a behaviors table, built with Ragged.from_lengths:
     Zipf(1.07) history (H articles) and candidates (npratio + 1, the
@@ -1204,16 +1503,17 @@ def val_table(n_imp, n_art, seed, n_users=0):
     return Table(cols)
 
 
-def fit_full_width(training):
+def fit_full_width(training, sparse=False):
     """``Trainer.fit`` at the full width of the NRMS step (``training``: the
-    staged step's record): FIT_EPOCHS epochs of FIT_STEPS steps from a
-    NewsrecFeed, host dedup on the prefetch thread (prefetch 2), validation
-    on FIT_VAL_IMP impressions after each epoch, the best weights restored
-    at the end. Returns its record."""
+    staged step's record, dense or sparse as the fit): FIT_EPOCHS epochs of
+    FIT_STEPS steps from a NewsrecFeed, host prep on the prefetch thread
+    (prefetch 2; ``sparse``: the row-sparse mode's vocabulary rows, then the
+    dedup), validation on FIT_VAL_IMP impressions after each epoch, the best
+    weights restored at the end. Returns its record."""
     from ebnerd_tpu_torch import constants as c
     from ebnerd_tpu_torch.bench import token_table
     from ebnerd_tpu_torch.data import EvalFeed, Lookup, NewsrecFeed
-    from ebnerd_tpu_torch.models import NRMS, HParamsNRMS, token_batch
+    from ebnerd_tpu_torch.models import token_batch
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
     from ebnerd_tpu_torch.training import trainer as trainer_module
 
@@ -1226,22 +1526,17 @@ def fit_full_width(training):
     val_feed, val_labels = EvalFeed(val, lookup, history_size=H, batch_size=BATCH), val[
         c.DEFAULT_LABELS_COL]
 
-    def make_model():
-        model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
-                     dtype=torch.bfloat16, use_fused_encoder=True, device=DEV, seed=0)
-        with torch.no_grad():  # unit-scale embeddings, as the training phase
-            model.word_embedding.embedding.mul_(EMB_SCALE)
-        return model
-
-    cfg = TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True, prefetch=2)
-    trainer = Trainer(make_model(), {"title": lookup.matrix}, token_batch, cfg, device=DEV,
-                      log_fn=lambda m: print(f"[fit] {m}", flush=True))
+    tag = "[sparse-fit]" if sparse else "[fit]"
+    cfg = TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True, prefetch=2,
+                        sparse_embedding=sparse)
+    trainer = Trainer(full_width_model(), {"title": lookup.matrix}, token_batch, cfg, device=DEV,
+                      log_fn=lambda m: print(f"{tag} {m}", flush=True))
     t_setup = time.perf_counter() - t_setup
 
     # instrument the run: the epochs' steps (synchronised at their end), the
     # val scoring, the host dedup on the prefetch thread, each step's launches
     # and the best-weight snapshot fit restores
-    timing = {"train_s": [], "score_s": [], "dedup_s": []}
+    timing = {"train_s": [], "score_s": [], "dedup_s": [], "sparse_s": []}
     per_step, best = [], []
     run_epoch, score, step, snapshot = (trainer._run_epoch, trainer.score, trainer.step,
                                         trainer._snapshot)
@@ -1271,13 +1566,13 @@ def fit_full_width(training):
         best[:] = [snapshot()]
         return best[0]
 
-    dedup = trainer_module.prep_dedup_batch
-
-    def timed_dedup(*a, **kw):
-        t0 = time.perf_counter()
-        out = dedup(*a, **kw)
-        timing["dedup_s"].append(time.perf_counter() - t0)
-        return out
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            timing[key].append(time.perf_counter() - t0)
+            return out
+        return run
 
     trainer._run_epoch, trainer.score, trainer.step = timed_epoch, timed_score, counted_step
     trainer._snapshot = kept_snapshot
@@ -1286,7 +1581,10 @@ def fit_full_width(training):
     # the main path, counted
     reset_counts()
     t0 = time.perf_counter()
-    with mock.patch.object(trainer_module, "prep_dedup_batch", timed_dedup):
+    with mock.patch.multiple(trainer_module,
+                             prep_dedup_batch=timed(trainer_module.prep_dedup_batch, "dedup_s"),
+                             prep_sparse_batch=timed(trainer_module.prep_sparse_batch,
+                                                     "sparse_s")):
         history = trainer.fit(train_feed, val_feed, val_labels, epochs=FIT_EPOCHS,
                               steps_per_epoch=FIT_STEPS)
     torch.cuda.synchronize()
@@ -1294,6 +1592,9 @@ def fit_full_width(training):
     counts = read_counts()
     trainer._run_epoch, trainer.score, trainer.step, trainer._snapshot = (run_epoch, score, step,
                                                                           snapshot)
+    check(len(timing["sparse_s"]) == (len(timing["dedup_s"]) if sparse else 0),
+          f"{tag} host prep calls: {len(timing['sparse_s'])} sparse, "
+          f"{len(timing['dedup_s'])} dedup")
 
     n_steps = FIT_EPOCHS * FIT_STEPS
     check(len(history) == FIT_EPOCHS and len(per_step) == n_steps,
@@ -1314,7 +1615,7 @@ def fit_full_width(training):
           "two-tower val scores: shape or non-finite values")
     check(tt_err <= SCORE_ATOL, f"val scores: two-tower vs full forward differ by {tt_err}")
     # the restored best weights score as a fresh model loaded with the snapshot
-    fresh = make_model()
+    fresh = full_width_model()
     fresh.load_state_dict(best[0])
     restored_equal = bool(np.array_equal(
         Trainer(fresh, {"title": lookup.matrix}, token_batch, cfg, device=DEV).score(val_feed).values,
@@ -1323,6 +1624,8 @@ def fit_full_width(training):
     del fresh, best
 
     train_s, dedup_ms = sum(timing["train_s"]), float(np.mean(timing["dedup_s"]) * 1e3)
+    sparse_ms = float(np.mean(timing["sparse_s"]) * 1e3) if sparse else 0.0
+    host_ms = sparse_ms + dedup_ms
     step_ms = train_s / n_steps * 1e3
     ips = TRAIN_BS * n_steps / train_s
     rec = {"epochs": FIT_EPOCHS, "steps_per_epoch": FIT_STEPS, "batch": TRAIN_BS, "prefetch": 2,
@@ -1333,16 +1636,18 @@ def fit_full_width(training):
            "impressions_per_s_epoch": [TRAIN_BS * FIT_STEPS / t for t in timing["train_s"]],
            "staged_impressions_per_s": training["impressions_per_s"],
            "staged_step_ms": training["step_ms"], "host_dedup_ms": dedup_ms,
-           "dedup_batches": len(timing["dedup_s"]),
-           "bound_by": "host dedup" if dedup_ms >= training["step_ms"] else "device step",
+           "host_sparse_prep_ms": sparse_ms, "host_prep_ms": host_ms,
+           "dedup_batches": len(timing["dedup_s"]), "sparse": sparse,
+           "bound_by": "host prep" if host_ms >= training["step_ms"] else "device step",
            "max_abs_score_diff_two_tower_vs_full": tt_err, "restored_best_equal": restored_equal}
-    print(f"[fit] {FIT_EPOCHS} epochs x {FIT_STEPS} steps of {TRAIN_BS}: losses "
+    print(f"{tag} {FIT_EPOCHS} epochs x {FIT_STEPS} steps of {TRAIN_BS}: losses "
           f"{', '.join(f'{h['loss']:.6f}' for h in history)}, val AUC "
           f"{', '.join(f'{h['val_auc']:.6f}' for h in history)}; training "
           f"{ips:,.0f} impressions/s ({step_ms:.2f} ms/step; per epoch "
           f"{', '.join(f'{v:,.0f}' for v in rec['impressions_per_s_epoch'])}) against the staged "
           f"step's {training['impressions_per_s']:,.0f} ({training['step_ms']:.2f} ms); host "
-          f"dedup {dedup_ms:.2f} ms per batch on the prefetch thread: bound by the "
+          f"prep {host_ms:.2f} ms per batch on the prefetch thread (sparse {sparse_ms:.2f}, dedup "
+          f"{dedup_ms:.2f}): bound by the "
           f"{rec['bound_by']}; val scoring {', '.join(f'{v:.3f}' for v in timing['score_s'])} s; "
           f"launches per step {per_step[0]}; two-tower vs full forward max|d|={tt_err:.3e}; "
           f"restored best weights score as a fresh model loaded with them: {restored_equal}",
@@ -1949,10 +2254,27 @@ def cli_phase(staged_step, naml_step):
           and trainer.tables["body"].shape[1] == 40,
           f"cli naml: tables {naml['tables']}")
     del trainer
+    # the row-sparse word table through the CLI: NRMS on K1/K2, NAML (title and body
+    # through the shared table) on K3
+    nrms_sp, trainer = cli_run("nrms_sparse", ["--model", "nrms", "--synthetic",
+                                               "--use_fused_encoder", "--dtype", "bfloat16",
+                                               "--sparse_embedding", "--epochs", "1", "--out_dir",
+                                               str(build / "cli_nrms_sparse")], staged_step, k12)
+    check(trainer._sparse and trainer.model.word_embedding.embedding.grad is None,
+          "cli nrms_sparse: the trainer is not sparse or made a dense table gradient")
+    del trainer
+    naml_sp, trainer = cli_run("naml_sparse", ["--model", "naml", "--synthetic", "--prng_dropout",
+                                               "--dtype", "bfloat16", "--sparse_embedding",
+                                               "--epochs", "1", "--out_dir",
+                                               str(build / "cli_naml_sparse")], naml_step, k12)
+    check(trainer._sparse_tables == ("title", "body"),
+          f"cli naml_sparse: sparse tables {trainer._sparse_tables}")
+    del trainer
     for d in build.glob("cli_*"):
         shutil.rmtree(d)
     torch.cuda.empty_cache()
-    return {"nrms": nrms, "naml": naml, "host_data": host_data_path()}
+    return {"nrms": nrms, "naml": naml, "nrms_sparse": nrms_sp, "naml_sparse": naml_sp,
+            "host_data": host_data_path()}
 
 
 def host_data_path():
@@ -2036,7 +2358,7 @@ def main(argv=None) -> int:
         for line in lines:
             print(f"[build] {name}: {line}", flush=True)
 
-    table, preps, prep_ms = training_data()
+    table, raws, preps, prep_ms = training_data()
     bucket, n_uniq = int(preps[0]["art_uniq"].shape[0]), int(preps[0]["n_uniq"])
     print(f"[data] first training batch: {n_uniq} unique articles in a bucket of {bucket}; "
           f"host dedup {prep_ms:.2f} ms per batch", flush=True)
@@ -2129,8 +2451,11 @@ def main(argv=None) -> int:
                                    by["bwd_bf16_train_news"]["ms"], by["bwd_bf16_train_user"]["ms"],
                                    {"news": blocks[0]["ms"], "user": blocks[1]["ms"]})
     record["training"] = training
-    del table, preps
+    record["sparse"] = sparse_full_width(table, raws, preps, training)
+    record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
+    del table, raws, preps
     record["fit"] = fit_full_width(training)
+    record["sparse_fit"] = fit_full_width(record["sparse"], sparse=True)
     record["small_fit_resume"] = small_fit_resume()
 
     record["k3_checks"] = k3_checks(gen)
@@ -2154,20 +2479,24 @@ def main(argv=None) -> int:
     record.update(fam)
     record["fastformer_wu"] = fastformer_wu_check()
     record["cli"] = cli_phase(training["launches_per_step"][0], fam["naml"]["launches_per_step"][0])
+    record["embed_grad"] = embed_grad_table()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
+    sp_l = record["sparse"]["launches"]
     cli_l = {k: v["launches"] for k, v in record["cli"].items() if k != "host_data"}
     k1, k2, k2b = by["bf16_train_news"], by["bwd_bf16_train_news"], blocks[0]
     gem = {c["case"]: c for c in gemms}
     kernels = {"kernels": [
         dict({"name": "news_encoder_fwd", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder.cu",
-              "replaces": "ebnerd_tpu/ops/news_encoder.py:231",
+              "replaces": "ebnerd_tpu/ops/news_encoder.py:234",
               "launches": main_l["news_encoder_fwd"],
               "launches_serving": serving["launches_article_tower"] + serving["launches_user_tower"],
               "launches_fit": record["fit"]["launches"]["news_encoder_fwd"],
               "launches_cli": cli_l["nrms"]["news_encoder_fwd"],
+              "launches_sparse": sp_l["news_encoder_fwd"],
+              "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_fwd"],
               "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
                       "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
                       "and external-mask dropout; timed at the training step's news-tower shape; "
@@ -2180,6 +2509,8 @@ def main(argv=None) -> int:
               "launches": main_l["news_encoder_bwd"],
               "launches_fit": record["fit"]["launches"]["news_encoder_bwd"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd"],
+              "launches_sparse": sp_l["news_encoder_bwd"],
+              "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd"],
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
@@ -2189,6 +2520,8 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_block"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_block"],
+              "launches_sparse": sp_l["news_encoder_bwd_block"],
+              "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_block"],
               "note": "K2's per-block recompute kernel alone (QKV stage on TMA-fed wgmma, "
                       "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
                       "of its QKV product alone",
@@ -2199,6 +2532,8 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_gemm"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_gemm"],
+              "launches_sparse": sp_l["news_encoder_bwd_gemm"],
+              "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_gemm"],
               "note": "dx and the row-reduced weight-gradient products of K2; the top-level "
                       "numbers are dWqkv at the news shape with the stream-0 mask (cases: the "
                       "six products of the NRMS step, and ragged shapes, untimed)",
@@ -2209,6 +2544,8 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_reduce"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_reduce"],
+              "launches_sparse": sp_l["news_encoder_bwd_reduce"],
+              "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_reduce"],
               "note": "fixed-order sum of K2's partials; the top-level numbers are the news "
                       "tower's dWqkv slices (cases: every partial shape of the NRMS step)",
               "checked": True}, **{k: reds[0][k] for k in keys},
@@ -2218,6 +2555,8 @@ def main(argv=None) -> int:
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
               "launches": main_l["news_encoder_bwd_mask"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_mask"],
+              "launches_sparse": sp_l["news_encoder_bwd_mask"],
+              "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_mask"],
               "note": "the stream-0 (embedding) mask drawn once per step for dx and dWqkv: "
                       "round(x * mask) and keep bits; timed at the news tower's shape",
               "checked": True}, **{k: masks[0][k] for k in keys},
@@ -2235,6 +2574,7 @@ def main(argv=None) -> int:
               "launches_npa": fam["npa"]["launches"],
               "launches_fastformer": fam["fastformer"]["launches"],
               "launches_cli_naml": cli_l["naml"]["prng_dropout"],
+              "launches_cli_naml_sparse": cli_l["naml_sparse"]["prng_dropout"],
               "note": "seed-recompute dropout; timed at the title-embedding shape [bucket, 30, 1024] "
                       "bf16 (cases: every dropout shape of LSTUR, NAML, NPA and Fastformer, in the "
                       "dtype each step gives it); library_ms is F.dropout's forward, which draws "

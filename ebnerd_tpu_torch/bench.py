@@ -8,6 +8,11 @@ attention 200, a 250,002 x 1,024 word table), token table resident on the
 card, bf16 compute with fp32 parameters, the fused news encoder (forward
 and recompute backward on the port's CUDA kernels), dropout 0.2 from the
 kernel's Philox masks, unique-article dedup, dense Adam at lr 1e-4.
+``BENCH_SPARSE=1`` takes the row-sparse word-table updates instead
+(``training/sparse_embed.py``; each staged step carries its own touched
+rows, cut to their count), ``BENCH_MU_DTYPE=bfloat16`` keeps Adam's
+first moment in bf16 (``training/adam.py``); both apply to every family
+with a word table.
 ``BENCH_MODEL=lstur`` or ``naml`` runs that family at the configuration of
 ``profile_models.py`` with ``PM_BS=4096 PM_PRNGDROP=1``: the same table,
 25,001 articles, body 40 (NAML), filter 400, window 3, attention 200, GRU
@@ -25,7 +30,9 @@ prefetch thread provides in production).
 
 Prints ONE JSON line with the keys of ``bench.py`` except ``vs_baseline``
 and ``vs_gpu_estimate``: metric, value, unit, mfu_pct, step_ms, config,
-dedup_uniq_frac, prep_ms, sparse_rows. ``mfu_pct`` is ``bench.py``'s
+dedup_uniq_frac, prep_ms (host sparse and dedup prep per batch),
+sparse_rows (the first batch's touched word rows; 0 when dense) and
+peak_gb. ``mfu_pct`` is ``bench.py``'s
 dedup-aware analytic FLOPs over the card's own dense bf16 peak, taken from
 its name; the other families have no analytic FLOP count in the JAX
 package, so their line has no ``mfu_pct``.
@@ -35,9 +42,9 @@ for LSTUR and NAML), BENCH_STEPS (30), BENCH_WARMUP (5), BENCH_DTYPE
 (float32 for fp32 compute), BENCH_FUSED (0 = unfused layers; NRMS),
 BENCH_PRNGDROP (0 = generator-seeded dropout; LSTUR, NAML, NPA, Fastformer),
 BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
-uniform), BENCH_DEDUP (0 = per slot). BENCH_SPARSE and BENCH_MU_DTYPE raise
-(ROADMAP A12, A3); BENCH_FUSED_BLOCK is a TPU block size and does not
-apply.
+uniform), BENCH_DEDUP (0 = per slot), BENCH_SPARSE (1 = row-sparse word
+table), BENCH_MU_DTYPE (bfloat16 = a bf16 Adam first moment).
+BENCH_FUSED_BLOCK is a TPU block size and does not apply.
 
 Run: python -m ebnerd_tpu_torch.bench
 """
@@ -179,13 +186,20 @@ def make_family(name: str, dtype: torch.dtype, dropout: float, token_dist: str =
     raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
 
 
-def main() -> int:
-    from .training import Trainer, TrainerConfig, prep_dedup_batch
+def optimizer_knobs(env=os.environ) -> tuple[bool, object]:
+    """(sparse, mu_dtype) from BENCH_SPARSE and BENCH_MU_DTYPE; a dtype name
+    the hand-written Adam does not take raises."""
+    from .training.adam import mu_dtype_of
 
-    if os.environ.get("BENCH_SPARSE", "0") != "0":
-        raise NotImplementedError("row-sparse embeddings are not ported yet (ROADMAP A12)")
-    if os.environ.get("BENCH_MU_DTYPE"):
-        raise NotImplementedError("a bf16 Adam first moment is not ported yet (ROADMAP A3)")
+    mu_dtype = env.get("BENCH_MU_DTYPE") or None
+    mu_dtype_of(mu_dtype)
+    return env.get("BENCH_SPARSE", "0") != "0", mu_dtype
+
+
+def main() -> int:
+    from .training import Trainer, TrainerConfig
+
+    sparse, mu_dtype = optimizer_knobs()
     name = os.environ.get("BENCH_MODEL", "nrms").lower()
     if name not in FAMILIES:
         raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
@@ -205,17 +219,17 @@ def main() -> int:
 
     model, tables, builder, n_users = make_family(name, dtype, dropout, token_dist, fused, prng)
     trainer = Trainer(model, tables, builder,
-                      TrainerConfig(learning_rate=1e-4, seed=0, dedup_articles=dedup),
+                      TrainerConfig(learning_rate=1e-4, seed=0, dedup_articles=dedup,
+                                    sparse_embedding=sparse, adam_mu_dtype=mu_dtype),
                       device="cuda")
     all_b = batches(2, warmup + steps, bs, N_ARTICLES + 1, art_dist, n_users)
     raws = [{k: v[i] for k, v in all_b.items()} for i in range(warmup + steps)]
     t_prep = time.perf_counter()
-    uniq_frac = 1.0
-    if dedup:
-        slots = bs * (HISTORY + NPRATIO + 1)
-        raws = [prep_dedup_batch(r, min_bucket=512) for r in raws]
-        uniq_frac = float(np.mean([r["n_uniq"] for r in raws]) / slots)
+    raws = [trainer._prep_host(r) for r in raws]  # the sparse rows, then the dedup
     prep_ms = (time.perf_counter() - t_prep) / (warmup + steps) * 1000
+    sparse_rows = int(raws[0]["emb_valid"].sum()) if sparse else 0
+    uniq_frac = (float(np.mean([r["n_uniq"] for r in raws]) / (bs * (HISTORY + NPRATIO + 1)))
+                 if dedup else 1.0)
     staged = [trainer.prepare(r) for r in raws]
     torch.cuda.synchronize()
 
@@ -223,6 +237,7 @@ def main() -> int:
     for i in range(warmup):
         loss = trainer.step(staged[i])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(warmup, warmup + steps):
         loss = trainer.step(staged[i])
@@ -242,12 +257,14 @@ def main() -> int:
         name, f"prngdrop={int(prng)}")
     out.update({
         "step_ms": round(dt / steps * 1000, 2),
-        "config": (f"{name} bs{bs} {str(dtype).replace('torch.', '')} {variant} sparse=0 "
-                   f"dedup={int(dedup)} tok={token_dist} art={art_dist} steps{steps} "
+        "config": (f"{name} bs{bs} {str(dtype).replace('torch.', '')} {variant} "
+                   f"sparse={int(sparse)} mu={mu_dtype or 'float32'} dedup={int(dedup)} "
+                   f"tok={token_dist} art={art_dist} steps{steps} "
                    f"card={torch.cuda.get_device_name(0)} peak={part}"),
         "dedup_uniq_frac": round(uniq_frac, 4),
         "prep_ms": round(prep_ms, 2),
-        "sparse_rows": 0,
+        "sparse_rows": sparse_rows,
+        "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
     })
     print(json.dumps(out))
     return 0

@@ -154,11 +154,12 @@ class _Encoder(nn.Module):
                             use_kernel=use_kernel, **kw) for _ in range(hp.n_layers))
         self.token_pool = AdditiveAttention(d, d, **kw)
 
-    def _encode(self, tokens: torch.Tensor, pos: torch.Tensor, seed) -> torch.Tensor:
+    def _encode(self, tokens: torch.Tensor, pos: torch.Tensor, seed,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         token_mask = (tokens != 0).to(self.dtype)
         # -1e4 rounded to the compute dtype, as the JAX module makes it
         mask_bias = (1.0 - token_mask) * float(torch.tensor(-1e4, dtype=self.dtype))
-        x = self.embedding_transform(self.word_embedding(tokens))
+        x = self.embedding_transform(self.word_embedding(tokens, rows))
         x = self.emb_drop(self.emb_norm(x + pos.to(x.dtype)), seed, 0)
         for i, layer in enumerate(self.layers):
             x = layer(x, mask_bias, seed, 1 + 2 * i)
@@ -187,9 +188,11 @@ class Fastformer(_Encoder):
         self.output_layer = _normal_dense(2 * d, 1, **kw)
         self.eval()
 
-    def encode_articles(self, tokens: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
-        """tokens [N, T] -> article vectors [N, D] (position 0 on every token)."""
-        return self._encode(tokens, self.position_embedding.embedding[0], seed)
+    def encode_articles(self, tokens: torch.Tensor, seed: Optional[int] = None,
+                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [N, T] -> article vectors [N, D] (position 0 on every token;
+        ``rows``: the row-sparse mode's compact word rows, ``WordEmbed``)."""
+        return self._encode(tokens, self.position_embedding.embedding[0], seed, rows)
 
     def score(self, hist_vecs: torch.Tensor, hist_mask: torch.Tensor,
               cand_vecs: torch.Tensor) -> torch.Tensor:
@@ -199,13 +202,13 @@ class Fastformer(_Encoder):
         return self.output_layer(concat)[..., 0]
 
     def forward(self, batch: dict) -> torch.Tensor:
-        seed = _seed_of(self, batch)
+        seed, rows = _seed_of(self, batch), batch.get("emb_rows")
         if "uniq_tokens" in batch:
             uniq = batch["uniq_tokens"]
-            hist_vecs, cand_vecs = _dedup_gather(self.encode_articles(uniq, seed), batch)
+            hist_vecs, cand_vecs = _dedup_gather(self.encode_articles(uniq, seed, rows), batch)
             hist_mask = (uniq != 0).any(-1)[batch["hist_slot"]]
         else:
-            hist_vecs, cand_vecs = _encode_both(lambda x: self.encode_articles(x, seed),
+            hist_vecs, cand_vecs = _encode_both(lambda x: self.encode_articles(x, seed, rows),
                                                 batch["hist_tokens"], batch["cand_tokens"])
             hist_mask = (batch["hist_tokens"] != 0).any(-1)
         return self.score(hist_vecs, hist_mask.to(self.dtype), cand_vecs)

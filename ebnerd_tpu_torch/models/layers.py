@@ -125,7 +125,12 @@ class WordEmbed(nn.Module):
     table first, without a full-table cast per call. The gather is
     ``F.embedding``, whose backward sums duplicate tokens by sort and
     segment reduction in fp32 (the backward of ``table[tokens]`` serialises
-    the duplicates of Zipf-skewed tokens: 58 ms of a 250 ms H100 step)."""
+    the duplicates of Zipf-skewed tokens: 58 ms of a 250 ms H100 step).
+
+    ``rows`` (the row-sparse mode, ``training/sparse_embed.py``; the JAX
+    module's ``emb_over`` collection) is a compact [C, E] slice of the
+    table: the tokens are then slots into it, and the [V, E] parameter is
+    not read. It is passed per call, never kept."""
 
     def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype,
                  device: torch.device, generator: Optional[torch.Generator] = None):
@@ -134,8 +139,8 @@ class WordEmbed(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features, device=device))
         glorot_(self.embedding, generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding).to(self.dtype)
+    def forward(self, tokens: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return F.embedding(tokens, self.embedding if rows is None else rows).to(self.dtype)
 
     def load_(self, matrix) -> None:
         """Copy a pretrained [V, E] matrix (numpy or a tensor) into the table,

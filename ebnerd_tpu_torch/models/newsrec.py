@@ -203,12 +203,13 @@ class NRMS(nn.Module):
         return out.to(self.dtype)
 
     def encode_news(self, tokens: torch.Tensor, n_valid: Optional[int] = None,
-                    seed: Optional[int] = None,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seed: Optional[int] = None, weights: Optional[torch.Tensor] = None,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [N, T] -> news vectors [N, head_num*head_dim]. In training
         mode with dropout, ``seed`` (64-bit) fixes every mask; ``weights``
-        (dedup path) are the dense stack's BN row weights."""
-        x = self.word_embedding(tokens)
+        (dedup path) are the dense stack's BN row weights; ``rows`` the
+        row-sparse mode's compact word rows (``WordEmbed``)."""
+        x = self.word_embedding(tokens, rows)
         keep = self._keep()
         if keep < 1.0 and seed is None:
             seed = draw_seed()
@@ -234,14 +235,14 @@ class NRMS(nn.Module):
         return self.user_pool(self.user_self_att(hist_vecs, hist_vecs, hist_vecs))
 
     def forward(self, batch: dict) -> torch.Tensor:
-        seed = batch.get("dropout_seed")
+        seed, rows = batch.get("dropout_seed"), batch.get("emb_rows")
         if "uniq_tokens" in batch:
             art = self.encode_news(batch["uniq_tokens"], batch.get("art_n_uniq"), seed,
-                                   batch.get("art_counts"))
+                                   batch.get("art_counts"), rows)
             hist_vecs, cand_vecs = _dedup_gather(art, batch)
         else:
             hist_vecs, cand_vecs = _encode_both(
-                lambda x: self.encode_news(x, seed=seed), batch["hist_tokens"],
+                lambda x: self.encode_news(x, seed=seed, rows=rows), batch["hist_tokens"],
                 batch["cand_tokens"])
         user = self.encode_user(hist_vecs)
         return _dot_scores(cand_vecs, user)
@@ -336,10 +337,11 @@ class LSTUR(nn.Module):
             self.con_dense = Dense(2 * hp.gru_unit, hp.gru_unit, dtype, **kw)
         self.eval()
 
-    def encode_news(self, tokens: torch.Tensor, seed: int) -> torch.Tensor:
-        """tokens [N, T] -> article vectors [N, filter_num]."""
+    def encode_news(self, tokens: torch.Tensor, seed: int,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [N, T] -> article vectors [N, filter_num] (``rows``: as NRMS's)."""
         token_mask = (tokens != 0).to(self.dtype)
-        x = self.drop(self.word_embedding(tokens), seed, 0)
+        x = self.drop(self.word_embedding(tokens, rows), seed, 0)
         x = self.drop(self.conv(x), seed, 1)
         x = x * token_mask[..., None]
         return self.news_pool(x, mask=token_mask)
@@ -353,16 +355,16 @@ class LSTUR(nn.Module):
         return self.con_dense(torch.cat([short_u, long_u.to(short_u.dtype)], -1))
 
     def forward(self, batch: dict) -> torch.Tensor:
-        seed = _seed_of(self, batch)
+        seed, rows = _seed_of(self, batch), batch.get("emb_rows")
         encode = _maybe_remat(self.encode_news, self.remat_encoder)
         if "uniq_tokens" in batch:
-            art = encode(batch["uniq_tokens"], seed)
+            art = encode(batch["uniq_tokens"], seed, rows)
             hist_vecs, cand_vecs = _dedup_gather(art, batch)
             art_mask = (batch["uniq_tokens"] != 0).any(-1)
             hist_mask = art_mask[batch["hist_slot"]].to(self.dtype)
         else:
-            hist_vecs, cand_vecs = _encode_both(lambda x: encode(x, seed), batch["hist_tokens"],
-                                                batch["cand_tokens"])
+            hist_vecs, cand_vecs = _encode_both(lambda x: encode(x, seed, rows),
+                                                batch["hist_tokens"], batch["cand_tokens"])
             hist_mask = (batch["hist_tokens"] != 0).any(-1).to(self.dtype)
         user = self.encode_user(hist_vecs, hist_mask, batch["user_id"])
         return _dot_scores(cand_vecs, user)
@@ -417,26 +419,28 @@ class NPA(nn.Module):
                                                       use_kernel=prng_dropout, **kw)
         self.eval()
 
-    def conv_prefix(self, tokens: torch.Tensor, seed: int) -> torch.Tensor:
-        """The user-independent prefix: tokens [N, T] -> [N, T, filter_num]."""
-        x = self.drop(self.word_embedding(tokens), seed, 0)
+    def conv_prefix(self, tokens: torch.Tensor, seed: int,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The user-independent prefix: tokens [N, T] -> [N, T, filter_num]
+        (``rows``: as NRMS's)."""
+        x = self.drop(self.word_embedding(tokens, rows), seed, 0)
         return self.drop(self.conv(x), seed, 1)
 
     def forward(self, batch: dict) -> torch.Tensor:
-        seed = _seed_of(self, batch)
+        seed, rows = _seed_of(self, batch), batch.get("emb_rows")
         u_emb = self.user_embedding(batch["user_id"]).to(self.dtype)   # [B, U]
         word_q = self.word_query(u_emb)[:, None]                         # [B, 1, A]
         prefix = _maybe_remat(self.conv_prefix, self.remat_encoder)
         pool = self.word_pool
         if "uniq_tokens" in batch:
-            xd = pool.drop_values(prefix(batch["uniq_tokens"], seed), seed, 2)   # [C, T, F]
+            xd = pool.drop_values(prefix(batch["uniq_tokens"], seed, rows), seed, 2)  # [C, T, F]
             (hist_y, cand_y), (hist_p, cand_p) = (_dedup_gather(xd, batch),
                                                   _dedup_gather(pool.project(xd), batch))
         else:
             hist, cand = batch["hist_tokens"], batch["cand_tokens"]
             (b, h), k = hist.shape[:2], cand.shape[1]
             both = torch.cat([hist.reshape(b * h, -1), cand.reshape(b * k, -1)])
-            xd = pool.drop_values(prefix(both, seed), seed, 2)                   # [N, T, F]
+            xd = pool.drop_values(prefix(both, seed, rows), seed, 2)             # [N, T, F]
             proj = pool.project(xd)
             hist_y, cand_y = xd[:b * h].unflatten(0, (b, h)), xd[b * h:].unflatten(0, (b, k))
             hist_p, cand_p = proj[:b * h].unflatten(0, (b, h)), proj[b * h:].unflatten(0, (b, k))
@@ -493,33 +497,34 @@ class NAML(nn.Module):
         self.user_pool = AdditiveAttention(f, a, dtype=dtype, **kw)
         self.eval()
 
-    def _text_view(self, tokens, conv, pool, seed, stream, row0):
-        x = self.drop(self.word_embedding(tokens), seed, stream, row0)
+    def _text_view(self, tokens, conv, pool, seed, stream, row0, rows):
+        x = self.drop(self.word_embedding(tokens, rows), seed, stream, row0)
         return pool(self.drop(conv(x), seed, stream + 1, row0))
 
-    def encode_news(self, title, body, vert, subvert, seed: int, row0: int = 0) -> torch.Tensor:
+    def encode_news(self, title, body, vert, subvert, seed: int, row0: int = 0,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Four views -> [N, filter_num]; ``row0`` is the global row of the
-        first article (chunked encodes)."""
-        title_r = self._text_view(title, self.title_conv, self.title_pool, seed, 0, row0)
-        body_r = self._text_view(body, self.body_conv, self.body_pool, seed, 2, row0)
+        first article (chunked encodes); ``rows``: as NRMS's."""
+        title_r = self._text_view(title, self.title_conv, self.title_pool, seed, 0, row0, rows)
+        body_r = self._text_view(body, self.body_conv, self.body_pool, seed, 2, row0, rows)
         vert_r = F.relu(self.vert_dense(self.vert_embedding(vert).to(self.dtype)))
         subvert_r = F.relu(self.subvert_dense(self.subvert_embedding(subvert).to(self.dtype)))
         return self.view_pool(torch.stack([title_r, body_r, vert_r, subvert_r], dim=-2))
 
-    def _encode_chunked(self, title, body, vert, subvert, seed):
+    def _encode_chunked(self, title, body, vert, subvert, seed, rows=None):
         n, c = self.encode_chunks, title.shape[0]
         if c % n:
             raise ValueError(f"encode_chunks={n} must divide C={c}")
         step = c // n
         encode = _maybe_remat(self.encode_news, self.remat_encoder)
         return torch.cat([encode(title[r:r + step], body[r:r + step], vert[r:r + step],
-                                 subvert[r:r + step], seed, r) for r in range(0, c, step)])
+                                 subvert[r:r + step], seed, r, rows) for r in range(0, c, step)])
 
     def forward(self, batch: dict) -> torch.Tensor:
-        seed = _seed_of(self, batch)
+        seed, rows = _seed_of(self, batch), batch.get("emb_rows")
         if "uniq_tokens" in batch:
             art = self._encode_chunked(batch["uniq_tokens"], batch["uniq_body"],
-                                       batch["uniq_cat"], batch["uniq_subcat"], seed)
+                                       batch["uniq_cat"], batch["uniq_subcat"], seed, rows)
             hist_vecs, cand_vecs = _dedup_gather(art, batch)
             return _dot_scores(cand_vecs, self.user_pool(hist_vecs))
         if self.encode_chunks > 1:
@@ -531,6 +536,6 @@ class NAML(nn.Module):
             return torch.cat([x.reshape(b * h, *x.shape[2:]), y.reshape(b * k, *y.shape[2:])])
 
         encode = _maybe_remat(self.encode_news, self.remat_encoder)
-        vecs = encode(both("tokens"), both("body"), both("cat"), both("subcat"), seed)
+        vecs = encode(both("tokens"), both("body"), both("cat"), both("subcat"), seed, 0, rows)
         hist_vecs, cand_vecs = vecs[:b * h].reshape(b, h, -1), vecs[b * h:].reshape(b, k, -1)
         return _dot_scores(cand_vecs, self.user_pool(hist_vecs))

@@ -2,7 +2,8 @@
 
 Builds the step of ``python -m ebnerd_tpu_torch.bench`` for the family in
 ``BENCH_MODEL`` (nrms, lstur, naml, npa, fastformer or nrms_docvec; the
-same data, model, knobs and defaults), runs warm-up steps, then traces a
+same data, model, knobs and defaults, ``BENCH_SPARSE`` and
+``BENCH_MU_DTYPE`` among them), runs warm-up steps, then traces a
 window of warm steps with ``torch.profiler`` (CPU and CUDA activities) and
 sums device time by kernel name into the step's parts: K1
 (``news_encoder_fwd_kernel``), the x mask drawn once before it, K2's
@@ -10,8 +11,10 @@ per-block kernel, GEMM and reduction, K3 (``dropout_kernel``), cuDNN's
 convolutions, cuBLAS's matmuls, Adam, the embedding's gather and scatter,
 LayerNorm, softmax, elementwise kernels, and the rest. It also reports the
 window's wall time on the synchronised host clock, the device's busy and
-idle share (union of kernel intervals over the window) and the host
-operators with the most self time.
+idle share (union of kernel intervals over the window), the device span of
+the optimizer's ``step`` and of the sparse mode's ``rowwise_adam`` (their
+annotated ranges, which the part sums split among element-wise kernels,
+gathers and scatters), and the host operators with the most self time.
 
 Run: python -m ebnerd_tpu_torch.tools.step_profile [--steps 5] [--out FILE]
 """
@@ -86,7 +89,7 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from ..training import Trainer, TrainerConfig, prep_dedup_batch
+    from ..training import Trainer, TrainerConfig
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
@@ -94,14 +97,16 @@ def main(argv=None) -> int:
     name = os.environ.get("BENCH_MODEL", "nrms").lower()
     bs = int(os.environ.get("BENCH_BS", "16384" if name == "nrms" else "4096"))
     dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))
+    sparse, mu_dtype = bench.optimizer_knobs()
     model, tables, builder, n_users = bench.make_family(
         name, torch.bfloat16, dropout, prng=os.environ.get("BENCH_PRNGDROP", "1") != "0")
-    trainer = Trainer(model, tables, builder, TrainerConfig(learning_rate=1e-4, seed=0),
-                      device="cuda")
+    trainer = Trainer(model, tables, builder,
+                      TrainerConfig(learning_rate=1e-4, seed=0, sparse_embedding=sparse,
+                                    adam_mu_dtype=mu_dtype), device="cuda")
     n = args.warmup + args.steps
     all_b = bench.batches(2, n, bs, bench.N_ARTICLES + 1, "zipf", n_users)
-    staged = [trainer.prepare(prep_dedup_batch({k: v[i] for k, v in all_b.items()}, 512))
-              for i in range(n)]
+    raws = [{k: v[i] for k, v in all_b.items()} for i in range(n)]
+    staged = [trainer.prepare(r) for r in raws]
     for i in range(args.warmup):
         trainer.step(staged[i])
     torch.cuda.synchronize()
@@ -113,8 +118,12 @@ def main(argv=None) -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: user-annotation ranges (e.g. Optimizer.step#Adam.step)
     # span kernels that are counted themselves
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in cuda if not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    spans: dict[str, float] = {}
+    for e in cuda:  # the annotated ranges' device spans
+        if e.name == "rowwise_adam" or e.name.startswith("Optimizer.step#"):
+            spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     by_part: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in kernels:
@@ -123,7 +132,9 @@ def main(argv=None) -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = busy_ms(kernels)
     steps = args.steps
-    rec = {"card": card, "model": name, "batch": bs, "steps": steps, "wall_ms_per_step": wall_ms / steps,
+    rec = {"card": card, "model": name, "batch": bs, "sparse": sparse, "mu_dtype": mu_dtype,
+           "steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "annotated_device_ms_per_step": {k: v / steps for k, v in spans.items()},
            "device_busy_ms_per_step": busy / steps,
            "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
            "parts_ms_per_step": {k: v / steps for k, v in sorted(by_part.items(),
@@ -138,6 +149,8 @@ def main(argv=None) -> int:
           f"{rec['device_idle_share']:.3f}", flush=True)
     for k, v in rec["parts_ms_per_step"].items():
         print(f"[profile] {k}: {v:.3f} ms/step", flush=True)
+    for k, v in rec["annotated_device_ms_per_step"].items():
+        print(f"[profile] span {k}: {v:.3f} ms/step", flush=True)
     for k, v in rec["top_kernels_ms_per_step"].items():
         print(f"[profile]   {v:8.3f} ms/step  {k}", flush=True)
     for k, v in rec["top_host_ops_self_ms_per_step"].items():

@@ -106,7 +106,9 @@ def get_args(argv=None):
     p.add_argument("--loss", type=str, default="cross_entropy_loss")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--sparse_embedding", action="store_true",
-                   help="row-sparse word-embedding updates (not ported: ROADMAP A12)")
+                   help="host-deduped row-sparse word-embedding updates "
+                        "(LazyAdam-style row-sparse semantics — a deliberate "
+                        "deviation; training/sparse_embed.py)")
     p.add_argument("--prng_dropout", action="store_true",
                    help="seed-recompute dropout kernel (K3) for LSTUR, NPA and NAML")
     p.add_argument("--remat_encoder", action="store_true",

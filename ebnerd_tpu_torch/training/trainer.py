@@ -6,11 +6,25 @@ device (``models/inputs.py``), the model's logits in training mode, the
 loss (+ optional L2), ``backward()`` and dense Adam. Adam uses optax's
 defaults, betas (0.9, 0.999) and eps 1e-8; the learning rate lives in the
 optimizer's ``param_groups``, the counterpart of the JAX trainer's
-injected hyperparameter. Dropout masks come from one 64-bit seed per
-step, drawn from a generator seeded with ``config.seed``.
+injected hyperparameter. ``adam_mu_dtype`` (e.g. "bfloat16") keeps Adam's
+first moment in that dtype (``training/adam.py``, optax's ``mu_dtype``);
+None keeps ``torch.optim.Adam``. Dropout masks come from one 64-bit seed
+per step, drawn from a generator seeded with ``config.seed``.
 ``accumulation_steps`` = k averages the gradients of k micro-batches into
 one Adam update, as ``optax.MultiSteps`` does; Adam's count advances per
 update.
+
+``sparse_embedding`` updates only the word-table rows a batch touches
+(``training/sparse_embed.py``; LazyAdam semantics, the JAX trainer's):
+the host finds the batch's vocabulary rows before the article dedup, the
+token keys are remapped to slots on the device, the step gathers those
+rows of the table into a leaf the model embeds from (``WordEmbed``'s
+``rows``, gathered from the detached table), and after the dense
+optimizer ``rowwise_adam`` updates them and the table's own moments
+(fp32, whatever ``adam_mu_dtype`` is) in place at the same learning rate.
+The table is always the model's ``word_embedding``; it gets no gradient
+and is outside the dense optimizer; it stays in the model's state, and
+``state_dict`` carries its moments.
 
 ``fit`` runs epochs of steps (host dedup ``config.prefetch`` batches ahead
 on a worker thread), scores the validation feed after each epoch, keeps
@@ -19,9 +33,8 @@ a plateau, checkpoints and resumes (``training/checkpoint.py``), and
 restores the best weights at the end. ``score`` runs the full forward or
 the two towers of ``serving.py``, in eval mode.
 
-Not ported yet: ``scan_steps`` (ROADMAP A5), row-sparse embeddings (A12)
-and a bf16 Adam first moment (A3, A5); ``rng_impl`` chooses XLA's random
-bit generator and has no counterpart.
+Not ported yet: ``scan_steps`` (ROADMAP A5); ``rng_impl`` chooses XLA's
+random bit generator and has no counterpart.
 """
 from __future__ import annotations
 
@@ -41,9 +54,11 @@ from ..evaluation.ranking import per_impression_auc
 from ..models.inputs import device_tables
 from ..serving import ScoreWindow, article_validity, encode_corpus, eval_mode, model_kind
 from ..serving import two_tower_scores
+from .adam import Adam
 from .checkpoint import CheckpointManager, restore_checkpoint
 from .dedup import dedup_capable, prep_dedup_batch
 from .losses import l2_penalty, loss_fn_for
+from .sparse_embed import TOKEN_KEYS_BY_TABLE, prep_sparse_batch, rowwise_adam
 
 __all__ = ["Trainer", "TrainerConfig"]
 
@@ -70,20 +85,35 @@ class TrainerConfig:
     # eval path: "auto" scores through the two towers of serving.py when
     # the family has them; True forces them; False runs the full forward
     two_tower_eval: Any = "auto"
-    # row-sparse word-embedding updates (ROADMAP A12)
+    # row-sparse word-embedding updates (sparse_embed.py): LazyAdam-style,
+    # a deliberate deviation from the reference's dense-decay Adam; the
+    # table is the model's word_embedding, the one value sparse_embed_param
+    # takes (kept for the JAX config's fields)
     sparse_embedding: bool = False
+    sparse_embed_param: str = "word_embedding"
+    # the host arrays' row bucket (prep_sparse_batch); the card gets the
+    # valid count
+    sparse_min_bucket: int = 4096
+    # table name -> batch keys holding word-token ids (None =
+    # sparse_embed.TOKEN_KEYS_BY_TABLE); a 2-D integer table not covered
+    # makes sparse mode raise, as its ids would remap to slot 0
+    sparse_token_tables: Optional[dict] = None
     # train-time unique-article dedup (training/dedup.py): "auto" = on
     # whenever dedup_capable(model) says so; True forces; False per slot
     dedup_articles: Any = "auto"
     dedup_min_bucket: int = 512
-    # dtype of Adam's first moment; None = fp32 (ROADMAP A3, A5)
+    # dtype of Adam's first moment (optax mu_dtype, e.g. "bfloat16");
+    # None = fp32, the reference-parity numerics
     adam_mu_dtype: Optional[str] = None
 
 
-_UNPORTED = (("scan_steps", 1, "A5"), ("sparse_embedding", False, "A12"),
-             ("adam_mu_dtype", None, "A3, A5"))
+_UNPORTED = (("scan_steps", 1, "A5"),)
 # batch entries read on the host, never copied to the device
 _HOST_KEYS = ("n_uniq", "art_n_uniq", "rows", "n_valid")
+
+
+def _host_array(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def _pinned(raw: dict) -> dict:
@@ -160,6 +190,10 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, tables: dict, batch_builder,
                  config: TrainerConfig = TrainerConfig(), device="cuda",
                  log_fn: Callable[[str], None] = print):
+        self.config = config
+        self._sparse = bool(config.sparse_embedding)
+        if self._sparse:
+            self._sparse_setup(model, tables)
         for name, default, item in _UNPORTED:
             if getattr(config, name) != default:
                 raise NotImplementedError(
@@ -171,7 +205,6 @@ class Trainer:
             raise ValueError(f"accumulation_steps must be >= 1, got {config.accumulation_steps}")
         self.device = resolve_device(device)
         self.model = model
-        self.config = config
         self.builder = batch_builder
         self.log = log_fn
         self.tables = device_tables(tables, self.device)
@@ -180,33 +213,90 @@ class Trainer:
             raise ValueError(f"dedup_articles: {type(model).__name__}: {why}")
         self.dedup = dedup_ok if config.dedup_articles == "auto" else bool(config.dedup_articles)
         self.loss_fn = loss_fn_for(config.loss)
-        self.optimizer = torch.optim.Adam(model.parameters(), lr=config.learning_rate,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        if self._sparse:  # the table's moments live here
+            self._emb_m = torch.zeros_like(self._emb_table, dtype=torch.float32)
+            self._emb_v = torch.zeros_like(self._emb_table, dtype=torch.float32)
+        params = [p for p in model.parameters()
+                  if not (self._sparse and p is self._emb_table)]
+        if config.adam_mu_dtype is None:
+            self.optimizer = torch.optim.Adam(params, lr=config.learning_rate,
+                                              betas=(0.9, 0.999), eps=1e-8)
+        else:
+            self.optimizer = Adam(params, lr=config.learning_rate, betas=(0.9, 0.999),
+                                  eps=1e-8, mu_dtype=config.adam_mu_dtype)
         self.seeds = torch.Generator().manual_seed(config.seed)
         self.step_count = 0
         self._micro = 0  # micro-batches accumulated toward the next update
         self._art_cache: Optional[tuple] = None  # (step_count, article vectors)
         self.history: list[dict[str, float]] = []
 
+    def _sparse_setup(self, model: torch.nn.Module, tables: dict) -> None:
+        """Validate the sparse mode as the JAX trainer does; keep host
+        copies of the token tables (for the host dedup) and the word
+        table's parameter."""
+        cfg = self.config
+        if cfg.accumulation_steps > 1 or cfg.scan_steps > 1:
+            raise ValueError("sparse_embedding requires accumulation_steps == 1 and "
+                             "scan_steps == 1 (per-batch unique-row sets)")
+        if cfg.l2_regularization:
+            raise ValueError("sparse_embedding + l2_regularization unsupported: the "
+                             "penalty would only see the batch's touched rows")
+        words = getattr(model, "word_embedding", None)
+        if words is None:
+            raise ValueError("sparse_embedding needs model.vocab_size")
+        self._vocab_size = int(words.embedding.shape[0])
+        keys_map = (cfg.sparse_token_tables if cfg.sparse_token_tables is not None
+                    else TOKEN_KEYS_BY_TABLE)
+        host = {k: _host_array(v) for k, v in tables.items()}
+        # every 2-D integer table feeds word tokens through the shared
+        # table; one missing from the map would have its ids remapped to
+        # slot 0 silently (wrong rows, mis-routed gradients)
+        unmapped = [k for k, v in host.items()
+                    if v.ndim == 2 and np.issubdtype(v.dtype, np.integer) and k not in keys_map]
+        if unmapped:
+            raise ValueError(f"sparse_embedding: token table(s) {unmapped} not in the "
+                             "token-keys map; pass TrainerConfig.sparse_token_tables "
+                             "covering them")
+        self._host_tables = {k: v for k, v in host.items() if k in keys_map}
+        self._sparse_tables = tuple(self._host_tables)
+        if not self._sparse_tables:
+            raise ValueError("sparse_embedding: no token tables found")
+        self._token_keys = tuple(key for name in self._sparse_tables for key in keys_map[name])
+        name = cfg.sparse_embed_param
+        if not isinstance(getattr(getattr(model, name, None), "embedding", None),
+                          torch.nn.Parameter):
+            raise ValueError(f"sparse_embedding: model has no top-level "
+                             f"'{name}' param collection")
+        if name != "word_embedding":
+            # the tokens are vocabulary ids: only the word table embeds them
+            raise ValueError(f"sparse_embedding: sparse_embed_param must be "
+                             f"'word_embedding' (the table the tokens index); got '{name}'")
+        self._emb_table = words.embedding
+
     # -- state ------------------------------------------------------------
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs: parameters, optimizer state, step
-        count, the seed generator and any partly accumulated gradients."""
+        count, the seed generator, any partly accumulated gradients and, in
+        sparse mode, the word table's moments (``emb``)."""
         state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                  "step": self.step_count, "seeds": self.seeds.get_state(), "micro": self._micro}
         if self._micro:
             state["grads"] = {k: p.grad for k, p in self.model.named_parameters()
                               if p.grad is not None}
+        if self._sparse:
+            state["emb"] = {"m": self._emb_m, "v": self._emb_v}
         return state
 
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])
         opt = state["optimizer"]
-        # Adam keeps its step count on the CPU (not capturable, not fused)
-        opt = dict(opt, state={i: {k: v.cpu() if k == "step" else v for k, v in s.items()}
+        # torch.optim.Adam keeps its step count on the CPU (not capturable, not fused)
+        opt = dict(opt, state={i: {k: v.cpu() if k == "step" and isinstance(v, torch.Tensor)
+                                   else v for k, v in s.items()}
                                for i, s in opt["state"].items()})
         self.optimizer.load_state_dict(opt)
+        self._load_emb(state.get("emb"))
         self.step_count = int(state["step"])
         self.seeds.set_state(state["seeds"].cpu())
         self._micro = int(state.get("micro", 0))
@@ -222,6 +312,17 @@ class Trainer:
     def _snapshot(self) -> dict:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
+    def _emb_snapshot(self) -> Optional[dict]:
+        """The sparse mode's table moments (copies), else None."""
+        if not self._sparse:
+            return None
+        return {"m": self._emb_m.clone(), "v": self._emb_v.clone()}
+
+    def _load_emb(self, emb: Optional[dict]) -> None:
+        if self._sparse and emb is not None:
+            self._emb_m.copy_(emb["m"])
+            self._emb_v.copy_(emb["v"])
+
     # -- steps ------------------------------------------------------------
 
     def next_seed(self) -> int:
@@ -229,13 +330,34 @@ class Trainer:
         lo, hi = torch.randint(0, 1 << 32, (2,), generator=self.seeds).tolist()
         return (hi << 32) | lo
 
-    def prepare(self, raw: dict) -> dict:
-        """Host dedup (when on) and the batch build on the device: an index
-        batch (numpy arrays or host tensors) -> the model batch plus
-        ``labels`` on the device."""
+    def _prep_host(self, raw: dict) -> dict:
+        """The host-side preparation of an index batch: the sparse mode's
+        vocabulary rows first (they read ``hist_idx``/``cand_idx``), then
+        the article dedup, which replaces them with slots."""
+        if self._sparse and "emb_uniq" not in raw:
+            raw = prep_sparse_batch(raw, self._host_tables, self._sparse_tables,
+                                    self._vocab_size, self.config.sparse_min_bucket)
         if self.dedup and "hist_idx" in raw:
             raw = prep_dedup_batch(raw, self.config.dedup_min_bucket)
+        return raw
+
+    def prepare(self, raw: dict) -> dict:
+        """Host preparation (``_prep_host``, unless done) and the batch build
+        on the device: an index batch (numpy arrays or host tensors) -> the
+        model batch plus ``labels`` on the device. In sparse mode the token
+        keys become slots into the batch's rows, whose ids go along as
+        ``emb_uniq`` (cut to the valid count, which the host knows)."""
+        raw = self._prep_host(raw)
         batch = self.builder(self.tables, raw)
+        if self._sparse:
+            n = int(np.count_nonzero(_host_array(raw["emb_valid"])))
+            batch["emb_uniq"] = torch.as_tensor(raw["emb_uniq"][:n]).to(
+                self.device, torch.long, non_blocking=True)
+            remap = torch.as_tensor(raw["emb_remap"]).to(self.device, torch.long,
+                                                         non_blocking=True)
+            for k in self._token_keys:
+                if k in batch:
+                    batch[k] = remap[batch[k]]
         labels = raw["labels"]
         labels = labels if isinstance(labels, torch.Tensor) else torch.as_tensor(np.asarray(labels))
         batch["labels"] = labels.to(self.device, torch.float32, non_blocking=True)
@@ -250,6 +372,10 @@ class Trainer:
         if self._micro == 0:
             self.optimizer.zero_grad(set_to_none=True)
         batch = dict(batch, dropout_seed=self.next_seed())
+        rows = None
+        if self._sparse:  # the batch's word rows, a leaf the model embeds from
+            rows = self._emb_table.detach().index_select(0, batch["emb_uniq"]).requires_grad_()
+            batch["emb_rows"] = rows
         logits = self.model(batch)
         loss = self.loss_fn(logits, batch["labels"])
         if self.config.l2_regularization:
@@ -258,6 +384,11 @@ class Trainer:
         self._micro += 1
         if self._micro == k:
             self.optimizer.step()
+            if rows is not None:
+                with torch.profiler.record_function("rowwise_adam"):
+                    rowwise_adam(self._emb_table, self._emb_m, self._emb_v, batch["emb_uniq"],
+                                 rows.grad, self.optimizer.param_groups[0]["lr"],
+                                 self.step_count + 1)
             self._micro = 0
         self.step_count += 1
         return loss.detach()
@@ -285,8 +416,7 @@ class Trainer:
 
         def work():
             for raw in it:
-                if self.dedup:
-                    raw = prep_dedup_batch(raw, self.config.dedup_min_bucket)
+                raw = self._prep_host(raw)
                 yield _pinned(raw) if pin else raw
 
         losses: list[torch.Tensor] = []
@@ -298,7 +428,7 @@ class Trainer:
         return losses
 
     def _resume(self, ckpt_dir: Path, mgr: CheckpointManager):
-        """(start epoch, best metric, best weights, es_wait, lr_wait, lr)
+        """(start epoch, best metric, best state, es_wait, lr_wait, lr)
         from ``meta.json`` and the checkpoint of the epoch it names, or
         None when there is nothing to resume from."""
         meta_path = ckpt_dir / "meta.json"
@@ -320,7 +450,7 @@ class Trainer:
         self.seeds.set_state(torch.tensor(meta["seeds"], dtype=torch.uint8))
         best = None
         if np.isfinite(best_metric) and (ckpt_dir / "best").exists():
-            best = mgr.restore_best(self)["model"]
+            best = mgr.restore_best(self)
         self.log(f"[trainer] resumed from epoch {epoch} (next: {epoch + 1}, "
                  f"best {best_metric:.5f})")
         return epoch + 1, best_metric, best, int(meta["es_wait"]), int(meta["lr_wait"]), lr
@@ -341,7 +471,7 @@ class Trainer:
         callback decisions."""
         cfg = self.config
         best_metric = -np.inf if cfg.monitor_mode == "max" else np.inf
-        best = self._snapshot()
+        best, best_emb = self._snapshot(), self._emb_snapshot()
         es_wait = lr_wait = 0
         lr = cfg.learning_rate
         start_epoch = 0
@@ -352,7 +482,10 @@ class Trainer:
             resumed = self._resume(ckpt_dir, mgr) if resume else None
             if resumed is not None:
                 start_epoch, best_metric, best_r, es_wait, lr_wait, lr = resumed
-                best = best_r if best_r is not None else self._snapshot()
+                if best_r is not None:
+                    best, best_emb = best_r["model"], best_r.get("emb")
+                else:
+                    best, best_emb = self._snapshot(), self._emb_snapshot()
 
         validate = val_feed is not None and val_labels is not None
         for epoch in range(start_epoch, epochs):
@@ -370,7 +503,7 @@ class Trainer:
                 better = val_auc > best_metric if cfg.monitor_mode == "max" else val_auc < best_metric
                 if better:
                     best_metric, es_wait, lr_wait = val_auc, 0, 0
-                    best = self._snapshot()
+                    best, best_emb = self._snapshot(), self._emb_snapshot()
                     if mgr is not None:
                         mgr.save_best(self)
                 else:
@@ -403,6 +536,7 @@ class Trainer:
                 break
         if validate:
             self.model.load_state_dict(best)
+            self._load_emb(best_emb)  # the sparse mode's moments, as JAX restores them
             # the step count is unchanged by the restore, so the step-keyed
             # article vectors would pair final-epoch articles with
             # best-epoch user towers

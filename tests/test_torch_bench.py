@@ -1,7 +1,7 @@
 """The port's training bench makes the same data as the repo's bench.py
 (Zipf token table and article draws from the same seeds) and counts the
-same FLOPs; it refuses the options it does not port, and refuses to run
-without a card."""
+same FLOPs; it parses the optimizer knobs, pads the sparse mode's steps to
+one row bucket, and refuses to run without a card."""
 import numpy as np
 import pytest
 import torch
@@ -42,14 +42,17 @@ def test_bf16_peak_by_part():
 
 
 def test_unported_knobs_raise_and_no_card_refuses(monkeypatch, capsys):
+    """BENCH_SPARSE and BENCH_MU_DTYPE (ported now) parse; a dtype the
+    hand-written Adam does not take raises; without a card the bench refuses
+    whatever the knobs."""
+    assert bench.optimizer_knobs({}) == (False, None)
+    assert bench.optimizer_knobs({"BENCH_SPARSE": "1", "BENCH_MU_DTYPE": "bfloat16"}) == (
+        True, "bfloat16")
+    assert bench.optimizer_knobs({"BENCH_SPARSE": "0", "BENCH_MU_DTYPE": ""}) == (False, None)
+    with pytest.raises(ValueError, match="mu_dtype"):
+        bench.optimizer_knobs({"BENCH_MU_DTYPE": "int8"})
     monkeypatch.setenv("BENCH_SPARSE", "1")
-    with pytest.raises(NotImplementedError, match="A12"):
-        bench.main()
-    monkeypatch.setenv("BENCH_SPARSE", "0")
     monkeypatch.setenv("BENCH_MU_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError, match="A3"):
-        bench.main()
-    monkeypatch.delenv("BENCH_MU_DTYPE")
     if not torch.cuda.is_available():
         assert bench.main() == 2
         assert "needs a CUDA card" in capsys.readouterr().err

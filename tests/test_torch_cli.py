@@ -8,8 +8,9 @@ memory against the parquet files the JAX CLI writes and reads back;
 parameters through ``bridge.py``, gives its logits (fp32, 5e-5), and the
 pretrained word vectors land as JAX's do; a full run on the CPU writes
 every output, ``--resume`` continues from the checkpoint exactly,
-``--sparse_embedding`` raises naming A12, and the default device is the
-card."""
+``--sparse_embedding`` reaches the trainer as the JAX CLI's does and
+trains (NRMS, and NAML's title and body tables), and the default device is
+the card."""
 import functools
 import importlib.util
 import json
@@ -252,10 +253,30 @@ def test_resume_continues_from_the_checkpoint(tmp_path):
         assert resumed[k] == whole[k], k
 
 
-def test_sparse_embedding_raises_naming_a12(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli.main(["--synthetic", "--debug", "--device", "cpu", "--sparse_embedding",
-                  "--out_dir", str(tmp_path)] + SMALL)
+@pytest.mark.parametrize("model", ["nrms", "naml"])
+def test_sparse_embedding_stages_equal_the_jax_cli(monkeypatch, tmp_path, model):
+    """``--sparse_embedding`` reaches the trainer's config as in the JAX CLI,
+    beside the same tables (NAML's body too: its ids go through the shared
+    word table)."""
+    argv = ["--model", model, "--synthetic", "--debug", "--sparse_embedding"] + SMALL
+    j = _stages(jcli, monkeypatch, argv + ["--out_dir", str(tmp_path / "jax")])
+    p = _stages(cli, monkeypatch, argv + ["--out_dir", str(tmp_path / "port"), "--device", "cpu"])
+    same(j["tables"], p["tables"], "tables")
+    for field in ("sparse_embedding", "sparse_embed_param", "sparse_min_bucket",
+                  "sparse_token_tables", "l2_regularization", "dedup_articles", "adam_mu_dtype"):
+        assert getattr(p["config"], field) == getattr(j["config"], field), field
+    assert p["config"].sparse_embedding is True
+
+
+@pytest.mark.parametrize("model", ["nrms", "naml"])
+def test_sparse_embedding_trains_and_writes_results(tmp_path, model):
+    out = tmp_path / "run"
+    results = cli.main(["--model", model, "--synthetic", "--debug", "--device", "cpu",
+                        "--sparse_embedding", "--epochs", "1", "--out_dir", str(out)] + SMALL)
+    saved = json.loads((out / "results.json").read_text())
+    assert saved == results and all(np.isfinite(v) for v in saved.values())
+    assert 0 <= saved["auc"] <= 1 and (out / f"{model}_predictions.zip").exists()
+    assert json.loads((out / "args.json").read_text())["sparse_embedding"] is True
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the default without a card")

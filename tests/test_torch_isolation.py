@@ -65,3 +65,11 @@ def test_scan_covers_the_cli_and_the_data_layer():
                  "evaluation/beyond_accuracy", "evaluation/utils", "utils/misc",
                  "utils/logging"):
         assert f"ebnerd_tpu_torch/{name}.py" in scanned, name
+
+
+def test_scan_covers_the_sparse_mode_and_the_optimizer():
+    """The scan reaches the row-sparse mode, the hand-written Adam and the
+    embedding-slab tool, each a copy or counterpart of a JAX module."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("training/sparse_embed", "training/adam", "tools/embed_grad"):
+        assert f"ebnerd_tpu_torch/{name}.py" in scanned, name

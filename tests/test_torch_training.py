@@ -271,9 +271,7 @@ def test_trainer_three_steps_match_jax(dedup):
         np.testing.assert_allclose(p.numpy(), want[k].numpy(), atol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("scan_steps", 4, "A5"), ("sparse_embedding", True, "A12"),
-    ("adam_mu_dtype", "bfloat16", "A3")])
+@pytest.mark.parametrize("field,value,item", [("scan_steps", 4, "A5")])
 def test_unported_trainer_options_raise(field, value, item):
     model = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
