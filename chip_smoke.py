@@ -131,8 +131,25 @@ Phases:
      (100,000 impressions, 20,000 articles, 20,000 users: the in-memory
      synthetic split, truncation and join, the sampler, labels and a
      NewsrecFeed), timed per stage;
-  12. print the ``kernels`` JSON line, the card line, then the ``ok`` line
-     last.
+  12. ``[scan]``, ``TrainerConfig.scan_steps=4`` (N steps as one CUDA-graph
+     replay): K3, K1 and K2 given the seed (and n_valid) as device scalars
+     against the host ints (K3, K1's output and dx bit-equal, rows past
+     n_valid zero; K2's weight gradients within WGRAD_REL_TOL), and in a
+     CUDA graph each replay reading its own seed and n_valid; NRMS at the
+     step's full width, three groups of 4 (the eager warm-up, the capture
+     and its replay, a replay) against the same groups run eagerly on the
+     scan path, losses and every parameter bit-equal, the graph holding 4x
+     each kernel's per-step launches, the packed weights fresh after a
+     replay, then 3 replayed groups timed beside phase 6's per-step step;
+     LSTUR, NAML, NPA, Fastformer and NRMSDocVec at phase 9-10's widths, two
+     groups each against eager (cuDNN deterministic), K3's launches in the
+     graph, then recaptured and 3 replayed groups timed beside their
+     per-step steps; the NRMS fit at full width with scan_steps (3 epochs of
+     8 steps, validation): captures, capture seconds, impressions/s per
+     epoch beside phase 7's fit;
+  13. print the ``kernels`` JSON line (``launches_scan``: each kernel's
+     launches in the replayed graphs of phase 12), the card line, then the
+     ``ok`` line last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
 their QKV product alone (their yardstick; neither kernel has a one-call
@@ -151,6 +168,7 @@ Run: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -291,15 +309,9 @@ def graph_ms(fn, iters: int = 20) -> float:
 
 def counters() -> dict:
     """Every kernel wrapper of the port, by the name the kernels line uses."""
-    from ebnerd_tpu_torch.ops import dropout
-    from ebnerd_tpu_torch.ops import news_encoder as ne
-    from ebnerd_tpu_torch.ops import philox
+    from ebnerd_tpu_torch.ops import kernel_counters
 
-    return {"news_encoder_fwd": ne.fused_news_encoder, "news_encoder_bwd": ne.fused_news_encoder_bwd,
-            "news_encoder_bwd_block": ne.launch_bwd_core,
-            "news_encoder_bwd_gemm": ne.bwd_gemm, "news_encoder_bwd_reduce": ne.reduce_rows,
-            "news_encoder_bwd_mask": ne.emb_mask,
-            "philox_mask_dump": philox.dump_masks, "prng_dropout": dropout.dropout_apply}
+    return kernel_counters()
 
 
 def reset_counts() -> None:
@@ -1887,12 +1899,11 @@ def cancelling(name: str, param: str) -> bool:
                                      or param.startswith("user_pool."))
 
 
-def family_training(name, preps, prep_ms, k3_ms):
-    """LSTUR, NAML, NPA, Fastformer or NRMSDocVec training at full width
-    (K3 on every dropout site but NRMSDocVec's); returns its record."""
+def family_model(name):
+    """(model, tables, builder) of a family at its full width, K3 on its
+    dropout sites: ``bench.make_family``'s, with unit-scale word embeddings
+    and (NPA) users drawn at flax's Embed scale."""
     from ebnerd_tpu_torch.bench import make_family
-    from ebnerd_tpu_torch.ops import dropout as k3
-    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
     model, tables, builder, _ = make_family(name, torch.bfloat16, DROPOUT, "zipf", prng=True,
                                             device=DEV)
@@ -1904,6 +1915,16 @@ def family_training(name, preps, prep_ms, k3_ms):
             model.user_embedding.embedding.normal_(
                 0.0, model.hparams.user_emb_dim ** -0.5,
                 generator=torch.Generator(device=DEV).manual_seed(1))
+    return model, tables, builder
+
+
+def family_training(name, preps, prep_ms, k3_ms):
+    """LSTUR, NAML, NPA, Fastformer or NRMSDocVec training at full width
+    (K3 on every dropout site but NRMSDocVec's); returns its record."""
+    from ebnerd_tpu_torch.ops import dropout as k3
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    model, tables, builder = family_model(name)
     trainer = Trainer(model, tables, builder,
                       TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
     staged = [trainer.prepare(p) for p in preps]
@@ -2324,6 +2345,394 @@ def host_data_path():
     return rec
 
 
+# ---- [scan] TrainerConfig.scan_steps: N steps as one CUDA-graph replay -------------------
+
+SCAN_N = 4                # steps of one group (one graph replay)
+SCAN_TIMED_GROUPS = 3     # replayed groups timed per family, after the checked ones
+SCAN_FIT_EPOCHS, SCAN_FIT_STEPS = 3, 8  # the NRMS fit with scan_steps: 2 groups an epoch
+# each kernel's launches in one NRMS step (the per-step path's; a graph holds N times these)
+NRMS_STEP_LAUNCHES = {"news_encoder_fwd": 2, "news_encoder_bwd": 2, "news_encoder_bwd_block": 2,
+                      "news_encoder_bwd_gemm": 6, "news_encoder_bwd_reduce": 8,
+                      "news_encoder_bwd_mask": 1}
+# K3 per step on the scan path: the per-step path's, and NRMSDocVec's dense stack (3 blocks,
+# forward and backward), whose generator masks take K3 when the seed is a device tensor
+SCAN_K3 = dict(FAM_LAUNCHES, nrms_docvec=6)
+# Tensors a replay may not match bit for bit, with their absolute limit: NAML's category
+# tables take F.embedding's backward (embedding_dense_backward), which sums an index's
+# duplicates (15,360 rows into 18 and 127) in a nondeterministic order: two eager runs of the
+# same 8 steps differ there by up to 2.3e-10 and a replay by up to 9.3e-10 (H100 80GB HBM3 at
+# 700 W); the limit is about ten times that. Everything else, losses included, is bit-equal.
+SCAN_NONDET_TOL = {"naml": {"vert_embedding.embedding": 1e-8,
+                            "subvert_embedding.embedding": 1e-8}}
+
+
+def i64(seed: int) -> int:
+    """A 64-bit seed as the int64 holding its bits (negative from 2**63)."""
+    return int(np.array([seed], np.uint64).view(np.int64)[0])
+
+
+def dev_seed(seed: int) -> torch.Tensor:
+    return torch.tensor(i64(seed), dtype=torch.int64, device=DEV)
+
+
+def scan_kernel_checks(bucket, n_uniq, gen):
+    """K3, then K1 and K2 (forward and recompute backward, bf16, dropout 0.2
+    on both streams, at the NRMS step's news shape), given the seed and
+    n_valid as device scalars: the host ints' masks and outputs (K2's
+    weight gradients take the bucket's row slices: WGRAD_REL_TOL); in a
+    CUDA graph, each replay reads the seed and n_valid the scalars hold
+    then, and equals the eager device-scalar run bit for bit."""
+    from ebnerd_tpu_torch.ops import dropout as k3
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    bf16 = torch.bfloat16
+    seeds = (SEED64 | (1 << 63), SEED64 ^ (1 << 40))
+    x3 = torch.randn(FAM_BS, T, 256, generator=gen, device=DEV).to(bf16)
+    for s in seeds:
+        check(torch.equal(k3.dropout_apply(x3, dev_seed(s), 2, KEEP, 8),
+                          k3.dropout_apply(x3, s, 2, KEEP, 8)),
+              f"K3: the device seed {s:#x} draws another mask than the int")
+    st = torch.zeros((), dtype=torch.int64, device=DEV)
+    k3.dropout_apply(x3, st, 2, KEEP)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y3 = k3.dropout_apply(x3, st, 2, KEEP)
+    replayed = []
+    for s in seeds:
+        st.fill_(i64(s))
+        graph.replay()
+        replayed.append(y3.clone())
+        check(torch.equal(y3, k3.dropout_apply(x3, s, 2, KEEP)),
+              f"K3 replay: not the mask of the seed {s:#x} the scalar held")
+    check(not torch.equal(replayed[0], replayed[1]), "K3: two replays drew one mask")
+    del graph, x3, y3, replayed
+
+    x, ws = make_inputs(bucket, T, EMB, bf16, gen)
+    packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=bf16)
+    gout = torch.randn(bucket, D, generator=gen, device=DEV)
+    kw = dict(num_heads=HEADS, compute_dtype=bf16, keep_prob=KEEP, emb_keep_prob=KEEP,
+              packed=packed)
+    names = ("out", "dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+
+    def fwd_bwd(ins, seed, nv):
+        out = ne.news_encoder(*ins, n_valid=nv, rng_seed=seed, **kw)
+        return [out] + list(torch.autograd.grad(out, ins, gout))
+
+    leaves = lambda: [v.detach().clone().requires_grad_() for v in [x] + ws]
+    nvs = (n_uniq, n_uniq - 1234)
+    host = [[v.detach() for v in fwd_bwd(leaves(), s, nv)] for s, nv in zip(seeds, nvs)]
+    dev = [[v.detach() for v in fwd_bwd(leaves(), dev_seed(s),
+                                         torch.tensor(nv, dtype=torch.int32, device=DEV))]
+           for s, nv in zip(seeds, nvs)]
+    wgrad_rel = 0.0
+    for h, d, nv in zip(host, dev, nvs):
+        for i in (0, 1):
+            check(torch.equal(h[i], d[i]), f"K1/K2 device scalars: {names[i]} differs from the "
+                                           f"host ints' (n_valid {nv})")
+            check(not d[i][nv:].any(), f"K1/K2 device scalars: {names[i]} past n_valid not zero")
+        scales = grad_scales(dict(zip(names, h)), "dw", ("db", "dq"))
+        for i in range(2, 8):
+            err = (h[i].float() - d[i].float()).abs().max().item() / max(scales[names[i]], 1e-30)
+            wgrad_rel = max(wgrad_rel, err)
+            check(err <= WGRAD_REL_TOL, f"K2 device n_valid: {names[i]} off by {err:.2e} of "
+                                        f"max|host| (tol {WGRAD_REL_TOL})")
+    # the same launches in a graph: each replay reads the scalars' values then
+    ins = leaves()
+    st, nvt = dev_seed(seeds[0]), torch.tensor(nvs[0], dtype=torch.int32, device=DEV)
+    fwd_bwd(ins, st, nvt)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fwd_bwd(ins, st, nvt)
+    for (s, nv), d in zip(zip(seeds, nvs), dev):
+        st.fill_(i64(s))
+        nvt.fill_(nv)
+        graph.replay()
+        for i, name in enumerate(names):
+            check(torch.equal(outs[i], d[i]), f"K1/K2 replay (seed {s:#x}, n_valid {nv}): {name} "
+                                              f"differs from the eager device-scalar run")
+    torch.cuda.synchronize()
+    rec = {"k3_seeds": [hex(s) for s in seeds], "n_valid": list(nvs),
+           "k1_k2_out_dx_bit_equal_host": True, "k2_wgrad_rel_vs_host": wgrad_rel,
+           "replays_bit_equal_eager": True}
+    print(f"[scan] device scalars: K3 (seed {seeds[0]:#x}, bit 63 set, and {seeds[1]:#x}) and "
+          f"K1/K2 at [{bucket}, {T}, {EMB}] bf16 (n_valid {nvs[0]}, {nvs[1]}) draw the host "
+          f"ints' masks: K1's output and dx bit-equal, rows past n_valid zero, K2's weight "
+          f"gradients within {wgrad_rel:.2e} of max|host| (the bucket's row slices; tol "
+          f"{WGRAD_REL_TOL}); in a CUDA graph each replay reads its seed and n_valid, bit-equal "
+          f"to the eager device-scalar runs", flush=True)
+    del graph, outs, ins, host, dev, x, ws, packed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def scan_pair(make, preps, det=False):
+    """Two trainers from one init (``make()``: a model, tables and builder,
+    scan_steps=SCAN_N): A runs the groups of ``preps`` (padded to one
+    bucket) as the scan path runs them on the card (the first group's eager
+    warm-up, the capture, then replays), B runs the same groups eagerly
+    (``run_group(graph=False)``): same seeds, buckets and capturable Adam.
+    ``det`` makes cuDNN deterministic for both. Returns (A, B, losses A,
+    losses B, the launches of A's warm-up group, seconds, A's groups, the
+    peak GB of A's capture and replays: the graph's pool and what
+    persists)."""
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig, pad_dedup_to
+
+    bucket = max(p["art_uniq"].shape[0] for p in preps)
+    preps = [pad_dedup_to(p, bucket) for p in preps]
+    groups = [preps[i:i + SCAN_N] for i in range(0, len(preps) - SCAN_N + 1, SCAN_N)]
+
+    def trainer():
+        model, tables, builder = make()
+        return Trainer(model, tables, builder,
+                       TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True,
+                                     scan_steps=SCAN_N), device=DEV)
+
+    a, b = trainer(), trainer()
+    ga, gb = [a.pack_group(g) for g in groups], [b.pack_group(g) for g in groups]
+    torch.backends.cudnn.deterministic = det
+    try:
+        t0 = time.perf_counter()
+        reset_counts()
+        la = [a.run_group(ga[0])]
+        torch.cuda.synchronize()
+        warm = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        la += [a.run_group(g) for g in ga[1:]]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lb = [b.run_group(g, graph=False) for g in gb]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return a, b, torch.cat(la), torch.cat(lb), warm, secs, ga, peak
+
+
+def replay_vs_eager(tag, a, b, la, lb):
+    """Bit-equality of A's replayed groups and B's eager ones: the losses
+    and every parameter and buffer; returns the record (max differences)."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    diffs = {k: (sa[k].float() - sb[k].float()).abs().max().item() for k in sa}
+    tol = SCAN_NONDET_TOL.get(tag, {})
+    within = {k: v for k, v in diffs.items() if v and k in tol}
+    bad = {k: v for k, v in diffs.items() if v > tol.get(k, 0.0)}
+    loss_diff = (la - lb).abs().max().item()
+    print(f"[scan] {tag}: {la.numel()} steps, replayed groups against the same groups eagerly "
+          f"on the scan path: losses {'bit-equal' if loss_diff == 0 else f'max|d| {loss_diff:.3e}'}"
+          f", parameters and buffers {'bit-equal' if not bad else f'differ: {bad}'}"
+          + (f" but within their limits {within} (F.embedding's nondeterministic backward; "
+             f"limits {tol})" if within else ""), flush=True)
+    check(loss_diff == 0 and not bad, f"{tag}: a replay differs from the eager steps "
+                                      f"(losses {loss_diff}, tensors {bad})")
+    return {"losses_bit_equal": loss_diff == 0, "tensors_bit_equal": not diffs or not any(
+        diffs.values()), "within_stated_limits": within, "losses": la.tolist()}
+
+
+def time_groups(a, preps, n_groups):
+    """``n_groups`` replayed groups of ``preps`` (cycled, padded to the graph's
+    bucket), packed before the clock: their step ms."""
+    from ebnerd_tpu_torch.training import pad_dedup_to
+
+    bucket = max(p["art_uniq"].shape[0] for p in preps)
+    preps = [pad_dedup_to(p, bucket) for p in preps]
+    groups = [a.pack_group([preps[(i * SCAN_N + j) % len(preps)] for j in range(SCAN_N)])
+              for i in range(n_groups)]
+    torch.cuda.synchronize()
+    replays0 = a.scan_stats["replays"]
+    t0 = time.perf_counter()
+    for g in groups:
+        losses = a.run_group(g)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(a.scan_stats["replays"] - replays0 == n_groups, "a timed group was not a replay")
+    check(bool(torch.isfinite(losses).all()), "non-finite losses in the timed groups")
+    return dt / (n_groups * SCAN_N) * 1e3
+
+
+def release() -> None:
+    """Free dropped trainers (their graphs and pools) now: a trainer whose
+    methods were wrapped holds itself in a cycle that only the collector
+    breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_launches(a) -> dict:
+    """The launches each kernel recorded into A's graphs, per graph."""
+    return [dict(e.launches) for e in a._graphs.values() if e.graph is not None]
+
+
+def scan_nrms(table, preps, per_step):
+    """NRMS at the full step width with scan_steps=4: three groups of four
+    (the warm-up, the capture, a replay) against the same groups eagerly,
+    bit for bit; the graph's launches; the packed-weight cache after a
+    replay; then replayed groups timed beside the per-step step
+    (``per_step``: its record in this run)."""
+    from ebnerd_tpu_torch.models import token_batch
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    make = lambda: (full_width_model(), {"title": table}, token_batch)
+    a, b, la, lb, warm, secs, ga, peak = scan_pair(make, preps[:3 * SCAN_N])
+    rec = replay_vs_eager("nrms", a, b, la, lb)
+    del b
+    from ebnerd_tpu_torch.training.trainer import _views
+
+    seeds = [_views(g.host, g.layout)["seeds"].clone() for g in ga]
+    check(len({int(v) for s in seeds for v in s}) == 3 * SCAN_N,
+          f"the groups' step seeds repeat: {seeds}")  # group 2 draws other masks than group 1
+    check(warm == {k: SCAN_N * NRMS_STEP_LAUNCHES.get(k, 0) for k in warm},
+          f"nrms: the warm-up group's launches {warm}")
+    per_graph = graph_launches(a)
+    check(len(per_graph) == 1 and per_graph[0] == {k: SCAN_N * v
+                                                   for k, v in NRMS_STEP_LAUNCHES.items()},
+          f"nrms: launches recorded into the graph {per_graph} (expected {SCAN_N} x "
+          f"{NRMS_STEP_LAUNCHES})")
+    st = a.scan_stats
+    check(st["eager_groups"] == 1 and st["captures"] == 1 and st["replays"] == 2,
+          f"nrms scan stats {st}")
+    # after a replay the packed-weight cache misses: the weights it packs are the replay's
+    model = a.model
+    cached = model.packed_weights("news", torch.bfloat16).wqkv
+    fresh = ne.pack_weights(*model._tower_weights("news"), num_heads=HEADS,
+                            compute_dtype=torch.bfloat16).wqkv
+    check(torch.equal(cached, fresh), "the packed weights after a replay are stale")
+    step_ms = time_groups(a, preps, SCAN_TIMED_GROUPS)
+    ips = TRAIN_BS / step_ms * 1e3
+    rec.update({"scan_steps": SCAN_N, "groups_checked": 3, "warm_up_launches": warm,
+                "graph_launches": per_graph[0], "capture_s": st["capture_s"],
+                "first_three_groups_s": secs, "step_ms": step_ms, "impressions_per_s": ips,
+                "peak_mem_gb": peak, "launches_scan": dict(st["launches"]),
+                "per_step_ms": per_step["step_ms"], "per_step_peak_gb": per_step["peak_mem_gb"]})
+    vs = f"; per step {per_step['step_ms']:.2f} ms in this run ({step_ms / per_step['step_ms']:.3f}x)"
+    print(f"[scan] nrms: graph of {SCAN_N} steps captured in {st['capture_s']:.2f} s, launches "
+          f"per graph {per_graph[0]}; {SCAN_TIMED_GROUPS} replayed groups: {step_ms:.2f} ms/step, "
+          f"{ips:,.0f} impressions/s, peak {peak:.2f} GB over the capture and replays{vs}",
+          flush=True)
+    del a, model
+    release()
+    return rec
+
+
+def scan_family(name, preps, per_step):
+    """A family at its full width with scan_steps=4: two groups (the warm-up,
+    the capture and its replay) against the same groups eagerly, bit for
+    bit (cuDNN deterministic for the two), then, recaptured under the
+    default cuDNN settings, replayed groups timed beside the per-step step
+    (``per_step``: its record in this run)."""
+    a, b, la, lb, warm, secs, _, peak = scan_pair(lambda: family_model(name),
+                                                  preps[:2 * SCAN_N], det=True)
+    rec = replay_vs_eager(name, a, b, la, lb)
+    del b
+    per_graph = graph_launches(a)
+    k3_want = SCAN_N * SCAN_K3[name]
+    check(warm.get("prng_dropout", 0) == k3_want and len(per_graph) == 1
+          and per_graph[0].get("prng_dropout", 0) == k3_want
+          and not any(v for k, v in per_graph[0].items() if k != "prng_dropout"),
+          f"{name}: K3 launches of the warm-up group {warm}, in the graph {per_graph} "
+          f"(expected {k3_want})")
+    a.drop_graphs()  # recapture under the default cuDNN settings, as the per-step run's
+    stats0 = dict(a.scan_stats)
+    for g in (preps[:SCAN_N], preps[SCAN_N:2 * SCAN_N]):
+        a.run_group(a.pack_group(g))
+    step_ms = time_groups(a, preps, SCAN_TIMED_GROUPS)
+    st = a.scan_stats
+    ips = FAM_BS / step_ms * 1e3
+    rec.update({"scan_steps": SCAN_N, "groups_checked": 2, "graph_launches": per_graph[0],
+                "capture_s": st["capture_s"] - stats0["capture_s"],
+                "capture_s_deterministic": stats0["capture_s"], "step_ms": step_ms,
+                "impressions_per_s": ips, "peak_mem_gb": peak,
+                "launches_scan": dict(st["launches"]),
+                "per_step_ms": per_step["step_ms"], "per_step_peak_gb": per_step["peak_mem_gb"]})
+    vs = f"; per step {per_step['step_ms']:.2f} ms in this run ({step_ms / per_step['step_ms']:.3f}x)"
+    print(f"[scan] {name}: K3 launches per graph {per_graph[0].get('prng_dropout', 0)}; capture "
+          f"{rec['capture_s']:.2f} s; {SCAN_TIMED_GROUPS} replayed groups: {step_ms:.2f} ms/step, "
+          f"{ips:,.0f} impressions/s, peak {peak:.2f} GB over the capture and replays{vs}",
+          flush=True)
+    del a
+    release()
+    return rec
+
+
+def scan_fit_full_width(staged_ips):
+    """``Trainer.fit`` with scan_steps=4 at the NRMS step's full width:
+    SCAN_FIT_EPOCHS epochs of SCAN_FIT_STEPS steps (two groups an epoch, each
+    padded to its own bucket) from a NewsrecFeed, prefetch 2, validation
+    after each epoch; its captures and their seconds, the impressions/s of
+    each epoch beside ``staged_ips`` (the per-step fit's in this run)."""
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.bench import token_table
+    from ebnerd_tpu_torch.data import EvalFeed, Lookup, NewsrecFeed
+    from ebnerd_tpu_torch.models import token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig
+
+    lookup = Lookup.from_values(np.arange(1, N_ART + 1),
+                                token_table(np.random.default_rng(0), "zipf")[1:])
+    train_feed = NewsrecFeed(train_table(TRAIN_BS * SCAN_FIT_STEPS, N_ART, seed=6), lookup,
+                             history_size=H, batch_size=TRAIN_BS, seed=0)
+    val = val_table(FIT_VAL_IMP, N_ART, seed=5)
+    val_feed = EvalFeed(val, lookup, history_size=H, batch_size=BATCH)
+    trainer = Trainer(full_width_model(), {"title": lookup.matrix}, token_batch,
+                      TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True, prefetch=2,
+                                    scan_steps=SCAN_N),
+                      device=DEV, log_fn=lambda m: print(f"[scan-fit] {m}", flush=True))
+    epoch_s, run_epoch = [], trainer._run_epoch
+
+    def timed_epoch(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(*a, **kw)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer._run_epoch = timed_epoch
+    history = trainer.fit(train_feed, val_feed, val[c.DEFAULT_LABELS_COL],
+                          epochs=SCAN_FIT_EPOCHS, steps_per_epoch=SCAN_FIT_STEPS)
+    trainer._run_epoch = run_epoch
+    check(len(history) == SCAN_FIT_EPOCHS and all(math.isfinite(h["loss"]) for h in history)
+          and all(0.0 <= h["val_auc"] <= 1.0 for h in history), f"scan fit history {history}")
+    st = trainer.scan_stats
+    groups = SCAN_FIT_EPOCHS * SCAN_FIT_STEPS // SCAN_N
+    check(st["eager_groups"] + st["replays"] == groups and trainer.step_count == groups * SCAN_N,
+          f"scan fit: {st} over {groups} groups")
+    ips = [TRAIN_BS * SCAN_FIT_STEPS / t for t in epoch_s]
+    rec = {"epochs": SCAN_FIT_EPOCHS, "steps_per_epoch": SCAN_FIT_STEPS, "scan_steps": SCAN_N,
+           "captures": st["captures"], "capture_s": st["capture_s"],
+           "eager_groups": st["eager_groups"], "replays": st["replays"],
+           "launches_scan": dict(st["launches"]), "epoch_s": epoch_s,
+           "impressions_per_s_epoch": ips, "history": history,
+           "per_step_fit_impressions_per_s": staged_ips}
+    vs = f" against the per-step fit's {staged_ips:,.0f}"
+    print(f"[scan-fit] {SCAN_FIT_EPOCHS} epochs x {SCAN_FIT_STEPS} steps of {TRAIN_BS}, "
+          f"scan_steps {SCAN_N}: {st['captures']} captures ({st['capture_s']:.2f} s), "
+          f"{st['eager_groups']} eager warm-up groups, {st['replays']} replays; impressions/s per "
+          f"epoch {', '.join(f'{v:,.0f}' for v in ips)}{vs}; losses "
+          f"{', '.join(f'{h['loss']:.6f}' for h in history)}", flush=True)
+    del trainer
+    release()
+    return rec
+
+
+def scan_phase(table, preps, gen, nrms_step, fams, fit):
+    """The [scan] phase: device-scalar checks of K1, K2 and K3, NRMS and the
+    five other families with scan_steps=4 (replays bit-equal to eager steps,
+    launches, timing beside the per-step records of this run), and the NRMS
+    fit with scan_steps."""
+    t0 = time.perf_counter()
+    bucket = max(int(p["art_uniq"].shape[0]) for p in preps)
+    rec = {"kernels": scan_kernel_checks(bucket, int(preps[0]["n_uniq"]), gen)}
+    rec["nrms"] = scan_nrms(table, preps, nrms_step)
+    fam_preps, _ = family_data()
+    for name in ("lstur", "naml", "npa", "fastformer", "nrms_docvec"):
+        rec[name] = scan_family(name, fam_preps, fams[name])
+    rec["fit"] = scan_fit_full_width(fit["impressions_per_s"])
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[scan] phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     gemm_only = "--gemm-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -2343,7 +2752,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     part, peaks = peaks_for(kind)
     print(f"[card] {kind}; peaks used for bounds ({part}): bf16 {peaks[0] / 1e12:g} TFLOP/s, "
-          f"fp32 {peaks[1] / 1e12:g} TFLOP/s, {peaks[2] / 1e12:g} TB/s", flush=True)
+          f"fp32 {peaks[1] / 1e12:g} TFLOP/s, {peaks[2] / 1e12:g} TB/s; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
@@ -2453,7 +2863,7 @@ def main(argv=None) -> int:
     record["training"] = training
     record["sparse"] = sparse_full_width(table, raws, preps, training)
     record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
-    del table, raws, preps
+    del raws
     record["fit"] = fit_full_width(training)
     record["sparse_fit"] = fit_full_width(record["sparse"], sparse=True)
     record["small_fit_resume"] = small_fit_resume()
@@ -2480,9 +2890,14 @@ def main(argv=None) -> int:
     record["fastformer_wu"] = fastformer_wu_check()
     record["cli"] = cli_phase(training["launches_per_step"][0], fam["naml"]["launches_per_step"][0])
     record["embed_grad"] = embed_grad_table()
+    release()
+    record["scan"] = scan = scan_phase(table, preps, gen, training, fam, record["fit"])
+    del table, preps
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_l = training["launches"]
+    scan_l = {k: scan["nrms"]["launches_scan"].get(k, 0) for k in K12}
+    scan_fit_l = {k: scan["fit"]["launches_scan"].get(k, 0) for k in K12}
     sp_l = record["sparse"]["launches"]
     cli_l = {k: v["launches"] for k, v in record["cli"].items() if k != "host_data"}
     k1, k2, k2b = by["bf16_train_news"], by["bwd_bf16_train_news"], blocks[0]
@@ -2496,6 +2911,7 @@ def main(argv=None) -> int:
               "launches_fit": record["fit"]["launches"]["news_encoder_fwd"],
               "launches_cli": cli_l["nrms"]["news_encoder_fwd"],
               "launches_sparse": sp_l["news_encoder_fwd"],
+              "launches_scan": scan_l["news_encoder_fwd"], "launches_scan_fit": scan_fit_l["news_encoder_fwd"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_fwd"],
               "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
                       "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
@@ -2510,6 +2926,7 @@ def main(argv=None) -> int:
               "launches_fit": record["fit"]["launches"]["news_encoder_bwd"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd"],
               "launches_sparse": sp_l["news_encoder_bwd"],
+              "launches_scan": scan_l["news_encoder_bwd"], "launches_scan_fit": scan_fit_l["news_encoder_bwd"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd"],
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
@@ -2521,6 +2938,7 @@ def main(argv=None) -> int:
               "launches": main_l["news_encoder_bwd_block"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_block"],
               "launches_sparse": sp_l["news_encoder_bwd_block"],
+              "launches_scan": scan_l["news_encoder_bwd_block"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_block"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_block"],
               "note": "K2's per-block recompute kernel alone (QKV stage on TMA-fed wgmma, "
                       "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
@@ -2533,6 +2951,7 @@ def main(argv=None) -> int:
               "launches": main_l["news_encoder_bwd_gemm"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_gemm"],
               "launches_sparse": sp_l["news_encoder_bwd_gemm"],
+              "launches_scan": scan_l["news_encoder_bwd_gemm"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_gemm"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_gemm"],
               "note": "dx and the row-reduced weight-gradient products of K2; the top-level "
                       "numbers are dWqkv at the news shape with the stream-0 mask (cases: the "
@@ -2545,6 +2964,7 @@ def main(argv=None) -> int:
               "launches": main_l["news_encoder_bwd_reduce"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_reduce"],
               "launches_sparse": sp_l["news_encoder_bwd_reduce"],
+              "launches_scan": scan_l["news_encoder_bwd_reduce"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_reduce"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_reduce"],
               "note": "fixed-order sum of K2's partials; the top-level numbers are the news "
                       "tower's dWqkv slices (cases: every partial shape of the NRMS step)",
@@ -2556,6 +2976,7 @@ def main(argv=None) -> int:
               "launches": main_l["news_encoder_bwd_mask"],
               "launches_cli": cli_l["nrms"]["news_encoder_bwd_mask"],
               "launches_sparse": sp_l["news_encoder_bwd_mask"],
+              "launches_scan": scan_l["news_encoder_bwd_mask"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_mask"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_mask"],
               "note": "the stream-0 (embedding) mask drawn once per step for dx and dWqkv: "
                       "round(x * mask) and keep bits; timed at the news tower's shape",
@@ -2575,6 +2996,9 @@ def main(argv=None) -> int:
               "launches_fastformer": fam["fastformer"]["launches"],
               "launches_cli_naml": cli_l["naml"]["prng_dropout"],
               "launches_cli_naml_sparse": cli_l["naml_sparse"]["prng_dropout"],
+              "launches_scan": sum(scan[n]["launches_scan"].get("prng_dropout", 0) for n in SCAN_K3),
+              **{f"launches_scan_{n}": scan[n]["launches_scan"].get("prng_dropout", 0)
+                 for n in SCAN_K3},
               "note": "seed-recompute dropout; timed at the title-embedding shape [bucket, 30, 1024] "
                       "bf16 (cases: every dropout shape of LSTUR, NAML, NPA and Fastformer, in the "
                       "dtype each step gives it); library_ms is F.dropout's forward, which draws "

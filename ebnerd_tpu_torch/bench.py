@@ -12,7 +12,12 @@ kernel's Philox masks, unique-article dedup, dense Adam at lr 1e-4.
 (``training/sparse_embed.py``; each staged step carries its own touched
 rows, cut to their count), ``BENCH_MU_DTYPE=bfloat16`` keeps Adam's
 first moment in bf16 (``training/adam.py``); both apply to every family
-with a word table.
+with a word table. ``BENCH_SCAN=N`` (N > 1) times groups of N steps, each
+one CUDA-graph replay (``TrainerConfig.scan_steps``): the batches are
+padded to one dedup bucket and packed into groups before the timing, two
+warm-up groups run the eager warm-up and the capture, BENCH_STEPS counts
+whole groups' steps, and the peak memory counts from the capture (its
+pool) on.
 ``BENCH_MODEL=lstur`` or ``naml`` runs that family at the configuration of
 ``profile_models.py`` with ``PM_BS=4096 PM_PRNGDROP=1``: the same table,
 25,001 articles, body 40 (NAML), filter 400, window 3, attention 200, GRU
@@ -43,7 +48,8 @@ for LSTUR and NAML), BENCH_STEPS (30), BENCH_WARMUP (5), BENCH_DTYPE
 BENCH_PRNGDROP (0 = generator-seeded dropout; LSTUR, NAML, NPA, Fastformer),
 BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
 uniform), BENCH_DEDUP (0 = per slot), BENCH_SPARSE (1 = row-sparse word
-table), BENCH_MU_DTYPE (bfloat16 = a bf16 Adam first moment).
+table), BENCH_MU_DTYPE (bfloat16 = a bf16 Adam first moment), BENCH_SCAN
+(1; N steps a graph replay).
 BENCH_FUSED_BLOCK is a TPU block size and does not apply.
 
 Run: python -m ebnerd_tpu_torch.bench
@@ -196,10 +202,39 @@ def optimizer_knobs(env=os.environ) -> tuple[bool, object]:
     return env.get("BENCH_SPARSE", "0") != "0", mu_dtype
 
 
+def scan_knob(env=os.environ) -> int:
+    """BENCH_SCAN: the steps of one graph replay (1 = per step)."""
+    n = int(env.get("BENCH_SCAN", "1"))
+    if n < 1:
+        raise ValueError(f"BENCH_SCAN must be >= 1, got {n}")
+    return n
+
+
+def stage(trainer, preps: list, scan: int) -> list:
+    """The timed loop's work items from host-prepped batches (what a
+    prefetch thread provides): batches on the card (``scan`` 1), or groups
+    of ``scan`` packed for one copy, padded to one dedup bucket so that one
+    graph serves them all."""
+    from .training import pad_dedup_to
+
+    if scan == 1:
+        return [trainer.prepare(p) for p in preps]
+    if "art_uniq" in preps[0]:
+        bucket = max(p["art_uniq"].shape[0] for p in preps)
+        preps = [pad_dedup_to(p, bucket) for p in preps]
+    return [trainer.pack_group(preps[i:i + scan]) for i in range(0, len(preps) - scan + 1, scan)]
+
+
+def run(trainer, item) -> torch.Tensor:
+    """One work item of ``stage``: a step, or a group's steps (their losses)."""
+    return trainer.step(item) if isinstance(item, dict) else trainer.run_group(item)
+
+
 def main() -> int:
     from .training import Trainer, TrainerConfig
 
     sparse, mu_dtype = optimizer_knobs()
+    scan = scan_knob()
     name = os.environ.get("BENCH_MODEL", "nrms").lower()
     if name not in FAMILIES:
         raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
@@ -209,6 +244,9 @@ def main() -> int:
     bs = int(os.environ.get("BENCH_BS", "16384" if name == "nrms" else "4096"))
     steps = int(os.environ.get("BENCH_STEPS", "30"))
     warmup = int(os.environ.get("BENCH_WARMUP", "5"))
+    if scan > 1:  # whole groups; two warm-up groups at least (the eager one, the capture)
+        steps = max(1, steps // scan) * scan
+        warmup = max(2, -(-warmup // scan)) * scan
     dtype = torch.float32 if os.environ.get("BENCH_DTYPE") == "float32" else torch.bfloat16
     fused = os.environ.get("BENCH_FUSED", "1") != "0"
     prng = os.environ.get("BENCH_PRNGDROP", "1") != "0"
@@ -220,7 +258,8 @@ def main() -> int:
     model, tables, builder, n_users = make_family(name, dtype, dropout, token_dist, fused, prng)
     trainer = Trainer(model, tables, builder,
                       TrainerConfig(learning_rate=1e-4, seed=0, dedup_articles=dedup,
-                                    sparse_embedding=sparse, adam_mu_dtype=mu_dtype),
+                                    sparse_embedding=sparse, adam_mu_dtype=mu_dtype,
+                                    scan_steps=scan),
                       device="cuda")
     all_b = batches(2, warmup + steps, bs, N_ARTICLES + 1, art_dist, n_users)
     raws = [{k: v[i] for k, v in all_b.items()} for i in range(warmup + steps)]
@@ -230,21 +269,23 @@ def main() -> int:
     sparse_rows = int(raws[0]["emb_valid"].sum()) if sparse else 0
     uniq_frac = (float(np.mean([r["n_uniq"] for r in raws]) / (bs * (HISTORY + NPRATIO + 1)))
                  if dedup else 1.0)
-    staged = [trainer.prepare(r) for r in raws]
+    staged = stage(trainer, raws, scan)
     torch.cuda.synchronize()
 
     loss = None
-    for i in range(warmup):
-        loss = trainer.step(staged[i])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    for item in staged[:warmup // scan]:
+        loss = run(trainer, item)
+        if scan == 1 or trainer.scan_stats["captures"] == 0:
+            # a graph's pool is allocated by its capture: the peak counts from there
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for i in range(warmup, warmup + steps):
-        loss = trainer.step(staged[i])
+    for item in staged[warmup // scan:]:
+        loss = run(trainer, item)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    if not torch.isfinite(loss):
-        raise RuntimeError(f"non-finite loss {loss.item()}")
+    if not torch.isfinite(loss).all():
+        raise RuntimeError(f"non-finite loss {loss}")
     ips = bs * steps / dt
     part, peak = bf16_peak(torch.cuda.get_device_name(0))
     out = {"metric": f"{name}_train_impressions_per_sec_per_chip", "value": round(ips, 1),
@@ -259,12 +300,16 @@ def main() -> int:
         "step_ms": round(dt / steps * 1000, 2),
         "config": (f"{name} bs{bs} {str(dtype).replace('torch.', '')} {variant} "
                    f"sparse={int(sparse)} mu={mu_dtype or 'float32'} dedup={int(dedup)} "
+                   f"scan={scan} "
                    f"tok={token_dist} art={art_dist} steps{steps} "
                    f"card={torch.cuda.get_device_name(0)} peak={part}"),
         "dedup_uniq_frac": round(uniq_frac, 4),
         "prep_ms": round(prep_ms, 2),
         "sparse_rows": sparse_rows,
         "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        "scan_steps": scan,
+        "captures": trainer.scan_stats["captures"],
+        "capture_s": round(trainer.scan_stats["capture_s"], 3),
     })
     print(json.dumps(out))
     return 0

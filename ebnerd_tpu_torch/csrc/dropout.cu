@@ -114,7 +114,9 @@ __device__ __forceinline__ void one(const T* __restrict__ x, T* __restrict__ y, 
 // elements covers exactly two counters and loads as whole vectors.
 template <typename T>
 __global__ void __launch_bounds__(256) dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                                      Params p, int vec) {
+                                                      Params p, int vec,
+                                                      const unsigned long long* seed) {
+  p.key = philox::key_at(p.key, seed);
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   long long done = 0;
@@ -140,10 +142,12 @@ __global__ void __launch_bounds__(256) dropout_kernel(const T* __restrict__ x, T
 extern "C" {
 
 // x, y: n elements of fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1), y written
-// in full; offset: global index of x[0]. Returns a cudaError_t code.
+// in full; offset: global index of x[0]. The key is (seed_lo, seed_hi), or
+// the 64-bit seed at `seed` in device memory when that is not null.
+// Returns a cudaError_t code.
 int dropout_apply(const void* x, void* y, long long n, unsigned long long offset,
-                  unsigned seed_lo, unsigned seed_hi, unsigned stream, unsigned thr, float inv,
-                  int is_bf16, void* cuda_stream) {
+                  unsigned seed_lo, unsigned seed_hi, const void* seed, unsigned stream,
+                  unsigned thr, float inv, int is_bf16, void* cuda_stream) {
   if (n < 0) return int(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const Params p{n, offset, philox::Key{seed_lo, seed_hi}, stream, thr, inv};
@@ -154,12 +158,13 @@ int dropout_apply(const void* x, void* y, long long n, unsigned long long offset
   const long long blocks = (work + threads - 1) / threads;
   const unsigned grid = unsigned(blocks < 8192 ? blocks : 8192);
   const cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const auto* sd = static_cast<const unsigned long long*>(seed);
   if (is_bf16) {
     dropout_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), p, vec);
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), p, vec, sd);
   } else {
     dropout_kernel<float><<<grid, threads, 0, s>>>(static_cast<const float*>(x),
-                                                   static_cast<float*>(y), p, vec);
+                                                   static_cast<float*>(y), p, vec, sd);
   }
   return int(cudaGetLastError());
 }

@@ -26,7 +26,8 @@
 // Output [N, D] fp32. Articles at or past n_valid are written as zeros; a
 // block whose first article is past n_valid computes nothing past the QKV
 // stage (bf16: it runs that stage only when a block of its cluster is
-// valid, fp32: not at all).
+// valid, fp32: not at all). n_valid and the dropout seed may be read from
+// device memory (a replayed CUDA graph serves each step's own).
 //
 // What bounds it on the card: at the article-tower shape (T 30, Din 1024,
 // D 400, A 200) about 74 of the 80 MFLOP per article are the QKV product,
@@ -71,6 +72,8 @@ struct FwdArgs {
   philox::Dropout dr;
   const float* ext_mask;
   float inv_ext;
+  const int* nv_dev;                  // n_valid in device memory, or null (n_valid above)
+  const unsigned long long* seed_dev; // the seed in device memory, or null (dr.key above)
 };
 
 template <typename T, int kCta>
@@ -92,14 +95,15 @@ __global__ void __launch_bounds__(kCta, 1)
   const int na = max(0, min(p.nb, p.n - g0));    // its articles inside N
   const int rows = na * t;
   const int hd = d / p.heads;
-  const bool active = g0 < p.n_valid;
+  const int n_valid = valid_at(p.n_valid, p.nv_dev, p.n);
+  const bool active = g0 < n_valid;
   const int n_groups = (p.heads + p.gh - 1) / p.gh;
 
   // 1-2. per head group: QKV panel, then that group's attention
   if constexpr (kBf) {
     const int nk = (din + kQkvBK - 1) / kQkvBK;
     // the cluster's CTAs run the QKV stage together when its first block is valid
-    const bool run_qkv = int(blockIdx.x) / p.cluster * p.cluster * p.nb < p.n_valid;
+    const bool run_qkv = int(blockIdx.x) / p.cluster * p.cluster * p.nb < n_valid;
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
     const QkvRing q{smem, bars, bars + kQkvMaxStages, p.stages, p.cluster};
     if (tid == 0) qkv_ring_init(q);
@@ -134,7 +138,7 @@ __global__ void __launch_bounds__(kCta, 1)
       return;
     }
     const float* xb = static_cast<const float*>(p.x) + size_t(g0) * t * din;
-    const EmbDrop ed{p.dr.key, p.dr.thr_emb, p.dr.inv_emb, g0 * t};
+    const EmbDrop ed{philox::key_at(p.dr.key, p.seed_dev), p.dr.thr_emb, p.dr.inv_emb, g0 * t};
     for (int g = 0; g < n_groups; ++g) {
       if (NE_PHASES & 1)
         qkv_panel_fp32(xb, rows, din, static_cast<const float*>(p.wqkv) + g * kPanel,
@@ -148,7 +152,9 @@ __global__ void __launch_bounds__(kCta, 1)
   }
 
   // 3. dropout between attention and pooling
-  drop_o(o, L.ldf, rows, d, g0 * t, p.dr, p.ext_mask, p.inv_ext);
+  philox::Dropout dr = p.dr;
+  dr.key = philox::key_at(dr.key, p.seed_dev);
+  drop_o(o, L.ldf, rows, d, g0 * t, dr, p.ext_mask, p.inv_ext);
   csync();
 
   // 4. pooling projection z = o W_att, pooling weights
@@ -161,7 +167,7 @@ __global__ void __launch_bounds__(kCta, 1)
   for (int i = tid; i < na * d; i += kThreads) {
     const int an = i / d, dd = i % d;
     float v = 0.f;
-    if (g0 + an < p.n_valid) {
+    if (g0 + an < n_valid) {
       for (int tt = 0; tt < t; ++tt) v += o[(an * t + tt) * L.ldf + dd] * wts[an * t + tt];
     }
     p.out[size_t(g0) * d + i] = v;
@@ -243,21 +249,27 @@ long long news_encoder_smem_bytes(int d, int a_pad, int is_bf16, int stages) {
 // or, with thr_att == 0, ext_mask [n*t, d] fp32 0/1 (may be null) times
 // inv_ext. bf16 runs the QKV stage with a ring of `stages` stages (1-3, at
 // most ceil(din / 64)) in clusters of `cluster` CTAs (1 or 2).
+// nv_dev, when not null, holds n_valid in device memory (int32; the launch
+// then takes n_valid = n for its geometry and x_rows = n * t) and seed_dev
+// the 64-bit seed (the key then comes from it, not from seed_lo/seed_hi):
+// what a captured CUDA graph reads anew at each replay.
 // Requires t <= 32, d / heads <= 32, 3 * gh * hd <= 256, a_pad % 16 == 0,
 // a_pad <= 256, din % (16 / elem) == 0, din % 4 == d % 4 == 0 with Philox
 // dropout, 16-byte aligned pointers. Returns a cudaError_t code (0 =
 // launched).
 int news_encoder_fwd(const void* x, int x_rows, const void* wqkv, const void* w_att,
                      const void* b_att, const void* q_att, void* out, int n, int t, int din, int d,
-                     int heads, int gh, int a, int a_pad, int n_valid, float scale, int is_bf16,
-                     unsigned seed_lo, unsigned seed_hi, unsigned thr_emb, unsigned thr_att,
-                     float inv_emb, float inv_att, const void* ext_mask, float inv_ext, int stages,
-                     int cluster, void* stream) {
+                     int heads, int gh, int a, int a_pad, int n_valid, const void* nv_dev,
+                     float scale, int is_bf16, unsigned seed_lo, unsigned seed_hi,
+                     const void* seed_dev, unsigned thr_emb, unsigned thr_att, float inv_emb,
+                     float inv_att, const void* ext_mask, float inv_ext, int stages, int cluster,
+                     void* stream) {
   const FwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
                   static_cast<float*>(out), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
                   cluster, scale,
                   philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
-                  static_cast<const float*>(ext_mask), inv_ext};
+                  static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),
+                  static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<bf16>(p, x_rows, s) : launch<float>(p, x_rows, s);
 }

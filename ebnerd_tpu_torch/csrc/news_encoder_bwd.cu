@@ -40,7 +40,11 @@
 // Blocks wholly past n_valid do nothing: their rows are left out of the
 // GEMMs' reduction and dx there is written as zeros. Inside a valid block,
 // articles at or past n_valid take g = 0 (the forward returns zeros for
-// them), so they add nothing.
+// them), so they add nothing. With n_valid (and the seed) read from device
+// memory, as a replayed CUDA graph needs, every launch takes the bucket's
+// geometry instead: the GEMMs clip their rows to the count they read, and
+// the blocks past it write zero partials and zero their rows up to the
+// next 64-row k-tile edge, the last rows a weight-gradient k-tile reads.
 //
 // What bounds it on the card: counted by useful work, per article at the
 // article-tower shape (T 30, Din 1024, D 400, A 200) the recompute forward
@@ -316,6 +320,8 @@ struct BwdArgs {
   philox::Dropout dr;
   const float* ext_mask;
   float inv_ext;
+  const int* nv_dev;                  // n_valid in device memory, or null (n_valid above)
+  const unsigned long long* seed_dev; // the seed in device memory, or null (dr.key above)
 };
 
 template <typename T, int kCta>
@@ -338,7 +344,8 @@ __global__ void __launch_bounds__(kCta, 1)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int t = p.t, d = p.d, a = p.a, a_pad = p.a_pad, din = p.din;
   const int g0 = blockIdx.x * p.nb;
-  const bool active = g0 < p.n_valid;  // blocks past it are left out of the GEMMs and reductions
+  const int n_valid = valid_at(p.n_valid, p.nv_dev, p.n);
+  const bool active = g0 < n_valid;  // blocks past it are left out of the GEMMs and reductions
   const int na = max(0, min(p.nb, p.n - g0));
   const int rows = na * t, row0 = g0 * t;
   const int hd = d / p.heads;
@@ -346,6 +353,26 @@ __global__ void __launch_bounds__(kCta, 1)
   const int P = n_groups * kPanel;
   const T* w_att = static_cast<const T*>(p.w_att);
   T* qkv = static_cast<T*>(p.qkv) + size_t(row0) * P;
+  philox::Dropout dr = p.dr;
+  dr.key = philox::key_at(dr.key, p.seed_dev);
+
+  // With n_valid in device memory the GEMMs and reductions take the
+  // bucket's geometry: a block wholly past n_valid writes zero partials, and
+  // zeros into its rows below the 64-row k-tile edge after the last valid
+  // row, which the weight-gradient GEMM's last k-tile reads (TMA fills only
+  // rows past the bucket with zeros).
+  auto zero_tail = [&]() {
+    for (int j = tid; j < a_pad; j += kThreads) {
+      p.db_part[size_t(blockIdx.x) * a_pad + j] = 0.f;
+      p.dq_part[size_t(blockIdx.x) * a_pad + j] = 0.f;
+    }
+    const int lim = max(0, min(rows, (n_valid * t + 63) / 64 * 64 - row0));
+    T* oc = static_cast<T*>(p.o_c) + size_t(row0) * d;
+    T* dz = static_cast<T*>(p.dz_c) + size_t(row0) * a_pad;
+    for (int i = tid; i < lim * P; i += kThreads) qkv[i] = from_f<T>(0.f);
+    for (int i = tid; i < lim * d; i += kThreads) oc[i] = from_f<T>(0.f);
+    for (int i = tid; i < lim * a_pad; i += kThreads) dz[i] = from_f<T>(0.f);
+  };
 
   // 1. recompute the forward: QKV panels (kept in the dqkv scratch) and o
   // (each panel copied out of R before that group's attention)
@@ -365,7 +392,7 @@ __global__ void __launch_bounds__(kCta, 1)
   if constexpr (kBf) {
     const int nk = (din + kQkvBK - 1) / kQkvBK;
     // the cluster's CTAs run the QKV stage together when its first block is valid
-    const bool run_qkv = int(blockIdx.x) / p.cluster * p.cluster * p.nb < p.n_valid;
+    const bool run_qkv = int(blockIdx.x) / p.cluster * p.cluster * p.nb < n_valid;
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + B.bars);
     const QkvRing q{smem, bars, bars + kQkvMaxStages, p.stages, p.cluster};
     if (tid == 0) qkv_ring_init(q);
@@ -377,6 +404,7 @@ __global__ void __launch_bounds__(kCta, 1)
       return;
     }
     hop::regs_inc<232>();
+    if (!active && p.nv_dev != nullptr) zero_tail();
     if (!run_qkv) return;
     int it = 0;
     for (int g = 0; g < n_groups; ++g) {
@@ -393,9 +421,12 @@ __global__ void __launch_bounds__(kCta, 1)
     }
     if (!active) return;
   } else {
-    if (!active) return;
+    if (!active) {
+      if (p.nv_dev != nullptr) zero_tail();
+      return;
+    }
     const float* xb = static_cast<const float*>(p.x) + size_t(row0) * din;
-    const EmbDrop ed{p.dr.key, p.dr.thr_emb, p.dr.inv_emb, row0};
+    const EmbDrop ed{dr.key, dr.thr_emb, dr.inv_emb, row0};
     for (int g = 0; g < n_groups; ++g) {
       if (NE_PHASES & 1)
         qkv_panel_fp32(xb, rows, din, static_cast<const float*>(p.wqkv) + g * kPanel, P, L, R, ed);
@@ -405,7 +436,7 @@ __global__ void __launch_bounds__(kCta, 1)
       csync();
     }
   }
-  drop_o(o, L.ldf, rows, d, row0, p.dr, p.ext_mask, p.inv_ext);
+  drop_o(o, L.ldf, rows, d, row0, dr, p.ext_mask, p.inv_ext);
   csync();
 
   // 2. round(o) for dW; dvals[r] = round(o[r]) . round(g[article])
@@ -414,7 +445,7 @@ __global__ void __launch_bounds__(kCta, 1)
   for (int r = warp; r < rows; r += kWarps) {
     const int art = g0 + r / t;
     float v = 0.f;
-    if (art < p.n_valid)
+    if (art < n_valid)
       for (int c = lane; c < d; c += 32) v += rnd<T>(o[r * L.ldf + c]) * rnd<T>(p.g[size_t(art) * d + c]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -437,7 +468,7 @@ __global__ void __launch_bounds__(kCta, 1)
     float inner = wv;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) inner += __shfl_xor_sync(0xffffffffu, inner, off);
-    if (lane < t) datt[r] = g0 + an < p.n_valid ? wts[r] * (dvals[r] - inner) : 0.f;
+    if (lane < t) datt[r] = g0 + an < n_valid ? wts[r] * (dvals[r] - inner) : 0.f;
   }
   csync();
 
@@ -517,16 +548,16 @@ __global__ void __launch_bounds__(kCta, 1)
       if (r >= rows || c >= d) continue;
       const int art = g0 + r / t;
       float4 m = make_float4(1.f, 1.f, 1.f, 1.f);
-      if (p.dr.thr_att)
-        m = philox::mask4(p.dr.key, uint32_t(row0 + r), uint32_t(c >> 2), 1u, p.dr.thr_att,
-                          p.dr.inv_att);
+      if (dr.thr_att)
+        m = philox::mask4(dr.key, uint32_t(row0 + r), uint32_t(c >> 2), 1u, dr.thr_att,
+                          dr.inv_att);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c + j >= d) break;
         float mj = philox::pick(m, j);
-        if (!p.dr.thr_att && p.ext_mask != nullptr)
+        if (!dr.thr_att && p.ext_mask != nullptr)
           mj = p.ext_mask[size_t(row0 + r) * d + c + j] * p.inv_ext;
-        const float gv = art < p.n_valid ? p.g[size_t(art) * d + c + j] : 0.f;
+        const float gv = art < n_valid ? p.g[size_t(art) * d + c + j] : 0.f;
         doc[r * L.ldo + c + j] = from_f<T>((wts[r] * gv + sc[rr * 16 + cc + j]) * mj);
       }
     }
@@ -583,7 +614,16 @@ struct WgArgs {
   const uint32_t* keep;  // dx: keep bits [m_valid, keep_ld] of the mask, or null (no mask)
   int keep_ld;
   float inv;             // 1 / keep probability: a kept element's scale
+  const int* nv_dev;     // a valid count in device memory, or null: valid rows are nv_mul
+  int nv_mul;            // times it (dx: m_valid; weight gradients: K at most)
 };
+
+// The rows a launch reads: with a valid count in device memory (a CUDA
+// graph's replay), dx's m_valid and the weight gradients' K become at most
+// nv_mul times it; else they are as passed.
+__device__ __forceinline__ int rows_at(int rows, const int* dev, int mul) {
+  return dev != nullptr ? min(rows, max(0, *dev) * mul) : rows;
+}
 
 // Tile t of the walk: column tile fastest, then row tile, then slice.
 struct WgTile {
@@ -611,6 +651,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
   extern __shared__ __align__(1024) unsigned char wsm_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wsm_raw) + 1023) & ~uintptr_t(1023));
+  if (kDx)
+    p.m_valid = rows_at(p.m_valid, p.nv_dev, p.nv_mul);
+  else
+    p.K = rows_at(p.K, p.nv_dev, p.nv_mul);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + kWStages * kWStage);
   uint64_t* empty = full + kWStages;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
@@ -764,13 +808,18 @@ __global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict_
                                                          bf16* __restrict__ xm,
                                                          uint32_t* __restrict__ keep, int keep_ld,
                                                          int rows, int cols, philox::Key key,
-                                                         uint32_t thr, float inv) {
+                                                         uint32_t thr, float inv,
+                                                         const int* rows_dev, int rows_mul,
+                                                         const unsigned long long* seed) {
   const int words = (cols + 31) / 32, n = rows * words * 4, j = threadIdx.x % 4;
   const unsigned quad = 0xFu << (threadIdx.x % 32 & ~3);
+  const int valid = rows_at(rows, rows_dev, rows_mul);  // rows past it: zeros, no bit kept
+  key = philox::key_at(key, seed);
   for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
     const int r = i / 4 / words, q = i / 4 % words, c = 32 * q + 8 * j;
+    const bool live = r < valid;
     uint32_t b = 0;
-    if (c < cols)
+    if (c < cols && live)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint4 x = philox::philox4x32_10(make_uint4(uint32_t(r), uint32_t(c / 4 + h), 0u, 0u), key);
@@ -788,9 +837,9 @@ __global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict_
       const bf16* src = a + size_t(r) * a_cols + c;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
       bf16* e = reinterpret_cast<bf16*>(&u);
-      if (a_cols % 8 == 0 && c + 8 <= a_cols) {
+      if (live && a_cols % 8 == 0 && c + 8 <= a_cols) {
         u = *reinterpret_cast<const uint4*>(src);
-      } else {
+      } else if (live) {
 #pragma unroll
         for (int k = 0; k < 8; ++k)
           if (c + k < a_cols) e[k] = src[k];
@@ -826,11 +875,17 @@ struct GemmTiles {
 template <bool kDx>
 __global__ void __launch_bounds__(kGThreads) bwd_gemm_fma_kernel(
     const float* __restrict__ A, const float* __restrict__ Bm, float* out, int M, int N, int K,
-    int lda_g, int ldb_g, int k_per_split, int m_valid, philox::Key key, uint32_t thr, float inv) {
+    int lda_g, int ldb_g, int k_per_split, int m_valid, philox::Key key, uint32_t thr, float inv,
+    const int* nv_dev, int nv_mul, const unsigned long long* seed) {
   using G = GemmTiles<kDx>;
   constexpr int VE = G::VE, BK = G::BK;
   extern __shared__ __align__(128) unsigned char sm[];
   const int tid = threadIdx.x;
+  if (kDx)
+    m_valid = rows_at(m_valid, nv_dev, nv_mul);
+  else
+    K = rows_at(K, nv_dev, nv_mul);
+  key = philox::key_at(key, seed);
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int k_begin = blockIdx.z * k_per_split, k_end = min(K, k_begin + k_per_split);
 
@@ -1034,7 +1089,7 @@ int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, const WgArgs& p, 
 template <bool kDx>
 int launch_gemm_bf16(const void* A, const void* Bm, void* out, const uint32_t* keep, int keep_ld,
                      int M, int N, int K, int lda, int ldb, int splits, int kps, int m_valid,
-                     float inv, cudaStream_t stream) {
+                     const int* nv_dev, int nv_mul, float inv, cudaStream_t stream) {
   const int m_tiles = (M + kWBM - 1) / kWBM, n_tiles = (N + kWBN - 1) / kWBN;
   if (M < 1 || N < 1 || K < 0 || N % (kDx ? 8 : 2) ||
       (long long)m_tiles * n_tiles * splits > (1LL << 31) - 1 ||
@@ -1048,7 +1103,8 @@ int launch_gemm_bf16(const void* A, const void* Bm, void* out, const uint32_t* k
                             hop::bf16_map(&tb, Bm, N, K, ldb, 64, kWBK);
   if (!ok) return int(cudaErrorInvalidValue);
   const long long tiles = (long long)n_tiles * m_tiles * (kDx ? 1 : splits);
-  const WgArgs p{out, M, N, K, kDx ? K : kps, kDx ? 1 : splits, kDx ? m_valid : 0, keep, keep_ld, inv};
+  const WgArgs p{out,   M,       N,   K,      kDx ? K : kps, kDx ? 1 : splits, kDx ? m_valid : 0,
+                 keep,  keep_ld, inv, nv_dev, nv_mul};
   // the ring's depth: 3 stages for the weight gradient of an output of at
   // most 512 rows, where 3 beat 4 on an H100 (PERF.md), else 4
   if constexpr (!kDx)
@@ -1059,7 +1115,8 @@ int launch_gemm_bf16(const void* A, const void* Bm, void* out, const uint32_t* k
 template <bool kDx>
 int launch_gemm_fp32(const void* A, const void* Bm, void* out, int M, int N, int K, int lda,
                      int ldb, int splits, int kps, int m_valid, philox::Key key, uint32_t thr,
-                     float inv, cudaStream_t stream) {
+                     float inv, const int* nv_dev, int nv_mul, const unsigned long long* seed,
+                     cudaStream_t stream) {
   if (M < 1 || N < 1 || K < 0 || lda % 4 || ldb % 4 || (kDx ? K % 4 : (M % 4 || N % 4)) ||
       (thr && (kDx ? N % 4 : M % 4)) || (!kDx && (splits < 1 || kps < 1)))
     return int(cudaErrorInvalidValue);
@@ -1071,7 +1128,7 @@ int launch_gemm_fp32(const void* A, const void* Bm, void* out, int M, int N, int
   kern<<<grid, kGThreads, smem, stream>>>(static_cast<const float*>(A),
                                            static_cast<const float*>(Bm), static_cast<float*>(out),
                                            M, N, K, lda, ldb, kDx ? std::max(K, 1) : kps, m_valid, key,
-                                           thr, inv);
+                                           thr, inv, nv_dev, nv_mul, seed);
   return int(cudaGetLastError());
 }
 
@@ -1106,19 +1163,24 @@ long long news_encoder_bwd_smem_bytes(int d, int a_pad, int is_bf16, int stages)
 // fp32. Writes qkv [n*t, P] (dQ|dK|dV in the packed panel layout), o_c
 // [n*t, d], dz_c [n*t, a_pad] (compute dtype), db_part and dq_part
 // [ceil(n / (64 / t)), a_pad] fp32, for the blocks before n_valid only.
+// With nv_dev (n_valid in device memory; the launch passes n_valid = n and
+// x_rows = n * t) the blocks past it write zero partials too, and zeros into
+// their rows below the 64-row edge after the last valid row; seed_dev: as
+// news_encoder_fwd.
 int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const void* w_att,
                           const void* b_att, const void* q_att, const void* g, void* qkv,
                           void* o_c, void* dz_c, void* db_part, void* dq_part, int n, int t,
                           int din, int d, int heads, int gh, int a, int a_pad, int n_valid,
-                          float scale, int is_bf16, unsigned seed_lo, unsigned seed_hi,
-                          unsigned thr_emb, unsigned thr_att, float inv_emb, float inv_att,
-                          const void* ext_mask, float inv_ext, int stages, int cluster,
-                          void* stream) {
+                          const void* nv_dev, float scale, int is_bf16, unsigned seed_lo,
+                          unsigned seed_hi, const void* seed_dev, unsigned thr_emb,
+                          unsigned thr_att, float inv_emb, float inv_att, const void* ext_mask,
+                          float inv_ext, int stages, int cluster, void* stream) {
   BwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
             static_cast<const float*>(g), qkv, o_c, dz_c, static_cast<float*>(db_part),
             static_cast<float*>(dq_part), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
             cluster, scale, philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
-            static_cast<const float*>(ext_mask), inv_ext};
+            static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),
+            static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_core<bf16>(p, x_rows, s) : launch_core<float>(p, x_rows, s);
 }
@@ -1133,29 +1195,40 @@ int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const voi
 // draws it: dx reads its keep bits [m_valid, keep_ld] (null: no mask) and
 // scales kept elements by inv; the weight gradient's A comes masked. fp32
 // draws the mask in the kernel from (seed, thr, inv); thr = 0: no mask.
+// nv_dev, when not null, is a valid count in device memory: dx's m_valid
+// and the weight gradients' K become at most nv_mul times it (the launch
+// passes the bucket's rows as m_valid and K, and cuts the slices by them).
+// seed_dev: the fp32 mask's seed in device memory, or null.
 int news_encoder_gemm(const void* A, const void* B, void* out, const void* keep, int keep_ld,
                       int M, int N, int K, int lda, int ldb, int is_dx, int splits,
-                      int k_per_split, int m_valid, int is_bf16, unsigned seed_lo,
-                      unsigned seed_hi, unsigned thr, float inv, void* stream) {
+                      int k_per_split, int m_valid, const void* nv_dev, int nv_mul, int is_bf16,
+                      unsigned seed_lo, unsigned seed_hi, const void* seed_dev, unsigned thr,
+                      float inv, void* stream) {
   const philox::Key key{seed_lo, seed_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* kb = static_cast<const uint32_t*>(keep);
+  const int* nv = static_cast<const int*>(nv_dev);
+  const auto* sd = static_cast<const unsigned long long*>(seed_dev);
   if (is_bf16)
     return is_dx ? launch_gemm_bf16<true>(A, B, out, kb, keep_ld, M, N, K, lda, ldb, 1, 0, m_valid,
-                                          inv, s)
+                                          nv, nv_mul, inv, s)
                  : launch_gemm_bf16<false>(A, B, out, nullptr, 0, M, N, K, lda, ldb, splits,
-                                           k_per_split, 0, inv, s);
-  return is_dx ? launch_gemm_fp32<true>(A, B, out, M, N, K, lda, ldb, 1, 0, m_valid, key, thr, inv, s)
+                                           k_per_split, 0, nv, nv_mul, inv, s);
+  return is_dx ? launch_gemm_fp32<true>(A, B, out, M, N, K, lda, ldb, 1, 0, m_valid, key, thr, inv,
+                                        nv, nv_mul, sd, s)
                : launch_gemm_fp32<false>(A, B, out, M, N, K, lda, ldb, splits, k_per_split, 0, key,
-                                         thr, inv, s);
+                                         thr, inv, nv, nv_mul, sd, s);
 }
 
 // The stream-0 mask of rows [0, rows), columns [0, cols): xm [rows, cols]
 // = round(x * mask) in bf16 (x [rows, x_cols], contiguous, x_cols <= cols;
 // xm zero past x_cols; skipped when xm is null) and the keep bits [rows,
-// keep_ld] (skipped when keep is null).
+// keep_ld] (skipped when keep is null). rows_dev, when not null, is a valid
+// count in device memory: rows at or past rows_mul times it get zeros in
+// xm and no kept bit. seed_dev: the seed in device memory, or null.
 int news_encoder_mask_x(const void* x, int x_cols, void* xm, void* keep, int keep_ld, int rows,
-                        int cols, unsigned seed_lo, unsigned seed_hi, unsigned thr, float inv,
+                        const void* rows_dev, int rows_mul, int cols, unsigned seed_lo,
+                        unsigned seed_hi, const void* seed_dev, unsigned thr, float inv,
                         void* stream) {
   const long long n = (long long)rows * ((cols + 31) / 32) * 4;
   if (rows < 0 || cols < 1 || cols % 8 || thr == 0 || n >= (1LL << 31) ||
@@ -1169,7 +1242,8 @@ int news_encoder_mask_x(const void* x, int x_cols, void* xm, void* keep, int kee
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x), x_cols, static_cast<bf16*>(xm),
         static_cast<uint32_t*>(keep), keep_ld, rows, cols, philox::Key{seed_lo, seed_hi}, thr,
-        inv);
+        inv, static_cast<const int*>(rows_dev), rows_mul,
+        static_cast<const unsigned long long*>(seed_dev));
   return int(cudaGetLastError());
 }
 

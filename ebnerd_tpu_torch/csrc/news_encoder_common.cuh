@@ -641,6 +641,13 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
   }
 }
 
+// The launch's valid article count: read from device memory when `dev` is
+// given (a CUDA graph's replay serves each batch's own count), clamped to
+// [0, n]; else the count the launch passed by value.
+__device__ __forceinline__ int valid_at(int n_valid, const int* dev, int n) {
+  return dev != nullptr ? min(n, max(0, *dev)) : n_valid;
+}
+
 // Dropout between attention and pooling, on the block's fp32 o [rows][ldf]
 // (rows start at global row row0): the stream-1 mask when dr.thr_att, else
 // the external 0/1 mask [N*T, d] times 1/keep when ext is given.

@@ -25,6 +25,18 @@ struct Key {
   uint32_t lo, hi;
 };
 
+// The key of a 64-bit seed: its low word, its high word.
+__host__ __device__ __forceinline__ Key key_of(unsigned long long s) {
+  return Key{uint32_t(s), uint32_t(s >> 32)};
+}
+
+// A launch's key: read from device memory when `dev` is given (the seed is
+// a device tensor, so a captured CUDA graph draws each replay's own seed),
+// else the key the launch passed by value.
+__device__ __forceinline__ Key key_at(Key k, const unsigned long long* dev) {
+  return dev != nullptr ? key_of(*dev) : k;
+}
+
 // Dropout parameters of one launch: stream 0 (embedding, on x) and
 // stream 1 (attention output, on o). A stream with thr == 0 is off.
 struct Dropout {

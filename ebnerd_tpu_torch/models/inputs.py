@@ -43,7 +43,11 @@ def _slots(raw: dict, out: dict, dev) -> dict:
     out["hist_slot"] = _index(raw["hist_slot"], dev)
     out["cand_slot"] = _index(raw["cand_slot"], dev)
     if "art_n_uniq" in raw:
-        out["art_n_uniq"] = int(np.asarray(raw["art_n_uniq"]).reshape(-1)[0])
+        n = raw["art_n_uniq"]
+        # a tensor (the scan path's stacked group) stays one: on the card the
+        # kernels read it there, so a replayed graph serves each batch's count
+        out["art_n_uniq"] = (n.reshape(-1)[0] if isinstance(n, torch.Tensor)
+                             else int(np.asarray(n).reshape(-1)[0]))
     if "art_counts" in raw:  # slot counts: the BN row weights of the dense stack
         c = raw["art_counts"]
         out["art_counts"] = torch.as_tensor(np.asarray(c) if not isinstance(c, torch.Tensor)
@@ -56,7 +60,8 @@ def token_batch(tables: dict, raw: dict) -> dict:
 
     A deduped batch (``training/dedup.py``: ``art_uniq`` + slot indices)
     gathers each unique article's tokens once and carries ``art_n_uniq``
-    as a host int: the fused kernels skip the bucket-pad blocks past it."""
+    (a host int; a 0-dim tensor when the raw batch holds a tensor): the
+    fused kernels skip the bucket-pad blocks past it."""
     title = tables["title"]
     dev = title.device
     if "art_uniq" in raw:

@@ -66,19 +66,21 @@ class PrngDropout(nn.Module):
     ``use_kernel=True``: ``ops.dropout.prng_dropout``, the seed-recompute
     kernel on CUDA tensors (its plain version on the CPU), masks regenerated
     in the backward. ``use_kernel=False``: a mask from a ``torch.Generator``
-    seeded with (seed, stream, row0), kept by autograd. Identity in eval
-    mode and at rate 0."""
+    seeded with (seed, stream, row0), kept by autograd. A seed that is a
+    tensor (the trainer's ``scan_steps`` path, whose steps a CUDA graph
+    replays) always takes the kernel: a generator would need its seed on
+    the host. Identity in eval mode and at rate 0."""
 
     def __init__(self, rate: float, use_kernel: bool = True):
         super().__init__()
         self.rate = rate
         self.use_kernel = use_kernel
 
-    def forward(self, x: torch.Tensor, seed: int, stream: int, row0: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed, stream: int, row0: int = 0) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        if self.use_kernel:
+        if self.use_kernel or isinstance(seed, torch.Tensor):
             return prng_dropout(x, seed, stream, keep, offset=row0 * x[0].numel())
         mixed = (seed ^ (stream * 0x9E3779B97F4A7C15) ^ (row0 * 0xBF58476D1CE4E5B9)) & ((1 << 64) - 1)
         gen = torch.Generator(device=x.device).manual_seed(fold_seed(mixed))

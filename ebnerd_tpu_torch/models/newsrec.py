@@ -17,9 +17,12 @@ With ``newsencoder_units_per_layer`` (unfused only) the dense stack
 (``_DenseStack``: Dense, relu, ``WeightedBatchNorm``, dropout per layer)
 runs between attention and pooling in place of the second dropout.
 Fused, both masks come from the kernel's Philox streams under one 64-bit
-seed per step; unfused, from a ``torch.Generator`` seeded with it. The
-seed is ``batch["dropout_seed"]`` (the trainer draws one per step), or one
-drawn from torch's global generator.
+seed per step; unfused, from a ``torch.Generator`` seeded with it, or,
+when the seed is a tensor (the trainer's ``scan_steps`` path), from the
+seed-recompute dropout kernel (``ops/dropout.py``) at streams 0
+(embedding) and 1 (attention output; the dense stack's block i at 1 + i).
+The seed is ``batch["dropout_seed"]`` (the trainer draws one per step), or
+one drawn from torch's global generator.
 
 Batch dict (tensors on the model's device), per slot:
   hist_tokens  int [B, H, T]
@@ -28,7 +31,7 @@ or deduped (``training/dedup.py``, ``models/inputs.py``):
   uniq_tokens  int [C, T]    the batch's unique articles, bucket-padded
   hist_slot    int [B, H]    positions into uniq_tokens
   cand_slot    int [B, K]
-  art_n_uniq   int           valid unique articles (the kernels skip the rest)
+  art_n_uniq   int, or an int32 device scalar: valid unique articles (the kernels skip the rest)
   art_counts   float [C]     slots per unique article (the dense stack's BN weights)
 """
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .. import resolve_device
+from ..ops.dropout import prng_dropout
 from ..ops.news_encoder import PackedWeights, news_encoder, pack_weights
 from .config import HParamsLSTUR, HParamsNAML, HParamsNPA, HParamsNRMS, HParamsNRMSDocVec
 from .layers import (AdditiveAttention, ConvEncoder, Dense, Embed, MaskedGRU,
@@ -69,10 +73,12 @@ def _maybe_remat(fn, enabled: bool):
     """``fn`` under ``torch.utils.checkpoint`` when ``enabled``: the backward
     recomputes the article encoder instead of keeping its per-token
     activations (flax ``nn.remat``). Exact: its dropout masks are
-    regenerated from the same seed."""
+    regenerated from the same seed, so no global RNG state is stashed (which
+    also lets a CUDA graph capture it)."""
     if not enabled:
         return fn
-    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                           preserve_rng_state=False)
 
 
 def _dedup_gather(art: torch.Tensor, batch: dict):
@@ -85,9 +91,10 @@ def _dedup_gather(art: torch.Tensor, batch: dict):
                  for k in ("hist_slot", "cand_slot"))
 
 
-def _seed_of(model: nn.Module, batch: dict) -> Optional[int]:
-    """The step's dropout seed: ``batch["dropout_seed"]``, else one drawn
-    when the model is training with dropout."""
+def _seed_of(model: nn.Module, batch: dict):
+    """The step's dropout seed: ``batch["dropout_seed"]`` (an int, or a
+    one-element int64 tensor), else one drawn when the model is training
+    with dropout."""
     seed = batch.get("dropout_seed")
     if seed is None and model.training and model.hparams.dropout > 0:
         seed = draw_seed()
@@ -114,7 +121,7 @@ class _DenseStack(nn.Module):
             setattr(self, f"bn_{i}", WeightedBatchNorm(u, device))
             din = u
 
-    def forward(self, x: torch.Tensor, seed: Optional[int],
+    def forward(self, x: torch.Tensor, seed,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(len(self.units)):
             x = F.relu(getattr(self, f"l2_dense_{i}")(x))
@@ -189,8 +196,7 @@ class NRMS(nn.Module):
         """Keep probability of the news tower's dropouts (1 in eval mode)."""
         return 1.0 - self.hparams.dropout if self.training and self.hparams.dropout > 0 else 1.0
 
-    def _fused(self, x: torch.Tensor, tower: str, n_valid: Optional[int] = None,
-               seed: Optional[int] = None) -> torch.Tensor:
+    def _fused(self, x: torch.Tensor, tower: str, n_valid=None, seed=None) -> torch.Tensor:
         # bf16 models keep x in bf16 and run the kernel at bf16 with fp32
         # accumulation; fp32 models keep full fp32 numerics
         compute = torch.bfloat16 if self.dtype == torch.bfloat16 else torch.float32
@@ -202,28 +208,31 @@ class NRMS(nn.Module):
             rng_seed=seed if keep < 1.0 else None, packed=packed)
         return out.to(self.dtype)
 
-    def encode_news(self, tokens: torch.Tensor, n_valid: Optional[int] = None,
-                    seed: Optional[int] = None, weights: Optional[torch.Tensor] = None,
+    def encode_news(self, tokens: torch.Tensor, n_valid=None, seed=None,
+                    weights: Optional[torch.Tensor] = None,
                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [N, T] -> news vectors [N, head_num*head_dim]. In training
-        mode with dropout, ``seed`` (64-bit) fixes every mask; ``weights``
-        (dedup path) are the dense stack's BN row weights; ``rows`` the
-        row-sparse mode's compact word rows (``WordEmbed``)."""
+        mode with dropout, ``seed`` (64-bit: an int, or a one-element int64
+        tensor) fixes every mask; ``n_valid`` (an int or an int32 device
+        scalar) bounds the fused kernels' work; ``weights`` (dedup path) are
+        the dense stack's BN row weights; ``rows`` the row-sparse mode's
+        compact word rows (``WordEmbed``)."""
         x = self.word_embedding(tokens, rows)
         keep = self._keep()
         if keep < 1.0 and seed is None:
             seed = draw_seed()
         if self.use_fused_encoder:
             return self._fused(x, "news", n_valid, seed)
-        gen = None
-        if keep < 1.0:
+        if keep == 1.0:
+            drop = lambda v, stream: v
+        elif isinstance(seed, torch.Tensor):  # the scan path: the kernel's streams 0 and 1
+            drop = lambda v, stream: prng_dropout(v, seed, stream, keep)
+        else:  # one generator draws both masks, in order
             gen = torch.Generator(device=x.device).manual_seed(fold_seed(seed))
-            x = generator_dropout(x, keep, gen)
+            drop = lambda v, stream: generator_dropout(v, keep, gen)
+        x = drop(x, 0)
         y = self.news_self_att(x, x, x)
-        if hasattr(self, "news_dense"):
-            y = self.news_dense(y, seed, weights)
-        elif gen is not None:
-            y = generator_dropout(y, keep, gen)
+        y = self.news_dense(y, seed, weights) if hasattr(self, "news_dense") else drop(y, 1)
         return self.news_pool(y)
 
     def encode_user(self, hist_vecs: torch.Tensor) -> torch.Tensor:
@@ -277,7 +286,7 @@ class NRMSDocVec(nn.Module):
         self.user_pool = AdditiveAttention(d, hp.attention_hidden_dim, **kw)
         self.eval()
 
-    def encode_news(self, vecs: torch.Tensor, seed: Optional[int] = None,
+    def encode_news(self, vecs: torch.Tensor, seed=None,
                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Document vectors [N, Dv] -> article vectors [N, D]."""
         return F.relu(self.news_out(self.news_dense(vecs, seed, weights)))

@@ -6,6 +6,11 @@ library goes into ``build/`` at the repo root (listed in ``.gitignore``),
 named by a hash of the source, the headers of ``csrc/`` and the flags, so
 an edited source or header is rebuilt at its next use. Nothing is
 compiled at import time.
+
+``count`` is each wrapper's launch count: ``fn.launches`` counts the
+launches that run when they are issued, ``fn.captured`` those recorded into
+a CUDA graph under capture (a replay runs them again without the wrapper,
+so a graph's launches are its captured count times its replays).
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "build_variants", "load"]
+import torch
+
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "build_variants", "load", "count"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -94,3 +101,13 @@ def load(name: str, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so))
             _libs[key] = lib
         return lib
+
+
+def count(fn) -> None:
+    """One launch of ``fn``'s kernel, just issued on the current stream:
+    ``fn.captured`` when that stream is capturing a CUDA graph, else
+    ``fn.launches``."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1

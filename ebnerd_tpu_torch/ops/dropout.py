@@ -12,9 +12,13 @@ its first element, gets the same mask as the whole.
 
 ``prng_dropout`` is a ``torch.autograd.Function``: its backward is the same
 kernel on the cotangent with the same (seed, stream, keep, offset), so no
-mask is stored. ``keep == 1`` returns x itself. ``dropout_apply`` launches
-``csrc/dropout.cu`` on a CUDA tensor (or raises) and calls the plain
-version, ``dropout_reference``, on a CPU tensor.
+mask is stored. ``keep == 1`` returns x itself. The seed is a Python int
+or a one-element int64 tensor (``ops/philox.py``); a tensor on x's device
+is read by the kernel from device memory, so a CUDA graph that captured
+the launch draws the mask of whatever seed the tensor holds at each
+replay. ``dropout_apply`` launches ``csrc/dropout.cu`` on a CUDA tensor
+(or raises) and calls the plain version, ``dropout_reference``, on a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -82,7 +86,7 @@ def dropout_reference(x: torch.Tensor, seed, stream: int, keep: float,
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.dropout_apply.argtypes = [p, p, ctypes.c_longlong, ctypes.c_ulonglong, u, u, u, u,
+    lib.dropout_apply.argtypes = [p, p, ctypes.c_longlong, ctypes.c_ulonglong, u, u, p, u, u,
                                   ctypes.c_float, i, p]
     lib.dropout_apply.restype = i
     lib.dropout_error_string.argtypes = [i]
@@ -94,8 +98,8 @@ def dropout_apply(x: torch.Tensor, seed, stream: int, keep: float,
                   offset: int = 0) -> torch.Tensor:
     """x * mask / keep, a new contiguous tensor of x's shape and dtype:
     on a CUDA tensor from the kernel (``csrc/dropout.cu``), which is
-    counted in ``dropout_apply.launches``; on a CPU tensor from the plain
-    version."""
+    counted by ``_build.count``; on a CPU tensor from the plain version.
+    A seed tensor on x's device goes to the kernel by pointer."""
     _check(keep, offset, stream)
     if x.device.type == "cpu":
         return dropout_reference(x, seed, stream, keep, offset)
@@ -105,35 +109,41 @@ def dropout_apply(x: torch.Tensor, seed, stream: int, keep: float,
         raise ValueError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
     x = x.contiguous()
     y = torch.empty_like(x)
-    lo, hi = philox.split_seed(seed)
+    lo, hi, seed_ptr = philox.kernel_seed(seed, x.device)
     lib = bind(_build.load("dropout"))
     with torch.cuda.device(x.device):
-        err = lib.dropout_apply(x.data_ptr(), y.data_ptr(), x.numel(), offset, lo, hi, stream,
-                                philox.threshold(keep), philox.inverse(keep),
+        err = lib.dropout_apply(x.data_ptr(), y.data_ptr(), x.numel(), offset, lo, hi, seed_ptr,
+                                stream, philox.threshold(keep), philox.inverse(keep),
                                 int(x.dtype == torch.bfloat16),
                                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("dropout_apply launch failed: " + lib.dropout_error_string(err).decode())
-    dropout_apply.launches += 1
+    _build.count(dropout_apply)
     return y
 
 
-dropout_apply.launches = 0
+dropout_apply.launches = dropout_apply.captured = 0
 
 
 class PrngDropoutFunction(torch.autograd.Function):
     """Forward and backward both ``dropout_apply`` under the same (seed,
     stream, keep, offset): dx = dy * mask / keep with the mask regenerated,
-    never saved."""
+    never saved. A seed tensor is saved for the backward (it is one int64)."""
 
     @staticmethod
     def forward(ctx, x, seed, stream, keep, offset):
-        ctx.args = (seed, stream, keep, offset)
+        tensor_seed = isinstance(seed, torch.Tensor)
+        if tensor_seed:
+            ctx.save_for_backward(seed)
+        ctx.args = (None if tensor_seed else seed, stream, keep, offset)
         return dropout_apply(x, seed, stream, keep, offset)
 
     @staticmethod
     def backward(ctx, dy):
-        return dropout_apply(dy, *ctx.args), None, None, None, None
+        seed, *rest = ctx.args
+        if seed is None:
+            seed = ctx.saved_tensors[0]
+        return dropout_apply(dy, seed, *rest), None, None, None, None
 
 
 def prng_dropout(x: torch.Tensor, seed, stream: int, keep: float,

@@ -18,6 +18,17 @@ reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
 ``torch.autograd.Function`` whose forward launches K1 and whose backward
 launches K2; on the CPU autograd of the plain version.
 
+``rng_seed`` and ``n_valid`` may be device tensors (a one-element int64
+seed, a one-element int32 count on x's device): the kernels then read them
+from device memory at run time, so one CUDA graph replays a step for any
+seed and any valid count of its bucket (``training/trainer.py``'s
+``scan_steps``). With a device ``n_valid`` every launch takes the bucket's
+geometry (N articles: the grids, the GEMMs' row slices and the reductions'
+rows), the kernels skip the blocks and rows past the count they read, and
+the blocks past it write zero partials (``csrc/news_encoder_bwd.cu``);
+articles at or past it still come out as zeros with zero gradients. A
+host ``n_valid`` keeps the launches and bits it always had.
+
 The kernels read rows of x with 16-byte vector loads and TMA, so they take
 a Din that is a multiple of 8 in bf16 (4 in fp32). Any other Din is padded
 on the kernel side only: ``pack_weights`` gives Wqkv zero rows and
@@ -87,7 +98,8 @@ def _round(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
 
 
 class Dropout(NamedTuple):
-    """One launch's dropout, as the kernels take it: Philox key and 24-bit
+    """One launch's dropout, as the kernels take it: Philox key (or
+    ``seed_dev``, the seed tensor the kernels read it from) and 24-bit
     thresholds (0 = stream off) with their 1/keep, or an external fp32
     0/1 mask [N*T, D] with 1/keep."""
     seed_lo: int = 0
@@ -98,6 +110,7 @@ class Dropout(NamedTuple):
     inv_att: float = 1.0
     ext_mask: Optional[torch.Tensor] = None
     inv_ext: float = 1.0
+    seed_dev: Optional[torch.Tensor] = None
 
 
 def dropout_config(n: int, t: int, d: int, keep_prob: float = 1.0, emb_keep_prob: float = 1.0,
@@ -111,11 +124,12 @@ def dropout_config(n: int, t: int, d: int, keep_prob: float = 1.0, emb_keep_prob
         if not 0.0 < k <= 1.0:
             raise ValueError(f"{name} must be in (0, 1], got {k}")
     if rng_seed is not None and (keep_prob < 1.0 or emb_keep_prob < 1.0):
-        lo, hi = philox.split_seed(rng_seed)
+        lo, hi, ptr = philox.kernel_seed(rng_seed, device if device is not None else "cpu")
         return Dropout(lo, hi,
                        philox.threshold(emb_keep_prob) if emb_keep_prob < 1.0 else 0,
                        philox.threshold(keep_prob) if keep_prob < 1.0 else 0,
-                       philox.inverse(emb_keep_prob), philox.inverse(keep_prob))
+                       philox.inverse(emb_keep_prob), philox.inverse(keep_prob),
+                       seed_dev=None if ptr is None else rng_seed)
     if emb_keep_prob < 1.0:
         raise ValueError("emb_keep_prob < 1 needs rng_seed (the embedding mask is in-kernel only)")
     if keep_prob < 1.0:
@@ -261,8 +275,8 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the forward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.news_encoder_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i,
-                                     u, u, u, u, f, f, p, f, i, i, p]
+    lib.news_encoder_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, f, i,
+                                     u, u, p, u, u, f, f, p, f, i, i, p]
     lib.news_encoder_fwd.restype = i
     lib.news_encoder_smem_bytes.argtypes = [i, i, i, i]
     lib.news_encoder_smem_bytes.restype = ctypes.c_longlong
@@ -275,11 +289,11 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 10 + [i] * 9
-                                          + [f, i, u, u, u, u, f, f, p, f, i, i, p])
+                                          + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, p])
     lib.news_encoder_bwd_core.restype = i
-    lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 11 + [u, u, u, f, p]
+    lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 10 + [p, i, i, u, u, p, u, f, p]
     lib.news_encoder_gemm.restype = i
-    lib.news_encoder_mask_x.argtypes = [p, i, p, p, i, i, i, u, u, u, f, p]
+    lib.news_encoder_mask_x.argtypes = [p, i, p, p, i, i, p, i, i, u, u, p, u, f, p]
     lib.news_encoder_mask_x.restype = i
     lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, i, p, p, p]
     lib.news_encoder_reduce.restype = i
@@ -426,14 +440,31 @@ def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, e
     drop = dropout_config(n, t, weights[0].shape[1], keep_prob, emb_keep_prob, rng_seed,
                           drop_mask, x.device)
     _check_x(x, packed, drop)
-    nv = _n_valid(n, n_valid)
-    xin, keep, drop_in = kernel_input(x, nv, drop)
-    out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t)
-    return out, xin, keep, packed, drop, nv
+    nv, nv_dev = _valid(n, n_valid, x.device)
+    xin, keep, drop_in = kernel_input(x, nv, drop, nv_dev)
+    out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
+    return out, xin, keep, packed, drop, nv, nv_dev
 
 
-def _n_valid(n: int, n_valid: Optional[int]) -> int:
+def _n_valid(n: int, n_valid) -> int:
     return n if n_valid is None else max(0, min(int(n_valid), n))
+
+
+def _valid(n: int, n_valid, device) -> tuple:
+    """(nv, nv_dev) for the kernels: a count on ``device`` (a CUDA tensor)
+    stays there as a 0-dim int32 tensor that the kernels read, and the
+    launches take the bucket's geometry, nv = n; anything else is read on
+    the host, nv_dev None."""
+    if (isinstance(n_valid, torch.Tensor) and n_valid.device.type != "cpu"
+            and n_valid.device == torch.device(device)):
+        if n_valid.numel() != 1 or n_valid.is_floating_point():
+            raise ValueError("a device n_valid must be one integer")
+        return n, n_valid.reshape(()).to(torch.int32)
+    return _n_valid(n, n_valid), None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _check_x(x, packed: PackedWeights, drop: Dropout):
@@ -459,7 +490,7 @@ def _check_launch(lib, err: int, what: str, error_string) -> None:
         raise RuntimeError(f"{what} launch failed: " + error_string(err).decode())
 
 
-def kernel_input(x, nv: int, drop: Dropout) -> tuple:
+def kernel_input(x, nv: int, drop: Dropout, nv_dev: Optional[torch.Tensor] = None) -> tuple:
     """The kernels' x operand for x [N, T, Din] with ``nv`` valid articles:
     (x2, keep, drop_in), x2 ``padded_din`` wide (zero columns past Din). In
     bf16 with the stream-0 (embedding) mask, x2 is round(x * mask) of the
@@ -474,7 +505,9 @@ def kernel_input(x, nv: int, drop: Dropout) -> tuple:
     x2 = x.reshape(n * t, din)
     keep, drop_in = None, drop
     if x.dtype == torch.bfloat16 and drop.thr_emb:
-        xm, keep = emb_mask(nv * t, width, drop, device=x.device, x=x2)
+        # a device count (nv = n): the kernel zeroes the rows past it
+        xm, keep = emb_mask(nv * t, width, drop, device=x.device, x=x2,
+                            valid=None if nv_dev is None else (nv_dev, t))
         drop_in = drop._replace(thr_emb=0, inv_emb=1.0)
         if nv:
             return xm, keep, drop_in
@@ -519,11 +552,12 @@ def _kernel_x(x, packed: PackedWeights, nv: int, n: int, t: int):
 
 
 def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int,
-           t: int) -> torch.Tensor:
+           t: int, nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the forward kernel library ``lib`` on the current stream, on x
     [rows, Din] from ``kernel_input`` for N articles of T tokens, ``nv``
-    valid, and count the launch in ``fused_news_encoder.launches``; raises
-    if the launch is refused. ``fused_news_encoder`` passes the library
+    valid (or, with ``nv_dev``, the count that int32 device scalar holds;
+    nv is then N), and count the launch (``_build.count``); raises if the
+    launch is refused. ``fused_news_encoder`` passes the library
     built from ``csrc/news_encoder.cu``; the profiling tool passes variants
     of it."""
     x_rows = _kernel_x(x, packed, nv, n, t)
@@ -544,15 +578,15 @@ def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *
         err = lib.news_encoder_fwd(
             x.data_ptr(), x_rows, packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), out.data_ptr(), n, t, din, d,
-            packed.num_heads, packed.heads_per_group, a, a_pad, nv, scale, is_bf16,
-            drop.seed_lo, drop.seed_hi, drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att,
-            None if ext is None else ext.data_ptr(), drop.inv_ext, stages, cluster, stream)
+            packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev), scale, is_bf16,
+            drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att,
+            drop.inv_emb, drop.inv_att, _ptr(ext), drop.inv_ext, stages, cluster, stream)
     _check_launch(lib, err, "news_encoder_fwd", lib.news_encoder_error_string)
-    fused_news_encoder.launches += 1
+    _build.count(fused_news_encoder)
     return out
 
 
-fused_news_encoder.launches = 0
+fused_news_encoder.launches = fused_news_encoder.captured = 0
 
 
 def _stream(dev) -> int:
@@ -582,7 +616,7 @@ def slice_rows(rows: int, splits: int) -> int:
 
 
 def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
-             drop: Dropout = Dropout(), splits: int = 1, keep=None) -> torch.Tensor:
+             drop: Dropout = Dropout(), splits: int = 1, keep=None, valid=None) -> torch.Tensor:
     """The backward's GEMM (``csrc/news_encoder_bwd.cu``) on CUDA tensors in
     the compute dtype, masked by Philox stream 0 when ``drop.thr_emb``:
 
@@ -595,7 +629,9 @@ def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
     bf16 runs on the tensor cores (wgmma, TMA) and takes the mask as
     ``emb_mask`` draws it: dx from ``keep``, its keep bits (scaled by
     ``drop.inv_emb``); the weight gradient from a masked a, with
-    ``Dropout()``. fp32 runs by FMA and draws the mask in the kernel."""
+    ``Dropout()``. fp32 runs by FMA and draws the mask in the kernel.
+    ``valid`` = (count, mul), an int32 device scalar and a multiplier: the
+    kernel reads rows = mul * count at run time, at most ``rows``."""
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("a and b must share the compute dtype (float32 or bfloat16)")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -622,27 +658,30 @@ def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
         kk, lda, ldb, kps = rows, m, n, slice_rows(rows, splits)
     lib = _library_bwd()
     with torch.cuda.device(a.device):
-        err = lib.news_encoder_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                    None if keep is None else keep.data_ptr(),
+        err = lib.news_encoder_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(keep),
                                     0 if keep is None else keep.shape[1], m, n, kk,
-                                    lda, ldb, int(dx), splits, kps, rows, int(is_bf16),
-                                    drop.seed_lo, drop.seed_hi, drop.thr_emb, drop.inv_emb,
-                                    _stream(a.device))
+                                    lda, ldb, int(dx), splits, kps, rows,
+                                    _ptr(None if valid is None else valid[0]),
+                                    0 if valid is None else valid[1], int(is_bf16),
+                                    drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb,
+                                    drop.inv_emb, _stream(a.device))
     _check_launch(lib, err, "news_encoder_gemm", lib.news_encoder_bwd_error_string)
-    bwd_gemm.launches += 1
+    _build.count(bwd_gemm)
     return out
 
 
-bwd_gemm.launches = 0
+bwd_gemm.launches = bwd_gemm.captured = 0
 
 
-def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None) -> tuple:
+def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None, valid=None) -> tuple:
     """The stream-0 (embedding) mask of rows [0, rows), columns [0, width),
     drawn once by K2's mask kernel (CUDA) for both products that need it:
     (xm, keep) with xm = round(x[:rows] * mask) [rows, width] in bf16 (None
     when x is None; x may be narrower than ``width``, and xm is zero past
     its columns) and keep [rows, ceil(width / 32)] int32, bit j of word q
-    keeping column 32 q + j."""
+    keeping column 32 q + j. ``valid`` = (count, mul), an int32 device
+    scalar and a multiplier: rows at or past mul * count (read at run time)
+    get zeros in xm and no kept bit."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -657,16 +696,17 @@ def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None) -> tuple:
     x_cols = width if x is None else x.shape[1]
     lib = _library_bwd()
     with torch.cuda.device(dev):
-        err = lib.news_encoder_mask_x(None if x is None else x.data_ptr(), x_cols,
-                                      None if xm is None else xm.data_ptr(), keep.data_ptr(),
-                                      keep.shape[1], rows, width, drop.seed_lo, drop.seed_hi,
-                                      drop.thr_emb, drop.inv_emb, _stream(dev))
+        err = lib.news_encoder_mask_x(_ptr(x), x_cols, _ptr(xm), keep.data_ptr(), keep.shape[1],
+                                      rows, _ptr(None if valid is None else valid[0]),
+                                      0 if valid is None else valid[1], width, drop.seed_lo,
+                                      drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb, drop.inv_emb,
+                                      _stream(dev))
     _check_launch(lib, err, "news_encoder_mask_x", lib.news_encoder_bwd_error_string)
-    emb_mask.launches += 1
+    _build.count(emb_mask)
     return xm, keep
 
 
-emb_mask.launches = 0
+emb_mask.launches = emb_mask.captured = 0
 
 
 def pack_bits(kept: torch.Tensor) -> torch.Tensor:
@@ -744,11 +784,11 @@ def reduce_rows(part: torch.Tensor) -> torch.Tensor:
                                       None if scratch is None else scratch.data_ptr(),
                                       out.data_ptr(), _stream(part.device))
     _check_launch(lib, err, "news_encoder_reduce", lib.news_encoder_bwd_error_string)
-    reduce_rows.launches += 1
+    _build.count(reduce_rows)
     return out
 
 
-reduce_rows.launches = 0
+reduce_rows.launches = reduce_rows.captured = 0
 
 
 def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: int,
@@ -773,16 +813,17 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
     d = wq.shape[1]
     drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
     _check_x(x, packed, drop)
-    nv = _n_valid(n, n_valid)
-    xin, keep, _ = kernel_input(x, nv, drop)
-    return _backward(xin, keep, packed, g, n, t, nv, drop)
+    nv, nv_dev = _valid(n, n_valid, x.device)
+    xin, keep, _ = kernel_input(x, nv, drop, nv_dev)
+    return _backward(xin, keep, packed, g, n, t, nv, drop, nv_dev)
 
 
 def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
-              drop: Dropout) -> tuple:
+              drop: Dropout, nv_dev: Optional[torch.Tensor] = None) -> tuple:
     """K2 on ``kernel_input``'s (xin, keep) for N articles of T tokens, nv
-    valid, under the call's dropout ``drop``: the per-block kernel, dx,
-    dWqkv and dW products and the reductions."""
+    valid (or, with ``nv_dev``, the count that device scalar holds, nv
+    then N: the bucket's geometry), under the call's dropout ``drop``: the
+    per-block kernel, dx, dWqkv and dW products and the reductions."""
     din, d = xin.shape[1], packed.w_att.shape[0]
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
@@ -792,16 +833,17 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     masked = keep is not None  # bf16 with the stream-0 mask: xin is round(x * mask)
     drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
     qkv, o_c, dz_c, db_part, dq_part = launch_bwd_core(_library_bwd(), xin, packed, g, nv,
-                                                       drop_in, n=n, t=t)
-    fused_news_encoder_bwd.launches += 1
+                                                       drop_in, n=n, t=t, nv_dev=nv_dev)
+    _build.count(fused_news_encoder_bwd)
     a_pad, a, p_cols = packed.w_att.shape[1], packed.b_att.shape[0], packed.wqkv.shape[1]
     nv_blocks = -(-nv // (64 // t))
     rows = nv * t
-    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep)
+    valid = None if nv_dev is None else (nv_dev, t)
+    dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep, valid=valid)
     dx = (dx if din == din_x else dx[:, :din_x]).reshape(n, t, din_x)
-    dwqkv = reduce_rows(bwd_gemm(xin, qkv, dx=False, rows=rows, drop=drop_in,
+    dwqkv = reduce_rows(bwd_gemm(xin, qkv, dx=False, rows=rows, drop=drop_in, valid=valid,
                                  splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
-    dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows,
+    dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows, valid=valid,
                               splits=gemm_splits(d, a_pad, rows))).reshape(d, a_pad)
     db = reduce_rows(db_part[:nv_blocks])
     dq = reduce_rows(dq_part[:nv_blocks])
@@ -809,16 +851,19 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     return dx, dwq, dwk, dwv, dw[:, :a], db[:a], dq[:a].reshape(a, 1)
 
 
-fused_news_encoder_bwd.launches = 0
+fused_news_encoder_bwd.launches = fused_news_encoder_bwd.captured = 0
 
 
 def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop: Dropout, *,
-                    n: int, t: int) -> tuple:
+                    n: int, t: int, nv_dev: Optional[torch.Tensor] = None) -> tuple:
     """Launch the backward's per-block kernel from the library ``lib`` on
     the current stream, on x [rows, Din] from ``kernel_input``: (dqkv
     [N*T, P], round(o) [N*T, D], round(dz) [N*T, a_pad] in the compute
     dtype, db and dq partials [blocks, a_pad] fp32; rows and blocks past
-    ``nv`` articles are left unwritten). Raises if the launch is refused.
+    ``nv`` articles are left unwritten; with ``nv_dev``, the int32 device
+    count the kernel reads, nv is N and the blocks past the count write zero
+    partials and zero the rows the GEMMs' last k-tile reads). Raises if the
+    launch is refused.
     ``fused_news_encoder_bwd`` passes the
     library built from ``csrc/news_encoder_bwd.cu``; the profiling tool
     variants."""
@@ -847,16 +892,16 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
             x.data_ptr(), x_rows, packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), g.data_ptr(), qkv.data_ptr(),
             o_c.data_ptr(), dz_c.data_ptr(), db_part.data_ptr(), dq_part.data_ptr(),
-            n, t, din, d, packed.num_heads, packed.heads_per_group, a, a_pad, nv,
+            n, t, din, d, packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev),
             1.0 / math.sqrt(d // packed.num_heads), is_bf16, drop.seed_lo, drop.seed_hi,
-            drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att,
-            None if ext is None else ext.data_ptr(), drop.inv_ext, stages, cluster, _stream(dev))
+            _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att, _ptr(ext),
+            drop.inv_ext, stages, cluster, _stream(dev))
     _check_launch(lib, err, "news_encoder_bwd_core", lib.news_encoder_bwd_error_string)
-    launch_bwd_core.launches += 1
+    _build.count(launch_bwd_core)
     return qkv, o_c, dz_c, db_part, dq_part
 
 
-launch_bwd_core.launches = 0
+launch_bwd_core.launches = launch_bwd_core.captured = 0
 
 
 class NewsEncoderFunction(torch.autograd.Function):
@@ -871,17 +916,18 @@ class NewsEncoderFunction(torch.autograd.Function):
     def forward(ctx, x, wq, wk, wv, w_att, b_att, q_att, packed, num_heads, compute_dtype,
                 n_valid, keep_prob, emb_keep_prob, rng_seed, drop_mask):
         _check_compute(compute_dtype)
-        out, xin, keep, packed, drop, nv = _forward(
+        out, xin, keep, packed, drop, nv, nv_dev = _forward(
             x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype, n_valid,
             keep_prob, emb_keep_prob, rng_seed, drop_mask)
         ctx.save_for_backward(xin, keep)
-        ctx.packed, ctx.shape, ctx.drop = packed, (*x.shape[:2], nv), drop
+        ctx.packed, ctx.shape, ctx.drop, ctx.nv_dev = packed, (*x.shape[:2], nv), drop, nv_dev
         return out
 
     @staticmethod
     def backward(ctx, g):
         xin, keep = ctx.saved_tensors
-        grads = _backward(xin, keep, ctx.packed, g.contiguous().float(), *ctx.shape, ctx.drop)
+        grads = _backward(xin, keep, ctx.packed, g.contiguous().float(), *ctx.shape, ctx.drop,
+                          ctx.nv_dev)
         return (*grads,) + (None,) * 8
 
 

@@ -16,10 +16,18 @@ attention-output mask (D wide).
 
 ``philox4x32`` and ``mask`` are the plain versions in torch integer ops
 (32 x 32 -> 64-bit products are split into 16-bit limbs, so no int64
-product overflows). ``dump_masks`` writes masks through the CUDA device
-function the kernels use (``csrc/philox.cuh``, launched from
-``csrc/philox.cu``) when asked for a CUDA device, and through the plain
-version on the CPU.
+product overflows).
+
+``dump_masks`` writes masks through the CUDA device function the kernels
+use (``csrc/philox.cuh``, launched from ``csrc/philox.cu``) when asked for
+a CUDA device, and through the plain version on the CPU.
+
+A seed is a Python int in [0, 2**64) or a one-element int64 tensor that
+holds its 64 bits (a seed >= 2**63 is a negative int64). The plain versions
+split a tensor seed with tensor ops, on its own device, so a step whose
+seed lives on the card reads it from there without a synchronisation; the
+kernels' wrappers pass a seed tensor on the kernel's device by pointer
+(``kernel_seed``), and the kernel reads its key from device memory.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import torch
 
 from . import _build
 
-__all__ = ["philox4x32", "threshold", "inverse", "split_seed", "mask", "dump_masks"]
+__all__ = ["philox4x32", "threshold", "inverse", "split_seed", "kernel_seed", "mask",
+           "dump_masks"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -50,10 +59,11 @@ def _mulhilo(m: int, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def philox4x32(counter, key) -> torch.Tensor:
     """Philox4x32-10 of int64 counters [..., 4] (uint32 words) under
-    ``key`` = (k0, k1) Python ints; returns the four output words [..., 4]
-    as int64 in [0, 2**32)."""
+    ``key`` = (k0, k1), Python ints or 0-dim int64 tensors (``split_seed``);
+    returns the four output words [..., 4] as int64 in [0, 2**32)."""
     c = [counter[..., i].to(torch.int64) & _U32 for i in range(4)]
-    k0, k1 = int(key[0]) & _U32, int(key[1]) & _U32
+    k0, k1 = (k.to(counter.device, torch.int64) & _U32 if isinstance(k, torch.Tensor)
+              else int(k) & _U32 for k in key)
     for r in range(_ROUNDS):
         if r:
             k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
@@ -75,17 +85,35 @@ def inverse(keep: float) -> float:
     return float(torch.tensor(1.0, dtype=torch.float32) / torch.tensor(keep, dtype=torch.float32))
 
 
-def split_seed(seed) -> tuple[int, int]:
-    """A 64-bit seed (Python int, or a one-element integer tensor) as its
-    (low, high) 32-bit words."""
+def split_seed(seed) -> tuple:
+    """A 64-bit seed as its (low, high) 32-bit words: Python ints for an
+    int, 0-dim int64 tensors on the seed's device for a one-element integer
+    tensor (its 64 bits; no synchronisation)."""
     if isinstance(seed, torch.Tensor):
-        if seed.numel() != 1 or seed.is_floating_point():
+        if seed.numel() != 1 or seed.is_floating_point() or seed.dtype == torch.bool:
             raise ValueError("rng_seed must be one integer")
-        seed = int(seed.reshape(()).item())
+        s = seed.reshape(()).to(torch.int64)
+        return s & _U32, (s >> 32) & _U32
     seed = int(seed)
     if not 0 <= seed < (1 << 64):
         raise ValueError(f"rng_seed must be in [0, 2**64), got {seed}")
     return seed & _U32, seed >> 32
+
+
+def kernel_seed(seed, device) -> tuple:
+    """A seed as a kernel on the CUDA ``device`` takes it: (low, high,
+    pointer). A one-element int64 tensor on ``device`` goes by pointer (the
+    words are then 0 and unread); an int, or a tensor elsewhere (read on
+    the host), by value with a null pointer."""
+    if (isinstance(seed, torch.Tensor) and seed.device.type != "cpu"
+            and seed.device == torch.device(device)):
+        if seed.numel() != 1 or seed.dtype != torch.int64:
+            raise ValueError(f"a device seed must be one int64, got {seed.dtype} x {seed.numel()}")
+        return 0, 0, seed.data_ptr()
+    if isinstance(seed, torch.Tensor):
+        seed = int(seed.reshape(()).to(torch.int64)) & ((1 << 64) - 1)
+    lo, hi = split_seed(seed)
+    return lo, hi, None
 
 
 def mask(seed, stream: int, rows: int, width: int, keep: float, *,
@@ -128,7 +156,7 @@ def dump_masks(seed, stream: int, rows: int, width: int, keep: float,
         return mask(seed, stream, rows, width, keep)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    lo, hi = split_seed(seed)
+    lo, hi, _ = kernel_seed(seed, "cpu")  # a host seed: K4 is on no training path
     thr = threshold(keep)
     out = torch.empty(rows, width, dtype=torch.float32, device=dev)
     lib = bind(_build.load("philox"))
@@ -139,8 +167,8 @@ def dump_masks(seed, stream: int, rows: int, width: int, keep: float,
     if err != 0:
         raise RuntimeError("philox_dump_masks launch failed: "
                            + lib.philox_error_string(err).decode())
-    dump_masks.launches += 1
+    _build.count(dump_masks)
     return out
 
 
-dump_masks.launches = 0
+dump_masks.launches = dump_masks.captured = 0

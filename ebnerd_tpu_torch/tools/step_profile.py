@@ -15,6 +15,10 @@ idle share (union of kernel intervals over the window), the device span of
 the optimizer's ``step`` and of the sparse mode's ``rowwise_adam`` (their
 annotated ranges, which the part sums split among element-wise kernels,
 gathers and scatters), and the host operators with the most self time.
+``BENCH_SCAN=N`` traces groups of N steps, each one CUDA-graph replay
+(``bench.stage``: two warm-up groups first, the eager one and the
+capture; ``--steps`` rounded up to whole groups), and reports each
+kernel's launches in the traced window beside the per-step count.
 
 Run: python -m ebnerd_tpu_torch.tools.step_profile [--steps 5] [--out FILE]
 """
@@ -78,6 +82,34 @@ def busy_ms(events) -> float:
     return total / 1e3  # us -> ms
 
 
+def gaps(events) -> dict:
+    """The device's idle gaps between ``events`` (kernels) in the window:
+    their total and count by length (us), and the longest ten with the
+    kernels on either side."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events)
+    out, end, prev = [], None, None
+    for s, e, name in spans:
+        if end is not None and s > end:
+            out.append((s - end, prev, name))
+        if end is None or e > end:
+            end, prev = e, name
+    edges = (2, 10, 100)
+    hist = {f"<{edges[0]}us": 0, **{f"{a}-{b}us": 0 for a, b in zip(edges, edges[1:])},
+            f">={edges[-1]}us": 0}
+    for g, _, _ in out:
+        key = (f"<{edges[0]}us" if g < edges[0] else f">={edges[-1]}us" if g >= edges[-1]
+               else next(f"{a}-{b}us" for a, b in zip(edges, edges[1:]) if a <= g < b))
+        hist[key] += 1
+    by_pair: dict = {}
+    for g, a, b in out:
+        key = f"{a[:60]} -> {b[:60]}"
+        by_pair[key] = by_pair.get(key, 0.0) + g / 1e3
+    return {"total_ms": sum(g for g, _, _ in out) / 1e3, "count_by_us": hist,
+            "ms_by_neighbours": dict(sorted(by_pair.items(), key=lambda kv: -kv[1])[:12]),
+            "longest": [{"us": g, "after": a[:80], "before": b[:80]}
+                        for g, a, b in sorted(out, key=lambda x: -x[0])[:10]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5, help="traced warm steps")
@@ -98,22 +130,26 @@ def main(argv=None) -> int:
     bs = int(os.environ.get("BENCH_BS", "16384" if name == "nrms" else "4096"))
     dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))
     sparse, mu_dtype = bench.optimizer_knobs()
+    scan = bench.scan_knob()
     model, tables, builder, n_users = bench.make_family(
         name, torch.bfloat16, dropout, prng=os.environ.get("BENCH_PRNGDROP", "1") != "0")
     trainer = Trainer(model, tables, builder,
                       TrainerConfig(learning_rate=1e-4, seed=0, sparse_embedding=sparse,
-                                    adam_mu_dtype=mu_dtype), device="cuda")
-    n = args.warmup + args.steps
+                                    adam_mu_dtype=mu_dtype, scan_steps=scan), device="cuda")
+    warm_items = args.warmup if scan == 1 else max(2, -(-args.warmup // scan))
+    steps = args.steps if scan == 1 else -(-args.steps // scan) * scan
+    n = warm_items * scan + steps
     all_b = bench.batches(2, n, bs, bench.N_ARTICLES + 1, "zipf", n_users)
-    raws = [{k: v[i] for k, v in all_b.items()} for i in range(n)]
-    staged = [trainer.prepare(r) for r in raws]
-    for i in range(args.warmup):
-        trainer.step(staged[i])
+    raws = [trainer._prep_host({k: v[i] for k, v in all_b.items()}) for i in range(n)]
+    staged = bench.stage(trainer, raws, scan)
+    for item in staged[:warm_items]:
+        bench.run(trainer, item)
     torch.cuda.synchronize()
+    launches = dict(trainer.scan_stats["launches"])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(args.warmup, n):
-            trainer.step(staged[i])
+        for item in staged[warm_items:]:
+            bench.run(trainer, item)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: user-annotation ranges (e.g. Optimizer.step#Adam.step)
@@ -131,12 +167,17 @@ def main(argv=None) -> int:
         by_part[part_of(e.name)] = by_part.get(part_of(e.name), 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = busy_ms(kernels)
-    steps = args.steps
     rec = {"card": card, "model": name, "batch": bs, "sparse": sparse, "mu_dtype": mu_dtype,
+           "scan_steps": scan, "captures": trainer.scan_stats["captures"],
+           "capture_s": trainer.scan_stats["capture_s"],
+           "replay_launches_per_step": {k: (v - launches.get(k, 0)) / steps for k, v in
+                                        trainer.scan_stats["launches"].items()},
            "steps": steps, "wall_ms_per_step": wall_ms / steps,
            "annotated_device_ms_per_step": {k: v / steps for k, v in spans.items()},
            "device_busy_ms_per_step": busy / steps,
            "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+           "kernels_per_step": len(kernels) / steps,
+           "idle_gaps": gaps(kernels),
            "parts_ms_per_step": {k: v / steps for k, v in sorted(by_part.items(),
                                                                  key=lambda kv: -kv[1])},
            "top_kernels_ms_per_step": {k[:120]: v / steps for k, v in
@@ -144,9 +185,18 @@ def main(argv=None) -> int:
            "top_host_ops_self_ms_per_step": {
                e.key[:120]: e.self_cpu_time_total / 1e3 / steps for e in sorted(
                    prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]}}
-    print(f"[profile] {steps} traced steps: {rec['wall_ms_per_step']:.2f} ms/step wall (traced), "
-          f"device busy {rec['device_busy_ms_per_step']:.2f} ms/step, idle share "
-          f"{rec['device_idle_share']:.3f}", flush=True)
+    print(f"[profile] {steps} traced steps (scan_steps={scan}): "
+          f"{rec['wall_ms_per_step']:.2f} ms/step wall (traced), device busy "
+          f"{rec['device_busy_ms_per_step']:.2f} ms/step, idle share "
+          f"{rec['device_idle_share']:.3f}; replayed kernel launches per step "
+          f"{rec['replay_launches_per_step']}", flush=True)
+    g = rec["idle_gaps"]
+    print(f"[profile] {rec['kernels_per_step']:.0f} device events a step; idle gaps "
+          f"{g['total_ms'] / steps:.3f} ms/step, by length {g['count_by_us']}; longest "
+          + "; ".join(f"{x['us']:.0f} us after {x['after'][:40]}" for x in g["longest"][:4]),
+          flush=True)
+    for k, v in g["ms_by_neighbours"].items():
+        print(f"[profile]   idle {v / steps:8.3f} ms/step between {k}", flush=True)
     for k, v in rec["parts_ms_per_step"].items():
         print(f"[profile] {k}: {v:.3f} ms/step", flush=True)
     for k, v in rec["annotated_device_ms_per_step"].items():

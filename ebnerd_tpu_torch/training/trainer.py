@@ -33,16 +33,41 @@ a plateau, checkpoints and resumes (``training/checkpoint.py``), and
 restores the best weights at the end. ``score`` runs the full forward or
 the two towers of ``serving.py``, in eval mode.
 
-Not ported yet: ``scan_steps`` (ROADMAP A5); ``rng_impl`` chooses XLA's
-random bit generator and has no counterpart.
+``scan_steps`` = N (the JAX trainer's ``lax.scan`` of N steps in one
+dispatch) runs groups of N batches. The prefetch thread does their host
+prep, pads the group to one dedup bucket (``pad_dedup_to``) and packs it
+into one buffer (pinned on the card; ``pack_group``). ``run_group`` draws
+one 64-bit seed per group; step i of the group takes ``step_seed(seed,
+step_count + i)`` (JAX folds its group key with the step count). The
+group, seeds included, goes to the card in one copy, into static buffers;
+the N steps (batch build, forward, loss, backward, Adam, BN buffers) then
+run as one ``torch.cuda.CUDAGraph`` replay, their losses coming back as
+one [N] tensor. The kernels read each step's seed and ``art_n_uniq`` from
+those buffers (``ops/``), so one graph serves every group of its bucket.
+Graphs are cached by (bucket layout, accumulation phase) and share one
+memory pool; the first group of a key runs eagerly on a side stream (the
+warm-up: kernel builds, library set-up, gradient buffers and optimizer
+state), the second is captured, and every later one replays. A step that
+cannot be captured raises with the reason; nothing falls back to eager
+steps. On the scan path Adam keeps its step count and the learning rate
+on the card (``capturable``), and a dropout site that a
+per-step run draws from a ``torch.Generator`` takes the seed-recompute
+kernel. With ``accumulation_steps`` > 1 a gradient outlives a group, so
+the graphs hold the gradient buffers, zeroed in place (else each step's
+backward makes them, in the graphs' pool). On the CPU the same grouped
+steps run eagerly: there are no graphs there. A group shorter than N (an epoch's remainder) runs per step,
+as in JAX.
+
+``rng_impl`` chooses XLA's random bit generator and has no counterpart.
 """
 from __future__ import annotations
 
 import itertools
 import json
+import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,15 +77,16 @@ from ..data.dataloader import EvalFeed, NewsrecFeed
 from ..data.ragged import Ragged
 from ..evaluation.ranking import per_impression_auc
 from ..models.inputs import device_tables
+from ..ops import kernel_counters
 from ..serving import ScoreWindow, article_validity, encode_corpus, eval_mode, model_kind
 from ..serving import two_tower_scores
 from .adam import Adam
 from .checkpoint import CheckpointManager, restore_checkpoint
-from .dedup import dedup_capable, prep_dedup_batch
+from .dedup import dedup_capable, pad_dedup_to, prep_dedup_batch
 from .losses import l2_penalty, loss_fn_for
 from .sparse_embed import TOKEN_KEYS_BY_TABLE, prep_sparse_batch, rowwise_adam
 
-__all__ = ["Trainer", "TrainerConfig"]
+__all__ = ["Trainer", "TrainerConfig", "ScanGroup", "step_seed"]
 
 
 @dataclass
@@ -107,9 +133,58 @@ class TrainerConfig:
     adam_mu_dtype: Optional[str] = None
 
 
-_UNPORTED = (("scan_steps", 1, "A5"),)
-# batch entries read on the host, never copied to the device
+# batch entries read on the host, never copied to the device (a scan
+# group carries art_n_uniq to the device: the kernels read it there)
 _HOST_KEYS = ("n_uniq", "art_n_uniq", "rows", "n_valid")
+_GROUP_HOST_KEYS = ("n_uniq", "rows", "n_valid")
+_M64 = (1 << 64) - 1
+_ALIGN = 64  # bytes: every array of a packed group starts on this boundary
+
+
+def step_seed(group_seed: int, step: int) -> int:
+    """The dropout seed of the step with count ``step`` in a scan group that
+    drew ``group_seed`` (the counterpart of JAX's ``fold_in(key, step)``):
+    SplitMix64's finaliser of ``group_seed + (step + 1) * 0x9E3779B97F4A7C15``
+    mod 2**64, an int in [0, 2**64)."""
+    z = (group_seed + (step + 1) * 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+class ScanGroup(NamedTuple):
+    """N host-prepped batches packed for one copy (``Trainer.pack_group``):
+    ``host`` is one uint8 buffer (pinned for the card) holding every array
+    stacked on a new leading axis, plus ``seeds`` [N] int64 (written by
+    ``run_group``); ``layout`` is ((key, numpy dtype, shape, byte offset),
+    ...), the graphs' cache key with the accumulation phase. A group runs
+    once: ``run_group`` writes its seeds into ``host`` and copies it
+    without waiting."""
+    layout: tuple
+    host: torch.Tensor
+    n: int
+
+
+def _views(buf: torch.Tensor, layout: tuple) -> dict:
+    """Typed views of a packed group's buffer (host or device), by key."""
+    out = {}
+    for key, dt, shape, off in layout:
+        nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
+        tdt = torch.from_numpy(np.empty(0, dt)).dtype
+        out[key] = buf[off:off + nbytes].view(tdt).view(shape)
+    return out
+
+
+class _Graph:
+    """One captured scan group: its static input buffer and views, the
+    graph (None until the key's second group), its [N] losses, and the
+    launches of each kernel recorded into it."""
+
+    def __init__(self, static: torch.Tensor, layout: tuple):
+        self.static, self.views = static, _views(static, layout)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.losses: Optional[torch.Tensor] = None
+        self.launches: dict = {}
 
 
 def _host_array(v) -> np.ndarray:
@@ -194,11 +269,8 @@ class Trainer:
         self._sparse = bool(config.sparse_embedding)
         if self._sparse:
             self._sparse_setup(model, tables)
-        for name, default, item in _UNPORTED:
-            if getattr(config, name) != default:
-                raise NotImplementedError(
-                    f"TrainerConfig.{name}={getattr(config, name)!r} is not ported yet "
-                    f"(ROADMAP {item})")
+        if config.scan_steps < 1:
+            raise ValueError(f"scan_steps must be >= 1, got {config.scan_steps}")
         if config.optimizer != "adam":
             raise ValueError(f"this optimizer not defined {config.optimizer}")
         if config.accumulation_steps < 1:
@@ -218,12 +290,24 @@ class Trainer:
             self._emb_v = torch.zeros_like(self._emb_table, dtype=torch.float32)
         params = [p for p in model.parameters()
                   if not (self._sparse and p is self._emb_table)]
+        self._scan = config.scan_steps > 1
+        # on the card the scan path's steps are graphed: Adam's count and the
+        # learning rate live there (a 0-dim tensor that _set_lr fills)
+        graphed = self._scan and self.device.type == "cuda"
+        lr = (torch.tensor(config.learning_rate, dtype=torch.float32, device=self.device)
+              if graphed else config.learning_rate)
         if config.adam_mu_dtype is None:
-            self.optimizer = torch.optim.Adam(params, lr=config.learning_rate,
-                                              betas=(0.9, 0.999), eps=1e-8)
+            self.optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                              capturable=graphed)
         else:
-            self.optimizer = Adam(params, lr=config.learning_rate, betas=(0.9, 0.999),
-                                  eps=1e-8, mu_dtype=config.adam_mu_dtype)
+            self.optimizer = Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  mu_dtype=config.adam_mu_dtype, capturable=graphed)
+        self._graphs: dict = {}  # (layout, accumulation phase) -> _Graph
+        self._pool = None        # the graphs' shared memory pool
+        # the scan path's record: groups run eagerly, captures and their
+        # seconds, replays, and each kernel's launches in the replays
+        self.scan_stats = {"eager_groups": 0, "captures": 0, "capture_s": 0.0, "replays": 0,
+                           "launches": {}}
         self.seeds = torch.Generator().manual_seed(config.seed)
         self.step_count = 0
         self._micro = 0  # micro-batches accumulated toward the next update
@@ -291,11 +375,18 @@ class Trainer:
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])
         opt = state["optimizer"]
-        # torch.optim.Adam keeps its step count on the CPU (not capturable, not fused)
-        opt = dict(opt, state={i: {k: v.cpu() if k == "step" and isinstance(v, torch.Tensor)
-                                   else v for k, v in s.items()}
-                               for i, s in opt["state"].items()})
+        lrs = [g["lr"] for g in self.optimizer.param_groups]
+        capturable = any(g.get("capturable") for g in self.optimizer.param_groups)
+        if not capturable:  # torch.optim.Adam keeps its step count on the CPU (not capturable)
+            opt = dict(opt, state={i: {k: v.cpu() if k == "step" and isinstance(v, torch.Tensor)
+                                       else v for k, v in s.items()}
+                                   for i, s in opt["state"].items()})
         self.optimizer.load_state_dict(opt)
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            # keep this trainer's learning-rate object (a graphed step reads the tensor)
+            value, group["lr"] = group["lr"], lr
+            self._fill_lr(group, float(value))
+        self.drop_graphs()  # the optimizer's state tensors are new objects
         self._load_emb(state.get("emb"))
         self.step_count = int(state["step"])
         self.seeds.set_state(state["seeds"].cpu())
@@ -307,6 +398,15 @@ class Trainer:
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
+            self._fill_lr(group, lr)
+
+    @staticmethod
+    def _fill_lr(group: dict, lr: float) -> None:
+        """A group's learning rate: filled in place when it is a tensor (the
+        graphed steps read it there), else replaced."""
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
             group["lr"] = lr
 
     def _snapshot(self) -> dict:
@@ -367,11 +467,17 @@ class Trainer:
         """One micro-batch on a prepared batch; the optimizer steps every
         ``accumulation_steps`` of them, on their mean gradient. Returns the
         loss (a device scalar: reading it synchronises)."""
+        return self._micro_step(dict(batch, dropout_seed=self.next_seed()))
+
+    def _micro_step(self, batch: dict) -> torch.Tensor:
+        """``step`` on a batch that carries its ``dropout_seed``."""
         self.model.train()
         k = self.config.accumulation_steps
         if self._micro == 0:
-            self.optimizer.zero_grad(set_to_none=True)
-        batch = dict(batch, dropout_seed=self.next_seed())
+            # with accumulation on the scan path, a gradient outlives a graph
+            # (a group may end inside an update): the graphs then hold its
+            # buffers, zeroed in place; else each step's backward makes them
+            self.optimizer.zero_grad(set_to_none=not (self._scan and k > 1))
         rows = None
         if self._sparse:  # the batch's word rows, a leaf the model embeds from
             rows = self._emb_table.detach().index_select(0, batch["emb_uniq"]).requires_grad_()
@@ -397,6 +503,127 @@ class Trainer:
         """``step(prepare(raw))``."""
         return self.step(self.prepare(raw))
 
+    # -- scan groups ------------------------------------------------------
+
+    def pack_group(self, raws: list) -> ScanGroup:
+        """The host side of a scan group (the prefetch thread's work): each
+        batch's host prep (``_prep_host``, unless done), the group padded to
+        its largest dedup bucket, every array stacked into one uint8 buffer
+        (pinned for the card) with room for the N seeds."""
+        raws = [self._prep_host(r) for r in raws]
+        if "art_uniq" in raws[0]:
+            bucket = max(r["art_uniq"].shape[0] for r in raws)
+            raws = [pad_dedup_to(r, bucket) for r in raws]
+        stacks = {k: [np.asarray(r[k]) for r in raws] for k in raws[0]
+                  if k not in _GROUP_HOST_KEYS}
+        stacks["seeds"] = [np.zeros((), np.int64)] * len(raws)
+        layout, off = [], 0
+        for k, parts in stacks.items():
+            shape = (len(parts),) + parts[0].shape
+            layout.append((k, parts[0].dtype.str, shape, off))
+            off += -(-int(np.prod(shape)) * parts[0].dtype.itemsize // _ALIGN) * _ALIGN
+        host = torch.empty(off, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        for k, dt, shape, o in layout:
+            out = buf[o:o + int(np.prod(shape)) * np.dtype(dt).itemsize].view(dt).reshape(shape)
+            np.stack(stacks[k], out=out)
+        return ScanGroup(tuple(layout), host, len(raws))
+
+    def run_group(self, group: ScanGroup, graph: bool = True) -> torch.Tensor:
+        """The N steps of a packed group; returns their losses [N] (on the
+        device). On the card: one copy into the key's static buffer, then
+        the warm-up run, the capture, or a replay (see the module
+        docstring); on the CPU, or on the card with ``graph=False`` (the
+        steps a replay is held against), the same steps eagerly."""
+        n, k = group.n, self.config.accumulation_steps
+        seed = self.next_seed()
+        seeds = np.array([step_seed(seed, self.step_count + i) for i in range(n)], np.uint64)
+        _views(group.host, group.layout)["seeds"].numpy()[:] = seeds.view(np.int64)
+        step0, micro0 = self.step_count, self._micro
+        if self.device.type != "cuda" or not graph:
+            buf = group.host.to(self.device, non_blocking=True)
+            return self._scan_body(_views(buf, group.layout), n)
+        key = (group.layout, micro0)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = _Graph(torch.empty(group.host.shape, dtype=torch.uint8, device=self.device),
+                           group.layout)
+        entry.static.copy_(group.host, non_blocking=True)
+        if key not in self._graphs:  # the warm-up: this group's steps, eagerly, on a side stream
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                losses = self._scan_body(entry.views, n)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graphs[key] = entry
+            self.scan_stats["eager_groups"] += 1
+            return losses
+        if entry.graph is None:
+            entry.graph, entry.losses, entry.launches = self._capture(entry, n)
+        entry.graph.replay()
+        self.step_count, self._micro = step0 + n, (micro0 + n) % k
+        # a replay changes the parameters and buffers behind autograd's back
+        self._bump_versions()
+        stats = self.scan_stats
+        stats["replays"] += 1
+        for name, c in entry.launches.items():
+            stats["launches"][name] = stats["launches"].get(name, 0) + c
+        return entry.losses.clone()
+
+    def drop_graphs(self) -> None:
+        """Forget the captured graphs and their memory pool (a pool lives as
+        long as a graph holds it): each key warms up and is captured anew."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _bump_versions(self) -> None:
+        """Bump the versions of the model's parameters and buffers, so that
+        caches keyed on them (NRMS's packed weights) miss: after a replay,
+        which changed them unseen, and before a capture, which must record
+        every step's own packing."""
+        for t in itertools.chain(self.model.parameters(), self.model.buffers()):
+            torch.autograd.graph.increment_version(t)
+
+    def _capture(self, entry: _Graph, n: int) -> tuple:
+        """(graph, losses, launches) of the scan body over ``entry``'s static
+        buffers; raises with the reason when the steps cannot be captured."""
+        counters = kernel_counters()
+        self._bump_versions()
+        before = {name: fn.captured for name, fn in counters.items()}
+        step0, micro0 = self.step_count, self._micro
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            # thread_local: the prefetch thread may pin the next group meanwhile
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                losses = self._scan_body(entry.views, n)
+        except Exception as e:
+            raise RuntimeError(f"scan_steps={self.config.scan_steps}: the train step could not "
+                               f"be captured in a CUDA graph: {e}") from e
+        finally:
+            self.step_count, self._micro = step0, micro0  # nothing ran yet
+        self.scan_stats["captures"] += 1
+        self.scan_stats["capture_s"] += time.perf_counter() - t0
+        launches = {name: fn.captured - before[name] for name, fn in counters.items()
+                    if fn.captured > before[name]}
+        return graph, losses, launches
+
+    def _scan_body(self, views: dict, n: int) -> torch.Tensor:
+        """The N steps of a group over its (host or device) views: step i
+        builds its batch from slice i on the device, takes seed i and
+        ``art_n_uniq`` i as device scalars, and runs ``_micro_step``."""
+        losses = []
+        for i in range(n):
+            raw = {key: v[i] for key, v in views.items() if key != "seeds"}
+            batch = self.builder(self.tables, raw)
+            batch["labels"] = raw["labels"].to(torch.float32)
+            batch["dropout_seed"] = views["seeds"][i]
+            losses.append(self._micro_step(batch))
+        return torch.stack(losses)
+
     # -- loops ------------------------------------------------------------
 
     def _run_epoch(self, train_feed: NewsrecFeed, steps_per_epoch: Optional[int],
@@ -413,16 +640,34 @@ class Trainer:
             it = itertools.islice(it, steps_per_epoch)
         step0 = self.step_count
         pin = self.device.type == "cuda"
+        n_scan = self.config.scan_steps
 
         def work():
+            group = []
             for raw in it:
+                if n_scan == 1:
+                    raw = self._prep_host(raw)
+                    yield "step", _pinned(raw) if pin else raw
+                    continue
+                group.append(raw)
+                if len(group) == n_scan:
+                    yield "scan", self.pack_group(group)
+                    group = []
+            for raw in group:  # the remainder (< scan_steps): per step, as in JAX
                 raw = self._prep_host(raw)
-                yield _pinned(raw) if pin else raw
+                yield "step", _pinned(raw) if pin else raw
 
         losses: list[torch.Tensor] = []
-        for raw in _prefetched(work(), self.config.prefetch):
-            losses.append(self.step(self.prepare(raw)))
-            if scalar_logger is not None and log_every and len(losses) % log_every == 0:
+        last_logged = 0
+        for kind, payload in _prefetched(work(), self.config.prefetch):
+            if kind == "scan":
+                losses.extend(self.run_group(payload).unbind(0))
+            else:
+                losses.append(self.step(self.prepare(payload)))
+            # as JAX: once log_every steps have passed, the newest step's loss
+            if (scalar_logger is not None and log_every
+                    and len(losses) - last_logged >= log_every):
+                last_logged = len(losses)
                 scalar_logger.log("train/loss_step", float(losses[-1]),
                                   step=step0 + len(losses))
         return losses

@@ -112,11 +112,11 @@ def _plain_kernels(monkeypatch, seen):
     flow: ``kernel_input``'s padding, the packed weights and the backward's
     cut back to Din. ``seen`` records the operands the kernels receive."""
 
-    def fake_mask(rows, width, drop, *, device, x=None):
+    def fake_mask(rows, width, drop, *, device, x=None, valid=None):
         seen.setdefault("mask", []).append((rows, width, None if x is None else x.shape[1]))
         return port.emb_mask_reference(rows, width, SEED, KEEP, x=x)
 
-    def fake_launch(lib, xin, packed, nv, drop, *, n, t):
+    def fake_launch(lib, xin, packed, nv, drop, *, n, t, nv_dev=None):
         seen.setdefault("launch", []).append((tuple(xin.shape), tuple(packed.wqkv.shape)))
         width, d = xin.shape[1], packed.w_att.shape[0]
         a = packed.b_att.shape[0]
@@ -131,7 +131,7 @@ def _plain_kernels(monkeypatch, seen):
             emb_keep_prob=KEEP if drop.thr_emb else 1.0,
             rng_seed=SEED if drop.thr_att or drop.thr_emb else None)
 
-    def fake_core(lib, x, packed, g, nv, drop, *, n, t):
+    def fake_core(lib, x, packed, g, nv, drop, *, n, t, nv_dev=None):
         seen.setdefault("core", []).append(tuple(x.shape))
         if drop.thr_emb:  # fp32: the kernel draws the stream-0 mask itself
             x = x * philox.mask(SEED, philox.STREAM_EMB, x.shape[0], x.shape[1], KEEP)
@@ -142,7 +142,7 @@ def _plain_kernels(monkeypatch, seen):
         pad_a = lambda v: torch.nn.functional.pad(v, (0, packed.w_att.shape[1] - v.shape[1]))
         return full(qkv), full(o_c), full(dz_c), pad_a(db_part), pad_a(dq_part)
 
-    def fake_gemm(a, b, *, dx, rows, drop=port.Dropout(), splits=1, keep=None):
+    def fake_gemm(a, b, *, dx, rows, drop=port.Dropout(), splits=1, keep=None, valid=None):
         out = port.bwd_gemm_reference(a, b, dx=dx, rows=rows, drop=drop, seed=SEED,
                                       emb_keep=KEEP)
         return out if dx else out[None]

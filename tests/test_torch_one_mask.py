@@ -111,15 +111,15 @@ def test_function_draws_the_mask_once_and_keeps_it_for_the_backward(monkeypatch)
     packed = port.pack_weights(*ws, num_heads=heads, compute_dtype=torch.bfloat16)
     calls = {"mask": [], "launch": [], "backward": []}
 
-    def fake_mask(rows, width, drop, *, device, x=None):
+    def fake_mask(rows, width, drop, *, device, x=None, valid=None):
         calls["mask"].append(rows)
         return port.emb_mask_reference(rows, width, SEED, KEEP, x=x)
 
-    def fake_launch(lib, xin, packed_, nv_, drop, *, n, t):
+    def fake_launch(lib, xin, packed_, nv_, drop, *, n, t, nv_dev=None):
         calls["launch"].append((xin, drop))
         return torch.zeros(n, heads * head_dim)
 
-    def fake_backward(xin, keep, packed_, g, n_, t_, nv_, drop):
+    def fake_backward(xin, keep, packed_, g, n_, t_, nv_, drop, nv_dev=None):
         calls["backward"].append((xin, keep, drop, (n_, t_, nv_)))
         return tuple(torch.zeros_like(v) for v in [x] + ws)
 

@@ -432,12 +432,6 @@ def test_sparse_embed_param_takes_only_the_word_table(family, name):
                 TrainerConfig(sparse_embedding=True, sparse_embed_param=name), device="cpu")
 
 
-def test_only_scan_steps_stays_unported():
-    from ebnerd_tpu_torch.training import trainer as trainer_module
-
-    assert [u[0] for u in trainer_module._UNPORTED] == ["scan_steps"]
-
-
 # ---- fit, score and resume -------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -271,14 +271,6 @@ def test_trainer_three_steps_match_jax(dedup):
         np.testing.assert_allclose(p.numpy(), want[k].numpy(), atol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("field,value,item", [("scan_steps", 4, "A5")])
-def test_unported_trainer_options_raise(field, value, item):
-    model = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Trainer(model, {"title": _title()}, token_batch,
-                TrainerConfig(**{field: value}), device="cpu")
-
-
 def test_trainer_seeds_and_learning_rate():
     model = NRMS(HParamsNRMS(**HP), vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
     make = lambda: Trainer(model, {"title": _title()}, token_batch, TrainerConfig(seed=7),
