@@ -147,8 +147,27 @@ Phases:
      per-step steps; the NRMS fit at full width with scan_steps (3 epochs of
      8 steps, validation): captures, capture seconds, impressions/s per
      epoch beside phase 7's fit;
-  13. print the ``kernels`` JSON line (``launches_scan``: each kernel's
-     launches in the replayed graphs of phase 12), the card line, then the
+  13. ``[parity]``, the accuracy check (``tools/parity_headline.py`` and
+     ``tools/parity_train.py``): NRMS bf16, fused, dedup at a fixed bucket of
+     4,096, in-kernel dropout, on the synthetic topic-signal split at the
+     headline widths (vocabulary 30,000 x 256, title 30, history 20, 20 x 20
+     heads), batch 4,096 for 8 epochs and 16,384 for 24, seeds 42 and 7,
+     each seed's final AUC within max(2 x spread, 0.02) of the reference's
+     0.8972, and every kernel's launches per step as phase 6's step; the
+     toy entries (``nrms``, ``nrms_dedup``, ``nrms_docvec``) within their
+     scripts' tolerance of the recorded reference curves;
+  14. ``[dist]``, data-parallel training (``parallel/``, ``Trainer(mesh=)``) at
+     the NRMS step's full width: a world-size-1 NCCL group through
+     ``Trainer(mesh=make_mesh())``, DIST_STEPS steps bit-equal to the trainer
+     without a mesh; two processes on this card over gloo (NCCL takes one
+     process per card), a (data=2) mesh on the global batch of 16,384,
+     dense and row-sparse: step 1's loss within DIST_LOSS1_REL_TOL of one
+     process's, the all-reduced K2 weight gradients within WGRAD_REL_TOL,
+     steps 2-3 within DIST_LOSS_REL_TOL; each mode's step ms and all-reduce
+     ms (gloo goes through host memory);
+  15. print the ``kernels`` JSON line (``launches_scan``: each kernel's
+     launches in the replayed graphs of phase 12; ``launches_parity`` and
+     ``launches_dist`` those of phases 13 and 14), the card line, then the
      ``ok`` line last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
@@ -165,6 +184,7 @@ go to build/chip_smoke.json.
 Run: python3 chip_smoke.py
      python3 chip_smoke.py --gemm-only   (build, then K2's GEMM and reduction
                                           cases alone; prints their records)
+(``--dist-worker RANK PORT DIR`` is one process of phase 14, which starts it.)
 """
 from __future__ import annotations
 
@@ -242,6 +262,21 @@ FAM_K3_SITES = {"lstur": ("title_emb", "title_conv"),
 # where a library reduction's order differs between runs (expected: nowhere).
 FAM_STEP_REL_TOL = 1e-3
 KEEP_RATE_TOL = 2e-3  # K3's keep fraction over 2**24 elements (its std is 1e-4)
+# [dist]: steps per mode. Step 1's loss, a mean over 16,384 rows whose per-row terms the
+# split leaves as they were, differs only in the order of that mean's sum (fp32: ~1e-7).
+DIST_STEPS = 3
+DIST_LOSS1_REL_TOL = 1e-6
+# Steps 2-3: Adam's first update is lr * g / (|g| + eps) per element, so a gradient element
+# that is only rounding noise at step 1 (the split changes the order of the gradients' sums:
+# K2's weight gradients differ by up to 4.5e-4 of their scale on an H100) moves its parameter
+# by up to 2 lr = 2e-4 either way. The losses of steps 2-3 read up to 1.96e-5 relative on an
+# H100 80GB HBM3 at 700 W (dense and sparse); DIST_LOSS_REL_TOL is about five times that.
+DIST_LOSS_REL_TOL = 1e-4
+# the K2 weight gradients held to WGRAD_REL_TOL: each tower's Wq, Wk, Wv (dWqkv) and the
+# pooling's W, b, q (dW, and db and dq scaled as grad_scales does)
+DIST_K2_GRADS = tuple(f"{t}_{n}" for t in ("news", "user")
+                      for n in ("self_att.WQ.weight", "self_att.WK.weight", "self_att.WV.weight",
+                                "pool.W.weight", "pool.W.bias", "pool.q.weight"))
 DEV = "cuda"
 EMB_SCALE = 200.0     # Glorot's bound for 250,002 x 1,024 is 0.0049; x200 gives about 1
 SEED64 = (0x5EED << 32) | 0x1234ABCD  # a seed whose high word matters
@@ -1225,15 +1260,16 @@ def full_width_model():
     return model
 
 
-def full_width_trainer(table, sparse=False, mu_dtype=None):
+def full_width_trainer(table, sparse=False, mu_dtype=None, mesh=None):
     """``full_width_model`` and its Trainer at the step's settings, dense or
-    row-sparse, fp32 or bf16 Adam first moment."""
+    row-sparse, fp32 or bf16 Adam first moment, on ``mesh`` when given."""
     from ebnerd_tpu_torch.models import token_batch
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
     return Trainer(full_width_model(), {"title": table}, token_batch,
                    TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True,
-                                 sparse_embedding=sparse, adam_mu_dtype=mu_dtype), device=DEV)
+                                 sparse_embedding=sparse, adam_mu_dtype=mu_dtype), device=DEV,
+                   mesh=mesh)
 
 
 K12 = ("news_encoder_fwd", "news_encoder_bwd", "news_encoder_bwd_block", "news_encoder_bwd_gemm",
@@ -2733,8 +2769,216 @@ def scan_phase(table, preps, gen, nrms_step, fams, fit):
     return rec
 
 
+def parity_phase() -> dict:
+    """[parity]: the accuracy check of phase 13 (see the module docstring)."""
+    from ebnerd_tpu_torch.tools import parity_headline, parity_train
+
+    t0 = time.perf_counter()
+    log = lambda m: print(f"[parity] {m}", flush=True)  # noqa: E731
+    reset_counts()
+    head = parity_headline.run_all(log=log)
+    toy = parity_train.run_all(log=log)
+    launches = read_counts()
+    for name, runs in head["runs"].items():
+        for seed, r in runs.items():
+            per = {k: r["launches_per_step"][k] for k in K12}
+            print(f"[parity] {name} {seed}: val AUC {[round(a, 4) for a in r['val_auc']]}; "
+                  f"{r['seconds']:.2f} s ({r['train_s']:.2f} training, {r['score_s']:.2f} "
+                  f"scoring, {r['steps']} steps); launches per step {per}", flush=True)
+            check(per == NRMS_STEP_LAUNCHES, f"[parity] {name} {seed}: launches per step {per}, "
+                  f"not the staged step's {NRMS_STEP_LAUNCHES}")
+    for name, runs in toy["runs"].items():
+        for seed, r in runs.items():
+            print(f"[parity] {name} {seed}: val AUC {[round(a, 4) for a in r['val_auc']]}; "
+                  f"{r['seconds']:.2f} s", flush=True)
+    for name, v in {**head["verdict"], **toy["verdict"]}.items():
+        print(f"[parity] {name}: reference {v['reference_final_auc']:.4f}, finals "
+              f"{ {s: round(f, 4) for s, f in v['final_auc'].items()} }, tolerance "
+              f"{v['tolerance']:.4f}: {'pass' if v['pass'] else 'FAIL'}", flush=True)
+        check(v["pass"], f"[parity] {name} misses its gate: {v}")
+    rec = {"headline": head, "toy": toy, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"[parity] phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def dist_steps(trainer, raws) -> dict:
+    """DIST_STEPS train steps on ``raws``: the global losses, step 1's K2
+    weight gradients (on the host; all-reduced under a mesh), each step's
+    synchronised ms and, under a mesh, each step's all-reduce ms (every
+    ``torch.distributed.all_reduce`` the step makes, the gradients' and the
+    article cotangent's, timed between synchronisations)."""
+    import torch.distributed as tdist
+
+    reduce_ms, inner = [], tdist.all_reduce
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        reduce_ms[-1] += (time.perf_counter() - t) * 1e3
+        return out
+    losses, step_ms, grads = [], [], None
+    tdist.all_reduce = timed
+    try:
+        for i, raw in enumerate(raws[:DIST_STEPS]):
+            reduce_ms.append(0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(trainer.train_step(dict(raw))))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                named = dict(trainer.model.named_parameters())
+                grads = {k: named[k].grad.detach().cpu().clone() for k in DIST_K2_GRADS}
+    finally:
+        tdist.all_reduce = inner
+    return {"losses": losses, "grads": grads, "step_ms": step_ms,
+            "allreduce_ms": reduce_ms if trainer.mesh is not None else []}
+
+
+def dist_worker(rank: int, port: int, work_dir: Path) -> int:
+    """One of phase 14's two gloo processes on the card: the dense, then the
+    row-sparse trainer on a (data=2) mesh; rank 0 saves both records."""
+    from ebnerd_tpu_torch.parallel import distributed as dist
+    from ebnerd_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.initialize(f"localhost:{port}", 2, rank, device=DEV, backend="gloo")
+    with np.load(work_dir / "data.npz") as f:
+        table = f["table"]
+        raws = [{k: f[f"{i}_{k}"] for k in ("hist_idx", "cand_idx", "labels")}
+                for i in range(DIST_STEPS)]
+    out = {}
+    for mode in ("dense", "sparse"):
+        reset_counts()
+        trainer = full_width_trainer(table, sparse=mode == "sparse", mesh=make_mesh())
+        out[mode] = dict(dist_steps(trainer, raws), launches=read_counts())
+        del trainer
+        release()
+    if rank == 0:
+        torch.save(out, work_dir / "result.pt")
+    dist.shutdown()
+    return 0
+
+
+def dist_compare(tag: str, got: dict, ref: dict) -> dict:
+    """Phase 14's checks of a mesh run against one process's; returns the
+    readings."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+    scales = grad_scales(ref["grads"], "news_pool.W.weight",
+                         ("news_pool.W.bias", "news_pool.q.weight"))
+    scales.update(grad_scales({k: v for k, v in ref["grads"].items() if k.startswith("user")},
+                              "user_pool.W.weight", ("user_pool.W.bias", "user_pool.q.weight")))
+    gerr = {k: (got["grads"][k].float() - ref["grads"][k].float()).abs().max().item() / scales[k]
+            for k in DIST_K2_GRADS}
+    check(rel[0] <= DIST_LOSS1_REL_TOL, f"[dist] {tag}: step 1 loss {rel[0]:.3e} relative off")
+    check(max(gerr.values()) <= WGRAD_REL_TOL, f"[dist] {tag}: K2 weight gradients {gerr}")
+    check(max(rel[1:]) <= DIST_LOSS_REL_TOL, f"[dist] {tag}: steps 2-3 losses {rel} relative off")
+    return {"loss_rel": rel, "k2_grad_rel": gerr}
+
+
+def dist_phase(table, raws) -> dict:
+    """[dist]: phase 14 (see the module docstring)."""
+    import socket
+    import tempfile
+
+    from ebnerd_tpu_torch.parallel import distributed as dist
+    from ebnerd_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    rec = {}
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    # one process, no mesh: the references
+    refs = {}
+    for mode in ("dense", "sparse"):
+        trainer = full_width_trainer(table, sparse=mode == "sparse")
+        refs[mode] = dist_steps(trainer, raws)
+        if mode == "dense":
+            ref_params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        del trainer
+        release()
+    # a world-size-1 NCCL group: bit-equal to no mesh
+    dist.initialize(f"localhost:{free_port()}", 1, 0, device=DEV)
+    try:
+        reset_counts()
+        trainer = full_width_trainer(table, mesh=make_mesh())
+        nccl = dist_steps(trainer, raws)
+        rec["launches"] = read_counts()
+        same = all(torch.equal(v, ref_params[k]) for k, v in trainer.model.state_dict().items())
+        check(nccl["losses"] == refs["dense"]["losses"] and same,
+              f"[dist] NCCL world size 1 is not bit-equal to no mesh: {nccl['losses']} against "
+              f"{refs['dense']['losses']}, parameters equal: {same}")
+        check(all(torch.equal(nccl["grads"][k], refs["dense"]["grads"][k]) for k in DIST_K2_GRADS),
+              "[dist] NCCL world size 1: step 1's K2 weight gradients differ")
+        del trainer, ref_params
+    finally:
+        dist.shutdown()
+        release()
+    rec["nccl_ws1"] = {"losses": nccl["losses"], "step_ms": nccl["step_ms"],
+                       "allreduce_ms": nccl["allreduce_ms"]}
+    print(f"[dist] NCCL world size 1: {DIST_STEPS} steps bit-equal to no mesh (losses "
+          f"{nccl['losses']}); step ms {[round(x, 2) for x in nccl['step_ms']]}, all-reduce ms "
+          f"{[round(x, 3) for x in nccl['allreduce_ms']]}", flush=True)
+    # two processes on this card over gloo
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as tmp:
+        work = Path(tmp)
+        np.savez(work / "data.npz", table=np.asarray(table),
+                 **{f"{i}_{k}": np.asarray(r[k]) for i, r in enumerate(raws[:DIST_STEPS])
+                    for k in ("hist_idx", "cand_idx", "labels")})
+        port = free_port()
+        logs = [open(work / f"worker{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker",
+                                   str(r), str(port), str(work)], stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(rcs):
+            for r in range(2):
+                print(f"[dist] worker {r} (exit {rcs[r]}):\n"
+                      + (work / f"worker{r}.log").read_text()[-3000:], flush=True)
+        check(not any(rcs), f"[dist] gloo workers exited with {rcs}")
+        got = torch.load(work / "result.pt", weights_only=True)
+    for mode in ("dense", "sparse"):
+        g, r = got[mode], refs[mode]
+        cmp = dist_compare(f"gloo x2 {mode}", g, r)
+        launches = {k: g["launches"][k] for k in K12}
+        check(launches == {k: v * DIST_STEPS for k, v in NRMS_STEP_LAUNCHES.items()},
+              f"[dist] gloo x2 {mode}: rank 0's launches {launches}")
+        rec[f"gloo_{mode}"] = dict(cmp, losses=g["losses"], ref_losses=r["losses"],
+                                   step_ms=g["step_ms"], allreduce_ms=g["allreduce_ms"],
+                                   ref_step_ms=r["step_ms"], launches_rank0=launches)
+        print(f"[dist] gloo x2 {mode} (two processes, one card, global batch {TRAIN_BS}): "
+              f"losses {g['losses']} against one process's {r['losses']} (relative "
+              f"{[f'{x:.2e}' for x in cmp['loss_rel']]}); K2 weight gradients, largest relative "
+              f"error {max(cmp['k2_grad_rel'].values()):.2e}; step ms "
+              f"{[round(x, 1) for x in g['step_ms']]} (one process "
+              f"{[round(x, 1) for x in r['step_ms']]}), all-reduce ms "
+              f"{[round(x, 1) for x in g['allreduce_ms']]}", flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[dist] phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
-    gemm_only = "--gemm-only" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    if args[:1] == ["--dist-worker"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return dist_worker(int(args[1]), int(args[2]), Path(args[3]))
+    gemm_only = "--gemm-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -2863,6 +3107,7 @@ def main(argv=None) -> int:
     record["training"] = training
     record["sparse"] = sparse_full_width(table, raws, preps, training)
     record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
+    dist_raws = raws[:DIST_STEPS]
     del raws
     record["fit"] = fit_full_width(training)
     record["sparse_fit"] = fit_full_width(record["sparse"], sparse=True)
@@ -2892,6 +3137,10 @@ def main(argv=None) -> int:
     record["embed_grad"] = embed_grad_table()
     release()
     record["scan"] = scan = scan_phase(table, preps, gen, training, fam, record["fit"])
+    release()
+    record["parity"] = parity = parity_phase()
+    release()
+    record["dist"] = dist_rec = dist_phase(table, dist_raws)
     del table, preps
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2913,6 +3162,8 @@ def main(argv=None) -> int:
               "launches_sparse": sp_l["news_encoder_fwd"],
               "launches_scan": scan_l["news_encoder_fwd"], "launches_scan_fit": scan_fit_l["news_encoder_fwd"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_fwd"],
+              "launches_parity": parity["launches"]["news_encoder_fwd"],
+              "launches_dist": dist_rec["launches"]["news_encoder_fwd"],
               "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
                       "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
                       "and external-mask dropout; timed at the training step's news-tower shape; "
@@ -2928,6 +3179,8 @@ def main(argv=None) -> int:
               "launches_sparse": sp_l["news_encoder_bwd"],
               "launches_scan": scan_l["news_encoder_bwd"], "launches_scan_fit": scan_fit_l["news_encoder_bwd"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd"],
+              "launches_parity": parity["launches"]["news_encoder_bwd"],
+              "launches_dist": dist_rec["launches"]["news_encoder_bwd"],
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
@@ -2940,6 +3193,8 @@ def main(argv=None) -> int:
               "launches_sparse": sp_l["news_encoder_bwd_block"],
               "launches_scan": scan_l["news_encoder_bwd_block"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_block"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_block"],
+              "launches_parity": parity["launches"]["news_encoder_bwd_block"],
+              "launches_dist": dist_rec["launches"]["news_encoder_bwd_block"],
               "note": "K2's per-block recompute kernel alone (QKV stage on TMA-fed wgmma, "
                       "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
                       "of its QKV product alone",
@@ -2953,6 +3208,8 @@ def main(argv=None) -> int:
               "launches_sparse": sp_l["news_encoder_bwd_gemm"],
               "launches_scan": scan_l["news_encoder_bwd_gemm"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_gemm"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_gemm"],
+              "launches_parity": parity["launches"]["news_encoder_bwd_gemm"],
+              "launches_dist": dist_rec["launches"]["news_encoder_bwd_gemm"],
               "note": "dx and the row-reduced weight-gradient products of K2; the top-level "
                       "numbers are dWqkv at the news shape with the stream-0 mask (cases: the "
                       "six products of the NRMS step, and ragged shapes, untimed)",
@@ -2966,6 +3223,8 @@ def main(argv=None) -> int:
               "launches_sparse": sp_l["news_encoder_bwd_reduce"],
               "launches_scan": scan_l["news_encoder_bwd_reduce"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_reduce"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_reduce"],
+              "launches_parity": parity["launches"]["news_encoder_bwd_reduce"],
+              "launches_dist": dist_rec["launches"]["news_encoder_bwd_reduce"],
               "note": "fixed-order sum of K2's partials; the top-level numbers are the news "
                       "tower's dWqkv slices (cases: every partial shape of the NRMS step)",
               "checked": True}, **{k: reds[0][k] for k in keys},
@@ -2978,6 +3237,8 @@ def main(argv=None) -> int:
               "launches_sparse": sp_l["news_encoder_bwd_mask"],
               "launches_scan": scan_l["news_encoder_bwd_mask"], "launches_scan_fit": scan_fit_l["news_encoder_bwd_mask"],
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_mask"],
+              "launches_parity": parity["launches"]["news_encoder_bwd_mask"],
+              "launches_dist": dist_rec["launches"]["news_encoder_bwd_mask"],
               "note": "the stream-0 (embedding) mask drawn once per step for dx and dWqkv: "
                       "round(x * mask) and keep bits; timed at the news tower's shape",
               "checked": True}, **{k: masks[0][k] for k in keys},
@@ -2986,6 +3247,8 @@ def main(argv=None) -> int:
               "source": "ebnerd_tpu_torch/csrc/philox.cu",
               "replaces": "scripts/check_rng_dropout.py:46",
               "launches": record["rng_check"]["launches"]["philox_mask_dump"],
+              "launches_parity": parity["launches"]["philox_mask_dump"],
+              "launches_dist": dist_rec["launches"]["philox_mask_dump"],
               "note": "launches counted on the mask-check path (check_rng_dropout.py's flow)",
               "checked": True}, **{k: dump[k] for k in keys}),
         dict({"name": "prng_dropout", "route": "cuda", "source": "ebnerd_tpu_torch/csrc/dropout.cu",
@@ -2996,6 +3259,8 @@ def main(argv=None) -> int:
               "launches_fastformer": fam["fastformer"]["launches"],
               "launches_cli_naml": cli_l["naml"]["prng_dropout"],
               "launches_cli_naml_sparse": cli_l["naml_sparse"]["prng_dropout"],
+              "launches_parity": parity["launches"]["prng_dropout"],
+              "launches_dist": dist_rec["launches"]["prng_dropout"],
               "launches_scan": sum(scan[n]["launches_scan"].get("prng_dropout", 0) for n in SCAN_K3),
               **{f"launches_scan_{n}": scan[n]["launches_scan"].get("prng_dropout", 0)
                  for n in SCAN_K3},

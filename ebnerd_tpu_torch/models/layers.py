@@ -269,7 +269,14 @@ class WeightedBatchNorm(nn.Module):
     (buffers ``mean`` and ``var``) follow ra = m * ra + (1 - m) * batch,
     m = 0.99, in every training call; eval mode normalises by them.
     Computes in fp32 and returns fp32. ``torch.nn.BatchNorm1d`` keeps the
-    unbiased variance and takes no row weights."""
+    unbiased variance and takes no row weights.
+
+    ``sum_moments``, when set (the trainer sets it for a step on the
+    per-slot path under a mesh), sums [sum w x, sum w x**2, sum w * inner]
+    over the processes, differentiably, so the moments are the global
+    batch's, as they are under JAX's GSPMD."""
+
+    sum_moments = None
 
     MOMENTUM = 0.99  # flax's
     EPSILON = 1e-3  # Keras BatchNormalization's, as the JAX stack sets it
@@ -287,7 +294,9 @@ class WeightedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             red = tuple(range(x.dim() - 1))
-            if weights is None:
+            if self.sum_moments is not None:
+                mean, var = self._summed_moments(xf, weights, red)
+            elif weights is None:
                 mean = xf.mean(red)
                 var = xf.square().mean(red) - mean.square()
             else:
@@ -300,6 +309,21 @@ class WeightedBatchNorm(nn.Module):
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
                 self.var.copy_(m * self.var + (1.0 - m) * var)
         return (xf - mean) * torch.rsqrt(var + self.EPSILON) * self.scale + self.bias
+
+    def _summed_moments(self, xf: torch.Tensor, weights: Optional[torch.Tensor], red: tuple):
+        """(mean, biased var) from the row-weighted sums of every process."""
+        inner = float(math.prod(xf.shape[1:-1]))
+        if weights is None:
+            s1, s2 = xf.sum(red), xf.square().sum(red)
+            count = torch.full((1,), inner * xf.shape[0], dtype=torch.float32, device=xf.device)
+        else:
+            w = weights.to(torch.float32).reshape(-1, *([1] * (xf.dim() - 1)))
+            s1, s2 = (xf * w).sum(red), (xf.square() * w).sum(red)
+            count = (w.sum() * inner).reshape(1)
+        tot = self.sum_moments(torch.cat([s1, s2, count]))
+        f = xf.shape[-1]
+        mean = tot[:f] / tot[-1]
+        return mean, tot[f:2 * f] / tot[-1] - mean.square()
 
 
 class ConvEncoder(nn.Module):

@@ -85,10 +85,20 @@ def _dedup_gather(art: torch.Tensor, batch: dict):
     """[C, ...] unique-article rows -> ([B, H, ...], [B, K, ...]) by slot
     gathers of a [C, prod(...)] view; their backward sums the slot
     cotangents into [C, ...] (by ``F.embedding``'s sort and segment
-    reduction, in fp32: popular articles fill thousands of slots)."""
-    flat, tail = art.reshape(art.shape[0], -1), art.shape[1:]
-    return tuple(F.embedding(batch[k], flat).reshape(*batch[k].shape, *tail)
-                 for k in ("hist_slot", "cand_slot"))
+    reduction, in fp32: popular articles fill thousands of slots).
+    ``batch["art_cotangent"]``, set by the trainer under a mesh, wraps the
+    rows of each gather (``parallel.mesh.average_cotangent``): the article
+    tower's backward then sees every process's slot cotangents. The rows
+    are then gathered in fp32, so each gather's slot sums from every
+    process meet in fp32 and round to ``art``'s dtype once, as one
+    process's do."""
+    hook = batch.get("art_cotangent")
+    out = []
+    for key in ("hist_slot", "cand_slot"):
+        src = art if hook is None else hook(art.float())
+        flat, tail = src.reshape(src.shape[0], -1), src.shape[1:]
+        out.append(F.embedding(batch[key], flat).reshape(*batch[key].shape, *tail).to(art.dtype))
+    return tuple(out)
 
 
 def _seed_of(model: nn.Module, batch: dict):

@@ -58,6 +58,32 @@ backward makes them, in the graphs' pool). On the CPU the same grouped
 steps run eagerly: there are no graphs there. A group shorter than N (an epoch's remainder) runs per step,
 as in JAX.
 
+``mesh`` (``parallel/mesh.py``, the JAX trainer's ``mesh`` on its data
+axis) trains data-parallel over processes, one device each. Every process
+passes the same global batch and keeps its contiguous rows of it after the
+host prep (``host_shard_rows``); the dedup and sparse side values
+(``art_*``, ``emb_*``) are whole-batch values and stay whole, as JAX's
+``_put`` replicates them. So every process encodes the batch's whole
+unique-article bucket with the step's seed: the masks and the moments of
+``WeightedBatchNorm`` are one process's, and the slot gathers read only the
+process's impression rows. The unique articles' vectors average their
+cotangent over the processes in the backward
+(``parallel.mesh.average_cotangent``), so the article tower's backward (the
+fused encoder's, in bf16) runs on the whole batch's cotangent / processes
+on every process, not on a part of it. Each process weights its loss by
+its share of the global batch (rows / global rows), so the sum over
+processes is the global mean, and one all-reduce a step sums the gradients
+(the sparse mode's row gradients among them) and the weighted losses
+before the optimizer: the update is one process's update on the global
+batch. On the
+per-slot path (no dedup) the BN moments are summed over the processes
+(``WeightedBatchNorm.sum_moments``); its dropout masks are drawn per
+process (ROADMAP C). Process 0 starts everyone from its parameters and
+writes the checkpoints; every process resumes from them. ``score`` scores
+each process's rows of every batch and sums the processes' disjoint score
+rows. ``scan_steps`` > 1 raises under a mesh, and ``table_specs`` /
+``param_specs`` (the model axis) raise naming ROADMAP A11b.
+
 ``rng_impl`` chooses XLA's random bit generator and has no counterpart.
 """
 from __future__ import annotations
@@ -66,6 +92,7 @@ import itertools
 import json
 import time
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -77,7 +104,10 @@ from ..data.dataloader import EvalFeed, NewsrecFeed
 from ..data.ragged import Ragged
 from ..evaluation.ranking import per_impression_auc
 from ..models.inputs import device_tables
+from ..models.layers import WeightedBatchNorm
 from ..ops import kernel_counters
+from ..parallel.mesh import (all_reduce_sum, all_reduce_sum_, average_cotangent, barrier,
+                             broadcast_, host_shard_rows)
 from ..serving import ScoreWindow, article_validity, encode_corpus, eval_mode, model_kind
 from ..serving import two_tower_scores
 from .adam import Adam
@@ -135,7 +165,7 @@ class TrainerConfig:
 
 # batch entries read on the host, never copied to the device (a scan
 # group carries art_n_uniq to the device: the kernels read it there)
-_HOST_KEYS = ("n_uniq", "art_n_uniq", "rows", "n_valid")
+_HOST_KEYS = ("n_uniq", "art_n_uniq", "rows", "n_valid", "shard")
 _GROUP_HOST_KEYS = ("n_uniq", "rows", "n_valid")
 _M64 = (1 << 64) - 1
 _ALIGN = 64  # bytes: every array of a packed group starts on this boundary
@@ -250,6 +280,33 @@ def _prefetched(items, depth: int):
                 break
 
 
+class _RowShard:
+    """An ``EvalFeed`` whose batches carry this process's rows of each batch
+    (``host_shard_rows`` of the padded batch); ``unpad`` first sums the
+    processes' score matrices, whose written rows are disjoint (exact: the
+    other processes' entries are 0), then unpads the whole."""
+
+    def __init__(self, feed: EvalFeed, trainer: "Trainer"):
+        self.feed, self.trainer = feed, trainer
+        self.n_rows, self.width = feed.n_rows, feed.width
+
+    def batches(self):
+        mesh = self.trainer.mesh
+        for raw in self.feed.batches():
+            n = len(raw["hist_idx"])
+            rows = host_shard_rows(n, mesh.rank, mesh.data)
+            out = {k: v[rows] if isinstance(v, np.ndarray) and k != "rows" else v
+                   for k, v in raw.items()}
+            out["rows"] = raw["rows"][rows]  # the valid rows among this process's
+            out["n_valid"] = len(out["rows"])
+            yield out
+
+    def unpad(self, scores: np.ndarray) -> Ragged:
+        t = torch.from_numpy(scores).to(self.trainer.device)
+        all_reduce_sum_([t], self.trainer.mesh)
+        return self.feed.unpad(t.cpu().numpy())
+
+
 class Trainer:
     """Trains and scores one newsrec model.
 
@@ -259,13 +316,26 @@ class Trainer:
       tables: dict of value tables (numpy or tensors), moved to ``device``
         once (``models/inputs.py`` convention).
       batch_builder: gathers model inputs from tables + an index batch.
+      mesh: optional ``parallel.mesh.Mesh`` for data parallelism over
+        processes (see the module docstring); ``table_specs`` and
+        ``param_specs``, the JAX trainer's model-axis sharding, raise.
       log_fn: where ``fit`` reports each epoch.
     """
 
     def __init__(self, model: torch.nn.Module, tables: dict, batch_builder,
                  config: TrainerConfig = TrainerConfig(), device="cuda",
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print, mesh=None,
+                 table_specs: Optional[dict] = None, param_specs: Optional[dict] = None):
+        if table_specs or param_specs:
+            raise NotImplementedError("table_specs / param_specs: row-sharding tables and "
+                                      "parameters over the mesh's model axis is not ported "
+                                      "(ROADMAP A11b)")
+        if mesh is not None and config.scan_steps > 1:
+            raise ValueError("scan_steps > 1 under a mesh is not ported: a group's steps run as "
+                             "one CUDA graph, which the gradient all-reduce is not captured "
+                             "in; use scan_steps=1")
         self.config = config
+        self.mesh = mesh
         self._sparse = bool(config.sparse_embedding)
         if self._sparse:
             self._sparse_setup(model, tables)
@@ -309,6 +379,10 @@ class Trainer:
         self.scan_stats = {"eager_groups": 0, "captures": 0, "capture_s": 0.0, "replays": 0,
                            "launches": {}}
         self.seeds = torch.Generator().manual_seed(config.seed)
+        self._bns = [m for m in model.modules() if isinstance(m, WeightedBatchNorm)]
+        if mesh is not None:  # everyone starts from process 0's parameters and buffers
+            with torch.no_grad():
+                broadcast_(list(model.parameters()) + list(model.buffers()), mesh)
         self.step_count = 0
         self._micro = 0  # micro-batches accumulated toward the next update
         self._art_cache: Optional[tuple] = None  # (step_count, article vectors)
@@ -439,7 +513,23 @@ class Trainer:
                                     self._vocab_size, self.config.sparse_min_bucket)
         if self.dedup and "hist_idx" in raw:
             raw = prep_dedup_batch(raw, self.config.dedup_min_bucket)
+        if self.mesh is not None and "shard" not in raw:
+            raw = self._shard(raw)
         return raw
+
+    def _shard(self, raw: dict) -> dict:
+        """This process's rows of a host-prepped global batch; the dedup and
+        sparse side values (``art_*``, ``emb_*``) and scalars stay whole.
+        ``shard`` = (this process's rows, the global rows)."""
+        n = len(raw["labels"])
+        rows = host_shard_rows(n, self.mesh.rank, self.mesh.data)
+        if rows.stop <= rows.start:
+            raise ValueError(f"a global batch of {n} rows leaves process {self.mesh.rank} of "
+                             f"{self.mesh.data} without rows")
+        out = {k: v if k.startswith(("art_", "emb_")) or getattr(v, "ndim", 0) == 0 else v[rows]
+               for k, v in raw.items()}
+        out["shard"] = (rows.stop - rows.start, n)
+        return out
 
     def prepare(self, raw: dict) -> dict:
         """Host preparation (``_prep_host``, unless done) and the batch build
@@ -461,6 +551,8 @@ class Trainer:
         labels = raw["labels"]
         labels = labels if isinstance(labels, torch.Tensor) else torch.as_tensor(np.asarray(labels))
         batch["labels"] = labels.to(self.device, torch.float32, non_blocking=True)
+        if "shard" in raw:
+            batch["shard"] = raw["shard"]
         return batch
 
     def step(self, batch: dict) -> torch.Tensor:
@@ -482,12 +574,29 @@ class Trainer:
         if self._sparse:  # the batch's word rows, a leaf the model embeds from
             rows = self._emb_table.detach().index_select(0, batch["emb_uniq"]).requires_grad_()
             batch["emb_rows"] = rows
-        logits = self.model(batch)
+        sync = []  # the per-slot path under a mesh: BN moments over every process's rows
+        if self.mesh is not None and self.mesh.data > 1:
+            if "hist_slot" in batch:  # dedup: the article tower sees every process's slots
+                batch["art_cotangent"] = partial(average_cotangent, mesh=self.mesh)
+            else:
+                sync = self._bns
+        for bn in sync:
+            bn.sum_moments = partial(all_reduce_sum, mesh=self.mesh)
+        try:
+            logits = self.model(batch)
+        finally:
+            for bn in sync:
+                bn.sum_moments = None
         loss = self.loss_fn(logits, batch["labels"])
         if self.config.l2_regularization:
             loss = loss + self.config.l2_regularization * l2_penalty(self.model)
-        (loss / k if k > 1 else loss).backward()
+        shard = batch.get("shard")
+        # under a mesh: this process's share of the global batch's mean
+        obj = loss * (shard[0] / shard[1]) if shard and shard[0] != shard[1] else loss
+        (obj / k if k > 1 else obj).backward()
         self._micro += 1
+        if self.mesh is not None:
+            loss = self._all_reduce(obj.detach().float(), rows, update=self._micro == k)
         if self._micro == k:
             self.optimizer.step()
             if rows is not None:
@@ -502,6 +611,21 @@ class Trainer:
     def train_step(self, raw: dict) -> torch.Tensor:
         """``step(prepare(raw))``."""
         return self.step(self.prepare(raw))
+
+    def _all_reduce(self, loss: torch.Tensor, rows: Optional[torch.Tensor],
+                    update: bool) -> torch.Tensor:
+        """One all-reduce over the mesh: this process's weighted loss and, at
+        an ``update``, the dense gradients and the sparse ``rows``' gradient,
+        summed in place. Returns the global loss."""
+        ts = []
+        if update:
+            ts = [p.grad for g in self.optimizer.param_groups for p in g["params"]
+                  if p.grad is not None]
+            if rows is not None:
+                ts.append(rows.grad)
+        loss = loss.reshape(1)
+        all_reduce_sum_(ts + [loss], self.mesh)
+        return loss.reshape(())
 
     # -- scan groups ------------------------------------------------------
 
@@ -749,7 +873,7 @@ class Trainer:
                 if better:
                     best_metric, es_wait, lr_wait = val_auc, 0, 0
                     best, best_emb = self._snapshot(), self._emb_snapshot()
-                    if mgr is not None:
+                    if mgr is not None and self._writes:
                         mgr.save_best(self)
                 else:
                     es_wait += 1
@@ -765,12 +889,16 @@ class Trainer:
             self.history.append(record)
             if mgr is not None:
                 # the state first, then its metadata: a kill between the
-                # two resumes from the previous consistent pair
-                mgr.save_step(self, epoch)
-                (ckpt_dir / "meta.json").write_text(json.dumps({
-                    "epoch": epoch, "best_metric": float(best_metric), "es_wait": es_wait,
-                    "lr_wait": lr_wait, "lr": lr, "history": self.history,
-                    "seeds": self.seeds.get_state().tolist()}))
+                # two resumes from the previous consistent pair. Under a
+                # mesh process 0 writes, and the others wait for it.
+                if self._writes:
+                    mgr.save_step(self, epoch)
+                    (ckpt_dir / "meta.json").write_text(json.dumps({
+                        "epoch": epoch, "best_metric": float(best_metric), "es_wait": es_wait,
+                        "lr_wait": lr_wait, "lr": lr, "history": self.history,
+                        "seeds": self.seeds.get_state().tolist()}))
+                if self.mesh is not None:
+                    barrier(self.mesh)
             if scalar_logger is not None:
                 scalar_logger.log_dict(
                     {f"val/{k}" if k.startswith("val") else f"train/{k}": v
@@ -788,6 +916,11 @@ class Trainer:
             self._art_cache = None
         return self.history
 
+    @property
+    def _writes(self) -> bool:
+        """This process writes checkpoints: no mesh, or process 0 of it."""
+        return self.mesh is None or self.mesh.rank == 0
+
     # -- scoring ----------------------------------------------------------
 
     def score(self, feed: EvalFeed, two_tower=None) -> Ragged:
@@ -799,6 +932,8 @@ class Trainer:
         the user tower (``serving.py``): the same logits as the full forward."""
         if two_tower is None:
             two_tower = self.config.two_tower_eval
+        if self.mesh is not None:
+            feed = _RowShard(feed, self)
         supported = model_kind(self.model) is not None
         if two_tower is True and not supported:
             raise ValueError(f"{type(self.model).__name__} does not support two-tower scoring")

@@ -73,3 +73,12 @@ def test_scan_covers_the_sparse_mode_and_the_optimizer():
     scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
     for name in ("training/sparse_embed", "training/adam", "tools/embed_grad"):
         assert f"ebnerd_tpu_torch/{name}.py" in scanned, name
+
+
+def test_scan_covers_the_parallel_layer_and_the_parity_tools():
+    """The scan reaches ``parallel/`` and the accuracy and multi-process
+    tools, each a counterpart of a JAX module or script."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("parallel/__init__", "parallel/mesh", "parallel/distributed",
+                 "tools/parity_headline", "tools/parity_train", "tools/dryrun_multihost"):
+        assert f"ebnerd_tpu_torch/{name}.py" in scanned, name
