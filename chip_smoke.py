@@ -156,19 +156,31 @@ Phases:
      0.8972, and every kernel's launches per step as phase 6's step; the
      toy entries (``nrms``, ``nrms_dedup``, ``nrms_docvec``) within their
      scripts' tolerance of the recorded reference curves;
-  14. ``[dist]``, data-parallel training (``parallel/``, ``Trainer(mesh=)``) at
+  14. ``[dist]``, training over processes (``parallel/``, ``Trainer(mesh=)``) at
      the NRMS step's full width: a world-size-1 NCCL group through
      ``Trainer(mesh=make_mesh())``, DIST_STEPS steps bit-equal to the trainer
-     without a mesh; two processes on this card over gloo (NCCL takes one
-     process per card), a (data=2) mesh on the global batch of 16,384,
-     dense and row-sparse: step 1's loss within DIST_LOSS1_REL_TOL of one
-     process's, the all-reduced K2 weight gradients within WGRAD_REL_TOL,
-     steps 2-3 within DIST_LOSS_REL_TOL; each mode's step ms and all-reduce
-     ms (gloo goes through host memory);
+     without a mesh; then gloo processes sharing this card (NCCL takes one
+     process per card) on the global batch of 16,384: two on a (data=2)
+     mesh, dense and row-sparse, then the same two on a (data=1, model=2)
+     mesh, dense and sparse, then four on a (data=2, model=2) mesh, dense;
+     on the model axis the ``title`` table (padded by one zero row to
+     25,002 rows: JAX refuses an uneven split too) and ``word_embedding``
+     row-sharded (the sparse mode keeps the word table whole, as JAX). Each
+     run against one process's: step 1's loss within DIST_LOSS1_REL_TOL,
+     the K2 weight gradients within WGRAD_REL_TOL, steps 2-3 within
+     DIST_LOSS_REL_TOL; step 1's word-table gradient (the dense runs' blocks
+     gathered, the sparse runs' touched rows) within WGRAD_REL_TOL of its
+     scale, and bit-equal to one process's (losses too) on (1, 2), which sums
+     nothing over the data axis, and to (2, 1)'s on (2, 2); every process's
+     launches per step the staged step's; the word table's shape per
+     process. Printed per run: step ms, the sharded gather's ms and bytes,
+     the other all-reduces' ms (gloo goes through host memory), each
+     process's word-table bytes and peak GB;
   15. print the ``kernels`` JSON line (``launches_scan``: each kernel's
      launches in the replayed graphs of phase 12; ``launches_parity`` and
-     ``launches_dist`` those of phases 13 and 14), the card line, then the
-     ``ok`` line last.
+     ``launches_dist`` those of phases 13 and 14, the latter on the NCCL
+     path; ``launches_dist_model``: rank 0's over the three model-axis
+     runs), the card line, then the ``ok`` line last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
 their QKV product alone (their yardstick; neither kernel has a one-call
@@ -184,7 +196,7 @@ go to build/chip_smoke.json.
 Run: python3 chip_smoke.py
      python3 chip_smoke.py --gemm-only   (build, then K2's GEMM and reduction
                                           cases alone; prints their records)
-(``--dist-worker RANK PORT DIR`` is one process of phase 14, which starts it.)
+(``--dist-worker RANK WORLD PORT DIR`` is one process of phase 14, which starts it.)
 """
 from __future__ import annotations
 
@@ -1260,16 +1272,17 @@ def full_width_model():
     return model
 
 
-def full_width_trainer(table, sparse=False, mu_dtype=None, mesh=None):
+def full_width_trainer(table, sparse=False, mu_dtype=None, mesh=None, **specs):
     """``full_width_model`` and its Trainer at the step's settings, dense or
-    row-sparse, fp32 or bf16 Adam first moment, on ``mesh`` when given."""
+    row-sparse, fp32 or bf16 Adam first moment, on ``mesh`` when given (with
+    the model axis's ``table_specs`` and ``param_specs``)."""
     from ebnerd_tpu_torch.models import token_batch
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
 
     return Trainer(full_width_model(), {"title": table}, token_batch,
                    TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True,
                                  sparse_embedding=sparse, adam_mu_dtype=mu_dtype), device=DEV,
-                   mesh=mesh)
+                   mesh=mesh, **specs)
 
 
 K12 = ("news_encoder_fwd", "news_encoder_bwd", "news_encoder_bwd_block", "news_encoder_bwd_gemm",
@@ -2804,26 +2817,63 @@ def parity_phase() -> dict:
 
 def dist_steps(trainer, raws) -> dict:
     """DIST_STEPS train steps on ``raws``: the global losses, step 1's K2
-    weight gradients (on the host; all-reduced under a mesh), each step's
-    synchronised ms and, under a mesh, each step's all-reduce ms (every
-    ``torch.distributed.all_reduce`` the step makes, the gradients' and the
-    article cotangent's, timed between synchronisations)."""
+    weight gradients and word-table gradient (on the host; the dense mode's
+    is this process's block of the table's gradient, the sparse mode's the
+    touched rows' gradient), each step's synchronised ms and, under a mesh,
+    each step's sharded-gather ms and bytes (``parallel.mesh._owned_rows``:
+    the lookup and its all-reduce over the model group) and its other
+    all-reduce ms (every other ``torch.distributed.all_reduce``: the
+    gradients', the loss's and the article cotangent's, over the data
+    group), each timed between synchronisations; the peak GB over the steps
+    and the word table's bytes on this process."""
     import torch.distributed as tdist
 
-    reduce_ms, inner = [], tdist.all_reduce
+    from ebnerd_tpu_torch.parallel import mesh as mesh_mod
+    from ebnerd_tpu_torch.training import trainer as trainer_mod
 
-    def timed(*args, **kw):
+    reduce_ms, gather_ms, gather_bytes, row_grads = [], [], [], []
+    inner_reduce, inner_owned = tdist.all_reduce, mesh_mod._owned_rows
+    inner_adam = trainer_mod.rowwise_adam
+    in_gather = [False]
+
+    def timed_reduce(*args, **kw):
+        if in_gather[0]:
+            return inner_reduce(*args, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = inner(*args, **kw)
+        out = inner_reduce(*args, **kw)
         torch.cuda.synchronize()
         reduce_ms[-1] += (time.perf_counter() - t) * 1e3
         return out
-    losses, step_ms, grads = [], [], None
-    tdist.all_reduce = timed
-    try:
+
+    def timed_owned(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        in_gather[0] = True
+        try:
+            rows = inner_owned(*args, **kw)
+        finally:
+            in_gather[0] = False
+        torch.cuda.synchronize()
+        gather_ms[-1] += (time.perf_counter() - t) * 1e3
+        gather_bytes[-1] += rows.numel() * rows.element_size()
+        return rows
+
+    def keep_rows_grad(table, m, v, ids, grad, *args):
+        if not row_grads:
+            row_grads.append(grad.detach().cpu().clone())
+        return inner_adam(table, m, v, ids, grad, *args)
+    losses, step_ms, grads, word = [], [], None, None
+    words = trainer.model.word_embedding.embedding
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(tdist, "all_reduce", timed_reduce), \
+            mock.patch.object(mesh_mod, "_owned_rows", timed_owned), \
+            mock.patch.object(trainer_mod, "rowwise_adam", keep_rows_grad):
         for i, raw in enumerate(raws[:DIST_STEPS]):
             reduce_ms.append(0.0)
+            gather_ms.append(0.0)
+            gather_bytes.append(0)
             torch.cuda.synchronize()
             t = time.perf_counter()
             losses.append(float(trainer.train_step(dict(raw))))
@@ -2831,34 +2881,61 @@ def dist_steps(trainer, raws) -> dict:
             if i == 0:
                 named = dict(trainer.model.named_parameters())
                 grads = {k: named[k].grad.detach().cpu().clone() for k in DIST_K2_GRADS}
-    finally:
-        tdist.all_reduce = inner
-    return {"losses": losses, "grads": grads, "step_ms": step_ms,
-            "allreduce_ms": reduce_ms if trainer.mesh is not None else []}
+                word = (row_grads[0] if trainer._sparse
+                        else words.grad.detach().cpu().clone())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    on_mesh = trainer.mesh is not None
+    return {"losses": losses, "grads": grads, "word_grad": word, "step_ms": step_ms,
+            "allreduce_ms": reduce_ms if on_mesh else [],
+            "gather_ms": gather_ms if on_mesh else [],
+            "gather_bytes": gather_bytes if on_mesh else [],
+            "peak_gb": peak, "word_table_bytes": words.numel() * words.element_size(),
+            "word_table_shape": tuple(words.shape)}
 
 
-def dist_worker(rank: int, port: int, work_dir: Path) -> int:
-    """One of phase 14's two gloo processes on the card: the dense, then the
-    row-sparse trainer on a (data=2) mesh; rank 0 saves both records."""
+# [dist] runs of each worker set: (mode, data, model); the title table is padded by one zero
+# row to an even 25,002 rows for the model axis (JAX refuses 25,001 rows over model=2 too)
+DIST_RUNS = {2: (("dense", 2, 1), ("sparse", 2, 1), ("dense", 1, 2), ("sparse", 1, 2)),
+             4: (("dense", 2, 2),)}
+DIST_SPECS = dict(table_specs={"title": "model"}, param_specs={"word_embedding": "model"})
+
+
+def dist_worker(rank: int, world: int, port: int, work_dir: Path) -> int:
+    """One of phase 14's gloo processes on the card: the runs of
+    DIST_RUNS[world], each a fresh full-width trainer on its (data, model)
+    mesh (the model axis with DIST_SPECS); every process saves its records
+    (``result_<rank>.pt``) and, for the dense runs, the processes of data
+    index 0 their block of step 1's word-table gradient (the sparse runs:
+    rank 0 the touched rows' gradient)."""
     from ebnerd_tpu_torch.parallel import distributed as dist
-    from ebnerd_tpu_torch.parallel.mesh import make_mesh
+    from ebnerd_tpu_torch.parallel.mesh import ShardedTable, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
-    dist.initialize(f"localhost:{port}", 2, rank, device=DEV, backend="gloo")
+    dist.initialize(f"localhost:{port}", world, rank, device=DEV, backend="gloo")
     with np.load(work_dir / "data.npz") as f:
         table = f["table"]
         raws = [{k: f[f"{i}_{k}"] for k in ("hist_idx", "cand_idx", "labels")}
                 for i in range(DIST_STEPS)]
+    even = np.concatenate([table, np.zeros((1, table.shape[1]), table.dtype)])
     out = {}
-    for mode in ("dense", "sparse"):
+    for mode, data, model in DIST_RUNS[world]:
+        tag = f"{mode}_{data}x{model}"
+        mesh = make_mesh(data=data, model=model)
         reset_counts()
-        trainer = full_width_trainer(table, sparse=mode == "sparse", mesh=make_mesh())
-        out[mode] = dict(dist_steps(trainer, raws), launches=read_counts())
-        del trainer
+        trainer = full_width_trainer(table if model == 1 else even, sparse=mode == "sparse",
+                                     mesh=mesh, **(DIST_SPECS if model > 1 else {}))
+        if model > 1:
+            check(isinstance(trainer.tables["title"], ShardedTable),
+                  f"[dist] {tag}: the title table is not sharded")
+        rec = dict(dist_steps(trainer, raws), launches=read_counts())
+        word = rec.pop("word_grad")
+        if (mode == "dense" and mesh.data_index == 0) or rank == 0:
+            torch.save(word, work_dir / f"word_{tag}_{rank}.pt")
+        out[tag] = rec
+        del trainer, word
         release()
-    if rank == 0:
-        torch.save(out, work_dir / "result.pt")
+    torch.save(out, work_dir / f"result_{rank}.pt")
     dist.shutdown()
     return 0
 
@@ -2877,6 +2954,42 @@ def dist_compare(tag: str, got: dict, ref: dict) -> dict:
     check(max(gerr.values()) <= WGRAD_REL_TOL, f"[dist] {tag}: K2 weight gradients {gerr}")
     check(max(rel[1:]) <= DIST_LOSS_REL_TOL, f"[dist] {tag}: steps 2-3 losses {rel} relative off")
     return {"loss_rel": rel, "k2_grad_rel": gerr}
+
+
+def word_grad_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|got - ref| / max|ref| of a word-table gradient."""
+    check(got.shape == ref.shape, f"[dist] word-table gradient {tuple(got.shape)} against "
+                                  f"{tuple(ref.shape)}")
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def run_dist_workers(world: int, work: Path) -> dict:
+    """Start ``world`` gloo processes (``--dist-worker``) on this card and
+    wait; their records by rank."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    logs = [open(work / f"worker{world}_{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker",
+                               str(r), str(world), str(port), str(work)], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        for r in range(world):
+            print(f"[dist] worker {r} of {world} (exit {rcs[r]}):\n"
+                  + (work / f"worker{world}_{r}.log").read_text()[-3000:], flush=True)
+    check(not any(rcs), f"[dist] {world} gloo workers exited with {rcs}")
+    return {r: torch.load(work / f"result_{r}.pt", weights_only=True) for r in range(world)}
 
 
 def dist_phase(table, raws) -> dict:
@@ -2910,6 +3023,7 @@ def dist_phase(table, raws) -> dict:
         reset_counts()
         trainer = full_width_trainer(table, mesh=make_mesh())
         nccl = dist_steps(trainer, raws)
+        nccl.pop("word_grad")
         rec["launches"] = read_counts()
         same = all(torch.equal(v, ref_params[k]) for k, v in trainer.model.state_dict().items())
         check(nccl["losses"] == refs["dense"]["losses"] and same,
@@ -2926,48 +3040,73 @@ def dist_phase(table, raws) -> dict:
     print(f"[dist] NCCL world size 1: {DIST_STEPS} steps bit-equal to no mesh (losses "
           f"{nccl['losses']}); step ms {[round(x, 2) for x in nccl['step_ms']]}, all-reduce ms "
           f"{[round(x, 3) for x in nccl['allreduce_ms']]}", flush=True)
-    # two processes on this card over gloo
+    # gloo processes on this card: 2 (data=2, then data=1 x model=2), then 4 (data=2 x model=2)
+    expect = {k: v * DIST_STEPS for k, v in NRMS_STEP_LAUNCHES.items()}
+    rec["launches_model"] = {k: 0 for k in read_counts()}
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as tmp:
         work = Path(tmp)
         np.savez(work / "data.npz", table=np.asarray(table),
                  **{f"{i}_{k}": np.asarray(r[k]) for i, r in enumerate(raws[:DIST_STEPS])
                     for k in ("hist_idx", "cand_idx", "labels")})
-        port = free_port()
-        logs = [open(work / f"worker{r}.log", "w") for r in range(2)]
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker",
-                                   str(r), str(port), str(work)], stdout=logs[r],
-                                  stderr=subprocess.STDOUT) for r in range(2)]
-        try:
-            rcs = [p.wait(timeout=900) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        if any(rcs):
-            for r in range(2):
-                print(f"[dist] worker {r} (exit {rcs[r]}):\n"
-                      + (work / f"worker{r}.log").read_text()[-3000:], flush=True)
-        check(not any(rcs), f"[dist] gloo workers exited with {rcs}")
-        got = torch.load(work / "result.pt", weights_only=True)
-    for mode in ("dense", "sparse"):
-        g, r = got[mode], refs[mode]
-        cmp = dist_compare(f"gloo x2 {mode}", g, r)
-        launches = {k: g["launches"][k] for k in K12}
-        check(launches == {k: v * DIST_STEPS for k, v in NRMS_STEP_LAUNCHES.items()},
-              f"[dist] gloo x2 {mode}: rank 0's launches {launches}")
-        rec[f"gloo_{mode}"] = dict(cmp, losses=g["losses"], ref_losses=r["losses"],
-                                   step_ms=g["step_ms"], allreduce_ms=g["allreduce_ms"],
-                                   ref_step_ms=r["step_ms"], launches_rank0=launches)
-        print(f"[dist] gloo x2 {mode} (two processes, one card, global batch {TRAIN_BS}): "
-              f"losses {g['losses']} against one process's {r['losses']} (relative "
-              f"{[f'{x:.2e}' for x in cmp['loss_rel']]}); K2 weight gradients, largest relative "
-              f"error {max(cmp['k2_grad_rel'].values()):.2e}; step ms "
-              f"{[round(x, 1) for x in g['step_ms']]} (one process "
-              f"{[round(x, 1) for x in r['step_ms']]}), all-reduce ms "
-              f"{[round(x, 1) for x in g['allreduce_ms']]}", flush=True)
+        for world in (2, 4):
+            t_world = time.perf_counter()
+            got = run_dist_workers(world, work)
+            for mode, data, model in DIST_RUNS[world]:
+                tag = f"{mode}_{data}x{model}"
+                g, r = got[0][tag], refs[mode]
+                cmp = dist_compare(f"gloo {tag}", g, r)
+                for rank in range(world):
+                    launches = {k: got[rank][tag]["launches"][k] for k in K12}
+                    check(launches == expect, f"[dist] {tag}: rank {rank}'s launches {launches}")
+                    if model > 1:
+                        for k, v in got[rank][tag]["launches"].items():
+                            rec["launches_model"][k] += v if rank == 0 else 0
+                if mode == "dense":  # blocks of data index 0 in model order
+                    word = torch.cat([torch.load(work / f"word_{tag}_{m}.pt", weights_only=True)
+                                      for m in range(model)])
+                else:
+                    word = torch.load(work / f"word_{tag}_0.pt", weights_only=True)
+                wrel = word_grad_rel(word, r["word_grad"])
+                if data == 1:  # no sum over the data axis: the arithmetic is one process's
+                    check(wrel == 0.0 and g["losses"] == r["losses"],
+                          f"[dist] {tag}: not bit-equal to one process (word-table gradient "
+                          f"{wrel:.3e} of its scale; losses {g['losses']} against {r['losses']})")
+                else:
+                    check(wrel <= WGRAD_REL_TOL, f"[dist] {tag}: word-table gradient {wrel:.3e} "
+                                                 "of its scale")
+                if tag == "dense_2x1":
+                    data_axis_word = word
+                if tag == "dense_2x2":  # the model axis adds no arithmetic to the data axis's
+                    check(torch.equal(word, data_axis_word),
+                          "[dist] dense_2x2: word-table gradient not bit-equal to dense_2x1's")
+                del word
+                per = [got[rank][tag] for rank in range(world)]
+                check(all(p["word_table_shape"] == (VOCAB // model if mode == "dense" else VOCAB,
+                                                    EMB) for p in per),
+                      f"[dist] {tag}: word-table shapes {[p['word_table_shape'] for p in per]}")
+                rec[f"gloo_{tag}"] = dict(
+                    cmp, word_grad_rel=wrel, losses=g["losses"], ref_losses=r["losses"],
+                    step_ms=[p["step_ms"] for p in per], ref_step_ms=r["step_ms"],
+                    allreduce_ms=[p["allreduce_ms"] for p in per],
+                    gather_ms=[p["gather_ms"] for p in per],
+                    gather_bytes=[p["gather_bytes"] for p in per],
+                    peak_gb=[p["peak_gb"] for p in per],
+                    word_table_bytes=[p["word_table_bytes"] for p in per],
+                    launches_rank0={k: g["launches"][k] for k in K12})
+                rnd = lambda xs, d=1: [round(x, d) for x in xs]  # noqa: E731
+                print(f"[dist] gloo {tag} ({world} processes, one card, global batch {TRAIN_BS}"
+                      f"{', title and word table sharded' if model > 1 else ''}): losses "
+                      f"{g['losses']} against one process's {r['losses']} (relative "
+                      f"{[f'{x:.2e}' for x in cmp['loss_rel']]}); K2 weight gradients, largest "
+                      f"relative error {max(cmp['k2_grad_rel'].values()):.2e}; word-table "
+                      f"gradient {wrel:.2e} of its scale; rank 0: step ms {rnd(g['step_ms'])} "
+                      f"(one process {rnd(r['step_ms'])}), gather ms {rnd(g['gather_ms'])} and "
+                      f"MB {rnd([b / 1e6 for b in g['gather_bytes']])}, all-reduce ms "
+                      f"{rnd(g['allreduce_ms'])}; word-table GB per process "
+                      f"{rnd([p['word_table_bytes'] / 1e9 for p in per], 3)}; peak GB per "
+                      f"process {rnd([p['peak_gb'] for p in per], 2)}", flush=True)
+            rec[f"seconds_{world}"] = time.perf_counter() - t_world
+            print(f"[dist] {world} processes: {rec[f'seconds_{world}']:.1f} s", flush=True)
     rec["seconds"] = time.perf_counter() - t0
     print(f"[dist] phase {rec['seconds']:.1f} s", flush=True)
     return rec
@@ -2977,7 +3116,7 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args[:1] == ["--dist-worker"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
-        return dist_worker(int(args[1]), int(args[2]), Path(args[3]))
+        return dist_worker(int(args[1]), int(args[2]), int(args[3]), Path(args[4]))
     gemm_only = "--gemm-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -3164,6 +3303,7 @@ def main(argv=None) -> int:
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_fwd"],
               "launches_parity": parity["launches"]["news_encoder_fwd"],
               "launches_dist": dist_rec["launches"]["news_encoder_fwd"],
+              "launches_dist_model": dist_rec["launches_model"]["news_encoder_fwd"],
               "note": "forward, QKV stage on TMA-fed wgmma in clusters; Philox dropout (the x mask "
                       "drawn once per step by the mask kernel, the attention-out mask in-kernel) "
                       "and external-mask dropout; timed at the training step's news-tower shape; "
@@ -3181,6 +3321,7 @@ def main(argv=None) -> int:
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd"],
               "launches_parity": parity["launches"]["news_encoder_bwd"],
               "launches_dist": dist_rec["launches"]["news_encoder_bwd"],
+              "launches_dist_model": dist_rec["launches_model"]["news_encoder_bwd"],
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
@@ -3195,6 +3336,7 @@ def main(argv=None) -> int:
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_block"],
               "launches_parity": parity["launches"]["news_encoder_bwd_block"],
               "launches_dist": dist_rec["launches"]["news_encoder_bwd_block"],
+              "launches_dist_model": dist_rec["launches_model"]["news_encoder_bwd_block"],
               "note": "K2's per-block recompute kernel alone (QKV stage on TMA-fed wgmma, "
                       "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
                       "of its QKV product alone",
@@ -3210,6 +3352,7 @@ def main(argv=None) -> int:
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_gemm"],
               "launches_parity": parity["launches"]["news_encoder_bwd_gemm"],
               "launches_dist": dist_rec["launches"]["news_encoder_bwd_gemm"],
+              "launches_dist_model": dist_rec["launches_model"]["news_encoder_bwd_gemm"],
               "note": "dx and the row-reduced weight-gradient products of K2; the top-level "
                       "numbers are dWqkv at the news shape with the stream-0 mask (cases: the "
                       "six products of the NRMS step, and ragged shapes, untimed)",
@@ -3225,6 +3368,7 @@ def main(argv=None) -> int:
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_reduce"],
               "launches_parity": parity["launches"]["news_encoder_bwd_reduce"],
               "launches_dist": dist_rec["launches"]["news_encoder_bwd_reduce"],
+              "launches_dist_model": dist_rec["launches_model"]["news_encoder_bwd_reduce"],
               "note": "fixed-order sum of K2's partials; the top-level numbers are the news "
                       "tower's dWqkv slices (cases: every partial shape of the NRMS step)",
               "checked": True}, **{k: reds[0][k] for k in keys},
@@ -3239,6 +3383,7 @@ def main(argv=None) -> int:
               "launches_cli_sparse": cli_l["nrms_sparse"]["news_encoder_bwd_mask"],
               "launches_parity": parity["launches"]["news_encoder_bwd_mask"],
               "launches_dist": dist_rec["launches"]["news_encoder_bwd_mask"],
+              "launches_dist_model": dist_rec["launches_model"]["news_encoder_bwd_mask"],
               "note": "the stream-0 (embedding) mask drawn once per step for dx and dWqkv: "
                       "round(x * mask) and keep bits; timed at the news tower's shape",
               "checked": True}, **{k: masks[0][k] for k in keys},
@@ -3249,6 +3394,7 @@ def main(argv=None) -> int:
               "launches": record["rng_check"]["launches"]["philox_mask_dump"],
               "launches_parity": parity["launches"]["philox_mask_dump"],
               "launches_dist": dist_rec["launches"]["philox_mask_dump"],
+              "launches_dist_model": dist_rec["launches_model"]["philox_mask_dump"],
               "note": "launches counted on the mask-check path (check_rng_dropout.py's flow)",
               "checked": True}, **{k: dump[k] for k in keys}),
         dict({"name": "prng_dropout", "route": "cuda", "source": "ebnerd_tpu_torch/csrc/dropout.cu",
@@ -3261,6 +3407,7 @@ def main(argv=None) -> int:
               "launches_cli_naml_sparse": cli_l["naml_sparse"]["prng_dropout"],
               "launches_parity": parity["launches"]["prng_dropout"],
               "launches_dist": dist_rec["launches"]["prng_dropout"],
+              "launches_dist_model": dist_rec["launches_model"]["prng_dropout"],
               "launches_scan": sum(scan[n]["launches_scan"].get("prng_dropout", 0) for n in SCAN_K3),
               **{f"launches_scan_{n}": scan[n]["launches_scan"].get("prng_dropout", 0)
                  for n in SCAN_K3},

@@ -2,7 +2,9 @@
 
 ``load_nrms_params(model, params)`` takes the JAX NRMS ``params`` tree as
 a nested dict of numpy arrays (``jax.device_get`` of ``variables["params"]``)
-and copies it into a port ``NRMS``. JAX keeps kernels as [in, out];
+and copies it into a port ``NRMS``. A model whose word table is row-sharded
+over a mesh's model axis (``Trainer(param_specs=...)``) takes the whole
+JAX matrix and keeps its block (``WordEmbed``'s ``load_state_dict``). JAX keeps kernels as [in, out];
 ``nn.Linear`` keeps [out, in], so every kernel is transposed. The fused
 and unfused JAX models share one tree, and so do the port's, so one tree
 loads into either.

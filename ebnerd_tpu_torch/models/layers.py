@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import prng_dropout
+from ..parallel.mesh import gather_rows
 
 __all__ = ["WordEmbed", "AdditiveAttention", "SelfAttention", "PersonalizedAttentivePooling",
            "WeightedBatchNorm", "PrngDropout", "ConvEncoder", "MaskedGRU", "Dense", "Embed",
@@ -132,28 +133,65 @@ class WordEmbed(nn.Module):
     ``rows`` (the row-sparse mode, ``training/sparse_embed.py``; the JAX
     module's ``emb_over`` collection) is a compact [C, E] slice of the
     table: the tokens are then slots into it, and the [V, E] parameter is
-    not read. It is passed per call, never kept."""
+    not read. It is passed per call, never kept.
+
+    ``shard_(sharding)`` (the trainer's ``param_specs``, the mesh's model
+    axis) keeps only this process's block of the rows as the parameter; a
+    call then gathers the tokens' unique rows from the model group
+    (``parallel.mesh.gather_rows``, exchanged in ``dtype``) and embeds from
+    them as from ``rows``: the same values, and the same fp32 sums of the
+    duplicates' cotangents, as the whole table gives. ``load_`` and
+    ``load_state_dict`` take the whole [V, E] matrix and keep the block."""
 
     def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype,
                  device: torch.device, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        self.num_embeddings = num_embeddings
+        self.sharding = None
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features, device=device))
         glorot_(self.embedding, generator)
 
+    def shard_(self, sharding) -> None:
+        """Keep only this process's rows of the table (``sharding.rows``);
+        a table already sharded so stays as it is."""
+        if self.sharding is not None:
+            if self.sharding != sharding:
+                raise ValueError(f"the table is sharded by {self.sharding}, not {sharding}")
+            return
+        block =self.embedding.detach()[sharding.rows(self.num_embeddings)].clone()
+        self.sharding = sharding
+        self.embedding = nn.Parameter(block)
+
     def forward(self, tokens: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if rows is None and self.sharding is not None:
+            wire = self.dtype if self.dtype.itemsize < 4 else torch.float32
+            tokens, rows = gather_rows(self.embedding, tokens, self.sharding,
+                                       self.num_embeddings, wire)
         return F.embedding(tokens, self.embedding if rows is None else rows).to(self.dtype)
+
+    def _block(self, m: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a whole [V, E] matrix (itself unsharded)."""
+        if self.sharding is None or m.shape[0] != self.num_embeddings:
+            return m
+        return m[self.sharding.rows(self.num_embeddings)]
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kw):
+        key = prefix + "embedding"
+        if key in state_dict:
+            state_dict[key] = self._block(state_dict[key])
+        super()._load_from_state_dict(state_dict, prefix, *args, **kw)
 
     def load_(self, matrix) -> None:
         """Copy a pretrained [V, E] matrix (numpy or a tensor) into the table,
         cast to its fp32, as the JAX modules' ``word_emb_init``
         (``embedding_initializer``) loads one; raises on another shape."""
         m = matrix if isinstance(matrix, torch.Tensor) else torch.from_numpy(np.asarray(matrix))
-        if tuple(m.shape) != tuple(self.embedding.shape):
-            raise ValueError(f"embedding shape {tuple(self.embedding.shape)} != matrix "
-                             f"{tuple(m.shape)}")
+        if (m.shape[0], *m.shape[1:]) != (self.num_embeddings, *self.embedding.shape[1:]):
+            raise ValueError(f"embedding shape {(self.num_embeddings, *self.embedding.shape[1:])} "
+                             f"!= matrix {tuple(m.shape)}")
         with torch.no_grad():
-            self.embedding.copy_(m.to(torch.float32))
+            self.embedding.copy_(self._block(m).to(torch.float32))
 
 
 class AdditiveAttention(nn.Module):

@@ -1,4 +1,6 @@
 from .mesh import (
+    Mesh,
+    ShardedTable,
     data_sharding,
     host_shard_rows,
     make_mesh,

@@ -110,6 +110,8 @@ def article_validity(tables: dict) -> Optional[torch.Tensor]:
     title = tables.get("title")
     if title is None:
         return None
+    if not isinstance(title, torch.Tensor):  # row-sharded (parallel.mesh.ShardedTable): gather it
+        title = title[torch.arange(title.shape[0], device=title.device)]
     return (title != 0).any(-1)
 
 

@@ -9,6 +9,12 @@ gradients accumulated toward the next update. It lives in
 temporary name and moved into place by ``os.replace``: a save cut short
 leaves only a ``.tmp-*`` directory, which ``latest_step``, the manager
 and resume ignore.
+
+Under a mesh every process calls the save: ``state_dict`` gathers the
+tensors row-sharded over the model axis, so a checkpoint holds whole
+tensors whatever mesh wrote it (``reshard_like``'s counterpart is
+``Trainer.load_state_dict``, which cuts each process's block on restore).
+Only the trainer that ``writes`` (process 0) writes.
 """
 from __future__ import annotations
 
@@ -37,14 +43,18 @@ def _step_of(name: str) -> Optional[int]:
 
 def save_checkpoint(trainer, directory, step: Optional[int] = None) -> Path:
     """Write ``trainer.state_dict()`` under ``directory/step_<n>`` (or
-    ``directory/best`` when step is None), atomically, replacing one there."""
+    ``directory/best`` when step is None), atomically, replacing one there.
+    Every process of a mesh calls it; only ``trainer.writes`` writes."""
     directory = Path(directory).resolve()
-    directory.mkdir(parents=True, exist_ok=True)
     name = "best" if step is None else f"step_{step}"
     path = directory / name
+    state = trainer.state_dict()
+    if not trainer.writes:
+        return path
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=f".tmp-{name}-", dir=directory))
     try:
-        torch.save(trainer.state_dict(), tmp / _STATE_FILE)
+        torch.save(state, tmp / _STATE_FILE)
         if path.exists():  # move the old one aside, then the new one in
             old = Path(tempfile.mkdtemp(prefix=f".tmp-old-{name}-", dir=directory))
             os.replace(path, old / name)
@@ -94,6 +104,8 @@ class CheckpointManager:
 
     def save_step(self, trainer, step: int) -> Path:
         path = save_checkpoint(trainer, self.directory, step=step)
+        if not trainer.writes:
+            return path
         if step not in self._saved_steps:
             self._saved_steps.append(step)
         while len(self._saved_steps) > self.keep:

@@ -81,8 +81,24 @@ per-slot path (no dedup) the BN moments are summed over the processes
 process (ROADMAP C). Process 0 starts everyone from its parameters and
 writes the checkpoints; every process resumes from them. ``score`` scores
 each process's rows of every batch and sums the processes' disjoint score
-rows. ``scan_steps`` > 1 raises under a mesh, and ``table_specs`` /
-``param_specs`` (the model axis) raise naming ROADMAP A11b.
+rows. ``scan_steps`` > 1 raises under a mesh.
+
+On a mesh with a ``model`` axis (the JAX trainer's ``table_specs`` and
+``param_specs``: a name substring -> "model", matched as JAX matches them)
+the batch is split over ``data`` only, so the processes of a model group
+hold the same rows and run the same computation. Every reduction above
+(the gradients and losses, the cotangent average, the BN moments, the
+scores) goes over the **data group**, the split by ``data_index``, and the
+first broadcast from ``data_index`` 0 of each data group. A matched value
+table becomes a ``parallel.mesh.ShardedTable`` (this process's block of
+its rows); a matched word table (``WordEmbed``) keeps its block as the
+parameter (``WordEmbed.shard_``), so dense Adam updates each block where it
+lies; any other matched parameter raises (no gather reads it). In the
+sparse mode the word table and its moments stay whole, as in JAX.
+``state_dict`` gathers every block, its Adam moments and any accumulated
+gradient over the model group, so a checkpoint holds whole tensors and
+resumes on any mesh; ``load_state_dict`` (and ``load_state_dict`` of the
+model) cut this process's block from them.
 
 ``rng_impl`` chooses XLA's random bit generator and has no counterpart.
 """
@@ -104,10 +120,11 @@ from ..data.dataloader import EvalFeed, NewsrecFeed
 from ..data.ragged import Ragged
 from ..evaluation.ranking import per_impression_auc
 from ..models.inputs import device_tables
-from ..models.layers import WeightedBatchNorm
+from ..models.layers import WeightedBatchNorm, WordEmbed
 from ..ops import kernel_counters
-from ..parallel.mesh import (all_reduce_sum, all_reduce_sum_, average_cotangent, barrier,
-                             broadcast_, host_shard_rows)
+from ..parallel.mesh import (ShardedTable, all_gather_rows, all_reduce_sum, all_reduce_sum_,
+                             average_cotangent, barrier, broadcast_, host_shard_rows,
+                             table_sharding)
 from ..serving import ScoreWindow, article_validity, encode_corpus, eval_mode, model_kind
 from ..serving import two_tower_scores
 from .adam import Adam
@@ -221,6 +238,17 @@ def _host_array(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
+def _on_model_axis(specs: Optional[dict], name: str, what: str) -> bool:
+    """Whether a ``table_specs`` / ``param_specs`` entry names ``name`` (a
+    substring of it, in the port's dotted or JAX's slashed form), as the
+    JAX trainer matches them; every spec must be "model" or ("model",)."""
+    for sub, spec in (specs or {}).items():
+        if spec not in ("model", ("model",)):
+            raise ValueError(f"{what}[{sub!r}] = {spec!r}: the only sharding is the model axis, "
+                             "'model' or ('model',)")
+    return any(sub in name or sub in name.replace(".", "/") for sub in (specs or {}))
+
+
 def _pinned(raw: dict) -> dict:
     """The batch's arrays in pinned host memory, so the step's copies to
     the card run without blocking the host."""
@@ -294,7 +322,7 @@ class _RowShard:
         mesh = self.trainer.mesh
         for raw in self.feed.batches():
             n = len(raw["hist_idx"])
-            rows = host_shard_rows(n, mesh.rank, mesh.data)
+            rows = host_shard_rows(n, mesh.data_index, mesh.data)
             out = {k: v[rows] if isinstance(v, np.ndarray) and k != "rows" else v
                    for k, v in raw.items()}
             out["rows"] = raw["rows"][rows]  # the valid rows among this process's
@@ -316,9 +344,12 @@ class Trainer:
       tables: dict of value tables (numpy or tensors), moved to ``device``
         once (``models/inputs.py`` convention).
       batch_builder: gathers model inputs from tables + an index batch.
-      mesh: optional ``parallel.mesh.Mesh`` for data parallelism over
-        processes (see the module docstring); ``table_specs`` and
-        ``param_specs``, the JAX trainer's model-axis sharding, raise.
+      mesh: optional ``parallel.mesh.Mesh`` for training over processes
+        (see the module docstring).
+      table_specs, param_specs: name substring -> "model" (or
+        ("model",)): the value tables and word tables row-sharded over the
+        mesh's model axis, the JAX trainer's arguments; without a model
+        axis they shard nothing, as in JAX.
       log_fn: where ``fit`` reports each epoch.
     """
 
@@ -326,10 +357,6 @@ class Trainer:
                  config: TrainerConfig = TrainerConfig(), device="cuda",
                  log_fn: Callable[[str], None] = print, mesh=None,
                  table_specs: Optional[dict] = None, param_specs: Optional[dict] = None):
-        if table_specs or param_specs:
-            raise NotImplementedError("table_specs / param_specs: row-sharding tables and "
-                                      "parameters over the mesh's model axis is not ported "
-                                      "(ROADMAP A11b)")
         if mesh is not None and config.scan_steps > 1:
             raise ValueError("scan_steps > 1 under a mesh is not ported: a group's steps run as "
                              "one CUDA graph, which the gradient all-reduce is not captured "
@@ -349,7 +376,9 @@ class Trainer:
         self.model = model
         self.builder = batch_builder
         self.log = log_fn
-        self.tables = device_tables(tables, self.device)
+        self._model_axis = mesh is not None and mesh.model > 1
+        self.tables = self._place_tables(tables, table_specs)
+        self._sharded = self._shard_params(model, param_specs)  # name -> WordEmbed
         dedup_ok, why = dedup_capable(model)
         if config.dedup_articles is True and not dedup_ok:
             raise ValueError(f"dedup_articles: {type(model).__name__}: {why}")
@@ -372,6 +401,9 @@ class Trainer:
         else:
             self.optimizer = Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                   mu_dtype=config.adam_mu_dtype, capturable=graphed)
+        # the optimizer's state index of each row-sharded parameter -> its table
+        self._opt_sharded = {i: m for i, p in enumerate(params) for m in self._sharded.values()
+                             if p is m.embedding}
         self._graphs: dict = {}  # (layout, accumulation phase) -> _Graph
         self._pool = None        # the graphs' shared memory pool
         # the scan path's record: groups run eagerly, captures and their
@@ -380,7 +412,7 @@ class Trainer:
                            "launches": {}}
         self.seeds = torch.Generator().manual_seed(config.seed)
         self._bns = [m for m in model.modules() if isinstance(m, WeightedBatchNorm)]
-        if mesh is not None:  # everyone starts from process 0's parameters and buffers
+        if mesh is not None:  # everyone starts from its data group's first parameters and buffers
             with torch.no_grad():
                 broadcast_(list(model.parameters()) + list(model.buffers()), mesh)
         self.step_count = 0
@@ -431,12 +463,49 @@ class Trainer:
                              f"'word_embedding' (the table the tokens index); got '{name}'")
         self._emb_table = words.embedding
 
+    def _place_tables(self, tables: dict, specs: Optional[dict]) -> dict:
+        """The value tables on the device: whole, or, on the model axis, the
+        ones ``specs`` names as this process's block (``ShardedTable``)."""
+        out = {}
+        for k, v in tables.items():
+            if not (_on_model_axis(specs, k, "table_specs") and self._model_axis):
+                out[k] = device_tables({k: v}, self.device)[k]
+                continue
+            sharding = table_sharding(self.mesh)
+            sharding.shard_shape(tuple(v.shape))  # JAX's refusal of an uneven split
+            block = device_tables({k: v[sharding.rows(v.shape[0])]}, self.device)[k]
+            out[k] = ShardedTable(block, tuple(v.shape), sharding)
+        return out
+
+    def _shard_params(self, model: torch.nn.Module, specs: Optional[dict]) -> dict:
+        """Row-shard the word tables ``specs`` names over the model axis
+        (``WordEmbed.shard_``); returns them by parameter name. A named
+        parameter that no gather reads raises (XLA would shard it); the
+        sparse mode's table stays whole, as JAX keeps it."""
+        words = {f"{n}.embedding": m for n, m in model.named_modules() if isinstance(m, WordEmbed)}
+        out = {}
+        for name, _ in list(model.named_parameters()):
+            if not _on_model_axis(specs, name, "param_specs"):
+                continue
+            if name not in words:
+                raise ValueError(f"param_specs: {name} is read by no gather; the port row-shards "
+                                 "only a WordEmbed table over 'model'")
+            if self._sparse and words[name].embedding is self._emb_table:
+                continue
+            if self._model_axis:
+                words[name].shard_(table_sharding(self.mesh))
+                out[name] = words[name]
+        return out
+
     # -- state ------------------------------------------------------------
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs: parameters, optimizer state, step
         count, the seed generator, any partly accumulated gradients and, in
-        sparse mode, the word table's moments (``emb``)."""
+        sparse mode, the word table's moments (``emb``). On the model axis
+        every row-sharded tensor is gathered whole over the model group (so
+        every process of the mesh must call it), and the state does not
+        depend on the mesh."""
         state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                  "step": self.step_count, "seeds": self.seeds.get_state(), "micro": self._micro}
         if self._micro:
@@ -444,9 +513,36 @@ class Trainer:
                               if p.grad is not None}
         if self._sparse:
             state["emb"] = {"m": self._emb_m, "v": self._emb_v}
-        return state
+        return self._reshard(state, lambda m, t: all_gather_rows(t, self.mesh)) if self._sharded \
+            else state
+
+    def _reshard(self, state: dict, fn) -> dict:
+        """``state`` with ``fn(table, t)`` in place of each tensor ``t`` that
+        lies like a row-sharded table (its parameter, Adam moments and
+        accumulated gradient); the rest, the optimizer's step counts among
+        it, as it is."""
+        def each(table, entries: dict) -> dict:
+            return {k: fn(table, v) if isinstance(v, torch.Tensor) and v.dim() else v
+                    for k, v in entries.items()}
+        out = dict(state, model=dict(state["model"]))
+        for name, table in self._sharded.items():
+            out["model"][name] = fn(table, state["model"][name])
+        opt = state["optimizer"]
+        out["optimizer"] = dict(opt, state={i: each(self._opt_sharded[i], s)
+                                            if i in self._opt_sharded else s
+                                            for i, s in opt["state"].items()})
+        if "grads" in state:
+            out["grads"] = dict(state["grads"])
+            for name, table in self._sharded.items():
+                if name in state["grads"]:
+                    out["grads"][name] = fn(table, state["grads"][name])
+        return out
 
     def load_state_dict(self, state: dict) -> None:
+        """Apply a ``state_dict()``; on the model axis each row-sharded
+        tensor, whole in ``state``, is cut to this process's block."""
+        if self._sharded:
+            state = self._reshard(state, lambda m, t: m._block(t))
         self.model.load_state_dict(state["model"])
         opt = state["optimizer"]
         lrs = [g["lr"] for g in self.optimizer.param_groups]
@@ -522,10 +618,10 @@ class Trainer:
         sparse side values (``art_*``, ``emb_*``) and scalars stay whole.
         ``shard`` = (this process's rows, the global rows)."""
         n = len(raw["labels"])
-        rows = host_shard_rows(n, self.mesh.rank, self.mesh.data)
+        rows = host_shard_rows(n, self.mesh.data_index, self.mesh.data)
         if rows.stop <= rows.start:
-            raise ValueError(f"a global batch of {n} rows leaves process {self.mesh.rank} of "
-                             f"{self.mesh.data} without rows")
+            raise ValueError(f"a global batch of {n} rows leaves data index "
+                             f"{self.mesh.data_index} of {self.mesh.data} without rows")
         out = {k: v if k.startswith(("art_", "emb_")) or getattr(v, "ndim", 0) == 0 else v[rows]
                for k, v in raw.items()}
         out["shard"] = (rows.stop - rows.start, n)
@@ -873,7 +969,7 @@ class Trainer:
                 if better:
                     best_metric, es_wait, lr_wait = val_auc, 0, 0
                     best, best_emb = self._snapshot(), self._emb_snapshot()
-                    if mgr is not None and self._writes:
+                    if mgr is not None:
                         mgr.save_best(self)
                 else:
                     es_wait += 1
@@ -890,9 +986,10 @@ class Trainer:
             if mgr is not None:
                 # the state first, then its metadata: a kill between the
                 # two resumes from the previous consistent pair. Under a
-                # mesh process 0 writes, and the others wait for it.
-                if self._writes:
-                    mgr.save_step(self, epoch)
+                # mesh every process gathers the state, process 0 writes,
+                # and the others wait for it.
+                mgr.save_step(self, epoch)
+                if self.writes:
                     (ckpt_dir / "meta.json").write_text(json.dumps({
                         "epoch": epoch, "best_metric": float(best_metric), "es_wait": es_wait,
                         "lr_wait": lr_wait, "lr": lr, "history": self.history,
@@ -917,7 +1014,7 @@ class Trainer:
         return self.history
 
     @property
-    def _writes(self) -> bool:
+    def writes(self) -> bool:
         """This process writes checkpoints: no mesh, or process 0 of it."""
         return self.mesh is None or self.mesh.rank == 0
 

@@ -80,5 +80,6 @@ def test_scan_covers_the_parallel_layer_and_the_parity_tools():
     tools, each a counterpart of a JAX module or script."""
     scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
     for name in ("parallel/__init__", "parallel/mesh", "parallel/distributed",
-                 "tools/parity_headline", "tools/parity_train", "tools/dryrun_multihost"):
+                 "tools/parity_headline", "tools/parity_train", "tools/dryrun_multihost",
+                 "tools/dryrun_multichip"):
         assert f"ebnerd_tpu_torch/{name}.py" in scanned, name

@@ -98,15 +98,33 @@ def _tiny_trainer(**kw):
                    log_fn=lambda s: None, **kw)
 
 
-def test_model_axis_raises_naming_a11b():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        port_mesh.make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        port_mesh.table_sharding(port_mesh.make_mesh())
-    with pytest.raises(NotImplementedError, match="A11b"):
-        _tiny_trainer(table_specs={"title": "model"})
-    with pytest.raises(NotImplementedError, match="A11b"):
-        _tiny_trainer(param_specs={"word_embedding": "model"})
+def test_a_model_axis_of_one_leaves_the_data_axis_as_it_was():
+    """``make_mesh(model=1)`` is the data-axis mesh: no subgroups, ranks on
+    the data axis, the batch split by rank, a table sharding of every row;
+    and the model-axis specs on such a mesh shard nothing: three steps
+    bit-equal to the trainer without them."""
+    mesh = port_mesh.make_mesh(model=1)
+    assert mesh == port_mesh.make_mesh() == port_mesh.Mesh(data=1, model=1, rank=0)
+    assert mesh.group("data") is None and mesh.group("model") is None
+    for rank in range(3):
+        m = port_mesh.Mesh(data=3, rank=rank)
+        assert (m.data_index, m.model_index) == (rank, 0)
+        assert port_mesh.data_sharding(m).rows(11) == port_mesh.host_shard_rows(11, rank, 3)
+        assert port_mesh.table_sharding(m).rows(11) == slice(0, 11)
+    rng = np.random.default_rng(1)
+    batches = [{"hist_idx": rng.integers(0, 20, (6, 4)).astype(np.int32),
+                "cand_idx": rng.integers(0, 20, (6, 3)).astype(np.int32),
+                "labels": np.eye(3, dtype=np.float32)[rng.integers(0, 3, 6)]}
+               for _ in range(3)]
+    a = _tiny_trainer(mesh=mesh)
+    b = _tiny_trainer(mesh=mesh, table_specs={"title": "model"},
+                      param_specs={"word_embedding": "model"})
+    assert isinstance(b.tables["title"], torch.Tensor) and not b._sharded
+    la = [a.train_step(dict(x)) for x in batches]
+    lb = [b.train_step(dict(x)) for x in batches]
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_scan_steps_under_a_mesh_raises():
