@@ -36,6 +36,13 @@ Phases:
        sums, against torch.sum and bit-equal over two launches; its mask
        kernel (the stream-0 mask drawn once for dx and dWqkv: round(x *
        mask) and keep bits), bit-equal to its plain version;
+     - ``[c2]``: K2 against autograd of its plain version and its per-block
+       kernel against ``bwd_core_reference`` at ROADMAP C2's fp32 shapes (2 x
+       4 heads, attention 8: [16, 6, 8], [16, 8, 8], [16, 6, 16]), then over a
+       sweep with 2-3 blocks a case (head widths 4, 8 and 20 x 1-3 heads, T
+       4-30, attention 8 and 16, n_valid inside the last block, dropout), in
+       fp32 and bf16 (the whole backward where D % 8 == 0), with the fp32 and
+       bf16 K2 tolerances and weights scaled by fan-in (see C2_SHAPES);
   4. the mask-check path of ``scripts/check_rng_dropout.py``: K1's Philox
      path against its external-mask path fed the dumped masks;
   5. NRMS two-tower serving at full width (250,002 x 1,024 vocabulary,
@@ -113,6 +120,17 @@ Phases:
      model in training mode against ``Trainer.score(two_tower=False)``, NPA
      scored by ``Trainer.score`` (the full forward); then FastformerWu's
      ``loss_and_logits`` forward and backward at the Fastformer width;
+     then ``[large]``: ``tools/bench_large.py`` at the EB-NeRD large
+     catalogue (125,000 articles, batch 4,096, the same table, bf16, host
+     dedup): NAML (generator dropout, remat, 8 chunks; no kernel launched),
+     then NRMS on K1 and K2 (the staged step's launches every step), 3 warm
+     and 5 timed steps each after the first at each bucket: step ms,
+     impressions/s, unique articles a batch, buckets, peak GiB, the first
+     steps' seconds; then ``[examples]``: ``quick_start_dummy`` (every
+     family, finite losses), ``dataset_overview``, ``feature_baselines``
+     (each zip holds every impression once with a permutation of ranks),
+     ``make_beyond_accuracy`` and ``history_length_study --epochs 1`` (AUCs
+     in [0, 1]) in process on the card, on their synthetic in-memory splits;
   11. the one-CLI entry point, ``train_newsrec.main`` in process on the
      card: NRMS at the reference's reproduction widths (``--synthetic
      --use_fused_encoder --dtype bfloat16``: batch 32, history 20, npratio
@@ -180,14 +198,16 @@ Phases:
      launches in the replayed graphs of phase 12; ``launches_parity`` and
      ``launches_dist`` those of phases 13 and 14, the latter on the NCCL
      path; ``launches_dist_model``: rank 0's over the three model-axis
-     runs), the card line, then the ``ok`` line last.
+     runs; ``launches_large``: the ``[large]`` runs'), the script's seconds,
+     the card line, then the ``ok`` line last.
 
 The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
 their QKV product alone (their yardstick; neither kernel has a one-call
 PyTorch equivalent).
 
 Each path (mask check, serving, NRMS training, the sparse steps, fit, each
-family's training and serving, each CLI run) is driven with every launch count set to 0 just before it and
+family's training and serving, each ``[large]`` run, the examples, each CLI
+run) is driven with every launch count set to 0 just before it and
 read just after; launches made to
 compare a kernel with its plain version are not counted. Any failed check
 exits non-zero. Needs one CUDA card, nvcc (sm_90a) and no network. Details
@@ -434,11 +454,17 @@ def grad_scales(ref: dict, w_name: str, pooled: tuple) -> dict:
     return out
 
 
-def make_inputs(n, t, din, cdt, gen, heads=HEADS, head_dim=HEAD_DIM, a=ATT):
+def make_inputs(n, t, din, cdt, gen, heads=HEADS, head_dim=HEAD_DIM, a=ATT, fan=False):
+    """x ~ N(0, 1) and the weights ~ N(0, 0.05^2); with ``fan``, each weight
+    matrix scaled by sqrt(full-width fan-in / its fan-in) (Wq|Wk|Wv: EMB /
+    din, W_att: D / d, q_att: ATT / a), so every product has the spread it
+    has at the full width (the [c2] cases: see C2_SHAPES)."""
     d = heads * head_dim
     x = torch.randn(n, t, din, generator=gen, device=DEV).to(cdt)
-    ws = [torch.randn(*s, generator=gen, device=DEV) * 0.05
-          for s in ((din, d), (din, d), (din, d), (d, a), (a,), (a, 1))]
+    shapes = ((din, d), (din, d), (din, d), (d, a), (a,), (a, 1))
+    fans = (EMB / din,) * 3 + (D / d, 1.0, ATT / a) if fan else (1.0,) * 6
+    ws = [torch.randn(*s, generator=gen, device=DEV) * (0.05 * math.sqrt(f))
+          for s, f in zip(shapes, fans)]
     return x, ws
 
 
@@ -529,16 +555,17 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
 
 
 def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEADS,
-             head_dim=HEAD_DIM, a=ATT, drop=None):
+             head_dim=HEAD_DIM, a=ATT, drop=None, timed=True, fan=False):
     """K2 vs autograd of the plain version under the cotangent of
     sum(sin(out) * c), c fixed and random; g is zero on rows past n_valid
-    (as slot gathers guarantee). Returns the case record."""
+    (as slot gathers guarantee). Timed (with its plain version) when
+    ``timed``. Returns the case record."""
     from ebnerd_tpu_torch.ops.news_encoder import (fused_news_encoder_bwd,
                                                    news_encoder_bwd_reference,
                                                    news_encoder_reference, pack_weights)
 
     d = heads * head_dim
-    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a)
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a, fan)
     kw = dict(num_heads=heads, compute_dtype=cdt, n_valid=n_valid)
     if drop == "rng":
         kw.update(keep_prob=KEEP, emb_keep_prob=KEEP, rng_seed=SEED64)
@@ -570,49 +597,59 @@ def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEA
               f"{name}: {nm} max|kernel - plain| = {err} > {rel} * {scales[nm]}")
     if nv < n:
         check(bool((grads[0][nv:] == 0).all()), f"{name}: dx past n_valid is not zero")
-    # the backward as the step runs it: on the forward's kernel x and keep bits
-    from ebnerd_tpu_torch.ops import news_encoder as ne
-
-    dropc = ne.dropout_config(n, t, d, kw.get("keep_prob", 1.0), kw.get("emb_keep_prob", 1.0),
-                              kw.get("rng_seed"), kw.get("drop_mask"), x.device)
-    xin, keep_bits, _ = ne.kernel_input(x, nv, dropc)
-    ms = time_ms(lambda: ne._backward(xin, keep_bits, packed, g, n, t, nv, dropc), iters)
-    plain_ms = time_ms(lambda: news_encoder_bwd_reference(x, *ws, g, **kw),
-                       max(1, iters // 5), warmup=1)
-    flops, nbytes = backward_work(nv, t, din, d, heads, a, x.element_size())
-    b_ms, b_by = bound(flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
     worst = max(e / max(s, 1e-30) for e, s in errs.values())
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
            "dtype": str(cdt).replace("torch.", ""), "dropout": drop, "n_valid": nv,
            "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False),
            "errors": errs, "max_rel_err": worst, "rel_tol": rel,
            "max_abs_err": max(e for e, _ in errs.values()),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None}
-    print(f"[kernel] {name}: K2 {n}x{t}x{din} {rec['dtype']} n_valid={nv} dropout={drop} "
+           "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
+    times = ""
+    if timed:  # the backward as the step runs it: on the forward's kernel x and keep bits
+        from ebnerd_tpu_torch.ops import news_encoder as ne
+
+        dropc = ne.dropout_config(n, t, d, kw.get("keep_prob", 1.0),
+                                  kw.get("emb_keep_prob", 1.0), kw.get("rng_seed"),
+                                  kw.get("drop_mask"), x.device)
+        xin, keep_bits, _ = ne.kernel_input(x, nv, dropc)
+        rec["ms"] = time_ms(lambda: ne._backward(xin, keep_bits, packed, g, n, t, nv, dropc),
+                            iters)
+        rec["plain_ms"] = time_ms(lambda: news_encoder_bwd_reference(x, *ws, g, **kw),
+                                  max(1, iters // 5), warmup=1)
+        flops, nbytes = backward_work(nv, t, din, d, heads, a, x.element_size())
+        rec["bound_ms"], rec["bound_by"] = bound(
+            flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
+        rec["gflop"], rec["mbytes"] = flops / 1e9, nbytes / 1e6
+        times = (f" ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} "
+                 f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) library: none")
+    print(f"[kernel] {name}: K2 {n}x{t}x{din} {rec['dtype']} heads {heads}x{head_dim} att {a} "
+          f"n_valid={nv} dropout={drop} "
           + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items())
-          + f" (rel tol {rel}) ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
-            f"({b_by}) library: none", flush=True)
+          + f" (rel tol {rel})" + times, flush=True)
     return rec
 
 
 def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True, iters=10,
-               heads=HEADS, head_dim=HEAD_DIM, a=ATT):
-    """K2's per-block kernel alone (``launch_bwd_core``, bf16, on x as the
-    step gives it: round(x * mask) with Philox dropout) against its plain
-    version ``bwd_core_reference`` over the valid rows: dQ|dK|dV, round(o)
-    and round(dz) within BF16_REL_TOL of max|plain|, the db and dq
-    partials within BF16_REL_TOL of max(max|partial|, max|dW|) (sums that
-    cancel, see FP32_GRAD_REL), the outputs bit-equal over two launches.
-    Timed with its plain version, and torch.matmul of its QKV product
-    alone. Returns the case record."""
+               heads=HEADS, head_dim=HEAD_DIM, a=ATT, cdt=torch.bfloat16, fan=False):
+    """K2's per-block kernel alone (``launch_bwd_core``, on x as the step
+    gives it: in bf16 round(x * mask) with Philox dropout; fp32 draws the
+    embedding mask in the kernel, so its cases drop the attention output
+    only) against its plain version ``bwd_core_reference`` over the valid
+    rows: dQ|dK|dV, round(o) and round(dz) within BF16_REL_TOL (fp32:
+    FP32_GRAD_REL) of max|plain|, the db and dq partials within that of
+    max(max|partial|, max|dW|) (sums that cancel, see FP32_GRAD_REL), the
+    outputs bit-equal over two launches. Timed (bf16) with its plain
+    version, and torch.matmul of its QKV product alone. Returns the case
+    record."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
-    cdt, d = torch.bfloat16, heads * head_dim
-    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a)
+    d = heads * head_dim
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a, fan)
     nv = n if n_valid is None else n_valid
     keep = KEEP if drop == "rng" else 1.0
-    dropc = ne.dropout_config(n, t, d, keep, keep, SEED64 if drop == "rng" else None)
+    rel = BF16_REL_TOL if cdt == torch.bfloat16 else FP32_GRAD_REL
+    dropc = ne.dropout_config(n, t, d, keep, keep if cdt == torch.bfloat16 else 1.0,
+                              SEED64 if drop == "rng" else None)
     packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
     xin, _, drop_in = ne.kernel_input(x, nv, dropc)
     g = (torch.randn(n, d, generator=gen, device=DEV) * 1e-2).contiguous()
@@ -633,10 +670,11 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
         scale = max(v.float().abs().max().item(), dw_max if nm in ("db_part", "dq_part") else 0.0)
         err = (u.float() - v.float()).abs().max().item()
         errs[nm] = [err, scale]
-        check(err <= BF16_REL_TOL * scale,
-              f"block {name}: {nm} max|kernel - plain| = {err} > {BF16_REL_TOL} * {scale}")
+        check(err <= rel * scale,
+              f"block {name}: {nm} max|kernel - plain| = {err} > {rel} * {scale}")
     del ref, got
-    rec = {"case": name, "shape": [n, t, din], "n_valid": nv, "dropout": drop,
+    rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
+           "dtype": str(cdt).replace("torch.", ""), "n_valid": nv, "dropout": drop, "rel_tol": rel,
            "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False),
            "errors": errs,
            "max_abs_err": max(e for e, _ in errs.values()), "ms": None, "plain_ms": None,
@@ -649,11 +687,71 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peaks[0], peaks)
         rec["gflop"], rec["mbytes"] = flops / 1e9, nbytes / 1e6
         rec["qkv_matmul_ms"] = qkv_matmul_ms(rows, din, packed.wqkv.shape[1], gen, iters)
-    print(f"[block] {name}: K2 per-block {n}x{t}x{din} bf16 n_valid={nv} dropout={drop} plan "
+    print(f"[block] {name}: K2 per-block {n}x{t}x{din} {rec['dtype']} heads {heads}x{head_dim} "
+          f"att {a} n_valid={nv} dropout={drop} plan "
           f"{rec['qkv_plan']} " + " ".join(f"{k}={e:.2e}/{s_:.2e}" for k, (e, s_) in errs.items())
           + (f" ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
              f"({rec['bound_by']}) library: none; QKV product alone, torch.matmul "
              f"ms={rec['qkv_matmul_ms']:.4f}" if timed else ""), flush=True)
+    return rec
+
+
+# [c2]: K2 at the geometries of ROADMAP C2 (fp32, 2 heads x 4, attention 8, blocks of up to 64
+# rows), then a sweep with >= 2 blocks each: head width, heads, T, attention, n_valid inside the
+# last block, dropout. Their weights are scaled by fan-in (make_inputs' ``fan``): at the fixed
+# 0.05 of the full-width cases, Din 8-72 and D 4-60 leave the attention and the pooling weights
+# near-uniform, and the pooling's gradients (dW, db, dq) then cancel a thousandfold, so fp32
+# rounding alone moves them by up to 1.3e-3 of their scale (H100: the kernel against a float64
+# version of the plain one; with fan-in scaling every gradient is within 1.5e-6 of it).
+C2_SHAPES = ((16, 6, 8), (16, 8, 8), (16, 6, 16))
+C2_HEAD_DIMS, C2_HEADS, C2_TS, C2_ATTS, C2_DINS = (4, 8, 20), (1, 2, 3), (4, 6, 8, 30), (8, 16), \
+    (16, 72, 24)
+
+
+def c2_sweep() -> list:
+    """The sweep's geometries: every (head width, heads) twice, once with
+    n_valid inside the last of 3 blocks and no dropout, once all valid with
+    dropout; T, attention and Din cycled over the cases. Each case is
+    (name, n, t, din, n_valid, heads, head_dim, a, drop)."""
+    out = []
+    for p, (hd, heads) in enumerate((hd, h) for hd in C2_HEAD_DIMS for h in C2_HEADS):
+        for q in range(2):
+            t, a, din = C2_TS[(p + q) % 4], C2_ATTS[(p // 2 + q) % 2], C2_DINS[(p + q) % 3]
+            nb = 64 // t
+            n = 2 * nb + nb // 2 + 1
+            nv = 2 * nb + 1 if q == 0 else None
+            out.append((f"{heads}x{hd}_t{t}_a{a}_din{din}" + ("_nv" if q == 0 else "_rng"),
+                        n, t, din, nv, heads, hd, a, None if q == 0 else "rng"))
+    return out
+
+
+def c2_phase(peaks, gen) -> dict:
+    """[c2] (phase 3): K2 against autograd of its plain version (``bwd_case``)
+    and its per-block kernel against ``bwd_core_reference`` (``block_case``)
+    at C2's three shapes (fp32, 2 x 4 heads, attention 8), then over
+    ``c2_sweep`` in fp32 and bf16, with the fp32 and bf16 K2 cases'
+    tolerances. The whole backward takes D % 8 == 0 (``_backward``); the
+    per-block kernel takes every D % 4 == 0 of the sweep."""
+    t0 = time.perf_counter()
+    full, block = [], []
+    f32, b16 = torch.float32, torch.bfloat16
+    for n, t, din in C2_SHAPES:
+        name = f"c2_fp32_{n}x{t}x{din}"
+        full.append(bwd_case(name, n, t, din, f32, peaks, gen, heads=2, head_dim=4, a=8,
+                             timed=False, fan=True))
+        block.append(block_case(name, n, t, din, peaks, gen, timed=False, heads=2, head_dim=4,
+                                a=8, cdt=f32, fan=True))
+    for cdt, tag in ((f32, "fp32"), (b16, "bf16")):
+        for name, n, t, din, nv, heads, hd, a, drop in c2_sweep():
+            kw = dict(n_valid=nv, heads=heads, head_dim=hd, a=a, drop=drop, fan=True)
+            if heads * hd % 8 == 0:
+                full.append(bwd_case(f"c2_{tag}_{name}", n, t, din, cdt, peaks, gen,
+                                     timed=False, **kw))
+            block.append(block_case(f"c2_{tag}_{name}", n, t, din, peaks, gen, timed=False,
+                                    cdt=cdt, **kw))
+    rec = {"full": full, "block": block, "seconds": time.perf_counter() - t0}
+    print(f"[c2] {len(full)} whole-backward and {len(block)} per-block cases passed in "
+          f"{rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -3112,6 +3210,136 @@ def dist_phase(table, raws) -> dict:
     return rec
 
 
+LARGE_STEPS = 5  # [large]: timed steps of tools/bench_large.py (its 3 warm steps before them)
+
+
+def large_phase() -> dict:
+    """[large]: ``tools/bench_large.py`` at the EB-NeRD large catalogue
+    (125,000 articles, batch 4,096, the 250,002 x 1,024 table, bf16): NAML at
+    its defaults (generator dropout, remat, 8 chunks), then NRMS on K1 and K2,
+    each with its 3 warm and LARGE_STEPS timed steps after the first step at
+    each distinct bucket. Every launch count is set to 0 before each run and
+    read after: NAML launches no kernel; NRMS launches the staged step's
+    kernels (NRMS_STEP_LAUNCHES) on every step, and per timed step exactly
+    that. Prints step ms, impressions/s, unique articles per batch, the
+    buckets, peak GiB and the first steps' seconds."""
+    from ebnerd_tpu_torch.tools import bench_large
+
+    t0 = time.perf_counter()
+    rec = {}
+    for model in ("naml", "nrms"):
+        k = dict(bench_large.knobs({"BL_MODEL": model}), steps=LARGE_STEPS)
+        reset_counts()
+        out = bench_large.run(k, DEV)
+        counts = read_counts()
+        release()
+        steps = len(out["ladder_buckets"]) + bench_large.WARMUP + LARGE_STEPS
+        check(np.isfinite(out["loss"]), f"[large] {model}: non-finite loss {out['loss']}")
+        if model == "naml":
+            check(not any(counts.values()), f"[large] naml: kernel launches {counts}")
+        else:
+            want = {n: c * steps for n, c in NRMS_STEP_LAUNCHES.items()}
+            check({n: counts.get(n, 0) for n in want} == want,
+                  f"[large] nrms: launches {counts} over {steps} steps, want {want}")
+            check(out["launches_per_step"] == {n: float(c) for n, c in
+                                               NRMS_STEP_LAUNCHES.items()},
+                  f"[large] nrms: launches per timed step {out['launches_per_step']}")
+        out["launches"], out["steps_run"] = counts, steps
+        rec[model] = out
+        print(f"[large] {model}: {out['step_ms']} ms a step, {out['value']} impressions/s at "
+              f"batch {k['bs']} over {k['n_art']:,} articles; {out['uniq_mean']} unique "
+              f"articles a batch ({out['uniq_frac']} of the slots), buckets "
+              f"{out['ladder_buckets']}, peak {out['hbm_peak_gb']} of {out['hbm_limit_gb']} GiB, "
+              f"first step at each bucket {out['compile_warm_s']} s, host dedup "
+              f"{out['prep_ms']} ms a batch; launches per timed step {out['launches_per_step']}",
+              flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[large] phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def zip_ranks_ok(zip_path: Path, inview) -> bool:
+    """Every impression once, each line's ranks a permutation of 1..n of
+    its candidates (a submission zip against the split's inview lists)."""
+    import zipfile
+
+    with zipfile.ZipFile(zip_path) as zf:
+        lines = zf.read("predictions.txt").decode().splitlines()
+    ids = [int(line.split(" ", 1)[0]) for line in lines]
+    ranks = [sorted(int(r) for r in line.split(" ", 1)[1].strip("[]").split(",")) for line in lines]
+    return (len(set(ids)) == len(ids) == len(inview)
+            and all(r == list(range(1, len(inview.row(i)) + 1)) for i, r in enumerate(ranks)))
+
+
+def examples_phase() -> dict:
+    """[examples]: the ported examples in process on the card, on their
+    synthetic in-memory splits: ``quick_start_dummy`` (every family: finite
+    losses), ``dataset_overview``, ``feature_baselines`` (each zip holds
+    every impression once with a permutation of ranks),
+    ``make_beyond_accuracy`` and ``history_length_study --epochs 1`` (AUCs in
+    [0, 1]); outputs under build/examples, removed after."""
+    import contextlib
+    import io
+    import shutil
+
+    from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch.examples import (dataset_overview, feature_baselines,
+                                           history_length_study, make_beyond_accuracy,
+                                           quick_start_dummy)
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rec, sec = {}, {}
+    reset_counts()
+    try:
+        t = time.perf_counter()
+        qs = quick_start_dummy.main(["--device", DEV])
+        sec["quick_start_dummy"] = time.perf_counter() - t
+        check(set(qs) == set(quick_start_dummy.MODELS)
+              and all(np.isfinite(r["losses"]).all() for r in qs.values()),
+              f"[examples] quick_start_dummy: {qs}")
+        rec["quick_start_losses"] = {k: v["losses"] for k, v in qs.items()}
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            ov = dataset_overview.main([])
+        sec["dataset_overview"] = time.perf_counter() - t
+        check("overview complete" in buf.getvalue() and len(ov["sampled"]) > 0,
+              "[examples] dataset_overview did not finish")
+        t = time.perf_counter()
+        fb_dir = out_dir / "baselines"
+        with contextlib.redirect_stdout(io.StringIO()):
+            base = feature_baselines.main(["--synthetic", "--out_dir", str(fb_dir)])
+        sec["feature_baselines"] = time.perf_counter() - t
+        inview = feature_baselines.load_split(True)[0][c.DEFAULT_INVIEW_ARTICLES_COL]
+        zips = sorted(fb_dir.glob("*_predictions.zip"))
+        check(len(zips) == len(base) == 4 and all(zip_ranks_ok(z, inview) for z in zips),
+              f"[examples] feature_baselines: zips {[z.name for z in zips]}")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ba = make_beyond_accuracy.main(["--synthetic", "--out_dir", str(out_dir / "ba")])
+        sec["make_beyond_accuracy"] = time.perf_counter() - t
+        check({"editorial_topinview", "popular_toppageviews", "random", "_bounds"} <= set(ba)
+              and (out_dir / "ba" / "beyond_accuracy_baselines.json").exists(),
+              f"[examples] make_beyond_accuracy: {list(ba)}")
+        t = time.perf_counter()
+        aucs = history_length_study.main(["--synthetic", "--epochs", "1", "--device", DEV,
+                                          "--out_dir", str(out_dir / "hist")])
+        sec["history_length_study"] = time.perf_counter() - t
+        check(len(aucs) == 10 and all(0.0 <= v <= 1.0 for v in aucs.values()),
+              f"[examples] history_length_study AUCs {aucs}")
+        rec["history_aucs"] = aucs
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec["launches"], rec["seconds_each"] = read_counts(), sec
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[examples] five examples on the card, each checked; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sec.items())
+          + f"; history AUCs {', '.join(f'{h}: {a:.4f}' for h, a in aucs.items())}; "
+            f"phase {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args[:1] == ["--dist-worker"]:
@@ -3229,6 +3457,7 @@ def main(argv=None) -> int:
                    timed=False, heads=4, head_dim=10, a=32),
     ]
     record["block_cases"] = blocks
+    record["c2"] = c2_phase(peaks, gen)
     gemms, reds, masks = gemm_cases(n_uniq, bucket, peaks, gen)
     record["gemm"], record["reduce"], record["mask"] = gemms, reds, masks
     dump = mask_dump_case(peaks)
@@ -3272,6 +3501,9 @@ def main(argv=None) -> int:
            for name in ("lstur", "naml", "npa", "fastformer", "nrms_docvec")}
     record.update(fam)
     record["fastformer_wu"] = fastformer_wu_check()
+    release()
+    record["large"] = large = large_phase()
+    record["examples"] = examples_phase()
     record["cli"] = cli_phase(training["launches_per_step"][0], fam["naml"]["launches_per_step"][0])
     record["embed_grad"] = embed_grad_table()
     release()
@@ -3418,6 +3650,8 @@ def main(argv=None) -> int:
               "checked": True}, **{k: k3_cases[0][k] for k in keys},
              cases=[{k: c[k] for k in ("case", "shape", "dtype") + keys} for c in k3_cases]),
     ]}
+    for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
+        k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)

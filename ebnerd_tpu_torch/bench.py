@@ -49,13 +49,18 @@ BENCH_PRNGDROP (0 = generator-seeded dropout; LSTUR, NAML, NPA, Fastformer),
 BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
 uniform), BENCH_DEDUP (0 = per slot), BENCH_SPARSE (1 = row-sparse word
 table), BENCH_MU_DTYPE (bfloat16 = a bf16 Adam first moment), BENCH_SCAN
-(1; N steps a graph replay).
+(1; N steps a graph replay); for tiny runs (the port's own) BENCH_VOCAB
+(250002), BENCH_EMB (1024), BENCH_NART (25000).
 BENCH_FUSED_BLOCK is a TPU block size and does not apply.
 
-Run: python -m ebnerd_tpu_torch.bench
+``--device cpu`` runs it on the CPU (kernels' plain versions): its metric is
+named ``..._on_cpu`` and it reports no MFU and no peak memory.
+
+Run: python -m ebnerd_tpu_torch.bench [--device cpu]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -141,35 +146,39 @@ def batches(seed: int, steps: int, bs: int, n_rows: int, dist: str = "zipf",
     return out
 
 
-def token_table(rng: np.random.Generator, dist: str, width: int = TITLE) -> np.ndarray:
-    """The [N+1, width] article token table, Zipf(1.07) token ids over the
+def token_table(rng: np.random.Generator, dist: str, width: int = TITLE,
+                n_rows: int = N_ARTICLES + 1, vocab: int = VOCAB) -> np.ndarray:
+    """The [n_rows, width] article token table, Zipf(1.07) token ids over the
     vocabulary with a shuffled rank->id assignment (bench.py)."""
-    shape = (N_ARTICLES + 1, width)
+    shape = (n_rows, width)
     if dist == "uniform":
-        return rng.integers(0, VOCAB, size=shape).astype(np.int32)
+        return rng.integers(0, vocab, size=shape).astype(np.int32)
     m = shape[0] * shape[1]
     ranks = rng.zipf(1.07, size=3 * m)
-    ranks = ranks[ranks <= VOCAB][:m] - 1
-    perm = rng.permutation(VOCAB).astype(np.int32)
+    ranks = ranks[ranks <= vocab][:m] - 1
+    perm = rng.permutation(vocab).astype(np.int32)
     return perm[ranks].reshape(shape).astype(np.int32)
 
 
 def make_family(name: str, dtype: torch.dtype, dropout: float, token_dist: str = "zipf",
-                fused: bool = True, prng: bool = True, device="cuda"):
+                fused: bool = True, prng: bool = True, device="cuda", vocab: int = VOCAB,
+                emb: int = EMB, n_articles: int = N_ARTICLES):
     """(model, value tables, batch builder, n_users) of one family at the
-    bench's configuration, weights from seed 0. The category ids of NAML's
-    tables lie in [0, vert_num) and [0, subvert_num)."""
+    bench's configuration (``vocab``, ``emb`` and ``n_articles`` cut it for
+    tiny runs), weights from seed 0. The category ids of NAML's tables lie
+    in [0, vert_num) and [0, subvert_num)."""
     from .models import (LSTUR, NAML, NPA, NRMS, Fastformer, HParamsFastformer, HParamsLSTUR,
                          HParamsNAML, HParamsNPA, HParamsNRMS, HParamsNRMSDocVec, NRMSDocVec,
                          docvec_batch, naml_batch, token_batch)
 
     rng = np.random.default_rng(0)
+    rows = n_articles + 1
     if name == "nrms_docvec":
-        docvec = rng.standard_normal((N_ARTICLES + 1, DOCVEC)).astype(np.float32)
+        docvec = rng.standard_normal((rows, DOCVEC)).astype(np.float32)
         return (NRMSDocVec(HParamsNRMSDocVec(dropout=dropout), dtype=dtype, device=device, seed=0),
                 {"docvec": docvec}, docvec_batch, 0)
-    tables = {"title": token_table(rng, token_dist)}
-    common = dict(vocab_size=VOCAB, word_emb_dim=EMB, dtype=dtype, device=device, seed=0)
+    tables = {"title": token_table(rng, token_dist, n_rows=rows, vocab=vocab)}
+    common = dict(vocab_size=vocab, word_emb_dim=emb, dtype=dtype, device=device, seed=0)
     if name == "nrms":
         return (NRMS(HParamsNRMS(dropout=dropout), use_fused_encoder=fused, **common), tables,
                 token_batch, 0)
@@ -179,9 +188,9 @@ def make_family(name: str, dtype: torch.dtype, dropout: float, token_dist: str =
         return model, tables, token_batch, N_USERS
     if name == "naml":
         hp = HParamsNAML(dropout=dropout)
-        tables["body"] = token_table(rng, token_dist, BODY)
-        tables["cat"] = rng.integers(0, hp.vert_num, N_ARTICLES + 1).astype(np.int32)
-        tables["subcat"] = rng.integers(0, hp.subvert_num, N_ARTICLES + 1).astype(np.int32)
+        tables["body"] = token_table(rng, token_dist, BODY, rows, vocab)
+        tables["cat"] = rng.integers(0, hp.vert_num, rows).astype(np.int32)
+        tables["subcat"] = rng.integers(0, hp.subvert_num, rows).astype(np.int32)
         return NAML(hp, prng_dropout=prng, **common), tables, naml_batch, 0
     if name == "npa":
         model = NPA(HParamsNPA(n_users=N_USERS, dropout=dropout), prng_dropout=prng, **common)
@@ -190,6 +199,16 @@ def make_family(name: str, dtype: torch.dtype, dropout: float, token_dist: str =
         return (Fastformer(HParamsFastformer(dropout=dropout), prng_dropout=prng, **common),
                 tables, token_batch, 0)
     raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
+
+
+def widths(env=os.environ) -> dict:
+    """The word table's rows and width and the article count: the bench's
+    (250,002 x 1,024, 25,000 articles) unless BENCH_VOCAB, BENCH_EMB or
+    BENCH_NART cut them for a tiny run; the tools that build the bench's
+    NRMS or its families read them too."""
+    return {"vocab": int(env.get("BENCH_VOCAB", str(VOCAB))),
+            "emb": int(env.get("BENCH_EMB", str(EMB))),
+            "n_articles": int(env.get("BENCH_NART", str(N_ARTICLES)))}
 
 
 def optimizer_knobs(env=os.environ) -> tuple[bool, object]:
@@ -230,17 +249,22 @@ def run(trainer, item) -> torch.Tensor:
     return trainer.step(item) if isinstance(item, dict) else trainer.run_group(item)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from .training import Trainer, TrainerConfig
 
+    ap = argparse.ArgumentParser(description="training throughput of one family")
+    ap.add_argument("--device", default="cuda")
+    device = ap.parse_args([] if argv is None else argv).device
     sparse, mu_dtype = optimizer_knobs()
     scan = scan_knob()
     name = os.environ.get("BENCH_MODEL", "nrms").lower()
     if name not in FAMILIES:
         raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
-    if not torch.cuda.is_available():
-        print("bench: needs a CUDA card", file=sys.stderr)
+    cuda = device != "cpu"
+    if cuda and not torch.cuda.is_available():
+        print("bench: needs a CUDA card (or --device cpu)", file=sys.stderr)
         return 2
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     bs = int(os.environ.get("BENCH_BS", "16384" if name == "nrms" else "4096"))
     steps = int(os.environ.get("BENCH_STEPS", "30"))
     warmup = int(os.environ.get("BENCH_WARMUP", "5"))
@@ -254,14 +278,16 @@ def main() -> int:
     token_dist = os.environ.get("BENCH_TOKEN_DIST", "zipf")
     art_dist = os.environ.get("BENCH_ARTICLE_DIST", "zipf")
     dedup = os.environ.get("BENCH_DEDUP", "1") != "0"
+    sizes = widths()
 
-    model, tables, builder, n_users = make_family(name, dtype, dropout, token_dist, fused, prng)
+    model, tables, builder, n_users = make_family(name, dtype, dropout, token_dist, fused, prng,
+                                                  device, **sizes)
     trainer = Trainer(model, tables, builder,
                       TrainerConfig(learning_rate=1e-4, seed=0, dedup_articles=dedup,
                                     sparse_embedding=sparse, adam_mu_dtype=mu_dtype,
                                     scan_steps=scan),
-                      device="cuda")
-    all_b = batches(2, warmup + steps, bs, N_ARTICLES + 1, art_dist, n_users)
+                      device=device)
+    all_b = batches(2, warmup + steps, bs, sizes["n_articles"] + 1, art_dist, n_users)
     raws = [{k: v[i] for k, v in all_b.items()} for i in range(warmup + steps)]
     t_prep = time.perf_counter()
     raws = [trainer._prep_host(r) for r in raws]  # the sparse rows, then the dedup
@@ -270,27 +296,29 @@ def main() -> int:
     uniq_frac = (float(np.mean([r["n_uniq"] for r in raws]) / (bs * (HISTORY + NPRATIO + 1)))
                  if dedup else 1.0)
     staged = stage(trainer, raws, scan)
-    torch.cuda.synchronize()
+    sync()
 
     loss = None
     for item in staged[:warmup // scan]:
         loss = run(trainer, item)
-        if scan == 1 or trainer.scan_stats["captures"] == 0:
+        if cuda and (scan == 1 or trainer.scan_stats["captures"] == 0):
             # a graph's pool is allocated by its capture: the peak counts from there
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for item in staged[warmup // scan:]:
         loss = run(trainer, item)
-    torch.cuda.synchronize()
+    sync()
     dt = time.perf_counter() - t0
     if not torch.isfinite(loss).all():
         raise RuntimeError(f"non-finite loss {loss}")
     ips = bs * steps / dt
-    part, peak = bf16_peak(torch.cuda.get_device_name(0))
-    out = {"metric": f"{name}_train_impressions_per_sec_per_chip", "value": round(ips, 1),
-           "unit": "impressions/s"}
-    if name == "nrms":
+    card = torch.cuda.get_device_name(0) if cuda else "cpu"
+    part, peak = bf16_peak(card)
+    # a CPU run's rate is no device metric: it is named apart and has no MFU or peak memory
+    out = {"metric": f"{name}_train_impressions_per_sec_" + ("per_chip" if cuda else "on_cpu"),
+           "value": round(ips, 1), "unit": "impressions/s"}
+    if name == "nrms" and cuda:
         hp = model.hparams
         d, a = hp.head_num * hp.head_dim, hp.attention_hidden_dim
         out["mfu_pct"] = round(ips * flops_per_impression(uniq_frac, dedup, d, a) / peak * 100, 2)
@@ -302,11 +330,12 @@ def main() -> int:
                    f"sparse={int(sparse)} mu={mu_dtype or 'float32'} dedup={int(dedup)} "
                    f"scan={scan} "
                    f"tok={token_dist} art={art_dist} steps{steps} "
-                   f"card={torch.cuda.get_device_name(0)} peak={part}"),
+                   f"vocab={sizes['vocab']}x{sizes['emb']} articles={sizes['n_articles']} "
+                   f"card={card}" + (f" peak={part}" if cuda else "")),
         "dedup_uniq_frac": round(uniq_frac, 4),
         "prep_ms": round(prep_ms, 2),
         "sparse_rows": sparse_rows,
-        "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2) if cuda else None,
         "scan_steps": scan,
         "captures": trainer.scan_stats["captures"],
         "capture_s": round(trainer.scan_stats["capture_s"], 3),
@@ -316,4 +345,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

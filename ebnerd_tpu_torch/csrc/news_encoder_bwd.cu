@@ -92,7 +92,7 @@ constexpr int kDoRows = 32;  // W_att rows (columns of do) per staged chunk
 
 // Shared memory of the backward kernel: region R (reused by phase), then o
 // [kRows][ldf] fp32 (later do in the compute dtype [kRows][ldo] at its
-// start), then att, wts, dvals, datt [kRows] fp32 each, then (bf16) the
+// start; sized for the wider of the two), then att, wts, dvals, datt [kRows] fp32 each, then (bf16) the
 // QKV stage's barriers; bf16 offsets from the 1,024-aligned base, as the
 // forward's. R holds, in turn,
 // the forward's phases (Layout), then the pooling backward (hact / dz fp32
@@ -121,7 +121,8 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem,
   const size_t r = smax(smax(B.f.r, pool_bwd), B.att_warps * B.warp_bytes);
   B.r = bf ? align1024(r) : align128(r);
   B.o = B.r;
-  B.small = B.o + align128(size_t(kRows) * B.f.ldf * 4);
+  // do's rows are the wider at a narrow D (fp32 at D 8: 20 floats, o's 9)
+  B.small = B.o + align128(size_t(kRows) * smax(size_t(B.f.ldf) * 4, size_t(B.f.ldo) * elem));
   B.bars = B.small + size_t(4) * kRows * 4;
   B.total = bf ? B.bars + align128(2 * kQkvMaxStages * 8) + 1024 : B.bars;
   return B;
