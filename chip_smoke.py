@@ -55,7 +55,11 @@ Phases:
      the kernels against the plain version with the same seed; 3 steps
      counting K1 and K2 launches in both towers; warm steps timed; the index
      built after the steps, the model in training mode, bit-equal to the
-     eval-mode index (the model's mode restored); a small fp32 model trained
+     eval-mode index (the model's mode restored); ``[bridge]``: the trained
+     model (whole tensors on the card) exported to JAX's params tree
+     (``bridge.nrms_params``), loaded back through ``nrms_state_dict`` into a
+     fresh NRMS on the card, every tensor and one eval forward's logits (on
+     K1) bit-equal, the export's seconds and bytes; a small fp32 model trained
      3 steps on the kernels against its unfused layers and against the
      per-slot path (no dedup) on the kernels; then the row-sparse word table
      (``sparse_embedding``) at the same width: the host prep of every batch
@@ -89,7 +93,10 @@ Phases:
      bit-equal to an uninterrupted run; the same fit in the sparse mode
      (launches per step, two-tower against the full forward, the restored
      best weights; its impressions/s beside the staged sparse step's, the
-     prefetch thread's sparse and dedup ms per batch);
+     prefetch thread's sparse and dedup ms per batch); ``[native]``: the dense
+     fit three more times, the host data layer on its numpy path
+     (``EBNERD_TPU_NO_NATIVE=1``) in the middle two (ABBA): impressions/s
+     both ways, the native library's calls above 0 natively and 0 else;
   8. K3, the seed-recompute dropout, against its plain version: bit-equal
      outputs and masks in fp32 and bf16 (sizes with a tail, a
      non-contiguous input, an unaligned pointer, element offsets past 2**34
@@ -106,7 +113,8 @@ Phases:
      plain version with the same seed; 3 steps counting K3's launches; warm
      steps timed; then each served two-tower from the model in training mode
      (index over 25,001 articles, 4,096 impressions; LSTUR with its user
-     ids), against ``Trainer.score(two_tower=False)``, warm rates; a small
+     ids), against ``Trainer.score(two_tower=False)``, warm rates, then each
+     through ``[bridge]`` as NRMS in phase 6 (its family's functions); a small
      fp32 model of each family trained 3 steps on the dedup path against
      the per-slot path;
   10. NPA, Fastformer and NRMSDocVec training at full width, the same
@@ -118,8 +126,9 @@ Phases:
      stats moved and no launch; 3 steps counting K3's launches (8, 10, 0);
      warm steps timed; Fastformer and NRMSDocVec served two-tower from the
      model in training mode against ``Trainer.score(two_tower=False)``, NPA
-     scored by ``Trainer.score`` (the full forward); then FastformerWu's
-     ``loss_and_logits`` forward and backward at the Fastformer width;
+     scored by ``Trainer.score`` (the full forward), each then through
+     ``[bridge]``; then FastformerWu's ``loss_and_logits`` forward and
+     backward at the Fastformer width, and its ``[bridge]``;
      then ``[large]``: ``tools/bench_large.py`` at the EB-NeRD large
      catalogue (125,000 articles, batch 4,096, the same table, bf16, host
      dedup): NAML (generator dropout, remat, 8 chunks; no kernel launched),
@@ -144,11 +153,15 @@ Phases:
      training impressions/s, seconds per epoch and validation seconds
      printed; then each again with ``--sparse_embedding``, 1 epoch (NRMS:
      launches per step as the staged step's; NAML: title and body through
-     the shared table, 8 K3 a step); build/cli_* removed; then the host data
-     path at a real scale
-     (100,000 impressions, 20,000 articles, 20,000 users: the in-memory
-     synthetic split, truncation and join, the sampler, labels and a
-     NewsrecFeed), timed per stage;
+     the shared table, 8 K3 a step); build/cli_* removed; then ``[native]``,
+     the host data path at a real scale (100,000 impressions, 20,000
+     articles, 20,000 users: the in-memory synthetic split, truncation and
+     join, the sampler, labels and a NewsrecFeed) timed per stage on the
+     numpy path (``EBNERD_TPU_NO_NATIVE=1``) and on the native host library
+     (``ebnerd_tpu_torch/native/``, built by g++), twice each in ABBA order:
+     every table, ragged column, feed array and batch of one epoch bit-equal
+     between the paths, the library's calls 0 and above 0; then
+     ``tools/bomb_feeds.py`` both ways, ABBA;
   12. ``[scan]``, ``TrainerConfig.scan_steps=4`` (N steps as one CUDA-graph
      replay): K3, K1 and K2 given the seed (and n_valid) as device scalars
      against the host ints (K3, K1's output and dx bit-equal, rows past
@@ -220,6 +233,7 @@ Run: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1321,6 +1335,11 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
     print(f"[train] C1: the index built after the steps, model in training mode, equals the "
           f"eval-mode index bit for bit ({tuple(index_train.shape)}); mode restored", flush=True)
     del index_train, index_eval
+    bridge = bridge_check("nrms", model, full_width_model(),
+                          lambda m: m(dict(staged[0], dropout_seed=SEED64)))
+    check(bridge["launches_forward"]["news_encoder_fwd"] == 2,
+          f"[bridge] nrms: the eval forward did not run on K1: {bridge['launches_forward']}")
+    torch.cuda.empty_cache()
 
     rec = {"batch": TRAIN_BS, "npratio": NPRATIO, "dropout": DROPOUT, "lr": LR, "c1_equal": c1_equal,
            "loss_kernels": loss_k, "loss_plain": loss_p, "grad_errors": grad_errs,
@@ -1329,7 +1348,7 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
            "uniq_frac": uniq_frac, "n_uniq_first": int(preps[0]["n_uniq"]), "buckets": buckets,
            "host_dedup_ms": prep_ms, "k1_ms": {"news": k_news, "user": k_user},
            "k2_ms": {"news": b_news, "user": b_user}, "k2_block_ms": k2_block,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "bridge": bridge}
     print(f"[train] warm: {step_ms:.2f} ms/step, {ips:,.0f} impressions/s, mfu {mfu:.2f}% "
           f"(bench.py's FLOPs over {peaks[0] / 1e12:g} TFLOP/s); unique fraction {uniq_frac:.4f}, "
           f"buckets {buckets}; host dedup {prep_ms:.2f} ms/batch; K1 {k_news:.3f} (news) + "
@@ -1662,20 +1681,23 @@ def val_table(n_imp, n_art, seed, n_users=0):
     return Table(cols)
 
 
-def fit_full_width(training, sparse=False):
+def fit_full_width(training, sparse=False, tag=None):
     """``Trainer.fit`` at the full width of the NRMS step (``training``: the
     staged step's record, dense or sparse as the fit): FIT_EPOCHS epochs of
     FIT_STEPS steps from a NewsrecFeed, host prep on the prefetch thread
     (prefetch 2; ``sparse``: the row-sparse mode's vocabulary rows, then the
     dedup), validation on FIT_VAL_IMP impressions after each epoch, the best
-    weights restored at the end. Returns its record."""
+    weights restored at the end. Returns its record, with the native host
+    library's calls over the whole run."""
     from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch import native
     from ebnerd_tpu_torch.bench import token_table
     from ebnerd_tpu_torch.data import EvalFeed, Lookup, NewsrecFeed
     from ebnerd_tpu_torch.models import token_batch
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig
     from ebnerd_tpu_torch.training import trainer as trainer_module
 
+    native.reset_counters()
     t_setup = time.perf_counter()
     lookup = Lookup.from_values(np.arange(1, N_ART + 1),
                                 token_table(np.random.default_rng(0), "zipf")[1:])
@@ -1685,7 +1707,7 @@ def fit_full_width(training, sparse=False):
     val_feed, val_labels = EvalFeed(val, lookup, history_size=H, batch_size=BATCH), val[
         c.DEFAULT_LABELS_COL]
 
-    tag = "[sparse-fit]" if sparse else "[fit]"
+    tag = tag or ("[sparse-fit]" if sparse else "[fit]")
     cfg = TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True, prefetch=2,
                         sparse_embedding=sparse)
     trainer = Trainer(full_width_model(), {"title": lookup.matrix}, token_batch, cfg, device=DEV,
@@ -1798,7 +1820,8 @@ def fit_full_width(training, sparse=False):
            "host_sparse_prep_ms": sparse_ms, "host_prep_ms": host_ms,
            "dedup_batches": len(timing["dedup_s"]), "sparse": sparse,
            "bound_by": "host prep" if host_ms >= training["step_ms"] else "device step",
-           "max_abs_score_diff_two_tower_vs_full": tt_err, "restored_best_equal": restored_equal}
+           "max_abs_score_diff_two_tower_vs_full": tt_err, "restored_best_equal": restored_equal,
+           "native_calls": native.counters()}
     print(f"{tag} {FIT_EPOCHS} epochs x {FIT_STEPS} steps of {TRAIN_BS}: losses "
           f"{', '.join(f'{h['loss']:.6f}' for h in history)}, val AUC "
           f"{', '.join(f'{h['val_auc']:.6f}' for h in history)}; training "
@@ -1875,6 +1898,75 @@ def small_fit_resume():
           flush=True)
     return {"prefetch_bit_equal": prefetch_equal, "resume_bit_equal": resume_equal,
             "history": hist_u, "launches": counts}
+
+
+BRIDGE = {"nrms": ("nrms_params", "nrms_state_dict"),
+          "nrms_docvec": ("nrms_docvec_params", "nrms_docvec_state_dict"),
+          "lstur": ("lstur_params", "lstur_state_dict"), "naml": ("naml_params", "naml_state_dict"),
+          "npa": ("npa_params", "npa_state_dict"),
+          "fastformer": ("fastformer_params", "fastformer_state_dict"),
+          "fastformer_wu": ("fastformer_params", "fastformer_state_dict")}
+
+
+def bridge_check(name, model, fresh, forward):
+    """[bridge]: the trained ``model`` (whole tensors on the card) exported to
+    JAX's params tree (``bridge.<family>_params``: numpy fp32 on the host),
+    loaded back through ``bridge.<family>_state_dict`` into ``fresh`` (a new
+    model of the same configuration on the card): every parameter and buffer
+    bit-equal, and one eval forward (``forward(m)``, cuDNN deterministic)
+    bit-equal with the same launches. The card has no JAX: the tree's other
+    side is held by tests/test_torch_bridge.py. Returns its record."""
+    from ebnerd_tpu_torch import bridge
+
+    export, load = (getattr(bridge, f) for f in BRIDGE[name])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = export(model)  # the model itself: a block of a sharded word table would raise
+    export_s = time.perf_counter() - t0
+    trees = out if isinstance(out, tuple) else (out,)
+    leaves = [a for tree in trees if tree is not None for a in tree_leaves(tree)]
+    check(all(isinstance(a, np.ndarray) and a.dtype == np.float32 for a in leaves),
+          f"[bridge] {name}: the export holds a leaf that is not a float32 numpy array")
+    nbytes = sum(a.nbytes for a in leaves)
+    t0 = time.perf_counter()
+    fresh.load_state_dict(load(*trees), strict=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want, got = model.state_dict(), fresh.state_dict()
+    check(set(want) == set(got), f"[bridge] {name}: keys differ")
+    unequal = [k for k in want if not (got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+                                       and torch.equal(got[k], want[k]))]
+    check(not unequal, f"[bridge] {name}: tensors not bit-equal after the round trip: {unequal}")
+    was = model.training
+    model.eval()
+    fresh.eval()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            reset_counts()
+            a = forward(model)
+            ca = read_counts()
+            reset_counts()
+            b = forward(fresh)
+            cb = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        model.train(was)
+    check(bool(torch.isfinite(a).all()) and torch.equal(a, b) and ca == cb,
+          f"[bridge] {name}: eval logits differ after the round trip (max|d| "
+          f"{(a.float() - b.float()).abs().max().item():.3e}) or launches {ca} against {cb}")
+    rec = {"export_s": export_s, "load_s": load_s, "bytes": nbytes, "leaves": len(leaves),
+           "tensors": len(want), "logits_shape": list(a.shape), "launches_forward": ca}
+    print(f"[bridge] {name}: exported {len(leaves)} leaves, {nbytes:,} bytes, in {export_s:.3f} s; "
+          f"loaded back in {load_s:.3f} s; {len(want)} tensors bit-equal; eval logits "
+          f"{tuple(a.shape)} bit-equal, launches {({k: v for k, v in ca.items() if v})}",
+          flush=True)
+    return rec
+
+
+def tree_leaves(tree):
+    for v in tree.values():
+        yield from (tree_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def family_serving(name, trainer, tables):
@@ -2159,6 +2251,8 @@ def family_training(name, preps, prep_ms, k3_ms):
           f"peak memory {rec['peak_mem_gb']:.2f} GB", flush=True)
     rec["serving"] = (npa_scoring(trainer) if name == "npa"
                       else family_serving(name, trainer, tables))
+    rec["bridge"] = bridge_check(name, model, family_model(name)[0],
+                                 lambda m: m(dict(staged[0], dropout_seed=SEED64)))
     del trainer, model, staged
     torch.cuda.empty_cache()
     return rec
@@ -2227,12 +2321,15 @@ def fastformer_wu_check():
     check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None),
           "fastformer_wu: non-finite gradients")
     ms = time_ms(step, 5)
+    fresh = FastformerWu(HParamsFastformer(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
+                         dtype=torch.bfloat16, device=DEV, seed=1)
     rec = {"batch": 1_024, "tokens": T, "loss": loss.item(), "fwd_bwd_ms": ms,
-           "launches": counts}
+           "launches": counts, "bridge": bridge_check("fastformer_wu", model, fresh,
+                                                      lambda m: m(ids, SEED64))}
     print(f"[fastformer_wu] loss_and_logits forward + backward on [1024, {T}] tokens: loss "
           f"{loss.item():.6f} (ln 4 = {math.log(4):.6f}), {ms:.2f} ms; no kernel launch",
           flush=True)
-    del model
+    del model, fresh
     torch.cuda.empty_cache()
     return rec
 
@@ -2445,18 +2542,29 @@ def cli_phase(staged_step, naml_step):
             "host_data": host_data_path()}
 
 
-def host_data_path():
+def numpy_host_path():
+    """``with numpy_host_path():`` runs the host data layer on its numpy path
+    (``EBNERD_TPU_NO_NATIVE=1``, read at each call), then restores the
+    environment."""
+    import os
+    return mock.patch.dict(os.environ, {"EBNERD_TPU_NO_NATIVE": "1"})
+
+
+def host_stages():
     """The CLI's host data path at a real scale, timed per stage, no card
     work: the in-memory synthetic split (100,000 impressions, 20,000
     articles, 20,000 users), the history truncation and join, Wu et al.'s
     sampler, the labels, and a NewsrecFeed (built, then one epoch of
-    batches of 32)."""
+    batches of 32). Returns (seconds per stage, every table and the feed's
+    arrays and batches, the native library's calls)."""
     from ebnerd_tpu_torch import constants as c
+    from ebnerd_tpu_torch import native
     from ebnerd_tpu_torch.data import (Lookup, NewsrecFeed, create_binary_labels_column,
                                        ebnerd_from_tables, sampling_strategy_wu2019,
                                        synthetic_ebnerd_tables)
 
-    sec = {}
+    native.reset_counters()
+    sec, out = {}, {}
     t = time.perf_counter()
 
     def lap(stage):
@@ -2470,25 +2578,100 @@ def host_data_path():
     lap("synthetic")
     df = ebnerd_from_tables(behaviors, history, history_size=H)
     lap("truncate_join")
+    out.update(history=history, behaviors=behaviors, articles=articles, truncate_join=df)
     df = sampling_strategy_wu2019(df, npratio=NPRATIO, shuffle=True, seed=42)
     lap("wu2019")
+    out["wu2019"] = df
     df = create_binary_labels_column(df, shuffle=True, seed=42)
     lap("labels")
+    out["labels"] = df
     ids = np.asarray(articles[c.DEFAULT_ARTICLE_ID_COL])
     tokens = np.random.default_rng(0).integers(1, 50, (len(ids), T)).astype(np.int32)
     feed = NewsrecFeed(df, Lookup.from_values(ids, tokens), history_size=H, batch_size=32,
                        seed=42)
     lap("feed")
-    n_batches = sum(1 for _ in feed.epoch())
+    batches = list(feed.epoch())
     lap("feed_epoch")
-    check(len(behaviors) == 100_000 and n_batches == len(df) // 32 and len(df) > 100_000,
-          f"host data path: {len(behaviors)} impressions, {len(df)} rows, {n_batches} batches")
+    out["feed"] = {"hist_idx": feed.hist_idx, "cand_idx": feed.cand_idx, "labels": feed.labels}
+    out["batches"] = batches
+    check(len(behaviors) == 100_000 and len(batches) == len(df) // 32 and len(df) > 100_000,
+          f"host data path: {len(behaviors)} impressions, {len(df)} rows, {len(batches)} batches")
+    return sec, out, native.counters()
+
+
+def same_arrays(a, b) -> bool:
+    """Bit-equal with the same dtype and shape: arrays, ragged columns, tables,
+    dicts and lists of them."""
+    from ebnerd_tpu_torch.data import Ragged, Table
+
+    if isinstance(a, Table):
+        return isinstance(b, Table) and a.columns == b.columns and all(
+            same_arrays(a[k], b[k]) for k in a.columns)
+    if isinstance(a, Ragged):
+        return isinstance(b, Ragged) and same_arrays(a.values, b.values) and same_arrays(
+            a.offsets, b.offsets)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_arrays(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(map(same_arrays, a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == object:  # strings: compare the objects, not their addresses
+        return b.dtype == object and a.shape == b.shape and a.tolist() == b.tolist()
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def host_data_path():
+    """[native] (phase 11): the host data path (``host_stages``) on the numpy
+    path (``EBNERD_TPU_NO_NATIVE=1``), then on the native library: every
+    table, ragged column, feed array and batch of the epoch bit-equal
+    between the runs, the library's calls 0 in the first and above 0 in the
+    second; each stage's seconds both ways, in ABBA order (numpy, native,
+    native, numpy: the first run pays the process's cold start); then
+    ``tools/bomb_feeds.py`` (300 iterations over its 2,000-impression split)
+    in ABBA order. Returns its record."""
+    from ebnerd_tpu_torch import native
+    from ebnerd_tpu_torch.tools import bomb_feeds
+
+    with numpy_host_path():
+        sec_np, out_np, calls_np = host_stages()
+    sec, out, calls = host_stages()
+    sec2 = host_stages()[0]  # a second round in the other order (ABBA)
+    with numpy_host_path():
+        sec_np2 = host_stages()[0]
+    check(not any(calls_np.values()), f"[native] the opt-out run called the library: {calls_np}")
+    check(all(calls[k] > 0 for k in ("gather_ranges", "to_padded", "map_ids", "isin_per_row")),
+          f"[native] a native entry point went uncalled: {calls}")
+    unequal = [k for k in out if not same_arrays(out[k], out_np[k])]
+    check(not unequal, f"[native] native and numpy outputs differ: {unequal}")
+    behaviors, df, n_batches = out["behaviors"], out["labels"], len(out["batches"])
+    del out, out_np
+    bombs = {"numpy": [], "native": []}
+    for path in ("numpy", "native", "native", "numpy"):  # ABBA
+        native.reset_counters()
+        with numpy_host_path() if path == "numpy" else contextlib.nullcontext():
+            bombs[path].append(bomb_feeds.run(echo=lambda *a: None))
+        calls_bomb = native.counters()
+        check((calls_bomb["map_ids"] > 0) == (path == "native")
+              and (path == "native" or not any(calls_bomb.values())),
+              f"[native] bomb_feeds on the {path} path called the library {calls_bomb}")
     rec = {"impressions": len(behaviors), "train_rows": len(df), "batches": n_batches,
-           "seconds": sec, "total_s": sum(sec.values())}
-    print(f"[cli] host data path: {len(behaviors):,} impressions -> {len(df):,} training rows, "
-          f"{n_batches:,} batches of 32; seconds "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sec.items())
-          + f"; total {rec['total_s']:.2f} s", flush=True)
+           "seconds": sec, "total_s": sum(sec.values()), "seconds_numpy": sec_np,
+           "total_s_numpy": sum(sec_np.values()), "seconds_round2": sec2,
+           "seconds_numpy_round2": sec_np2, "native_calls": calls,
+           "bomb_feeds": bombs["native"], "bomb_feeds_numpy": bombs["numpy"], "bit_equal": True}
+    print(f"[native] host data path: {len(behaviors):,} impressions -> {len(df):,} training "
+          f"rows, {n_batches:,} batches of 32, every table, column, feed array and batch "
+          f"bit-equal native against numpy; native calls {calls}; seconds native / numpy: "
+          + ", ".join(f"{k} {sec[k]:.3f} / {sec_np[k]:.3f}" for k in sec)
+          + f"; total {rec['total_s']:.3f} / {rec['total_s_numpy']:.3f} s; second round "
+          + ", ".join(f"{k} {sec2[k]:.3f} / {sec_np2[k]:.3f}" for k in sec2)
+          + f"; total {sum(sec2.values()):.3f} / {sum(sec_np2.values()):.3f} s", flush=True)
+    per = lambda key: " / ".join(", ".join(f"{r[key]:,}" for r in bombs[p])
+                                 for p in ("native", "numpy"))
+    print(f"[native] bomb_feeds (300 iterations, ABBA: numpy, native, native, numpy), native / "
+          f"numpy: NewsrecFeed {per('newsrec_batches_per_s')} batches/s, EvalFeed "
+          f"{per('eval_batches_per_s')}, feeds built in {per('feeds_build_s')} s", flush=True)
     return rec
 
 
@@ -3477,7 +3660,25 @@ def main(argv=None) -> int:
     record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
     dist_raws = raws[:DIST_STEPS]
     del raws
-    record["fit"] = fit_full_width(training)
+    record["fit"] = fit = fit_full_width(training)
+    # [native]: the same fit with the host data layer on its numpy path, in ABBA order (native,
+    # numpy, numpy, native); the library runs only while the feeds are built
+    fits = {"native": [fit], "numpy": []}
+    for path in ("numpy", "numpy", "native"):
+        with numpy_host_path() if path == "numpy" else contextlib.nullcontext():
+            fits[path].append(fit_full_width(training, tag=f"[fit {path} host]"))
+    for path, runs in fits.items():
+        for r in runs:
+            check(any(r["native_calls"].values()) == (path == "native"),
+                  f"[native] a fit on the {path} path called the library {r['native_calls']}")
+    record["fit_native_abba"] = {p: [{k: r[k] for k in ("impressions_per_s", "train_s", "setup_s",
+                                                         "host_dedup_ms", "native_calls")}
+                                     for r in runs] for p, runs in fits.items()}
+    per = lambda key, fmt: " / ".join(", ".join(format(r[key], fmt) for r in fits[p])
+                                      for p in ("native", "numpy"))
+    print(f"[native] fit (ABBA: native, numpy, numpy, native), native / numpy: "
+          f"{per('impressions_per_s', ',.0f')} impressions/s; setup {per('setup_s', '.3f')} s; "
+          f"host dedup {per('host_dedup_ms', '.2f')} ms a batch", flush=True)
     record["sparse_fit"] = fit_full_width(record["sparse"], sparse=True)
     record["small_fit_resume"] = small_fit_resume()
 

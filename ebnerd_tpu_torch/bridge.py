@@ -1,13 +1,32 @@
-"""Carry the weights of every family from the JAX package into the port.
+"""Carry the weights of every family between the JAX package and the port,
+in both directions.
 
-``load_nrms_params(model, params)`` takes the JAX NRMS ``params`` tree as
-a nested dict of numpy arrays (``jax.device_get`` of ``variables["params"]``)
-and copies it into a port ``NRMS``. A model whose word table is row-sharded
-over a mesh's model axis (``Trainer(param_specs=...)``) takes the whole
-JAX matrix and keeps its block (``WordEmbed``'s ``load_state_dict``). JAX keeps kernels as [in, out];
-``nn.Linear`` keeps [out, in], so every kernel is transposed. The fused
-and unfused JAX models share one tree, and so do the port's, so one tree
-loads into either.
+JAX -> port: ``load_nrms_params(model, params)`` takes the JAX NRMS
+``params`` tree as a nested dict of numpy arrays (``jax.device_get`` of
+``variables["params"]``) and copies it into a port ``NRMS``. A model whose
+word table is row-sharded over a mesh's model axis (``Trainer(param_specs=...)``)
+takes the whole JAX matrix and keeps its block (``WordEmbed``'s
+``load_state_dict``). JAX keeps kernels as [in, out]; ``nn.Linear`` keeps
+[out, in], so every kernel is transposed. The fused and unfused JAX models
+share one tree, and so do the port's, so one tree loads into either.
+
+port -> JAX: ``nrms_params``, ``nrms_docvec_params``, ``lstur_params``,
+``npa_params``, ``naml_params`` and ``fastformer_params`` invert the
+``*_state_dict`` functions. Each takes a port ``state_dict`` (the model's,
+or ``Trainer.state_dict()["model"]`` read back from a checkpoint) or the
+model itself, and returns the tree the JAX module's ``init`` gives (the
+same nesting, names and shapes) as float32 numpy arrays that share no
+memory with the model: ``apply({"params": params}, ...)`` then scores as
+the port does. ``nrms_params`` and ``nrms_docvec_params`` return
+``(params, batch_stats)``, the arguments their ``*_state_dict`` takes
+(``batch_stats`` is None for NRMS without the dense stack). The word table
+must be whole: ``Trainer.state_dict()`` gathers a row-sharded one, while a
+sharded model's own ``state_dict()`` holds a block, which raises, naming
+the whole shape, when the model or ``vocab_size`` says what it is. No
+optimizer state is carried: JAX's checkpoint is orbax, the port's
+``torch.save``.
+
+The mapping below is read in both directions:
 
   word_embedding/embedding [V, E]  -> word_embedding.embedding
   {news,user}_self_att/W{Q,K,V} [din, d] -> .W{Q,K,V}.weight [d, din]
@@ -47,14 +66,15 @@ as above, LayerNorms ``scale``/``bias`` -> ``.scale``/``.bias``, and
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["nrms_state_dict", "load_nrms_params", "lstur_state_dict", "load_lstur_params",
            "naml_state_dict", "load_naml_params", "npa_state_dict", "nrms_docvec_state_dict",
-           "fastformer_state_dict"]
+           "fastformer_state_dict", "nrms_params", "nrms_docvec_params", "lstur_params",
+           "npa_params", "naml_params", "fastformer_params"]
 
 
 def _t(a) -> torch.Tensor:
@@ -218,3 +238,176 @@ def load_naml_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module
     """Copy a JAX NAML params tree into ``model`` (strict)."""
     model.load_state_dict(naml_state_dict(params), strict=True)
     return model
+
+
+# -- port -> JAX --------------------------------------------------------------
+
+def _state(state, vocab_size: Optional[int]) -> tuple[Mapping, Optional[int]]:
+    """(the state_dict, the word table's whole row count if known) of a
+    module or a state_dict."""
+    if isinstance(state, torch.nn.Module):
+        emb = getattr(state, "word_embedding", None)
+        if vocab_size is None and emb is not None:
+            vocab_size = emb.num_embeddings
+        state = state.state_dict()
+    return state, vocab_size
+
+
+def _a(t) -> np.ndarray:
+    """A float32 numpy copy of a tensor (any device), sharing no memory."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def _aT(t) -> np.ndarray:
+    return np.ascontiguousarray(_a(t).T)
+
+
+def _pool_p(sd: Mapping, name: str) -> dict:
+    return {"W": _aT(sd[f"{name}.W.weight"]), "b": _a(sd[f"{name}.W.bias"]),
+            "q": _aT(sd[f"{name}.q.weight"])}
+
+
+def _dense_p(sd: Mapping, name: str) -> dict:
+    out = {"kernel": _aT(sd[f"{name}.weight"])}
+    if f"{name}.bias" in sd:
+        out["bias"] = _a(sd[f"{name}.bias"])
+    return out
+
+
+def _conv_p(sd: Mapping, name: str) -> dict:
+    kernel = np.ascontiguousarray(_a(sd[f"{name}.weight"]).transpose(2, 1, 0))
+    return {"Conv_0": {"kernel": kernel, "bias": _a(sd[f"{name}.bias"])}}
+
+
+def _embed_p(sd: Mapping, name: str) -> dict:
+    return {"embedding": _a(sd[f"{name}.embedding"])}
+
+
+def _word_p(sd: Mapping, vocab_size: Optional[int]) -> dict:
+    """The word table, whole: a block of a row-sharded one raises."""
+    table = sd["word_embedding.embedding"]
+    if vocab_size is not None and table.shape[0] != vocab_size:
+        raise ValueError(
+            f"word_embedding.embedding is [{table.shape[0]}, {table.shape[1]}], not the whole "
+            f"[{vocab_size}, {table.shape[1]}] table: a block of a row-sharded table? Export "
+            "Trainer.state_dict()['model'], which gathers it")
+    return _embed_p(sd, "word_embedding")
+
+
+def _self_att_p(sd: Mapping, name: str) -> dict:
+    return {w: _aT(sd[f"{name}.{w}.weight"]) for w in ("WQ", "WK", "WV")}
+
+
+def _norm_p(sd: Mapping, name: str) -> dict:
+    return {"scale": _a(sd[f"{name}.scale"]), "bias": _a(sd[f"{name}.bias"])}
+
+
+def _children(sd: Mapping, prefix: str) -> list[str]:
+    """The names of the direct submodules under ``prefix`` (in order)."""
+    names = []
+    for key in sd:
+        if key.startswith(prefix):
+            name = key[len(prefix):].split(".")[0]
+            if name not in names:
+                names.append(name)
+    return names
+
+
+def _dense_stack_p(sd: Mapping) -> tuple[dict, dict]:
+    stack, stats = {}, {}
+    for name in _children(sd, "news_dense."):
+        if name.startswith("l2_dense_"):
+            stack[name] = _dense_p(sd, f"news_dense.{name}")
+        else:  # bn_<i>
+            stack[name] = _norm_p(sd, f"news_dense.{name}")
+            stats[name] = {buf: _a(sd[f"news_dense.{name}.{buf}"]) for buf in ("mean", "var")}
+    return stack, stats
+
+
+def nrms_params(state, vocab_size: Optional[int] = None) -> tuple[dict, Optional[dict]]:
+    """Port NRMS (a state_dict or the model) -> the JAX NRMS's ``(params,
+    batch_stats)``; ``batch_stats`` is None without the dense stack."""
+    sd, vocab_size = _state(state, vocab_size)
+    params = {"word_embedding": _word_p(sd, vocab_size)}
+    for tower in ("news", "user"):
+        params[f"{tower}_self_att"] = _self_att_p(sd, f"{tower}_self_att")
+        params[f"{tower}_pool"] = _pool_p(sd, f"{tower}_pool")
+    if not _children(sd, "news_dense."):
+        return params, None
+    params["news_dense"], stats = _dense_stack_p(sd)
+    return params, {"news_dense": stats}
+
+
+def nrms_docvec_params(state) -> tuple[dict, dict]:
+    """Port NRMSDocVec -> the JAX NRMSDocVec's ``(params, batch_stats)``."""
+    sd, _ = _state(state, None)
+    stack, stats = _dense_stack_p(sd)
+    params = {"news_dense": stack, "news_out": _dense_p(sd, "news_out"),
+              "user_self_att": _self_att_p(sd, "user_self_att"),
+              "user_pool": _pool_p(sd, "user_pool")}
+    return params, {"news_dense": stats}
+
+
+def npa_params(state, vocab_size: Optional[int] = None) -> dict:
+    """Port NPA -> the JAX NPA's ``params``."""
+    sd, vocab_size = _state(state, vocab_size)
+    params = {"word_embedding": _word_p(sd, vocab_size),
+              "user_embedding": _embed_p(sd, "user_embedding"), "conv": _conv_p(sd, "conv")}
+    for name in ("word_query", "news_query"):
+        params[name] = _dense_p(sd, name)
+    for name in ("word_pool", "news_pool"):
+        params[name] = {"att_proj": _dense_p(sd, f"{name}.att_proj")}
+    return params
+
+
+def fastformer_params(state, vocab_size: Optional[int] = None) -> dict:
+    """Port Fastformer or FastformerWu -> the JAX module's ``params``; the
+    state decides which pools there are."""
+    sd, vocab_size = _state(state, vocab_size)
+    params = {"word_embedding": _word_p(sd, vocab_size),
+              "position_embedding": _embed_p(sd, "position_embedding"),
+              "embedding_transform": _dense_p(sd, "embedding_transform"),
+              "output_layer": _dense_p(sd, "output_layer"),
+              "emb_norm": _norm_p(sd, "emb_norm")}
+    for name in ("token_pool", "user_pool"):
+        if f"{name}.W.weight" in sd:
+            params[name] = _pool_p(sd, name)
+    for i in _children(sd, "layers."):
+        prefix = f"layers.{i}."
+        params[f"layer_{i}"] = {
+            "FastSelfAttention_0": {name: _dense_p(sd, f"{prefix}attention.{name}")
+                                    for name in _children(sd, f"{prefix}attention.")},
+            **{name: {"Dense_0": _dense_p(sd, f"{prefix}{name}.dense"),
+                      "LayerNorm_0": _norm_p(sd, f"{prefix}{name}.norm")}
+               for name in ("att_out", "ffn_out")},
+            "Dense_0": _dense_p(sd, f"{prefix}intermediate")}
+    return params
+
+
+def lstur_params(state, vocab_size: Optional[int] = None) -> dict:
+    """Port LSTUR (``ini`` or ``con``) -> the JAX LSTUR's ``params``."""
+    sd, vocab_size = _state(state, vocab_size)
+    params = {"word_embedding": _word_p(sd, vocab_size),
+              "user_embedding": _embed_p(sd, "user_embedding"), "conv": _conv_p(sd, "conv"),
+              "news_pool": _pool_p(sd, "news_pool"),
+              "gru": {"GRUCell_0": {gate: _dense_p(sd, "gru." + ("in_" if gate == "in" else gate))
+                                    for gate in ("ir", "iz", "in", "hr", "hz", "hn")}}}
+    if "con_dense.weight" in sd:
+        params["con_dense"] = _dense_p(sd, "con_dense")
+    return params
+
+
+def naml_params(state, vocab_size: Optional[int] = None) -> dict:
+    """Port NAML -> the JAX NAML's ``params``."""
+    sd, vocab_size = _state(state, vocab_size)
+    params = {"word_embedding": _word_p(sd, vocab_size)}
+    for name in ("vert_embedding", "subvert_embedding"):
+        params[name] = _embed_p(sd, name)
+    for view in ("title", "body"):
+        params[f"{view}_conv"] = _conv_p(sd, f"{view}_conv")
+        params[f"{view}_pool"] = _pool_p(sd, f"{view}_pool")
+    for name in ("vert_dense", "subvert_dense"):
+        params[name] = _dense_p(sd, name)
+    for name in ("view_pool", "user_pool"):
+        params[name] = _pool_p(sd, name)
+    return params

@@ -1,5 +1,5 @@
-"""id -> row index -> dense value matrix (copy of ``ebnerd_tpu/data/lookup.py``,
-numpy ``map_ids`` path).
+"""id -> row index -> dense value matrix (copy of ``ebnerd_tpu/data/lookup.py``;
+``map_ids`` calls the native library for integer ids, as JAX does).
 
 The id->index mapping runs once over whole ragged columns (vectorized
 searchsorted) and yields int32 index arrays; the value matrix lives on
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from .ragged import Ragged
 
 __all__ = ["Lookup", "create_lookup_objects", "map_list_article_id_to_value"]
@@ -51,6 +52,11 @@ class Lookup:
     def map_ids(self, ids: np.ndarray) -> np.ndarray:
         """Vectorized id -> row index; unknown ids -> 0."""
         ids = np.asarray(ids)
+        if (self.ids.dtype.kind in "iu" and ids.dtype.kind in "iu"
+                and self.ids.dtype != np.uint64 and ids.dtype != np.uint64):
+            res = native.map_ids(self.ids, ids.reshape(-1))
+            if res is not None:
+                return res.reshape(ids.shape)
         pos = np.searchsorted(self.ids, ids)
         pos_c = np.minimum(pos, len(self.ids) - 1)
         found = self.ids[pos_c] == ids

@@ -1,9 +1,12 @@
-"""Ragged (list-valued) column as offsets + values.
+"""Ragged (list-valued) column as offsets + values (copy of
+``ebnerd_tpu/data/ragged.py``).
 
-Copy of the numpy paths of ``ebnerd_tpu/data/ragged.py`` (not its native
-g++ branch, ``ebnerd_tpu/native/ragged_kernels.cc``, which gives the same
-bits faster; ROADMAP A15). A ``Ragged`` holds ``n``
-variable-length rows as:
+``take_rows``, ``tail``, ``to_padded`` and ``isin_per_row`` call the
+port's native library (``ebnerd_tpu_torch/native/``, g++ at first use)
+where JAX calls its own, and take the numpy path for the inputs its
+kernels do not take, or for every input with ``EBNERD_TPU_NO_NATIVE=1``;
+both paths give the same bits. A ``Ragged`` holds ``n`` variable-length
+rows as:
 
     values : np.ndarray, shape [total]
     offsets: np.int64 ndarray, shape [n + 1]; row i = values[offsets[i]:offsets[i+1]]
@@ -15,7 +18,19 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from .. import native
+
 __all__ = ["Ragged"]
+
+
+def _gather_ranges(values: np.ndarray, starts: np.ndarray,
+                   lengths: np.ndarray, total: int) -> np.ndarray:
+    """values[starts[i] : starts[i]+lengths[i]] concatenated: the native
+    single pass where it takes ``values``, else numpy's; the same bits."""
+    out = native.gather_ranges(values, starts, lengths, total)
+    if out is not None:
+        return out
+    return values[_ranges(starts, lengths, total)]
 
 
 @dataclass(frozen=True)
@@ -81,6 +96,7 @@ class Ragged:
     def take_rows(self, indices: np.ndarray) -> "Ragged":
         """Gather rows (with repetition allowed): out row j = self row indices[j]."""
         indices = np.asarray(indices, dtype=np.int64)
+        # The native gather is a raw memcpy: refuse a bad index here.
         if indices.size and (indices.min() < 0 or indices.max() >= len(self)):
             bad = indices[(indices < 0) | (indices >= len(self))][0]
             raise IndexError(
@@ -91,7 +107,7 @@ class Ragged:
         total = int(out_offsets[-1])
         if total == 0:
             return Ragged(self.values[:0], out_offsets)
-        vals = self.values[_ranges(self.offsets[indices], lengths, total)]
+        vals = _gather_ranges(self.values, self.offsets[indices], lengths, total)
         return Ragged(vals, out_offsets)
 
     def tail(self, n: int) -> "Ragged":
@@ -101,7 +117,7 @@ class Ragged:
         starts = self.offsets[1:] - keep
         out_offsets = np.zeros(len(self) + 1, dtype=np.int64)
         np.cumsum(keep, out=out_offsets[1:])
-        vals = self.values[_ranges(starts, keep, int(out_offsets[-1]))]
+        vals = _gather_ranges(self.values, starts, keep, int(out_offsets[-1]))
         return Ragged(vals, out_offsets)
 
     def to_padded(self, width: int, pad_value=0, align: str = "right") -> tuple[np.ndarray, np.ndarray]:
@@ -113,6 +129,12 @@ class Ragged:
         tail (right) / head (left).
         """
         n = len(self)
+        if (self.values.dtype == np.int32 and align in ("right", "left")
+                and _fits_int32(pad_value)):
+            res = native.to_padded(self.values, self.offsets, width,
+                                   pad_value, align == "right")
+            if res is not None:
+                return res
         lengths = np.minimum(self.lengths, width)
         out = np.full((n, width), pad_value, dtype=self.values.dtype)
         mask = np.zeros((n, width), dtype=bool)
@@ -136,6 +158,11 @@ class Ragged:
         behind binary labels)."""
         if len(self) != len(other):
             raise ValueError("row counts differ")
+        if self.values.dtype.kind in "iu" and other.values.dtype.kind in "iu":
+            res = native.isin_per_row(self.values, self.offsets,
+                                      other.values, other.offsets)
+            if res is not None:
+                return res
         self_keys = _row_scoped_keys(self.row_ids(), self.values)
         other_keys = _row_scoped_keys(other.row_ids(), other.values)
         return np.isin(self_keys, other_keys)
@@ -172,6 +199,13 @@ class Ragged:
         keys = self.row_ids().astype(np.float64) * 2.0 + rng.random(self.total)
         perm = np.argsort(keys, kind="stable")
         return Ragged(self.values[perm], self.offsets.copy()), perm
+
+
+def _fits_int32(pad_value) -> bool:
+    try:
+        return bool(np.int32(pad_value) == pad_value)
+    except (OverflowError, ValueError, TypeError):
+        return False
 
 
 def _ranges(starts: np.ndarray, lengths: np.ndarray, total: int) -> np.ndarray:

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from .. import resolve_device
+
 __all__ = [
     "Mesh",
     "make_mesh",
@@ -281,10 +283,12 @@ def shard_batch(batch: dict, mesh: Optional[Mesh]) -> dict:
             for k, v in batch.items()}
 
 
-def put_replicated(x, mesh: Mesh, device="cpu") -> torch.Tensor:
+def put_replicated(x, mesh: Mesh, device="cuda") -> torch.Tensor:
     """The whole of a host array on this process's ``device`` (every
-    process passes the same value)."""
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(device)
+    process passes the same value); the card unless the caller passes
+    ``device="cpu"``, as JAX places it on the mesh's accelerators."""
+    dev = resolve_device(device)
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(dev)
 
 
 def host_shard_rows(n_rows: int, process_index: Optional[int] = None,

@@ -51,42 +51,52 @@ def feeds(n_impressions: int, batch_size: int, history_size: int):
     return feed, efeed, len(train_df), pre_s
 
 
-def main(argv=None) -> int:
+def run(iterations: int = 300, n_impressions: int = 2000, batch_size: int = 32,
+        history_size: int = 20, echo=print) -> dict:
+    """Build the feeds, then ``iterations`` epochs of ``NewsrecFeed`` and
+    passes of ``EvalFeed``; returns the JSON line's record (``echo`` gets
+    the JAX script's lines)."""
     from ..utils.misc import time_it
 
+    t0 = time.perf_counter()
+    feed, efeed, rows, pre_s = feeds(n_impressions, batch_size, history_size)
+    build_s = time.perf_counter() - t0
+    echo(f"NewsrecFeed pretransform: {pre_s:.3f}s ({rows} rows)")
+    n_batches = 0
+    t0 = time.perf_counter()
+    with time_it(f"NewsrecFeed x{iterations} epochs", log=echo):
+        for _ in range(iterations):
+            for _batch in feed.epoch():
+                n_batches += 1
+    train_s = time.perf_counter() - t0
+    echo(f"  {n_batches} batches, {n_batches * batch_size} impressions")
+    e_batches = 0
+    t0 = time.perf_counter()
+    with time_it(f"EvalFeed x{iterations} passes", log=echo):
+        for _ in range(iterations):
+            for _batch in efeed.batches():
+                e_batches += 1
+    eval_s = time.perf_counter() - t0
+    echo(f"  {e_batches} batches")
+    return {
+        "iterations": iterations, "feeds_build_s": round(build_s, 4),
+        "pretransform_s": round(pre_s, 4),
+        "newsrec_batches": n_batches, "newsrec_impressions": n_batches * batch_size,
+        "newsrec_s": round(train_s, 4), "newsrec_batches_per_s": round(n_batches / train_s, 1),
+        "eval_batches": e_batches, "eval_s": round(eval_s, 4),
+        "eval_batches_per_s": round(e_batches / eval_s, 1), "device": "host"}
+
+
+def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--iterations", type=int, default=300)
     p.add_argument("--n_impressions", type=int, default=2000)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--history_size", type=int, default=20)
     args = p.parse_args(argv)
-
-    feed, efeed, rows, pre_s = feeds(args.n_impressions, args.batch_size, args.history_size)
-    print(f"NewsrecFeed pretransform: {pre_s:.3f}s ({rows} rows)")
-    n_batches = 0
-    t0 = time.perf_counter()
-    with time_it(f"NewsrecFeed x{args.iterations} epochs"):
-        for _ in range(args.iterations):
-            for _batch in feed.epoch():
-                n_batches += 1
-    train_s = time.perf_counter() - t0
-    print(f"  {n_batches} batches, {n_batches * args.batch_size} impressions")
-    e_batches = 0
-    t0 = time.perf_counter()
-    with time_it(f"EvalFeed x{args.iterations} passes"):
-        for _ in range(args.iterations):
-            for _batch in efeed.batches():
-                e_batches += 1
-    eval_s = time.perf_counter() - t0
-    print(f"  {e_batches} batches")
-    print(json.dumps({
-        "iterations": args.iterations, "pretransform_s": round(pre_s, 4),
-        "newsrec_batches": n_batches, "newsrec_impressions": n_batches * args.batch_size,
-        "newsrec_s": round(train_s, 4), "newsrec_batches_per_s": round(n_batches / train_s, 1),
-        "eval_batches": e_batches, "eval_s": round(eval_s, 4),
-        "eval_batches_per_s": round(e_batches / eval_s, 1), "device": "host"}))
+    print(json.dumps(run(args.iterations, args.n_impressions, args.batch_size,
+                         args.history_size)))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

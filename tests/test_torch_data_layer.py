@@ -141,7 +141,7 @@ def test_ragged_methods_match_jax(case):
         p.isin_per_row(PRagged.from_lists([[1]] * (len(rows) + 1)))
 
 
-def test_ragged_methods_on_a_split_match_jax(split):
+def test_ragged_methods_on_a_split_match_jax(split, monkeypatch):
     _, df, _ = split
     hist = df[c.DEFAULT_HISTORY_ARTICLE_ID_COL]
     j, p = df[INVIEW], to_port(df[INVIEW])
@@ -149,8 +149,16 @@ def test_ragged_methods_on_a_split_match_jax(split):
     same(hist.tail(4), to_port(hist).tail(4))
     for align in ("left", "right"):
         same(j.to_padded(8, align=align), p.to_padded(8, align=align), align)
+    # A value outside uint32: the native path answers as JAX's does, and
+    # the numpy path (EBNERD_TPU_NO_NATIVE=1) refuses it, as JAX's does.
+    neg, one = [[-1]], [[1]]
+    same(JRagged.from_lists(neg).isin_per_row(JRagged.from_lists(one)),
+         PRagged.from_lists(neg).isin_per_row(PRagged.from_lists(one)), "native isin")
+    monkeypatch.setenv("EBNERD_TPU_NO_NATIVE", "1")
     with pytest.raises(ValueError, match="uint32"):
-        PRagged.from_lists([[-1]]).isin_per_row(PRagged.from_lists([[1]]))
+        PRagged.from_lists(neg).isin_per_row(PRagged.from_lists(one))
+    with pytest.raises(ValueError, match="uint32"):
+        JRagged.from_lists(neg).isin_per_row(JRagged.from_lists(one))
 
 
 @pytest.mark.parametrize("rep", ["zeros", "mean"])

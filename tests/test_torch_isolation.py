@@ -83,3 +83,14 @@ def test_scan_covers_the_parallel_layer_and_the_parity_tools():
                  "tools/parity_headline", "tools/parity_train", "tools/dryrun_multihost",
                  "tools/dryrun_multichip"):
         assert f"ebnerd_tpu_torch/{name}.py" in scanned, name
+
+
+def test_scan_covers_the_native_library():
+    """The scan reaches ``native/``, the port's own binding of its own copy
+    of the C++ source (``ebnerd_tpu/native/`` imports no JAX, but the port
+    imports nothing of the JAX package)."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert "ebnerd_tpu_torch/native/__init__.py" in scanned
+    assert (ROOT / "ebnerd_tpu_torch" / "native" / "ragged_kernels.cc").exists()
+    for path in (ROOT / "ebnerd_tpu_torch" / "data").glob("*.py"):
+        assert not [m for m in _imports(path) if m.endswith("native") and _forbidden(m)]

@@ -69,9 +69,18 @@ def test_single_process_helpers_match_jax():
     assert torch.equal(t, torch.arange(4.0))
     with pytest.raises(ValueError, match="processes"):
         port_mesh.make_mesh(data=2)
-    np.testing.assert_array_equal(port_mesh.put_replicated(np.arange(3), mesh).numpy(),
+    np.testing.assert_array_equal(port_mesh.put_replicated(np.arange(3), mesh, device="cpu").numpy(),
                                   np.arange(3))
     assert port_mesh.replicated(mesh).rows(5) == slice(0, 5)
+
+
+def test_put_replicated_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """JAX places the array on the mesh's accelerators; the port's default
+    is the card, so without one it raises ``resolve_device``'s error
+    rather than run on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_mesh.put_replicated(np.arange(3), port_mesh.make_mesh())
 
 
 def test_initialize_is_a_no_op_without_a_job_and_raises_on_half_a_job(monkeypatch):
