@@ -77,7 +77,15 @@ Phases:
      optimizer alone against ``torch.optim.Adam``; then the word table's
      gradient-and-optimizer slab per strategy (``tools/embed_grad.py``:
      dense, dense with the bf16 moment, host dedup with the row-wise Adam;
-     batch 512 and 16,384, uniform and Zipf(1.07) tokens);
+     batch 512 and 16,384, uniform and Zipf(1.07) tokens); then ``[c3]``:
+     K1, K2's per-block kernel and K2 at ROADMAP C3's shapes (C3_CASES: T
+     33, 50 and 64, head widths 40 and 64, attention widths 200, 300 and
+     512, D 100 and 30 with Philox dropout; fp32 and bf16, weights scaled by
+     fan-in) against their plain versions, the three timed at the
+     history-50 user tower [16,384, 50, 400]; NRMS at the step's width with
+     history 50 (one step against the plain path, launches per step as the
+     staged step's, warm steps timed), served two-tower against the full
+     forward, and the CLI with ``--history_size 50``;
   7. ``Trainer.fit`` at the same width: 2 epochs of 4 steps from a
      NewsrecFeed of bench.py's Zipf draws (built with Ragged.from_lengths),
      host dedup on the prefetch thread (prefetch 2), validation on 4,096
@@ -446,7 +454,7 @@ def block_work(n_valid, t, din, d, heads, a, elem, p_cols):
     flops = fwd + n_valid * (2 * t * d + 4 * t * a + 2 * t * d * a + 4 * 2 * heads * t * t * hd)
     rows, a_pad = n_valid * t, -(-a // 16) * 16
     nbytes = (rows * din * elem + n_valid * d * 4 + 3 * din * d * elem + (d * a + 2 * a) * 4
-              + rows * (p_cols + d + a_pad) * elem + 2 * -(-n_valid // (64 // t)) * a_pad * 4)
+              + rows * (p_cols + d + a_pad) * elem + 2 * -(-n_valid // max(1, 64 // t)) * a_pad * 4)
     return flops, nbytes
 
 
@@ -482,7 +490,7 @@ def make_inputs(n, t, din, cdt, gen, heads=HEADS, head_dim=HEAD_DIM, a=ATT, fan=
     return x, ws
 
 
-def qkv_plan_of(n, t, din, d, a, cdt, fwd):
+def qkv_plan_of(n, t, din, d, a, cdt, fwd, head_dim=HEAD_DIM):
     """The (stages, cluster) plan K1 (fwd) or K2's per-block kernel takes
     for this shape in bf16, or None in fp32."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
@@ -492,11 +500,12 @@ def qkv_plan_of(n, t, din, d, a, cdt, fwd):
     a_pad = -(-a // 16) * 16
     lib = ne._library() if fwd else ne._library_bwd()
     smem = lib.news_encoder_smem_bytes if fwd else lib.news_encoder_bwd_smem_bytes
-    return list(ne.qkv_plan(n, t, din, lambda s: smem(d, a_pad, 1, s), forward=fwd))
+    return list(ne.qkv_plan(n, t, din, lambda s: smem(t, d, d // head_dim, a_pad, 1, s),
+                            forward=fwd))
 
 
 def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
-                heads=HEADS, head_dim=HEAD_DIM, a=ATT, drop=None, yardstick=False):
+                heads=HEADS, head_dim=HEAD_DIM, a=ATT, drop=None, yardstick=False, fan=False):
     """K1 vs its plain version on one shape; returns the case record. The
     wrapper is called as the model calls it, with the weights packed once
     (with Philox dropout in bf16 it draws the x mask once, with the mask
@@ -505,13 +514,13 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     ``yardstick``: also time torch.matmul of the QKV product alone. Where
     Din is not a whole 16 bytes the kernels take x padded (``padded_din``):
     the record times that pad's copy of x too, which the calls without the
-    bf16 x mask pay."""
+    bf16 x mask pay. ``fan``: weights scaled by fan-in (``make_inputs``)."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
     from ebnerd_tpu_torch.ops.news_encoder import (fused_news_encoder, news_encoder_reference,
                                                    pack_weights)
 
     d = heads * head_dim
-    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a)
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, head_dim, a, fan)
     kw = dict(num_heads=heads, compute_dtype=cdt, n_valid=n_valid)
     if drop == "rng":
         kw.update(keep_prob=KEEP, emb_keep_prob=KEEP, rng_seed=SEED64)
@@ -543,7 +552,7 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     plain_ms = time_ms(lambda: news_encoder_reference(x, *ws, **kw), max(2, iters // 4), warmup=1)
     flops, nbytes = encoder_work(nv, t, din, d, heads, a, x.element_size())
     b_ms, b_by = bound(flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
-    plan = qkv_plan_of(n, t, din, d, a, cdt, fwd=True)
+    plan = qkv_plan_of(n, t, din, d, a, cdt, fwd=True, head_dim=head_dim)
     mm_ms = (qkv_matmul_ms(nv * t, din, packed.wqkv.shape[1], gen, iters)
              if cdt == torch.bfloat16 and yardstick else None)
     width = ne.padded_din(din, cdt)
@@ -614,7 +623,7 @@ def bwd_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=10, heads=HEA
     worst = max(e / max(s, 1e-30) for e, s in errs.values())
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
            "dtype": str(cdt).replace("torch.", ""), "dropout": drop, "n_valid": nv,
-           "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False),
+           "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False, head_dim=head_dim),
            "errors": errs, "max_rel_err": worst, "rel_tol": rel,
            "max_abs_err": max(e for e, _ in errs.values()),
            "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
@@ -669,7 +678,7 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
     g = (torch.randn(n, d, generator=gen, device=DEV) * 1e-2).contiguous()
     g[nv:] = 0
     run = lambda: ne.launch_bwd_core(ne._library_bwd(), xin, packed, g, nv, drop_in, n=n, t=t)
-    rows, blocks = nv * t, -(-nv // (64 // t))
+    rows, blocks = nv * t, -(-nv // ne.articles_per_block(t))
     valid = lambda o: (o[0][:rows], o[1][:rows], o[2][:rows], o[3][:blocks, :a], o[4][:blocks, :a])
     got = valid(run())  # the rows and blocks past nv are left unwritten
     torch.cuda.synchronize()
@@ -689,7 +698,7 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
     del ref, got
     rec = {"case": name, "shape": [n, t, din], "heads": [heads, head_dim, a],
            "dtype": str(cdt).replace("torch.", ""), "n_valid": nv, "dropout": drop, "rel_tol": rel,
-           "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False),
+           "qkv_plan": qkv_plan_of(n, t, din, d, a, cdt, fwd=False, head_dim=head_dim),
            "errors": errs,
            "max_abs_err": max(e for e, _ in errs.values()), "ms": None, "plain_ms": None,
            "bound_ms": None, "bound_by": None, "library_ms": None, "qkv_matmul_ms": None}
@@ -765,6 +774,159 @@ def c2_phase(peaks, gen) -> dict:
                                     cdt=cdt, **kw))
     rec = {"full": full, "block": block, "seconds": time.perf_counter() - t0}
     print(f"[c2] {len(full)} whole-backward and {len(block)} per-block cases passed in "
+          f"{rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+# [c3]: K1, K2's per-block kernel and the whole K2 at the shapes of ROADMAP C3, which the
+# kernels refused before (T, head width <= 32, padded attention width <= 256): T 33, 50 and 64
+# (one article a block), head widths 40 and 64 (D 400 and 512), attention widths 200, 300 and
+# 512 (two pooling chunks), fp32 and bf16, with Philox or external-mask dropout, n_valid inside
+# the last block (T 20: three articles a block) and block counts odd against K1's cluster of 2;
+# weights scaled by fan-in as [c2]'s. Then D 100 (10 x 10) and D 30 (3 x 10, not a multiple of
+# 4) with Philox dropout, which the backward (D % 8) and the in-kernel dropout (D % 4) refused.
+C3_HIST = 50
+C3_CASES = (
+    # name, n, t, din, dtype, heads, head_dim, a, n_valid, dropout
+    ("bf16_t33_10x40_a300", 37, 33, EMB, torch.bfloat16, 10, 40, 300, 36, "rng"),
+    ("bf16_t50_8x64_a512", 37, 50, D, torch.bfloat16, 8, 64, 512, None, "rng"),
+    ("bf16_t64_10x40_a200", 13, 64, EMB, torch.bfloat16, 10, 40, 200, 12, "mask"),
+    ("bf16_t20_8x64_a300", 13, 20, 256, torch.bfloat16, 8, 64, 300, 11, "rng"),
+    ("bf16_t30_20x20_a512", 13, T, 256, torch.bfloat16, 20, 20, 512, 11, None),
+    ("bf16_t50_20x20_a200", 37, C3_HIST, D, torch.bfloat16, 20, 20, 200, 36, "rng"),
+    ("fp32_t50_2x64_a300", 13, C3_HIST, 128, torch.float32, 2, 64, 300, 12, "rng"),
+    ("fp32_t33_10x40_a200", 9, 33, 256, torch.float32, 10, 40, 200, None, "mask"),
+    ("fp32_t64_8x64_a200", 5, 64, 128, torch.float32, 8, 64, 200, 4, "rng"),
+    ("fp32_t20_2x40_a512", 13, 20, 64, torch.float32, 2, 40, 512, 11, "rng"),
+    ("bf16_d100_10x10", 13, 20, 128, torch.bfloat16, 10, 10, 64, 11, "rng"),
+    ("fp32_d100_10x10", 13, 20, 128, torch.float32, 10, 10, 64, 11, "rng"),
+    ("bf16_d30_3x10", 13, 20, 128, torch.bfloat16, 3, 10, 32, None, "rng"),
+)
+
+
+def c3_kernel_cases(peaks, gen) -> dict:
+    """[c3]'s kernel cases (C3_CASES): K1 (``kernel_case``), the per-block
+    kernel (``block_case``) and the whole K2 (``bwd_case``) against their
+    plain versions with phase 3's tolerances; then the three at the
+    history-50 user tower's shape [TRAIN_BS, 50, D] bf16, timed (the rows
+    of PERF.md's kernel table at the new shape)."""
+    fwd, block, full = [], [], []
+    for name, n, t, din, cdt, heads, hd, a, nv, drop in C3_CASES:
+        kw = dict(n_valid=nv, heads=heads, head_dim=hd, a=a, drop=drop, fan=True)
+        fwd.append(kernel_case(f"c3_{name}", n, t, din, cdt, peaks, gen, iters=3, **kw))
+        block.append(block_case(f"c3_{name}", n, t, din, peaks, gen, timed=False, cdt=cdt, **kw))
+        full.append(bwd_case(f"c3_{name}", n, t, din, cdt, peaks, gen, timed=False, **kw))
+    user = dict(heads=HEADS, head_dim=HEAD_DIM, a=ATT)
+    fwd.append(kernel_case("c3_bf16_train_user_h50", TRAIN_BS, C3_HIST, D, torch.bfloat16, peaks,
+                           gen, iters=10, yardstick=True, **user))
+    block.append(block_case("c3_block_train_user_h50", TRAIN_BS, C3_HIST, D, peaks, gen, **user))
+    full.append(bwd_case("c3_bwd_bf16_train_user_h50", TRAIN_BS, C3_HIST, D, torch.bfloat16,
+                         peaks, gen, iters=5, **user))
+    return {"fwd": fwd, "block": block, "full": full}
+
+
+def c3_training(table, peaks, staged_step) -> dict:
+    """[c3] NRMS at bench.py's width with history 50: the 250,002 x 1,024
+    table, title 30, 20 x 20 heads, attention 200, batch 16,384, npratio 4,
+    dropout 0.2, dedup, bf16 and Zipf(1.07) draws, so that the user tower
+    runs K1 and K2 at [16,384, 50, 400]. One step against the plain path
+    (``step_vs_plain``), TRAIN_STEPS counted steps (each kernel's launches a
+    step equal to the staged step's, ``staged_step``), WARM_STEPS timed;
+    then serving: ``Trainer.score`` two-tower (the user tower on K1 at T
+    50) against the full forward on FIT_VAL_IMP impressions of up to 50
+    history articles, within SCORE_ATOL."""
+    from ebnerd_tpu_torch import bench
+    from ebnerd_tpu_torch.data import EvalFeed, Lookup
+    from ebnerd_tpu_torch.models import token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig, prep_dedup_batch
+
+    n_steps = 1 + TRAIN_STEPS + 2 + WARM_STEPS
+    with mock.patch.object(bench, "HISTORY", C3_HIST):
+        all_b = bench.batches(3, n_steps, TRAIN_BS, N_ART + 1, "zipf")
+    raws = [{k: v[i] for k, v in all_b.items()} for i in range(n_steps)]
+    t0 = time.perf_counter()
+    preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
+    prep_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    lookup = Lookup.from_values(np.arange(1, N_ART + 1), table[1:])
+    trainer = Trainer(full_width_model(), {"title": lookup.matrix}, token_batch,
+                      TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
+    staged = [trainer.prepare(r) for r in preps]
+    check(tuple(raws[0]["hist_idx"].shape) == (TRAIN_BS, C3_HIST), "history-50 batch shape")
+    loss_k, loss_p, grad_errs = step_vs_plain(trainer, staged[0], "[c3 train]")
+
+    losses, per_step = [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        reset_counts()
+        losses.append(trainer.step(staged[i]).item())
+        per_step.append(read_counts())
+    for c in per_step:
+        check(all(c[k] == staged_step[k] for k in K12),
+              f"[c3 train] a step's launches {c}, the staged step's {staged_step}")
+    check(all(math.isfinite(v) for v in losses), f"[c3 train] non-finite losses {losses}")
+    dt = timed_steps(trainer, staged, 1 + TRAIN_STEPS, WARM_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms, ips = dt / WARM_STEPS * 1e3, TRAIN_BS * WARM_STEPS / dt
+    uniq_frac = float(np.mean([p["n_uniq"] for p in preps]) / (TRAIN_BS * (C3_HIST + NPRATIO + 1)))
+    with mock.patch.object(bench, "HISTORY", C3_HIST):
+        mfu = ips * bench.flops_per_impression(uniq_frac, True, D, ATT) / peaks[0] * 100
+    print(f"[c3 train] history {C3_HIST}: {TRAIN_STEPS} steps, losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; launches per step {per_step[0]}; warm: "
+          f"{step_ms:.2f} ms/step, {ips:,.0f} impressions/s, mfu {mfu:.2f}%, peak memory "
+          f"{peak:.2f} GB; unique fraction {uniq_frac:.4f}; host dedup {prep_ms:.2f} ms/batch",
+          flush=True)
+
+    val = val_table(FIT_VAL_IMP, N_ART, seed=6, hist=C3_HIST)
+    feed = EvalFeed(val, lookup, history_size=C3_HIST, batch_size=BATCH)
+    trainer.model.eval()
+    reset_counts()
+    t0 = time.perf_counter()
+    tt = trainer.score(feed, two_tower=True)
+    tt_s = time.perf_counter() - t0
+    tt_launches = read_counts()["news_encoder_fwd"]
+    full = trainer.score(feed, two_tower=False)
+    err = float(np.abs(tt.values - full.values).max())
+    check(tt.values.shape == (feed.inview.total,) and bool(np.isfinite(tt.values).all()),
+          "[c3 serve] two-tower scores: shape or non-finite values")
+    check(tt_launches >= len(feed), f"[c3 serve] the user tower launched K1 {tt_launches} times "
+                                    f"for {len(feed)} batches")
+    check(err <= SCORE_ATOL, f"[c3 serve] two-tower vs full forward differ by {err}")
+    print(f"[c3 serve] history {C3_HIST}: {FIT_VAL_IMP} impressions two-tower in {tt_s:.3f} s "
+          f"({tt_launches} K1 launches over {len(feed)} batches); max|two-tower - full forward| "
+          f"= {err:.3e} (tol {SCORE_ATOL})", flush=True)
+    del trainer, staged
+    torch.cuda.empty_cache()
+    return {"history": C3_HIST, "batch": TRAIN_BS, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "grad_errors": grad_errs, "losses": losses, "launches_per_step": per_step,
+            "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
+            "step_ms": step_ms, "impressions_per_s": ips, "mfu_pct": mfu, "peak_mem_gb": peak,
+            "uniq_frac": uniq_frac, "host_dedup_ms": prep_ms,
+            "serve": {"impressions": FIT_VAL_IMP, "two_tower_s": tt_s,
+                      "launches_user_tower": tt_launches, "max_abs_score_diff": err}}
+
+
+def c3_phase(table, peaks, gen, staged_step) -> dict:
+    """[c3]: the kernel cases, NRMS training and serving at history 50
+    (``c3_training``), and the CLI at ``--use_fused_encoder --history_size
+    50`` (the [cli] run's widths, 1 epoch; every step's K1 and K2 launches
+    as the staged step's)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    rec = c3_kernel_cases(peaks, gen)
+    rec["training"] = c3_training(table, peaks, staged_step)
+    out = Path(__file__).resolve().parent / "build" / "cli_nrms_h50"
+    k12 = K12 + ("prng_dropout",)
+    rec["cli"], trainer = cli_run("nrms_h50", ["--model", "nrms", "--synthetic",
+                                               "--use_fused_encoder", "--dtype", "bfloat16",
+                                               "--history_size", str(C3_HIST), "--epochs", "1",
+                                               "--out_dir", str(out)], staged_step, k12)
+    check(trainer.model.hparams.history_size == C3_HIST, "[c3 cli] the model's history size")
+    del trainer
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[c3] {len(rec['fwd'])} K1, {len(rec['block'])} per-block and {len(rec['full'])} "
+          f"whole-K2 cases, NRMS training and serving at history {C3_HIST} and the CLI passed in "
           f"{rec['seconds']:.1f} s", flush=True)
     return rec
 
@@ -1240,10 +1402,62 @@ def timed_steps(trainer, staged, first: int, n: int) -> float:
     return dt
 
 
+def step_vs_plain(trainer, batch, tag):
+    """One training step's loss and gradients on ``batch`` (the model in
+    training mode, seed SEED64): the kernels against the plain version
+    (``plain_encoder`` in place of the fused encoder), each gradient within
+    STEP_REL_TOL of its |g|_2 (floored by STEP_TOWER_FLOOR of its tower's
+    largest), the word table's over the rows the step touched. Returns
+    (loss_kernels, loss_plain, per-gradient errors)."""
+    from ebnerd_tpu_torch.models import newsrec
+
+    model = trainer.model
+    model.train()
+
+    def loss_and_grads(b):
+        model.zero_grad(set_to_none=True)
+        logits = model(dict(b, dropout_seed=SEED64))
+        loss = trainer.loss_fn(logits, b["labels"])
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads(batch)
+    with mock.patch.object(newsrec, "news_encoder", plain_encoder):
+        loss_p, grads_p = loss_and_grads(batch)
+    model.zero_grad(set_to_none=True)
+    rows = torch.unique(batch["uniq_tokens"][: batch["art_n_uniq"]])
+    diffs, norms, grad_errs = {}, {}, {}
+    for k in grads_p:
+        gk, gp = grads_k[k], grads_p[k]
+        if k == "word_embedding.embedding":  # the rows the step touched
+            check(bool(torch.isin((gk.abs().sum(1) != 0).nonzero().flatten(), rows).all()),
+                  f"{tag} embedding gradient outside the touched rows")
+            gk, gp = gk[rows], gp[rows]
+        check(bool(torch.isfinite(gk).all()), f"{tag} non-finite gradient {k}")
+        diffs[k], norms[k] = (gk - gp).norm().item(), gp.norm().item()
+        grad_errs[k] = {"max_abs_err": (gk - gp).abs().max().item(),
+                        "max_abs_ref": gp.abs().max().item()}
+    del grads_k, grads_p
+    tower = lambda k: "user" if k.startswith("user") else "news"
+    top = {tw: max(v for k, v in norms.items() if tower(k) == tw) for tw in ("news", "user")}
+    for k in norms:
+        scale = max(norms[k], STEP_TOWER_FLOOR * top[tower(k)])
+        grad_errs[k].update(norm_err=diffs[k], norm_ref=norms[k], rel=diffs[k] / scale)
+    print(f"{tag} one step, kernels vs plain (same seed): loss {loss_k:.6f} vs {loss_p:.6f}; "
+          + ", ".join(f"{k}={e['rel']:.2e} (max {e['max_abs_err']:.1e}/{e['max_abs_ref']:.1e})"
+                      for k, e in grad_errs.items())
+          + f" (|dg|_2 relative, tol {STEP_REL_TOL})", flush=True)
+    for k, e in grad_errs.items():
+        check(e["rel"] <= STEP_REL_TOL, f"{tag} step gradient {k}: |kernel - plain|_2 = "
+                                        f"{e['norm_err']} > {STEP_REL_TOL} x scale ({e})")
+    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-2 * max(1.0, abs(loss_p)),
+          f"{tag} step loss: kernels {loss_k}, plain {loss_p}")
+    return loss_k, loss_p, grad_errs
+
+
 def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_user, k2_block):
     """The port's training step at full width; returns its record."""
     from ebnerd_tpu_torch.bench import flops_per_impression
-    from ebnerd_tpu_torch.models import newsrec
     from ebnerd_tpu_torch.serving import ArticleIndex
 
     trainer = full_width_trainer(table)
@@ -1254,46 +1468,7 @@ def training_full_width(table, preps, prep_ms, peaks, k_news, k_user, b_news, b_
     uniq_frac = float(np.mean([p["n_uniq"] for p in preps]) / slots)
 
     # 1. one step's loss and gradients: kernels vs the plain version, same seed
-    model.train()
-
-    def loss_and_grads(batch):
-        model.zero_grad(set_to_none=True)
-        logits = model(dict(batch, dropout_seed=SEED64))
-        loss = trainer.loss_fn(logits, batch["labels"])
-        loss.backward()
-        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
-
-    loss_k, grads_k = loss_and_grads(staged[0])
-    with mock.patch.object(newsrec, "news_encoder", plain_encoder):
-        loss_p, grads_p = loss_and_grads(staged[0])
-    model.zero_grad(set_to_none=True)
-    rows = torch.unique(staged[0]["uniq_tokens"][: staged[0]["art_n_uniq"]])
-    diffs, norms, grad_errs = {}, {}, {}
-    for k in grads_p:
-        gk, gp = grads_k[k], grads_p[k]
-        if k == "word_embedding.embedding":  # the rows the step touched
-            check(bool(torch.isin((gk.abs().sum(1) != 0).nonzero().flatten(), rows).all()),
-                  "embedding gradient outside the touched rows")
-            gk, gp = gk[rows], gp[rows]
-        check(bool(torch.isfinite(gk).all()), f"non-finite gradient {k}")
-        diffs[k], norms[k] = (gk - gp).norm().item(), gp.norm().item()
-        grad_errs[k] = {"max_abs_err": (gk - gp).abs().max().item(),
-                        "max_abs_ref": gp.abs().max().item()}
-    del grads_k, grads_p
-    tower = lambda k: "user" if k.startswith("user") else "news"
-    top = {tw: max(v for k, v in norms.items() if tower(k) == tw) for tw in ("news", "user")}
-    for k in norms:
-        scale = max(norms[k], STEP_TOWER_FLOOR * top[tower(k)])
-        grad_errs[k].update(norm_err=diffs[k], norm_ref=norms[k], rel=diffs[k] / scale)
-    print(f"[train] one step, kernels vs plain (same seed): loss {loss_k:.6f} vs {loss_p:.6f}; "
-          + ", ".join(f"{k}={e['rel']:.2e} (max {e['max_abs_err']:.1e}/{e['max_abs_ref']:.1e})"
-                      for k, e in grad_errs.items())
-          + f" (|dg|_2 relative, tol {STEP_REL_TOL})", flush=True)
-    for k, e in grad_errs.items():
-        check(e["rel"] <= STEP_REL_TOL, f"step gradient {k}: |kernel - plain|_2 = "
-                                        f"{e['norm_err']} > {STEP_REL_TOL} x scale ({e})")
-    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-2 * max(1.0, abs(loss_p)),
-          f"step loss: kernels {loss_k}, plain {loss_p}")
+    loss_k, loss_p, grad_errs = step_vs_plain(trainer, staged[0], "[train]")
 
     # 2. the main path, counted: TRAIN_STEPS optimizer steps
     losses, per_step = [], []
@@ -1658,16 +1833,16 @@ def train_table(n_imp, n_art, seed):
     })
 
 
-def val_table(n_imp, n_art, seed, n_users=0):
+def val_table(n_imp, n_art, seed, n_users=0, hist=H):
     """Validation impressions built with Ragged.from_lengths: 5-15
     candidates each with exactly one positive (so every impression has an
-    AUC), 1-H history articles, uniform article ids in 1..n_art; with
+    AUC), 1-``hist`` history articles, uniform article ids in 1..n_art; with
     ``n_users``, user ids uniform in [0, n_users)."""
     from ebnerd_tpu_torch import constants as c
     from ebnerd_tpu_torch.data import Ragged, Table
 
     rng = np.random.default_rng(seed)
-    n_cand, n_hist = rng.integers(5, 16, n_imp), rng.integers(1, H + 1, n_imp)
+    n_cand, n_hist = rng.integers(5, 16, n_imp), rng.integers(1, hist + 1, n_imp)
     inview = Ragged.from_lengths(rng.integers(1, n_art + 1, int(n_cand.sum())), n_cand)
     labels = np.zeros(inview.total, np.int8)
     labels[inview.offsets[:-1] + rng.integers(0, n_cand)] = 1
@@ -2881,6 +3056,14 @@ def time_groups(a, preps, n_groups):
     return dt / (n_groups * SCAN_N) * 1e3
 
 
+def c3_entry(c3, name, kind, keys) -> dict:
+    """A kernel's [c3] keys of the kernels line: its launches in the
+    history-50 NRMS steps and CLI run, and its [c3] cases."""
+    return {"launches_c3": c3["training"]["launches"][name],
+            "launches_c3_cli": c3["cli"]["launches"][name],
+            "cases_c3": [{k: c[k] for k in ("case",) + keys} for c in c3[kind]]}
+
+
 def release() -> None:
     """Free dropped trainers (their graphs and pools) now: a trainer whose
     methods were wrapped holds itself in a cycle that only the collector
@@ -3658,6 +3841,9 @@ def main(argv=None) -> int:
     record["training"] = training
     record["sparse"] = sparse_full_width(table, raws, preps, training)
     record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
+    release()
+    record["c3"] = c3 = c3_phase(table, peaks, gen, training["launches_per_step"][0])
+    release()
     dist_raws = raws[:DIST_STEPS]
     del raws
     record["fit"] = fit = fit_full_width(training)
@@ -3742,7 +3928,8 @@ def main(argv=None) -> int:
                       "and external-mask dropout; timed at the training step's news-tower shape; "
                       "qkv_matmul_ms is torch.matmul of the QKV product alone",
               "checked": True, "qkv_matmul_ms": k1["qkv_matmul_ms"]}, **{k: k1[k] for k in keys},
-             cases=[{k: c[k] for k in ("case",) + keys} for c in cases]),
+             cases=[{k: c[k] for k in ("case",) + keys} for c in cases],
+             **c3_entry(c3, "news_encoder_fwd", "fwd", keys)),
         dict({"name": "news_encoder_bwd", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
@@ -3758,7 +3945,8 @@ def main(argv=None) -> int:
               "note": "the whole recompute backward (the per-block kernel, 3 GEMMs, 4 "
                       "reductions; the x mask comes from the forward) at the news-tower shape",
               "checked": True}, **{k: k2[k] for k in keys},
-             cases=[{k: c[k] for k in ("case",) + keys} for c in bwd]),
+             cases=[{k: c[k] for k in ("case",) + keys} for c in bwd],
+             **c3_entry(c3, "news_encoder_bwd", "full", keys)),
         dict({"name": "news_encoder_bwd_block", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
@@ -3774,7 +3962,8 @@ def main(argv=None) -> int:
                       "attention, pooling forward and backward, do, attention backward); timed at the news-tower shape; qkv_matmul_ms is torch.matmul "
                       "of its QKV product alone",
               "checked": True, "qkv_matmul_ms": k2b["qkv_matmul_ms"]}, **{k: k2b[k] for k in keys},
-             cases=[{k: c[k] for k in ("case",) + keys} for c in blocks]),
+             cases=[{k: c[k] for k in ("case",) + keys} for c in blocks],
+             **c3_entry(c3, "news_encoder_bwd_block", "block", keys)),
         dict({"name": "news_encoder_bwd_gemm", "route": "cuda",
               "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
               "replaces": "ebnerd_tpu/ops/news_encoder.py:529",

@@ -13,7 +13,8 @@
 //      scaling each staged x chunk before the product, as the TPU kernel
 //      does before its QKV product;
 //   2. per-head self-attention of that group (bf16: wmma on 32 x 32 tiles,
-//      one warp per article and head; fp32: FMA) with an fp32 softmax over
+//      one warp per article and head, or in the wide instance mma.sync per
+//      article, head and 16-row query tile; fp32: FMA) with an fp32 softmax over
 //      the head's keys (probabilities rounded to the compute dtype before
 //      the product with V, as `_bdot` does), no biases, no output
 //      projection, scale 1/sqrt(head_dim); the attention output o stays
@@ -21,8 +22,13 @@
 //   3. dropout on o: the stream-1 Philox mask, or an external 0/1 mask
 //      [N, T, D] times 1/keep;
 //   4. additive pooling: z = o W (operands in the compute dtype, wmma in
-//      bf16), softmax_t(tanh(z + b) . q) (max subtracted, +1e-8 in the
-//      denominator) and the weighted sum of the fp32 o over t.
+//      bf16; the wide instance in chunks of 256 columns of W), softmax_t(
+//      tanh(z + b) . q) (max subtracted, +1e-8 in the denominator) and the
+//      weighted sum of the fp32 o over t.
+// Two instances of the kernel (news_encoder_common.cuh): the narrow one for
+// T <= 32, head width <= 32 and padded attention width <= 256, and the wide
+// one for the rest of T <= 64, head width <= 64, attention width <= 512
+// (one article per block past T 32).
 // Output [N, D] fp32. Articles at or past n_valid are written as zeros; a
 // block whose first article is past n_valid computes nothing past the QKV
 // stage (bf16: it runs that stage only when a block of its cluster is
@@ -76,7 +82,7 @@ struct FwdArgs {
   const unsigned long long* seed_dev; // the seed in device memory, or null (dr.key above)
 };
 
-template <typename T, int kCta>
+template <typename T, int kCta, bool kWide>
 __global__ void __launch_bounds__(kCta, 1)
     news_encoder_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap wmap, FwdArgs p) {
@@ -84,7 +90,7 @@ __global__ void __launch_bounds__(kCta, 1)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = kBf ? align_smem(smem_raw) : smem_raw;
   const int t = p.t, d = p.d, din = p.din;
-  const Layout L = make_layout(d, p.a_pad, sizeof(T), p.stages);
+  const Layout L = make_layout(d, p.a_pad, sizeof(T), p.stages, kWide);
   unsigned char* R = smem;  // region R starts at the base
   float* o = reinterpret_cast<float*>(smem + L.o);
   float* att = reinterpret_cast<float*>(smem + L.small);
@@ -124,7 +130,7 @@ __global__ void __launch_bounds__(kCta, 1)
       if (NE_PHASES & 1) qkv_panel_wgmma(q, it, nk, reinterpret_cast<bf16*>(R), L.ldw);
       csync();
       if (active && (NE_PHASES & 2))
-        attention_group<T>(reinterpret_cast<const T*>(panel), L.ldw, o, L.ldf, na, t, hd, p.gh,
+        attention_group<T, kWide>(reinterpret_cast<const T*>(panel), L.ldw, o, L.ldf, na, t, hd, p.gh,
                            g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
       if (NE_PHASES & 1)
         qkv_panel_done(q, it);  // the ring is free to refill
@@ -145,7 +151,7 @@ __global__ void __launch_bounds__(kCta, 1)
                        n_groups * kPanel, L, R, ed);
       csync();
       if (NE_PHASES & 2)
-        attention_group<T>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
+        attention_group<T, kWide>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
                            g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
       csync();  // the panel is consumed before R is refilled
     }
@@ -158,10 +164,16 @@ __global__ void __launch_bounds__(kCta, 1)
   csync();
 
   // 4. pooling projection z = o W_att, pooling weights
-  if (NE_PHASES & 4) pooling_logits<T>(o, rows, d, static_cast<const T*>(p.w_att), p.a_pad, L, R);
-  csync();
-  pooling_weights<T>(reinterpret_cast<float*>(R), L.ldz, p.b_att, p.q_att, p.a, rows, na, t, att,
-                     wts, false);
+  if constexpr (kWide) {
+    pooling_wide<T, float>(o, L.ldf, rows, na, t, d, static_cast<const T*>(p.w_att), p.b_att,
+                           p.q_att, p.a, p.a_pad, L, R, att, wts);
+  } else {
+    if (NE_PHASES & 4)
+      pooling_logits<T>(o, rows, d, static_cast<const T*>(p.w_att), p.a_pad, L, R);
+    csync();
+    pooling_weights<T>(reinterpret_cast<float*>(R), L.ldz, p.b_att, p.q_att, p.a, rows, na, t,
+                       att, wts, false);
+  }
 
   // 5. weighted sum over t of the fp32 o; articles at or past n_valid are zeros
   for (int i = tid; i < na * d; i += kThreads) {
@@ -181,24 +193,19 @@ inline bool qkv_plan_ok(int din, int stages, int cluster) {
          (cluster == 1 || cluster == 2);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
-  const int hd = p.heads > 0 ? p.d / p.heads : 0;
-  if (p.t < 1 || p.t > kMaxT || p.heads < 1 || p.d % p.heads || hd > kMaxHeadDim || p.gh < 1 ||
-      3 * p.gh * hd > kPanel || p.a > p.a_pad || p.a_pad > kMaxAtt || p.a_pad % 16 ||
-      p.din % (16 / int(sizeof(T))) || ((p.dr.thr_emb || p.dr.thr_att) && (p.din % 4 || p.d % 4)) ||
-      (kBf && (p.dr.thr_emb || !qkv_plan_ok(p.din, p.stages, p.cluster))))
-    return int(cudaErrorInvalidValue);
   if (!kBf) p.stages = p.cluster = 1;
-  const Layout L = make_layout(p.d, p.a_pad, sizeof(T), p.stages);
-  if (L.total > size_t(kSmemLimit)) return int(cudaErrorInvalidValue);
+  const Layout L = make_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide);
+  if (L.total > size_t(kSmemLimit) || !layout_fits(L, p.d, p.a_pad, sizeof(T), p.stages, kWide))
+    return int(cudaErrorInvalidValue);
   constexpr int kCta = kBf ? kQkvThreads : kThreads;
-  auto kern = news_encoder_fwd_kernel<T, kCta>;
+  auto kern = news_encoder_fwd_kernel<T, kCta, kWide>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(L.total));
   if (e != cudaSuccess) return int(e);
-  p.nb = kRows / p.t;
+  p.nb = p.t < kRows ? kRows / p.t : 1;
   const int blocks = (p.n + p.nb - 1) / p.nb;
   if (blocks == 0) return 0;
   CUtensorMap xmap, wmap;
@@ -227,14 +234,32 @@ int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// The shapes the kernel takes (ops/news_encoder.py's check_shape mirrors
+// this), then the instance: the narrow one wherever it fits.
+template <typename T>
+int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  const int hd = p.heads > 0 ? p.d / p.heads : 0;
+  if (p.t < 1 || p.t > kWideMaxT || p.heads < 1 || p.d % p.heads || hd > kWideMaxHeadDim ||
+      p.gh < 1 || 3 * p.gh * hd > kPanel || p.a > p.a_pad || p.a_pad > kWideMaxAtt ||
+      p.a_pad % 16 || p.din % (16 / int(sizeof(T))) ||
+      ((p.dr.thr_emb || p.dr.thr_att) && p.din % 4) ||
+      (kBf && (p.dr.thr_emb || !qkv_plan_ok(p.din, p.stages, p.cluster))))
+    return int(cudaErrorInvalidValue);
+  return is_wide(p.t, hd, p.a_pad) ? launch<T, true>(p, x_rows, stream)
+                                   : launch<T, false>(p, x_rows, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory one block needs, in bytes (the wrapper refuses shapes over
-// the limit before launching), with a QKV ring of `stages` stages (bf16).
-long long news_encoder_smem_bytes(int d, int a_pad, int is_bf16, int stages) {
-  return (long long)make_layout(d, a_pad, is_bf16 ? 2 : 4, stages).total;
+// the limit before launching), with a QKV ring of `stages` stages (bf16),
+// in the instance that (t, head width d / heads, a_pad) takes.
+long long news_encoder_smem_bytes(int t, int d, int heads, int a_pad, int is_bf16, int stages) {
+  const bool wide = is_wide(t, heads > 0 ? d / heads : 0, a_pad);
+  return (long long)make_layout(d, a_pad, is_bf16 ? 2 : 4, stages, wide).total;
 }
 
 // x [x_rows, din] in the compute dtype (bf16 when is_bf16, else fp32):
@@ -253,10 +278,10 @@ long long news_encoder_smem_bytes(int d, int a_pad, int is_bf16, int stages) {
 // then takes n_valid = n for its geometry and x_rows = n * t) and seed_dev
 // the 64-bit seed (the key then comes from it, not from seed_lo/seed_hi):
 // what a captured CUDA graph reads anew at each replay.
-// Requires t <= 32, d / heads <= 32, 3 * gh * hd <= 256, a_pad % 16 == 0,
-// a_pad <= 256, din % (16 / elem) == 0, din % 4 == d % 4 == 0 with Philox
-// dropout, 16-byte aligned pointers. Returns a cudaError_t code (0 =
-// launched).
+// Requires t <= 64, d / heads <= 64, 3 * gh * hd <= 256, a_pad % 16 == 0,
+// a_pad <= 512, din % (16 / elem) == 0, din % 4 == 0 with Philox dropout,
+// 16-byte aligned pointers, and the block's shared memory within the
+// card's. Returns a cudaError_t code (0 = launched).
 int news_encoder_fwd(const void* x, int x_rows, const void* wqkv, const void* w_att,
                      const void* b_att, const void* q_att, void* out, int n, int t, int din, int d,
                      int heads, int gh, int a, int a_pad, int n_valid, const void* nv_dev,

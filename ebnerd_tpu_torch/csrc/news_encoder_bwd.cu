@@ -99,15 +99,21 @@ constexpr int kDoRows = 32;  // W_att rows (columns of do) per staged chunk
 // [kRows][ldz] at R, or the two W_att chunks of the do product and
 // per-warp scratch; dz in the compute dtype [kRows][lda] at dzc), then the per-warp
 // attention-backward tiles (Q, K, V, dO in the compute dtype, one fp32).
+// The wide instance keeps no dz in shared memory (it writes round(dz) to
+// device memory and the do product reads it there) and its attention
+// backward takes wpairs (article, head) pairs at a time, each with tiles Q,
+// K, V, P and dS [kRows][wld] in the compute dtype (wld covers T and the
+// head width up to 64).
 struct BwdLayout {
   Layout f;
-  int ldt, ldF, att_warps;
-  size_t tile, warp_bytes, dzc, r, o, small, bars, total;
+  int ldt, ldF, att_warps, wld, wpairs;
+  size_t tile, warp_bytes, dzc, wpair, r, o, small, bars, total;
 };
 
-__host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem, int stages) {
+__host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem, int stages,
+                                                     bool wide) {
   BwdLayout B;
-  B.f = make_layout(d, a_pad, elem, stages);
+  B.f = make_layout(d, a_pad, elem, stages, wide);
   const bool bf = elem == 2;
   B.ldt = bf ? kTileLd : 33;
   B.ldF = bf ? kTileLdF : 33;
@@ -117,8 +123,12 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem,
   const size_t z = align128(size_t(kRows) * B.f.ldz * 4);
   const size_t wchunk = 2 * align128(size_t(kDoRows) * B.f.lda * elem) + size_t(kWarps) * 1024;
   B.dzc = smax(z, wchunk);
-  const size_t pool_bwd = B.dzc + align128(size_t(kRows) * B.f.lda * elem);
-  const size_t r = smax(smax(B.f.r, pool_bwd), B.att_warps * B.warp_bytes);
+  B.wld = kWideMaxT + (bf ? 2 : 1);  // odd rows of 4-byte words
+  B.wpairs = bf ? 2 : 1;
+  B.wpair = align128(size_t(5) * kRows * B.wld * elem);
+  const size_t pool_bwd = wide ? wchunk : B.dzc + align128(size_t(kRows) * B.f.lda * elem);
+  const size_t att = wide ? B.wpairs * B.wpair : B.att_warps * B.warp_bytes;
+  const size_t r = smax(smax(B.f.r, pool_bwd), att);
   B.r = bf ? align1024(r) : align128(r);
   B.o = B.r;
   // do's rows are the wider at a narrow D (fp32 at D 8: 20 floats, o's 9)
@@ -126,6 +136,28 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem,
   B.bars = B.small + size_t(4) * kRows * 4;
   B.total = bf ? B.bars + align128(2 * kQkvMaxStages * 8) + 1024 : B.bars;
   return B;
+}
+
+// The backward's slots against the widest tensor written into each (see
+// layout_fits): the forward's phases in R, then the pooling backward (z or
+// hact, the do product's two W_att chunks and per-warp 16 x 16 fp32
+// scratch, the narrow instance's round(dz) at dzc) and the attention
+// backward's tiles (narrow: per warp Q, K, V, dO and one fp32 tile of 32
+// rows; wide: per pair Q, K, V, P, dS of up to 64 x 64); o's slot holds o
+// in fp32, later do in the compute dtype; then att, wts, dvals, datt.
+__host__ inline bool bwd_layout_fits(const BwdLayout& B, int d, int a_pad, int elem, int stages,
+                                     bool wide) {
+  const Layout& L = B.f;
+  const size_t wchunk = size_t(kDoRows) * L.lda * elem;
+  const size_t do_prod = 2 * align128(wchunk) + size_t(kWarps) * 256 * 4;
+  const size_t tiles = wide ? size_t(B.wpairs) * 5 * kRows * B.wld * elem
+                            : size_t(B.att_warps) * (4 * 32 * B.ldt * elem + 32 * B.ldF * 4);
+  const bool narrow_dz = wide || (B.dzc >= size_t(kRows) * L.ldz * 4 && B.dzc >= do_prod &&
+                                  B.r >= B.dzc + size_t(kRows) * L.lda * elem);
+  return layout_fits(L, d, a_pad, elem, stages, wide) && B.wld >= kWideMaxT &&
+         B.wld >= kWideMaxHeadDim && B.ldt >= 32 && B.ldF >= 32 && B.r >= L.r && B.r >= do_prod &&
+         B.r >= tiles && narrow_dz && B.small - B.o >= size_t(kRows) * L.ldf * 4 &&
+         B.small - B.o >= size_t(kRows) * L.ldo * elem && B.bars - B.small >= size_t(4) * kRows * 4;
 }
 
 // F[i][j] = sum_k A'(i, k) B'(k, j) over 32 x 32 x 32 tiles of one warp;
@@ -304,6 +336,175 @@ __device__ void attention_bwd_group(T* qkv, int P, int col0, const T* doc, int l
   }
 }
 
+// The wide instance's attention backward of one head group (heads [h0,
+// h0 + nh) of the block's na articles), B.wpairs (article, head) pairs at a
+// time: their Q, K and V copied from the dqkv scratch to tiles; then pass
+// A, one warp per (pair, 16-row query tile): S, P, dP = dO V^T, dS = P (dP
+// - rowsum(P dP)) scale, round(P) and round(dS) to tiles, dQ = round(dS) K
+// to the scratch; pass B, one warp per (pair, 16-row key tile): dV =
+// round(P)^T dO and dK = round(dS)^T Q to the scratch. bf16 on mma.sync
+// fragments (news_encoder_common.cuh); fp32 by FMA, one thread per query
+// row (pass A) and per key (pass B).
+template <typename T>
+__device__ void attention_bwd_wide(T* qkv, int P, int col0, const T* doc, int ldo, int na, int t,
+                                   int hd, int gh, int h0, int nh, float scale, unsigned char* R,
+                                   const BwdLayout& B) {
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int ld = B.wld, nq = (t + 15) / 16, pairs = na * nh;
+  auto tile = [&](int slot, int m) {  // m: 0 Q, 1 K, 2 V, 3 P, 4 dS
+    return reinterpret_cast<T*>(R + slot * B.wpair) + m * kRows * ld;
+  };
+  auto head = [&](int pair) { return qkv + size_t(pair / nh) * t * P + col0 + pair % nh * hd; };
+  for (int p0 = 0; p0 < pairs; p0 += B.wpairs) {
+    const int np = min(B.wpairs, pairs - p0);
+    for (int slot = 0; slot < np; ++slot) {
+      const T* src = head(p0 + slot);
+      for (int i = tid; i < 3 * t * hd; i += kThreads) {
+        const int m = i / (t * hd), r = i % (t * hd) / hd, e = i % hd;
+        tile(slot, m)[r * ld + e] = src[size_t(r) * P + m * gh * hd + e];
+      }
+    }
+    csync();
+    if constexpr (std::is_same<T, bf16>::value) {
+      const int slot = warp / 4, qt = warp % 4, g = tid % 32 / 4;
+      const int pair = p0 + slot;
+      const bool on = slot < np && qt < nq;
+      const int an = pair / nh, hl = pair % nh;
+      const int nkh = (hd + 15) / 16, nnh = (hd + 7) / 8, nnt = (t + 7) / 8;
+      const Mat dO{doc + an * t * ldo + (h0 + hl) * hd, ldo, t, hd, false};
+      if (on) {  // pass A
+        float s[8][4], dp[8][4];
+        warp_mma_rows(s, Mat{tile(slot, 0), ld, t, hd, false}, 16 * qt,
+                      Mat{tile(slot, 1), ld, t, hd, true}, nkh, nnt);
+        softmax_rows(s, t, scale, 16 * qt + g < t, 16 * qt + g + 8 < t);
+        warp_mma_rows(dp, dO, 16 * qt, Mat{tile(slot, 2), ld, t, hd, true}, nkh, nnt);
+        float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          d0 += s[j][0] * dp[j][0] + s[j][1] * dp[j][1];
+          d1 += s[j][2] * dp[j][2] + s[j][3] * dp[j][3];
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+          d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          dp[j][0] = s[j][0] * (dp[j][0] - d0) * scale;
+          dp[j][1] = s[j][1] * (dp[j][1] - d0) * scale;
+          dp[j][2] = s[j][2] * (dp[j][2] - d1) * scale;
+          dp[j][3] = s[j][3] * (dp[j][3] - d1) * scale;
+        }
+        store_rows(s, tile(slot, 3), ld, 16 * qt, t, t);
+        store_rows(dp, tile(slot, 4), ld, 16 * qt, t, t);
+        float acc[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        const Mat k{tile(slot, 1), ld, t, hd, false};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk >= nq) break;
+          uint32_t fa[4];
+          c_to_a(dp, kk, fa);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j < nnh) {
+              uint32_t fb[2];
+              frag_b(k, 16 * kk, 8 * j, fb);
+              mma_16816(acc[j], fa, fb);
+            }
+          }
+        }
+        store_rows(acc, head(pair), P, 16 * qt, t, hd);  // dQ over Q
+      }
+      csync();
+      if (on) {  // pass B: key tile qt
+        float acc[8][4];
+        warp_mma_rows(acc, Mat{tile(slot, 3), ld, t, t, true}, 16 * qt, dO, nq, nnh);
+        store_rows(acc, head(pair) + 2 * gh * hd, P, 16 * qt, t, hd);  // dV over V
+        warp_mma_rows(acc, Mat{tile(slot, 4), ld, t, t, true}, 16 * qt,
+                      Mat{tile(slot, 0), ld, t, hd, false}, nq, nnh);
+        store_rows(acc, head(pair) + gh * hd, P, 16 * qt, t, hd);  // dK over K
+      }
+    } else {
+      const int an = p0 / nh, hl = p0 % nh;
+      const T* qs = tile(0, 0);
+      const T* ks = tile(0, 1);
+      const T* vs = tile(0, 2);
+      T* ps = tile(0, 3);
+      T* dss = tile(0, 4);
+      const T* dob = doc + an * t * ldo + (h0 + hl) * hd;
+      T* dst = head(p0);
+      constexpr int kH = kWideMaxHeadDim;
+      for (int i = tid; i < t; i += kThreads) {  // pass A: query row i
+        float qv[kH];
+#pragma unroll
+        for (int e = 0; e < kH; ++e) qv[e] = e < hd ? qs[i * ld + e] : 0.f;
+        auto logit = [&](int j) {
+          float l = 0.f;
+#pragma unroll
+          for (int e = 0; e < kH; ++e)
+            if (e < hd) l += qv[e] * ks[j * ld + e];
+          return l * scale;
+        };
+        float m = -INFINITY, sum = 0.f, di = 0.f;
+        for (int j = 0; j < t; ++j) m = fmaxf(m, logit(j));
+        for (int j = 0; j < t; ++j) sum += expf(logit(j) - m);
+        for (int j = 0; j < t; ++j) {
+          const float pj = expf(logit(j) - m) / sum;
+          float dpj = 0.f;
+#pragma unroll
+          for (int e = 0; e < kH; ++e)
+            if (e < hd) dpj += dob[i * ldo + e] * vs[j * ld + e];
+          ps[i * ld + j] = pj;
+          dss[i * ld + j] = dpj;
+          di += pj * dpj;
+        }
+        float acc[kH];
+#pragma unroll
+        for (int e = 0; e < kH; ++e) acc[e] = 0.f;
+        for (int j = 0; j < t; ++j) {
+          const float ds = ps[i * ld + j] * (dss[i * ld + j] - di) * scale;
+          dss[i * ld + j] = ds;
+#pragma unroll
+          for (int e = 0; e < kH; ++e)
+            if (e < hd) acc[e] += ds * ks[j * ld + e];
+        }
+#pragma unroll
+        for (int e = 0; e < kH; ++e)
+          if (e < hd) dst[size_t(i) * P + e] = acc[e];  // dQ over Q
+      }
+      csync();
+      for (int j = tid; j < t; j += kThreads) {  // pass B: key j
+        float dv[kH], dk[kH];
+#pragma unroll
+        for (int e = 0; e < kH; ++e) dv[e] = dk[e] = 0.f;
+        for (int i = 0; i < t; ++i) {
+          const float pij = ps[i * ld + j], dsij = dss[i * ld + j];
+#pragma unroll
+          for (int e = 0; e < kH; ++e)
+            if (e < hd) {
+              dv[e] += pij * dob[i * ldo + e];
+              dk[e] += dsij * qs[i * ld + e];
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < kH; ++e)
+          if (e < hd) {
+            dst[size_t(j) * P + gh * hd + e] = dk[e];      // dK over K
+            dst[size_t(j) * P + 2 * gh * hd + e] = dv[e];  // dV over V
+          }
+      }
+    }
+    csync();  // the tiles are free for the next pairs
+  }
+}
+static_assert(kWideMaxT <= 4 * 16 && kWideMaxHeadDim <= 8 * 8 && kWarps == 2 * 4,
+              "a warp's query or key tile of 16 rows, 8 column tiles of 8; 2 pairs x 4 tiles");
+
 struct BwdArgs {
   const void* x;
   const void* wqkv;
@@ -312,11 +513,11 @@ struct BwdArgs {
   const float* q_att;
   const float* g;   // [n, d] fp32
   void* qkv;        // [n*t, P] compute dtype: Q|K|V panels, then dQ|dK|dV
-  void* o_c;        // [n*t, d] compute dtype: round(o) after dropout
+  void* o_c;        // [n*t, ldoc] compute dtype: round(o) after dropout, zeros past d
   void* dz_c;       // [n*t, a_pad] compute dtype: round(dz)
   float* db_part;   // [blocks, a_pad]
   float* dq_part;   // [blocks, a_pad]
-  int n, t, din, d, heads, gh, a, a_pad, n_valid, nb, stages, cluster;
+  int n, t, din, d, heads, gh, a, a_pad, n_valid, nb, stages, cluster, ldoc;
   float scale;
   philox::Dropout dr;
   const float* ext_mask;
@@ -325,14 +526,14 @@ struct BwdArgs {
   const unsigned long long* seed_dev; // the seed in device memory, or null (dr.key above)
 };
 
-template <typename T, int kCta>
+template <typename T, int kCta, bool kWide>
 __global__ void __launch_bounds__(kCta, 1)
     news_encoder_bwd_kernel(const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap wmap, BwdArgs p) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = kBf ? align_smem(smem_raw) : smem_raw;
-  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages);
+  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide);
   const Layout& L = B.f;
   unsigned char* R = smem;
   float* o = reinterpret_cast<float*>(smem + B.o);
@@ -343,7 +544,7 @@ __global__ void __launch_bounds__(kCta, 1)
   constexpr int VE = 16 / sizeof(T);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int t = p.t, d = p.d, a = p.a, a_pad = p.a_pad, din = p.din;
+  const int t = p.t, d = p.d, a = p.a, a_pad = p.a_pad, din = p.din, ldoc = p.ldoc;
   const int g0 = blockIdx.x * p.nb;
   const int n_valid = valid_at(p.n_valid, p.nv_dev, p.n);
   const bool active = g0 < n_valid;  // blocks past it are left out of the GEMMs and reductions
@@ -368,10 +569,10 @@ __global__ void __launch_bounds__(kCta, 1)
       p.dq_part[size_t(blockIdx.x) * a_pad + j] = 0.f;
     }
     const int lim = max(0, min(rows, (n_valid * t + 63) / 64 * 64 - row0));
-    T* oc = static_cast<T*>(p.o_c) + size_t(row0) * d;
+    T* oc = static_cast<T*>(p.o_c) + size_t(row0) * ldoc;
     T* dz = static_cast<T*>(p.dz_c) + size_t(row0) * a_pad;
     for (int i = tid; i < lim * P; i += kThreads) qkv[i] = from_f<T>(0.f);
-    for (int i = tid; i < lim * d; i += kThreads) oc[i] = from_f<T>(0.f);
+    for (int i = tid; i < lim * ldoc; i += kThreads) oc[i] = from_f<T>(0.f);
     for (int i = tid; i < lim * a_pad; i += kThreads) dz[i] = from_f<T>(0.f);
   };
 
@@ -387,7 +588,7 @@ __global__ void __launch_bounds__(kCta, 1)
   };
   auto attend = [&](int g) {
     if (NE_PHASES & 2)
-      attention_group<T>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
+      attention_group<T, kWide>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
                          g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
   };
   if constexpr (kBf) {
@@ -440,9 +641,16 @@ __global__ void __launch_bounds__(kCta, 1)
   drop_o(o, L.ldf, rows, d, row0, dr, p.ext_mask, p.inv_ext);
   csync();
 
-  // 2. round(o) for dW; dvals[r] = round(o[r]) . round(g[article])
-  T* o_c = static_cast<T*>(p.o_c) + size_t(row0) * d;
-  for (int i = tid; i < rows * d; i += kThreads) o_c[i] = from_f<T>(o[(i / d) * L.ldf + i % d]);
+  // 2. round(o) for dW (zeros past d); dvals[r] = round(o[r]) . round(g[article])
+  T* o_c = static_cast<T*>(p.o_c) + size_t(row0) * ldoc;
+  if (ldoc == d) {  // no pad columns: the loop without a per-column check
+    for (int i = tid; i < rows * d; i += kThreads) o_c[i] = from_f<T>(o[(i / d) * L.ldf + i % d]);
+  } else {
+    for (int i = tid; i < rows * ldoc; i += kThreads) {
+      const int r = i / ldoc, c = i % ldoc;
+      o_c[i] = from_f<T>(c < d ? o[r * L.ldf + c] : 0.f);
+    }
+  }
   for (int r = warp; r < rows; r += kWarps) {
     const int art = g0 + r / t;
     float v = 0.f;
@@ -455,28 +663,68 @@ __global__ void __launch_bounds__(kCta, 1)
   csync();
 
   // 3. pooling forward: z = round(o) W, hact = tanh(z + b) kept in place, weights
+  //    (wide: z by column chunks from round(o) in device memory, hact recomputed in 5)
   float* hz = reinterpret_cast<float*>(R);
-  if (NE_PHASES & 4) {
+  T* dz_g = static_cast<T*>(p.dz_c) + size_t(row0) * a_pad;
+  if constexpr (kWide) {
+    pooling_wide<T, T>(o_c, ldoc, rows, na, t, d, w_att, p.b_att, p.q_att, a, a_pad, L, R, att,
+                       wts);
+  } else if (NE_PHASES & 4) {
     pooling_logits<T>(o, rows, d, w_att, a_pad, L, R);
     csync();
     pooling_weights<T>(hz, L.ldz, p.b_att, p.q_att, a, rows, na, t, att, wts, true);
   }
 
   // 4. datt = w (dvals - sum_t w dvals); zero for articles past n_valid
-  for (int an = warp; an < na; an += kWarps) {
-    const int r = an * t + lane;
-    const float wv = lane < t ? wts[r] * dvals[r] : 0.f;
-    float inner = wv;
+  if constexpr (kWide) {  // lanes stride the tokens
+    for (int an = warp; an < na; an += kWarps) {
+      float inner = 0.f;
+      for (int l = lane; l < t; l += 32) inner += wts[an * t + l] * dvals[an * t + l];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) inner += __shfl_xor_sync(0xffffffffu, inner, off);
-    if (lane < t) datt[r] = g0 + an < n_valid ? wts[r] * (dvals[r] - inner) : 0.f;
+      for (int off = 16; off > 0; off >>= 1) inner += __shfl_xor_sync(0xffffffffu, inner, off);
+      for (int l = lane; l < t; l += 32) {
+        const int r = an * t + l;
+        datt[r] = g0 + an < n_valid ? wts[r] * (dvals[r] - inner) : 0.f;
+      }
+    }
+  } else {
+    for (int an = warp; an < na; an += kWarps) {
+      const int r = an * t + lane;
+      const float wv = lane < t ? wts[r] * dvals[r] : 0.f;
+      float inner = wv;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) inner += __shfl_xor_sync(0xffffffffu, inner, off);
+      if (lane < t) datt[r] = g0 + an < n_valid ? wts[r] * (dvals[r] - inner) : 0.f;
+    }
   }
   csync();
 
   // 5. per column j: dq += round(hact) round(datt); dz = round(datt) round(q) (1 - hact^2);
-  //    db += dz; round(dz) kept for do and written for dW
+  //    db += dz; round(dz) kept for do and written for dW (wide: by column chunks, z
+  //    recomputed, round(dz) to device memory only)
+  if constexpr (kWide) {
+    for (int c0 = 0; c0 < ((NE_PHASES & 4) ? a_pad : 0); c0 += kAttChunk) {
+      pooling_logits_chunk<T, T>(o_c, ldoc, rows, d, w_att, a_pad, c0, L, R);
+      csync();
+      const int j = c0 + tid;
+      if (tid < min(kAttChunk, a_pad - c0)) {
+        const float qj = j < a ? rnd<T>(p.q_att[j]) : 0.f, bj = j < a ? p.b_att[j] : 0.f;
+        float dq = 0.f, db = 0.f;
+        for (int r = 0; r < rows; ++r) {
+          const float h = j < a ? tanhf(hz[r * L.ldz + tid] + bj) : 0.f, dr = rnd<T>(datt[r]);
+          dq += rnd<T>(h) * dr;
+          const float dz = j < a ? dr * qj * (1.f - h * h) : 0.f;
+          db += dz;
+          dz_g[size_t(r) * a_pad + j] = from_f<T>(dz);
+        }
+        p.db_part[size_t(blockIdx.x) * a_pad + j] = db;
+        p.dq_part[size_t(blockIdx.x) * a_pad + j] = j < a ? dq : 0.f;
+      }
+      csync();  // z is spent before the next chunk's product
+    }
+  }
   T* dzc = reinterpret_cast<T*>(R + B.dzc);
-  for (int j = tid; j < ((NE_PHASES & 4) ? a_pad : 0); j += kThreads) {
+  for (int j = tid; j < ((NE_PHASES & 4) && !kWide ? a_pad : 0); j += kThreads) {
     const float qj = j < a ? rnd<T>(p.q_att[j]) : 0.f;
     float dq = 0.f, db = 0.f;
     for (int r = 0; r < kRows; ++r) {
@@ -493,8 +741,7 @@ __global__ void __launch_bounds__(kCta, 1)
     p.dq_part[size_t(blockIdx.x) * a_pad + j] = j < a ? dq : 0.f;
   }
   csync();
-  T* dz_g = static_cast<T*>(p.dz_c) + size_t(row0) * a_pad;
-  for (int i = tid; i < rows * (a_pad / VE); i += kThreads) {
+  for (int i = tid; i < (kWide ? 0 : rows * (a_pad / VE)); i += kThreads) {
     const int r = i / (a_pad / VE), c = (i % (a_pad / VE)) * VE;
     *reinterpret_cast<uint4*>(dz_g + size_t(r) * a_pad + c) =
         *reinterpret_cast<const uint4*>(dzc + r * L.lda + c);
@@ -502,8 +749,11 @@ __global__ void __launch_bounds__(kCta, 1)
 
   // 6. do = (w g + round(dz) round(W)^T) * dropout mask, in the compute
   //    dtype over o (spent), kDoRows columns at a time; the W_att chunks
-  //    double-buffered by cp.async, 16 bytes a copy (a_pad % 16 == 0)
+  //    double-buffered by cp.async, 16 bytes a copy (a_pad % 16 == 0);
+  //    round(dz) from shared memory (wide: from device memory)
   T* doc = reinterpret_cast<T*>(o);
+  const T* dzs = kWide ? dz_g : dzc;
+  const int ldzs = kWide ? a_pad : L.lda;
   const size_t wchunk = align128(size_t(kDoRows) * L.lda * sizeof(T));
   auto wsc = [&](int s) { return reinterpret_cast<T*>(R + s * wchunk); };
   float* scr = reinterpret_cast<float*>(R + 2 * wchunk);
@@ -528,14 +778,14 @@ __global__ void __launch_bounds__(kCta, 1)
       for (int kk = 0; kk < a_pad; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-        wmma::load_matrix_sync(af, dzc + mi * 16 * L.lda + kk, L.lda);
+        wmma::load_matrix_sync(af, dzs + mi * 16 * ldzs + kk, ldzs);
         wmma::load_matrix_sync(bfr, ws + nj * 16 * L.lda + kk, L.lda);
         wmma::mma_sync(acc, af, bfr, acc);
       }
       wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
     } else {
       for (int e = lane; e < 256; e += 32) {
-        const T* zr = dzc + (mi * 16 + e / 16) * L.lda;
+        const T* zr = dzs + (mi * 16 + e / 16) * ldzs;
         const T* wr = ws + (nj * 16 + e % 16) * L.lda;
         float s = 0.f;
         for (int j = 0; j < a_pad; ++j) s += to_f<T>(zr[j]) * to_f<T>(wr[j]);
@@ -565,9 +815,14 @@ __global__ void __launch_bounds__(kCta, 1)
   });
 
   // 7. attention backward, head group by head group
-  for (int g = 0; g < ((NE_PHASES & 16) ? n_groups : 0); ++g)
-    attention_bwd_group<T>(qkv, P, g * kPanel, doc, L.ldo, na, t, hd, p.gh, g * p.gh,
-                           min(p.gh, p.heads - g * p.gh), p.scale, R, B);
+  for (int g = 0; g < ((NE_PHASES & 16) ? n_groups : 0); ++g) {
+    if constexpr (kWide)
+      attention_bwd_wide<T>(qkv, P, g * kPanel, doc, L.ldo, na, t, hd, p.gh, g * p.gh,
+                            min(p.gh, p.heads - g * p.gh), p.scale, R, B);
+    else
+      attention_bwd_group<T>(qkv, P, g * kPanel, doc, L.ldo, na, t, hd, p.gh, g * p.gh,
+                             min(p.gh, p.heads - g * p.gh), p.scale, R, B);
+  }
 }
 
 // ---- the weight-gradient and dx GEMM, bf16: warp-specialised wgmma ----
@@ -1023,27 +1278,20 @@ __global__ void __launch_bounds__(256) reduce_rows_kernel(const float* __restric
     reinterpret_cast<Vec*>(out + blockIdx.y * ncols)[g] = *reinterpret_cast<const Vec*>(a);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
-  const int hd = p.heads > 0 ? p.d / p.heads : 0;
-  const int nk = (p.din + kQkvBK - 1) / kQkvBK;
-  if (p.t < 1 || p.t > kMaxT || p.heads < 1 || p.d % p.heads || hd > kMaxHeadDim || p.gh < 1 ||
-      3 * p.gh * hd > kPanel || p.a > p.a_pad || p.a_pad > kMaxAtt || p.a_pad % 16 ||
-      p.din % (16 / int(sizeof(T))) || p.din % 4 || p.d % 4 ||
-      (kBf && (p.dr.thr_emb || p.stages < (nk > 1 ? 2 : 1) || p.stages > kQkvMaxStages ||
-               p.stages > nk ||
-               (p.cluster != 1 && p.cluster != 2))))
-    return int(cudaErrorInvalidValue);
   if (!kBf) p.stages = p.cluster = 1;
-  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages);
-  if (B.total > size_t(kSmemLimit)) return int(cudaErrorInvalidValue);
+  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide);
+  if (B.total > size_t(kSmemLimit) ||
+      !bwd_layout_fits(B, p.d, p.a_pad, sizeof(T), p.stages, kWide))
+    return int(cudaErrorInvalidValue);
   constexpr int kCta = kBf ? kQkvThreads : kThreads;
-  auto kern = news_encoder_bwd_kernel<T, kCta>;
+  auto kern = news_encoder_bwd_kernel<T, kCta, kWide>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(B.total));
   if (e != cudaSuccess) return int(e);
-  p.nb = kRows / p.t;
+  p.nb = p.t < kRows ? kRows / p.t : 1;
   const int blocks = (p.n + p.nb - 1) / p.nb;
   if (blocks == 0) return 0;
   CUtensorMap xmap, wmap;
@@ -1070,6 +1318,24 @@ int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
   e = cudaLaunchKernelEx(&cfg, kern, xmap, wmap, p);
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
+}
+
+// The shapes the per-block kernel takes (ops/news_encoder.py's check_shape
+// mirrors this), then the instance: the narrow one wherever it fits.
+template <typename T>
+int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  const int hd = p.heads > 0 ? p.d / p.heads : 0;
+  const int nk = (p.din + kQkvBK - 1) / kQkvBK;
+  if (p.t < 1 || p.t > kWideMaxT || p.heads < 1 || p.d % p.heads || hd > kWideMaxHeadDim ||
+      p.gh < 1 || 3 * p.gh * hd > kPanel || p.a > p.a_pad || p.a_pad > kWideMaxAtt ||
+      p.a_pad % 16 || p.din % (16 / int(sizeof(T))) || p.din % 4 || p.ldoc < p.d ||
+      (kBf && (p.dr.thr_emb || p.stages < (nk > 1 ? 2 : 1) || p.stages > kQkvMaxStages ||
+               p.stages > nk ||
+               (p.cluster != 1 && p.cluster != 2))))
+    return int(cudaErrorInvalidValue);
+  return is_wide(p.t, hd, p.a_pad) ? launch_core<T, true>(p, x_rows, stream)
+                                   : launch_core<T, false>(p, x_rows, stream);
 }
 
 template <bool kDx, int kWStages>
@@ -1155,23 +1421,27 @@ int reduce_pass(const float* part, int nrows, long long ncols, int rows_per_chun
 
 extern "C" {
 
-long long news_encoder_bwd_smem_bytes(int d, int a_pad, int is_bf16, int stages) {
-  return (long long)make_bwd_layout(d, a_pad, is_bf16 ? 2 : 4, stages).total;
+long long news_encoder_bwd_smem_bytes(int t, int d, int heads, int a_pad, int is_bf16,
+                                      int stages) {
+  const bool wide = is_wide(t, heads > 0 ? d / heads : 0, a_pad);
+  return (long long)make_bwd_layout(d, a_pad, is_bf16 ? 2 : 4, stages, wide).total;
 }
 
 // The per-block backward kernel. Inputs as news_encoder_fwd (x [x_rows,
 // din]: in bf16 already masked, as the forward read it), plus g [n, d]
 // fp32. Writes qkv [n*t, P] (dQ|dK|dV in the packed panel layout), o_c
-// [n*t, d], dz_c [n*t, a_pad] (compute dtype), db_part and dq_part
-// [ceil(n / (64 / t)), a_pad] fp32, for the blocks before n_valid only.
+// [n*t, ldoc] (zeros past d), dz_c [n*t, a_pad] (compute dtype; the wide
+// instance reads up to 63 rows past a block's last, so the wrapper gives
+// dz_c 64 more rows), db_part and dq_part [ceil(n / max(1, 64 / t)),
+// a_pad] fp32, for the blocks before n_valid only.
 // With nv_dev (n_valid in device memory; the launch passes n_valid = n and
 // x_rows = n * t) the blocks past it write zero partials too, and zeros into
 // their rows below the 64-row edge after the last valid row; seed_dev: as
 // news_encoder_fwd.
 int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const void* w_att,
                           const void* b_att, const void* q_att, const void* g, void* qkv,
-                          void* o_c, void* dz_c, void* db_part, void* dq_part, int n, int t,
-                          int din, int d, int heads, int gh, int a, int a_pad, int n_valid,
+                          void* o_c, int ldoc, void* dz_c, void* db_part, void* dq_part, int n,
+                          int t, int din, int d, int heads, int gh, int a, int a_pad, int n_valid,
                           const void* nv_dev, float scale, int is_bf16, unsigned seed_lo,
                           unsigned seed_hi, const void* seed_dev, unsigned thr_emb,
                           unsigned thr_att, float inv_emb, float inv_att, const void* ext_mask,
@@ -1179,7 +1449,7 @@ int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const voi
   BwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
             static_cast<const float*>(g), qkv, o_c, dz_c, static_cast<float*>(db_part),
             static_cast<float*>(dq_part), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
-            cluster, scale, philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
+            cluster, ldoc, scale, philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
             static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),
             static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

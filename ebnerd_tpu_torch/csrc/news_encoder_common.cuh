@@ -65,9 +65,22 @@ constexpr int kChunkBytes = 128;    // contraction depth per staged chunk (bytes
 constexpr int kStages = 2;          // cp.async pipeline depth of the QKV GEMM
 constexpr int kPoolRows = 64;       // rows of W_att per staged pooling chunk
 constexpr int kPoolStages = 2;      // cp.async pipeline depth of the pooling GEMM
+// The narrow instance (the one the kernels had first, kept as it was for
+// the shapes it takes): T, head width and padded attention width up to
+// these; warp-per-(article, head) attention on 32 x 32 tiles, one lane per
+// token in the pooling softmax, one pooling column per thread.
 constexpr int kMaxT = 32;
 constexpr int kMaxHeadDim = 32;
 constexpr int kMaxAtt = 256;        // padded attention width
+// The wide instance takes the rest of the domain: T and head width up to
+// 64 (an article in at most one 64-row block), padded attention width up to
+// 512 (the pooling in column chunks of kAttChunk). Its bf16 attention runs
+// mma.sync fragments per (article, head, 16-row query tile) straight from
+// the QKV panel (forward) or from per-pair tiles (backward); fp32 runs FMA.
+constexpr int kWideMaxT = 64;
+constexpr int kWideMaxHeadDim = 64;
+constexpr int kWideMaxAtt = 512;
+constexpr int kAttChunk = 256;      // pooling columns per chunk (one per thread)
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block can use on sm_90
 // bf16 attention: per warp, Q, K and V of one (article, head) zero-padded
 // to 32 x 32 ([32][kTileLd] bf16); the logits, probabilities and output
@@ -94,6 +107,11 @@ static_assert(kChunkBytes % 32 == 0 && kPoolRows % 16 == 0 && kStages >= 2 && kP
 static_assert(kRows == 2 * 32 && kPanel == 4 * 64, "QKV GEMM: 2 x 4 warps of 32 x 64");
 static_assert(kAttWarpBytes % 128 == 0 && kAttWarpBytes >= 1024, "per-warp attention tiles");
 
+// Which instance a shape takes: the narrow one wherever it fits.
+__host__ __device__ constexpr bool is_wide(int t, int hd, int a_pad) {
+  return t > kMaxT || hd > kMaxHeadDim || a_pad > kMaxAtt;
+}
+
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
 __host__ __device__ constexpr size_t align1024(size_t v) { return (v + 1023) & ~size_t(1023); }
 __host__ __device__ constexpr size_t smax(size_t a, size_t b) { return a > b ? a : b; }
@@ -103,22 +121,27 @@ __host__ __device__ constexpr size_t smax(size_t a, size_t b) { return a > b ? a
 // then (bf16) the QKV stage's full and empty mbarriers. R holds, in turn:
 //   QKV:       bf16: `stages` TMA stages of kQkvStage bytes;
 //              fp32: kStages stages of { x chunk [kRows][ldx], W chunk [kc][ldw] }
-//   attention: Q|K|V of one head group [kRows][ldw], then per-warp tiles (bf16)
-//   pooling:   bf16 o [kRows][ldo] + kPoolStages W_att chunks [kPoolRows][lda]
-//              (fp32 mode: one W_att chunk, FMA)
-//   logits:    z = o W [kRows][ldz] fp32
+//   attention: Q|K|V of one head group [kRows][ldw], then per-warp tiles
+//              (narrow bf16; the wide instance reads the panel itself)
+//   pooling:   narrow bf16: o [kRows][ldo] + kPoolStages W_att chunks
+//              [kPoolRows][lda]; wide bf16: kPoolStages stages of { W_att
+//              chunk [kPoolRows][ldc] (kAttChunk columns), round(o) chunk
+//              [kRows][ldoc] }; fp32: one W_att chunk, FMA
+//   logits:    z = o W [kRows][ldz] fp32 (wide: one column chunk)
 // bf16 offsets are from the dynamic shared memory's start rounded up to
 // 1,024 bytes (the swizzled TMA boxes' alignment); `total` includes that
 // slack. o's rows are ldf = d | 1 floats apart: odd, so column writes do
 // not collide in a bank.
 struct Layout {
-  int ldx, ldw, ldo, lda, ldz, ldf, kc, d_pad;
-  size_t stage, xs_bytes, panel, pool_w, r, o, small, bars, total;
+  int ldx, ldw, ldo, lda, ldz, ldf, kc, d_pad, ldc, ldoc;
+  size_t stage, xs_bytes, panel, pool_w, pool_wc, pool_stage, r, o, small, bars, total;
 };
 
-__host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int stages) {
+__host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int stages,
+                                              bool wide) {
   const bool bf = elem == 2;
   const int ve = 16 / elem;
+  const int ac = a_pad < kAttChunk ? a_pad : kAttChunk;  // wide: a column chunk's width
   Layout L;
   L.kc = kChunkBytes / elem;
   L.ldx = L.kc + ve;
@@ -126,16 +149,21 @@ __host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int st
   L.d_pad = (d + 15) / 16 * 16;
   L.ldo = L.d_pad + ve;
   L.lda = a_pad + ve;
-  L.ldz = a_pad + 4;
+  L.ldz = (wide ? ac : a_pad) + 4;
   L.ldf = d | 1;
+  L.ldc = ac + ve;
+  L.ldoc = kPoolRows + ve;
   L.xs_bytes = align128(size_t(kRows) * L.ldx * elem);
   L.stage = L.xs_bytes + align128(size_t(L.kc) * L.ldw * elem);
   L.panel = align128(size_t(kRows) * L.ldw * elem);
-  L.pool_w = align128(size_t(kPoolRows) * L.lda * elem);
+  L.pool_w = align128(size_t(kPoolRows) * (wide ? ac : L.lda) * elem);
+  L.pool_wc = align128(size_t(kPoolRows) * L.ldc * elem);
+  L.pool_stage = L.pool_wc + align128(size_t(kRows) * L.ldoc * elem);
   const size_t gemm = bf ? size_t(stages) * kQkvStage : kStages * L.stage;
-  const size_t att = L.panel + (bf ? size_t(kWarps) * kAttWarpBytes : 0);
-  const size_t pool =
-      bf ? align128(size_t(kRows) * L.ldo * elem) + kPoolStages * L.pool_w : L.pool_w;
+  const size_t att = L.panel + (bf && !wide ? size_t(kWarps) * kAttWarpBytes : 0);
+  const size_t pool = !bf  ? L.pool_w
+                      : wide ? kPoolStages * L.pool_stage
+                             : align128(size_t(kRows) * L.ldo * elem) + kPoolStages * L.pool_w;
   const size_t z = size_t(kRows) * L.ldz * 4;
   const size_t r = smax(smax(gemm, att), smax(pool, z));
   L.r = bf ? align1024(r) : align128(r);
@@ -144,6 +172,31 @@ __host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int st
   L.bars = L.small + align128(size_t(2) * kRows * 4);
   L.total = bf ? L.bars + align128(2 * kQkvMaxStages * 8) + 1024 : L.bars;
   return L;
+}
+
+// Each slot of the forward's layout against the widest tensor the kernels
+// write into it (C2 was a slot sized for one tensor and overwritten by a
+// wider one): the launchers refuse a layout that fails this. Region R
+// holds, in turn, the QKV stage, the panel (and the narrow bf16 attention
+// tiles), the pooling product's staging and z; o's slot the fp32 o; the
+// small arrays att and wts.
+__host__ inline bool layout_fits(const Layout& L, int d, int a_pad, int elem, int stages,
+                                 bool wide) {
+  const bool bf = elem == 2;
+  const int zc = wide ? (a_pad < kAttChunk ? a_pad : kAttChunk) : a_pad;  // z's columns
+  const size_t qkv = bf ? size_t(stages) * kQkvStage
+                        : kStages * (size_t(kRows) * L.ldx * elem + size_t(L.kc) * L.ldw * elem);
+  const size_t att = size_t(kRows) * L.ldw * elem + (bf && !wide ? kWarps * kAttWarpBytes : 0);
+  size_t pool = size_t(kPoolRows) * zc * elem;  // fp32: the W_att chunk
+  if (bf && wide)
+    pool = kPoolStages * (align128(size_t(kPoolRows) * L.ldc * elem) +
+                          size_t(kRows) * L.ldoc * elem);
+  else if (bf)
+    pool = size_t(kRows) * L.ldo * elem + kPoolStages * size_t(kPoolRows) * L.lda * elem;
+  return L.ldx >= L.kc && L.ldw >= kPanel && L.ldo >= d && L.lda >= a_pad && L.ldz >= zc &&
+         L.ldf >= d && L.ldc >= zc && L.ldoc >= kPoolRows && L.r >= qkv && L.r >= att &&
+         L.r >= pool && L.r >= size_t(kRows) * L.ldz * 4 && L.small - L.o >= size_t(kRows) * L.ldf * 4 &&
+         L.bars - L.small >= size_t(2) * kRows * 4;
 }
 
 // The bf16 kernels' shared-memory base: the dynamic shared memory's start
@@ -480,19 +533,247 @@ __device__ __forceinline__ void warp_tiles(bf16* const (&dst)[N], const bf16* co
   }
 }
 
+// ---- the wide instance's attention: mma.sync m16n8k16 (bf16 in, fp32
+// accumulators) on fragments gathered element by element, zero outside
+// the matrix, so that no tile needs padding and any head width and T take
+// the same code. Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane
+// = 4 g + c; A (16 x 16, row-major) regs {(g, 2c..2c+1), (g+8, 2c..),
+// (g, 2c+8..), (g+8, 2c+8..)}; B (16 x 8) regs {(2c..2c+1, g), (2c+8..
+// 2c+9, g)}; C (16 x 8) {(g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1)}. A C
+// fragment pair of columns 16 k + [0, 16) is the A fragment of k-step k.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A bf16 matrix of rows x cols at p (row stride ld), read as its logical
+// (i, j) = stored (i, j), or stored (j, i) when tr; zero outside it.
+struct Mat {
+  const bf16* p;
+  int ld, rows, cols;
+  bool tr;
+  __device__ __forceinline__ uint32_t at(int i, int j) const {
+    const int r = tr ? j : i, c = tr ? i : j;
+    return r < rows && c < cols ? uint32_t(__bfloat16_as_ushort(p[r * ld + c])) : 0u;
+  }
+  __device__ __forceinline__ uint32_t two(int i, int j, int di, int dj) const {
+    return at(i, j) | at(i + di, j + dj) << 16;
+  }
+};
+
+// The A fragment of logical rows [m0, m0 + 16) and columns [k0, k0 + 16),
+// the B fragment of logical rows [k0, k0 + 16) and columns [n0, n0 + 8).
+__device__ __forceinline__ void frag_a(const Mat& m, int m0, int k0, uint32_t (&a)[4]) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+  a[0] = m.two(m0 + g, k0 + 2 * c, 0, 1);
+  a[1] = m.two(m0 + g + 8, k0 + 2 * c, 0, 1);
+  a[2] = m.two(m0 + g, k0 + 2 * c + 8, 0, 1);
+  a[3] = m.two(m0 + g + 8, k0 + 2 * c + 8, 0, 1);
+}
+__device__ __forceinline__ void frag_b(const Mat& m, int k0, int n0, uint32_t (&b)[2]) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+  b[0] = m.two(k0 + 2 * c, n0 + g, 1, 0);
+  b[1] = m.two(k0 + 2 * c + 8, n0 + g, 1, 0);
+}
+
+// The A fragment of k-step kk from C fragments (8 column tiles of 8),
+// rounded to bf16.
+__device__ __forceinline__ void c_to_a(const float (&f)[8][4], int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(f[2 * kk][0], f[2 * kk][1]);
+  a[1] = pack_bf16(f[2 * kk][2], f[2 * kk][3]);
+  a[2] = pack_bf16(f[2 * kk + 1][0], f[2 * kk + 1][1]);
+  a[3] = pack_bf16(f[2 * kk + 1][2], f[2 * kk + 1][3]);
+}
+
+// acc [16 x 64] (8 column tiles) = A [16 x K] B [K x 64] over nk k-steps
+// of 16 and the column tiles below nn; A's rows from a, B from b.
+__device__ __forceinline__ void warp_mma_rows(float (&acc)[8][4], const Mat& a, int m0,
+                                              const Mat& b, int nk, int nn) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= nk) break;
+    uint32_t fa[4];
+    frag_a(a, m0, 16 * kk, fa);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nn) {
+        uint32_t fb[2];
+        frag_b(b, 16 * kk, 8 * j, fb);
+        mma_16816(acc[j], fa, fb);
+      }
+    }
+  }
+}
+
+// The softmax over keys [0, t) of the 16 query rows a warp holds as C
+// fragments s (raw Q K^T over 8 key tiles), in place: p = exp(s scale -
+// max) / sum in fp32, 0 past t and on rows at or past row_lim (rows g and
+// g + 8 of the tile are live when below it). As the narrow bf16 softmax:
+// exp2 and a reciprocal (see kLog2e).
+__device__ __forceinline__ void softmax_rows(float (&s)[8][4], int t, float scale, bool live0,
+                                             bool live1) {
+  const int c = threadIdx.x % 4;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool in = 8 * j + 2 * c + e < t;
+      s[j][e] = in ? s[j][e] * scale * kLog2e : -INFINITY;
+      s[j][2 + e] = in ? s[j][2 + e] * scale * kLog2e : -INFINITY;
+      m0 = fmaxf(m0, s[j][e]);
+      m1 = fmaxf(m1, s[j][2 + e]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = exp2f(s[j][e] - m0);
+      s[j][2 + e] = exp2f(s[j][2 + e] - m1);
+      s0 += s[j][e];
+      s1 += s[j][2 + e];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+  }
+  const float i0 = live0 ? 1.f / s0 : 0.f, i1 = live1 ? 1.f / s1 : 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] *= i0;
+    s[j][1] *= i0;
+    s[j][2] *= i1;
+    s[j][3] *= i1;
+  }
+}
+
+// C fragments f (16 x 64: rows r0 + g, r0 + g + 8; 8 column tiles) to
+// fp32 or bf16 storage (row stride ld), rows below rlim, columns below clim.
+template <typename S>
+__device__ __forceinline__ void store_rows(const float (&f)[8][4], S* dst, int ld, int r0,
+                                           int rlim, int clim) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * c + e;
+      if (col >= clim) continue;
+      if (r0 + g < rlim) dst[size_t(r0 + g) * ld + col] = from_f<S>(f[j][e]);
+      if (r0 + g + 8 < rlim) dst[size_t(r0 + g + 8) * ld + col] = from_f<S>(f[j][2 + e]);
+    }
+}
+
+// The wide instance's bf16 attention of one head group: one warp per
+// (article, head, 16-row query tile); S = Q K^T over up to 64 keys, the
+// softmax and O = round(P) V in registers, Q, K and V read from the panel.
+__device__ void attention_group_wide(const bf16* qkv, int ldp, float* o, int ldf, int na, int t,
+                                     int hd, int gh, int h0, int nh, float scale) {
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4;
+  const int nq = (t + 15) / 16, nkh = (hd + 15) / 16, nnh = (hd + 7) / 8, nnt = (t + 7) / 8;
+  for (int it = warp; it < na * nh * nq; it += kWarps) {
+    const int qt = it % nq, hl = it / nq % nh, an = it / (nq * nh);
+    const bf16* base = qkv + size_t(an) * t * ldp;
+    const Mat q{base + hl * hd, ldp, t, hd, false};
+    const Mat kt{base + (gh + hl) * hd, ldp, t, hd, true};  // K^T: (e, key)
+    const Mat v{base + (2 * gh + hl) * hd, ldp, t, hd, false};
+    float s[8][4];
+    warp_mma_rows(s, q, 16 * qt, kt, nkh, nnt);
+    softmax_rows(s, t, scale, 16 * qt + g < t, 16 * qt + g + 8 < t);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk >= nq) break;
+      uint32_t fa[4];
+      c_to_a(s, kk, fa);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nnh) {
+          uint32_t fb[2];
+          frag_b(v, 16 * kk, 8 * j, fb);
+          mma_16816(acc[j], fa, fb);
+        }
+      }
+    }
+    store_rows(acc, o + size_t(an) * t * ldf + (h0 + hl) * hd, ldf, 16 * qt, t, hd);
+  }
+}
+
 // Attention of one head group: heads [h0, h0 + nh) of the block's na
 // articles; in the panel, Q of local head hl sits at column hl*hd, K at
 // gh*hd + hl*hd, V at 2*gh*hd + hl*hd. o gets each head's slice in fp32.
 //
-// bf16: one warp per (article, head). Q, K and V are copied into 32 x 32
+// Narrow bf16: one warp per (article, head). Q, K and V are copied into 32 x 32
 // tiles, zero past t rows and hd columns, so padded keys add nothing to
 // the logits and get probability 0; S = Q K^T and O = P V run on wmma with
-// fp32 accumulation, the softmax in fp32 with one lane per query row.
-template <typename T>
+// fp32 accumulation, the softmax in fp32 with one lane per query row. Wide
+// bf16: attention_group_wide. fp32: FMA, one thread per query row (the
+// wide instance's keys in a loop, each logit computed once per pass: its
+// max, its sum, then the product with V, so that no row of 64 keys is
+// unrolled into registers).
+template <typename T, bool kWide>
 __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na, int t, int hd,
                                 int gh, int h0, int nh, float scale, unsigned char* tiles) {
   const int tid = threadIdx.x;
-  if constexpr (std::is_same<T, bf16>::value) {
+  constexpr int kT = kMaxT, kH = kWide ? kWideMaxHeadDim : kMaxHeadDim;
+  if constexpr (std::is_same<T, bf16>::value && kWide) {
+    attention_group_wide(qkv, ldp, o, ldf, na, t, hd, gh, h0, nh, scale);
+  } else if constexpr (kWide) {
+    for (int it = tid; it < na * nh * t; it += kThreads) {
+      const int qi = it % t, hl = (it / t) % nh, an = it / (t * nh);
+      const int r = an * t + qi;
+      const T* qrow = qkv + r * ldp + hl * hd;
+      const T* kbase = qkv + an * t * ldp + gh * hd + hl * hd;
+      const T* vbase = kbase + gh * hd;
+      float qv[kH];
+#pragma unroll
+      for (int e = 0; e < kH; ++e) qv[e] = e < hd ? to_f<T>(qrow[e]) : 0.f;
+      auto logit = [&](int kj) {
+        const T* kr = kbase + kj * ldp;
+        float l = 0.f;
+#pragma unroll
+        for (int e = 0; e < kH; ++e)
+          if (e < hd) l += qv[e] * to_f<T>(kr[e]);
+        return l * scale;
+      };
+      float m = -INFINITY, s = 0.f;
+      for (int kj = 0; kj < t; ++kj) m = fmaxf(m, logit(kj));
+      for (int kj = 0; kj < t; ++kj) s += expf(logit(kj) - m);
+      float acc[kH];
+#pragma unroll
+      for (int e = 0; e < kH; ++e) acc[e] = 0.f;
+      for (int kj = 0; kj < t; ++kj) {
+        const float pk = rnd<T>(expf(logit(kj) - m) / s);
+        const T* vr = vbase + kj * ldp;
+#pragma unroll
+        for (int e = 0; e < kH; ++e)
+          if (e < hd) acc[e] += pk * to_f<T>(vr[e]);
+      }
+      float* orow = o + r * ldf + (h0 + hl) * hd;
+#pragma unroll
+      for (int e = 0; e < kH; ++e)
+        if (e < hd) orow[e] = acc[e];
+    }
+  } else if constexpr (std::is_same<T, bf16>::value) {
     using namespace nvcuda;
     const int warp = tid / 32, lane = tid % 32;
     bf16* Qs = reinterpret_cast<bf16*>(tiles + size_t(warp) * kAttWarpBytes);
@@ -596,19 +877,19 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
       const T* qrow = qkv + r * ldp + hl * hd;
       const T* kbase = qkv + an * t * ldp + gh * hd + hl * hd;
       const T* vbase = kbase + gh * hd;
-      float qv[kMaxHeadDim];
+      float qv[kH];
 #pragma unroll
-      for (int e = 0; e < kMaxHeadDim; ++e) qv[e] = e < hd ? to_f<T>(qrow[e]) : 0.f;
-      float p[kMaxT];
+      for (int e = 0; e < kH; ++e) qv[e] = e < hd ? to_f<T>(qrow[e]) : 0.f;
+      float p[kT];
       float m = -INFINITY;
 #pragma unroll
-      for (int kj = 0; kj < kMaxT; ++kj) {
+      for (int kj = 0; kj < kT; ++kj) {
         p[kj] = -INFINITY;
         if (kj < t) {
           const T* kr = kbase + kj * ldp;
           float l = 0.f;
 #pragma unroll
-          for (int e = 0; e < kMaxHeadDim; ++e)
+          for (int e = 0; e < kH; ++e)
             if (e < hd) l += qv[e] * to_f<T>(kr[e]);
           p[kj] = l * scale;
           m = fmaxf(m, p[kj]);
@@ -616,26 +897,26 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
       }
       float s = 0.f;
 #pragma unroll
-      for (int kj = 0; kj < kMaxT; ++kj) {
+      for (int kj = 0; kj < kT; ++kj) {
         p[kj] = kj < t ? expf(p[kj] - m) : 0.f;
         s += p[kj];
       }
-      float acc[kMaxHeadDim];
+      float acc[kH];
 #pragma unroll
-      for (int e = 0; e < kMaxHeadDim; ++e) acc[e] = 0.f;
+      for (int e = 0; e < kH; ++e) acc[e] = 0.f;
 #pragma unroll
-      for (int kj = 0; kj < kMaxT; ++kj) {
+      for (int kj = 0; kj < kT; ++kj) {
         if (kj < t) {
           const float pk = rnd<T>(p[kj] / s);
           const T* vr = vbase + kj * ldp;
 #pragma unroll
-          for (int e = 0; e < kMaxHeadDim; ++e)
+          for (int e = 0; e < kH; ++e)
             if (e < hd) acc[e] += pk * to_f<T>(vr[e]);
         }
       }
       float* orow = o + r * ldf + (h0 + hl) * hd;
 #pragma unroll
-      for (int e = 0; e < kMaxHeadDim; ++e)
+      for (int e = 0; e < kH; ++e)
         if (e < hd) orow[e] = acc[e];
     }
   }
@@ -654,14 +935,24 @@ __device__ __forceinline__ int valid_at(int n_valid, const int* dev, int n) {
 __device__ __forceinline__ void drop_o(float* o, int ldf, int rows, int d, int row0,
                                        const philox::Dropout& dr, const float* __restrict__ ext,
                                        float inv_ext) {
-  if (dr.thr_att) {
-    const int g4 = d / 4;  // the wrapper requires d % 4 == 0 with dropout
+  if (dr.thr_att && d % 4 == 0) {  // whole groups of 4: no per-column check (about 1% of K1)
+    const int g4 = d / 4;
     for (int i = threadIdx.x; i < rows * g4; i += kThreads) {
       const int r = i / g4, c = (i % g4) * 4;
       const float4 m =
           philox::mask4(dr.key, uint32_t(row0 + r), uint32_t(c >> 2), 1u, dr.thr_att, dr.inv_att);
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[r * ldf + c + j] *= philox::pick(m, j);
+    }
+  } else if (dr.thr_att) {  // the last group of 4 columns is short
+    const int g4 = (d + 3) / 4;
+    for (int i = threadIdx.x; i < rows * g4; i += kThreads) {
+      const int r = i / g4, c = (i % g4) * 4;
+      const float4 m =
+          philox::mask4(dr.key, uint32_t(row0 + r), uint32_t(c >> 2), 1u, dr.thr_att, dr.inv_att);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < d) o[r * ldf + c + j] *= philox::pick(m, j);
     }
   } else if (ext != nullptr) {
     for (int i = threadIdx.x; i < rows * d; i += kThreads) {
@@ -798,6 +1089,170 @@ __device__ void pooling_weights(float* z, int ldz, const float* __restrict__ b_a
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (lane < t) wts[an * t + lane] = e / (sum + 1e-8f);
   }
+  csync();
+}
+
+// ---- the wide instance's pooling: W_att in column chunks of kAttChunk ----
+
+// z = round(o) @ W_att[:, c0 : c0 + ac] ([kRows][ldz] fp32 at the start of
+// R), ac = min(kAttChunk, a_pad - c0). o's rows [0, rows) come from src
+// (row stride lds): the fp32 o in shared memory (the forward) or round(o)
+// in the compute dtype in device memory (the backward, whose o space holds
+// other things by then). bf16: wmma over pipelined stages of { W_att rows
+// [kPoolRows][ac] by cp.async, the rounded o columns [kRows][kPoolRows]
+// copied by the threads as they issue the stage }; fp32: one thread per
+// column, FMA.
+template <typename T, typename S>
+__device__ void pooling_logits_chunk(const S* src, int lds, int rows, int d,
+                                     const T* __restrict__ w_att, int a_pad, int c0,
+                                     const Layout& L, unsigned char* R) {
+  const int tid = threadIdx.x;
+  const int ac = min(kAttChunk, a_pad - c0);
+  const int nk = (d + kPoolRows - 1) / kPoolRows;
+  float* z = reinterpret_cast<float*>(R);
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda;
+    constexpr int VE = 16 / sizeof(T);
+    const int warp = tid / 32, av = ac / VE;
+    auto wst = [&](int s) { return reinterpret_cast<T*>(R + s * L.pool_stage); };
+    auto ost = [&](int s) { return reinterpret_cast<T*>(R + s * L.pool_stage + L.pool_wc); };
+    auto issue = [&](int kc, int s) {
+      T* dst = wst(s);
+      for (int i = tid; i < kPoolRows * av; i += kThreads) {
+        const int kr = i / av, c = (i % av) * VE, k = kc * kPoolRows + kr;
+        const bool ok = k < d;
+        cp_async16(dst + kr * L.ldc + c, ok ? w_att + size_t(k) * a_pad + c0 + c : w_att, ok);
+      }
+      T* od = ost(s);
+      for (int i = tid; i < kRows * kPoolRows; i += kThreads) {
+        const int r = i / kPoolRows, kr = i % kPoolRows, k = kc * kPoolRows + kr;
+        od[r * L.ldoc + kr] =
+            from_f<T>(r < rows && k < d ? to_f<S>(src[size_t(r) * lds + k]) : 0.f);
+      }
+    };
+    const int nct = ac / 16;  // column tiles; warp w takes w and w + 8
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    pipeline<kPoolStages>(nk, issue, [&](int, int s) {
+      const T* w_s = wst(s);
+      const T* o_s = ost(s);
+#pragma unroll
+      for (int kk = 0; kk < kPoolRows; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(af[i], o_s + i * 16 * L.ldoc + kk, L.ldoc);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int ct = warp + j * kWarps;
+          if (ct < nct) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+            wmma::load_matrix_sync(bfr, w_s + kk * L.ldc + ct * 16, L.ldc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
+          }
+        }
+      }
+    });
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int ct = warp + j * kWarps;
+      if (ct < nct) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          wmma::store_matrix_sync(z + i * 16 * L.ldz + ct * 16, acc[i][j], L.ldz,
+                                  wmma::mem_row_major);
+      }
+    }
+  } else {
+    T* ws = reinterpret_cast<T*>(R);
+    float zr[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) zr[r] = 0.f;
+    for (int kc = 0; kc < nk; ++kc) {
+      for (int i = tid; i < kPoolRows * ac; i += kThreads) {
+        const int k = kc * kPoolRows + i / ac;
+        ws[i] = k < d ? w_att[size_t(k) * a_pad + c0 + i % ac] : from_f<T>(0.f);
+      }
+      csync();
+      if (tid < ac) {
+        const int kn = min(kPoolRows, d - kc * kPoolRows);
+        for (int kr = 0; kr < kn; ++kr) {
+          const float w = to_f<T>(ws[kr * ac + tid]);
+          const int c = kc * kPoolRows + kr;
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (r < rows) zr[r] += to_f<S>(src[size_t(r) * lds + c]) * w;
+        }
+      }
+      csync();
+    }
+    if (tid < ac) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) z[r * L.ldz + tid] = zr[r];
+    }
+  }
+}
+static_assert(kAttChunk == kThreads && kAttChunk == 16 * 2 * kWarps,
+              "a chunk's columns: one per thread (fp32), two 16-column tiles per warp (bf16)");
+
+// att[r] (+)= sum over the chunk's columns j < a of round(tanh(z + b)) *
+// round(q), one warp per row (the first chunk sets att, later ones add).
+template <typename T>
+__device__ void pooling_att_chunk(const float* z, int ldz, const float* __restrict__ b_att,
+                                  const float* __restrict__ q_att, int a, int c0, int rows,
+                                  float* att) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ac = min(kAttChunk, a - c0);
+  for (int r = warp; r < rows; r += kWarps) {
+    float v = 0.f;
+    for (int j = lane; j < ac; j += 32)
+      v += rnd<T>(tanhf(z[r * ldz + j] + b_att[c0 + j])) * rnd<T>(q_att[c0 + j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) att[r] = (c0 > 0 ? att[r] : 0.f) + v;
+  }
+}
+
+// The pooling softmax over t of each article (one warp per article, lanes
+// striding the tokens; max subtracted, +1e-8 in the denominator).
+__device__ void pooling_softmax(const float* att, int na, int t, float* wts) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int an = warp; an < na; an += kWarps) {
+    const float* a = att + an * t;
+    float* w = wts + an * t;
+    float mx = -INFINITY;
+    for (int l = lane; l < t; l += 32) mx = fmaxf(mx, a[l]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int l = lane; l < t; l += 32) {
+      w[l] = expf(a[l] - mx);
+      sum += w[l];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    for (int l = lane; l < t; l += 32) w[l] /= sum + 1e-8f;
+  }
+}
+
+// The wide instance's pooling forward: z by column chunks, the logits att
+// summed over them, then the weights (csync at the end).
+template <typename T, typename S>
+__device__ void pooling_wide(const S* src, int lds, int rows, int na, int t, int d,
+                             const T* __restrict__ w_att, const float* __restrict__ b_att,
+                             const float* __restrict__ q_att, int a, int a_pad, const Layout& L,
+                             unsigned char* R, float* att, float* wts) {
+  for (int c0 = 0; c0 < a; c0 += kAttChunk) {
+    if (NE_PHASES & 4) pooling_logits_chunk<T, S>(src, lds, rows, d, w_att, a_pad, c0, L, R);
+    csync();
+    pooling_att_chunk<T>(reinterpret_cast<const float*>(R), L.ldz, b_att, q_att, a, c0, rows,
+                         att);
+    csync();  // z is spent before the next chunk's product
+  }
+  pooling_softmax(att, na, t, wts);
   csync();
 }
 

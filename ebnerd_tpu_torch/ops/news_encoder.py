@@ -66,13 +66,16 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "news_encoder_reference", "news_encoder_bwd_reference", "pack_weights", "pack_qkv",
            "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
-           "launch_bwd_core", "bwd_core_reference", "padded_din",
+           "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
+           "articles_per_block", "o_width",
            "reduce_rows", "reduce_plan", "NewsEncoderFunction"]
 
 _PANEL = 256         # packed QKV columns per head group (one GEMM panel of the kernel)
-_MAX_T = 32          # one warp lane per token in the kernel's pooling softmax
-_MAX_HEAD_DIM = 32
-_MAX_ATT_DIM = 256   # padded attention width: one pooling column per thread
+# The shapes the kernels take (``check_shape``; csrc/news_encoder_common.cuh):
+_MAX_T = 64          # an article within one block of 64 rows
+_MAX_HEAD_DIM = 64
+_MAX_ATT_DIM = 512   # padded attention width: two pooling chunks of 256 columns
+_BLOCK_ROWS = 64     # rows (tokens) of a block of the forward and the per-block kernel
 _SMEM_LIMIT = 232448
 _GEMM_TILE = (128, 256)  # rows and columns of one bf16 GEMM tile (csrc/news_encoder_bwd.cu)
 _GEMM_K_TILE = 64        # rows of a k-tile; a weight-gradient slice is a multiple of it
@@ -200,6 +203,42 @@ def news_encoder_bwd_reference(x, wq, wk, wv, w_att, b_att, q_att, g, **kw) -> t
         return torch.autograd.grad(out, ins, g)
 
 
+def check_shape(*, d: int, num_heads: int, a: int, t: Optional[int] = None) -> None:
+    """Raise ValueError, naming the limit, for a shape the kernels do not
+    take: the launchers' check in ``csrc/`` (news_encoder.cu, news_encoder_bwd.cu)
+    mirrored, called by both wrappers before any launch (``t=None``: the
+    weights alone, as ``pack_weights`` checks them). The kernels take T in
+    [1, 64], a head width up to 64 and an attention width up to 512, each
+    shape in the instance it fits (T, head width <= 32 and padded attention
+    width <= 256: the narrow one); Din, the padded attention width and the
+    head groups are made to fit by ``pack_weights`` and ``kernel_input``.
+    What is left is the block's shared memory, which ``launch`` and
+    ``launch_bwd_core`` ask the library for (a wide D with a wide A in fp32
+    can exceed it)."""
+    if d % num_heads:
+        raise ValueError(f"d={d} not divisible by num_heads={num_heads}")
+    hd = d // num_heads
+    if hd > _MAX_HEAD_DIM:
+        raise ValueError(f"the kernels take head_dim <= {_MAX_HEAD_DIM}; got head_dim={hd}")
+    if a > _MAX_ATT_DIM:
+        raise ValueError(f"the kernels take an attention width A <= {_MAX_ATT_DIM}; got A={a}")
+    if t is not None and not 1 <= t <= _MAX_T:
+        raise ValueError(f"the kernels take 1 <= T <= {_MAX_T}; got T={t}")
+
+
+def articles_per_block(t: int) -> int:
+    """Articles in one block of the forward and of the per-block kernel:
+    as many whole articles as 64 rows hold, at least 1 (T <= 64)."""
+    return max(1, _BLOCK_ROWS // t)
+
+
+def o_width(d: int) -> int:
+    """The width of the backward's round(o) buffer: D rounded up to a
+    multiple of 8, so that its rows are whole 16 bytes for the dW product's
+    TMA (zero columns past D)."""
+    return -(-d // 8) * 8
+
+
 def _pack_panels(parts, num_heads: int, gh: int) -> torch.Tensor:
     """Q, K, V (or their gradients) [rows, D] -> [rows, n_groups * 256] in
     ``pack_qkv``'s head-group panel layout (zeros elsewhere)."""
@@ -220,9 +259,10 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     on ``kernel_input``'s x [rows, Din] (no stream-0 mask left to draw),
     in fp32 from the rounded operands, rounding where the kernel does.
     Returns, for the nv * T valid rows: dQ|dK|dV [rows, P] in the panel
-    layout, round(o) [rows, D] and round(dz) [rows, a_pad] in the compute
-    dtype, and the per-block partials of db and dq [blocks, A] fp32 (the
-    blocks of 64 // T articles before nv). ``seed`` (64-bit) and
+    layout, round(o) [rows, ``o_width(D)``] (zero columns past D) and
+    round(dz) [rows, a_pad] in the compute dtype, and the per-block partials
+    of db and dq [blocks, A] fp32 (the blocks of ``articles_per_block(T)``
+    articles before nv). ``seed`` (64-bit) and
     ``keep_prob`` regenerate the stream-1 mask when ``drop.thr_att``."""
     if drop.thr_emb:
         raise ValueError("bwd_core_reference takes x with its stream-0 mask applied")
@@ -253,7 +293,7 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     dvals = (o_c * _round(gv, cdt)[:, None, :]).sum(-1)
     datt = _round(w * (dvals - (w * dvals).sum(-1, keepdim=True)), cdt)
     dz = datt[..., None] * _round(packed.q_att, cdt) * (1 - hact * hact)
-    nb = 64 // t
+    nb = articles_per_block(t)
     blocks = -(-nv // nb)
     pad = blocks * nb - nv
     per_block = lambda v_: torch.cat([v_, v_.new_zeros(pad, t, a)]).reshape(blocks, nb * t, a).sum(1)
@@ -268,8 +308,8 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     dq = torch.einsum("nhqk,nkhd->nqhd", ds, k)
     dk = torch.einsum("nhqk,nqhd->nkhd", ds, q)
     dqkv = _pack_panels([_round(u.reshape(rows, d), cdt) for u in (dq, dk, dv)], heads, gh)
-    return (dqkv.to(cdt), o_c.reshape(rows, d).to(cdt), dz_c.reshape(rows, a_pad).to(cdt),
-            db_part, dq_part)
+    o_c = torch.nn.functional.pad(o_c.reshape(rows, d), (0, o_width(d) - d))
+    return (dqkv.to(cdt), o_c.to(cdt), dz_c.reshape(rows, a_pad).to(cdt), db_part, dq_part)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -278,7 +318,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.news_encoder_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, f, i,
                                      u, u, p, u, u, f, f, p, f, i, i, p]
     lib.news_encoder_fwd.restype = i
-    lib.news_encoder_smem_bytes.argtypes = [i, i, i, i]
+    lib.news_encoder_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.news_encoder_smem_bytes.restype = ctypes.c_longlong
     lib.news_encoder_error_string.argtypes = [i]
     lib.news_encoder_error_string.restype = ctypes.c_char_p
@@ -288,7 +328,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 10 + [i] * 9
+    lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 7 + [i] + [p] * 3 + [i] * 9
                                           + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, p])
     lib.news_encoder_bwd_core.restype = i
     lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 10 + [p, i, i, u, u, p, u, f, p]
@@ -297,7 +337,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.news_encoder_mask_x.restype = i
     lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, i, p, p, p]
     lib.news_encoder_reduce.restype = i
-    lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i, i]
+    lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.news_encoder_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.news_encoder_bwd_error_string.argtypes = [i]
     lib.news_encoder_bwd_error_string.restype = ctypes.c_char_p
@@ -384,11 +424,7 @@ def pack_weights(wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
         raise ValueError(f"wq/wk/wv must be [{din}, {d}]")
     if w_att.shape != (d, a) or b_att.shape != (a,) or tuple(q_att.shape) not in ((a, 1), (a,)):
         raise ValueError("pooling params must be W [D, A], b [A], q [A, 1]")
-    if d % num_heads:
-        raise ValueError(f"d={d} not divisible by num_heads={num_heads}")
-    if d // num_heads > _MAX_HEAD_DIM or a > _MAX_ATT_DIM:
-        raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM}, A <= {_MAX_ATT_DIM}; "
-                         f"got head_dim={d // num_heads}, A={a}")
+    check_shape(d=d, num_heads=num_heads, a=a)
     wqkv, gh = pack_qkv(wq, wk, wv, num_heads, compute_dtype, padded_din(din, compute_dtype))
     a_pad = -(-a // 16) * 16
     w_pad = torch.nn.functional.pad(w_att.to(compute_dtype), (0, a_pad - a)).contiguous()
@@ -439,7 +475,7 @@ def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, e
     n, t, _ = x.shape
     drop = dropout_config(n, t, weights[0].shape[1], keep_prob, emb_keep_prob, rng_seed,
                           drop_mask, x.device)
-    _check_x(x, packed, drop)
+    _check_x(x, packed)
     nv, nv_dev = _valid(n, n_valid, x.device)
     xin, keep, drop_in = kernel_input(x, nv, drop, nv_dev)
     out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
@@ -467,11 +503,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_x(x, packed: PackedWeights, drop: Dropout):
+def _check_x(x, packed: PackedWeights):
     """x [N, T, Din] as the kernels take it, before ``kernel_input``."""
     n, t, din = x.shape
     cdt = packed.wqkv.dtype
-    d = packed.w_att.shape[0]
     if x.dtype != cdt:
         raise ValueError(f"x is {x.dtype}; the kernel takes x in the compute dtype {cdt}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -479,10 +514,8 @@ def _check_x(x, packed: PackedWeights, drop: Dropout):
     if packed.wqkv.device != x.device or packed.din != din:
         raise ValueError(f"packed weights are for Din {packed.din} on "
                          f"{packed.wqkv.device}; x is [..., {din}] on {x.device}")
-    if t > _MAX_T:
-        raise ValueError(f"kernel takes T <= {_MAX_T}; got T={t}")
-    if (drop.thr_emb or drop.thr_att) and d % 4:
-        raise ValueError(f"in-kernel dropout takes D % 4 == 0; got {d}")
+    check_shape(d=packed.w_att.shape[0], num_heads=packed.num_heads, a=packed.b_att.shape[0],
+                t=t)
 
 
 def _check_launch(lib, err: int, what: str, error_string) -> None:
@@ -525,7 +558,7 @@ def qkv_plan(n: int, t: int, din: int, smem_bytes, *, forward: bool) -> tuple[in
     k-tiles, as the kernel needs) whose shared memory, ``smem_bytes(stages)``,
     fits a block; and the kernel's cluster size (``_FWD_CLUSTER``,
     ``_BWD_CLUSTER``), or 1 when there are fewer blocks than that."""
-    blocks = -(-n // (64 // t))
+    blocks = -(-n // articles_per_block(t))
     nk = max(1, -(-din // _QKV_K_TILE))
     low, top = min(2, nk), min(_QKV_STAGES, nk)
     fits = [s for s in range(low, top + 1) if smem_bytes(s) <= _SMEM_LIMIT]
@@ -565,7 +598,7 @@ def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *
     d, a_pad = packed.w_att.shape
     a = packed.b_att.shape[0]
     is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
-    smem_of = lambda s: lib.news_encoder_smem_bytes(d, a_pad, is_bf16, s)
+    smem_of = lambda s: lib.news_encoder_smem_bytes(t, d, packed.num_heads, a_pad, is_bf16, s)
     stages, cluster = qkv_plan(n, t, din, smem_of, forward=True) if is_bf16 else (1, 1)
     smem = smem_of(stages)
     if smem > _SMEM_LIMIT:
@@ -812,7 +845,7 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
     n, t, din = x.shape
     d = wq.shape[1]
     drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
-    _check_x(x, packed, drop)
+    _check_x(x, packed)
     nv, nv_dev = _valid(n, n_valid, x.device)
     xin, keep, _ = kernel_input(x, nv, drop, nv_dev)
     return _backward(xin, keep, packed, g, n, t, nv, drop, nv_dev)
@@ -827,8 +860,6 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     din, d = xin.shape[1], packed.w_att.shape[0]
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
-    if din % 4 or d % 8:
-        raise ValueError(f"the backward takes Din % 4 == 0 and D % 8 == 0; got {din}, {d}")
     din_x = packed.din
     masked = keep is not None  # bf16 with the stream-0 mask: xin is round(x * mask)
     drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
@@ -836,7 +867,7 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
                                                        drop_in, n=n, t=t, nv_dev=nv_dev)
     _build.count(fused_news_encoder_bwd)
     a_pad, a, p_cols = packed.w_att.shape[1], packed.b_att.shape[0], packed.wqkv.shape[1]
-    nv_blocks = -(-nv // (64 // t))
+    nv_blocks = -(-nv // articles_per_block(t))
     rows = nv * t
     valid = None if nv_dev is None else (nv_dev, t)
     dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep, valid=valid)
@@ -844,7 +875,8 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     dwqkv = reduce_rows(bwd_gemm(xin, qkv, dx=False, rows=rows, drop=drop_in, valid=valid,
                                  splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
     dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows, valid=valid,
-                              splits=gemm_splits(d, a_pad, rows))).reshape(d, a_pad)
+                              splits=gemm_splits(o_c.shape[1], a_pad, rows)))
+    dw = dw.reshape(o_c.shape[1], a_pad)[:d]
     db = reduce_rows(db_part[:nv_blocks])
     dq = reduce_rows(dq_part[:nv_blocks])
     dwq, dwk, dwv = (w[:din_x] for w in unpack_qkv(dwqkv, packed.num_heads, d))
@@ -859,7 +891,8 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
     """Launch the backward's per-block kernel from the library ``lib`` on
     the current stream, on x [rows, Din] from ``kernel_input``: (dqkv
     [N*T, P], round(o) [N*T, D], round(dz) [N*T, a_pad] in the compute
-    dtype, db and dq partials [blocks, a_pad] fp32; rows and blocks past
+    dtype (round(o) ``o_width(D)`` wide, zeros past D), db and dq partials
+    [blocks, a_pad] fp32; rows and blocks past
     ``nv`` articles are left unwritten; with ``nv_dev``, the int32 device
     count the kernel reads, nv is N and the blocks past the count write zero
     partials and zero the rows the GEMMs' last k-tile reads). Raises if the
@@ -873,17 +906,20 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
     a = packed.b_att.shape[0]
     cdt = packed.wqkv.dtype
     is_bf16 = int(cdt == torch.bfloat16)
-    smem_of = lambda s: lib.news_encoder_bwd_smem_bytes(d, a_pad, is_bf16, s)
+    smem_of = lambda s: lib.news_encoder_bwd_smem_bytes(t, d, packed.num_heads, a_pad, is_bf16,
+                                                        s)
     stages, cluster = qkv_plan(n, t, din, smem_of, forward=False) if is_bf16 else (1, 1)
     smem = smem_of(stages)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory per block (> {_SMEM_LIMIT})")
-    n_blocks = -(-n // (64 // t))
+    n_blocks = -(-n // articles_per_block(t))
     p_cols = packed.wqkv.shape[1]
     dev = x.device
     qkv = torch.empty(n * t, p_cols, dtype=cdt, device=dev)
-    o_c = torch.empty(n * t, d, dtype=cdt, device=dev)
-    dz_c = torch.empty(n * t, a_pad, dtype=cdt, device=dev)
+    o_c = torch.empty(n * t, o_width(d), dtype=cdt, device=dev)
+    # the wide instance's do product reads whole 64-row tiles of round(dz): the last block's
+    # reach past the N * T rows stays inside the allocation
+    dz_c = torch.empty(n * t + _BLOCK_ROWS, a_pad, dtype=cdt, device=dev)[:n * t]
     db_part = torch.empty(n_blocks, a_pad, dtype=torch.float32, device=dev)
     dq_part = torch.empty_like(db_part)
     ext = drop.ext_mask
@@ -891,7 +927,7 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
         err = lib.news_encoder_bwd_core(
             x.data_ptr(), x_rows, packed.wqkv.data_ptr(), packed.w_att.data_ptr(),
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), g.data_ptr(), qkv.data_ptr(),
-            o_c.data_ptr(), dz_c.data_ptr(), db_part.data_ptr(), dq_part.data_ptr(),
+            o_c.data_ptr(), o_c.shape[1], dz_c.data_ptr(), db_part.data_ptr(), dq_part.data_ptr(),
             n, t, din, d, packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev),
             1.0 / math.sqrt(d // packed.num_heads), is_bf16, drop.seed_lo, drop.seed_hi,
             _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att, _ptr(ext),

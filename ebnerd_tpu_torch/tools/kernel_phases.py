@@ -7,8 +7,8 @@ several times, with ``-DNE_PHASES`` leaving phases out (bits in
 at the NRMS training step's two bf16 shapes: the news tower [24,064, 30,
 1,024] with n_valid 22,370 (the first batch of ``bench.py``'s step) and
 Philox dropout at keep 0.8 on x and on the attention output, and the user
-tower [16,384, 20, 400] without dropout; 20 x 20 heads, attention width
-200. The weights are packed and, with dropout, the x mask drawn once,
+tower [16,384, 20, 400] without dropout, then at history 50 ([16,384, 50,
+400]: the kernels' wide instance); 20 x 20 heads, attention width 200. The weights are packed and, with dropout, the x mask drawn once,
 outside the timing, as the training step does. A variant that leaves a
 phase out computes a wrong result and is timed only; the shipped builds
 are held against the plain version (K1's output, and K2's whole backward).
@@ -46,7 +46,8 @@ BWD_VARIANTS = {
     "no_do": ("-DNE_PHASES=23",),
     "no_attention_bwd": ("-DNE_PHASES=15",),
 }
-SHAPES = {"news": (24_064, 30, 1_024, 22_370, 0.8), "user": (16_384, 20, 400, None, 1.0)}
+SHAPES = {"news": (24_064, 30, 1_024, 22_370, 0.8), "user": (16_384, 20, 400, None, 1.0),
+          "user_h50": (16_384, 50, 400, None, 1.0)}
 HEADS, HEAD_DIM, ATT = 20, 20, 200
 SEED = (0x5EED << 32) | 0x1234ABCD
 BF16_REL_TOL = 2e-2  # max|kernel - plain| <= tol * max|plain|, as in chip_smoke.py

@@ -231,3 +231,42 @@ def test_wrapper_route_matches_jax_kernel(monkeypatch, din):
     assert seen["launch"][0][0][1] == port.padded_din(din, torch.float32)
     for name, g, r in zip(NAMES, grads, jgrads):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,head_dim", [(10, 10), (3, 10)])
+def test_wrapper_route_takes_d_not_a_multiple_of_8(monkeypatch, dtype, heads, head_dim):
+    """D 100 (10 heads x 10) and D 30 (3 x 10, not even a multiple of 4),
+    with Philox dropout on x and o: the backward's round(o) is
+    ``o_width(D)`` wide (zero columns past D, whole 16 bytes for the dW
+    product's TMA), dW comes back [D, A]; the output and the gradients equal
+    autograd of the plain version (fp32 to 5e-5, bf16 to 2e-2 of each
+    tensor's scale)."""
+    n, t, din, a, nv = 6, 12, 64, 32, 5
+    d = heads * head_dim
+    x, ws = _inputs(9, n, t, din, heads, head_dim, a)
+    cot = np.cos(np.arange(n * d, dtype=np.float32).reshape(n, -1) * 0.1)
+    seen = {}
+    _plain_kernels(monkeypatch, seen)
+    fake_gemm = port.bwd_gemm
+
+    def gemm(a_, b, **kw):
+        seen.setdefault("gemm", []).append(tuple(a_.shape))
+        return fake_gemm(a_, b, **kw)
+
+    monkeypatch.setattr(port, "bwd_gemm", gemm)
+    out, grads = _route(x, ws, cot, heads, dtype, nv, dropout=True)
+    assert (n * t, port.o_width(d)) in seen["gemm"] and port.o_width(d) % 8 == 0
+    kw = dict(num_heads=heads, compute_dtype=dtype, n_valid=nv, keep_prob=KEEP,
+              emb_keep_prob=KEEP, rng_seed=SEED)
+    args = (torch.from_numpy(x).to(dtype), *map(torch.from_numpy, ws))
+    ref_out = port.news_encoder_reference(*args, **kw)
+    ref = port.news_encoder_bwd_reference(*args, torch.from_numpy(cot), **kw)
+    fp32 = dtype == torch.float32
+    assert torch.allclose(out, ref_out, atol=3e-5) if fp32 else \
+        (out - ref_out).abs().max() <= 2e-2 * ref_out.abs().max()
+    for name, g, r in zip(NAMES, grads, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        err = (g.float() - r.float()).abs().max().item()
+        scale = max(r.float().abs().max().item(), ref[4].abs().max().item())
+        assert err <= (5e-5 if fp32 else 2e-2 * scale), (name, err, scale)

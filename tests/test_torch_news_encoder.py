@@ -19,6 +19,8 @@ SHAPES = [
     (5, 12, 64, 2, 16, 32, 2),
     (9, 30, 64, 20, 20, 200, 8),     # 20 x 20 at title length 30
     (7, 20, 400, 20, 20, 200, 8),    # 20 x 20 at history length 20 (user tower)
+    (5, 50, 64, 2, 32, 300, 5),      # T 50 (history 50), A 300: the kernels' wide instance
+    (3, 33, 128, 2, 64, 300, 3),     # T 33, head width 64, A 300
 ]
 
 
@@ -117,8 +119,8 @@ def test_pack_weights_pads_and_checks():
     assert (p.w_att[:, 200:] == 0).all()
     assert p.b_att.dtype == p.q_att.dtype == torch.float32 and p.q_att.shape == (200,)
     torch.testing.assert_close(p.q_att, tw[5][:, 0], rtol=0, atol=0)
-    with pytest.raises(ValueError, match="head_dim"):
-        port.pack_weights(*tw, num_heads=10, compute_dtype=torch.float32)  # head_dim 40
+    with pytest.raises(ValueError, match="head_dim <= 64"):
+        port.pack_weights(*tw, num_heads=5, compute_dtype=torch.float32)  # head_dim 80
 
 
 def test_dropout_not_ported():
@@ -140,3 +142,54 @@ def test_cpu_call_does_not_count_launches():
     x, ws = _inputs(5, 2, 4, 8, 2, 4, 8)
     port.fused_news_encoder(torch.from_numpy(x), *map(torch.from_numpy, ws), num_heads=2)
     assert port.fused_news_encoder.launches == before
+
+
+@pytest.mark.parametrize("head_dim,a", [(40, 300), (64, 512), (40, 512), (64, 300), (20, 200)])
+def test_pack_weights_takes_the_wide_domain(head_dim, a):
+    """Head widths up to 64 and attention widths up to 512 are packed (W_att
+    padded to a multiple of 16); past them pack_weights raises, naming the
+    limit."""
+    heads = 2
+    _, ws = _inputs(7, 2, 4, 24, heads, head_dim, a)
+    p = port.pack_weights(*map(torch.from_numpy, ws), num_heads=heads,
+                          compute_dtype=torch.bfloat16)
+    assert p.heads_per_group == 256 // (3 * head_dim)
+    assert p.w_att.shape == (heads * head_dim, -(-a // 16) * 16) and (p.w_att[:, a:] == 0).all()
+    _, wide = _inputs(7, 2, 4, 24, heads, head_dim, 513)
+    with pytest.raises(ValueError, match="A <= 512"):
+        port.pack_weights(*map(torch.from_numpy, wide), num_heads=heads,
+                          compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("t,d,heads,a,limit", [
+    (1, 64, 2, 32, None), (64, 64, 2, 32, None), (50, 400, 20, 200, None),
+    (33, 128, 2, 512, None), (64, 512, 8, 512, None), (20, 100, 10, 64, None),
+    (0, 64, 2, 32, "1 <= T <= 64"), (65, 64, 2, 32, "1 <= T <= 64"),
+    (30, 65, 1, 32, "head_dim <= 64"), (30, 130, 2, 32, "head_dim <= 64"),
+    (30, 64, 2, 513, "A <= 512"), (30, 64, 3, 32, "not divisible"),
+])
+def test_check_shape_pins_the_domain(t, d, heads, a, limit):
+    """The Python mirror of the launchers' shape check accepts exactly T in
+    [1, 64], head widths up to 64 and attention widths up to 512."""
+    if limit is None:
+        port.check_shape(d=d, num_heads=heads, a=a, t=t)
+    else:
+        with pytest.raises(ValueError, match=limit):
+            port.check_shape(d=d, num_heads=heads, a=a, t=t)
+
+
+@pytest.mark.parametrize("t,ok", [(64, True), (65, False), (50, True)])
+def test_both_wrappers_check_t_before_any_launch(t, ok):
+    """``_check_x``, which the forward and backward wrappers call before
+    their first launch, refuses T past 64 naming the limit; at T <= 64 it
+    passes and the blocks hold one article each past T 32."""
+    _, ws = _inputs(8, 2, t, 16, 2, 8, 16)
+    packed = port.pack_weights(*map(torch.from_numpy, ws), num_heads=2,
+                               compute_dtype=torch.float32)
+    x = torch.zeros(2, t, 16)
+    if ok:
+        port._check_x(x, packed)
+        assert port.articles_per_block(t) == max(1, 64 // t)
+    else:
+        with pytest.raises(ValueError, match="T <= 64"):
+            port._check_x(x, packed)

@@ -48,6 +48,8 @@ def _port_grads(args, cot, **kw):
     (10, 30, 256, 4, 32, 64, 4),     # uneven N vs block
     (8, 30, 128, 20, 20, 200, 8),    # NRMS head geometry (20 x 20)
     (5, 12, 64, 2, 16, 32, 2),
+    (5, 50, 64, 2, 32, 300, 5),      # T 50 (history 50), A 300: the kernels' wide instance
+    (3, 33, 128, 2, 64, 300, 3),     # T 33, head width 64, A 300
 ])
 def test_grads_match_jax_kernel(n, t, din, heads, head_dim, a, block):
     args = _inputs(0, n, t, din, heads, head_dim, a)
@@ -151,3 +153,39 @@ def test_dropout_arguments_are_checked():
         port.dropout_config(2, 3, 8, keep_prob=0.8)
     with pytest.raises(ValueError, match=r"\[2, 3, 8\]"):
         port.dropout_config(2, 3, 8, keep_prob=0.8, drop_mask=torch.ones(2, 8))
+
+
+@pytest.mark.parametrize("n,t,din,heads,head_dim,a,block,nv", [
+    (5, 50, 64, 2, 32, 300, 5, 5),   # one article per 64-row block
+    (3, 33, 128, 2, 64, 300, 3, 2),  # head width 64; n_valid inside the last block
+    (6, 64, 32, 4, 16, 512, 2, 6),   # T 64 fills a block; A 512: two pooling chunks
+])
+def test_bwd_core_reference_in_the_wide_domain_matches_jax(n, t, din, heads, head_dim, a,
+                                                           block, nv):
+    """K2's per-block plain version at the wide instance's shapes: its
+    outputs, put together as the GEMMs and reductions do (dx = dQKV
+    Wqkv^T, dWqkv = x^T dQKV, dW = round(o)^T round(dz), db and dq the sums
+    of the per-block partials, one block per article past T 32), equal the
+    JAX custom VJP's gradients (Pallas backward in interpret mode): 5e-5."""
+    args = _inputs(11, n, t, din, heads, head_dim, a)
+    d = heads * head_dim
+    cot = np.cos(np.arange(n * d, dtype=np.float32).reshape(n, d) * 0.1)
+    cot[nv:] = 0.0
+    ones = jnp.ones((8, 128), jnp.float32)
+    _, ref = _jax_grads(args, cot, ones, None, heads, block, True, 1.0, "float32", 1.0,
+                        jnp.asarray([nv], jnp.int32))
+    ws = [torch.from_numpy(v) for v in args[1:]]
+    packed = port.pack_weights(*ws, num_heads=heads, compute_dtype=torch.float32)
+    x2 = torch.from_numpy(args[0]).reshape(n * t, din)
+    dqkv, o_c, dz_c, db_part, dq_part = port.bwd_core_reference(
+        x2, packed, torch.from_numpy(cot), t=t, nv=nv, drop=port.Dropout())
+    rows = nv * t
+    assert db_part.shape == (-(-nv // port.articles_per_block(t)), a)
+    assert o_c.shape == (rows, port.o_width(d)) and dz_c.shape == (rows, packed.w_att.shape[1])
+    dx = torch.zeros(n * t, din)
+    dx[:rows] = dqkv @ packed.wqkv.T
+    dwq, dwk, dwv = port.unpack_qkv(x2[:rows].T @ dqkv, heads, d)
+    dw = (o_c.T @ dz_c[:, :a])[:d]
+    got = (dx.reshape(n, t, din), dwq, dwk, dwv, dw, db_part.sum(0), dq_part.sum(0).reshape(a, 1))
+    for name, u, r in zip(NAMES, got, ref):
+        np.testing.assert_allclose(u.numpy(), r, atol=GRAD_ATOL, err_msg=name)

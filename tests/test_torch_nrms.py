@@ -116,3 +116,40 @@ def test_unported_paths_raise():
         per_slot = m({"hist_tokens": tokens[slots["hist_slot"]],
                       "cand_tokens": tokens[slots["cand_slot"]]})
     torch.testing.assert_close(ded, per_slot, rtol=0, atol=1e-6)
+
+
+H50 = dict(HP, history_size=50)
+
+
+def test_fused_nrms_at_history_50_matches_jax():
+    """NRMS with the fused encoder at history 50 (the user tower's kernels
+    at T 50, the wide instance on the card), bridged weights: the port's
+    logits and every parameter's gradient under sum(logits * c) equal the
+    JAX fused NRMS's, its kernels run in interpret mode (logits to 1e-5,
+    gradients to 5e-5)."""
+    rng = np.random.default_rng(5)
+    hist = rng.integers(0, VOCAB, (B, 50, T)).astype(np.int32)
+    hist[0, :7] = 0  # padded history slots
+    cand = rng.integers(1, VOCAB, (B, K, T)).astype(np.int32)
+    batch = {"hist_tokens": hist, "cand_tokens": cand}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jmodel = JaxNRMS(JaxHP(**H50), vocab_size=VOCAB, word_emb_dim=EMB, use_fused_encoder=True,
+                     fused_interpret=True)
+    params = jmodel.init(jax.random.PRNGKey(1), jbatch)["params"]
+    params = jax.tree_util.tree_map(np.asarray, jax.device_get(params))
+    for tower in ("news_pool", "user_pool"):
+        params[tower]["b"] = rng.standard_normal(params[tower]["b"].shape).astype(np.float32) * 0.1
+    c = rng.standard_normal((B, K)).astype(np.float32)
+    loss = lambda p: jnp.sum(jmodel.apply({"params": p}, jbatch, False) * c)
+    ref = np.asarray(jmodel.apply({"params": params}, jbatch, False))
+    jgrads = nrms_state_dict(jax.tree_util.tree_map(np.asarray, jax.grad(loss)(params)))
+    model = NRMS(HParamsNRMS(**H50), vocab_size=VOCAB, word_emb_dim=EMB, use_fused_encoder=True,
+                 device="cpu")
+    model = load_nrms_params(model, params)
+    out = model({k: torch.from_numpy(v).long() for k, v in batch.items()})
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5)
+    (out * torch.from_numpy(c)).sum().backward()
+    grads = dict(model.named_parameters())
+    assert set(grads) == set(jgrads)
+    for k, r in jgrads.items():
+        np.testing.assert_allclose(grads[k].grad.numpy(), r.numpy(), atol=5e-5, err_msg=k)
