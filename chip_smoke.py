@@ -85,7 +85,23 @@ Phases:
      history-50 user tower [16,384, 50, 400]; NRMS at the step's width with
      history 50 (one step against the plain path, launches per step as the
      staged step's, warm steps timed), served two-tower against the full
-     forward, and the CLI with ``--history_size 50``;
+     forward, and the CLI with ``--history_size 50``; then ``[c3b]``: the
+     tiled route (``csrc/news_encoder_tiled.cu``, T1-T4) at ROADMAP C3b's
+     shapes (C3B_CASES: T 65, 100, 130 and 200, head widths 80, 128 and
+     256, attention widths 600 and 1,024, fp32 D 512 x A 512 past the wide
+     instance's shared memory): the whole forward and backward against the
+     plain version, and T1-T4 each against its own; the route forced at
+     shapes of the narrow and wide instances (T 20 and 50, Philox dropout)
+     against them, T2's dropped elements the stream-1 mask; the device seed
+     and n_valid in a CUDA graph; T1-T4 and the whole route timed at the
+     history-100 user tower [16,384, 100, 400] beside their plain versions
+     and bounds (T1 beside torch.matmul, T2 beside
+     scaled_dot_product_attention); NRMS at the step's width with history
+     100 (one step of 4,096 against the plain path, launches per step: K1
+     and the per-block kernel once, T1 and T2 twice, T3 and T4 once; warm
+     steps timed), served two-tower, the CLI with ``--history_size 100``;
+     scan groups of 4 on a one-process NCCL mesh at history 50 and 100,
+     replays bit-equal to eager steps without a mesh;
   7. ``Trainer.fit`` at the same width: 2 epochs of 4 steps from a
      NewsrecFeed of bench.py's Zipf draws (built with Ragged.from_lengths),
      host dedup on the prefetch thread (prefetch 2), validation on 4,096
@@ -222,9 +238,9 @@ Phases:
      runs; ``launches_large``: the ``[large]`` runs'), the script's seconds,
      the card line, then the ``ok`` line last.
 
-The bf16 K1 and K2 per-block kernel times come with torch.matmul's time for
-their QKV product alone (their yardstick; neither kernel has a one-call
-PyTorch equivalent).
+The K1 and K2 per-block kernel times come with torch.matmul's time for
+their QKV product alone, in their dtype (their yardstick; neither kernel has
+a one-call PyTorch equivalent).
 
 Each path (mask check, serving, NRMS training, the sparse steps, fit, each
 family's training and serving, each ``[large]`` run, the examples, each CLI
@@ -444,24 +460,26 @@ def backward_work(n_valid, t, din, d, heads, a, elem):
     return flops, nbytes
 
 
-def block_work(n_valid, t, din, d, heads, a, elem, p_cols):
+def block_work(n_valid, t, din, d, heads, a, elem):
     """(FLOPs, bytes) of K2's per-block kernel for n_valid articles: the
     forward recomputed, dvals, the pooling backward, do (2 t d a) and the
-    attention's four products; x and g read once, dQ|dK|dV [rows, P],
-    round(o), round(dz) and the partials written once."""
+    attention's four products; x and g read once, the heads' dQ|dK|dV
+    [rows, 3 D] (not the packing's pad columns), round(o), round(dz) and
+    the partials written once."""
     hd = d // heads
     fwd, _ = encoder_work(n_valid, t, din, d, heads, a, elem)
     flops = fwd + n_valid * (2 * t * d + 4 * t * a + 2 * t * d * a + 4 * 2 * heads * t * t * hd)
     rows, a_pad = n_valid * t, -(-a // 16) * 16
     nbytes = (rows * din * elem + n_valid * d * 4 + 3 * din * d * elem + (d * a + 2 * a) * 4
-              + rows * (p_cols + d + a_pad) * elem + 2 * -(-n_valid // max(1, 64 // t)) * a_pad * 4)
+              + rows * (3 * d + d + a_pad) * elem + 2 * -(-n_valid // max(1, 64 // t)) * a_pad * 4)
     return flops, nbytes
 
 
-def qkv_matmul_ms(rows, din, p_cols, gen, iters=10):
-    """torch.matmul of [rows, din] x [din, P] bf16: the QKV stage's yardstick."""
-    a = torch.randn(rows, din, generator=gen, device=DEV).to(torch.bfloat16)
-    b = torch.randn(din, p_cols, generator=gen, device=DEV).to(torch.bfloat16)
+def qkv_matmul_ms(rows, din, p_cols, gen, iters=10, dtype=torch.bfloat16):
+    """torch.matmul of [rows, din] x [din, P] (bf16, or ``dtype``): the QKV
+    stage's yardstick."""
+    a = torch.randn(rows, din, generator=gen, device=DEV).to(dtype)
+    b = torch.randn(din, p_cols, generator=gen, device=DEV).to(dtype)
     ms = time_ms(lambda: a @ b, iters)
     del a, b
     return ms
@@ -553,8 +571,7 @@ def kernel_case(name, n, t, din, cdt, peaks, gen, n_valid=None, iters=20,
     flops, nbytes = encoder_work(nv, t, din, d, heads, a, x.element_size())
     b_ms, b_by = bound(flops, nbytes, peaks[0] if cdt == torch.bfloat16 else peaks[1], peaks)
     plan = qkv_plan_of(n, t, din, d, a, cdt, fwd=True, head_dim=head_dim)
-    mm_ms = (qkv_matmul_ms(nv * t, din, packed.wqkv.shape[1], gen, iters)
-             if cdt == torch.bfloat16 and yardstick else None)
+    mm_ms = qkv_matmul_ms(nv * t, din, packed.wqkv.shape[1], gen, iters, cdt) if yardstick else None
     width = ne.padded_din(din, cdt)
     check(xin.shape[1] == width and packed.wqkv.shape[0] == width,
           f"{name}: the kernels' x is {tuple(xin.shape)}, Wqkv {tuple(packed.wqkv.shape)}; "
@@ -706,7 +723,7 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
         rec["ms"] = time_ms(run, iters)
         rec["plain_ms"] = time_ms(lambda: ne.bwd_core_reference(
             xin, packed, g, t=t, nv=nv, drop=drop_in, seed=SEED64, keep_prob=keep), 2, warmup=1)
-        flops, nbytes = block_work(nv, t, din, d, heads, a, 2, packed.wqkv.shape[1])
+        flops, nbytes = block_work(nv, t, din, d, heads, a, 2)
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peaks[0], peaks)
         rec["gflop"], rec["mbytes"] = flops / 1e9, nbytes / 1e6
         rec["qkv_matmul_ms"] = qkv_matmul_ms(rows, din, packed.wqkv.shape[1], gen, iters)
@@ -825,24 +842,27 @@ def c3_kernel_cases(peaks, gen) -> dict:
     return {"fwd": fwd, "block": block, "full": full}
 
 
-def c3_training(table, peaks, staged_step) -> dict:
-    """[c3] NRMS at bench.py's width with history 50: the 250,002 x 1,024
-    table, title 30, 20 x 20 heads, attention 200, batch 16,384, npratio 4,
-    dropout 0.2, dedup, bf16 and Zipf(1.07) draws, so that the user tower
-    runs K1 and K2 at [16,384, 50, 400]. One step against the plain path
-    (``step_vs_plain``), TRAIN_STEPS counted steps (each kernel's launches a
-    step equal to the staged step's, ``staged_step``), WARM_STEPS timed;
-    then serving: ``Trainer.score`` two-tower (the user tower on K1 at T
-    50) against the full forward on FIT_VAL_IMP impressions of up to 50
-    history articles, within SCORE_ATOL."""
+def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_BS, keys=None,
+                     serve_counter="news_encoder_fwd") -> dict:
+    """[c3] (and [c3b]) NRMS at bench.py's width with a longer history: the
+    250,002 x 1,024 table, title 30, 20 x 20 heads, attention 200, batch
+    16,384, npratio 4, dropout 0.2, dedup, bf16 and Zipf(1.07) draws, so
+    that the user tower runs the encoder at [16,384, ``hist``, 400]. One
+    step against the plain path (``step_vs_plain``) on a batch of
+    ``cmp_bs``, TRAIN_STEPS counted steps (the launches of the kernels in
+    ``keys`` a step equal to ``expect``'s), WARM_STEPS timed; then serving:
+    ``Trainer.score`` two-tower (the user tower launching ``serve_counter``
+    at least once a batch) against the full forward on FIT_VAL_IMP
+    impressions of up to ``hist`` history articles, within SCORE_ATOL."""
     from ebnerd_tpu_torch import bench
     from ebnerd_tpu_torch.data import EvalFeed, Lookup
     from ebnerd_tpu_torch.models import token_batch
     from ebnerd_tpu_torch.training import Trainer, TrainerConfig, prep_dedup_batch
 
     n_steps = 1 + TRAIN_STEPS + 2 + WARM_STEPS
-    with mock.patch.object(bench, "HISTORY", C3_HIST):
+    with mock.patch.object(bench, "HISTORY", hist):
         all_b = bench.batches(3, n_steps, TRAIN_BS, N_ART + 1, "zipf")
+        cmp_b = bench.batches(4, 1, cmp_bs, N_ART + 1, "zipf") if cmp_bs != TRAIN_BS else None
     raws = [{k: v[i] for k, v in all_b.items()} for i in range(n_steps)]
     t0 = time.perf_counter()
     preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
@@ -851,8 +871,11 @@ def c3_training(table, peaks, staged_step) -> dict:
     trainer = Trainer(full_width_model(), {"title": lookup.matrix}, token_batch,
                       TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
     staged = [trainer.prepare(r) for r in preps]
-    check(tuple(raws[0]["hist_idx"].shape) == (TRAIN_BS, C3_HIST), "history-50 batch shape")
-    loss_k, loss_p, grad_errs = step_vs_plain(trainer, staged[0], "[c3 train]")
+    check(tuple(raws[0]["hist_idx"].shape) == (TRAIN_BS, hist), f"history-{hist} batch shape")
+    cmp = staged[0] if cmp_b is None else trainer.prepare(prep_dedup_batch(
+        {k: v[0] for k, v in cmp_b.items()}, min_bucket=512))
+    loss_k, loss_p, grad_errs = step_vs_plain(trainer, cmp, f"[{tag} train]")
+    del cmp
 
     losses, per_step = [], []
     for i in range(1, 1 + TRAIN_STEPS):
@@ -860,42 +883,44 @@ def c3_training(table, peaks, staged_step) -> dict:
         losses.append(trainer.step(staged[i]).item())
         per_step.append(read_counts())
     for c in per_step:
-        check(all(c[k] == staged_step[k] for k in K12),
-              f"[c3 train] a step's launches {c}, the staged step's {staged_step}")
-    check(all(math.isfinite(v) for v in losses), f"[c3 train] non-finite losses {losses}")
+        check(all(c[k] == expect[k] for k in keys or K12),
+              f"[{tag} train] a step's launches {c}, expected {expect}")
+    check(all(math.isfinite(v) for v in losses), f"[{tag} train] non-finite losses {losses}")
     dt = timed_steps(trainer, staged, 1 + TRAIN_STEPS, WARM_STEPS)
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms, ips = dt / WARM_STEPS * 1e3, TRAIN_BS * WARM_STEPS / dt
-    uniq_frac = float(np.mean([p["n_uniq"] for p in preps]) / (TRAIN_BS * (C3_HIST + NPRATIO + 1)))
-    with mock.patch.object(bench, "HISTORY", C3_HIST):
+    uniq_frac = float(np.mean([p["n_uniq"] for p in preps]) / (TRAIN_BS * (hist + NPRATIO + 1)))
+    with mock.patch.object(bench, "HISTORY", hist):
         mfu = ips * bench.flops_per_impression(uniq_frac, True, D, ATT) / peaks[0] * 100
-    print(f"[c3 train] history {C3_HIST}: {TRAIN_STEPS} steps, losses "
+    print(f"[{tag} train] history {hist}: {TRAIN_STEPS} steps, losses "
           f"{', '.join(f'{v:.6f}' for v in losses)}; launches per step {per_step[0]}; warm: "
           f"{step_ms:.2f} ms/step, {ips:,.0f} impressions/s, mfu {mfu:.2f}%, peak memory "
           f"{peak:.2f} GB; unique fraction {uniq_frac:.4f}; host dedup {prep_ms:.2f} ms/batch",
           flush=True)
 
-    val = val_table(FIT_VAL_IMP, N_ART, seed=6, hist=C3_HIST)
-    feed = EvalFeed(val, lookup, history_size=C3_HIST, batch_size=BATCH)
+    val = val_table(FIT_VAL_IMP, N_ART, seed=6, hist=hist)
+    feed = EvalFeed(val, lookup, history_size=hist, batch_size=BATCH)
     trainer.model.eval()
     reset_counts()
     t0 = time.perf_counter()
     tt = trainer.score(feed, two_tower=True)
     tt_s = time.perf_counter() - t0
-    tt_launches = read_counts()["news_encoder_fwd"]
+    tt_launches = read_counts()[serve_counter]
     full = trainer.score(feed, two_tower=False)
     err = float(np.abs(tt.values - full.values).max())
     check(tt.values.shape == (feed.inview.total,) and bool(np.isfinite(tt.values).all()),
-          "[c3 serve] two-tower scores: shape or non-finite values")
-    check(tt_launches >= len(feed), f"[c3 serve] the user tower launched K1 {tt_launches} times "
-                                    f"for {len(feed)} batches")
-    check(err <= SCORE_ATOL, f"[c3 serve] two-tower vs full forward differ by {err}")
-    print(f"[c3 serve] history {C3_HIST}: {FIT_VAL_IMP} impressions two-tower in {tt_s:.3f} s "
-          f"({tt_launches} K1 launches over {len(feed)} batches); max|two-tower - full forward| "
+          f"[{tag} serve] two-tower scores: shape or non-finite values")
+    check(tt_launches >= len(feed), f"[{tag} serve] the user tower launched {serve_counter} "
+                                    f"{tt_launches} times for {len(feed)} batches")
+    check(err <= SCORE_ATOL, f"[{tag} serve] two-tower vs full forward differ by {err}")
+    print(f"[{tag} serve] history {hist}: {FIT_VAL_IMP} impressions two-tower in {tt_s:.3f} s "
+          f"({tt_launches} {serve_counter} launches over {len(feed)} batches); max|two-tower - "
+          f"full forward| "
           f"= {err:.3e} (tol {SCORE_ATOL})", flush=True)
     del trainer, staged
     torch.cuda.empty_cache()
-    return {"history": C3_HIST, "batch": TRAIN_BS, "loss_kernels": loss_k, "loss_plain": loss_p,
+    return {"history": hist, "batch": TRAIN_BS, "compared_batch": cmp_bs, "loss_kernels": loss_k,
+            "loss_plain": loss_p,
             "grad_errors": grad_errs, "losses": losses, "launches_per_step": per_step,
             "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
             "step_ms": step_ms, "impressions_per_s": ips, "mfu_pct": mfu, "peak_mem_gb": peak,
@@ -906,14 +931,14 @@ def c3_training(table, peaks, staged_step) -> dict:
 
 def c3_phase(table, peaks, gen, staged_step) -> dict:
     """[c3]: the kernel cases, NRMS training and serving at history 50
-    (``c3_training``), and the CLI at ``--use_fused_encoder --history_size
+    (``history_training``), and the CLI at ``--use_fused_encoder --history_size
     50`` (the [cli] run's widths, 1 epoch; every step's K1 and K2 launches
     as the staged step's)."""
     import shutil
 
     t0 = time.perf_counter()
     rec = c3_kernel_cases(peaks, gen)
-    rec["training"] = c3_training(table, peaks, staged_step)
+    rec["training"] = history_training(table, peaks, staged_step)
     out = Path(__file__).resolve().parent / "build" / "cli_nrms_h50"
     k12 = K12 + ("prng_dropout",)
     rec["cli"], trainer = cli_run("nrms_h50", ["--model", "nrms", "--synthetic",
@@ -928,6 +953,515 @@ def c3_phase(table, peaks, gen, staged_step) -> dict:
     print(f"[c3] {len(rec['fwd'])} K1, {len(rec['block'])} per-block and {len(rec['full'])} "
           f"whole-K2 cases, NRMS training and serving at history {C3_HIST} and the CLI passed in "
           f"{rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+# [c3b]: the tiled route (csrc/news_encoder_tiled.cu, T1-T4) at the shapes of ROADMAP C3b, which
+# the kernels refused before: T 65, 100, 130 and 200, head widths 80, 128 and 256, attention
+# widths 600 and 1,024, and an fp32 D x A past the wide instance's shared memory (D 512 with A
+# 512 at T 64); weights scaled by fan-in as [c2]'s. Then the route forced at shapes the narrow
+# and wide instances take, against them; the device seed and n_valid in a CUDA graph; the
+# history-100 user tower [16,384, 100, 400] bf16, timed; NRMS at bench.py's width with history
+# 100 (trained, served, the CLI); scan groups on a one-process NCCL mesh at history 50 and 100.
+C3B_HIST = 100
+C3B_CMP_BS = 4_096   # the step compared with the plain path: at 16,384 the plain user tower's
+                     # [B, 20, 100, 100] fp32 attention tensors (13 GB each) would fill the card
+C3B_SCAN_BS = 4_096  # the scan and mesh checks' batch (three groups of four, twice)
+C3B_PLAIN_CHUNK = 1_024  # articles a call of a plain version takes at the timed shape (memory)
+TILED = ("tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd", "tiled_attention_bwd")
+TILED_CALL = {"tiled_qkv": 2, "tiled_attention": 2, "tiled_pool": 1, "tiled_pool_bwd": 1,
+              "tiled_attention_bwd": 1}  # one forward and its backward on the tiled route
+C3B_CASES = (
+    # name, n, t, din, dtype, heads, head_dim, a, n_valid, dropout
+    ("fp32_t100_2x8_a40", 13, C3B_HIST, 64, torch.float32, 2, 8, 40, 11, "rng"),
+    ("bf16_t100_20x20_a200", 13, C3B_HIST, 128, torch.bfloat16, 20, 20, 200, 11, "rng"),
+    ("fp32_t65_1x128_a600", 5, 65, 32, torch.float32, 1, 128, 600, None, None),
+    ("bf16_t130_2x80_a600", 5, 130, 48, torch.bfloat16, 2, 80, 600, 4, "mask"),
+    ("bf16_t200_2x128_a1024", 3, 200, 64, torch.bfloat16, 2, 128, 1024, None, "rng"),
+    ("fp32_t64_8x64_a512", 4, 64, 64, torch.float32, 8, 64, 512, None, "rng"),
+    ("bf16_t100_1x256_a64", 3, C3B_HIST, 64, torch.bfloat16, 1, 256, 64, None, None),
+    ("fp32_t30_4x80_a200", 6, T, 64, torch.float32, 4, 80, 200, 5, "rng"),
+)
+C3B_FORCED = (  # the route forced at shapes the narrow and the wide instance take
+    ("bf16_t20_narrow", 37, H, 128, torch.bfloat16, 4, 16, 48, 35),
+    ("bf16_t50_wide", 13, C3_HIST, 128, torch.bfloat16, 10, 40, 300, None),
+    ("fp32_t50_wide", 9, C3_HIST, 64, torch.float32, 4, 40, 300, 8),
+)
+
+
+def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
+    """T1-T4 each on the same inputs as its plain version (T2's o in both
+    directions and its statistics, T3 both directions, T4 on the plain
+    do): the outputs within ``rel`` of max|plain| over the valid rows.
+    Returns {kernel: [max abs err, max|plain|]}."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    rows = nv * t
+    out = {}
+
+    def cmp(name, got, ref):
+        err = (got.float() - ref.float()).abs().max().item() if ref.numel() else 0.0
+        scale = ref.float().abs().max().item() if ref.numel() else 0.0
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(err <= rel * max(scale, 1e-30), f"{name}: max|kernel - plain| = {err} > {rel} * "
+                                              f"{scale}")
+        e = out.setdefault(name.split(" ")[0], [0.0, 0.0])
+        e[0], e[1] = max(e[0], err), max(e[1], scale)
+
+    kw = dict(n=n, t=t, nv=nv)
+    qkv = ne.tiled_qkv(xin, packed, drop_in, **kw)
+    cmp("tiled_qkv", qkv[:rows], ne.tiled_qkv_reference(xin, packed, drop_in, **kw)[:rows])
+    for bwd in (False, True):
+        o, st = ne.tiled_attention(qkv, packed, drop_in, backward=bwd, **kw)
+        ro, rst = ne.tiled_attention_reference(qkv, packed, drop_in, backward=bwd, **kw)
+        cmp("tiled_attention o", o[:rows], ro[:rows])
+        if bwd:
+            cmp("tiled_attention max", st[0, :rows], rst[0, :rows])
+            cmp("tiled_attention sum", st[1, :rows], rst[1, :rows])
+        else:
+            cmp("tiled_pool", ne.tiled_pool(o, packed, **kw), ne.tiled_pool_reference(o, packed, **kw))
+    got = ne.tiled_pool_bwd(o, packed, g, drop_in, **kw)
+    ref = ne.tiled_pool_bwd_reference(o, packed, g, drop_in, **kw)
+    for i, name in enumerate(("do", "dz", "db", "dq")):
+        cut = (lambda v: v[:rows]) if i < 2 else (lambda v: v[:nv])
+        cmp(f"tiled_pool_bwd {name}", cut(got[i]), cut(ref[i]))
+    cmp("tiled_attention_bwd", ne.tiled_attention_bwd(qkv, ref[0], st, packed, **kw)[:rows],
+        ne.tiled_attention_bwd_reference(qkv, ref[0], st, packed, **kw)[:rows])
+    return out
+
+
+def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
+    """One [c3b] shape: the route is the tiled one; ``fused_news_encoder``
+    and ``fused_news_encoder_bwd`` (each kernel of T1-T4 launched as a
+    forward and backward launch it, K1 and the per-block kernel never)
+    against the plain version and its autograd with phase 3's tolerances;
+    then T1-T4 each against its plain version (``tiled_parts``)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    d = heads * hd
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
+    kw = dict(num_heads=heads, compute_dtype=cdt, n_valid=nv)
+    if drop == "rng":
+        kw.update(keep_prob=KEEP, emb_keep_prob=KEEP, rng_seed=SEED64)
+    elif drop == "mask":
+        kw.update(keep_prob=KEEP,
+                  drop_mask=(torch.rand(n, t, d, generator=gen, device=DEV) < KEEP).float())
+    packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+    route = ne._route(packed, t, ne.padded_din(din, cdt))
+    check(route == "tiled", f"c3b {name}: the shape takes the {route} route")
+    nvv = n if nv is None else nv
+    ref = ne.news_encoder_reference(x, *ws, **kw)
+    g = (torch.cos(ref) * torch.randn(n, d, generator=gen, device=DEV)).contiguous()
+    g[nvv:] = 0
+    reset_counts()
+    out = ne.fused_news_encoder(x, *ws, **kw, packed=packed)
+    grads = ne.fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed)
+    torch.cuda.synchronize()
+    cnt = read_counts()
+    check(all(cnt[k] == v for k, v in TILED_CALL.items()) and cnt["news_encoder_fwd"] == 0
+          and cnt["news_encoder_bwd_block"] == 0, f"c3b {name}: launches {cnt}")
+    tol = FP32_ATOL if cdt == torch.float32 else BF16_REL_TOL * ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    check(bool(torch.isfinite(out).all()) and err <= tol, f"c3b {name}: forward {err} > {tol}")
+    check(not out[nvv:].any(), f"c3b {name}: rows past n_valid are not zero")
+    names = ("dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+    rgrads = ne.news_encoder_bwd_reference(x, *ws, g, **kw)
+    rel = FP32_GRAD_REL if cdt == torch.float32 else BF16_REL_TOL
+    scales = grad_scales(dict(zip(names, rgrads)), "dw", ("db", "dq"))
+    errs = {}
+    for nm, u, v in zip(names, grads, rgrads):
+        e = (u.float() - v.float()).abs().max().item()
+        errs[nm] = [e, scales[nm]]
+        check(bool(torch.isfinite(u).all()) and e <= rel * scales[nm],
+              f"c3b {name}: {nm} max|kernel - plain| = {e} > {rel} * {scales[nm]}")
+    dropc = ne.dropout_config(n, t, d, kw.get("keep_prob", 1.0), kw.get("emb_keep_prob", 1.0),
+                              kw.get("rng_seed"), kw.get("drop_mask"), DEV)
+    xin, _, drop_in = ne.kernel_input(x, nvv, dropc)
+    parts = tiled_parts(xin, packed, drop_in, g, n, t, nvv, rel)
+    print(f"[c3b] {name}: {n}x{t}x{din} heads {heads}x{hd} A {a} {str(cdt)[6:]} n_valid={nvv} "
+          f"dropout={drop}: tiled; forward {err:.2e} (tol {tol:.2e}); "
+          + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items())
+          + f" (rel tol {rel}); parts " + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s)
+                                                   in parts.items()), flush=True)
+    return {"case": name, "shape": [n, t, din], "heads": [heads, hd, a], "dtype": str(cdt)[6:],
+            "n_valid": nvv, "dropout": drop, "max_abs_err": max([err] + [e for e, _ in
+                                                                      errs.values()]),
+            "forward_err": err, "grad_errors": errs, "parts": parts}
+
+
+def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
+    """The tiled route forced (``force_tiled``) at a shape of the narrow or
+    the wide instance, Philox dropout 0.2 on both streams: T2's dropped
+    elements are the kernels' stream-1 mask (K4's dump), and the forward
+    and every gradient agree with the instance's within the dtype's
+    tolerance."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.ops import philox
+
+    d = heads * hd
+    x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
+    packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+    args = (packed, heads, cdt, nv, KEEP, KEEP, SEED64, None)
+    nvv = n if nv is None else nv
+    g = (torch.randn(n, d, generator=gen, device=DEV) * 1e-2).contiguous()
+    g[nvv:] = 0
+    inst = ne._forward(x, ws, *args)
+    tiled = ne._forward(x, ws, *args, force_tiled=True)
+    check(tiled[-1] and not inst[-1], f"c3b forced {name}: routes {tiled[-1]}, {inst[-1]}")
+    gi = ne._backward(inst[1], inst[2], packed, g, n, t, nvv, inst[4])
+    gt = ne._backward(tiled[1], tiled[2], packed, g, n, t, nvv, tiled[4], force_tiled=True)
+    qkv = ne.tiled_qkv(tiled[1], packed, ne.Dropout(), n=n, t=t, nv=nvv)
+    o, _ = ne.tiled_attention(qkv, packed, inst[4], n=n, t=t, nv=nvv)
+    dropped = o[:nvv * t] == 0
+    mask = philox.dump_masks(SEED64, philox.STREAM_ATT, nvv * t, d, KEEP) == 0
+    check(torch.equal(dropped, mask), f"c3b forced {name}: T2's dropped elements are not the "
+                                      f"stream-1 mask")
+    rel = FP32_GRAD_REL if cdt == torch.float32 else BF16_REL_TOL
+    names = ("out", "dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+    vals = dict(zip(names, (inst[0],) + tuple(gi)))
+    scales = grad_scales(vals, "dw", ("db", "dq"))
+    errs = {}
+    for nm, u, v in zip(names, (tiled[0],) + tuple(gt), (inst[0],) + tuple(gi)):
+        e = (u.float() - v.float()).abs().max().item()
+        errs[nm] = [e, scales[nm]]
+        check(e <= rel * scales[nm], f"c3b forced {name}: {nm} tiled vs instance {e} > {rel} * "
+                                     f"{scales[nm]}")
+    print(f"[c3b] forced {name}: {n}x{t}x{din} heads {heads}x{hd} A {a} {str(cdt)[6:]} "
+          f"n_valid={nvv}: T2's dropped elements equal the stream-1 mask "
+          f"({int(mask.sum())} of {mask.numel()}); tiled vs the instance "
+          + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items()) + f" (rel tol {rel})",
+          flush=True)
+    return {"case": name, "shape": [n, t, din], "heads": [heads, hd, a], "dtype": str(cdt)[6:],
+            "n_valid": nvv, "errors": errs, "mask_equal": True}
+
+
+def c3b_graph(gen) -> dict:
+    """The tiled route with the seed and n_valid as device scalars (bf16 and
+    fp32, T 100, dropout 0.2 on both streams): the host ints' outputs bit
+    for bit; in a CUDA graph, each replay reads the scalars' values then
+    and equals the eager device-scalar run bit for bit."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    rec = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        n, t, din, heads, hd, a = 29, C3B_HIST, 64, 4, 16, 48
+        x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
+        packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+        gout = torch.randn(n, heads * hd, generator=gen, device=DEV)
+        kw = dict(num_heads=heads, compute_dtype=cdt, keep_prob=KEEP, emb_keep_prob=KEEP,
+                  packed=packed)
+        leaves = lambda: [v.detach().clone().requires_grad_() for v in [x] + ws]
+
+        def fwd_bwd(ins, seed, nv):
+            out = ne.news_encoder(*ins, n_valid=nv, rng_seed=seed, **kw)
+            return [out] + list(torch.autograd.grad(out, ins, gout))
+
+        pairs = ((SEED64 | (1 << 63), n - 3), (SEED64 ^ (1 << 40), n - 11))
+        reset_counts()
+        host = [[v.detach() for v in fwd_bwd(leaves(), s, nv)] for s, nv in pairs]
+        check(read_counts()["tiled_attention_bwd"] == 2, "c3b graph: not the tiled route")
+        dev = [[v.detach() for v in fwd_bwd(leaves(), dev_seed(s), torch.tensor(
+            nv, dtype=torch.int32, device=DEV))] for s, nv in pairs]
+        for h, d_, (s, nv) in zip(host, dev, pairs):
+            for i in (0, 1):  # out and dx; the weight gradients take the bucket's row slices
+                check(torch.equal(h[i], d_[i]), f"c3b graph {cdt}: device scalars change "
+                                                f"output {i} (seed {s:#x}, n_valid {nv})")
+            scales = grad_scales(dict(zip(range(8), h)), 5, (6, 7))
+            for i in range(2, 8):
+                e = (h[i].float() - d_[i].float()).abs().max().item()
+                check(e <= WGRAD_REL_TOL * max(scales[i], 1e-30),
+                      f"c3b graph {cdt}: device n_valid moves gradient {i} by {e}")
+        ins = leaves()
+        st, nvt = dev_seed(pairs[0][0]), torch.tensor(pairs[0][1], dtype=torch.int32, device=DEV)
+        fwd_bwd(ins, st, nvt)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = fwd_bwd(ins, st, nvt)
+        for (s, nv), d_ in zip(pairs, dev):
+            st.fill_(i64(s))
+            nvt.fill_(nv)
+            graph.replay()
+            for i in range(8):
+                check(torch.equal(outs[i], d_[i]), f"c3b graph {cdt}: replay (seed {s:#x}, "
+                                                   f"n_valid {nv}) output {i} differs")
+        del graph, outs, ins, host, dev
+        rec[str(cdt)[6:]] = {"pairs": [[hex(s), nv] for s, nv in pairs], "bit_equal": True}
+    print(f"[c3b] device scalars: the tiled route at T {C3B_HIST} (bf16, fp32) draws the host "
+          f"ints' masks (output and dx bit-equal, weight gradients within {WGRAD_REL_TOL}); in "
+          f"a CUDA graph each replay reads its seed and n_valid, bit-equal to the eager runs",
+          flush=True)
+    return rec
+
+
+def plain_chunked(fn, n: int, t: int) -> float:
+    """ms of a plain version over all ``n`` articles, called on slices of
+    C3B_PLAIN_CHUNK articles (``fn(a0, a1)``), after one untimed slice."""
+    fn(0, min(n, C3B_PLAIN_CHUNK))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a0 in range(0, n, C3B_PLAIN_CHUNK):
+        fn(a0, min(n, a0 + C3B_PLAIN_CHUNK))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def c3b_timed(peaks, gen) -> dict:
+    """T1-T4 and the whole route (forward, and the recompute backward with
+    its GEMMs and reductions) at the history-100 user tower [TRAIN_BS, 100,
+    D] bf16 (no dropout, as the user tower): each against its plain version
+    over every article (``plain_chunked``), timed with its plain version,
+    its bound, and where one PyTorch call computes the same function, that
+    call (T1: torch.matmul of its product; T2: scaled_dot_product_attention)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    n, t, cdt = TRAIN_BS, C3B_HIST, torch.bfloat16
+    x, ws = make_inputs(n, t, D, cdt, gen)
+    packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=cdt)
+    drop = ne.Dropout()
+    xin, _, _ = ne.kernel_input(x, n, drop)
+    g = (torch.randn(n, D, generator=gen, device=DEV) * 1e-2).contiguous()
+    rows, a_pad, ow = n * t, packed.w_att.shape[1], ne.o_width(D)
+    kw = dict(n=n, t=t, nv=n)
+    qkv = ne.tiled_qkv(xin, packed, drop, **kw)
+    o, _ = ne.tiled_attention(qkv, packed, drop, **kw)
+    oc, st = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
+    do = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)[0]
+    torch.cuda.synchronize()
+    errs = {k: [0.0, 0.0] for k in TILED}
+
+    def err(name, got, ref):
+        e = errs[name]
+        check(bool(torch.isfinite(got).all()), f"c3b timed: {name} non-finite")
+        e[0] = max(e[0], (got.float() - ref.float()).abs().max().item())
+        e[1] = max(e[1], ref.float().abs().max().item())
+
+    def sl(a0, a1):
+        return slice(a0 * t, a1 * t), dict(n=a1 - a0, t=t, nv=a1 - a0)
+
+    def p_qkv(a0, a1):
+        r, k = sl(a0, a1)
+        err("tiled_qkv", qkv[r], ne.tiled_qkv_reference(xin[r], packed, drop, **k))
+
+    def p_att(a0, a1):
+        r, k = sl(a0, a1)
+        err("tiled_attention", o[r], ne.tiled_attention_reference(qkv[r], packed, drop, **k)[0])
+
+    pooled = ne.tiled_pool(o, packed, **kw)
+
+    def p_pool(a0, a1):
+        r, k = sl(a0, a1)
+        err("tiled_pool", pooled[a0:a1], ne.tiled_pool_reference(o[r], packed, **k))
+
+    bwd = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)
+
+    def p_pool_bwd(a0, a1):
+        r, k = sl(a0, a1)
+        ref = ne.tiled_pool_bwd_reference(oc[r], packed, g[a0:a1], drop, **k)
+        for got, want in zip((bwd[0][r], bwd[1][r], bwd[2][a0:a1], bwd[3][a0:a1]), ref):
+            err("tiled_pool_bwd", got, want)
+
+    dqkv = ne.tiled_attention_bwd(qkv, do, st, packed, **kw)
+
+    def p_att_bwd(a0, a1):
+        r, k = sl(a0, a1)
+        err("tiled_attention_bwd", dqkv[r],
+            ne.tiled_attention_bwd_reference(qkv[r], do[r], st[:, r], packed, **k))
+
+    hd, heads, a = HEAD_DIM, HEADS, ATT
+    mm = 2 * heads * t * t * hd * n  # one attention product
+    qkv_b = rows * 3 * D * 2  # the heads' Q|K|V (or dQ|dK|dV): not P's pad columns
+    work = {  # (flops, bytes): each input read once, each output written once
+        "tiled_qkv": (2 * rows * D * 3 * D, (rows * D + D * 3 * D) * 2 + qkv_b),
+        "tiled_attention": (2 * mm, qkv_b + rows * D * 4),
+        "tiled_pool": (n * (2 * t * D * a + 2 * t * a + 2 * t * D),
+                       rows * D * 4 + D * a_pad * 2 + 2 * a * 4 + n * D * 4),
+        "tiled_pool_bwd": (n * (2 * 2 * t * D * a + 4 * t * a + 2 * t * D),
+                           rows * ow * 2 + n * D * 4 + D * a_pad * 2 + rows * (a_pad + D) * 2
+                           + 2 * n * a_pad * 4),
+        "tiled_attention_bwd": (5 * mm, 2 * qkv_b + rows * D * 2 + 2 * rows * heads * 4),
+    }
+    runs = {"tiled_qkv": (lambda: ne.tiled_qkv(xin, packed, drop, **kw), p_qkv, 5),
+            "tiled_attention": (lambda: ne.tiled_attention(qkv, packed, drop, **kw), p_att, 3),
+            "tiled_pool": (lambda: ne.tiled_pool(o, packed, **kw), p_pool, 5),
+            "tiled_pool_bwd": (lambda: ne.tiled_pool_bwd(oc, packed, g, drop, **kw), p_pool_bwd, 3),
+            "tiled_attention_bwd": (lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw),
+                                    p_att_bwd, 2)}
+    q4 = [torch.randn(n, heads, t, hd, generator=gen, device=DEV).to(cdt) for _ in range(3)]
+    library = {"tiled_qkv": qkv_matmul_ms(rows, D, 3 * D, gen, 5),  # x @ [Wq|Wk|Wv]
+               "tiled_attention": time_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(*q4), 5)}
+    del q4
+    rec = {}
+    for name, (run, plain, iters) in runs.items():
+        ms = time_ms(run, iters, warmup=1)
+        plain_ms = plain_chunked(plain, n, t)
+        b_ms, b_by = bound(*work[name], peaks[0], peaks)
+        e, s = errs[name]
+        check(e <= BF16_REL_TOL * s, f"c3b timed: {name} max|kernel - plain| {e} > "
+                                     f"{BF16_REL_TOL} * {s}")
+        rec[name] = {"case": f"{name}_user_h{t}", "shape": [n, t, D], "max_abs_err": e,
+                     "max_abs_ref": s, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library.get(name),
+                     "gflop": work[name][0] / 1e9, "mbytes": work[name][1] / 1e6}
+        print(f"[c3b] {name} at the user tower [{n}, {t}, {D}] bf16: max_abs_err={e:.3e} (of "
+              f"{s:.3e}) ms={ms:.3f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.4f} ({b_by})"
+              + (f" library_ms={library[name]:.3f}" if name in library else " library: none"),
+              flush=True)
+    del qkv, o, oc, st, do, dqkv, bwd, pooled
+    torch.cuda.empty_cache()
+    # the whole route: the forward (T1, T2, T3) and the backward (T1-T4, GEMMs, reductions)
+    fwd = lambda: ne.fused_news_encoder(x, *ws, num_heads=HEADS, compute_dtype=cdt, packed=packed)
+    out = fwd()
+    grads = ne._backward(xin, None, packed, g, n, t, n, drop)
+    torch.cuda.synchronize()
+    names = ("dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+    acc, wsum = {"out": [0.0, 0.0], "dx": [0.0, 0.0]}, {}
+
+    def p_fwd(a0, a1):
+        ref = ne.news_encoder_reference(x[a0:a1], *ws, num_heads=HEADS, compute_dtype=cdt)
+        e = acc["out"]
+        e[0] = max(e[0], (out[a0:a1] - ref).abs().max().item())
+        e[1] = max(e[1], ref.abs().max().item())
+
+    def p_bwd(a0, a1):
+        ref = ne.news_encoder_bwd_reference(x[a0:a1], *ws, g[a0:a1], num_heads=HEADS,
+                                            compute_dtype=cdt)
+        e = acc["dx"]
+        e[0] = max(e[0], (grads[0][a0:a1].float() - ref[0].float()).abs().max().item())
+        e[1] = max(e[1], ref[0].float().abs().max().item())
+        wsum[a0] = [v.float() for v in ref[1:]]  # each slice's weight gradients, summed below
+
+    whole = {}
+    for name, run, plain, iters, w in (
+            ("news_encoder_fwd", fwd, p_fwd, 3, encoder_work(n, t, D, D, HEADS, ATT, 2)),
+            ("news_encoder_bwd", lambda: ne._backward(xin, None, packed, g, n, t, n, drop),
+             p_bwd, 2, backward_work(n, t, D, D, HEADS, ATT, 2))):
+        ms = time_ms(run, iters, warmup=1)
+        plain_ms = plain_chunked(plain, n, t)
+        b_ms, b_by = bound(*w, peaks[0], peaks)
+        whole[name] = {"case": f"{name}_tiled_user_h{t}", "shape": [n, t, D], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+    for i, nm in enumerate(names[1:]):
+        ref = sum(parts[i] for parts in wsum.values())
+        acc[nm] = [(grads[i + 1].float() - ref).abs().max().item(), ref.abs().max().item()]
+    scales = {k: v[1] for k, v in acc.items()}
+    for k in ("db", "dq"):  # as grad_scales: the pooling bias and query at least max|dW|
+        scales[k] = max(scales[k], scales["dw"])
+    check(acc["out"][0] <= BF16_REL_TOL * acc["out"][1], f"c3b timed: forward {acc['out']}")
+    for nm in names:
+        check(acc[nm][0] <= BF16_REL_TOL * scales[nm], f"c3b timed: {nm} {acc[nm]} (scale "
+                                                       f"{scales[nm]})")
+    for name, r in whole.items():
+        r["max_abs_err"] = acc["out"][0] if name == "news_encoder_fwd" else max(
+            v[0] for k, v in acc.items() if k != "out")
+        print(f"[c3b] {name} (the tiled route) at the user tower [{n}, {t}, {D}] bf16: "
+              f"ms={r['ms']:.3f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library: none", flush=True)
+    print("[c3b] the whole route against the plain version over every article: "
+          + " ".join(f"{k}={e:.2e}/{scales[k]:.2e}" for k, (e, _) in acc.items())
+          + f" (rel tol {BF16_REL_TOL})", flush=True)
+    del out, grads, wsum, x, ws, packed, xin, g
+    torch.cuda.empty_cache()
+    return {"parts": rec, "whole": whole, "whole_errors": acc}
+
+
+def c3b_scan_mesh(table) -> dict:
+    """scan_steps=4 at bench.py's width and a batch of C3B_SCAN_BS, history
+    50 (the user tower on the wide instance) and 100 (on the tiled route), on
+    a one-process NCCL mesh: three groups (the warm-up, the capture, a
+    replay) against the same groups run eagerly without a mesh, bit for bit
+    (a mesh of one process splits and reduces nothing, and graphs its steps
+    as no mesh does); each graph holds SCAN_N times a step's launches."""
+    import socket
+
+    from ebnerd_tpu_torch import bench
+    from ebnerd_tpu_torch.models import token_batch
+    from ebnerd_tpu_torch.parallel import distributed as dist
+    from ebnerd_tpu_torch.parallel.mesh import make_mesh
+    from ebnerd_tpu_torch.training import prep_dedup_batch
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    rec = {}
+    dist.initialize(f"localhost:{port}", 1, 0, device=DEV)
+    try:
+        mesh = make_mesh()
+        for hist in (C3_HIST, C3B_HIST):
+            with mock.patch.object(bench, "HISTORY", hist):
+                b = bench.batches(5, 3 * SCAN_N, C3B_SCAN_BS, N_ART + 1, "zipf")
+            preps = [prep_dedup_batch({k: v[i] for k, v in b.items()}, min_bucket=512)
+                     for i in range(3 * SCAN_N)]
+            make = lambda: (full_width_model(), {"title": table}, token_batch)  # noqa: E731
+            a, b, la, lb, warm, secs, _, peak = scan_pair(make, preps, mesh_a=mesh)
+            r = replay_vs_eager(f"c3b_h{hist}_mesh", a, b, la, lb)
+            per_step = dict(NRMS_STEP_LAUNCHES)
+            if hist > C3_HIST:  # the user tower on the tiled route
+                per_step.update(news_encoder_fwd=1, news_encoder_bwd_block=1, **TILED_CALL)
+            check(warm == {k: SCAN_N * per_step.get(k, 0) for k in warm},
+                  f"c3b h{hist} mesh: the warm-up group's launches {warm}")
+            per_graph = graph_launches(a)
+            check(len(per_graph) == 1 and per_graph[0] == {k: SCAN_N * v
+                                                           for k, v in per_step.items()},
+                  f"c3b h{hist} mesh: launches in the graph {per_graph} ({SCAN_N} x {per_step})")
+            st = a.scan_stats
+            check(st["eager_groups"] == 1 and st["captures"] == 1 and st["replays"] == 2,
+                  f"c3b h{hist} mesh: scan stats {st}")
+            r.update({"history": hist, "batch": C3B_SCAN_BS, "graph_launches": per_graph[0],
+                      "capture_s": st["capture_s"], "three_groups_s": secs, "peak_mem_gb": peak,
+                      "launches_scan": dict(st["launches"])})
+            print(f"[c3b] scan on a one-process NCCL mesh, history {hist}, batch {C3B_SCAN_BS}: "
+                  f"replays bit-equal to eager steps without a mesh; launches per graph "
+                  f"{per_graph[0]}; capture {st['capture_s']:.2f} s, peak {peak:.2f} GB",
+                  flush=True)
+            rec[f"h{hist}"] = r
+            del a, b, preps
+            release()
+    finally:
+        dist.shutdown()
+        release()
+    return rec
+
+
+def c3b_phase(table, peaks, gen, staged_step) -> dict:
+    """[c3b]: the tiled route's cases (C3B_CASES), the route forced against
+    the instances (C3B_FORCED), the device scalars in a graph, the timed
+    history-100 user tower, NRMS training and serving at history 100
+    (``history_training``), the CLI at ``--use_fused_encoder --history_size
+    100`` (1 epoch), and scan groups on a one-process NCCL mesh. Every step
+    launches the kernels of ``staged_step`` but K1 and the per-block kernel
+    once (the news tower) and T1-T4 as a forward and its backward do."""
+    import shutil
+
+    t0 = time.perf_counter()
+    check(all(staged_step[k] == 0 for k in TILED),
+          f"[c3b] the history-20 step took the tiled route: {staged_step}")
+    rec = {"cases": [c3b_case(*c, gen) for c in C3B_CASES],
+           "forced": [c3b_forced(*c, gen) for c in C3B_FORCED], "graph": c3b_graph(gen)}
+    rec["timed"] = c3b_timed(peaks, gen)
+    release()
+    expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1, **TILED_CALL)
+    keys = K12 + TILED
+    rec["training"] = history_training(table, peaks, expect, hist=C3B_HIST, tag="c3b",
+                                       cmp_bs=C3B_CMP_BS, keys=keys, serve_counter="tiled_qkv")
+    release()
+    out = Path(__file__).resolve().parent / "build" / "cli_nrms_h100"
+    rec["cli"], trainer = cli_run("nrms_h100", ["--model", "nrms", "--synthetic",
+                                                "--use_fused_encoder", "--dtype", "bfloat16",
+                                                "--history_size", str(C3B_HIST), "--epochs", "1",
+                                                "--out_dir", str(out)], expect,
+                                  keys + ("prng_dropout",))
+    check(trainer.model.hparams.history_size == C3B_HIST, "[c3b cli] the model's history size")
+    del trainer
+    shutil.rmtree(out)
+    release()
+    rec["scan_mesh"] = c3b_scan_mesh(table)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[c3b] {len(rec['cases'])} tiled cases, {len(rec['forced'])} forced, the graph "
+          f"check, the history-{C3B_HIST} user tower timed, NRMS training and serving, the CLI "
+          f"and the mesh's scan groups passed in {rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -2972,13 +3506,14 @@ def scan_kernel_checks(bucket, n_uniq, gen):
     return rec
 
 
-def scan_pair(make, preps, det=False):
+def scan_pair(make, preps, det=False, mesh_a=None):
     """Two trainers from one init (``make()``: a model, tables and builder,
     scan_steps=SCAN_N): A runs the groups of ``preps`` (padded to one
     bucket) as the scan path runs them on the card (the first group's eager
     warm-up, the capture, then replays), B runs the same groups eagerly
     (``run_group(graph=False)``): same seeds, buckets and capturable Adam.
-    ``det`` makes cuDNN deterministic for both. Returns (A, B, losses A,
+    ``det`` makes cuDNN deterministic for both; ``mesh_a`` puts A on a mesh.
+    Returns (A, B, losses A,
     losses B, the launches of A's warm-up group, seconds, A's groups, the
     peak GB of A's capture and replays: the graph's pool and what
     persists)."""
@@ -2988,13 +3523,13 @@ def scan_pair(make, preps, det=False):
     preps = [pad_dedup_to(p, bucket) for p in preps]
     groups = [preps[i:i + SCAN_N] for i in range(0, len(preps) - SCAN_N + 1, SCAN_N)]
 
-    def trainer():
+    def trainer(mesh=None):
         model, tables, builder = make()
         return Trainer(model, tables, builder,
                        TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True,
-                                     scan_steps=SCAN_N), device=DEV)
+                                     scan_steps=SCAN_N), device=DEV, mesh=mesh)
 
-    a, b = trainer(), trainer()
+    a, b = trainer(mesh_a), trainer()
     ga, gb = [a.pack_group(g) for g in groups], [b.pack_group(g) for g in groups]
     torch.backends.cudnn.deterministic = det
     try:
@@ -3787,9 +4322,10 @@ def main(argv=None) -> int:
         # dropout pads by a copy of x; fp32 at 300 takes it unpadded, 30 padded to 32
         kernel_case("bf16_din300_cli_news", CLI_BUCKET, T, CLI_EMB, torch.bfloat16, peaks, gen,
                     n_valid=CLI_NV, drop="rng", yardstick=True),
-        kernel_case("bf16_din300_eval", CLI_BUCKET, T, CLI_EMB, torch.bfloat16, peaks, gen),
+        kernel_case("bf16_din300_eval", CLI_BUCKET, T, CLI_EMB, torch.bfloat16, peaks, gen,
+                    yardstick=True),
         kernel_case("fp32_din300_cli_news", CLI_BUCKET, T, CLI_EMB, torch.float32, peaks, gen,
-                    n_valid=CLI_NV, drop="rng"),
+                    n_valid=CLI_NV, drop="rng", yardstick=True),
         kernel_case("fp32_din30", 37, T, 30, torch.float32, peaks, gen, n_valid=33, drop="rng"),
     ]
     record["cases"] = cases
@@ -3843,6 +4379,8 @@ def main(argv=None) -> int:
     record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
     release()
     record["c3"] = c3 = c3_phase(table, peaks, gen, training["launches_per_step"][0])
+    release()
+    record["c3b"] = c3b = c3b_phase(table, peaks, gen, training["launches_per_step"][0])
     release()
     dist_raws = raws[:DIST_STEPS]
     del raws
@@ -4042,6 +4580,38 @@ def main(argv=None) -> int:
     ]}
     for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
+    # [c3b]: the tiled route's kernels, launched by the history-100 steps (that path's counts)
+    c3b_l = c3b["training"]["launches"]
+    check(all(c3b_l[name] > 0 for name in TILED), f"[c3b] a tiled kernel never ran: {c3b_l}")
+    for k in kernels["kernels"]:
+        k["launches_c3b"] = c3b_l.get(k["name"], 0)
+        if k["name"] in c3b["timed"]["whole"]:  # K1 and K2 on the tiled route at history 100
+            k["c3b_tiled_user_h100"] = c3b["timed"]["whole"][k["name"]]
+    tiled_notes = {
+        "tiled_qkv": (234, "T1: the tiled route's QKV projection to device memory (the QKV "
+                           "stage of news_encoder_common.cuh, TMA-fed wgmma in bf16); "
+                           "library_ms is torch.matmul of its product"),
+        "tiled_attention": (234, "T2: the attention forward by 64-row query tiles on mma.sync "
+                                 "fragments (the rows' statistics, then normalised P V), the "
+                                 "stream-1 mask; library_ms is scaled_dot_product_attention"),
+        "tiled_pool": (234, "T3's forward: the pooling per article over any T, W_att by 256 "
+                            "columns"),
+        "tiled_pool_bwd": (529, "T3's backward: the pooling backward per article, round(dz) "
+                                "and do"),
+        "tiled_attention_bwd": (529, "T4: the attention backward per (article, head): query "
+                                     "tiles (dP, dS, dQ), then key tiles (dV, dK)")}
+    for name in TILED:
+        part = c3b["timed"]["parts"][name]
+        line, note = tiled_notes[name]
+        kernels["kernels"].append(dict(
+            {"name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
+             "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}", "launches": c3b_l[name],
+             "launches_c3b_cli": c3b["cli"]["launches"][name],
+             "launches_c3b_scan_mesh": c3b["scan_mesh"][f"h{C3B_HIST}"]["launches_scan"].get(name, 0),
+             "note": note + f"; timed at the history-{C3B_HIST} user tower {part['shape']} bf16",
+             "checked": True}, **{k: part[k] for k in keys},
+            cases_c3b=[{"case": c["case"], "max_abs_err": c["parts"][name][0]}
+                       for c in c3b["cases"]]))
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "build_variants", "load", "c
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("news_encoder", "news_encoder_bwd", "philox", "dropout")
+SOURCES = ("news_encoder", "news_encoder_bwd", "news_encoder_tiled", "philox", "dropout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

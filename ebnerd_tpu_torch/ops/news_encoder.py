@@ -44,6 +44,16 @@ mask) and one keep bit per element): K1 and K2's per-block kernel read
 the masked x, the dWqkv product reads it, dx takes the keep bits, and the
 function keeps them for its backward instead of x.
 
+Each call takes one of three routes (``route``): the kernels' narrow
+instance (T, head width <= 32, padded attention width <= 256), their wide
+one (up to 64, 64 and 512), or, for every other shape and for a layout past
+a block's shared memory, the tiled route (``csrc/news_encoder_tiled.cu``):
+T1 the QKV projection to device memory, T2 the attention by query tiles,
+T3 the pooling per article, forward and backward, T4 the attention backward
+per (article, head), then the backward's GEMMs and reductions as on the
+other routes. Both wrappers choose the route before any launch, and the
+autograd function keeps the forward's choice for its backward.
+
 On a CUDA tensor each wrapper launches its kernel (see the notes in
 ``csrc/``) or raises; on a CPU tensor it calls the plain version, which the
 CPU tests and ``chip_smoke.py`` hold the kernels against.
@@ -67,14 +77,22 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
            "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
-           "articles_per_block", "o_width",
+           "articles_per_block", "o_width", "route", "panel_layout",
+           "tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd",
+           "tiled_attention_bwd", "tiled_forward", "tiled_bwd_core",
+           "tiled_qkv_reference", "tiled_attention_reference", "tiled_pool_reference",
+           "tiled_pool_bwd_reference", "tiled_attention_bwd_reference",
            "reduce_rows", "reduce_plan", "NewsEncoderFunction"]
 
-_PANEL = 256         # packed QKV columns per head group (one GEMM panel of the kernel)
-# The shapes the kernels take (``check_shape``; csrc/news_encoder_common.cuh):
-_MAX_T = 64          # an article within one block of 64 rows
+_PANEL = 256         # packed QKV columns per GEMM panel of the kernels
+# The shapes each instance of K1 and K2 takes (``route``; csrc/news_encoder_common.cuh):
+_NARROW_T = 32       # the narrow instance: T, head width and padded A up to these
+_NARROW_HEAD_DIM = 32
+_NARROW_ATT_DIM = 256
+_MAX_T = 64          # the wide instance: an article within one block of 64 rows
 _MAX_HEAD_DIM = 64
 _MAX_ATT_DIM = 512   # padded attention width: two pooling chunks of 256 columns
+_LOG2E = 1.4426950408889634  # the kernels' softmaxes run in base 2
 _BLOCK_ROWS = 64     # rows (tokens) of a block of the forward and the per-block kernel
 _SMEM_LIMIT = 232448
 _GEMM_TILE = (128, 256)  # rows and columns of one bf16 GEMM tile (csrc/news_encoder_bwd.cu)
@@ -205,25 +223,45 @@ def news_encoder_bwd_reference(x, wq, wk, wv, w_att, b_att, q_att, g, **kw) -> t
 
 def check_shape(*, d: int, num_heads: int, a: int, t: Optional[int] = None) -> None:
     """Raise ValueError, naming the limit, for a shape the kernels do not
-    take: the launchers' check in ``csrc/`` (news_encoder.cu, news_encoder_bwd.cu)
-    mirrored, called by both wrappers before any launch (``t=None``: the
-    weights alone, as ``pack_weights`` checks them). The kernels take T in
-    [1, 64], a head width up to 64 and an attention width up to 512, each
-    shape in the instance it fits (T, head width <= 32 and padded attention
-    width <= 256: the narrow one); Din, the padded attention width and the
-    head groups are made to fit by ``pack_weights`` and ``kernel_input``.
-    What is left is the block's shared memory, which ``launch`` and
-    ``launch_bwd_core`` ask the library for (a wide D with a wide A in fp32
-    can exceed it)."""
+    take, called by both wrappers before any launch (``t=None``: the weights
+    alone, as ``pack_weights`` checks them). Every T >= 1, head width,
+    attention width and Din has a route (``route``): what is left is that
+    the heads split D."""
     if d % num_heads:
         raise ValueError(f"d={d} not divisible by num_heads={num_heads}")
-    hd = d // num_heads
-    if hd > _MAX_HEAD_DIM:
-        raise ValueError(f"the kernels take head_dim <= {_MAX_HEAD_DIM}; got head_dim={hd}")
-    if a > _MAX_ATT_DIM:
-        raise ValueError(f"the kernels take an attention width A <= {_MAX_ATT_DIM}; got A={a}")
-    if t is not None and not 1 <= t <= _MAX_T:
-        raise ValueError(f"the kernels take 1 <= T <= {_MAX_T}; got T={t}")
+    if t is not None and t < 1:
+        raise ValueError(f"the kernels take T >= 1; got T={t}")
+
+
+def route(t: int, head_dim: int, a_pad: int, smem: int = 0) -> str:
+    """The kernels' route for articles of T tokens, heads ``head_dim`` wide
+    and a padded attention width ``a_pad``: ``"narrow"`` (K1 and K2's
+    narrow instance: T, head width <= 32, a_pad <= 256), ``"wide"`` (their
+    wide instance: up to 64, 64 and 512) or ``"tiled"`` (T1-T4) for every
+    other shape, and where ``smem``, the shared memory the instance's block
+    needs (the larger of the forward's and the backward's), passes a
+    block's."""
+    if t > _MAX_T or head_dim > _MAX_HEAD_DIM or a_pad > _MAX_ATT_DIM or smem > _SMEM_LIMIT:
+        return "tiled"
+    if t <= _NARROW_T and head_dim <= _NARROW_HEAD_DIM and a_pad <= _NARROW_ATT_DIM:
+        return "narrow"
+    return "wide"
+
+
+def _route(packed: "PackedWeights", t: int, din: int, force_tiled: bool = False) -> str:
+    """``route`` for a call on CUDA, with the shared memory the libraries
+    report for the instance's block at its shallowest QKV ring (the
+    launchers refuse a block past the limit)."""
+    d, a_pad = packed.w_att.shape
+    heads = packed.num_heads
+    r = "tiled" if force_tiled else route(t, d // heads, a_pad)
+    if r == "tiled":
+        return r
+    is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
+    low = min(2, max(1, -(-din // _QKV_K_TILE))) if is_bf16 else 1
+    smem = max(_library().news_encoder_smem_bytes(t, d, heads, a_pad, is_bf16, low),
+               _library_bwd().news_encoder_bwd_smem_bytes(t, d, heads, a_pad, is_bf16, low))
+    return route(t, d // heads, a_pad, smem)
 
 
 def articles_per_block(t: int) -> int:
@@ -239,18 +277,36 @@ def o_width(d: int) -> int:
     return -(-d // 8) * 8
 
 
-def _pack_panels(parts, num_heads: int, gh: int) -> torch.Tensor:
-    """Q, K, V (or their gradients) [rows, D] -> [rows, n_groups * 256] in
-    ``pack_qkv``'s head-group panel layout (zeros elsewhere)."""
+def panel_layout(num_heads: int, head_dim: int) -> tuple[int, int, int, int]:
+    """(heads per group, panel width, groups, packed columns P) of the QKV
+    layout: a panel holds Q, K and V of ``gh`` heads side by side. Where a
+    head's three slices fit 256 columns, gh = 256 // (3 * head_dim) and
+    every panel is 256 wide (the layout K1 and K2 read); a wider head has a
+    panel of its own, 3 * head_dim rounded up to 64 columns, and P is
+    rounded up to a whole 256 (zero columns past the panels)."""
+    if 3 * head_dim <= _PANEL:
+        gh = _PANEL // (3 * head_dim)
+        n_groups = -(-num_heads // gh)
+        return gh, _PANEL, n_groups, n_groups * _PANEL
+    pw = -(-3 * head_dim // 64) * 64
+    return 1, pw, num_heads, -(-num_heads * pw // _PANEL) * _PANEL
+
+
+def _pack_panels(parts, num_heads: int) -> torch.Tensor:
+    """Q, K, V (or their weights or gradients) [rows, D] -> [rows, P] in
+    ``panel_layout``'s order (zeros elsewhere)."""
     rows, d = parts[0].shape
     hd = d // num_heads
-    n_groups = -(-num_heads // gh)
-    out = parts[0].new_zeros(rows, n_groups, _PANEL)
+    gh, pw, n_groups, p_cols = panel_layout(num_heads, hd)
+    panels = parts[0].new_zeros(rows, n_groups, pw)
     for i, v in enumerate(parts):
         heads = v.new_zeros(rows, n_groups * gh * hd)
         heads[:, :d] = v
-        out[:, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(rows, n_groups, gh * hd)
-    return out.reshape(rows, n_groups * _PANEL)
+        panels[:, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(rows, n_groups, gh * hd)
+    out = panels.reshape(rows, n_groups * pw)
+    if p_cols == n_groups * pw:
+        return out
+    return torch.nn.functional.pad(out, (0, p_cols - n_groups * pw))
 
 
 def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: "Dropout",
@@ -267,7 +323,7 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     if drop.thr_emb:
         raise ValueError("bwd_core_reference takes x with its stream-0 mask applied")
     cdt = packed.wqkv.dtype
-    heads, gh = packed.num_heads, packed.heads_per_group
+    heads = packed.num_heads
     d, a_pad = packed.w_att.shape
     a, din = packed.b_att.shape[0], x.shape[1]
     hd, rows = d // heads, nv * t
@@ -307,7 +363,7 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     dv = torch.einsum("nhqk,nqhd->nkhd", _round(probs, cdt), do)
     dq = torch.einsum("nhqk,nkhd->nqhd", ds, k)
     dk = torch.einsum("nhqk,nqhd->nkhd", ds, q)
-    dqkv = _pack_panels([_round(u.reshape(rows, d), cdt) for u in (dq, dk, dv)], heads, gh)
+    dqkv = _pack_panels([_round(u.reshape(rows, d), cdt) for u in (dq, dk, dv)], heads)
     o_c = torch.nn.functional.pad(o_c.reshape(rows, d), (0, o_width(d) - d))
     return (dqkv.to(cdt), o_c.to(cdt), dz_c.reshape(rows, a_pad).to(cdt), db_part, dq_part)
 
@@ -375,33 +431,30 @@ def padded_din(din: int, dtype: torch.dtype) -> int:
 
 def pack_qkv(wq, wk, wv, num_heads: int, cdt: torch.dtype,
              rows: Optional[int] = None) -> tuple[torch.Tensor, int]:
-    """[Din, D] x3 -> ([rows, n_groups * 256] in ``cdt``, heads per group),
-    ``rows`` >= Din (default Din) with zero rows past Din.
+    """[Din, D] x3 -> ([rows, P] in ``cdt``, heads per group), ``rows`` >=
+    Din (default Din) with zero rows past Din.
 
-    The kernel computes Q/K/V one head group at a time: panel g holds Q of
-    heads [g*gh, (g+1)*gh) at columns [0, gh*hd), K at [gh*hd, 2*gh*hd) and
-    V at [2*gh*hd, 3*gh*hd); the remaining columns, and the heads past
-    ``num_heads`` in the last group, are zero."""
+    The kernels compute Q/K/V one 256-column panel at a time. In
+    ``panel_layout``'s order, group g holds Q of heads [g*gh, (g+1)*gh) at
+    its columns [0, gh*hd), K at [gh*hd, 2*gh*hd) and V at [2*gh*hd,
+    3*gh*hd); the remaining columns, and the heads past ``num_heads`` in the
+    last group, are zero."""
     din, d = wq.shape
     rows = din if rows is None else rows
-    hd = d // num_heads
-    gh = _PANEL // (3 * hd)
-    n_groups = -(-num_heads // gh)
-    out = torch.zeros(rows, n_groups, _PANEL, dtype=cdt, device=wq.device)
-    for i, w in enumerate((wq, wk, wv)):
-        heads = torch.zeros(din, n_groups * gh * hd, dtype=cdt, device=wq.device)
-        heads[:, :d] = w
-        out[:din, :, i * gh * hd:(i + 1) * gh * hd] = heads.reshape(din, n_groups, gh * hd)
-    return out.reshape(rows, n_groups * _PANEL), gh
+    packed = _pack_panels([w.to(cdt) for w in (wq, wk, wv)], num_heads)
+    out = torch.zeros(rows, packed.shape[1], dtype=cdt, device=wq.device)
+    out[:din] = packed
+    return out, panel_layout(num_heads, d // num_heads)[0]
 
 
 def unpack_qkv(wqkv: torch.Tensor, num_heads: int, d: int) -> tuple:
-    """Inverse of ``pack_qkv``: [Din, n_groups * 256] -> three [Din, D]."""
-    din = wqkv.shape[0]
+    """Inverse of ``pack_qkv`` (or of ``_pack_panels``): [rows, P] -> three
+    [rows, D]."""
+    rows = wqkv.shape[0]
     hd = d // num_heads
-    gh = _PANEL // (3 * hd)
-    panels = wqkv.reshape(din, -1, _PANEL)
-    return tuple(panels[:, :, i * gh * hd:(i + 1) * gh * hd].reshape(din, -1)[:, :d]
+    gh, pw, n_groups, _ = panel_layout(num_heads, hd)
+    panels = wqkv[:, :n_groups * pw].reshape(rows, n_groups, pw)
+    return tuple(panels[:, :, i * gh * hd:(i + 1) * gh * hd].reshape(rows, -1)[:, :d]
                  for i in range(3))
 
 
@@ -467,10 +520,12 @@ def fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
 
 
 def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, emb_keep_prob,
-             rng_seed, drop_mask) -> tuple:
-    """K1 on a CUDA x [N, T, Din]: (out, xin, keep, packed, drop, nv), with
-    xin and keep from ``kernel_input`` (what the backward needs), the packed
-    weights, the call's dropout and its valid article count."""
+             rng_seed, drop_mask, force_tiled: bool = False) -> tuple:
+    """The forward on a CUDA x [N, T, Din], K1 or the tiled route by
+    ``_route`` (``force_tiled`` takes the tiled route at any shape):
+    (out, xin, keep, packed, drop, nv, nv_dev, tiled), with xin and keep
+    from ``kernel_input`` (what the backward needs), the packed weights, the
+    call's dropout, its valid article count and whether it went tiled."""
     packed = _packed_for(x, weights, packed, num_heads, compute_dtype)
     n, t, _ = x.shape
     drop = dropout_config(n, t, weights[0].shape[1], keep_prob, emb_keep_prob, rng_seed,
@@ -478,8 +533,12 @@ def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, e
     _check_x(x, packed)
     nv, nv_dev = _valid(n, n_valid, x.device)
     xin, keep, drop_in = kernel_input(x, nv, drop, nv_dev)
-    out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
-    return out, xin, keep, packed, drop, nv, nv_dev
+    tiled = _route(packed, t, xin.shape[1], force_tiled) == "tiled"
+    if tiled:
+        out = tiled_forward(xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
+    else:
+        out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
+    return out, xin, keep, packed, drop, nv, nv_dev, tiled
 
 
 def _n_valid(n: int, n_valid) -> int:
@@ -852,22 +911,30 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
 
 
 def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
-              drop: Dropout, nv_dev: Optional[torch.Tensor] = None) -> tuple:
+              drop: Dropout, nv_dev: Optional[torch.Tensor] = None,
+              force_tiled: bool = False) -> tuple:
     """K2 on ``kernel_input``'s (xin, keep) for N articles of T tokens, nv
     valid (or, with ``nv_dev``, the count that device scalar holds, nv
     then N: the bucket's geometry), under the call's dropout ``drop``: the
-    per-block kernel, dx, dWqkv and dW products and the reductions."""
+    per-block kernel (or, by ``_route``, the tiled route's T1-T4;
+    ``force_tiled`` takes it at any shape), dx, dWqkv and dW products and
+    the reductions."""
     din, d = xin.shape[1], packed.w_att.shape[0]
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
     din_x = packed.din
     masked = keep is not None  # bf16 with the stream-0 mask: xin is round(x * mask)
     drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
-    qkv, o_c, dz_c, db_part, dq_part = launch_bwd_core(_library_bwd(), xin, packed, g, nv,
-                                                       drop_in, n=n, t=t, nv_dev=nv_dev)
+    if _route(packed, t, din, force_tiled) == "tiled":
+        qkv, o_c, dz_c, db_part, dq_part = tiled_bwd_core(xin, packed, g, nv, drop_in, n=n, t=t,
+                                                          nv_dev=nv_dev)
+        nv_blocks = nv  # one partial row per article
+    else:
+        qkv, o_c, dz_c, db_part, dq_part = launch_bwd_core(_library_bwd(), xin, packed, g, nv,
+                                                           drop_in, n=n, t=t, nv_dev=nv_dev)
+        nv_blocks = -(-nv // articles_per_block(t))
     _build.count(fused_news_encoder_bwd)
     a_pad, a, p_cols = packed.w_att.shape[1], packed.b_att.shape[0], packed.wqkv.shape[1]
-    nv_blocks = -(-nv // articles_per_block(t))
     rows = nv * t
     valid = None if nv_dev is None else (nv_dev, t)
     dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep, valid=valid)
@@ -940,6 +1007,325 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
 launch_bwd_core.launches = launch_bwd_core.captured = 0
 
 
+# ---- the tiled route (T1-T4, csrc/news_encoder_tiled.cu) ----
+
+
+def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the tiled route's C entry points on a loaded kernel library."""
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.tiled_qkv.argtypes = [p, i, p, p, i, i, i, i, i, p, i, u, u, p, u, f, p]
+    lib.tiled_attention.argtypes = ([p, p, i, i, p] + [i] * 8 + [p, f, i, u, u, p, u, f, p, f, p])
+    lib.tiled_pool.argtypes = ([p, i] + [p] * 11 + [i] * 6 + [p, i, i, u, u, p, u, f, p, f, p])
+    lib.tiled_attention_bwd.argtypes = [p] * 5 + [i] * 8 + [p, f, i, p]
+    for fn in (lib.tiled_qkv, lib.tiled_attention, lib.tiled_pool, lib.tiled_attention_bwd):
+        fn.restype = i
+    lib.tiled_error_string.argtypes = [i]
+    lib.tiled_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_tiled() -> ctypes.CDLL:
+    return bind_tiled(_build.load("news_encoder_tiled"))
+
+
+def _heads(packed: PackedWeights) -> tuple:
+    """(D, heads, head width, heads per group, panel width, P) of packed weights."""
+    d, heads = packed.w_att.shape[0], packed.num_heads
+    gh, pw, _, p_cols = panel_layout(heads, d // heads)
+    return d, heads, d // heads, gh, pw, p_cols
+
+
+def _philox_mask(drop: Dropout, stream: int, rows: int, width: int, device) -> torch.Tensor:
+    """Plain version of the Philox mask of ``stream`` that a kernel draws
+    from ``drop``'s key (or seed tensor), threshold and 1/keep."""
+    key = ((drop.seed_lo, drop.seed_hi) if drop.seed_dev is None
+           else philox.split_seed(drop.seed_dev))
+    thr, inv = ((drop.thr_emb, drop.inv_emb) if stream == philox.STREAM_EMB
+                else (drop.thr_att, drop.inv_att))
+    return philox.key_mask(key, thr, inv, stream, rows, width, device=device)
+
+
+def _att_mask(drop: Dropout, rows: int, d: int, device) -> torch.Tensor:
+    """Plain version of the stream-1 mask (or the external one times 1/keep)
+    of the first ``rows`` rows, or 1."""
+    if drop.thr_att:
+        return _philox_mask(drop, philox.STREAM_ATT, rows, d, device)
+    if drop.ext_mask is not None:
+        return drop.ext_mask[:rows] * drop.inv_ext
+    return torch.ones(rows, d, device=device)
+
+
+def _pool_weights(o_c: torch.Tensor, packed: PackedWeights) -> tuple:
+    """The pooling of round(o) [nv, T, D] fp32: (weights [nv, T], tanh(z + b)
+    [nv, T, A])."""
+    cdt, a = packed.wqkv.dtype, packed.b_att.shape[0]
+    hact = torch.tanh(o_c @ packed.w_att[:, :a].float() + packed.b_att)
+    att = _round(hact, cdt) @ _round(packed.q_att, cdt)
+    expo = torch.exp(att - att.max(dim=-1, keepdim=True).values)
+    return expo / (expo.sum(dim=-1, keepdim=True) + 1e-8), hact
+
+
+def tiled_qkv_reference(x, packed: PackedWeights, drop: Dropout, *, n: int, t: int,
+                        nv: int) -> torch.Tensor:
+    """Plain version of T1: round(round(x * stream-0 mask) @ Wqkv) [N*T, P]
+    in the compute dtype for the nv * T valid rows of ``kernel_input``'s x,
+    zeros past them."""
+    cdt, rows = packed.wqkv.dtype, nv * t
+    xf = x[:rows].float()
+    if drop.thr_emb:
+        xf = xf * _philox_mask(drop, philox.STREAM_EMB, rows, x.shape[1], x.device)
+    out = torch.zeros(n * t, packed.wqkv.shape[1], dtype=cdt, device=x.device)
+    out[:rows] = (_round(xf, cdt) @ packed.wqkv.float()).to(cdt)
+    return out
+
+
+def tiled_attention_reference(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int,
+                              nv: int, backward: bool = False) -> tuple:
+    """Plain version of T2 on Q|K|V [N*T, P]: (o, stats). o is the
+    attention output after the stream-1 (or external) mask, [N*T, D] fp32,
+    or with ``backward`` round(o) [N*T, ``o_width(D)``] in the compute dtype;
+    stats [2, N*T, heads] fp32 holds each row's max of the base-2 logits
+    (s * scale * log2 e) and its sum of exp2 (zeros past the nv * T valid
+    rows)."""
+    cdt = packed.wqkv.dtype
+    d, heads, hd, _, _, _ = _heads(packed)
+    rows = nv * t
+    q, k, v = (u.float().reshape(nv, t, heads, hd) for u in unpack_qkv(qkv[:rows], heads, d))
+    s = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(hd) * _LOG2E)
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s - mx)
+    total = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("nhqk,nkhd->nqhd", _round(e / total, cdt), v).reshape(rows, d)
+    o = o * _att_mask(drop, rows, d, qkv.device)
+    width, dt = (o_width(d), cdt) if backward else (d, torch.float32)
+    out = torch.zeros(n * t, width, dtype=dt, device=qkv.device)
+    out[:rows, :d] = o.to(dt)
+    stats = torch.zeros(2, n * t, heads, device=qkv.device)
+    for i, u in enumerate((mx, total)):
+        stats[i, :rows] = u[..., 0].permute(0, 2, 1).reshape(rows, heads)
+    return out, stats
+
+
+def tiled_pool_reference(o, packed: PackedWeights, *, n: int, t: int, nv: int) -> torch.Tensor:
+    """Plain version of T3's forward: the pooled [N, D] fp32 of o [N*T, D]
+    fp32, zeros at or past nv."""
+    d, cdt = packed.w_att.shape[0], packed.wqkv.dtype
+    ov = o[:nv * t, :d].float().reshape(nv, t, d)
+    w, _ = _pool_weights(_round(ov, cdt), packed)
+    out = torch.zeros(n, d, device=o.device)
+    out[:nv] = torch.einsum("ntd,nt->nd", ov, w)
+    return out
+
+
+def tiled_pool_bwd_reference(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: int,
+                             nv: int) -> tuple:
+    """Plain version of T3's backward from round(o) [N*T, >= D] and the
+    cotangent g [N, D]: (do [N*T, D], round(dz) [N*T, a_pad] in the compute
+    dtype, db and dq partials [N, a_pad] fp32 per article), zeros past the
+    nv valid articles."""
+    cdt = packed.wqkv.dtype
+    d, a_pad = packed.w_att.shape
+    a, rows, dev = packed.b_att.shape[0], nv * t, o_c.device
+    oc = o_c[:rows, :d].float().reshape(nv, t, d)
+    w, hact = _pool_weights(oc, packed)
+    gv = g[:nv].float()
+    dvals = (oc * _round(gv, cdt)[:, None, :]).sum(-1)
+    datt = _round(w * (dvals - (w * dvals).sum(-1, keepdim=True)), cdt)
+    dz = datt[..., None] * _round(packed.q_att, cdt) * (1 - hact * hact)
+    db_part = torch.zeros(n, a_pad, device=dev)
+    dq_part = torch.zeros(n, a_pad, device=dev)
+    db_part[:nv, :a] = dz.sum(1)
+    dq_part[:nv, :a] = (_round(hact, cdt) * datt[..., None]).sum(1)
+    dz_c = torch.zeros(n * t, a_pad, dtype=cdt, device=dev)
+    dz_c[:rows, :a] = dz.reshape(rows, a).to(cdt)
+    mask = _att_mask(drop, rows, d, dev)
+    do = torch.zeros(n * t, d, dtype=cdt, device=dev)
+    do[:rows] = (((w[..., None] * gv[:, None, :]).reshape(rows, d)
+                  + dz_c[:rows].float() @ packed.w_att.float().T) * mask).to(cdt)
+    return do, dz_c, db_part, dq_part
+
+
+def tiled_attention_bwd_reference(qkv, do, stats, packed: PackedWeights, *, n: int, t: int,
+                                  nv: int) -> torch.Tensor:
+    """Plain version of T4: dQ|dK|dV [N*T, P] in T1's layout and the compute
+    dtype from Q|K|V, do [N*T, D] and T2's stats, with P from the stats
+    (zeros past the nv * T valid rows)."""
+    cdt = packed.wqkv.dtype
+    d, heads, hd, _, _, p_cols = _heads(packed)
+    rows, scale = nv * t, 1.0 / math.sqrt(hd)
+    q, k, v = (u.float().reshape(nv, t, heads, hd) for u in unpack_qkv(qkv[:rows], heads, d))
+    dov = do[:rows].float().reshape(nv, t, heads, hd)
+    mx, total = (u[:rows].reshape(nv, t, heads).permute(0, 2, 1)[..., None] for u in stats)
+    probs = torch.exp2(torch.einsum("nqhd,nkhd->nhqk", q, k) * (scale * _LOG2E) - mx) / total
+    dp = torch.einsum("nqhd,nkhd->nhqk", dov, v)
+    ds = _round(probs * (dp - (probs * dp).sum(-1, keepdim=True)) * scale, cdt)
+    dv = torch.einsum("nhqk,nqhd->nkhd", _round(probs, cdt), dov)
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k)
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q)
+    out = torch.zeros(n * t, p_cols, dtype=cdt, device=qkv.device)
+    out[:rows] = _pack_panels([_round(u.reshape(rows, d), cdt) for u in (dq, dk, dv)],
+                              heads).to(cdt)
+    return out
+
+
+def _launch_tiled(fn, name: str, dev, *args) -> None:
+    """Launch the tiled library's entry point ``name`` on the current stream
+    of ``dev`` (the stream is the last argument) and count it on ``fn``."""
+    lib = _library_tiled()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args, _stream(dev))
+    _check_launch(lib, err, name, lib.tiled_error_string)
+    _build.count(fn)
+
+
+def tiled_qkv(x, packed: PackedWeights, drop: Dropout, *, n: int, t: int, nv: int,
+              nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """T1: Q|K|V [N*T, P] in the compute dtype for ``kernel_input``'s x
+    [rows, Din] (fp32: the stream-0 mask drawn here; bf16: x comes masked);
+    rows past the nv valid articles (or the count ``nv_dev`` holds; nv is
+    then N) are left unwritten. CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return tiled_qkv_reference(x, packed, drop, n=n, t=t, nv=nv)
+    x_rows = _kernel_x(x, packed, nv, n, t)
+    cdt, p_cols = packed.wqkv.dtype, packed.wqkv.shape[1]
+    qkv = torch.empty(n * t, p_cols, dtype=cdt, device=x.device)
+    _launch_tiled(tiled_qkv, "tiled_qkv", x.device, x.data_ptr(), x_rows, packed.wqkv.data_ptr(),
+                  qkv.data_ptr(), nv * t, n, t, x.shape[1], p_cols, _ptr(nv_dev),
+                  int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev),
+                  drop.thr_emb, drop.inv_emb)
+    return qkv
+
+
+tiled_qkv.launches = tiled_qkv.captured = 0
+
+
+def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int, nv: int,
+                    nv_dev: Optional[torch.Tensor] = None, backward: bool = False) -> tuple:
+    """T2 on Q|K|V [N*T, P]: (o, stats) as ``tiled_attention_reference``
+    gives them; the forward (``backward`` False) keeps no stats (None) and
+    leaves the rows past the valid articles unwritten, the backward's
+    round(o) is zero there. CPU tensors take the plain version."""
+    if qkv.device.type == "cpu":
+        o, stats = tiled_attention_reference(qkv, packed, drop, n=n, t=t, nv=nv, backward=backward)
+        return o, (stats if backward else None)
+    cdt, dev = packed.wqkv.dtype, qkv.device
+    d, heads, hd, gh, pw, p_cols = _heads(packed)
+    if backward:
+        o = torch.zeros(n * t, o_width(d), dtype=cdt, device=dev)
+        stats = torch.empty(2, n * t, heads, device=dev)
+    else:
+        o, stats = torch.empty(n * t, d, device=dev), None
+    _launch_tiled(tiled_attention, "tiled_attention", dev, qkv.data_ptr(), o.data_ptr(),
+                  o.shape[1], int(not backward), _ptr(stats), n, t, d, heads, gh, pw, p_cols, nv,
+                  _ptr(nv_dev), 1.0 / math.sqrt(hd), int(cdt == torch.bfloat16), drop.seed_lo,
+                  drop.seed_hi, _ptr(drop.seed_dev), drop.thr_att, drop.inv_att,
+                  _ptr(drop.ext_mask), drop.inv_ext)
+    return o, stats
+
+
+tiled_attention.launches = tiled_attention.captured = 0
+
+
+def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
+    """Launch T3 on ``src`` with its outputs (out, dz_c, do, db_part,
+    dq_part; None where the direction writes none) and its own scratch."""
+    d, a_pad = packed.w_att.shape
+    dev = src.device
+    att = torch.empty(n * t, device=dev)
+    wts = torch.empty_like(att)
+    _launch_tiled(fn, "tiled_pool", dev, src.data_ptr(), src.shape[1], packed.w_att.data_ptr(),
+                  packed.b_att.data_ptr(), packed.q_att.data_ptr(), _ptr(g), _ptr(outs[0]),
+                  att.data_ptr(), wts.data_ptr(), *map(_ptr, outs[1:]), n, t, d,
+                  packed.b_att.shape[0], a_pad, nv, _ptr(nv_dev),
+                  int(packed.wqkv.dtype == torch.bfloat16), int(backward), drop.seed_lo,
+                  drop.seed_hi, _ptr(drop.seed_dev), drop.thr_att, drop.inv_att,
+                  _ptr(drop.ext_mask), drop.inv_ext)
+
+
+def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
+               nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """T3's forward: the pooled [N, D] fp32 of T2's o [N*T, D] fp32, zeros
+    at or past the valid count. CPU tensors take the plain version."""
+    if o.device.type == "cpu":
+        return tiled_pool_reference(o, packed, n=n, t=t, nv=nv)
+    out = torch.empty(n, packed.w_att.shape[0], device=o.device)
+    outs = (out, None, None, None, None)
+    _launch_pool(tiled_pool, o, packed, None, outs, n, t, nv, nv_dev, Dropout(), False)
+    return out
+
+
+tiled_pool.launches = tiled_pool.captured = 0
+
+
+def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: int, nv: int,
+                   nv_dev: Optional[torch.Tensor] = None) -> tuple:
+    """T3's backward from T2's round(o) and the cotangent g [N, D] fp32: (do,
+    round(dz), db and dq partials) as ``tiled_pool_bwd_reference`` gives
+    them (do is left unwritten past the valid articles, round(dz) zero
+    there). CPU tensors take the plain version."""
+    if o_c.device.type == "cpu":
+        return tiled_pool_bwd_reference(o_c, packed, g, drop, n=n, t=t, nv=nv)
+    cdt, dev = packed.wqkv.dtype, o_c.device
+    d, a_pad = packed.w_att.shape
+    do = torch.empty(n * t, d, dtype=cdt, device=dev)
+    dz_c = torch.zeros(n * t, a_pad, dtype=cdt, device=dev)
+    db_part = torch.empty(n, a_pad, device=dev)
+    dq_part = torch.empty_like(db_part)
+    _launch_pool(tiled_pool_bwd, o_c, packed, g, (None, dz_c, do, db_part, dq_part), n, t, nv,
+                 nv_dev, drop, True)
+    return do, dz_c, db_part, dq_part
+
+
+tiled_pool_bwd.launches = tiled_pool_bwd.captured = 0
+
+
+def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int, nv: int,
+                        nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """T4: dQ|dK|dV [N*T, P] in T1's layout (zeros in the columns no head
+    takes and past the valid rows) from Q|K|V, T3's do and T2's stats. CPU
+    tensors take the plain version."""
+    if qkv.device.type == "cpu":
+        return tiled_attention_bwd_reference(qkv, do, stats, packed, n=n, t=t, nv=nv)
+    cdt, dev = packed.wqkv.dtype, qkv.device
+    d, heads, hd, gh, pw, p_cols = _heads(packed)
+    dqkv = torch.zeros(n * t, p_cols, dtype=cdt, device=dev)
+    delta = torch.empty(n * t, heads, device=dev)
+    _launch_tiled(tiled_attention_bwd, "tiled_attention_bwd", dev, qkv.data_ptr(), do.data_ptr(),
+                  stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), n, t, d, heads, gh, pw,
+                  p_cols, nv, _ptr(nv_dev), 1.0 / math.sqrt(hd), int(cdt == torch.bfloat16))
+    return dqkv
+
+
+tiled_attention_bwd.launches = tiled_attention_bwd.captured = 0
+
+
+def tiled_forward(x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int, t: int,
+                  nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tiled route's forward on ``kernel_input``'s x: T1, T2, T3 -> [N, D]
+    fp32 (the plain versions on the CPU)."""
+    qkv = tiled_qkv(x, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    o, _ = tiled_attention(qkv, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    del qkv
+    return tiled_pool(o, packed, n=n, t=t, nv=nv, nv_dev=nv_dev)
+
+
+def tiled_bwd_core(x, packed: PackedWeights, g, nv: int, drop: Dropout, *, n: int, t: int,
+                   nv_dev: Optional[torch.Tensor] = None) -> tuple:
+    """The tiled route in place of the per-block kernel (``launch_bwd_core``):
+    T1 and T2 recompute Q|K|V and round(o), T3's backward gives do,
+    round(dz) and the db and dq partials (one row per article), T4
+    dQ|dK|dV. Returns (dqkv, round(o), round(dz), db_part, dq_part), each
+    zero past the valid rows but the partials, which are zero past the valid
+    articles (the plain versions on the CPU)."""
+    qkv = tiled_qkv(x, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    o_c, stats = tiled_attention(qkv, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev, backward=True)
+    do, dz_c, db_part, dq_part = tiled_pool_bwd(o_c, packed, g, drop, n=n, t=t, nv=nv,
+                                                nv_dev=nv_dev)
+    dqkv = tiled_attention_bwd(qkv, do, stats, packed, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    return dqkv, o_c, dz_c, db_part, dq_part
+
+
 class NewsEncoderFunction(torch.autograd.Function):
     """The fused encoder on CUDA with its recompute backward: the forward
     launches K1 on ``kernel_input``'s x (in bf16 with the embedding mask:
@@ -952,18 +1338,19 @@ class NewsEncoderFunction(torch.autograd.Function):
     def forward(ctx, x, wq, wk, wv, w_att, b_att, q_att, packed, num_heads, compute_dtype,
                 n_valid, keep_prob, emb_keep_prob, rng_seed, drop_mask):
         _check_compute(compute_dtype)
-        out, xin, keep, packed, drop, nv, nv_dev = _forward(
+        out, xin, keep, packed, drop, nv, nv_dev, tiled = _forward(
             x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype, n_valid,
             keep_prob, emb_keep_prob, rng_seed, drop_mask)
         ctx.save_for_backward(xin, keep)
         ctx.packed, ctx.shape, ctx.drop, ctx.nv_dev = packed, (*x.shape[:2], nv), drop, nv_dev
+        ctx.tiled = tiled
         return out
 
     @staticmethod
     def backward(ctx, g):
         xin, keep = ctx.saved_tensors
         grads = _backward(xin, keep, ctx.packed, g.contiguous().float(), *ctx.shape, ctx.drop,
-                          ctx.nv_dev)
+                          ctx.nv_dev, force_tiled=ctx.tiled)
         return (*grads,) + (None,) * 8
 
 

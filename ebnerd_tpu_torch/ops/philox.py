@@ -38,7 +38,7 @@ import torch
 from . import _build
 
 __all__ = ["philox4x32", "threshold", "inverse", "split_seed", "kernel_seed", "mask",
-           "dump_masks"]
+           "key_mask", "dump_masks"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -120,9 +120,15 @@ def mask(seed, stream: int, rows: int, width: int, keep: float, *,
          row0: int = 0, device="cpu") -> torch.Tensor:
     """Plain version: the inverted-dropout mask [rows, width] fp32 (0 or
     1/keep) of global rows [row0, row0 + rows) of ``stream``."""
-    key = split_seed(seed)
-    thr = threshold(keep)
-    scale = torch.tensor(inverse(keep), dtype=torch.float32)
+    return key_mask(split_seed(seed), threshold(keep), inverse(keep), stream, rows, width,
+                    row0=row0, device=device)
+
+
+def key_mask(key, thr: int, inv: float, stream: int, rows: int, width: int, *,
+             row0: int = 0, device="cpu") -> torch.Tensor:
+    """``mask`` from the parameters a kernel takes: the seed's (low, high)
+    words, the 24-bit threshold and 1/keep."""
+    scale = torch.tensor(inv, dtype=torch.float32)
     groups = -(-width // 4)
     n = rows * groups
     out = torch.empty(n, 4, dtype=torch.float32, device=device)

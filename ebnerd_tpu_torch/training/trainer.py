@@ -81,7 +81,9 @@ per-slot path (no dedup) the BN moments are summed over the processes
 process (ROADMAP C). Process 0 starts everyone from its parameters and
 writes the checkpoints; every process resumes from them. ``score`` scores
 each process's rows of every batch and sums the processes' disjoint score
-rows. ``scan_steps`` > 1 raises under a mesh.
+rows. Under a mesh of one process ``scan_steps`` groups run as without
+one; over several processes ``fit`` runs every step on its own, as JAX
+scans only in one process (``use_scan``).
 
 On a mesh with a ``model`` axis (the JAX trainer's ``table_specs`` and
 ``param_specs``: a name substring -> "model", matched as JAX matches them)
@@ -357,10 +359,6 @@ class Trainer:
                  config: TrainerConfig = TrainerConfig(), device="cuda",
                  log_fn: Callable[[str], None] = print, mesh=None,
                  table_specs: Optional[dict] = None, param_specs: Optional[dict] = None):
-        if mesh is not None and config.scan_steps > 1:
-            raise ValueError("scan_steps > 1 under a mesh is not ported: a group's steps run as "
-                             "one CUDA graph, which the gradient all-reduce is not captured "
-                             "in; use scan_steps=1")
         self.config = config
         self.mesh = mesh
         self._sparse = bool(config.sparse_embedding)
@@ -389,7 +387,12 @@ class Trainer:
             self._emb_v = torch.zeros_like(self._emb_table, dtype=torch.float32)
         params = [p for p in model.parameters()
                   if not (self._sparse and p is self._emb_table)]
-        self._scan = config.scan_steps > 1
+        # as JAX's ``use_scan = n_scan > 1 and jax.process_count() == 1``: a
+        # mesh of one process groups and graphs the steps as no mesh does (it
+        # splits and reduces nothing); over several processes each step runs
+        # on its own
+        self._one_process = mesh is None or mesh.data * mesh.model == 1
+        self._scan = config.scan_steps > 1 and self._one_process
         # on the card the scan path's steps are graphed: Adam's count and the
         # learning rate live there (a 0-dim tensor that _set_lr fills)
         graphed = self._scan and self.device.type == "cuda"
@@ -755,6 +758,9 @@ class Trainer:
         the warm-up run, the capture, or a replay (see the module
         docstring); on the CPU, or on the card with ``graph=False`` (the
         steps a replay is held against), the same steps eagerly."""
+        if not self._one_process:
+            raise ValueError("scan groups run in one process only (JAX's use_scan); over "
+                             "several processes fit runs each step on its own")
         n, k = group.n, self.config.accumulation_steps
         seed = self.next_seed()
         seeds = np.array([step_seed(seed, self.step_count + i) for i in range(n)], np.uint64)
@@ -860,7 +866,7 @@ class Trainer:
             it = itertools.islice(it, steps_per_epoch)
         step0 = self.step_count
         pin = self.device.type == "cuda"
-        n_scan = self.config.scan_steps
+        n_scan = self.config.scan_steps if self._scan else 1
 
         def work():
             group = []

@@ -8,6 +8,8 @@ columns do not depend on the padded width; and the CUDA wrappers' data
 flow (``NewsEncoderFunction`` with each kernel replaced by its plain
 version) pads, cuts back and equals the JAX package's kernel, run in
 interpret mode, at Din 300."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,8 +154,11 @@ def _plain_kernels(monkeypatch, seen):
     monkeypatch.setattr(port, "launch_bwd_core", fake_core)
     monkeypatch.setattr(port, "bwd_gemm", fake_gemm)
     monkeypatch.setattr(port, "reduce_rows", lambda part: part.reshape(part.shape[0], -1).sum(0))
-    monkeypatch.setattr(port, "_library", lambda: None)
-    monkeypatch.setattr(port, "_library_bwd", lambda: None)
+    # the libraries answer only the route's shared-memory query: every block fits
+    fits = types.SimpleNamespace(news_encoder_smem_bytes=lambda *a: 0,
+                                 news_encoder_bwd_smem_bytes=lambda *a: 0)
+    monkeypatch.setattr(port, "_library", lambda: fits)
+    monkeypatch.setattr(port, "_library_bwd", lambda: fits)
     monkeypatch.setattr(port, "_packed_for", lambda x, weights, packed, heads, cdt:
                         port.pack_weights(*weights, num_heads=heads, compute_dtype=cdt))
 

@@ -106,8 +106,8 @@ def test_pack_qkv_layout(heads, head_dim):
 
 def test_pack_weights_pads_and_checks():
     """The kernel's operands: QKV panels and W_att (zero columns up to a
-    multiple of 16) in the compute dtype, b and q flat in fp32; shapes past
-    the kernel's limits are refused."""
+    multiple of 16) in the compute dtype, b and q flat in fp32; a head
+    width of 80 packs one head a panel, for the tiled route."""
     _, ws = _inputs(6, 3, 30, 64, 20, 20, 200)
     tw = [torch.from_numpy(w) for w in ws]
     p = port.pack_weights(*tw, num_heads=20, compute_dtype=torch.bfloat16)
@@ -119,8 +119,11 @@ def test_pack_weights_pads_and_checks():
     assert (p.w_att[:, 200:] == 0).all()
     assert p.b_att.dtype == p.q_att.dtype == torch.float32 and p.q_att.shape == (200,)
     torch.testing.assert_close(p.q_att, tw[5][:, 0], rtol=0, atol=0)
-    with pytest.raises(ValueError, match="head_dim <= 64"):
-        port.pack_weights(*tw, num_heads=5, compute_dtype=torch.float32)  # head_dim 80
+    wide = port.pack_weights(*tw, num_heads=5, compute_dtype=torch.float32)  # head_dim 80
+    assert wide.heads_per_group == 1 and wide.wqkv.shape == (64, 5 * 256)
+    for u, w in zip(port.unpack_qkv(wide.wqkv, 5, 400), tw[:3]):
+        torch.testing.assert_close(u, w, rtol=0, atol=0)
+    assert port.route(30, 80, 208) == "tiled"
 
 
 def test_dropout_not_ported():
@@ -147,49 +150,53 @@ def test_cpu_call_does_not_count_launches():
 @pytest.mark.parametrize("head_dim,a", [(40, 300), (64, 512), (40, 512), (64, 300), (20, 200)])
 def test_pack_weights_takes_the_wide_domain(head_dim, a):
     """Head widths up to 64 and attention widths up to 512 are packed (W_att
-    padded to a multiple of 16); past them pack_weights raises, naming the
-    limit."""
+    padded to a multiple of 16) for the instances; past them pack_weights
+    packs for the tiled route (A 513 padded to 528)."""
     heads = 2
     _, ws = _inputs(7, 2, 4, 24, heads, head_dim, a)
     p = port.pack_weights(*map(torch.from_numpy, ws), num_heads=heads,
                           compute_dtype=torch.bfloat16)
     assert p.heads_per_group == 256 // (3 * head_dim)
     assert p.w_att.shape == (heads * head_dim, -(-a // 16) * 16) and (p.w_att[:, a:] == 0).all()
+    assert port.route(4, head_dim, p.w_att.shape[1]) != "tiled"
     _, wide = _inputs(7, 2, 4, 24, heads, head_dim, 513)
-    with pytest.raises(ValueError, match="A <= 512"):
-        port.pack_weights(*map(torch.from_numpy, wide), num_heads=heads,
+    p = port.pack_weights(*map(torch.from_numpy, wide), num_heads=heads,
                           compute_dtype=torch.float32)
+    assert p.w_att.shape == (heads * head_dim, 528) and (p.w_att[:, 513:] == 0).all()
+    assert port.route(4, head_dim, p.w_att.shape[1]) == "tiled"
 
 
 @pytest.mark.parametrize("t,d,heads,a,limit", [
-    (1, 64, 2, 32, None), (64, 64, 2, 32, None), (50, 400, 20, 200, None),
-    (33, 128, 2, 512, None), (64, 512, 8, 512, None), (20, 100, 10, 64, None),
-    (0, 64, 2, 32, "1 <= T <= 64"), (65, 64, 2, 32, "1 <= T <= 64"),
-    (30, 65, 1, 32, "head_dim <= 64"), (30, 130, 2, 32, "head_dim <= 64"),
-    (30, 64, 2, 513, "A <= 512"), (30, 64, 3, 32, "not divisible"),
+    (1, 64, 2, 32, "narrow"), (64, 64, 2, 32, "wide"), (50, 400, 20, 200, "wide"),
+    (33, 128, 2, 512, "wide"), (64, 512, 8, 512, "wide"), (20, 100, 10, 64, "narrow"),
+    (0, 64, 2, 32, "T >= 1"), (65, 64, 2, 32, "tiled"),
+    (30, 65, 1, 32, "tiled"), (30, 130, 2, 32, "tiled"),
+    (30, 64, 2, 513, "tiled"), (30, 64, 3, 32, "not divisible"),
 ])
 def test_check_shape_pins_the_domain(t, d, heads, a, limit):
-    """The Python mirror of the launchers' shape check accepts exactly T in
-    [1, 64], head widths up to 64 and attention widths up to 512."""
-    if limit is None:
+    """The shape check both wrappers call before any launch takes every
+    T >= 1, head width and attention width, and each shape its route: T,
+    head widths and padded attention widths the instances took stay on
+    them; past T 64, head width 64 or A 512 the tiled route takes it. What
+    is left of the old limits: T >= 1, and heads that split D."""
+    if limit in ("narrow", "wide", "tiled"):
         port.check_shape(d=d, num_heads=heads, a=a, t=t)
+        assert port.route(t, d // heads, -(-a // 16) * 16) == limit
     else:
         with pytest.raises(ValueError, match=limit):
             port.check_shape(d=d, num_heads=heads, a=a, t=t)
 
 
-@pytest.mark.parametrize("t,ok", [(64, True), (65, False), (50, True)])
-def test_both_wrappers_check_t_before_any_launch(t, ok):
+@pytest.mark.parametrize("t", [64, 65, 50])
+def test_both_wrappers_check_t_before_any_launch(t):
     """``_check_x``, which the forward and backward wrappers call before
-    their first launch, refuses T past 64 naming the limit; at T <= 64 it
-    passes and the blocks hold one article each past T 32."""
+    their first launch, passes T past 64 now (the tiled route takes it) and
+    refuses T 0, naming the limit; past T 32 a block holds one article."""
     _, ws = _inputs(8, 2, t, 16, 2, 8, 16)
     packed = port.pack_weights(*map(torch.from_numpy, ws), num_heads=2,
                                compute_dtype=torch.float32)
-    x = torch.zeros(2, t, 16)
-    if ok:
-        port._check_x(x, packed)
-        assert port.articles_per_block(t) == max(1, 64 // t)
-    else:
-        with pytest.raises(ValueError, match="T <= 64"):
-            port._check_x(x, packed)
+    port._check_x(torch.zeros(2, t, 16), packed)
+    assert port.articles_per_block(t) == max(1, 64 // t)
+    assert port.route(t, 8, 16) == ("tiled" if t > 64 else "wide")
+    with pytest.raises(ValueError, match="T >= 1"):
+        port._check_x(torch.zeros(2, 0, 16), packed)

@@ -119,7 +119,7 @@ def test_function_draws_the_mask_once_and_keeps_it_for_the_backward(monkeypatch)
         calls["launch"].append((xin, drop))
         return torch.zeros(n, heads * head_dim)
 
-    def fake_backward(xin, keep, packed_, g, n_, t_, nv_, drop, nv_dev=None):
+    def fake_backward(xin, keep, packed_, g, n_, t_, nv_, drop, nv_dev=None, force_tiled=False):
         calls["backward"].append((xin, keep, drop, (n_, t_, nv_)))
         return tuple(torch.zeros_like(v) for v in [x] + ws)
 
@@ -127,6 +127,7 @@ def test_function_draws_the_mask_once_and_keeps_it_for_the_backward(monkeypatch)
     monkeypatch.setattr(port, "launch", fake_launch)
     monkeypatch.setattr(port, "_backward", fake_backward)
     monkeypatch.setattr(port, "_library", lambda: None)
+    monkeypatch.setattr(port, "_route", lambda *args, **kw: "narrow")  # K1's route, no library
     monkeypatch.setattr(port, "_packed_for", lambda *args: packed)
     xr = x.clone().requires_grad_(True)
     out = port.NewsEncoderFunction.apply(xr, *ws, packed, heads, torch.bfloat16, nv, KEEP, KEEP,

@@ -136,9 +136,18 @@ def test_a_model_axis_of_one_leaves_the_data_axis_as_it_was():
         assert torch.equal(p, q), name
 
 
-def test_scan_steps_under_a_mesh_raises():
-    with pytest.raises(ValueError, match="scan_steps > 1 under a mesh"):
-        _tiny_trainer(mesh=port_mesh.make_mesh(), config=TrainerConfig(scan_steps=2))
+def test_scan_steps_over_processes_take_the_per_step_path():
+    """As JAX's ``use_scan = n_scan > 1 and jax.process_count() == 1``: a
+    mesh of one process groups the steps (its trainer takes the scan path),
+    a mesh over several runs each step on its own and refuses a group."""
+    one = _tiny_trainer(mesh=port_mesh.make_mesh(), config=TrainerConfig(scan_steps=2))
+    assert one._scan
+    two = _tiny_trainer(mesh=port_mesh.Mesh(data=2, rank=0), config=TrainerConfig(scan_steps=2))
+    assert not two._scan
+    with pytest.raises(ValueError, match="one process only"):
+        two.run_group(two.pack_group([{"hist_idx": np.zeros((4, 4), np.int32),
+                                       "cand_idx": np.ones((4, 3), np.int32),
+                                       "labels": np.eye(3, dtype=np.float32)[[0, 1, 2, 0]]}] * 2))
 
 
 def test_mesh_of_one_process_equals_no_mesh():
@@ -203,6 +212,17 @@ def test_two_processes_equal_one(case, tmp_path):
     if case.startswith("bn"):  # the running stats moved, and moved alike
         stats = [k for k in one if k.startswith("b:") and k.endswith((".mean", ".var"))]
         assert stats and any(np.abs(one[k]).max() > 0 for k in stats if k.endswith(".mean"))
+
+
+def test_scan_steps_over_two_processes_equal_per_step(tmp_path):
+    """``fit`` with scan_steps=2 on a (data=2) mesh over gloo runs every step
+    on its own, as JAX over several processes: 6 steps with dropout 0.2,
+    bit-equal to scan_steps=1 on the same mesh (losses, parameters,
+    buffers)."""
+    one, two = _run_case("scan1", tmp_path, 2), _run_case("scan2", tmp_path, 2)
+    assert set(one) == set(two)
+    for k in one:
+        np.testing.assert_array_equal(two[k], one[k], err_msg=k)
 
 
 def test_dryrun_multihost_two_processes_match_one():

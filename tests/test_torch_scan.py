@@ -9,7 +9,9 @@ NAML, with ``accumulation_steps=2`` too, within the tolerance of
 bucket keeps each batch's ``art_n_uniq`` and, with dropout, equals per-step
 runs under the folded seeds; resume mid-run is bit-equal; the plain Philox
 and K3 masks take a seed tensor (bit 63 set) as the int; the hand-written
-Adam's device-count mode is bit-equal to optax."""
+Adam's device-count mode is bit-equal to optax; on a mesh of one process
+the scan path is bit-equal to no mesh and within the tolerance of JAX's
+``lax.scan`` on a one-device mesh."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from ebnerd_tpu.models import config as jax_config
 from ebnerd_tpu.models import inputs as jax_inputs
 from ebnerd_tpu.models import newsrec as jax_newsrec
+from ebnerd_tpu.parallel import mesh as jax_mesh
 from ebnerd_tpu.training.trainer import Trainer as JaxTrainer
 from ebnerd_tpu.training.trainer import TrainerConfig as JaxConfig
 from ebnerd_tpu_torch import bridge
@@ -29,6 +32,7 @@ from ebnerd_tpu_torch.models import (LSTUR, NAML, NPA, NRMS, Fastformer, HParams
 from ebnerd_tpu_torch.models.layers import PrngDropout
 from ebnerd_tpu_torch.ops import dropout as k3
 from ebnerd_tpu_torch.ops import philox
+from ebnerd_tpu_torch.parallel import mesh as port_mesh
 from ebnerd_tpu_torch.training import Trainer, TrainerConfig, prep_dedup_batch
 from ebnerd_tpu_torch.training.adam import Adam
 from ebnerd_tpu_torch.training.trainer import step_seed
@@ -108,12 +112,13 @@ def _port_model(family, dropout=0.0, **kw):
                **({} if family == "nrms_docvec" else dict(vocab_size=VOCAB)), **extra, **kw)
 
 
-def _port_fit(family, scan_steps, dedup=True, model=None, raws=None, **cfg):
+def _port_fit(family, scan_steps, dedup=True, model=None, raws=None, mesh=None, **cfg):
     model = _port_model(family) if model is None else model
     cfg = dict(dict(learning_rate=1e-3, seed=0, dedup_articles=dedup, loss=_loss(family),
                     early_stopping_patience=None, lr_patience=None), **cfg)
     tr = Trainer(model, _tables(family), builder_for(family),
-                 TrainerConfig(scan_steps=scan_steps, **cfg), device="cpu", log_fn=lambda s: None)
+                 TrainerConfig(scan_steps=scan_steps, **cfg), device="cpu", log_fn=lambda s: None,
+                 mesh=mesh)
     raws = raws or [_raw(10 + i, family in USERS) for i in range(STEPS)]
     tr.fit(_Feed(raws), epochs=1, steps_per_epoch=len(raws))
     return tr
@@ -149,9 +154,10 @@ _JAX = {"nrms": (jax_config.HParamsNRMS, jax_newsrec.NRMS),
 _STATE_DICT = {"nrms": bridge.nrms_state_dict, "naml": bridge.naml_state_dict}
 
 
-def _jax_and_port(family, **cfg):
+def _jax_and_port(family, mesh=False, **cfg):
     """(JAX trainer after ``fit`` with scan_steps=4, the port's trainer after
-    the same fit from JAX's init)."""
+    the same fit from JAX's init); with ``mesh``, JAX's on a one-device CPU
+    mesh and the port's on a one-process mesh."""
     hp_cls, cls = _JAX[family]
     model = cls(hp_cls(**dict(HP[family], dropout=0.0)), vocab_size=VOCAB, word_emb_dim=EMB)
     # lr 1e-4, as the port's other trainer tests against JAX: the pooling biases'
@@ -159,15 +165,17 @@ def _jax_and_port(family, **cfg):
     # rounding (another summation order in each package) into steps of up to lr
     jcfg = dict(learning_rate=1e-4, seed=0, early_stopping_patience=None, lr_patience=None,
                 scan_steps=4, **cfg)
+    jmesh = jax_mesh.make_mesh(data=1, model=1, devices=jax.devices()[:1]) if mesh else None
     jtr = JaxTrainer(model, _tables(family), jax_inputs.builder_for(family), JaxConfig(**jcfg),
-                     log_fn=lambda s: None)
+                     mesh=jmesh, log_fn=lambda s: None)
     raws = [_raw(10 + i) for i in range(STEPS)]
     jtr.init_state(raws[0])
     init = jax.tree_util.tree_map(np.asarray, jax.device_get(jtr.state.params))
     jtr.fit(_Feed(raws), epochs=1, steps_per_epoch=STEPS)
     port = _port_model(family)
     port.load_state_dict(_STATE_DICT[family](init), strict=True)
-    tr = _port_fit(family, 4, model=port, raws=raws, learning_rate=1e-4, **cfg)
+    tr = _port_fit(family, 4, model=port, raws=raws, learning_rate=1e-4,
+                   mesh=port_mesh.make_mesh() if mesh else None, **cfg)
     return jtr, tr
 
 
@@ -189,6 +197,31 @@ def _close_to_jax(got: dict, want: dict):
 def test_scan_fit_matches_jax(family):
     jtr, tr = _jax_and_port(family)
     want = _STATE_DICT[family](jax.tree_util.tree_map(np.asarray, jax.device_get(jtr.state.params)))
+    assert int(jtr.state.step) == tr.step_count == STEPS
+    _close_to_jax(tr.model.state_dict(), want)
+
+
+def test_scan_on_a_one_process_mesh_equals_no_mesh():
+    """scan_steps=4 over 6 steps (a group of 4, 2 single) on a mesh of one
+    process: the mesh splits no rows and reduces nothing, so the parameters
+    and the epoch's loss are bit-equal to the scan path without a mesh."""
+    plain = _port_fit("nrms", 4)
+    meshed = _port_fit("nrms", 4, mesh=port_mesh.make_mesh())
+    assert meshed._scan and meshed.step_count == plain.step_count == STEPS
+    sd, ref = meshed.model.state_dict(), plain.model.state_dict()
+    assert sd.keys() == ref.keys()
+    for k in sd:
+        assert torch.equal(sd[k], ref[k]), k
+    assert meshed.history[0]["loss"] == plain.history[0]["loss"]
+
+
+def test_scan_on_a_one_process_mesh_matches_jax():
+    """The same fit against JAX's Trainer with scan_steps=4 on a one-device
+    CPU mesh (``lax.scan`` over the group, the batch under the mesh's
+    sharding), within the scan tolerance."""
+    jtr, tr = _jax_and_port("nrms", mesh=True)
+    want = bridge.nrms_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                         jax.device_get(jtr.state.params)))
     assert int(jtr.state.step) == tr.step_count == STEPS
     _close_to_jax(tr.model.state_dict(), want)
 

@@ -12,6 +12,9 @@ Cases (3 Adam steps each, random index batches from one seed):
   bn_slot     NRMSDocVec (BN stack), per slot, dropout 0, batch 7 (uneven
               shards: 4 and 3 rows), accumulation over 2 micro-batches
   bn_dedup    NRMSDocVec, dedup (slot-count BN weights), dropout 0.2, batch 8
+  scan1       NRMS, dedup, dropout 0.2, batch 8, 6 steps through ``fit`` with
+  scan2       scan_steps 1 or 2 (over several processes every step runs on
+              its own, as JAX's ``use_scan``); OUT holds the epoch's loss
 """
 import sys
 from pathlib import Path
@@ -45,8 +48,28 @@ def _batches(bs: int, n: int):
     return out
 
 
+class _Feed:
+    """The ``epoch()`` a trainer's ``fit`` reads: the same batches, in order."""
+
+    def __init__(self, raws):
+        self.raws = raws
+
+    def epoch(self, shuffle=True, epoch=None):
+        return iter([dict(r) for r in self.raws])
+
+
 def _trainer(case: str, mesh):
     rng = np.random.default_rng(6)
+    if case.startswith("scan"):
+        hp = HParamsNRMS(title_size=T, history_size=H, head_num=2, head_dim=8,
+                         attention_hidden_dim=16, dropout=0.2)
+        model = NRMS(hp, vocab_size=VOCAB, word_emb_dim=EMB, device="cpu")
+        table = {"title": rng.integers(0, VOCAB, (N_ART + 1, T)).astype(np.int32)}
+        cfg = TrainerConfig(learning_rate=1e-2, seed=0, dedup_min_bucket=8,
+                            scan_steps=int(case[4:]), early_stopping_patience=None,
+                            lr_patience=None)
+        return Trainer(model, table, token_batch, cfg, device="cpu", mesh=mesh,
+                       log_fn=lambda s: None), 8, 2
     if case == "sparse":
         hp = HParamsNRMS(title_size=T, history_size=H, head_num=2, head_dim=8,
                          attention_hidden_dim=16, dropout=0.2)
@@ -76,7 +99,12 @@ def main(case: str, rank: int, world: int, port: int, out: str) -> None:
         dist.initialize(f"localhost:{port}", world, rank, device="cpu")
         mesh = make_mesh()
     trainer, bs, accum = _trainer(case, mesh)
-    losses = [float(trainer.train_step(b)) for b in _batches(bs, STEPS * accum)]
+    if case.startswith("scan"):
+        raws = _batches(bs, STEPS * accum)
+        trainer.fit(_Feed(raws), epochs=1, steps_per_epoch=len(raws))
+        losses = [trainer.history[0]["loss"]]
+    else:
+        losses = [float(trainer.train_step(b)) for b in _batches(bs, STEPS * accum)]
     if rank == 0:
         state = {f"p:{k}": v.detach().numpy() for k, v in trainer.model.named_parameters()}
         state.update({f"b:{k}": v.numpy() for k, v in trainer.model.named_buffers()})
