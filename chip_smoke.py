@@ -92,14 +92,20 @@ Phases:
      instance's shared memory): the whole forward and backward against the
      plain version, and T1-T4 each against its own; the route forced at
      shapes of the narrow and wide instances (T 20 and 50, Philox dropout)
-     against them, T2's dropped elements the stream-1 mask; the device seed
-     and n_valid in a CUDA graph; T1-T4 and the whole route timed at the
-     history-100 user tower [16,384, 100, 400] beside their plain versions
-     and bounds (T1 beside torch.matmul, T2 beside
-     scaled_dot_product_attention); NRMS at the step's width with history
-     100 (one step of 4,096 against the plain path, launches per step: K1
-     and the per-block kernel once, T1 and T2 twice, T3 and T4 once; warm
-     steps timed), served two-tower, the CLI with ``--history_size 100``;
+     against them, T2's dropped elements the stream-1 mask; T2 and T4 on
+     either side of ``attention_variant``'s boundary (C3B_VARIANTS: T 112,
+     128 and 129, each dtype's head-width limit and one past it, bf16 and
+     fp32, n_valid on the device, both dropout modes), each launched twice,
+     bit-equal, and a "staged" request past it refused; the device seed and
+     n_valid in a CUDA graph (T 100 and 130: both variants); T1-T4 (T2 and
+     T4 in both variants) and the whole route timed at the history-100
+     user tower [16,384, 100, 400] beside their plain versions and bounds
+     (T1 beside torch.matmul, T2 beside scaled_dot_product_attention, T4
+     beside its backward); NRMS at the step's width with history 100 (one
+     step of 4,096 against the plain path, launches per step: K1 and the
+     per-block kernel once, T1 and the staged T2 twice, T3 and the staged
+     T4 once; warm steps timed), served two-tower, the CLI with
+     ``--history_size 100``;
      scan groups of 4 on a one-process NCCL mesh at history 50 and 100,
      replays bit-equal to eager steps without a mesh;
   7. ``Trainer.fit`` at the same width: 2 epochs of 4 steps from a
@@ -259,6 +265,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -968,9 +975,23 @@ C3B_CMP_BS = 4_096   # the step compared with the plain path: at 16,384 the plai
                      # [B, 20, 100, 100] fp32 attention tensors (13 GB each) would fill the card
 C3B_SCAN_BS = 4_096  # the scan and mesh checks' batch (three groups of four, twice)
 C3B_PLAIN_CHUNK = 1_024  # articles a call of a plain version takes at the timed shape (memory)
-TILED = ("tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd", "tiled_attention_bwd")
-TILED_CALL = {"tiled_qkv": 2, "tiled_attention": 2, "tiled_pool": 1, "tiled_pool_bwd": 1,
-              "tiled_attention_bwd": 1}  # one forward and its backward on the tiled route
+TILED = ("tiled_qkv", "tiled_attention", "tiled_attention_staged", "tiled_pool", "tiled_pool_bwd",
+         "tiled_attention_bwd", "tiled_attention_bwd_staged")
+
+
+def tiled_call(t, hd, cdt) -> dict:
+    """The tiled kernels' launches in one forward and its backward on the
+    tiled route: T1 2, T2 2 and T4 1 in ``attention_variant``'s kernel, T3
+    1 + 1."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    sfx = lambda bwd: "_staged" if ne.attention_variant(t, hd, cdt, bwd) == "staged" else ""
+    out = dict.fromkeys(TILED, 0)
+    out.update({"tiled_qkv": 2, "tiled_attention" + sfx(False): 2, "tiled_pool": 1,
+                "tiled_pool_bwd": 1, "tiled_attention_bwd" + sfx(True): 1})
+    return out
+
+
 C3B_CASES = (
     # name, n, t, din, dtype, heads, head_dim, a, n_valid, dropout
     ("fp32_t100_2x8_a40", 13, C3B_HIST, 64, torch.float32, 2, 8, 40, 11, "rng"),
@@ -987,17 +1008,40 @@ C3B_FORCED = (  # the route forced at shapes the narrow and the wide instance ta
     ("bf16_t50_wide", 13, C3_HIST, 128, torch.bfloat16, 10, 40, 300, None),
     ("fp32_t50_wide", 9, C3_HIST, 64, torch.float32, 4, 40, 300, 8),
 )
+C3B_VARIANTS = (  # T2 and T4 either side of attention_variant's boundary: T 112/128/129, the
+    # head-width limits at T 128 (bf16: T2 288, T4 144; fp32: T2 144, T4 32) and the next width
+    # past each, an odd bf16 width; n_valid on the device (2 below N)
+    # name, n, t, dtype, heads, head_dim, dropout, the kernels T2 and T4 take
+    ("bf16_t112_20x20", 6, 112, torch.bfloat16, 20, 20, "rng", "staged", "staged"),
+    ("bf16_t128_4x20", 6, 128, torch.bfloat16, 4, 20, "mask", "staged", "staged"),
+    ("bf16_t129_4x20", 6, 129, torch.bfloat16, 4, 20, "rng", "gather", "gather"),
+    ("bf16_t128_2x144", 5, 128, torch.bfloat16, 2, 144, "mask", "staged", "staged"),
+    ("bf16_t128_2x146", 5, 128, torch.bfloat16, 2, 146, None, "staged", "gather"),
+    ("bf16_t128_1x288", 4, 128, torch.bfloat16, 1, 288, "rng", "staged", "gather"),
+    ("bf16_t128_1x290", 4, 128, torch.bfloat16, 1, 290, "mask", "gather", "gather"),
+    ("bf16_t100_3x21", 5, 100, torch.bfloat16, 3, 21, "rng", "gather", "gather"),
+    ("fp32_t112_4x20", 5, 112, torch.float32, 4, 20, "mask", "staged", "staged"),
+    ("fp32_t128_2x32", 5, 128, torch.float32, 2, 32, "rng", "staged", "staged"),
+    ("fp32_t128_2x33", 5, 128, torch.float32, 2, 33, "mask", "staged", "gather"),
+    ("fp32_t128_1x144", 4, 128, torch.float32, 1, 144, None, "staged", "gather"),
+    ("fp32_t128_1x145", 4, 128, torch.float32, 1, 145, "rng", "gather", "gather"),
+    ("fp32_t129_4x20", 5, 129, torch.float32, 4, 20, None, "gather", "gather"),
+)
 
 
 def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
     """T1-T4 each on the same inputs as its plain version (T2's o in both
     directions and its statistics, T3 both directions, T4 on the plain
     do): the outputs within ``rel`` of max|plain| over the valid rows.
-    Returns {kernel: [max abs err, max|plain|]}."""
+    Returns {kernel: [max abs err, max|plain|]}, T2 and T4 under the name
+    of the kernel ``attention_variant`` gives them."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     rows = nv * t
     out = {}
+    hd, cdt = packed.w_att.shape[0] // packed.num_heads, packed.wqkv.dtype
+    t2, t4 = ("tiled_attention" + ("_staged" if ne.attention_variant(t, hd, cdt, b) == "staged"
+                                   else "") for b in (False, True))
 
     def cmp(name, got, ref):
         err = (got.float() - ref.float()).abs().max().item() if ref.numel() else 0.0
@@ -1014,10 +1058,10 @@ def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
     for bwd in (False, True):
         o, st = ne.tiled_attention(qkv, packed, drop_in, backward=bwd, **kw)
         ro, rst = ne.tiled_attention_reference(qkv, packed, drop_in, backward=bwd, **kw)
-        cmp("tiled_attention o", o[:rows], ro[:rows])
+        cmp(f"{t2} o", o[:rows], ro[:rows])
         if bwd:
-            cmp("tiled_attention max", st[0, :rows], rst[0, :rows])
-            cmp("tiled_attention sum", st[1, :rows], rst[1, :rows])
+            cmp(f"{t2} max", st[0, :rows], rst[0, :rows])
+            cmp(f"{t2} sum", st[1, :rows], rst[1, :rows])
         else:
             cmp("tiled_pool", ne.tiled_pool(o, packed, **kw), ne.tiled_pool_reference(o, packed, **kw))
     got = ne.tiled_pool_bwd(o, packed, g, drop_in, **kw)
@@ -1025,7 +1069,8 @@ def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
     for i, name in enumerate(("do", "dz", "db", "dq")):
         cut = (lambda v: v[:rows]) if i < 2 else (lambda v: v[:nv])
         cmp(f"tiled_pool_bwd {name}", cut(got[i]), cut(ref[i]))
-    cmp("tiled_attention_bwd", ne.tiled_attention_bwd(qkv, ref[0], st, packed, **kw)[:rows],
+    cmp(t4.replace("tiled_attention", "tiled_attention_bwd"),
+        ne.tiled_attention_bwd(qkv, ref[0], st, packed, **kw)[:rows],
         ne.tiled_attention_bwd_reference(qkv, ref[0], st, packed, **kw)[:rows])
     return out
 
@@ -1058,8 +1103,9 @@ def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
     grads = ne.fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed)
     torch.cuda.synchronize()
     cnt = read_counts()
-    check(all(cnt[k] == v for k, v in TILED_CALL.items()) and cnt["news_encoder_fwd"] == 0
-          and cnt["news_encoder_bwd_block"] == 0, f"c3b {name}: launches {cnt}")
+    check(all(cnt[k] == v for k, v in tiled_call(t, hd, cdt).items())
+          and cnt["news_encoder_fwd"] == 0 and cnt["news_encoder_bwd_block"] == 0,
+          f"c3b {name}: launches {cnt}")
     tol = FP32_ATOL if cdt == torch.float32 else BF16_REL_TOL * ref.abs().max().item()
     err = (out - ref).abs().max().item()
     check(bool(torch.isfinite(out).all()) and err <= tol, f"c3b {name}: forward {err} > {tol}")
@@ -1078,15 +1124,18 @@ def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
                               kw.get("rng_seed"), kw.get("drop_mask"), DEV)
     xin, _, drop_in = ne.kernel_input(x, nvv, dropc)
     parts = tiled_parts(xin, packed, drop_in, g, n, t, nvv, rel)
+    variants = [ne.attention_variant(t, hd, cdt, b) for b in (False, True)]
     print(f"[c3b] {name}: {n}x{t}x{din} heads {heads}x{hd} A {a} {str(cdt)[6:]} n_valid={nvv} "
-          f"dropout={drop}: tiled; forward {err:.2e} (tol {tol:.2e}); "
+          f"dropout={drop}: tiled, T2 {variants[0]}, T4 {variants[1]}; forward {err:.2e} (tol "
+          f"{tol:.2e}); "
           + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items())
           + f" (rel tol {rel}); parts " + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s)
                                                    in parts.items()), flush=True)
     return {"case": name, "shape": [n, t, din], "heads": [heads, hd, a], "dtype": str(cdt)[6:],
             "n_valid": nvv, "dropout": drop, "max_abs_err": max([err] + [e for e, _ in
                                                                       errs.values()]),
-            "forward_err": err, "grad_errors": errs, "parts": parts}
+            "forward_err": err, "grad_errors": errs, "parts": parts, "variants": variants,
+            "launches": {k: cnt[k] for k in TILED}}
 
 
 def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
@@ -1137,14 +1186,17 @@ def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
 
 def c3b_graph(gen) -> dict:
     """The tiled route with the seed and n_valid as device scalars (bf16 and
-    fp32, T 100, dropout 0.2 on both streams): the host ints' outputs bit
-    for bit; in a CUDA graph, each replay reads the scalars' values then
-    and equals the eager device-scalar run bit for bit."""
+    fp32, T 100 and 130: T2 and T4 staged, then gathering; dropout 0.2 on
+    both streams): the host ints' outputs bit for bit; in a CUDA graph,
+    each replay reads the scalars' values then and equals the eager
+    device-scalar run bit for bit."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     rec = {}
-    for cdt in (torch.bfloat16, torch.float32):
-        n, t, din, heads, hd, a = 29, C3B_HIST, 64, 4, 16, 48
+    for cdt, t in itertools.product((torch.bfloat16, torch.float32), (C3B_HIST, 130)):
+        n, din, heads, hd, a = 29, 64, 4, 16, 48
+        t4 = "tiled_attention_bwd" + ("_staged" if ne.attention_variant(t, hd, cdt, True)
+                                      == "staged" else "")
         x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
         packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
         gout = torch.randn(n, heads * hd, generator=gen, device=DEV)
@@ -1159,18 +1211,18 @@ def c3b_graph(gen) -> dict:
         pairs = ((SEED64 | (1 << 63), n - 3), (SEED64 ^ (1 << 40), n - 11))
         reset_counts()
         host = [[v.detach() for v in fwd_bwd(leaves(), s, nv)] for s, nv in pairs]
-        check(read_counts()["tiled_attention_bwd"] == 2, "c3b graph: not the tiled route")
+        check(read_counts()[t4] == 2, f"c3b graph T {t}: not the tiled route's {t4}")
         dev = [[v.detach() for v in fwd_bwd(leaves(), dev_seed(s), torch.tensor(
             nv, dtype=torch.int32, device=DEV))] for s, nv in pairs]
         for h, d_, (s, nv) in zip(host, dev, pairs):
             for i in (0, 1):  # out and dx; the weight gradients take the bucket's row slices
-                check(torch.equal(h[i], d_[i]), f"c3b graph {cdt}: device scalars change "
+                check(torch.equal(h[i], d_[i]), f"c3b graph {cdt} T {t}: device scalars change "
                                                 f"output {i} (seed {s:#x}, n_valid {nv})")
             scales = grad_scales(dict(zip(range(8), h)), 5, (6, 7))
             for i in range(2, 8):
                 e = (h[i].float() - d_[i].float()).abs().max().item()
                 check(e <= WGRAD_REL_TOL * max(scales[i], 1e-30),
-                      f"c3b graph {cdt}: device n_valid moves gradient {i} by {e}")
+                      f"c3b graph {cdt} T {t}: device n_valid moves gradient {i} by {e}")
         ins = leaves()
         st, nvt = dev_seed(pairs[0][0]), torch.tensor(pairs[0][1], dtype=torch.int32, device=DEV)
         fwd_bwd(ins, st, nvt)
@@ -1183,14 +1235,99 @@ def c3b_graph(gen) -> dict:
             nvt.fill_(nv)
             graph.replay()
             for i in range(8):
-                check(torch.equal(outs[i], d_[i]), f"c3b graph {cdt}: replay (seed {s:#x}, "
-                                                   f"n_valid {nv}) output {i} differs")
+                check(torch.equal(outs[i], d_[i]), f"c3b graph {cdt} T {t}: replay (seed "
+                                                   f"{s:#x}, n_valid {nv}) output {i} differs")
         del graph, outs, ins, host, dev
-        rec[str(cdt)[6:]] = {"pairs": [[hex(s), nv] for s, nv in pairs], "bit_equal": True}
-    print(f"[c3b] device scalars: the tiled route at T {C3B_HIST} (bf16, fp32) draws the host "
+        rec[f"{str(cdt)[6:]}_t{t}"] = {"pairs": [[hex(s), nv] for s, nv in pairs],
+                                       "kernel": t4, "bit_equal": True}
+    print(f"[c3b] device scalars: the tiled route at T {C3B_HIST} and 130 (bf16, fp32; T2 and T4 "
+          f"staged, then gathering) draws the host "
           f"ints' masks (output and dx bit-equal, weight gradients within {WGRAD_REL_TOL}); in "
           f"a CUDA graph each replay reads its seed and n_valid, bit-equal to the eager runs",
           flush=True)
+    return rec
+
+
+def c3b_variants(gen) -> list:
+    """T2 and T4 at C3B_VARIANTS: ``attention_variant`` answers the case's
+    kernels; with n_valid read from the device (2 below N) and the case's
+    dropout, T2's o (both directions) and statistics and T4's dQ|dK|dV
+    against their plain versions (``BF16_REL_TOL``, 1e-4 of the scale in
+    fp32), dQ|dK|dV zero past n_valid, two launches of each on the same
+    inputs bit for bit, each launch counted on its kernel; where a kernel is
+    "gather", the library refuses a "staged" request for it."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    lib, rec = ne._library_tiled(), []
+    for name, n, t, cdt, heads, hd, drop, *want in C3B_VARIANTS:
+        d, nv, bf = heads * hd, n - 2, cdt == torch.bfloat16
+        got = [ne.attention_variant(t, hd, cdt, b) for b in (False, True)]
+        check(got == want, f"c3b variant {name}: attention_variant answers {got}, not {want}")
+        _, ws = make_inputs(1, 1, 16, cdt, gen, heads, hd, 16, fan=True)
+        packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+        qkv = torch.randn(n * t, packed.wqkv.shape[1], generator=gen, device=DEV).to(cdt)
+        dout = (torch.randn(n * t, d, generator=gen, device=DEV) * 0.1).to(cdt)
+        mask = ((torch.rand(n, t, d, generator=gen, device=DEV) < KEEP).float()
+                if drop == "mask" else None)
+        drop_in = ne.dropout_config(n, t, d, KEEP if drop else 1.0, 1.0,
+                                    SEED64 if drop == "rng" else None, mask, DEV)
+        nvt = torch.tensor(nv, dtype=torch.int32, device=DEV)
+        kw, kr, rows = dict(n=n, t=t, nv=n, nv_dev=nvt), dict(n=n, t=t, nv=nv), nv * t
+        reset_counts()
+        runs = [(ne.tiled_attention(qkv, packed, drop_in, **kw)[0],
+                 *ne.tiled_attention(qkv, packed, drop_in, backward=True, **kw)) for _ in (0, 1)]
+        dq = [ne.tiled_attention_bwd(qkv, dout, runs[0][2], packed, **kw) for _ in (0, 1)]
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        sfx = ["_staged" if v == "staged" else "" for v in want]
+        check(cnt["tiled_attention" + sfx[0]] == 4 and cnt["tiled_attention_bwd" + sfx[1]] == 2
+              and sum(cnt[k] for k in TILED) == 6, f"c3b variant {name}: launches {cnt}")
+        ro = ne.tiled_attention_reference(qkv, packed, drop_in, **kr)[0]
+        roc, rst = ne.tiled_attention_reference(qkv, packed, drop_in, backward=True, **kr)
+        rdq = ne.tiled_attention_bwd_reference(qkv, dout, runs[0][2], packed, **kr)
+        rel = BF16_REL_TOL if bf else FP32_GRAD_REL
+        errs = {}
+        for nm, u, v in (("o", runs[0][0][:rows], ro[:rows]), ("o_c", runs[0][1], roc),
+                         ("max", runs[0][2][0, :rows], rst[0, :rows]),
+                         ("sum", runs[0][2][1, :rows], rst[1, :rows]), ("dqkv", dq[0], rdq)):
+            e, sc = (u.float() - v.float()).abs().max().item(), v.float().abs().max().item()
+            errs[nm] = [e, sc]
+            check(bool(torch.isfinite(u).all()) and e <= rel * sc,
+                  f"c3b variant {name}: {nm} max|kernel - plain| {e} > {rel} * {sc}")
+        check(not dq[0][rows:].float().any(), f"c3b variant {name}: dQ|dK|dV past n_valid")
+        bit = (torch.equal(runs[0][0][:rows], runs[1][0][:rows])
+               and torch.equal(runs[0][1], runs[1][1])
+               and torch.equal(runs[0][2][:, :rows], runs[1][2][:, :rows])
+               and torch.equal(dq[0], dq[1]))
+        check(bit, f"c3b variant {name}: two launches differ")
+        refused = []
+        if "gather" in want:  # a "staged" request where the kernel does not fit: refused
+            _, _, _, gh, pw, p_cols = ne._heads(packed)
+            with torch.cuda.device(DEV):
+                if want[0] == "gather":
+                    refused.append(lib.tiled_attention(
+                        qkv.data_ptr(), runs[0][1].data_ptr(), runs[0][1].shape[1], 0,
+                        runs[0][2].data_ptr(), n, t, d, heads, gh, pw, p_cols, n, None,
+                        1.0 / math.sqrt(hd), int(bf), 0, 0, None, 0, 1.0, None, 1.0, 1,
+                        torch.cuda.current_stream().cuda_stream))
+                if want[1] == "gather":
+                    refused.append(lib.tiled_attention_bwd(
+                        qkv.data_ptr(), dout.data_ptr(), runs[0][2].data_ptr(), None,
+                        dq[1].data_ptr(), n, t, d, heads, gh, pw, p_cols, n, None,
+                        1.0 / math.sqrt(hd), int(bf), 1, torch.cuda.current_stream().cuda_stream))
+            torch.cuda.synchronize()
+            check(all(r != 0 for r in refused), f"c3b variant {name}: a staged request past "
+                                                f"the boundary returned {refused}")
+            check(torch.equal(dq[0], dq[1]), f"c3b variant {name}: a refused request wrote")
+        print(f"[c3b] variant {name}: [{n}, {t}] heads {heads}x{hd} {str(cdt)[6:]} n_valid {nv} "
+              f"(device) dropout={drop}: T2 {want[0]}, T4 {want[1]}; "
+              + " ".join(f"{k}={e:.2e}/{sc:.2e}" for k, (e, sc) in errs.items())
+              + f" (rel tol {rel}); two launches bit-equal"
+              + (f"; staged requests refused ({len(refused)})" if refused else ""), flush=True)
+        rec.append({"case": name, "shape": [n, t], "heads": [heads, hd], "dtype": str(cdt)[6:],
+                    "n_valid": nv, "dropout": drop, "variants": want, "errors": errs,
+                    "launches": {k: cnt[k] for k in TILED}, "bit_equal": True,
+                    "staged_refused": len(refused)})
     return rec
 
 
@@ -1206,13 +1343,27 @@ def plain_chunked(fn, n: int, t: int) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def gathering(fn):
+    """``fn`` run with T2's and T4's wrappers launching the gathering
+    kernels whatever the shape (``attention_variant`` answering "gather"):
+    the earlier kernels timed beside the staged ones."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    def run():
+        with mock.patch.object(ne, "attention_variant", lambda *a, **k: "gather"):
+            return fn()
+    return run
+
+
 def c3b_timed(peaks, gen) -> dict:
     """T1-T4 and the whole route (forward, and the recompute backward with
     its GEMMs and reductions) at the history-100 user tower [TRAIN_BS, 100,
     D] bf16 (no dropout, as the user tower): each against its plain version
     over every article (``plain_chunked``), timed with its plain version,
     its bound, and where one PyTorch call computes the same function, that
-    call (T1: torch.matmul of its product; T2: scaled_dot_product_attention)."""
+    call (T1: torch.matmul of its product; T2: scaled_dot_product_attention;
+    T4: its backward). T2 and T4 run in both kernels: the staged ones the
+    wrappers take at this shape, and the gathering ones (``gathering``)."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     n, t, cdt = TRAIN_BS, C3B_HIST, torch.bfloat16
@@ -1223,8 +1374,11 @@ def c3b_timed(peaks, gen) -> dict:
     g = (torch.randn(n, D, generator=gen, device=DEV) * 1e-2).contiguous()
     rows, a_pad, ow = n * t, packed.w_att.shape[1], ne.o_width(D)
     kw = dict(n=n, t=t, nv=n)
+    check([ne.attention_variant(t, HEAD_DIM, cdt, b) for b in (False, True)] == ["staged"] * 2,
+          "c3b timed: the user tower's T2 and T4 are not the staged kernels")
     qkv = ne.tiled_qkv(xin, packed, drop, **kw)
     o, _ = ne.tiled_attention(qkv, packed, drop, **kw)
+    o_g, _ = gathering(lambda: ne.tiled_attention(qkv, packed, drop, **kw))()
     oc, st = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
     do = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)[0]
     torch.cuda.synchronize()
@@ -1245,7 +1399,9 @@ def c3b_timed(peaks, gen) -> dict:
 
     def p_att(a0, a1):
         r, k = sl(a0, a1)
-        err("tiled_attention", o[r], ne.tiled_attention_reference(qkv[r], packed, drop, **k)[0])
+        ref = ne.tiled_attention_reference(qkv[r], packed, drop, **k)[0]
+        err("tiled_attention_staged", o[r], ref)
+        err("tiled_attention", o_g[r], ref)
 
     pooled = ne.tiled_pool(o, packed, **kw)
 
@@ -1262,11 +1418,13 @@ def c3b_timed(peaks, gen) -> dict:
             err("tiled_pool_bwd", got, want)
 
     dqkv = ne.tiled_attention_bwd(qkv, do, st, packed, **kw)
+    dqkv_g = gathering(lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw))()
 
     def p_att_bwd(a0, a1):
         r, k = sl(a0, a1)
-        err("tiled_attention_bwd", dqkv[r],
-            ne.tiled_attention_bwd_reference(qkv[r], do[r], st[:, r], packed, **k))
+        ref = ne.tiled_attention_bwd_reference(qkv[r], do[r], st[:, r], packed, **k)
+        err("tiled_attention_bwd_staged", dqkv[r], ref)
+        err("tiled_attention_bwd", dqkv_g[r], ref)
 
     hd, heads, a = HEAD_DIM, HEADS, ATT
     mm = 2 * heads * t * t * hd * n  # one attention product
@@ -1281,34 +1439,55 @@ def c3b_timed(peaks, gen) -> dict:
                            + 2 * n * a_pad * 4),
         "tiled_attention_bwd": (5 * mm, 2 * qkv_b + rows * D * 2 + 2 * rows * heads * 4),
     }
+    for name in ("tiled_attention", "tiled_attention_bwd"):
+        work[name + "_staged"] = work[name]
+    t2 = lambda: ne.tiled_attention(qkv, packed, drop, **kw)
+    t4 = lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw)
     runs = {"tiled_qkv": (lambda: ne.tiled_qkv(xin, packed, drop, **kw), p_qkv, 5),
-            "tiled_attention": (lambda: ne.tiled_attention(qkv, packed, drop, **kw), p_att, 3),
+            "tiled_attention_staged": (t2, p_att, 5),
+            "tiled_attention": (gathering(t2), None, 3),
             "tiled_pool": (lambda: ne.tiled_pool(o, packed, **kw), p_pool, 5),
             "tiled_pool_bwd": (lambda: ne.tiled_pool_bwd(oc, packed, g, drop, **kw), p_pool_bwd, 3),
-            "tiled_attention_bwd": (lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw),
-                                    p_att_bwd, 2)}
+            "tiled_attention_bwd_staged": (t4, p_att_bwd, 5),
+            "tiled_attention_bwd": (gathering(t4), None, 2)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     q4 = [torch.randn(n, heads, t, hd, generator=gen, device=DEV).to(cdt) for _ in range(3)]
     library = {"tiled_qkv": qkv_matmul_ms(rows, D, 3 * D, gen, 5),  # x @ [Wq|Wk|Wv]
-               "tiled_attention": time_ms(
-                   lambda: torch.nn.functional.scaled_dot_product_attention(*q4), 5)}
-    del q4
-    rec = {}
+               "tiled_attention": time_ms(lambda: sdpa(*q4), 5)}
+    # T4's: the backward of scaled_dot_product_attention (dQ, dK and dV from dO and the
+    # forward's row statistics), its forward run once outside the clock
+    out4 = sdpa(*(u.requires_grad_() for u in q4))
+    dout4 = torch.randn(out4.shape, generator=gen, device=DEV).to(cdt)
+    library["tiled_attention_bwd"] = time_ms(
+        lambda: torch.autograd.grad(out4, q4, dout4, retain_graph=True), 3)
+    del q4, out4, dout4
+    for name in ("tiled_attention", "tiled_attention_bwd"):
+        library[name + "_staged"] = library[name]
+    rec, plain_of = {}, {}
     for name, (run, plain, iters) in runs.items():
         ms = time_ms(run, iters, warmup=1)
-        plain_ms = plain_chunked(plain, n, t)
+        base = name.replace("_staged", "")
+        if plain is not None:  # the gathering kernels share the staged ones' plain version
+            plain_of[base] = plain_chunked(plain, n, t)
         b_ms, b_by = bound(*work[name], peaks[0], peaks)
         e, s = errs[name]
         check(e <= BF16_REL_TOL * s, f"c3b timed: {name} max|kernel - plain| {e} > "
                                      f"{BF16_REL_TOL} * {s}")
+        lib_ms = library.get(name)
         rec[name] = {"case": f"{name}_user_h{t}", "shape": [n, t, D], "max_abs_err": e,
-                     "max_abs_ref": s, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": library.get(name),
+                     "max_abs_ref": s, "ms": ms, "plain_ms": plain_of[base], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
                      "gflop": work[name][0] / 1e9, "mbytes": work[name][1] / 1e6}
         print(f"[c3b] {name} at the user tower [{n}, {t}, {D}] bf16: max_abs_err={e:.3e} (of "
-              f"{s:.3e}) ms={ms:.3f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.4f} ({b_by})"
-              + (f" library_ms={library[name]:.3f}" if name in library else " library: none"),
-              flush=True)
-    del qkv, o, oc, st, do, dqkv, bwd, pooled
+              f"{s:.3e}) ms={ms:.3f} plain_ms={plain_of[base]:.1f} bound_ms={b_ms:.4f} ({b_by}; "
+              f"{ms / b_ms:.1f}x it)" + (f" library_ms={lib_ms:.3f} ({ms / lib_ms:.2f}x it)"
+                                         if lib_ms else " library: none"), flush=True)
+    for name in ("tiled_attention", "tiled_attention_bwd"):
+        gain = rec[name]["ms"] / rec[name + "_staged"]["ms"]
+        rec[name + "_staged"]["gather_ms"] = rec[name]["ms"]
+        print(f"[c3b] {name} at the user tower: the staged kernel {rec[name + '_staged']['ms']:.3f}"
+              f" ms, the gathering one {rec[name]['ms']:.3f} ({gain:.2f}x)", flush=True)
+    del qkv, o, o_g, oc, st, do, dqkv, dqkv_g, bwd, pooled
     torch.cuda.empty_cache()
     # the whole route: the forward (T1, T2, T3) and the backward (T1-T4, GEMMs, reductions)
     fwd = lambda: ne.fused_news_encoder(x, *ws, num_heads=HEADS, compute_dtype=cdt, packed=packed)
@@ -1399,7 +1578,9 @@ def c3b_scan_mesh(table) -> dict:
             r = replay_vs_eager(f"c3b_h{hist}_mesh", a, b, la, lb)
             per_step = dict(NRMS_STEP_LAUNCHES)
             if hist > C3_HIST:  # the user tower on the tiled route
-                per_step.update(news_encoder_fwd=1, news_encoder_bwd_block=1, **TILED_CALL)
+                per_step.update(news_encoder_fwd=1, news_encoder_bwd_block=1,
+                                **{k: v for k, v in tiled_call(hist, HEAD_DIM, torch.bfloat16)
+                                   .items() if v})
             check(warm == {k: SCAN_N * per_step.get(k, 0) for k in warm},
                   f"c3b h{hist} mesh: the warm-up group's launches {warm}")
             per_graph = graph_launches(a)
@@ -1439,10 +1620,12 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
     check(all(staged_step[k] == 0 for k in TILED),
           f"[c3b] the history-20 step took the tiled route: {staged_step}")
     rec = {"cases": [c3b_case(*c, gen) for c in C3B_CASES],
-           "forced": [c3b_forced(*c, gen) for c in C3B_FORCED], "graph": c3b_graph(gen)}
+           "forced": [c3b_forced(*c, gen) for c in C3B_FORCED], "variants": c3b_variants(gen),
+           "graph": c3b_graph(gen)}
     rec["timed"] = c3b_timed(peaks, gen)
     release()
-    expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1, **TILED_CALL)
+    expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
+                  **tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16))
     keys = K12 + TILED
     rec["training"] = history_training(table, peaks, expect, hist=C3B_HIST, tag="c3b",
                                        cmp_bs=C3B_CMP_BS, keys=keys, serve_counter="tiled_qkv")
@@ -1459,7 +1642,8 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
     release()
     rec["scan_mesh"] = c3b_scan_mesh(table)
     rec["seconds"] = time.perf_counter() - t0
-    print(f"[c3b] {len(rec['cases'])} tiled cases, {len(rec['forced'])} forced, the graph "
+    print(f"[c3b] {len(rec['cases'])} tiled cases, {len(rec['forced'])} forced, "
+          f"{len(rec['variants'])} of T2's and T4's variant cases, the graph "
           f"check, the history-{C3B_HIST} user tower timed, NRMS training and serving, the CLI "
           f"and the mesh's scan groups passed in {rec['seconds']:.1f} s", flush=True)
     return rec
@@ -4582,7 +4766,12 @@ def main(argv=None) -> int:
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     # [c3b]: the tiled route's kernels, launched by the history-100 steps (that path's counts)
     c3b_l = c3b["training"]["launches"]
-    check(all(c3b_l[name] > 0 for name in TILED), f"[c3b] a tiled kernel never ran: {c3b_l}")
+    # the history-100 path's tiled kernels, and past T 128 (the cases) the gathering ones
+    path = [k for k, v in tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16).items() if v]
+    gather_l = {k: sum(c["launches"][k] for c in c3b["cases"]) for k in TILED}
+    check(all(c3b_l[name] > 0 for name in path), f"[c3b] a tiled kernel never ran: {c3b_l}")
+    check(all(gather_l[name] > 0 for name in ("tiled_attention", "tiled_attention_bwd")),
+          f"[c3b] the gathering T2 and T4 never ran in the cases past T 128: {gather_l}")
     for k in kernels["kernels"]:
         k["launches_c3b"] = c3b_l.get(k["name"], 0)
         if k["name"] in c3b["timed"]["whole"]:  # K1 and K2 on the tiled route at history 100
@@ -4591,27 +4780,49 @@ def main(argv=None) -> int:
         "tiled_qkv": (234, "T1: the tiled route's QKV projection to device memory (the QKV "
                            "stage of news_encoder_common.cuh, TMA-fed wgmma in bf16); "
                            "library_ms is torch.matmul of its product"),
-        "tiled_attention": (234, "T2: the attention forward by 64-row query tiles on mma.sync "
-                                 "fragments (the rows' statistics, then normalised P V), the "
-                                 "stream-1 mask; library_ms is scaled_dot_product_attention"),
+        "tiled_attention": (234, "T2, gathering (past T 128 or a pair's shared memory): the "
+                                 "attention forward by 64-row query tiles on mma.sync fragments "
+                                 "gathered from device memory (the rows' statistics, then "
+                                 "normalised P V), the stream-1 mask; launches: [c3b]'s cases "
+                                 "past T 128 (the history-100 path takes the staged kernel); "
+                                 "timed at the user tower with the wrapper's rule overridden; "
+                                 "library_ms is scaled_dot_product_attention"),
+        "tiled_attention_staged": (234, "T2, staged (T <= 128): the attention forward per "
+                                        "(article, head), Q, K and V staged once in shared "
+                                        "memory by cp.async, ldmatrix fragments, each row's "
+                                        "logits once in registers, the stream-1 mask; library_ms "
+                                        "is scaled_dot_product_attention"),
         "tiled_pool": (234, "T3's forward: the pooling per article over any T, W_att by 256 "
                             "columns"),
         "tiled_pool_bwd": (529, "T3's backward: the pooling backward per article, round(dz) "
                                 "and do"),
-        "tiled_attention_bwd": (529, "T4: the attention backward per (article, head): query "
-                                     "tiles (dP, dS, dQ), then key tiles (dV, dK)")}
+        "tiled_attention_bwd": (529, "T4, gathering (past T 128 or a pair's shared memory): the "
+                                     "attention backward per (article, head): query tiles (dP, "
+                                     "dS, dQ), then key tiles (dV, dK); launches: [c3b]'s cases "
+                                     "past T 128; timed at the user tower with the wrapper's rule "
+                                     "overridden; library_ms is scaled_dot_product_attention's "
+                                     "backward"),
+        "tiled_attention_bwd_staged": (529, "T4, staged (T <= 128): the attention backward per "
+                                            "(article, head), Q, K, V, dO and the statistics "
+                                            "staged once; query tiles (S and dP once, dS, dQ), "
+                                            "round(P) and dS left in shared memory for the key "
+                                            "tiles (dV, dK); library_ms is "
+                                            "scaled_dot_product_attention's backward")}
     for name in TILED:
         part = c3b["timed"]["parts"][name]
         line, note = tiled_notes[name]
+        gathers = name in ("tiled_attention", "tiled_attention_bwd")
         kernels["kernels"].append(dict(
             {"name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
-             "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}", "launches": c3b_l[name],
+             "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}",
+             "launches": gather_l[name] if gathers else c3b_l[name],
+             "launches_c3b_h100": c3b_l[name],
              "launches_c3b_cli": c3b["cli"]["launches"][name],
              "launches_c3b_scan_mesh": c3b["scan_mesh"][f"h{C3B_HIST}"]["launches_scan"].get(name, 0),
              "note": note + f"; timed at the history-{C3B_HIST} user tower {part['shape']} bf16",
              "checked": True}, **{k: part[k] for k in keys},
             cases_c3b=[{"case": c["case"], "max_abs_err": c["parts"][name][0]}
-                       for c in c3b["cases"]]))
+                       for c in c3b["cases"] if name in c["parts"]]))
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)

@@ -580,13 +580,52 @@ __device__ __forceinline__ void frag_b(const Mat& m, int k0, int n0, uint32_t (&
   b[1] = m.two(k0 + 2 * c + 8, n0 + g, 1, 0);
 }
 
-// The A fragment of k-step kk from C fragments (8 column tiles of 8),
+// The A fragment of k-step kk from C fragments (N column tiles of 8),
 // rounded to bf16.
-__device__ __forceinline__ void c_to_a(const float (&f)[8][4], int kk, uint32_t (&a)[4]) {
+template <int N>
+__device__ __forceinline__ void c_to_a(const float (&f)[N][4], int kk, uint32_t (&a)[4]) {
   a[0] = pack_bf16(f[2 * kk][0], f[2 * kk][1]);
   a[1] = pack_bf16(f[2 * kk][2], f[2 * kk][3]);
   a[2] = pack_bf16(f[2 * kk + 1][0], f[2 * kk + 1][1]);
   a[3] = pack_bf16(f[2 * kk + 1][2], f[2 * kk + 1][3]);
+}
+
+// ---- m16n8k16 fragments from bf16 tiles in shared memory by ldmatrix
+// (the tiled route's staged T2 and T4). A tile's rows start 16-byte
+// aligned; with a row stride of an odd number of 16-byte pieces the 8 rows
+// of each 8 x 8 matrix fall in 8 distinct bank groups (no conflicts). Lane
+// l gives the address of row l % 8 of matrix l / 8; plain ldmatrix hands
+// lane 4 g + c the stored (g, 2c..2c+1), .trans the stored (2c..2c+1, g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hop::smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hop::smem_u32(p)));
+}
+// The A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 16) of A
+// stored row-major (s[m][k]: lda_rm) or transposed (s[k][m]: lda_tr).
+__device__ __forceinline__ void lda_rm(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0) {
+  const int l = threadIdx.x % 32;
+  ldsm_x4(a, s + (m0 + (l & 15)) * ld + k0 + (l >> 4) * 8);
+}
+__device__ __forceinline__ void lda_tr(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0) {
+  const int l = threadIdx.x % 32, mi = l >> 3;
+  ldsm_x4_t(a, s + (k0 + (l & 7) + (mi >> 1) * 8) * ld + m0 + (mi & 1) * 8);
+}
+// The B fragments of rows [k0, k0 + 16) and the two column tiles at n0 and
+// n0 + 8 ({b[0], b[1]} and {b[2], b[3]}) of B stored by columns (s[n][k]:
+// ldb_nk, as K for Q K^T) or row-major (s[k][n]: ldb_kn, as V for P V).
+__device__ __forceinline__ void ldb_nk(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0) {
+  const int l = threadIdx.x % 32, mi = l >> 3;
+  ldsm_x4(b, s + (n0 + (l & 7) + (mi >> 1) * 8) * ld + k0 + (mi & 1) * 8);
+}
+__device__ __forceinline__ void ldb_kn(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0) {
+  const int l = threadIdx.x % 32, mi = l >> 3;
+  ldsm_x4_t(b, s + (k0 + (l & 7) + (mi & 1) * 8) * ld + n0 + (mi >> 1) * 8);
 }
 
 // acc [16 x 64] (8 column tiles) = A [16 x K] B [K x 64] over nk k-steps

@@ -14,15 +14,14 @@
 //      runs the TMA-fed wgmma QKV stage of news_encoder_common.cuh (x comes
 //      masked, as for K1), fp32 its cp.async/FMA stage, drawing the stream-0
 //      mask. The forward and the backward's recompute both launch it.
-//   T2 tiled_attention_kernel: one block per (article, head, 64-row query
-//      tile), a warp per 16 query rows. Pass 1 over 64-key tiles takes the
-//      softmax's row max and sum; pass 2 recomputes the logits and takes
-//      O = round(P) V with P normalised, so the probabilities are rounded
-//      where the plain version rounds them (no online rescale of O). Then
-//      the stream-1 mask (or the external one), keyed by (global row,
-//      column) as K1 keys it, and o in fp32 (the forward's weighted sum) or
-//      round(o) in the compute dtype (the backward's dW operand); the row
-//      max and sum go to device memory for T4.
+//   T2 tiled_attention_staged_kernel / tiled_attention_kernel: the
+//      attention forward, O = round(P) V with P normalised, so the
+//      probabilities are rounded where the plain version rounds them (no
+//      online rescale of O). Then the stream-1 mask (or the external one),
+//      keyed by (global row, column) as K1 keys it, and o in fp32 (the
+//      forward's weighted sum) or round(o) in the compute dtype (the
+//      backward's dW operand); the rows' max and sum go to device memory,
+//      [2][n * t][heads], for T4.
 //   T3 tiled_pool_kernel: one block per article, over any T in 64-row tiles
 //      and W_att in 256-column chunks (the wide instance's pooling device
 //      functions). Forward: z, the logits, the softmax over the article's T
@@ -30,29 +29,56 @@
 //      recompute from round(o), datt, round(dz) to device memory, the
 //      per-article db and dq partials, and do = round((w g + round(dz)
 //      round(W)^T) * mask).
-//   T4 tiled_attention_bwd_kernel: one block per (article, head). A pass
-//      over the 16-row query tiles gives P (from T2's statistics), dP, the
-//      row sums of P dP, dS and dQ; a pass over the 16-row key tiles gives
-//      dV = round(P)^T dO and dK = dS^T Q. dQ|dK|dV go to T1's layout.
+//   T4 tiled_attention_bwd_staged_kernel / tiled_attention_bwd_kernel: the
+//      attention backward per (article, head): P from T2's statistics,
+//      delta = rowsum(P dP) over the unrounded P, dS = round(P (dP - delta)
+//      scale), dQ = dS K, dV = round(P)^T dO, dK = dS^T Q, to T1's layout.
 // After T4 the backward's GEMMs and reductions (news_encoder_bwd.cu) make
 // dx, dWqkv, dW, db and dq, as after the per-block kernel.
 //
-// The attention products run per warp on 16-row fragments: bf16 on
-// mma.sync m16n8k16 with fp32 accumulators, fp32 by FMA with the same
-// fragment ownership, so one code path serves both dtypes. Fragments are
-// gathered element by element from device memory (through L1), zero past
-// the article's T rows and the head's columns, so no tile needs padding,
-// any head width takes the same code, and no block holds more than one
-// 64 x 64 tile of registers; wide heads run in 64-column chunks of the
-// output, recomputing the logits once per chunk.
+// T2 and T4 have two kernels each; the wrappers pick one before the launch
+// (ops/news_encoder.py `attention_variant`) and pass it as `staged`:
+//   - staged, where T rounded up to 16 (T16) is at most 128 and an
+//     (article, head) pair's tiles fit a block (at T 128, head widths up to
+//     288 for T2 and 144 for T4 in bf16, 144 and 32 in fp32; in bf16 an
+//     even width, for cp.async's 4-byte pieces): a block per pair, a warp
+//     per 16-row tile, so the warps split the tiles evenly. Q, K and V (T4:
+//     and dO and the rows' statistics) are copied once by cp.async into
+//     tiles of T16 rows in shared memory, rows padded to an odd number of
+//     16-byte pieces, and read by ldmatrix. T2 holds each row's logits in
+//     registers (8 to 64 fp32 a thread) and computes them once. T4's query
+//     pass takes S and dP once, delta by quad sums, dS and dQ, and leaves
+//     round(P) and dS in shared memory; its key pass reads them by
+//     ldmatrix.trans for dV and dK and recomputes no logit.
+//   - gathering, everywhere else (any T and head width): fragments
+//     gathered element by element from device memory (through L1), zero
+//     past the article's T rows and the head's columns, so no tile needs
+//     padding, and no block holds more than one 64 x 64 tile of registers.
+//     T2: a block per (article, head, 64-row query tile); pass 1 over
+//     64-key tiles takes the rows' max and sum, pass 2 the logits again
+//     and normalised round(P) V, by 64-column chunks of the head. T4: a
+//     block per (article, head); a pass over the 16-row query tiles gives
+//     dP, delta (to device memory), dS and dQ, a pass over the key tiles
+//     dV and dK, the logits taken three times.
+// Both run bf16 on mma.sync m16n8k16 with fp32 accumulators and fp32 by
+// FMA with the same fragment ownership (no TF32: fp32 is held to 1e-4 of
+// scale). No atomics: every output element is written by one warp of one
+// block and every sum runs in a fixed order, so two launches are
+// bit-equal. (delta needs a whole row of P dP before its dS exists: the
+// staged query pass has the row in registers, the gathering one sweeps it
+// twice.)
 //
-// What bounds it on the card: at the history-100 user tower ([16,384, 100,
-// 400], 20 heads of 20, A 200, bf16) T1 is bound by tensor-core operations
-// (1.7 TFLOP a call); T2 and T4 move Q|K|V (4.2 GB) and o, dO and
-// dQ|dK|dV and do 0.26 and 0.66 TFLOP of attention products; T3 is bound
-// by the 0.26 TFLOP of its z product (twice in the backward, with the do
-// product beside it). What is left: the fragments' scattered loads, and
-// every intermediate's round trip through device memory.
+// What bounds them on the card: at the history-100 user tower ([16,384,
+// 100, 400], 20 heads of 20, A 200, bf16) T1 is bound by tensor-core
+// operations (1.7 TFLOP a call); T2 and T4 by bytes (Q|K|V, o, dO and
+// dQ|dK|dV: 6.5 and 9.4 GB), their products (0.26 and 0.66 TFLOP) being
+// small; T3 by the 0.26 TFLOP of its z product (twice in the backward,
+// with the do product beside it). The staged T2 and T4 read each byte once
+// and take 4.2x and 5.6x their bound there (PERF.md). The rest is not
+// traced; the candidates are each pair's copy latency at the few blocks an
+// SM holds (T2 three, by registers; T4 two, by its 90 KB of shared memory
+// at T 100) and its short mma.sync chains. The gathering ones take 16x and
+// 52x: their scattered loads.
 //
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on the
@@ -94,9 +120,10 @@ struct View {
   }
 };
 
-__device__ __forceinline__ void zero_frag(float (&f)[8][4]) {
+template <int N>
+__device__ __forceinline__ void zero_frag(float (&f)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
 }
@@ -206,12 +233,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ int tiles8(int left) { return max(0, min(8, (left + 7) / 8)); }
 __device__ __forceinline__ int steps16(int left) { return max(0, min(4, (left + 15) / 16)); }
 
-// The logits of 16 query rows against keys [k0, k0 + 64) as base-2
+// The logits of 16 query rows against keys [k0, k0 + 8 N) as base-2
 // exponents: s * scale * log2 e, -inf past the article's t keys.
-__device__ __forceinline__ void log2_logits(float (&s)[8][4], int k0, int t, float sl) {
+template <int N>
+__device__ __forceinline__ void log2_logits(float (&s)[N][4], int k0, int t, float sl) {
   const int c = threadIdx.x % 4;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool in = k0 + 8 * j + 2 * c + e < t;
@@ -678,6 +706,423 @@ __global__ void __launch_bounds__(kAttThreads) tiled_attention_bwd_kernel(AttBwd
   }
 }
 
+// ---- T2 and T4, staged: one (article, head) pair in shared memory ----
+// (the top of this file; the launchers only check that a request fits)
+
+constexpr int kStagedT = 128;  // T rounded up to 16 at most this: a row of logits in registers
+constexpr int kOutCols = 32;   // head columns of an output chunk
+
+__host__ __device__ constexpr int r16(int v) { return (v + 15) / 16 * 16; }
+// A tile's row stride in elements: its width (a multiple of 16) and 16
+// bytes, an odd number of 16-byte pieces, so that ldmatrix reads each
+// 8 x 8 matrix without bank conflicts.
+__host__ __device__ constexpr int pad_ld(int w, int elem) { return w + 16 / elem; }
+
+// Shared memory of the staged T2 (Q, K, V) or T4 (bwd: also dO, round(P)
+// and dS [T16 x T16] and the rows' max and sum).
+__host__ __device__ inline size_t staged_smem(int t, int hd, int elem, bool bwd) {
+  const size_t t16 = r16(t), ld = pad_ld(r16(hd), elem);
+  return t16 * ld * elem * (bwd ? 4 : 3) +
+         (bwd ? 2 * t16 * pad_ld(int(t16), elem) * elem + 2 * t16 * 4 : 0);
+}
+
+// Whether a staged request fits what its launch allocates: T16 within
+// kStagedT, the tiles within a block's shared memory, and the head's
+// columns in whole 4-byte pieces (cp.async's smallest).
+inline bool staged_fits(int t, int hd, int elem, bool bwd) {
+  return r16(t) <= kStagedT && hd * elem % 4 == 0 &&
+         staged_smem(t, hd, elem, bwd) <= size_t(kSmemLimit);
+}
+
+// Blocks an SM holds at once that the registers are held to
+// (__launch_bounds__) up to T 112: the kernels wait on each pair's loads
+// and short chains of mma.sync, so blocks in flight count for more than a
+// few spilled registers.
+__host__ __device__ constexpr int t2_min_blocks(int nk) { return nk <= 14 ? 3 : 2; }
+__host__ __device__ constexpr int t4_min_blocks(int nk) { return nk <= 14 ? 2 : 1; }
+
+// cp.async of `bytes` (16, 8 or 4) with `valid` of them read and the rest
+// zero-filled.
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int bytes, int valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(valid));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid));
+}
+
+// Rows [0, rows) and columns [0, cols) of the matrix at src (row stride
+// lds elements) into the shared tile dst (row stride ldd) of rows_pad x
+// cols_pad, zeros elsewhere, by all the block's threads in cp.async pieces
+// of the widest of 16, 8 and 4 bytes that src's alignment allows. The
+// caller commits and waits.
+template <typename T>
+__device__ void stage(T* dst, int ldd, const T* src, size_t lds, int rows, int rows_pad, int cols,
+                      int cols_pad) {
+  constexpr int E = sizeof(T);
+  const size_t al = reinterpret_cast<size_t>(src) | (lds * E);
+  const int w = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : 4;
+  const int per = cols_pad * E / w, n = rows_pad * per;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = i / per, c = (i % per) * w / E;
+    const int valid = r < rows ? max(0, min(w, (cols - c) * E)) : 0;
+    cp_async_n(dst + r * ldd + c, valid ? src + r * lds + c : src, w, valid);
+  }
+}
+
+// Column `col` of rows [0, rows) at src (stride lds floats) into dst[0,
+// rows_pad), zeros past rows: the rows' statistics at stride `heads`.
+__device__ void stage_col(float* dst, const float* src, size_t lds, int rows, int rows_pad) {
+  for (int r = threadIdx.x; r < rows_pad; r += blockDim.x)
+    cp_async_n(dst + r, r < rows ? src + r * lds : src, 4, r < rows ? 4 : 0);
+}
+
+__device__ __forceinline__ void mma_pair(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+  mma_16816(d0, a, b0);
+  mma_16816(d1, a, b1);
+}
+
+// acc[j] (column tiles n0 + 8 j, j < nn, nn even) += A[m0 .. m0 + 16,
+// 0 .. 16 ks) B[0 .. 16 ks, n0 + 8 j ..], both in shared memory: A
+// row-major (a[m][k]) or, with ATR, stored transposed (a[k][m]); B stored
+// by columns (b[n][k], as K for Q K^T) or, with BKN, row-major (b[k][n]).
+template <typename T, int NN, bool ATR, bool BKN>
+__device__ __forceinline__ void smm(float (&acc)[NN][4], const T* a, int lda, int m0, const T* b,
+                                    int ldb, int n0, int ks, int nn) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    for (int kk = 0; kk < ks; ++kk) {
+      uint32_t fa[4];
+      if constexpr (ATR)
+        lda_tr(fa, a, lda, m0, 16 * kk);
+      else
+        lda_rm(fa, a, lda, m0, 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NN; j += 2) {
+        if (j < nn) {
+          uint32_t fb[4];
+          if constexpr (BKN)
+            ldb_kn(fb, b, ldb, 16 * kk, n0 + 8 * j);
+          else
+            ldb_nk(fb, b, ldb, 16 * kk, n0 + 8 * j);
+          mma_pair(acc[j], acc[j + 1], fa, fb);
+        }
+      }
+    }
+  } else {
+    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+    for (int k = 0; k < 16 * ks; ++k) {
+      const float a0 = ATR ? a[k * lda + m0 + g] : a[(m0 + g) * lda + k];
+      const float a1 = ATR ? a[k * lda + m0 + g + 8] : a[(m0 + g + 8) * lda + k];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        if (j < nn) {
+          const int n = n0 + 8 * j + 2 * c;
+          const float b0 = BKN ? b[k * ldb + n] : b[n * ldb + k];
+          const float b1 = BKN ? b[k * ldb + n + 1] : b[(n + 1) * ldb + k];
+          acc[j][0] += a0 * b0;
+          acc[j][1] += a0 * b1;
+          acc[j][2] += a1 * b0;
+          acc[j][3] += a1 * b1;
+        }
+      }
+    }
+  }
+}
+
+// acc[j] += F B[0 .. 8 NK, n0 + 8 j ..], F [16 x 8 NK] held as C
+// fragments whose columns are the contraction (bf16 rounds them as the A
+// operand, fp32 takes them as they are), B row-major in shared memory.
+template <typename T, int NK, int NN>
+__device__ __forceinline__ void smm_frag(float (&acc)[NN][4], const float (&f)[NK][4], const T* b,
+                                         int ldb, int n0, int nn) {
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t fa[4];
+      c_to_a(f, kk, fa);
+#pragma unroll
+      for (int j = 0; j < NN; j += 2) {
+        if (j < nn) {
+          uint32_t fb[4];
+          ldb_kn(fb, b, ldb, 16 * kk, n0 + 8 * j);
+          mma_pair(acc[j], acc[j + 1], fa, fb);
+        }
+      }
+    }
+  } else {
+    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+#pragma unroll
+    for (int kc = 0; kc < 8 * NK; ++kc) {
+      // column kc of F sits in lane 4 g + (kc % 8) / 2, tile kc / 8, slot kc % 2
+      const int src = 4 * g + (kc % 8) / 2;
+      const float a0 = __shfl_sync(0xffffffffu, f[kc / 8][kc % 2], src);
+      const float a1 = __shfl_sync(0xffffffffu, f[kc / 8][2 + kc % 2], src);
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        if (j < nn) {
+          const int n = n0 + 8 * j + 2 * c;
+          acc[j][0] += a0 * b[kc * ldb + n];
+          acc[j][1] += a0 * b[kc * ldb + n + 1];
+          acc[j][2] += a1 * b[kc * ldb + n];
+          acc[j][3] += a1 * b[kc * ldb + n + 1];
+        }
+      }
+    }
+  }
+}
+
+// C fragments (16 rows from m0, 8 N columns) into a shared tile in the
+// compute dtype.
+template <typename T, int N>
+__device__ __forceinline__ void put_frag(const float (&f)[N][4], T* dst, int ld, int m0) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      T* q = dst + (m0 + g + 8 * i) * ld + 8 * j + 2 * c;
+      if constexpr (std::is_same<T, bf16>::value)
+        *reinterpret_cast<uint32_t*>(q) = pack_bf16(f[j][2 * i], f[j][2 * i + 1]);
+      else
+        *reinterpret_cast<float2*>(q) = make_float2(f[j][2 * i], f[j][2 * i + 1]);
+    }
+}
+
+// The pair of values at q (columns col, col + 1 of `cols`), as one 4- or
+// 8-byte store where both are inside and q is aligned for it.
+template <typename T>
+__device__ __forceinline__ void put2(T* q, int col, int cols, float a, float b) {
+  if (col + 1 < cols && reinterpret_cast<size_t>(q) % (2 * sizeof(T)) == 0) {
+    if constexpr (std::is_same<T, bf16>::value)
+      *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(a, b);
+    else
+      *reinterpret_cast<float2*>(q) = make_float2(a, b);
+    return;
+  }
+  q[0] = from_f<T>(a);
+  if (col + 1 < cols) q[1] = from_f<T>(b);
+}
+
+// C fragments of 16 rows from m0 and 8 NN columns from c0 into device
+// memory (row stride ld), rows below `rows` and columns below `cols`.
+template <typename T, int NN>
+__device__ __forceinline__ void put_rows(const float (&f)[NN][4], T* dst, size_t ld, int m0, int c0,
+                                         int rows, int cols) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NN; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + g + 8 * i, col = c0 + 8 * j + 2 * c;
+      if (row < rows && col < cols)
+        put2(dst + size_t(row) * ld + col, col, cols, f[j][2 * i], f[j][2 * i + 1]);
+    }
+}
+
+// o of the warp's 16 rows from m0 and the head's columns [c0, c0 + 8 NN):
+// the stream-1 mask (or the external one) keyed by (global row, column),
+// then fp32 or the compute dtype.
+template <typename T, int NN>
+__device__ __forceinline__ void put_o(const AttArgs& p, bool o_f32, const philox::Dropout& dr,
+                                      const float (&acc)[NN][4], size_t row0, int m0, int c0,
+                                      int h, int hd) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NN; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + g + 8 * i, col = c0 + 8 * j + 2 * c;
+      if (row >= p.t || col >= hd) continue;
+      const size_t grow = row0 + row;
+      const int gcol = h * hd + col;
+      const float v0 = acc[j][2 * i] * att_mask(dr, p.ext, p.inv_ext, grow, gcol, p.d);
+      const float v1 =
+          col + 1 < hd ? acc[j][2 * i + 1] * att_mask(dr, p.ext, p.inv_ext, grow, gcol + 1, p.d) : 0.f;
+      if (o_f32)
+        put2(static_cast<float*>(p.o) + grow * p.ldo + gcol, col, hd, v0, v1);
+      else
+        put2(static_cast<T*>(p.o) + grow * p.ldo + gcol, col, hd, v0, v1);
+    }
+}
+
+// T2 staged: NK / 2 warps (T16 = 8 NK). Each warp takes S of its 16 rows
+// over all keys once into registers, the exact row max and sum, P
+// normalised, then o = round(P) V from the registers by 32-column chunks of
+// the head. V lands while S and P are taken.
+template <typename T, int NK>
+__global__ void __launch_bounds__(16 * NK, t2_min_blocks(NK))
+    tiled_attention_staged_kernel(AttArgs p, bool o_f32) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kT16 = 8 * NK;
+  const int t = p.t, hd = p.d / p.heads, w16 = r16(hd), ld = pad_ld(w16, sizeof(T));
+  const int h = blockIdx.x % p.heads, an = blockIdx.x / p.heads;
+  if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) return;
+  const size_t row0 = size_t(an) * t;
+  const T* base = static_cast<const T*>(p.qkv) + row0 * p.P + (h / p.gh) * p.pw + (h % p.gh) * hd;
+  const int kq = p.gh * hd;  // Q to K, K to V
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kT16 * ld;
+  T* vs = ks + kT16 * ld;
+  stage(qs, ld, base, p.P, t, kT16, hd, w16);
+  stage(ks, ld, base + kq, p.P, t, kT16, hd, w16);
+  cp_async_commit();
+  stage(vs, ld, base + 2 * kq, p.P, t, kT16, hd, w16);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  const int m0 = 16 * (threadIdx.x / 32);
+  float s[NK][4];
+  zero_frag(s);
+  smm<T, NK, false, false>(s, qs, ld, m0, ks, ld, 0, w16 / 16, NK);
+  log2_logits(s, 0, t, p.scale * kLog2e);
+  float mx[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float r = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) r = fmaxf(r, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx[i] = quad_max(r);  // finite: key 0 is below t
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][2 * i + e] = exp2f(s[j][2 * i + e] - mx[i]);
+        a += s[j][2 * i + e];
+      }
+    l[i] = quad_sum(a);
+    const float il = 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      s[j][2 * i] *= il;
+      s[j][2 * i + 1] *= il;
+    }
+  }
+  philox::Dropout dr = p.dr;
+  dr.key = philox::key_at(dr.key, p.seed_dev);
+  cp_async_wait<0>();
+  __syncthreads();  // V has landed
+  for (int c0 = 0; c0 < hd; c0 += kOutCols) {
+    float acc[kOutCols / 8][4];
+    zero_frag(acc);
+    smm_frag<T>(acc, s, vs, ld, c0, min(kOutCols, w16 - c0) / 8);
+    put_o<T>(p, o_f32, dr, acc, row0, m0, c0, h, hd);
+  }
+  if (p.stats != nullptr && threadIdx.x % 4 == 0) {
+    const size_t plane = size_t(p.n) * t * p.heads;
+    const int g = threadIdx.x % 32 / 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + g + 8 * i;
+      if (row < t) {
+        p.stats[(row0 + row) * p.heads + h] = mx[i];
+        p.stats[plane + (row0 + row) * p.heads + h] = l[i];
+      }
+    }
+  }
+}
+
+// T4 staged: NK / 2 warps. Q, K, V, dO and the rows' statistics are staged
+// once. Query pass: each warp takes S and dP of its 16 rows over all keys
+// into registers, P from T2's statistics, delta = rowsum(P dP) over the
+// unrounded P by quad sums, dS = round(P (dP - delta) scale), dQ = dS K,
+// and leaves round(P) and dS in shared memory. Key pass, after one
+// barrier: dV = round(P)^T dO and dK = dS^T Q of the warp's 16 keys from
+// those tiles (ldmatrix.trans); no logit is recomputed. Every output
+// element is written by one warp: no atomics.
+template <typename T, int NK>
+__global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
+    tiled_attention_bwd_staged_kernel(AttBwdArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kT16 = 8 * NK;
+  const int g = threadIdx.x % 32 / 4;
+  const int t = p.t, hd = p.d / p.heads, w16 = r16(hd), ld = pad_ld(w16, sizeof(T));
+  const int ldt = pad_ld(kT16, sizeof(T));
+  const int h = blockIdx.x % p.heads, an = blockIdx.x / p.heads;
+  if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) return;
+  const size_t row0 = size_t(an) * t;
+  const size_t off = row0 * p.P + (h / p.gh) * p.pw + (h % p.gh) * hd;
+  const int kq = p.gh * hd;
+  const T* base = static_cast<const T*>(p.qkv) + off;
+  T* dbase = static_cast<T*>(p.dqkv) + off;
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kT16 * ld;
+  T* vs = ks + kT16 * ld;
+  T* dos = vs + kT16 * ld;
+  T* ps = dos + kT16 * ld;
+  T* dss = ps + kT16 * ldt;
+  float* smx = reinterpret_cast<float*>(dss + kT16 * ldt);
+  float* ssum = smx + kT16;
+  const float* st = p.stats + row0 * p.heads + h;
+  stage(qs, ld, base, p.P, t, kT16, hd, w16);
+  stage(ks, ld, base + kq, p.P, t, kT16, hd, w16);
+  stage_col(smx, st, p.heads, t, kT16);
+  stage_col(ssum, st + size_t(p.n) * t * p.heads, p.heads, t, kT16);
+  cp_async_commit();
+  // V and dO land while S and P are taken
+  stage(vs, ld, base + 2 * kq, p.P, t, kT16, hd, w16);
+  stage(dos, ld, static_cast<const T*>(p.do_c) + row0 * p.d + h * hd, p.d, t, kT16, hd, w16);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  const int m0 = 16 * (threadIdx.x / 32);
+  {  // the query pass
+    float mr[2], il[2], ds[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + g + 8 * i;
+      mr[i] = smx[row];
+      il[i] = row < t ? 1.f / ssum[row] : 0.f;
+    }
+    float s[NK][4], dp[NK][4];
+    zero_frag(s);
+    smm<T, NK, false, false>(s, qs, ld, m0, ks, ld, 0, w16 / 16, NK);
+    log2_logits(s, 0, t, p.scale * kLog2e);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - mr[e / 2]) * il[e / 2];
+    cp_async_wait<0>();
+    __syncthreads();  // V and dO have landed
+    zero_frag(dp);
+    smm<T, NK, false, false>(dp, dos, ld, m0, vs, ld, 0, w16 / 16, NK);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[e / 2] += s[j][e] * dp[j][e];
+    ds[0] = quad_sum(ds[0]);
+    ds[1] = quad_sum(ds[1]);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = rnd<T>(s[j][e] * (dp[j][e] - ds[e / 2]) * p.scale);
+    put_frag(s, ps, ldt, m0);  // round(P)
+    put_frag(dp, dss, ldt, m0);
+    for (int c0 = 0; c0 < hd; c0 += kOutCols) {
+      float acc[kOutCols / 8][4];
+      zero_frag(acc);
+      smm_frag<T>(acc, dp, ks, ld, c0, min(kOutCols, w16 - c0) / 8);
+      put_rows(acc, dbase, p.P, m0, c0, t, hd);
+    }
+  }
+  __syncthreads();  // every row's round(P) and dS are in shared memory
+  // the key pass: the warp's 16 keys from m0
+  for (int c0 = 0; c0 < hd; c0 += kOutCols) {
+    const int nn = min(kOutCols, w16 - c0) / 8;
+    float av[kOutCols / 8][4], ak[kOutCols / 8][4];
+    zero_frag(av);
+    zero_frag(ak);
+    smm<T, kOutCols / 8, true, true>(av, ps, ldt, m0, dos, ld, c0, NK / 2, nn);
+    smm<T, kOutCols / 8, true, true>(ak, dss, ldt, m0, qs, ld, c0, NK / 2, nn);
+    put_rows(av, dbase + 2 * kq, p.P, m0, c0, t, hd);
+    put_rows(ak, dbase + kq, p.P, m0, c0, t, hd);
+  }
+}
+
 // ---- launchers ----
 
 template <typename T>
@@ -735,10 +1180,45 @@ bool heads_ok(int d, int heads, int gh, int pw, int P) {
          (long long)((heads + gh - 1) / gh) * pw <= P;
 }
 
+// Launch a staged kernel on `blocks` blocks of `threads` with `smem` bytes
+// of dynamic shared memory.
+template <typename Kern, typename... Args>
+int launch_staged(Kern kern, long long blocks, int threads, size_t smem, cudaStream_t stream,
+                  Args... args) {
+  if (blocks > (1LL << 31) - 1) return int(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  kern<<<unsigned(blocks), threads, smem, stream>>>(args...);
+  return int(cudaGetLastError());
+}
+
+// The staged kernels' instances, by T rounded up to 16 (16 .. kStagedT): NK = T16 / 8.
+#define NE_STAGED_CASES(K) K(2) K(4) K(6) K(8) K(10) K(12) K(14) K(16)
+static_assert(kStagedT == 8 * 16, "NE_STAGED_CASES runs to NK 16");
+
+template <typename T>
+int launch_attention_staged(const AttArgs& p, bool o_f32, cudaStream_t stream) {
+  const int hd = p.d / p.heads;
+  if (!staged_fits(p.t, hd, sizeof(T), false)) return int(cudaErrorInvalidValue);
+  const long long blocks = (long long)p.n * p.heads;
+  const size_t smem = staged_smem(p.t, hd, sizeof(T), false);
+  switch (r16(p.t) / 8) {
+#define NE_CASE(NK)                                                                          \
+  case NK:                                                                                   \
+    return launch_staged(tiled_attention_staged_kernel<T, NK>, blocks, 16 * NK, smem, stream, \
+                         p, o_f32);
+    NE_STAGED_CASES(NE_CASE)
+#undef NE_CASE
+  }
+  return int(cudaErrorInvalidValue);
+}
+
 template <typename T, typename O>
-int launch_attention(const AttArgs& p, cudaStream_t stream) {
+int launch_attention(const AttArgs& p, int staged, cudaStream_t stream) {
   if (p.t < 1 || !heads_ok(p.d, p.heads, p.gh, p.pw, p.P) || p.ldo < p.d)
     return int(cudaErrorInvalidValue);
+  if (staged) return launch_attention_staged<T>(p, std::is_same<O, float>::value, stream);
   const long long blocks = (long long)p.n * p.heads * ((p.t + kTile - 1) / kTile);
   if (blocks > (1LL << 31) - 1) return int(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
@@ -761,9 +1241,23 @@ int launch_pool(const PoolArgs& p, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_attention_bwd(const AttBwdArgs& p, cudaStream_t stream) {
+int launch_attention_bwd(const AttBwdArgs& p, int staged, cudaStream_t stream) {
   if (p.t < 1 || !heads_ok(p.d, p.heads, p.gh, p.pw, p.P)) return int(cudaErrorInvalidValue);
   const long long blocks = (long long)p.n * p.heads;
+  if (staged) {
+    const int hd = p.d / p.heads;
+    if (!staged_fits(p.t, hd, sizeof(T), true)) return int(cudaErrorInvalidValue);
+    const size_t smem = staged_smem(p.t, hd, sizeof(T), true);
+    switch (r16(p.t) / 8) {
+#define NE_CASE(NK)                                                                              \
+  case NK:                                                                                       \
+    return launch_staged(tiled_attention_bwd_staged_kernel<T, NK>, blocks, 16 * NK, smem, stream, \
+                         p);
+      NE_STAGED_CASES(NE_CASE)
+#undef NE_CASE
+    }
+    return int(cudaErrorInvalidValue);
+  }
   if (blocks > (1LL << 31) - 1) return int(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
   tiled_attention_bwd_kernel<T><<<unsigned(blocks), kAttThreads, 0, stream>>>(p);
@@ -795,19 +1289,23 @@ int tiled_qkv(const void* x, int x_rows, const void* wqkv, void* qkv, int rows, 
 // compute dtype: o after the stream-1 mask (thr_att, inv_att under the
 // seed) or ext [n * t, d] times inv_ext; stats (may be null) [2][n * t]
 // [heads] fp32: each row's max of the base-2 logits and its sum of exp2.
-// Articles at or past n_valid (or *nv_dev) are left unwritten.
+// Articles at or past n_valid (or *nv_dev) are left unwritten. staged: 1
+// the staged kernel (a pair in shared memory; refused where it does not
+// fit), 0 the gathering one.
 int tiled_attention(const void* qkv, void* o, int ldo, int o_f32, void* stats, int n, int t, int d,
                     int heads, int gh, int pw, int P, int n_valid, const void* nv_dev, float scale,
                     int is_bf16, unsigned seed_lo, unsigned seed_hi, const void* seed_dev,
-                    unsigned thr_att, float inv_att, const void* ext, float inv_ext, void* stream) {
+                    unsigned thr_att, float inv_att, const void* ext, float inv_ext, int staged,
+                    void* stream) {
   const AttArgs p{qkv, o, static_cast<float*>(stats), static_cast<const float*>(ext), inv_ext, n, t,
                   d, heads, gh, pw, P, ldo, n_valid, scale,
                   philox::Dropout{{seed_lo, seed_hi}, 0u, thr_att, 1.f, inv_att},
                   static_cast<const int*>(nv_dev), static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return o_f32 ? launch_attention<bf16, float>(p, s) : launch_attention<bf16, bf16>(p, s);
-  return launch_attention<float, float>(p, s);
+    return o_f32 ? launch_attention<bf16, float>(p, staged, s)
+                 : launch_attention<bf16, bf16>(p, staged, s);
+  return launch_attention<float, float>(p, staged, s);
 }
 
 // T3. Forward (is_bwd 0): src = o [n * t, lds] fp32 -> out [n, d] fp32
@@ -836,16 +1334,18 @@ int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, c
 }
 
 // T4. qkv [n * t, P] as T2's, do_c [n * t, d], stats from T2, delta
-// [n * t, heads] fp32 scratch -> dqkv [n * t, P] (dQ|dK|dV where T1 puts
-// Q|K|V; other columns and rows untouched).
+// [n * t, heads] fp32 scratch (the gathering kernel's) -> dqkv [n * t, P]
+// (dQ|dK|dV where T1 puts Q|K|V; other columns and rows untouched).
+// staged as T2's.
 int tiled_attention_bwd(const void* qkv, const void* do_c, const void* stats, void* delta,
                         void* dqkv, int n, int t, int d, int heads, int gh, int pw, int P,
-                        int n_valid, const void* nv_dev, float scale, int is_bf16, void* stream) {
+                        int n_valid, const void* nv_dev, float scale, int is_bf16, int staged,
+                        void* stream) {
   const AttBwdArgs p{qkv,   do_c, static_cast<const float*>(stats), static_cast<float*>(delta),
                      dqkv,  n,    t,  d, heads, gh, pw, P, n_valid, scale,
                      static_cast<const int*>(nv_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_attention_bwd<bf16>(p, s) : launch_attention_bwd<float>(p, s);
+  return is_bf16 ? launch_attention_bwd<bf16>(p, staged, s) : launch_attention_bwd<float>(p, staged, s);
 }
 
 const char* tiled_error_string(int code) {

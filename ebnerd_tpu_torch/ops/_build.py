@@ -10,7 +10,8 @@ compiled at import time.
 ``count`` is each wrapper's launch count: ``fn.launches`` counts the
 launches that run when they are issued, ``fn.captured`` those recorded into
 a CUDA graph under capture (a replay runs them again without the wrapper,
-so a graph's launches are its captured count times its replays).
+so a graph's launches are its captured count times its replays). A wrapper
+that launches one of two kernels counts the second on a ``KernelCount``.
 """
 from __future__ import annotations
 
@@ -24,13 +25,17 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "build_variants", "load", "count"]
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "build_variants", "load", "count",
+           "KernelCount"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("news_encoder", "news_encoder_bwd", "news_encoder_tiled", "philox", "dropout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Flags of one source on top of NVCC_FLAGS: nvcc compiles the tiled library's 40-odd
+# kernel instances in parallel threads
+SOURCE_FLAGS = {"news_encoder_tiled": ["--split-compile=0"]}
 
 _lock = threading.Lock()
 _libs: dict[tuple, ctypes.CDLL] = {}
@@ -49,7 +54,8 @@ def _nvcc() -> str:
 def _target(name: str, flags: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + list(flags)).encode()).hexdigest()[:16]
+    cmd_flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, []) + list(flags)
+    digest = hashlib.sha256(src + " ".join(cmd_flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -71,7 +77,8 @@ def build_variants(jobs) -> dict:
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), *flags, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[(name, tuple(flags))] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, so)
     logs, failed = {}, []
@@ -111,3 +118,11 @@ def count(fn) -> None:
         fn.captured += 1
     else:
         fn.launches += 1
+
+
+class KernelCount:
+    """The launch counts (``launches``, ``captured``) that ``count`` keeps,
+    for a kernel that shares its wrapper with another kernel."""
+
+    def __init__(self):
+        self.launches = self.captured = 0

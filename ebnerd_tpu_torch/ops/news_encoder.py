@@ -77,7 +77,7 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
            "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
-           "articles_per_block", "o_width", "route", "panel_layout",
+           "articles_per_block", "o_width", "route", "panel_layout", "attention_variant",
            "tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd",
            "tiled_attention_bwd", "tiled_forward", "tiled_bwd_core",
            "tiled_qkv_reference", "tiled_attention_reference", "tiled_pool_reference",
@@ -95,6 +95,7 @@ _MAX_ATT_DIM = 512   # padded attention width: two pooling chunks of 256 columns
 _LOG2E = 1.4426950408889634  # the kernels' softmaxes run in base 2
 _BLOCK_ROWS = 64     # rows (tokens) of a block of the forward and the per-block kernel
 _SMEM_LIMIT = 232448
+_STAGED_T = 128      # T2's and T4's staged kernels: T rounded up to 16 at most this
 _GEMM_TILE = (128, 256)  # rows and columns of one bf16 GEMM tile (csrc/news_encoder_bwd.cu)
 _GEMM_K_TILE = 64        # rows of a k-tile; a weight-gradient slice is a multiple of it
 _SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -1014,9 +1015,10 @@ def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the tiled route's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.tiled_qkv.argtypes = [p, i, p, p, i, i, i, i, i, p, i, u, u, p, u, f, p]
-    lib.tiled_attention.argtypes = ([p, p, i, i, p] + [i] * 8 + [p, f, i, u, u, p, u, f, p, f, p])
+    lib.tiled_attention.argtypes = ([p, p, i, i, p] + [i] * 8
+                                    + [p, f, i, u, u, p, u, f, p, f, i, p])
     lib.tiled_pool.argtypes = ([p, i] + [p] * 11 + [i] * 6 + [p, i, i, u, u, p, u, f, p, f, p])
-    lib.tiled_attention_bwd.argtypes = [p] * 5 + [i] * 8 + [p, f, i, p]
+    lib.tiled_attention_bwd.argtypes = [p] * 5 + [i] * 8 + [p, f, i, i, p]
     for fn in (lib.tiled_qkv, lib.tiled_attention, lib.tiled_pool, lib.tiled_attention_bwd):
         fn.restype = i
     lib.tiled_error_string.argtypes = [i]
@@ -1027,6 +1029,29 @@ def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _library_tiled() -> ctypes.CDLL:
     return bind_tiled(_build.load("news_encoder_tiled"))
+
+
+def attention_variant(t: int, head_dim: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """The kernel T2 (or, with ``backward``, T4) launches for articles of T
+    tokens and heads ``head_dim`` wide in the compute ``dtype``: "staged"
+    (an (article, head) pair in one block's shared memory, a row of logits
+    in registers) where T rounded up to 16 is at most 128, the head's
+    columns come in whole 4-byte pieces (cp.async's smallest: an even width
+    in bf16) and the pair's tiles fit a block; else "gather" (fragments
+    gathered from device memory by query tiles, any shape). The tiles: Q, K
+    and V (T4: and dO) of T16 rows, each row the head width rounded up to
+    16 and 16 bytes; T4 also round(P) and dS [T16 x T16 + 16 bytes] and the
+    rows' max and sum. At T 128 the head width reaches 288 (T2) and 144 (T4)
+    in bf16, 144 and 32 in fp32; the launchers refuse a "staged" request
+    past these tiles."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    t16, w16 = -(-t // 16) * 16, -(-head_dim // 16) * 16
+    pad = 16 // elem
+    smem = t16 * (w16 + pad) * elem * (4 if backward else 3)
+    if backward:
+        smem += 2 * t16 * (t16 + pad) * elem + 2 * t16 * 4
+    fits = t16 <= _STAGED_T and head_dim * elem % 4 == 0 and smem <= _SMEM_LIMIT
+    return "staged" if fits else "gather"
 
 
 def _heads(packed: PackedWeights) -> tuple:
@@ -1205,7 +1230,8 @@ def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int
     """T2 on Q|K|V [N*T, P]: (o, stats) as ``tiled_attention_reference``
     gives them; the forward (``backward`` False) keeps no stats (None) and
     leaves the rows past the valid articles unwritten, the backward's
-    round(o) is zero there. CPU tensors take the plain version."""
+    round(o) is zero there. The kernel is ``attention_variant``'s. CPU
+    tensors take the plain version."""
     if qkv.device.type == "cpu":
         o, stats = tiled_attention_reference(qkv, packed, drop, n=n, t=t, nv=nv, backward=backward)
         return o, (stats if backward else None)
@@ -1216,15 +1242,17 @@ def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int
         stats = torch.empty(2, n * t, heads, device=dev)
     else:
         o, stats = torch.empty(n * t, d, device=dev), None
-    _launch_tiled(tiled_attention, "tiled_attention", dev, qkv.data_ptr(), o.data_ptr(),
-                  o.shape[1], int(not backward), _ptr(stats), n, t, d, heads, gh, pw, p_cols, nv,
-                  _ptr(nv_dev), 1.0 / math.sqrt(hd), int(cdt == torch.bfloat16), drop.seed_lo,
-                  drop.seed_hi, _ptr(drop.seed_dev), drop.thr_att, drop.inv_att,
-                  _ptr(drop.ext_mask), drop.inv_ext)
+    staged = attention_variant(t, hd, cdt) == "staged"
+    _launch_tiled(tiled_attention.staged if staged else tiled_attention, "tiled_attention", dev,
+                  qkv.data_ptr(), o.data_ptr(), o.shape[1], int(not backward), _ptr(stats), n, t,
+                  d, heads, gh, pw, p_cols, nv, _ptr(nv_dev), 1.0 / math.sqrt(hd),
+                  int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev),
+                  drop.thr_att, drop.inv_att, _ptr(drop.ext_mask), drop.inv_ext, int(staged))
     return o, stats
 
 
 tiled_attention.launches = tiled_attention.captured = 0
+tiled_attention.staged = _build.KernelCount()  # the staged kernel's; the gathering one's above
 
 
 def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
@@ -1283,21 +1311,24 @@ tiled_pool_bwd.launches = tiled_pool_bwd.captured = 0
 def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int, nv: int,
                         nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """T4: dQ|dK|dV [N*T, P] in T1's layout (zeros in the columns no head
-    takes and past the valid rows) from Q|K|V, T3's do and T2's stats. CPU
-    tensors take the plain version."""
+    takes and past the valid rows) from Q|K|V, T3's do and T2's stats. The
+    kernel is ``attention_variant``'s. CPU tensors take the plain version."""
     if qkv.device.type == "cpu":
         return tiled_attention_bwd_reference(qkv, do, stats, packed, n=n, t=t, nv=nv)
     cdt, dev = packed.wqkv.dtype, qkv.device
     d, heads, hd, gh, pw, p_cols = _heads(packed)
+    staged = attention_variant(t, hd, cdt, backward=True) == "staged"
     dqkv = torch.zeros(n * t, p_cols, dtype=cdt, device=dev)
-    delta = torch.empty(n * t, heads, device=dev)
-    _launch_tiled(tiled_attention_bwd, "tiled_attention_bwd", dev, qkv.data_ptr(), do.data_ptr(),
-                  stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), n, t, d, heads, gh, pw,
-                  p_cols, nv, _ptr(nv_dev), 1.0 / math.sqrt(hd), int(cdt == torch.bfloat16))
+    delta = None if staged else torch.empty(n * t, heads, device=dev)
+    _launch_tiled(tiled_attention_bwd.staged if staged else tiled_attention_bwd,
+                  "tiled_attention_bwd", dev, qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                  _ptr(delta), dqkv.data_ptr(), n, t, d, heads, gh, pw, p_cols, nv, _ptr(nv_dev),
+                  1.0 / math.sqrt(hd), int(cdt == torch.bfloat16), int(staged))
     return dqkv
 
 
 tiled_attention_bwd.launches = tiled_attention_bwd.captured = 0
+tiled_attention_bwd.staged = _build.KernelCount()
 
 
 def tiled_forward(x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int, t: int,

@@ -36,6 +36,15 @@ SHAPES = [
     (3, 40, 16, 1, 80, 24, 3, 3),     # head width 80: one head a panel of 256
     (3, 100, 16, 1, 128, 600, 3, 3),  # T 100, head width 128 (a 384-column panel), A 600
     (2, 64, 16, 8, 64, 512, 2, 2),    # fp32 D 512 x A 512: past the wide instance's smem
+    # either side of T2's and T4's staged kernels (``attention_variant``)
+    (2, 128, 16, 2, 8, 16, 2, 2),     # T 128: their last T
+    (2, 129, 16, 2, 8, 16, 2, 1),     # T 129: the gathering kernels
+    (2, 128, 16, 1, 32, 16, 2, 2),    # fp32 T4's head-width limit at T 128
+    (2, 128, 16, 1, 33, 16, 2, 2),    # one past: T4 gathers, T2 staged
+    (2, 128, 16, 1, 144, 24, 2, 2),   # fp32 T2's limit and bf16 T4's
+    (2, 128, 16, 1, 145, 24, 2, 1),   # one past fp32 T2's
+    (1, 128, 16, 1, 288, 16, 1, 1),   # bf16 T2's limit
+    (1, 128, 16, 1, 290, 16, 1, 1),   # one (even width) past it
 ]
 
 
@@ -243,6 +252,30 @@ def test_route_at_each_boundary(t, head_dim, a, smem, expected):
     shared memory: the narrow and wide instances keep every shape they
     took, and the rest takes the tiled route."""
     assert port.route(t, head_dim, -(-a // 16) * 16, smem) == expected
+
+
+@pytest.mark.parametrize("t,head_dim,dtype,backward,expected", [
+    (112, 20, torch.bfloat16, False, "staged"), (112, 20, torch.bfloat16, True, "staged"),
+    (128, 20, torch.bfloat16, False, "staged"), (129, 20, torch.bfloat16, False, "gather"),
+    (128, 20, torch.bfloat16, True, "staged"), (129, 20, torch.bfloat16, True, "gather"),
+    (128, 288, torch.bfloat16, False, "staged"), (128, 290, torch.bfloat16, False, "gather"),
+    (128, 144, torch.bfloat16, True, "staged"), (128, 146, torch.bfloat16, True, "gather"),
+    (128, 144, torch.float32, False, "staged"), (128, 145, torch.float32, False, "gather"),
+    (128, 32, torch.float32, True, "staged"), (128, 33, torch.float32, True, "gather"),
+    (129, 8, torch.float32, False, "gather"), (129, 8, torch.float32, True, "gather"),
+    (100, 176, torch.bfloat16, True, "staged"), (100, 178, torch.bfloat16, True, "gather"),
+    (100, 64, torch.float32, True, "staged"), (100, 65, torch.float32, True, "gather"),
+    (100, 21, torch.bfloat16, False, "gather"), (100, 21, torch.float32, False, "staged"),
+    (1, 1, torch.float32, True, "staged"), (100, 20, torch.bfloat16, True, "staged"),
+])
+def test_attention_variant_at_each_boundary(t, head_dim, dtype, backward, expected):
+    """T2's and T4's kernel: staged up to T 128 (112, 128 and 129 rounded to
+    16) where the pair's tiles fit a block, at each dtype's and kernel's
+    head-width limit (T 128: bf16 T2 288, T4 144; fp32 144 and 32; T 100:
+    bf16 T4 176, fp32 T4 64) and the next width past it; an odd bf16 width
+    (no whole 4-byte pieces for cp.async) gathers, an odd fp32 one does not;
+    the history-100 user tower's heads (20 of 20) take the staged T4."""
+    assert port.attention_variant(t, head_dim, dtype, backward) == expected
 
 
 HIST = 100
