@@ -975,20 +975,32 @@ C3B_CMP_BS = 4_096   # the step compared with the plain path: at 16,384 the plai
                      # [B, 20, 100, 100] fp32 attention tensors (13 GB each) would fill the card
 C3B_SCAN_BS = 4_096  # the scan and mesh checks' batch (three groups of four, twice)
 C3B_PLAIN_CHUNK = 1_024  # articles a call of a plain version takes at the timed shape (memory)
-TILED = ("tiled_qkv", "tiled_attention", "tiled_attention_staged", "tiled_pool", "tiled_pool_bwd",
-         "tiled_attention_bwd", "tiled_attention_bwd_staged")
+TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_attention", "tiled_attention_staged", "tiled_pool",
+         "tiled_pool_resident", "tiled_pool_bwd", "tiled_pool_bwd_resident", "tiled_attention_bwd",
+         "tiled_attention_bwd_staged")
 
 
-def tiled_call(t, hd, cdt) -> dict:
-    """The tiled kernels' launches in one forward and its backward on the
-    tiled route: T1 2, T2 2 and T4 1 in ``attention_variant``'s kernel, T3
-    1 + 1."""
+def tiled_names(t, hd, cdt, d, a) -> dict:
+    """The kernel names T1-T4 launch at this shape (the rules ``qkv_variant``,
+    ``attention_variant`` and ``pool_variant``): {"t1", "t2", "t3", "t3_bwd",
+    "t4"}."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
-    sfx = lambda bwd: "_staged" if ne.attention_variant(t, hd, cdt, bwd) == "staged" else ""
+    a_pad = -(-a // 16) * 16
+    att = lambda bwd: "_staged" if ne.attention_variant(t, hd, cdt, bwd) == "staged" else ""
+    pool = lambda bwd: "_resident" if ne.pool_variant(t, d, a_pad, cdt, bwd) == "resident" else ""
+    return {"t1": "tiled_qkv" + ("_tma" if ne.qkv_variant(cdt) == "tma" else ""),
+            "t2": "tiled_attention" + att(False), "t3": "tiled_pool" + pool(False),
+            "t3_bwd": "tiled_pool_bwd" + pool(True), "t4": "tiled_attention_bwd" + att(True)}
+
+
+def tiled_call(t, hd, cdt, d=D, a=ATT) -> dict:
+    """The tiled kernels' launches in one forward and its backward on the
+    tiled route: T1 2, T2 2 and T4 1 in the kernel their rules give, T3 1 +
+    1 (``tiled_names``)."""
+    k = tiled_names(t, hd, cdt, d, a)
     out = dict.fromkeys(TILED, 0)
-    out.update({"tiled_qkv": 2, "tiled_attention" + sfx(False): 2, "tiled_pool": 1,
-                "tiled_pool_bwd": 1, "tiled_attention_bwd" + sfx(True): 1})
+    out.update({k["t1"]: 2, k["t2"]: 2, k["t3"]: 1, k["t3_bwd"]: 1, k["t4"]: 1})
     return out
 
 
@@ -1029,19 +1041,45 @@ C3B_VARIANTS = (  # T2 and T4 either side of attention_variant's boundary: T 112
 )
 
 
+C3B_QKV_VARIANTS = (  # T1 either side of qkv_variant (bf16 "tma": x held once to Din 512, then
+    # streamed; fp32 PR 16's "panel"), n_valid on the device (2 below N)
+    # name, n, t, din, dtype, dropout (bf16: x masked by kernel_input; fp32: drawn by T1), kernel
+    ("bf16_din512", 7, 100, 512, torch.bfloat16, "rng", "tma"),
+    ("bf16_din520", 5, 64, 520, torch.bfloat16, None, "tma"),
+    ("bf16_din8", 9, 30, 8, torch.bfloat16, "rng", "tma"),
+    ("fp32_din64", 6, 50, 64, torch.float32, "rng", "panel"),
+    ("fp32_din400", 4, 100, 400, torch.float32, None, "panel"),
+)
+C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: the user tower's D 400 (bf16: the
+    # backward's last D at A 200), D 408 and 448 (the forward's last) and 456, T 128 and 129, a_pad
+    # 256 and 272, fp32 D 144 and 152; n_valid on the device (2 below N), both dropout modes
+    # name, n, t, d, a, dtype, dropout, the kernels of the forward and the backward
+    ("bf16_t100_d400_a200", 6, 100, 400, 200, torch.bfloat16, "rng", "resident", "resident"),
+    ("bf16_t100_d408_a200", 5, 100, 408, 200, torch.bfloat16, "mask", "resident", "chunked"),
+    ("bf16_t100_d448_a200", 5, 100, 448, 200, torch.bfloat16, None, "resident", "chunked"),
+    ("bf16_t100_d456_a200", 5, 100, 456, 200, torch.bfloat16, "rng", "chunked", "chunked"),
+    ("bf16_t128_d64_a256", 6, 128, 64, 256, torch.bfloat16, "mask", "resident", "resident"),
+    ("bf16_t129_d64_a256", 5, 129, 64, 256, torch.bfloat16, "rng", "chunked", "chunked"),
+    ("bf16_t100_d64_a257", 5, 100, 64, 257, torch.bfloat16, "mask", "chunked", "chunked"),
+    ("fp32_t100_d144_a200", 5, 100, 144, 200, torch.float32, "rng", "resident", "resident"),
+    ("fp32_t100_d152_a200", 5, 100, 152, 200, torch.float32, "mask", "chunked", "chunked"),
+    ("fp32_t20_d16_a40", 7, 20, 16, 40, torch.float32, None, "resident", "resident"),
+)
+
+
 def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
     """T1-T4 each on the same inputs as its plain version (T2's o in both
     directions and its statistics, T3 both directions, T4 on the plain
     do): the outputs within ``rel`` of max|plain| over the valid rows.
-    Returns {kernel: [max abs err, max|plain|]}, T2 and T4 under the name
-    of the kernel ``attention_variant`` gives them."""
+    Returns {kernel: [max abs err, max|plain|]}, each under the name of the
+    kernel its rule gives it (``tiled_names``)."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     rows = nv * t
     out = {}
     hd, cdt = packed.w_att.shape[0] // packed.num_heads, packed.wqkv.dtype
-    t2, t4 = ("tiled_attention" + ("_staged" if ne.attention_variant(t, hd, cdt, b) == "staged"
-                                   else "") for b in (False, True))
+    k = tiled_names(t, hd, cdt, packed.w_att.shape[0], packed.b_att.shape[0])
+    t1, t2, t3, t3b, t4 = k["t1"], k["t2"], k["t3"], k["t3_bwd"], k["t4"]
 
     def cmp(name, got, ref):
         err = (got.float() - ref.float()).abs().max().item() if ref.numel() else 0.0
@@ -1054,7 +1092,7 @@ def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
 
     kw = dict(n=n, t=t, nv=nv)
     qkv = ne.tiled_qkv(xin, packed, drop_in, **kw)
-    cmp("tiled_qkv", qkv[:rows], ne.tiled_qkv_reference(xin, packed, drop_in, **kw)[:rows])
+    cmp(t1, qkv[:rows], ne.tiled_qkv_reference(xin, packed, drop_in, **kw)[:rows])
     for bwd in (False, True):
         o, st = ne.tiled_attention(qkv, packed, drop_in, backward=bwd, **kw)
         ro, rst = ne.tiled_attention_reference(qkv, packed, drop_in, backward=bwd, **kw)
@@ -1063,13 +1101,13 @@ def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
             cmp(f"{t2} max", st[0, :rows], rst[0, :rows])
             cmp(f"{t2} sum", st[1, :rows], rst[1, :rows])
         else:
-            cmp("tiled_pool", ne.tiled_pool(o, packed, **kw), ne.tiled_pool_reference(o, packed, **kw))
+            cmp(t3, ne.tiled_pool(o, packed, **kw), ne.tiled_pool_reference(o, packed, **kw))
     got = ne.tiled_pool_bwd(o, packed, g, drop_in, **kw)
     ref = ne.tiled_pool_bwd_reference(o, packed, g, drop_in, **kw)
     for i, name in enumerate(("do", "dz", "db", "dq")):
         cut = (lambda v: v[:rows]) if i < 2 else (lambda v: v[:nv])
-        cmp(f"tiled_pool_bwd {name}", cut(got[i]), cut(ref[i]))
-    cmp(t4.replace("tiled_attention", "tiled_attention_bwd"),
+        cmp(f"{t3b} {name}", cut(got[i]), cut(ref[i]))
+    cmp(t4,
         ne.tiled_attention_bwd(qkv, ref[0], st, packed, **kw)[:rows],
         ne.tiled_attention_bwd_reference(qkv, ref[0], st, packed, **kw)[:rows])
     return out
@@ -1103,7 +1141,7 @@ def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
     grads = ne.fused_news_encoder_bwd(x, *ws, g, **kw, packed=packed)
     torch.cuda.synchronize()
     cnt = read_counts()
-    check(all(cnt[k] == v for k, v in tiled_call(t, hd, cdt).items())
+    check(all(cnt[k] == v for k, v in tiled_call(t, hd, cdt, d, a).items())
           and cnt["news_encoder_fwd"] == 0 and cnt["news_encoder_bwd_block"] == 0,
           f"c3b {name}: launches {cnt}")
     tol = FP32_ATOL if cdt == torch.float32 else BF16_REL_TOL * ref.abs().max().item()
@@ -1125,8 +1163,9 @@ def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
     xin, _, drop_in = ne.kernel_input(x, nvv, dropc)
     parts = tiled_parts(xin, packed, drop_in, g, n, t, nvv, rel)
     variants = [ne.attention_variant(t, hd, cdt, b) for b in (False, True)]
+    kern = tiled_names(t, hd, cdt, d, a)
     print(f"[c3b] {name}: {n}x{t}x{din} heads {heads}x{hd} A {a} {str(cdt)[6:]} n_valid={nvv} "
-          f"dropout={drop}: tiled, T2 {variants[0]}, T4 {variants[1]}; forward {err:.2e} (tol "
+          f"dropout={drop}: tiled, " + ", ".join(kern.values()) + f"; forward {err:.2e} (tol "
           f"{tol:.2e}); "
           + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in errs.items())
           + f" (rel tol {rel}); parts " + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s)
@@ -1135,6 +1174,7 @@ def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
             "n_valid": nvv, "dropout": drop, "max_abs_err": max([err] + [e for e, _ in
                                                                       errs.values()]),
             "forward_err": err, "grad_errors": errs, "parts": parts, "variants": variants,
+            "kernels": kern,
             "launches": {k: cnt[k] for k in TILED}}
 
 
@@ -1331,6 +1371,136 @@ def c3b_variants(gen) -> list:
     return rec
 
 
+def c3b_qkv_pool_variants(gen) -> dict:
+    """T1 at C3B_QKV_VARIANTS and T3 (both directions) at C3B_POOL_VARIANTS:
+    the rule answers the case's kernel; with n_valid read from the device
+    (2 below N) and the case's dropout, each output against its plain
+    version (``BF16_REL_TOL``, 1e-4 of the scale in fp32) over the valid
+    rows, two launches bit for bit, each launch counted on its kernel, and
+    round(dz) zero past n_valid; where the rule answers PR 16's kernel, the
+    library refuses a request for the new one and writes nothing."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    lib, rec = ne._library_tiled(), {"qkv": [], "pool": []}
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for name, n, t, din, cdt, drop, want in C3B_QKV_VARIANTS:
+        heads, hd, a, nv, bf = 4, 16, 48, n - 2, cdt == torch.bfloat16
+        check(ne.qkv_variant(cdt) == want, f"c3b qkv variant {name}: qkv_variant answers "
+                                           f"{ne.qkv_variant(cdt)}")
+        x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
+        packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+        keep = KEEP if drop else 1.0
+        dropc = ne.dropout_config(n, t, heads * hd, keep, keep, SEED64 if drop else None, None,
+                                  DEV)
+        nvt = torch.tensor(nv, dtype=torch.int32, device=DEV)
+        xin, _, drop_in = ne.kernel_input(x, n, dropc, nv_dev=nvt)
+        kw, rows = dict(n=n, t=t, nv=n, nv_dev=nvt), nv * t
+        reset_counts()
+        runs = [ne.tiled_qkv(xin, packed, drop_in, **kw) for _ in (0, 1)]
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        kern = "tiled_qkv" + ("_tma" if want == "tma" else "")
+        check(cnt[kern] == 2 and sum(cnt[k] for k in TILED) == 2,
+              f"c3b qkv variant {name}: launches {cnt}")
+        ref = ne.tiled_qkv_reference(xin, packed, drop_in, n=n, t=t, nv=nv)[:rows]
+        e = (runs[0][:rows].float() - ref.float()).abs().max().item()
+        sc = ref.float().abs().max().item()
+        rel = BF16_REL_TOL if bf else FP32_GRAD_REL
+        check(bool(torch.isfinite(runs[0][:rows]).all()) and e <= rel * sc,
+              f"c3b qkv variant {name}: max|kernel - plain| {e} > {rel} * {sc}")
+        check(torch.equal(runs[0][:rows], runs[1][:rows]), f"c3b qkv variant {name}: two launches "
+                                                          f"differ")
+        refused = None
+        if want == "panel":  # a "tma" request in fp32: refused, nothing written
+            before = runs[1].clone()
+            with torch.cuda.device(DEV):
+                refused = lib.tiled_qkv(xin.data_ptr(), xin.shape[0], packed.wqkv.data_ptr(),
+                                        runs[1].data_ptr(), n * t, n, t, xin.shape[1],
+                                        packed.wqkv.shape[1], nvt.data_ptr(), int(bf), 0, 0, None,
+                                        0, 1.0, 1, stream())
+            torch.cuda.synchronize()
+            check(refused != 0 and torch.equal(runs[1], before),
+                  f"c3b qkv variant {name}: a tma request in fp32 returned {refused}")
+        print(f"[c3b] qkv variant {name}: [{n}, {t}, {din}] {str(cdt)[6:]} n_valid {nv} (device) "
+              f"dropout={drop}: T1 {want}; max_abs_err={e:.2e} (of {sc:.2e}, rel tol {rel}); two "
+              f"launches bit-equal" + ("; a tma request refused" if refused else ""), flush=True)
+        rec["qkv"].append({"case": name, "shape": [n, t, din], "dtype": str(cdt)[6:], "n_valid": nv,
+                           "dropout": drop, "variant": want, "error": [e, sc], "bit_equal": True,
+                           "tma_refused": refused is not None})
+    for name, n, t, d, a, cdt, drop, *want in C3B_POOL_VARIANTS:
+        nv, bf = n - 2, cdt == torch.bfloat16
+        _, ws = make_inputs(1, 1, 16, cdt, gen, 1, d, a, fan=True)
+        packed = ne.pack_weights(*ws, num_heads=1, compute_dtype=cdt)
+        a_pad = packed.w_att.shape[1]
+        got = [ne.pool_variant(t, d, a_pad, cdt, b) for b in (False, True)]
+        check(got == want, f"c3b pool variant {name}: pool_variant answers {got}, not {want}")
+        o = torch.randn(n * t, d, generator=gen, device=DEV) * 0.5
+        oc = torch.zeros(n * t, ne.o_width(d), dtype=cdt, device=DEV)
+        oc[:, :d] = o.to(cdt)
+        g = torch.randn(n, d, generator=gen, device=DEV) * 0.1
+        mask = ((torch.rand(n, t, d, generator=gen, device=DEV) < KEEP).float()
+                if drop == "mask" else None)
+        drop_in = ne.dropout_config(n, t, d, KEEP if drop else 1.0, 1.0,
+                                    SEED64 if drop == "rng" else None, mask, DEV)
+        nvt = torch.tensor(nv, dtype=torch.int32, device=DEV)
+        kw, kr, rows = dict(n=n, t=t, nv=n, nv_dev=nvt), dict(n=n, t=t, nv=nv), nv * t
+        reset_counts()
+        fwd = [ne.tiled_pool(o, packed, **kw) for _ in (0, 1)]
+        bwd = [ne.tiled_pool_bwd(oc, packed, g, drop_in, **kw) for _ in (0, 1)]
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        kf, kb = ("tiled_pool" + ("_resident" if w == "resident" else "") for w in want)
+        kb = kb.replace("tiled_pool", "tiled_pool_bwd")
+        check(cnt[kf] == 2 and cnt[kb] == 2 and sum(cnt[k] for k in TILED) == 4,
+              f"c3b pool variant {name}: launches {cnt}")
+        rel = BF16_REL_TOL if bf else FP32_GRAD_REL
+        rf = ne.tiled_pool_reference(o, packed, **kr)
+        rb = ne.tiled_pool_bwd_reference(oc, packed, g, drop_in, **kr)
+        errs = {}
+        for nm, u, v in (("out", fwd[0], rf), ("do", bwd[0][0][:rows], rb[0][:rows]),
+                         ("dz", bwd[0][1], rb[1]), ("db", bwd[0][2][:nv], rb[2][:nv]),
+                         ("dq", bwd[0][3][:nv], rb[3][:nv])):
+            e, sc = (u.float() - v.float()).abs().max().item(), v.float().abs().max().item()
+            errs[nm] = [e, sc]
+            check(bool(torch.isfinite(u).all()) and e <= rel * sc,
+                  f"c3b pool variant {name}: {nm} max|kernel - plain| {e} > {rel} * {sc}")
+        check(not bwd[0][1][rows:].float().any() and not fwd[0][nv:].any()
+              and not bwd[0][2][nv:].any() and not bwd[0][3][nv:].any(),
+              f"c3b pool variant {name}: outputs past n_valid are not zero")
+        bit = (torch.equal(fwd[0], fwd[1]) and torch.equal(bwd[0][0][:rows], bwd[1][0][:rows])
+               and all(torch.equal(u, v) for u, v in zip(bwd[0][1:], bwd[1][1:])))
+        check(bit, f"c3b pool variant {name}: two launches differ")
+        refused = []
+        for b, w in enumerate(want):  # a resident request where the rule answers chunked
+            if w == "resident":
+                continue
+            outs = [torch.full_like(v, 7.0) for v in ((fwd[0],) if not b else bwd[0])]
+            # out, dz_c, do_c, db_part, dq_part as the C entry takes them
+            o_p = ([None, outs[1].data_ptr(), outs[0].data_ptr(), outs[2].data_ptr(),
+                    outs[3].data_ptr()] if b else [outs[0].data_ptr()] + [None] * 4)
+            src = oc if b else o
+            with torch.cuda.device(DEV):
+                refused.append(lib.tiled_pool(
+                    src.data_ptr(), src.shape[1], packed.w_att.data_ptr(), packed.b_att.data_ptr(),
+                    packed.q_att.data_ptr(), g.data_ptr() if b else None, o_p[0], None, None,
+                    o_p[1], o_p[2], o_p[3], o_p[4], n, t, d, a, a_pad, n, None, int(bf), b, 0, 0,
+                    None, 0, 1.0, None, 1.0, 1, stream()))
+            torch.cuda.synchronize()
+            check(refused[-1] != 0 and all(bool((v == 7.0).all()) for v in outs),
+                  f"c3b pool variant {name}: a resident request past the rule returned "
+                  f"{refused[-1]} or wrote")
+        print(f"[c3b] pool variant {name}: [{n}, {t}] D {d} A {a} {str(cdt)[6:]} n_valid {nv} "
+              f"(device) dropout={drop}: T3 {want[0]}, backward {want[1]}; "
+              + " ".join(f"{k}={e:.2e}/{sc:.2e}" for k, (e, sc) in errs.items())
+              + f" (rel tol {rel}); two launches bit-equal"
+              + (f"; resident requests refused ({len(refused)})" if refused else ""), flush=True)
+        rec["pool"].append({"case": name, "shape": [n, t], "d_a": [d, a], "dtype": str(cdt)[6:],
+                            "n_valid": nv, "dropout": drop, "variants": want, "errors": errs,
+                            "launches": {k: cnt[k] for k in TILED}, "bit_equal": True,
+                            "resident_refused": len(refused)})
+    return rec
+
+
 def plain_chunked(fn, n: int, t: int) -> float:
     """ms of a plain version over all ``n`` articles, called on slices of
     C3B_PLAIN_CHUNK articles (``fn(a0, a1)``), after one untimed slice."""
@@ -1343,16 +1513,21 @@ def plain_chunked(fn, n: int, t: int) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def gathering(fn):
-    """``fn`` run with T2's and T4's wrappers launching the gathering
-    kernels whatever the shape (``attention_variant`` answering "gather"):
-    the earlier kernels timed beside the staged ones."""
+PR16_KERNEL = {"attention_variant": "gather", "qkv_variant": "panel", "pool_variant": "chunked"}
+
+
+def earlier(fn, rule="attention_variant"):
+    """``fn`` run with the wrappers' ``rule`` answering PR 16's kernel
+    whatever the shape (``PR16_KERNEL``: T2's and T4's gathering kernels,
+    T1's panel kernel, T3's chunked one): the earlier kernels timed beside
+    the newer ones."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     def run():
-        with mock.patch.object(ne, "attention_variant", lambda *a, **k: "gather"):
+        with mock.patch.object(ne, rule, lambda *a, **k: PR16_KERNEL[rule]):
             return fn()
     return run
+
 
 
 def c3b_timed(peaks, gen) -> dict:
@@ -1362,8 +1537,8 @@ def c3b_timed(peaks, gen) -> dict:
     over every article (``plain_chunked``), timed with its plain version,
     its bound, and where one PyTorch call computes the same function, that
     call (T1: torch.matmul of its product; T2: scaled_dot_product_attention;
-    T4: its backward). T2 and T4 run in both kernels: the staged ones the
-    wrappers take at this shape, and the gathering ones (``gathering``)."""
+    T4: its backward). Each runs in both its kernels: the newer one the
+    wrapper takes at this shape, and PR 16's (``earlier``)."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     n, t, cdt = TRAIN_BS, C3B_HIST, torch.bfloat16
@@ -1374,11 +1549,15 @@ def c3b_timed(peaks, gen) -> dict:
     g = (torch.randn(n, D, generator=gen, device=DEV) * 1e-2).contiguous()
     rows, a_pad, ow = n * t, packed.w_att.shape[1], ne.o_width(D)
     kw = dict(n=n, t=t, nv=n)
-    check([ne.attention_variant(t, HEAD_DIM, cdt, b) for b in (False, True)] == ["staged"] * 2,
-          "c3b timed: the user tower's T2 and T4 are not the staged kernels")
+    kern = tiled_names(t, HEAD_DIM, cdt, D, ATT)
+    check(kern == {"t1": "tiled_qkv_tma", "t2": "tiled_attention_staged",
+                   "t3": "tiled_pool_resident", "t3_bwd": "tiled_pool_bwd_resident",
+                   "t4": "tiled_attention_bwd_staged"},
+          f"c3b timed: the user tower's kernels are {kern}")
     qkv = ne.tiled_qkv(xin, packed, drop, **kw)
+    qkv_p = earlier(lambda: ne.tiled_qkv(xin, packed, drop, **kw), "qkv_variant")()
     o, _ = ne.tiled_attention(qkv, packed, drop, **kw)
-    o_g, _ = gathering(lambda: ne.tiled_attention(qkv, packed, drop, **kw))()
+    o_g, _ = earlier(lambda: ne.tiled_attention(qkv, packed, drop, **kw))()
     oc, st = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
     do = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)[0]
     torch.cuda.synchronize()
@@ -1395,7 +1574,9 @@ def c3b_timed(peaks, gen) -> dict:
 
     def p_qkv(a0, a1):
         r, k = sl(a0, a1)
-        err("tiled_qkv", qkv[r], ne.tiled_qkv_reference(xin[r], packed, drop, **k))
+        ref = ne.tiled_qkv_reference(xin[r], packed, drop, **k)
+        err("tiled_qkv_tma", qkv[r], ref)
+        err("tiled_qkv", qkv_p[r], ref)
 
     def p_att(a0, a1):
         r, k = sl(a0, a1)
@@ -1404,21 +1585,26 @@ def c3b_timed(peaks, gen) -> dict:
         err("tiled_attention", o_g[r], ref)
 
     pooled = ne.tiled_pool(o, packed, **kw)
+    pooled_c = earlier(lambda: ne.tiled_pool(o, packed, **kw), "pool_variant")()
 
     def p_pool(a0, a1):
         r, k = sl(a0, a1)
-        err("tiled_pool", pooled[a0:a1], ne.tiled_pool_reference(o[r], packed, **k))
+        ref = ne.tiled_pool_reference(o[r], packed, **k)
+        err("tiled_pool_resident", pooled[a0:a1], ref)
+        err("tiled_pool", pooled_c[a0:a1], ref)
 
     bwd = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)
+    bwd_c = earlier(lambda: ne.tiled_pool_bwd(oc, packed, g, drop, **kw), "pool_variant")()
 
     def p_pool_bwd(a0, a1):
         r, k = sl(a0, a1)
         ref = ne.tiled_pool_bwd_reference(oc[r], packed, g[a0:a1], drop, **k)
-        for got, want in zip((bwd[0][r], bwd[1][r], bwd[2][a0:a1], bwd[3][a0:a1]), ref):
-            err("tiled_pool_bwd", got, want)
+        for name, u in (("tiled_pool_bwd_resident", bwd), ("tiled_pool_bwd", bwd_c)):
+            for got, want in zip((u[0][r], u[1][r], u[2][a0:a1], u[3][a0:a1]), ref):
+                err(name, got, want)
 
     dqkv = ne.tiled_attention_bwd(qkv, do, st, packed, **kw)
-    dqkv_g = gathering(lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw))()
+    dqkv_g = earlier(lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw))()
 
     def p_att_bwd(a0, a1):
         r, k = sl(a0, a1)
@@ -1439,17 +1625,26 @@ def c3b_timed(peaks, gen) -> dict:
                            + 2 * n * a_pad * 4),
         "tiled_attention_bwd": (5 * mm, 2 * qkv_b + rows * D * 2 + 2 * rows * heads * 4),
     }
-    for name in ("tiled_attention", "tiled_attention_bwd"):
-        work[name + "_staged"] = work[name]
+    newer = {"tiled_qkv": "tiled_qkv_tma", "tiled_attention": "tiled_attention_staged",
+             "tiled_pool": "tiled_pool_resident", "tiled_pool_bwd": "tiled_pool_bwd_resident",
+             "tiled_attention_bwd": "tiled_attention_bwd_staged"}  # PR 16's kernel: the newer one
+    for name, new in newer.items():
+        work[new] = work[name]
+    t1 = lambda: ne.tiled_qkv(xin, packed, drop, **kw)
     t2 = lambda: ne.tiled_attention(qkv, packed, drop, **kw)
+    t3 = lambda: ne.tiled_pool(o, packed, **kw)
+    t3b = lambda: ne.tiled_pool_bwd(oc, packed, g, drop, **kw)
     t4 = lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw)
-    runs = {"tiled_qkv": (lambda: ne.tiled_qkv(xin, packed, drop, **kw), p_qkv, 5),
+    runs = {"tiled_qkv_tma": (t1, p_qkv, 5),
+            "tiled_qkv": (earlier(t1, "qkv_variant"), None, 3),
             "tiled_attention_staged": (t2, p_att, 5),
-            "tiled_attention": (gathering(t2), None, 3),
-            "tiled_pool": (lambda: ne.tiled_pool(o, packed, **kw), p_pool, 5),
-            "tiled_pool_bwd": (lambda: ne.tiled_pool_bwd(oc, packed, g, drop, **kw), p_pool_bwd, 3),
+            "tiled_attention": (earlier(t2), None, 3),
+            "tiled_pool_resident": (t3, p_pool, 5),
+            "tiled_pool": (earlier(t3, "pool_variant"), None, 3),
+            "tiled_pool_bwd_resident": (t3b, p_pool_bwd, 5),
+            "tiled_pool_bwd": (earlier(t3b, "pool_variant"), None, 2),
             "tiled_attention_bwd_staged": (t4, p_att_bwd, 5),
-            "tiled_attention_bwd": (gathering(t4), None, 2)}
+            "tiled_attention_bwd": (earlier(t4), None, 2)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4 = [torch.randn(n, heads, t, hd, generator=gen, device=DEV).to(cdt) for _ in range(3)]
     library = {"tiled_qkv": qkv_matmul_ms(rows, D, 3 * D, gen, 5),  # x @ [Wq|Wk|Wv]
@@ -1461,13 +1656,14 @@ def c3b_timed(peaks, gen) -> dict:
     library["tiled_attention_bwd"] = time_ms(
         lambda: torch.autograd.grad(out4, q4, dout4, retain_graph=True), 3)
     del q4, out4, dout4
-    for name in ("tiled_attention", "tiled_attention_bwd"):
-        library[name + "_staged"] = library[name]
+    for name in ("tiled_qkv", "tiled_attention", "tiled_attention_bwd"):
+        library[newer[name]] = library[name]
+    older = {v: k for k, v in newer.items()}
     rec, plain_of = {}, {}
     for name, (run, plain, iters) in runs.items():
         ms = time_ms(run, iters, warmup=1)
-        base = name.replace("_staged", "")
-        if plain is not None:  # the gathering kernels share the staged ones' plain version
+        base = older.get(name, name)
+        if plain is not None:  # PR 16's kernels share the newer ones' plain version
             plain_of[base] = plain_chunked(plain, n, t)
         b_ms, b_by = bound(*work[name], peaks[0], peaks)
         e, s = errs[name]
@@ -1482,12 +1678,12 @@ def c3b_timed(peaks, gen) -> dict:
               f"{s:.3e}) ms={ms:.3f} plain_ms={plain_of[base]:.1f} bound_ms={b_ms:.4f} ({b_by}; "
               f"{ms / b_ms:.1f}x it)" + (f" library_ms={lib_ms:.3f} ({ms / lib_ms:.2f}x it)"
                                          if lib_ms else " library: none"), flush=True)
-    for name in ("tiled_attention", "tiled_attention_bwd"):
-        gain = rec[name]["ms"] / rec[name + "_staged"]["ms"]
-        rec[name + "_staged"]["gather_ms"] = rec[name]["ms"]
-        print(f"[c3b] {name} at the user tower: the staged kernel {rec[name + '_staged']['ms']:.3f}"
-              f" ms, the gathering one {rec[name]['ms']:.3f} ({gain:.2f}x)", flush=True)
-    del qkv, o, o_g, oc, st, do, dqkv, dqkv_g, bwd, pooled
+    for name, new in newer.items():
+        gain = rec[name]["ms"] / rec[new]["ms"]
+        rec[new]["pr16_ms"] = rec[name]["ms"]
+        print(f"[c3b] {name} at the user tower: the newer kernel ({new}) {rec[new]['ms']:.3f} ms, "
+              f"PR 16's {rec[name]['ms']:.3f} ({gain:.2f}x)", flush=True)
+    del qkv, qkv_p, o, o_g, oc, st, do, dqkv, dqkv_g, bwd, bwd_c, pooled, pooled_c
     torch.cuda.empty_cache()
     # the whole route: the forward (T1, T2, T3) and the backward (T1-T4, GEMMs, reductions)
     fwd = lambda: ne.fused_news_encoder(x, *ws, num_heads=HEADS, compute_dtype=cdt, packed=packed)
@@ -1621,6 +1817,7 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
           f"[c3b] the history-20 step took the tiled route: {staged_step}")
     rec = {"cases": [c3b_case(*c, gen) for c in C3B_CASES],
            "forced": [c3b_forced(*c, gen) for c in C3B_FORCED], "variants": c3b_variants(gen),
+           "variants_t1_t3": c3b_qkv_pool_variants(gen),
            "graph": c3b_graph(gen)}
     rec["timed"] = c3b_timed(peaks, gen)
     release()
@@ -1628,7 +1825,9 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
                   **tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16))
     keys = K12 + TILED
     rec["training"] = history_training(table, peaks, expect, hist=C3B_HIST, tag="c3b",
-                                       cmp_bs=C3B_CMP_BS, keys=keys, serve_counter="tiled_qkv")
+                                       cmp_bs=C3B_CMP_BS, keys=keys,
+                                       serve_counter=tiled_names(C3B_HIST, HEAD_DIM, torch.bfloat16,
+                                                                 D, ATT)["t1"])
     release()
     out = Path(__file__).resolve().parent / "build" / "cli_nrms_h100"
     rec["cli"], trainer = cli_run("nrms_h100", ["--model", "nrms", "--synthetic",
@@ -4766,20 +4965,27 @@ def main(argv=None) -> int:
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     # [c3b]: the tiled route's kernels, launched by the history-100 steps (that path's counts)
     c3b_l = c3b["training"]["launches"]
-    # the history-100 path's tiled kernels, and past T 128 (the cases) the gathering ones
+    # the history-100 path's tiled kernels, and PR 16's (the cases: past T 128, fp32, wide A)
     path = [k for k, v in tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16).items() if v]
     gather_l = {k: sum(c["launches"][k] for c in c3b["cases"]) for k in TILED}
     check(all(c3b_l[name] > 0 for name in path), f"[c3b] a tiled kernel never ran: {c3b_l}")
-    check(all(gather_l[name] > 0 for name in ("tiled_attention", "tiled_attention_bwd")),
-          f"[c3b] the gathering T2 and T4 never ran in the cases past T 128: {gather_l}")
+    check(all(gather_l[name] > 0 for name in TILED if name not in path),
+          f"[c3b] one of PR 16's T1-T4 never ran in the cases: {gather_l}")
     for k in kernels["kernels"]:
         k["launches_c3b"] = c3b_l.get(k["name"], 0)
         if k["name"] in c3b["timed"]["whole"]:  # K1 and K2 on the tiled route at history 100
             k["c3b_tiled_user_h100"] = c3b["timed"]["whole"][k["name"]]
     tiled_notes = {
-        "tiled_qkv": (234, "T1: the tiled route's QKV projection to device memory (the QKV "
-                           "stage of news_encoder_common.cuh, TMA-fed wgmma in bf16); "
-                           "library_ms is torch.matmul of its product"),
+        "tiled_qkv_tma": (234, "T1, tma (bf16): the tiled route's QKV projection to device "
+                               "memory; persistent 128-row blocks in clusters of 2, x's row "
+                               "block loaded once, the weight's k-tiles through a TMA ring "
+                               "(multicast), m64n128k16 wgmma, the output tile stored by TMA "
+                               "apart from the ring; library_ms is torch.matmul of its product"),
+        "tiled_qkv": (234, "T1, panel (PR 16; fp32, and bf16 with the rule overridden): the QKV "
+                           "stage of news_encoder_common.cuh (TMA-fed wgmma in bf16, 64-row "
+                           "blocks, each 256-column panel through the ring); launches: [c3b]'s "
+                           "fp32 cases; timed at the user tower with the wrapper's rule "
+                           "overridden; library_ms is torch.matmul of its product"),
         "tiled_attention": (234, "T2, gathering (past T 128 or a pair's shared memory): the "
                                  "attention forward by 64-row query tiles on mma.sync fragments "
                                  "gathered from device memory (the rows' statistics, then "
@@ -4792,10 +4998,21 @@ def main(argv=None) -> int:
                                         "memory by cp.async, ldmatrix fragments, each row's "
                                         "logits once in registers, the stream-1 mask; library_ms "
                                         "is scaled_dot_product_attention"),
-        "tiled_pool": (234, "T3's forward: the pooling per article over any T, W_att by 256 "
-                            "columns"),
-        "tiled_pool_bwd": (529, "T3's backward: the pooling backward per article, round(dz) "
-                                "and do"),
+        "tiled_pool_resident": (234, "T3's forward, resident (T <= 128, a_pad <= 256, W_att in "
+                                     "shared memory): a persistent block an SM, z once on "
+                                     "mma.sync from shared memory, fp32 o read once by float4 "
+                                     "into the A chunks, the weighted sum from L2"),
+        "tiled_pool": (234, "T3's forward, chunked (PR 16): a block per article over any T, "
+                            "W_att by 256 columns for every 64 rows; launches: [c3b]'s cases "
+                            "past a_pad 256; timed at the user tower with the wrapper's rule "
+                            "overridden"),
+        "tiled_pool_bwd_resident": (529, "T3's backward, resident: z once, tanh kept in "
+                                         "registers for datt, dz and the partials, round(dz) "
+                                         "by 16-byte stores, do from the shared round(dz) "
+                                         "tile and W_att (ldmatrix)"),
+        "tiled_pool_bwd": (529, "T3's backward, chunked (PR 16): the pooling backward per "
+                                "article, round(dz) and do; launches: [c3b]'s cases; timed at "
+                                "the user tower with the wrapper's rule overridden"),
         "tiled_attention_bwd": (529, "T4, gathering (past T 128 or a pair's shared memory): the "
                                      "attention backward per (article, head): query tiles (dP, "
                                      "dS, dQ), then key tiles (dV, dK); launches: [c3b]'s cases "
@@ -4811,7 +5028,7 @@ def main(argv=None) -> int:
     for name in TILED:
         part = c3b["timed"]["parts"][name]
         line, note = tiled_notes[name]
-        gathers = name in ("tiled_attention", "tiled_attention_bwd")
+        gathers = name not in path
         kernels["kernels"].append(dict(
             {"name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
              "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}",

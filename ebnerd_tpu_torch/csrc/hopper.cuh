@@ -2,10 +2,11 @@
 // across the CTAs of a thread-block cluster), TMA tile loads (also
 // multicast to every CTA of a cluster) and the host-side encoding of their
 // tensor maps, warpgroup MMA (wgmma) shared-memory descriptors and
-// instructions, and register reallocation between warpgroups. Used by the
-// backward's GEMM (news_encoder_bwd.cu) and by the QKV stage that the
-// forward and the backward's per-block kernel share
-// (news_encoder_common.cuh).
+// instructions, TMA stores, and register reallocation between warpgroups.
+// Used by the backward's GEMM (news_encoder_bwd.cu), by the QKV stage that
+// the forward and the backward's per-block kernel share
+// (news_encoder_common.cuh) and by the tiled route's T1
+// (news_encoder_tiled.cu).
 //
 // Shared-memory operands are 128-byte swizzled tiles as TMA writes them
 // with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), in atoms of
@@ -111,6 +112,31 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// Copy the box at src in shared memory to element coordinates (c0, c1) of
+// the tensor map; elements outside the tensor's extent are not written.
+// The writers of src order their stores first (fence_proxy_async, then a
+// barrier); the copy joins this thread's current bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (bulk_wait_read) or are still in flight at all (bulk_wait).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- wgmma ----

@@ -9,11 +9,16 @@
 // whole article in VMEM; an SM's 227 KB do not, so this route keeps the
 // intermediates in device memory and works on them in tiles, any T, any
 // head width, any A:
-//   T1 tiled_qkv_kernel: Q|K|V = round(x * emb mask) @ Wqkv, 64 rows a
-//      block, 256 packed columns a panel, written in the compute dtype. bf16
-//      runs the TMA-fed wgmma QKV stage of news_encoder_common.cuh (x comes
-//      masked, as for K1), fp32 its cp.async/FMA stage, drawing the stream-0
-//      mask. The forward and the backward's recompute both launch it.
+//   T1 tiled_qkv_tma_kernel / tiled_qkv_kernel: Q|K|V = round(x * emb mask)
+//      @ Wqkv, written in the compute dtype; the forward and the backward's
+//      recompute both launch it. bf16 ("tma", below; x comes masked, as for
+//      K1): persistent 128-row blocks, x's row block held in shared memory
+//      for all of P, the weight's k-tiles through a TMA ring, m64n128k16
+//      wgmma, each 128-column output tile stored by TMA from a buffer of
+//      its own. fp32 ("panel", and bf16 when asked: PR 16's kernel): 64 rows
+//      a block, 256 packed columns a panel on the QKV stage of
+//      news_encoder_common.cuh (fp32: cp.async/FMA, drawing the stream-0
+//      mask).
 //   T2 tiled_attention_staged_kernel / tiled_attention_kernel: the
 //      attention forward, O = round(P) V with P normalised, so the
 //      probabilities are rounded where the plain version rounds them (no
@@ -22,13 +27,17 @@
 //      forward's weighted sum) or round(o) in the compute dtype (the
 //      backward's dW operand); the rows' max and sum go to device memory,
 //      [2][n * t][heads], for T4.
-//   T3 tiled_pool_kernel: one block per article, over any T in 64-row tiles
-//      and W_att in 256-column chunks (the wide instance's pooling device
-//      functions). Forward: z, the logits, the softmax over the article's T
-//      rows and the weighted sum of the fp32 o. Backward: the same
-//      recompute from round(o), datt, round(dz) to device memory, the
-//      per-article db and dq partials, and do = round((w g + round(dz)
-//      round(W)^T) * mask).
+//   T3 tiled_pool_resident_kernel / tiled_pool_kernel: forward, z =
+//      round(o) round(W_att), the logits, the softmax over the article's T
+//      rows and the weighted sum of the fp32 o; backward, the same from
+//      round(o), datt, round(dz) to device memory, the per-article db and dq
+//      partials, and do = round((w g + round(dz) round(W)^T) * mask). Where
+//      T rounded up to 16 is at most 128, a_pad at most 256 and W_att fits
+//      ("resident", below): a persistent block an SM holds W_att in shared
+//      memory and takes z once on mma.sync from shared memory. Elsewhere
+//      ("chunked", PR 16's kernel): a block an article, 64-row tiles, W_att
+//      streamed in 256-column chunks (the wide instance's pooling device
+//      functions).
 //   T4 tiled_attention_bwd_staged_kernel / tiled_attention_bwd_kernel: the
 //      attention backward per (article, head): P from T2's statistics,
 //      delta = rowsum(P dP) over the unrounded P, dS = round(P (dP - delta)
@@ -36,8 +45,10 @@
 // After T4 the backward's GEMMs and reductions (news_encoder_bwd.cu) make
 // dx, dWqkv, dW, db and dq, as after the per-block kernel.
 //
-// T2 and T4 have two kernels each; the wrappers pick one before the launch
-// (ops/news_encoder.py `attention_variant`) and pass it as `staged`:
+// Each of T1-T4 has two kernels; the wrappers pick one before the launch
+// (ops/news_encoder.py `qkv_variant`, `attention_variant`, `pool_variant`)
+// and pass the choice, which the launchers refuse where the newer kernel
+// does not take the shape. T2 and T4 (`staged`):
 //   - staged, where T rounded up to 16 (T16) is at most 128 and an
 //     (article, head) pair's tiles fit a block (at T 128, head widths up to
 //     288 for T2 and 144 for T4 in bf16, 144 and 32 in fp32; in bf16 an
@@ -70,15 +81,16 @@
 //
 // What bounds them on the card: at the history-100 user tower ([16,384,
 // 100, 400], 20 heads of 20, A 200, bf16) T1 is bound by tensor-core
-// operations (1.7 TFLOP a call); T2 and T4 by bytes (Q|K|V, o, dO and
-// dQ|dK|dV: 6.5 and 9.4 GB), their products (0.26 and 0.66 TFLOP) being
-// small; T3 by the 0.26 TFLOP of its z product (twice in the backward,
-// with the do product beside it). The staged T2 and T4 read each byte once
-// and take 4.2x and 5.6x their bound there (PERF.md). The rest is not
-// traced; the candidates are each pair's copy latency at the few blocks an
-// SM holds (T2 three, by registers; T4 two, by its 90 KB of shared memory
-// at T 100) and its short mma.sync chains. The gathering ones take 16x and
-// 52x: their scattered loads.
+// operations (1.6 TFLOP a call) and nearly as much by bytes (x and the
+// 4.2 GB of Q|K|V); T2, T3 and T4 by bytes (Q|K|V, o, dO and dQ|dK|dV: 6.5
+// and 9.4 GB for T2 and T4; o, round(o), round(dz) and do: 2.6 and 3.3 GB
+// for T3), their products being small. The staged T2 and T4 read each
+// byte once and take 4.2x and 5.6x their bound there (PERF.md). The rest
+// is not traced; the candidates are each pair's copy latency at the few
+// blocks an SM holds (T2 three, by registers; T4 two, by its 90 KB of
+// shared memory at T 100) and its short mma.sync chains. The gathering
+// ones take 16x and 52x: their scattered loads. For T1 "tma" and T3
+// "resident" see their notes below.
 //
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on the
@@ -1123,14 +1135,755 @@ __global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
   }
 }
 
+// ---- T1 "tma" (bf16): persistent 128-row blocks, x held once, the epilogue off the ring ----
+
+constexpr int kT1Rows = 128;                   // rows a block: 64 a compute warpgroup
+constexpr int kT1Cols = 128;                   // columns of an output tile (m64n128 each)
+constexpr int kT1MaxStages = 8;                // the weight ring: as deep as fits, at most this
+constexpr int kT1XBox = kT1Rows * kQkvBK * 2;  // x box [128 rows][64 k]: 16,384 B
+constexpr int kT1WBox = kQkvBK * 64 * 2;       // weight box [64 k][64 n]: 8,192 B
+constexpr int kT1WStage = 2 * kT1WBox;         // one k-tile of a tile's 128 columns
+constexpr int kT1Out = kT1Rows * kT1Cols * 2;  // the output tile: [64 rows][64 n] boxes
+constexpr int kT1MaxResident = 8;              // k-tiles of x held once: Din up to 512
+static_assert(kT1Cols == 2 * 64 && kT1Rows == 2 * 64, "two warpgroups of m64n128");
+
+// Shared memory of T1 "tma" (offsets from the 1,024-byte aligned base): x's
+// k-tiles (where they are held once), the ring (each stage a weight k-tile
+// and, where x is streamed, its x box; as many stages as fit, up to 8),
+// the output tile, the barriers (full and empty a stage, then full and
+// empty an x k-tile).
+struct T1Plan {
+  bool resident;
+  int nk, stage, stages;
+  size_t ring, out, bars, total;
+};
+__host__ __device__ inline T1Plan t1_plan(int din) {
+  T1Plan L;
+  L.nk = (din + kQkvBK - 1) / kQkvBK;
+  L.resident = L.nk <= kT1MaxResident;
+  L.stage = kT1WStage + (L.resident ? 0 : kT1XBox);
+  L.ring = L.resident ? size_t(L.nk) * kT1XBox : 0;
+  const size_t bar_bytes = 8 * (2 * kT1MaxStages + 2 * kT1MaxResident) + 1024;  // + alignment
+  const size_t fits = (size_t(kSmemLimit) - L.ring - kT1Out - bar_bytes) / L.stage;
+  L.stages = int(fits < size_t(kT1MaxStages) ? fits : size_t(kT1MaxStages));
+  L.out = L.ring + size_t(L.stages) * L.stage;
+  L.bars = L.out + kT1Out;
+  L.total = L.bars + bar_bytes;
+  return L;
+}
+
+// Barrier among the 128 threads of compute warpgroup cw (ids 2 and 3; csync is 1).
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+}
+
+// T1 in bf16 (the fp32 one is tiled_qkv_kernel). Persistent CTAs, one an
+// SM: CTA b takes the 128-row blocks b, b + CTAs, ...: warpgroups 0 and 1
+// compute 64 rows each, warpgroup 2 produces (one thread issuing TMA). x's
+// row block is loaded once for all P / 128 output tiles where its k-tiles
+// fit (Din up to 512; each k-tile on its own barrier, reloaded for the next
+// row block as soon as the last tile's products have read it, in step with
+// the first tile's weight k-tiles; else its box rides each ring stage). The
+// weight's k-tiles stream through a ring as deep as shared memory allows
+// (5 stages at Din 400). Each warpgroup runs m64n128k16 wgmma and hands each
+// stage back as soon as its products are done, so the next tile's k-tiles
+// load while the epilogue runs: the accumulators go to bf16 in an output
+// tile of its own (128-byte swizzled boxes), stored by TMA; a warpgroup
+// whose rows straddle the valid count copies its rows below it by 16-byte
+// stores. (Clusters of 2 multicasting the weight, as K1 does, and a second
+// output tile in place of ring stages were slower in trial builds.)
+__global__ void __launch_bounds__(kQkvThreads, 1)
+    tiled_qkv_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap omap, QkvArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  const T1Plan L = t1_plan(p.din);
+  const int tid = threadIdx.x, nk = L.nk, S = L.stages, n_tiles = p.P / kT1Cols;
+  const int valid = p.nv_dev != nullptr ? valid_at(0, p.nv_dev, p.n) * p.t : p.rows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* xfull = bars + 2 * S;
+  uint64_t* xempty = xfull + kT1MaxResident;
+  const QkvRing q{smem + L.ring, bars, bars + S, S, 1};
+  if (tid == 0) {
+    for (int k = 0; k < kT1MaxResident; ++k) {
+      hop::mbar_init(&xfull[k], 1);
+      hop::mbar_init(&xempty[k], kWarps);
+    }
+    qkv_ring_init(q);
+  }
+  __syncthreads();
+  if (tid >= kThreads) {  // the producer warpgroup
+    hop::regs_dec<40>();
+    if (tid != kThreads) return;
+    hop::tma_prefetch_map(&xmap);
+    hop::tma_prefetch_map(&wmap);
+    int it = 0, xi = 0;
+    for (int rb = blockIdx.x; (long long)rb * kT1Rows < valid; rb += gridDim.x, ++xi) {
+      const int row0 = rb * kT1Rows;
+      for (int ct = 0; ct < n_tiles; ++ct)
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          if (L.resident && ct == 0) {  // x's k-tile, once the last row block's products read it
+            hop::mbar_wait(&xempty[kt], (xi & 1) ^ 1);
+            hop::mbar_expect_tx(&xfull[kt], kT1XBox);
+            hop::tma_load_2d(smem + size_t(kt) * kT1XBox, &xmap, &xfull[kt], kt * kQkvBK, row0);
+          }
+          const int s = it % S;
+          hop::mbar_wait(&q.empty[s], ((it / S) & 1) ^ 1);
+          hop::mbar_expect_tx(&q.full[s], L.stage);
+          unsigned char* st = q.ring + size_t(s) * L.stage;
+          for (int j = 0; j < 2; ++j)
+            hop::tma_load_2d(st + kT1WBox * j, &wmap, &q.full[s], ct * kT1Cols + 64 * j,
+                             kt * kQkvBK);
+          if (!L.resident) hop::tma_load_2d(st + kT1WStage, &xmap, &q.full[s], kt * kQkvBK, row0);
+        }
+    }
+    return;
+  }
+  hop::regs_inc<232>();
+  const int cw = tid / 128, warp = (tid / 32) % 4, lane = tid % 32, wtid = tid % 128;
+  unsigned char* out_s = smem + L.out + size_t(cw) * (kT1Out / 2);  // two boxes [64][64]
+  bf16* out = static_cast<bf16*>(p.qkv);
+  auto x_release = [&](int kt) {
+    if (lane == 0) hop::mbar_arrive(&xempty[kt]);
+  };
+  int it = 0, xi = 0;
+  for (int rb = blockIdx.x; (long long)rb * kT1Rows < valid; rb += gridDim.x, ++xi) {
+    const int wrow0 = rb * kT1Rows + 64 * cw;  // the warpgroup's first row
+    const bool by_tma = wrow0 + 64 <= valid || valid >= p.rows;
+    for (int ct = 0; ct < n_tiles; ++ct) {
+      const bool last = ct == n_tiles - 1;
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % S;
+        hop::mbar_wait(&q.full[s], (it / S) & 1);
+        if (L.resident && ct == 0) hop::mbar_wait(&xfull[kt], xi & 1);
+        const unsigned char* st = q.ring + size_t(s) * L.stage;
+        const unsigned char* xa =
+            (L.resident ? smem + size_t(kt) * kT1XBox : st + kT1WStage) + cw * (kT1XBox / 2);
+        hop::wgmma_fence();
+        // all four k-steps of every k-tile (TMA fills zeros past Din): a wgmma under a branch
+        // costs the kernel's products a warpgroup wait each
+#pragma unroll
+        for (int kk = 0; kk < kQkvBK / 16; ++kk)
+          hop::wgmma_m64n128k16<0, 1>(acc, hop::smem_desc(xa + kk * 32, 16, 1024),
+                                      hop::smem_desc(st + kk * 2048, kT1WBox, 1024));
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();  // k-tile it - 1 is consumed
+        if (kt > 0) {
+          qkv_release(q, (it - 1) % S);
+          if (L.resident && last) x_release(kt - 1);
+        }
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      qkv_release(q, (it - 1) % S);
+      if (L.resident && last) x_release(nk - 1);
+      // the epilogue: the output tile is free once the last tile's store has read it
+      if (wtid == 0) hop::bulk_wait_read<0>();
+      wg_sync(cw);
+      // thread (warp, lane) holds rows r, r + 8 and columns 8 j + 2 (lane % 4) + {0, 1}; in a
+      // 128-byte swizzled box, 16-byte chunk k of row r sits at chunk k ^ (r % 8)
+      const int r = warp * 16 + lane / 4, sw = lane / 4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        unsigned char* box =
+            out_s + (j / 8) * (kT1Out / 4) + (((j % 8) ^ sw) * 16) + 4 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(box + r * 128) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(box + (r + 8) * 128) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      hop::fence_proxy_async();  // the stores above come before the TMA store's reads
+      wg_sync(cw);
+      if (by_tma) {
+        if (wtid == 0) {
+          hop::tma_store_2d(&omap, out_s, ct * kT1Cols, wrow0);
+          hop::tma_store_2d(&omap, out_s + kT1Out / 4, ct * kT1Cols + 64, wrow0);
+          hop::bulk_commit();
+        }
+      } else {  // rows below the valid count only
+        const int live = max(0, min(64, valid - wrow0));
+        for (int i = wtid; i < live * 16; i += 128) {
+          const int rr = i / 16, ch = i % 16;
+          const uint4 v = *reinterpret_cast<const uint4*>(out_s + (ch / 8) * (kT1Out / 4) +
+                                                          rr * 128 + (((ch % 8) ^ (rr % 8)) * 16));
+          *reinterpret_cast<uint4*>(out + size_t(wrow0 + rr) * p.P + ct * kT1Cols + ch * 8) = v;
+        }
+      }
+    }
+  }
+  if (wtid == 0) hop::bulk_wait<0>();
+}
+
+// ---- T3 "resident": W_att held in shared memory by a persistent block ----
+
+constexpr int kPoolChunk = 64;  // columns of o (the z product's depth) a chunk
+constexpr int kPoolMaxT = 128;  // T rounded up to 16 at most this (dvals: a row per two threads)
+constexpr int kPoolMaxA = 256;  // padded attention width at most this
+constexpr int kPoolMG = 2;      // warps: m-tile groups (m-tiles mg, mg + 2, ...)
+constexpr int kPoolNG = 4;      // x column groups (16-column pairs split evenly)
+constexpr int kPoolMT = kPoolMaxT / 16 / kPoolMG;  // m-tiles a warp at most
+constexpr int kPoolNT = kPoolMaxA / 8 / kPoolNG;   // 8-column tiles a warp at most
+static_assert(kPoolMG * kPoolNG == kWarps && 2 * kPoolMaxT == kThreads, "T3 resident warp map");
+
+// Shared memory of T3 "resident" (byte offsets): W_att [d16][ldw] (rows
+// past D zero), region R (the chunks of round(o) [t16][lda], 2 or 3; then the
+// forward's weighted-sum partials [8][256] fp32, or the backward's
+// round(dz) [t16][ldz]), then fp32 arrays: b_att, round(q_att), the
+// logits (the backward's datt after the softmax), the weights, the
+// backward's dvals and g, a scratch of the logits' partials [4][t16] or
+// the backward's db and dq column partials [2][2][a_pad], and the
+// backward's stream-1 mask bits of each warp's do unit [8][32 rows][2].
+struct PoolPlan {
+  int t16, d16, ldw, lda;
+  size_t r, b, q, att, wts, dv, g, scr, mb, total;
+};
+__host__ __device__ inline PoolPlan pool_plan(int t, int d, int a_pad, int elem, bool bwd) {
+  PoolPlan L;
+  L.t16 = r16(t);
+  L.d16 = r16(d);
+  L.ldw = pad_ld(a_pad, elem);
+  L.lda = pad_ld(kPoolChunk, elem);
+  L.r = align128(size_t(L.d16) * L.ldw * elem);
+  // chunk buffers: 2 where the forward rounds fp32 o through registers (bf16), else 3 (cp.async)
+  const int bufs = bwd || elem == 4 ? 3 : 2;
+  size_t r = smax(bufs * size_t(L.t16) * L.lda * elem, size_t(kWarps) * 256 * 4);
+  if (bwd) r = smax(r, size_t(L.t16) * L.ldw * elem);
+  L.b = L.r + align128(r);
+  L.q = L.b + size_t(a_pad) * 4;
+  L.att = L.q + size_t(a_pad) * 4;
+  L.wts = L.att + size_t(L.t16) * 4;
+  L.dv = L.wts + size_t(L.t16) * 4;
+  L.g = L.dv + (bwd ? size_t(L.t16) * 4 : 0);
+  L.scr = L.g + (bwd ? size_t(d) * 4 : 0);
+  L.mb = L.scr + smax(size_t(kPoolNG) * L.t16, size_t(2 * kPoolMG) * a_pad) * 4;
+  L.total = L.mb + (bwd ? size_t(kWarps) * 64 * 4 : 0);
+  return L;
+}
+
+// Whether a "resident" request fits: T16 and a_pad within the warp map, the
+// layout within a block's shared memory.
+inline bool pool_fits(int t, int d, int a_pad, int elem, bool bwd) {
+  return r16(t) <= kPoolMaxT && a_pad <= kPoolMaxA &&
+         pool_plan(t, d, a_pad, elem, bwd).total <= size_t(kSmemLimit);
+}
+
+// Element j of a 16-byte piece of the compute dtype, as fp32.
+template <typename T>
+__device__ __forceinline__ float piece_at(const uint4& u, int j) {
+  const int i = std::is_same<T, bf16>::value ? j / 2 : j;  // the 32-bit word
+  const uint32_t w = i < 2 ? (i < 1 ? u.x : u.y) : (i < 3 ? u.z : u.w);
+  if (std::is_same<T, bf16>::value) return __uint_as_float(j % 2 ? w & 0xffff0000u : w << 16);
+  return __uint_as_float(w);
+}
+
+// tanh(x) = sign(x) (1 - 2 / (exp(2 |x|) + 1)) on the special-function unit (ex2 and rcp):
+// within about 1e-7 of tanhf, and a few instructions where tanhf inlines tens (the logits
+// call it 128 times a thread, unrolled).
+__device__ __forceinline__ float tanh_fast(float x) {
+  return copysignf(1.f - __fdividef(2.f, __expf(2.f * fabsf(x)) + 1.f), x);
+}
+
+// T3, resident: a persistent block per SM loads W_att (and b_att, round(q))
+// once by cp.async and walks articles an = blockIdx.x, + gridDim.x, ...
+// For each, z = round(o) round(W_att) runs once, on tensor cores from
+// shared memory (bf16: mma.sync m16n8k16 with ldmatrix; fp32: FMA with the
+// same fragment ownership), over 64-column chunks of o: the backward's
+// round(o) by cp.async into three buffers (two chunks in flight), the
+// forward's fp32 o read once by float4 and rounded on its way into one of
+// two buffers (one chunk in flight, in registers). The article's rows are
+// whole m16 tiles (T 100 is 7); warp (mg, ng) keeps z of m-tiles mg, mg +
+// 2, ... and its column group's tiles in registers (4 x 8 x 4 floats; all
+// of them are computed, without a branch between the products, and the
+// ones past the article or the group are dropped). Then tanh(z + b) in
+// place, the logits (quad sums, then the 4 groups' partials in a fixed
+// order), the softmax. Forward: the weighted sum of the fp32 o (again, from
+// L2), a warp's rows of 256 columns loaded together, the 8 warps' partials
+// summed in a fixed order. Backward: dvals = round(o) round(g) taken from
+// the chunks as they pass, datt, then dz = round(datt) round(q) (1 -
+// tanh^2) from the registers; the db and dq column sums (shuffles over the
+// rows, the two m-groups in order), round(dz) into a shared tile, to device
+// memory by 16-byte stores, and do = (w g + round(dz) round(W)^T) * mask
+// from the tile and W_att (ldmatrix) by 32-row x 64-column units. Every
+// output has one writer; no atomics. It runs at several times its bytes
+// bound (PERF.md); not traced by a committed tool, the likely cause is the
+// eight warps an SM, each phase waiting on its own loads and shared-memory
+// fragments, with the serial steps between phases.
+template <typename T, typename S, bool kBwd>
+__global__ void __launch_bounds__(kThreads, 1) tiled_pool_resident_kernel(PoolArgs p) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  constexpr int E = sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const PoolPlan L = pool_plan(p.t, p.d, p.a_pad, E, kBwd);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int t = p.t, d = p.d, a = p.a, a_pad = p.a_pad;
+  const int mt16 = L.t16 / 16, nk = (d + kPoolChunk - 1) / kPoolChunk;
+  const int mg = warp % kPoolMG, ng = warp / kPoolMG;
+  // the warp's columns: 16-column pairs [p0, p1) of the a_pad / 16, split evenly over the groups
+  const int np = a_pad / 16, p0 = ng * np / kPoolNG, p1 = (ng + 1) * np / kPoolNG;
+  const int n0 = 16 * p0, nt = 2 * (p1 - p0);  // first column, 8-column tiles
+  T* ws = reinterpret_cast<T*>(smem);
+  T* abuf = reinterpret_cast<T*>(smem + L.r);
+  float* bs = reinterpret_cast<float*>(smem + L.b);
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* att = reinterpret_cast<float*>(smem + L.att);
+  float* wts = reinterpret_cast<float*>(smem + L.wts);
+  float* dvs = reinterpret_cast<float*>(smem + L.dv);
+  float* gs = reinterpret_cast<float*>(smem + L.g);
+  float* scr = reinterpret_cast<float*>(smem + L.scr);
+  const int valid = valid_at(p.n_valid, p.nv_dev, p.n);
+  stage(ws, L.ldw, static_cast<const T*>(p.w_att), size_t(a_pad), d, L.d16, a_pad, a_pad);
+  cp_async_commit();
+  for (int j = tid; j < a_pad; j += kThreads) {
+    bs[j] = j < a ? p.b_att[j] : 0.f;
+    qs[j] = j < a ? rnd<T>(p.q_att[j]) : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  philox::Dropout dr = p.dr;
+  dr.key = philox::key_at(dr.key, p.seed_dev);
+  for (int an = blockIdx.x; an < p.n; an += gridDim.x) {
+    if (an >= valid) {  // zeros out, or zero partials
+      for (int i = tid; i < (kBwd ? 0 : d); i += kThreads) p.out[size_t(an) * d + i] = 0.f;
+      for (int j = tid; j < (kBwd ? a_pad : 0); j += kThreads) {
+        p.db_part[size_t(an) * a_pad + j] = 0.f;
+        p.dq_part[size_t(an) * a_pad + j] = 0.f;
+      }
+      continue;
+    }
+    const size_t row0 = size_t(an) * t;
+    const S* src = static_cast<const S*>(p.src) + row0 * p.lds;
+    if constexpr (kBwd)
+      for (int i = tid; i < d; i += kThreads) gs[i] = p.g[size_t(an) * d + i];
+    // the A chunks: cp.async where o comes in the compute dtype, else fp32 loads held in
+    // registers across the products and rounded into the buffer after them
+    constexpr bool kCopy = std::is_same<T, S>::value;
+    constexpr int kBufs = kCopy ? 3 : 2, kAhead = kBufs - 1;
+    constexpr int kPf = kCopy ? 1 : kPoolMaxT * kPoolChunk / 4 / kThreads;
+    float4 pf[kPf];
+    const bool v4 = p.lds % 4 == 0;
+    auto buf = [&](int kc) { return abuf + (kc % kBufs) * L.t16 * L.lda; };
+    auto issue = [&](int kc) {
+      const int k0 = kc * kPoolChunk;
+      if constexpr (kCopy) {
+        stage(buf(kc), L.lda, src + k0, p.lds, t, L.t16, min(kPoolChunk, d - k0), kPoolChunk);
+        cp_async_commit();
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPf; ++i) {
+          const int e = tid + kThreads * i, r = e / (kPoolChunk / 4), col = k0 + e % (kPoolChunk / 4) * 4;
+          float v[4] = {0.f, 0.f, 0.f, 0.f};
+          if (r < t) {
+            const S* s = src + size_t(r) * p.lds + col;
+            if (v4 && col + 3 < d) {
+              const float4 u = *reinterpret_cast<const float4*>(s);
+              v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) v[k] = col + k < d ? to_f<S>(s[k]) : 0.f;
+            }
+          }
+          pf[i] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    };
+    auto land = [&](int kc) {
+      if constexpr (!kCopy) {
+        T* dst = buf(kc);
+#pragma unroll
+        for (int i = 0; i < kPf; ++i) {
+          const int e = tid + kThreads * i, r = e / (kPoolChunk / 4), c4 = e % (kPoolChunk / 4) * 4;
+          if (r < L.t16)
+            *reinterpret_cast<uint2*>(dst + r * L.lda + c4) =
+                make_uint2(pack_bf16(pf[i].x, pf[i].y), pack_bf16(pf[i].z, pf[i].w));
+        }
+      }
+    };
+    float acc[kPoolMT][kPoolNT][4];
+#pragma unroll
+    for (int u = 0; u < kPoolMT; ++u) zero_frag(acc[u]);
+    float dv = 0.f;  // the backward's dvals: row tid / 2, half tid % 2 of each chunk's columns
+    issue(0);
+    land(0);
+    if (kAhead > 1 && nk > 1) issue(1);
+    for (int kc = 0; kc < nk; ++kc) {
+      const int k0 = kc * kPoolChunk, ks = min(kPoolChunk / 16, (d - k0 + 15) / 16);
+      if (kAhead > 1 && kc + 1 < nk)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // chunk kc is in; chunk kc - 1's buffer is spent
+      if (kc + kAhead < nk) issue(kc + kAhead);
+      const T* A = buf(kc);
+      if constexpr (kBf) {
+        // every warp runs all 4 x 8 tiles' products, without a branch between them (a
+        // predicated mma.sync costs a warp sync): the tiles past the article's m-tiles or
+        // past the warp's columns read clamped, valid rows and columns, and their sums are
+        // never read
+        for (int kk = 0; kk < ks; ++kk) {
+          uint32_t fb[kPoolNT / 2][4];
+#pragma unroll
+          for (int jp = 0; jp < kPoolNT / 2; ++jp)
+            ldb_kn(fb[jp], ws, L.ldw, k0 + 16 * kk, min(n0 + 16 * jp, a_pad - 16));
+#pragma unroll
+          for (int u = 0; u < kPoolMT; ++u) {
+            uint32_t fa[4];
+            lda_rm(fa, A, L.lda, 16 * min(mg + kPoolMG * u, mt16 - 1), 16 * kk);
+#pragma unroll
+            for (int jp = 0; jp < kPoolNT / 2; ++jp)
+              mma_pair(acc[u][2 * jp], acc[u][2 * jp + 1], fa, fb[jp]);
+          }
+        }
+      } else {
+        for (int k = 0; k < 16 * ks; ++k) {
+          const T* wr = ws + size_t(k0 + k) * L.ldw + n0 + 2 * c;
+#pragma unroll
+          for (int u = 0; u < kPoolMT; ++u) {
+            const int i = mg + kPoolMG * u;
+            if (i < mt16) {
+              const float a0 = A[(16 * i + g) * L.lda + k], a1 = A[(16 * i + g + 8) * L.lda + k];
+#pragma unroll
+              for (int j = 0; j < kPoolNT; ++j)
+                if (j < nt) {
+                  const float b0 = wr[8 * j], b1 = wr[8 * j + 1];
+                  acc[u][j][0] += a0 * b0;
+                  acc[u][j][1] += a0 * b1;
+                  acc[u][j][2] += a1 * b0;
+                  acc[u][j][3] += a1 * b1;
+                }
+            }
+          }
+        }
+      }
+      if constexpr (kBwd) {  // 32 columns a thread, 16 bytes at a time
+        constexpr int kV = 16 / E;
+        const int r = tid / 2, c0 = 32 * (tid % 2), kv = min(kPoolChunk, d - k0);
+        if (r < t)
+#pragma unroll
+          for (int k8 = 0; k8 < 32; k8 += kV)
+            if (c0 + k8 < kv) {
+              const uint4 u = *reinterpret_cast<const uint4*>(A + r * L.lda + c0 + k8);
+#pragma unroll
+              for (int j = 0; j < kV; ++j)
+                if (c0 + k8 + j < kv) dv += piece_at<T>(u, j) * rnd<T>(gs[k0 + c0 + k8 + j]);
+            }
+      }
+      if (kAhead == 1 && kc + 1 < nk) land(kc + 1);
+    }
+    // tanh(z + b) (kept in acc by the backward) and the logits' partial sums
+    float rs[kPoolMT][2], bc[kPoolNT][2], qc[kPoolNT][2];
+#pragma unroll
+    for (int j = 0; j < kPoolNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // qc 0 marks a column past a (or past the warp's)
+        const int col = n0 + 8 * j + 2 * c + e;
+        const bool in = j < nt && col < a;
+        bc[j][e] = in ? bs[col] : 0.f;
+        qc[j][e] = in ? qs[col] : 0.f;
+      }
+#pragma unroll
+    for (int u = 0; u < kPoolMT; ++u) {
+      rs[u][0] = rs[u][1] = 0.f;
+      const bool live = mg + kPoolMG * u < mt16;
+#pragma unroll
+      for (int j = 0; j < kPoolNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + 8 * j + 2 * c + e % 2;
+          const float h = live && j < nt && col < a ? tanh_fast(acc[u][j][e] + bc[j][e % 2]) : 0.f;
+          acc[u][j][e] = h;
+          rs[u][e / 2] += rnd<T>(h) * qc[j][e % 2];
+        }
+      rs[u][0] = quad_sum(rs[u][0]);
+      rs[u][1] = quad_sum(rs[u][1]);
+    }
+    if constexpr (kBwd) {
+      dv += __shfl_xor_sync(0xffffffffu, dv, 1);
+      if (tid % 2 == 0 && tid / 2 < L.t16) dvs[tid / 2] = dv;
+    }
+    // the forward's weighted sum: a warp's rows of 256 columns loaded together (the first
+    // 256 before the softmax, which they do not need), then summed
+    constexpr int kRw = kPoolMaxT / kWarps, kCw = 2;  // rows a warp at most; float4 a lane
+    float4 ov[kCw][kRw];
+    auto load_o = [&](int cb) {
+#pragma unroll
+      for (int h = 0; h < kCw; ++h)
+#pragma unroll
+        for (int k = 0; k < kRw; ++k) {
+          const int r = warp + kWarps * k, col = cb + 128 * h + 4 * lane;
+          float u[4] = {0.f, 0.f, 0.f, 0.f};
+          if (r < t && col < d) {
+            const S* sp = src + size_t(r) * p.lds + col;
+            if (v4 && col + 3 < d) {
+              const float4 w4 = *reinterpret_cast<const float4*>(sp);
+              u[0] = w4.x, u[1] = w4.y, u[2] = w4.z, u[3] = w4.w;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) u[e] = col + e < d ? to_f<S>(sp[e]) : 0.f;
+            }
+          }
+          ov[h][k] = make_float4(u[0], u[1], u[2], u[3]);
+        }
+    };
+    if (!kBwd) load_o(0);
+    __syncthreads();  // every warp is done with the chunks (R is free)
+    if (c == 0)
+#pragma unroll
+      for (int u = 0; u < kPoolMT; ++u) {
+        const int i = mg + kPoolMG * u;
+        if (i < mt16) {
+          scr[ng * L.t16 + 16 * i + g] = rs[u][0];
+          scr[ng * L.t16 + 16 * i + g + 8] = rs[u][1];
+        }
+      }
+    __syncthreads();
+    for (int r = tid; r < t; r += kThreads) {
+      float v = 0.f;
+      for (int k = 0; k < kPoolNG; ++k) v += scr[k * L.t16 + r];
+      att[r] = v;
+    }
+    __syncthreads();
+    pooling_softmax(att, 1, t, wts);
+    __syncthreads();
+    if constexpr (!kBwd) {
+      // out = sum over t of the fp32 o's rows times their weights
+      float* part = reinterpret_cast<float*>(smem + L.r);  // [8][256]
+      for (int cb = 0; cb < d; cb += 128 * kCw) {
+        if (cb > 0) load_o(cb);
+#pragma unroll
+        for (int h = 0; h < kCw; ++h) {
+          float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int k = 0; k < kRw; ++k) {
+            const int r = warp + kWarps * k;
+            const float w = r < t ? wts[r] : 0.f;
+            v[0] += w * ov[h][k].x, v[1] += w * ov[h][k].y, v[2] += w * ov[h][k].z,
+                v[3] += w * ov[h][k].w;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) part[warp * 256 + 128 * h + 4 * lane + k] = v[k];
+        }
+        __syncthreads();
+        if (cb + tid < d) {
+          float s = 0.f;
+          for (int w = 0; w < kWarps; ++w) s += part[w * 256 + tid];
+          p.out[size_t(an) * d + cb + tid] = s;
+        }
+        __syncthreads();
+      }
+    } else {
+      // datt = round(w (dvals - sum w dvals)) into att, zero past t
+      if (warp == 0) {
+        float v = 0.f;
+        for (int r = lane; r < t; r += 32) v += wts[r] * dvs[r];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        for (int r = lane; r < L.t16; r += 32) att[r] = r < t ? rnd<T>(wts[r] * (dvs[r] - v)) : 0.f;
+      }
+      __syncthreads();
+      // dz from the registers; the db and dq column sums; round(dz) into the tile
+      T* dzs = reinterpret_cast<T*>(smem + L.r);
+#pragma unroll
+      for (int j = 0; j < kPoolNT; ++j) {
+        float sdb[2] = {0.f, 0.f}, sdq[2] = {0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < kPoolMT; ++u) {
+          const int i = mg + kPoolMG * u;
+          if (i >= mt16 || j >= nt) continue;
+          float z[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = 16 * i + g + 8 * (e / 2), col = n0 + 8 * j + 2 * c + e % 2;
+            const float h = acc[u][j][e], da = att[row];
+            z[e] = col < a ? da * qs[col] * (1.f - h * h) : 0.f;
+            sdb[e % 2] += z[e];
+            sdq[e % 2] += rnd<T>(h) * da;
+          }
+          T* q0 = dzs + (16 * i + g) * L.ldw + n0 + 8 * j + 2 * c;
+          T* q1 = q0 + 8 * L.ldw;
+          if constexpr (kBf) {
+            *reinterpret_cast<uint32_t*>(q0) = pack_bf16(z[0], z[1]);
+            *reinterpret_cast<uint32_t*>(q1) = pack_bf16(z[2], z[3]);
+          } else {
+            *reinterpret_cast<float2*>(q0) = make_float2(z[0], z[1]);
+            *reinterpret_cast<float2*>(q1) = make_float2(z[2], z[3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sdb[e] += __shfl_xor_sync(0xffffffffu, sdb[e], off);
+            sdq[e] += __shfl_xor_sync(0xffffffffu, sdq[e], off);
+          }
+        if (g == 0 && j < nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + 8 * j + 2 * c + e;
+            scr[mg * a_pad + col] = sdb[e];
+            scr[(kPoolMG + mg) * a_pad + col] = sdq[e];
+          }
+      }
+      __syncthreads();
+      for (int j = tid; j < a_pad; j += kThreads) {
+        p.db_part[size_t(an) * a_pad + j] = scr[j] + scr[a_pad + j];
+        p.dq_part[size_t(an) * a_pad + j] = scr[2 * a_pad + j] + scr[3 * a_pad + j];
+      }
+      // round(dz) of the article's rows to device memory, 16 bytes a thread
+      T* dzg = static_cast<T*>(p.dz_c) + row0 * a_pad;
+      const int per = a_pad * E / 16;
+      for (int i = tid; i < t * per; i += kThreads) {
+        const int r = i / per, cc = i % per * (16 / E);
+        *reinterpret_cast<uint4*>(dzg + size_t(r) * a_pad + cc) =
+            *reinterpret_cast<const uint4*>(dzs + r * L.ldw + cc);
+      }
+      // do = (w g + round(dz) round(W)^T) * mask by units of 16 rows x 64 columns, each warp
+      // a contiguous range of them
+      // do = (w g + round(dz) round(W)^T) * mask by units of 32 rows (two m-tiles) x 64
+      // columns, each warp a contiguous range of them: W's fragments taken once a k-step for
+      // both m-tiles. The stream-1 mask of a unit comes first as bits in the warp's words
+      // (a Philox block a 4 columns, in a loop that is not unrolled), then the epilogue
+      // reads them.
+      T* doc = static_cast<T*>(p.do_c) + row0 * d;
+      uint32_t* mbits = reinterpret_cast<uint32_t*>(smem + L.mb) + warp * 64;  // [32 rows][2]
+      const int npair = (mt16 + 1) / 2, ncb = (d + 63) / 64, units = npair * ncb;
+      const int ks = a_pad / 16;
+      for (int u = warp * units / kWarps; u < (warp + 1) * units / kWarps; ++u) {
+        const int m0 = 32 * (u / ncb), c0 = 64 * (u % ncb), nn = min(8, (L.d16 - c0) / 8);
+        const bool two = m0 + 16 < L.t16;
+        float o8[2][8][4];
+        zero_frag(o8[0]);
+        zero_frag(o8[1]);
+        if constexpr (kBf) {
+          for (int kk = 0; kk < ks; ++kk) {  // unconditional, on clamped rows and columns
+            uint32_t fb[4][4];
+#pragma unroll
+            for (int jp = 0; jp < 4; ++jp)
+              ldb_nk(fb[jp], ws, L.ldw, 16 * kk, min(c0 + 16 * jp, L.d16 - 16));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t fa[4];
+              lda_rm(fa, dzs, L.ldw, min(m0 + 16 * h, L.t16 - 16), 16 * kk);
+#pragma unroll
+              for (int jp = 0; jp < 4; ++jp) mma_pair(o8[h][2 * jp], o8[h][2 * jp + 1], fa, fb[jp]);
+            }
+          }
+        } else {
+          smm<T, 8, false, false>(o8[0], dzs, L.ldw, m0, ws, L.ldw, c0, ks, nn);
+          if (two) smm<T, 8, false, false>(o8[1], dzs, L.ldw, m0 + 16, ws, L.ldw, c0, ks, nn);
+        }
+        if (dr.thr_att) {
+          __syncwarp();  // the last unit's bits are read
+#pragma unroll 1
+          for (int w = lane; w < 64; w += 32) {  // word w: row w / 2, columns 32 (w % 2) + [0, 32)
+            const int row = m0 + w / 2;
+            uint32_t bits = 0;
+#pragma unroll 1
+            for (int q = 0; q < 8; ++q) {
+              const int col = c0 + 32 * (w % 2) + 4 * q;
+              if (row < t && col < d) {
+                const uint4 pb = philox::philox4x32_10(
+                    make_uint4(uint32_t(row0 + row), uint32_t(col >> 2), 1u, 0u), dr.key);
+                bits |= (uint32_t((pb.x >> 8) < dr.thr_att) | uint32_t((pb.y >> 8) < dr.thr_att) << 1 |
+                         uint32_t((pb.z >> 8) < dr.thr_att) << 2 |
+                         uint32_t((pb.w >> 8) < dr.thr_att) << 3) << (4 * q);
+              }
+            }
+            mbits[w] = bits;
+          }
+          __syncwarp();
+        }
+        // the epilogue: lane (g, c) holds rows m0 + 16 h + g + 8 hh, columns c0 + 8 j + 2 c + {0, 1}
+        const int mode = dr.thr_att ? 1 : p.ext != nullptr ? 2 : 0;  // mask bits, external, none
+        const bool pairs = d % 2 == 0;  // a column pair is one aligned 4- or 8-byte store
+        float gc[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c0 + 8 * j + 2 * c + e;
+            gc[j][e] = col < d ? gs[col] : 0.f;
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = m0 + 16 * h + g + 8 * hh;
+            if (row >= t) continue;
+            const float w = wts[row];
+            T* orow = doc + size_t(row) * d;
+            const uint32_t* bits = mbits + (row - m0) * 2;
+            const float* xrow = mode == 2 ? p.ext + (row0 + row) * d : nullptr;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = c0 + 8 * j + 2 * c;
+              if (col >= d) continue;
+              float v0 = w * gc[j][0] + o8[h][j][2 * hh], v1 = w * gc[j][1] + o8[h][j][2 * hh + 1];
+              if (mode == 1) {
+                const uint32_t b = bits[(col - c0) / 32] >> ((col - c0) % 32);
+                v0 *= b & 1u ? dr.inv_att : 0.f;
+                v1 *= b & 2u ? dr.inv_att : 0.f;
+              } else if (mode == 2) {
+                v0 *= xrow[col] * p.inv_ext;
+                v1 *= col + 1 < d ? xrow[col + 1] * p.inv_ext : 0.f;
+              }
+              if (pairs) {
+                if constexpr (kBf)
+                  *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+                else
+                  *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+              } else {
+                orow[col] = from_f<T>(v0);
+                if (col + 1 < d) orow[col + 1] = from_f<T>(v1);
+              }
+            }
+          }
+      }
+    }
+    __syncthreads();  // R, g and the arrays are spent before the next article
+  }
+}
+
 // ---- launchers ----
 
+// T1 "tma" (bf16): a persistent grid, at most one CTA an SM; x, the weight
+// and the output by tensor maps.
+int launch_qkv_tma(QkvArgs p, int x_rows, cudaStream_t stream) {
+  const int blocks = (p.rows + kT1Rows - 1) / kT1Rows;
+  if (blocks == 0) return 0;
+  const T1Plan L = t1_plan(p.din);
+  if (L.stages < 2 || L.total > size_t(kSmemLimit)) return int(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return int(e);
+  e = cudaFuncSetAttribute(tiled_qkv_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(L.total));
+  if (e != cudaSuccess) return int(e);
+  CUtensorMap xmap, wmap, omap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&wmap, 0, sizeof(wmap));
+  memset(&omap, 0, sizeof(omap));
+  // x [x_rows, din] (rows past it arrive as zeros), wqkv [din, P], qkv [rows, P] (stores past
+  // `rows` are dropped)
+  if (x_rows < 1 || !hop::bf16_map(&xmap, p.x, p.din, x_rows, p.din, kQkvBK, kT1Rows) ||
+      !hop::bf16_map(&wmap, p.wqkv, p.P, p.din, p.P, 64, kQkvBK) ||
+      !hop::bf16_map(&omap, p.qkv, p.P, p.rows, p.P, 64, 64))
+    return int(cudaErrorInvalidValue);
+  tiled_qkv_tma_kernel<<<unsigned(std::max(1, std::min(blocks, sms))), kQkvThreads, L.total,
+                         stream>>>(xmap, wmap, omap, p);
+  return int(cudaGetLastError());
+}
+
+// T1: "tma" (variant 1, bf16 only: refused in fp32) or PR 16's panel kernel (0).
 template <typename T>
-int launch_qkv(QkvArgs p, int x_rows, cudaStream_t stream) {
+int launch_qkv(QkvArgs p, int x_rows, int variant, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   if (p.rows < 0 || p.din < 1 || p.P < kPanel || p.P % kPanel || p.din % (16 / int(sizeof(T))) ||
-      (p.thr_emb && (kBf || p.din % 4)))
+      (p.thr_emb && (kBf || p.din % 4)) || (variant && !kBf))
     return int(cudaErrorInvalidValue);
+  if (variant) return launch_qkv_tma(p, x_rows, stream);
   const int blocks = (p.rows + kRows - 1) / kRows;
   if (blocks == 0) return 0;
   const int nk = (p.din + kQkvBK - 1) / kQkvBK;
@@ -1226,11 +1979,26 @@ int launch_attention(const AttArgs& p, int staged, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// T3: "resident" (1: a persistent block an SM; refused where pool_fits does
+// not hold) or PR 16's chunked kernel (0: a block an article).
 template <typename T, typename S, bool kBwd>
-int launch_pool(const PoolArgs& p, cudaStream_t stream) {
+int launch_pool(const PoolArgs& p, int resident, cudaStream_t stream) {
   if (p.t < 1 || p.d < 1 || p.a < 1 || p.a > p.a_pad || p.a_pad % 16 || p.lds < p.d)
     return int(cudaErrorInvalidValue);
+  if (resident && !pool_fits(p.t, p.d, p.a_pad, sizeof(T), kBwd)) return int(cudaErrorInvalidValue);
   if (p.n == 0) return 0;
+  if (resident) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return int(e);
+    const size_t smem = pool_plan(p.t, p.d, p.a_pad, sizeof(T), kBwd).total;
+    auto kern = tiled_pool_resident_kernel<T, S, kBwd>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    kern<<<unsigned(std::min(p.n, sms)), kThreads, smem, stream>>>(p);
+    return int(cudaGetLastError());
+  }
   const Layout L = make_layout(p.d, p.a_pad, sizeof(T), 1, true);
   const size_t smem = pool_smem(L, p.a_pad, sizeof(T));
   auto kern = tiled_pool_kernel<T, S, kBwd>;
@@ -1273,15 +2041,17 @@ extern "C" {
 // when thr_emb), wqkv [din, P] (P a multiple of 256), qkv [rows, P]: rows
 // [0, rows) of x @ wqkv, rounded to the compute dtype. With nv_dev (an
 // int32 article count in device memory, n articles of t rows) only the rows
-// of the first *nv_dev articles are computed.
+// of the first *nv_dev articles are computed. variant: 1 the "tma" kernel
+// (bf16 only), 0 PR 16's panel kernel.
 int tiled_qkv(const void* x, int x_rows, const void* wqkv, void* qkv, int rows, int n, int t,
               int din, int P, const void* nv_dev, int is_bf16, unsigned seed_lo, unsigned seed_hi,
-              const void* seed_dev, unsigned thr_emb, float inv_emb, void* stream) {
+              const void* seed_dev, unsigned thr_emb, float inv_emb, int variant, void* stream) {
   const QkvArgs p{x,  wqkv, qkv, rows, n, t, din, P, 1, 1, 0, philox::Key{seed_lo, seed_hi},
                   thr_emb, inv_emb, static_cast<const int*>(nv_dev),
                   static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_qkv<bf16>(p, x_rows, s) : launch_qkv<float>(p, x_rows, s);
+  return is_bf16 ? launch_qkv<bf16>(p, x_rows, variant, s)
+                 : launch_qkv<float>(p, x_rows, variant, s);
 }
 
 // T2. qkv [n * t, P] (head h: Q at (h / gh) * pw + (h % gh) * hd, K gh * hd
@@ -1313,13 +2083,14 @@ int tiled_attention(const void* qkv, void* o, int ldo, int o_f32, void* stats, i
 // compute dtype, g [n, d] fp32 -> dz_c [n * t, a_pad], do_c [n * t, d] in
 // the compute dtype, db_part and dq_part [n, a_pad] fp32 (zeros at or past
 // n_valid). att and wts: [n * t] fp32 scratch. w_att [d, a_pad] in the
-// compute dtype, b_att and q_att [a] fp32.
+// compute dtype, b_att and q_att [a] fp32. resident: 1 the resident kernel
+// (att and wts unused; refused where it does not fit), 0 PR 16's chunked one.
 int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, const void* q_att,
                const void* g, void* out, void* att, void* wts, void* dz_c, void* do_c,
                void* db_part, void* dq_part, int n, int t, int d, int a, int a_pad, int n_valid,
                const void* nv_dev, int is_bf16, int is_bwd, unsigned seed_lo, unsigned seed_hi,
                const void* seed_dev, unsigned thr_att, float inv_att, const void* ext,
-               float inv_ext, void* stream) {
+               float inv_ext, int resident, void* stream) {
   const PoolArgs p{src, lds, w_att, static_cast<const float*>(b_att),
                    static_cast<const float*>(q_att), static_cast<const float*>(g),
                    static_cast<float*>(out), static_cast<float*>(att), static_cast<float*>(wts),
@@ -1329,8 +2100,10 @@ int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, c
                    static_cast<const int*>(nv_dev), static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return is_bwd ? launch_pool<bf16, bf16, true>(p, s) : launch_pool<bf16, float, false>(p, s);
-  return is_bwd ? launch_pool<float, float, true>(p, s) : launch_pool<float, float, false>(p, s);
+    return is_bwd ? launch_pool<bf16, bf16, true>(p, resident, s)
+                  : launch_pool<bf16, float, false>(p, resident, s);
+  return is_bwd ? launch_pool<float, float, true>(p, resident, s)
+                : launch_pool<float, float, false>(p, resident, s);
 }
 
 // T4. qkv [n * t, P] as T2's, do_c [n * t, d], stats from T2, delta

@@ -78,6 +78,7 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
            "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
            "articles_per_block", "o_width", "route", "panel_layout", "attention_variant",
+           "qkv_variant", "pool_variant",
            "tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd",
            "tiled_attention_bwd", "tiled_forward", "tiled_bwd_core",
            "tiled_qkv_reference", "tiled_attention_reference", "tiled_pool_reference",
@@ -96,6 +97,7 @@ _LOG2E = 1.4426950408889634  # the kernels' softmaxes run in base 2
 _BLOCK_ROWS = 64     # rows (tokens) of a block of the forward and the per-block kernel
 _SMEM_LIMIT = 232448
 _STAGED_T = 128      # T2's and T4's staged kernels: T rounded up to 16 at most this
+_POOL_T, _POOL_A = 128, 256  # T3's resident kernel: T rounded up to 16 and a_pad at most these
 _GEMM_TILE = (128, 256)  # rows and columns of one bf16 GEMM tile (csrc/news_encoder_bwd.cu)
 _GEMM_K_TILE = 64        # rows of a k-tile; a weight-gradient slice is a multiple of it
 _SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -1014,10 +1016,10 @@ launch_bwd_core.launches = launch_bwd_core.captured = 0
 def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the tiled route's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.tiled_qkv.argtypes = [p, i, p, p, i, i, i, i, i, p, i, u, u, p, u, f, p]
+    lib.tiled_qkv.argtypes = [p, i, p, p, i, i, i, i, i, p, i, u, u, p, u, f, i, p]
     lib.tiled_attention.argtypes = ([p, p, i, i, p] + [i] * 8
                                     + [p, f, i, u, u, p, u, f, p, f, i, p])
-    lib.tiled_pool.argtypes = ([p, i] + [p] * 11 + [i] * 6 + [p, i, i, u, u, p, u, f, p, f, p])
+    lib.tiled_pool.argtypes = ([p, i] + [p] * 11 + [i] * 6 + [p, i, i, u, u, p, u, f, p, f, i, p])
     lib.tiled_attention_bwd.argtypes = [p] * 5 + [i] * 8 + [p, f, i, i, p]
     for fn in (lib.tiled_qkv, lib.tiled_attention, lib.tiled_pool, lib.tiled_attention_bwd):
         fn.restype = i
@@ -1052,6 +1054,48 @@ def attention_variant(t: int, head_dim: int, dtype: torch.dtype, backward: bool 
         smem += 2 * t16 * (t16 + pad) * elem + 2 * t16 * 4
     fits = t16 <= _STAGED_T and head_dim * elem % 4 == 0 and smem <= _SMEM_LIMIT
     return "staged" if fits else "gather"
+
+
+def qkv_variant(dtype: torch.dtype) -> str:
+    """The kernel T1 launches in the compute ``dtype``: "tma" in bf16 (128-row
+    blocks, x's row block loaded once where Din is at most 512, else
+    streamed with the weight, the output tile stored by TMA apart from the
+    weight ring; any Din and P the wrapper takes), "panel" in fp32 (PR 16's
+    kernel, whose bf16 half stays for timing beside it). The launcher
+    refuses a "tma" request in fp32."""
+    return "tma" if dtype == torch.bfloat16 else "panel"
+
+
+def pool_variant(t: int, d: int, a_pad: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """The kernel T3 (or, with ``backward``, its backward) launches for
+    articles of T tokens, D wide, a padded attention width ``a_pad``, in the
+    compute ``dtype``: "resident" (a persistent block an SM holding W_att
+    in shared memory; T rounded up to 16 at most 128, a_pad at most 256)
+    where its layout fits a block, else "chunked" (PR 16's kernel: a block
+    an article, W_att streamed by 256 columns for every 64 rows). The
+    layout (``pool_plan`` in ``csrc/news_encoder_tiled.cu``): W_att [D16,
+    a_pad + 16 bytes], chunks of round(o) [T16, 64 + 16 bytes] (two in the
+    bf16 forward, which rounds fp32 o through registers, else three; the
+    backward: or round(dz) [T16, a_pad + 16 bytes]; the forward: at least
+    8 KB), then fp32 arrays of 2 a_pad + 2 T16 (the backward: + T16 + D)
+    and max(4 T16, 4 a_pad) values, and the backward's mask bits (2 KB). At
+    the history-100 user tower (T 100, D 400, A 208 padded, bf16) 210,944
+    and 231,168 bytes; the launchers refuse a "resident" request past
+    232,448."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    r16 = lambda v: -(-v // 16) * 16
+    a128 = lambda v: -(-v // 128) * 128
+    t16, pad = r16(t), 16 // elem
+    ldw = a_pad + pad
+    bufs = 3 if backward or elem == 4 else 2  # round(o) chunks in flight: cp.async, or registers
+    region = max(bufs * t16 * (64 + pad) * elem, 8 * 256 * 4)
+    if backward:
+        region = max(region, t16 * ldw * elem)
+    floats = (2 * a_pad + 2 * t16 + (t16 + d + 8 * 64 if backward else 0)
+              + max(4 * t16, 4 * a_pad))
+    smem = a128(r16(d) * ldw * elem) + a128(region) + 4 * floats
+    fits = t16 <= _POOL_T and a_pad <= _POOL_A and smem <= _SMEM_LIMIT
+    return "resident" if fits else "chunked"
 
 
 def _heads(packed: PackedWeights) -> tuple:
@@ -1209,20 +1253,23 @@ def tiled_qkv(x, packed: PackedWeights, drop: Dropout, *, n: int, t: int, nv: in
     """T1: Q|K|V [N*T, P] in the compute dtype for ``kernel_input``'s x
     [rows, Din] (fp32: the stream-0 mask drawn here; bf16: x comes masked);
     rows past the nv valid articles (or the count ``nv_dev`` holds; nv is
-    then N) are left unwritten. CPU tensors take the plain version."""
+    then N) are left unwritten. The kernel is ``qkv_variant``'s. CPU
+    tensors take the plain version."""
     if x.device.type == "cpu":
         return tiled_qkv_reference(x, packed, drop, n=n, t=t, nv=nv)
     x_rows = _kernel_x(x, packed, nv, n, t)
     cdt, p_cols = packed.wqkv.dtype, packed.wqkv.shape[1]
     qkv = torch.empty(n * t, p_cols, dtype=cdt, device=x.device)
-    _launch_tiled(tiled_qkv, "tiled_qkv", x.device, x.data_ptr(), x_rows, packed.wqkv.data_ptr(),
-                  qkv.data_ptr(), nv * t, n, t, x.shape[1], p_cols, _ptr(nv_dev),
-                  int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev),
-                  drop.thr_emb, drop.inv_emb)
+    tma = qkv_variant(cdt) == "tma"
+    _launch_tiled(tiled_qkv.tma if tma else tiled_qkv, "tiled_qkv", x.device, x.data_ptr(),
+                  x_rows, packed.wqkv.data_ptr(), qkv.data_ptr(), nv * t, n, t, x.shape[1], p_cols,
+                  _ptr(nv_dev), int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi,
+                  _ptr(drop.seed_dev), drop.thr_emb, drop.inv_emb, int(tma))
     return qkv
 
 
 tiled_qkv.launches = tiled_qkv.captured = 0
+tiled_qkv.tma = _build.KernelCount()  # the "tma" kernel's; PR 16's panel kernel's above
 
 
 def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int, nv: int,
@@ -1257,24 +1304,26 @@ tiled_attention.staged = _build.KernelCount()  # the staged kernel's; the gather
 
 def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
     """Launch T3 on ``src`` with its outputs (out, dz_c, do, db_part,
-    dq_part; None where the direction writes none) and its own scratch."""
+    dq_part; None where the direction writes none) in ``pool_variant``'s
+    kernel, counted on ``fn.resident`` or ``fn``; the chunked kernel gets
+    its own scratch."""
     d, a_pad = packed.w_att.shape
-    dev = src.device
-    att = torch.empty(n * t, device=dev)
-    wts = torch.empty_like(att)
-    _launch_tiled(fn, "tiled_pool", dev, src.data_ptr(), src.shape[1], packed.w_att.data_ptr(),
-                  packed.b_att.data_ptr(), packed.q_att.data_ptr(), _ptr(g), _ptr(outs[0]),
-                  att.data_ptr(), wts.data_ptr(), *map(_ptr, outs[1:]), n, t, d,
-                  packed.b_att.shape[0], a_pad, nv, _ptr(nv_dev),
-                  int(packed.wqkv.dtype == torch.bfloat16), int(backward), drop.seed_lo,
-                  drop.seed_hi, _ptr(drop.seed_dev), drop.thr_att, drop.inv_att,
-                  _ptr(drop.ext_mask), drop.inv_ext)
+    dev, cdt = src.device, packed.wqkv.dtype
+    resident = pool_variant(t, d, a_pad, cdt, backward) == "resident"
+    att, wts = (None, None) if resident else (torch.empty(n * t, device=dev) for _ in range(2))
+    _launch_tiled(fn.resident if resident else fn, "tiled_pool", dev, src.data_ptr(), src.shape[1],
+                  packed.w_att.data_ptr(), packed.b_att.data_ptr(), packed.q_att.data_ptr(),
+                  _ptr(g), _ptr(outs[0]), _ptr(att), _ptr(wts), *map(_ptr, outs[1:]), n, t, d,
+                  packed.b_att.shape[0], a_pad, nv, _ptr(nv_dev), int(cdt == torch.bfloat16),
+                  int(backward), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_att,
+                  drop.inv_att, _ptr(drop.ext_mask), drop.inv_ext, int(resident))
 
 
 def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
                nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """T3's forward: the pooled [N, D] fp32 of T2's o [N*T, D] fp32, zeros
-    at or past the valid count. CPU tensors take the plain version."""
+    at or past the valid count. The kernel is ``pool_variant``'s. CPU
+    tensors take the plain version."""
     if o.device.type == "cpu":
         return tiled_pool_reference(o, packed, n=n, t=t, nv=nv)
     out = torch.empty(n, packed.w_att.shape[0], device=o.device)
@@ -1284,6 +1333,7 @@ def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
 
 
 tiled_pool.launches = tiled_pool.captured = 0
+tiled_pool.resident = _build.KernelCount()  # the resident kernel's; PR 16's chunked one's above
 
 
 def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: int, nv: int,
@@ -1291,7 +1341,8 @@ def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: i
     """T3's backward from T2's round(o) and the cotangent g [N, D] fp32: (do,
     round(dz), db and dq partials) as ``tiled_pool_bwd_reference`` gives
     them (do is left unwritten past the valid articles, round(dz) zero
-    there). CPU tensors take the plain version."""
+    there). The kernel is ``pool_variant``'s (backward). CPU tensors take
+    the plain version."""
     if o_c.device.type == "cpu":
         return tiled_pool_bwd_reference(o_c, packed, g, drop, n=n, t=t, nv=nv)
     cdt, dev = packed.wqkv.dtype, o_c.device
@@ -1306,6 +1357,7 @@ def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: i
 
 
 tiled_pool_bwd.launches = tiled_pool_bwd.captured = 0
+tiled_pool_bwd.resident = _build.KernelCount()
 
 
 def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int, nv: int,

@@ -3,13 +3,15 @@ QKV projection, T2 the attention, T3 the pooling forward and backward, T4
 the attention backward) through the plain versions its kernels are held
 against on the card: at the shapes the narrow and wide instances do not
 take (T 65, 100 and 130, head widths 80 and 128, A 600, and an fp32 D x A
-past the wide instance's shared memory) the route's forward equals the JAX
+past the wide instance's shared memory; either side of T2's, T4's and T3's
+kernel rules) the route's forward equals the JAX
 package's Pallas kernel run in interpret mode, and its backward, finished
 by the GEMMs' and reductions' arithmetic, the JAX custom VJP's 7 gradients
 (outputs to 3e-5, gradients to 5e-5: ``tests/ops/test_news_encoder.py:34,
 60``); T1-T4 put together equal ``bwd_core_reference``; the head-group
-packing holds heads past 85 columns; ``route`` at each boundary; NRMS at
-history 100 equals JAX's NRMS through the bridge."""
+packing holds heads past 85 columns; ``route``, ``attention_variant``,
+``pool_variant`` and ``qkv_variant`` at each boundary; NRMS at history 100
+equals JAX's NRMS through the bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +47,12 @@ SHAPES = [
     (2, 128, 16, 1, 145, 24, 2, 1),   # one past fp32 T2's
     (1, 128, 16, 1, 288, 16, 1, 1),   # bf16 T2's limit
     (1, 128, 16, 1, 290, 16, 1, 1),   # one (even width) past it
+    # either side of T3's resident kernel (``pool_variant``): a_pad 256 and 272, and fp32 D 144
+    # (resident at T 100, A 200) and 152 (chunked)
+    (2, 70, 16, 2, 8, 256, 2, 2),
+    (2, 70, 16, 2, 8, 257, 2, 1),
+    (1, 100, 16, 2, 72, 200, 1, 1),
+    (1, 100, 16, 2, 76, 200, 1, 1),
 ]
 
 
@@ -162,7 +170,9 @@ def test_autograd_function_on_the_tiled_route_matches_jax(monkeypatch, n, t, din
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("n,t,din,heads,head_dim,a,nv", [
-    (4, 100, 16, 2, 8, 40, 3), (3, 70, 24, 1, 128, 600, 3), (5, 20, 32, 4, 16, 48, 4)])
+    (4, 100, 16, 2, 8, 40, 3), (3, 70, 24, 1, 128, 600, 3), (5, 20, 32, 4, 16, 48, 4),
+    # either side of T3's resident kernel (``pool_variant``): a_pad 256 and 272
+    (2, 100, 24, 2, 8, 256, 2), (2, 100, 24, 2, 8, 257, 1)])
 def test_tiled_parts_equal_bwd_core_reference(cdt, n, t, din, heads, head_dim, a, nv):
     """T1-T4's plain versions put together, with the attention output's
     Philox dropout (keep 0.8; fp32 also on x, which T1 draws): dQ|dK|dV,
@@ -276,6 +286,46 @@ def test_attention_variant_at_each_boundary(t, head_dim, dtype, backward, expect
     (no whole 4-byte pieces for cp.async) gathers, an odd fp32 one does not;
     the history-100 user tower's heads (20 of 20) take the staged T4."""
     assert port.attention_variant(t, head_dim, dtype, backward) == expected
+
+
+@pytest.mark.parametrize("t,d,a_pad,dtype,backward,expected", [
+    (100, 400, 208, torch.bfloat16, False, "resident"), (100, 400, 208, torch.bfloat16, True,
+                                                         "resident"),
+    (100, 408, 208, torch.bfloat16, True, "chunked"), (100, 408, 208, torch.bfloat16, False,
+                                                       "resident"),
+    (100, 448, 208, torch.bfloat16, False, "resident"), (100, 456, 208, torch.bfloat16, False,
+                                                         "chunked"),
+    (128, 64, 64, torch.bfloat16, False, "resident"), (129, 64, 64, torch.bfloat16, False,
+                                                       "chunked"),
+    (128, 64, 64, torch.bfloat16, True, "resident"), (129, 64, 64, torch.bfloat16, True,
+                                                      "chunked"),
+    (100, 64, 256, torch.bfloat16, True, "resident"), (100, 64, 272, torch.bfloat16, True,
+                                                       "chunked"),
+    (100, 144, 208, torch.float32, True, "resident"), (100, 152, 208, torch.float32, True,
+                                                       "chunked"),
+    (100, 144, 208, torch.float32, False, "resident"), (100, 152, 208, torch.float32, False,
+                                                        "chunked"),
+    (1, 1, 16, torch.float32, True, "resident"), (50, 400, 304, torch.bfloat16, False, "chunked"),
+])
+def test_pool_variant_at_each_boundary(t, d, a_pad, dtype, backward, expected):
+    """T3's kernel: resident up to T 128 (128 and 129) and a_pad 256 (256 and
+    272) where W_att and its buffers fit a block's 232,448 bytes: at the
+    history-100 user tower (D 400, A 200 padded to 208) both directions in
+    bf16, the backward's last D (400 in bf16, 144 in fp32) and the
+    forward's (448, 144) and the next width of 8 past each; wider
+    attention chunked."""
+    assert port.pool_variant(t, d, a_pad, dtype, backward) == expected
+
+
+@pytest.mark.parametrize("din,dtype,expected", [
+    (400, torch.bfloat16, "tma"), (512, torch.bfloat16, "tma"), (520, torch.bfloat16, "tma"),
+    (8, torch.bfloat16, "tma"), (400, torch.float32, "panel"), (4, torch.float32, "panel"),
+])
+def test_qkv_variant_by_dtype(din, dtype, expected):
+    """T1's kernel: "tma" for every bf16 shape (x held once up to Din 512,
+    streamed past it: 512 and 520), PR 16's "panel" kernel in fp32."""
+    assert port.qkv_variant(dtype) == expected
+    assert din % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
 
 
 HIST = 100
