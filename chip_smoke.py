@@ -93,21 +93,28 @@ Phases:
      plain version, and T1-T4 each against its own; the route forced at
      shapes of the narrow and wide instances (T 20 and 50, Philox dropout)
      against them, T2's dropped elements the stream-1 mask; T2 and T4 on
-     either side of ``attention_variant``'s boundary (C3B_VARIANTS: T 112,
-     128 and 129, each dtype's head-width limit and one past it, bf16 and
-     fp32, n_valid on the device, both dropout modes), each launched twice,
-     bit-equal, and a "staged" request past it refused; the device seed and
-     n_valid in a CUDA graph (T 100 and 130: both variants); T1-T4 (T2 and
-     T4 in both variants) and the whole route timed at the history-100
-     user tower [16,384, 100, 400] beside their plain versions and bounds
-     (T1 beside torch.matmul, T2 beside scaled_dot_product_attention, T4
-     beside its backward); NRMS at the step's width with history 100 (one
-     step of 4,096 against the plain path, launches per step: K1 and the
-     per-block kernel once, T1 and the staged T2 twice, T3 and the staged
-     T4 once; warm steps timed), served two-tower, the CLI with
-     ``--history_size 100``;
-     scan groups of 4 on a one-process NCCL mesh at history 50 and 100,
-     replays bit-equal to eager steps without a mesh;
+     either side of ``attention_variant``'s boundaries (C3B_VARIANTS: T 112,
+     128 and 129, each dtype's staged head-width limit and one past it; past
+     T 128 the streamed kernels resident, by tiles of 64, 32 and 16 rows, at
+     an odd bf16 width and at each dtype's widest head, and one past it;
+     bf16 and fp32, n_valid on the device, both dropout modes), each
+     launched twice, bit-equal, and a request for a kernel the rule passed
+     over refused, unwritten; the device seed and n_valid in a CUDA graph (T
+     100 and 130: staged, then streamed); T1-T4 (T2 and T4 staged and
+     gathering) and the whole route timed at the history-100 user tower
+     [16,384, 100, 400] beside their plain versions and bounds (T1 beside
+     torch.matmul, T2 beside scaled_dot_product_attention, T4 beside its
+     backward); T2 and T4 streamed and gathering at the history-200 user
+     tower [16,384, 200, 400], beside SDPA in turns; NRMS at the step's
+     width with history 100 (one step of 4,096 against the plain path,
+     launches per step: K1 and the per-block kernel once, T1 and the staged
+     T2 twice, T3 and the staged T4 once; warm steps timed), served
+     two-tower, the CLI with ``--history_size 100``; NRMS at history 200
+     (one step of 1,024 against the plain path; T1 and the streamed T2
+     twice, T3 chunked and the streamed T4 once a step; warm steps timed,
+     peak memory), served two-tower; scan groups of 4 on a one-process NCCL
+     mesh at history 50 and 100, replays bit-equal to eager steps without a
+     mesh;
   7. ``Trainer.fit`` at the same width: 2 epochs of 4 steps from a
      NewsrecFeed of bench.py's Zipf draws (built with Ragged.from_lengths),
      host dedup on the prefetch thread (prefetch 2), validation on 4,096
@@ -975,9 +982,13 @@ C3B_CMP_BS = 4_096   # the step compared with the plain path: at 16,384 the plai
                      # [B, 20, 100, 100] fp32 attention tensors (13 GB each) would fill the card
 C3B_SCAN_BS = 4_096  # the scan and mesh checks' batch (three groups of four, twice)
 C3B_PLAIN_CHUNK = 1_024  # articles a call of a plain version takes at the timed shape (memory)
-TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_attention", "tiled_attention_staged", "tiled_pool",
-         "tiled_pool_resident", "tiled_pool_bwd", "tiled_pool_bwd_resident", "tiled_attention_bwd",
-         "tiled_attention_bwd_staged")
+C3B_H200 = 200       # the streamed T2 and T4's path: the user tower at history 200
+C3B_H200_CMP_BS = 1_024  # its step compared with the plain path: [B, 20, 200, 200] fp32, 3.3 GB
+TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_attention", "tiled_attention_staged",
+         "tiled_attention_streamed", "tiled_pool", "tiled_pool_resident", "tiled_pool_bwd",
+         "tiled_pool_bwd_resident", "tiled_attention_bwd", "tiled_attention_bwd_staged",
+         "tiled_attention_bwd_streamed")
+ATT_SUFFIX = {"staged": "_staged", "streamed": "_streamed", "gather": ""}  # attention_variant's
 
 
 def tiled_names(t, hd, cdt, d, a) -> dict:
@@ -987,7 +998,7 @@ def tiled_names(t, hd, cdt, d, a) -> dict:
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     a_pad = -(-a // 16) * 16
-    att = lambda bwd: "_staged" if ne.attention_variant(t, hd, cdt, bwd) == "staged" else ""
+    att = lambda bwd: ATT_SUFFIX[ne.attention_variant(t, hd, cdt, bwd)]
     pool = lambda bwd: "_resident" if ne.pool_variant(t, d, a_pad, cdt, bwd) == "resident" else ""
     return {"t1": "tiled_qkv" + ("_tma" if ne.qkv_variant(cdt) == "tma" else ""),
             "t2": "tiled_attention" + att(False), "t3": "tiled_pool" + pool(False),
@@ -1020,24 +1031,45 @@ C3B_FORCED = (  # the route forced at shapes the narrow and the wide instance ta
     ("bf16_t50_wide", 13, C3_HIST, 128, torch.bfloat16, 10, 40, 300, None),
     ("fp32_t50_wide", 9, C3_HIST, 64, torch.float32, 4, 40, 300, 8),
 )
-C3B_VARIANTS = (  # T2 and T4 either side of attention_variant's boundary: T 112/128/129, the
-    # head-width limits at T 128 (bf16: T2 288, T4 144; fp32: T2 144, T4 32) and the next width
-    # past each, an odd bf16 width; n_valid on the device (2 below N)
+C3B_VARIANTS = (  # T2 and T4 either side of attention_variant's boundaries: staged or streamed
+    # at T 112/128/129 and the staged head-width limits at T 128 (bf16: T2 288, T4 144; fp32: T2
+    # 144, T4 32) with the next width past each; the streamed kernels past T 128 at the
+    # history-200 user tower's heads, an odd bf16 width, each way through shared memory (the
+    # pair resident; streamed by tiles of 64, 32 and 16 rows) and each dtype's widest head with the
+    # next width past it (gathering); n_valid on the device (2 below N)
     # name, n, t, dtype, heads, head_dim, dropout, the kernels T2 and T4 take
     ("bf16_t112_20x20", 6, 112, torch.bfloat16, 20, 20, "rng", "staged", "staged"),
     ("bf16_t128_4x20", 6, 128, torch.bfloat16, 4, 20, "mask", "staged", "staged"),
-    ("bf16_t129_4x20", 6, 129, torch.bfloat16, 4, 20, "rng", "gather", "gather"),
+    ("bf16_t129_4x20", 6, 129, torch.bfloat16, 4, 20, "rng", "streamed", "streamed"),
     ("bf16_t128_2x144", 5, 128, torch.bfloat16, 2, 144, "mask", "staged", "staged"),
-    ("bf16_t128_2x146", 5, 128, torch.bfloat16, 2, 146, None, "staged", "gather"),
-    ("bf16_t128_1x288", 4, 128, torch.bfloat16, 1, 288, "rng", "staged", "gather"),
-    ("bf16_t128_1x290", 4, 128, torch.bfloat16, 1, 290, "mask", "gather", "gather"),
-    ("bf16_t100_3x21", 5, 100, torch.bfloat16, 3, 21, "rng", "gather", "gather"),
+    ("bf16_t128_2x146", 5, 128, torch.bfloat16, 2, 146, None, "staged", "streamed"),
+    ("bf16_t128_1x288", 4, 128, torch.bfloat16, 1, 288, "rng", "staged", "streamed"),
+    ("bf16_t128_1x290", 4, 128, torch.bfloat16, 1, 290, "mask", "streamed", "streamed"),
+    ("bf16_t100_3x21", 5, 100, torch.bfloat16, 3, 21, "rng", "streamed", "streamed"),
     ("fp32_t112_4x20", 5, 112, torch.float32, 4, 20, "mask", "staged", "staged"),
     ("fp32_t128_2x32", 5, 128, torch.float32, 2, 32, "rng", "staged", "staged"),
-    ("fp32_t128_2x33", 5, 128, torch.float32, 2, 33, "mask", "staged", "gather"),
-    ("fp32_t128_1x144", 4, 128, torch.float32, 1, 144, None, "staged", "gather"),
-    ("fp32_t128_1x145", 4, 128, torch.float32, 1, 145, "rng", "gather", "gather"),
-    ("fp32_t129_4x20", 5, 129, torch.float32, 4, 20, None, "gather", "gather"),
+    ("fp32_t128_2x33", 5, 128, torch.float32, 2, 33, "mask", "staged", "streamed"),
+    ("fp32_t128_1x144", 4, 128, torch.float32, 1, 144, None, "staged", "streamed"),
+    ("fp32_t128_1x145", 4, 128, torch.float32, 1, 145, "rng", "streamed", "streamed"),
+    ("fp32_t129_4x20", 5, 129, torch.float32, 4, 20, None, "streamed", "streamed"),
+    # past T 128: the pair resident (T2 and T4) at 20 x 20 and an odd width; by 64-row tiles at
+    # 1 x 256 and at T 400
+    ("bf16_t200_20x20", 5, 200, torch.bfloat16, 20, 20, "rng", "streamed", "streamed"),
+    ("bf16_t200_3x21", 4, 200, torch.bfloat16, 3, 21, "mask", "streamed", "streamed"),
+    ("bf16_t200_1x256", 3, 200, torch.bfloat16, 1, 256, "rng", "streamed", "streamed"),
+    ("bf16_t400_2x128", 3, 400, torch.bfloat16, 2, 128, None, "streamed", "streamed"),
+    # tiles of 32 rows (both), 16 (T4: its widest at T 200), T2's widest (16) and past them
+    ("bf16_t150_1x384", 3, 150, torch.bfloat16, 1, 384, "mask", "streamed", "streamed"),
+    ("bf16_t200_1x576", 3, 200, torch.bfloat16, 1, 576, "rng", "streamed", "streamed"),
+    ("bf16_t200_1x578", 3, 200, torch.bfloat16, 1, 578, None, "streamed", "gather"),
+    ("bf16_t200_1x896", 3, 200, torch.bfloat16, 1, 896, "mask", "streamed", "gather"),
+    ("bf16_t200_1x898", 3, 200, torch.bfloat16, 1, 898, "rng", "gather", "gather"),
+    # fp32: T2 by 32-row tiles, T4 by 16; T4's widest and past it; T2's widest and past it
+    ("fp32_t130_1x256", 3, 130, torch.float32, 1, 256, "rng", "streamed", "streamed"),
+    ("fp32_t200_1x288", 3, 200, torch.float32, 1, 288, "mask", "streamed", "streamed"),
+    ("fp32_t200_1x290", 3, 200, torch.float32, 1, 290, None, "streamed", "gather"),
+    ("fp32_t200_1x448", 3, 200, torch.float32, 1, 448, "rng", "streamed", "gather"),
+    ("fp32_t200_1x449", 3, 200, torch.float32, 1, 449, None, "gather", "gather"),
 )
 
 
@@ -1226,7 +1258,7 @@ def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
 
 def c3b_graph(gen) -> dict:
     """The tiled route with the seed and n_valid as device scalars (bf16 and
-    fp32, T 100 and 130: T2 and T4 staged, then gathering; dropout 0.2 on
+    fp32, T 100 and 130: T2 and T4 staged, then streamed; dropout 0.2 on
     both streams): the host ints' outputs bit for bit; in a CUDA graph,
     each replay reads the scalars' values then and equals the eager
     device-scalar run bit for bit."""
@@ -1235,8 +1267,7 @@ def c3b_graph(gen) -> dict:
     rec = {}
     for cdt, t in itertools.product((torch.bfloat16, torch.float32), (C3B_HIST, 130)):
         n, din, heads, hd, a = 29, 64, 4, 16, 48
-        t4 = "tiled_attention_bwd" + ("_staged" if ne.attention_variant(t, hd, cdt, True)
-                                      == "staged" else "")
+        t4 = "tiled_attention_bwd" + ATT_SUFFIX[ne.attention_variant(t, hd, cdt, True)]
         x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
         packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
         gout = torch.randn(n, heads * hd, generator=gen, device=DEV)
@@ -1281,7 +1312,7 @@ def c3b_graph(gen) -> dict:
         rec[f"{str(cdt)[6:]}_t{t}"] = {"pairs": [[hex(s), nv] for s, nv in pairs],
                                        "kernel": t4, "bit_equal": True}
     print(f"[c3b] device scalars: the tiled route at T {C3B_HIST} and 130 (bf16, fp32; T2 and T4 "
-          f"staged, then gathering) draws the host "
+          f"staged, then streamed) draws the host "
           f"ints' masks (output and dx bit-equal, weight gradients within {WGRAD_REL_TOL}); in "
           f"a CUDA graph each replay reads its seed and n_valid, bit-equal to the eager runs",
           flush=True)
@@ -1294,8 +1325,10 @@ def c3b_variants(gen) -> list:
     dropout, T2's o (both directions) and statistics and T4's dQ|dK|dV
     against their plain versions (``BF16_REL_TOL``, 1e-4 of the scale in
     fp32), dQ|dK|dV zero past n_valid, two launches of each on the same
-    inputs bit for bit, each launch counted on its kernel; where a kernel is
-    "gather", the library refuses a "staged" request for it."""
+    inputs bit for bit, each launch counted on its kernel; the library
+    refuses a request for a kernel the rule passed over (a "staged" one
+    where it answers "streamed" or "gather", a "streamed" one where it
+    answers "gather") and writes nothing."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     lib, rec = ne._library_tiled(), []
@@ -1319,7 +1352,7 @@ def c3b_variants(gen) -> list:
         dq = [ne.tiled_attention_bwd(qkv, dout, runs[0][2], packed, **kw) for _ in (0, 1)]
         torch.cuda.synchronize()
         cnt = read_counts()
-        sfx = ["_staged" if v == "staged" else "" for v in want]
+        sfx = [ATT_SUFFIX[v] for v in want]
         check(cnt["tiled_attention" + sfx[0]] == 4 and cnt["tiled_attention_bwd" + sfx[1]] == 2
               and sum(cnt[k] for k in TILED) == 6, f"c3b variant {name}: launches {cnt}")
         ro = ne.tiled_attention_reference(qkv, packed, drop_in, **kr)[0]
@@ -1340,34 +1373,40 @@ def c3b_variants(gen) -> list:
                and torch.equal(runs[0][2][:, :rows], runs[1][2][:, :rows])
                and torch.equal(dq[0], dq[1]))
         check(bit, f"c3b variant {name}: two launches differ")
+        # requests for the kernels the rule passed over, each into buffers of 7s: refused, unwritten
         refused = []
-        if "gather" in want:  # a "staged" request where the kernel does not fit: refused
-            _, _, _, gh, pw, p_cols = ne._heads(packed)
-            with torch.cuda.device(DEV):
-                if want[0] == "gather":
-                    refused.append(lib.tiled_attention(
-                        qkv.data_ptr(), runs[0][1].data_ptr(), runs[0][1].shape[1], 0,
-                        runs[0][2].data_ptr(), n, t, d, heads, gh, pw, p_cols, n, None,
-                        1.0 / math.sqrt(hd), int(bf), 0, 0, None, 0, 1.0, None, 1.0, 1,
-                        torch.cuda.current_stream().cuda_stream))
-                if want[1] == "gather":
-                    refused.append(lib.tiled_attention_bwd(
-                        qkv.data_ptr(), dout.data_ptr(), runs[0][2].data_ptr(), None,
-                        dq[1].data_ptr(), n, t, d, heads, gh, pw, p_cols, n, None,
-                        1.0 / math.sqrt(hd), int(bf), 1, torch.cuda.current_stream().cuda_stream))
-            torch.cuda.synchronize()
-            check(all(r != 0 for r in refused), f"c3b variant {name}: a staged request past "
-                                                f"the boundary returned {refused}")
-            check(torch.equal(dq[0], dq[1]), f"c3b variant {name}: a refused request wrote")
+        _, _, _, gh, pw, p_cols = ne._heads(packed)
+        stream = torch.cuda.current_stream().cuda_stream
+        order = ("staged", "streamed", "gather")
+        for bwd, w in enumerate(want):
+            for v in order[:order.index(w)]:
+                out = torch.full_like(dq[1] if bwd else runs[1][1], 7.0)
+                st = torch.full_like(runs[1][2], 7.0)
+                with torch.cuda.device(DEV):
+                    if bwd:
+                        refused.append(lib.tiled_attention_bwd(
+                            qkv.data_ptr(), dout.data_ptr(), runs[0][2].data_ptr(), None,
+                            out.data_ptr(), n, t, d, heads, gh, pw, p_cols, n, None,
+                            1.0 / math.sqrt(hd), int(bf), ne._ATT_VARIANT[v], stream))
+                    else:
+                        refused.append(lib.tiled_attention(
+                            qkv.data_ptr(), out.data_ptr(), out.shape[1], 0, st.data_ptr(), n, t,
+                            d, heads, gh, pw, p_cols, n, None, 1.0 / math.sqrt(hd), int(bf), 0,
+                            0, None, 0, 1.0, None, 1.0, ne._ATT_VARIANT[v], stream))
+                torch.cuda.synchronize()
+                check(refused[-1] != 0 and bool((out == 7.0).all()) and bool((st == 7.0).all()),
+                      f"c3b variant {name}: a {v} request ({'T4' if bwd else 'T2'}) past the "
+                      f"rule returned {refused[-1]} or wrote")
         print(f"[c3b] variant {name}: [{n}, {t}] heads {heads}x{hd} {str(cdt)[6:]} n_valid {nv} "
               f"(device) dropout={drop}: T2 {want[0]}, T4 {want[1]}; "
               + " ".join(f"{k}={e:.2e}/{sc:.2e}" for k, (e, sc) in errs.items())
               + f" (rel tol {rel}); two launches bit-equal"
-              + (f"; staged requests refused ({len(refused)})" if refused else ""), flush=True)
+              + (f"; requests past the rule refused ({len(refused)})" if refused else ""),
+              flush=True)
         rec.append({"case": name, "shape": [n, t], "heads": [heads, hd], "dtype": str(cdt)[6:],
                     "n_valid": nv, "dropout": drop, "variants": want, "errors": errs,
                     "launches": {k: cnt[k] for k in TILED}, "bit_equal": True,
-                    "staged_refused": len(refused)})
+                    "refused": len(refused)})
     return rec
 
 
@@ -1742,6 +1781,105 @@ def c3b_timed(peaks, gen) -> dict:
     return {"parts": rec, "whole": whole, "whole_errors": acc}
 
 
+def c3b_timed_h200(peaks, gen) -> dict:
+    """T2 and T4 at the history-200 user tower [TRAIN_BS, 200, D] bf16 (no
+    dropout), where the rule gives the streamed kernels: each against its
+    plain version over every article (``plain_chunked``), timed beside its
+    plain version, its bound and scaled_dot_product_attention's forward
+    (T2) or backward (T4; two calls, each on half the batch) in turns, and
+    the gathering kernel (``earlier``) on the same inputs, held against
+    the same plain version and timed."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    n, t, cdt, hd, heads = TRAIN_BS, C3B_H200, torch.bfloat16, HEAD_DIM, HEADS
+    kern = tiled_names(t, hd, cdt, D, ATT)
+    check(kern["t2"] == "tiled_attention_streamed" and kern["t4"] == "tiled_attention_bwd_streamed",
+          f"c3b timed h{t}: the user tower's kernels are {kern}")
+    x, ws = make_inputs(n, t, D, cdt, gen)
+    packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
+    drop, kw, rows = ne.Dropout(), dict(n=n, t=t, nv=n), n * t
+    xin = ne.kernel_input(x, n, drop)[0]
+    qkv = ne.tiled_qkv(xin, packed, drop, **kw)
+    oc, st = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
+    g = (torch.randn(n, D, generator=gen, device=DEV) * 1e-2).contiguous()
+    do = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)[0]
+    del x, xin, oc, g
+    torch.cuda.empty_cache()
+    mm = 2 * heads * t * t * hd * n  # one attention product
+    qkv_b = rows * 3 * D * 2  # the heads' Q|K|V (or dQ|dK|dV): not P's pad columns
+    work = {"tiled_attention": (2 * mm, qkv_b + rows * D * 4),
+            "tiled_attention_bwd": (5 * mm, 2 * qkv_b + rows * D * 2 + 2 * rows * heads * 4)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = [torch.randn(n, heads, t, hd, generator=gen, device=DEV).to(cdt) for _ in range(3)]
+    # SDPA's backward in two calls, on each half of the batch: one call on the whole batch stops
+    # with an illegal memory access on the card (PyTorch's memory-efficient backward at this size)
+    halves = [[u[i * n // 2:(i + 1) * n // 2].detach().requires_grad_() for u in q4]
+              for i in (0, 1)]
+    out4 = [sdpa(*h_) for h_ in halves]
+    dout4 = [torch.randn(u.shape, generator=gen, device=DEV).to(cdt) for u in out4]
+    library = {"tiled_attention": lambda: sdpa(*q4),
+               "tiled_attention_bwd": lambda: [torch.autograd.grad(o_, h_, d_, retain_graph=True)
+                                               for o_, h_, d_ in zip(out4, halves, dout4)]}
+    calls = {"tiled_attention": lambda: ne.tiled_attention(qkv, packed, drop, **kw)[0],
+             "tiled_attention_bwd": lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw)}
+    plains = {"tiled_attention": lambda k: ne.tiled_attention_reference(qkv[k["r"]], packed, drop,
+                                                                        **k["kw"])[0],
+              "tiled_attention_bwd": lambda k: ne.tiled_attention_bwd_reference(
+                  qkv[k["r"]], do[k["r"]], st[:, k["r"]], packed, **k["kw"])}
+    rec = {}
+    for base, new in (("tiled_attention", kern["t2"]), ("tiled_attention_bwd", kern["t4"])):
+        reset_counts()
+        got = {new: calls[base](), base: earlier(calls[base])()}
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        check(cnt[new] == 1 and cnt[base] == 1, f"c3b timed h{t}: launches {cnt}")
+        errs = {k: [0.0, 0.0] for k in got}
+
+        def plain(a0, a1):
+            k = dict(r=slice(a0 * t, a1 * t), kw=dict(n=a1 - a0, t=t, nv=a1 - a0))
+            ref = plains[base](k)
+            for name, u in got.items():
+                check(bool(torch.isfinite(u[k["r"]]).all()), f"c3b timed h{t}: {name} non-finite")
+                e = errs[name]
+                e[0] = max(e[0], (u[k["r"]].float() - ref.float()).abs().max().item())
+                e[1] = max(e[1], ref.float().abs().max().item())
+
+        plain_ms = plain_chunked(plain, n, t)
+        del got
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(*work[base], peaks[0], peaks)
+        # SDPA and the streamed kernel in turns (SDPA, kernel, kernel, SDPA): the card's clock
+        # drifts as it warms
+        turns = [time_ms(f, 5, warmup=1) for f in (library[base], calls[base], calls[base],
+                                                   library[base])]
+        lib_ms = (turns[0] + turns[3]) / 2
+        for name, iters in ((new, 0), (base, 2)):
+            ms = (turns[1] + turns[2]) / 2 if not iters else time_ms(earlier(calls[base]), iters,
+                                                                      warmup=1)
+            e, sc = errs[name]
+            check(e <= BF16_REL_TOL * sc, f"c3b timed h{t}: {name} max|kernel - plain| {e} > "
+                                          f"{BF16_REL_TOL} * {sc}")
+            rec[name] = {"case": f"{name}_user_h{t}", "shape": [n, t, D], "max_abs_err": e,
+                         "max_abs_ref": sc, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms,
+                         "gflop": work[base][0] / 1e9, "mbytes": work[base][1] / 1e6}
+            print(f"[c3b] {name} at the history-{t} user tower [{n}, {t}, {D}] bf16: "
+                  f"max_abs_err={e:.3e} (of {sc:.3e}) ms={ms:.3f} plain_ms={plain_ms:.1f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}; {ms / b_ms:.1f}x it) library_ms="
+                  f"{lib_ms:.3f} ({ms / lib_ms:.2f}x it)", flush=True)
+        rec[new]["pr16_ms"] = rec[base]["ms"]
+        rec[new]["turns_ms"] = turns
+        print(f"[c3b] {base} at the history-{t} user tower: the streamed kernel "
+              f"{rec[new]['ms']:.3f} ms, the gathering one {rec[base]['ms']:.3f} "
+              f"({rec[base]['ms'] / rec[new]['ms']:.2f}x), SDPA's "
+              f"{'backward' if 'bwd' in base else 'forward'} {lib_ms:.3f} "
+              f"({lib_ms / rec[new]['ms']:.2f}x; in turns SDPA, kernel, kernel, SDPA: "
+              + ", ".join(f"{v:.3f}" for v in turns) + ")", flush=True)
+    del qkv, st, do, packed, ws, q4, halves, out4, dout4
+    torch.cuda.empty_cache()
+    return rec
+
+
 def c3b_scan_mesh(table) -> dict:
     """scan_steps=4 at bench.py's width and a batch of C3B_SCAN_BS, history
     50 (the user tower on the wide instance) and 100 (on the tiled route), on
@@ -1805,11 +1943,14 @@ def c3b_scan_mesh(table) -> dict:
 def c3b_phase(table, peaks, gen, staged_step) -> dict:
     """[c3b]: the tiled route's cases (C3B_CASES), the route forced against
     the instances (C3B_FORCED), the device scalars in a graph, the timed
-    history-100 user tower, NRMS training and serving at history 100
-    (``history_training``), the CLI at ``--use_fused_encoder --history_size
-    100`` (1 epoch), and scan groups on a one-process NCCL mesh. Every step
-    launches the kernels of ``staged_step`` but K1 and the per-block kernel
-    once (the news tower) and T1-T4 as a forward and its backward do."""
+    history-100 and history-200 user towers, NRMS training and serving at
+    history 100 (``history_training``), the CLI at ``--use_fused_encoder
+    --history_size 100`` (1 epoch), NRMS training and serving at history
+    200 (the streamed T2 and T4; the step compared at a batch of
+    C3B_H200_CMP_BS), and scan groups on a one-process NCCL mesh. Every
+    step launches the kernels of ``staged_step`` but K1 and the per-block
+    kernel once (the news tower) and T1-T4 as a forward and its backward
+    do."""
     import shutil
 
     t0 = time.perf_counter()
@@ -1820,6 +1961,8 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
            "variants_t1_t3": c3b_qkv_pool_variants(gen),
            "graph": c3b_graph(gen)}
     rec["timed"] = c3b_timed(peaks, gen)
+    release()
+    rec["timed_h200"] = c3b_timed_h200(peaks, gen)
     release()
     expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
                   **tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16))
@@ -1839,12 +1982,20 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
     del trainer
     shutil.rmtree(out)
     release()
+    # the streamed T2 and T4's path: the user tower at history 200
+    expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
+                  **tiled_call(C3B_H200, HEAD_DIM, torch.bfloat16))
+    rec["training_h200"] = history_training(
+        table, peaks, expect, hist=C3B_H200, tag="c3b h200", cmp_bs=C3B_H200_CMP_BS, keys=keys,
+        serve_counter=tiled_names(C3B_H200, HEAD_DIM, torch.bfloat16, D, ATT)["t1"])
+    release()
     rec["scan_mesh"] = c3b_scan_mesh(table)
     rec["seconds"] = time.perf_counter() - t0
     print(f"[c3b] {len(rec['cases'])} tiled cases, {len(rec['forced'])} forced, "
           f"{len(rec['variants'])} of T2's and T4's variant cases, the graph "
-          f"check, the history-{C3B_HIST} user tower timed, NRMS training and serving, the CLI "
-          f"and the mesh's scan groups passed in {rec['seconds']:.1f} s", flush=True)
+          f"check, the history-{C3B_HIST} and {C3B_H200} user towers timed, NRMS training and "
+          f"serving at both, the CLI and the mesh's scan groups passed in "
+          f"{rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -4963,13 +5114,18 @@ def main(argv=None) -> int:
     ]}
     for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
-    # [c3b]: the tiled route's kernels, launched by the history-100 steps (that path's counts)
-    c3b_l = c3b["training"]["launches"]
-    # the history-100 path's tiled kernels, and PR 16's (the cases: past T 128, fp32, wide A)
+    # [c3b]: the tiled route's kernels, launched by the history-100 steps and the history-200 ones
+    # (each path's counts)
+    c3b_l, h200_l = c3b["training"]["launches"], c3b["training_h200"]["launches"]
+    # each path's tiled kernels, and the rest (the first kernels: the cases and the variant cases
+    # past the newer kernels' rules)
     path = [k for k, v in tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16).items() if v]
-    gather_l = {k: sum(c["launches"][k] for c in c3b["cases"]) for k in TILED}
+    path_h200 = [k for k, v in tiled_call(C3B_H200, HEAD_DIM, torch.bfloat16).items() if v]
+    gather_l = {k: sum(c["launches"][k] for c in c3b["cases"] + c3b["variants"]) for k in TILED}
     check(all(c3b_l[name] > 0 for name in path), f"[c3b] a tiled kernel never ran: {c3b_l}")
-    check(all(gather_l[name] > 0 for name in TILED if name not in path),
+    check(all(h200_l[name] > 0 for name in path_h200),
+          f"[c3b] a tiled kernel of the history-200 path never ran: {h200_l}")
+    check(all(gather_l[name] > 0 for name in TILED if name not in path + path_h200),
           f"[c3b] one of PR 16's T1-T4 never ran in the cases: {gather_l}")
     for k in kernels["kernels"]:
         k["launches_c3b"] = c3b_l.get(k["name"], 0)
@@ -4986,13 +5142,22 @@ def main(argv=None) -> int:
                            "blocks, each 256-column panel through the ring); launches: [c3b]'s "
                            "fp32 cases; timed at the user tower with the wrapper's rule "
                            "overridden; library_ms is torch.matmul of its product"),
-        "tiled_attention": (234, "T2, gathering (past T 128 or a pair's shared memory): the "
-                                 "attention forward by 64-row query tiles on mma.sync fragments "
-                                 "gathered from device memory (the rows' statistics, then "
-                                 "normalised P V), the stream-1 mask; launches: [c3b]'s cases "
-                                 "past T 128 (the history-100 path takes the staged kernel); "
-                                 "timed at the user tower with the wrapper's rule overridden; "
-                                 "library_ms is scaled_dot_product_attention"),
+        "tiled_attention": (234, "T2, gathering (past the streamed kernel's shared memory): "
+                                 "the attention forward by 64-row query tiles on mma.sync "
+                                 "fragments gathered from device memory (the rows' statistics, "
+                                 "then normalised P V), the stream-1 mask; launches: [c3b]'s "
+                                 "variant cases past the streamed kernel's head widths; timed at "
+                                 "the user tower with the wrapper's rule overridden; library_ms "
+                                 "is scaled_dot_product_attention"),
+        "tiled_attention_streamed": (234, "T2, streamed (past the staged kernel, any T): the "
+                                          "attention forward per (article, head), four warps of "
+                                          "16-row query tiles by rounds, Q, K and V in shared "
+                                          "memory by cp.async (whole where they fit, else K and "
+                                          "V by tiles of 64, 32 or 16 rows through two slots), "
+                                          "ldmatrix fragments, the rows' max and sum over the key "
+                                          "tiles, then normalised round(P) V by 64-column "
+                                          "chunks, the stream-1 mask; launches: the history-200 "
+                                          "steps; library_ms is scaled_dot_product_attention"),
         "tiled_attention_staged": (234, "T2, staged (T <= 128): the attention forward per "
                                         "(article, head), Q, K and V staged once in shared "
                                         "memory by cp.async, ldmatrix fragments, each row's "
@@ -5013,31 +5178,47 @@ def main(argv=None) -> int:
         "tiled_pool_bwd": (529, "T3's backward, chunked (PR 16): the pooling backward per "
                                 "article, round(dz) and do; launches: [c3b]'s cases; timed at "
                                 "the user tower with the wrapper's rule overridden"),
-        "tiled_attention_bwd": (529, "T4, gathering (past T 128 or a pair's shared memory): the "
-                                     "attention backward per (article, head): query tiles (dP, "
-                                     "dS, dQ), then key tiles (dV, dK); launches: [c3b]'s cases "
-                                     "past T 128; timed at the user tower with the wrapper's rule "
+        "tiled_attention_bwd": (529, "T4, gathering (past the streamed kernel's shared "
+                                     "memory): the attention backward per (article, head): query "
+                                     "tiles (dP, dS, dQ), then key tiles (dV, dK); launches: "
+                                     "[c3b]'s variant cases past the streamed kernel's head "
+                                     "widths; timed at the user tower with the wrapper's rule "
                                      "overridden; library_ms is scaled_dot_product_attention's "
                                      "backward"),
+        "tiled_attention_bwd_streamed": (529, "T4, streamed (past the staged kernel, any T): the "
+                                              "attention backward per (article, head), four "
+                                              "warps of 16-row tiles by rounds, the rows' max, "
+                                              "1/sum and delta in shared memory; query pass (K and "
+                                              "V swept): S and dP for delta, then S, dP, dS and dQ "
+                                              "by 32-column chunks; key pass (Q and dO swept): dV "
+                                              "and dK; Q, K, V and dO whole in shared memory "
+                                              "where they fit, else by rounds and tiles; "
+                                              "launches: the history-200 steps; library_ms is "
+                                              "scaled_dot_product_attention's backward"),
         "tiled_attention_bwd_staged": (529, "T4, staged (T <= 128): the attention backward per "
                                             "(article, head), Q, K, V, dO and the statistics "
                                             "staged once; query tiles (S and dP once, dS, dQ), "
                                             "round(P) and dS left in shared memory for the key "
                                             "tiles (dV, dK); library_ms is "
                                             "scaled_dot_product_attention's backward")}
+    h200 = c3b["timed_h200"]
     for name in TILED:
-        part = c3b["timed"]["parts"][name]
+        on_h200 = name in h200 and name not in c3b["timed"]["parts"]  # the streamed kernels
+        part = h200[name] if on_h200 else c3b["timed"]["parts"][name]
         line, note = tiled_notes[name]
-        gathers = name not in path
+        launches = (h200_l[name] if on_h200 else c3b_l[name] if name in path else gather_l[name])
         kernels["kernels"].append(dict(
             {"name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
-             "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}",
-             "launches": gather_l[name] if gathers else c3b_l[name],
-             "launches_c3b_h100": c3b_l[name],
+             "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}", "launches": launches,
+             "launches_c3b_h100": c3b_l[name], "launches_c3b_h200": h200_l[name],
+             "launches_c3b_cases": gather_l[name],
              "launches_c3b_cli": c3b["cli"]["launches"][name],
              "launches_c3b_scan_mesh": c3b["scan_mesh"][f"h{C3B_HIST}"]["launches_scan"].get(name, 0),
-             "note": note + f"; timed at the history-{C3B_HIST} user tower {part['shape']} bf16",
+             "note": note + f"; timed at the history-{part['shape'][1]} user tower {part['shape']} "
+                            f"bf16",
              "checked": True}, **{k: part[k] for k in keys},
+            **({"user_h200": {k: h200[name][k] for k in keys}}
+               if name in h200 and not on_h200 else {}),
             cases_c3b=[{"case": c["case"], "max_abs_err": c["parts"][name][0]}
                        for c in c3b["cases"] if name in c["parts"]]))
     record["total_s"] = time.perf_counter() - t_start

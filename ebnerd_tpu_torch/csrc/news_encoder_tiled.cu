@@ -19,7 +19,8 @@
 //      a block, 256 packed columns a panel on the QKV stage of
 //      news_encoder_common.cuh (fp32: cp.async/FMA, drawing the stream-0
 //      mask).
-//   T2 tiled_attention_staged_kernel / tiled_attention_kernel: the
+//   T2 tiled_attention_staged_kernel / tiled_attention_streamed_kernel /
+//      tiled_attention_kernel: the
 //      attention forward, O = round(P) V with P normalised, so the
 //      probabilities are rounded where the plain version rounds them (no
 //      online rescale of O). Then the stream-1 mask (or the external one),
@@ -38,17 +39,19 @@
 //      ("chunked", PR 16's kernel): a block an article, 64-row tiles, W_att
 //      streamed in 256-column chunks (the wide instance's pooling device
 //      functions).
-//   T4 tiled_attention_bwd_staged_kernel / tiled_attention_bwd_kernel: the
-//      attention backward per (article, head): P from T2's statistics,
+//   T4 tiled_attention_bwd_staged_kernel / tiled_attention_bwd_streamed_kernel
+//      / tiled_attention_bwd_kernel: the attention backward per (article,
+//      head): P from T2's statistics,
 //      delta = rowsum(P dP) over the unrounded P, dS = round(P (dP - delta)
 //      scale), dQ = dS K, dV = round(P)^T dO, dK = dS^T Q, to T1's layout.
 // After T4 the backward's GEMMs and reductions (news_encoder_bwd.cu) make
 // dx, dWqkv, dW, db and dq, as after the per-block kernel.
 //
-// Each of T1-T4 has two kernels; the wrappers pick one before the launch
-// (ops/news_encoder.py `qkv_variant`, `attention_variant`, `pool_variant`)
-// and pass the choice, which the launchers refuse where the newer kernel
-// does not take the shape. T2 and T4 (`staged`):
+// T1 and T3 have two kernels each, T2 and T4 three; the wrappers pick one
+// before the launch (ops/news_encoder.py `qkv_variant`, `attention_variant`,
+// `pool_variant`) and pass the choice, which the launchers refuse where the
+// kernel does not take the shape. T2 and T4 (`variant`: 1 staged, 2
+// streamed, 0 gathering):
 //   - staged, where T rounded up to 16 (T16) is at most 128 and an
 //     (article, head) pair's tiles fit a block (at T 128, head widths up to
 //     288 for T2 and 144 for T4 in bf16, 144 and 32 in fp32; in bf16 an
@@ -61,6 +64,26 @@
 //     pass takes S and dP once, delta by quad sums, dS and dQ, and leaves
 //     round(P) and dS in shared memory; its key pass reads them by
 //     ldmatrix.trans for dV and dK and recomputes no logit.
+//   - streamed, past the staged kernels (any T; head widths while a
+//     round's rows and two slots of 16-row tiles fit: T2 896 in bf16, 448
+//     in fp32; T4 576 and 288 at T 200): a block per pair, four warps,
+//     each a 16-row tile of a round (T2: two tiles at once where the head
+//     is at most 64 wide, each B fragment feeding both), the rounds
+//     covering T16. The staged design without the row of logits in
+//     registers, which are taken 32 keys at a time: the operands in
+//     shared memory by cp.async (plain loads where an odd bf16 width leaves
+//     a row 2-byte aligned), read by ldmatrix; where the pair's matrices
+//     fit a block ("resident": T2 Q, K and V; T4 also dO) they are loaded
+//     once, else each round's rows are loaded and the swept pair streams in
+//     tiles of 64, 32 or 16 rows through two slots shared by the warps (the
+//     next tile loads while the current one is used). T2 keeps two passes
+//     (P must be normalised before it is rounded): the rows' max and sum
+//     over the key tiles, then, per 64- (two tiles: 32-) column chunk of
+//     the head, the logits again from shared memory and round(P) V. T4
+//     keeps each row's max + log2(sum) and delta in shared memory; its
+//     query pass takes S and dP for delta, then per 32-column chunk S, dP,
+//     dS and dQ; its key pass, per chunk, the logits and dP transposed, dV
+//     and dK.
 //   - gathering, everywhere else (any T and head width): fragments
 //     gathered element by element from device memory (through L1), zero
 //     past the article's T rows and the head's columns, so no tile needs
@@ -76,8 +99,8 @@
 // scale). No atomics: every output element is written by one warp of one
 // block and every sum runs in a fixed order, so two launches are
 // bit-equal. (delta needs a whole row of P dP before its dS exists: the
-// staged query pass has the row in registers, the gathering one sweeps it
-// twice.)
+// staged query pass has the row in registers, the streamed and gathering
+// ones sweep it twice.)
 //
 // What bounds them on the card: at the history-100 user tower ([16,384,
 // 100, 400], 20 heads of 20, A 200, bf16) T1 is bound by tensor-core
@@ -89,8 +112,17 @@
 // is not traced; the candidates are each pair's copy latency at the few
 // blocks an SM holds (T2 three, by registers; T4 two, by its 90 KB of
 // shared memory at T 100) and its short mma.sync chains. The gathering
-// ones take 16x and 52x: their scattered loads. For T1 "tma" and T3
-// "resident" see their notes below.
+// ones take 16x and 52x: their scattered loads. At the history-200 user
+// tower (bounds 3.9 and 5.6 ms) the streamed T2 and T4 take about 8x and
+// 14x (PERF.md). In trial builds (not committed) neither the
+// special-function unit nor latency alone bounded them: exp2 left out
+// barely moved them, two row tiles a warp (more independent work) helped
+// T2 a little and T4 not at all, and a block fewer an SM slowed both. What
+// is left is the instruction stream itself: the logits twice (T2) and
+// three times (T4), over k-steps that are partly the head's zero padding
+// at 20 columns (T2 takes the last 8 by an m16n8k8 step), and the
+// elementwise work on each of them. For T1 "tma" and T3 "resident" see
+// their notes below.
 //
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on the
@@ -1135,6 +1167,694 @@ __global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
   }
 }
 
+// ---- T2 and T4, streamed: any T, the operands in shared memory ----
+// (the top of this file; the launchers only check that a request fits)
+
+constexpr int kStrWarps = kAttThreads / 32;  // warps a block
+constexpr int kStrNarrow = 64;  // head widths (rounded up to 16) up to this: two row tiles a warp
+constexpr int kStrKeys = 32;    // keys (T4's key pass: queries) of a logits tile in registers
+constexpr int kStrKeys1 = 32;   // T2's pass 1 (no o accumulators): keys of a logits tile
+
+// Shared memory of a streamed T2 (bwd false) or T4. Each warp takes rt
+// 16-row tiles at once (T2: 2 where the head is narrow, so that each B
+// fragment feeds two products; else 1: T4 at its registers' limit gained
+// nothing from 2), a round being the block's 64 rt rows. The matrices' tiles are zero-padded to r16(hd) columns in rows of
+// ld elements. "resident": Q, K and V (T4: and dO) whole, T16 rows each,
+// loaded once. Otherwise a round's rows of Q (T4: two matrices) and two
+// slots of the swept pair (K and V; T4's key pass: Q and dO) in tiles of kr
+// rows, the largest of 64, 32 and 16 that fits. T4 adds each row's max,
+// 1/sum and delta (a float4 a row, T16 rows) after them.
+struct StreamPlan {
+  bool resident;
+  int t16, ld, kr, rt, round;
+  size_t mat, stats, total;  // bytes: a whole matrix; where the statistics start; all
+};
+__host__ __device__ inline StreamPlan streamed_plan(int t, int hd, int elem, bool bwd) {
+  StreamPlan L;
+  L.t16 = r16(t);
+  L.ld = pad_ld(r16(hd), elem);
+  L.rt = !bwd && r16(hd) <= kStrNarrow ? 2 : 1;
+  L.round = 16 * kStrWarps * L.rt;
+  const size_t row = size_t(L.ld) * elem, stats = bwd ? size_t(L.t16) * 16 : 0;
+  const int mats = bwd ? 4 : 3, side = bwd ? 2 : 1;
+  L.mat = size_t(L.t16) * row;
+  L.resident = mats * L.mat + stats <= size_t(kSmemLimit);
+  L.kr = kTile;
+  L.stats = mats * L.mat;
+  while (!L.resident) {
+    L.stats = (size_t(side) * L.round + 4 * size_t(L.kr)) * row;
+    if (L.stats + stats <= size_t(kSmemLimit) || L.kr == 16) break;
+    L.kr /= 2;
+  }
+  L.total = L.stats + stats;
+  return L;
+}
+
+// Whether a streamed request fits what its launch allocates.
+inline bool streamed_fits(int t, int hd, int elem, bool bwd) {
+  return streamed_plan(t, hd, elem, bwd).total <= size_t(kSmemLimit);
+}
+
+// stage, or where src is not 4-byte aligned (an odd bf16 head width or D)
+// plain loads and stores: cp.async's smallest piece is 4 bytes.
+template <typename T>
+__device__ void stage_rows(T* dst, int ldd, const T* src, size_t lds, int rows, int rows_pad,
+                           int cols, int cols_pad) {
+  if ((reinterpret_cast<size_t>(src) | (lds * sizeof(T))) % 4 == 0) {
+    stage(dst, ldd, src, lds, rows, rows_pad, cols, cols_pad);
+    return;
+  }
+  for (int i = threadIdx.x; i < rows_pad * cols_pad; i += blockDim.x) {
+    const int r = i / cols_pad, c = i % cols_pad;
+    dst[r * ldd + c] = r < rows && c < cols ? src[size_t(r) * lds + c] : from_f<T>(0.f);
+  }
+}
+
+// Two 8 x 8 matrices by ldmatrix (.x2: lanes 0-15 give the rows) and an
+// m16n8k8 product: T2's logits take a head's last 8 columns by them where
+// its width is 8 past a multiple of 16 (20: 16 + 8), not by a k-step of 16
+// that is half zeros. (T4, at its registers' limit, spills with them and
+// runs slower: it keeps k-steps of 16.)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(hop::smem_u32(p)));
+}
+__device__ __forceinline__ void mma_16808(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// acc[r][j] (r < R; j < nn, nn even) += A_r[16 x kd] B[kd x 8 nn]: each
+// row tile's A row-major at a[r], B stored by columns (b[n][k], as K for Q
+// K^T), all in shared memory (row stride ld); each B fragment is loaded
+// once for the R tiles. kd: a multiple of 16, or with K8 of 8 (a last
+// k-step of 8).
+template <typename T, int R, int NN, bool K8 = false>
+__device__ __forceinline__ void smm_rows(float (&acc)[R][NN][4], const T* (&a)[R], const T* b,
+                                         int ld, int kd, int nn) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int ks = kd / 16;
+    for (int kk = 0; kk < ks; ++kk) {
+      uint32_t fa[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) lda_rm(fa[r], a[r], ld, 0, 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NN; j += 2) {
+        if (j < nn) {
+          uint32_t fb[4];
+          ldb_nk(fb, b, ld, 16 * kk, 8 * j);
+#pragma unroll
+          for (int r = 0; r < R; ++r) mma_pair(acc[r][j], acc[r][j + 1], fa[r], fb);
+        }
+      }
+    }
+    if (K8 && kd % 16) {  // columns 16 ks .. 16 ks + 8
+      const int l = threadIdx.x % 16;
+      uint32_t fa[R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ldsm_x2(fa[r], a[r] + l * ld + 16 * ks);
+#pragma unroll
+      for (int j = 0; j < NN; j += 2) {
+        if (j < nn) {
+          uint32_t fb[2];  // column tiles j and j + 1
+          ldsm_x2(fb, b + (8 * j + l) * ld + 16 * ks);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            mma_16808(acc[r][j], fa[r], fb[0]);
+            mma_16808(acc[r][j + 1], fa[r], fb[1]);
+          }
+        }
+      }
+    }
+  } else {
+    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+    for (int k = 0; k < kd; ++k) {
+      float a0[R], a1[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        a0[r] = a[r][g * ld + k];
+        a1[r] = a[r][(g + 8) * ld + k];
+      }
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        if (j < nn) {
+          const int n = 8 * j + 2 * c;
+          const float b0 = b[n * ld + k], b1 = b[(n + 1) * ld + k];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][j][0] += a0[r] * b0;
+            acc[r][j][1] += a0[r] * b1;
+            acc[r][j][2] += a1[r] * b0;
+            acc[r][j][3] += a1[r] * b1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// acc[r][j] (j < no, no even) += F_r[16 x 16 nks] B[16 nks x .., c0 + 8 j ..]:
+// F_r held as C fragments of up to 8 NK columns (bf16 rounds them as the A
+// operand, fp32 takes them as they are), B row-major in shared memory (row
+// stride ld); each B fragment is loaded once for the R tiles.
+template <typename T, int R, int NK, int NN>
+__device__ __forceinline__ void smm_frag_rows(float (&acc)[R][NN][4], const float (&f)[R][NK][4],
+                                              const T* b, int ld, int c0, int no, int nks) {
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      if (kk >= nks) break;
+      uint32_t fa[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) c_to_a(f[r], kk, fa[r]);
+#pragma unroll
+      for (int j = 0; j < NN; j += 2) {
+        if (j < no) {
+          uint32_t fb[4];
+          ldb_kn(fb, b, ld, 16 * kk, c0 + 8 * j);
+#pragma unroll
+          for (int r = 0; r < R; ++r) mma_pair(acc[r][j], acc[r][j + 1], fa[r], fb);
+        }
+      }
+    }
+  } else {
+    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+#pragma unroll
+    for (int kc = 0; kc < 8 * NK; ++kc) {
+      if (kc >= 16 * nks) break;
+      // column kc of F sits in lane 4 g + (kc % 8) / 2, tile kc / 8, slot kc % 2
+      const int src = 4 * g + (kc % 8) / 2;
+      float a0[R], a1[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        a0[r] = __shfl_sync(0xffffffffu, f[r][kc / 8][kc % 2], src);
+        a1[r] = __shfl_sync(0xffffffffu, f[r][kc / 8][2 + kc % 2], src);
+      }
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        if (j < no) {
+          const int n = c0 + 8 * j + 2 * c;
+          const float b0 = b[kc * ld + n], b1 = b[kc * ld + n + 1];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][j][0] += a0[r] * b0;
+            acc[r][j][1] += a0[r] * b1;
+            acc[r][j][2] += a1[r] * b0;
+            acc[r][j][3] += a1[r] * b1;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int R, int N>
+__device__ __forceinline__ void zero_rows(float (&f)[R][N][4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) zero_frag(f[r]);
+}
+
+// The swept pair of a streamed kernel: two matrices of t rows (in device
+// memory at src, row strides lds) taken tile by tile, kr rows a tile, by
+// the block's warps in step. Resident: whole in shared memory at whole[i]
+// (loaded by load_whole). Else through two slots at `slots` (slot s,
+// matrix i at (2 s + i) kr ld): each step waits for its tile, then, after
+// a barrier (every warp is past the step before, so the other slot is
+// free), loads the phase's next tile into the other slot.
+template <typename T>
+struct Sweep {
+  const T* src[2];
+  size_t lds[2];
+  T* whole[2];
+  T* slots;
+  int t, hd, w16, ld, kr, t16, nt;
+  bool resident;
+  int seq, left;  // streamed: steps taken, and steps left in the phase
+
+  __device__ void load_whole() const {
+    for (int i = 0; i < 2; ++i) stage_rows(whole[i], ld, src[i], lds[i], t, t16, hd, w16);
+  }
+  __device__ void load_tile(int j, int s) const {
+    for (int i = 0; i < 2; ++i)
+      stage_rows(slots + size_t(2 * s + i) * kr * ld, ld, src[i] + size_t(j) * kr * lds[i], lds[i],
+                 min(kr, t - j * kr), kr, hd, w16);
+  }
+  // A phase of `steps` steps: whole sweeps over the tiles 0 .. nt - 1.
+  __device__ void begin(int steps) {
+    left = steps;
+    if (!resident && steps > 0) {
+      load_tile(0, seq & 1);
+      cp_async_commit();
+    }
+  }
+  // Tile j of the phase's next step: matrix i at m[i]. Every warp of the
+  // block calls it, in the same order.
+  __device__ void step(int j, const T* (&m)[2]) {
+    if (resident) {
+      m[0] = whole[0] + size_t(j) * kr * ld;
+      m[1] = whole[1] + size_t(j) * kr * ld;
+      return;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (--left > 0) load_tile(j + 1 < nt ? j + 1 : 0, (seq + 1) & 1);
+    cp_async_commit();
+    m[0] = slots + size_t(2 * (seq & 1)) * kr * ld;
+    m[1] = m[0] + size_t(kr) * ld;
+    ++seq;
+  }
+};
+
+template <typename T>
+__device__ Sweep<T> make_sweep(const StreamPlan& L, int t, int hd, T* slots) {
+  Sweep<T> s;
+  s.slots = slots;
+  s.t = t;
+  s.hd = hd;
+  s.w16 = r16(hd);
+  s.ld = L.ld;
+  s.kr = L.kr;
+  s.t16 = L.t16;
+  s.nt = (L.t16 + L.kr - 1) / L.kr;
+  s.resident = L.resident;
+  s.seq = s.left = 0;
+  return s;
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero (a
+// probability below 2^-126 rounds to nothing the products can see).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -inf for the logits of the keys at or past t: the thread's columns 8 jj
+// + {0, 1} (jj < nn) from `left` = t - (the tile's first key + 2 c) on.
+template <int R, int NK>
+__device__ __forceinline__ void mask_keys(float (&s)[R][NK][4], int left, int nn) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NK; ++jj)
+      if (jj < nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * jj + e % 2 >= left) s[i][jj][e] = -INFINITY;
+}
+
+// P = 2^(s sl - ml) in place, each row's ml its max + log2(sum) (+inf for
+// a row past t: P 0), over the column tiles below nn.
+template <int R, int NK>
+__device__ __forceinline__ void probs_of(float (&s)[R][NK][4], const float (&ml)[R][2], float sl,
+                                         int nn) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NK; ++jj)
+      if (jj < nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][jj][e] = ex2(fmaf(s[i][jj][e], sl, -ml[i][e / 2]));
+}
+
+// A warp's R row tiles in round r: first rows m0[i] (16 apart), which are
+// live below t, and where their rows lie in shared memory: resident, in the
+// whole matrix at base (a tile past T16 reads the last one's, its results
+// dropped); else in the round's buffer.
+template <typename T, int R>
+__device__ __forceinline__ void round_rows(const StreamPlan& L, int r, int t, const T* base,
+                                           int (&m0)[R], bool (&live)[R], const T* (&rows)[R]) {
+  const int first = (r * kStrWarps + int(threadIdx.x / 32)) * 16 * R;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m0[i] = first + 16 * i;
+    live[i] = m0[i] < t;
+    rows[i] = base + size_t(L.resident ? min(m0[i], L.t16 - 16) : m0[i] - r * L.round) * L.ld;
+  }
+}
+
+// T2 streamed: a block per (article, head), four warps, each R 16-row query
+// tiles of a round (the rounds cover T16). Pass 1 sweeps the key tiles for
+// each row's max and sum of exp2, each thread over its own columns (no
+// shuffle until the pass ends); pass 2, per 64 / R-column chunk of the
+// head, sweeps them again, the logits recomputed from shared memory, for o
+// = round(P) V with P normalised. The logits are taken kStrKeys keys at a
+// time; column tiles past a tile's T16 rows are skipped. Resident: Q, K
+// and V loaded once; else Q by rounds, K and V by tiles through the slots.
+template <typename T, int R>
+__global__ void __launch_bounds__(kAttThreads, 4)
+    tiled_attention_streamed_kernel(AttArgs p, bool o_f32) {
+  constexpr int NK = kStrKeys / 8, NK1 = kStrKeys1 / 8, NO = 8 / R;  // column tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+  const int t = p.t, hd = p.d / p.heads, w16 = r16(hd), w8 = (hd + 7) / 8 * 8;
+  const StreamPlan L = streamed_plan(t, hd, sizeof(T), false);
+  const int h = blockIdx.x % p.heads, an = blockIdx.x / p.heads;
+  if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) return;
+  const size_t row0 = size_t(an) * t;
+  const T* base = static_cast<const T*>(p.qkv) + row0 * p.P + (h / p.gh) * p.pw + (h % p.gh) * hd;
+  const int kq = p.gh * hd, ld = L.ld;
+  T* qs = reinterpret_cast<T*>(smem);
+  Sweep<T> sw = make_sweep<T>(L, t, hd, qs + size_t(L.round) * ld);
+  sw.src[0] = base + kq;
+  sw.src[1] = base + 2 * kq;
+  sw.lds[0] = sw.lds[1] = p.P;
+  sw.whole[0] = qs + size_t(L.t16) * ld;
+  sw.whole[1] = sw.whole[0] + size_t(L.t16) * ld;
+  if (L.resident) {  // Q and K, then V, which lands while pass 1 runs
+    stage_rows(qs, ld, base, p.P, t, L.t16, hd, w16);
+    stage_rows(sw.whole[0], ld, sw.src[0], p.P, t, L.t16, hd, w16);
+    cp_async_commit();
+    stage_rows(sw.whole[1], ld, sw.src[1], p.P, t, L.t16, hd, w16);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+  }
+  philox::Dropout dr = p.dr;
+  dr.key = philox::key_at(dr.key, p.seed_dev);
+  const float sl = p.scale * kLog2e;
+  const int nch = (w16 + 8 * NO - 1) / (8 * NO);
+  const int rounds = (L.t16 + L.round - 1) / L.round;
+  for (int r = 0; r < rounds; ++r) {
+    int m0[R];
+    bool live[R];
+    const T* qrow[R];
+    round_rows<T, R>(L, r, t, qs, m0, live, qrow);
+    if (!L.resident) {
+      __syncthreads();  // the last round's Q rows are spent
+      stage_rows(qs, ld, base + size_t(r) * L.round * p.P, p.P, min(L.round, t - r * L.round),
+                 L.round, hd, w16);
+      cp_async_commit();
+    }
+    sw.begin((1 + nch) * sw.nt);
+    // pass 1: each row's max and sum of exp2, first over the thread's own columns
+    float mx[R][2], l[R][2];
+#pragma unroll
+    for (int i = 0; i < R; ++i) mx[i][0] = mx[i][1] = -INFINITY, l[i][0] = l[i][1] = 0.f;
+    for (int j = 0; j < sw.nt; ++j) {
+      const T* m[2];
+      sw.step(j, m);
+      if (!live[0]) continue;
+      const int rows = min(L.kr, L.t16 - j * L.kr);
+      for (int h0 = 0; h0 < rows; h0 += kStrKeys1) {
+        const int k0 = j * L.kr + h0, nn = min(kStrKeys1, rows - h0) / 8;
+        float s[R][NK1][4];
+        zero_rows(s);
+        smm_rows<T, R, NK1, true>(s, qrow, m[0] + size_t(h0) * ld, ld, w8, nn);
+        if (k0 + 8 * nn > t) mask_keys(s, t - k0 - 2 * c, nn);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {  // the max of the raw logits: scale > 0
+            float rm = -INFINITY;
+#pragma unroll
+            for (int jj = 0; jj < NK1; ++jj)
+              if (jj < nn) rm = fmaxf(rm, fmaxf(s[i][jj][2 * e], s[i][jj][2 * e + 1]));
+            const float mn = fmaxf(mx[i][e], rm * sl), b = mn == -INFINITY ? 0.f : mn;
+            float a = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < NK1; ++jj)
+              if (jj < nn)
+                a += ex2(fmaf(s[i][jj][2 * e], sl, -b)) + ex2(fmaf(s[i][jj][2 * e + 1], sl, -b));
+            l[i][e] = l[i][e] * ex2(mx[i][e] - b) + a;
+            mx[i][e] = mn;
+          }
+      }
+    }
+    if (L.resident && r == 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // V has landed
+    }
+    float ml[R][2];  // max + log2(sum): P = 2^(s scale log2 e - ml)
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // the quad's columns together: finite, key 0 is below t
+        const float mn = quad_max(mx[i][e]);
+        l[i][e] = quad_sum(l[i][e] * ex2(mx[i][e] - mn));
+        mx[i][e] = mn;
+        ml[i][e] = mn + __log2f(l[i][e]);
+      }
+    // pass 2: o = round(P) V, P normalised, by 8 NO-column chunks of the head
+    for (int c0 = 0; c0 < w16; c0 += 8 * NO) {
+      const int no = min(8 * NO, w16 - c0) / 8;
+      float acc[R][NO][4];
+      zero_rows(acc);
+      for (int j = 0; j < sw.nt; ++j) {
+        const T* m[2];
+        sw.step(j, m);
+        if (!live[0]) continue;
+        const int rows = min(L.kr, L.t16 - j * L.kr);
+        for (int h0 = 0; h0 < rows; h0 += kStrKeys) {
+          const int k0 = j * L.kr + h0, nn = min(kStrKeys, rows - h0) / 8;
+          float s[R][NK][4];
+          zero_rows(s);
+          smm_rows<T, R, NK, true>(s, qrow, m[0] + size_t(h0) * ld, ld, w8, nn);
+          if (k0 + 8 * nn > t) mask_keys(s, t - k0 - 2 * c, nn);
+          probs_of(s, ml, sl, nn);
+          smm_frag_rows<T, R>(acc, s, m[1] + size_t(h0) * ld, ld, c0, no, nn / 2);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (live[i]) put_o<T>(p, o_f32, dr, acc[i], row0, m0[i], c0, h, hd);
+    }
+    if (p.stats != nullptr && c == 0) {
+      const size_t plane = size_t(p.n) * t * p.heads;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = m0[i] + g + 8 * e;
+          if (live[i] && row < t) {
+            p.stats[(row0 + row) * p.heads + h] = mx[i][e];
+            p.stats[plane + (row0 + row) * p.heads + h] = l[i][e];
+          }
+        }
+    }
+  }
+}
+
+// T4 streamed: a block per (article, head), four warps, each a 16-row tile
+// of a round; each row's max, 1/sum and delta stay in shared memory, side
+// by side (a float4 a row). Query pass (rows of Q and dO; K and V swept): S
+// and dP for delta = rowsum(P dP) over the unrounded P, then, per 32-column
+// chunk of the head, S and dP again for dS = round(P (dP - delta) scale)
+// and dQ = dS K. Key pass (rows of K and V; Q and dO swept), per chunk: the
+// logits and dP transposed, dV = round(P)^T dO, dK = dS^T Q. The logits are
+// taken kStrKeys at a time; column tiles past a tile's T16 rows are
+// skipped. Resident: Q, K, V and dO loaded once; else each pass's rows by
+// rounds and the swept pair by tiles.
+template <typename T>
+__global__ void __launch_bounds__(kAttThreads, 3)
+    tiled_attention_bwd_streamed_kernel(AttBwdArgs p) {
+  constexpr int R = 1, NK = kStrKeys / 8, NO = kOutCols / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+  const int t = p.t, hd = p.d / p.heads, w16 = r16(hd);
+  const StreamPlan L = streamed_plan(t, hd, sizeof(T), true);
+  const int h = blockIdx.x % p.heads, an = blockIdx.x / p.heads;
+  if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) return;
+  const size_t row0 = size_t(an) * t;
+  const size_t off = row0 * p.P + (h / p.gh) * p.pw + (h % p.gh) * hd;
+  const int kq = p.gh * hd, ld = L.ld;
+  const T* base = static_cast<const T*>(p.qkv) + off;
+  T* dbase = static_cast<T*>(p.dqkv) + off;
+  const T* dob = static_cast<const T*>(p.do_c) + row0 * p.d + h * hd;
+  // resident: Q | K | V | dO whole; else the round's two matrices | the slots
+  T* r0 = reinterpret_cast<T*>(smem);
+  T* r1 = r0 + size_t(L.resident ? L.t16 : L.round) * ld;
+  T* whole[4];  // Q, K, V, dO
+  for (int i = 0; i < 4; ++i) whole[i] = r0 + size_t(i) * L.t16 * ld;
+  float4* rs = reinterpret_cast<float4*>(smem + L.stats);  // a row's max + log2(sum), -, delta
+  Sweep<T> sw = make_sweep<T>(L, t, hd, r0 + size_t(2 * L.round) * ld);
+  const float* st = p.stats + row0 * p.heads + h;
+  const size_t plane = size_t(p.n) * t * p.heads;
+  for (int i = threadIdx.x; i < 2 * L.t16; i += blockDim.x) {  // max and sum, zeros past t
+    const int row = i >> 1, k = i & 1;
+    float* dst = reinterpret_cast<float*>(rs + row) + k;
+    cp_async_n(dst, row < t ? st + k * plane + size_t(row) * p.heads : st, 4, row < t ? 4 : 0);
+  }
+  if (L.resident) {
+    stage_rows(whole[0], ld, base, p.P, t, L.t16, hd, w16);
+    stage_rows(whole[1], ld, base + kq, p.P, t, L.t16, hd, w16);
+    stage_rows(whole[2], ld, base + 2 * kq, p.P, t, L.t16, hd, w16);
+    stage_rows(whole[3], ld, dob, p.d, t, L.t16, hd, w16);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < L.t16; i += blockDim.x) {  // P = 2^(s sl - ml), 0 past t
+    rs[i].x = i < t ? rs[i].x + __log2f(rs[i].y) : INFINITY;
+    rs[i].y = rs[i].z = rs[i].w = 0.f;
+  }
+  __syncthreads();
+  const float sl = p.scale * kLog2e;
+  const int rounds = (L.t16 + L.round - 1) / L.round;
+  const int nch = (w16 + kOutCols - 1) / kOutCols;
+  // the round's rows of two matrices: resident, where they lie; else loaded into r0 and r1
+  auto rows_of = [&](int r, const T* a, const T* b, size_t ldb, int ia, int ib, int (&m0)[R],
+                     bool (&live)[R], const T* (&ra)[R], const T* (&rb)[R]) {
+    round_rows<T, R>(L, r, t, L.resident ? whole[ia] : r0, m0, live, ra);
+    round_rows<T, R>(L, r, t, L.resident ? whole[ib] : r1, m0, live, rb);
+    if (L.resident) return;
+    __syncthreads();  // the last round's rows are spent
+    const int rr = r * L.round, n = min(L.round, t - rr);
+    stage_rows(r0, ld, a + size_t(rr) * p.P, p.P, n, L.round, hd, w16);
+    stage_rows(r1, ld, b + size_t(rr) * ldb, ldb, n, L.round, hd, w16);
+    cp_async_commit();
+  };
+  // 1. the query pass: K and V swept
+  sw.src[0] = base + kq;
+  sw.src[1] = base + 2 * kq;
+  sw.lds[0] = sw.lds[1] = p.P;
+  sw.whole[0] = whole[1];
+  sw.whole[1] = whole[2];
+  for (int r = 0; r < rounds; ++r) {
+    int m0[R];
+    bool live[R];
+    const T *qr[R], *dor[R];
+    rows_of(r, base, dob, p.d, 0, 3, m0, live, qr, dor);
+    sw.begin((1 + nch) * sw.nt);
+    float ml[R][2], ds[R][2];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ml[i][e] = rs[min(m0[i] + g + 8 * e, L.t16 - 1)].x;
+        ds[i][e] = 0.f;
+      }
+    // P (unrounded, zero past the tile's keys) and dP of the warp's rows against keys k0 ..
+    auto probs = [&](float (&s)[R][NK][4], float (&dp)[R][NK][4], const T* kt, const T* vt,
+                     int k0, int nn) {
+      zero_rows(s);
+      zero_rows(dp);
+      smm_rows<T, R, NK>(s, qr, kt, ld, w16, nn);
+      smm_rows<T, R, NK>(dp, dor, vt, ld, w16, nn);
+      if (k0 + 8 * nn > t) mask_keys(s, t - k0 - 2 * c, nn);
+      probs_of(s, ml, sl, nn);
+    };
+    for (int j = 0; j < sw.nt; ++j) {  // delta
+      const T* m[2];
+      sw.step(j, m);
+      if (!live[0]) continue;
+      const int rows = min(L.kr, L.t16 - j * L.kr);
+      for (int h0 = 0; h0 < rows; h0 += kStrKeys) {
+        const int nn = min(kStrKeys, rows - h0) / 8;
+        float s[R][NK][4], dp[R][NK][4];
+        probs(s, dp, m[0] + size_t(h0) * ld, m[1] + size_t(h0) * ld, j * L.kr + h0, nn);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int jj = 0; jj < NK; ++jj)
+            if (jj < nn)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) ds[i][e / 2] += s[i][jj][e] * dp[i][jj][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ds[i][e] = quad_sum(ds[i][e]);
+        if (live[i] && c == 0) rs[m0[i] + g + 8 * e].z = ds[i][e];
+      }
+    for (int c0 = 0; c0 < w16; c0 += kOutCols) {  // dQ
+      const int no = min(kOutCols, w16 - c0) / 8;
+      float acc[R][NO][4];
+      zero_rows(acc);
+      for (int j = 0; j < sw.nt; ++j) {
+        const T* m[2];
+        sw.step(j, m);
+        if (!live[0]) continue;
+        const int rows = min(L.kr, L.t16 - j * L.kr);
+        for (int h0 = 0; h0 < rows; h0 += kStrKeys) {
+          const int nn = min(kStrKeys, rows - h0) / 8;
+          float s[R][NK][4], dp[R][NK][4];
+          probs(s, dp, m[0] + size_t(h0) * ld, m[1] + size_t(h0) * ld, j * L.kr + h0, nn);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int jj = 0; jj < NK; ++jj)
+              if (jj < nn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)  // dS, rounded by the product (as A)
+                  dp[i][jj][e] = s[i][jj][e] * (dp[i][jj][e] - ds[i][e / 2]) * p.scale;
+          smm_frag_rows<T, R>(acc, dp, m[0] + size_t(h0) * ld, ld, c0, no, nn / 2);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (live[i]) put_rows(acc[i], dbase, p.P, m0[i], c0, t, hd);
+    }
+  }
+  __syncthreads();  // every row's delta is in shared memory
+  // 2. the key pass: Q and dO swept
+  sw.src[0] = base;
+  sw.src[1] = dob;
+  sw.lds[0] = p.P;
+  sw.lds[1] = p.d;
+  sw.whole[0] = whole[0];
+  sw.whole[1] = whole[3];
+  for (int r = 0; r < rounds; ++r) {
+    int j0[R];
+    bool live[R];
+    const T *kr_[R], *vr[R];
+    rows_of(r, base + kq, base + 2 * kq, p.P, 1, 2, j0, live, kr_, vr);
+    sw.begin(nch * sw.nt);
+    for (int c0 = 0; c0 < w16; c0 += kOutCols) {
+      const int no = min(kOutCols, w16 - c0) / 8;
+      float av[R][NO][4], ak[R][NO][4];
+      zero_rows(av);
+      zero_rows(ak);
+      for (int j = 0; j < sw.nt; ++j) {
+        const T* m[2];  // Q, dO
+        sw.step(j, m);
+        if (!live[0]) continue;
+        const int rows = min(L.kr, L.t16 - j * L.kr);
+        for (int h0 = 0; h0 < rows; h0 += kStrKeys) {
+          const int q0 = j * L.kr + h0, nn = min(kStrKeys, rows - h0) / 8;
+          const T* qt = m[0] + size_t(h0) * ld;
+          const T* dot = m[1] + size_t(h0) * ld;
+          float s[R][NK][4], dp[R][NK][4];  // S^T and dP^T: 16 keys x the tile's queries
+          zero_rows(s);
+          zero_rows(dp);
+          smm_rows<T, R, NK>(s, kr_, qt, ld, w16, nn);
+          smm_rows<T, R, NK>(dp, vr, dot, ld, w16, nn);
+          // P^T and dS^T (rounded by the products, as A); a query row past t has ml +inf: P 0
+#pragma unroll
+          for (int jj = 0; jj < NK; ++jj)
+            if (jj < nn)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float4 q = rs[q0 + 8 * jj + 2 * c + e];
+#pragma unroll
+                for (int i = 0; i < R; ++i)
+#pragma unroll
+                  for (int u = 0; u < 2; ++u) {
+                    const float pr = ex2(fmaf(s[i][jj][2 * u + e], sl, -q.x));
+                    s[i][jj][2 * u + e] = pr;
+                    dp[i][jj][2 * u + e] = pr * (dp[i][jj][2 * u + e] - q.z) * p.scale;
+                  }
+              }
+          smm_frag_rows<T, R>(av, s, dot, ld, c0, no, nn / 2);
+          smm_frag_rows<T, R>(ak, dp, qt, ld, c0, no, nn / 2);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (live[i]) {
+          put_rows(av[i], dbase + 2 * kq, p.P, j0[i], c0, t, hd);
+          put_rows(ak[i], dbase + kq, p.P, j0[i], c0, t, hd);
+        }
+    }
+  }
+}
+
 // ---- T1 "tma" (bf16): persistent 128-row blocks, x held once, the epilogue off the ring ----
 
 constexpr int kT1Rows = 128;                   // rows a block: 64 a compute warpgroup
@@ -1967,11 +2687,25 @@ int launch_attention_staged(const AttArgs& p, bool o_f32, cudaStream_t stream) {
   return int(cudaErrorInvalidValue);
 }
 
+// T2 and T4's kernels, as the C entries' `variant` names them.
+enum AttVariant { kGather = 0, kStaged = 1, kStreamed = 2 };
+
 template <typename T, typename O>
-int launch_attention(const AttArgs& p, int staged, cudaStream_t stream) {
+int launch_attention(const AttArgs& p, int variant, cudaStream_t stream) {
   if (p.t < 1 || !heads_ok(p.d, p.heads, p.gh, p.pw, p.P) || p.ldo < p.d)
     return int(cudaErrorInvalidValue);
-  if (staged) return launch_attention_staged<T>(p, std::is_same<O, float>::value, stream);
+  constexpr bool kF32 = std::is_same<O, float>::value;
+  if (variant == kStaged) return launch_attention_staged<T>(p, kF32, stream);
+  if (variant == kStreamed) {
+    const int hd = p.d / p.heads;
+    if (!streamed_fits(p.t, hd, sizeof(T), false)) return int(cudaErrorInvalidValue);
+    const StreamPlan L = streamed_plan(p.t, hd, sizeof(T), false);
+    return L.rt == 2 ? launch_staged(tiled_attention_streamed_kernel<T, 2>,
+                                     (long long)p.n * p.heads, kAttThreads, L.total, stream, p, kF32)
+                     : launch_staged(tiled_attention_streamed_kernel<T, 1>,
+                                     (long long)p.n * p.heads, kAttThreads, L.total, stream, p, kF32);
+  }
+  if (variant != kGather) return int(cudaErrorInvalidValue);
   const long long blocks = (long long)p.n * p.heads * ((p.t + kTile - 1) / kTile);
   if (blocks > (1LL << 31) - 1) return int(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
@@ -2009,10 +2743,17 @@ int launch_pool(const PoolArgs& p, int resident, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_attention_bwd(const AttBwdArgs& p, int staged, cudaStream_t stream) {
+int launch_attention_bwd(const AttBwdArgs& p, int variant, cudaStream_t stream) {
   if (p.t < 1 || !heads_ok(p.d, p.heads, p.gh, p.pw, p.P)) return int(cudaErrorInvalidValue);
   const long long blocks = (long long)p.n * p.heads;
-  if (staged) {
+  if (variant == kStreamed) {
+    const int hd = p.d / p.heads;
+    if (!streamed_fits(p.t, hd, sizeof(T), true)) return int(cudaErrorInvalidValue);
+    return launch_staged(tiled_attention_bwd_streamed_kernel<T>, blocks, kAttThreads,
+                         streamed_plan(p.t, hd, sizeof(T), true).total, stream, p);
+  }
+  if (variant != kGather && variant != kStaged) return int(cudaErrorInvalidValue);
+  if (variant == kStaged) {
     const int hd = p.d / p.heads;
     if (!staged_fits(p.t, hd, sizeof(T), true)) return int(cudaErrorInvalidValue);
     const size_t smem = staged_smem(p.t, hd, sizeof(T), true);
@@ -2026,7 +2767,7 @@ int launch_attention_bwd(const AttBwdArgs& p, int staged, cudaStream_t stream) {
     }
     return int(cudaErrorInvalidValue);
   }
-  if (blocks > (1LL << 31) - 1) return int(cudaErrorInvalidValue);
+  if (blocks > (1LL << 31) - 1 || p.delta == nullptr) return int(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
   tiled_attention_bwd_kernel<T><<<unsigned(blocks), kAttThreads, 0, stream>>>(p);
   return int(cudaGetLastError());
@@ -2059,13 +2800,14 @@ int tiled_qkv(const void* x, int x_rows, const void* wqkv, void* qkv, int rows, 
 // compute dtype: o after the stream-1 mask (thr_att, inv_att under the
 // seed) or ext [n * t, d] times inv_ext; stats (may be null) [2][n * t]
 // [heads] fp32: each row's max of the base-2 logits and its sum of exp2.
-// Articles at or past n_valid (or *nv_dev) are left unwritten. staged: 1
+// Articles at or past n_valid (or *nv_dev) are left unwritten. variant: 1
 // the staged kernel (a pair in shared memory; refused where it does not
-// fit), 0 the gathering one.
+// fit), 2 the streamed one (refused where its plan does not fit), 0 the
+// gathering one; any other value is refused.
 int tiled_attention(const void* qkv, void* o, int ldo, int o_f32, void* stats, int n, int t, int d,
                     int heads, int gh, int pw, int P, int n_valid, const void* nv_dev, float scale,
                     int is_bf16, unsigned seed_lo, unsigned seed_hi, const void* seed_dev,
-                    unsigned thr_att, float inv_att, const void* ext, float inv_ext, int staged,
+                    unsigned thr_att, float inv_att, const void* ext, float inv_ext, int variant,
                     void* stream) {
   const AttArgs p{qkv, o, static_cast<float*>(stats), static_cast<const float*>(ext), inv_ext, n, t,
                   d, heads, gh, pw, P, ldo, n_valid, scale,
@@ -2073,9 +2815,9 @@ int tiled_attention(const void* qkv, void* o, int ldo, int o_f32, void* stats, i
                   static_cast<const int*>(nv_dev), static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return o_f32 ? launch_attention<bf16, float>(p, staged, s)
-                 : launch_attention<bf16, bf16>(p, staged, s);
-  return launch_attention<float, float>(p, staged, s);
+    return o_f32 ? launch_attention<bf16, float>(p, variant, s)
+                 : launch_attention<bf16, bf16>(p, variant, s);
+  return launch_attention<float, float>(p, variant, s);
 }
 
 // T3. Forward (is_bwd 0): src = o [n * t, lds] fp32 -> out [n, d] fp32
@@ -2107,18 +2849,19 @@ int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, c
 }
 
 // T4. qkv [n * t, P] as T2's, do_c [n * t, d], stats from T2, delta
-// [n * t, heads] fp32 scratch (the gathering kernel's) -> dqkv [n * t, P]
-// (dQ|dK|dV where T1 puts Q|K|V; other columns and rows untouched).
-// staged as T2's.
+// [n * t, heads] fp32 scratch (the gathering kernel's; the others keep it
+// in shared memory and take null) -> dqkv [n * t, P] (dQ|dK|dV where T1
+// puts Q|K|V; other columns and rows untouched). variant as T2's.
 int tiled_attention_bwd(const void* qkv, const void* do_c, const void* stats, void* delta,
                         void* dqkv, int n, int t, int d, int heads, int gh, int pw, int P,
-                        int n_valid, const void* nv_dev, float scale, int is_bf16, int staged,
+                        int n_valid, const void* nv_dev, float scale, int is_bf16, int variant,
                         void* stream) {
   const AttBwdArgs p{qkv,   do_c, static_cast<const float*>(stats), static_cast<float*>(delta),
                      dqkv,  n,    t,  d, heads, gh, pw, P, n_valid, scale,
                      static_cast<const int*>(nv_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_attention_bwd<bf16>(p, staged, s) : launch_attention_bwd<float>(p, staged, s);
+  return is_bf16 ? launch_attention_bwd<bf16>(p, variant, s)
+                 : launch_attention_bwd<float>(p, variant, s);
 }
 
 const char* tiled_error_string(int code) {

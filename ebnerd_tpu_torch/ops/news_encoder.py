@@ -1039,21 +1039,35 @@ def attention_variant(t: int, head_dim: int, dtype: torch.dtype, backward: bool 
     (an (article, head) pair in one block's shared memory, a row of logits
     in registers) where T rounded up to 16 is at most 128, the head's
     columns come in whole 4-byte pieces (cp.async's smallest: an even width
-    in bf16) and the pair's tiles fit a block; else "gather" (fragments
-    gathered from device memory by query tiles, any shape). The tiles: Q, K
-    and V (T4: and dO) of T16 rows, each row the head width rounded up to
-    16 and 16 bytes; T4 also round(P) and dS [T16 x T16 + 16 bytes] and the
-    rows' max and sum. At T 128 the head width reaches 288 (T2) and 144 (T4)
-    in bf16, 144 and 32 in fp32; the launchers refuse a "staged" request
-    past these tiles."""
+    in bf16) and the pair's tiles fit a block; else "streamed" (the pair in
+    shared memory, any T, the logits swept by key tiles) where its plan
+    fits a block; else "gather" (fragments gathered from device memory by
+    query tiles, any shape). A row of a tile: the head width rounded up to
+    16, and 16 bytes. The staged tiles: Q, K and V (T4: and dO) of T16
+    rows; T4 also round(P) and dS [T16 x T16 + 16 bytes] and the rows' max
+    and sum. At T 128 the head width reaches 288 (T2) and 144 (T4) in bf16,
+    144 and 32 in fp32. The streamed plan (``streamed_plan`` in
+    ``csrc/news_encoder_tiled.cu``): the same matrices whole where they fit,
+    else a round's rows of one matrix (T4: two; T2: 128 rows where the head
+    is at most 64 wide, each warp taking two 16-row tiles, else 64) and two
+    slots of the swept pair in tiles of 16 rows at the least; T4 adds 4 x
+    T16 fp32. Past T 128 the head width reaches 896 for T2 in bf16, 448 in fp32,
+    at any T; T4's falls with T by its statistics: bf16 576 to T 512, 512 at
+    T 2,000; fp32 288 to T 512, 256 to T 2,048. The launchers refuse a
+    request past its kernel's tiles."""
     elem = torch.tensor([], dtype=dtype).element_size()
     t16, w16 = -(-t // 16) * 16, -(-head_dim // 16) * 16
-    pad = 16 // elem
-    smem = t16 * (w16 + pad) * elem * (4 if backward else 3)
+    row = (w16 + 16 // elem) * elem
+    mats = 4 if backward else 3
+    smem = t16 * row * mats
     if backward:
-        smem += 2 * t16 * (t16 + pad) * elem + 2 * t16 * 4
-    fits = t16 <= _STAGED_T and head_dim * elem % 4 == 0 and smem <= _SMEM_LIMIT
-    return "staged" if fits else "gather"
+        smem += 2 * t16 * (t16 + 16 // elem) * elem + 2 * t16 * 4
+    if t16 <= _STAGED_T and head_dim * elem % 4 == 0 and smem <= _SMEM_LIMIT:
+        return "staged"
+    stats = 16 * t16 if backward else 0  # T4: a float4 a row (its statistics and delta)
+    round_rows = 128 if w16 <= 64 and not backward else 64  # 4 warps of two 16-row tiles, or one
+    rows = min(t16 * mats, (2 if backward else 1) * round_rows + 4 * 16)  # whole, or streamed
+    return "streamed" if rows * row + stats <= _SMEM_LIMIT else "gather"
 
 
 def qkv_variant(dtype: torch.dtype) -> str:
@@ -1289,17 +1303,22 @@ def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int
         stats = torch.empty(2, n * t, heads, device=dev)
     else:
         o, stats = torch.empty(n * t, d, device=dev), None
-    staged = attention_variant(t, hd, cdt) == "staged"
-    _launch_tiled(tiled_attention.staged if staged else tiled_attention, "tiled_attention", dev,
+    variant = attention_variant(t, hd, cdt)
+    _launch_tiled(getattr(tiled_attention, variant, tiled_attention), "tiled_attention", dev,
                   qkv.data_ptr(), o.data_ptr(), o.shape[1], int(not backward), _ptr(stats), n, t,
                   d, heads, gh, pw, p_cols, nv, _ptr(nv_dev), 1.0 / math.sqrt(hd),
                   int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev),
-                  drop.thr_att, drop.inv_att, _ptr(drop.ext_mask), drop.inv_ext, int(staged))
+                  drop.thr_att, drop.inv_att, _ptr(drop.ext_mask), drop.inv_ext,
+                  _ATT_VARIANT[variant])
     return o, stats
 
 
+# attention_variant's answer as the C entries of T2 and T4 take it
+_ATT_VARIANT = {"gather": 0, "staged": 1, "streamed": 2}
 tiled_attention.launches = tiled_attention.captured = 0
-tiled_attention.staged = _build.KernelCount()  # the staged kernel's; the gathering one's above
+# the staged and streamed kernels' counts; the gathering one's above
+tiled_attention.staged = _build.KernelCount()
+tiled_attention.streamed = _build.KernelCount()
 
 
 def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
@@ -1369,18 +1388,19 @@ def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int
         return tiled_attention_bwd_reference(qkv, do, stats, packed, n=n, t=t, nv=nv)
     cdt, dev = packed.wqkv.dtype, qkv.device
     d, heads, hd, gh, pw, p_cols = _heads(packed)
-    staged = attention_variant(t, hd, cdt, backward=True) == "staged"
+    variant = attention_variant(t, hd, cdt, backward=True)
     dqkv = torch.zeros(n * t, p_cols, dtype=cdt, device=dev)
-    delta = None if staged else torch.empty(n * t, heads, device=dev)
-    _launch_tiled(tiled_attention_bwd.staged if staged else tiled_attention_bwd,
+    delta = torch.empty(n * t, heads, device=dev) if variant == "gather" else None
+    _launch_tiled(getattr(tiled_attention_bwd, variant, tiled_attention_bwd),
                   "tiled_attention_bwd", dev, qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
                   _ptr(delta), dqkv.data_ptr(), n, t, d, heads, gh, pw, p_cols, nv, _ptr(nv_dev),
-                  1.0 / math.sqrt(hd), int(cdt == torch.bfloat16), int(staged))
+                  1.0 / math.sqrt(hd), int(cdt == torch.bfloat16), _ATT_VARIANT[variant])
     return dqkv
 
 
 tiled_attention_bwd.launches = tiled_attention_bwd.captured = 0
 tiled_attention_bwd.staged = _build.KernelCount()
+tiled_attention_bwd.streamed = _build.KernelCount()
 
 
 def tiled_forward(x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int, t: int,

@@ -13,10 +13,10 @@ and C3b's two wide shapes past T 128 with their attention widths
 with 2 heads of 128 and A 1,024) at 4,096 articles. Inputs come from a
 seeded generator. Each time is printed beside its bound (the bytes the call
 must move over 3.35 TB/s or its products over 989 TFLOP/s, the longer), the
-kernel the wrapper launched (T1 "tma" or "panel", T2 and T4 "staged" or
-"gather", T3 "resident" or "chunked", from the launch counts; a checkout
-without a newer kernel always takes PR 16's), and the card's name and power
-limit. The first 256 articles of each output are held against the
+kernel the wrapper launched (T1 "tma" or "panel", T2 and T4 "staged",
+"streamed" or "gather", T3 "resident" or "chunked", from the launch counts;
+a checkout without a newer kernel takes the first), and the card's name and
+power limit. The first 256 articles of each output are held against the
 checkout's plain version (2e-2 of the scale, as ``chip_smoke.py``). Two
 checkouts (a change and its parent) are compared by running this once for
 each in one call to the card, in the order parent, change, change, parent.
@@ -41,11 +41,10 @@ SHAPES = {  # name: N, T, heads, head width, A
 DIN = 400  # T1's input width: the news vectors the user tower encodes
 HBM_BYTES_S, BF16_OPS_S = 3.35e12, 989e12
 REL_TOL, CHECKED = 2e-2, 256
-# each wrapper's newer kernel: (its KernelCount attribute, its name, PR 16's kernel's name)
-NEWER = {"tiled_qkv": ("tma", "tma", "panel"), "tiled_attention": ("staged", "staged", "gather"),
-         "tiled_pool": ("resident", "resident", "chunked"),
-         "tiled_pool_bwd": ("resident", "resident", "chunked"),
-         "tiled_attention_bwd": ("staged", "staged", "gather")}
+# each wrapper's newer kernels (their KernelCount attributes, which name them) and its first one
+NEWER = {"tiled_qkv": (("tma",), "panel"), "tiled_attention": (("staged", "streamed"), "gather"),
+         "tiled_pool": (("resident",), "chunked"), "tiled_pool_bwd": (("resident",), "chunked"),
+         "tiled_attention_bwd": (("staged", "streamed"), "gather")}
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -156,11 +155,13 @@ def main(argv=None) -> int:
                 "tiled_attention_bwd", 5 * mm,
                 2 * qkv_b + rows_all * d * 2 + 2 * rows_all * heads * 4)}
         for kern, (fn, wrapper, flops, nbytes) in runs.items():
-            attr, new, old = NEWER[wrapper]
-            count = getattr(getattr(ne, wrapper), attr, None)
-            before = count.launches if count is not None else 0
+            newer, old = NEWER[wrapper]
+            counts = {a: getattr(getattr(ne, wrapper), a) for a in newer
+                      if hasattr(getattr(ne, wrapper), a)}
+            before = {a: c.launches for a, c in counts.items()}
             ms = time_ms(fn, args.iters)
-            variant = new if count is not None and count.launches > before else old
+            ran = [a for a, c in counts.items() if c.launches > before[a]]
+            variant = ran[0] if ran else old
             b_ms, b_by = bound_ms(flops, nbytes)
             rec = {"tree": str(tree), "shape": name, "n_t_heads_hd_a": [n, t, heads, hd, a],
                    "kernel": kern, "variant": variant, "ms": ms, "bound_ms": b_ms,

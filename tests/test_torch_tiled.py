@@ -2,16 +2,16 @@
 QKV projection, T2 the attention, T3 the pooling forward and backward, T4
 the attention backward) through the plain versions its kernels are held
 against on the card: at the shapes the narrow and wide instances do not
-take (T 65, 100 and 130, head widths 80 and 128, A 600, and an fp32 D x A
-past the wide instance's shared memory; either side of T2's, T4's and T3's
-kernel rules) the route's forward equals the JAX
+take (T 65, 100, 130 and 200, head widths 80, 128 and 256, A 600, and an
+fp32 D x A past the wide instance's shared memory; either side of T2's,
+T4's and T3's kernel rules) the route's forward equals the JAX
 package's Pallas kernel run in interpret mode, and its backward, finished
 by the GEMMs' and reductions' arithmetic, the JAX custom VJP's 7 gradients
 (outputs to 3e-5, gradients to 5e-5: ``tests/ops/test_news_encoder.py:34,
 60``); T1-T4 put together equal ``bwd_core_reference``; the head-group
 packing holds heads past 85 columns; ``route``, ``attention_variant``,
 ``pool_variant`` and ``qkv_variant`` at each boundary; NRMS at history 100
-equals JAX's NRMS through the bridge."""
+and 200 equals JAX's NRMS through the bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,13 +40,16 @@ SHAPES = [
     (2, 64, 16, 8, 64, 512, 2, 2),    # fp32 D 512 x A 512: past the wide instance's smem
     # either side of T2's and T4's staged kernels (``attention_variant``)
     (2, 128, 16, 2, 8, 16, 2, 2),     # T 128: their last T
-    (2, 129, 16, 2, 8, 16, 2, 1),     # T 129: the gathering kernels
+    (2, 129, 16, 2, 8, 16, 2, 1),     # T 129: the streamed kernels
     (2, 128, 16, 1, 32, 16, 2, 2),    # fp32 T4's head-width limit at T 128
-    (2, 128, 16, 1, 33, 16, 2, 2),    # one past: T4 gathers, T2 staged
+    (2, 128, 16, 1, 33, 16, 2, 2),    # one past: T4 streamed, T2 staged
     (2, 128, 16, 1, 144, 24, 2, 2),   # fp32 T2's limit and bf16 T4's
     (2, 128, 16, 1, 145, 24, 2, 1),   # one past fp32 T2's
     (1, 128, 16, 1, 288, 16, 1, 1),   # bf16 T2's limit
     (1, 128, 16, 1, 290, 16, 1, 1),   # one (even width) past it
+    # the streamed kernels past T 128: T 200, and a head 256 wide
+    (2, 200, 16, 2, 8, 16, 2, 1),
+    (1, 130, 16, 1, 256, 24, 1, 1),
     # either side of T3's resident kernel (``pool_variant``): a_pad 256 and 272, and fp32 D 144
     # (resident at T 100, A 200) and 152 (chunked)
     (2, 70, 16, 2, 8, 256, 2, 2),
@@ -266,25 +269,40 @@ def test_route_at_each_boundary(t, head_dim, a, smem, expected):
 
 @pytest.mark.parametrize("t,head_dim,dtype,backward,expected", [
     (112, 20, torch.bfloat16, False, "staged"), (112, 20, torch.bfloat16, True, "staged"),
-    (128, 20, torch.bfloat16, False, "staged"), (129, 20, torch.bfloat16, False, "gather"),
-    (128, 20, torch.bfloat16, True, "staged"), (129, 20, torch.bfloat16, True, "gather"),
-    (128, 288, torch.bfloat16, False, "staged"), (128, 290, torch.bfloat16, False, "gather"),
-    (128, 144, torch.bfloat16, True, "staged"), (128, 146, torch.bfloat16, True, "gather"),
-    (128, 144, torch.float32, False, "staged"), (128, 145, torch.float32, False, "gather"),
-    (128, 32, torch.float32, True, "staged"), (128, 33, torch.float32, True, "gather"),
-    (129, 8, torch.float32, False, "gather"), (129, 8, torch.float32, True, "gather"),
-    (100, 176, torch.bfloat16, True, "staged"), (100, 178, torch.bfloat16, True, "gather"),
-    (100, 64, torch.float32, True, "staged"), (100, 65, torch.float32, True, "gather"),
-    (100, 21, torch.bfloat16, False, "gather"), (100, 21, torch.float32, False, "staged"),
+    (128, 20, torch.bfloat16, False, "staged"), (129, 20, torch.bfloat16, False, "streamed"),
+    (128, 20, torch.bfloat16, True, "staged"), (129, 20, torch.bfloat16, True, "streamed"),
+    (128, 288, torch.bfloat16, False, "staged"), (128, 290, torch.bfloat16, False, "streamed"),
+    (128, 144, torch.bfloat16, True, "staged"), (128, 146, torch.bfloat16, True, "streamed"),
+    (128, 144, torch.float32, False, "staged"), (128, 145, torch.float32, False, "streamed"),
+    (128, 32, torch.float32, True, "staged"), (128, 33, torch.float32, True, "streamed"),
+    (129, 8, torch.float32, False, "streamed"), (129, 8, torch.float32, True, "streamed"),
+    (100, 176, torch.bfloat16, True, "staged"), (100, 178, torch.bfloat16, True, "streamed"),
+    (100, 64, torch.float32, True, "staged"), (100, 65, torch.float32, True, "streamed"),
+    (100, 21, torch.bfloat16, False, "streamed"), (100, 21, torch.float32, False, "staged"),
     (1, 1, torch.float32, True, "staged"), (100, 20, torch.bfloat16, True, "staged"),
+    # past T 128: the history-200 user tower, an odd bf16 width, each dtype's widest head
+    (200, 20, torch.bfloat16, False, "streamed"), (200, 20, torch.bfloat16, True, "streamed"),
+    (200, 21, torch.bfloat16, False, "streamed"), (200, 21, torch.bfloat16, True, "streamed"),
+    (129, 896, torch.bfloat16, False, "streamed"), (129, 898, torch.bfloat16, False, "gather"),
+    (129, 576, torch.bfloat16, True, "streamed"), (129, 578, torch.bfloat16, True, "gather"),
+    (200, 576, torch.bfloat16, True, "streamed"), (200, 578, torch.bfloat16, True, "gather"),
+    (200, 448, torch.float32, False, "streamed"), (200, 449, torch.float32, False, "gather"),
+    (200, 288, torch.float32, True, "streamed"), (200, 289, torch.float32, True, "gather"),
+    (512, 288, torch.float32, True, "streamed"), (513, 288, torch.float32, True, "gather"),
+    (2000, 256, torch.float32, True, "streamed"), (2000, 256, torch.bfloat16, True, "streamed"),
 ])
 def test_attention_variant_at_each_boundary(t, head_dim, dtype, backward, expected):
     """T2's and T4's kernel: staged up to T 128 (112, 128 and 129 rounded to
     16) where the pair's tiles fit a block, at each dtype's and kernel's
     head-width limit (T 128: bf16 T2 288, T4 144; fp32 144 and 32; T 100:
     bf16 T4 176, fp32 T4 64) and the next width past it; an odd bf16 width
-    (no whole 4-byte pieces for cp.async) gathers, an odd fp32 one does not;
-    the history-100 user tower's heads (20 of 20) take the staged T4."""
+    (no whole 4-byte pieces for cp.async) takes the streamed kernel, an odd
+    fp32 one the staged; the history-100 user tower's heads (20 of 20) take
+    the staged T4. Everything past the staged kernels takes the streamed
+    ones (the history-200 user tower, T 129, an odd bf16 width) up to each
+    dtype's widest head: T2 896 in bf16 and 448 in fp32 at any T; T4 576
+    in bf16 and 288 in fp32 to T 512, and 256 at T 2,000 in both; one width
+    (or one T) past it gathers."""
     assert port.attention_variant(t, head_dim, dtype, backward) == expected
 
 
@@ -328,19 +346,19 @@ def test_qkv_variant_by_dtype(din, dtype, expected):
     assert din % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
 
 
-HIST = 100
-
-
-def test_fused_nrms_at_history_100_matches_jax():
-    """NRMS with the fused encoder at history 100 (the user tower past the
-    wide instance: the tiled route on the card), bridged weights: the
-    port's logits and every parameter's gradient under sum(logits * c)
-    equal the JAX fused NRMS's, its kernels run in interpret mode (logits
-    to 1e-5, gradients to 5e-5)."""
+@pytest.mark.parametrize("history", [100, 200])
+def test_fused_nrms_at_history_100_matches_jax(history):
+    """NRMS with the fused encoder at history 100 and 200 (the user tower
+    past the wide instance: the tiled route on the card, with T2 and T4
+    staged at 100 and streamed at 200), bridged weights: the port's logits
+    and every parameter's gradient under sum(logits * c) equal the JAX
+    fused NRMS's, its kernels run in interpret mode (logits to 1e-5,
+    gradients to 5e-5)."""
     b, k, t, vocab, emb = 2, 3, 6, 90, 16
-    hp = dict(title_size=t, history_size=HIST, head_num=2, head_dim=8, attention_hidden_dim=12)
+    hp = dict(title_size=t, history_size=history, head_num=2, head_dim=8,
+              attention_hidden_dim=12)
     rng = np.random.default_rng(6)
-    hist = rng.integers(0, vocab, (b, HIST, t)).astype(np.int32)
+    hist = rng.integers(0, vocab, (b, history, t)).astype(np.int32)
     hist[0, :9] = 0  # padded history slots
     cand = rng.integers(1, vocab, (b, k, t)).astype(np.int32)
     batch = {"hist_tokens": hist, "cand_tokens": cand}
