@@ -81,37 +81,47 @@ Phases:
      K1, K2's per-block kernel and K2 at ROADMAP C3's shapes (C3_CASES: T
      33, 50 and 64, head widths 40 and 64, attention widths 200, 300 and
      512, D 100 and 30 with Philox dropout; fp32 and bf16, weights scaled by
-     fan-in) against their plain versions, the three timed at the
-     history-50 user tower [16,384, 50, 400]; NRMS at the step's width with
-     history 50 (one step against the plain path, launches per step as the
-     staged step's, warm steps timed), served two-tower against the full
-     forward, and the CLI with ``--history_size 50``; then ``[c3b]``: the
+     fan-in) against their plain versions, on the wide instance by
+     ``route``'s ``instance`` override at T 33-64 (the rule sends T 33-64 to
+     the tiled route), the three timed at the history-50 user tower
+     [16,384, 50, 400]; that tower's forward and backward on the rule's
+     route against the wide instance, in turns (``tools/route_times.py``);
+     NRMS at the step's width with history 50 (one step against the plain
+     path, launches per step as the rule gives them: the user tower on T1-T4,
+     warm steps timed), served two-tower against the full forward, and the
+     CLI with ``--history_size 50``; then ``[c3b]``: the
      tiled route (``csrc/news_encoder_tiled.cu``, T1-T4) at ROADMAP C3b's
      shapes (C3B_CASES: T 65, 100, 130 and 200, head widths 80, 128 and
      256, attention widths 600 and 1,024, fp32 D 512 x A 512 past the wide
      instance's shared memory): the whole forward and backward against the
      plain version, and T1-T4 each against its own; the route forced at
-     shapes of the narrow and wide instances (T 20 and 50, Philox dropout)
-     against them, T2's dropped elements the stream-1 mask; T2 and T4 on
+     shapes of the narrow and wide instances (T 20 and 50, the wide one by
+     its override; Philox dropout) against them, T2's dropped elements the
+     stream-1 mask; T2 and T4 on
      either side of ``attention_variant``'s boundaries (C3B_VARIANTS: T 112,
      128 and 129, each dtype's staged head-width limit and one past it; past
      T 128 the streamed kernels resident, by tiles of 64, 32 and 16 rows, at
      an odd bf16 width and at each dtype's widest head, and one past it;
      bf16 and fp32, n_valid on the device, both dropout modes), each
      launched twice, bit-equal, and a request for a kernel the rule passed
-     over refused, unwritten; the device seed and n_valid in a CUDA graph (T
-     100 and 130: staged, then streamed); T1-T4 (T2 and T4 staged and
+     over refused, unwritten; T1 and T3 either side of ``qkv_variant`` and
+     ``pool_variant`` (C3B_QKV_VARIANTS, C3B_POOL_VARIANTS: T3 resident,
+     streamed past T 128 to T 1,000, and chunked, at each dtype's widest D
+     and a_pad 256 and 272), the same checks; the device seed and n_valid
+     in a CUDA graph (T 100 and 130: T2, T3 and T4 staged or resident, then
+     streamed); T1-T4 (T2 and T4 staged and
      gathering) and the whole route timed at the history-100 user tower
      [16,384, 100, 400] beside their plain versions and bounds (T1 beside
      torch.matmul, T2 beside scaled_dot_product_attention, T4 beside its
      backward); T2 and T4 streamed and gathering at the history-200 user
-     tower [16,384, 200, 400], beside SDPA in turns; NRMS at the step's
+     tower [16,384, 200, 400], beside SDPA in turns, and T3 streamed against
+     the chunked T3 kernel there, in turns; NRMS at the step's
      width with history 100 (one step of 4,096 against the plain path,
      launches per step: K1 and the per-block kernel once, T1 and the staged
      T2 twice, T3 and the staged T4 once; warm steps timed), served
      two-tower, the CLI with ``--history_size 100``; NRMS at history 200
      (one step of 1,024 against the plain path; T1 and the streamed T2
-     twice, T3 chunked and the streamed T4 once a step; warm steps timed,
+     twice, the streamed T3 and T4 once a step; warm steps timed,
      peak memory), served two-tower; scan groups of 4 on a one-process NCCL
      mesh at history 50 and 100, replays bit-equal to eager steps without a
      mesh;
@@ -835,12 +845,42 @@ C3_CASES = (
 )
 
 
+def wide_instance():
+    """The wrappers' route answering K1 and K2's instances at T 33-64
+    (``route``'s ``instance``), where it answers the tiled route: the wide
+    instance's cases held against its plain version and timed."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    rule = ne.route
+    return mock.patch.object(ne, "route", lambda *a, **k: rule(*a, **dict(k, instance=True)))
+
+
+def history_expect(staged_step, hist) -> dict:
+    """A step's launches at history ``hist``: the staged step's, with the
+    user tower on the route ``route`` answers (the tiled route: K1 and the
+    per-block kernel once, for the news tower, and T1-T4 as a forward and
+    its backward launch them)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    if ne.route(hist, HEAD_DIM, -(-ATT // 16) * 16) != "tiled":
+        return dict(staged_step)
+    return dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
+                **tiled_call(hist, HEAD_DIM, torch.bfloat16))
+
+
 def c3_kernel_cases(peaks, gen) -> dict:
     """[c3]'s kernel cases (C3_CASES): K1 (``kernel_case``), the per-block
     kernel (``block_case``) and the whole K2 (``bwd_case``) against their
-    plain versions with phase 3's tolerances; then the three at the
-    history-50 user tower's shape [TRAIN_BS, 50, D] bf16, timed (the rows
-    of PERF.md's kernel table at the new shape)."""
+    plain versions with phase 3's tolerances, on the instances (the wide
+    one by ``wide_instance`` at T 33-64, which the route gives the tiled
+    route); then the three at the history-50 user tower's shape [TRAIN_BS,
+    50, D] bf16, timed (the rows of PERF.md's kernel table at the new
+    shape)."""
+    with wide_instance():
+        return _c3_kernel_cases(peaks, gen)
+
+
+def _c3_kernel_cases(peaks, gen) -> dict:
     fwd, block, full = [], [], []
     for name, n, t, din, cdt, heads, hd, a, nv, drop in C3_CASES:
         kw = dict(n_valid=nv, heads=heads, head_dim=hd, a=a, drop=drop, fan=True)
@@ -943,30 +983,56 @@ def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_
                       "launches_user_tower": tt_launches, "max_abs_score_diff": err}}
 
 
+def c3_route(gen) -> dict:
+    """The history-50 user tower [TRAIN_BS, 50, D] bf16, forward and whole
+    backward, on the route ``route`` answers against the other one (the
+    wide instance by ``instance``), in turns (``tools/route_times.py``):
+    the two agree within BF16_REL_TOL and each is timed."""
+    from ebnerd_tpu_torch.tools import route_times
+
+    try:
+        rec = route_times.compare("user_h50", TRAIN_BS, C3_HIST, D, TRAIN_BS, 1.0, 3, gen)
+    except ValueError as e:
+        raise CheckFailed(f"[c3 route] {e}") from None
+    print(f"[c3 route] the history-{C3_HIST} user tower [{TRAIN_BS}, {C3_HIST}, {D}] bf16, forward "
+          f"and backward: the rule's {rec['rule']} route {rec['rule_ms']:.3f} ms, the "
+          f"{rec['other']} one {rec['other_ms']:.3f} (in turns: "
+          + ", ".join(f"{v:.3f}" for v in rec["turns_ms"]) + "); "
+          + " ".join(f"{k}={e:.2e}/{sc:.2e}" for k, (e, sc) in rec["errors"].items()), flush=True)
+    return rec
+
+
 def c3_phase(table, peaks, gen, staged_step) -> dict:
-    """[c3]: the kernel cases, NRMS training and serving at history 50
-    (``history_training``), and the CLI at ``--use_fused_encoder --history_size
-    50`` (the [cli] run's widths, 1 epoch; every step's K1 and K2 launches
-    as the staged step's)."""
+    """[c3]: the kernel cases, the route timed at the history-50 user
+    tower (``c3_route``), NRMS training and serving at history 50
+    (``history_training``; the user tower on the route ``route`` answers),
+    and the CLI at ``--use_fused_encoder --history_size 50`` (the [cli]
+    run's widths, 1 epoch; every step's launches as ``history_expect``'s)."""
     import shutil
 
     t0 = time.perf_counter()
     rec = c3_kernel_cases(peaks, gen)
-    rec["training"] = history_training(table, peaks, staged_step)
+    rec["route"] = c3_route(gen)
+    release()
+    expect, keys = history_expect(staged_step, C3_HIST), K12 + TILED
+    user_t1 = tiled_names(C3_HIST, HEAD_DIM, torch.bfloat16, D, ATT)["t1"]
+    rec["training"] = history_training(
+        table, peaks, expect, keys=keys,
+        serve_counter=user_t1 if rec["route"]["rule"] == "tiled" else "news_encoder_fwd")
     out = Path(__file__).resolve().parent / "build" / "cli_nrms_h50"
-    k12 = K12 + ("prng_dropout",)
     rec["cli"], trainer = cli_run("nrms_h50", ["--model", "nrms", "--synthetic",
                                                "--use_fused_encoder", "--dtype", "bfloat16",
                                                "--history_size", str(C3_HIST), "--epochs", "1",
-                                               "--out_dir", str(out)], staged_step, k12)
+                                               "--out_dir", str(out)], expect,
+                                  keys + ("prng_dropout",))
     check(trainer.model.hparams.history_size == C3_HIST, "[c3 cli] the model's history size")
     del trainer
     shutil.rmtree(out)
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t0
     print(f"[c3] {len(rec['fwd'])} K1, {len(rec['block'])} per-block and {len(rec['full'])} "
-          f"whole-K2 cases, NRMS training and serving at history {C3_HIST} and the CLI passed in "
-          f"{rec['seconds']:.1f} s", flush=True)
+          f"whole-K2 cases, the route timed, NRMS training and serving at history {C3_HIST} and "
+          f"the CLI passed in {rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -985,10 +1051,11 @@ C3B_PLAIN_CHUNK = 1_024  # articles a call of a plain version takes at the timed
 C3B_H200 = 200       # the streamed T2 and T4's path: the user tower at history 200
 C3B_H200_CMP_BS = 1_024  # its step compared with the plain path: [B, 20, 200, 200] fp32, 3.3 GB
 TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_attention", "tiled_attention_staged",
-         "tiled_attention_streamed", "tiled_pool", "tiled_pool_resident", "tiled_pool_bwd",
-         "tiled_pool_bwd_resident", "tiled_attention_bwd", "tiled_attention_bwd_staged",
-         "tiled_attention_bwd_streamed")
+         "tiled_attention_streamed", "tiled_pool", "tiled_pool_resident", "tiled_pool_streamed",
+         "tiled_pool_bwd", "tiled_pool_bwd_resident", "tiled_pool_bwd_streamed",
+         "tiled_attention_bwd", "tiled_attention_bwd_staged", "tiled_attention_bwd_streamed")
 ATT_SUFFIX = {"staged": "_staged", "streamed": "_streamed", "gather": ""}  # attention_variant's
+POOL_SUFFIX = {"resident": "_resident", "streamed": "_streamed", "chunked": ""}  # pool_variant's
 
 
 def tiled_names(t, hd, cdt, d, a) -> dict:
@@ -999,7 +1066,7 @@ def tiled_names(t, hd, cdt, d, a) -> dict:
 
     a_pad = -(-a // 16) * 16
     att = lambda bwd: ATT_SUFFIX[ne.attention_variant(t, hd, cdt, bwd)]
-    pool = lambda bwd: "_resident" if ne.pool_variant(t, d, a_pad, cdt, bwd) == "resident" else ""
+    pool = lambda bwd: POOL_SUFFIX[ne.pool_variant(t, d, a_pad, cdt, bwd)]
     return {"t1": "tiled_qkv" + ("_tma" if ne.qkv_variant(cdt) == "tma" else ""),
             "t2": "tiled_attention" + att(False), "t3": "tiled_pool" + pool(False),
             "t3_bwd": "tiled_pool_bwd" + pool(True), "t4": "tiled_attention_bwd" + att(True)}
@@ -1082,21 +1149,39 @@ C3B_QKV_VARIANTS = (  # T1 either side of qkv_variant (bf16 "tma": x held once t
     ("fp32_din64", 6, 50, 64, torch.float32, "rng", "panel"),
     ("fp32_din400", 4, 100, 400, torch.float32, None, "panel"),
 )
-C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: the user tower's D 400 (bf16: the
-    # backward's last D at A 200), D 408 and 448 (the forward's last) and 456, T 128 and 129, a_pad
-    # 256 and 272, fp32 D 144 and 152; n_valid on the device (2 below N), both dropout modes
+C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: resident, streamed, chunked. The user
+    # tower's D 400 at T 100 (bf16: the resident backward's last D at A 200), D 408 (the backward
+    # streamed), 448 (the resident forward's last; the backward past the streamed one's D) and 456;
+    # T 128 and 129 and a_pad 256 and 272; fp32 D 144 and 152 at T 100. Past T 128 (streamed): T
+    # 200, 208, 512 and 1,000 at the user tower's D 400; a_pad 256 and 272 at T 200; each dtype's
+    # widest D at T 200 and A 200 (bf16: the backward 416, the forward 432; fp32 176, both) and the
+    # next width of 8 past it. n_valid on the device (2 below N), both dropout modes
     # name, n, t, d, a, dtype, dropout, the kernels of the forward and the backward
     ("bf16_t100_d400_a200", 6, 100, 400, 200, torch.bfloat16, "rng", "resident", "resident"),
-    ("bf16_t100_d408_a200", 5, 100, 408, 200, torch.bfloat16, "mask", "resident", "chunked"),
+    ("bf16_t100_d408_a200", 5, 100, 408, 200, torch.bfloat16, "mask", "resident", "streamed"),
     ("bf16_t100_d448_a200", 5, 100, 448, 200, torch.bfloat16, None, "resident", "chunked"),
     ("bf16_t100_d456_a200", 5, 100, 456, 200, torch.bfloat16, "rng", "chunked", "chunked"),
     ("bf16_t128_d64_a256", 6, 128, 64, 256, torch.bfloat16, "mask", "resident", "resident"),
-    ("bf16_t129_d64_a256", 5, 129, 64, 256, torch.bfloat16, "rng", "chunked", "chunked"),
+    ("bf16_t129_d64_a256", 5, 129, 64, 256, torch.bfloat16, "rng", "streamed", "streamed"),
     ("bf16_t100_d64_a257", 5, 100, 64, 257, torch.bfloat16, "mask", "chunked", "chunked"),
     ("fp32_t100_d144_a200", 5, 100, 144, 200, torch.float32, "rng", "resident", "resident"),
-    ("fp32_t100_d152_a200", 5, 100, 152, 200, torch.float32, "mask", "chunked", "chunked"),
+    ("fp32_t100_d152_a200", 5, 100, 152, 200, torch.float32, "mask", "streamed", "streamed"),
     ("fp32_t20_d16_a40", 7, 20, 16, 40, torch.float32, None, "resident", "resident"),
+    ("bf16_t200_d400_a200", 5, 200, 400, 200, torch.bfloat16, "rng", "streamed", "streamed"),
+    ("bf16_t208_d400_a200", 5, 208, 400, 200, torch.bfloat16, "mask", "streamed", "streamed"),
+    ("bf16_t512_d400_a200", 4, 512, 400, 200, torch.bfloat16, None, "streamed", "streamed"),
+    ("bf16_t1000_d400_a200", 4, 1000, 400, 200, torch.bfloat16, "rng", "streamed", "streamed"),
+    ("bf16_t200_d64_a256", 5, 200, 64, 256, torch.bfloat16, "mask", "streamed", "streamed"),
+    ("bf16_t200_d64_a257", 5, 200, 64, 257, torch.bfloat16, "rng", "chunked", "chunked"),
+    ("bf16_t200_d416_a200", 4, 200, 416, 200, torch.bfloat16, "rng", "streamed", "streamed"),
+    ("bf16_t200_d424_a200", 4, 200, 424, 200, torch.bfloat16, "mask", "streamed", "chunked"),
+    ("bf16_t200_d432_a200", 4, 200, 432, 200, torch.bfloat16, None, "streamed", "chunked"),
+    ("bf16_t200_d440_a200", 4, 200, 440, 200, torch.bfloat16, "rng", "chunked", "chunked"),
+    ("fp32_t200_d176_a200", 4, 200, 176, 200, torch.float32, "mask", "streamed", "streamed"),
+    ("fp32_t200_d184_a200", 4, 200, 184, 200, torch.float32, "rng", "chunked", "chunked"),
+    ("fp32_t1000_d128_a200", 3, 1000, 128, 200, torch.float32, None, "streamed", "streamed"),
 )
+POOL_ORDER = ("resident", "streamed", "chunked")  # pool_variant's kernels, first choice first
 
 
 def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
@@ -1212,7 +1297,8 @@ def c3b_case(name, n, t, din, cdt, heads, hd, a, nv, drop, gen) -> dict:
 
 def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
     """The tiled route forced (``force_tiled``) at a shape of the narrow or
-    the wide instance, Philox dropout 0.2 on both streams: T2's dropped
+    the wide instance (asked for by ``instance`` at T 33-64, where the route
+    answers the tiled one), Philox dropout 0.2 on both streams: T2's dropped
     elements are the kernels' stream-1 mask (K4's dump), and the forward
     and every gradient agree with the instance's within the dtype's
     tolerance."""
@@ -1226,10 +1312,10 @@ def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
     nvv = n if nv is None else nv
     g = (torch.randn(n, d, generator=gen, device=DEV) * 1e-2).contiguous()
     g[nvv:] = 0
-    inst = ne._forward(x, ws, *args)
+    inst = ne._forward(x, ws, *args, instance=True)
     tiled = ne._forward(x, ws, *args, force_tiled=True)
     check(tiled[-1] and not inst[-1], f"c3b forced {name}: routes {tiled[-1]}, {inst[-1]}")
-    gi = ne._backward(inst[1], inst[2], packed, g, n, t, nvv, inst[4])
+    gi = ne._backward(inst[1], inst[2], packed, g, n, t, nvv, inst[4], instance=True)
     gt = ne._backward(tiled[1], tiled[2], packed, g, n, t, nvv, tiled[4], force_tiled=True)
     qkv = ne.tiled_qkv(tiled[1], packed, ne.Dropout(), n=n, t=t, nv=nvv)
     o, _ = ne.tiled_attention(qkv, packed, inst[4], n=n, t=t, nv=nvv)
@@ -1258,16 +1344,17 @@ def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
 
 def c3b_graph(gen) -> dict:
     """The tiled route with the seed and n_valid as device scalars (bf16 and
-    fp32, T 100 and 130: T2 and T4 staged, then streamed; dropout 0.2 on
-    both streams): the host ints' outputs bit for bit; in a CUDA graph,
-    each replay reads the scalars' values then and equals the eager
-    device-scalar run bit for bit."""
+    fp32, T 100 and 130: T2 and T4 staged and T3 resident, then all three
+    streamed; dropout 0.2 on both streams): the host ints' outputs bit for
+    bit; in a CUDA graph, each replay reads the scalars' values then and
+    equals the eager device-scalar run bit for bit."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     rec = {}
     for cdt, t in itertools.product((torch.bfloat16, torch.float32), (C3B_HIST, 130)):
         n, din, heads, hd, a = 29, 64, 4, 16, 48
-        t4 = "tiled_attention_bwd" + ATT_SUFFIX[ne.attention_variant(t, hd, cdt, True)]
+        kern = tiled_names(t, hd, cdt, heads * hd, a)
+        t3, t3b, t4 = kern["t3"], kern["t3_bwd"], kern["t4"]
         x, ws = make_inputs(n, t, din, cdt, gen, heads, hd, a, fan=True)
         packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=cdt)
         gout = torch.randn(n, heads * hd, generator=gen, device=DEV)
@@ -1282,7 +1369,9 @@ def c3b_graph(gen) -> dict:
         pairs = ((SEED64 | (1 << 63), n - 3), (SEED64 ^ (1 << 40), n - 11))
         reset_counts()
         host = [[v.detach() for v in fwd_bwd(leaves(), s, nv)] for s, nv in pairs]
-        check(read_counts()[t4] == 2, f"c3b graph T {t}: not the tiled route's {t4}")
+        cnt = read_counts()
+        check(cnt[t4] == 2 and cnt[t3] == 2 and cnt[t3b] == 2,
+              f"c3b graph T {t}: not the tiled route's {t3}, {t3b} and {t4}: {cnt}")
         dev = [[v.detach() for v in fwd_bwd(leaves(), dev_seed(s), torch.tensor(
             nv, dtype=torch.int32, device=DEV))] for s, nv in pairs]
         for h, d_, (s, nv) in zip(host, dev, pairs):
@@ -1310,9 +1399,9 @@ def c3b_graph(gen) -> dict:
                                                    f"{s:#x}, n_valid {nv}) output {i} differs")
         del graph, outs, ins, host, dev
         rec[f"{str(cdt)[6:]}_t{t}"] = {"pairs": [[hex(s), nv] for s, nv in pairs],
-                                       "kernel": t4, "bit_equal": True}
+                                       "kernels": [t3, t3b, t4], "bit_equal": True}
     print(f"[c3b] device scalars: the tiled route at T {C3B_HIST} and 130 (bf16, fp32; T2 and T4 "
-          f"staged, then streamed) draws the host "
+          f"staged and T3 resident, then all three streamed) draws the host "
           f"ints' masks (output and dx bit-equal, weight gradients within {WGRAD_REL_TOL}); in "
           f"a CUDA graph each replay reads its seed and n_valid, bit-equal to the eager runs",
           flush=True)
@@ -1416,12 +1505,15 @@ def c3b_qkv_pool_variants(gen) -> dict:
     (2 below N) and the case's dropout, each output against its plain
     version (``BF16_REL_TOL``, 1e-4 of the scale in fp32) over the valid
     rows, two launches bit for bit, each launch counted on its kernel, and
-    round(dz) zero past n_valid; where the rule answers PR 16's kernel, the
-    library refuses a request for the new one and writes nothing."""
+    round(dz) zero past n_valid; the library refuses a request for a kernel
+    the rule passed over (T1: "tma" in fp32; T3: "resident" where it answers
+    "streamed" or "chunked", "streamed" where it answers "chunked") and
+    writes nothing."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     lib, rec = ne._library_tiled(), {"qkv": [], "pool": []}
     stream = lambda: torch.cuda.current_stream().cuda_stream
+    _ptr = ne._ptr
     for name, n, t, din, cdt, drop, want in C3B_QKV_VARIANTS:
         heads, hd, a, nv, bf = 4, 16, 48, n - 2, cdt == torch.bfloat16
         check(ne.qkv_variant(cdt) == want, f"c3b qkv variant {name}: qkv_variant answers "
@@ -1488,8 +1580,7 @@ def c3b_qkv_pool_variants(gen) -> dict:
         bwd = [ne.tiled_pool_bwd(oc, packed, g, drop_in, **kw) for _ in (0, 1)]
         torch.cuda.synchronize()
         cnt = read_counts()
-        kf, kb = ("tiled_pool" + ("_resident" if w == "resident" else "") for w in want)
-        kb = kb.replace("tiled_pool", "tiled_pool_bwd")
+        kf, kb = "tiled_pool" + POOL_SUFFIX[want[0]], "tiled_pool_bwd" + POOL_SUFFIX[want[1]]
         check(cnt[kf] == 2 and cnt[kb] == 2 and sum(cnt[k] for k in TILED) == 4,
               f"c3b pool variant {name}: launches {cnt}")
         rel = BF16_REL_TOL if bf else FP32_GRAD_REL
@@ -1510,33 +1601,38 @@ def c3b_qkv_pool_variants(gen) -> dict:
                and all(torch.equal(u, v) for u, v in zip(bwd[0][1:], bwd[1][1:])))
         check(bit, f"c3b pool variant {name}: two launches differ")
         refused = []
-        for b, w in enumerate(want):  # a resident request where the rule answers chunked
-            if w == "resident":
-                continue
-            outs = [torch.full_like(v, 7.0) for v in ((fwd[0],) if not b else bwd[0])]
-            # out, dz_c, do_c, db_part, dq_part as the C entry takes them
-            o_p = ([None, outs[1].data_ptr(), outs[0].data_ptr(), outs[2].data_ptr(),
-                    outs[3].data_ptr()] if b else [outs[0].data_ptr()] + [None] * 4)
-            src = oc if b else o
-            with torch.cuda.device(DEV):
-                refused.append(lib.tiled_pool(
-                    src.data_ptr(), src.shape[1], packed.w_att.data_ptr(), packed.b_att.data_ptr(),
-                    packed.q_att.data_ptr(), g.data_ptr() if b else None, o_p[0], None, None,
-                    o_p[1], o_p[2], o_p[3], o_p[4], n, t, d, a, a_pad, n, None, int(bf), b, 0, 0,
-                    None, 0, 1.0, None, 1.0, 1, stream()))
-            torch.cuda.synchronize()
-            check(refused[-1] != 0 and all(bool((v == 7.0).all()) for v in outs),
-                  f"c3b pool variant {name}: a resident request past the rule returned "
-                  f"{refused[-1]} or wrote")
+        for b, w in enumerate(want):  # requests for the kernels the rule passed over
+            for v in POOL_ORDER[:POOL_ORDER.index(w)]:
+                outs = [torch.full_like(u, 7.0) for u in ((fwd[0],) if not b else bwd[0])]
+                # out, dz_c, do_c, db_part, dq_part as the C entry takes them
+                o_p = ([None, outs[1].data_ptr(), outs[0].data_ptr(), outs[2].data_ptr(),
+                        outs[3].data_ptr()] if b else [outs[0].data_ptr()] + [None] * 4)
+                src = oc if b else o
+                # a streamed backward gets its scratch, so that its plan is what refuses it
+                rounds = -(-t // 128)
+                sc = (torch.empty(n * rounds * ne._POOL_SCRATCH, device=DEV)
+                      if b and v == "streamed" else None)
+                with torch.cuda.device(DEV):
+                    refused.append(lib.tiled_pool(
+                        src.data_ptr(), src.shape[1], packed.w_att.data_ptr(),
+                        packed.b_att.data_ptr(), packed.q_att.data_ptr(),
+                        g.data_ptr() if b else None, o_p[0], _ptr(sc), None, o_p[1], o_p[2], o_p[3],
+                        o_p[4], n, t, d, a, a_pad, n, None, int(bf), b, 0, 0, None, 0, 1.0, None,
+                        1.0, ne._POOL_VARIANT[v], stream()))
+                torch.cuda.synchronize()
+                check(refused[-1] != 0 and all(bool((u == 7.0).all()) for u in outs),
+                      f"c3b pool variant {name}: a {v} request ({'backward' if b else 'forward'}) "
+                      f"past the rule returned {refused[-1]} or wrote")
         print(f"[c3b] pool variant {name}: [{n}, {t}] D {d} A {a} {str(cdt)[6:]} n_valid {nv} "
               f"(device) dropout={drop}: T3 {want[0]}, backward {want[1]}; "
               + " ".join(f"{k}={e:.2e}/{sc:.2e}" for k, (e, sc) in errs.items())
               + f" (rel tol {rel}); two launches bit-equal"
-              + (f"; resident requests refused ({len(refused)})" if refused else ""), flush=True)
+              + (f"; requests past the rule refused ({len(refused)})" if refused else ""),
+              flush=True)
         rec["pool"].append({"case": name, "shape": [n, t], "d_a": [d, a], "dtype": str(cdt)[6:],
                             "n_valid": nv, "dropout": drop, "variants": want, "errors": errs,
                             "launches": {k: cnt[k] for k in TILED}, "bit_equal": True,
-                            "resident_refused": len(refused)})
+                            "refused": len(refused)})
     return rec
 
 
@@ -1555,18 +1651,91 @@ def plain_chunked(fn, n: int, t: int) -> float:
 PR16_KERNEL = {"attention_variant": "gather", "qkv_variant": "panel", "pool_variant": "chunked"}
 
 
+def ruled(fn, rule, answer):
+    """``fn`` run with the wrappers' ``rule`` answering ``answer`` whatever
+    the shape."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    def run():
+        with mock.patch.object(ne, rule, lambda *a, **k: answer):
+            return fn()
+    return run
+
+
 def earlier(fn, rule="attention_variant"):
     """``fn`` run with the wrappers' ``rule`` answering PR 16's kernel
     whatever the shape (``PR16_KERNEL``: T2's and T4's gathering kernels,
     T1's panel kernel, T3's chunked one): the earlier kernels timed beside
     the newer ones."""
+    return ruled(fn, rule, PR16_KERNEL[rule])
+
+
+
+def whole_route_timed(x, ws, packed, xin, g, peaks) -> tuple:
+    """The tiled route whole at a user tower (x [n, t, D] bf16, no dropout):
+    the forward (T1, T2, T3) and the backward (T1-T4, GEMMs, reductions),
+    each against the plain version over every article (``plain_chunked``;
+    the weight gradients summed over the slices), timed with the plain
+    version and the bound. Returns ({name: record}, {output: [max abs err,
+    scale]})."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
-    def run():
-        with mock.patch.object(ne, rule, lambda *a, **k: PR16_KERNEL[rule]):
-            return fn()
-    return run
+    n, t, cdt = x.shape[0], x.shape[1], torch.bfloat16
+    drop = ne.Dropout()
+    fwd = lambda: ne.fused_news_encoder(x, *ws, num_heads=HEADS, compute_dtype=cdt, packed=packed)
+    out = fwd()
+    grads = ne._backward(xin, None, packed, g, n, t, n, drop)
+    torch.cuda.synchronize()
+    names = ("dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+    acc, wsum = {"out": [0.0, 0.0], "dx": [0.0, 0.0]}, {}
 
+    def p_fwd(a0, a1):
+        ref = ne.news_encoder_reference(x[a0:a1], *ws, num_heads=HEADS, compute_dtype=cdt)
+        e = acc["out"]
+        e[0] = max(e[0], (out[a0:a1] - ref).abs().max().item())
+        e[1] = max(e[1], ref.abs().max().item())
+
+    def p_bwd(a0, a1):
+        ref = ne.news_encoder_bwd_reference(x[a0:a1], *ws, g[a0:a1], num_heads=HEADS,
+                                            compute_dtype=cdt)
+        e = acc["dx"]
+        e[0] = max(e[0], (grads[0][a0:a1].float() - ref[0].float()).abs().max().item())
+        e[1] = max(e[1], ref[0].float().abs().max().item())
+        wsum[a0] = [v.float() for v in ref[1:]]  # each slice's weight gradients, summed below
+
+    whole = {}
+    for name, run, plain, iters, w in (
+            ("news_encoder_fwd", fwd, p_fwd, 3, encoder_work(n, t, D, D, HEADS, ATT, 2)),
+            ("news_encoder_bwd", lambda: ne._backward(xin, None, packed, g, n, t, n, drop),
+             p_bwd, 2, backward_work(n, t, D, D, HEADS, ATT, 2))):
+        ms = time_ms(run, iters, warmup=1)
+        plain_ms = plain_chunked(plain, n, t)
+        b_ms, b_by = bound(*w, peaks[0], peaks)
+        whole[name] = {"case": f"{name}_tiled_user_h{t}", "shape": [n, t, D], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+    for i, nm in enumerate(names[1:]):
+        ref = sum(parts[i] for parts in wsum.values())
+        acc[nm] = [(grads[i + 1].float() - ref).abs().max().item(), ref.abs().max().item()]
+    scales = {k: v[1] for k, v in acc.items()}
+    for k in ("db", "dq"):  # as grad_scales: the pooling bias and query at least max|dW|
+        scales[k] = max(scales[k], scales["dw"])
+    check(acc["out"][0] <= BF16_REL_TOL * acc["out"][1], f"c3b timed: forward {acc['out']}")
+    for nm in names:
+        check(acc[nm][0] <= BF16_REL_TOL * scales[nm], f"c3b timed: {nm} {acc[nm]} (scale "
+                                                       f"{scales[nm]})")
+    for name, r in whole.items():
+        r["max_abs_err"] = acc["out"][0] if name == "news_encoder_fwd" else max(
+            v[0] for k, v in acc.items() if k != "out")
+        print(f"[c3b] {name} (the tiled route) at the user tower [{n}, {t}, {D}] bf16: "
+              f"ms={r['ms']:.3f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library: none", flush=True)
+    print("[c3b] the whole route against the plain version over every article: "
+          + " ".join(f"{k}={e:.2e}/{scales[k]:.2e}" for k, (e, _) in acc.items())
+          + f" (rel tol {BF16_REL_TOL})", flush=True)
+    del out, grads, wsum
+    torch.cuda.empty_cache()
+    return whole, acc
 
 
 def c3b_timed(peaks, gen) -> dict:
@@ -1722,63 +1891,43 @@ def c3b_timed(peaks, gen) -> dict:
         rec[new]["pr16_ms"] = rec[name]["ms"]
         print(f"[c3b] {name} at the user tower: the newer kernel ({new}) {rec[new]['ms']:.3f} ms, "
               f"PR 16's {rec[name]['ms']:.3f} ({gain:.2f}x)", flush=True)
+    # T3's streamed kernel at this tower too, where the rule gives the resident one: the first
+    # C3B_PLAIN_CHUNK articles against the plain version, then the two in turns (resident,
+    # streamed, streamed, resident)
+    ch, r = C3B_PLAIN_CHUNK, slice(0, C3B_PLAIN_CHUNK * t)
+    k, streamed = dict(n=ch, t=t, nv=ch), {}
+    for base, fn in (("tiled_pool", t3), ("tiled_pool_bwd", t3b)):
+        alt = ruled(fn, "pool_variant", "streamed")
+        reset_counts()
+        got = alt()
+        torch.cuda.synchronize()
+        check(read_counts()[base + "_streamed"] == 1, f"c3b timed: {base} streamed not launched")
+        if base == "tiled_pool":
+            pairs = [(got[:ch], ne.tiled_pool_reference(o[r], packed, **k))]
+        else:
+            ref = ne.tiled_pool_bwd_reference(oc[r], packed, g[:ch], drop, **k)
+            pairs = list(zip((got[0][r], got[1][r], got[2][:ch], got[3][:ch]), ref))
+        e = max((u.float() - v.float()).abs().max().item() for u, v in pairs)
+        sc = max(v.float().abs().max().item() for _, v in pairs)
+        check(e <= BF16_REL_TOL * sc, f"c3b timed: {base} streamed max|kernel - plain| {e} > "
+                                      f"{BF16_REL_TOL} * {sc}")
+        del got, pairs
+        turns = [time_ms(f, 5, warmup=1) for f in (fn, alt, alt, fn)]
+        streamed[base] = {"resident_ms": (turns[0] + turns[3]) / 2,
+                          "streamed_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                          "max_abs_err": e, "max_abs_ref": sc}
+        rs_ms = streamed[base]
+        print(f"[c3b] {base} at the history-{t} user tower: resident {rs_ms['resident_ms']:.3f} "
+              f"ms, streamed {rs_ms['streamed_ms']:.3f} (in turns resident, streamed, streamed, "
+              f"resident: "
+              + ", ".join(f"{v:.3f}" for v in turns) + f"); streamed max_abs_err={e:.3e} (of "
+              f"{sc:.3e}, first {ch} articles)", flush=True)
     del qkv, qkv_p, o, o_g, oc, st, do, dqkv, dqkv_g, bwd, bwd_c, pooled, pooled_c
     torch.cuda.empty_cache()
-    # the whole route: the forward (T1, T2, T3) and the backward (T1-T4, GEMMs, reductions)
-    fwd = lambda: ne.fused_news_encoder(x, *ws, num_heads=HEADS, compute_dtype=cdt, packed=packed)
-    out = fwd()
-    grads = ne._backward(xin, None, packed, g, n, t, n, drop)
-    torch.cuda.synchronize()
-    names = ("dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
-    acc, wsum = {"out": [0.0, 0.0], "dx": [0.0, 0.0]}, {}
-
-    def p_fwd(a0, a1):
-        ref = ne.news_encoder_reference(x[a0:a1], *ws, num_heads=HEADS, compute_dtype=cdt)
-        e = acc["out"]
-        e[0] = max(e[0], (out[a0:a1] - ref).abs().max().item())
-        e[1] = max(e[1], ref.abs().max().item())
-
-    def p_bwd(a0, a1):
-        ref = ne.news_encoder_bwd_reference(x[a0:a1], *ws, g[a0:a1], num_heads=HEADS,
-                                            compute_dtype=cdt)
-        e = acc["dx"]
-        e[0] = max(e[0], (grads[0][a0:a1].float() - ref[0].float()).abs().max().item())
-        e[1] = max(e[1], ref[0].float().abs().max().item())
-        wsum[a0] = [v.float() for v in ref[1:]]  # each slice's weight gradients, summed below
-
-    whole = {}
-    for name, run, plain, iters, w in (
-            ("news_encoder_fwd", fwd, p_fwd, 3, encoder_work(n, t, D, D, HEADS, ATT, 2)),
-            ("news_encoder_bwd", lambda: ne._backward(xin, None, packed, g, n, t, n, drop),
-             p_bwd, 2, backward_work(n, t, D, D, HEADS, ATT, 2))):
-        ms = time_ms(run, iters, warmup=1)
-        plain_ms = plain_chunked(plain, n, t)
-        b_ms, b_by = bound(*w, peaks[0], peaks)
-        whole[name] = {"case": f"{name}_tiled_user_h{t}", "shape": [n, t, D], "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": None}
-    for i, nm in enumerate(names[1:]):
-        ref = sum(parts[i] for parts in wsum.values())
-        acc[nm] = [(grads[i + 1].float() - ref).abs().max().item(), ref.abs().max().item()]
-    scales = {k: v[1] for k, v in acc.items()}
-    for k in ("db", "dq"):  # as grad_scales: the pooling bias and query at least max|dW|
-        scales[k] = max(scales[k], scales["dw"])
-    check(acc["out"][0] <= BF16_REL_TOL * acc["out"][1], f"c3b timed: forward {acc['out']}")
-    for nm in names:
-        check(acc[nm][0] <= BF16_REL_TOL * scales[nm], f"c3b timed: {nm} {acc[nm]} (scale "
-                                                       f"{scales[nm]})")
-    for name, r in whole.items():
-        r["max_abs_err"] = acc["out"][0] if name == "news_encoder_fwd" else max(
-            v[0] for k, v in acc.items() if k != "out")
-        print(f"[c3b] {name} (the tiled route) at the user tower [{n}, {t}, {D}] bf16: "
-              f"ms={r['ms']:.3f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}) library: none", flush=True)
-    print("[c3b] the whole route against the plain version over every article: "
-          + " ".join(f"{k}={e:.2e}/{scales[k]:.2e}" for k, (e, _) in acc.items())
-          + f" (rel tol {BF16_REL_TOL})", flush=True)
-    del out, grads, wsum, x, ws, packed, xin, g
+    whole, acc = whole_route_timed(x, ws, packed, xin, g, peaks)
+    del x, ws, packed, xin, g
     torch.cuda.empty_cache()
-    return {"parts": rec, "whole": whole, "whole_errors": acc}
+    return {"parts": rec, "whole": whole, "whole_errors": acc, "t3_streamed": streamed}
 
 
 def c3b_timed_h200(peaks, gen) -> dict:
@@ -1880,9 +2029,99 @@ def c3b_timed_h200(peaks, gen) -> dict:
     return rec
 
 
+def c3b_timed_h200_pool(peaks, gen) -> dict:
+    """T3 at the history-200 user tower [TRAIN_BS, 200, D] bf16 (no
+    dropout), where the rule gives the streamed kernels: the forward on
+    T2's fp32 o, the backward on its round(o) and a cotangent; each against
+    its plain version over every article (``plain_chunked``), as is the
+    chunked kernel (``earlier``) on the same inputs, and the two timed in
+    turns (chunked, streamed, streamed, chunked) beside the plain version
+    and the bound; then the whole route at that tower
+    (``whole_route_timed``)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    n, t, cdt = TRAIN_BS, C3B_H200, torch.bfloat16
+    kern = tiled_names(t, HEAD_DIM, cdt, D, ATT)
+    check(kern["t3"] == "tiled_pool_streamed" and kern["t3_bwd"] == "tiled_pool_bwd_streamed",
+          f"c3b timed h{t}: the user tower's kernels are {kern}")
+    x, ws = make_inputs(n, t, D, cdt, gen)
+    packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=cdt)
+    drop, kw, rows = ne.Dropout(), dict(n=n, t=t, nv=n), n * t
+    xin = ne.kernel_input(x, n, drop)[0]
+    qkv = ne.tiled_qkv(xin, packed, drop, **kw)
+    o, _ = ne.tiled_attention(qkv, packed, drop, **kw)
+    oc, _ = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
+    del qkv
+    torch.cuda.empty_cache()
+    g = (torch.randn(n, D, generator=gen, device=DEV) * 1e-2).contiguous()
+    a, a_pad, ow = ATT, packed.w_att.shape[1], ne.o_width(D)
+    work = {  # (flops, bytes) as c3b_timed's
+        "tiled_pool": (n * (2 * t * D * a + 2 * t * a + 2 * t * D),
+                       rows * D * 4 + D * a_pad * 2 + 2 * a * 4 + n * D * 4),
+        "tiled_pool_bwd": (n * (2 * 2 * t * D * a + 4 * t * a + 2 * t * D),
+                           rows * ow * 2 + n * D * 4 + D * a_pad * 2 + rows * (a_pad + D) * 2
+                           + 2 * n * a_pad * 4)}
+    calls = {"tiled_pool": lambda: ne.tiled_pool(o, packed, **kw),
+             "tiled_pool_bwd": lambda: ne.tiled_pool_bwd(oc, packed, g, drop, **kw)}
+    rec = {}
+    for base, new in (("tiled_pool", kern["t3"]), ("tiled_pool_bwd", kern["t3_bwd"])):
+        chunked = earlier(calls[base], "pool_variant")
+        reset_counts()
+        got = {new: calls[base](), base: chunked()}
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        check(cnt[new] == 1 and cnt[base] == 1, f"c3b timed h{t}: launches {cnt}")
+        errs = {k: [0.0, 0.0] for k in got}
+
+        def plain(a0, a1):
+            r, k = slice(a0 * t, a1 * t), dict(n=a1 - a0, t=t, nv=a1 - a0)
+            if base == "tiled_pool":
+                ref = [ne.tiled_pool_reference(o[r], packed, **k)]
+                outs = {nm: [u[a0:a1]] for nm, u in got.items()}
+            else:
+                ref = ne.tiled_pool_bwd_reference(oc[r], packed, g[a0:a1], drop, **k)
+                outs = {nm: [u[0][r], u[1][r], u[2][a0:a1], u[3][a0:a1]] for nm, u in got.items()}
+            for nm, us in outs.items():
+                e = errs[nm]
+                for u, v in zip(us, ref):
+                    check(bool(torch.isfinite(u).all()), f"c3b timed h{t}: {nm} non-finite")
+                    e[0] = max(e[0], (u.float() - v.float()).abs().max().item())
+                    e[1] = max(e[1], v.float().abs().max().item())
+
+        plain_ms = plain_chunked(plain, n, t)
+        del got
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(*work[base], peaks[0], peaks)
+        turns = [time_ms(f, 5, warmup=1) for f in (chunked, calls[base], calls[base], chunked)]
+        for name, ms in ((new, (turns[1] + turns[2]) / 2), (base, (turns[0] + turns[3]) / 2)):
+            e, sc = errs[name]
+            check(e <= BF16_REL_TOL * sc, f"c3b timed h{t}: {name} max|kernel - plain| {e} > "
+                                          f"{BF16_REL_TOL} * {sc}")
+            rec[name] = {"case": f"{name}_user_h{t}", "shape": [n, t, D], "max_abs_err": e,
+                         "max_abs_ref": sc, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None,
+                         "gflop": work[base][0] / 1e9, "mbytes": work[base][1] / 1e6}
+            print(f"[c3b] {name} at the history-{t} user tower [{n}, {t}, {D}] bf16: "
+                  f"max_abs_err={e:.3e} (of {sc:.3e}) ms={ms:.3f} plain_ms={plain_ms:.1f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}; {ms / b_ms:.1f}x it) library: none", flush=True)
+        rec[new]["pr16_ms"] = rec[base]["ms"]
+        rec[new]["turns_ms"] = turns
+        print(f"[c3b] {base} at the history-{t} user tower: the streamed kernel "
+              f"{rec[new]['ms']:.3f} ms, the chunked one {rec[base]['ms']:.3f} "
+              f"({rec[base]['ms'] / rec[new]['ms']:.2f}x; in turns chunked, streamed, streamed, "
+              f"chunked: " + ", ".join(f"{v:.3f}" for v in turns) + ")", flush=True)
+    del o, oc
+    torch.cuda.empty_cache()
+    # the whole route at this tower: K1's and K2's rows at history 200
+    rec["whole"], rec["whole_errors"] = whole_route_timed(x, ws, packed, xin, g, peaks)
+    del x, xin, g, packed, ws
+    torch.cuda.empty_cache()
+    return rec
+
+
 def c3b_scan_mesh(table) -> dict:
     """scan_steps=4 at bench.py's width and a batch of C3B_SCAN_BS, history
-    50 (the user tower on the wide instance) and 100 (on the tiled route), on
+    50 and 100 (the user tower on the route ``route`` answers: tiled), on
     a one-process NCCL mesh: three groups (the warm-up, the capture, a
     replay) against the same groups run eagerly without a mesh, bit for bit
     (a mesh of one process splits and reduces nothing, and graphs its steps
@@ -1910,11 +2149,7 @@ def c3b_scan_mesh(table) -> dict:
             make = lambda: (full_width_model(), {"title": table}, token_batch)  # noqa: E731
             a, b, la, lb, warm, secs, _, peak = scan_pair(make, preps, mesh_a=mesh)
             r = replay_vs_eager(f"c3b_h{hist}_mesh", a, b, la, lb)
-            per_step = dict(NRMS_STEP_LAUNCHES)
-            if hist > C3_HIST:  # the user tower on the tiled route
-                per_step.update(news_encoder_fwd=1, news_encoder_bwd_block=1,
-                                **{k: v for k, v in tiled_call(hist, HEAD_DIM, torch.bfloat16)
-                                   .items() if v})
+            per_step = {k: v for k, v in history_expect(NRMS_STEP_LAUNCHES, hist).items() if v}
             check(warm == {k: SCAN_N * per_step.get(k, 0) for k in warm},
                   f"c3b h{hist} mesh: the warm-up group's launches {warm}")
             per_graph = graph_launches(a)
@@ -1963,6 +2198,8 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
     rec["timed"] = c3b_timed(peaks, gen)
     release()
     rec["timed_h200"] = c3b_timed_h200(peaks, gen)
+    release()
+    rec["timed_h200"].update(c3b_timed_h200_pool(peaks, gen))
     release()
     expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
                   **tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16))
@@ -5131,6 +5368,7 @@ def main(argv=None) -> int:
         k["launches_c3b"] = c3b_l.get(k["name"], 0)
         if k["name"] in c3b["timed"]["whole"]:  # K1 and K2 on the tiled route at history 100
             k["c3b_tiled_user_h100"] = c3b["timed"]["whole"][k["name"]]
+            k["c3b_tiled_user_h200"] = c3b["timed_h200"]["whole"][k["name"]]
     tiled_notes = {
         "tiled_qkv_tma": (234, "T1, tma (bf16): the tiled route's QKV projection to device "
                                "memory; persistent 128-row blocks in clusters of 2, x's row "
@@ -5171,6 +5409,17 @@ def main(argv=None) -> int:
                             "W_att by 256 columns for every 64 rows; launches: [c3b]'s cases "
                             "past a_pad 256; timed at the user tower with the wrapper's rule "
                             "overridden"),
+        "tiled_pool_streamed": (234, "T3's forward, streamed (past the resident kernel: any T, "
+                                     "a_pad <= 256): a persistent block an SM holding W_att, "
+                                     "the article by rounds of 128 rows, z on mma.sync from "
+                                     "shared memory, the logits kept whole, the weighted sum "
+                                     "by rounds; launches: the history-200 steps; timed in "
+                                     "turns against the chunked kernel"),
+        "tiled_pool_bwd_streamed": (529, "T3's backward, streamed: two sweeps of the rounds (z "
+                                         "and dvals, then z again for dz), round(dz) a "
+                                         "half-round at a time in a shared tile, to device "
+                                         "memory and into do = (w g + round(dz) round(W)^T) "
+                                         "* mask; launches: the history-200 steps"),
         "tiled_pool_bwd_resident": (529, "T3's backward, resident: z once, tanh kept in "
                                          "registers for datt, dz and the partials, round(dz) "
                                          "by 16-byte stores, do from the shared round(dz) "
@@ -5210,6 +5459,8 @@ def main(argv=None) -> int:
         kernels["kernels"].append(dict(
             {"name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
              "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}", "launches": launches,
+             "launches_c3": c3["training"]["launches"][name],
+             "launches_c3_cli": c3["cli"]["launches"][name],
              "launches_c3b_h100": c3b_l[name], "launches_c3b_h200": h200_l[name],
              "launches_c3b_cases": gather_l[name],
              "launches_c3b_cli": c3b["cli"]["launches"][name],

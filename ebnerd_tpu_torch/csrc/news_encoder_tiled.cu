@@ -28,17 +28,19 @@
 //      forward's weighted sum) or round(o) in the compute dtype (the
 //      backward's dW operand); the rows' max and sum go to device memory,
 //      [2][n * t][heads], for T4.
-//   T3 tiled_pool_resident_kernel / tiled_pool_kernel: forward, z =
-//      round(o) round(W_att), the logits, the softmax over the article's T
-//      rows and the weighted sum of the fp32 o; backward, the same from
-//      round(o), datt, round(dz) to device memory, the per-article db and dq
-//      partials, and do = round((w g + round(dz) round(W)^T) * mask). Where
-//      T rounded up to 16 is at most 128, a_pad at most 256 and W_att fits
-//      ("resident", below): a persistent block an SM holds W_att in shared
-//      memory and takes z once on mma.sync from shared memory. Elsewhere
-//      ("chunked", PR 16's kernel): a block an article, 64-row tiles, W_att
-//      streamed in 256-column chunks (the wide instance's pooling device
-//      functions).
+//   T3 tiled_pool_resident_kernel / tiled_pool_streamed_kernel /
+//      tiled_pool_kernel: forward, z = round(o) round(W_att), the logits,
+//      the softmax over the article's T rows and the weighted sum of the
+//      fp32 o; backward, the same from round(o), datt, round(dz) to device
+//      memory, the per-article db and dq partials, and do = round((w g +
+//      round(dz) round(W)^T) * mask). Where T rounded up to 16 is at most
+//      128, a_pad at most 256 and W_att fits ("resident", below): a
+//      persistent block an SM holds W_att in shared memory and takes z once
+//      on mma.sync from shared memory. Past that, for a_pad at most 256
+//      where its layout fits ("streamed", below): the same block walks each
+//      article in rounds of 128 rows. Elsewhere ("chunked", the route's
+//      first T3 kernel): a block an article, 64-row tiles, W_att streamed in
+//      256-column chunks (the wide instance's pooling device functions).
 //   T4 tiled_attention_bwd_staged_kernel / tiled_attention_bwd_streamed_kernel
 //      / tiled_attention_bwd_kernel: the attention backward per (article,
 //      head): P from T2's statistics,
@@ -47,7 +49,7 @@
 // After T4 the backward's GEMMs and reductions (news_encoder_bwd.cu) make
 // dx, dWqkv, dW, db and dq, as after the per-block kernel.
 //
-// T1 and T3 have two kernels each, T2 and T4 three; the wrappers pick one
+// T1 has two kernels, T2, T3 and T4 three each; the wrappers pick one
 // before the launch (ops/news_encoder.py `qkv_variant`, `attention_variant`,
 // `pool_variant`) and pass the choice, which the launchers refuse where the
 // kernel does not take the shape. T2 and T4 (`variant`: 1 staged, 2
@@ -121,8 +123,8 @@
 // is left is the instruction stream itself: the logits twice (T2) and
 // three times (T4), over k-steps that are partly the head's zero padding
 // at 20 columns (T2 takes the last 8 by an m16n8k8 step), and the
-// elementwise work on each of them. For T1 "tma" and T3 "resident" see
-// their notes below.
+// elementwise work on each of them. For T1 "tma" and T3 "resident" and
+// "streamed" see their notes below.
 //
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on the
@@ -2565,6 +2567,591 @@ __global__ void __launch_bounds__(kThreads, 1) tiled_pool_resident_kernel(PoolAr
   }
 }
 
+// ---- T3 "streamed": W_att held, the article walked in rounds of 128 rows ----
+
+constexpr int kPoolRound = kPoolMaxT;      // rows of a round: the resident kernel's warp map
+constexpr int kPoolHalf = kPoolRound / 2;  // rows of the backward's round(dz) tile
+
+// Shared memory of T3 "streamed" (byte offsets): W_att [d16][ldw] as the
+// resident kernel's; region R: two chunks of a round's round(o) [128][lda]
+// (or the forward's weighted-sum partials [8][256] fp32, or the backward's
+// round(dz) tile of half a round [64][ldw]); then fp32 arrays: b_att,
+// round(q_att), the article's logits (the backward's datt after the
+// softmax), its weights, the backward's dvals [t16] and g [d], a scratch of
+// a round's logit partials [4][128] or the backward's db and dq column sums
+// [2][2][a_pad], and the backward's mask bits (the resident kernel's [8][64]
+// words; its 32 x 32 do units use [8][32]). Only the [t16] arrays grow
+// with T.
+struct PoolStreamPlan {
+  int t16, d16, ldw, lda;
+  size_t r, b, q, att, wts, dv, g, scr, mb, total;
+};
+__host__ __device__ inline PoolStreamPlan pool_stream_plan(int t, int d, int a_pad, int elem,
+                                                           bool bwd) {
+  PoolStreamPlan L;
+  L.t16 = r16(t);
+  L.d16 = r16(d);
+  L.ldw = pad_ld(a_pad, elem);
+  L.lda = pad_ld(kPoolChunk, elem);
+  L.r = align128(size_t(L.d16) * L.ldw * elem);
+  size_t r = smax(2 * size_t(kPoolRound) * L.lda * elem, size_t(kWarps) * 256 * 4);
+  if (bwd) r = smax(r, size_t(kPoolHalf) * L.ldw * elem);
+  L.b = L.r + align128(r);
+  L.q = L.b + size_t(a_pad) * 4;
+  L.att = L.q + size_t(a_pad) * 4;
+  L.wts = L.att + size_t(L.t16) * 4;
+  L.dv = L.wts + size_t(L.t16) * 4;
+  L.g = L.dv + (bwd ? size_t(L.t16) * 4 : 0);
+  L.scr = L.g + (bwd ? size_t(d) * 4 : 0);
+  L.mb = L.scr + smax(size_t(kPoolNG) * kPoolRound, bwd ? size_t(2 * kPoolMG) * a_pad : 0) * 4;
+  L.total = L.mb + (bwd ? size_t(kWarps) * 64 * 4 : 0);
+  return L;
+}
+
+// The streamed kernel's rounds of 128 rows for articles of t rows; its
+// backward keeps each round's tanh in a scratch of
+// pool_stream_rounds(t) * 32,768 floats a block (``att``).
+__host__ __device__ inline int pool_stream_rounds(int t) {
+  return (r16(t) + kPoolRound - 1) / kPoolRound;
+}
+
+// Whether a "streamed" request fits: a_pad within the warp map, the layout
+// within a block's shared memory (any T while its [t16] arrays fit).
+inline bool pool_stream_fits(int t, int d, int a_pad, int elem, bool bwd) {
+  return a_pad <= kPoolMaxA && pool_stream_plan(t, d, a_pad, elem, bwd).total <= size_t(kSmemLimit);
+}
+
+// T3, streamed: past the resident kernel's reach (T rounded up to 16 past
+// 128, or a layout the resident one's three chunk buffers do not leave
+// room for), for a_pad <= 256. A persistent block per SM holds W_att (and
+// b_att, round(q)) in shared memory, as the resident kernel does, and walks
+// each article in rounds of at most 128 rows with the resident kernel's
+// warp map of z in registers (warp (mg, ng): m-tiles mg, mg + 2, ... of the
+// round, its column group's tiles). Only the article's [t16] arrays stay
+// whole in shared memory: nothing of z outlives its round. A round's z =
+// round(o) round(W_att) runs over 64-column chunks of o in two buffers
+// (the next chunk in flight while the current one is used: round(o) by
+// cp.async in the backward, the forward's fp32 o by float4 loads held in
+// registers and rounded into the buffer after the products), then tanh(z +
+// b) and the round's logits. After the last round the softmax over the
+// article's T rows. Forward: the weighted sum of the fp32 o by rounds (a
+// warp's 16 rows of a round and 256 columns loaded together), the 8 warps'
+// partials summed in a fixed order. Backward: the first sweep also takes
+// dvals = round(o) round(g) from the chunks, and each thread writes its
+// fragments of the round's tanh to the block's scratch in device memory
+// (``att``: 128 KB a round, so at the history-200 user tower 256 KB a
+// block and 34 MB in all, which L2 holds; the same thread reads them back,
+// so no barrier orders them). datt = round(w (dvals - sum w dvals)). A
+// second sweep of the rounds takes each round's tanh back into the
+// registers, then dz = round(datt) round(q) (1 - tanh^2), the db and dq
+// column sums added to shared memory by their one warp (the rounds in
+// order), round(dz) of the round's first 64 rows into a tile in R and of
+// the rest straight to device memory; a half-round at a time, round(dz) in
+// the tile (the second half back from L2), to device memory by 16-byte
+// stores, and do = (w g + round(dz) round(W)^T) * mask from the tile and
+// W_att by 32-row x 32-column units (the stream-1 mask as bits first, as
+// the resident kernel draws it). Every output has one writer; no atomics.
+// What bounds it (PERF.md): at the history-200 user tower its bytes (1.6
+// and 2.0 ms); it runs at 4x and 9x that. Trial builds there (not
+// committed; the backward timed by chip_smoke.py's c3b_timed_h200_pool):
+// taking z again in the second sweep in place of the scratch, 23.5 ms
+// against 18.4; keeping the last round's tanh in registers across the
+// softmax spilled (its 128 registers live around the do products) and was
+// slower still; the do units 64 columns wide (the resident kernel's)
+// spilled, 32 wide they do not; storing do and round(dz) 8 or 16 bytes a
+// lane after swapping words between lanes was slower (the swaps'
+// registers) than a word a lane; reading each half-round's tanh back on
+// its own, both halves through the tile, spilled and took 21.2 ms;
+// skipping a warp's m-tiles past the round by a warp-uniform branch was
+// slower than computing them. At T <= 128 (one round) the resident kernel
+// stays: the two forwards take about the same time there and the streamed
+// backward is the slower (PERF.md).
+template <typename T, typename S, bool kBwd>
+__global__ void __launch_bounds__(kThreads, 1) tiled_pool_streamed_kernel(PoolArgs p) {
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  constexpr int E = sizeof(T);
+  // the A chunks: cp.async where o comes in the compute dtype, else fp32 loads held in
+  // registers across the products and rounded into the buffer after them
+  constexpr bool kCopy = std::is_same<T, S>::value;
+  constexpr int kPf = kCopy ? 1 : kPoolRound * kPoolChunk / 4 / kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const PoolStreamPlan L = pool_stream_plan(p.t, p.d, p.a_pad, E, kBwd);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int t = p.t, d = p.d, a = p.a, a_pad = p.a_pad;
+  const int nk = (d + kPoolChunk - 1) / kPoolChunk;
+  const int mg = warp % kPoolMG, ng = warp / kPoolMG;
+  const int np = a_pad / 16, p0 = ng * np / kPoolNG, p1 = (ng + 1) * np / kPoolNG;
+  const int n0 = 16 * p0, nt = 2 * (p1 - p0);
+  T* ws = reinterpret_cast<T*>(smem);
+  T* abuf = reinterpret_cast<T*>(smem + L.r);
+  float* bs = reinterpret_cast<float*>(smem + L.b);
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* att = reinterpret_cast<float*>(smem + L.att);
+  float* wts = reinterpret_cast<float*>(smem + L.wts);
+  float* dvs = reinterpret_cast<float*>(smem + L.dv);
+  float* gs = reinterpret_cast<float*>(smem + L.g);
+  float* scr = reinterpret_cast<float*>(smem + L.scr);
+  const int valid = valid_at(p.n_valid, p.nv_dev, p.n);
+  stage(ws, L.ldw, static_cast<const T*>(p.w_att), size_t(a_pad), d, L.d16, a_pad, a_pad);
+  cp_async_commit();
+  for (int j = tid; j < a_pad; j += kThreads) {
+    bs[j] = j < a ? p.b_att[j] : 0.f;
+    qs[j] = j < a ? rnd<T>(p.q_att[j]) : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  philox::Dropout dr = p.dr;
+  dr.key = philox::key_at(dr.key, p.seed_dev);
+  const bool v4 = p.lds % 4 == 0;
+  for (int an = blockIdx.x; an < p.n; an += gridDim.x) {
+    if (an >= valid) {  // zeros out, or zero partials
+      for (int i = tid; i < (kBwd ? 0 : d); i += kThreads) p.out[size_t(an) * d + i] = 0.f;
+      for (int j = tid; j < (kBwd ? a_pad : 0); j += kThreads) {
+        p.db_part[size_t(an) * a_pad + j] = 0.f;
+        p.dq_part[size_t(an) * a_pad + j] = 0.f;
+      }
+      continue;
+    }
+    const size_t row0 = size_t(an) * t;
+    const S* src = static_cast<const S*>(p.src) + row0 * p.lds;
+    if constexpr (kBwd)
+      for (int i = tid; i < d; i += kThreads) gs[i] = p.g[size_t(an) * d + i];
+    float acc[kPoolMT][kPoolNT][4];
+    float rs[kPoolMT][2];
+    // z of the round [r0, r0 + rows) (mt m-tiles) into acc, then tanh(z + b) in place and the
+    // rows' logit partials in rs; the backward's dvals of the round's rows into dvs. Starts on
+    // spent chunk buffers (the caller's barrier), leaves them in use.
+    auto sweep = [&](int r0, int rows, int mt) {
+      const S* sr = src + size_t(r0) * p.lds;
+      float4 pf[kPf];
+      auto buf = [&](int kc) { return abuf + (kc % 2) * kPoolRound * L.lda; };
+      auto issue = [&](int kc) {
+        const int k0 = kc * kPoolChunk;
+        if constexpr (kCopy) {
+          stage(buf(kc), L.lda, sr + k0, p.lds, rows, 16 * mt, min(kPoolChunk, d - k0),
+                kPoolChunk);
+          cp_async_commit();
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPf; ++i) {
+            const int e = tid + kThreads * i, r = e / (kPoolChunk / 4);
+            const int col = k0 + e % (kPoolChunk / 4) * 4;
+            float v[4] = {0.f, 0.f, 0.f, 0.f};
+            if (r < rows) {
+              const S* s = sr + size_t(r) * p.lds + col;
+              if (v4 && col + 3 < d) {
+                const float4 u = *reinterpret_cast<const float4*>(s);
+                v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+              } else {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) v[k] = col + k < d ? to_f<S>(s[k]) : 0.f;
+              }
+            }
+            pf[i] = make_float4(v[0], v[1], v[2], v[3]);
+          }
+        }
+      };
+      auto land = [&](int kc) {
+        if constexpr (!kCopy) {
+          T* dst = buf(kc);
+#pragma unroll
+          for (int i = 0; i < kPf; ++i) {
+            const int e = tid + kThreads * i, r = e / (kPoolChunk / 4);
+            const int c4 = e % (kPoolChunk / 4) * 4;
+            if (r < 16 * mt)
+              *reinterpret_cast<uint2*>(dst + r * L.lda + c4) =
+                  make_uint2(pack_bf16(pf[i].x, pf[i].y), pack_bf16(pf[i].z, pf[i].w));
+          }
+        }
+      };
+#pragma unroll
+      for (int u = 0; u < kPoolMT; ++u) zero_frag(acc[u]);
+      float dv = 0.f;  // the backward's dvals: row tid / 2, half tid % 2 of each chunk's columns
+      issue(0);
+      land(0);
+      for (int kc = 0; kc < nk; ++kc) {
+        const int k0 = kc * kPoolChunk, ks = min(kPoolChunk / 16, (d - k0 + 15) / 16);
+        if constexpr (kCopy) cp_async_wait<0>();
+        __syncthreads();  // chunk kc is in; chunk kc - 1's buffer is spent
+        if (kc + 1 < nk) issue(kc + 1);
+        const T* A = buf(kc);
+        if constexpr (kBf) {
+          // all 4 x 8 tiles' products without a branch between them, as the resident kernel's
+          // (in a trial build, skipping the warp's m-tiles past the round by a warp-uniform
+          // branch was 3% slower in both directions at the history-200 user tower)
+          for (int kk = 0; kk < ks; ++kk) {
+            uint32_t fb[kPoolNT / 2][4];
+#pragma unroll
+            for (int jp = 0; jp < kPoolNT / 2; ++jp)
+              ldb_kn(fb[jp], ws, L.ldw, k0 + 16 * kk, min(n0 + 16 * jp, a_pad - 16));
+#pragma unroll
+            for (int u = 0; u < kPoolMT; ++u) {
+              uint32_t fa[4];
+              lda_rm(fa, A, L.lda, 16 * min(mg + kPoolMG * u, mt - 1), 16 * kk);
+#pragma unroll
+              for (int jp = 0; jp < kPoolNT / 2; ++jp)
+                mma_pair(acc[u][2 * jp], acc[u][2 * jp + 1], fa, fb[jp]);
+            }
+          }
+        } else {
+          for (int k = 0; k < 16 * ks; ++k) {
+            const T* wr = ws + size_t(k0 + k) * L.ldw + n0 + 2 * c;
+#pragma unroll
+            for (int u = 0; u < kPoolMT; ++u) {
+              const int i = mg + kPoolMG * u;
+              if (i < mt) {
+                const float a0 = A[(16 * i + g) * L.lda + k], a1 = A[(16 * i + g + 8) * L.lda + k];
+#pragma unroll
+                for (int j = 0; j < kPoolNT; ++j)
+                  if (j < nt) {
+                    const float b0 = wr[8 * j], b1 = wr[8 * j + 1];
+                    acc[u][j][0] += a0 * b0;
+                    acc[u][j][1] += a0 * b1;
+                    acc[u][j][2] += a1 * b0;
+                    acc[u][j][3] += a1 * b1;
+                  }
+              }
+            }
+          }
+        }
+        if constexpr (kBwd) {  // 32 columns a thread, 16 bytes at a time
+          constexpr int kV = 16 / E;
+          const int r = tid / 2, c0 = 32 * (tid % 2), kv = min(kPoolChunk, d - k0);
+          if (r < rows)
+#pragma unroll
+            for (int k8 = 0; k8 < 32; k8 += kV)
+              if (c0 + k8 < kv) {
+                const uint4 u = *reinterpret_cast<const uint4*>(A + r * L.lda + c0 + k8);
+#pragma unroll
+                for (int j = 0; j < kV; ++j)
+                  if (c0 + k8 + j < kv) dv += piece_at<T>(u, j) * rnd<T>(gs[k0 + c0 + k8 + j]);
+              }
+        }
+        if (kc + 1 < nk) land(kc + 1);
+      }
+      float bc[kPoolNT][2], qc[kPoolNT][2];  // the warp's columns of b_att and round(q); 0 past a
+#pragma unroll
+      for (int j = 0; j < kPoolNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 8 * j + 2 * c + e;
+          const bool in = j < nt && col < a;
+          bc[j][e] = in ? bs[col] : 0.f;
+          qc[j][e] = in ? qs[col] : 0.f;
+        }
+#pragma unroll
+      for (int u = 0; u < kPoolMT; ++u) {
+        rs[u][0] = rs[u][1] = 0.f;
+        const bool live = mg + kPoolMG * u < mt;
+#pragma unroll
+        for (int j = 0; j < kPoolNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n0 + 8 * j + 2 * c + e % 2;
+            const float h =
+                live && j < nt && col < a ? tanh_fast(acc[u][j][e] + bc[j][e % 2]) : 0.f;
+            acc[u][j][e] = h;
+            rs[u][e / 2] += rnd<T>(h) * qc[j][e % 2];
+          }
+        rs[u][0] = quad_sum(rs[u][0]);
+        rs[u][1] = quad_sum(rs[u][1]);
+      }
+      if (kBwd) {
+        dv += __shfl_xor_sync(0xffffffffu, dv, 1);
+        if (tid % 2 == 0 && tid / 2 < rows) dvs[r0 + tid / 2] = dv;
+      }
+    };
+    // the backward's tanh of each round, by thread: [round][m-tile u][tile j][thread] float4
+    float4* tsc = kBwd ? reinterpret_cast<float4*>(p.att) + size_t(blockIdx.x) * pool_stream_rounds(t) *
+                             kPoolMT * kPoolNT * kThreads
+                       : nullptr;
+    // the first sweep: the logits of every round
+    for (int r0 = 0; r0 < t; r0 += kPoolRound) {
+      const int rows = min(kPoolRound, t - r0), mt = (rows + 15) / 16;
+      sweep(r0, rows, mt);
+      if (kBwd)  // the round's tanh to the block's scratch (it stays in L2)
+#pragma unroll
+        for (int u = 0; u < kPoolMT; ++u) {
+          if (mg + kPoolMG * u >= mt) continue;  // warp-uniform
+#pragma unroll
+          for (int j = 0; j < kPoolNT; ++j)
+            if (j < nt)
+              tsc[((r0 / kPoolRound * kPoolMT + u) * kPoolNT + j) * kThreads + tid] =
+                  make_float4(acc[u][j][0], acc[u][j][1], acc[u][j][2], acc[u][j][3]);
+        }
+      if (c == 0)
+#pragma unroll
+        for (int u = 0; u < kPoolMT; ++u) {
+          const int i = mg + kPoolMG * u;
+          if (i < mt) {
+            scr[ng * kPoolRound + 16 * i + g] = rs[u][0];
+            scr[ng * kPoolRound + 16 * i + g + 8] = rs[u][1];
+          }
+        }
+      __syncthreads();  // the partials are in; every warp is done with the chunks
+      if (tid < rows) {
+        float v = 0.f;
+        for (int k = 0; k < kPoolNG; ++k) v += scr[k * kPoolRound + tid];
+        att[r0 + tid] = v;
+      }
+      __syncthreads();  // scr and R are free for the next round
+    }
+    pooling_softmax(att, 1, t, wts);
+    __syncthreads();
+    if constexpr (!kBwd) {
+      // out = sum over t of the fp32 o's rows times their weights: a warp's rows of a round
+      // (16 at most) and 256 columns loaded together, summed over the rounds in registers
+      constexpr int kRw = kPoolRound / kWarps, kCw = 2;  // rows a warp a round; float4 a lane
+      float* part = reinterpret_cast<float*>(smem + L.r);  // [8][256]
+      for (int cb = 0; cb < d; cb += 128 * kCw) {
+        float v[kCw][4] = {};
+        for (int r0 = 0; r0 < t; r0 += kPoolRound) {
+          float4 ov[kCw][kRw];
+#pragma unroll
+          for (int h = 0; h < kCw; ++h)
+#pragma unroll
+            for (int k = 0; k < kRw; ++k) {
+              const int r = r0 + warp + kWarps * k, col = cb + 128 * h + 4 * lane;
+              float u[4] = {0.f, 0.f, 0.f, 0.f};
+              if (r < t && col < d) {
+                const S* sp = src + size_t(r) * p.lds + col;
+                if (v4 && col + 3 < d) {
+                  const float4 w4 = *reinterpret_cast<const float4*>(sp);
+                  u[0] = w4.x, u[1] = w4.y, u[2] = w4.z, u[3] = w4.w;
+                } else {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) u[e] = col + e < d ? to_f<S>(sp[e]) : 0.f;
+                }
+              }
+              ov[h][k] = make_float4(u[0], u[1], u[2], u[3]);
+            }
+#pragma unroll
+          for (int h = 0; h < kCw; ++h)
+#pragma unroll
+            for (int k = 0; k < kRw; ++k) {
+              const int r = r0 + warp + kWarps * k;
+              const float w = r < t ? wts[r] : 0.f;
+              v[h][0] += w * ov[h][k].x, v[h][1] += w * ov[h][k].y, v[h][2] += w * ov[h][k].z,
+                  v[h][3] += w * ov[h][k].w;
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < kCw; ++h)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) part[warp * 256 + 128 * h + 4 * lane + k] = v[h][k];
+        __syncthreads();
+        if (cb + tid < d) {
+          float s = 0.f;
+          for (int w = 0; w < kWarps; ++w) s += part[w * 256 + tid];
+          p.out[size_t(an) * d + cb + tid] = s;
+        }
+        __syncthreads();
+      }
+    } else {
+      // datt = round(w (dvals - sum w dvals)) into att, zero past t; the column sums zeroed
+      if (warp == 0) {
+        float v = 0.f;
+        for (int r = lane; r < t; r += 32) v += wts[r] * dvs[r];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        for (int r = lane; r < L.t16; r += 32) att[r] = r < t ? rnd<T>(wts[r] * (dvs[r] - v)) : 0.f;
+      }
+      for (int j = tid; j < 2 * kPoolMG * a_pad; j += kThreads) scr[j] = 0.f;
+      __syncthreads();
+      T* dzs = reinterpret_cast<T*>(smem + L.r);  // a half-round's round(dz) [64][ldw]
+      T* dzg = static_cast<T*>(p.dz_c) + row0 * a_pad;
+      T* doc = static_cast<T*>(p.do_c) + row0 * d;
+      uint32_t* mbits = reinterpret_cast<uint32_t*>(smem + L.mb) + warp * 32;  // [32 rows]
+      const int mode = dr.thr_att ? 1 : p.ext != nullptr ? 2 : 0;  // mask bits, external, none
+      const bool pairs = d % 2 == 0;  // a column pair is one aligned 4- or 8-byte store
+      const int per = a_pad * E / 16, ncb = (d + 31) / 32, ks = a_pad / 16;
+      // the second sweep: each round's tanh from the scratch, then its dz, partials, round(dz)
+      // and do
+      for (int r0 = 0; r0 < t; r0 += kPoolRound) {
+        const int rows = min(kPoolRound, t - r0), mt = (rows + 15) / 16;
+#pragma unroll
+        for (int u = 0; u < kPoolMT; ++u) {
+          if (mg + kPoolMG * u >= mt) continue;  // warp-uniform
+#pragma unroll
+          for (int j = 0; j < kPoolNT; ++j)
+            if (j < nt) {
+              const float4 v = tsc[((r0 / kPoolRound * kPoolMT + u) * kPoolNT + j) * kThreads + tid];
+              acc[u][j][0] = v.x, acc[u][j][1] = v.y, acc[u][j][2] = v.z, acc[u][j][3] = v.w;
+            }
+        }
+        __syncthreads();  // every warp is done with the chunks and the last tile: R is the tile
+        // dz = round(datt) round(q) (1 - tanh^2) of the whole round from acc: the first half's
+        // m-tiles (u 0, 1) into the tile, the second's straight to device memory (it comes back
+        // into the tile from L2 for its do products), so that acc is spent before them and
+        // nothing is held across them; the column sums, added once a round
+#pragma unroll
+        for (int j = 0; j < kPoolNT; ++j) {
+          float sdb[2] = {0.f, 0.f}, sdq[2] = {0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < kPoolMT; ++u) {
+            const int i = mg + kPoolMG * u;
+            if (i >= mt || j >= nt) continue;
+            float z[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = 16 * i + g + 8 * (e / 2), col = n0 + 8 * j + 2 * c + e % 2;
+              const float h = acc[u][j][e], da = att[r0 + row];
+              z[e] = col < a ? da * qs[col] * (1.f - h * h) : 0.f;
+              sdb[e % 2] += z[e];
+              sdq[e % 2] += rnd<T>(h) * da;
+            }
+            const int row = 16 * i + g, col = n0 + 8 * j + 2 * c;
+            T* q0 = u < 2 ? dzs + row * L.ldw + col : dzg + size_t(r0 + row) * a_pad + col;
+            const int ld = u < 2 ? L.ldw : a_pad;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8; past the article's rows only
+              if (u >= 2 && row + 8 * hh >= rows) continue;  // the tile's
+              T* q = q0 + 8 * hh * ld;
+              if constexpr (kBf)
+                *reinterpret_cast<uint32_t*>(q) = pack_bf16(z[2 * hh], z[2 * hh + 1]);
+              else
+                *reinterpret_cast<float2*>(q) = make_float2(z[2 * hh], z[2 * hh + 1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              sdb[e] += __shfl_xor_sync(0xffffffffu, sdb[e], off);
+              sdq[e] += __shfl_xor_sync(0xffffffffu, sdq[e], off);
+            }
+          if (g == 0 && j < nt)  // the column's one writer adds the round's sums
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = n0 + 8 * j + 2 * c + e;
+              scr[mg * a_pad + col] += sdb[e];
+              scr[(kPoolMG + mg) * a_pad + col] += sdq[e];
+            }
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int mh = min(4, mt - 4 * hf);  // live m-tiles of the half (block-uniform)
+          if (mh <= 0) continue;
+          const int hr0 = kPoolHalf * hf;  // the half's first row in the round
+          const int hrows = min(16 * mh, rows - hr0);  // the half's rows within the article
+          if (hf == 1) {  // the second half's round(dz) back from device memory into the tile
+            stage(dzs, L.ldw, dzg + size_t(r0 + hr0) * a_pad, size_t(a_pad), hrows, 16 * mh, a_pad,
+                  a_pad);
+            cp_async_commit();
+            cp_async_wait<0>();
+          }
+          __syncthreads();  // the tile is whole
+          if (hf == 0)  // round(dz) of the first half's rows to device memory, 16 bytes a thread
+            for (int i = tid; i < hrows * per; i += kThreads) {
+              const int r = i / per, cc = i % per * (16 / E);
+              *reinterpret_cast<uint4*>(dzg + size_t(r0 + r) * a_pad + cc) =
+                  *reinterpret_cast<const uint4*>(dzs + r * L.ldw + cc);
+            }
+          // do = (w g + round(dz) round(W)^T) * mask by units of 32 rows x 32 columns, each warp
+          // a contiguous range of them
+          const int units = (mh + 1) / 2 * ncb, tr = 16 * mh;  // the tile's rows
+          for (int un = warp * units / kWarps; un < (warp + 1) * units / kWarps; ++un) {
+            const int m0 = 32 * (un / ncb), c0 = 32 * (un % ncb), nn = min(4, (L.d16 - c0) / 8);
+            const bool two = m0 + 16 < tr;
+            float o8[2][4][4];
+            zero_frag(o8[0]);
+            zero_frag(o8[1]);
+            if constexpr (kBf) {
+              for (int kk = 0; kk < ks; ++kk) {  // unconditional, on clamped rows and columns
+                uint32_t fb[2][4];
+#pragma unroll
+                for (int jp = 0; jp < 2; ++jp)
+                  ldb_nk(fb[jp], ws, L.ldw, 16 * kk, min(c0 + 16 * jp, L.d16 - 16));
+#pragma unroll
+                for (int mm = 0; mm < 2; ++mm) {
+                  uint32_t fa[4];
+                  lda_rm(fa, dzs, L.ldw, min(m0 + 16 * mm, tr - 16), 16 * kk);
+#pragma unroll
+                  for (int jp = 0; jp < 2; ++jp)
+                    mma_pair(o8[mm][2 * jp], o8[mm][2 * jp + 1], fa, fb[jp]);
+                }
+              }
+            } else {
+              smm<T, 4, false, false>(o8[0], dzs, L.ldw, m0, ws, L.ldw, c0, ks, nn);
+              if (two) smm<T, 4, false, false>(o8[1], dzs, L.ldw, m0 + 16, ws, L.ldw, c0, ks, nn);
+            }
+            const int ar0 = r0 + hr0 + m0;  // the article's row of the unit's first
+            if (dr.thr_att) {  // word w: row w of the unit, its 32 columns
+              __syncwarp();  // the last unit's bits are read
+              const int row = ar0 + lane;
+              uint32_t bits = 0;
+#pragma unroll 1
+              for (int q = 0; q < 8; ++q) {
+                const int col = c0 + 4 * q;
+                if (row < t && col < d) {
+                  const uint4 pb = philox::philox4x32_10(
+                      make_uint4(uint32_t(row0 + row), uint32_t(col >> 2), 1u, 0u), dr.key);
+                  bits |= (uint32_t((pb.x >> 8) < dr.thr_att) | uint32_t((pb.y >> 8) < dr.thr_att) << 1 |
+                           uint32_t((pb.z >> 8) < dr.thr_att) << 2 |
+                           uint32_t((pb.w >> 8) < dr.thr_att) << 3)
+                          << (4 * q);
+                }
+              }
+              mbits[lane] = bits;
+              __syncwarp();
+            }
+            // the epilogue: lane (g, c) holds rows ar0 + 16 mm + g + 8 hh, columns c0 + 8 j + 2 c
+            float gc[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = c0 + 8 * j + 2 * c + e;
+                gc[j][e] = col < d ? gs[col] : 0.f;
+              }
+#pragma unroll
+            for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int rl = 16 * mm + g + 8 * hh, row = ar0 + rl;
+                if (rl >= tr || row >= t) continue;
+                const float w = wts[row];
+                T* orow = doc + size_t(row) * d;
+                const uint32_t bits = mbits[rl];
+                const float* xrow = mode == 2 ? p.ext + (row0 + row) * d : nullptr;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const int col = c0 + 8 * j + 2 * c;
+                  if (col >= d) continue;
+                  float v0 = w * gc[j][0] + o8[mm][j][2 * hh];
+                  float v1 = w * gc[j][1] + o8[mm][j][2 * hh + 1];
+                  if (mode == 1) {
+                    const uint32_t b = bits >> (col - c0);
+                    v0 *= b & 1u ? dr.inv_att : 0.f;
+                    v1 *= b & 2u ? dr.inv_att : 0.f;
+                  } else if (mode == 2) {
+                    v0 *= xrow[col] * p.inv_ext;
+                    v1 *= col + 1 < d ? xrow[col + 1] * p.inv_ext : 0.f;
+                  }
+                  if (pairs) {
+                    if constexpr (kBf)
+                      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+                    else
+                      *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+                  } else {
+                    orow[col] = from_f<T>(v0);
+                    if (col + 1 < d) orow[col + 1] = from_f<T>(v1);
+                  }
+                }
+              }
+          }
+          __syncthreads();  // the tile and the column sums are spent before the next half
+        }
+      }
+      for (int j = tid; j < a_pad; j += kThreads) {
+        p.db_part[size_t(an) * a_pad + j] = scr[j] + scr[a_pad + j];
+        p.dq_part[size_t(an) * a_pad + j] = scr[2 * a_pad + j] + scr[3 * a_pad + j];
+      }
+    }
+    __syncthreads();  // R, g and the arrays are spent before the next article
+  }
+}
+
 // ---- launchers ----
 
 // T1 "tma" (bf16): a persistent grid, at most one CTA an SM; x, the weight
@@ -2713,21 +3300,31 @@ int launch_attention(const AttArgs& p, int variant, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// T3: "resident" (1: a persistent block an SM; refused where pool_fits does
-// not hold) or PR 16's chunked kernel (0: a block an article).
+// T3's kernels, as the C entry's `variant` names them.
+enum PoolVariant { kChunked = 0, kResident = 1, kPoolStreamed = 2 };
+
+// T3: "resident" (a persistent block an SM; refused where pool_fits does not
+// hold), "streamed" (the same, by rounds; refused where pool_stream_fits
+// does not hold) or the chunked kernel (a block an article).
 template <typename T, typename S, bool kBwd>
-int launch_pool(const PoolArgs& p, int resident, cudaStream_t stream) {
+int launch_pool(const PoolArgs& p, int variant, cudaStream_t stream) {
   if (p.t < 1 || p.d < 1 || p.a < 1 || p.a > p.a_pad || p.a_pad % 16 || p.lds < p.d)
     return int(cudaErrorInvalidValue);
-  if (resident && !pool_fits(p.t, p.d, p.a_pad, sizeof(T), kBwd)) return int(cudaErrorInvalidValue);
+  if ((variant == kResident && !pool_fits(p.t, p.d, p.a_pad, sizeof(T), kBwd)) ||
+      (variant == kPoolStreamed &&
+       (!pool_stream_fits(p.t, p.d, p.a_pad, sizeof(T), kBwd) || (kBwd && p.att == nullptr))) ||
+      (variant != kChunked && variant != kResident && variant != kPoolStreamed))
+    return int(cudaErrorInvalidValue);
   if (p.n == 0) return 0;
-  if (resident) {
+  if (variant != kChunked) {
     int dev = 0, sms = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return int(e);
-    const size_t smem = pool_plan(p.t, p.d, p.a_pad, sizeof(T), kBwd).total;
-    auto kern = tiled_pool_resident_kernel<T, S, kBwd>;
+    const bool res = variant == kResident;
+    const size_t smem = res ? pool_plan(p.t, p.d, p.a_pad, sizeof(T), kBwd).total
+                            : pool_stream_plan(p.t, p.d, p.a_pad, sizeof(T), kBwd).total;
+    auto kern = res ? tiled_pool_resident_kernel<T, S, kBwd> : tiled_pool_streamed_kernel<T, S, kBwd>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
     kern<<<unsigned(std::min(p.n, sms)), kThreads, smem, stream>>>(p);
@@ -2824,15 +3421,18 @@ int tiled_attention(const void* qkv, void* o, int ldo, int o_f32, void* stats, i
 // (zeros at or past n_valid). Backward: src = round(o) [n * t, lds] in the
 // compute dtype, g [n, d] fp32 -> dz_c [n * t, a_pad], do_c [n * t, d] in
 // the compute dtype, db_part and dq_part [n, a_pad] fp32 (zeros at or past
-// n_valid). att and wts: [n * t] fp32 scratch. w_att [d, a_pad] in the
-// compute dtype, b_att and q_att [a] fp32. resident: 1 the resident kernel
-// (att and wts unused; refused where it does not fit), 0 PR 16's chunked one.
+// n_valid). att and wts: [n * t] fp32 scratch (the chunked kernel's; the
+// streamed backward's att: min(n, SMs) * pool_stream_rounds(t) * 32,768
+// fp32, refused when null). w_att
+// [d, a_pad] in the compute dtype, b_att and q_att [a] fp32. variant: 1 the
+// resident kernel, 2 the streamed one (each refused where its plan does not
+// fit), 0 the chunked one; any other value is refused.
 int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, const void* q_att,
                const void* g, void* out, void* att, void* wts, void* dz_c, void* do_c,
                void* db_part, void* dq_part, int n, int t, int d, int a, int a_pad, int n_valid,
                const void* nv_dev, int is_bf16, int is_bwd, unsigned seed_lo, unsigned seed_hi,
                const void* seed_dev, unsigned thr_att, float inv_att, const void* ext,
-               float inv_ext, int resident, void* stream) {
+               float inv_ext, int variant, void* stream) {
   const PoolArgs p{src, lds, w_att, static_cast<const float*>(b_att),
                    static_cast<const float*>(q_att), static_cast<const float*>(g),
                    static_cast<float*>(out), static_cast<float*>(att), static_cast<float*>(wts),
@@ -2842,10 +3442,10 @@ int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, c
                    static_cast<const int*>(nv_dev), static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return is_bwd ? launch_pool<bf16, bf16, true>(p, resident, s)
-                  : launch_pool<bf16, float, false>(p, resident, s);
-  return is_bwd ? launch_pool<float, float, true>(p, resident, s)
-                : launch_pool<float, float, false>(p, resident, s);
+    return is_bwd ? launch_pool<bf16, bf16, true>(p, variant, s)
+                  : launch_pool<bf16, float, false>(p, variant, s);
+  return is_bwd ? launch_pool<float, float, true>(p, variant, s)
+                : launch_pool<float, float, false>(p, variant, s);
 }
 
 // T4. qkv [n * t, P] as T2's, do_c [n * t, d], stats from T2, delta

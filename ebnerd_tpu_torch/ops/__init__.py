@@ -13,8 +13,8 @@ __all__ = ["fused_news_encoder", "news_encoder_reference", "prng_dropout", "drop
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by its kernel's name; each counts its
     launches in ``launches`` and those recorded into a CUDA graph in
-    ``captured`` (``_build.count``). T1's and T3's wrappers launch one of
-    two kernels, T2's and T4's one of three: the newer ones count on their
+    ``captured`` (``_build.count``). T1's wrapper launches one of two
+    kernels, T2's, T3's and T4's one of three: the newer ones count on their
     ``tma``, ``staged``, ``streamed`` or ``resident``."""
     return {"news_encoder_fwd": fused_news_encoder, "news_encoder_bwd": fused_news_encoder_bwd,
             "news_encoder_bwd_block": launch_bwd_core, "news_encoder_bwd_gemm": bwd_gemm,
@@ -27,4 +27,6 @@ def kernel_counters() -> dict:
             "tiled_attention_bwd_streamed": tiled_attention_bwd.streamed,
             "tiled_qkv_tma": tiled_qkv.tma, "tiled_pool_resident": tiled_pool.resident,
             "tiled_pool_bwd_resident": tiled_pool_bwd.resident,
+            "tiled_pool_streamed": tiled_pool.streamed,
+            "tiled_pool_bwd_streamed": tiled_pool_bwd.streamed,
             "philox_mask_dump": dump_masks, "prng_dropout": dropout_apply}

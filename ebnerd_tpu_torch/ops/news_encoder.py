@@ -46,8 +46,9 @@ function keeps them for its backward instead of x.
 
 Each call takes one of three routes (``route``): the kernels' narrow
 instance (T, head width <= 32, padded attention width <= 256), their wide
-one (up to 64, 64 and 512), or, for every other shape and for a layout past
-a block's shared memory, the tiled route (``csrc/news_encoder_tiled.cu``):
+one (T <= 32 with a head width up to 64 or an attention width up to 512),
+or, for every T past 32 and every other shape, and for a layout past a
+block's shared memory, the tiled route (``csrc/news_encoder_tiled.cu``):
 T1 the QKV projection to device memory, T2 the attention by query tiles,
 T3 the pooling per article, forward and backward, T4 the attention backward
 per (article, head), then the backward's GEMMs and reductions as on the
@@ -236,35 +237,45 @@ def check_shape(*, d: int, num_heads: int, a: int, t: Optional[int] = None) -> N
         raise ValueError(f"the kernels take T >= 1; got T={t}")
 
 
-def route(t: int, head_dim: int, a_pad: int, smem: int = 0) -> str:
+def route(t: int, head_dim: int, a_pad: int, smem: int = 0, instance: bool = False) -> str:
     """The kernels' route for articles of T tokens, heads ``head_dim`` wide
     and a padded attention width ``a_pad``: ``"narrow"`` (K1 and K2's
     narrow instance: T, head width <= 32, a_pad <= 256), ``"wide"`` (their
-    wide instance: up to 64, 64 and 512) or ``"tiled"`` (T1-T4) for every
-    other shape, and where ``smem``, the shared memory the instance's block
-    needs (the larger of the forward's and the backward's), passes a
-    block's."""
+    wide instance: T <= 32 with a head width up to 64 or an a_pad up to
+    512) or ``"tiled"`` (T1-T4) for every other shape, and where ``smem``,
+    the shared memory the instance's block needs (the larger of the
+    forward's and the backward's), passes a block's. T 33-64 takes the
+    tiled route: at the history-50 and history-64 user towers ([16,384, T,
+    400] bf16, 20 heads of 20, A 200) its forward and backward took 31.1
+    and 34.1 ms against the wide instance's 65.2 and 71.1 (PERF.md,
+    ``tools/route_times.py``); at T <= 32 the narrow instance was faster
+    (15.2 against 15.9 ms at history 20, 35.2 against 36.5 at the news
+    tower), and no wide shape there was timed. ``instance`` asks for the
+    wide instance at T 33-64 (its own limits, T, head width <= 64 and
+    a_pad <= 512), which only the checks and timing tools that hold it
+    against its plain version use."""
     if t > _MAX_T or head_dim > _MAX_HEAD_DIM or a_pad > _MAX_ATT_DIM or smem > _SMEM_LIMIT:
         return "tiled"
     if t <= _NARROW_T and head_dim <= _NARROW_HEAD_DIM and a_pad <= _NARROW_ATT_DIM:
         return "narrow"
-    return "wide"
+    return "wide" if t <= _NARROW_T or instance else "tiled"
 
 
-def _route(packed: "PackedWeights", t: int, din: int, force_tiled: bool = False) -> str:
+def _route(packed: "PackedWeights", t: int, din: int, force_tiled: bool = False,
+           instance: bool = False) -> str:
     """``route`` for a call on CUDA, with the shared memory the libraries
     report for the instance's block at its shallowest QKV ring (the
     launchers refuse a block past the limit)."""
     d, a_pad = packed.w_att.shape
     heads = packed.num_heads
-    r = "tiled" if force_tiled else route(t, d // heads, a_pad)
+    r = "tiled" if force_tiled else route(t, d // heads, a_pad, instance=instance)
     if r == "tiled":
         return r
     is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
     low = min(2, max(1, -(-din // _QKV_K_TILE))) if is_bf16 else 1
     smem = max(_library().news_encoder_smem_bytes(t, d, heads, a_pad, is_bf16, low),
                _library_bwd().news_encoder_bwd_smem_bytes(t, d, heads, a_pad, is_bf16, low))
-    return route(t, d // heads, a_pad, smem)
+    return route(t, d // heads, a_pad, smem, instance=instance)
 
 
 def articles_per_block(t: int) -> int:
@@ -523,9 +534,10 @@ def fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
 
 
 def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, emb_keep_prob,
-             rng_seed, drop_mask, force_tiled: bool = False) -> tuple:
+             rng_seed, drop_mask, force_tiled: bool = False, instance: bool = False) -> tuple:
     """The forward on a CUDA x [N, T, Din], K1 or the tiled route by
-    ``_route`` (``force_tiled`` takes the tiled route at any shape):
+    ``_route`` (``force_tiled`` takes the tiled route at any shape,
+    ``instance`` the wide instance at T 33-64):
     (out, xin, keep, packed, drop, nv, nv_dev, tiled), with xin and keep
     from ``kernel_input`` (what the backward needs), the packed weights, the
     call's dropout, its valid article count and whether it went tiled."""
@@ -536,7 +548,7 @@ def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, e
     _check_x(x, packed)
     nv, nv_dev = _valid(n, n_valid, x.device)
     xin, keep, drop_in = kernel_input(x, nv, drop, nv_dev)
-    tiled = _route(packed, t, xin.shape[1], force_tiled) == "tiled"
+    tiled = _route(packed, t, xin.shape[1], force_tiled, instance) == "tiled"
     if tiled:
         out = tiled_forward(xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
     else:
@@ -915,20 +927,20 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
 
 def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
               drop: Dropout, nv_dev: Optional[torch.Tensor] = None,
-              force_tiled: bool = False) -> tuple:
+              force_tiled: bool = False, instance: bool = False) -> tuple:
     """K2 on ``kernel_input``'s (xin, keep) for N articles of T tokens, nv
     valid (or, with ``nv_dev``, the count that device scalar holds, nv
     then N: the bucket's geometry), under the call's dropout ``drop``: the
     per-block kernel (or, by ``_route``, the tiled route's T1-T4;
-    ``force_tiled`` takes it at any shape), dx, dWqkv and dW products and
-    the reductions."""
+    ``force_tiled`` takes it at any shape, ``instance`` the wide instance
+    at T 33-64), dx, dWqkv and dW products and the reductions."""
     din, d = xin.shape[1], packed.w_att.shape[0]
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
     din_x = packed.din
     masked = keep is not None  # bf16 with the stream-0 mask: xin is round(x * mask)
     drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
-    if _route(packed, t, din, force_tiled) == "tiled":
+    if _route(packed, t, din, force_tiled, instance) == "tiled":
         qkv, o_c, dz_c, db_part, dq_part = tiled_bwd_core(xin, packed, g, nv, drop_in, n=n, t=t,
                                                           nv_dev=nv_dev)
         nv_blocks = nv  # one partial row per article
@@ -1085,31 +1097,43 @@ def pool_variant(t: int, d: int, a_pad: int, dtype: torch.dtype, backward: bool 
     articles of T tokens, D wide, a padded attention width ``a_pad``, in the
     compute ``dtype``: "resident" (a persistent block an SM holding W_att
     in shared memory; T rounded up to 16 at most 128, a_pad at most 256)
-    where its layout fits a block, else "chunked" (PR 16's kernel: a block
-    an article, W_att streamed by 256 columns for every 64 rows). The
-    layout (``pool_plan`` in ``csrc/news_encoder_tiled.cu``): W_att [D16,
-    a_pad + 16 bytes], chunks of round(o) [T16, 64 + 16 bytes] (two in the
-    bf16 forward, which rounds fp32 o through registers, else three; the
-    backward: or round(dz) [T16, a_pad + 16 bytes]; the forward: at least
-    8 KB), then fp32 arrays of 2 a_pad + 2 T16 (the backward: + T16 + D)
-    and max(4 T16, 4 a_pad) values, and the backward's mask bits (2 KB). At
-    the history-100 user tower (T 100, D 400, A 208 padded, bf16) 210,944
-    and 231,168 bytes; the launchers refuse a "resident" request past
-    232,448."""
+    where its layout fits a block; else "streamed" (the same block walking
+    the article in rounds of 128 rows; any T, a_pad at most 256; its
+    backward keeps each round's tanh in a block's scratch in device memory)
+    where its layout fits; else "chunked" (the route's first T3 kernel: a block an
+    article, W_att streamed by 256 columns for every 64 rows). Both layouts
+    (``pool_plan`` and ``pool_stream_plan`` in
+    ``csrc/news_encoder_tiled.cu``): W_att [D16, a_pad + 16 bytes], then
+    chunks of round(o) [rows, 64 + 16 bytes] (resident: T16 rows, two
+    buffers in the bf16 forward, which rounds fp32 o through registers, else
+    three; streamed: 128 rows, two buffers) or, the larger, the backward's
+    round(dz) tile (resident [T16, a_pad + 16 bytes], streamed 64 rows of
+    it) or the forward's 8 KB, then fp32 arrays: 2 a_pad and 2 T16 (the
+    backward: + T16 + D + 512) and a scratch (resident max(4 T16, 4 a_pad);
+    streamed 512, the backward max(512, 4 a_pad)). At the history-100 user
+    tower (T 100, D 400, A 208 padded, bf16) resident takes 210,944 and
+    231,168 bytes; at the history-200 one streamed takes 213,376 + 8 T16
+    and 220,800 bytes (T 200), so its bf16 backward reaches D 416 there and
+    T 1,168 at D 400. The launchers refuse a request past the kernel's
+    layout."""
     elem = torch.tensor([], dtype=dtype).element_size()
     r16 = lambda v: -(-v // 16) * 16
     a128 = lambda v: -(-v // 128) * 128
     t16, pad = r16(t), 16 // elem
-    ldw = a_pad + pad
+    ldw, lda = a_pad + pad, 64 + pad
+    w_bytes = a128(r16(d) * ldw * elem)
+    bwd_floats = t16 + d + 8 * 64 if backward else 0  # dvals, g, the mask bits
     bufs = 3 if backward or elem == 4 else 2  # round(o) chunks in flight: cp.async, or registers
-    region = max(bufs * t16 * (64 + pad) * elem, 8 * 256 * 4)
-    if backward:
-        region = max(region, t16 * ldw * elem)
-    floats = (2 * a_pad + 2 * t16 + (t16 + d + 8 * 64 if backward else 0)
-              + max(4 * t16, 4 * a_pad))
-    smem = a128(r16(d) * ldw * elem) + a128(region) + 4 * floats
-    fits = t16 <= _POOL_T and a_pad <= _POOL_A and smem <= _SMEM_LIMIT
-    return "resident" if fits else "chunked"
+    region = max(bufs * t16 * lda * elem, 8 * 256 * 4, t16 * ldw * elem if backward else 0)
+    floats = 2 * a_pad + 2 * t16 + bwd_floats + max(4 * t16, 4 * a_pad)
+    if t16 <= _POOL_T and a_pad <= _POOL_A and w_bytes + a128(region) + 4 * floats <= _SMEM_LIMIT:
+        return "resident"
+    region = max(2 * _POOL_T * lda * elem, 8 * 256 * 4,
+                 _POOL_T // 2 * ldw * elem if backward else 0)
+    floats = 2 * a_pad + 2 * t16 + bwd_floats + max(4 * _POOL_T, 4 * a_pad if backward else 0)
+    if a_pad <= _POOL_A and w_bytes + a128(region) + 4 * floats <= _SMEM_LIMIT:
+        return "streamed"
+    return "chunked"
 
 
 def _heads(packed: PackedWeights) -> tuple:
@@ -1324,18 +1348,30 @@ tiled_attention.streamed = _build.KernelCount()
 def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
     """Launch T3 on ``src`` with its outputs (out, dz_c, do, db_part,
     dq_part; None where the direction writes none) in ``pool_variant``'s
-    kernel, counted on ``fn.resident`` or ``fn``; the chunked kernel gets
-    its own scratch."""
+    kernel, counted on ``fn.resident``, ``fn.streamed`` or ``fn``; the
+    chunked kernel gets its own scratch, the streamed backward a block's
+    (the tanh of an article's rounds of 128 rows, by thread)."""
     d, a_pad = packed.w_att.shape
     dev, cdt = src.device, packed.wqkv.dtype
-    resident = pool_variant(t, d, a_pad, cdt, backward) == "resident"
-    att, wts = (None, None) if resident else (torch.empty(n * t, device=dev) for _ in range(2))
-    _launch_tiled(fn.resident if resident else fn, "tiled_pool", dev, src.data_ptr(), src.shape[1],
+    variant = pool_variant(t, d, a_pad, cdt, backward)
+    att = wts = None
+    if variant == "chunked":
+        att, wts = (torch.empty(n * t, device=dev) for _ in range(2))
+    elif variant == "streamed" and backward:  # each block's tanh of its article's rounds
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rounds = -(-t // _POOL_T)
+        att = torch.empty(min(n, sms) * rounds * _POOL_SCRATCH, device=dev)
+    _launch_tiled(getattr(fn, variant, fn), "tiled_pool", dev, src.data_ptr(), src.shape[1],
                   packed.w_att.data_ptr(), packed.b_att.data_ptr(), packed.q_att.data_ptr(),
                   _ptr(g), _ptr(outs[0]), _ptr(att), _ptr(wts), *map(_ptr, outs[1:]), n, t, d,
                   packed.b_att.shape[0], a_pad, nv, _ptr(nv_dev), int(cdt == torch.bfloat16),
                   int(backward), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_att,
-                  drop.inv_att, _ptr(drop.ext_mask), drop.inv_ext, int(resident))
+                  drop.inv_att, _ptr(drop.ext_mask), drop.inv_ext, _POOL_VARIANT[variant])
+
+
+# pool_variant's answer as the C entry of T3 takes it
+_POOL_VARIANT = {"chunked": 0, "resident": 1, "streamed": 2}
+_POOL_SCRATCH = 4 * 8 * 256 * 4  # fp32 a round of the streamed backward's block: acc by thread
 
 
 def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
@@ -1352,7 +1388,9 @@ def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
 
 
 tiled_pool.launches = tiled_pool.captured = 0
-tiled_pool.resident = _build.KernelCount()  # the resident kernel's; PR 16's chunked one's above
+# the resident and streamed kernels' counts; the chunked one's above
+tiled_pool.resident = _build.KernelCount()
+tiled_pool.streamed = _build.KernelCount()
 
 
 def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: int, nv: int,
@@ -1377,6 +1415,7 @@ def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: i
 
 tiled_pool_bwd.launches = tiled_pool_bwd.captured = 0
 tiled_pool_bwd.resident = _build.KernelCount()
+tiled_pool_bwd.streamed = _build.KernelCount()
 
 
 def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int, nv: int,

@@ -6,17 +6,18 @@ and times with CUDA events, in bf16 without dropout: T1 (``tiled_qkv``, x
 [N*T, 400]), T2 (``tiled_attention``) in its forward mode (o in fp32) and
 its backward mode (round(o) and the rows' statistics), T3 (``tiled_pool``,
 ``tiled_pool_bwd``) on T2's o and round(o), and T4
-(``tiled_attention_bwd``) on T2's statistics. SHAPES are the history-100
-user tower [16,384, 100, 400] (20 heads of 20, A 200), the history-200 one,
-and C3b's two wide shapes past T 128 with their attention widths
-(``chip_smoke.py`` ``C3B_CASES``: T 130 with 2 heads of 80 and A 600; T 200
-with 2 heads of 128 and A 1,024) at 4,096 articles. Inputs come from a
-seeded generator. Each time is printed beside its bound (the bytes the call
-must move over 3.35 TB/s or its products over 989 TFLOP/s, the longer), the
-kernel the wrapper launched (T1 "tma" or "panel", T2 and T4 "staged",
-"streamed" or "gather", T3 "resident" or "chunked", from the launch counts;
-a checkout without a newer kernel takes the first), and the card's name and
-power limit. The first 256 articles of each output are held against the
+(``tiled_attention_bwd``) on T2's statistics. SHAPES are the history-50,
+100 and 200 user towers [16,384, H, 400] (20 heads of 20, A 200; history
+50 takes the tiled route since ``route`` sends T 33-64 there) and C3b's
+two wide shapes past T 128 with their attention widths (``chip_smoke.py``
+``C3B_CASES``: T 130 with 2 heads of 80 and A 600; T 200 with 2 heads of
+128 and A 1,024) at 4,096 articles. Inputs come from a seeded generator.
+Each time is printed beside its bound (the bytes the call must move over
+3.35 TB/s or its products over 989 TFLOP/s, the longer), the kernel the
+wrapper launched (T1 "tma" or "panel", T2 and T4 "staged", "streamed" or
+"gather", T3 "resident", "streamed" or "chunked", from the launch counts;
+a checkout without a newer kernel takes the first), and the card's name
+and power limit. The first 256 articles of each output are held against the
 checkout's plain version (2e-2 of the scale, as ``chip_smoke.py``). Two
 checkouts (a change and its parent) are compared by running this once for
 each in one call to the card, in the order parent, change, change, parent.
@@ -33,6 +34,7 @@ import time
 from pathlib import Path
 
 SHAPES = {  # name: N, T, heads, head width, A
+    "user_h50": (16_384, 50, 20, 20, 200),
     "user_h100": (16_384, 100, 20, 20, 200),
     "user_h200": (16_384, 200, 20, 20, 200),
     "c3b_t130_2x80_a600": (4_096, 130, 2, 80, 600),
@@ -43,7 +45,8 @@ HBM_BYTES_S, BF16_OPS_S = 3.35e12, 989e12
 REL_TOL, CHECKED = 2e-2, 256
 # each wrapper's newer kernels (their KernelCount attributes, which name them) and its first one
 NEWER = {"tiled_qkv": (("tma",), "panel"), "tiled_attention": (("staged", "streamed"), "gather"),
-         "tiled_pool": (("resident",), "chunked"), "tiled_pool_bwd": (("resident",), "chunked"),
+         "tiled_pool": (("resident", "streamed"), "chunked"),
+         "tiled_pool_bwd": (("resident", "streamed"), "chunked"),
          "tiled_attention_bwd": (("staged", "streamed"), "gather")}
 
 

@@ -19,7 +19,7 @@ SHAPES = [
     (5, 12, 64, 2, 16, 32, 2),
     (9, 30, 64, 20, 20, 200, 8),     # 20 x 20 at title length 30
     (7, 20, 400, 20, 20, 200, 8),    # 20 x 20 at history length 20 (user tower)
-    (5, 50, 64, 2, 32, 300, 5),      # T 50 (history 50), A 300: the kernels' wide instance
+    (5, 50, 64, 2, 32, 300, 5),      # T 50 (history 50), A 300: the wide instance's shape
     (3, 33, 128, 2, 64, 300, 3),     # T 33, head width 64, A 300
 ]
 
@@ -167,18 +167,20 @@ def test_pack_weights_takes_the_wide_domain(head_dim, a):
 
 
 @pytest.mark.parametrize("t,d,heads,a,limit", [
-    (1, 64, 2, 32, "narrow"), (64, 64, 2, 32, "wide"), (50, 400, 20, 200, "wide"),
-    (33, 128, 2, 512, "wide"), (64, 512, 8, 512, "wide"), (20, 100, 10, 64, "narrow"),
+    (1, 64, 2, 32, "narrow"), (64, 64, 2, 32, "tiled"), (50, 400, 20, 200, "tiled"),
+    (33, 128, 2, 512, "tiled"), (64, 512, 8, 512, "tiled"), (20, 100, 10, 64, "narrow"),
     (0, 64, 2, 32, "T >= 1"), (65, 64, 2, 32, "tiled"),
     (30, 65, 1, 32, "tiled"), (30, 130, 2, 32, "tiled"),
     (30, 64, 2, 513, "tiled"), (30, 64, 3, 32, "not divisible"),
+    (20, 128, 2, 32, "wide"), (32, 64, 2, 300, "wide"),
 ])
 def test_check_shape_pins_the_domain(t, d, heads, a, limit):
     """The shape check both wrappers call before any launch takes every
     T >= 1, head width and attention width, and each shape its route: T,
     head widths and padded attention widths the instances took stay on
-    them; past T 64, head width 64 or A 512 the tiled route takes it. What
-    is left of the old limits: T >= 1, and heads that split D."""
+    them at T <= 32; past T 32, head width 64 or A 512 the tiled route
+    takes it. What is left of the old limits: T >= 1, and heads that split
+    D."""
     if limit in ("narrow", "wide", "tiled"):
         port.check_shape(d=d, num_heads=heads, a=a, t=t)
         assert port.route(t, d // heads, -(-a // 16) * 16) == limit
@@ -190,13 +192,15 @@ def test_check_shape_pins_the_domain(t, d, heads, a, limit):
 @pytest.mark.parametrize("t", [64, 65, 50])
 def test_both_wrappers_check_t_before_any_launch(t):
     """``_check_x``, which the forward and backward wrappers call before
-    their first launch, passes T past 64 now (the tiled route takes it) and
-    refuses T 0, naming the limit; past T 32 a block holds one article."""
+    their first launch, passes T past 64 now and refuses T 0, naming the
+    limit; past T 32 the tiled route takes the shape, and the wide
+    instance, asked for, holds one article a block up to T 64."""
     _, ws = _inputs(8, 2, t, 16, 2, 8, 16)
     packed = port.pack_weights(*map(torch.from_numpy, ws), num_heads=2,
                                compute_dtype=torch.float32)
     port._check_x(torch.zeros(2, t, 16), packed)
     assert port.articles_per_block(t) == max(1, 64 // t)
-    assert port.route(t, 8, 16) == ("tiled" if t > 64 else "wide")
+    assert port.route(t, 8, 16) == "tiled"
+    assert port.route(t, 8, 16, instance=True) == ("tiled" if t > 64 else "wide")
     with pytest.raises(ValueError, match="T >= 1"):
         port._check_x(torch.zeros(2, 0, 16), packed)

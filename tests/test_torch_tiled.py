@@ -9,9 +9,11 @@ package's Pallas kernel run in interpret mode, and its backward, finished
 by the GEMMs' and reductions' arithmetic, the JAX custom VJP's 7 gradients
 (outputs to 3e-5, gradients to 5e-5: ``tests/ops/test_news_encoder.py:34,
 60``); T1-T4 put together equal ``bwd_core_reference``; the head-group
-packing holds heads past 85 columns; ``route``, ``attention_variant``,
-``pool_variant`` and ``qkv_variant`` at each boundary; NRMS at history 100
-and 200 equals JAX's NRMS through the bridge."""
+packing holds heads past 85 columns; ``route`` (T 33-64 on the tiled
+route at the history-50 user tower's heads; the wide instance by its
+override), ``attention_variant``, ``pool_variant`` (T3's streamed kernel
+past T 128) and ``qkv_variant`` at each boundary; NRMS at history 100 and
+200 equals JAX's NRMS through the bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,11 +53,18 @@ SHAPES = [
     (2, 200, 16, 2, 8, 16, 2, 1),
     (1, 130, 16, 1, 256, 24, 1, 1),
     # either side of T3's resident kernel (``pool_variant``): a_pad 256 and 272, and fp32 D 144
-    # (resident at T 100, A 200) and 152 (chunked)
+    # (resident at T 100, A 200) and 152 (streamed)
     (2, 70, 16, 2, 8, 256, 2, 2),
     (2, 70, 16, 2, 8, 257, 2, 1),
     (1, 100, 16, 2, 72, 200, 1, 1),
     (1, 100, 16, 2, 76, 200, 1, 1),
+    # T3's streamed kernel past T 128 with a_pad <= 256: T 129, 200 (a_pad 256) and 256
+    (2, 129, 16, 2, 8, 200, 2, 1),
+    (2, 200, 16, 2, 8, 256, 2, 2),
+    (1, 256, 16, 2, 8, 64, 1, 1),
+    # T 33-64 on the tiled route (``route``) at the history-50 user tower's heads (20 x 20, A 200)
+    (2, 50, 16, 20, 20, 200, 2, 2),
+    (2, 64, 16, 20, 20, 200, 2, 1),
 ]
 
 
@@ -134,7 +143,7 @@ def test_autograd_function_on_the_tiled_route_matches_jax(monkeypatch, n, t, din
     1e-6 to 1e-5 and a lost partial row would pass the tolerance."""
     routes = []
 
-    def fake_route(packed, t_, din_, force_tiled=False):
+    def fake_route(packed, t_, din_, force_tiled=False, instance=False):
         routes.append((t_, force_tiled))
         return "tiled"
 
@@ -252,9 +261,9 @@ def test_pack_qkv_holds_heads_past_85_columns(heads, head_dim):
 
 
 @pytest.mark.parametrize("t,head_dim,a,smem,expected", [
-    (32, 32, 256, 0, "narrow"), (33, 32, 256, 0, "wide"),
+    (32, 32, 256, 0, "narrow"), (33, 32, 256, 0, "tiled"),
     (32, 33, 256, 0, "wide"), (32, 32, 257, 0, "wide"),
-    (64, 64, 512, 0, "wide"), (65, 64, 512, 0, "tiled"),
+    (64, 64, 512, 0, "tiled"), (65, 64, 512, 0, "tiled"),
     (64, 65, 512, 0, "tiled"), (64, 64, 513, 0, "tiled"),
     (20, 20, 200, 232_448, "narrow"), (20, 20, 200, 232_449, "tiled"),
     (50, 40, 300, 232_449, "tiled"), (1, 1, 1, 0, "narrow"),
@@ -262,9 +271,25 @@ def test_pack_qkv_holds_heads_past_85_columns(heads, head_dim):
 def test_route_at_each_boundary(t, head_dim, a, smem, expected):
     """T, head width and A at 32/33, 64/65, 256/257 and 512/513 (A padded to
     16, as the kernels take it), and a block past the card's 232,448 B of
-    shared memory: the narrow and wide instances keep every shape they
-    took, and the rest takes the tiled route."""
+    shared memory: the narrow instance keeps every shape it took, the wide
+    one those at T <= 32, and the rest (every T past 32) takes the tiled
+    route."""
     assert port.route(t, head_dim, -(-a // 16) * 16, smem) == expected
+
+
+@pytest.mark.parametrize("t,head_dim,a,smem,expected", [
+    (33, 32, 256, 0, "wide"), (50, 20, 200, 0, "wide"), (64, 64, 512, 0, "wide"),
+    (65, 64, 512, 0, "tiled"), (64, 65, 512, 0, "tiled"), (64, 64, 513, 0, "tiled"),
+    (50, 40, 300, 232_449, "tiled"), (20, 20, 200, 0, "narrow"), (32, 64, 300, 0, "wide"),
+])
+def test_route_instance_override_keeps_the_wide_domain(t, head_dim, a, smem, expected):
+    """``instance`` (the checks' and timing tools' override) gives T 33-64
+    back to the wide instance within its limits (T, head width <= 64, A <=
+    512, a block within the shared memory); past them the tiled route, and
+    at T <= 32 the rule's own answer."""
+    assert port.route(t, head_dim, -(-a // 16) * 16, smem, instance=True) == expected
+    assert port.route(t, head_dim, -(-a // 16) * 16, smem) == (
+        expected if t <= 32 or expected == "tiled" else "tiled")
 
 
 @pytest.mark.parametrize("t,head_dim,dtype,backward,expected", [
@@ -309,30 +334,77 @@ def test_attention_variant_at_each_boundary(t, head_dim, dtype, backward, expect
 @pytest.mark.parametrize("t,d,a_pad,dtype,backward,expected", [
     (100, 400, 208, torch.bfloat16, False, "resident"), (100, 400, 208, torch.bfloat16, True,
                                                          "resident"),
-    (100, 408, 208, torch.bfloat16, True, "chunked"), (100, 408, 208, torch.bfloat16, False,
-                                                       "resident"),
+    (100, 408, 208, torch.bfloat16, True, "streamed"), (100, 408, 208, torch.bfloat16, False,
+                                                        "resident"),
     (100, 448, 208, torch.bfloat16, False, "resident"), (100, 456, 208, torch.bfloat16, False,
                                                          "chunked"),
     (128, 64, 64, torch.bfloat16, False, "resident"), (129, 64, 64, torch.bfloat16, False,
-                                                       "chunked"),
+                                                       "streamed"),
     (128, 64, 64, torch.bfloat16, True, "resident"), (129, 64, 64, torch.bfloat16, True,
-                                                      "chunked"),
+                                                      "streamed"),
     (100, 64, 256, torch.bfloat16, True, "resident"), (100, 64, 272, torch.bfloat16, True,
                                                        "chunked"),
     (100, 144, 208, torch.float32, True, "resident"), (100, 152, 208, torch.float32, True,
-                                                       "chunked"),
+                                                       "streamed"),
     (100, 144, 208, torch.float32, False, "resident"), (100, 152, 208, torch.float32, False,
-                                                        "chunked"),
+                                                        "streamed"),
     (1, 1, 16, torch.float32, True, "resident"), (50, 400, 304, torch.bfloat16, False, "chunked"),
+    # the user tower's D 400 in bf16: the resident backward's last T is 112, its forward's 128
+    (112, 400, 208, torch.bfloat16, True, "resident"), (113, 400, 208, torch.bfloat16, True,
+                                                        "streamed"),
+    (128, 400, 208, torch.bfloat16, False, "resident"), (128, 400, 208, torch.bfloat16, True,
+                                                         "streamed"),
 ])
 def test_pool_variant_at_each_boundary(t, d, a_pad, dtype, backward, expected):
     """T3's kernel: resident up to T 128 (128 and 129) and a_pad 256 (256 and
     272) where W_att and its buffers fit a block's 232,448 bytes: at the
     history-100 user tower (D 400, A 200 padded to 208) both directions in
     bf16, the backward's last D (400 in bf16, 144 in fp32) and the
-    forward's (448, 144) and the next width of 8 past each; wider
-    attention chunked."""
+    forward's (448, 144) and the next width of 8 past each, and at D 400
+    the backward's last T (112) and the forward's (128); past the resident
+    kernel the streamed one where its layout fits (T 129, the bf16
+    backward at D 408 or T 113, fp32 D 152), else, and for wider
+    attention, chunked."""
     assert port.pool_variant(t, d, a_pad, dtype, backward) == expected
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("t,d,a_pad,dtype,expected", [
+    # T past 128 at the user tower's D 400, A 200 (padded to 208): streamed
+    (112, 400, 208, torch.bfloat16, "resident"), (129, 400, 208, torch.bfloat16, "streamed"),
+    (200, 400, 208, torch.bfloat16, "streamed"), (208, 400, 208, torch.bfloat16, "streamed"),
+    (512, 400, 208, torch.bfloat16, "streamed"), (1000, 400, 208, torch.bfloat16, "streamed"),
+    # a_pad 256 and 272 at T 200
+    (200, 64, 256, torch.bfloat16, "streamed"), (200, 64, 272, torch.bfloat16, "chunked"),
+    (200, 64, 256, torch.float32, "streamed"), (200, 64, 272, torch.float32, "chunked"),
+    # the widest D at T 200, A 208: bf16 416 (the backward's last), 432 (the forward's), fp32 176
+    (200, 416, 208, torch.bfloat16, "streamed"), (200, 440, 208, torch.bfloat16, "chunked"),
+    (200, 176, 208, torch.float32, "streamed"), (200, 184, 208, torch.float32, "chunked"),
+])
+def test_pool_variant_past_the_resident_kernel(t, d, a_pad, dtype, expected, backward):
+    """T3 past the resident kernel: the streamed kernel at every T past 128
+    (129, 200, 208, 512 and 1,000 at the user tower's D 400) with a_pad up
+    to 256 where its layout fits (W_att, two 128-row chunks of round(o),
+    the article's [T16] arrays): at T 200 and A 200 the widest D is 416 in
+    the bf16 backward, 432 in its forward and 176 in fp32; a_pad 272 and the
+    next D past each take the chunked kernel."""
+    assert port.pool_variant(t, d, a_pad, dtype, backward) == expected
+
+
+@pytest.mark.parametrize("t,d,dtype,backward,last", [
+    (200, 416, torch.bfloat16, True, True), (200, 424, torch.bfloat16, True, False),
+    (200, 432, torch.bfloat16, False, True), (200, 440, torch.bfloat16, False, False),
+    (200, 176, torch.float32, True, True), (200, 184, torch.float32, True, False),
+    (200, 176, torch.float32, False, True), (200, 184, torch.float32, False, False),
+    (1168, 400, torch.bfloat16, True, True), (1169, 400, torch.bfloat16, True, False),
+])
+def test_pool_variant_streamed_plan_limits(t, d, dtype, backward, last):
+    """The streamed plan's limits at A 200 (a_pad 208): each dtype's and
+    direction's last D at T 200 streamed and the next width of 8 chunked
+    (bf16 416 backward, 432 forward; fp32 176), and the bf16 backward's
+    last T at D 400 (1,168; 1,169 rounds up to 1,184 rows of the [T16]
+    arrays)."""
+    assert port.pool_variant(t, d, 208, dtype, backward) == ("streamed" if last else "chunked")
 
 
 @pytest.mark.parametrize("din,dtype,expected", [
