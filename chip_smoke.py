@@ -542,7 +542,7 @@ def qkv_plan_of(n, t, din, d, a, cdt, fwd, head_dim=HEAD_DIM):
     a_pad = -(-a // 16) * 16
     lib = ne._library() if fwd else ne._library_bwd()
     smem = lib.news_encoder_smem_bytes if fwd else lib.news_encoder_bwd_smem_bytes
-    return list(ne.qkv_plan(n, t, din, lambda s: smem(t, d, d // head_dim, a_pad, 1, s),
+    return list(ne.qkv_plan(n, t, din, lambda s: smem(t, d, d // head_dim, a_pad, 1, s, 0),
                             forward=fwd))
 
 
@@ -747,16 +747,297 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
         rec["ms"] = time_ms(run, iters)
         rec["plain_ms"] = time_ms(lambda: ne.bwd_core_reference(
             xin, packed, g, t=t, nv=nv, drop=drop_in, seed=SEED64, keep_prob=keep), 2, warmup=1)
-        flops, nbytes = block_work(nv, t, din, d, heads, a, 2)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peaks[0], peaks)
+        flops, nbytes = block_work(nv, t, din, d, heads, a, xin.element_size())
+        # fp32: its products in 3xTF32 (tf32x3_bound), or by FMA at the fp32 rate
+        rec["bound_ms"], rec["bound_by"] = (
+            bound(flops, nbytes, peaks[0], peaks) if cdt == torch.bfloat16
+            else tf32x3_bound(flops, nbytes, peaks) if ne.fp32_variant(head_dim) == "tf32x3"
+            else bound(flops, nbytes, peaks[1], peaks))
         rec["gflop"], rec["mbytes"] = flops / 1e9, nbytes / 1e6
-        rec["qkv_matmul_ms"] = qkv_matmul_ms(rows, din, packed.wqkv.shape[1], gen, iters)
+        rec["qkv_matmul_ms"] = qkv_matmul_ms(rows, din, packed.wqkv.shape[1], gen, iters, cdt)
     print(f"[block] {name}: K2 per-block {n}x{t}x{din} {rec['dtype']} heads {heads}x{head_dim} "
           f"att {a} n_valid={nv} dropout={drop} plan "
           f"{rec['qkv_plan']} " + " ".join(f"{k}={e:.2e}/{s_:.2e}" for k, (e, s_) in errs.items())
           + (f" ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
              f"({rec['bound_by']}) library: none; QKV product alone, torch.matmul "
              f"ms={rec['qkv_matmul_ms']:.4f}" if timed else ""), flush=True)
+    return rec
+
+
+# [fp32]: K1 and K2's per-block kernel in fp32, their stages on the tensor cores (3xTF32,
+# ``fp32_variant`` "tf32x3") timed in turns against the FMA stages they replaced (the rule patched to
+# "fma"), at the CLI's towers (train_newsrec.py --synthetic: news [512, 30, 300] with 461 valid
+# and dropout 0.2, user [32, 20, 400]) and bench.py's (news [24,064, 30, 1,024] with 22,370
+# valid and dropout 0.2, user [16,384, 20, 400]); 20 x 20 heads, attention 200
+FP32_TIMED = (("cli_news", CLI_BUCKET, T, CLI_EMB, CLI_NV, "rng"), ("cli_user", 32, H, D, None, None),
+              ("news", 24_064, T, EMB, 22_370, "rng"), ("user", TRAIN_BS, H, D, None, None))
+
+
+def tf32x3_bound(flops, nbytes, peaks):
+    """The bound of work done in 3xTF32: three TF32 products for each fp32
+    one, at the dense TF32 rate (half the bf16 rate on every Hopper part:
+    495 TFLOP/s on an H100 SXM), or the bytes, the longer."""
+    return bound(3 * flops, nbytes, peaks[0] / 2, peaks)
+
+
+def fp32_timed(peaks, gen, iters=5) -> list:
+    """[fp32]: at each of ``FP32_TIMED``'s shapes, K1 and K2's per-block
+    kernel on the tensor cores against the FMA stages: their outputs agree
+    (K1 within FP32_ATOL, the per-block kernel's within FP32_GRAD_REL of
+    each output's scale), both routes narrow, then each kernel timed in
+    turns (tf32x3, fma, fma, tf32x3), beside its bounds (3xTF32 and FMA)
+    and torch.matmul of its QKV product alone in fp32 (precision "highest").
+    Returns the records."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    f32, out = torch.float32, []
+    for name, n, t, din, n_valid, drop in FP32_TIMED:
+        x, ws = make_inputs(n, t, din, f32, gen)
+        nv = n if n_valid is None else n_valid
+        keep = KEEP if drop else 1.0
+        dropc = ne.dropout_config(n, t, D, keep, keep, SEED64 if drop else None, None, x.device)
+        packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=f32)
+        xin, _, drop_in = ne.kernel_input(x, nv, dropc)
+        del x
+        g = (torch.randn(n, D, generator=gen, device=DEV) * 1e-2).contiguous()
+        g[nv:] = 0
+        route = ne._route(packed, t, xin.shape[1])
+        check(route == "narrow", f"[fp32] {name}: route {route}, not the narrow instance")
+        k1 = lambda: ne.launch(ne._library(), xin, packed, nv, drop_in, n=n, t=t)
+        kb = lambda: ne.launch_bwd_core(ne._library_bwd(), xin, packed, g, nv, drop_in, n=n, t=t)
+        fma = lambda fn: ruled(fn, "fp32_variant", "fma")
+        rows, blocks = nv * t, -(-nv // ne.articles_per_block(t))
+        before = (ne.fused_news_encoder.tf32x3.launches, ne.launch_bwd_core.tf32x3.launches)
+        o_tc, o_fma = k1(), fma(k1)()
+        err = (o_tc - o_fma).abs().max().item()
+        check(err <= FP32_ATOL, f"[fp32] {name}: K1 tf32x3 against fma {err} > {FP32_ATOL}")
+        b_tc, b_fma = kb(), fma(kb)()
+        errs = {}
+        for nm, u, v, r in zip(("dqkv", "o", "dz", "db_part", "dq_part"), b_tc, b_fma,
+                               (rows, rows, rows, blocks, blocks)):
+            e, sc = (u[:r] - v[:r]).abs().max().item(), v[:r].abs().max().item()
+            errs[nm] = [e, sc]
+            check(e <= FP32_GRAD_REL * max(sc, 1e-30) or e == 0.0,
+                  f"[fp32] {name}: per-block {nm} tf32x3 against fma {e} > {FP32_GRAD_REL} * {sc}")
+        check((ne.fused_news_encoder.tf32x3.launches, ne.launch_bwd_core.tf32x3.launches)
+              == (before[0] + 1, before[1] + 1), f"[fp32] {name}: the tf32x3 stages did not run")
+        del o_tc, o_fma, b_tc, b_fma
+        ms = {"k1": {"tf32x3": [], "fma": []}, "block": {"tf32x3": [], "fma": []}}
+        for kern, fn in (("k1", k1), ("block", kb)):
+            for var in ("tf32x3", "fma", "fma", "tf32x3"):
+                ms[kern][var].append(time_ms(fn if var == "tf32x3" else fma(fn), iters))
+        p_cols = packed.wqkv.shape[1]
+        a_ = xin[:rows]
+        w_ = torch.randn(xin.shape[1], p_cols, generator=gen, device=DEV)
+        mm_ms = time_ms(lambda: a_ @ w_, iters)
+        del w_
+        rec = {"case": name, "shape": [n, t, din], "n_valid": nv, "dropout": drop,
+               "route": route, "k1_tf32x3_vs_fma": err, "block_tf32x3_vs_fma": errs,
+               "ms": ms, "qkv_matmul_ms": mm_ms,
+               "matmul_precision": torch.get_float32_matmul_precision()}
+        for kern, work in (("k1", encoder_work), ("block", block_work)):
+            flops, nbytes = work(nv, t, din, D, HEADS, ATT, 4)
+            rec[f"{kern}_bound_ms"], rec[f"{kern}_bound_by"] = tf32x3_bound(flops, nbytes, peaks)
+            rec[f"{kern}_fma_bound_ms"] = bound(flops, nbytes, peaks[1], peaks)[0]
+        out.append(rec)
+        mean = lambda v: sum(v) / len(v)
+        print(f"[fp32] {name}: {n}x{t}x{din} n_valid={nv} dropout={drop} route {route}; "
+              f"K1 tf32x3 {ms['k1']['tf32x3']} ms, fma {ms['k1']['fma']} "
+              f"({mean(ms['k1']['fma']) / mean(ms['k1']['tf32x3']):.2f}x), bound "
+              f"{rec['k1_bound_ms']:.4f} ({rec['k1_bound_by']}, 3xTF32; FMA "
+              f"{rec['k1_fma_bound_ms']:.4f}); per-block tf32x3 {ms['block']['tf32x3']} ms, fma "
+              f"{ms['block']['fma']} ({mean(ms['block']['fma']) / mean(ms['block']['tf32x3']):.2f}x), "
+              f"bound {rec['block_bound_ms']:.4f} ({rec['block_bound_by']}; FMA "
+              f"{rec['block_fma_bound_ms']:.4f}); torch.matmul of the QKV product, fp32: "
+              f"{mm_ms:.4f} ms; tf32x3 against fma: K1 {err:.2e}, per-block "
+              + " ".join(f"{k}={e:.2e}/{s_:.2e}" for k, (e, s_) in errs.items()), flush=True)
+        del xin, g, packed
+        torch.cuda.empty_cache()
+    return out
+
+
+# A step's launches in fp32 (the NRMS step, the CLI's): K1 and the per-block kernel on the
+# tensor cores for both towers, the backward's GEMMs and reductions as in bf16, no x-mask
+# kernel (fp32 draws the stream-0 mask in K1, the per-block kernel and the dx GEMM)
+FP32_STEP = {"news_encoder_fwd": 2, "news_encoder_bwd": 2, "news_encoder_bwd_block": 2,
+             "news_encoder_bwd_gemm": 6, "news_encoder_bwd_reduce": 8, "news_encoder_bwd_mask": 0,
+             "news_encoder_fwd_tf32x3": 2, "news_encoder_bwd_block_tf32x3": 2,
+             "news_encoder_fwd_fma": 0, "news_encoder_bwd_block_fma": 0}
+FP32_CMP_BS = 4_096  # the fp32 step against the plain path: a batch whose plain step fits
+
+
+def fp32_rest_timed(peaks, gen, iters=10) -> list:
+    """[fp32]: the fp32 kernels not on the tensor cores yet, each
+    against torch.matmul of the same product in fp32 (precision "highest")
+    on the same inputs, beside its bounds (FMA and 3xTF32): K2's GEMM
+    (``bwd_gemm_fma_kernel``) on its three products at the CLI's news shape
+    (dx, dWqkv with the stream-0 mask, dW: the weight gradients' partials
+    summed by ``reduce_rows`` for the check, timed without it), and T1
+    "panel" (the tiled route's QKV product in fp32) at the history-50 user
+    tower [16,384, 50, 400]. Each held against torch.matmul within
+    FP32_GRAD_REL of its scale. Returns the records."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.ops import philox
+
+    f32, out = torch.float32, []
+    rows, p_cols, a_pad = CLI_NV * T, 5 * 256, -(-ATT // 16) * 16
+    k_rows = CLI_BUCKET * T
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    dqkv, w, xin = rnd(k_rows, p_cols) * 1e-2, rnd(CLI_EMB, p_cols) * 0.05, rnd(k_rows, CLI_EMB)
+    o_c, dz = rnd(k_rows, D), rnd(k_rows, a_pad) * 1e-2
+    drop = ne.dropout_config(CLI_BUCKET, T, D, KEEP, KEEP, SEED64, device=DEV)
+    mask = philox.mask(SEED64, philox.STREAM_EMB, rows, CLI_EMB, KEEP, device=DEV)
+    splits = lambda m, n: ne.gemm_splits(m, n, rows)
+    cases = (
+        ("dx_cli_news", lambda: ne.bwd_gemm(dqkv, w, dx=True, rows=rows, drop=drop),
+         lambda: (dqkv[:rows] @ w.T) * mask, 2 * rows * p_cols * CLI_EMB,
+         (rows * p_cols + CLI_EMB * p_cols + rows * CLI_EMB) * 4),
+        ("dwqkv_cli_news_mask", lambda: ne.bwd_gemm(xin, dqkv, dx=False, rows=rows, drop=drop,
+                                                    splits=splits(CLI_EMB, p_cols)),
+         lambda: (xin[:rows] * mask).T @ dqkv[:rows], 2 * rows * p_cols * CLI_EMB,
+         (rows * CLI_EMB + rows * p_cols + CLI_EMB * p_cols) * 4),
+        ("dw_cli_news", lambda: ne.bwd_gemm(o_c, dz, dx=False, rows=rows,
+                                            splits=splits(D, a_pad)),
+         lambda: o_c[:rows].T @ dz[:rows], 2 * rows * D * a_pad,
+         (rows * D + rows * a_pad + D * a_pad) * 4))
+    for name, kern, lib, flops, nbytes in cases:
+        got, ref = kern(), lib()
+        got = got[:rows] if name.startswith("dx") else got.sum(0)
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        check(err <= FP32_GRAD_REL * scale, f"[fp32 gemm] {name}: {err} > {FP32_GRAD_REL} * {scale}")
+        ms, lib_ms = [], []
+        for turn in range(4):  # in turns: kernel, torch.matmul, torch.matmul, kernel
+            (ms if turn in (0, 3) else lib_ms).append(time_ms(kern if turn in (0, 3) else lib, iters))
+        b_ms, b_by = bound(flops, nbytes, peaks[1], peaks)
+        t_ms, t_by = tf32x3_bound(flops, nbytes, peaks)
+        out.append({"case": name, "kernel": "bwd_gemm_fma_kernel", "max_abs_err": err,
+                    "scale": scale, "ms": sum(ms) / 2, "turns_ms": ms,
+                    "library_ms": sum(lib_ms) / 2, "library_turns_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "tf32x3_bound_ms": t_ms})
+        print(f"[fp32 gemm] {name}: K2's fp32 GEMM {ms} ms, torch.matmul (fp32, "
+              f"{torch.get_float32_matmul_precision()}) {lib_ms} ms (in turns); bound "
+              f"{b_ms:.4f} ({b_by}, FMA; 3xTF32 {t_ms:.4f}); max|kernel - torch.matmul| "
+              f"{err:.2e} of {scale:.2e}", flush=True)
+    del dqkv, w, xin, o_c, dz, mask
+    # T1 "panel" in fp32 at the history-50 user tower (the tiled route's fp32 QKV product)
+    n, t = TRAIN_BS, C3_HIST
+    x, ws = make_inputs(n, t, D, f32, gen)
+    packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=f32)
+    xin, _, drop_in = ne.kernel_input(x, n, ne.Dropout())
+    check(ne.qkv_variant(f32) == "panel", "[fp32 t1] fp32 takes T1's panel kernel")
+    kern = lambda: ne.tiled_qkv(xin, packed, drop_in, n=n, t=t, nv=n)
+    lib = lambda: xin @ packed.wqkv
+    err = (kern() - lib()).abs().max().item()
+    scale = lib().abs().max().item()
+    check(err <= FP32_GRAD_REL * scale, f"[fp32 t1] T1 panel: {err} > {FP32_GRAD_REL} * {scale}")
+    ms, lib_ms = [], []
+    for turn in range(4):
+        (ms if turn in (0, 3) else lib_ms).append(time_ms(kern if turn in (0, 3) else lib, iters))
+    flops = 2 * n * t * D * 3 * D
+    nbytes = (n * t * D + 3 * D * D + n * t * packed.wqkv.shape[1]) * 4
+    b_ms, b_by = bound(flops, nbytes, peaks[1], peaks)
+    t_ms, _ = tf32x3_bound(flops, nbytes, peaks)
+    out.append({"case": "t1_panel_user_h50", "kernel": "tiled_qkv_kernel", "max_abs_err": err,
+                "scale": scale, "ms": sum(ms) / 2, "turns_ms": ms, "library_ms": sum(lib_ms) / 2,
+                "library_turns_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "tf32x3_bound_ms": t_ms})
+    print(f"[fp32 t1] T1 panel at [{n}, {t}, {D}] fp32: {ms} ms, torch.matmul {lib_ms} ms (in "
+          f"turns); bound {b_ms:.4f} ({b_by}, FMA; 3xTF32 {t_ms:.4f}); max|T1 - torch.matmul| "
+          f"{err:.2e} of {scale:.2e}", flush=True)
+    del x, xin, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_training(table, peaks) -> dict:
+    """[fp32] NRMS at bench.py's width in fp32 (the JAX package's default
+    dtype): the 250,002 x 1,024 table, title 30, history 20, 20 x 20 heads,
+    attention 200, batch 16,384, npratio 4, dropout 0.2, dedup, Zipf(1.07)
+    draws; one step against the plain path (``step_vs_plain``) on a batch of
+    FP32_CMP_BS, TRAIN_STEPS counted steps (each step's launches as
+    FP32_STEP: K1 and the per-block kernel on the tensor cores), WARM_STEPS
+    timed. Returns its record."""
+    from ebnerd_tpu_torch import bench
+    from ebnerd_tpu_torch.data import Lookup
+    from ebnerd_tpu_torch.models import token_batch
+    from ebnerd_tpu_torch.training import Trainer, TrainerConfig, prep_dedup_batch
+
+    n_steps = 1 + TRAIN_STEPS + 2 + WARM_STEPS
+    all_b = bench.batches(3, n_steps, TRAIN_BS, N_ART + 1, "zipf")
+    cmp_b = bench.batches(4, 1, FP32_CMP_BS, N_ART + 1, "zipf")
+    raws = [{k: v[i] for k, v in all_b.items()} for i in range(n_steps)]
+    t0 = time.perf_counter()
+    preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
+    prep_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    lookup = Lookup.from_values(np.arange(1, N_ART + 1), table[1:])
+    model = full_width_model(torch.float32)
+    check(model.dtype == torch.float32, "[fp32 train] not an fp32 model")
+    trainer = Trainer(model, {"title": lookup.matrix}, token_batch,
+                      TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
+    staged = [trainer.prepare(r) for r in preps]
+    cmp = trainer.prepare(prep_dedup_batch({k: v[0] for k, v in cmp_b.items()}, min_bucket=512))
+    loss_k, loss_p, grad_errs = step_vs_plain(trainer, cmp, "[fp32 train]")
+    del cmp
+    losses, per_step = [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        reset_counts()
+        losses.append(trainer.step(staged[i]).item())
+        per_step.append(read_counts())
+    for c in per_step:
+        check(all(c[k] == v for k, v in FP32_STEP.items()),
+              f"[fp32 train] a step's launches {c}, expected {FP32_STEP}")
+    check(all(math.isfinite(v) for v in losses), f"[fp32 train] non-finite losses {losses}")
+    dt = timed_steps(trainer, staged, 1 + TRAIN_STEPS, WARM_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms, ips = dt / WARM_STEPS * 1e3, TRAIN_BS * WARM_STEPS / dt
+    print(f"[fp32 train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"launches per step {per_step[0]}; warm: {step_ms:.2f} ms/step, {ips:,.0f} "
+          f"impressions/s, peak memory {peak:.2f} GB; host dedup {prep_ms:.2f} ms/batch",
+          flush=True)
+    del trainer, staged, model
+    torch.cuda.empty_cache()
+    return {"batch": TRAIN_BS, "compared_batch": FP32_CMP_BS, "loss_kernels": loss_k,
+            "loss_plain": loss_p, "grad_errors": grad_errs, "losses": losses,
+            "launches_per_step": per_step,
+            "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
+            "step_ms": step_ms, "impressions_per_s": ips, "peak_mem_gb": peak,
+            "host_dedup_ms": prep_ms}
+
+
+def fp32_cli() -> dict:
+    """[fp32] the one-CLI entry point at its default dtype (fp32): NRMS
+    ``--synthetic --use_fused_encoder`` with no ``--dtype``, 1 epoch, each
+    training step's launches as FP32_STEP (``cli_run``), and every fp32
+    launch of the run (validation and scoring too) on the tensor cores.
+    Removes its output directory afterwards."""
+    import shutil
+
+    out = Path(__file__).resolve().parent / "build" / "cli_nrms_fp32"
+    rec, trainer = cli_run("nrms_fp32", ["--model", "nrms", "--synthetic", "--use_fused_encoder",
+                                         "--epochs", "1", "--out_dir", str(out)],
+                           FP32_STEP, tuple(FP32_STEP))
+    check(trainer.model.dtype == torch.float32, "cli nrms_fp32: the CLI's default dtype is not fp32")
+    n = rec["launches"]
+    check(n["news_encoder_fwd_tf32x3"] == n["news_encoder_fwd"] > 2 * rec["steps_per_epoch"]
+          and n["news_encoder_bwd_block_tf32x3"] == n["news_encoder_bwd_block"] > 0
+          and n["news_encoder_fwd_fma"] == n["news_encoder_bwd_block_fma"] == 0,
+          f"cli nrms_fp32: a launch off the tensor cores, or none in validation: {n}")
+    del trainer
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fp32_phase(table, peaks, gen) -> dict:
+    """[fp32]: the two kernels timed on the tensor cores against the
+    FMA stages (``fp32_timed``), the fp32 kernels left as they were against
+    torch.matmul (``fp32_rest_timed``), NRMS trained in fp32 at full width
+    (``fp32_training``), and the CLI at its default dtype (``fp32_cli``)."""
+    t0 = time.perf_counter()
+    rec = {"timed": fp32_timed(peaks, gen), "rest": fp32_rest_timed(peaks, gen),
+           "training": fp32_training(table, peaks), "cli": fp32_cli()}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[fp32] phase in {rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -2857,13 +3138,14 @@ def prep_sparse_every_slot(raw, host_tables, names, vocab_size, min_bucket):
     return dict(raw, emb_uniq=uniq_pad, emb_valid=valid, emb_remap=remap)
 
 
-def full_width_model():
+def full_width_model(dtype=torch.bfloat16):
     """The NRMS step's model, seed 0, the word table scaled to unit size (at
-    bench.py's init the gradients are all ~0: loss = ln 5)."""
+    bench.py's init the gradients are all ~0: loss = ln 5); bf16 unless
+    ``dtype`` says otherwise."""
     from ebnerd_tpu_torch.models import NRMS, HParamsNRMS
 
     model = NRMS(HParamsNRMS(dropout=DROPOUT), vocab_size=VOCAB, word_emb_dim=EMB,
-                 dtype=torch.bfloat16, use_fused_encoder=True, device=DEV, seed=0)
+                 dtype=dtype, use_fused_encoder=True, device=DEV, seed=0)
     with torch.no_grad():
         model.word_embedding.embedding.mul_(EMB_SCALE)
     return model
@@ -5128,6 +5410,9 @@ def main(argv=None) -> int:
         block_case("block_cluster_odd_user", 13, H, D, peaks, gen, timed=False),
         block_case("block_heads_4x10", 9, H, 128, peaks, gen, n_valid=7, drop="rng",
                    timed=False, heads=4, head_dim=10, a=32),
+        # fp32 at the CLI's news shape: the stages on the tensor cores
+        block_case("block_fp32_din300_cli_news", CLI_BUCKET, T, CLI_EMB, peaks, gen,
+                   n_valid=CLI_NV, drop="rng", cdt=torch.float32),
     ]
     record["block_cases"] = blocks
     record["c2"] = c2_phase(peaks, gen)
@@ -5148,6 +5433,8 @@ def main(argv=None) -> int:
     record["training"] = training
     record["sparse"] = sparse_full_width(table, raws, preps, training)
     record["mu_bf16"] = mu_bf16_full_width(table, preps, record["sparse"]["dense_losses"], peaks)
+    release()
+    record["fp32"] = fp32_rec = fp32_phase(table, peaks, gen)
     release()
     record["c3"] = c3 = c3_phase(table, peaks, gen, training["launches_per_step"][0])
     release()
@@ -5349,6 +5636,40 @@ def main(argv=None) -> int:
               "checked": True}, **{k: k3_cases[0][k] for k in keys},
              cases=[{k: c[k] for k in ("case", "shape", "dtype") + keys} for c in k3_cases]),
     ]}
+    # [fp32]: K1 and the per-block kernel with their fp32 stages on the tensor cores, launched by
+    # the fp32 NRMS step (counted steps) and the CLI at its default dtype; timed at the CLI's news
+    # shape (the FMA stages in turns beside them), held against the plain version there
+    f_cli = {r["case"]: r for r in fp32_rec["timed"]}["cli_news"]
+    mean = lambda v: sum(v) / len(v)
+    for name, kern, case, src, line, note in (
+            ("news_encoder_fwd_tf32x3", "k1", by["fp32_din300_cli_news"], "news_encoder.cu", 234,
+             "K1 in fp32, its products (QKV, Q K^T, P V, z = o W_att) in 3xTF32 on mma.sync "
+             "m16n8k8"),
+            ("news_encoder_bwd_block_tf32x3", "block", blocks[-1], "news_encoder_bwd.cu", 529,
+             "K2's per-block kernel in fp32, its products (the forward's again, do, dP, dQ, dV, "
+             "dK) in 3xTF32 on mma.sync m16n8k8")):
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": f"ebnerd_tpu_torch/csrc/{src}",
+            "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}",
+            "launches": fp32_rec["training"]["launches"][name],
+            "launches_cli_fp32": fp32_rec["cli"]["launches"][name],
+            "launches_fma_stages": {"fp32_step": fp32_rec["training"]["launches"][name[:-6] + "fma"],
+                                    "cli_fp32": fp32_rec["cli"]["launches"][name[:-6] + "fma"]},
+            "max_abs_err": case["max_abs_err"], "ms": mean(f_cli["ms"][kern]["tf32x3"]),
+            "plain_ms": case["plain_ms"], "bound_ms": f_cli[f"{kern}_bound_ms"],
+            "bound_by": f_cli[f"{kern}_bound_by"], "library_ms": None,
+            "fma_stages_ms": mean(f_cli["ms"][kern]["fma"]),
+            "fma_bound_ms": f_cli[f"{kern}_fma_bound_ms"], "qkv_matmul_ms": f_cli["qkv_matmul_ms"],
+            "note": note + "; timed at the CLI's news shape [512, 30, 300] (461 valid, dropout "
+                           "0.2) in turns with the FMA stages; bound_ms: 3xTF32 (three TF32 "
+                           "products a product at the TF32 rate); qkv_matmul_ms: torch.matmul of "
+                           "the QKV product alone, fp32 at precision highest",
+            "checked": True,
+            "shapes": {r["case"]: {"ms": r["ms"][kern], "bound_ms": r[f"{kern}_bound_ms"],
+                                   "fma_bound_ms": r[f"{kern}_fma_bound_ms"],
+                                   "qkv_matmul_ms": r["qkv_matmul_ms"]} for r in fp32_rec["timed"]}})
+    check(all(k["launches"] > 0 and k["launches_cli_fp32"] > 0 for k in kernels["kernels"][-2:]),
+          "[fp32] the tensor-core stages never ran on the fp32 step or the CLI")
     for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     # [c3b]: the tiled route's kernels, launched by the history-100 steps and the history-200 ones

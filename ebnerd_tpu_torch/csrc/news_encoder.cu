@@ -8,13 +8,15 @@
 //      kernel's `_bdot` casts. bf16: the QKV stage of
 //      news_encoder_common.cuh (TMA-fed wgmma, fp32 accumulators); x comes
 //      already masked (the wrapper draws the embedding mask once, with
-//      K2's mask kernel, and the backward reuses it). fp32: FMA over a
-//      cp.async pipeline, the stream-0 Philox mask (csrc/philox.cuh)
-//      scaling each staged x chunk before the product, as the TPU kernel
-//      does before its QKV product;
+//      K2's mask kernel, and the backward reuses it). fp32: mma.sync on the
+//      tensor cores in 3xTF32 (news_encoder_common.cuh) over a cp.async
+//      pipeline of x and of the weight's TF32 split, the stream-0 Philox
+//      mask (csrc/philox.cuh) scaling each staged x chunk before the
+//      product, as the TPU kernel does before its QKV product;
 //   2. per-head self-attention of that group (bf16: wmma on 32 x 32 tiles,
 //      one warp per article and head, or in the wide instance mma.sync per
-//      article, head and 16-row query tile; fp32: FMA) with an fp32 softmax over
+//      article, head and 16-row query tile; fp32: 3xTF32 mma.sync per
+//      article, head and 16-row query tile) with an fp32 softmax over
 //      the head's keys (probabilities rounded to the compute dtype before
 //      the product with V, as `_bdot` does), no biases, no output
 //      projection, scale 1/sqrt(head_dim); the attention output o stays
@@ -22,7 +24,8 @@
 //   3. dropout on o: the stream-1 Philox mask, or an external 0/1 mask
 //      [N, T, D] times 1/keep;
 //   4. additive pooling: z = o W (operands in the compute dtype, wmma in
-//      bf16; the wide instance in chunks of 256 columns of W), softmax_t(
+//      bf16, 3xTF32 mma.sync in fp32; the wide instance in chunks of 256
+//      columns of W), softmax_t(
 //      tanh(z + b) . q) (max subtracted, +1e-8 in the denominator) and the
 //      weighted sum of the fp32 o over t.
 // Two instances of the kernel (news_encoder_common.cuh): the narrow one for
@@ -50,6 +53,15 @@
 // series (the attention and the pooling on wmma leave the producer idle,
 // and the ring refills only after each panel's attention), and the
 // weight's L2 traffic divided only by the cluster size.
+// fp32 (the JAX package's default dtype) is bound by the same products at
+// a third of the TF32 tensor-core rate: 3xTF32 keeps an fp32 product's
+// accuracy with three TF32 products (495 / 3 = 165 TFLOP/s on an H100 SXM,
+// 2.5x the 67 of FMA; one TF32 product, about 5e-4 relative, would fail the
+// fp32 checks). Its stages (fp32_variant 1) take each product on mma.sync
+// m16n8k8, each operand split in registers; the FMA stages stay for head widths under 8 and for
+// timing (fp32_variant 0). What is left: the same 64-row blocks, one an SM
+// (the fp32 o tile fills shared memory beside the stages), so a small
+// batch (the CLI's user tower: 11 blocks) leaves most SMs idle.
 
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py). The wrapper validates shapes,
@@ -82,15 +94,16 @@ struct FwdArgs {
   const unsigned long long* seed_dev; // the seed in device memory, or null (dr.key above)
 };
 
-template <typename T, int kCta, bool kWide>
+template <typename T, int kCta, bool kWide, bool kTc>
 __global__ void __launch_bounds__(kCta, 1)
     news_encoder_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap wmap, FwdArgs p) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
+  static_assert(!(kBf && kTc), "kTc: the fp32 stages on the tensor cores");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = kBf ? align_smem(smem_raw) : smem_raw;
   const int t = p.t, d = p.d, din = p.din;
-  const Layout L = make_layout(d, p.a_pad, sizeof(T), p.stages, kWide);
+  const Layout L = make_layout(d, p.a_pad, sizeof(T), p.stages, kWide, kTc);
   unsigned char* R = smem;  // region R starts at the base
   float* o = reinterpret_cast<float*>(smem + L.o);
   float* att = reinterpret_cast<float*>(smem + L.small);
@@ -145,14 +158,24 @@ __global__ void __launch_bounds__(kCta, 1)
     }
     const float* xb = static_cast<const float*>(p.x) + size_t(g0) * t * din;
     const EmbDrop ed{philox::key_at(p.dr.key, p.seed_dev), p.dr.thr_emb, p.dr.inv_emb, g0 * t};
+    const float* wq = static_cast<const float*>(p.wqkv);
     for (int g = 0; g < n_groups; ++g) {
-      if (NE_PHASES & 1)
-        qkv_panel_fp32(xb, rows, din, static_cast<const float*>(p.wqkv) + g * kPanel,
-                       n_groups * kPanel, L, R, ed);
+      const int nh = min(p.gh, p.heads - g * p.gh);
+      if (NE_PHASES & 1) {
+        if constexpr (kTc)
+          qkv_panel_tf32(xb, rows, din, wq + g * kPanel, n_groups * kPanel, L, R, ed);
+        else
+          qkv_panel_fp32(xb, rows, din, wq + g * kPanel, n_groups * kPanel, L, R, ed);
+      }
       csync();
-      if (NE_PHASES & 2)
-        attention_group<T, kWide>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
-                           g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
+      if (NE_PHASES & 2) {
+        if constexpr (kTc)
+          attention_group_tf32<kWide ? 8 : 4>(reinterpret_cast<const float*>(R), L.ldw, o, L.ldf, na, t, hd,
+                               p.gh, g * p.gh, nh, p.scale);
+        else
+          attention_group<T, kWide>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd,
+                                    p.gh, g * p.gh, nh, p.scale, R + L.panel);
+      }
       csync();  // the panel is consumed before R is refilled
     }
   }
@@ -165,11 +188,11 @@ __global__ void __launch_bounds__(kCta, 1)
 
   // 4. pooling projection z = o W_att, pooling weights
   if constexpr (kWide) {
-    pooling_wide<T, float>(o, L.ldf, rows, na, t, d, static_cast<const T*>(p.w_att), p.b_att,
-                           p.q_att, p.a, p.a_pad, L, R, att, wts);
+    pooling_wide<T, float, kTc>(o, L.ldf, rows, na, t, d, static_cast<const T*>(p.w_att),
+                                p.b_att, p.q_att, p.a, p.a_pad, L, R, att, wts);
   } else {
     if (NE_PHASES & 4)
-      pooling_logits<T>(o, rows, d, static_cast<const T*>(p.w_att), p.a_pad, L, R);
+      pooling_logits<T, kTc>(o, rows, d, static_cast<const T*>(p.w_att), p.a_pad, L, R);
     csync();
     pooling_weights<T>(reinterpret_cast<float*>(R), L.ldz, p.b_att, p.q_att, p.a, rows, na, t,
                        att, wts, false);
@@ -193,15 +216,16 @@ inline bool qkv_plan_ok(int din, int stages, int cluster) {
          (cluster == 1 || cluster == 2);
 }
 
-template <typename T, bool kWide>
+template <typename T, bool kWide, bool kTc>
 int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   if (!kBf) p.stages = p.cluster = 1;
-  const Layout L = make_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide);
-  if (L.total > size_t(kSmemLimit) || !layout_fits(L, p.d, p.a_pad, sizeof(T), p.stages, kWide))
+  const Layout L = make_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide, kTc);
+  if (L.total > size_t(kSmemLimit) ||
+      !layout_fits(L, p.d, p.a_pad, sizeof(T), p.stages, kWide, kTc))
     return int(cudaErrorInvalidValue);
   constexpr int kCta = kBf ? kQkvThreads : kThreads;
-  auto kern = news_encoder_fwd_kernel<T, kCta, kWide>;
+  auto kern = news_encoder_fwd_kernel<T, kCta, kWide, kTc>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(L.total));
   if (e != cudaSuccess) return int(e);
@@ -235,8 +259,9 @@ int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
 }
 
 // The shapes the kernel takes (ops/news_encoder.py's check_shape mirrors
-// this), then the instance: the narrow one wherever it fits.
-template <typename T>
+// this), then the instance: the narrow one wherever it fits; fp32 on the
+// tensor cores (3xTF32) when `tc`, else by FMA.
+template <typename T, bool kTc>
 int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   const int hd = p.heads > 0 ? p.d / p.heads : 0;
@@ -246,8 +271,8 @@ int launch(FwdArgs p, int x_rows, cudaStream_t stream) {
       ((p.dr.thr_emb || p.dr.thr_att) && p.din % 4) ||
       (kBf && (p.dr.thr_emb || !qkv_plan_ok(p.din, p.stages, p.cluster))))
     return int(cudaErrorInvalidValue);
-  return is_wide(p.t, hd, p.a_pad) ? launch<T, true>(p, x_rows, stream)
-                                   : launch<T, false>(p, x_rows, stream);
+  return is_wide(p.t, hd, p.a_pad) ? launch<T, true, kTc>(p, x_rows, stream)
+                                   : launch<T, false, kTc>(p, x_rows, stream);
 }
 
 }  // namespace
@@ -256,10 +281,13 @@ extern "C" {
 
 // Shared memory one block needs, in bytes (the wrapper refuses shapes over
 // the limit before launching), with a QKV ring of `stages` stages (bf16),
-// in the instance that (t, head width d / heads, a_pad) takes.
-long long news_encoder_smem_bytes(int t, int d, int heads, int a_pad, int is_bf16, int stages) {
+// in the instance that (t, head width d / heads, a_pad) takes; fp32 with
+// its stages on the tensor cores when tc (fp32_variant 1), else by FMA.
+long long news_encoder_smem_bytes(int t, int d, int heads, int a_pad, int is_bf16, int stages,
+                                  int fp32_variant) {
   const bool wide = is_wide(t, heads > 0 ? d / heads : 0, a_pad);
-  return (long long)make_layout(d, a_pad, is_bf16 ? 2 : 4, stages, wide).total;
+  const bool tc = !is_bf16 && fp32_variant == 1;
+  return (long long)make_layout(d, a_pad, is_bf16 ? 2 : 4, stages, wide, tc).total;
 }
 
 // x [x_rows, din] in the compute dtype (bf16 when is_bf16, else fp32):
@@ -278,6 +306,10 @@ long long news_encoder_smem_bytes(int t, int d, int heads, int a_pad, int is_bf1
 // then takes n_valid = n for its geometry and x_rows = n * t) and seed_dev
 // the 64-bit seed (the key then comes from it, not from seed_lo/seed_hi):
 // what a captured CUDA graph reads anew at each replay.
+// fp32_variant (fp32 only; ops/news_encoder.py's fp32_variant): 1 runs the
+// products on the tensor cores in 3xTF32, 0 by FMA (the first stages, kept
+// for the widths too narrow for a TF32 tile and for timing); any other
+// value is refused.
 // Requires t <= 64, d / heads <= 64, 3 * gh * hd <= 256, a_pad % 16 == 0,
 // a_pad <= 512, din % (16 / elem) == 0, din % 4 == 0 with Philox dropout,
 // 16-byte aligned pointers, and the block's shared memory within the
@@ -288,7 +320,7 @@ int news_encoder_fwd(const void* x, int x_rows, const void* wqkv, const void* w_
                      float scale, int is_bf16, unsigned seed_lo, unsigned seed_hi,
                      const void* seed_dev, unsigned thr_emb, unsigned thr_att, float inv_emb,
                      float inv_att, const void* ext_mask, float inv_ext, int stages, int cluster,
-                     void* stream) {
+                     int fp32_variant, void* stream) {
   const FwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
                   static_cast<float*>(out), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
                   cluster, scale,
@@ -296,7 +328,9 @@ int news_encoder_fwd(const void* x, int x_rows, const void* wqkv, const void* w_
                   static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),
                   static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<bf16>(p, x_rows, s) : launch<float>(p, x_rows, s);
+  if (is_bf16) return launch<bf16, false>(p, x_rows, s);
+  if (fp32_variant != 0 && fp32_variant != 1) return int(cudaErrorInvalidValue);
+  return fp32_variant ? launch<float, true>(p, x_rows, s) : launch<float, false>(p, x_rows, s);
 }
 
 const char* news_encoder_error_string(int code) {

@@ -12,13 +12,16 @@
 //   1. news_encoder_bwd_kernel, one block per 64 rows, as the forward:
 //      recompute QKV panel by panel (bf16: the forward's QKV stage, TMA-fed
 //      wgmma, on the masked x, in clusters of 1 by its measured plan; fp32:
-//      FMA, drawing the stream-0 mask) and the attention, keeping the fp32 o; dropout on o; the pooling forward
+//      the forward's 3xTF32 stage, drawing the stream-0 mask) and the
+//      attention, keeping the fp32 o; dropout on o; the pooling forward
 //      (z, tanh, weights) and backward (dvals = round(o).round(g), datt,
 //      per-block partials of dq = round(tanh)^T round(datt) and db = sum
 //      dz); do = (w g + round(dz) round(W)^T) * mask, kept in the compute
 //      dtype over o; then the attention backward of each (article, head)
 //      on one warp: P, dP = dO V^T, dS, dV = P^T dO, dQ = dS K,
-//      dK = dS^T Q (wmma 32 x 32 tiles in bf16, FMA in fp32). The operands
+//      dK = dS^T Q (wmma 32 x 32 tiles in bf16; fp32: attention_bwd_tf32,
+//      3xTF32 mma.sync by 16-row query and key tiles, with do, z and the
+//      recomputed forward's products the same way). The operands
 //      of every product are rounded to the compute dtype where the TPU
 //      kernel's `_cdot`/`_bdot` round them. It writes per row: dQ|dK|dV in
 //      the packed panel layout (dqkv, compute dtype), round(o) and
@@ -104,6 +107,18 @@ constexpr int kDoRows = 32;  // W_att rows (columns of do) per staged chunk
 // backward takes wpairs (article, head) pairs at a time, each with tiles Q,
 // K, V, P and dS [kRows][wld] in the compute dtype (wld covers T and the
 // head width up to 64).
+// The fp32 stages on the tensor cores (tc) keep, instead of either
+// instance's attention-backward tiles, tc_pairs (article, head) pairs at a
+// time, each Q, K, V, P and dS [TR][TR + 4] fp32 (TR: the instance's T
+// limit, 32 or 64; rows 4 mod 16 words apart for the fragments, see 3xTF32
+// in news_encoder_common.cuh).
+template <bool kWide>
+struct TcTiles {
+  static constexpr int kTR = kWide ? kWideMaxT : kMaxT, kLd = kTR + 4;
+  static constexpr int kPairs = kWide ? 1 : 4;  // narrow: 4 pairs x 2 query tiles = 8 warps
+  static constexpr size_t kPair = size_t(5) * kTR * kLd * 4;
+};
+
 struct BwdLayout {
   Layout f;
   int ldt, ldF, att_warps, wld, wpairs;
@@ -111,9 +126,9 @@ struct BwdLayout {
 };
 
 __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem, int stages,
-                                                     bool wide) {
+                                                     bool wide, bool tc = false) {
   BwdLayout B;
-  B.f = make_layout(d, a_pad, elem, stages, wide);
+  B.f = make_layout(d, a_pad, elem, stages, wide, tc);
   const bool bf = elem == 2;
   B.ldt = bf ? kTileLd : 33;
   B.ldF = bf ? kTileLdF : 33;
@@ -127,7 +142,10 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem,
   B.wpairs = bf ? 2 : 1;
   B.wpair = align128(size_t(5) * kRows * B.wld * elem);
   const size_t pool_bwd = wide ? wchunk : B.dzc + align128(size_t(kRows) * B.f.lda * elem);
-  const size_t att = wide ? B.wpairs * B.wpair : B.att_warps * B.warp_bytes;
+  const size_t att = tc ? (wide ? TcTiles<true>::kPairs * TcTiles<true>::kPair
+                                 : TcTiles<false>::kPairs * TcTiles<false>::kPair)
+                     : wide ? B.wpairs * B.wpair
+                            : B.att_warps * B.warp_bytes;
   const size_t r = smax(smax(B.f.r, pool_bwd), att);
   B.r = bf ? align1024(r) : align128(r);
   B.o = B.r;
@@ -146,15 +164,20 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int d, int a_pad, int elem,
 // rows; wide: per pair Q, K, V, P, dS of up to 64 x 64); o's slot holds o
 // in fp32, later do in the compute dtype; then att, wts, dvals, datt.
 __host__ inline bool bwd_layout_fits(const BwdLayout& B, int d, int a_pad, int elem, int stages,
-                                     bool wide) {
+                                     bool wide, bool tc = false) {
   const Layout& L = B.f;
   const size_t wchunk = size_t(kDoRows) * L.lda * elem;
   const size_t do_prod = 2 * align128(wchunk) + size_t(kWarps) * 256 * 4;
-  const size_t tiles = wide ? size_t(B.wpairs) * 5 * kRows * B.wld * elem
-                            : size_t(B.att_warps) * (4 * 32 * B.ldt * elem + 32 * B.ldF * 4);
+  const size_t tc_tiles = wide ? TcTiles<true>::kPairs * 5 * TcTiles<true>::kTR *
+                                     TcTiles<true>::kLd * 4
+                               : TcTiles<false>::kPairs * 5 * TcTiles<false>::kTR *
+                                     TcTiles<false>::kLd * 4;
+  const size_t tiles = tc     ? tc_tiles
+                       : wide ? size_t(B.wpairs) * 5 * kRows * B.wld * elem
+                              : size_t(B.att_warps) * (4 * 32 * B.ldt * elem + 32 * B.ldF * 4);
   const bool narrow_dz = wide || (B.dzc >= size_t(kRows) * L.ldz * 4 && B.dzc >= do_prod &&
                                   B.r >= B.dzc + size_t(kRows) * L.lda * elem);
-  return layout_fits(L, d, a_pad, elem, stages, wide) && B.wld >= kWideMaxT &&
+  return layout_fits(L, d, a_pad, elem, stages, wide, tc) && B.wld >= kWideMaxT &&
          B.wld >= kWideMaxHeadDim && B.ldt >= 32 && B.ldF >= 32 && B.r >= L.r && B.r >= do_prod &&
          B.r >= tiles && narrow_dz && B.small - B.o >= size_t(kRows) * L.ldf * 4 &&
          B.small - B.o >= size_t(kRows) * L.ldo * elem && B.bars - B.small >= size_t(4) * kRows * 4;
@@ -505,6 +528,139 @@ __device__ void attention_bwd_wide(T* qkv, int P, int col0, const T* doc, int ld
 static_assert(kWideMaxT <= 4 * 16 && kWideMaxHeadDim <= 8 * 8 && kWarps == 2 * 4,
               "a warp's query or key tile of 16 rows, 8 column tiles of 8; 2 pairs x 4 tiles");
 
+// The fp32 attention backward of one head group on the tensor cores
+// (3xTF32, both instances; news_encoder_common.cuh): TcTiles' kPairs
+// (article, head) pairs at a time, their Q, K and V copied from the dqkv
+// scratch into tiles; then pass A, one warp per (pair, 16-row query tile):
+// S and dP = dO V^T (in one loop), P, dS = P (dP - rowsum(P dP)) scale,
+// P and dS to tiles,
+// dQ = dS K (dS's C fragments as the A operand) to the scratch over Q; pass
+// B, one warp per (pair, 16-row key tile): dV = P^T dO and dK = dS^T Q (in
+// one loop, paired k-steps down the tiles' rows) to the scratch over V and
+// K.
+template <bool kWide>
+__device__ void attention_bwd_tf32(float* qkv, int P, int col0, const float* doc, int ldo, int na,
+                                   int t, int hd, int gh, int h0, int nh, float scale,
+                                   unsigned char* R) {
+  using TT = TcTiles<kWide>;
+  constexpr int ld = TT::kLd, kN = TT::kTR / 8;  // key and head tiles of 8 at the most
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4;
+  const int nq = (t + 15) / 16, pairs = na * nh, nkh = (hd + 7) / 8, nkt = (t + 7) / 8;
+  auto tile = [&](int slot, int m) {  // m: 0 Q, 1 K, 2 V, 3 P, 4 dS
+    return reinterpret_cast<float*>(R + slot * TT::kPair) + m * TT::kTR * ld;
+  };
+  auto head = [&](int pair) { return qkv + size_t(pair / nh) * t * P + col0 + pair % nh * hd; };
+  for (int p0 = 0; p0 < pairs; p0 += TT::kPairs) {
+    const int np = min(TT::kPairs, pairs - p0);
+    // Q, K and V of the pairs by cp.async (16 bytes where a head's columns are whole 16-byte
+    // pieces, as they are in the panel layout when hd % 4 == 0), all in flight together
+    const int vec = hd % 4 == 0 ? 4 : 1, hv = hd / vec;
+    for (int i = tid; i < np * 3 * t * hv; i += kThreads) {
+      const int e = i % hv * vec, r = i / hv % t, m = i / (t * hv) % 3, slot = i / (3 * t * hv);
+      float* dst = tile(slot, m) + r * ld + e;
+      const float* src = head(p0 + slot) + size_t(r) * P + m * gh * hd + e;
+      if (vec == 4)
+        cp_async16(dst, src, true);
+      else
+        cp_async4(dst, src);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    csync();
+    for (int it = warp; it < np * nq; it += kWarps) {  // pass A: query tile qt
+      const int slot = it / nq, qt = it % nq, pair = p0 + slot, an = pair / nh, hl = pair % nh;
+      const FMat dO{doc + an * t * ldo + (h0 + hl) * hd, ldo, t, hd, false};
+      float s[kN][4], dp[kN][4], acc[kN][4];
+      warp_mma2_tf32<false>(s, FMat{tile(slot, 0), ld, t, hd, false},
+                            FMat{tile(slot, 1), ld, t, hd, true}, dp, dO,
+                            FMat{tile(slot, 2), ld, t, hd, true}, 16 * qt, nkh, nkt);
+      softmax_rows(s, t, scale, 16 * qt + g < t, 16 * qt + g + 8 < t);
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        d0 += s[j][0] * dp[j][0] + s[j][1] * dp[j][1];
+        d1 += s[j][2] * dp[j][2] + s[j][3] * dp[j][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+        d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        dp[j][0] = s[j][0] * (dp[j][0] - d0) * scale;
+        dp[j][1] = s[j][1] * (dp[j][1] - d0) * scale;
+        dp[j][2] = s[j][2] * (dp[j][2] - d1) * scale;
+        dp[j][3] = s[j][3] * (dp[j][3] - d1) * scale;
+      }
+      store_rows(s, tile(slot, 3), ld, 16 * qt, t, t);
+      store_rows(dp, tile(slot, 4), ld, 16 * qt, t, t);
+      warp_mma_tf32_c(acc, dp, FMat{tile(slot, 1), ld, t, hd, false}, nkt, nkh);
+      store_rows(acc, head(pair), P, 16 * qt, t, hd);  // dQ over Q
+    }
+    csync();
+    for (int it = warp; it < np * nq; it += kWarps) {  // pass B: key tile kt
+      const int slot = it / nq, kt = it % nq, pair = p0 + slot, an = pair / nh, hl = pair % nh;
+      const FMat dO{doc + an * t * ldo + (h0 + hl) * hd, ldo, t, hd, false};
+      float dv[kN][4], dk[kN][4];
+      warp_mma2_tf32<true>(dv, FMat{tile(slot, 3), ld, t, t, true}, dO, dk,
+                           FMat{tile(slot, 4), ld, t, t, true},
+                           FMat{tile(slot, 0), ld, t, hd, false}, 16 * kt, nkt, nkh);
+      store_rows(dv, head(pair) + 2 * gh * hd, P, 16 * kt, t, hd);  // dV over V
+      store_rows(dk, head(pair) + gh * hd, P, 16 * kt, t, hd);      // dK over K
+    }
+    csync();  // the tiles are free for the next pairs
+  }
+}
+
+// K2's do = (w g + round(dz) W^T) * dropout mask on the tensor cores
+// (3xTF32), over o's spent slot (doc [kRows][ldo]): A = round(dz) [rows x
+// a_pad] (dzs, shared or device memory), B = W_att^T read from device
+// memory (every block reads W_att; L2 keeps it); warp w takes the column
+// tiles w, w + 8, w + 16, w + 24 (then 32 on) of 8 columns and the 4 row
+// tiles, and scales its own outputs (the stream-1 mask, or the external
+// one) as it stores them.
+__device__ void do_tf32(const float* dzs, int ldzs, int rows, int a_pad, int d,
+                        const float* __restrict__ w_att, const float* wts,
+                        const float* __restrict__ gm, int g0, int t, int n_valid, int row0,
+                        const philox::Dropout& dr, const float* __restrict__ ext, float inv_ext,
+                        float* doc, int ldo) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int nct = (d + 7) / 8, nk = a_pad / 8;
+  const FMat a{dzs, ldzs, rows, a_pad, false};
+  const FMat b{w_att, a_pad, d, a_pad, true};  // (j, col) = W[col][j]
+  for (int ct0 = warp; ct0 < nct; ct0 += 4 * kWarps) {
+    float acc[4][4][4];
+    warp_mma_4x4_tf32(acc, a, b, ct0, nct, nk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * (ct0 + kWarps * j) + 2 * c;
+      if (col >= d) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * i + g + 8 * h;
+          if (r >= rows) continue;
+          const int art = g0 + r / t;
+          float4 m = make_float4(1.f, 1.f, 1.f, 1.f);
+          if (dr.thr_att)
+            m = philox::mask4(dr.key, uint32_t(row0 + r), uint32_t(col >> 2), 1u, dr.thr_att,
+                              dr.inv_att);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = col + e;
+            if (cc >= d) break;
+            float mj = philox::pick(m, cc & 3);
+            if (!dr.thr_att && ext != nullptr) mj = ext[size_t(row0 + r) * d + cc] * inv_ext;
+            const float gv = art < n_valid ? gm[size_t(art) * d + cc] : 0.f;
+            doc[r * ldo + cc] = (wts[r] * gv + acc[i][j][2 * h + e]) * mj;
+          }
+        }
+    }
+  }
+}
+
 struct BwdArgs {
   const void* x;
   const void* wqkv;
@@ -526,14 +682,15 @@ struct BwdArgs {
   const unsigned long long* seed_dev; // the seed in device memory, or null (dr.key above)
 };
 
-template <typename T, int kCta, bool kWide>
+template <typename T, int kCta, bool kWide, bool kTc>
 __global__ void __launch_bounds__(kCta, 1)
     news_encoder_bwd_kernel(const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap wmap, BwdArgs p) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
+  static_assert(!(kBf && kTc), "kTc: the fp32 stages on the tensor cores");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = kBf ? align_smem(smem_raw) : smem_raw;
-  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide);
+  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide, kTc);
   const Layout& L = B.f;
   unsigned char* R = smem;
   float* o = reinterpret_cast<float*>(smem + B.o);
@@ -587,9 +744,13 @@ __global__ void __launch_bounds__(kCta, 1)
     }
   };
   auto attend = [&](int g) {
-    if (NE_PHASES & 2)
+    if (!(NE_PHASES & 2)) return;
+    if constexpr (kTc)
+      attention_group_tf32<kWide ? 8 : 4>(reinterpret_cast<const float*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
+                           g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale);
+    else
       attention_group<T, kWide>(reinterpret_cast<const T*>(R), L.ldw, o, L.ldf, na, t, hd, p.gh,
-                         g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
+                                g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
   };
   if constexpr (kBf) {
     const int nk = (din + kQkvBK - 1) / kQkvBK;
@@ -629,9 +790,14 @@ __global__ void __launch_bounds__(kCta, 1)
     }
     const float* xb = static_cast<const float*>(p.x) + size_t(row0) * din;
     const EmbDrop ed{dr.key, dr.thr_emb, dr.inv_emb, row0};
+    const float* wq = static_cast<const float*>(p.wqkv);
     for (int g = 0; g < n_groups; ++g) {
-      if (NE_PHASES & 1)
-        qkv_panel_fp32(xb, rows, din, static_cast<const float*>(p.wqkv) + g * kPanel, P, L, R, ed);
+      if (NE_PHASES & 1) {
+        if constexpr (kTc)
+          qkv_panel_tf32(xb, rows, din, wq + g * kPanel, P, L, R, ed);
+        else
+          qkv_panel_fp32(xb, rows, din, wq + g * kPanel, P, L, R, ed);
+      }
       csync();
       keep_panel(g);
       attend(g);
@@ -667,10 +833,10 @@ __global__ void __launch_bounds__(kCta, 1)
   float* hz = reinterpret_cast<float*>(R);
   T* dz_g = static_cast<T*>(p.dz_c) + size_t(row0) * a_pad;
   if constexpr (kWide) {
-    pooling_wide<T, T>(o_c, ldoc, rows, na, t, d, w_att, p.b_att, p.q_att, a, a_pad, L, R, att,
-                       wts);
+    pooling_wide<T, T, kTc>(o_c, ldoc, rows, na, t, d, w_att, p.b_att, p.q_att, a, a_pad, L, R,
+                            att, wts);
   } else if (NE_PHASES & 4) {
-    pooling_logits<T>(o, rows, d, w_att, a_pad, L, R);
+    pooling_logits<T, kTc>(o, rows, d, w_att, a_pad, L, R);
     csync();
     pooling_weights<T>(hz, L.ldz, p.b_att, p.q_att, a, rows, na, t, att, wts, true);
   }
@@ -704,7 +870,7 @@ __global__ void __launch_bounds__(kCta, 1)
   //    recomputed, round(dz) to device memory only)
   if constexpr (kWide) {
     for (int c0 = 0; c0 < ((NE_PHASES & 4) ? a_pad : 0); c0 += kAttChunk) {
-      pooling_logits_chunk<T, T>(o_c, ldoc, rows, d, w_att, a_pad, c0, L, R);
+      pooling_logits_chunk<T, T, kTc>(o_c, ldoc, rows, d, w_att, a_pad, c0, L, R);
       csync();
       const int j = c0 + tid;
       if (tid < min(kAttChunk, a_pad - c0)) {
@@ -764,7 +930,13 @@ __global__ void __launch_bounds__(kCta, 1)
       cp_async16(dst + rr * L.lda + j, r < d ? w_att + size_t(r) * a_pad + j : w_att, r < d);
     }
   };
-  const int n_do = (NE_PHASES & 8) ? (d + kDoRows - 1) / kDoRows : 0;
+  if constexpr (kTc) {
+    if (NE_PHASES & 8)
+      do_tf32(dzs, ldzs, rows, a_pad, d, w_att, wts, p.g, g0, t, n_valid, row0, dr, p.ext_mask,
+              p.inv_ext, doc, L.ldo);
+    csync();
+  }
+  const int n_do = (NE_PHASES & 8) && !kTc ? (d + kDoRows - 1) / kDoRows : 0;
   pipeline<2>(n_do, issue_w, [&](int kc, int s) {
     const int c0 = kc * kDoRows;
     const T* ws = wsc(s);
@@ -816,7 +988,10 @@ __global__ void __launch_bounds__(kCta, 1)
 
   // 7. attention backward, head group by head group
   for (int g = 0; g < ((NE_PHASES & 16) ? n_groups : 0); ++g) {
-    if constexpr (kWide)
+    if constexpr (kTc)
+      attention_bwd_tf32<kWide>(qkv, P, g * kPanel, doc, L.ldo, na, t, hd, p.gh, g * p.gh,
+                                min(p.gh, p.heads - g * p.gh), p.scale, R);
+    else if constexpr (kWide)
       attention_bwd_wide<T>(qkv, P, g * kPanel, doc, L.ldo, na, t, hd, p.gh, g * p.gh,
                             min(p.gh, p.heads - g * p.gh), p.scale, R, B);
     else
@@ -1278,16 +1453,16 @@ __global__ void __launch_bounds__(256) reduce_rows_kernel(const float* __restric
     reinterpret_cast<Vec*>(out + blockIdx.y * ncols)[g] = *reinterpret_cast<const Vec*>(a);
 }
 
-template <typename T, bool kWide>
+template <typename T, bool kWide, bool kTc>
 int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   if (!kBf) p.stages = p.cluster = 1;
-  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide);
+  const BwdLayout B = make_bwd_layout(p.d, p.a_pad, sizeof(T), p.stages, kWide, kTc);
   if (B.total > size_t(kSmemLimit) ||
-      !bwd_layout_fits(B, p.d, p.a_pad, sizeof(T), p.stages, kWide))
+      !bwd_layout_fits(B, p.d, p.a_pad, sizeof(T), p.stages, kWide, kTc))
     return int(cudaErrorInvalidValue);
   constexpr int kCta = kBf ? kQkvThreads : kThreads;
-  auto kern = news_encoder_bwd_kernel<T, kCta, kWide>;
+  auto kern = news_encoder_bwd_kernel<T, kCta, kWide, kTc>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(B.total));
   if (e != cudaSuccess) return int(e);
@@ -1321,8 +1496,9 @@ int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
 }
 
 // The shapes the per-block kernel takes (ops/news_encoder.py's check_shape
-// mirrors this), then the instance: the narrow one wherever it fits.
-template <typename T>
+// mirrors this), then the instance: the narrow one wherever it fits; fp32
+// on the tensor cores (3xTF32) when kTc, else by FMA.
+template <typename T, bool kTc>
 int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   const int hd = p.heads > 0 ? p.d / p.heads : 0;
@@ -1334,8 +1510,8 @@ int launch_core(BwdArgs& p, int x_rows, cudaStream_t stream) {
                p.stages > nk ||
                (p.cluster != 1 && p.cluster != 2))))
     return int(cudaErrorInvalidValue);
-  return is_wide(p.t, hd, p.a_pad) ? launch_core<T, true>(p, x_rows, stream)
-                                   : launch_core<T, false>(p, x_rows, stream);
+  return is_wide(p.t, hd, p.a_pad) ? launch_core<T, true, kTc>(p, x_rows, stream)
+                                   : launch_core<T, false, kTc>(p, x_rows, stream);
 }
 
 template <bool kDx, int kWStages>
@@ -1422,9 +1598,10 @@ int reduce_pass(const float* part, int nrows, long long ncols, int rows_per_chun
 extern "C" {
 
 long long news_encoder_bwd_smem_bytes(int t, int d, int heads, int a_pad, int is_bf16,
-                                      int stages) {
+                                      int stages, int fp32_variant) {
   const bool wide = is_wide(t, heads > 0 ? d / heads : 0, a_pad);
-  return (long long)make_bwd_layout(d, a_pad, is_bf16 ? 2 : 4, stages, wide).total;
+  const bool tc = !is_bf16 && fp32_variant == 1;
+  return (long long)make_bwd_layout(d, a_pad, is_bf16 ? 2 : 4, stages, wide, tc).total;
 }
 
 // The per-block backward kernel. Inputs as news_encoder_fwd (x [x_rows,
@@ -1437,7 +1614,7 @@ long long news_encoder_bwd_smem_bytes(int t, int d, int heads, int a_pad, int is
 // With nv_dev (n_valid in device memory; the launch passes n_valid = n and
 // x_rows = n * t) the blocks past it write zero partials too, and zeros into
 // their rows below the 64-row edge after the last valid row; seed_dev: as
-// news_encoder_fwd.
+// news_encoder_fwd; fp32_variant too (1: 3xTF32 on the tensor cores, 0: FMA).
 int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const void* w_att,
                           const void* b_att, const void* q_att, const void* g, void* qkv,
                           void* o_c, int ldoc, void* dz_c, void* db_part, void* dq_part, int n,
@@ -1445,7 +1622,8 @@ int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const voi
                           const void* nv_dev, float scale, int is_bf16, unsigned seed_lo,
                           unsigned seed_hi, const void* seed_dev, unsigned thr_emb,
                           unsigned thr_att, float inv_emb, float inv_att, const void* ext_mask,
-                          float inv_ext, int stages, int cluster, void* stream) {
+                          float inv_ext, int stages, int cluster, int fp32_variant,
+                          void* stream) {
   BwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
             static_cast<const float*>(g), qkv, o_c, dz_c, static_cast<float*>(db_part),
             static_cast<float*>(dq_part), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
@@ -1453,7 +1631,9 @@ int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const voi
             static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),
             static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_core<bf16>(p, x_rows, s) : launch_core<float>(p, x_rows, s);
+  if (is_bf16) return launch_core<bf16, false>(p, x_rows, s);
+  if (fp32_variant != 0 && fp32_variant != 1) return int(cudaErrorInvalidValue);
+  return fp32_variant ? launch_core<float, true>(p, x_rows, s) : launch_core<float, false>(p, x_rows, s);
 }
 
 // is_dx: out [M, N] (compute dtype) = A [M, K] (row stride lda) times

@@ -1,8 +1,9 @@
 // Device code shared by the fused NRMS news encoder's forward
 // (news_encoder.cu) and its recompute backward (news_encoder_bwd.cu): the
 // block layout, the QKV stage (bf16: TMA-fed wgmma, see below; fp32: a
-// cp.async pipeline and FMA, with the embedding-dropout mask applied to x
-// as it is staged), the per-head attention of one panel, the
+// cp.async pipeline and 3xTF32 mma.sync, see "3xTF32", or FMA,
+// with the embedding-dropout mask applied to x as it is staged), the
+// per-head attention of one panel, the
 // attention-output dropout and the pooling projection. See news_encoder.cu
 // for the design of the forward.
 //
@@ -81,6 +82,13 @@ constexpr int kWideMaxT = 64;
 constexpr int kWideMaxHeadDim = 64;
 constexpr int kWideMaxAtt = 512;
 constexpr int kAttChunk = 256;      // pooling columns per chunk (one per thread)
+// The fp32 QKV stage on the tensor cores (qkv_panel_tf32): chunks of 32 k
+// through kStages cp.async stages, x [kRows][kTcLdx] and the weight
+// [kTcKc][kTcLdw], rows 4 mod 8 and 8 mod 32 words apart (the A and B
+// fragments' conflict-free strides)
+constexpr int kTcKc = kChunkBytes / 4;
+constexpr int kTcLdx = kTcKc + 4;
+constexpr int kTcLdw = kPanel + 8;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block can use on sm_90
 // bf16 attention: per warp, Q, K and V of one (article, head) zero-padded
 // to 32 x 32 ([32][kTileLd] bf16); the logits, probabilities and output
@@ -131,14 +139,18 @@ __host__ __device__ constexpr size_t smax(size_t a, size_t b) { return a > b ? a
 // bf16 offsets are from the dynamic shared memory's start rounded up to
 // 1,024 bytes (the swizzled TMA boxes' alignment); `total` includes that
 // slack. o's rows are ldf = d | 1 floats apart: odd, so column writes do
-// not collide in a bank.
+// not collide in a bank. The fp32 stages on the tensor cores (`tc`, see
+// "3xTF32" below) read mma.sync fragments instead: a fragment's 8 rows x 4
+// columns fall in 32 distinct banks where a row stride is 4 mod 8 words (o:
+// ldf = D rounded up to 8, + 4; the panel's 260), and its QKV stage's
+// weight chunk [32][kTcLdw] 8 mod 32 (kTcLdw above).
 struct Layout {
   int ldx, ldw, ldo, lda, ldz, ldf, kc, d_pad, ldc, ldoc;
   size_t stage, xs_bytes, panel, pool_w, pool_wc, pool_stage, r, o, small, bars, total;
 };
 
 __host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int stages,
-                                              bool wide) {
+                                              bool wide, bool tc = false) {
   const bool bf = elem == 2;
   const int ve = 16 / elem;
   const int ac = a_pad < kAttChunk ? a_pad : kAttChunk;  // wide: a column chunk's width
@@ -150,11 +162,11 @@ __host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int st
   L.ldo = L.d_pad + ve;
   L.lda = a_pad + ve;
   L.ldz = (wide ? ac : a_pad) + 4;
-  L.ldf = d | 1;
+  L.ldf = tc ? (d + 7) / 8 * 8 + 4 : d | 1;
   L.ldc = ac + ve;
   L.ldoc = kPoolRows + ve;
   L.xs_bytes = align128(size_t(kRows) * L.ldx * elem);
-  L.stage = L.xs_bytes + align128(size_t(L.kc) * L.ldw * elem);
+  L.stage = L.xs_bytes + align128(size_t(L.kc) * (tc ? kTcLdw : L.ldw) * elem);
   L.panel = align128(size_t(kRows) * L.ldw * elem);
   L.pool_w = align128(size_t(kPoolRows) * (wide ? ac : L.lda) * elem);
   L.pool_wc = align128(size_t(kPoolRows) * L.ldc * elem);
@@ -181,11 +193,12 @@ __host__ __device__ inline Layout make_layout(int d, int a_pad, int elem, int st
 // tiles), the pooling product's staging and z; o's slot the fp32 o; the
 // small arrays att and wts.
 __host__ inline bool layout_fits(const Layout& L, int d, int a_pad, int elem, int stages,
-                                 bool wide) {
+                                 bool wide, bool tc = false) {
   const bool bf = elem == 2;
   const int zc = wide ? (a_pad < kAttChunk ? a_pad : kAttChunk) : a_pad;  // z's columns
   const size_t qkv = bf ? size_t(stages) * kQkvStage
-                        : kStages * (size_t(kRows) * L.ldx * elem + size_t(L.kc) * L.ldw * elem);
+                     : kStages * (size_t(kRows) * L.ldx * elem +
+                                  size_t(L.kc) * (tc ? kTcLdw : L.ldw) * elem);
   const size_t att = size_t(kRows) * L.ldw * elem + (bf && !wide ? kWarps * kAttWarpBytes : 0);
   size_t pool = size_t(kPoolRows) * zc * elem;  // fp32: the W_att chunk
   if (bf && wide)
@@ -233,6 +246,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+// 4-byte asynchronous copy global -> shared (both 4-byte aligned).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
@@ -653,16 +671,17 @@ __device__ __forceinline__ void warp_mma_rows(float (&acc)[8][4], const Mat& a, 
 }
 
 // The softmax over keys [0, t) of the 16 query rows a warp holds as C
-// fragments s (raw Q K^T over 8 key tiles), in place: p = exp(s scale -
+// fragments s (raw Q K^T over N key tiles), in place: p = exp(s scale -
 // max) / sum in fp32, 0 past t and on rows at or past row_lim (rows g and
 // g + 8 of the tile are live when below it). As the narrow bf16 softmax:
 // exp2 and a reciprocal (see kLog2e).
-__device__ __forceinline__ void softmax_rows(float (&s)[8][4], int t, float scale, bool live0,
+template <int N>
+__device__ __forceinline__ void softmax_rows(float (&s)[N][4], int t, float scale, bool live0,
                                              bool live1) {
   const int c = threadIdx.x % 4;
   float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool in = 8 * j + 2 * c + e < t;
@@ -678,7 +697,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int t, float scal
   }
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       s[j][e] = exp2f(s[j][e] - m0);
@@ -693,7 +712,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int t, float scal
   }
   const float i0 = live0 ? 1.f / s0 : 0.f, i1 = live1 ? 1.f / s1 : 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N; ++j) {
     s[j][0] *= i0;
     s[j][1] *= i0;
     s[j][2] *= i1;
@@ -701,14 +720,14 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int t, float scal
   }
 }
 
-// C fragments f (16 x 64: rows r0 + g, r0 + g + 8; 8 column tiles) to
+// C fragments f (16 x 8 N: rows r0 + g, r0 + g + 8; N column tiles) to
 // fp32 or bf16 storage (row stride ld), rows below rlim, columns below clim.
-template <typename S>
-__device__ __forceinline__ void store_rows(const float (&f)[8][4], S* dst, int ld, int r0,
+template <typename S, int N>
+__device__ __forceinline__ void store_rows(const float (&f)[N][4], S* dst, int ld, int r0,
                                            int rlim, int clim) {
   const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * j + 2 * c + e;
@@ -961,6 +980,370 @@ __device__ void attention_group(const T* qkv, int ldp, float* o, int ldf, int na
   }
 }
 
+// ---- fp32 on the tensor cores: 3xTF32 ----
+// The fp32 instance's products run on mma.sync m16n8k8 with TF32 operands
+// and fp32 accumulators. One TF32 product keeps 10 mantissa bits of each
+// operand (about 5e-4 relative), so each fp32 operand v is split into a
+// TF32 high part hi = rna(v) and a TF32 remainder lo = rna(v - hi)
+// (round to nearest, ties away from zero: tf32_rna), and a product
+// sums lo*hi + hi*lo + hi*hi into the accumulator (lo*lo, under 2^-22 of the
+// product, is dropped): close to an fp32 product at a third of the TF32
+// rate (495 / 3 = 165 TFLOP/s on an H100 SXM against 67 by FMA). The plain
+// version is ops/news_encoder.py's tf32_matmul. Fragment layouts (PTX ISA,
+// mma.m16n8k8 with .tf32): lane = 4 g + c; A (16 x 8) {(g, c), (g + 8, c),
+// (g, c + 4), (g + 8, c + 4)}, B (8 x 8) {(c, g), (c + 4, g)}, C (16 x 8)
+// {(g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1)}. The order of the 8
+// k-indices of a k-step is free as long as A and B agree: "paired" k-steps
+// give slots c and c + 4 the indices 2c and 2c + 1, so that a C fragment's
+// 8 columns are an A fragment as they lie (P V, dS K: no shuffle), and a
+// fragment read down a matrix's rows (P^T dO) takes 2c * ld + g, no bank
+// conflict where the row stride is 4 mod 16 words.
+
+// rna(v) as cvt.rna.tf32.f32 rounds every finite v: half a TF32 unit added
+// to the magnitude bits, the 13 low bits cleared (ops/news_encoder.py's
+// tf32_round). sm_90a expands cvt.rna.tf32.f32 with a test for infinities
+// and NaN around the same two operations: the kernels were 8-10% slower
+// with it on an H100, to the same bits (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// An A (16 x 8) or B (8 x 8) fragment of N values split into hi and lo.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+using FragA = Frag<4>;
+using FragB = Frag<2>;
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&v)[N], Frag<N>& f) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.hi[i] = tf32_rna(v[i]);
+    f.lo[i] = tf32_rna(v[i] - __uint_as_float(f.hi[i]));
+  }
+}
+
+__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_1688(d, a.lo, b.hi);
+  mma_1688(d, a.hi, b.lo);
+  mma_1688(d, a.hi, b.hi);
+}
+
+// An fp32 matrix of rows x cols at p (row stride ld, shared or device
+// memory), read as its logical (i, j) = stored (i, j), or stored (j, i) when
+// tr; zero outside it.
+struct FMat {
+  const float* p;
+  int ld, rows, cols;
+  bool tr;
+  __device__ __forceinline__ float at(int i, int j) const {
+    const int r = tr ? j : i, c = tr ? i : j;
+    return r < rows && c < cols ? p[r * ld + c] : 0.f;
+  }
+};
+
+// The k-indices of this lane's two slots of the k-step at k0 (see above).
+template <bool kPaired>
+__device__ __forceinline__ int2 k_slots(int k0) {
+  const int c = threadIdx.x % 4;
+  return kPaired ? make_int2(k0 + 2 * c, k0 + 2 * c + 1) : make_int2(k0 + c, k0 + c + 4);
+}
+
+// The A fragment of logical rows [m0, m0 + 16) at the k-step k0, and the B
+// fragment of the k-step k0 and columns [n0, n0 + 8), split.
+template <bool kPaired>
+__device__ __forceinline__ void load_a(const FMat& m, int m0, int k0, FragA& f) {
+  const int g = threadIdx.x % 32 / 4;
+  const int2 k = k_slots<kPaired>(k0);
+  const float v[4] = {m.at(m0 + g, k.x), m.at(m0 + g + 8, k.x), m.at(m0 + g, k.y),
+                      m.at(m0 + g + 8, k.y)};
+  split_tf32(v, f);
+}
+template <bool kPaired>
+__device__ __forceinline__ void load_b(const FMat& m, int k0, int n0, FragB& f) {
+  const int g = threadIdx.x % 32 / 4;
+  const int2 k = k_slots<kPaired>(k0);
+  const float v[2] = {m.at(k.x, n0 + g), m.at(k.y, n0 + g)};
+  split_tf32(v, f);
+}
+
+// acc [16 x 8 N] (N column tiles of 8) = A [16 x K] B [K x 8 N] over nk
+// k-steps of 8 and the column tiles below nn; A's rows from a at m0. N is
+// the instance's most tiles (4 at T and head widths up to 32, else 8).
+template <bool kPaired, int N>
+__device__ __forceinline__ void warp_mma_tf32(float (&acc)[N][4], const FMat& a, int m0,
+                                              const FMat& b, int nk, int nn) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int kk = 0; kk < nk; ++kk) {
+    FragA fa;
+    load_a<kPaired>(a, m0, 8 * kk, fa);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j < nn) {
+        FragB fb;
+        load_b<kPaired>(b, 8 * kk, 8 * j, fb);
+        mma_3xtf32(acc[j], fa, fb);
+      }
+    }
+  }
+}
+
+// Two products of one shape in one loop, for twice the independent work a
+// warp has in flight: acc0 = A0 B0 and acc1 = A1 B1 (as warp_mma_tf32).
+template <bool kPaired, int N>
+__device__ __forceinline__ void warp_mma2_tf32(float (&acc0)[N][4], const FMat& a0,
+                                               const FMat& b0, float (&acc1)[N][4],
+                                               const FMat& a1, const FMat& b1, int m0, int nk,
+                                               int nn) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[j][e] = acc1[j][e] = 0.f;
+  for (int kk = 0; kk < nk; ++kk) {
+    FragA fa0, fa1;
+    load_a<kPaired>(a0, m0, 8 * kk, fa0);
+    load_a<kPaired>(a1, m0, 8 * kk, fa1);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j < nn) {
+        FragB fb0, fb1;
+        load_b<kPaired>(b0, 8 * kk, 8 * j, fb0);
+        load_b<kPaired>(b1, 8 * kk, 8 * j, fb1);
+        mma_3xtf32(acc0[j], fa0, fb0);
+        mma_3xtf32(acc1[j], fa1, fb1);
+      }
+    }
+  }
+}
+
+// acc [16 x 8 N] = S [16 x K] B [K x 8 N], S given as the C fragments s of
+// its N column tiles (probabilities or dS: A operands as they lie, by
+// paired k-steps), over nk k-steps and the column tiles below nn.
+template <int N>
+__device__ __forceinline__ void warp_mma_tf32_c(float (&acc)[N][4], const float (&s)[N][4],
+                                                const FMat& b, int nk, int nn) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) {
+    if (kk >= nk) break;
+    const float v[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+    FragA fa;
+    split_tf32(v, fa);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j < nn) {
+        FragB fb;
+        load_b<true>(b, 8 * kk, 8 * j, fb);
+        mma_3xtf32(acc[j], fa, fb);
+      }
+    }
+  }
+}
+
+// fp32 QKV stage on the tensor cores: one head group's Q|K|V = x_block *
+// emb mask @ wqkv[:, panel], written to the start of R ([kRows][ldw]), as
+// qkv_panel_fp32 stages it (cp.async, 32-deep chunks, the x mask on each
+// staged x chunk); warp (wm, wn) = (warp / 4, warp % 4) takes rows
+// 32 wm + [0, 32) and columns 64 wn + [0, 64): 2 x 8 tiles of 16 x 8,
+// both operands split in registers. On an H100 this beat, in turns, 3-
+// and 4-stage rings of 24- and 16-deep chunks (within 2-9%) and the
+// weight split once on the host and staged as (hi, lo) pairs K-major
+// (16-byte B fragments, no B split, but twice the weight's bytes: 11-23%
+// slower); warp pairs taking alternate k-steps of 64 x 64 tiles gained
+// 1-3% and were not kept (PERF.md).
+__device__ void qkv_panel_tf32(const float* __restrict__ xb, int rows, int din,
+                               const float* __restrict__ wp, int np_cols, const Layout& L,
+                               unsigned char* R, const EmbDrop& ed) {
+  using T = float;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int nk = (din + kTcKc - 1) / kTcKc;
+  auto xs = [&](int s) { return reinterpret_cast<T*>(R + s * L.stage); };
+  auto ws = [&](int s) { return reinterpret_cast<T*>(R + s * L.stage + L.xs_bytes); };
+  auto issue = [&](int kc, int s) {
+    const int k0 = kc * kTcKc;
+    T* x_s = xs(s);
+    T* w_s = ws(s);
+    for (int i = tid; i < kRows * (kTcKc / 4); i += kThreads) {
+      const int r = i / (kTcKc / 4), cc = i % (kTcKc / 4) * 4, k = k0 + cc;
+      const bool ok = r < rows && k < din;
+      cp_async16(x_s + r * kTcLdx + cc, ok ? xb + size_t(r) * din + k : xb, ok);
+    }
+    for (int i = tid; i < kTcKc * (kPanel / 4); i += kThreads) {
+      const int kr = i / (kPanel / 4), cc = i % (kPanel / 4) * 4, k = k0 + kr;
+      const bool ok = k < din;
+      cp_async16(w_s + kr * kTcLdw + cc, ok ? wp + size_t(k) * np_cols + cc : wp, ok);
+    }
+  };
+  const int r0 = 32 * (warp / 4), n0 = 64 * (warp % 4);
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  pipeline<kStages>(nk, issue, [&](int kc, int s) {
+    if (ed.thr) {
+      mask_x_tile<T>(xs(s), kTcLdx, rows, kRows, kc * kTcKc, kTcKc, din, ed);
+      csync();
+    }
+    const T* x_s = xs(s) + (r0 + g) * kTcLdx + c;
+    const T* w_s = ws(s) + c * kTcLdw + n0 + g;
+#pragma unroll
+    for (int kk = 0; kk < kTcKc; kk += 8) {
+      FragA fa[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const T* xa = x_s + 16 * i * kTcLdx + kk;
+        const float v[4] = {xa[0], xa[8 * kTcLdx], xa[4], xa[8 * kTcLdx + 4]};
+        split_tf32(v, fa[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const T* wb = w_s + kk * kTcLdw + 8 * j;
+        const float v[2] = {wb[0], wb[4 * kTcLdw]};
+        FragB fb;
+        split_tf32(v, fb);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_3xtf32(acc[i][j], fa[i], fb);
+      }
+    }
+  });
+  T* qkv = reinterpret_cast<T*>(R);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      T* dst = qkv + (r0 + 16 * i + g) * L.ldw + n0 + 8 * j + 2 * c;
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(dst + 8 * L.ldw) = make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+static_assert(kRows == 2 * 32 && kPanel == 4 * 64 && kTcKc % 8 == 0 && kTcLdx % 8 == 4 &&
+                  kTcLdw % 32 == 8,
+              "fp32 QKV on the tensor cores: 2 x 4 warps of 32 x 64, whole k-steps per chunk, "
+              "conflict-free fragment loads");
+
+// fp32 attention of one head group on the tensor cores (both instances):
+// one warp per (article, head, 16-row query tile), as attention_group_wide;
+// S = Q K^T over up to 64 keys, the softmax in registers (softmax_rows: its
+// exp2 and reciprocal are within a few fp32 ulp of expf and a division), O =
+// P V with P's C fragments as the A operand; Q, K and V read from the panel,
+// zero past t rows and hd columns; N key and head tiles of 8 at the most.
+template <int N>
+__device__ void attention_group_tf32(const float* qkv, int ldp, float* o, int ldf, int na, int t,
+                                     int hd, int gh, int h0, int nh, float scale) {
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4;
+  const int nq = (t + 15) / 16, nkh = (hd + 7) / 8, nkt = (t + 7) / 8;
+  for (int it = warp; it < na * nh * nq; it += kWarps) {
+    const int qt = it % nq, hl = it / nq % nh, an = it / (nq * nh);
+    const float* base = qkv + size_t(an) * t * ldp;
+    const FMat q{base + hl * hd, ldp, t, hd, false};
+    const FMat kt{base + (gh + hl) * hd, ldp, t, hd, true};  // K^T: (e, key)
+    const FMat v{base + (2 * gh + hl) * hd, ldp, t, hd, false};
+    float s[N][4], acc[N][4];
+    warp_mma_tf32<false>(s, q, 16 * qt, kt, nkh, nkt);
+    softmax_rows(s, t, scale, 16 * qt + g < t, 16 * qt + g + 8 < t);
+    warp_mma_tf32_c(acc, s, v, nkt, nkh);
+    store_rows(acc, o + size_t(an) * t * ldf + (h0 + hl) * hd, ldf, 16 * qt, t, hd);
+  }
+}
+static_assert(kWideMaxT <= 8 * 8 && kWideMaxHeadDim <= 8 * 8,
+              "a warp's keys and head columns: 8 tiles of 8");
+
+// acc [64 x 4 column tiles] = A [64 x 8 nk] B [8 nk x ...] over the
+// column tiles ct0, ct0 + 8, ct0 + 16, ct0 + 24 below nct (B read from
+// device memory): B's values of the next k-step are loaded before this
+// one's products, so that L2's latency overlaps them.
+__device__ __forceinline__ void warp_mma_4x4_tf32(float (&acc)[4][4][4], const FMat& a,
+                                                  const FMat& b, int ct0, int nct, int nk) {
+  const int g = threadIdx.x % 32 / 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float next[4][2];
+  auto fetch = [&](int kk) {
+    const int2 k = k_slots<false>(8 * kk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 8 * (ct0 + kWarps * j) + g;
+      next[j][0] = b.at(k.x, n);
+      next[j][1] = b.at(k.y, n);
+    }
+  };
+  fetch(0);
+  for (int kk = 0; kk < nk; ++kk) {
+    float cur[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cur[j][0] = next[j][0], cur[j][1] = next[j][1];
+    if (kk + 1 < nk) fetch(kk + 1);
+    FragA fa[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load_a<false>(a, 16 * i, 8 * kk, fa[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (ct0 + kWarps * j < nct) {
+        FragB fb;
+        split_tf32(cur[j], fb);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_3xtf32(acc[i][j], fa[i], fb);
+      }
+    }
+  }
+}
+
+// z[r][j] = sum_k src[r][k] W_att[k][c0 + j] for the block's rows and the
+// columns [c0, c0 + ac) (ac <= 256, a multiple of 16), into z [kRows][ldz]
+// (zeros on rows past `rows`), 3xTF32: warp w takes column tiles w, w + 8,
+// w + 16, w + 24 and the 4 row tiles; A from src (shared or device memory,
+// zero past rows and d), B from W_att in device memory, which every block
+// reads and L2 keeps.
+__device__ void pool_z_tf32(const float* src, int lds, int rows, int d,
+                            const float* __restrict__ w_att, int a_pad, int c0, int ac, float* z,
+                            int ldz) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int nct = ac / 8, nk = (d + 7) / 8;
+  const FMat a{src, lds, rows, d, false};
+  const FMat b{w_att + c0, a_pad, d, ac, false};
+  float acc[4][4][4];
+  warp_mma_4x4_tf32(acc, a, b, warp, nct, nk);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int ct = warp + kWarps * j;
+    if (ct >= nct) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* dst = z + (16 * i + g) * ldz + 8 * ct + 2 * c;
+      dst[0] = acc[i][j][0];
+      dst[1] = acc[i][j][1];
+      dst[8 * ldz] = acc[i][j][2];
+      dst[8 * ldz + 1] = acc[i][j][3];
+    }
+  }
+}
+static_assert(kRows == 4 * 16 && kAttChunk == 4 * 8 * kWarps,
+              "the pooling product: 4 row tiles, 4 column tiles of 8 a warp per chunk");
+
 // The launch's valid article count: read from device memory when `dev` is
 // given (a CUDA graph's replay serves each batch's own count), clamped to
 // [0, n]; else the count the launch passed by value.
@@ -1002,14 +1385,17 @@ __device__ __forceinline__ void drop_o(float* o, int ldf, int rows, int d, int r
 }
 
 // z = round(o) @ W_att ([kRows][ldz] fp32 at the start of R). bf16: wmma
-// over staged, pipelined W_att chunks; fp32: one thread per column.
-template <typename T>
+// over staged, pipelined W_att chunks; fp32: 3xTF32 (kTc, pool_z_tf32) or
+// one thread per column.
+template <typename T, bool kTc = false>
 __device__ void pooling_logits(const float* o, int rows, int d, const T* __restrict__ w_att,
                                int a_pad, const Layout& L, unsigned char* R) {
   const int tid = threadIdx.x;
   float* z = reinterpret_cast<float*>(R);
   const int nk = (L.d_pad + kPoolRows - 1) / kPoolRows;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kTc) {
+    pool_z_tf32(o, L.ldf, rows, d, w_att, a_pad, 0, a_pad, z, L.ldz);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     using namespace nvcuda;
     constexpr int VE = 16 / sizeof(T);
     const int warp = tid / 32, av = a_pad / VE;
@@ -1140,8 +1526,8 @@ __device__ void pooling_weights(float* z, int ldz, const float* __restrict__ b_a
 // other things by then). bf16: wmma over pipelined stages of { W_att rows
 // [kPoolRows][ac] by cp.async, the rounded o columns [kRows][kPoolRows]
 // copied by the threads as they issue the stage }; fp32: one thread per
-// column, FMA.
-template <typename T, typename S>
+// column, FMA, or 3xTF32 (kTc, pool_z_tf32).
+template <typename T, typename S, bool kTc = false>
 __device__ void pooling_logits_chunk(const S* src, int lds, int rows, int d,
                                      const T* __restrict__ w_att, int a_pad, int c0,
                                      const Layout& L, unsigned char* R) {
@@ -1149,7 +1535,9 @@ __device__ void pooling_logits_chunk(const S* src, int lds, int rows, int d,
   const int ac = min(kAttChunk, a_pad - c0);
   const int nk = (d + kPoolRows - 1) / kPoolRows;
   float* z = reinterpret_cast<float*>(R);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kTc) {
+    pool_z_tf32(src, lds, rows, d, w_att, a_pad, c0, ac, z, L.ldz);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     using namespace nvcuda;
     constexpr int VE = 16 / sizeof(T);
     const int warp = tid / 32, av = ac / VE;
@@ -1279,13 +1667,14 @@ __device__ void pooling_softmax(const float* att, int na, int t, float* wts) {
 
 // The wide instance's pooling forward: z by column chunks, the logits att
 // summed over them, then the weights (csync at the end).
-template <typename T, typename S>
+template <typename T, typename S, bool kTc = false>
 __device__ void pooling_wide(const S* src, int lds, int rows, int na, int t, int d,
                              const T* __restrict__ w_att, const float* __restrict__ b_att,
                              const float* __restrict__ q_att, int a, int a_pad, const Layout& L,
                              unsigned char* R, float* att, float* wts) {
   for (int c0 = 0; c0 < a; c0 += kAttChunk) {
-    if (NE_PHASES & 4) pooling_logits_chunk<T, S>(src, lds, rows, d, w_att, a_pad, c0, L, R);
+    if (NE_PHASES & 4)
+      pooling_logits_chunk<T, S, kTc>(src, lds, rows, d, w_att, a_pad, c0, L, R);
     csync();
     pooling_att_chunk<T>(reinterpret_cast<const float*>(R), L.ldz, b_att, q_att, a, c0, rows,
                          att);

@@ -79,7 +79,7 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
            "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
            "articles_per_block", "o_width", "route", "panel_layout", "attention_variant",
-           "qkv_variant", "pool_variant",
+           "qkv_variant", "pool_variant", "fp32_variant", "tf32_round", "tf32_matmul",
            "tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd",
            "tiled_attention_bwd", "tiled_forward", "tiled_bwd_core",
            "tiled_qkv_reference", "tiled_attention_reference", "tiled_pool_reference",
@@ -114,6 +114,7 @@ _MAX_SLICES = 64         # weight-gradient slices at most (partials: slices x M 
 _MIN_SLICE_ROWS = 4096   # rows of a slice at least (64 k-tiles)
 _REDUCE_BLOCKS = 2 * _SMS  # blocks the reduction aims for (two per SM)
 _REDUCE_MIN_ROWS = 64    # rows of a reduction chunk at least
+_TF32_MIN_HEAD_DIM = 8   # fp32 on the tensor cores: a head fills one k-step of a TF32 tile
 
 
 def _round(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -167,11 +168,57 @@ def dropout_config(n: int, t: int, d: int, keep_prob: float = 1.0, emb_keep_prob
     return Dropout()
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: half a TF32 unit (bit 12)
+    added to the magnitude bits of the fp32 pattern, then the 13 low bits
+    cleared (sign-magnitude, so the sign bit is untouched)."""
+    if v.dtype != torch.float32:
+        raise ValueError(f"tf32_round takes fp32, got {v.dtype}")
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+class _Tf32Matmul(torch.autograd.Function):
+    """``tf32_matmul``, whose gradients are products of the same kind (as
+    the backward kernel's are)."""
+
+    @staticmethod
+    def forward(ctx, a, b, passes):
+        ctx.save_for_backward(a, b)
+        ctx.passes = passes
+        ah, bh = tf32_round(a), tf32_round(b)
+        if passes == 1:
+            return ah @ bh
+        al, bl = tf32_round(a - ah), tf32_round(b - bh)
+        return al @ bh + ah @ bl + ah @ bh
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = tf32_matmul(g, b.transpose(-1, -2), ctx.passes).sum_to_size(a.shape)
+        db = tf32_matmul(a.transpose(-1, -2), g, ctx.passes).sum_to_size(b.shape)
+        return da, db, None
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """Plain version of the fp32 kernels' tensor-core product (``a @ b``,
+    fp32, batched as ``@``): ``passes`` 3 is 3xTF32, each operand split into
+    hi = ``tf32_round(v)`` and lo = ``tf32_round(v - hi)`` and the product
+    lo hi + hi lo + hi hi summed in fp32 (lo lo dropped), within about 1e-6
+    of an fp32 product's scale; ``passes`` 1 is one TF32 product, hi hi,
+    about 5e-4 relative per operand. Differentiable: the gradients are
+    products of the same kind."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    return _Tf32Matmul.apply(a.float(), b.float(), passes)
+
+
 def news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
                            compute_dtype: torch.dtype = torch.float32,
                            n_valid: Optional[int] = None, keep_prob: float = 1.0,
                            emb_keep_prob: float = 1.0, rng_seed=None,
-                           drop_mask=None) -> torch.Tensor:
+                           drop_mask=None, tf32_passes: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (mirrors
     ``ebnerd_tpu/ops/news_encoder.py:news_encoder_reference`` and the TPU
     kernel's dropout), rounding to ``compute_dtype`` where the kernel does:
@@ -179,12 +226,17 @@ def news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int
     Q/K/V after it, the attention probabilities before the product with V,
     and o (after its dropout), W_att, tanh(.) and q_att before the pooling
     products. Sums are fp32. Articles at or past ``n_valid`` are zeros.
-    Differentiable: autograd of it is the backward's plain version."""
+    Differentiable: autograd of it is the backward's plain version.
+    ``tf32_passes`` 3 (or 1) takes the fp32 kernels' tensor-core products
+    (``tf32_matmul``) for x Wqkv, Q K^T, P V and o W_att and, through
+    autograd, for their gradients; 0, plain fp32 products."""
     n, t, din = x.shape
     d = wq.shape[1]
     hd = d // num_heads
     nv = _n_valid(n, n_valid)
     cdt = compute_dtype
+    if tf32_passes and cdt != torch.float32:
+        raise ValueError("tf32_passes takes the fp32 compute dtype")
     drop = dropout_config(n, t, d, keep_prob, emb_keep_prob, rng_seed, drop_mask, x.device)
     xf = x[:nv].to(torch.float32)
     if drop.thr_emb:
@@ -192,20 +244,27 @@ def news_encoder_reference(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int
                               device=x.device).reshape(nv, t, din)
     xf = _round(xf, cdt)
 
+    mm = (lambda u, v: tf32_matmul(u, v, tf32_passes)) if tf32_passes else torch.matmul
+
     def proj(w):
-        return _round(xf @ _round(w, cdt), cdt).reshape(nv, t, num_heads, hd)
+        return _round(mm(xf, _round(w, cdt)), cdt).reshape(nv, t, num_heads, hd)
 
     qh, kh, vh = proj(wq), proj(wk), proj(wv)
     scale = 1.0 / math.sqrt(hd)
-    logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * scale
-    probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("nhqk,nkhd->nqhd", _round(probs, cdt), vh).reshape(nv, t, d)
+    if tf32_passes:  # by heads: [nv, heads, t, hd]
+        qp, kp, vp = (u.transpose(1, 2) for u in (qh, kh, vh))
+        probs = torch.softmax(mm(qp, kp.transpose(-1, -2)) * scale, dim=-1)
+        o = mm(probs, vp).transpose(1, 2).reshape(nv, t, d)
+    else:
+        logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * scale
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.einsum("nhqk,nkhd->nqhd", _round(probs, cdt), vh).reshape(nv, t, d)
     if drop.thr_att:
         o = o * philox.mask(rng_seed, philox.STREAM_ATT, nv * t, d, keep_prob,
                             device=x.device).reshape(nv, t, d)
     elif drop.ext_mask is not None:
         o = o * (drop.ext_mask.reshape(n, t, d)[:nv] * drop.inv_ext)
-    att = torch.tanh(_round(o, cdt) @ _round(w_att, cdt) + b_att.float())
+    att = torch.tanh(mm(_round(o, cdt), _round(w_att, cdt)) + b_att.float())
     att = (_round(att, cdt) @ _round(q_att.reshape(-1, 1), cdt))[..., 0]
     att = att - att.max(dim=-1, keepdim=True).values
     expo = torch.exp(att)
@@ -273,8 +332,9 @@ def _route(packed: "PackedWeights", t: int, din: int, force_tiled: bool = False,
         return r
     is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
     low = min(2, max(1, -(-din // _QKV_K_TILE))) if is_bf16 else 1
-    smem = max(_library().news_encoder_smem_bytes(t, d, heads, a_pad, is_bf16, low),
-               _library_bwd().news_encoder_bwd_smem_bytes(t, d, heads, a_pad, is_bf16, low))
+    var = _fp32_code(packed)
+    smem = max(_library().news_encoder_smem_bytes(t, d, heads, a_pad, is_bf16, low, var),
+               _library_bwd().news_encoder_bwd_smem_bytes(t, d, heads, a_pad, is_bf16, low, var))
     return route(t, d // heads, a_pad, smem, instance=instance)
 
 
@@ -386,9 +446,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the forward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.news_encoder_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, f, i,
-                                     u, u, p, u, u, f, f, p, f, i, i, p]
+                                     u, u, p, u, u, f, f, p, f, i, i, i, p]
     lib.news_encoder_fwd.restype = i
-    lib.news_encoder_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.news_encoder_smem_bytes.argtypes = [i] * 7
     lib.news_encoder_smem_bytes.restype = ctypes.c_longlong
     lib.news_encoder_error_string.argtypes = [i]
     lib.news_encoder_error_string.restype = ctypes.c_char_p
@@ -399,7 +459,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 7 + [i] + [p] * 3 + [i] * 9
-                                          + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, p])
+                                          + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, i, p])
     lib.news_encoder_bwd_core.restype = i
     lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 10 + [p, i, i, u, u, p, u, f, p]
     lib.news_encoder_gemm.restype = i
@@ -407,7 +467,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.news_encoder_mask_x.restype = i
     lib.news_encoder_reduce.argtypes = [p, i, ctypes.c_longlong, i, p, p, p]
     lib.news_encoder_reduce.restype = i
-    lib.news_encoder_bwd_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.news_encoder_bwd_smem_bytes.argtypes = [i] * 7
     lib.news_encoder_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.news_encoder_bwd_error_string.argtypes = [i]
     lib.news_encoder_bwd_error_string.restype = ctypes.c_char_p
@@ -672,7 +732,9 @@ def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *
     d, a_pad = packed.w_att.shape
     a = packed.b_att.shape[0]
     is_bf16 = int(packed.wqkv.dtype == torch.bfloat16)
-    smem_of = lambda s: lib.news_encoder_smem_bytes(t, d, packed.num_heads, a_pad, is_bf16, s)
+    var = _fp32_code(packed)
+    smem_of = lambda s: lib.news_encoder_smem_bytes(t, d, packed.num_heads, a_pad, is_bf16, s,
+                                                    var)
     stages, cluster = qkv_plan(n, t, din, smem_of, forward=True) if is_bf16 else (1, 1)
     smem = smem_of(stages)
     if smem > _SMEM_LIMIT:
@@ -687,13 +749,19 @@ def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), out.data_ptr(), n, t, din, d,
             packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev), scale, is_bf16,
             drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att,
-            drop.inv_emb, drop.inv_att, _ptr(ext), drop.inv_ext, stages, cluster, stream)
+            drop.inv_emb, drop.inv_att, _ptr(ext), drop.inv_ext, stages, cluster, var, stream)
     _check_launch(lib, err, "news_encoder_fwd", lib.news_encoder_error_string)
     _build.count(fused_news_encoder)
+    if not is_bf16:
+        _build.count(fused_news_encoder.tf32x3 if var else fused_news_encoder.fma)
     return out
 
 
 fused_news_encoder.launches = fused_news_encoder.captured = 0
+# the fp32 launches by their stages (each counted on the wrapper too): 3xTF32 on the tensor
+# cores, or the FMA stages (``fp32_variant``)
+fused_news_encoder.tf32x3 = _build.KernelCount()
+fused_news_encoder.fma = _build.KernelCount()
 
 
 def _stream(dev) -> int:
@@ -988,8 +1056,9 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
     a = packed.b_att.shape[0]
     cdt = packed.wqkv.dtype
     is_bf16 = int(cdt == torch.bfloat16)
+    var = _fp32_code(packed)
     smem_of = lambda s: lib.news_encoder_bwd_smem_bytes(t, d, packed.num_heads, a_pad, is_bf16,
-                                                        s)
+                                                        s, var)
     stages, cluster = qkv_plan(n, t, din, smem_of, forward=False) if is_bf16 else (1, 1)
     smem = smem_of(stages)
     if smem > _SMEM_LIMIT:
@@ -1013,13 +1082,17 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
             n, t, din, d, packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev),
             1.0 / math.sqrt(d // packed.num_heads), is_bf16, drop.seed_lo, drop.seed_hi,
             _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att, _ptr(ext),
-            drop.inv_ext, stages, cluster, _stream(dev))
+            drop.inv_ext, stages, cluster, var, _stream(dev))
     _check_launch(lib, err, "news_encoder_bwd_core", lib.news_encoder_bwd_error_string)
     _build.count(launch_bwd_core)
+    if not is_bf16:
+        _build.count(launch_bwd_core.tf32x3 if var else launch_bwd_core.fma)
     return qkv, o_c, dz_c, db_part, dq_part
 
 
 launch_bwd_core.launches = launch_bwd_core.captured = 0
+launch_bwd_core.tf32x3 = _build.KernelCount()  # as fused_news_encoder's
+launch_bwd_core.fma = _build.KernelCount()
 
 
 # ---- the tiled route (T1-T4, csrc/news_encoder_tiled.cu) ----
@@ -1090,6 +1163,28 @@ def qkv_variant(dtype: torch.dtype) -> str:
     kernel, whose bf16 half stays for timing beside it). The launcher
     refuses a "tma" request in fp32."""
     return "tma" if dtype == torch.bfloat16 else "panel"
+
+
+def fp32_variant(head_dim: int) -> str:
+    """The stages K1 and K2's per-block kernel run in fp32 for heads
+    ``head_dim`` wide (both instances): "tf32x3" (every product on the
+    tensor cores, mma.sync m16n8k8 in 3xTF32: each operand split into a
+    TF32 high part and remainder, three TF32 products summed in fp32, see
+    ``tf32_matmul``) where a head fills at least one k-step of a TF32 tile
+    (8 columns), else "fma" (the FMA stages, one thread per output row or
+    column; ROADMAP C2's head width 4). The C entries take it as their
+    ``fp32_variant`` (``_FP32_VARIANT``); bf16 ignores it."""
+    return "tf32x3" if head_dim >= _TF32_MIN_HEAD_DIM else "fma"
+
+
+_FP32_VARIANT = {"fma": 0, "tf32x3": 1}
+
+
+def _fp32_code(packed: "PackedWeights") -> int:
+    """The C entries' ``fp32_variant`` for these weights (0 in bf16)."""
+    if packed.wqkv.dtype == torch.bfloat16:
+        return 0
+    return _FP32_VARIANT[fp32_variant(packed.w_att.shape[0] // packed.num_heads)]
 
 
 def pool_variant(t: int, d: int, a_pad: int, dtype: torch.dtype, backward: bool = False) -> str:

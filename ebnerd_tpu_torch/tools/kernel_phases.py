@@ -15,7 +15,18 @@ are held against the plain version (K1's output, and K2's whole backward).
 Every variant is timed twice in one process on one card, in the order
 listed and then reversed.
 
+``--dtype float32`` times the fp32 instance instead (x, weights and the
+kernels' compute dtype in fp32, the stream-0 mask drawn in the kernels),
+and ``--shapes`` picks the shapes by name: besides the three above,
+``cli_news`` (the CLI's news tower [512, 30, 300], 461 valid, Philox
+dropout at keep 0.8) and ``cli_user`` (its user tower [32, 20, 400], no
+dropout). Each record also names the route ``route`` takes for the shape
+and, as a yardstick, the time of ``torch.matmul`` of the QKV product alone
+in the compute dtype (fp32 at ``torch.get_float32_matmul_precision()``
+"highest", stated in the record).
+
 Run: python -m ebnerd_tpu_torch.tools.kernel_phases [--out FILE] [--only fwd|bwd]
+     [--dtype bfloat16|float32] [--shapes news,user,user_h50,cli_news,cli_user]
 """
 from __future__ import annotations
 
@@ -47,10 +58,14 @@ BWD_VARIANTS = {
     "no_attention_bwd": ("-DNE_PHASES=15",),
 }
 SHAPES = {"news": (24_064, 30, 1_024, 22_370, 0.8), "user": (16_384, 20, 400, None, 1.0),
-          "user_h50": (16_384, 50, 400, None, 1.0)}
+          "user_h50": (16_384, 50, 400, None, 1.0), "cli_news": (512, 30, 300, 461, 0.8),
+          "cli_user": (32, 20, 400, None, 1.0)}
+DEFAULT_SHAPES = ("news", "user", "user_h50")
 HEADS, HEAD_DIM, ATT = 20, 20, 200
 SEED = (0x5EED << 32) | 0x1234ABCD
 BF16_REL_TOL = 2e-2  # max|kernel - plain| <= tol * max|plain|, as in chip_smoke.py
+FP32_ATOL = 1e-4      # fp32: K1's max|kernel - plain|, and K2's gradients relative to their
+FP32_GRAD_REL = 1e-4  # scale, as in chip_smoke.py
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -67,10 +82,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _check(name, got, ref, scale=None):
-    """max|got - ref| within BF16_REL_TOL of ``scale`` (default max|ref|)."""
+def _check(name, got, ref, scale=None, rel=BF16_REL_TOL, atol=None):
+    """max|got - ref| within ``rel`` of ``scale`` (default max|ref|), or
+    within ``atol`` when it is given."""
     err = (got.float() - ref.float()).abs().max().item()
-    tol = BF16_REL_TOL * (scale if scale is not None else ref.float().abs().max().item())
+    tol = atol if atol is not None else rel * (
+        scale if scale is not None else ref.float().abs().max().item())
     if not err <= tol:
         raise RuntimeError(f"{name}: max|kernel - plain| = {err} > {tol}")
     return err
@@ -81,7 +98,15 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the records to this JSON file")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", choices=("fwd", "bwd"), help="time one kernel's variants only")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the kernels' compute dtype (x and the weights in it)")
+    ap.add_argument("--shapes", default=",".join(DEFAULT_SHAPES),
+                    help=f"comma-separated shape names of {', '.join(SHAPES)}")
     args = ap.parse_args(argv)
+    shapes = args.shapes.split(",")
+    unknown = [s for s in shapes if s not in SHAPES]
+    if unknown:
+        ap.error(f"unknown shapes {unknown}; known: {', '.join(SHAPES)}")
     if not torch.cuda.is_available():
         print("kernel_phases: needs a CUDA card", file=sys.stderr)
         return 2
@@ -100,9 +125,12 @@ def main(argv=None) -> int:
             for kind, (src, var, bind) in kinds.items() for name, flags in var.items()}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d, cdt = HEADS * HEAD_DIM, torch.bfloat16
+    d, cdt = HEADS * HEAD_DIM, getattr(torch, args.dtype)
+    fp32 = cdt == torch.float32
+    precision = torch.get_float32_matmul_precision()
     records = []
-    for shape, (n, t, din, n_valid, keep) in SHAPES.items():
+    for shape in shapes:
+        n, t, din, n_valid, keep = SHAPES[shape]
         nv = n if n_valid is None else n_valid
         x = torch.randn(n, t, din, generator=gen, device="cuda").to(cdt)
         weights = tuple(torch.randn(*s, generator=gen, device="cuda") * 0.05
@@ -116,6 +144,17 @@ def main(argv=None) -> int:
         xin, _, drop_in = ne.kernel_input(x, nv, drop)
         g = torch.randn(n, d, generator=gen, device="cuda")
         g[nv:] = 0
+        route = ne._route(packed, t, xin.shape[1])
+        w_cat = torch.nn.functional.pad(torch.cat([w.to(cdt) for w in weights[:3]], 1),
+                                        (0, 0, 0, xin.shape[1] - din))
+        x_rows = xin[:nv * t]
+        qkv_ms = time_ms(lambda: torch.matmul(x_rows, w_cat), args.iters)
+        if route == "tiled":  # neither instance takes the shape: nothing of theirs to time
+            rec = {"shape": shape, "n_t_din": [n, t, din], "dtype": args.dtype, "route": route,
+                   "qkv_matmul_ms": qkv_ms, "matmul_precision": precision, "card": card}
+            records.append(rec)
+            print(json.dumps(rec), flush=True)
+            continue
         for kind in kinds:
             var = kinds[kind][1]
             if kind == "fwd":
@@ -131,20 +170,24 @@ def main(argv=None) -> int:
             err = None
             if kind == "fwd":  # the shipped build, held against the plain version
                 err = _check(f"K1 {shape}", run("shipped"),
-                             ne.news_encoder_reference(x, *weights, **kw))
+                             ne.news_encoder_reference(x, *weights, **kw),
+                             atol=FP32_ATOL if fp32 else None)
             else:  # the whole backward on the shipped build
                 got = ne.fused_news_encoder_bwd(x, *weights, g, **kw, packed=packed)
                 ref = ne.news_encoder_bwd_reference(x, *weights, g, **kw)
                 # db and dq cancel over tokens: their scale is at least max|dW| (chip_smoke.py)
                 dw_max = ref[4].abs().max().item()
                 err = max(_check(f"K2 {shape} {i}", u, v,
-                                 max(v.abs().max().item(), dw_max) if i >= 5 else None)
+                                 max(v.abs().max().item(), dw_max) if i >= 5 else None,
+                                 rel=FP32_GRAD_REL if fp32 else BF16_REL_TOL)
                           for i, (u, v) in enumerate(zip(got, ref)))
                 del got, ref
             for name, flags in var.items():
                 rec = {"kernel": kind, "shape": shape, "n_t_din": [n, t, din], "n_valid": nv,
-                       "keep": keep, "variant": name, "flags": list(flags), "ms": times[name],
-                       "max_abs_err": err if name == "shipped" else None, "card": card}
+                       "keep": keep, "dtype": args.dtype, "route": route, "variant": name,
+                       "flags": list(flags), "ms": times[name],
+                       "max_abs_err": err if name == "shipped" else None,
+                       "qkv_matmul_ms": qkv_ms, "matmul_precision": precision, "card": card}
                 records.append(rec)
                 print(json.dumps(rec), flush=True)
             torch.cuda.empty_cache()
