@@ -856,96 +856,234 @@ def fp32_timed(peaks, gen, iters=5) -> list:
     return out
 
 
-# A step's launches in fp32 (the NRMS step, the CLI's): K1 and the per-block kernel on the
-# tensor cores for both towers, the backward's GEMMs and reductions as in bf16, no x-mask
-# kernel (fp32 draws the stream-0 mask in K1, the per-block kernel and the dx GEMM)
+# A step's launches in fp32 (the NRMS step, the CLI's): K1, the per-block kernel and the
+# backward's GEMMs on the tensor cores for both towers, the reductions as in bf16, no x-mask
+# kernel (fp32 draws the stream-0 mask in K1, the per-block kernel and the GEMMs)
 FP32_STEP = {"news_encoder_fwd": 2, "news_encoder_bwd": 2, "news_encoder_bwd_block": 2,
              "news_encoder_bwd_gemm": 6, "news_encoder_bwd_reduce": 8, "news_encoder_bwd_mask": 0,
              "news_encoder_fwd_tf32x3": 2, "news_encoder_bwd_block_tf32x3": 2,
-             "news_encoder_fwd_fma": 0, "news_encoder_bwd_block_fma": 0}
+             "news_encoder_fwd_fma": 0, "news_encoder_bwd_block_fma": 0,
+             "news_encoder_bwd_gemm_tf32x3": 6, "news_encoder_bwd_gemm_fma": 0}
 FP32_CMP_BS = 4_096  # the fp32 step against the plain path: a batch whose plain step fits
 
 
-def fp32_rest_timed(peaks, gen, iters=10) -> list:
-    """[fp32]: the fp32 kernels not on the tensor cores yet, each
-    against torch.matmul of the same product in fp32 (precision "highest")
-    on the same inputs, beside its bounds (FMA and 3xTF32): K2's GEMM
-    (``bwd_gemm_fma_kernel``) on its three products at the CLI's news shape
-    (dx, dWqkv with the stream-0 mask, dW: the weight gradients' partials
-    summed by ``reduce_rows`` for the check, timed without it), and T1
-    "panel" (the tiled route's QKV product in fp32) at the history-50 user
-    tower [16,384, 50, 400]. Each held against torch.matmul within
-    FP32_GRAD_REL of its scale. Returns the records."""
+# [fp32 gemm]: K2's fp32 GEMM at ``tools/gemm_times.py``'s shapes (its ``SHAPES``: the CLI's
+# news tower, train_newsrec.py --synthetic: dqkv [15,360, 1,280] with 13,830 valid rows, Din 300;
+# the fp32 step's full-width towers: news dqkv [721,920, 1,280], 671,100 valid rows, Din 1,024;
+# user [327,680, 1,280], Din 400; round(o) [.., 400], round(dz) [.., 208]) and their timing
+# iterations. [fp32 t1]: T1 at its ``T1_SHAPES`` (the history-50 user tower, the CLI's user
+# tower at history 50) and theirs.
+FP32_GEMM_ITERS = {"cli_news": 10, "news": 3, "user": 3}
+FP32_T1_ITERS = {"t1_user_h50": 5, "t1_cli_user_h50": 10}
+
+
+def fp32_gemm_timed(peaks, gen) -> list:
+    """[fp32 gemm]: K2's GEMM in fp32 (``gemm_variant`` "tf32x3":
+    ``bwd_gemm_tf32x3_kernel``, 3xTF32 wgmma) on its three products
+    (``gemm_times.gemm_cases``): dx with the stream-0 mask, the dWqkv
+    partials with it, the dW partials (slices by ``gemm_splits_fp32``,
+    printed; the partials summed by ``reduce_rows`` for the check, timed
+    without it). The kernel and the FMA kernel it replaced (the rule
+    patched to "fma") are each held against torch.matmul of the same
+    product (fp32, precision "highest", the mask applied to its operand or
+    result) within FP32_GRAD_REL of its scale, two launches of each
+    bit-equal and counted on ``bwd_gemm.tf32x3`` / ``.fma``; at the CLI's
+    shape the kernel also against the plain 3xTF32 version. Then timed in
+    turns (``gemm_times.in_turns``): kernel, FMA, torch.matmul,
+    torch.matmul, kernel, FMA; beside the bounds (3xTF32 and FMA). Returns
+    the records."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
     from ebnerd_tpu_torch.ops import philox
+    from ebnerd_tpu_torch.tools import gemm_times
+
+    out = []
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    for shape, iters in FP32_GEMM_ITERS.items():
+        for c in gemm_times.gemm_cases(ne, philox, shape, rnd, ne.gemm_splits_fp32):
+            prod, kern, lib, rows, splits, (m, n) = (c["prod"], c["kern"], c["lib"], c["rows"],
+                                                     c["splits"], c["mn"])
+            name = f"{shape}_{prod}"
+            fma = ruled(kern, "gemm_variant", "fma")
+            ref = c["ref_of"](lib())
+            scale, errs = ref.abs().max().item(), {}
+            for var, fn in (("tf32x3", kern), ("fma", fma)):
+                count = getattr(ne.bwd_gemm, var)
+                before = count.launches
+                runs = [fn(), fn()]
+                check(count.launches == before + 2, f"[fp32 gemm] {name}: not the {var} kernel")
+                check(torch.equal(*runs), f"[fp32 gemm] {name}: two {var} launches differ")
+                got = runs[0][:rows] if prod == "dx" else ne.reduce_rows(runs[0]).reshape(m, n)
+                del runs
+                errs[var] = (got - ref).abs().max().item()
+                check(bool(torch.isfinite(got).all()) and errs[var] <= FP32_GRAD_REL * scale,
+                      f"[fp32 gemm] {name}: {var} {errs[var]} > {FP32_GRAD_REL} * {scale}")
+                if var == "tf32x3":
+                    kept = got
+                del got
+            del ref
+            plain_err = plain_ms = None
+            if shape == "cli_news":
+                pl = c["plain"]()
+                plain_err = (kept - pl).abs().max().item()
+                check(plain_err <= FP32_GRAD_REL * scale,
+                      f"[fp32 gemm] {name}: {plain_err} from the plain 3xTF32 version")
+                plain_ms = time_ms(c["plain"], 2, warmup=1)
+                del pl
+            del kept
+            turns = gemm_times.in_turns({"tf32x3": kern, "fma": fma}, lib, iters)
+            ms, lib_ms = turns, turns["torch.matmul"]
+            t_ms, t_by = tf32x3_bound(c["flops"], c["nbytes"], peaks)
+            f_ms, _ = bound(c["flops"], c["nbytes"], peaks[1], peaks)
+            grid = -(-m // 128) * -(-n // 256) * splits
+            mean = lambda v: sum(v) / len(v)
+            out.append({"case": name, "kernel": "bwd_gemm_tf32x3_kernel",
+                        "max_abs_err": errs["tf32x3"], "fma_max_abs_err": errs["fma"],
+                        "scale": scale, "plain_3xtf32_err": plain_err, "ms": mean(ms["tf32x3"]),
+                        "turns_ms": ms["tf32x3"], "fma_ms": mean(ms["fma"]),
+                        "fma_turns_ms": ms["fma"], "library_ms": mean(lib_ms),
+                        "library_turns_ms": lib_ms, "plain_ms": plain_ms, "bound_ms": t_ms,
+                        "bound_by": t_by, "fma_bound_ms": f_ms, "splits": splits, "ctas": grid,
+                        "rows": rows, "buffer_rows": c["buffer_rows"], "din": c["din"]})
+            print(f"[fp32 gemm] {name}: 3xTF32 {ms['tf32x3']} ms, FMA {ms['fma']} ms, "
+                  f"torch.matmul (fp32, {torch.get_float32_matmul_precision()}) {lib_ms} ms (in "
+                  f"turns; {mean(lib_ms) / mean(ms['tf32x3']):.2f}x the kernel's speed, FMA "
+                  f"{mean(ms['fma']) / mean(ms['tf32x3']):.2f}x its time); bound {t_ms:.4f} "
+                  f"({t_by}, 3xTF32; FMA {f_ms:.4f}); {splits} slice(s), {grid} tiles; max|kernel "
+                  f"- torch.matmul| {errs['tf32x3']:.2e} of {scale:.2e} (FMA kernel "
+                  f"{errs['fma']:.2e})"
+                  + (f", plain 3xTF32 {plain_err:.2e}, plain {plain_ms:.3f} ms"
+                     if plain_err is not None else ""), flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def fp32_gemm_dev(gen) -> list:
+    """[fp32 gemm] under a valid count in device memory (``valid`` =
+    (nv_dev, T), as ``_backward`` passes it under a CUDA graph's replay):
+    the three products at the CLI's news shape with the host's rows at the
+    bucket's (512 articles of 30) and the count at 461 articles (13,830
+    rows, 6 past a 32-row k-tile), every operand row from the count on
+    NaN, so a row past the count that reached a product shows. dx: rows
+    before the count within FP32_GRAD_REL of torch.matmul's scale, the rest
+    zero; the weight gradients' partials summed within it of torch.matmul
+    over the valid rows; two launches bit-equal, counted on
+    ``bwd_gemm.tf32x3``. Returns the records."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.ops import philox
+    from ebnerd_tpu_torch.tools import gemm_times
+
+    out = []
+    k_rows, rows, din = gemm_times.SHAPES["cli_news"]
+    p_cols, a_pad = gemm_times.P, gemm_times.A_PAD
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    dqkv, w, xin = rnd(k_rows, p_cols) * 1e-2, rnd(din, p_cols) * 0.05, rnd(k_rows, din)
+    o_c, dz = rnd(k_rows, D), rnd(k_rows, a_pad) * 1e-2
+    for op in (dqkv, xin, o_c, dz):
+        op[rows:] = float("nan")
+    nv_dev = torch.tensor([rows // T], dtype=torch.int32, device=DEV)
+    valid = (nv_dev, T)
+    drop = ne.dropout_config(k_rows // T, T, D, KEEP, KEEP, SEED64, device=DEV)
+    mask = philox.mask(SEED64, philox.STREAM_EMB, rows, din, KEEP, device=DEV)
+    sp_x, sp_w = ne.gemm_splits_fp32(din, p_cols, k_rows), ne.gemm_splits_fp32(D, a_pad, k_rows)
+    cases = (  # name, kernel, torch.matmul over the valid rows, the output's [M, N]
+        ("dx", lambda: ne.bwd_gemm(dqkv, w, dx=True, rows=k_rows, drop=drop, valid=valid),
+         lambda: (dqkv[:rows] @ w.T) * mask, (k_rows, din)),
+        ("dwqkv_mask", lambda: ne.bwd_gemm(xin, dqkv, dx=False, rows=k_rows, drop=drop,
+                                           valid=valid, splits=sp_x),
+         lambda: (xin[:rows] * mask).T @ dqkv[:rows], (din, p_cols)),
+        ("dw", lambda: ne.bwd_gemm(o_c, dz, dx=False, rows=k_rows, valid=valid, splits=sp_w),
+         lambda: o_c[:rows].T @ dz[:rows], (D, a_pad)))
+    for prod, kern, lib, (m, n) in cases:
+        name = f"cli_news_dev_{prod}"
+        before = ne.bwd_gemm.tf32x3.launches
+        runs = [kern(), kern()]
+        check(ne.bwd_gemm.tf32x3.launches == before + 2,
+              f"[fp32 gemm] {name}: not the 3xTF32 kernel")
+        check(torch.equal(*runs), f"[fp32 gemm] {name}: two launches differ")
+        ref = lib()
+        if prod == "dx":
+            got, tail = runs[0][:rows], runs[0][rows:]
+            check(bool((tail == 0).all()), f"[fp32 gemm] {name}: a row past the count not zero")
+        else:
+            got = ne.reduce_rows(runs[0]).reshape(m, n)
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err <= FP32_GRAD_REL * scale,
+              f"[fp32 gemm] {name}: {err} > {FP32_GRAD_REL} * {scale}")
+        out.append({"case": name, "rows": rows, "host_rows": k_rows, "max_abs_err": err,
+                    "scale": scale})
+        print(f"[fp32 gemm] {name}: device count {rows // T} x {T} = {rows} rows of {k_rows}, "
+              f"NaN past it; max|kernel - torch.matmul| {err:.2e} of {scale:.2e}", flush=True)
+        del runs, got, ref
+    del dqkv, w, xin, o_c, dz, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_t1_timed(peaks, gen) -> list:
+    """[fp32 t1]: T1 in fp32 (``qkv_variant`` "tf32x3":
+    ``tiled_qkv_tf32x3_kernel``) at ``gemm_times.T1_SHAPES`` with the stream-0
+    mask drawn in the kernel: held against torch.matmul of the masked x
+    and against the plain 3xTF32 version within FP32_GRAD_REL of the
+    scale, two launches bit-equal, counted on ``tiled_qkv.tf32x3``; then
+    timed in turns with the "panel" kernel (``earlier``) and
+    torch.matmul of x and the packed weight (no mask): kernel, panel,
+    torch.matmul, torch.matmul, kernel, panel. Returns the records."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.tools import gemm_times
 
     f32, out = torch.float32, []
-    rows, p_cols, a_pad = CLI_NV * T, 5 * 256, -(-ATT // 16) * 16
-    k_rows = CLI_BUCKET * T
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=DEV)
-    dqkv, w, xin = rnd(k_rows, p_cols) * 1e-2, rnd(CLI_EMB, p_cols) * 0.05, rnd(k_rows, CLI_EMB)
-    o_c, dz = rnd(k_rows, D), rnd(k_rows, a_pad) * 1e-2
-    drop = ne.dropout_config(CLI_BUCKET, T, D, KEEP, KEEP, SEED64, device=DEV)
-    mask = philox.mask(SEED64, philox.STREAM_EMB, rows, CLI_EMB, KEEP, device=DEV)
-    splits = lambda m, n: ne.gemm_splits(m, n, rows)
-    cases = (
-        ("dx_cli_news", lambda: ne.bwd_gemm(dqkv, w, dx=True, rows=rows, drop=drop),
-         lambda: (dqkv[:rows] @ w.T) * mask, 2 * rows * p_cols * CLI_EMB,
-         (rows * p_cols + CLI_EMB * p_cols + rows * CLI_EMB) * 4),
-        ("dwqkv_cli_news_mask", lambda: ne.bwd_gemm(xin, dqkv, dx=False, rows=rows, drop=drop,
-                                                    splits=splits(CLI_EMB, p_cols)),
-         lambda: (xin[:rows] * mask).T @ dqkv[:rows], 2 * rows * p_cols * CLI_EMB,
-         (rows * CLI_EMB + rows * p_cols + CLI_EMB * p_cols) * 4),
-        ("dw_cli_news", lambda: ne.bwd_gemm(o_c, dz, dx=False, rows=rows,
-                                            splits=splits(D, a_pad)),
-         lambda: o_c[:rows].T @ dz[:rows], 2 * rows * D * a_pad,
-         (rows * D + rows * a_pad + D * a_pad) * 4))
-    for name, kern, lib, flops, nbytes in cases:
-        got, ref = kern(), lib()
-        got = got[:rows] if name.startswith("dx") else got.sum(0)
+    check(ne.qkv_variant(f32) == "tf32x3", "[fp32 t1] fp32 takes T1's 3xTF32 kernel")
+    for shape, iters in FP32_T1_ITERS.items():
+        n, t = gemm_times.T1_SHAPES[shape]
+        x, ws = make_inputs(n, t, D, f32, gen)
+        packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=f32)
+        drop = ne.dropout_config(n, t, D, KEEP, KEEP, SEED64, device=DEV)
+        xin, _, drop_in = ne.kernel_input(x, n, drop)
+        del x
+        kern = lambda: ne.tiled_qkv(xin, packed, drop_in, n=n, t=t, nv=n)
+        before = ne.tiled_qkv.tf32x3.launches
+        runs = [kern(), kern()]
+        check(ne.tiled_qkv.tf32x3.launches == before + 2, f"[fp32 t1] {shape}: not the 3xTF32 T1")
+        check(torch.equal(*runs), f"[fp32 t1] {shape}: two launches differ")
+        got = runs[1]
+        del runs
+        xm = xin * ne._philox_mask(drop_in, ne.philox.STREAM_EMB, n * t, xin.shape[1], DEV)
+        ref = xm @ packed.wqkv
+        del xm
         err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-        check(err <= FP32_GRAD_REL * scale, f"[fp32 gemm] {name}: {err} > {FP32_GRAD_REL} * {scale}")
-        ms, lib_ms = [], []
-        for turn in range(4):  # in turns: kernel, torch.matmul, torch.matmul, kernel
-            (ms if turn in (0, 3) else lib_ms).append(time_ms(kern if turn in (0, 3) else lib, iters))
-        b_ms, b_by = bound(flops, nbytes, peaks[1], peaks)
+        del ref
+        check(bool(torch.isfinite(got).all()) and err <= FP32_GRAD_REL * scale,
+              f"[fp32 t1] {shape}: {err} > {FP32_GRAD_REL} * {scale}")
+        plain = lambda: ne.tiled_qkv_reference(xin, packed, drop_in, n=n, t=t, nv=n, tf32_passes=3)
+        pl = plain()
+        plain_err = (got - pl).abs().max().item()
+        check(plain_err <= FP32_GRAD_REL * scale, f"[fp32 t1] {shape}: {plain_err} from the plain "
+                                                  f"3xTF32 version")
+        del pl, got
+        plain_ms = time_ms(plain, 1, warmup=0)
+        lib = lambda: xin @ packed.wqkv
+        ms = gemm_times.in_turns({"tf32x3": kern, "panel": earlier(kern, "qkv_variant")}, lib,
+                                 iters)
+        lib_ms = ms["torch.matmul"]
+        flops = 2 * n * t * D * 3 * D
+        nbytes = (n * t * D + D * packed.wqkv.shape[1] + n * t * packed.wqkv.shape[1]) * 4
         t_ms, t_by = tf32x3_bound(flops, nbytes, peaks)
-        out.append({"case": name, "kernel": "bwd_gemm_fma_kernel", "max_abs_err": err,
-                    "scale": scale, "ms": sum(ms) / 2, "turns_ms": ms,
-                    "library_ms": sum(lib_ms) / 2, "library_turns_ms": lib_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "tf32x3_bound_ms": t_ms})
-        print(f"[fp32 gemm] {name}: K2's fp32 GEMM {ms} ms, torch.matmul (fp32, "
-              f"{torch.get_float32_matmul_precision()}) {lib_ms} ms (in turns); bound "
-              f"{b_ms:.4f} ({b_by}, FMA; 3xTF32 {t_ms:.4f}); max|kernel - torch.matmul| "
-              f"{err:.2e} of {scale:.2e}", flush=True)
-    del dqkv, w, xin, o_c, dz, mask
-    # T1 "panel" in fp32 at the history-50 user tower (the tiled route's fp32 QKV product)
-    n, t = TRAIN_BS, C3_HIST
-    x, ws = make_inputs(n, t, D, f32, gen)
-    packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=f32)
-    xin, _, drop_in = ne.kernel_input(x, n, ne.Dropout())
-    check(ne.qkv_variant(f32) == "panel", "[fp32 t1] fp32 takes T1's panel kernel")
-    kern = lambda: ne.tiled_qkv(xin, packed, drop_in, n=n, t=t, nv=n)
-    lib = lambda: xin @ packed.wqkv
-    err = (kern() - lib()).abs().max().item()
-    scale = lib().abs().max().item()
-    check(err <= FP32_GRAD_REL * scale, f"[fp32 t1] T1 panel: {err} > {FP32_GRAD_REL} * {scale}")
-    ms, lib_ms = [], []
-    for turn in range(4):
-        (ms if turn in (0, 3) else lib_ms).append(time_ms(kern if turn in (0, 3) else lib, iters))
-    flops = 2 * n * t * D * 3 * D
-    nbytes = (n * t * D + 3 * D * D + n * t * packed.wqkv.shape[1]) * 4
-    b_ms, b_by = bound(flops, nbytes, peaks[1], peaks)
-    t_ms, _ = tf32x3_bound(flops, nbytes, peaks)
-    out.append({"case": "t1_panel_user_h50", "kernel": "tiled_qkv_kernel", "max_abs_err": err,
-                "scale": scale, "ms": sum(ms) / 2, "turns_ms": ms, "library_ms": sum(lib_ms) / 2,
-                "library_turns_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "tf32x3_bound_ms": t_ms})
-    print(f"[fp32 t1] T1 panel at [{n}, {t}, {D}] fp32: {ms} ms, torch.matmul {lib_ms} ms (in "
-          f"turns); bound {b_ms:.4f} ({b_by}, FMA; 3xTF32 {t_ms:.4f}); max|T1 - torch.matmul| "
-          f"{err:.2e} of {scale:.2e}", flush=True)
-    del x, xin, packed
-    torch.cuda.empty_cache()
+        f_ms, _ = bound(flops, nbytes, peaks[1], peaks)
+        mean = lambda v: sum(v) / len(v)
+        out.append({"case": shape, "shape": [n, t, D], "kernel": "tiled_qkv_tf32x3_kernel",
+                    "max_abs_err": err, "scale": scale, "plain_3xtf32_err": plain_err,
+                    "ms": mean(ms["tf32x3"]), "turns_ms": ms["tf32x3"],
+                    "panel_ms": mean(ms["panel"]), "panel_turns_ms": ms["panel"],
+                    "library_ms": mean(lib_ms), "library_turns_ms": lib_ms, "plain_ms": plain_ms,
+                    "bound_ms": t_ms, "bound_by": t_by, "fma_bound_ms": f_ms})
+        print(f"[fp32 t1] T1 at [{n}, {t}, {D}] fp32 (dropout {DROPOUT}): 3xTF32 {ms['tf32x3']} "
+              f"ms, panel {ms['panel']} ms, torch.matmul {lib_ms} ms (in turns; "
+              f"{mean(lib_ms) / mean(ms['tf32x3']):.2f}x the kernel's speed, panel "
+              f"{mean(ms['panel']) / mean(ms['tf32x3']):.2f}x its time); bound {t_ms:.4f} "
+              f"({t_by}, 3xTF32; FMA {f_ms:.4f}); max|T1 - torch.matmul| {err:.2e} of "
+              f"{scale:.2e}, plain 3xTF32 {plain_err:.2e}, plain {plain_ms:.1f} ms", flush=True)
+        del xin, packed
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1008,34 +1146,59 @@ def fp32_cli() -> dict:
     """[fp32] the one-CLI entry point at its default dtype (fp32): NRMS
     ``--synthetic --use_fused_encoder`` with no ``--dtype``, 1 epoch, each
     training step's launches as FP32_STEP (``cli_run``), and every fp32
-    launch of the run (validation and scoring too) on the tensor cores.
-    Removes its output directory afterwards."""
+    launch of the run (validation and scoring too) on the tensor cores; then
+    again with ``--history_size 50``, whose user tower takes the tiled route
+    (T1 on the 3xTF32 kernel; each step's launches as ``history_expect``
+    gives them in fp32). Removes its output directories afterwards.
+    Returns {"cli": ..., "cli_h50": ...}."""
     import shutil
 
-    out = Path(__file__).resolve().parent / "build" / "cli_nrms_fp32"
-    rec, trainer = cli_run("nrms_fp32", ["--model", "nrms", "--synthetic", "--use_fused_encoder",
-                                         "--epochs", "1", "--out_dir", str(out)],
-                           FP32_STEP, tuple(FP32_STEP))
-    check(trainer.model.dtype == torch.float32, "cli nrms_fp32: the CLI's default dtype is not fp32")
-    n = rec["launches"]
-    check(n["news_encoder_fwd_tf32x3"] == n["news_encoder_fwd"] > 2 * rec["steps_per_epoch"]
-          and n["news_encoder_bwd_block_tf32x3"] == n["news_encoder_bwd_block"] > 0
-          and n["news_encoder_fwd_fma"] == n["news_encoder_bwd_block_fma"] == 0,
-          f"cli nrms_fp32: a launch off the tensor cores, or none in validation: {n}")
-    del trainer
-    shutil.rmtree(out, ignore_errors=True)
-    torch.cuda.empty_cache()
-    return rec
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    out = {}
+    for key, hist in (("cli", None), ("cli_h50", C3_HIST)):
+        d = Path(__file__).resolve().parent / "build" / f"cli_nrms_fp32_{key}"
+        argv = ["--model", "nrms", "--synthetic", "--use_fused_encoder", "--epochs", "1",
+                "--out_dir", str(d)] + ([] if hist is None else ["--history_size", str(hist)])
+        expect = (FP32_STEP if hist is None
+                  else history_expect(FP32_STEP, hist, torch.float32))
+        keys = tuple(FP32_STEP) + (() if hist is None else TILED)
+        rec, trainer = cli_run(f"nrms_fp32{'' if hist is None else f'_h{hist}'}", argv, expect,
+                               keys)
+        check(trainer.model.dtype == torch.float32,
+              f"cli nrms_fp32 {key}: the CLI's default dtype is not fp32")
+        n = rec["launches"]
+        per_step = 2 if hist is None else 1  # K1 on the news tower only at history 50
+        check(n["news_encoder_fwd_tf32x3"] == n["news_encoder_fwd"]
+              > per_step * rec["steps_per_epoch"]
+              and n["news_encoder_bwd_block_tf32x3"] == n["news_encoder_bwd_block"] > 0
+              and n["news_encoder_bwd_gemm_tf32x3"] == n["news_encoder_bwd_gemm"] > 0
+              and n["news_encoder_fwd_fma"] == n["news_encoder_bwd_block_fma"]
+              == n["news_encoder_bwd_gemm_fma"] == 0,
+              f"cli nrms_fp32 {key}: a launch off the tensor cores, or none in validation: {n}")
+        if hist is not None:
+            check(trainer.model.hparams.history_size == hist and ne.route(
+                hist, HEAD_DIM, -(-ATT // 16) * 16) == "tiled" and n["tiled_qkv_tf32x3"]
+                >= 2 * rec["steps_per_epoch"] and n["tiled_qkv"] == 0,
+                f"cli nrms_fp32 {key}: T1 not on the 3xTF32 kernel: {n}")
+        out[key] = rec
+        del trainer
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 def fp32_phase(table, peaks, gen) -> dict:
     """[fp32]: the two kernels timed on the tensor cores against the
-    FMA stages (``fp32_timed``), the fp32 kernels left as they were against
-    torch.matmul (``fp32_rest_timed``), NRMS trained in fp32 at full width
-    (``fp32_training``), and the CLI at its default dtype (``fp32_cli``)."""
+    FMA stages (``fp32_timed``), K2's fp32 GEMM and T1 on the 3xTF32 GEMM
+    core against their FMA kernels and torch.matmul (``fp32_gemm_timed``,
+    ``fp32_t1_timed``), the GEMM under a device count (``fp32_gemm_dev``), NRMS trained in fp32 at full width
+    (``fp32_training``), and the CLI at its default dtype, at history 20
+    and 50 (``fp32_cli``)."""
     t0 = time.perf_counter()
-    rec = {"timed": fp32_timed(peaks, gen), "rest": fp32_rest_timed(peaks, gen),
-           "training": fp32_training(table, peaks), "cli": fp32_cli()}
+    rec = {"timed": fp32_timed(peaks, gen), "gemm": fp32_gemm_timed(peaks, gen),
+           "gemm_dev": fp32_gemm_dev(gen), "t1": fp32_t1_timed(peaks, gen),
+           "training": fp32_training(table, peaks), **fp32_cli()}
     rec["seconds"] = time.perf_counter() - t0
     print(f"[fp32] phase in {rec['seconds']:.1f} s", flush=True)
     return rec
@@ -1136,17 +1299,20 @@ def wide_instance():
     return mock.patch.object(ne, "route", lambda *a, **k: rule(*a, **dict(k, instance=True)))
 
 
-def history_expect(staged_step, hist) -> dict:
-    """A step's launches at history ``hist``: the staged step's, with the
-    user tower on the route ``route`` answers (the tiled route: K1 and the
-    per-block kernel once, for the news tower, and T1-T4 as a forward and
-    its backward launch them)."""
+def history_expect(staged_step, hist, cdt=torch.bfloat16) -> dict:
+    """A step's launches at history ``hist`` in the compute dtype ``cdt``:
+    the staged step's, with the user tower on the route ``route`` answers
+    (the tiled route: K1 and the per-block kernel once, for the news tower,
+    in fp32 on their 3xTF32 stages, and T1-T4 as a forward and its backward
+    launch them)."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     if ne.route(hist, HEAD_DIM, -(-ATT // 16) * 16) != "tiled":
         return dict(staged_step)
-    return dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
-                **tiled_call(hist, HEAD_DIM, torch.bfloat16))
+    fp32 = ({"news_encoder_fwd_tf32x3": 1, "news_encoder_bwd_block_tf32x3": 1}
+            if cdt == torch.float32 else {})
+    return dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1, **fp32,
+                **tiled_call(hist, HEAD_DIM, cdt))
 
 
 def c3_kernel_cases(peaks, gen) -> dict:
@@ -1331,11 +1497,12 @@ C3B_SCAN_BS = 4_096  # the scan and mesh checks' batch (three groups of four, tw
 C3B_PLAIN_CHUNK = 1_024  # articles a call of a plain version takes at the timed shape (memory)
 C3B_H200 = 200       # the streamed T2 and T4's path: the user tower at history 200
 C3B_H200_CMP_BS = 1_024  # its step compared with the plain path: [B, 20, 200, 200] fp32, 3.3 GB
-TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_attention", "tiled_attention_staged",
+TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_qkv_tf32x3", "tiled_attention", "tiled_attention_staged",
          "tiled_attention_streamed", "tiled_pool", "tiled_pool_resident", "tiled_pool_streamed",
          "tiled_pool_bwd", "tiled_pool_bwd_resident", "tiled_pool_bwd_streamed",
          "tiled_attention_bwd", "tiled_attention_bwd_staged", "tiled_attention_bwd_streamed")
 ATT_SUFFIX = {"staged": "_staged", "streamed": "_streamed", "gather": ""}  # attention_variant's
+QKV_SUFFIX = {"tma": "_tma", "tf32x3": "_tf32x3", "panel": ""}  # qkv_variant's
 POOL_SUFFIX = {"resident": "_resident", "streamed": "_streamed", "chunked": ""}  # pool_variant's
 
 
@@ -1348,7 +1515,7 @@ def tiled_names(t, hd, cdt, d, a) -> dict:
     a_pad = -(-a // 16) * 16
     att = lambda bwd: ATT_SUFFIX[ne.attention_variant(t, hd, cdt, bwd)]
     pool = lambda bwd: POOL_SUFFIX[ne.pool_variant(t, d, a_pad, cdt, bwd)]
-    return {"t1": "tiled_qkv" + ("_tma" if ne.qkv_variant(cdt) == "tma" else ""),
+    return {"t1": "tiled_qkv" + QKV_SUFFIX[ne.qkv_variant(cdt)],
             "t2": "tiled_attention" + att(False), "t3": "tiled_pool" + pool(False),
             "t3_bwd": "tiled_pool_bwd" + pool(True), "t4": "tiled_attention_bwd" + att(True)}
 
@@ -1422,13 +1589,14 @@ C3B_VARIANTS = (  # T2 and T4 either side of attention_variant's boundaries: sta
 
 
 C3B_QKV_VARIANTS = (  # T1 either side of qkv_variant (bf16 "tma": x held once to Din 512, then
-    # streamed; fp32 PR 16's "panel"), n_valid on the device (2 below N)
+    # streamed; fp32 "tf32x3", and the first "panel" by the rule's override), n_valid on the device
+    # (2 below N)
     # name, n, t, din, dtype, dropout (bf16: x masked by kernel_input; fp32: drawn by T1), kernel
     ("bf16_din512", 7, 100, 512, torch.bfloat16, "rng", "tma"),
     ("bf16_din520", 5, 64, 520, torch.bfloat16, None, "tma"),
     ("bf16_din8", 9, 30, 8, torch.bfloat16, "rng", "tma"),
-    ("fp32_din64", 6, 50, 64, torch.float32, "rng", "panel"),
-    ("fp32_din400", 4, 100, 400, torch.float32, None, "panel"),
+    ("fp32_din64", 6, 50, 64, torch.float32, "rng", "tf32x3"),
+    ("fp32_din400", 4, 100, 400, torch.float32, None, "tf32x3"),
 )
 C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: resident, streamed, chunked. The user
     # tower's D 400 at T 100 (bf16: the resident backward's last D at A 200), D 408 (the backward
@@ -1786,8 +1954,9 @@ def c3b_qkv_pool_variants(gen) -> dict:
     (2 below N) and the case's dropout, each output against its plain
     version (``BF16_REL_TOL``, 1e-4 of the scale in fp32) over the valid
     rows, two launches bit for bit, each launch counted on its kernel, and
-    round(dz) zero past n_valid; the library refuses a request for a kernel
-    the rule passed over (T1: "tma" in fp32; T3: "resident" where it answers
+    round(dz) zero past n_valid; in fp32 T1's first kernel, "panel" (the rule
+    overridden) within the same tolerance; the library refuses a request for
+    a kernel the rule passed over (T1: the other dtype's; T3: "resident" where it answers
     "streamed" or "chunked", "streamed" where it answers "chunked") and
     writes nothing."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
@@ -1811,7 +1980,7 @@ def c3b_qkv_pool_variants(gen) -> dict:
         runs = [ne.tiled_qkv(xin, packed, drop_in, **kw) for _ in (0, 1)]
         torch.cuda.synchronize()
         cnt = read_counts()
-        kern = "tiled_qkv" + ("_tma" if want == "tma" else "")
+        kern = "tiled_qkv" + QKV_SUFFIX[want]
         check(cnt[kern] == 2 and sum(cnt[k] for k in TILED) == 2,
               f"c3b qkv variant {name}: launches {cnt}")
         ref = ne.tiled_qkv_reference(xin, packed, drop_in, n=n, t=t, nv=nv)[:rows]
@@ -1822,23 +1991,36 @@ def c3b_qkv_pool_variants(gen) -> dict:
               f"c3b qkv variant {name}: max|kernel - plain| {e} > {rel} * {sc}")
         check(torch.equal(runs[0][:rows], runs[1][:rows]), f"c3b qkv variant {name}: two launches "
                                                           f"differ")
-        refused = None
-        if want == "panel":  # a "tma" request in fp32: refused, nothing written
-            before = runs[1].clone()
-            with torch.cuda.device(DEV):
-                refused = lib.tiled_qkv(xin.data_ptr(), xin.shape[0], packed.wqkv.data_ptr(),
-                                        runs[1].data_ptr(), n * t, n, t, xin.shape[1],
-                                        packed.wqkv.shape[1], nvt.data_ptr(), int(bf), 0, 0, None,
-                                        0, 1.0, 1, stream())
+        panel = None
+        if not bf:  # the panel kernel, kept for timing, by the rule's override
+            reset_counts()
+            got_p = earlier(lambda: ne.tiled_qkv(xin, packed, drop_in, **kw), "qkv_variant")()
             torch.cuda.synchronize()
-            check(refused != 0 and torch.equal(runs[1], before),
-                  f"c3b qkv variant {name}: a tma request in fp32 returned {refused}")
+            panel = read_counts()["tiled_qkv"]
+            e_p = (got_p[:rows].float() - ref.float()).abs().max().item()
+            check(panel == 1 and e_p <= rel * sc,
+                  f"c3b qkv variant {name}: the panel kernel ({panel} launches) {e_p} > {rel} * {sc}")
+            del got_p
+        # a request for the other dtype's kernel ("tma" in fp32, "tf32x3" in bf16): refused,
+        # nothing written
+        before = runs[1].clone()
+        with torch.cuda.device(DEV):
+            refused = lib.tiled_qkv(xin.data_ptr(), xin.shape[0], packed.wqkv.data_ptr(),
+                                    runs[1].data_ptr(), n * t, n, t, xin.shape[1],
+                                    packed.wqkv.shape[1], nvt.data_ptr(), int(bf), 0, 0, None,
+                                    0, 1.0, 2 if bf else 1, stream())
+        torch.cuda.synchronize()
+        # bit for bit (the rows past n_valid are unwritten memory, which may hold NaN patterns)
+        check(refused != 0 and torch.equal(runs[1].view(torch.uint8), before.view(torch.uint8)),
+              f"c3b qkv variant {name}: the other dtype's kernel returned {refused}")
         print(f"[c3b] qkv variant {name}: [{n}, {t}, {din}] {str(cdt)[6:]} n_valid {nv} (device) "
               f"dropout={drop}: T1 {want}; max_abs_err={e:.2e} (of {sc:.2e}, rel tol {rel}); two "
-              f"launches bit-equal" + ("; a tma request refused" if refused else ""), flush=True)
+              f"launches bit-equal; the other dtype's kernel refused"
+              + ("; the panel kernel within the tolerance" if panel else ""), flush=True)
         rec["qkv"].append({"case": name, "shape": [n, t, din], "dtype": str(cdt)[6:], "n_valid": nv,
                            "dropout": drop, "variant": want, "error": [e, sc], "bit_equal": True,
-                           "tma_refused": refused is not None})
+                           "other_refused": True,
+                           "launches": {"tiled_qkv": panel or 0, kern: 2}})
     for name, n, t, d, a, cdt, drop, *want in C3B_POOL_VARIANTS:
         nv, bf = n - 2, cdt == torch.bfloat16
         _, ws = make_inputs(1, 1, 16, cdt, gen, 1, d, a, fan=True)
@@ -5670,6 +5852,60 @@ def main(argv=None) -> int:
                                    "qkv_matmul_ms": r["qkv_matmul_ms"]} for r in fp32_rec["timed"]}})
     check(all(k["launches"] > 0 and k["launches_cli_fp32"] > 0 for k in kernels["kernels"][-2:]),
           "[fp32] the tensor-core stages never ran on the fp32 step or the CLI")
+    # [fp32 gemm], [fp32 t1]: the fp32 GEMM core's two kernels (3xTF32 wgmma), launched by the
+    # fp32 step and the CLI at its default dtype (T1 by the CLI at history 50, whose user tower
+    # takes the tiled route), timed against the FMA kernels they replace and torch.matmul
+    g_by = {r["case"]: r for r in fp32_rec["gemm"]}
+    t1_by = {r["case"]: r for r in fp32_rec["t1"]}
+    cli_l, h50_l = fp32_rec["cli"]["launches"], fp32_rec["cli_h50"]["launches"]
+    gr = g_by["cli_news_dx"]
+    kernels["kernels"].append({
+        "name": "news_encoder_bwd_gemm_tf32x3", "route": "cuda",
+        "source": "ebnerd_tpu_torch/csrc/news_encoder_bwd.cu",
+        "replaces": "ebnerd_tpu/ops/news_encoder.py:529",
+        "launches": fp32_rec["training"]["launches"]["news_encoder_bwd_gemm_tf32x3"],
+        "launches_cli_fp32": cli_l["news_encoder_bwd_gemm_tf32x3"],
+        "launches_cli_fp32_h50": h50_l["news_encoder_bwd_gemm_tf32x3"],
+        "launches_fma_kernel": {"fp32_step": fp32_rec["training"]["launches"]
+                                ["news_encoder_bwd_gemm_fma"],
+                                "cli_fp32": cli_l["news_encoder_bwd_gemm_fma"],
+                                "cli_fp32_h50": h50_l["news_encoder_bwd_gemm_fma"]},
+        "max_abs_err": gr["max_abs_err"], "ms": gr["ms"], "plain_ms": gr["plain_ms"],
+        "bound_ms": gr["bound_ms"], "bound_by": gr["bound_by"], "library_ms": gr["library_ms"],
+        "fma_kernel_ms": gr["fma_ms"], "fma_bound_ms": gr["fma_bound_ms"],
+        "note": "K2's fp32 GEMM on the 3xTF32 wgmma core (TMA ring of fp32 k-tiles, the split "
+                "into TF32 hi and lo once per CTA, m64n256k8 lo hi + hi lo + hi hi); timed at the "
+                "CLI's news dx (dqkv [15,360, 1,280], 13,830 valid rows, Din 300, the stream-0 "
+                "mask) in turns with the FMA kernel and torch.matmul of the product (fp32, "
+                "precision highest); plain_ms is the plain 3xTF32 version; bound_ms 3xTF32",
+        "checked": True,
+        "shapes": {r["case"]: {k: r[k] for k in ("ms", "fma_ms", "library_ms", "bound_ms",
+                                                 "fma_bound_ms", "max_abs_err", "fma_max_abs_err",
+                                                 "splits", "ctas")} for r in fp32_rec["gemm"]},
+        "device_count_max_abs_err": {r["case"]: r["max_abs_err"] for r in fp32_rec["gemm_dev"]}})
+    tr = t1_by["t1_user_h50"]
+    kernels["kernels"].append({
+        "name": "tiled_qkv_tf32x3", "route": "cuda",
+        "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
+        "replaces": "ebnerd_tpu/ops/news_encoder.py:234",
+        "launches": h50_l["tiled_qkv_tf32x3"], "launches_panel_kernel": h50_l["tiled_qkv"],
+        "max_abs_err": tr["max_abs_err"], "ms": tr["ms"], "plain_ms": tr["plain_ms"],
+        "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"], "library_ms": tr["library_ms"],
+        "panel_kernel_ms": tr["panel_ms"], "fma_bound_ms": tr["fma_bound_ms"],
+        "note": "T1 in fp32 on the 3xTF32 wgmma core (x masked by stream 0 in shared memory); "
+                "launches: the CLI at its default dtype with --history_size 50 (the user tower "
+                "on the tiled route); timed at the history-50 user tower [16,384, 50, 400] in "
+                "turns with the panel kernel and torch.matmul of x and the packed weight "
+                "(fp32, precision highest); plain_ms is the plain 3xTF32 version; bound_ms "
+                "3xTF32",
+        "checked": True,
+        "shapes": {r["case"]: {k: r[k] for k in ("ms", "panel_ms", "library_ms", "bound_ms",
+                                                 "max_abs_err")} for r in fp32_rec["t1"]}})
+    check(kernels["kernels"][-2]["launches"] > 0 and kernels["kernels"][-2]["launches_cli_fp32"] > 0
+          and kernels["kernels"][-1]["launches"] > 0
+          and not any(kernels["kernels"][-2]["launches_fma_kernel"].values())
+          and kernels["kernels"][-1]["launches_panel_kernel"] == 0,
+          "[fp32] the 3xTF32 GEMM core never ran on the fp32 step or the CLI, or an FMA kernel did")
     for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     # [c3b]: the tiled route's kernels, launched by the history-100 steps and the history-200 ones
@@ -5679,7 +5915,8 @@ def main(argv=None) -> int:
     # past the newer kernels' rules)
     path = [k for k, v in tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16).items() if v]
     path_h200 = [k for k, v in tiled_call(C3B_H200, HEAD_DIM, torch.bfloat16).items() if v]
-    gather_l = {k: sum(c["launches"][k] for c in c3b["cases"] + c3b["variants"]) for k in TILED}
+    gather_l = {k: sum(c["launches"][k] for c in c3b["cases"] + c3b["variants"])
+                + sum(c["launches"].get(k, 0) for c in c3b["variants_t1_t3"]["qkv"]) for k in TILED}
     check(all(c3b_l[name] > 0 for name in path), f"[c3b] a tiled kernel never ran: {c3b_l}")
     check(all(h200_l[name] > 0 for name in path_h200),
           f"[c3b] a tiled kernel of the history-200 path never ran: {h200_l}")
@@ -5696,11 +5933,12 @@ def main(argv=None) -> int:
                                "block loaded once, the weight's k-tiles through a TMA ring "
                                "(multicast), m64n128k16 wgmma, the output tile stored by TMA "
                                "apart from the ring; library_ms is torch.matmul of its product"),
-        "tiled_qkv": (234, "T1, panel (PR 16; fp32, and bf16 with the rule overridden): the QKV "
+        "tiled_qkv": (234, "T1, panel (the first T1; kept for timing, reached with the rule "
+                           "overridden: its fp32 half by FMA, timed in [fp32 t1]): the QKV "
                            "stage of news_encoder_common.cuh (TMA-fed wgmma in bf16, 64-row "
                            "blocks, each 256-column panel through the ring); launches: [c3b]'s "
-                           "fp32 cases; timed at the user tower with the wrapper's rule "
-                           "overridden; library_ms is torch.matmul of its product"),
+                           "fp32 T1 variant cases; timed at the user tower with the wrapper's "
+                           "rule overridden; library_ms is torch.matmul of its product"),
         "tiled_attention": (234, "T2, gathering (past the streamed kernel's shared memory): "
                                  "the attention forward by 64-row query tiles on mma.sync "
                                  "fragments gathered from device memory (the rows' statistics, "
@@ -5773,6 +6011,8 @@ def main(argv=None) -> int:
                                             "scaled_dot_product_attention's backward")}
     h200 = c3b["timed_h200"]
     for name in TILED:
+        if name == "tiled_qkv_tf32x3":  # fp32 only: its entry is [fp32 t1]'s, above
+            continue
         on_h200 = name in h200 and name not in c3b["timed"]["parts"]  # the streamed kernels
         part = h200[name] if on_h200 else c3b["timed"]["parts"][name]
         line, note = tiled_notes[name]

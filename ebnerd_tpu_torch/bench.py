@@ -221,6 +221,11 @@ def optimizer_knobs(env=os.environ) -> tuple[bool, object]:
     return env.get("BENCH_SPARSE", "0") != "0", mu_dtype
 
 
+def dtype_knob(env=os.environ) -> torch.dtype:
+    """BENCH_DTYPE: float32 for fp32 compute, else bf16."""
+    return torch.float32 if env.get("BENCH_DTYPE") == "float32" else torch.bfloat16
+
+
 def scan_knob(env=os.environ) -> int:
     """BENCH_SCAN: the steps of one graph replay (1 = per step)."""
     n = int(env.get("BENCH_SCAN", "1"))
@@ -271,7 +276,7 @@ def main(argv=None) -> int:
     if scan > 1:  # whole groups; two warm-up groups at least (the eager one, the capture)
         steps = max(1, steps // scan) * scan
         warmup = max(2, -(-warmup // scan)) * scan
-    dtype = torch.float32 if os.environ.get("BENCH_DTYPE") == "float32" else torch.bfloat16
+    dtype = dtype_knob()
     fused = os.environ.get("BENCH_FUSED", "1") != "0"
     prng = os.environ.get("BENCH_PRNGDROP", "1") != "0"
     dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))

@@ -33,8 +33,10 @@
 //      writing its own fp32 partial. bwd_mask_x_kernel draws the x
 //      (stream-0) mask once per step, before the forward: round(x * mask)
 //      for K1, this kernel and dWqkv, and one keep bit per element for
-//      dx. bwd_gemm_fma_kernel computes the same products in fp32 (the
-//      fp32 checks), drawing the mask itself.
+//      dx. In fp32, bwd_gemm_tf32x3_kernel computes the same products on
+//      the tensor cores in 3xTF32 (the GEMM core of
+//      news_encoder_common.cuh), drawing the mask itself;
+//      bwd_gemm_fma_kernel, the FMA version, stays beside it for timing.
 //   3. reduce_rows_kernel sums partials (the GEMM slices, the per-block
 //      db and dq) in a fixed order, in one pass or, for tall narrow
 //      partials, in row chunks and then the chunk sums.
@@ -1049,13 +1051,6 @@ struct WgArgs {
   int nv_mul;            // times it (dx: m_valid; weight gradients: K at most)
 };
 
-// The rows a launch reads: with a valid count in device memory (a CUDA
-// graph's replay), dx's m_valid and the weight gradients' K become at most
-// nv_mul times it; else they are as passed.
-__device__ __forceinline__ int rows_at(int rows, const int* dev, int mul) {
-  return dev != nullptr ? min(rows, max(0, *dev) * mul) : rows;
-}
-
 // Tile t of the walk: column tile fastest, then row tile, then slice.
 struct WgTile {
   int m0, n0, z, k_begin, nk;
@@ -1283,7 +1278,7 @@ __global__ void __launch_bounds__(256) bwd_mask_x_kernel(const bf16* __restrict_
   }
 }
 
-// ---- the same products in fp32 (the fp32 checks): FMA ----
+// ---- the same products in fp32 by FMA (timed beside the 3xTF32 kernel) ----
 // 128 x 128 tiles, 256 threads each 8 x 8 by FMA, kGStages-deep cp.async
 // pipeline over 64-byte contraction chunks; the weight gradient's A is
 // masked in shared memory when thr != 0.
@@ -1404,6 +1399,20 @@ __global__ void __launch_bounds__(kGThreads) bwd_gemm_fma_kernel(
         out[size_t(blockIdx.z) * M * N + size_t(m) * N + n] = acc[i][j];
       }
     }
+}
+
+// ---- the same products in fp32 on the tensor cores: 3xTF32 wgmma ----
+// dx (kDx) and the weight gradients' partials on the GEMM core of
+// news_encoder_common.cuh (tf32x3_gemm: TMA ring of fp32 k-tiles, the
+// split into TF32 hi and lo once per CTA, m64n256k8 wgmma lo hi + hi lo +
+// hi hi). It draws the stream-0 mask itself, as the FMA kernel does: dx's
+// in its epilogue, the weight gradient's on its A tile before the split.
+template <bool kDx>
+__global__ void __launch_bounds__(kTfThreads, 1)
+    bwd_gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap ta,
+                           const __grid_constant__ CUtensorMap tb, TfArgs p) {
+  extern __shared__ __align__(1024) unsigned char tsm_raw[];
+  tf32x3_gemm<kDx ? kTfDx : kTfWgrad>(&ta, &tb, p, align_smem(tsm_raw));
 }
 
 // ---- fixed-order reduction ----
@@ -1575,6 +1584,40 @@ int launch_gemm_fp32(const void* A, const void* Bm, void* out, int M, int N, int
   return int(cudaGetLastError());
 }
 
+// fp32 on the tensor cores: the FMA kernel's shapes (its alignment rules),
+// plus whole 32-row k-tiles in a weight-gradient slice; one CTA an SM.
+template <bool kDx>
+int launch_gemm_tf32x3(const void* A, const void* Bm, void* out, int M, int N, int K, int lda,
+                       int ldb, int splits, int kps, int m_valid, philox::Key key, uint32_t thr,
+                       float inv, const int* nv_dev, int nv_mul, const unsigned long long* seed,
+                       cudaStream_t stream) {
+  const long long m_tiles = (M + kTfBM - 1) / kTfBM, n_tiles = (N + kTfBN - 1) / kTfBN;
+  if (M < 1 || N < 1 || K < 0 || lda % 4 || ldb % 4 || (kDx ? K % 4 : (M % 4 || N % 4)) ||
+      (thr && (kDx ? N % 4 : M % 4)) ||
+      (!kDx && (splits < 1 || kps < kTfBK || kps % kTfBK)) ||
+      m_tiles * n_tiles * (kDx ? 1 : splits) > (1LL << 31) - 1)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  // dx: A [M, K], B [N, K], both K-major; weight gradients: A [K, M], B [K, N]
+  const bool ok = kDx ? hop::f32_map(&ta, A, K, M, lda, kTfBK, kTfBM) &&
+                            hop::f32_map(&tb, Bm, K, N, ldb, kTfBK, kTfBN)
+                      : hop::f32_map(&ta, A, M, K, lda, 32, kTfBK) &&
+                            hop::f32_map(&tb, Bm, N, K, ldb, 32, kTfBK);
+  if (!ok) return int(cudaErrorInvalidValue);
+  const long long tiles = m_tiles * n_tiles * (kDx ? 1 : splits);
+  auto kern = bwd_gemm_tf32x3_kernel<kDx>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  if (e != cudaSuccess) return int(e);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return int(e);
+  const TfArgs p{static_cast<float*>(out), M, N, K, kDx ? std::max(K, 1) : kps,
+                 kDx ? 1 : splits, kDx ? m_valid : 0, key, thr, inv, seed, nv_dev, nv_mul};
+  kern<<<unsigned(std::min<long long>(tiles, sms)), kTfThreads, kTfSmem, stream>>>(ta, tb, p);
+  return int(cudaGetLastError());
+}
+
 // One pass of the reduction: chunks of rows_per_chunk rows of part
 // [nrows, ncols] into out [chunks, ncols].
 int reduce_pass(const float* part, int nrows, long long ncols, int rows_per_chunk, float* out,
@@ -1649,12 +1692,14 @@ int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const voi
 // nv_dev, when not null, is a valid count in device memory: dx's m_valid
 // and the weight gradients' K become at most nv_mul times it (the launch
 // passes the bucket's rows as m_valid and K, and cuts the slices by them).
-// seed_dev: the fp32 mask's seed in device memory, or null.
+// seed_dev: the fp32 mask's seed in device memory, or null. fp32_variant
+// (fp32 only): 1 the 3xTF32 kernel on the tensor cores (a slice of whole
+// 32-row k-tiles), 0 the FMA kernel; any other value is refused.
 int news_encoder_gemm(const void* A, const void* B, void* out, const void* keep, int keep_ld,
                       int M, int N, int K, int lda, int ldb, int is_dx, int splits,
                       int k_per_split, int m_valid, const void* nv_dev, int nv_mul, int is_bf16,
                       unsigned seed_lo, unsigned seed_hi, const void* seed_dev, unsigned thr,
-                      float inv, void* stream) {
+                      float inv, int fp32_variant, void* stream) {
   const philox::Key key{seed_lo, seed_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* kb = static_cast<const uint32_t*>(keep);
@@ -1665,6 +1710,12 @@ int news_encoder_gemm(const void* A, const void* B, void* out, const void* keep,
                                           nv, nv_mul, inv, s)
                  : launch_gemm_bf16<false>(A, B, out, nullptr, 0, M, N, K, lda, ldb, splits,
                                            k_per_split, 0, nv, nv_mul, inv, s);
+  if (fp32_variant == 1)
+    return is_dx ? launch_gemm_tf32x3<true>(A, B, out, M, N, K, lda, ldb, 1, 0, m_valid, key, thr,
+                                            inv, nv, nv_mul, sd, s)
+                 : launch_gemm_tf32x3<false>(A, B, out, M, N, K, lda, ldb, splits, k_per_split, 0,
+                                             key, thr, inv, nv, nv_mul, sd, s);
+  if (fp32_variant != 0) return int(cudaErrorInvalidValue);
   return is_dx ? launch_gemm_fp32<true>(A, B, out, M, N, K, lda, ldb, 1, 0, m_valid, key, thr, inv,
                                         nv, nv_mul, sd, s)
                : launch_gemm_fp32<false>(A, B, out, M, N, K, lda, ldb, splits, k_per_split, 0, key,

@@ -1684,4 +1684,383 @@ __device__ void pooling_wide(const S* src, int lds, int rows, int na, int t, int
   csync();
 }
 
+// ---- fp32 GEMMs on the tensor cores: 3xTF32 wgmma ----
+// One GEMM core for the fp32 products that are plain matrix products: K2's
+// dx and weight gradients (news_encoder_bwd.cu, bwd_gemm_tf32x3_kernel) and
+// the tiled route's T1 (news_encoder_tiled.cu, tiled_qkv_tf32x3_kernel).
+// It replaces, in fp32, the FMA kernels bwd_gemm_fma_kernel and
+// tiled_qkv_kernel "panel" (both kept beside it for timing) and, through
+// them, the products of the Pallas kernels `_news_encoder_bwd` and
+// `fused_news_encoder` (ebnerd_tpu/ops/news_encoder.py) that run outside a
+// block. What bounds it on an H100: tensor-core operations (3 TF32
+// products per fp32 one, 165 TFLOP/s of fp32 work at 495 TFLOP/s TF32)
+// and, close behind, shared memory: wgmma reads a K-major B of 8 rows x N
+// fp32 a k-step, 1/32 byte an operation (64 B a clock at the full rate of
+// the 128 the SM has), and the split pass below adds 12 bytes an element
+// of B and 4 of A. Its design:
+//   - Persistent, warp-specialised: one CTA an SM walks 128 x 256 output
+//     tiles (and weight-gradient slices) in a fixed order, column tiles
+//     fastest, each tile computed whole by one CTA in k order, so its bits
+//     do not depend on the CTA count; 384 threads, warpgroup 0 a producer
+//     (one thread issuing TMA, the rest idle, registers given up),
+//     warpgroups 1 and 2 consumers, each 64 rows of the tile.
+//   - A 2-stage ring of raw fp32 k-tiles (32 deep) by TMA, 128-byte
+//     swizzled, zeros past each operand's extent (no bounds branches): a
+//     K-major operand ([rows][32 k], dx's dqkv and Wqkv, T1's x) as one
+//     box; an M/N-major one ([32 k][rows], the weight gradients' operands,
+//     T1's weight) as boxes of [32 k][32 columns].
+//   - The split, once per CTA and element: each operand value v becomes
+//     hi = tf32_rna(v) and lo = tf32_rna(v - hi). wgmma takes TF32 operands
+//     K-major only, so B's hi and lo go into two K-major swizzled buffers
+//     (transposed on the way where B lies N-major), double-buffered: the
+//     split of k-tile i + 1 runs while k-tile i's products run. A stays in
+//     registers (wgmma's register-A form): each thread reads its m16n8k8
+//     fragments from the raw tile and splits them once k-tile i's products
+//     are done (a second register set in flight was overwritten by the
+//     compiler's register reuse on an H100: wrong rows in 3 of 4 warps).
+//   - Where the product is masked (stream 0 on x: the dWqkv operand and
+//     T1's x), the mask multiplies the raw fp32 A tile in place before the
+//     split, 16 bytes (one Philox group) a thread at a time; dx's mask
+//     multiplies the result in its epilogue (lanes pair up their Philox
+//     draws: each draws the group of one of its two rows).
+//   - Per k-step of 8, three m64n256k8 products into fp32 accumulators in
+//     registers, small terms first: lo hi, hi lo, hi hi (lo lo dropped),
+//     as the plain version tf32_matmul. The tensor cores' fp32
+//     accumulation loses accuracy with the contraction's length (the error
+//     grows with it, as a truncating accumulator's would): the weight
+//     gradients' slices stay at most 4,096 rows (ops/news_encoder.py gemm_splits_fp32; 2.8e-5 of the scale at
+//     the news tower where 51,648 rows gave 3.7e-4), dx's contraction is P,
+//     T1's Din.
+// No atomics and one writer per output element: two launches are
+// bit-equal. Shared memory: 2 raw stages of 48 KB, 2 split buffers of
+// 64 KB (224 KB).
+constexpr int kTfBM = 128, kTfBN = 256, kTfBK = 32, kTfThreads = 384, kTfRaw = 2;
+constexpr int kTfABytes = kTfBM * kTfBK * 4, kTfBBytes = kTfBN * kTfBK * 4;
+constexpr int kTfStage = kTfABytes + kTfBBytes;
+constexpr int kTfSplit = 2 * kTfBBytes;  // B's hi and lo
+constexpr int kTfBox = kTfBK * 128;      // one [32 k][32 columns] box of an M/N-major operand
+constexpr int kTfSmem = kTfRaw * kTfStage + 2 * kTfSplit + 2 * kTfRaw * 8 + 1024;
+static_assert(kTfBK * 4 == 128 && kTfSmem <= kSmemLimit, "k-tile rows are one swizzle span");
+
+// The products the core computes (kMode):
+//   kTfDx: C [M, N] = A [M, K] B [N, K]^T times the stream-0 mask of (row
+//     m, column n), rows >= m_valid zero (A, B K-major);
+//   kTfWgrad: partial C_z [M, N] = sum over rows k of slice z of
+//     round(A[k, m] mask(k, m)) B[k, n] (A, B M/N-major, [rows, features]);
+//     with a run-time count (nv_dev) the rows k from it to the host's K
+//     that the last k-tile loads are zeroed in shared memory (tf_clip_k),
+//     whatever they hold: the callers' buffers past the count need not be
+//     zeroed;
+//   kTfQkv: C [M, N] = (A [M, K] mask(m, k)) B [K, N] for rows < m_valid,
+//     other rows unwritten (A K-major, B N-major).
+constexpr int kTfDx = 0, kTfWgrad = 1, kTfQkv = 2;
+
+struct TfArgs {
+  float* out;
+  int M, N, K, k_per_split, splits, m_valid;
+  philox::Key key;
+  uint32_t thr;  // stream-0 threshold; 0: no mask
+  float inv;
+  const unsigned long long* seed;
+  const int* nv_dev;  // a valid count in device memory, or null: the rows valid are
+  int nv_mul;         // at most nv_mul times it (dx, T1: m_valid; weight gradients: K)
+};
+
+struct TfTile {
+  int m0, n0, z, k_begin, nk;
+};
+
+// The rows a launch reads: with a valid count in device memory (a CUDA
+// graph's replay), dx's m_valid (T1's valid rows) and the weight gradients'
+// K become at most mul times it; else they are as passed.
+__device__ __forceinline__ int rows_at(int rows, const int* dev, int mul) {
+  return dev != nullptr ? min(rows, max(0, *dev) * mul) : rows;
+}
+
+template <int kMode>
+__device__ __forceinline__ TfTile tf_tile(const TfArgs& p, int t) {
+  const int nt = (p.N + kTfBN - 1) / kTfBN, mt = (p.M + kTfBM - 1) / kTfBM;
+  TfTile w;
+  w.n0 = (t % nt) * kTfBN;
+  w.m0 = (t / nt % mt) * kTfBM;
+  w.z = t / (nt * mt);
+  w.k_begin = w.z * p.k_per_split;
+  const int k_end = min(p.K, w.k_begin + p.k_per_split);
+  w.nk = k_end > w.k_begin ? (k_end - w.k_begin + kTfBK - 1) / kTfBK : 0;
+  if (kMode != kTfWgrad && w.m0 >= p.m_valid) w.nk = 0;  // no valid row: nothing loaded
+  return w;
+}
+
+// Byte offset of element (r, k) in a K-major [rows][32] swizzled tile, and
+// of (column c, k) in an M/N-major one ([32 k][32 c] boxes).
+__device__ __forceinline__ int tf_kmaj(int r, int k) {
+  return r * 128 + ((((k >> 2) ^ r) & 7) << 4) + (k & 3) * 4;
+}
+__device__ __forceinline__ int tf_mnmaj(int c, int k) {
+  return (c >> 5) * kTfBox + k * 128 + (((((c & 31) >> 2) ^ k) & 7) << 4) + (c & 3) * 4;
+}
+
+__device__ __forceinline__ void tf_split4(float4 v, uint4& hi, uint4& lo) {
+  hi = make_uint4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+  lo = make_uint4(tf32_rna(v.x - __uint_as_float(hi.x)), tf32_rna(v.y - __uint_as_float(hi.y)),
+                  tf32_rna(v.z - __uint_as_float(hi.z)), tf32_rna(v.w - __uint_as_float(hi.w)));
+}
+
+// The raw A tile of k-tile kt times the stream-0 mask, in place: 16 bytes
+// (4 columns of x, one Philox group) a thread at a time, ctid in [0, 256).
+template <int kMode>
+__device__ __forceinline__ void tf_mask_a(unsigned char* a_s, const TfArgs& p, const TfTile& w,
+                                          int kt, int ctid) {
+#pragma unroll
+  for (int j = 0; j < kTfABytes / 16 / 256; ++j) {
+    const int c = ctid + 256 * j;
+    uint32_t row, grp;
+    if constexpr (kMode == kTfWgrad) {  // [32 k][32 m] boxes: x row k, columns m
+      const int k = (c & 255) >> 3, m = (c >> 8) * 32 + (((c & 7) ^ k) & 7) * 4;
+      row = uint32_t(w.k_begin + kt * kTfBK + k);
+      grp = uint32_t((w.m0 + m) >> 2);
+    } else {  // [128 m][32 k]: x row m, columns k
+      const int r = c >> 3, kc = ((c & 7) ^ r) & 7;
+      row = uint32_t(w.m0 + r);
+      grp = uint32_t((w.k_begin + kt * kTfBK + 4 * kc) >> 2);
+    }
+    const float4 m = philox::mask4(p.key, row, grp, 0u, p.thr, p.inv);
+    float4* e = reinterpret_cast<float4*>(a_s + 16 * c);
+    const float4 v = *e;
+    *e = make_float4(v.x * m.x, v.y * m.y, v.z * m.z, v.w * m.w);
+  }
+}
+
+// The weight gradients' raw k-tile with its rows k >= k_lim (past the
+// run-time row count; TMA fills zeros only past the map's extent, the
+// host's row count) set to zero, 16 bytes a thread at a time: A's pieces
+// by the thread that masks them (tf_mask_a's mapping), B's before its split.
+__device__ __forceinline__ void tf_clip_k(unsigned char* a_s, unsigned char* b_s, int k_lim,
+                                          int ctid) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int j = 0; j < kTfABytes / 16 / 256; ++j) {  // [32 k][32 m] boxes: row k = (c % 256) / 8
+    const int c = ctid + 256 * j;
+    if (((c & 255) >> 3) >= k_lim) *reinterpret_cast<uint4*>(a_s + 16 * c) = zero;
+  }
+#pragma unroll
+  for (int j = 0; j < kTfBBytes / 16 / 256; ++j) {  // [32 k][32 n] boxes
+    const int c = ctid + 256 * j;
+    if (((c & 255) >> 3) >= k_lim) *reinterpret_cast<uint4*>(b_s + 16 * c) = zero;
+  }
+}
+
+// B's raw k-tile split into the K-major hi and lo buffers.
+template <int kMode>
+__device__ __forceinline__ void tf_split_b(const unsigned char* b_s, unsigned char* hi,
+                                           unsigned char* lo, int ctid) {
+  if constexpr (kMode == kTfDx) {  // K-major already: the same bytes
+#pragma unroll
+    for (int j = 0; j < kTfBBytes / 16 / 256; ++j) {
+      const int off = 16 * (ctid + 256 * j);
+      uint4 h, l;
+      tf_split4(*reinterpret_cast<const float4*>(b_s + off), h, l);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  } else {  // N-major [32 k][32 n] boxes: thread ctid takes row n = ctid of the K-major tile
+    const int n = ctid;
+#pragma unroll
+    for (int kc = 0; kc < kTfBK / 4; ++kc) {
+      float4 v;
+      v.x = *reinterpret_cast<const float*>(b_s + tf_mnmaj(n, 4 * kc));
+      v.y = *reinterpret_cast<const float*>(b_s + tf_mnmaj(n, 4 * kc + 1));
+      v.z = *reinterpret_cast<const float*>(b_s + tf_mnmaj(n, 4 * kc + 2));
+      v.w = *reinterpret_cast<const float*>(b_s + tf_mnmaj(n, 4 * kc + 3));
+      uint4 h, l;
+      tf_split4(v, h, l);
+      const int off = n * 128 + (((kc ^ n) & 7) << 4);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+}
+
+// This thread's A fragments of the 4 k-steps of a raw k-tile, split: the
+// rows r and r + 8 of the tile, columns 8 kk + q and 8 kk + q + 4.
+template <int kMode>
+__device__ __forceinline__ void tf_load_a(const unsigned char* a_s, int r, int q,
+                                          uint32_t (&ah)[16], uint32_t (&al)[16]) {
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = r + 8 * (e & 1), k = 8 * kk + q + 4 * (e >> 1);
+      const float v = *reinterpret_cast<const float*>(
+          a_s + (kMode == kTfWgrad ? tf_mnmaj(rr, k) : tf_kmaj(rr, k)));
+      const uint32_t h = tf32_rna(v);
+      ah[4 * kk + e] = h;
+      al[4 * kk + e] = tf32_rna(v - __uint_as_float(h));
+    }
+}
+
+// One k-tile's 12 products (4 k-steps x lo hi, hi lo, hi hi).
+__device__ __forceinline__ void tf_products(float (&acc)[128], uint32_t (&ah)[16],
+                                            uint32_t (&al)[16], const unsigned char* hi,
+                                            const unsigned char* lo) {
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    const uint32_t a_hi[4] = {ah[4 * kk], ah[4 * kk + 1], ah[4 * kk + 2], ah[4 * kk + 3]};
+    const uint32_t a_lo[4] = {al[4 * kk], al[4 * kk + 1], al[4 * kk + 2], al[4 * kk + 3]};
+    const uint64_t dh = hop::smem_desc(hi + kk * 32, 16, 1024);
+    const uint64_t dl = hop::smem_desc(lo + kk * 32, 16, 1024);
+    hop::wgmma_m64n256k8_tf32(acc, a_lo, dh, 1);
+    hop::wgmma_m64n256k8_tf32(acc, a_hi, dl, 1);
+    hop::wgmma_m64n256k8_tf32(acc, a_hi, dh, 1);
+  }
+  hop::wgmma_commit();
+}
+
+template <int kMode>
+__device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtensorMap* tb,
+                                            TfArgs p, unsigned char* sm) {
+  if (kMode == kTfWgrad)
+    p.K = rows_at(p.K, p.nv_dev, p.nv_mul);
+  else
+    p.m_valid = rows_at(p.m_valid, p.nv_dev, p.nv_mul);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kTfRaw * kTfStage + 2 * kTfSplit);
+  uint64_t* empty = full + kTfRaw;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int tiles = ((p.N + kTfBN - 1) / kTfBN) * ((p.M + kTfBM - 1) / kTfBM) *
+                    (kMode == kTfWgrad ? p.splits : 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTfRaw; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      hop::tma_prefetch_map(ta);
+      hop::tma_prefetch_map(tb);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const TfTile w = tf_tile<kMode>(p, t);
+        for (int kt = 0; kt < w.nk; ++kt, ++it) {
+          const int s = it % kTfRaw;
+          hop::mbar_wait(&empty[s], ((it / kTfRaw) & 1) ^ 1);
+          hop::mbar_expect_tx(&full[s], kTfStage);
+          unsigned char* a_s = sm + s * kTfStage;
+          unsigned char* b_s = a_s + kTfABytes;
+          const int k0 = w.k_begin + kt * kTfBK;
+          if constexpr (kMode == kTfWgrad) {
+#pragma unroll
+            for (int j = 0; j < kTfBM / 32; ++j)
+              hop::tma_load_2d(a_s + j * kTfBox, ta, &full[s], w.m0 + 32 * j, k0);
+          } else {
+            hop::tma_load_2d(a_s, ta, &full[s], k0, w.m0);
+          }
+          if constexpr (kMode == kTfDx) {
+            hop::tma_load_2d(b_s, tb, &full[s], k0, w.n0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kTfBN / 32; ++j)
+              hop::tma_load_2d(b_s + j * kTfBox, tb, &full[s], w.n0 + 32 * j, k0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of each tile;
+  // thread (warp, lane) holds rows r and r + 8, columns
+  // 8 i + 2 (lane % 4) + {0, 1} of each 8-column group i
+  hop::regs_inc<232>();
+  const int cw = wg - 1, ctid = threadIdx.x - 128, q = lane % 4;
+  const int rl = cw * 64 + warp * 16 + lane / 4;  // the thread's first row in the tile
+  const philox::Key key = philox::key_at(p.key, p.seed);
+  p.key = key;
+  unsigned char* split0 = sm + kTfRaw * kTfStage;
+  float acc[128];
+  uint32_t ah[16], al[16];
+  int it = 0;  // k-tiles consumed: k-tile it uses raw stage and split buffer it % 2
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TfTile w = tf_tile<kMode>(p, t);
+    if (kMode == kTfQkv && w.nk == 0) continue;  // no valid row: nothing written
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < w.nk; ++kt, ++it) {
+      const int s = it % kTfRaw;
+      unsigned char* a_s = sm + s * kTfStage;
+      unsigned char* b_s = a_s + kTfABytes;
+      unsigned char* hi = split0 + s * kTfSplit;
+      unsigned char* lo = hi + kTfBBytes;
+      hop::mbar_wait(&full[s], (it / kTfRaw) & 1);
+      if constexpr (kMode == kTfWgrad) {  // the rows of this k-tile before the run-time count
+        const int k_lim = p.K - (w.k_begin + kt * kTfBK);
+        if (k_lim < kTfBK) tf_clip_k(a_s, b_s, k_lim, ctid);
+      }
+      if (kMode != kTfDx && p.thr) tf_mask_a<kMode>(a_s, p, w, kt, ctid);
+      csync();  // every consumer retired k-tile it - 2's products: its split buffer is free
+      tf_split_b<kMode>(b_s, hi, lo, ctid);
+      hop::fence_proxy_async();  // the split's stores, before wgmma reads them
+      csync();  // B split and A masked by all
+      // k-tile it - 1's products ran during this k-tile's split; they read the A registers
+      hop::wgmma_wait<0>();
+      hop::fence_regs(ah);
+      hop::fence_regs(al);
+      tf_load_a<kMode>(a_s, rl, q, ah, al);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[s]);  // the raw stage is read
+      tf_products(acc, ah, al, hi, lo);
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::fence_regs(ah);
+    hop::fence_regs(al);
+
+    const int r0 = w.m0 + rl;
+    float* C = p.out + (kMode == kTfWgrad ? size_t(w.z) * p.M * p.N : size_t(0));
+    const bool masked = kMode == kTfDx && p.thr && w.nk > 0;
+#pragma unroll
+    for (int i = 0; i < kTfBN / 8; ++i) {
+      const int col = w.n0 + 8 * i + 2 * q;
+      float v[4] = {acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]};
+      if (masked) {
+        // lane q draws the group of columns n0 + 8 i + 4 (q / 2) for row
+        // r0 + 8 (q % 2); its partner (q ^ 1) drew the other row's
+        const uint32_t own = uint32_t(r0 + 8 * (q & 1));
+        const uint4 x = philox::philox4x32_10(
+            make_uint4(own, uint32_t((w.n0 + 8 * i) / 4 + (q >> 1)), 0u, 0u), key);
+        const uint32_t b = uint32_t((x.x >> 8) < p.thr) | uint32_t((x.y >> 8) < p.thr) << 1 |
+                           uint32_t((x.z >> 8) < p.thr) << 2 | uint32_t((x.w >> 8) < p.thr) << 3;
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, b, 1);
+        const uint32_t b0 = (q & 1) ? other : b, b8 = (q & 1) ? b : other;
+        const int sh = 2 * (q & 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] *= (b0 >> (sh + e)) & 1 ? p.inv : 0.f;
+          v[2 + e] *= (b8 >> (sh + e)) & 1 ? p.inv : 0.f;
+        }
+      }
+      if (col >= p.N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r >= p.M || (kMode == kTfQkv && r >= p.m_valid)) continue;
+        float a0 = v[2 * h], a1 = v[2 * h + 1];
+        if (kMode == kTfDx && r >= p.m_valid) a0 = a1 = 0.f;
+        float* dst = C + size_t(r) * p.N + col;
+        if (!(p.N & 1)) {
+          *reinterpret_cast<float2*>(dst) = make_float2(a0, a1);
+        } else {
+          dst[0] = a0;
+          if (col + 1 < p.N) dst[1] = a1;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace ne

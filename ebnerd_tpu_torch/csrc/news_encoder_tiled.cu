@@ -15,10 +15,12 @@
 //      K1): persistent 128-row blocks, x's row block held in shared memory
 //      for all of P, the weight's k-tiles through a TMA ring, m64n128k16
 //      wgmma, each 128-column output tile stored by TMA from a buffer of
-//      its own. fp32 ("panel", and bf16 when asked: PR 16's kernel): 64 rows
-//      a block, 256 packed columns a panel on the QKV stage of
-//      news_encoder_common.cuh (fp32: cp.async/FMA, drawing the stream-0
-//      mask).
+//      its own. fp32 ("tf32x3", below; tiled_qkv_tf32x3_kernel): the
+//      3xTF32 GEMM core of news_encoder_common.cuh, x masked by stream 0
+//      in shared memory, persistent 128 x 256 output tiles. The first kernel
+//      ("panel", fp32 or bf16 when asked, for timing): 64 rows a block,
+//      256 packed columns a panel on the QKV stage of
+//      news_encoder_common.cuh (fp32: cp.async/FMA, drawing the mask).
 //   T2 tiled_attention_staged_kernel / tiled_attention_streamed_kernel /
 //      tiled_attention_kernel: the
 //      attention forward, O = round(P) V with P normalised, so the
@@ -49,7 +51,7 @@
 // After T4 the backward's GEMMs and reductions (news_encoder_bwd.cu) make
 // dx, dWqkv, dW, db and dq, as after the per-block kernel.
 //
-// T1 has two kernels, T2, T3 and T4 three each; the wrappers pick one
+// T1, T2, T3 and T4 have three kernels each; the wrappers pick one
 // before the launch (ops/news_encoder.py `qkv_variant`, `attention_variant`,
 // `pool_variant`) and pass the choice, which the launchers refuse where the
 // kernel does not take the shape. T2 and T4 (`variant`: 1 staged, 2
@@ -375,6 +377,18 @@ __global__ void __launch_bounds__(kCta, 1)
       csync();  // the panel is copied out before the next one's stages overwrite it
     }
   }
+}
+
+// T1 in fp32 on the tensor cores ("tf32x3"): Q|K|V = (x * stream-0 mask)
+// Wqkv on the GEMM core of news_encoder_common.cuh (tf32x3_gemm: a TMA ring
+// of fp32 k-tiles, x masked in place, split into TF32 hi and lo once per
+// CTA, m64n256k8 wgmma lo hi + hi lo + hi hi; persistent 128 x 256 output
+// tiles, the rows past the valid count unwritten).
+__global__ void __launch_bounds__(kTfThreads, 1)
+    tiled_qkv_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap wmap, TfArgs p) {
+  extern __shared__ __align__(1024) unsigned char tsm_raw[];
+  tf32x3_gemm<kTfQkv>(&xmap, &wmap, p, align_smem(tsm_raw));
 }
 
 // ---- T2: the attention forward ----
@@ -3154,6 +3168,30 @@ __global__ void __launch_bounds__(kThreads, 1) tiled_pool_streamed_kernel(PoolAr
 
 // ---- launchers ----
 
+// T1 "tf32x3" (fp32): a persistent grid, at most one CTA an SM; x [x_rows,
+// din] K-major and the weight [din, P] N-major by tensor maps.
+int launch_qkv_tf32x3(const QkvArgs& p, int x_rows, cudaStream_t stream) {
+  const long long tiles = (long long)((p.rows + kTfBM - 1) / kTfBM) * (p.P / kTfBN);
+  if (tiles == 0) return 0;
+  CUtensorMap xmap, wmap;
+  if (x_rows < 1 || !hop::f32_map(&xmap, p.x, p.din, x_rows, p.din, kTfBK, kTfBM) ||
+      !hop::f32_map(&wmap, p.wqkv, p.P, p.din, p.P, 32, kTfBK))
+    return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(tiled_qkv_tf32x3_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  if (e != cudaSuccess) return int(e);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return int(e);
+  // the valid rows: rows, or with nv_dev the first *nv_dev articles of t rows
+  const TfArgs a{static_cast<float*>(p.qkv), p.rows, p.P, p.din, p.din, 1, p.rows, p.key,
+                 p.thr_emb, p.inv_emb, p.seed_dev, p.nv_dev, p.t};
+  tiled_qkv_tf32x3_kernel<<<unsigned(std::min<long long>(tiles, sms)), kTfThreads, kTfSmem,
+                            stream>>>(xmap, wmap, a);
+  return int(cudaGetLastError());
+}
+
 // T1 "tma" (bf16): a persistent grid, at most one CTA an SM; x, the weight
 // and the output by tensor maps.
 int launch_qkv_tma(QkvArgs p, int x_rows, cudaStream_t stream) {
@@ -3183,14 +3221,17 @@ int launch_qkv_tma(QkvArgs p, int x_rows, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// T1: "tma" (variant 1, bf16 only: refused in fp32) or PR 16's panel kernel (0).
+// T1: "tma" (variant 1, bf16 only), "tf32x3" (variant 2, fp32 only) or the
+// panel kernel (0); any other request is refused.
 template <typename T>
 int launch_qkv(QkvArgs p, int x_rows, int variant, cudaStream_t stream) {
   constexpr bool kBf = std::is_same<T, bf16>::value;
   if (p.rows < 0 || p.din < 1 || p.P < kPanel || p.P % kPanel || p.din % (16 / int(sizeof(T))) ||
-      (p.thr_emb && (kBf || p.din % 4)) || (variant && !kBf))
+      (p.thr_emb && (kBf || p.din % 4)) || variant < 0 || variant > 2 ||
+      (variant == 1 && !kBf) || (variant == 2 && kBf))
     return int(cudaErrorInvalidValue);
-  if (variant) return launch_qkv_tma(p, x_rows, stream);
+  if (variant == 1) return launch_qkv_tma(p, x_rows, stream);
+  if (variant == 2) return launch_qkv_tf32x3(p, x_rows, stream);
   const int blocks = (p.rows + kRows - 1) / kRows;
   if (blocks == 0) return 0;
   const int nk = (p.din + kQkvBK - 1) / kQkvBK;
@@ -3380,7 +3421,7 @@ extern "C" {
 // [0, rows) of x @ wqkv, rounded to the compute dtype. With nv_dev (an
 // int32 article count in device memory, n articles of t rows) only the rows
 // of the first *nv_dev articles are computed. variant: 1 the "tma" kernel
-// (bf16 only), 0 PR 16's panel kernel.
+// (bf16 only), 2 the "tf32x3" kernel (fp32 only), 0 the panel kernel.
 int tiled_qkv(const void* x, int x_rows, const void* wqkv, void* qkv, int rows, int n, int t,
               int din, int P, const void* nv_dev, int is_bf16, unsigned seed_lo, unsigned seed_hi,
               const void* seed_dev, unsigned thr_emb, float inv_emb, int variant, void* stream) {

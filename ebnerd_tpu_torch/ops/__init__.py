@@ -13,11 +13,12 @@ __all__ = ["fused_news_encoder", "news_encoder_reference", "prng_dropout", "drop
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by its kernel's name; each counts its
     launches in ``launches`` and those recorded into a CUDA graph in
-    ``captured`` (``_build.count``). T1's wrapper launches one of two
-    kernels, T2's, T3's and T4's one of three: the newer ones count on their
-    ``tma``, ``staged``, ``streamed`` or ``resident``. K1's and the per-block
-    kernel's fp32 launches count on their wrappers and again by their stages
-    (``tf32x3``: 3xTF32 on the tensor cores, ``fma``: the FMA stages)."""
+    ``captured`` (``_build.count``). T1's, T2's, T3's and T4's wrappers
+    launch one of three kernels each: the newer ones count on their ``tma``,
+    ``tf32x3``, ``staged``, ``streamed`` or ``resident``. K1's, the per-block
+    kernel's and K2's GEMM's fp32 launches count on their wrappers and again
+    by their kernel (``tf32x3``: 3xTF32 on the tensor cores, ``fma``: the
+    FMA stages or kernel)."""
     return {"news_encoder_fwd": fused_news_encoder, "news_encoder_bwd": fused_news_encoder_bwd,
             "news_encoder_bwd_block": launch_bwd_core, "news_encoder_bwd_gemm": bwd_gemm,
             "news_encoder_bwd_reduce": reduce_rows, "news_encoder_bwd_mask": emb_mask,
@@ -35,4 +36,6 @@ def kernel_counters() -> dict:
             "news_encoder_fwd_fma": fused_news_encoder.fma,
             "news_encoder_bwd_block_tf32x3": launch_bwd_core.tf32x3,
             "news_encoder_bwd_block_fma": launch_bwd_core.fma,
+            "news_encoder_bwd_gemm_tf32x3": bwd_gemm.tf32x3,
+            "news_encoder_bwd_gemm_fma": bwd_gemm.fma, "tiled_qkv_tf32x3": tiled_qkv.tf32x3,
             "philox_mask_dump": dump_masks, "prng_dropout": dropout_apply}

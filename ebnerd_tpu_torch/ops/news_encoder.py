@@ -75,7 +75,8 @@ from . import _build, philox
 
 __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "news_encoder",
            "news_encoder_reference", "news_encoder_bwd_reference", "pack_weights", "pack_qkv",
-           "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "slice_rows",
+           "unpack_qkv", "bwd_gemm", "bwd_gemm_reference", "gemm_splits", "gemm_splits_fp32",
+           "gemm_variant", "slice_rows",
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
            "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
            "articles_per_block", "o_width", "route", "panel_layout", "attention_variant",
@@ -112,6 +113,18 @@ _FWD_CLUSTER = 2
 _BWD_CLUSTER = 1
 _MAX_SLICES = 64         # weight-gradient slices at most (partials: slices x M x N fp32)
 _MIN_SLICE_ROWS = 4096   # rows of a slice at least (64 k-tiles)
+# fp32's GEMM on the tensor cores (3xTF32; csrc/news_encoder_common.cuh tf32x3_gemm): its
+# output tile, its k-tile, and the rows of a weight-gradient slice at least (8 k-tiles), far
+# fewer than bf16's: the CLI's dW has 4 output tiles and 13,830 rows, and 33 slices of it
+# (132 CTAs) take 11 MB of partials. And at most: the tensor cores' fp32 accumulation loses
+# accuracy with a slice's rows (as a truncating accumulator would; on an H100, 3.7e-4 of the
+# scale at 51,648 rows; 4,096 keep it near 3e-5, inside the fp32 checks' 1e-4); the partials,
+# summed by ``reduce_rows`` in fp32, round to nearest
+_TF32_TILE = (128, 256)
+_TF32_K_TILE = 32
+_TF32_MIN_SLICE_ROWS = 256
+_TF32_MAX_SLICE_ROWS = 4096
+_TF32_MAX_SLICES = 256
 _REDUCE_BLOCKS = 2 * _SMS  # blocks the reduction aims for (two per SM)
 _REDUCE_MIN_ROWS = 64    # rows of a reduction chunk at least
 _TF32_MIN_HEAD_DIM = 8   # fp32 on the tensor cores: a head fills one k-step of a TF32 tile
@@ -461,7 +474,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 7 + [i] + [p] * 3 + [i] * 9
                                           + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, i, p])
     lib.news_encoder_bwd_core.restype = i
-    lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 10 + [p, i, i, u, u, p, u, f, p]
+    lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 10 + [p, i, i, u, u, p, u, f, i, p]
     lib.news_encoder_gemm.restype = i
     lib.news_encoder_mask_x.argtypes = [p, i, p, p, i, i, p, i, i, u, u, p, u, f, p]
     lib.news_encoder_mask_x.restype = i
@@ -783,11 +796,45 @@ def gemm_splits(m: int, n: int, rows: int) -> int:
     return min(s for s, c in cost.items() if c <= 1.02 * best)
 
 
-def slice_rows(rows: int, splits: int) -> int:
+def gemm_splits_fp32(m: int, n: int, rows: int) -> int:
+    """``gemm_splits`` for fp32's GEMM on the tensor cores: row slices of a
+    weight-gradient product [rows] -> [m, n] counted in that kernel's
+    128 x 256 output tiles, a slice at ``_TF32_MIN_SLICE_ROWS`` rows or more
+    (its k-tiles are 32 rows) and at most ``_TF32_MAX_SLICE_ROWS`` (the
+    accuracy of the tensor cores' accumulation), at most
+    ``_TF32_MAX_SLICES`` slices where those allow: of those slice counts,
+    the one with the least waves of CTAs per slice's share of the rows,
+    ceil(tiles * s / 132) / s, or the smallest s within 2% of it. A function
+    of the shapes alone (the same bits on every run); at the CLI's and the
+    fp32 step's towers the grid fills the card's 132 SMs."""
+    tiles = -(-m // _TF32_TILE[0]) * -(-n // _TF32_TILE[1])
+    low = max(1, -(-rows // _TF32_MAX_SLICE_ROWS))
+    top = max(low, min(_TF32_MAX_SLICES, rows // _TF32_MIN_SLICE_ROWS))
+    cost = {s: -(-tiles * s // _SMS) / s for s in range(low, top + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.02 * best)
+
+
+def slice_rows(rows: int, splits: int, k_tile: int = _GEMM_K_TILE) -> int:
     """Rows of each slice: the rows cut into ``splits`` slices, rounded up
-    to a whole k-tile (the last slice takes what is left, or nothing)."""
+    to a whole k-tile of ``k_tile`` rows (bf16's 64, fp32's 32; the last
+    slice takes what is left, or nothing)."""
     per = -(-rows // splits)
-    return max(1, -(-per // _GEMM_K_TILE)) * _GEMM_K_TILE
+    return max(1, -(-per // k_tile)) * k_tile
+
+
+def gemm_variant(dtype: torch.dtype) -> str:
+    """The kernel K2's GEMM launches in the compute ``dtype``: "wgmma" in
+    bf16 (``bwd_gemm_wgmma_kernel``), "tf32x3" in fp32
+    (``bwd_gemm_tf32x3_kernel``: 3xTF32 wgmma on the tensor cores, each
+    operand split into TF32 hi and lo once per CTA, see ``tf32_matmul``).
+    The FMA kernel, "fma", stays reachable only by patching this rule,
+    for timing (``chip_smoke.py``'s ``ruled``); the C entry takes the fp32
+    choice as its ``fp32_variant`` (``_GEMM_VARIANT``)."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+_GEMM_VARIANT = {"fma": 0, "tf32x3": 1}
 
 
 def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
@@ -804,9 +851,13 @@ def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
     bf16 runs on the tensor cores (wgmma, TMA) and takes the mask as
     ``emb_mask`` draws it: dx from ``keep``, its keep bits (scaled by
     ``drop.inv_emb``); the weight gradient from a masked a, with
-    ``Dropout()``. fp32 runs by FMA and draws the mask in the kernel.
+    ``Dropout()``. fp32 runs the kernel ``gemm_variant`` names (3xTF32 on
+    the tensor cores; its weight-gradient slices are whole 32-row k-tiles)
+    and draws the mask in the kernel.
     ``valid`` = (count, mul), an int32 device scalar and a multiplier: the
-    kernel reads rows = mul * count at run time, at most ``rows``."""
+    kernel reads rows = mul * count at run time, at most ``rows`` (fp32's
+    3xTF32 kernel takes the operands' rows past it as zeros, whatever they
+    hold)."""
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("a and b must share the compute dtype (float32 or bfloat16)")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -830,7 +881,9 @@ def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
         if not 0 <= rows <= min(a.shape[0], b.shape[0]):
             raise ValueError(f"rows={rows} outside [0, {min(a.shape[0], b.shape[0])}]")
         out = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
-        kk, lda, ldb, kps = rows, m, n, slice_rows(rows, splits)
+        kk, lda, ldb = rows, m, n
+        kps = slice_rows(rows, splits, _GEMM_K_TILE if is_bf16 else _TF32_K_TILE)
+    var = gemm_variant(a.dtype)
     lib = _library_bwd()
     with torch.cuda.device(a.device):
         err = lib.news_encoder_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(keep),
@@ -839,13 +892,20 @@ def bwd_gemm(a: torch.Tensor, b: torch.Tensor, *, dx: bool, rows: int,
                                     _ptr(None if valid is None else valid[0]),
                                     0 if valid is None else valid[1], int(is_bf16),
                                     drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb,
-                                    drop.inv_emb, _stream(a.device))
+                                    drop.inv_emb, 0 if is_bf16 else _GEMM_VARIANT[var],
+                                    _stream(a.device))
     _check_launch(lib, err, "news_encoder_gemm", lib.news_encoder_bwd_error_string)
     _build.count(bwd_gemm)
+    if not is_bf16:
+        _build.count(getattr(bwd_gemm, var))
     return out
 
 
 bwd_gemm.launches = bwd_gemm.captured = 0
+# the fp32 launches by kernel (each counted on the wrapper too): 3xTF32 on the tensor cores,
+# or the FMA kernel (``gemm_variant``)
+bwd_gemm.tf32x3 = _build.KernelCount()
+bwd_gemm.fma = _build.KernelCount()
 
 
 def emb_mask(rows: int, width: int, drop: Dropout, *, device, x=None, valid=None) -> tuple:
@@ -907,13 +967,21 @@ def emb_mask_reference(rows: int, width: int, seed, emb_keep: float, x=None) -> 
 
 
 def bwd_gemm_reference(a, b, *, dx: bool, rows: int, drop: Dropout = Dropout(),
-                       seed=None, emb_keep: float = 1.0) -> torch.Tensor:
+                       seed=None, emb_keep: float = 1.0, tf32_passes: int = 0,
+                       splits: int = 1) -> torch.Tensor:
     """Plain version of ``bwd_gemm`` (the dx product, or the sum of the
     weight-gradient partials) in fp32 from the rounded operands; ``seed``
-    and ``emb_keep`` regenerate the stream-0 mask."""
+    and ``emb_keep`` regenerate the stream-0 mask. ``tf32_passes`` 3 (fp32
+    only) takes each product as the 3xTF32 kernel does (``tf32_matmul``),
+    the weight gradient by ``splits`` slices of ``slice_rows`` rows (32-row
+    k-tiles) summed in slice order, as ``reduce_rows`` adds up to 32
+    partials; 0 is one fp32 product."""
+    if tf32_passes not in (0, 3) or (tf32_passes and a.dtype != torch.float32):
+        raise ValueError(f"tf32_passes must be 0, or 3 in fp32; got {tf32_passes} in {a.dtype}")
+    mm = tf32_matmul if tf32_passes else torch.matmul
     af, bf = a.float(), b.float()
     if dx:
-        out = af @ bf.T
+        out = mm(af, bf.T)
         if drop.thr_emb:
             out = out * philox.mask(seed, philox.STREAM_EMB, out.shape[0], out.shape[1],
                                     emb_keep, device=a.device)
@@ -923,7 +991,13 @@ def bwd_gemm_reference(a, b, *, dx: bool, rows: int, drop: Dropout = Dropout(),
     if drop.thr_emb:
         af = _round(af * philox.mask(seed, philox.STREAM_EMB, rows, af.shape[1], emb_keep,
                                      device=a.device), a.dtype)
-    return af.T @ bf[:rows]
+    if not tf32_passes:
+        return af.T @ bf[:rows]
+    per, bf = slice_rows(rows, splits, _TF32_K_TILE), bf[:rows]
+    out = torch.zeros(af.shape[1], bf.shape[1], device=a.device)
+    for z in range(splits):
+        out = out + mm(af[z * per:(z + 1) * per].T, bf[z * per:(z + 1) * per])
+    return out
 
 
 def reduce_plan(nrows: int, ncols: int) -> int:
@@ -1022,10 +1096,11 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     valid = None if nv_dev is None else (nv_dev, t)
     dx = bwd_gemm(qkv, packed.wqkv, dx=True, rows=rows, drop=drop, keep=keep, valid=valid)
     dx = (dx if din == din_x else dx[:, :din_x]).reshape(n, t, din_x)
+    splits = gemm_splits if xin.dtype == torch.bfloat16 else gemm_splits_fp32
     dwqkv = reduce_rows(bwd_gemm(xin, qkv, dx=False, rows=rows, drop=drop_in, valid=valid,
-                                 splits=gemm_splits(din, p_cols, rows))).reshape(din, p_cols)
+                                 splits=splits(din, p_cols, rows))).reshape(din, p_cols)
     dw = reduce_rows(bwd_gemm(o_c, dz_c, dx=False, rows=rows, valid=valid,
-                              splits=gemm_splits(o_c.shape[1], a_pad, rows)))
+                              splits=splits(o_c.shape[1], a_pad, rows)))
     dw = dw.reshape(o_c.shape[1], a_pad)[:d]
     db = reduce_rows(db_part[:nv_blocks])
     dq = reduce_rows(dq_part[:nv_blocks])
@@ -1159,10 +1234,15 @@ def qkv_variant(dtype: torch.dtype) -> str:
     """The kernel T1 launches in the compute ``dtype``: "tma" in bf16 (128-row
     blocks, x's row block loaded once where Din is at most 512, else
     streamed with the weight, the output tile stored by TMA apart from the
-    weight ring; any Din and P the wrapper takes), "panel" in fp32 (PR 16's
-    kernel, whose bf16 half stays for timing beside it). The launcher
-    refuses a "tma" request in fp32."""
-    return "tma" if dtype == torch.bfloat16 else "panel"
+    weight ring; any Din and P the wrapper takes), "tf32x3" in fp32 (the
+    3xTF32 GEMM core K2's fp32 GEMM runs on: 128 x 256 output tiles, x
+    masked and each operand split into TF32 hi and lo once per CTA). The
+    first "panel" kernel stays for timing, reached by patching this rule.
+    The launcher refuses "tma" in fp32 and "tf32x3" in bf16."""
+    return "tma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+_QKV_VARIANT = {"panel": 0, "tma": 1, "tf32x3": 2}
 
 
 def fp32_variant(head_dim: int) -> str:
@@ -1269,16 +1349,20 @@ def _pool_weights(o_c: torch.Tensor, packed: PackedWeights) -> tuple:
 
 
 def tiled_qkv_reference(x, packed: PackedWeights, drop: Dropout, *, n: int, t: int,
-                        nv: int) -> torch.Tensor:
+                        nv: int, tf32_passes: int = 0) -> torch.Tensor:
     """Plain version of T1: round(round(x * stream-0 mask) @ Wqkv) [N*T, P]
     in the compute dtype for the nv * T valid rows of ``kernel_input``'s x,
-    zeros past them."""
+    zeros past them. ``tf32_passes`` 3 (fp32) takes the product as the
+    "tf32x3" kernel does (``tf32_matmul``); 0 is one fp32 product."""
     cdt, rows = packed.wqkv.dtype, nv * t
+    if tf32_passes not in (0, 3) or (tf32_passes and cdt != torch.float32):
+        raise ValueError(f"tf32_passes must be 0, or 3 in fp32; got {tf32_passes} in {cdt}")
     xf = x[:rows].float()
     if drop.thr_emb:
         xf = xf * _philox_mask(drop, philox.STREAM_EMB, rows, x.shape[1], x.device)
     out = torch.zeros(n * t, packed.wqkv.shape[1], dtype=cdt, device=x.device)
-    out[:rows] = (_round(xf, cdt) @ packed.wqkv.float()).to(cdt)
+    xr, w = _round(xf, cdt), packed.wqkv.float()
+    out[:rows] = (tf32_matmul(xr, w) if tf32_passes else xr @ w).to(cdt)
     return out
 
 
@@ -1393,16 +1477,18 @@ def tiled_qkv(x, packed: PackedWeights, drop: Dropout, *, n: int, t: int, nv: in
     x_rows = _kernel_x(x, packed, nv, n, t)
     cdt, p_cols = packed.wqkv.dtype, packed.wqkv.shape[1]
     qkv = torch.empty(n * t, p_cols, dtype=cdt, device=x.device)
-    tma = qkv_variant(cdt) == "tma"
-    _launch_tiled(tiled_qkv.tma if tma else tiled_qkv, "tiled_qkv", x.device, x.data_ptr(),
-                  x_rows, packed.wqkv.data_ptr(), qkv.data_ptr(), nv * t, n, t, x.shape[1], p_cols,
-                  _ptr(nv_dev), int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi,
-                  _ptr(drop.seed_dev), drop.thr_emb, drop.inv_emb, int(tma))
+    var = qkv_variant(cdt)
+    _launch_tiled(tiled_qkv if var == "panel" else getattr(tiled_qkv, var), "tiled_qkv", x.device,
+                  x.data_ptr(), x_rows, packed.wqkv.data_ptr(), qkv.data_ptr(), nv * t, n, t,
+                  x.shape[1], p_cols, _ptr(nv_dev), int(cdt == torch.bfloat16), drop.seed_lo,
+                  drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb, drop.inv_emb, _QKV_VARIANT[var])
     return qkv
 
 
 tiled_qkv.launches = tiled_qkv.captured = 0
-tiled_qkv.tma = _build.KernelCount()  # the "tma" kernel's; PR 16's panel kernel's above
+# the "tma" (bf16) and "tf32x3" (fp32) kernels' launches; the panel kernel's above
+tiled_qkv.tma = _build.KernelCount()
+tiled_qkv.tf32x3 = _build.KernelCount()
 
 
 def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int, nv: int,

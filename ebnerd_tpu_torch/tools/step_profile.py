@@ -3,7 +3,8 @@
 Builds the step of ``python -m ebnerd_tpu_torch.bench`` for the family in
 ``BENCH_MODEL`` (nrms, lstur, naml, npa, fastformer or nrms_docvec; the
 same data, model, knobs and defaults, ``BENCH_SPARSE`` and
-``BENCH_MU_DTYPE`` among them), runs warm-up steps, then traces a
+``BENCH_MU_DTYPE`` among them, and ``BENCH_DTYPE=float32`` for the fp32
+step), runs warm-up steps, then traces a
 window of warm steps with ``torch.profiler`` (CPU and CUDA activities) and
 sums device time by kernel name into the step's parts: K1
 (``news_encoder_fwd_kernel``), the x mask drawn once before it, K2's
@@ -132,7 +133,7 @@ def main(argv=None) -> int:
     sparse, mu_dtype = bench.optimizer_knobs()
     scan = bench.scan_knob()
     model, tables, builder, n_users = bench.make_family(
-        name, torch.bfloat16, dropout, prng=os.environ.get("BENCH_PRNGDROP", "1") != "0")
+        name, bench.dtype_knob(), dropout, prng=os.environ.get("BENCH_PRNGDROP", "1") != "0")
     trainer = Trainer(model, tables, builder,
                       TrainerConfig(learning_rate=1e-4, seed=0, sparse_embedding=sparse,
                                     adam_mu_dtype=mu_dtype, scan_steps=scan), device="cuda")
@@ -167,7 +168,8 @@ def main(argv=None) -> int:
         by_part[part_of(e.name)] = by_part.get(part_of(e.name), 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = busy_ms(kernels)
-    rec = {"card": card, "model": name, "batch": bs, "sparse": sparse, "mu_dtype": mu_dtype,
+    rec = {"card": card, "model": name, "batch": bs, "dtype": str(bench.dtype_knob()),
+           "sparse": sparse, "mu_dtype": mu_dtype,
            "scan_steps": scan, "captures": trainer.scan_stats["captures"],
            "capture_s": trainer.scan_stats["capture_s"],
            "replay_launches_per_step": {k: (v - launches.get(k, 0)) / steps for k, v in

@@ -44,7 +44,7 @@ DIN = 400  # T1's input width: the news vectors the user tower encodes
 HBM_BYTES_S, BF16_OPS_S = 3.35e12, 989e12
 REL_TOL, CHECKED = 2e-2, 256
 # each wrapper's newer kernels (their KernelCount attributes, which name them) and its first one
-NEWER = {"tiled_qkv": (("tma",), "panel"), "tiled_attention": (("staged", "streamed"), "gather"),
+NEWER = {"tiled_qkv": (("tma", "tf32x3"), "panel"), "tiled_attention": (("staged", "streamed"), "gather"),
          "tiled_pool": (("resident", "streamed"), "chunked"),
          "tiled_pool_bwd": (("resident", "streamed"), "chunked"),
          "tiled_attention_bwd": (("staged", "streamed"), "gather")}

@@ -4,7 +4,9 @@
 against on the card, against float64 products of the same rounded inputs
 and the Philox stream-0 mask; the slice planner ``gemm_splits`` /
 ``slice_rows`` and the reduction's chunk plan ``reduce_plan``, which fix
-every gradient's summation order by the shapes alone."""
+every gradient's summation order by the shapes alone; fp32's slice rule
+``gemm_splits_fp32`` (the 3xTF32 kernel's) and its products' plain 3xTF32
+versions against float64."""
 import numpy as np
 import pytest
 import torch
@@ -172,3 +174,109 @@ def test_bf16_gemm_takes_the_mask_as_emb_mask_draws_it(dx):
     drop = port.dropout_config(1, 1, 4, KEEP, KEEP, SEED)
     with pytest.raises(ValueError, match="emb_mask"):
         port.bwd_gemm(a, a, dx=dx, rows=8, drop=drop)
+
+
+# fp32's GEMM on the tensor cores (3xTF32, ``gemm_splits_fp32``): its 128 x 256 tiles, slices
+# of whole 32-row k-tiles. The CLI's news tower (train_newsrec.py: 461 valid articles of 30
+# tokens, Din 300): dWqkv [300, 1,280] and dW [400, 208]; then the fp32 step's four at full width
+CLI_WGRAD = [(300, 1280, 13_830), (400, 208, 13_830)]
+
+
+def _fp32_slices(rows, splits):
+    kps = port.slice_rows(rows, splits, 32)
+    return kps, [(z * kps, min(rows, (z + 1) * kps)) for z in range(splits)]
+
+
+@pytest.mark.parametrize("m,n,rows", CLI_WGRAD + STEP_WGRAD + RAGGED_WGRAD)
+def test_fp32_slices_cover_each_row_once_in_whole_k_tiles(m, n, rows):
+    """Every row in exactly one slice, each slice whole 32-row k-tiles (the
+    kernel refuses any other), at least 256 rows where the rows allow and at
+    most 4,096 (the tensor cores' fp32 accumulation loses accuracy with a
+    slice's rows)."""
+    splits = port.gemm_splits_fp32(m, n, rows)
+    kps, slices = _fp32_slices(rows, splits)
+    assert 1 <= splits <= 256 and kps % 32 == 0 and kps <= 4096
+    assert kps >= min(256, max(rows, 1)) or splits == 1
+    covered = np.zeros(rows, np.int64)
+    for lo, hi in slices:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("m,n,rows", CLI_WGRAD + STEP_WGRAD)
+def test_fp32_slices_fill_a_wave_of_ctas(m, n, rows):
+    """At the CLI's news tower and the fp32 step's towers the grid has at
+    least one CTA for each of the card's 132 SMs (the bf16 rule's 4,096-row
+    slices gave the CLI's dW 4 x 3 = 12 tiles of the 3xTF32 kernel)."""
+    splits = port.gemm_splits_fp32(m, n, rows)
+    tiles = -(-m // 128) * -(-n // 256)
+    assert tiles * splits >= SMS
+    assert tiles * port.gemm_splits(m, n, rows) < SMS or rows > 100_000
+
+
+def test_fp32_plan_depends_on_the_shapes_alone():
+    shapes = CLI_WGRAD + STEP_WGRAD + RAGGED_WGRAD
+    first = [port.gemm_splits_fp32(*s) for s in shapes]
+    again = [port.gemm_splits_fp32(*s) for s in shapes[::-1]]
+    assert first == again[::-1]
+    assert [port.gemm_splits_fp32(*s) for s in CLI_WGRAD + STEP_WGRAD] == [26, 33, 164, 164, 85,
+                                                                          98]
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")])
+def test_gemm_variant_by_dtype(dtype, want):
+    assert port.gemm_variant(dtype) == want
+
+
+def _f32(rng, *shape, scale=1.0):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("r_all,rows,m,n", [(4_200, 4_163, 300, 136), (900, 777, 72, 40),
+                                            (64, 1, 16, 8)])
+def test_fp32_weight_gradient_in_3xtf32_matches_float64(masked, r_all, rows, m, n):
+    """The 3xTF32 kernel's plain version of a weight gradient: each slice
+    of ``gemm_splits_fp32`` a 3xTF32 product, the slices summed in order
+    (``reduce_rows``' order for up to 32 partials), within 2e-6 of a
+    float64 product's scale; rows past ``rows`` add nothing."""
+    rng = np.random.default_rng(r_all + m + masked)
+    a, b = _f32(rng, r_all, m), _f32(rng, r_all, n, scale=1e-2)
+    a[rows:] = 1e4
+    drop = port.dropout_config(1, 1, 4, KEEP, KEEP, SEED) if masked else port.Dropout()
+    splits = port.gemm_splits_fp32(m, n, rows)
+    out = port.bwd_gemm_reference(a, b, dx=False, rows=rows, drop=drop, seed=SEED, emb_keep=KEEP,
+                                  tf32_passes=3, splits=splits)
+    am = _f64(a)[:rows]
+    if masked:
+        am = am * _f64(philox.mask(SEED, philox.STREAM_EMB, rows, m, KEEP))
+    want = am.T @ _f64(b)[:rows]
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert np.abs(_f64(out) - want).max() <= 2e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("m_all,rows,n,k", [(300, 277, 300, 1280), (130, 67, 72, 48)])
+def test_fp32_dx_in_3xtf32_matches_float64(masked, m_all, rows, n, k):
+    """dx's plain 3xTF32 version: (dqkv Wqkv^T) * mask within 2e-6 of a
+    float64 product's scale, rows at or past ``rows`` exactly 0."""
+    rng = np.random.default_rng(m_all + n + masked)
+    a, b = _f32(rng, m_all, k, scale=1e-2), _f32(rng, n, k, scale=0.05)
+    drop = port.dropout_config(1, 1, 4, KEEP, KEEP, SEED) if masked else port.Dropout()
+    out = port.bwd_gemm_reference(a, b, dx=True, rows=rows, drop=drop, seed=SEED, emb_keep=KEEP,
+                                  tf32_passes=3)
+    want = _f64(a) @ _f64(b).T
+    if masked:
+        want = want * _f64(philox.mask(SEED, philox.STREAM_EMB, m_all, n, KEEP))
+    want[rows:] = 0.0
+    assert (out[rows:] == 0).all()
+    assert np.abs(_f64(out) - want).max() <= 2e-6 * np.abs(want).max()
+
+
+def test_tf32_passes_are_checked():
+    a = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="tf32_passes"):
+        port.bwd_gemm_reference(a, a, dx=True, rows=8, tf32_passes=1)
+    with pytest.raises(ValueError, match="tf32_passes"):
+        port.bwd_gemm_reference(a.to(torch.bfloat16), a.to(torch.bfloat16), dx=False, rows=8,
+                                tf32_passes=3)

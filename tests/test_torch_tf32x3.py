@@ -4,8 +4,9 @@ it against the JAX package's fp32 fused encoder (its Pallas kernel in
 interpret mode, as tests/ops/test_news_encoder.py runs it) at the CLI's
 news geometry cut in N, within the JAX kernel tests' 3e-5 (outputs) and
 5e-5 (gradients). One TF32 pass falls outside the card's fp32 checks (1e-4
-of scale): why the kernels take three. And the rule that picks the fp32
-stages, either side of its boundary."""
+of scale): why the kernels take three. K2's whole fp32 backward on the
+3xTF32 GEMM's plain products, and T1's 3xTF32 version, against JAX. And the
+rule that picks the fp32 stages, either side of its boundary."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +159,58 @@ def test_tf32_arguments_are_checked():
     # passes 0 is the plain fp32 path, unchanged
     plain = port.news_encoder_reference(*args, num_heads=2)
     assert torch.equal(plain, port.news_encoder_reference(*args, num_heads=2, tf32_passes=0))
+
+
+def test_k2_fp32_backward_on_3xtf32_gemms_matches_jax(cli_case):
+    """K2's whole fp32 backward as the card runs it: the per-block kernel's
+    plain version, then dx, dWqkv and dW as the 3xTF32 GEMM's plain version
+    (``bwd_gemm_reference(..., tf32_passes=3)``, weight gradients by the
+    slices of ``gemm_splits_fp32``) and the partials' sums, against the JAX
+    package's fp32 gradients (its Pallas kernel in interpret mode) under
+    the same cotangent, within 5e-5."""
+    x, ws, kern, jgrads = cli_case
+    heads, (n, t, din) = CLI["heads"], x.shape
+    d, a = ws[0].shape[1], ws[3].shape[1]
+    packed = port.pack_weights(*(torch.from_numpy(w) for w in ws), num_heads=heads,
+                               compute_dtype=torch.float32)
+    xin, _, drop = port.kernel_input(torch.from_numpy(x), n, port.Dropout())
+    g = torch.from_numpy(np.cos(kern)).contiguous()  # d sum(sin(out)) / d out
+    dqkv, o_c, dz_c, db_part, dq_part = port.bwd_core_reference(xin, packed, g, t=t, nv=n,
+                                                                drop=drop)
+    rows, p_cols, a_pad = n * t, packed.wqkv.shape[1], packed.w_att.shape[1]
+    gemm = lambda u, v, dx, **kw: port.bwd_gemm_reference(u, v, dx=dx, rows=rows, tf32_passes=3,
+                                                          **kw)
+    dx = gemm(dqkv, packed.wqkv, True)[:, :din].reshape(n, t, din)
+    dwqkv = gemm(xin, dqkv, False, splits=port.gemm_splits_fp32(xin.shape[1], p_cols, rows))
+    dw = gemm(o_c, dz_c, False, splits=port.gemm_splits_fp32(o_c.shape[1], a_pad, rows))
+    dwq, dwk, dwv = (w[:din] for w in port.unpack_qkv(dwqkv, heads, d))
+    got = (dx, dwq, dwk, dwv, dw[:d, :a], db_part.sum(0)[:a], dq_part.sum(0)[:a].reshape(a, 1))
+    for u, ref in zip(got, jgrads):
+        assert u.shape == ref.shape
+        np.testing.assert_allclose(u.numpy(), ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("nv,masked", [(4, False), (3, True)])
+def test_t1_fp32_in_3xtf32_matches_jax_qkv_projection(nv, masked):
+    """T1's plain 3xTF32 version (``tiled_qkv_reference(...,
+    tf32_passes=3)``): Q|K|V in the panel layout, against the JAX package's
+    QKV projection (x @ Wq, Wk, Wv in fp32) of the stream-0-masked x within
+    2e-6 of its scale; the rows past the nv valid articles zero."""
+    x, ws = _inputs(3, **CLI)
+    heads, (n, t, din) = CLI["heads"], x.shape
+    d = ws[0].shape[1]
+    packed = port.pack_weights(*(torch.from_numpy(w) for w in ws), num_heads=heads,
+                               compute_dtype=torch.float32)
+    seed = 0x5EED
+    drop = port.dropout_config(n, t, d, 1.0, 0.8, seed) if masked else port.Dropout()
+    xin, _, drop_in = port.kernel_input(torch.from_numpy(x), nv, drop)
+    qkv = port.tiled_qkv_reference(xin, packed, drop_in, n=n, t=t, nv=nv, tf32_passes=3)
+    xm = x.reshape(n * t, din)[:nv * t]
+    if masked:
+        xm = xm * port.philox.mask(seed, port.philox.STREAM_EMB, nv * t, din, 0.8).numpy()
+    jx = jnp.asarray(xm)
+    want = [np.asarray(jx @ jnp.asarray(w), dtype=np.float64) for w in ws[:3]]
+    got = port.unpack_qkv(qkv[:nv * t], heads, d)
+    for u, ref in zip(got, want):
+        assert np.abs(u.double().numpy() - ref).max() <= 2e-6 * np.abs(ref).max()
+    assert (qkv[nv * t:] == 0).all()

@@ -409,11 +409,12 @@ def test_pool_variant_streamed_plan_limits(t, d, dtype, backward, last):
 
 @pytest.mark.parametrize("din,dtype,expected", [
     (400, torch.bfloat16, "tma"), (512, torch.bfloat16, "tma"), (520, torch.bfloat16, "tma"),
-    (8, torch.bfloat16, "tma"), (400, torch.float32, "panel"), (4, torch.float32, "panel"),
+    (8, torch.bfloat16, "tma"), (400, torch.float32, "tf32x3"), (4, torch.float32, "tf32x3"),
 ])
 def test_qkv_variant_by_dtype(din, dtype, expected):
     """T1's kernel: "tma" for every bf16 shape (x held once up to Din 512,
-    streamed past it: 512 and 520), PR 16's "panel" kernel in fp32."""
+    streamed past it: 512 and 520), the 3xTF32 GEMM core in fp32 (the
+    "panel" kernel stays for timing only)."""
     assert port.qkv_variant(dtype) == expected
     assert din % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
 
