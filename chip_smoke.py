@@ -1087,6 +1087,281 @@ def fp32_t1_timed(peaks, gen) -> list:
     return out
 
 
+# [fp32 tiled]: T2 and T4 of the tiled route in fp32 (the JAX package's and the CLI's default
+# dtype) on their 3xTF32 staged and streamed kernels: at the history-50 user tower (staged) and
+# the history-200 one (streamed), [16,384, H, 400], 20 heads of 20, no dropout (as the user
+# tower); at the longest T the fp32 streamed T4 takes with heads 20 wide (attention_variant:
+# 12,800), where the tensor cores' fp32 accumulation runs longest; in a CUDA graph; and NRMS in
+# fp32 at bench.py's width with history 50. Their FMA branches (the parent's) are timed by
+# tools/tiled_times.py --tree on a checkout of it: the port keeps no FMA path for timing.
+FP32_TILED_TOWERS = (("user_h50", 50, 3), ("user_h200", 200, 2))  # name, T, timing iterations
+FP32_PLAIN_CHUNK = 512  # articles a call of the plain 3xTF32 T4 takes at T 200 (its copies)
+FP32_LONG_T = 12_800
+
+
+def _att_pieces(u, r):
+    """A T2 or T4 output's rows ``r``: o, (round(o), stats) or dQ|dK|dV."""
+    return (u[0][r], u[1][:, r]) if isinstance(u, tuple) else (u[r],)
+
+
+def _att_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_att_pieces(a, slice(None)),
+                                                 _att_pieces(b, slice(None))))
+
+
+def fp32_tiled_timed(peaks, gen) -> list:
+    """[fp32 tiled]: T2 (forward mode: o fp32; backward mode: round(o) and the
+    rows' statistics) and T4 in fp32 at FP32_TILED_TOWERS, on the kernels
+    ``attention_variant`` gives (staged at history 50, streamed at 200): each
+    launched twice on the same inputs (bit-equal, counted on its 3xTF32
+    kernel), held against its plain 3xTF32 version (``tf32_passes=3``) over
+    every article and its fp32 one over the first FP32_PLAIN_CHUNK, each
+    within FP32_GRAD_REL of the scale,
+    then timed in turns with scaled_dot_product_attention (kernel, SDPA,
+    SDPA, kernel; ``tools/tiled_times.sdpa_calls``: T2 beside SDPA's
+    forward, T4 beside its backward) beside its bound (3xTF32 products or
+    bytes; the FMA rate's beside it) and the plain 3xTF32 version's time.
+    Returns the records."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.tools import tiled_times
+
+    f32, out, mean = torch.float32, [], lambda v: sum(v) / len(v)
+    for tower, t, iters in FP32_TILED_TOWERS:
+        n, heads, hd = TRAIN_BS, HEADS, HEAD_DIM
+        kern, variant = tiled_names(t, hd, f32, D, ATT), ne.attention_variant(t, hd, f32)
+        check(kern["t2"] == f"tiled_attention_{variant}_tf32x3"
+              and kern["t4"] == f"tiled_attention_bwd_{variant}_tf32x3"
+              and variant == ne.attention_variant(t, hd, f32, True),
+              f"[fp32 tiled] {tower}: the kernels are {kern}")
+        x, ws = make_inputs(n, t, D, f32, gen)
+        packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=f32)
+        drop, kw, rows = ne.Dropout(), dict(n=n, t=t, nv=n), n * t
+        xin = ne.kernel_input(x, n, drop)[0]
+        qkv = ne.tiled_qkv(xin, packed, drop, **kw)
+        oc, st = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
+        g = torch.randn(n, D, generator=gen, device=DEV) * 1e-2
+        do = ne.tiled_pool_bwd(oc, packed, g, drop, **kw)[0]
+        del x, xin, oc, g
+        torch.cuda.empty_cache()
+        mm, qkv_b, st_b = 2.0 * heads * t * t * hd * n, rows * 3 * D * 4, 2 * rows * heads * 4
+        calls = {  # key: (kernel, call, plain on rows r, flops, bytes)
+            "t2": (kern["t2"], lambda: ne.tiled_attention(qkv, packed, drop, **kw)[0],
+                   lambda r, k, p: ne.tiled_attention_reference(qkv[r], packed, drop,
+                                                                tf32_passes=p, **k)[0],
+                   2 * mm, qkv_b + rows * D * 4),
+            "t2_bwd_mode": (kern["t2"], lambda: ne.tiled_attention(qkv, packed, drop,
+                                                                   backward=True, **kw),
+                            lambda r, k, p: ne.tiled_attention_reference(
+                                qkv[r], packed, drop, backward=True, tf32_passes=p, **k),
+                            2 * mm, qkv_b + rows * D * 4 + st_b),
+            "t4": (kern["t4"], lambda: ne.tiled_attention_bwd(qkv, do, st, packed, **kw),
+                   lambda r, k, p: ne.tiled_attention_bwd_reference(
+                       qkv[r], do[r], st[:, r], packed, tf32_passes=p, **k),
+                   5 * mm, 2 * qkv_b + rows * D * 4 + st_b)}
+        recs = {}
+        for key, (name, call, plain, flops, nbytes) in calls.items():
+            reset_counts()
+            runs = [call(), call()]
+            torch.cuda.synchronize()
+            cnt = read_counts()
+            check(cnt[name] == 2 and sum(cnt[k] for k in TILED) == 2,
+                  f"[fp32 tiled] {key} {tower}: launches {cnt}")
+            check(_att_equal(*runs), f"[fp32 tiled] {key} {tower}: two launches differ")
+            got = runs[0]
+            del runs
+            errs, plain_ms = {3: [0.0, 0.0], 0: [0.0, 0.0]}, {}
+            for passes in (3, 0):
+                def held(a0, a1):
+                    r = slice(a0 * t, a1 * t)
+                    ref = plain(r, dict(n=a1 - a0, t=t, nv=a1 - a0), passes)
+                    for u, v in zip(_att_pieces(got, r), _att_pieces(ref, slice(None))):
+                        check(bool(torch.isfinite(u).all()), f"[fp32 tiled] {key} non-finite")
+                        e = errs[passes]
+                        e[0] = max(e[0], (u - v).abs().max().item())
+                        e[1] = max(e[1], v.abs().max().item())
+
+                if passes:
+                    plain_ms[passes] = plain_chunked(held, n, t, FP32_PLAIN_CHUNK)
+                else:
+                    held(0, FP32_PLAIN_CHUNK)
+            for passes, (e, sc) in errs.items():
+                check(e <= FP32_GRAD_REL * sc, f"[fp32 tiled] {key} {tower}: max|kernel - plain "
+                                               f"({'3xTF32' if passes else 'fp32'})| {e} > "
+                                               f"{FP32_GRAD_REL} * {sc}")
+            del got
+            torch.cuda.empty_cache()
+            b_ms, b_by = tf32x3_bound(flops, nbytes, peaks)
+            recs[key] = {"case": f"{key}_{tower}", "kernel": name, "shape": [n, t, D],
+                         "max_abs_err": errs[3][0], "scale": errs[3][1],
+                         "fp32_plain_err": errs[0][0], "plain_ms": plain_ms[3],
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "fma_bound_ms": bound(flops, nbytes, peaks[1], peaks)[0],
+                         "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        q4 = [torch.randn(n, heads, t, hd, generator=gen, device=DEV) for _ in range(3)]
+        fwd, bwd = tiled_times.sdpa_calls(*q4, torch.randn(n, heads, t, hd, generator=gen,
+                                                           device=DEV) * 0.1)
+        library = {"t2": fwd, "t2_bwd_mode": fwd, "t4": bwd}
+        for key, (name, call, _, _, _) in calls.items():
+            turns = [time_ms(f, iters, warmup=1) for f in (call, library[key], library[key], call)]
+            r = recs[key]
+            r.update(ms=mean(turns[::3]), library_ms=mean(turns[1:3]), turns_ms=turns)
+            out.append(r)
+            print(f"[fp32 tiled] {name} ({key}) at the {tower} tower [{n}, {t}, {D}] fp32: "
+                  f"ms={r['ms']:.3f} (in turns kernel, SDPA, SDPA, kernel: "
+                  + ", ".join(f"{v:.3f}" for v in turns) + f"); SDPA's "
+                  f"{'backward' if key == 't4' else 'forward'} {r['library_ms']:.3f} "
+                  f"({r['library_ms'] / r['ms']:.2f}x the kernel's time); bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}, 3xTF32; {r['ms'] / r['bound_ms']:.2f}x "
+                  f"it; FMA {r['fma_bound_ms']:.4f}); max|kernel - plain 3xTF32| "
+                  f"{r['max_abs_err']:.2e} of {r['scale']:.2e}, fp32 plain "
+                  f"{r['fp32_plain_err']:.2e}; plain 3xTF32 {r['plain_ms']:.1f} ms; two launches "
+                  f"bit-equal", flush=True)
+        del qkv, st, do, packed, ws, q4, fwd, bwd, library, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def fp32_tiled_long(gen) -> dict:
+    """[fp32 tiled]: T2 and T4 in fp32 at FP32_LONG_T (2 articles, 1 valid,
+    2 heads of 20: the longest T the streamed T4 takes at that width), where
+    each product's fp32 accumulation on the tensor cores is T long: o, the
+    statistics and dQ|dK|dV against the plain 3xTF32 and fp32 versions
+    within FP32_GRAD_REL of the scale, two launches bit-equal."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    n, nv, t, heads, hd, f32 = 2, 1, FP32_LONG_T, 2, HEAD_DIM, torch.float32
+    check(ne.attention_variant(t, hd, f32, True) == "streamed"
+          and ne.attention_variant(t + 1, hd, f32, True) == "gather",
+          f"[fp32 tiled] T {t} is not the fp32 streamed T4's last at heads {hd} wide")
+    _, ws = make_inputs(1, 1, 16, f32, gen, heads, hd, 16, fan=True)
+    packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=f32)
+    qkv = torch.randn(n * t, packed.wqkv.shape[1], generator=gen, device=DEV)
+    dout = torch.randn(n * t, heads * hd, generator=gen, device=DEV) * 0.1
+    drop, kw, kr, rows = ne.Dropout(), dict(n=n, t=t, nv=nv), dict(n=nv, t=t, nv=nv), nv * t
+    reset_counts()
+    o = [ne.tiled_attention(qkv, packed, drop, **kw)[0] for _ in (0, 1)]
+    oc = [ne.tiled_attention(qkv, packed, drop, backward=True, **kw) for _ in (0, 1)]
+    dq = [ne.tiled_attention_bwd(qkv, dout, oc[0][1], packed, **kw) for _ in (0, 1)]
+    torch.cuda.synchronize()
+    cnt = read_counts()
+    check(cnt["tiled_attention_streamed_tf32x3"] == 4
+          and cnt["tiled_attention_bwd_streamed_tf32x3"] == 2,
+          f"[fp32 tiled] T {t}: launches {cnt}")
+    check(torch.equal(o[0][:rows], o[1][:rows]) and _att_equal(*oc) and torch.equal(*dq),
+          f"[fp32 tiled] T {t}: two launches differ")
+    rec, errs = {"shape": [n, t, heads, hd], "n_valid": nv}, {}
+    r = slice(0, rows)
+    for passes in (3, 0):
+        ro = ne.tiled_attention_reference(qkv[r], packed, drop, tf32_passes=passes, **kr)[0]
+        roc = ne.tiled_attention_reference(qkv[r], packed, drop, backward=True,
+                                           tf32_passes=passes, **kr)
+        rdq = ne.tiled_attention_bwd_reference(qkv[r], dout[r], oc[0][1][:, r], packed,
+                                               tf32_passes=passes, **kr)
+        for nm, u, v in (("o", o[0][r], ro), ("o_c", oc[0][0][r], roc[0]),
+                         ("stats", oc[0][1][:, r], roc[1]), ("dqkv", dq[0][r], rdq)):
+            e, sc = (u - v).abs().max().item(), v.abs().max().item()
+            errs[f"{nm}_{'3xtf32' if passes else 'fp32'}"] = [e, sc]
+            check(bool(torch.isfinite(u).all()) and e <= FP32_GRAD_REL * sc,
+                  f"[fp32 tiled] T {t}: {nm} max|kernel - plain| {e} > {FP32_GRAD_REL} * {sc}")
+        del ro, roc, rdq
+        torch.cuda.empty_cache()
+    check(not dq[0][rows:].any(), f"[fp32 tiled] T {t}: dQ|dK|dV past n_valid")
+    print(f"[fp32 tiled] T {t} (heads {heads}x{hd}, {nv} of {n} articles valid): T2 and T4 "
+          f"streamed against the plain 3xTF32 and fp32 versions: "
+          + " ".join(f"{k}={e:.2e}/{sc:.2e}" for k, (e, sc) in errs.items())
+          + f" (rel tol {FP32_GRAD_REL}); two launches bit-equal", flush=True)
+    return dict(rec, errors=errs)
+
+
+def fp32_tiled_graph(gen) -> dict:
+    """[fp32 tiled]: T2 (both modes) and T4 in fp32 with n_valid read from
+    device memory (staged at T 50, streamed at T 200; 20 heads of 20):
+    eager with a device count equals the host count's outputs bit for bit;
+    captured once in a CUDA graph, each replay reads the count then and
+    equals the eager run at that count bit for bit."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    f32, rec = torch.float32, {}
+    for t in (50, 200):
+        n, heads, hd = 37, HEADS, HEAD_DIM
+        kern = tiled_names(t, hd, f32, D, ATT)
+        _, ws = make_inputs(1, 1, 16, f32, gen, heads, hd, ATT)
+        packed = ne.pack_weights(*ws, num_heads=heads, compute_dtype=f32)
+        qkv = torch.randn(n * t, packed.wqkv.shape[1], generator=gen, device=DEV)
+        dout = torch.randn(n * t, D, generator=gen, device=DEV) * 0.1
+        drop = ne.Dropout()
+
+        def run(nv, nv_dev=None):
+            kw = dict(n=n, t=t, nv=nv, nv_dev=nv_dev)
+            o = ne.tiled_attention(qkv, packed, drop, **kw)[0]
+            oc, st = ne.tiled_attention(qkv, packed, drop, backward=True, **kw)
+            return [o, oc, st, ne.tiled_attention_bwd(qkv, dout, st, packed, **kw)]
+
+        counts = (n - 3, n - 11)
+        reset_counts()
+        host = [run(nv) for nv in counts]
+        dev = [run(n, torch.tensor(nv, dtype=torch.int32, device=DEV)) for nv in counts]
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        check(cnt[kern["t2"]] == 8 and cnt[kern["t4"]] == 4,
+              f"[fp32 tiled] graph T {t}: not {kern['t2']} and {kern['t4']}: {cnt}")
+
+        def same(a, b, nv):
+            r = slice(0, nv * t)
+            return (torch.equal(a[0][r], b[0][r]) and torch.equal(a[1], b[1])
+                    and torch.equal(a[2][:, r], b[2][:, r]) and torch.equal(a[3], b[3]))
+
+        for h, d_, nv in zip(host, dev, counts):
+            check(same(h, d_, nv), f"[fp32 tiled] graph T {t}: the device count {nv} changes "
+                                   f"the outputs")
+        nvt = torch.tensor(counts[0], dtype=torch.int32, device=DEV)
+        run(n, nvt)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = run(n, nvt)
+        for nv, d_ in zip(counts, dev):
+            nvt.fill_(nv)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(same(outs, d_, nv), f"[fp32 tiled] graph T {t}: the replay at n_valid {nv} "
+                                      f"differs from the eager run")
+        del graph, outs, host, dev, qkv, dout
+        rec[f"t{t}"] = {"kernels": [kern["t2"], kern["t4"]], "counts": list(counts),
+                        "bit_equal": True}
+    print("[fp32 tiled] device n_valid: T2 and T4 in fp32 at T 50 (staged) and 200 (streamed) "
+          "read the count from device memory (bit-equal to the host count's outputs); in a CUDA "
+          "graph each replay reads it then, bit-equal to the eager runs", flush=True)
+    return rec
+
+
+def fp32_tiled_phase(table, peaks, gen) -> dict:
+    """[fp32 tiled]: T2 and T4 in fp32 timed and held at the two towers
+    (``fp32_tiled_timed``), at the longest T (``fp32_tiled_long``), in a
+    CUDA graph (``fp32_tiled_graph``), and NRMS trained in fp32 at bench.py's
+    width with history 50 (``history_training``: T1 "tf32x3", T2 and T4 on
+    their 3xTF32 staged kernels, T3 as ``pool_variant`` answers in fp32;
+    one step against the plain path at [fp32 train]'s tolerances, 3
+    counted, 5 timed; served two-tower)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    t0 = time.perf_counter()
+    rec = {"timed": fp32_tiled_timed(peaks, gen), "long": fp32_tiled_long(gen),
+           "graph": fp32_tiled_graph(gen)}
+    release()
+    f32 = torch.float32
+    expect = history_expect(FP32_STEP, C3_HIST, f32)
+    check(ne.route(C3_HIST, HEAD_DIM, -(-ATT // 16) * 16) == "tiled",
+          "[fp32 tiled] history 50 is not on the tiled route")
+    rec["training_h50"] = history_training(
+        table, peaks, expect, tag="fp32 h50", cmp_bs=FP32_CMP_BS, keys=tuple(FP32_STEP) + TILED,
+        serve_counter=tiled_names(C3_HIST, HEAD_DIM, f32, D, ATT)["t1"], dtype=f32)
+    release()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[fp32 tiled] phase in {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def fp32_training(table, peaks) -> dict:
     """[fp32] NRMS at bench.py's width in fp32 (the JAX package's default
     dtype): the 250,002 x 1,024 table, title 30, history 20, 20 x 20 heads,
@@ -1147,16 +1422,17 @@ def fp32_cli() -> dict:
     ``--synthetic --use_fused_encoder`` with no ``--dtype``, 1 epoch, each
     training step's launches as FP32_STEP (``cli_run``), and every fp32
     launch of the run (validation and scoring too) on the tensor cores; then
-    again with ``--history_size 50``, whose user tower takes the tiled route
-    (T1 on the 3xTF32 kernel; each step's launches as ``history_expect``
-    gives them in fp32). Removes its output directories afterwards.
-    Returns {"cli": ..., "cli_h50": ...}."""
+    again with ``--history_size`` 50 and 200, whose user tower takes the
+    tiled route (T1 on the 3xTF32 kernel, T2 and T4 on their 3xTF32 staged
+    kernels at 50 and streamed ones at 200; each step's launches as
+    ``history_expect`` gives them in fp32). Removes its output directories
+    afterwards. Returns {"cli": ..., "cli_h50": ..., "cli_h200": ...}."""
     import shutil
 
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     out = {}
-    for key, hist in (("cli", None), ("cli_h50", C3_HIST)):
+    for key, hist in (("cli", None), ("cli_h50", C3_HIST), ("cli_h200", C3B_H200)):
         d = Path(__file__).resolve().parent / "build" / f"cli_nrms_fp32_{key}"
         argv = ["--model", "nrms", "--synthetic", "--use_fused_encoder", "--epochs", "1",
                 "--out_dir", str(d)] + ([] if hist is None else ["--history_size", str(hist)])
@@ -1181,6 +1457,13 @@ def fp32_cli() -> dict:
                 hist, HEAD_DIM, -(-ATT // 16) * 16) == "tiled" and n["tiled_qkv_tf32x3"]
                 >= 2 * rec["steps_per_epoch"] and n["tiled_qkv"] == 0,
                 f"cli nrms_fp32 {key}: T1 not on the 3xTF32 kernel: {n}")
+            k = tiled_names(hist, HEAD_DIM, torch.float32, D, ATT)
+            check(k["t2"].endswith("_tf32x3") and k["t4"].endswith("_tf32x3")
+                  and n[k["t2"]] >= 2 * rec["steps_per_epoch"]
+                  and n[k["t4"]] >= rec["steps_per_epoch"]
+                  and not any(n[f"tiled_attention{b}{v}"] for b in ("", "_bwd")
+                              for v in ("", "_staged", "_streamed")),
+                  f"cli nrms_fp32 {key}: T2 and T4 not on their 3xTF32 kernels: {n}")
         out[key] = rec
         del trainer
         shutil.rmtree(d, ignore_errors=True)
@@ -1192,12 +1475,15 @@ def fp32_phase(table, peaks, gen) -> dict:
     """[fp32]: the two kernels timed on the tensor cores against the
     FMA stages (``fp32_timed``), K2's fp32 GEMM and T1 on the 3xTF32 GEMM
     core against their FMA kernels and torch.matmul (``fp32_gemm_timed``,
-    ``fp32_t1_timed``), the GEMM under a device count (``fp32_gemm_dev``), NRMS trained in fp32 at full width
-    (``fp32_training``), and the CLI at its default dtype, at history 20
-    and 50 (``fp32_cli``)."""
+    ``fp32_t1_timed``), the GEMM under a device count (``fp32_gemm_dev``),
+    T2 and T4 on their 3xTF32 kernels with NRMS at history 50
+    (``fp32_tiled_phase``), NRMS trained in fp32 at full width
+    (``fp32_training``), and the CLI at its default dtype, at history 20,
+    50 and 200 (``fp32_cli``)."""
     t0 = time.perf_counter()
     rec = {"timed": fp32_timed(peaks, gen), "gemm": fp32_gemm_timed(peaks, gen),
            "gemm_dev": fp32_gemm_dev(gen), "t1": fp32_t1_timed(peaks, gen),
+           "tiled": fp32_tiled_phase(table, peaks, gen),
            "training": fp32_training(table, peaks), **fp32_cli()}
     rec["seconds"] = time.perf_counter() - t0
     print(f"[fp32] phase in {rec['seconds']:.1f} s", flush=True)
@@ -1344,10 +1630,11 @@ def _c3_kernel_cases(peaks, gen) -> dict:
 
 
 def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_BS, keys=None,
-                     serve_counter="news_encoder_fwd") -> dict:
-    """[c3] (and [c3b]) NRMS at bench.py's width with a longer history: the
-    250,002 x 1,024 table, title 30, 20 x 20 heads, attention 200, batch
-    16,384, npratio 4, dropout 0.2, dedup, bf16 and Zipf(1.07) draws, so
+                     serve_counter="news_encoder_fwd", dtype=torch.bfloat16) -> dict:
+    """[c3] (and [c3b], [fp32 tiled]) NRMS at bench.py's width with a longer
+    history: the 250,002 x 1,024 table, title 30, 20 x 20 heads, attention
+    200, batch 16,384, npratio 4, dropout 0.2, dedup, Zipf(1.07) draws, in
+    the compute ``dtype`` (bf16 unless given), so
     that the user tower runs the encoder at [16,384, ``hist``, 400]. One
     step against the plain path (``step_vs_plain``) on a batch of
     ``cmp_bs``, TRAIN_STEPS counted steps (the launches of the kernels in
@@ -1369,8 +1656,9 @@ def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_
     preps = [prep_dedup_batch(r, min_bucket=512) for r in raws]
     prep_ms = (time.perf_counter() - t0) / n_steps * 1e3
     lookup = Lookup.from_values(np.arange(1, N_ART + 1), table[1:])
-    trainer = Trainer(full_width_model(), {"title": lookup.matrix}, token_batch,
+    trainer = Trainer(full_width_model(dtype), {"title": lookup.matrix}, token_batch,
                       TrainerConfig(learning_rate=LR, seed=0, dedup_articles=True), device=DEV)
+    check(trainer.model.dtype == dtype, f"[{tag} train] not a {dtype} model")
     staged = [trainer.prepare(r) for r in preps]
     check(tuple(raws[0]["hist_idx"].shape) == (TRAIN_BS, hist), f"history-{hist} batch shape")
     cmp = staged[0] if cmp_b is None else trainer.prepare(prep_dedup_batch(
@@ -1420,7 +1708,8 @@ def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_
           f"= {err:.3e} (tol {SCORE_ATOL})", flush=True)
     del trainer, staged
     torch.cuda.empty_cache()
-    return {"history": hist, "batch": TRAIN_BS, "compared_batch": cmp_bs, "loss_kernels": loss_k,
+    return {"history": hist, "dtype": str(dtype)[6:], "batch": TRAIN_BS, "compared_batch": cmp_bs,
+            "loss_kernels": loss_k,
             "loss_plain": loss_p,
             "grad_errors": grad_errs, "losses": losses, "launches_per_step": per_step,
             "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
@@ -1500,10 +1789,19 @@ C3B_H200_CMP_BS = 1_024  # its step compared with the plain path: [B, 20, 200, 2
 TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_qkv_tf32x3", "tiled_attention", "tiled_attention_staged",
          "tiled_attention_streamed", "tiled_pool", "tiled_pool_resident", "tiled_pool_streamed",
          "tiled_pool_bwd", "tiled_pool_bwd_resident", "tiled_pool_bwd_streamed",
-         "tiled_attention_bwd", "tiled_attention_bwd_staged", "tiled_attention_bwd_streamed")
+         "tiled_attention_bwd", "tiled_attention_bwd_staged", "tiled_attention_bwd_streamed",
+         "tiled_attention_staged_tf32x3", "tiled_attention_streamed_tf32x3",
+         "tiled_attention_bwd_staged_tf32x3", "tiled_attention_bwd_streamed_tf32x3")
 ATT_SUFFIX = {"staged": "_staged", "streamed": "_streamed", "gather": ""}  # attention_variant's
 QKV_SUFFIX = {"tma": "_tma", "tf32x3": "_tf32x3", "panel": ""}  # qkv_variant's
 POOL_SUFFIX = {"resident": "_resident", "streamed": "_streamed", "chunked": ""}  # pool_variant's
+
+
+def att_suffix(variant: str, cdt) -> str:
+    """``attention_variant``'s answer as a kernel name's suffix: the staged
+    and streamed kernels in fp32 (3xTF32) count apart from bf16."""
+    fp32 = cdt == torch.float32 and variant != "gather"
+    return ATT_SUFFIX[variant] + ("_tf32x3" if fp32 else "")
 
 
 def tiled_names(t, hd, cdt, d, a) -> dict:
@@ -1513,7 +1811,7 @@ def tiled_names(t, hd, cdt, d, a) -> dict:
     from ebnerd_tpu_torch.ops import news_encoder as ne
 
     a_pad = -(-a // 16) * 16
-    att = lambda bwd: ATT_SUFFIX[ne.attention_variant(t, hd, cdt, bwd)]
+    att = lambda bwd: att_suffix(ne.attention_variant(t, hd, cdt, bwd), cdt)
     pool = lambda bwd: POOL_SUFFIX[ne.pool_variant(t, d, a_pad, cdt, bwd)]
     return {"t1": "tiled_qkv" + QKV_SUFFIX[ne.qkv_variant(cdt)],
             "t2": "tiled_attention" + att(False), "t3": "tiled_pool" + pool(False),
@@ -1890,7 +2188,7 @@ def c3b_variants(gen) -> list:
         dq = [ne.tiled_attention_bwd(qkv, dout, runs[0][2], packed, **kw) for _ in (0, 1)]
         torch.cuda.synchronize()
         cnt = read_counts()
-        sfx = [ATT_SUFFIX[v] for v in want]
+        sfx = [att_suffix(v, cdt) for v in want]
         check(cnt["tiled_attention" + sfx[0]] == 4 and cnt["tiled_attention_bwd" + sfx[1]] == 2
               and sum(cnt[k] for k in TILED) == 6, f"c3b variant {name}: launches {cnt}")
         ro = ne.tiled_attention_reference(qkv, packed, drop_in, **kr)[0]
@@ -2099,14 +2397,16 @@ def c3b_qkv_pool_variants(gen) -> dict:
     return rec
 
 
-def plain_chunked(fn, n: int, t: int) -> float:
+def plain_chunked(fn, n: int, t: int, chunk: int = 0) -> float:
     """ms of a plain version over all ``n`` articles, called on slices of
-    C3B_PLAIN_CHUNK articles (``fn(a0, a1)``), after one untimed slice."""
-    fn(0, min(n, C3B_PLAIN_CHUNK))
+    ``chunk`` articles (C3B_PLAIN_CHUNK unless given; ``fn(a0, a1)``), after
+    one untimed slice."""
+    chunk = chunk or C3B_PLAIN_CHUNK
+    fn(0, min(n, chunk))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for a0 in range(0, n, C3B_PLAIN_CHUNK):
-        fn(a0, min(n, a0 + C3B_PLAIN_CHUNK))
+    for a0 in range(0, n, chunk):
+        fn(a0, min(n, a0 + chunk))
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
 
@@ -5906,6 +6206,40 @@ def main(argv=None) -> int:
           and not any(kernels["kernels"][-2]["launches_fma_kernel"].values())
           and kernels["kernels"][-1]["launches_panel_kernel"] == 0,
           "[fp32] the 3xTF32 GEMM core never ran on the fp32 step or the CLI, or an FMA kernel did")
+    # [fp32 tiled]: T2 and T4's staged and streamed kernels in fp32 (3xTF32 on mma.sync m16n8k8),
+    # launched by the fp32 step at history 50 (staged) and the CLI at its default dtype with
+    # --history_size 200 (streamed); timed at the history-50 and 200 user towers in turns with SDPA
+    ft = {r["case"]: r for r in fp32_rec["tiled"]["timed"]}
+    h50_step_l, h200_l = (fp32_rec["tiled"]["training_h50"]["launches"],
+                          fp32_rec["cli_h200"]["launches"])
+    for name, key, tower, line, what in (
+            ("tiled_attention_staged_tf32x3", "t2", "user_h50", 234, "T2 staged (T <= 128)"),
+            ("tiled_attention_bwd_staged_tf32x3", "t4", "user_h50", 529, "T4 staged (T <= 128)"),
+            ("tiled_attention_streamed_tf32x3", "t2", "user_h200", 234, "T2 streamed (past T 128)"),
+            ("tiled_attention_bwd_streamed_tf32x3", "t4", "user_h200", 529,
+             "T4 streamed (past T 128)")):
+        r, staged = ft[f"{key}_{tower}"], "staged" in name
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu",
+            "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}",
+            "launches": (h50_step_l if staged else h200_l)[name],
+            "launches_cli_fp32_h50": h50_l[name], "launches_cli_fp32_h200": h200_l[name],
+            **{k: r[k] for k in keys}, "fma_bound_ms": r["fma_bound_ms"],
+            "fp32_plain_err": r["fp32_plain_err"],
+            "note": f"{what} in fp32: every product in 3xTF32 on mma.sync m16n8k8 from shared "
+                    f"memory (k-steps of 8 over the head's 20 columns and the keys below t, P "
+                    f"and dS as A operands from their C fragments); launches: "
+                    + ("the fp32 step at history 50 (3 counted steps)" if staged else
+                       "the CLI at its default dtype with --history_size 200 (1 epoch)")
+                    + f"; timed at the {tower} tower {r['shape']} fp32 in turns with "
+                    f"scaled_dot_product_attention's {'backward' if key == 't4' else 'forward'} "
+                    f"(library_ms); plain_ms is the plain 3xTF32 version over every article; "
+                    f"bound_ms 3xTF32 (fma_bound_ms at the FMA rate)",
+            "checked": True,
+            "cases": [{k: c[k] for k in ("case",) + keys} for c in ft.values()
+                      if c["kernel"] == name]})
+    check(all(k["launches"] > 0 for k in kernels["kernels"][-4:]),
+          "[fp32 tiled] a 3xTF32 T2 or T4 kernel never ran on its path")
     for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     # [c3b]: the tiled route's kernels, launched by the history-100 steps and the history-200 ones
@@ -6011,7 +6345,7 @@ def main(argv=None) -> int:
                                             "scaled_dot_product_attention's backward")}
     h200 = c3b["timed_h200"]
     for name in TILED:
-        if name == "tiled_qkv_tf32x3":  # fp32 only: its entry is [fp32 t1]'s, above
+        if name.endswith("_tf32x3"):  # fp32 only: their entries are [fp32 t1]'s and [fp32 tiled]'s
             continue
         on_h200 = name in h200 and name not in c3b["timed"]["parts"]  # the streamed kernels
         part = h200[name] if on_h200 else c3b["timed"]["parts"][name]

@@ -98,13 +98,21 @@
 //     block per (article, head); a pass over the 16-row query tiles gives
 //     dP, delta (to device memory), dS and dQ, a pass over the key tiles
 //     dV and dK, the logits taken three times.
-// Both run bf16 on mma.sync m16n8k16 with fp32 accumulators and fp32 by
-// FMA with the same fragment ownership (no TF32: fp32 is held to 1e-4 of
-// scale). No atomics: every output element is written by one warp of one
-// block and every sum runs in a fixed order, so two launches are
-// bit-equal. (delta needs a whole row of P dP before its dS exists: the
-// staged query pass has the row in registers, the streamed and gathering
-// ones sweep it twice.)
+// All three run bf16 on mma.sync m16n8k16 with fp32 accumulators. In fp32
+// the staged and streamed kernels take every product (Q K^T, P V, dO V^T,
+// dS K, P^T dO, dS^T Q) in 3xTF32 on mma.sync m16n8k8 (the split of
+// news_encoder_common.cuh: each operand a TF32 high part and remainder, lo
+// hi + hi lo + hi hi, within 1e-4 of scale), in k-steps of 8 over the
+// head's width rounded up to 8 (20: 3 k-steps, not 32 padded columns) and
+// over the keys below t, P and dS as A operands straight from their C
+// fragments (paired k-steps, no shuffle), every fragment read from shared
+// memory free of bank conflicts (att_mm); the gathering kernels, on no
+// configured shape, keep FMA with the bf16 fragments' ownership. No
+// atomics: every output element is written by one warp of one block and
+// every sum runs in a fixed order, so two launches are bit-equal. (delta
+// needs a whole row of P dP before its dS exists: the staged query pass
+// has the row in registers, the streamed and gathering ones sweep it
+// twice.)
 //
 // What bounds them on the card: at the history-100 user tower ([16,384,
 // 100, 400], 20 heads of 20, A 200, bf16) T1 is bound by tensor-core
@@ -125,7 +133,12 @@
 // is left is the instruction stream itself: the logits twice (T2) and
 // three times (T4), over k-steps that are partly the head's zero padding
 // at 20 columns (T2 takes the last 8 by an m16n8k8 step), and the
-// elementwise work on each of them. For T1 "tma" and T3 "resident" and
+// elementwise work on each of them. In fp32 (3xTF32, PERF.md) the staged
+// T2 and T4 take 4.0x and 4.8x their bytes bounds at the history-50 user
+// tower, the streamed ones 14.6x and 17.4x their operations bounds at
+// history 200: latency, with one or two warps a scheduler (T4's resident
+// fp32 pair leaves one block an SM), which mma3_group's order and T4's
+// eight warps there shorten. For T1 "tma" and T3 "resident" and
 // "streamed" see their notes below.
 //
 // Interface: plain C, bound from Python with ctypes
@@ -797,9 +810,17 @@ inline bool staged_fits(int t, int hd, int elem, bool bwd) {
 // Blocks an SM holds at once that the registers are held to
 // (__launch_bounds__) up to T 112: the kernels wait on each pair's loads
 // and short chains of mma.sync, so blocks in flight count for more than a
-// few spilled registers.
-__host__ __device__ constexpr int t2_min_blocks(int nk) { return nk <= 14 ? 3 : 2; }
-__host__ __device__ constexpr int t4_min_blocks(int nk) { return nk <= 14 ? 2 : 1; }
+// few spilled registers. fp32 (elem 4): T2 four up to T 64 (T 50: 6.29
+// ms against 7.21 at three on an H100), fewer past it, where its 3xTF32
+// fragments (hi and lo) spilled 0.3-1.8 KB a thread at bf16's counts (T2 at
+// NK 10-16, T4 at NK 14; -Xptxas -v). T2 at NK 14 still spills 436 bytes
+// at two, and took 21.0 ms at T 100 against 26.2 at one (PERF.md).
+__host__ __device__ constexpr int t2_min_blocks(int nk, int elem) {
+  return elem == 4 ? (nk <= 8 ? 4 : nk <= 14 ? 2 : 1) : nk <= 14 ? 3 : 2;
+}
+__host__ __device__ constexpr int t4_min_blocks(int nk, int elem) {
+  return nk <= (elem == 4 ? 12 : 14) ? 2 : 1;
+}
 
 // cp.async of `bytes` (16, 8 or 4) with `valid` of them read and the rest
 // zero-filled.
@@ -893,12 +914,157 @@ __device__ __forceinline__ void smm(float (&acc)[NN][4], const T* a, int lda, in
   }
 }
 
-// acc[j] += F B[0 .. 8 NK, n0 + 8 j ..], F [16 x 8 NK] held as C
-// fragments whose columns are the contraction (bf16 rounds them as the A
-// operand, fp32 takes them as they are), B row-major in shared memory.
+// The fp32 products below take their B fragments by groups of kTcG column
+// tiles: mma3_group then issues one of the three TF32 products of a k-step
+// for every (row tile, column tile) of the group before the next, so that
+// consecutive mma.sync write different accumulators: one accumulator's three
+// products in a row each wait on the one before (mma_3xtf32), and with a
+// warp or two on a scheduler (T4 streamed in fp32 holds one block an SM at
+// T 200) nothing hides that wait.
+constexpr int kTcG = 4;
+
+// acc[r][j0 + u] += a[r] b[u] in 3xTF32 (lo hi, hi lo, hi hi, as
+// mma_3xtf32) for r < R and u < G where j0 + u is below NN and n.
+template <int R, int NN, int G>
+__device__ __forceinline__ void mma3_group(float (&acc)[R][NN][4], const FragA (&a)[R],
+                                           const FragB (&b)[G], int j0, int n) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (j0 + u < NN && j0 + u < n)
+          mma_1688(acc[r][j0 + u], p == 0 ? a[r].lo : a[r].hi, p == 1 ? b[u].lo : b[u].hi);
+}
+
+// Two products of one shape at once (T4: S and dP, dV and dK): acc0 += a0
+// b0 and acc1 += a1 b1 over the group, as mma3_group.
+template <int NN, int G>
+__device__ __forceinline__ void mma3_group2(float (&acc0)[NN][4], const FragA& a0,
+                                            const FragB (&b0)[G], float (&acc1)[NN][4],
+                                            const FragA& a1, const FragB (&b1)[G], int j0, int n) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      if (j0 + u < NN && j0 + u < n) {
+        mma_1688(acc0[j0 + u], p == 0 ? a0.lo : a0.hi, p == 1 ? b0[u].lo : b0[u].hi);
+        mma_1688(acc1[j0 + u], p == 0 ? a1.lo : a1.hi, p == 1 ? b1[u].lo : b1[u].hi);
+      }
+}
+
+// att_mm's fp32 fragments of the k-step whose slots are k, split: A's 16
+// rows from m0, B's column tile of 8 from n0.
+template <bool TR>
+__device__ __forceinline__ void att_a(FragA& fa, const float* a, int lda, int m0, int2 k) {
+  const int g = threadIdx.x % 32 / 4;
+  const float v[4] = {TR ? a[k.x * lda + m0 + g] : a[(m0 + g) * lda + k.x],
+                      TR ? a[k.x * lda + m0 + g + 8] : a[(m0 + g + 8) * lda + k.x],
+                      TR ? a[k.y * lda + m0 + g] : a[(m0 + g) * lda + k.y],
+                      TR ? a[k.y * lda + m0 + g + 8] : a[(m0 + g + 8) * lda + k.y]};
+  split_tf32(v, fa);
+}
+template <bool TR>
+__device__ __forceinline__ void att_b(FragB& fb, const float* b, int ldb, int n0, int2 k) {
+  const int n = n0 + threadIdx.x % 32 / 4;
+  const float v[2] = {TR ? b[k.x * ldb + n] : b[n * ldb + k.x],
+                      TR ? b[k.y * ldb + n] : b[n * ldb + k.y]};
+  split_tf32(v, fb);
+}
+
+// acc[j] (column tiles n0 + 8 j, j < nn) += A [16 x kd] B [kd x ..] for T2
+// and T4, both in shared memory, as smm takes them: A row-major and B by
+// columns (Q K^T, dO V^T), or with TR A stored transposed and B row-major
+// (P^T dO, dS^T Q). bf16: smm's k-steps of 16 (kd a multiple of 16, nn
+// even). fp32: 3xTF32 on mma.sync m16n8k8 in k-steps of 8 (kd a multiple of
+// 8: the head's width rounded up to 8, or the keys below t), A's fragment
+// split once a k-step for the nn tiles, the B fragments by groups of kTcG
+// (mma3_group). The k order keeps the fragment reads free of bank conflicts
+// at a row stride of 4 mod 16 words (pad_ld): single-word slots (c, c + 4)
+// along the rows (a lane's g picks the row, 4 g + c the bank), paired slots
+// (2c, 2c + 1) down the columns (2c picks the row, 8 c + g the bank).
+template <typename T, int NN, bool TR>
+__device__ __forceinline__ void att_mm(float (&acc)[NN][4], const T* a, int lda, int m0, const T* b,
+                                       int ldb, int n0, int kd, int nn) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    smm<T, NN, TR, TR>(acc, a, lda, m0, b, ldb, n0, kd / 16, nn);
+  } else {
+    auto& acc1 = reinterpret_cast<float(&)[1][NN][4]>(acc);
+    for (int k0 = 0; k0 < kd; k0 += 8) {
+      const int2 k = k_slots<TR>(k0);
+      FragA fa[1];
+      att_a<TR>(fa[0], a, lda, m0, k);
+#pragma unroll
+      for (int j0 = 0; j0 < NN; j0 += kTcG) {
+        if (j0 >= nn) break;
+        FragB fb[kTcG];
+#pragma unroll
+        for (int u = 0; u < kTcG; ++u)
+          if (j0 + u < NN && j0 + u < nn) att_b<TR>(fb[u], b, ldb, n0 + 8 * (j0 + u), k);
+        mma3_group(acc1, fa, fb, j0, nn);
+      }
+    }
+  }
+}
+
+// T4 staged's two products of one shape, as att_mm takes them: S and dP
+// (the query pass), dV and dK (TR, the key pass): acc0 += A0 B0 and acc1 +=
+// A1 B1. fp32 takes them in one loop (mma3_group2), twice the independent
+// accumulators.
+template <typename T, int NN, bool TR>
+__device__ __forceinline__ void att_mm2(float (&acc0)[NN][4], const T* a0, const T* b0,
+                                        float (&acc1)[NN][4], const T* a1, const T* b1, int lda,
+                                        int m0, int ldb, int n0, int kd, int nn) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    att_mm<T, NN, TR>(acc0, a0, lda, m0, b0, ldb, n0, kd, nn);
+    att_mm<T, NN, TR>(acc1, a1, lda, m0, b1, ldb, n0, kd, nn);
+  } else {
+    for (int k0 = 0; k0 < kd; k0 += 8) {
+      const int2 k = k_slots<TR>(k0);
+      FragA f0, f1;
+      att_a<TR>(f0, a0, lda, m0, k);
+      att_a<TR>(f1, a1, lda, m0, k);
+#pragma unroll
+      for (int j0 = 0; j0 < NN; j0 += kTcG) {
+        if (j0 >= nn) break;
+        FragB g0[kTcG], g1[kTcG];
+#pragma unroll
+        for (int u = 0; u < kTcG; ++u)
+          if (j0 + u < NN && j0 + u < nn) {
+            att_b<TR>(g0[u], b0, ldb, n0 + 8 * (j0 + u), k);
+            att_b<TR>(g1[u], b1, ldb, n0 + 8 * (j0 + u), k);
+          }
+        mma3_group2(acc0, f0, g0, acc1, f1, g1, j0, nn);
+      }
+    }
+  }
+}
+
+// The A fragment of k-step kk (8 contraction columns) from C fragments, by
+// paired k-steps (as warp_mma_tf32_c takes them): no shuffle.
+template <int N>
+__device__ __forceinline__ void c_to_tf32(const float (&f)[N][4], int kk, FragA& fa) {
+  const float v[4] = {f[kk][0], f[kk][2], f[kk][1], f[kk][3]};
+  split_tf32(v, fa);
+}
+
+// The paired B fragment of rows [k0, k0 + 8) and column n of B row-major in
+// shared memory (row stride ld), split.
+__device__ __forceinline__ void ldb_paired(FragB& fb, const float* b, int ld, int k0, int n) {
+  const float* q = b + (k0 + 2 * (threadIdx.x % 4)) * ld + n;
+  const float v[2] = {q[0], q[ld]};
+  split_tf32(v, fb);
+}
+
+// acc[j] (j < nn) += F B[.., n0 + 8 j ..], F [16 x 8 NK] held as C fragments
+// whose columns are the contraction, B row-major in shared memory. bf16:
+// F rounded as the A operand, k-steps of 16 over all NK tiles (nn even).
+// fp32: 3xTF32 by paired k-steps over F's first nk tiles (the keys below t:
+// P and dS are zero past them).
 template <typename T, int NK, int NN>
 __device__ __forceinline__ void smm_frag(float (&acc)[NN][4], const float (&f)[NK][4], const T* b,
-                                         int ldb, int n0, int nn) {
+                                         int ldb, int n0, int nn, int nk) {
   if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
@@ -914,22 +1080,21 @@ __device__ __forceinline__ void smm_frag(float (&acc)[NN][4], const float (&f)[N
       }
     }
   } else {
-    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+    const int g = threadIdx.x % 32 / 4;
+    auto& acc1 = reinterpret_cast<float(&)[1][NN][4]>(acc);
 #pragma unroll
-    for (int kc = 0; kc < 8 * NK; ++kc) {
-      // column kc of F sits in lane 4 g + (kc % 8) / 2, tile kc / 8, slot kc % 2
-      const int src = 4 * g + (kc % 8) / 2;
-      const float a0 = __shfl_sync(0xffffffffu, f[kc / 8][kc % 2], src);
-      const float a1 = __shfl_sync(0xffffffffu, f[kc / 8][2 + kc % 2], src);
+    for (int kk = 0; kk < NK; ++kk) {
+      if (kk >= nk) break;
+      FragA fa[1];
+      c_to_tf32(f, kk, fa[0]);
 #pragma unroll
-      for (int j = 0; j < NN; ++j) {
-        if (j < nn) {
-          const int n = n0 + 8 * j + 2 * c;
-          acc[j][0] += a0 * b[kc * ldb + n];
-          acc[j][1] += a0 * b[kc * ldb + n + 1];
-          acc[j][2] += a1 * b[kc * ldb + n];
-          acc[j][3] += a1 * b[kc * ldb + n + 1];
-        }
+      for (int j0 = 0; j0 < NN; j0 += kTcG) {
+        if (j0 >= nn) break;
+        FragB fb[kTcG];
+#pragma unroll
+        for (int u = 0; u < kTcG; ++u)
+          if (j0 + u < NN && j0 + u < nn) ldb_paired(fb[u], b, ldb, 8 * kk, n0 + 8 * (j0 + u) + g);
+        mma3_group(acc1, fa, fb, j0, nn);
       }
     }
   }
@@ -1014,7 +1179,7 @@ __device__ __forceinline__ void put_o(const AttArgs& p, bool o_f32, const philox
 // normalised, then o = round(P) V from the registers by 32-column chunks of
 // the head. V lands while S and P are taken.
 template <typename T, int NK>
-__global__ void __launch_bounds__(16 * NK, t2_min_blocks(NK))
+__global__ void __launch_bounds__(16 * NK, t2_min_blocks(NK, sizeof(T)))
     tiled_attention_staged_kernel(AttArgs p, bool o_f32) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kT16 = 8 * NK;
@@ -1035,9 +1200,14 @@ __global__ void __launch_bounds__(16 * NK, t2_min_blocks(NK))
   cp_async_wait<1>();
   __syncthreads();
   const int m0 = 16 * (threadIdx.x / 32);
+  // the products' depth over the head (kw) and key tiles (nkt): bf16 the padded head and all
+  // T16 keys; fp32 the head's width rounded up to 8 and the keys below t (the logits of the
+  // rest stay 0, then -inf: P 0)
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int kw = kF32 ? (hd + 7) / 8 * 8 : w16, nkt = kF32 ? (t + 7) / 8 : NK;
   float s[NK][4];
   zero_frag(s);
-  smm<T, NK, false, false>(s, qs, ld, m0, ks, ld, 0, w16 / 16, NK);
+  att_mm<T, NK, false>(s, qs, ld, m0, ks, ld, 0, kw, nkt);
   log2_logits(s, 0, t, p.scale * kLog2e);
   float mx[2], l[2];
 #pragma unroll
@@ -1069,7 +1239,7 @@ __global__ void __launch_bounds__(16 * NK, t2_min_blocks(NK))
   for (int c0 = 0; c0 < hd; c0 += kOutCols) {
     float acc[kOutCols / 8][4];
     zero_frag(acc);
-    smm_frag<T>(acc, s, vs, ld, c0, min(kOutCols, w16 - c0) / 8);
+    smm_frag<T>(acc, s, vs, ld, c0, min(kOutCols, kw - c0) / 8, nkt);
     put_o<T>(p, o_f32, dr, acc, row0, m0, c0, h, hd);
   }
   if (p.stats != nullptr && threadIdx.x % 4 == 0) {
@@ -1092,10 +1262,11 @@ __global__ void __launch_bounds__(16 * NK, t2_min_blocks(NK))
 // unrounded P by quad sums, dS = round(P (dP - delta) scale), dQ = dS K,
 // and leaves round(P) and dS in shared memory. Key pass, after one
 // barrier: dV = round(P)^T dO and dK = dS^T Q of the warp's 16 keys from
-// those tiles (ldmatrix.trans); no logit is recomputed. Every output
-// element is written by one warp: no atomics.
+// those tiles (bf16 by ldmatrix.trans, fp32 by paired k-steps); no logit is
+// recomputed. fp32 takes S and dP, and dV and dK, two at a time (att_mm2).
+// Every output element is written by one warp: no atomics.
 template <typename T, int NK>
-__global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
+__global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK, sizeof(T)))
     tiled_attention_bwd_staged_kernel(AttBwdArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kT16 = 8 * NK;
@@ -1130,6 +1301,8 @@ __global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
   cp_async_wait<1>();
   __syncthreads();
   const int m0 = 16 * (threadIdx.x / 32);
+  constexpr bool kF32 = std::is_same<T, float>::value;  // kw and nkt as T2's
+  const int kw = kF32 ? (hd + 7) / 8 * 8 : w16, nkt = kF32 ? (t + 7) / 8 : NK;
   {  // the query pass
     float mr[2], il[2], ds[2] = {0.f, 0.f};
 #pragma unroll
@@ -1140,16 +1313,25 @@ __global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
     }
     float s[NK][4], dp[NK][4];
     zero_frag(s);
-    smm<T, NK, false, false>(s, qs, ld, m0, ks, ld, 0, w16 / 16, NK);
+    if constexpr (kF32) {  // S and dP in one loop (att_mm2), once V and dO have landed
+      zero_frag(dp);
+      cp_async_wait<0>();
+      __syncthreads();
+      att_mm2<T, NK, false>(s, qs, ks, dp, dos, vs, ld, m0, ld, 0, kw, nkt);
+    } else {
+      att_mm<T, NK, false>(s, qs, ld, m0, ks, ld, 0, kw, nkt);
+    }
     log2_logits(s, 0, t, p.scale * kLog2e);
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - mr[e / 2]) * il[e / 2];
-    cp_async_wait<0>();
-    __syncthreads();  // V and dO have landed
-    zero_frag(dp);
-    smm<T, NK, false, false>(dp, dos, ld, m0, vs, ld, 0, w16 / 16, NK);
+    if constexpr (!kF32) {
+      cp_async_wait<0>();
+      __syncthreads();  // V and dO have landed
+      zero_frag(dp);
+      att_mm<T, NK, false>(dp, dos, ld, m0, vs, ld, 0, kw, nkt);
+    }
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -1165,19 +1347,18 @@ __global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
     for (int c0 = 0; c0 < hd; c0 += kOutCols) {
       float acc[kOutCols / 8][4];
       zero_frag(acc);
-      smm_frag<T>(acc, dp, ks, ld, c0, min(kOutCols, w16 - c0) / 8);
+      smm_frag<T>(acc, dp, ks, ld, c0, min(kOutCols, kw - c0) / 8, nkt);
       put_rows(acc, dbase, p.P, m0, c0, t, hd);
     }
   }
   __syncthreads();  // every row's round(P) and dS are in shared memory
   // the key pass: the warp's 16 keys from m0
   for (int c0 = 0; c0 < hd; c0 += kOutCols) {
-    const int nn = min(kOutCols, w16 - c0) / 8;
+    const int nn = min(kOutCols, kw - c0) / 8;
     float av[kOutCols / 8][4], ak[kOutCols / 8][4];
     zero_frag(av);
     zero_frag(ak);
-    smm<T, kOutCols / 8, true, true>(av, ps, ldt, m0, dos, ld, c0, NK / 2, nn);
-    smm<T, kOutCols / 8, true, true>(ak, dss, ldt, m0, qs, ld, c0, NK / 2, nn);
+    att_mm2<T, kOutCols / 8, true>(av, ps, dos, ak, dss, qs, ldt, m0, ld, c0, 8 * nkt, nn);
     put_rows(av, dbase + 2 * kq, p.P, m0, c0, t, hd);
     put_rows(ak, dbase + kq, p.P, m0, c0, t, hd);
   }
@@ -1187,6 +1368,7 @@ __global__ void __launch_bounds__(16 * NK, t4_min_blocks(NK))
 // (the top of this file; the launchers only check that a request fits)
 
 constexpr int kStrWarps = kAttThreads / 32;  // warps a block
+constexpr int kStrWarpsT4F32 = 8;  // warps of an fp32 T4 block whose pair is resident
 constexpr int kStrNarrow = 64;  // head widths (rounded up to 16) up to this: two row tiles a warp
 constexpr int kStrKeys = 32;    // keys (T4's key pass: queries) of a logits tile in registers
 constexpr int kStrKeys1 = 32;   // T2's pass 1 (no o accumulators): keys of a logits tile
@@ -1194,15 +1376,16 @@ constexpr int kStrKeys1 = 32;   // T2's pass 1 (no o accumulators): keys of a lo
 // Shared memory of a streamed T2 (bwd false) or T4. Each warp takes rt
 // 16-row tiles at once (T2: 2 where the head is narrow, so that each B
 // fragment feeds two products; else 1: T4 at its registers' limit gained
-// nothing from 2), a round being the block's 64 rt rows. The matrices' tiles are zero-padded to r16(hd) columns in rows of
-// ld elements. "resident": Q, K and V (T4: and dO) whole, T16 rows each,
-// loaded once. Otherwise a round's rows of Q (T4: two matrices) and two
+// nothing from 2), a round being the block's 16 rt rows a warp (4 warps;
+// fp32 T4 with its pair resident 8). The matrices' tiles are zero-padded to
+// r16(hd) columns in rows of ld elements. "resident": Q, K and V (T4: and
+// dO) whole, T16 rows each, loaded once. Otherwise a round's rows of Q (T4: two matrices) and two
 // slots of the swept pair (K and V; T4's key pass: Q and dO) in tiles of kr
 // rows, the largest of 64, 32 and 16 that fits. T4 adds each row's max,
 // 1/sum and delta (a float4 a row, T16 rows) after them.
 struct StreamPlan {
   bool resident;
-  int t16, ld, kr, rt, round;
+  int t16, ld, kr, rt, warps, round;
   size_t mat, stats, total;  // bytes: a whole matrix; where the statistics start; all
 };
 __host__ __device__ inline StreamPlan streamed_plan(int t, int hd, int elem, bool bwd) {
@@ -1210,7 +1393,8 @@ __host__ __device__ inline StreamPlan streamed_plan(int t, int hd, int elem, boo
   L.t16 = r16(t);
   L.ld = pad_ld(r16(hd), elem);
   L.rt = !bwd && r16(hd) <= kStrNarrow ? 2 : 1;
-  L.round = 16 * kStrWarps * L.rt;
+  L.warps = kStrWarps;
+  L.round = 16 * L.warps * L.rt;
   const size_t row = size_t(L.ld) * elem, stats = bwd ? size_t(L.t16) * 16 : 0;
   const int mats = bwd ? 4 : 3, side = bwd ? 2 : 1;
   L.mat = size_t(L.t16) * row;
@@ -1223,6 +1407,13 @@ __host__ __device__ inline StreamPlan streamed_plan(int t, int hd, int elem, boo
     L.kr /= 2;
   }
   L.total = L.stats + stats;
+  if (L.resident && bwd && elem == 4) {
+    // fp32 T4's resident pair takes more than half an SM's shared memory
+    // from T 196 at heads 20 wide (one block an SM): twice the warps share
+    // its rounds, which the plan's bytes do not depend on
+    L.warps = kStrWarpsT4F32;
+    L.round = 16 * L.warps * L.rt;
+  }
   return L;
 }
 
@@ -1249,8 +1440,9 @@ __device__ void stage_rows(T* dst, int ldd, const T* src, size_t lds, int rows, 
 // Two 8 x 8 matrices by ldmatrix (.x2: lanes 0-15 give the rows) and an
 // m16n8k8 product: T2's logits take a head's last 8 columns by them where
 // its width is 8 past a multiple of 16 (20: 16 + 8), not by a k-step of 16
-// that is half zeros. (T4, at its registers' limit, spills with them and
-// runs slower: it keeps k-steps of 16.)
+// that is half zeros. (T4 in bf16, at its registers' limit, spills with
+// them and runs slower: it keeps k-steps of 16. fp32 takes every product in
+// k-steps of 8.)
 __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -1264,11 +1456,48 @@ __device__ __forceinline__ void mma_16808(float (&d)[4], const uint32_t (&a)[2],
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// acc[r][j] (r < R; j < nn, nn even) += A_r[16 x kd] B[kd x 8 nn]: each
-// row tile's A row-major at a[r], B stored by columns (b[n][k], as K for Q
-// K^T), all in shared memory (row stride ld); each B fragment is loaded
-// once for the R tiles. kd: a multiple of 16, or with K8 of 8 (a last
-// k-step of 8).
+template <int R, int N>
+__device__ __forceinline__ void zero_rows(float (&f)[R][N][4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) zero_frag(f[r]);
+}
+
+// acc[r][j] += d[r][j] for the column tiles below n.
+template <int R, int N>
+__device__ __forceinline__ void add_rows(float (&acc)[R][N][4], const float (&d)[R][N][4], int n) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][j][e] += d[r][j][e];
+}
+
+// fp32 fragments of the k-step at k0 by single-word slots, split: A's 16
+// rows of a row-major tile at a; B's column tile of 8 rows from n of a tile
+// stored by columns (b[n][k]).
+__device__ __forceinline__ void lda_rows(FragA& fa, const float* a, int ld, int k0) {
+  const int g = threadIdx.x % 32 / 4;
+  const int2 k = k_slots<false>(k0);
+  const float v[4] = {a[g * ld + k.x], a[(g + 8) * ld + k.x], a[g * ld + k.y],
+                      a[(g + 8) * ld + k.y]};
+  split_tf32(v, fa);
+}
+__device__ __forceinline__ void ldb_cols(FragB& fb, const float* b, int ld, int k0, int n) {
+  const int2 k = k_slots<false>(k0);
+  const float* q = b + (n + threadIdx.x % 32 / 4) * ld;
+  const float v[2] = {q[k.x], q[k.y]};
+  split_tf32(v, fb);
+}
+
+// acc[r][j] (r < R; j < nn) += A_r[16 x kd] B[kd x 8 nn]: each row tile's
+// A row-major at a[r], B stored by columns (b[n][k], as K for Q K^T), all
+// in shared memory (row stride ld); each B fragment is loaded once for the
+// R tiles. bf16: kd a multiple of 16, or with K8 of 8 (a last k-step of 8),
+// nn even. fp32: 3xTF32 in k-steps of 8 (kd a multiple of 8) by single-word
+// slots (as att_mm), each A fragment split once for the nn tiles and each B
+// fragment once for the R tiles, by groups (mma3_group).
 template <typename T, int R, int NN, bool K8 = false>
 __device__ __forceinline__ void smm_rows(float (&acc)[R][NN][4], const T* (&a)[R], const T* b,
                                          int ld, int kd, int nn) {
@@ -1307,43 +1536,65 @@ __device__ __forceinline__ void smm_rows(float (&acc)[R][NN][4], const T* (&a)[R
       }
     }
   } else {
-    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
-    for (int k = 0; k < kd; ++k) {
-      float a0[R], a1[R];
+    for (int k0 = 0; k0 < kd; k0 += 8) {
+      FragA fa[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        a0[r] = a[r][g * ld + k];
-        a1[r] = a[r][(g + 8) * ld + k];
-      }
+      for (int r = 0; r < R; ++r) lda_rows(fa[r], a[r], ld, k0);
 #pragma unroll
-      for (int j = 0; j < NN; ++j) {
-        if (j < nn) {
-          const int n = 8 * j + 2 * c;
-          const float b0 = b[n * ld + k], b1 = b[(n + 1) * ld + k];
+      for (int j0 = 0; j0 < NN; j0 += kTcG) {
+        if (j0 >= nn) break;
+        FragB fb[kTcG];
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            acc[r][j][0] += a0[r] * b0;
-            acc[r][j][1] += a0[r] * b1;
-            acc[r][j][2] += a1[r] * b0;
-            acc[r][j][3] += a1[r] * b1;
-          }
-        }
+        for (int u = 0; u < kTcG; ++u)
+          if (j0 + u < NN && j0 + u < nn) ldb_cols(fb[u], b, ld, k0, 8 * (j0 + u));
+        mma3_group(acc, fa, fb, j0, nn);
       }
     }
   }
 }
 
-// acc[r][j] (j < no, no even) += F_r[16 x 16 nks] B[16 nks x .., c0 + 8 j ..]:
-// F_r held as C fragments of up to 8 NK columns (bf16 rounds them as the A
-// operand, fp32 takes them as they are), B row-major in shared memory (row
-// stride ld); each B fragment is loaded once for the R tiles.
+// fp32 (T4): two products of smm_rows' shape (R 1) at once, s += A_s B_s and
+// dp += A_d B_d, each A row-major and B by columns.
+template <int NN>
+__device__ __forceinline__ void smm_rows2(float (&s)[1][NN][4], const float* as, const float* bs,
+                                          float (&dp)[1][NN][4], const float* ad, const float* bd,
+                                          int ld, int kd, int nn) {
+  for (int k0 = 0; k0 < kd; k0 += 8) {
+    FragA fs, fd;
+    lda_rows(fs, as, ld, k0);
+    lda_rows(fd, ad, ld, k0);
+#pragma unroll
+    for (int j0 = 0; j0 < NN; j0 += kTcG) {
+      if (j0 >= nn) break;
+      FragB bs_[kTcG], bd_[kTcG];
+#pragma unroll
+      for (int u = 0; u < kTcG; ++u)
+        if (j0 + u < NN && j0 + u < nn) {
+          ldb_cols(bs_[u], bs, ld, k0, 8 * (j0 + u));
+          ldb_cols(bd_[u], bd, ld, k0, 8 * (j0 + u));
+        }
+      mma3_group2(s[0], fs, bs_, dp[0], fd, bd_, j0, nn);
+    }
+  }
+}
+
+// acc[r][j] (j < no) += F_r[16 x 8 nk] B[8 nk x .., c0 + 8 j ..]: F_r held
+// as C fragments of up to 8 NK columns, B row-major in shared memory (row
+// stride ld); each B fragment is loaded once for the R tiles. bf16: F
+// rounded as the A operand, k-steps of 16 (nk and no even). fp32: 3xTF32 by
+// paired k-steps of 8 (as smm_frag, by groups), the call's products into
+// zeroed fragments that are then added to acc: these products sum over all
+// T keys (or queries) of a sweep, a call's at most 32, and the tensor
+// cores' fp32 accumulation truncates each sum, which over T 12,800 (3 x
+// 1,600 sums into acc) moved o by 1.3e-4 of its scale on an H100 (PERF.md);
+// an fp32 add rounds.
 template <typename T, int R, int NK, int NN>
 __device__ __forceinline__ void smm_frag_rows(float (&acc)[R][NN][4], const float (&f)[R][NK][4],
-                                              const T* b, int ld, int c0, int no, int nks) {
+                                              const T* b, int ld, int c0, int no, int nk) {
   if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
-      if (kk >= nks) break;
+      if (kk >= nk / 2) break;
       uint32_t fa[R][4];
 #pragma unroll
       for (int r = 0; r < R; ++r) c_to_a(f[r], kk, fa[r]);
@@ -1358,41 +1609,63 @@ __device__ __forceinline__ void smm_frag_rows(float (&acc)[R][NN][4], const floa
       }
     }
   } else {
-    const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+    const int g = threadIdx.x % 32 / 4;
+    float d[R][NN][4];
+    zero_rows(d);
 #pragma unroll
-    for (int kc = 0; kc < 8 * NK; ++kc) {
-      if (kc >= 16 * nks) break;
-      // column kc of F sits in lane 4 g + (kc % 8) / 2, tile kc / 8, slot kc % 2
-      const int src = 4 * g + (kc % 8) / 2;
-      float a0[R], a1[R];
+    for (int kk = 0; kk < NK; ++kk) {
+      if (kk >= nk) break;
+      FragA fa[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        a0[r] = __shfl_sync(0xffffffffu, f[r][kc / 8][kc % 2], src);
-        a1[r] = __shfl_sync(0xffffffffu, f[r][kc / 8][2 + kc % 2], src);
-      }
+      for (int r = 0; r < R; ++r) c_to_tf32(f[r], kk, fa[r]);
 #pragma unroll
-      for (int j = 0; j < NN; ++j) {
-        if (j < no) {
-          const int n = c0 + 8 * j + 2 * c;
-          const float b0 = b[kc * ld + n], b1 = b[kc * ld + n + 1];
+      for (int j0 = 0; j0 < NN; j0 += kTcG) {
+        if (j0 >= no) break;
+        FragB fb[kTcG];
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            acc[r][j][0] += a0[r] * b0;
-            acc[r][j][1] += a0[r] * b1;
-            acc[r][j][2] += a1[r] * b0;
-            acc[r][j][3] += a1[r] * b1;
-          }
-        }
+        for (int u = 0; u < kTcG; ++u)
+          if (j0 + u < NN && j0 + u < no) ldb_paired(fb[u], b, ld, 8 * kk, c0 + 8 * (j0 + u) + g);
+        mma3_group(d, fa, fb, j0, no);
       }
     }
+    add_rows(acc, d, no);
   }
 }
 
-template <int R, int N>
-__device__ __forceinline__ void zero_rows(float (&f)[R][N][4]) {
+// fp32 (T4's key pass): two products of smm_frag_rows' shape (R 1) at once,
+// av += F_s B_v and ak += F_d B_k.
+template <int NK, int NN>
+__device__ __forceinline__ void smm_frag_rows2(float (&av)[1][NN][4], const float (&fs)[1][NK][4],
+                                               const float* bv, float (&ak)[1][NN][4],
+                                               const float (&fd)[1][NK][4], const float* bk,
+                                               int ld, int c0, int no, int nk) {
+  const int g = threadIdx.x % 32 / 4;
+  float dv[1][NN][4], dk[1][NN][4];
+  zero_rows(dv);
+  zero_rows(dk);
 #pragma unroll
-  for (int r = 0; r < R; ++r) zero_frag(f[r]);
+  for (int kk = 0; kk < NK; ++kk) {
+    if (kk >= nk) break;
+    FragA as, ad;
+    c_to_tf32(fs[0], kk, as);
+    c_to_tf32(fd[0], kk, ad);
+#pragma unroll
+    for (int j0 = 0; j0 < NN; j0 += kTcG) {
+      if (j0 >= no) break;
+      FragB bv_[kTcG], bk_[kTcG];
+#pragma unroll
+      for (int u = 0; u < kTcG; ++u)
+        if (j0 + u < NN && j0 + u < no) {
+          ldb_paired(bv_[u], bv, ld, 8 * kk, c0 + 8 * (j0 + u) + g);
+          ldb_paired(bk_[u], bk, ld, 8 * kk, c0 + 8 * (j0 + u) + g);
+        }
+      mma3_group2(dv[0], as, bv_, dk[0], ad, bk_, j0, no);
+    }
+  }
+  add_rows(av, dv, no);
+  add_rows(ak, dk, no);
 }
+
 
 // The swept pair of a streamed kernel: two matrices of t rows (in device
 // memory at src, row strides lds) taken tile by tile, kr rows a tile, by
@@ -1504,7 +1777,7 @@ __device__ __forceinline__ void probs_of(float (&s)[R][NK][4], const float (&ml)
 template <typename T, int R>
 __device__ __forceinline__ void round_rows(const StreamPlan& L, int r, int t, const T* base,
                                            int (&m0)[R], bool (&live)[R], const T* (&rows)[R]) {
-  const int first = (r * kStrWarps + int(threadIdx.x / 32)) * 16 * R;
+  const int first = (r * L.warps + int(threadIdx.x / 32)) * 16 * R;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     m0[i] = first + 16 * i;
@@ -1521,13 +1794,18 @@ __device__ __forceinline__ void round_rows(const StreamPlan& L, int r, int t, co
 // = round(P) V with P normalised. The logits are taken kStrKeys keys at a
 // time; column tiles past a tile's T16 rows are skipped. Resident: Q, K
 // and V loaded once; else Q by rounds, K and V by tiles through the slots.
+// Registers for four blocks an SM, two in fp32 (the two-tile instance's
+// 3xTF32 fragments and grouped products spilled at four; at T 200 the
+// resident fp32 pair's 90 KB leave room for two blocks anyway).
 template <typename T, int R>
-__global__ void __launch_bounds__(kAttThreads, 4)
+__global__ void __launch_bounds__(kAttThreads, sizeof(T) == 4 ? 2 : 4)
     tiled_attention_streamed_kernel(AttArgs p, bool o_f32) {
   constexpr int NK = kStrKeys / 8, NK1 = kStrKeys1 / 8, NO = 8 / R;  // column tiles
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
   const int t = p.t, hd = p.d / p.heads, w16 = r16(hd), w8 = (hd + 7) / 8 * 8;
+  const int wo = kF32 ? w8 : w16;  // o's columns taken: fp32 in column tiles of 8
   const StreamPlan L = streamed_plan(t, hd, sizeof(T), false);
   const int h = blockIdx.x % p.heads, an = blockIdx.x / p.heads;
   if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) return;
@@ -1553,8 +1831,10 @@ __global__ void __launch_bounds__(kAttThreads, 4)
   philox::Dropout dr = p.dr;
   dr.key = philox::key_at(dr.key, p.seed_dev);
   const float sl = p.scale * kLog2e;
-  const int nch = (w16 + 8 * NO - 1) / (8 * NO);
+  const int nch = (wo + 8 * NO - 1) / (8 * NO);
   const int rounds = (L.t16 + L.round - 1) / L.round;
+  // the key tiles of 8 below t of a logits tile from key k0 (fp32; bf16 all nn, an even count)
+  auto below = [&](int k0, int nn) { return kF32 ? min(nn, (t - k0 + 7) / 8) : nn; };
   for (int r = 0; r < rounds; ++r) {
     int m0[R];
     bool live[R];
@@ -1580,7 +1860,7 @@ __global__ void __launch_bounds__(kAttThreads, 4)
         const int k0 = j * L.kr + h0, nn = min(kStrKeys1, rows - h0) / 8;
         float s[R][NK1][4];
         zero_rows(s);
-        smm_rows<T, R, NK1, true>(s, qrow, m[0] + size_t(h0) * ld, ld, w8, nn);
+        smm_rows<T, R, NK1, true>(s, qrow, m[0] + size_t(h0) * ld, ld, w8, below(k0, nn));
         if (k0 + 8 * nn > t) mask_keys(s, t - k0 - 2 * c, nn);
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -1616,8 +1896,8 @@ __global__ void __launch_bounds__(kAttThreads, 4)
         ml[i][e] = mn + __log2f(l[i][e]);
       }
     // pass 2: o = round(P) V, P normalised, by 8 NO-column chunks of the head
-    for (int c0 = 0; c0 < w16; c0 += 8 * NO) {
-      const int no = min(8 * NO, w16 - c0) / 8;
+    for (int c0 = 0; c0 < wo; c0 += 8 * NO) {
+      const int no = min(8 * NO, wo - c0) / 8;
       float acc[R][NO][4];
       zero_rows(acc);
       for (int j = 0; j < sw.nt; ++j) {
@@ -1629,10 +1909,11 @@ __global__ void __launch_bounds__(kAttThreads, 4)
           const int k0 = j * L.kr + h0, nn = min(kStrKeys, rows - h0) / 8;
           float s[R][NK][4];
           zero_rows(s);
-          smm_rows<T, R, NK, true>(s, qrow, m[0] + size_t(h0) * ld, ld, w8, nn);
+          const int nb = below(k0, nn);
+          smm_rows<T, R, NK, true>(s, qrow, m[0] + size_t(h0) * ld, ld, w8, nb);
           if (k0 + 8 * nn > t) mask_keys(s, t - k0 - 2 * c, nn);
           probs_of(s, ml, sl, nn);
-          smm_frag_rows<T, R>(acc, s, m[1] + size_t(h0) * ld, ld, c0, no, nn / 2);
+          smm_frag_rows<T, R>(acc, s, m[1] + size_t(h0) * ld, ld, c0, no, nb);
         }
       }
 #pragma unroll
@@ -1664,14 +1945,20 @@ __global__ void __launch_bounds__(kAttThreads, 4)
 // logits and dP transposed, dV = round(P)^T dO, dK = dS^T Q. The logits are
 // taken kStrKeys at a time; column tiles past a tile's T16 rows are
 // skipped. Resident: Q, K, V and dO loaded once; else each pass's rows by
-// rounds and the swept pair by tiles.
+// rounds and the swept pair by tiles. fp32 takes S and dP (and dV and dK)
+// as two products in one loop (smm_rows2, smm_frag_rows2), and eight warps
+// where the pair is resident (its 123 KB at T 200 leave room for one block
+// an SM: four warps left each scheduler one warp to hide every latency).
 template <typename T>
-__global__ void __launch_bounds__(kAttThreads, 3)
+__global__ void __launch_bounds__(sizeof(T) == 4 ? 32 * kStrWarpsT4F32 : kAttThreads,
+                                  sizeof(T) == 4 ? 1 : 3)
     tiled_attention_bwd_streamed_kernel(AttBwdArgs p) {
   constexpr int R = 1, NK = kStrKeys / 8, NO = kOutCols / 8;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
   const int t = p.t, hd = p.d / p.heads, w16 = r16(hd);
+  const int kw = kF32 ? (hd + 7) / 8 * 8 : w16;  // the head's columns taken, as T4 staged's
   const StreamPlan L = streamed_plan(t, hd, sizeof(T), true);
   const int h = blockIdx.x % p.heads, an = blockIdx.x / p.heads;
   if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) return;
@@ -1711,7 +1998,9 @@ __global__ void __launch_bounds__(kAttThreads, 3)
   __syncthreads();
   const float sl = p.scale * kLog2e;
   const int rounds = (L.t16 + L.round - 1) / L.round;
-  const int nch = (w16 + kOutCols - 1) / kOutCols;
+  const int nch = (kw + kOutCols - 1) / kOutCols;
+  // the row tiles of 8 below t of a logits tile from row k0 (fp32; bf16 all nn, an even count)
+  auto below = [&](int k0, int nn) { return kF32 ? min(nn, (t - k0 + 7) / 8) : nn; };
   // the round's rows of two matrices: resident, where they lie; else loaded into r0 and r1
   auto rows_of = [&](int r, const T* a, const T* b, size_t ldb, int ia, int ib, int (&m0)[R],
                      bool (&live)[R], const T* (&ra)[R], const T* (&rb)[R]) {
@@ -1749,8 +2038,12 @@ __global__ void __launch_bounds__(kAttThreads, 3)
                      int k0, int nn) {
       zero_rows(s);
       zero_rows(dp);
-      smm_rows<T, R, NK>(s, qr, kt, ld, w16, nn);
-      smm_rows<T, R, NK>(dp, dor, vt, ld, w16, nn);
+      if constexpr (kF32) {
+        smm_rows2(s, qr[0], kt, dp, dor[0], vt, ld, kw, below(k0, nn));
+      } else {
+        smm_rows<T, R, NK>(s, qr, kt, ld, kw, nn);
+        smm_rows<T, R, NK>(dp, dor, vt, ld, kw, nn);
+      }
       if (k0 + 8 * nn > t) mask_keys(s, t - k0 - 2 * c, nn);
       probs_of(s, ml, sl, nn);
     };
@@ -1779,8 +2072,8 @@ __global__ void __launch_bounds__(kAttThreads, 3)
         ds[i][e] = quad_sum(ds[i][e]);
         if (live[i] && c == 0) rs[m0[i] + g + 8 * e].z = ds[i][e];
       }
-    for (int c0 = 0; c0 < w16; c0 += kOutCols) {  // dQ
-      const int no = min(kOutCols, w16 - c0) / 8;
+    for (int c0 = 0; c0 < kw; c0 += kOutCols) {  // dQ
+      const int no = min(kOutCols, kw - c0) / 8;
       float acc[R][NO][4];
       zero_rows(acc);
       for (int j = 0; j < sw.nt; ++j) {
@@ -1800,7 +2093,8 @@ __global__ void __launch_bounds__(kAttThreads, 3)
 #pragma unroll
                 for (int e = 0; e < 4; ++e)  // dS, rounded by the product (as A)
                   dp[i][jj][e] = s[i][jj][e] * (dp[i][jj][e] - ds[i][e / 2]) * p.scale;
-          smm_frag_rows<T, R>(acc, dp, m[0] + size_t(h0) * ld, ld, c0, no, nn / 2);
+          smm_frag_rows<T, R>(acc, dp, m[0] + size_t(h0) * ld, ld, c0, no,
+                              below(j * L.kr + h0, nn));
         }
       }
 #pragma unroll
@@ -1822,8 +2116,8 @@ __global__ void __launch_bounds__(kAttThreads, 3)
     const T *kr_[R], *vr[R];
     rows_of(r, base + kq, base + 2 * kq, p.P, 1, 2, j0, live, kr_, vr);
     sw.begin(nch * sw.nt);
-    for (int c0 = 0; c0 < w16; c0 += kOutCols) {
-      const int no = min(kOutCols, w16 - c0) / 8;
+    for (int c0 = 0; c0 < kw; c0 += kOutCols) {
+      const int no = min(kOutCols, kw - c0) / 8;
       float av[R][NO][4], ak[R][NO][4];
       zero_rows(av);
       zero_rows(ak);
@@ -1833,14 +2127,18 @@ __global__ void __launch_bounds__(kAttThreads, 3)
         if (!live[0]) continue;
         const int rows = min(L.kr, L.t16 - j * L.kr);
         for (int h0 = 0; h0 < rows; h0 += kStrKeys) {
-          const int q0 = j * L.kr + h0, nn = min(kStrKeys, rows - h0) / 8;
+          const int q0 = j * L.kr + h0, nn = min(kStrKeys, rows - h0) / 8, nb = below(q0, nn);
           const T* qt = m[0] + size_t(h0) * ld;
           const T* dot = m[1] + size_t(h0) * ld;
           float s[R][NK][4], dp[R][NK][4];  // S^T and dP^T: 16 keys x the tile's queries
           zero_rows(s);
           zero_rows(dp);
-          smm_rows<T, R, NK>(s, kr_, qt, ld, w16, nn);
-          smm_rows<T, R, NK>(dp, vr, dot, ld, w16, nn);
+          if constexpr (kF32) {
+            smm_rows2(s, kr_[0], qt, dp, vr[0], dot, ld, kw, nb);
+          } else {
+            smm_rows<T, R, NK>(s, kr_, qt, ld, kw, nb);
+            smm_rows<T, R, NK>(dp, vr, dot, ld, kw, nb);
+          }
           // P^T and dS^T (rounded by the products, as A); a query row past t has ml +inf: P 0
 #pragma unroll
           for (int jj = 0; jj < NK; ++jj)
@@ -1857,8 +2155,12 @@ __global__ void __launch_bounds__(kAttThreads, 3)
                     dp[i][jj][2 * u + e] = pr * (dp[i][jj][2 * u + e] - q.z) * p.scale;
                   }
               }
-          smm_frag_rows<T, R>(av, s, dot, ld, c0, no, nn / 2);
-          smm_frag_rows<T, R>(ak, dp, qt, ld, c0, no, nn / 2);
+          if constexpr (kF32) {
+            smm_frag_rows2(av, s, dot, ak, dp, qt, ld, c0, no, nb);
+          } else {
+            smm_frag_rows<T, R>(av, s, dot, ld, c0, no, nb);
+            smm_frag_rows<T, R>(ak, dp, qt, ld, c0, no, nb);
+          }
         }
       }
 #pragma unroll
@@ -3387,8 +3689,9 @@ int launch_attention_bwd(const AttBwdArgs& p, int variant, cudaStream_t stream) 
   if (variant == kStreamed) {
     const int hd = p.d / p.heads;
     if (!streamed_fits(p.t, hd, sizeof(T), true)) return int(cudaErrorInvalidValue);
-    return launch_staged(tiled_attention_bwd_streamed_kernel<T>, blocks, kAttThreads,
-                         streamed_plan(p.t, hd, sizeof(T), true).total, stream, p);
+    const StreamPlan L = streamed_plan(p.t, hd, sizeof(T), true);
+    return launch_staged(tiled_attention_bwd_streamed_kernel<T>, blocks, 32 * L.warps, L.total,
+                         stream, p);
   }
   if (variant != kGather && variant != kStaged) return int(cudaErrorInvalidValue);
   if (variant == kStaged) {

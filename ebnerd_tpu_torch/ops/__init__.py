@@ -15,7 +15,9 @@ def kernel_counters() -> dict:
     launches in ``launches`` and those recorded into a CUDA graph in
     ``captured`` (``_build.count``). T1's, T2's, T3's and T4's wrappers
     launch one of three kernels each: the newer ones count on their ``tma``,
-    ``tf32x3``, ``staged``, ``streamed`` or ``resident``. K1's, the per-block
+    ``tf32x3``, ``staged``, ``streamed`` or ``resident`` (T2's and T4's
+    staged and streamed kernels in fp32 on ``staged_tf32x3`` and
+    ``streamed_tf32x3``: their 3xTF32 products). K1's, the per-block
     kernel's and K2's GEMM's fp32 launches count on their wrappers and again
     by their kernel (``tf32x3``: 3xTF32 on the tensor cores, ``fma``: the
     FMA stages or kernel)."""
@@ -28,6 +30,10 @@ def kernel_counters() -> dict:
             "tiled_attention_bwd_staged": tiled_attention_bwd.staged,
             "tiled_attention_streamed": tiled_attention.streamed,
             "tiled_attention_bwd_streamed": tiled_attention_bwd.streamed,
+            "tiled_attention_staged_tf32x3": tiled_attention.staged_tf32x3,
+            "tiled_attention_bwd_staged_tf32x3": tiled_attention_bwd.staged_tf32x3,
+            "tiled_attention_streamed_tf32x3": tiled_attention.streamed_tf32x3,
+            "tiled_attention_bwd_streamed_tf32x3": tiled_attention_bwd.streamed_tf32x3,
             "tiled_qkv_tma": tiled_qkv.tma, "tiled_pool_resident": tiled_pool.resident,
             "tiled_pool_bwd_resident": tiled_pool_bwd.resident,
             "tiled_pool_streamed": tiled_pool.streamed,

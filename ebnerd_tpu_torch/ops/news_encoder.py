@@ -1213,8 +1213,10 @@ def attention_variant(t: int, head_dim: int, dtype: torch.dtype, backward: bool 
     slots of the swept pair in tiles of 16 rows at the least; T4 adds 4 x
     T16 fp32. Past T 128 the head width reaches 896 for T2 in bf16, 448 in fp32,
     at any T; T4's falls with T by its statistics: bf16 576 to T 512, 512 at
-    T 2,000; fp32 288 to T 512, 256 to T 2,048. The launchers refuse a
-    request past its kernel's tiles."""
+    T 2,000; fp32 288 to T 512, 256 to T 2,048 (12,800 at a head 20 wide).
+    In fp32 the staged and streamed kernels take their products in 3xTF32
+    (``tiled_attention_reference(..., tf32_passes=3)``) on these same plans.
+    The launchers refuse a request past its kernel's tiles."""
     elem = torch.tensor([], dtype=dtype).element_size()
     t16, w16 = -(-t // 16) * 16, -(-head_dim // 16) * 16
     row = (w16 + 16 // elem) * elem
@@ -1366,23 +1368,39 @@ def tiled_qkv_reference(x, packed: PackedWeights, drop: Dropout, *, n: int, t: i
     return out
 
 
+def _att_heads(parts, nv: int, t: int, heads: int, hd: int) -> list:
+    """[nv * T, >= heads * hd] matrices as fp32 [nv, heads, T, hd]."""
+    return [u[:, :heads * hd].float().reshape(nv, t, heads, hd).transpose(1, 2) for u in parts]
+
+
+def _att_mm(cdt: torch.dtype, tf32_passes: int):
+    """The attention's batched product: ``tf32_matmul`` with ``tf32_passes``
+    (3: the fp32 staged and streamed kernels' 3xTF32), else torch.matmul;
+    ``tf32_passes`` is checked as ``tiled_qkv_reference`` checks it."""
+    if tf32_passes not in (0, 3) or (tf32_passes and cdt != torch.float32):
+        raise ValueError(f"tf32_passes must be 0, or 3 in fp32; got {tf32_passes} in {cdt}")
+    return (lambda a, b: tf32_matmul(a, b, tf32_passes)) if tf32_passes else torch.matmul
+
+
 def tiled_attention_reference(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int,
-                              nv: int, backward: bool = False) -> tuple:
+                              nv: int, backward: bool = False, tf32_passes: int = 0) -> tuple:
     """Plain version of T2 on Q|K|V [N*T, P]: (o, stats). o is the
     attention output after the stream-1 (or external) mask, [N*T, D] fp32,
     or with ``backward`` round(o) [N*T, ``o_width(D)``] in the compute dtype;
     stats [2, N*T, heads] fp32 holds each row's max of the base-2 logits
     (s * scale * log2 e) and its sum of exp2 (zeros past the nv * T valid
-    rows)."""
+    rows). ``tf32_passes`` 3 (fp32) takes Q K^T and P V as the staged and
+    streamed kernels do (``tf32_matmul``, P normalised); 0 is fp32 products."""
     cdt = packed.wqkv.dtype
+    mm = _att_mm(cdt, tf32_passes)
     d, heads, hd, _, _, _ = _heads(packed)
     rows = nv * t
-    q, k, v = (u.float().reshape(nv, t, heads, hd) for u in unpack_qkv(qkv[:rows], heads, d))
-    s = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(hd) * _LOG2E)
+    q, k, v = _att_heads(unpack_qkv(qkv[:rows], heads, d), nv, t, heads, hd)
+    s = mm(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(hd) * _LOG2E)
     mx = s.amax(dim=-1, keepdim=True)
     e = torch.exp2(s - mx)
     total = e.sum(dim=-1, keepdim=True)
-    o = torch.einsum("nhqk,nkhd->nqhd", _round(e / total, cdt), v).reshape(rows, d)
+    o = mm(_round(e / total, cdt), v).transpose(1, 2).reshape(rows, d)
     o = o * _att_mask(drop, rows, d, qkv.device)
     width, dt = (o_width(d), cdt) if backward else (d, torch.float32)
     out = torch.zeros(n * t, width, dtype=dt, device=qkv.device)
@@ -1433,25 +1451,28 @@ def tiled_pool_bwd_reference(o_c, packed: PackedWeights, g, drop: Dropout, *, n:
 
 
 def tiled_attention_bwd_reference(qkv, do, stats, packed: PackedWeights, *, n: int, t: int,
-                                  nv: int) -> torch.Tensor:
+                                  nv: int, tf32_passes: int = 0) -> torch.Tensor:
     """Plain version of T4: dQ|dK|dV [N*T, P] in T1's layout and the compute
     dtype from Q|K|V, do [N*T, D] and T2's stats, with P from the stats
-    (zeros past the nv * T valid rows)."""
+    (zeros past the nv * T valid rows). ``tf32_passes`` 3 (fp32) takes S, dP,
+    dQ = dS K, dV = P^T dO and dK = dS^T Q as the staged and streamed
+    kernels do (``tf32_matmul``, P and dS unrounded); 0 is fp32 products."""
     cdt = packed.wqkv.dtype
+    mm = _att_mm(cdt, tf32_passes)
     d, heads, hd, _, _, p_cols = _heads(packed)
     rows, scale = nv * t, 1.0 / math.sqrt(hd)
-    q, k, v = (u.float().reshape(nv, t, heads, hd) for u in unpack_qkv(qkv[:rows], heads, d))
-    dov = do[:rows].float().reshape(nv, t, heads, hd)
+    q, k, v, dov = _att_heads(list(unpack_qkv(qkv[:rows], heads, d)) + [do[:rows]], nv, t, heads,
+                              hd)
     mx, total = (u[:rows].reshape(nv, t, heads).permute(0, 2, 1)[..., None] for u in stats)
-    probs = torch.exp2(torch.einsum("nqhd,nkhd->nhqk", q, k) * (scale * _LOG2E) - mx) / total
-    dp = torch.einsum("nqhd,nkhd->nhqk", dov, v)
+    probs = torch.exp2(mm(q, k.transpose(-1, -2)) * (scale * _LOG2E) - mx) / total
+    dp = mm(dov, v.transpose(-1, -2))
     ds = _round(probs * (dp - (probs * dp).sum(-1, keepdim=True)) * scale, cdt)
-    dv = torch.einsum("nhqk,nqhd->nkhd", _round(probs, cdt), dov)
-    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k)
-    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q)
+    dv = mm(_round(probs, cdt).transpose(-1, -2), dov)
+    dq = mm(ds, k)
+    dk = mm(ds.transpose(-1, -2), q)
     out = torch.zeros(n * t, p_cols, dtype=cdt, device=qkv.device)
-    out[:rows] = _pack_panels([_round(u.reshape(rows, d), cdt) for u in (dq, dk, dv)],
-                              heads).to(cdt)
+    out[:rows] = _pack_panels([_round(u.transpose(1, 2).reshape(rows, d), cdt)
+                               for u in (dq, dk, dv)], heads).to(cdt)
     return out
 
 
@@ -1509,7 +1530,7 @@ def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int
     else:
         o, stats = torch.empty(n * t, d, device=dev), None
     variant = attention_variant(t, hd, cdt)
-    _launch_tiled(getattr(tiled_attention, variant, tiled_attention), "tiled_attention", dev,
+    _launch_tiled(_att_count(tiled_attention, variant, cdt), "tiled_attention", dev,
                   qkv.data_ptr(), o.data_ptr(), o.shape[1], int(not backward), _ptr(stats), n, t,
                   d, heads, gh, pw, p_cols, nv, _ptr(nv_dev), 1.0 / math.sqrt(hd),
                   int(cdt == torch.bfloat16), drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev),
@@ -1521,9 +1542,21 @@ def tiled_attention(qkv, packed: PackedWeights, drop: Dropout, *, n: int, t: int
 # attention_variant's answer as the C entries of T2 and T4 take it
 _ATT_VARIANT = {"gather": 0, "staged": 1, "streamed": 2}
 tiled_attention.launches = tiled_attention.captured = 0
-# the staged and streamed kernels' counts; the gathering one's above
+# the staged and streamed kernels' counts, bf16 and (3xTF32) fp32 apart; the gathering one's above
 tiled_attention.staged = _build.KernelCount()
 tiled_attention.streamed = _build.KernelCount()
+tiled_attention.staged_tf32x3 = _build.KernelCount()
+tiled_attention.streamed_tf32x3 = _build.KernelCount()
+
+
+def _att_count(fn, variant: str, cdt: torch.dtype):
+    """Where T2's or T4's wrapper ``fn`` counts a launch of ``variant`` in
+    ``cdt``: the staged and streamed kernels on ``fn.<variant>`` in bf16 and
+    on ``fn.<variant>_tf32x3`` in fp32 (their 3xTF32 products), the
+    gathering kernel on ``fn``."""
+    if variant == "gather":
+        return fn
+    return getattr(fn, variant + ("_tf32x3" if cdt == torch.float32 else ""))
 
 
 def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
@@ -1611,8 +1644,7 @@ def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int
     variant = attention_variant(t, hd, cdt, backward=True)
     dqkv = torch.zeros(n * t, p_cols, dtype=cdt, device=dev)
     delta = torch.empty(n * t, heads, device=dev) if variant == "gather" else None
-    _launch_tiled(getattr(tiled_attention_bwd, variant, tiled_attention_bwd),
-                  "tiled_attention_bwd", dev, qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
+    _launch_tiled(_att_count(tiled_attention_bwd, variant, cdt), "tiled_attention_bwd", dev, qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
                   _ptr(delta), dqkv.data_ptr(), n, t, d, heads, gh, pw, p_cols, nv, _ptr(nv_dev),
                   1.0 / math.sqrt(hd), int(cdt == torch.bfloat16), _ATT_VARIANT[variant])
     return dqkv
@@ -1621,6 +1653,8 @@ def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int
 tiled_attention_bwd.launches = tiled_attention_bwd.captured = 0
 tiled_attention_bwd.staged = _build.KernelCount()
 tiled_attention_bwd.streamed = _build.KernelCount()
+tiled_attention_bwd.staged_tf32x3 = _build.KernelCount()
+tiled_attention_bwd.streamed_tf32x3 = _build.KernelCount()
 
 
 def tiled_forward(x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int, t: int,
