@@ -107,11 +107,12 @@ Phases:
      over refused, unwritten; T1 and T3 either side of ``qkv_variant`` and
      ``pool_variant`` (C3B_QKV_VARIANTS, C3B_POOL_VARIANTS: T3 resident,
      streamed past T 128 to T 1,000, and chunked, at each dtype's widest D
-     and a_pad 256 and 272), the same checks; the device seed and n_valid
-     in a CUDA graph (T 100 and 130: T2, T3 and T4 staged or resident, then
-     streamed); T1-T4 (T2 and T4 staged and
-     gathering) and the whole route timed at the history-100 user tower
-     [16,384, 100, 400] beside their plain versions and bounds (T1 beside
+     and a_pad 256 and 272; in fp32 "tf32x3" where D is a multiple of 4,
+     each case's plan kernel by the rule's override), the same checks; the
+     device seed and n_valid in a CUDA graph (T 100 and 130: T2, T3 and T4
+     staged or resident, then streamed; fp32 T3 "tf32x3"); T1-T4 (T2 and
+     T4 staged and gathering) and the whole route timed at the history-100
+     user tower [16,384, 100, 400] beside their plain versions and bounds (T1 beside
      torch.matmul, T2 beside scaled_dot_product_attention, T4 beside its
      backward); T2 and T4 streamed and gathering at the history-200 user
      tower [16,384, 200, 400], beside SDPA in turns, and T3 streamed against
@@ -1362,6 +1363,208 @@ def fp32_tiled_phase(table, peaks, gen) -> dict:
     return rec
 
 
+# [fp32 pool]: T3 in fp32 on its "tf32x3" kernels (z = o W_att and do = dz W_att^T across
+# articles on the 3xTF32 GEMM core, a per-article pass between them) at the history-50 and 200
+# user towers [16,384, H, 400] (A 200: one 256-column tile of W_att), and A 300 (two tiles) at a
+# smaller batch; held against the plain 3xTF32 version (every article) and the fp32 one (the
+# first FP32_PLAIN_CHUNK), two launches bit-equal, then timed in turns with the chunked kernel
+# (the rule overridden), which took these shapes before.
+FP32_POOL_TOWERS = (  # name, N, T, A, timing iterations (0: checked only)
+    ("user_h50", TRAIN_BS, 50, ATT, 3), ("user_h200", TRAIN_BS, 200, ATT, 2),
+    ("a300_h50", 2_048, 50, 300, 0))
+
+
+def pool_work(n, t, d, a, a_pad, backward) -> tuple:
+    """T3's fp32 operations and bytes (``tools/tiled_times.py``'s count):
+    the forward z = o W_att, the logits and the weighted sum, reading o, W_att
+    and b, q once and writing the pooled rows; the backward z and dz W_att^T
+    and the per-row work, reading o, g and W_att, writing round(dz), do and
+    the partials."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    rows = n * t
+    if not backward:
+        return (n * (2.0 * t * d * a + 2 * t * a + 2 * t * d),
+                rows * d * 4 + d * a_pad * 4 + 2 * a * 4 + n * d * 4)
+    return (n * (4.0 * t * d * a + 4 * t * a + 2 * t * d),
+            rows * ne.o_width(d) * 4 + n * d * 4 + d * a_pad * 4 + rows * (a_pad + d) * 4
+            + 2 * n * a_pad * 4)
+
+
+def fp32_pool_timed(peaks, gen) -> list:
+    """[fp32 pool]: T3's forward and backward in fp32 at FP32_POOL_TOWERS on
+    the kernels ``pool_variant`` gives ("tf32x3"), on o ~ N(0, 0.5^2) and g ~
+    N(0, 0.01^2), no dropout (as the user tower): each launched twice
+    (bit-equal, counted on its "tf32x3" counter), held against its plain
+    3xTF32 version (``tf32_passes=3``) over every article and its fp32 one
+    over the first FP32_PLAIN_CHUNK (the pooled rows within FP32_ATOL, the
+    backward's outputs within FP32_GRAD_REL of their scale), then timed in
+    turns with the chunked kernel (kernel, chunked, chunked, kernel) beside
+    the bound (3xTF32 products or bytes; the FMA rate's beside it) and the
+    plain 3xTF32 version's time. Returns the records."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    f32, out, mean = torch.float32, [], lambda v: sum(v) / len(v)
+    for tower, n, t, a, iters in FP32_POOL_TOWERS:
+        _, ws = make_inputs(1, 1, 16, f32, gen, HEADS, HEAD_DIM, a)
+        packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=f32)
+        a_pad = packed.w_att.shape[1]
+        kern = tiled_names(t, HEAD_DIM, f32, D, a)
+        check(kern["t3"] == "tiled_pool_tf32x3" and kern["t3_bwd"] == "tiled_pool_bwd_tf32x3",
+              f"[fp32 pool] {tower}: the kernels are {kern['t3']}, {kern['t3_bwd']}")
+        o = torch.randn(n * t, D, generator=gen, device=DEV) * 0.5
+        g = torch.randn(n, D, generator=gen, device=DEV) * 1e-2
+        drop, kw = ne.Dropout(), dict(n=n, t=t, nv=n)
+        calls = {"t3": (kern["t3"], lambda: ne.tiled_pool(o, packed, **kw),
+                        lambda r, k, p: (ne.tiled_pool_reference(o[r], packed, tf32_passes=p,
+                                                                 **k),)),
+                 "t3_bwd": (kern["t3_bwd"], lambda: ne.tiled_pool_bwd(o, packed, g, drop, **kw),
+                            lambda r, k, p: ne.tiled_pool_bwd_reference(
+                                o[r], packed, g[r.start // t:r.stop // t], drop, tf32_passes=p,
+                                **k))}
+        for key, (name, call, plain) in calls.items():
+            reset_counts()
+            runs = [call(), call()]
+            torch.cuda.synchronize()
+            cnt = read_counts()
+            check(cnt[name] == 2 and sum(cnt[k] for k in TILED) == 2,
+                  f"[fp32 pool] {key} {tower}: launches {cnt}")
+            runs = [u if isinstance(u, tuple) else (u,) for u in runs]
+            check(all(torch.equal(u, v) for u, v in zip(*runs)),
+                  f"[fp32 pool] {key} {tower}: two launches differ")
+            got = runs[0]
+            del runs
+            errs, plain_ms = {3: [0.0, 0.0], 0: [0.0, 0.0]}, {}
+            for passes in (3, 0):
+                def held(a0, a1):
+                    r = slice(a0 * t, a1 * t)
+                    ref = plain(r, dict(n=a1 - a0, t=t, nv=a1 - a0), passes)
+                    for i, (u, v) in enumerate(zip(got, ref)):
+                        u = u[a0:a1] if (key == "t3" or i >= 2) else u[r]
+                        check(bool(torch.isfinite(u).all()), f"[fp32 pool] {key} non-finite")
+                        e = errs[passes]
+                        e[0] = max(e[0], (u - v).abs().max().item())
+                        e[1] = max(e[1], v.abs().max().item())
+
+                if passes:
+                    plain_ms[passes] = plain_chunked(held, n, t, FP32_PLAIN_CHUNK)
+                else:
+                    held(0, min(n, FP32_PLAIN_CHUNK))
+            for passes, (e, sc) in errs.items():
+                tol = FP32_ATOL if key == "t3" else FP32_GRAD_REL * sc
+                check(e <= tol, f"[fp32 pool] {key} {tower}: max|kernel - plain "
+                                f"({'3xTF32' if passes else 'fp32'})| {e} > {tol}")
+            del got
+            torch.cuda.empty_cache()
+            flops, nbytes = pool_work(n, t, D, a, a_pad, key == "t3_bwd")
+            b_ms, b_by = tf32x3_bound(flops, nbytes, peaks)
+            rec = {"case": f"{key}_{tower}", "kernel": name, "shape": [n, t, D], "a": a,
+                   "max_abs_err": errs[3][0], "scale": errs[3][1], "fp32_plain_err": errs[0][0],
+                   "plain_ms": plain_ms[3], "bound_ms": b_ms, "bound_by": b_by,
+                   "fma_bound_ms": bound(flops, nbytes, peaks[1], peaks)[0],
+                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "library_ms": None}
+            if iters:  # in turns with the chunked kernel
+                chunked = earlier(call, "pool_variant")
+                turns = [time_ms(f, iters, warmup=1) for f in (call, chunked, chunked, call)]
+                rec.update(ms=mean(turns[::3]), chunked_ms=mean(turns[1:3]), turns_ms=turns)
+                print(f"[fp32 pool] {name} at the {tower} tower [{n}, {t}, {D}] A {a} fp32: "
+                      f"ms={rec['ms']:.3f} (in turns kernel, chunked, chunked, kernel: "
+                      + ", ".join(f"{v:.3f}" for v in turns) + f"; "
+                      f"{rec['chunked_ms'] / rec['ms']:.1f}x faster); bound {b_ms:.4f} ({b_by}, "
+                      f"3xTF32; {rec['ms'] / b_ms:.2f}x it; FMA {rec['fma_bound_ms']:.4f}); "
+                      f"max|kernel - plain 3xTF32| {errs[3][0]:.2e} of {errs[3][1]:.2e}, fp32 "
+                      f"plain {errs[0][0]:.2e}; plain 3xTF32 {plain_ms[3]:.1f} ms; two launches "
+                      f"bit-equal", flush=True)
+            else:
+                print(f"[fp32 pool] {name} at [{n}, {t}, {D}] A {a} (a_pad {a_pad}) fp32: "
+                      f"max|kernel - plain 3xTF32| {errs[3][0]:.2e} of {errs[3][1]:.2e}, fp32 "
+                      f"plain {errs[0][0]:.2e}; two launches bit-equal", flush=True)
+            out.append(rec)
+        del o, g, packed, ws, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def fp32_pool_graph(gen) -> dict:
+    """[fp32 pool]: T3's "tf32x3" kernels with n_valid read from device
+    memory (T 50 and 200, A 200 and 300; the backward under the stream-1
+    mask at T 50, the external one at 200): eager with a device count equals
+    the host count's outputs bit for bit (the forward's rows past the count
+    zero, the partials past it zero); captured once in a CUDA graph, each
+    replay reads the count then and equals the eager run at that count bit
+    for bit."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    f32, rec = torch.float32, {}
+    for t, a, drop in ((50, ATT, "rng"), (200, 300, "mask")):
+        n = 37
+        _, ws = make_inputs(1, 1, 16, f32, gen, HEADS, HEAD_DIM, a)
+        packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=f32)
+        o = torch.randn(n * t, D, generator=gen, device=DEV) * 0.5
+        g = torch.randn(n, D, generator=gen, device=DEV) * 1e-2
+        mask = ((torch.rand(n, t, D, generator=gen, device=DEV) < KEEP).float()
+                if drop == "mask" else None)
+        dr = ne.dropout_config(n, t, D, KEEP, 1.0, SEED64 if drop == "rng" else None, mask, DEV)
+
+        def run(nv, nv_dev=None):
+            kw = dict(n=n, t=t, nv=nv, nv_dev=nv_dev)
+            return [ne.tiled_pool(o, packed, **kw), *ne.tiled_pool_bwd(o, packed, g, dr, **kw)]
+
+        def same(u, v, nv):
+            r = slice(0, nv * t)  # do is unwritten past the valid rows
+            return (torch.equal(u[0], v[0]) and torch.equal(u[1][r], v[1][r])
+                    and all(torch.equal(x, y) for x, y in zip(u[2:], v[2:])))
+
+        counts = (n - 3, n - 11)
+        reset_counts()
+        host = [run(nv) for nv in counts]
+        dev = [run(n, torch.tensor(nv, dtype=torch.int32, device=DEV)) for nv in counts]
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        check(cnt["tiled_pool_tf32x3"] == 4 and cnt["tiled_pool_bwd_tf32x3"] == 4,
+              f"[fp32 pool] graph T {t}: not the tf32x3 kernels: {cnt}")
+        for h, d_, nv in zip(host, dev, counts):
+            check(same(h, d_, nv) and not h[0][nv:].any() and not h[3][nv:].any()
+                  and not h[4][nv:].any() and not h[2][nv * t:].any(),
+                  f"[fp32 pool] graph T {t}: the device count {nv} changes the outputs")
+            kr = dict(n=nv, t=t, nv=nv)
+            ref = ne.tiled_pool_bwd_reference(o[:nv * t], packed, g[:nv], dr, tf32_passes=3, **kr)
+            for nm, u, v in zip(("do", "dz", "db", "dq"), (h[1][:nv * t], h[2][:nv * t],
+                                                           h[3][:nv], h[4][:nv]), ref):
+                e, sc = (u - v).abs().max().item(), v.abs().max().item()
+                check(e <= FP32_GRAD_REL * sc, f"[fp32 pool] graph T {t} A {a} dropout {drop}: "
+                                               f"{nm} {e} > {FP32_GRAD_REL} * {sc}")
+        nvt = torch.tensor(counts[0], dtype=torch.int32, device=DEV)
+        run(n, nvt)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = run(n, nvt)
+        for nv, d_ in zip(counts, dev):
+            nvt.fill_(nv)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(same(outs, d_, nv), f"[fp32 pool] graph T {t}: the replay at n_valid {nv} "
+                                      f"differs from the eager run")
+        del graph, outs, host, dev
+        rec[f"t{t}_a{a}"] = {"counts": list(counts), "dropout": drop, "bit_equal": True}
+    print("[fp32 pool] device n_valid: T3's tf32x3 kernels at T 50 (A 200, Philox) and 200 (A "
+          "300, external mask) read the count from device memory (bit-equal to the host count's "
+          "outputs, within 1e-4 of the plain 3xTF32 version); in a CUDA graph each replay reads "
+          "it then, bit-equal to the eager runs", flush=True)
+    return rec
+
+
+def fp32_pool_phase(peaks, gen) -> dict:
+    """[fp32 pool]: ``fp32_pool_timed`` and ``fp32_pool_graph``."""
+    t0 = time.perf_counter()
+    rec = {"timed": fp32_pool_timed(peaks, gen), "graph": fp32_pool_graph(gen)}
+    release()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[fp32 pool] phase in {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def fp32_training(table, peaks) -> dict:
     """[fp32] NRMS at bench.py's width in fp32 (the JAX package's default
     dtype): the 250,002 x 1,024 table, title 30, history 20, 20 x 20 heads,
@@ -1424,8 +1627,9 @@ def fp32_cli() -> dict:
     launch of the run (validation and scoring too) on the tensor cores; then
     again with ``--history_size`` 50 and 200, whose user tower takes the
     tiled route (T1 on the 3xTF32 kernel, T2 and T4 on their 3xTF32 staged
-    kernels at 50 and streamed ones at 200; each step's launches as
-    ``history_expect`` gives them in fp32). Removes its output directories
+    kernels at 50 and streamed ones at 200, T3 on its "tf32x3" kernels at
+    both; each step's launches as ``history_expect`` gives them in fp32).
+    Removes its output directories
     afterwards. Returns {"cli": ..., "cli_h50": ..., "cli_h200": ...}."""
     import shutil
 
@@ -1464,6 +1668,12 @@ def fp32_cli() -> dict:
                   and not any(n[f"tiled_attention{b}{v}"] for b in ("", "_bwd")
                               for v in ("", "_staged", "_streamed")),
                   f"cli nrms_fp32 {key}: T2 and T4 not on their 3xTF32 kernels: {n}")
+            check(k["t3"] == "tiled_pool_tf32x3" and k["t3_bwd"] == "tiled_pool_bwd_tf32x3"
+                  and n[k["t3"]] >= rec["steps_per_epoch"]
+                  and n[k["t3_bwd"]] >= rec["steps_per_epoch"]
+                  and not any(n[f"tiled_pool{b}{v}"] for b in ("", "_bwd")
+                              for v in ("", "_resident", "_streamed")),
+                  f"cli nrms_fp32 {key}: T3 not on its tf32x3 kernels: {n}")
         out[key] = rec
         del trainer
         shutil.rmtree(d, ignore_errors=True)
@@ -1476,6 +1686,7 @@ def fp32_phase(table, peaks, gen) -> dict:
     FMA stages (``fp32_timed``), K2's fp32 GEMM and T1 on the 3xTF32 GEMM
     core against their FMA kernels and torch.matmul (``fp32_gemm_timed``,
     ``fp32_t1_timed``), the GEMM under a device count (``fp32_gemm_dev``),
+    T3 on its "tf32x3" kernels against the chunked one (``fp32_pool_phase``),
     T2 and T4 on their 3xTF32 kernels with NRMS at history 50
     (``fp32_tiled_phase``), NRMS trained in fp32 at full width
     (``fp32_training``), and the CLI at its default dtype, at history 20,
@@ -1483,7 +1694,7 @@ def fp32_phase(table, peaks, gen) -> dict:
     t0 = time.perf_counter()
     rec = {"timed": fp32_timed(peaks, gen), "gemm": fp32_gemm_timed(peaks, gen),
            "gemm_dev": fp32_gemm_dev(gen), "t1": fp32_t1_timed(peaks, gen),
-           "tiled": fp32_tiled_phase(table, peaks, gen),
+           "pool": fp32_pool_phase(peaks, gen), "tiled": fp32_tiled_phase(table, peaks, gen),
            "training": fp32_training(table, peaks), **fp32_cli()}
     rec["seconds"] = time.perf_counter() - t0
     print(f"[fp32] phase in {rec['seconds']:.1f} s", flush=True)
@@ -1791,10 +2002,12 @@ TILED = ("tiled_qkv", "tiled_qkv_tma", "tiled_qkv_tf32x3", "tiled_attention", "t
          "tiled_pool_bwd", "tiled_pool_bwd_resident", "tiled_pool_bwd_streamed",
          "tiled_attention_bwd", "tiled_attention_bwd_staged", "tiled_attention_bwd_streamed",
          "tiled_attention_staged_tf32x3", "tiled_attention_streamed_tf32x3",
-         "tiled_attention_bwd_staged_tf32x3", "tiled_attention_bwd_streamed_tf32x3")
+         "tiled_attention_bwd_staged_tf32x3", "tiled_attention_bwd_streamed_tf32x3",
+         "tiled_pool_tf32x3", "tiled_pool_bwd_tf32x3")
 ATT_SUFFIX = {"staged": "_staged", "streamed": "_streamed", "gather": ""}  # attention_variant's
 QKV_SUFFIX = {"tma": "_tma", "tf32x3": "_tf32x3", "panel": ""}  # qkv_variant's
-POOL_SUFFIX = {"resident": "_resident", "streamed": "_streamed", "chunked": ""}  # pool_variant's
+POOL_SUFFIX = {"resident": "_resident", "streamed": "_streamed", "chunked": "",  # pool_variant's
+               "tf32x3": "_tf32x3"}
 
 
 def att_suffix(variant: str, cdt) -> str:
@@ -1896,7 +2109,9 @@ C3B_QKV_VARIANTS = (  # T1 either side of qkv_variant (bf16 "tma": x held once t
     ("fp32_din64", 6, 50, 64, torch.float32, "rng", "tf32x3"),
     ("fp32_din400", 4, 100, 400, torch.float32, None, "tf32x3"),
 )
-C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: resident, streamed, chunked. The user
+C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: resident, streamed, chunked, and in fp32
+    # "tf32x3" wherever o's rows are whole 16 bytes (D a multiple of 4; each fp32 case's plan
+    # kernel, pool_plan_variant's, also run by the rule's override). The user
     # tower's D 400 at T 100 (bf16: the resident backward's last D at A 200), D 408 (the backward
     # streamed), 448 (the resident forward's last; the backward past the streamed one's D) and 456;
     # T 128 and 129 and a_pad 256 and 272; fp32 D 144 and 152 at T 100. Past T 128 (streamed): T
@@ -1911,9 +2126,15 @@ C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: resident, streamed, chu
     ("bf16_t128_d64_a256", 6, 128, 64, 256, torch.bfloat16, "mask", "resident", "resident"),
     ("bf16_t129_d64_a256", 5, 129, 64, 256, torch.bfloat16, "rng", "streamed", "streamed"),
     ("bf16_t100_d64_a257", 5, 100, 64, 257, torch.bfloat16, "mask", "chunked", "chunked"),
-    ("fp32_t100_d144_a200", 5, 100, 144, 200, torch.float32, "rng", "resident", "resident"),
-    ("fp32_t100_d152_a200", 5, 100, 152, 200, torch.float32, "mask", "streamed", "streamed"),
-    ("fp32_t20_d16_a40", 7, 20, 16, 40, torch.float32, None, "resident", "resident"),
+    ("fp32_t100_d144_a200", 5, 100, 144, 200, torch.float32, "rng", "tf32x3", "tf32x3"),
+    ("fp32_t100_d152_a200", 5, 100, 152, 200, torch.float32, "mask", "tf32x3", "tf32x3"),
+    ("fp32_t20_d16_a40", 7, 20, 16, 40, torch.float32, None, "tf32x3", "tf32x3"),
+    # fp32 either side of the TMA-stride rule (D 146: 584-byte rows), a_pad past 256 (two column
+    # tiles of W_att), an odd row count (325) and the user tower's D at T 50
+    ("fp32_t100_d146_a200", 5, 100, 146, 200, torch.float32, "rng", "streamed", "streamed"),
+    ("fp32_t100_d64_a300", 5, 100, 64, 300, torch.float32, "mask", "tf32x3", "tf32x3"),
+    ("fp32_t65_d64_a200", 5, 65, 64, 200, torch.float32, "mask", "tf32x3", "tf32x3"),  # odd N*T
+    ("fp32_t50_d400_a200", 6, 50, 400, 200, torch.float32, "rng", "tf32x3", "tf32x3"),
     ("bf16_t200_d400_a200", 5, 200, 400, 200, torch.bfloat16, "rng", "streamed", "streamed"),
     ("bf16_t208_d400_a200", 5, 208, 400, 200, torch.bfloat16, "mask", "streamed", "streamed"),
     ("bf16_t512_d400_a200", 4, 512, 400, 200, torch.bfloat16, None, "streamed", "streamed"),
@@ -1924,11 +2145,11 @@ C3B_POOL_VARIANTS = (  # T3 either side of pool_variant: resident, streamed, chu
     ("bf16_t200_d424_a200", 4, 200, 424, 200, torch.bfloat16, "mask", "streamed", "chunked"),
     ("bf16_t200_d432_a200", 4, 200, 432, 200, torch.bfloat16, None, "streamed", "chunked"),
     ("bf16_t200_d440_a200", 4, 200, 440, 200, torch.bfloat16, "rng", "chunked", "chunked"),
-    ("fp32_t200_d176_a200", 4, 200, 176, 200, torch.float32, "mask", "streamed", "streamed"),
-    ("fp32_t200_d184_a200", 4, 200, 184, 200, torch.float32, "rng", "chunked", "chunked"),
-    ("fp32_t1000_d128_a200", 3, 1000, 128, 200, torch.float32, None, "streamed", "streamed"),
+    ("fp32_t200_d176_a200", 4, 200, 176, 200, torch.float32, "mask", "tf32x3", "tf32x3"),
+    ("fp32_t200_d184_a200", 4, 200, 184, 200, torch.float32, "rng", "tf32x3", "tf32x3"),
+    ("fp32_t1000_d128_a200", 3, 1000, 128, 200, torch.float32, None, "tf32x3", "tf32x3"),
 )
-POOL_ORDER = ("resident", "streamed", "chunked")  # pool_variant's kernels, first choice first
+POOL_ORDER = ("resident", "streamed", "chunked")  # pool_plan_variant's kernels, first choice first
 
 
 def tiled_parts(xin, packed, drop_in, g, n, t, nv, rel) -> dict:
@@ -2092,7 +2313,7 @@ def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
 def c3b_graph(gen) -> dict:
     """The tiled route with the seed and n_valid as device scalars (bf16 and
     fp32, T 100 and 130: T2 and T4 staged and T3 resident, then all three
-    streamed; dropout 0.2 on both streams): the host ints' outputs bit for
+    streamed, T3 "tf32x3" in fp32; dropout 0.2 on both streams): the host ints' outputs bit for
     bit; in a CUDA graph, each replay reads the scalars' values then and
     equals the eager device-scalar run bit for bit."""
     from ebnerd_tpu_torch.ops import news_encoder as ne
@@ -2148,7 +2369,7 @@ def c3b_graph(gen) -> dict:
         rec[f"{str(cdt)[6:]}_t{t}"] = {"pairs": [[hex(s), nv] for s, nv in pairs],
                                        "kernels": [t3, t3b, t4], "bit_equal": True}
     print(f"[c3b] device scalars: the tiled route at T {C3B_HIST} and 130 (bf16, fp32; T2 and T4 "
-          f"staged and T3 resident, then all three streamed) draws the host "
+          f"staged and T3 resident, then all three streamed; fp32 T3 tf32x3) draws the host "
           f"ints' masks (output and dx bit-equal, weight gradients within {WGRAD_REL_TOL}); in "
           f"a CUDA graph each replay reads its seed and n_valid, bit-equal to the eager runs",
           flush=True)
@@ -2361,23 +2582,53 @@ def c3b_qkv_pool_variants(gen) -> dict:
         bit = (torch.equal(fwd[0], fwd[1]) and torch.equal(bwd[0][0][:rows], bwd[1][0][:rows])
                and all(torch.equal(u, v) for u, v in zip(bwd[0][1:], bwd[1][1:])))
         check(bit, f"c3b pool variant {name}: two launches differ")
+        plan = [ne.pool_plan_variant(t, d, a_pad, cdt, b) for b in (False, True)]
+        if want[0] == "tf32x3":  # the plan's kernels, kept for timing, by the rule's override
+            reset_counts()
+            pf = ruled(lambda: ne.tiled_pool(o, packed, **kw), "pool_variant", plan[0])()
+            pb = ruled(lambda: ne.tiled_pool_bwd(oc, packed, g, drop_in, **kw), "pool_variant",
+                       plan[1])()
+            torch.cuda.synchronize()
+            cnt_p = read_counts()
+            check(cnt_p["tiled_pool" + POOL_SUFFIX[plan[0]]] == 1
+                  and cnt_p["tiled_pool_bwd" + POOL_SUFFIX[plan[1]]] == 1,
+                  f"c3b pool variant {name}: the plan's kernels' launches {cnt_p}")
+            for nm, u, v in (("plan out", pf, rf), ("plan do", pb[0][:rows], rb[0][:rows]),
+                             ("plan dz", pb[1], rb[1]), ("plan db", pb[2][:nv], rb[2][:nv]),
+                             ("plan dq", pb[3][:nv], rb[3][:nv])):
+                e, sc = (u.float() - v.float()).abs().max().item(), v.float().abs().max().item()
+                errs[nm] = [e, sc]
+                check(e <= rel * sc, f"c3b pool variant {name}: {nm} {e} > {rel} * {sc}")
+            for k, v in cnt_p.items():
+                cnt[k] += v
+            del pf, pb
         refused = []
-        for b, w in enumerate(want):  # requests for the kernels the rule passed over
-            for v in POOL_ORDER[:POOL_ORDER.index(w)]:
+        # requests for the kernels the rule passed over: the plan's earlier ones, and "tf32x3"
+        # where the rule does not answer it (bf16; fp32 rows that are not whole 16 bytes)
+        for b, w in enumerate(plan):
+            passed = list(POOL_ORDER[:POOL_ORDER.index(w)])
+            if want[b] != "tf32x3":
+                passed.append("tf32x3")
+            for v in passed:
                 outs = [torch.full_like(u, 7.0) for u in ((fwd[0],) if not b else bwd[0])]
                 # out, dz_c, do_c, db_part, dq_part as the C entry takes them
                 o_p = ([None, outs[1].data_ptr(), outs[0].data_ptr(), outs[2].data_ptr(),
                         outs[3].data_ptr()] if b else [outs[0].data_ptr()] + [None] * 4)
                 src = oc if b else o
-                # a streamed backward gets its scratch, so that its plan is what refuses it
+                # a streamed backward gets its scratch, so that its plan is what refuses it, and
+                # "tf32x3" its own, so that its dtype or row stride is
                 rounds = -(-t // 128)
                 sc = (torch.empty(n * rounds * ne._POOL_SCRATCH, device=DEV)
-                      if b and v == "streamed" else None)
+                      if b and v == "streamed" else
+                      torch.empty(ne.pool_tf32x3_scratch(n, t, a_pad, bool(b)), device=DEV)
+                      if v == "tf32x3" else None)
+                wt = torch.empty(n * t, device=DEV) if v == "tf32x3" else None
                 with torch.cuda.device(DEV):
                     refused.append(lib.tiled_pool(
                         src.data_ptr(), src.shape[1], packed.w_att.data_ptr(),
                         packed.b_att.data_ptr(), packed.q_att.data_ptr(),
-                        g.data_ptr() if b else None, o_p[0], _ptr(sc), None, o_p[1], o_p[2], o_p[3],
+                        g.data_ptr() if b else None, o_p[0], _ptr(sc), _ptr(wt), o_p[1], o_p[2],
+                        o_p[3],
                         o_p[4], n, t, d, a, a_pad, n, None, int(bf), b, 0, 0, None, 0, 1.0, None,
                         1.0, ne._POOL_VARIANT[v], stream()))
                 torch.cuda.synchronize()
@@ -6240,6 +6491,37 @@ def main(argv=None) -> int:
                       if c["kernel"] == name]})
     check(all(k["launches"] > 0 for k in kernels["kernels"][-4:]),
           "[fp32 tiled] a 3xTF32 T2 or T4 kernel never ran on its path")
+    # [fp32 pool]: T3's "tf32x3" kernels, launched by the fp32 step at history 50 and the CLI at
+    # its default dtype with --history_size 50 and 200; timed in turns with the chunked kernel
+    fp = {r["case"]: r for r in fp32_rec["pool"]["timed"]}
+    for name, key, line, what in (
+            ("tiled_pool_tf32x3", "t3", 234, "T3's forward in fp32: z = o W_att across articles "
+             "on the 3xTF32 wgmma core (its epilogue reduces tanh(z + b) q to each row's logit; z "
+             "never stored), then a block an article: the softmax and the weighted sum of o"),
+            ("tiled_pool_bwd_tf32x3", "t3_bwd", 529, "T3's backward in fp32: the logits again on "
+             "the core, storing tanh(z + b); a block an article: the softmax, dvals = o g, datt, "
+             "dz = datt q (1 - tanh^2) and the per-article db and dq partials; do = (w g + dz "
+             "W_att^T) mask on the core, its epilogue adding w g and drawing the stream-1 mask")):
+        r = fp[f"{key}_user_h50"]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": "ebnerd_tpu_torch/csrc/news_encoder_tiled.cu "
+                                                    "+ news_encoder_common.cuh",
+            "replaces": f"ebnerd_tpu/ops/news_encoder.py:{line}",
+            "launches": h50_step_l[name], "launches_cli_fp32_h50": h50_l[name],
+            "launches_cli_fp32_h200": h200_l[name],
+            **{k: r[k] for k in keys}, "chunked_kernel_ms": r["chunked_ms"],
+            "fma_bound_ms": r["fma_bound_ms"], "fp32_plain_err": r["fp32_plain_err"],
+            "note": f"{what}; launches: the fp32 step at history 50 (3 counted steps); timed at "
+                    f"the user_h50 tower {r['shape']} fp32 in turns with the chunked kernel "
+                    f"(chunked_kernel_ms); plain_ms is the plain 3xTF32 version over every "
+                    f"article; bound_ms 3xTF32 (fma_bound_ms at the FMA rate); no PyTorch call "
+                    f"computes the same function (library_ms null)",
+            "checked": True,
+            "cases": [{k: c.get(k) for k in ("case", "ms", "chunked_ms", "bound_ms", "max_abs_err")}
+                      for c in fp.values() if c["kernel"] == name]})
+    check(all(k["launches"] > 0 and k["launches_cli_fp32_h200"] > 0
+              for k in kernels["kernels"][-2:]),
+          "[fp32 pool] a tf32x3 T3 kernel never ran on its path")
     for k in kernels["kernels"]:  # the [large] runs' launches (NAML's generator dropout: none)
         k["launches_large"] = sum(large[m]["launches"].get(k["name"], 0) for m in ("naml", "nrms"))
     # [c3b]: the tiled route's kernels, launched by the history-100 steps and the history-200 ones

@@ -49,8 +49,9 @@ BENCH_PRNGDROP (0 = generator-seeded dropout; LSTUR, NAML, NPA, Fastformer),
 BENCH_DROPOUT (0.2), BENCH_TOKEN_DIST / BENCH_ARTICLE_DIST (zipf or
 uniform), BENCH_DEDUP (0 = per slot), BENCH_SPARSE (1 = row-sparse word
 table), BENCH_MU_DTYPE (bfloat16 = a bf16 Adam first moment), BENCH_SCAN
-(1; N steps a graph replay); for tiny runs (the port's own) BENCH_VOCAB
-(250002), BENCH_EMB (1024), BENCH_NART (25000).
+(1; N steps a graph replay), BENCH_HISTORY (20; the user tower's T); for
+tiny runs (the port's own) BENCH_VOCAB (250002), BENCH_EMB (1024),
+BENCH_NART (25000).
 BENCH_FUSED_BLOCK is a TPU block size and does not apply.
 
 ``--device cpu`` runs it on the CPU (kernels' plain versions): its metric is
@@ -226,6 +227,15 @@ def dtype_knob(env=os.environ) -> torch.dtype:
     return torch.float32 if env.get("BENCH_DTYPE") == "float32" else torch.bfloat16
 
 
+def history_knob(env=os.environ) -> int:
+    """BENCH_HISTORY: the history articles a user tower encodes (HISTORY,
+    20, unless given; past 32 the user tower takes the tiled route)."""
+    n = int(env.get("BENCH_HISTORY", str(HISTORY)))
+    if n < 1:
+        raise ValueError(f"BENCH_HISTORY must be >= 1, got {n}")
+    return n
+
+
 def scan_knob(env=os.environ) -> int:
     """BENCH_SCAN: the steps of one graph replay (1 = per step)."""
     n = int(env.get("BENCH_SCAN", "1"))
@@ -255,6 +265,7 @@ def run(trainer, item) -> torch.Tensor:
 
 
 def main(argv=None) -> int:
+    global HISTORY
     from .training import Trainer, TrainerConfig
 
     ap = argparse.ArgumentParser(description="training throughput of one family")
@@ -262,6 +273,7 @@ def main(argv=None) -> int:
     device = ap.parse_args([] if argv is None else argv).device
     sparse, mu_dtype = optimizer_knobs()
     scan = scan_knob()
+    HISTORY = history_knob()
     name = os.environ.get("BENCH_MODEL", "nrms").lower()
     if name not in FAMILIES:
         raise ValueError(f"BENCH_MODEL must be one of {', '.join(FAMILIES)}; got {name!r}")
@@ -333,7 +345,7 @@ def main(argv=None) -> int:
         "step_ms": round(dt / steps * 1000, 2),
         "config": (f"{name} bs{bs} {str(dtype).replace('torch.', '')} {variant} "
                    f"sparse={int(sparse)} mu={mu_dtype or 'float32'} dedup={int(dedup)} "
-                   f"scan={scan} "
+                   f"scan={scan} history={HISTORY} "
                    f"tok={token_dist} art={art_dist} steps{steps} "
                    f"vocab={sizes['vocab']}x{sizes['emb']} articles={sizes['n_articles']} "
                    f"card={card}" + (f" peak={part}" if cuda else "")),

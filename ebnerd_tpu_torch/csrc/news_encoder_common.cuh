@@ -1686,14 +1686,17 @@ __device__ void pooling_wide(const S* src, int lds, int rows, int na, int t, int
 
 // ---- fp32 GEMMs on the tensor cores: 3xTF32 wgmma ----
 // One GEMM core for the fp32 products that are plain matrix products: K2's
-// dx and weight gradients (news_encoder_bwd.cu, bwd_gemm_tf32x3_kernel) and
-// the tiled route's T1 (news_encoder_tiled.cu, tiled_qkv_tf32x3_kernel).
-// It replaces, in fp32, the FMA kernels bwd_gemm_fma_kernel and
-// tiled_qkv_kernel "panel" (both kept beside it for timing) and, through
-// them, the products of the Pallas kernels `_news_encoder_bwd` and
-// `fused_news_encoder` (ebnerd_tpu/ops/news_encoder.py) that run outside a
-// block. What bounds it on an H100: tensor-core operations (3 TF32
-// products per fp32 one, 165 TFLOP/s of fp32 work at 495 TFLOP/s TF32)
+// dx and weight gradients (news_encoder_bwd.cu, bwd_gemm_tf32x3_kernel),
+// the tiled route's T1 (news_encoder_tiled.cu, tiled_qkv_tf32x3_kernel) and
+// T3's two products, z = o W_att and do = dz W_att^T, across articles
+// (news_encoder_tiled.cu, pool_logits_tf32x3_kernel and
+// pool_do_tf32x3_kernel). It replaces, in fp32, the FMA kernels
+// bwd_gemm_fma_kernel, tiled_qkv_kernel "panel" and tiled_pool_kernel
+// "chunked" (kept beside it for timing) and, through them, the products of
+// the Pallas kernels `_news_encoder_bwd` and `fused_news_encoder`
+// (ebnerd_tpu/ops/news_encoder.py) that run outside a block. What bounds
+// it on an H100: tensor-core operations (3 TF32 products per fp32 one, 165
+// TFLOP/s of fp32 work at 495 TFLOP/s TF32)
 // and, close behind, shared memory: wgmma reads a K-major B of 8 rows x N
 // fp32 a k-step, 1/32 byte an operation (64 B a clock at the full rate of
 // the 128 the SM has), and the split pass below adds 12 bytes an element
@@ -1753,17 +1756,48 @@ static_assert(kTfBK * 4 == 128 && kTfSmem <= kSmemLimit, "k-tile rows are one sw
 //     zeroed;
 //   kTfQkv: C [M, N] = (A [M, K] mask(m, k)) B [K, N] for rows < m_valid,
 //     other rows unwritten (A K-major, B N-major).
-constexpr int kTfDx = 0, kTfWgrad = 1, kTfQkv = 2;
+//   kTfPool: T3's logits. z = A [M, K] B [K, N] (A = o K-major, B = W_att
+//     [D, a_pad] N-major) is never stored: the epilogue writes, for each
+//     row < m_valid, the sum over the tile's columns j < a of tanh(z_j +
+//     b_j) q_j to part [column tile][M] and, where h is not null, tanh(z +
+//     b) to h [M, N] (0 past a); other rows unwritten.
+//   kTfPoolDo: T3's do [M, N] = (A [M, K] B [N, K]^T + w[m] g[m / t, n]) x
+//     the stream-1 mask of (m, n), or the external mask times 1/keep (A =
+//     dz, B = W_att [D, a_pad], both K-major), for rows < m_valid, other
+//     rows unwritten.
+constexpr int kTfDx = 0, kTfWgrad = 1, kTfQkv = 2, kTfPool = 3, kTfPoolDo = 4;
+
+// Where B lies K-major ([N, K]) rather than N-major ([K, N]); where a tile
+// with no valid row is skipped, nothing written.
+__host__ __device__ constexpr bool tf_b_kmajor(int mode) { return mode == kTfDx || mode == kTfPoolDo; }
+__host__ __device__ constexpr bool tf_skips_invalid(int mode) {
+  return mode == kTfQkv || mode == kTfPool || mode == kTfPoolDo;
+}
+
+// T3's epilogue operands (kTfPool, kTfPoolDo; zero in the other modes).
+struct TfPool {
+  const float* b_att;  // kTfPool: [a]
+  const float* q_att;  // [a]
+  float* part;         // the logits' partials [column tiles][M]
+  float* h;            // tanh(z + b) [M, N], or null
+  int a;               // attention columns (N = a_pad)
+  const float* wts;    // kTfPoolDo: the pooling weights [M]
+  const float* g;      // the cotangent [M / t, N]
+  int t;               // rows an article
+  const float* ext;    // the external mask [M, N] (used when thr is 0), or null
+  float inv_ext;
+};
 
 struct TfArgs {
   float* out;
   int M, N, K, k_per_split, splits, m_valid;
   philox::Key key;
-  uint32_t thr;  // stream-0 threshold; 0: no mask
+  uint32_t thr;  // the mask's threshold (stream 0; kTfPoolDo: stream 1); 0: no mask
   float inv;
   const unsigned long long* seed;
   const int* nv_dev;  // a valid count in device memory, or null: the rows valid are
-  int nv_mul;         // at most nv_mul times it (dx, T1: m_valid; weight gradients: K)
+  int nv_mul;         // at most nv_mul times it (dx, T1, T3: m_valid; weight gradients: K)
+  TfPool pool;
 };
 
 struct TfTile {
@@ -1854,7 +1888,7 @@ __device__ __forceinline__ void tf_clip_k(unsigned char* a_s, unsigned char* b_s
 template <int kMode>
 __device__ __forceinline__ void tf_split_b(const unsigned char* b_s, unsigned char* hi,
                                            unsigned char* lo, int ctid) {
-  if constexpr (kMode == kTfDx) {  // K-major already: the same bytes
+  if constexpr (tf_b_kmajor(kMode)) {  // K-major already: the same bytes
 #pragma unroll
     for (int j = 0; j < kTfBBytes / 16 / 256; ++j) {
       const int off = 16 * (ctid + 256 * j);
@@ -1917,6 +1951,47 @@ __device__ __forceinline__ void tf_products(float (&acc)[128], uint32_t (&ah)[16
   hop::wgmma_commit();
 }
 
+// kTfPool's epilogue: the thread's rows r0 and r0 + 8, its 64 columns of
+// the tile in a fixed order (8-column groups, then the pair), then the
+// quad's four lanes by fixed shuffles. tanhf, not the special-function
+// unit's tanh.approx.f32: on an H100 at the history-50 user tower the
+// approximation was 9% (forward) and 4% (backward) faster but put dz and
+// the db partials 5.5x and 3.7x further from the plain 3xTF32 version
+// (1.4e-5 of db's scale against the 1e-4 checks; PERF.md).
+__device__ __forceinline__ void tf_pool_logits(const float (&acc)[128], const TfArgs& p,
+                                               const TfTile& w, int r0, int q) {
+  const TfPool& P = p.pool;
+  const bool live[2] = {r0 < p.m_valid && r0 < p.M, r0 + 8 < p.m_valid && r0 + 8 < p.M};
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kTfBN / 8; ++i) {
+    const int col = w.n0 + 8 * i + 2 * q;
+    float h[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool in = col + e < P.a;
+      const float b = in ? P.b_att[col + e] : 0.f, qj = in ? P.q_att[col + e] : 0.f;
+      h[e] = in ? tanhf(acc[4 * i + e] + b) : 0.f;
+      h[2 + e] = in ? tanhf(acc[4 * i + 2 + e] + b) : 0.f;
+      s[0] += h[e] * qj;
+      s[1] += h[2 + e] * qj;
+    }
+    if (P.h != nullptr && col < p.N) {  // N = a_pad is even: col + 1 < N
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (live[hh])
+          *reinterpret_cast<float2*>(P.h + size_t(r0 + 8 * hh) * p.N + col) =
+              make_float2(h[2 * hh], h[2 * hh + 1]);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 1);
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 2);
+    if (q == 0 && live[hh]) P.part[size_t(w.n0 / kTfBN) * p.M + r0 + 8 * hh] = s[hh];
+  }
+}
+
 template <int kMode>
 __device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtensorMap* tb,
                                             TfArgs p, unsigned char* sm) {
@@ -1960,7 +2035,7 @@ __device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtenso
           } else {
             hop::tma_load_2d(a_s, ta, &full[s], k0, w.m0);
           }
-          if constexpr (kMode == kTfDx) {
+          if constexpr (tf_b_kmajor(kMode)) {
             hop::tma_load_2d(b_s, tb, &full[s], k0, w.n0);
           } else {
 #pragma unroll
@@ -1987,7 +2062,7 @@ __device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtenso
   int it = 0;  // k-tiles consumed: k-tile it uses raw stage and split buffer it % 2
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const TfTile w = tf_tile<kMode>(p, t);
-    if (kMode == kTfQkv && w.nk == 0) continue;  // no valid row: nothing written
+    if (tf_skips_invalid(kMode) && w.nk == 0) continue;  // no valid row: nothing written
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < w.nk; ++kt, ++it) {
@@ -2001,7 +2076,7 @@ __device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtenso
         const int k_lim = p.K - (w.k_begin + kt * kTfBK);
         if (k_lim < kTfBK) tf_clip_k(a_s, b_s, k_lim, ctid);
       }
-      if (kMode != kTfDx && p.thr) tf_mask_a<kMode>(a_s, p, w, kt, ctid);
+      if ((kMode == kTfWgrad || kMode == kTfQkv) && p.thr) tf_mask_a<kMode>(a_s, p, w, kt, ctid);
       csync();  // every consumer retired k-tile it - 2's products: its split buffer is free
       tf_split_b<kMode>(b_s, hi, lo, ctid);
       hop::fence_proxy_async();  // the split's stores, before wgmma reads them
@@ -2021,18 +2096,43 @@ __device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtenso
     hop::fence_regs(al);
 
     const int r0 = w.m0 + rl;
+    if constexpr (kMode == kTfPool) {
+      tf_pool_logits(acc, p, w, r0, q);
+      continue;
+    }
     float* C = p.out + (kMode == kTfWgrad ? size_t(w.z) * p.M * p.N : size_t(0));
-    const bool masked = kMode == kTfDx && p.thr && w.nk > 0;
+    constexpr bool kDo = kMode == kTfPoolDo;
+    const bool masked = (kMode == kTfDx || kDo) && p.thr && w.nk > 0;
+    float wr[2] = {0.f, 0.f};  // kTfPoolDo: each row's pooling weight and cotangent row
+    const float* gr[2] = {nullptr, nullptr};
+    if constexpr (kDo) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r < p.m_valid && r < p.M) {
+          wr[h] = p.pool.wts[r];
+          gr[h] = p.pool.g + size_t(r / p.pool.t) * p.N;
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kTfBN / 8; ++i) {
       const int col = w.n0 + 8 * i + 2 * q;
       float v[4] = {acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]};
+      if constexpr (kDo) {  // + w g before the mask
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (gr[h] != nullptr && col < p.N) {
+            v[2 * h] += wr[h] * gr[h][col];
+            v[2 * h + 1] += col + 1 < p.N ? wr[h] * gr[h][col + 1] : 0.f;
+          }
+      }
       if (masked) {
         // lane q draws the group of columns n0 + 8 i + 4 (q / 2) for row
         // r0 + 8 (q % 2); its partner (q ^ 1) drew the other row's
         const uint32_t own = uint32_t(r0 + 8 * (q & 1));
         const uint4 x = philox::philox4x32_10(
-            make_uint4(own, uint32_t((w.n0 + 8 * i) / 4 + (q >> 1)), 0u, 0u), key);
+            make_uint4(own, uint32_t((w.n0 + 8 * i) / 4 + (q >> 1)), kDo ? 1u : 0u, 0u), key);
         const uint32_t b = uint32_t((x.x >> 8) < p.thr) | uint32_t((x.y >> 8) < p.thr) << 1 |
                            uint32_t((x.z >> 8) < p.thr) << 2 | uint32_t((x.w >> 8) < p.thr) << 3;
         const uint32_t other = __shfl_xor_sync(0xffffffffu, b, 1);
@@ -2048,9 +2148,14 @@ __device__ __forceinline__ void tf32x3_gemm(const CUtensorMap* ta, const CUtenso
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;
-        if (r >= p.M || (kMode == kTfQkv && r >= p.m_valid)) continue;
+        if (r >= p.M || (tf_skips_invalid(kMode) && r >= p.m_valid)) continue;
         float a0 = v[2 * h], a1 = v[2 * h + 1];
         if (kMode == kTfDx && r >= p.m_valid) a0 = a1 = 0.f;
+        if (kDo && !masked && p.pool.ext != nullptr) {
+          const float* e = p.pool.ext + size_t(r) * p.N + col;
+          a0 *= e[0] * p.pool.inv_ext;
+          if (col + 1 < p.N) a1 *= e[1] * p.pool.inv_ext;
+        }
         float* dst = C + size_t(r) * p.N + col;
         if (!(p.N & 1)) {
           *reinterpret_cast<float2*>(dst) = make_float2(a0, a1);

@@ -31,7 +31,9 @@
 //      backward's dW operand); the rows' max and sum go to device memory,
 //      [2][n * t][heads], for T4.
 //   T3 tiled_pool_resident_kernel / tiled_pool_streamed_kernel /
-//      tiled_pool_kernel: forward, z = round(o) round(W_att), the logits,
+//      tiled_pool_kernel, and in fp32 the "tf32x3" kernels (below: the two
+//      products across articles on the 3xTF32 GEMM core, a per-article pass
+//      between them): forward, z = round(o) round(W_att), the logits,
 //      the softmax over the article's T rows and the weighted sum of the
 //      fp32 o; backward, the same from round(o), datt, round(dz) to device
 //      memory, the per-article db and dq partials, and do = round((w g +
@@ -640,6 +642,172 @@ __global__ void __launch_bounds__(kThreads, 1) tiled_pool_kernel(PoolArgs p) {
           const float m = att_mask(dr, p.ext, p.inv_ext, row0 + row, col, d);
           doc[size_t(row) * d + col] = from_f<T>((wts[row] * gv[col] + acc[jt][e]) * m);
         }
+    }
+  }
+}
+
+// T3 "tf32x3" (fp32, any T and a_pad where TMA takes o's and W_att's
+// rows): the pooling across articles instead of a block per article. The
+// chunked kernel restaged W_att through shared memory for every 64 rows
+// of every article and took z and do by FMA, loading each o element from
+// device memory for every product (284.5 and 450.2 ms at the history-50
+// user tower [16,384, 50, 400], 150-280x its bound: PERF.md). Here both
+// products are plain matrix products over all N T rows on the 3xTF32 GEMM
+// core of news_encoder_common.cuh (persistent 128 x 256 tiles; a tile holds
+// every attention column of 128 rows where a_pad <= 256, else several
+// column tiles add partials); only the softmax needs an article whole, a
+// small pass over [N T] floats:
+//   forward: pool_logits_tf32x3_kernel (z = o W_att, never stored: the
+//     epilogue reduces tanh(z + b) q to each row's logit), then
+//     pool_article_kernel<false> (the softmax per article, max subtracted,
+//     +1e-8 in the denominator, and the weighted sum of the fp32 o by
+//     16-byte loads, t in order);
+//   backward: pool_logits_tf32x3_kernel again, storing tanh(z + b) too
+//     ([N T, a_pad] fp32 scratch), pool_article_kernel<true> (the weights,
+//     dvals = o g by a warp a row, datt = w (dvals - sum w dvals), dz =
+//     datt q (1 - tanh^2) to device memory with the per-article db and dq
+//     partials, a thread a column), then pool_do_tf32x3_kernel (do = (w g
+//     + dz W_att^T) mask on the core, its epilogue adding w g and drawing
+//     the stream-1 mask, or taking the external one).
+// Bound by tensor-core operations (z, and in the backward z and dz W^T:
+// 3 TF32 products each) and, close behind, the bytes of o, read twice (the
+// product and the per-article pass). One writer per output and every sum
+// in a fixed order: two launches are bit-equal, whatever the CTA count.
+constexpr int kPoolArtThreads = 128;  // pool_article_kernel: 4 warps an article
+
+// The scratch of T3 "tf32x3" (att), fp32: the logits' partials [column
+// tiles][n t] (the backward reuses the first for dvals and datt), then in
+// the backward, from the next 16-byte boundary (its rows are stored by
+// pairs), tanh(z + b) [n t][a_pad] (ops/news_encoder.py
+// pool_tf32x3_scratch); wts: the weights [n t].
+__host__ __device__ inline int pool_tf_tiles(int a_pad) { return (a_pad + kTfBN - 1) / kTfBN; }
+__host__ __device__ inline size_t pool_tf_h_offset(size_t rows, int a_pad) {
+  return (rows * pool_tf_tiles(a_pad) + 3) / 4 * 4;
+}
+
+__global__ void __launch_bounds__(kTfThreads, 1)
+    pool_logits_tf32x3_kernel(const __grid_constant__ CUtensorMap omap,
+                              const __grid_constant__ CUtensorMap wmap, TfArgs p) {
+  extern __shared__ __align__(1024) unsigned char tsm_raw[];
+  tf32x3_gemm<kTfPool>(&omap, &wmap, p, align_smem(tsm_raw));
+}
+
+__global__ void __launch_bounds__(kTfThreads, 1)
+    pool_do_tf32x3_kernel(const __grid_constant__ CUtensorMap dzmap,
+                          const __grid_constant__ CUtensorMap wmap, TfArgs p) {
+  extern __shared__ __align__(1024) unsigned char tsm_raw[];
+  tf32x3_gemm<kTfPoolDo>(&dzmap, &wmap, p, align_smem(tsm_raw));
+}
+
+// A block's max (kMax) or sum of v, every thread getting it: each warp by
+// fixed shuffles, then the warps in order.
+template <bool kMax>
+__device__ __forceinline__ float art_reduce(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < kPoolArtThreads / 32; ++w) v = kMax ? fmaxf(v, red[w]) : v + red[w];
+  __syncthreads();  // red is read before it is written again
+  return v;
+}
+
+// T3 "tf32x3"'s per-article pass: a block per article (at or past the valid
+// count: zeros out, or zero partials). The logits are the column tiles'
+// partials added in order; weights, dvals and datt go through [n t]
+// scratch in device memory (any T).
+template <bool kBwd>
+__global__ void __launch_bounds__(kPoolArtThreads) pool_article_kernel(PoolArgs p, int ct) {
+  __shared__ float red[kPoolArtThreads / 32];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int an = blockIdx.x, t = p.t, d = p.d, a = p.a, a_pad = p.a_pad, d4 = p.d / 4;
+  if (an >= valid_at(p.n_valid, p.nv_dev, p.n)) {
+    for (int i = tid; i < (kBwd ? 0 : d); i += kPoolArtThreads) p.out[size_t(an) * d + i] = 0.f;
+    for (int j = tid; j < (kBwd ? a_pad : 0); j += kPoolArtThreads) {
+      p.db_part[size_t(an) * a_pad + j] = 0.f;
+      p.dq_part[size_t(an) * a_pad + j] = 0.f;
+    }
+    return;
+  }
+  const size_t rows = size_t(p.n) * t, row0 = size_t(an) * t;
+  const float* src = static_cast<const float*>(p.src) + row0 * p.lds;
+  float* part = p.att + row0;  // slot 0; slot c at c * rows further
+  float* wts = p.wts + row0;
+  // the logits and their max; then exp(l - max), their sum, the weights
+  float mx = -INFINITY;
+  for (int r = tid; r < t; r += kPoolArtThreads) {
+    float l = part[r];
+    for (int c = 1; c < ct; ++c) l += part[size_t(c) * rows + r];
+    wts[r] = l;
+    mx = fmaxf(mx, l);
+  }
+  mx = art_reduce<true>(mx, red);
+  float sum = 0.f;
+  for (int r = tid; r < t; r += kPoolArtThreads) {
+    const float e = expf(wts[r] - mx);
+    wts[r] = e;
+    sum += e;
+  }
+  sum = art_reduce<false>(sum, red) + 1e-8f;
+  for (int r = tid; r < t; r += kPoolArtThreads) wts[r] /= sum;
+  __syncthreads();  // every weight is written before any thread reads another's
+  if constexpr (!kBwd) {  // the weighted sum of the fp32 o over t, 4 columns a thread
+    for (int c = tid; c < d4; c += kPoolArtThreads) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int tt = 0; tt < t; ++tt) {
+        const float4 o = *reinterpret_cast<const float4*>(src + size_t(tt) * p.lds + 4 * c);
+        const float w = wts[tt];
+        v.x += o.x * w;
+        v.y += o.y * w;
+        v.z += o.z * w;
+        v.w += o.w * w;
+      }
+      *reinterpret_cast<float4*>(p.out + size_t(an) * d + 4 * c) = v;
+    }
+  } else {
+    // dvals[r] = o[r] . g, a warp a row (the lanes' 4-column pieces in order, then shuffles),
+    // into slot 0 of the spent logits
+    const float* gv = p.g + size_t(an) * d;
+    for (int r = warp; r < t; r += kPoolArtThreads / 32) {
+      float v = 0.f;
+      for (int c = lane; c < d4; c += 32) {
+        const float4 o = *reinterpret_cast<const float4*>(src + size_t(r) * p.lds + 4 * c);
+        const float4 g = *reinterpret_cast<const float4*>(gv + 4 * c);
+        v += o.x * g.x + o.y * g.y + o.z * g.z + o.w * g.w;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) part[r] = v;
+    }
+    __syncthreads();
+    float inner = 0.f;
+    for (int r = tid; r < t; r += kPoolArtThreads) inner += wts[r] * part[r];
+    inner = art_reduce<false>(inner, red);
+    for (int r = tid; r < t; r += kPoolArtThreads) part[r] = wts[r] * (part[r] - inner);
+    __syncthreads();  // datt is whole
+    // per column j: dz = datt q (1 - tanh^2) to device memory, db += dz, dq += tanh datt
+    const float* hz = p.att + pool_tf_h_offset(rows, a_pad) + row0 * a_pad;
+    float* dz_c = static_cast<float*>(p.dz_c) + row0 * a_pad;
+    for (int j = tid; j < a_pad; j += kPoolArtThreads) {
+      const float qj = j < a ? p.q_att[j] : 0.f;
+      float db = 0.f, dq = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < t; ++r) {
+        const float hv = hz[size_t(r) * a_pad + j], dr = part[r];
+        const float dz = dr * qj * (1.f - hv * hv);
+        db += dz;
+        dq += hv * dr;
+        dz_c[size_t(r) * a_pad + j] = dz;
+      }
+      p.db_part[size_t(an) * a_pad + j] = db;
+      p.dq_part[size_t(an) * a_pad + j] = j < a ? dq : 0.f;
     }
   }
 }
@@ -3644,15 +3812,75 @@ int launch_attention(const AttArgs& p, int variant, cudaStream_t stream) {
 }
 
 // T3's kernels, as the C entry's `variant` names them.
-enum PoolVariant { kChunked = 0, kResident = 1, kPoolStreamed = 2 };
+enum PoolVariant { kChunked = 0, kResident = 1, kPoolStreamed = 2, kPoolTf32x3 = 3 };
+
+// T3 "tf32x3" (fp32): the logits on the 3xTF32 core (a persistent grid, at
+// most one CTA an SM; o [n t, lds] K-major, W_att [d, a_pad] N-major by
+// tensor maps), the per-article pass (a block an article), and in the
+// backward do on the core (dz [n t, a_pad] and W_att, both K-major).
+// Refused where TMA does not take o's or W_att's rows (16-byte strides and
+// bases) or d is not a whole number of 16-byte pieces; p.att holds
+// pool_tf32x3_scratch floats (ops/news_encoder.py), p.wts n t.
+int launch_pool_tf32x3(const PoolArgs& p, bool bwd, cudaStream_t stream) {
+  const long long rows = (long long)p.n * p.t;
+  if (p.d % 4 || p.lds % 4 || rows > (1LL << 31) - 1 || p.att == nullptr || p.wts == nullptr ||
+      reinterpret_cast<uintptr_t>(p.src) % 16 ||
+      reinterpret_cast<uintptr_t>(bwd ? p.g : p.out) % 16 || (bwd ? p.g : p.out) == nullptr)
+    return int(cudaErrorInvalidValue);
+  const int M = int(rows), ct = pool_tf_tiles(p.a_pad);
+  CUtensorMap omap, wmap, dzmap, wkmap;
+  if (!hop::f32_map(&omap, p.src, p.d, M, p.lds, kTfBK, kTfBM) ||
+      !hop::f32_map(&wmap, p.w_att, p.a_pad, p.d, p.a_pad, 32, kTfBK) ||
+      (bwd && (!hop::f32_map(&dzmap, p.dz_c, p.a_pad, M, p.a_pad, kTfBK, kTfBM) ||
+               !hop::f32_map(&wkmap, p.w_att, p.a_pad, p.d, p.a_pad, kTfBK, kTfBN))))
+    return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(pool_logits_tf32x3_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  if (e == cudaSuccess && bwd)
+    e = cudaFuncSetAttribute(pool_do_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTfSmem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return int(e);
+  const long long m_tiles = (M + kTfBM - 1) / kTfBM;
+  // z = o W_att: rows of the first n_valid (or *nv_dev) articles; the logits' partials and,
+  // backward, tanh(z + b) after them
+  TfArgs z{nullptr, M, p.a_pad, p.d, p.d, 1, p.n_valid * p.t, philox::Key{0u, 0u}, 0u, 1.f,
+           nullptr, p.nv_dev, p.t};
+  z.pool = TfPool{p.b_att, p.q_att, p.att, bwd ? p.att + pool_tf_h_offset(M, p.a_pad) : nullptr,
+                  p.a, nullptr, nullptr, p.t, nullptr, 1.f};
+  pool_logits_tf32x3_kernel<<<unsigned(std::min<long long>(m_tiles * ct, sms)), kTfThreads,
+                              kTfSmem, stream>>>(omap, wmap, z);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  if (bwd)
+    pool_article_kernel<true><<<unsigned(p.n), kPoolArtThreads, 0, stream>>>(p, ct);
+  else
+    pool_article_kernel<false><<<unsigned(p.n), kPoolArtThreads, 0, stream>>>(p, ct);
+  if ((e = cudaGetLastError()) != cudaSuccess || !bwd) return int(e);
+  // do = (w g + dz W_att^T) mask: the stream-1 mask drawn from the seed (or read from device
+  // memory), else the external one
+  TfArgs o{static_cast<float*>(p.do_c), M, p.d, p.a_pad, p.a_pad, 1, p.n_valid * p.t, p.dr.key,
+           p.dr.thr_att, p.dr.inv_att, p.seed_dev, p.nv_dev, p.t};
+  o.pool = TfPool{nullptr, nullptr, nullptr, nullptr, p.a, p.wts, p.g, p.t, p.ext, p.inv_ext};
+  const long long d_tiles = m_tiles * ((p.d + kTfBN - 1) / kTfBN);
+  pool_do_tf32x3_kernel<<<unsigned(std::min<long long>(d_tiles, sms)), kTfThreads, kTfSmem,
+                          stream>>>(dzmap, wkmap, o);
+  return int(cudaGetLastError());
+}
 
 // T3: "resident" (a persistent block an SM; refused where pool_fits does not
 // hold), "streamed" (the same, by rounds; refused where pool_stream_fits
-// does not hold) or the chunked kernel (a block an article).
+// does not hold), "tf32x3" (fp32 only: launch_pool_tf32x3) or the chunked
+// kernel (a block an article).
 template <typename T, typename S, bool kBwd>
 int launch_pool(const PoolArgs& p, int variant, cudaStream_t stream) {
   if (p.t < 1 || p.d < 1 || p.a < 1 || p.a > p.a_pad || p.a_pad % 16 || p.lds < p.d)
     return int(cudaErrorInvalidValue);
+  if (variant == kPoolTf32x3) {
+    if (!std::is_same<T, float>::value) return int(cudaErrorInvalidValue);
+    return p.n == 0 ? 0 : launch_pool_tf32x3(p, kBwd, stream);
+  }
   if ((variant == kResident && !pool_fits(p.t, p.d, p.a_pad, sizeof(T), kBwd)) ||
       (variant == kPoolStreamed &&
        (!pool_stream_fits(p.t, p.d, p.a_pad, sizeof(T), kBwd) || (kBwd && p.att == nullptr))) ||
@@ -3767,10 +3995,13 @@ int tiled_attention(const void* qkv, void* o, int ldo, int o_f32, void* stats, i
 // the compute dtype, db_part and dq_part [n, a_pad] fp32 (zeros at or past
 // n_valid). att and wts: [n * t] fp32 scratch (the chunked kernel's; the
 // streamed backward's att: min(n, SMs) * pool_stream_rounds(t) * 32,768
-// fp32, refused when null). w_att
+// fp32, refused when null; the "tf32x3" kernels' att: n * t column tiles
+// of 256 fp32, in the backward rounded up to 4 and then n * t * a_pad more,
+// wts [n * t]). w_att
 // [d, a_pad] in the compute dtype, b_att and q_att [a] fp32. variant: 1 the
 // resident kernel, 2 the streamed one (each refused where its plan does not
-// fit), 0 the chunked one; any other value is refused.
+// fit), 3 the "tf32x3" kernels (fp32 only; refused where TMA does not take
+// the rows), 0 the chunked one; any other value is refused.
 int tiled_pool(const void* src, int lds, const void* w_att, const void* b_att, const void* q_att,
                const void* g, void* out, void* att, void* wts, void* dz_c, void* do_c,
                void* db_part, void* dq_part, int n, int t, int d, int a, int a_pad, int n_valid,

@@ -14,8 +14,8 @@ def kernel_counters() -> dict:
     """Every kernel wrapper of the port by its kernel's name; each counts its
     launches in ``launches`` and those recorded into a CUDA graph in
     ``captured`` (``_build.count``). T1's, T2's, T3's and T4's wrappers
-    launch one of three kernels each: the newer ones count on their ``tma``,
-    ``tf32x3``, ``staged``, ``streamed`` or ``resident`` (T2's and T4's
+    launch one of three kernels each (T3 four): the newer ones count on their
+    ``tma``, ``tf32x3``, ``staged``, ``streamed`` or ``resident`` (T2's and T4's
     staged and streamed kernels in fp32 on ``staged_tf32x3`` and
     ``streamed_tf32x3``: their 3xTF32 products). K1's, the per-block
     kernel's and K2's GEMM's fp32 launches count on their wrappers and again
@@ -38,6 +38,7 @@ def kernel_counters() -> dict:
             "tiled_pool_bwd_resident": tiled_pool_bwd.resident,
             "tiled_pool_streamed": tiled_pool.streamed,
             "tiled_pool_bwd_streamed": tiled_pool_bwd.streamed,
+            "tiled_pool_tf32x3": tiled_pool.tf32x3, "tiled_pool_bwd_tf32x3": tiled_pool_bwd.tf32x3,
             "news_encoder_fwd_tf32x3": fused_news_encoder.tf32x3,
             "news_encoder_fwd_fma": fused_news_encoder.fma,
             "news_encoder_bwd_block_tf32x3": launch_bwd_core.tf32x3,

@@ -50,7 +50,8 @@ one (T <= 32 with a head width up to 64 or an attention width up to 512),
 or, for every T past 32 and every other shape, and for a layout past a
 block's shared memory, the tiled route (``csrc/news_encoder_tiled.cu``):
 T1 the QKV projection to device memory, T2 the attention by query tiles,
-T3 the pooling per article, forward and backward, T4 the attention backward
+T3 the pooling, forward and backward (per article; in fp32 its products
+across articles on the 3xTF32 GEMM core), T4 the attention backward
 per (article, head), then the backward's GEMMs and reductions as on the
 other routes. Both wrappers choose the route before any launch, and the
 autograd function keeps the forward's choice for its backward.
@@ -80,7 +81,8 @@ __all__ = ["PackedWeights", "fused_news_encoder", "fused_news_encoder_bwd", "new
            "emb_mask", "emb_mask_reference", "pack_bits", "kernel_input", "qkv_plan",
            "launch_bwd_core", "bwd_core_reference", "padded_din", "check_shape",
            "articles_per_block", "o_width", "route", "panel_layout", "attention_variant",
-           "qkv_variant", "pool_variant", "fp32_variant", "tf32_round", "tf32_matmul",
+           "qkv_variant", "pool_variant", "pool_plan_variant", "fp32_variant", "tf32_round",
+           "tf32_matmul", "pool_tf32x3_scratch",
            "tiled_qkv", "tiled_attention", "tiled_pool", "tiled_pool_bwd",
            "tiled_attention_bwd", "tiled_forward", "tiled_bwd_core",
            "tiled_qkv_reference", "tiled_attention_reference", "tiled_pool_reference",
@@ -1272,7 +1274,24 @@ def _fp32_code(packed: "PackedWeights") -> int:
 def pool_variant(t: int, d: int, a_pad: int, dtype: torch.dtype, backward: bool = False) -> str:
     """The kernel T3 (or, with ``backward``, its backward) launches for
     articles of T tokens, D wide, a padded attention width ``a_pad``, in the
-    compute ``dtype``: "resident" (a persistent block an SM holding W_att
+    compute ``dtype``: in fp32, where TMA takes the rows (D a multiple of 4,
+    so o's rows are whole 16 bytes; a_pad a multiple of 16), "tf32x3" at any
+    T and a_pad (both products across articles on the 3xTF32 GEMM core, a
+    per-article pass between them: forward, the logits, then the softmax and
+    the weighted sum; backward, the logits with tanh(z + b) kept, the
+    softmax, datt and dz per article, then do); otherwise
+    ``pool_plan_variant``'s kernel. The launchers refuse "tf32x3" in bf16
+    and where TMA does not take the rows; the fp32 branches of the other
+    three stay for timing, reached by patching this rule."""
+    if dtype == torch.float32 and d % 4 == 0 and a_pad % 16 == 0:
+        return "tf32x3"
+    return pool_plan_variant(t, d, a_pad, dtype, backward)
+
+
+def pool_plan_variant(t: int, d: int, a_pad: int, dtype: torch.dtype,
+                      backward: bool = False) -> str:
+    """T3's kernel by the blocks' layouts (``pool_variant`` past its "tf32x3"
+    answer): "resident" (a persistent block an SM holding W_att
     in shared memory; T rounded up to 16 at most 128, a_pad at most 256)
     where its layout fits a block; else "streamed" (the same block walking
     the article in rounds of 128 rows; any T, a_pad at most 256; its
@@ -1340,11 +1359,13 @@ def _att_mask(drop: Dropout, rows: int, d: int, device) -> torch.Tensor:
     return torch.ones(rows, d, device=device)
 
 
-def _pool_weights(o_c: torch.Tensor, packed: PackedWeights) -> tuple:
+def _pool_weights(o_c: torch.Tensor, packed: PackedWeights, tf32_passes: int = 0) -> tuple:
     """The pooling of round(o) [nv, T, D] fp32: (weights [nv, T], tanh(z + b)
-    [nv, T, A])."""
+    [nv, T, A]); ``tf32_passes`` 3 takes z = round(o) W_att by
+    ``tf32_matmul``."""
     cdt, a = packed.wqkv.dtype, packed.b_att.shape[0]
-    hact = torch.tanh(o_c @ packed.w_att[:, :a].float() + packed.b_att)
+    w = packed.w_att[:, :a].float()
+    hact = torch.tanh((tf32_matmul(o_c, w) if tf32_passes else o_c @ w) + packed.b_att)
     att = _round(hact, cdt) @ _round(packed.q_att, cdt)
     expo = torch.exp(att - att.max(dim=-1, keepdim=True).values)
     return expo / (expo.sum(dim=-1, keepdim=True) + 1e-8), hact
@@ -1411,28 +1432,34 @@ def tiled_attention_reference(qkv, packed: PackedWeights, drop: Dropout, *, n: i
     return out, stats
 
 
-def tiled_pool_reference(o, packed: PackedWeights, *, n: int, t: int, nv: int) -> torch.Tensor:
+def tiled_pool_reference(o, packed: PackedWeights, *, n: int, t: int, nv: int,
+                         tf32_passes: int = 0) -> torch.Tensor:
     """Plain version of T3's forward: the pooled [N, D] fp32 of o [N*T, D]
-    fp32, zeros at or past nv."""
+    fp32, zeros at or past nv. ``tf32_passes`` 3 (fp32) takes z = o W_att
+    as the "tf32x3" kernels do (``tf32_matmul``); 0 is an fp32 product."""
     d, cdt = packed.w_att.shape[0], packed.wqkv.dtype
+    _att_mm(cdt, tf32_passes)  # checks tf32_passes
     ov = o[:nv * t, :d].float().reshape(nv, t, d)
-    w, _ = _pool_weights(_round(ov, cdt), packed)
+    w, _ = _pool_weights(_round(ov, cdt), packed, tf32_passes)
     out = torch.zeros(n, d, device=o.device)
     out[:nv] = torch.einsum("ntd,nt->nd", ov, w)
     return out
 
 
 def tiled_pool_bwd_reference(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: int,
-                             nv: int) -> tuple:
+                             nv: int, tf32_passes: int = 0) -> tuple:
     """Plain version of T3's backward from round(o) [N*T, >= D] and the
     cotangent g [N, D]: (do [N*T, D], round(dz) [N*T, a_pad] in the compute
     dtype, db and dq partials [N, a_pad] fp32 per article), zeros past the
-    nv valid articles."""
+    nv valid articles. ``tf32_passes`` 3 (fp32) takes z = o W_att and
+    dz W_att^T as the "tf32x3" kernels do (``tf32_matmul``); 0 is fp32
+    products."""
     cdt = packed.wqkv.dtype
+    mm = _att_mm(cdt, tf32_passes)
     d, a_pad = packed.w_att.shape
     a, rows, dev = packed.b_att.shape[0], nv * t, o_c.device
     oc = o_c[:rows, :d].float().reshape(nv, t, d)
-    w, hact = _pool_weights(oc, packed)
+    w, hact = _pool_weights(oc, packed, tf32_passes)
     gv = g[:nv].float()
     dvals = (oc * _round(gv, cdt)[:, None, :]).sum(-1)
     datt = _round(w * (dvals - (w * dvals).sum(-1, keepdim=True)), cdt)
@@ -1446,7 +1473,7 @@ def tiled_pool_bwd_reference(o_c, packed: PackedWeights, g, drop: Dropout, *, n:
     mask = _att_mask(drop, rows, d, dev)
     do = torch.zeros(n * t, d, dtype=cdt, device=dev)
     do[:rows] = (((w[..., None] * gv[:, None, :]).reshape(rows, d)
-                  + dz_c[:rows].float() @ packed.w_att.float().T) * mask).to(cdt)
+                  + mm(dz_c[:rows].float(), packed.w_att.float().T)) * mask).to(cdt)
     return do, dz_c, db_part, dq_part
 
 
@@ -1562,15 +1589,19 @@ def _att_count(fn, variant: str, cdt: torch.dtype):
 def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop, backward):
     """Launch T3 on ``src`` with its outputs (out, dz_c, do, db_part,
     dq_part; None where the direction writes none) in ``pool_variant``'s
-    kernel, counted on ``fn.resident``, ``fn.streamed`` or ``fn``; the
-    chunked kernel gets its own scratch, the streamed backward a block's
-    (the tanh of an article's rounds of 128 rows, by thread)."""
+    kernel, counted on ``fn.resident``, ``fn.streamed``, ``fn.tf32x3`` or
+    ``fn``; the chunked kernel gets its own scratch, the streamed backward a
+    block's (the tanh of an article's rounds of 128 rows, by thread), the
+    "tf32x3" kernels theirs (``pool_tf32x3_scratch``) and the weights."""
     d, a_pad = packed.w_att.shape
     dev, cdt = src.device, packed.wqkv.dtype
     variant = pool_variant(t, d, a_pad, cdt, backward)
     att = wts = None
     if variant == "chunked":
         att, wts = (torch.empty(n * t, device=dev) for _ in range(2))
+    elif variant == "tf32x3":
+        att = torch.empty(pool_tf32x3_scratch(n, t, a_pad, backward), device=dev)
+        wts = torch.empty(n * t, device=dev)
     elif variant == "streamed" and backward:  # each block's tanh of its article's rounds
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         rounds = -(-t // _POOL_T)
@@ -1584,8 +1615,17 @@ def _launch_pool(fn, src, packed: PackedWeights, g, outs, n, t, nv, nv_dev, drop
 
 
 # pool_variant's answer as the C entry of T3 takes it
-_POOL_VARIANT = {"chunked": 0, "resident": 1, "streamed": 2}
+_POOL_VARIANT = {"chunked": 0, "resident": 1, "streamed": 2, "tf32x3": 3}
 _POOL_SCRATCH = 4 * 8 * 256 * 4  # fp32 a round of the streamed backward's block: acc by thread
+
+
+def pool_tf32x3_scratch(n: int, t: int, a_pad: int, backward: bool) -> int:
+    """The fp32 scratch of T3's "tf32x3" kernels (``att`` of the C entry
+    ``tiled_pool``): the logits' partials, one [N*T] slot a 256-column tile
+    of W_att, then in the backward, from the next 16-byte boundary (its rows
+    are stored by pairs), tanh(z + b) [N*T, a_pad]."""
+    parts = n * t * -(-a_pad // _TF32_TILE[1])
+    return -(-parts // 4) * 4 + n * t * a_pad if backward else parts
 
 
 def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
@@ -1602,9 +1642,11 @@ def tiled_pool(o, packed: PackedWeights, *, n: int, t: int, nv: int,
 
 
 tiled_pool.launches = tiled_pool.captured = 0
-# the resident and streamed kernels' counts; the chunked one's above
+# the resident, streamed and "tf32x3" kernels' counts (the last: one a launch of its two
+# kernels); the chunked one's above
 tiled_pool.resident = _build.KernelCount()
 tiled_pool.streamed = _build.KernelCount()
+tiled_pool.tf32x3 = _build.KernelCount()
 
 
 def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: int, nv: int,
@@ -1630,6 +1672,7 @@ def tiled_pool_bwd(o_c, packed: PackedWeights, g, drop: Dropout, *, n: int, t: i
 tiled_pool_bwd.launches = tiled_pool_bwd.captured = 0
 tiled_pool_bwd.resident = _build.KernelCount()
 tiled_pool_bwd.streamed = _build.KernelCount()
+tiled_pool_bwd.tf32x3 = _build.KernelCount()  # one a launch of its three kernels
 
 
 def tiled_attention_bwd(qkv, do, stats, packed: PackedWeights, *, n: int, t: int, nv: int,

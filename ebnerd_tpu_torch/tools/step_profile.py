@@ -3,12 +3,14 @@
 Builds the step of ``python -m ebnerd_tpu_torch.bench`` for the family in
 ``BENCH_MODEL`` (nrms, lstur, naml, npa, fastformer or nrms_docvec; the
 same data, model, knobs and defaults, ``BENCH_SPARSE`` and
-``BENCH_MU_DTYPE`` among them, and ``BENCH_DTYPE=float32`` for the fp32
-step), runs warm-up steps, then traces a
+``BENCH_MU_DTYPE`` among them, ``BENCH_DTYPE=float32`` for the fp32
+step and ``BENCH_HISTORY`` for a longer history), runs warm-up steps, then
+traces a
 window of warm steps with ``torch.profiler`` (CPU and CUDA activities) and
 sums device time by kernel name into the step's parts: K1
 (``news_encoder_fwd_kernel``), the x mask drawn once before it, K2's
-per-block kernel, GEMM and reduction, K3 (``dropout_kernel``), cuDNN's
+per-block kernel, GEMM and reduction, the tiled route's T1-T4 (a user
+tower past history 32), K3 (``dropout_kernel``), cuDNN's
 convolutions, cuBLAS's matmuls, Adam, the embedding's gather and scatter,
 LayerNorm, softmax, elementwise kernels, and the rest. It also reports the
 window's wall time on the synchronised host clock, the device's busy and
@@ -43,6 +45,10 @@ PARTS = (
     ("x mask (emb_mask, before K1)", ("bwd_mask_x_kernel",)),
     ("K2 GEMM", ("bwd_gemm_",)),
     ("K2 reduction", ("reduce_rows_kernel",)),
+    ("T1 tiled_qkv", ("tiled_qkv",)),
+    ("T4 tiled_attention_bwd", ("tiled_attention_bwd",)),
+    ("T2 tiled_attention", ("tiled_attention",)),
+    ("T3 pooling", ("tiled_pool", "pool_logits_tf32x3", "pool_article_kernel", "pool_do_tf32x3")),
     ("K3 prng_dropout", ("::dropout_kernel",)),
     ("Adam", ("adam", "Adam", "multi_tensor_apply", "foreach")),
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "implicit_gemm", "convolve")),
@@ -132,6 +138,7 @@ def main(argv=None) -> int:
     dropout = float(os.environ.get("BENCH_DROPOUT", "0.2"))
     sparse, mu_dtype = bench.optimizer_knobs()
     scan = bench.scan_knob()
+    bench.HISTORY = bench.history_knob()
     model, tables, builder, n_users = bench.make_family(
         name, bench.dtype_knob(), dropout, prng=os.environ.get("BENCH_PRNGDROP", "1") != "0")
     trainer = Trainer(model, tables, builder,
@@ -169,6 +176,7 @@ def main(argv=None) -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = busy_ms(kernels)
     rec = {"card": card, "model": name, "batch": bs, "dtype": str(bench.dtype_knob()),
+           "history": bench.HISTORY,
            "sparse": sparse, "mu_dtype": mu_dtype,
            "scan_steps": scan, "captures": trainer.scan_stats["captures"],
            "capture_s": trainer.scan_stats["capture_s"],

@@ -18,18 +18,21 @@ plain version). Inputs come from a seeded generator.
 
 T2 and T4 are each timed in turns with ``scaled_dot_product_attention`` on
 inputs of the same shape and dtype (kernel, SDPA, SDPA, kernel): T2's two
-modes beside its forward, T4 beside its backward. SDPA runs on the backend
-PyTorch picks for the inputs (fp32: the memory-efficient one; flash does not
-take fp32), in calls on parts of the batch small enough for it
-(``sdpa_parts``). Each time is printed beside its bound (the bytes the
+modes beside its forward, T4 beside its backward. T3, where its rule gives
+another kernel than the first, chunked one (fp32: "tf32x3"; bf16: "resident"
+or "streamed"), is timed in turns with the chunked kernel (kernel,
+chunked, chunked, kernel; ``pool_variant`` patched to answer it). SDPA
+runs on the backend PyTorch picks for the inputs (fp32: the
+memory-efficient one; flash does not take fp32), in calls on parts of the
+batch small enough for it (``sdpa_parts``). Each time is printed beside its bound (the bytes the
 call must move over 3.35 TB/s or its products over the dtype's rate, the
 longer: 989 TFLOP/s in bf16, 165 in fp32 for the kernels' 3xTF32 products,
 with the FMA rate's bound, 67, beside it), the kernel the wrapper launched
 (T1 "tma", "tf32x3" or "panel", T2 and T4 "staged", "streamed" or
 "gather", "_tf32x3" added to the fp32 staged and streamed kernels where
-the checkout counts them apart, T3 "resident", "streamed" or "chunked",
-from the launch counts; a checkout without a newer kernel takes the
-first), and the card's name and power limit. The first 256 articles of
+the checkout counts them apart, T3 "resident", "streamed", "tf32x3" or
+"chunked", from the launch counts; a checkout without a newer kernel
+takes the first), and the card's name and power limit. The first 256 articles of
 each output are held against the checkout's plain version (2e-2 of the
 scale in bf16, 1e-4 in fp32, as ``chip_smoke.py``). T3's records carry the
 sha256 of its forward and backward outputs on 256 articles of inputs drawn
@@ -53,6 +56,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 SHAPES = {  # name: N, T, heads, head width, A
     "user_h50": (16_384, 50, 20, 20, 200),
@@ -74,8 +78,8 @@ KERNELS = ("tiled_qkv", "tiled_pool", "tiled_pool_bwd", "tiled_attention",
 # each wrapper's newer kernels (their KernelCount attributes, which name them) and its first one
 NEWER = {"tiled_qkv": (("tma", "tf32x3"), "panel"),
          "tiled_attention": (("staged_tf32x3", "streamed_tf32x3", "staged", "streamed"), "gather"),
-         "tiled_pool": (("resident", "streamed"), "chunked"),
-         "tiled_pool_bwd": (("resident", "streamed"), "chunked"),
+         "tiled_pool": (("resident", "streamed", "tf32x3"), "chunked"),
+         "tiled_pool_bwd": (("resident", "streamed", "tf32x3"), "chunked"),
          "tiled_attention_bwd": (("staged_tf32x3", "streamed_tf32x3", "staged", "streamed"),
                                  "gather")}
 
@@ -269,12 +273,18 @@ def main(argv=None) -> int:
             w = getattr(ne, wrapper)
             counts = {v: getattr(w, v) for v in newer if hasattr(w, v)}
             before = {v: c.launches for v, c in counts.items()}
-            lib = library.get(kern)
-            # in turns with SDPA: kernel, SDPA, SDPA, kernel
-            turns = ([time_ms(f, args.iters) for f in (fn, lib, lib, fn)] if lib
-                     else [time_ms(fn, args.iters)])
+            fn()  # one call names the kernel the wrapper takes
             ran = [v for v, c in counts.items() if c.launches > before[v]]
             variant = ran[0] if ran else old
+            lib = library.get(kern)
+            if lib is None and wrapper.startswith("tiled_pool") and variant != old:
+                def chunked(fn=fn):  # T3 beside the chunked kernel
+                    with mock.patch.object(ne, "pool_variant", lambda *a, **k: old):
+                        fn()
+                lib = chunked
+            # in turns with SDPA or the chunked T3: kernel, other, other, kernel
+            turns = ([time_ms(f, args.iters) for f in (fn, lib, lib, fn)] if lib
+                     else [time_ms(fn, args.iters)])
             b_ms, b_by = bound_ms(flops, nbytes, rate)
             rec = {"tree": str(tree), "dtype": args.dtype, "shape": name,
                    "n_t_heads_hd_a": [n, t, heads, hd, a], "kernel": kern, "variant": variant,
@@ -284,7 +294,9 @@ def main(argv=None) -> int:
                 rec["fma_bound_ms"] = bound_ms(flops, nbytes, FP32_OPS_S)[0]
             if wrapper.startswith("tiled_pool"):
                 rec["t3_sha256"] = t3_sha
-            if lib:
+            if lib and kern not in library:
+                rec["chunked_ms"] = (turns[1] + turns[2]) / 2
+            elif lib:
                 rec["library_ms"] = (turns[1] + turns[2]) / 2
                 rec["library"] = "scaled_dot_product_attention" + (
                     " backward" if kern == "tiled_attention_bwd" else "")

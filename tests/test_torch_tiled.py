@@ -344,10 +344,10 @@ def test_attention_variant_at_each_boundary(t, head_dim, dtype, backward, expect
                                                       "streamed"),
     (100, 64, 256, torch.bfloat16, True, "resident"), (100, 64, 272, torch.bfloat16, True,
                                                        "chunked"),
-    (100, 144, 208, torch.float32, True, "resident"), (100, 152, 208, torch.float32, True,
-                                                       "streamed"),
-    (100, 144, 208, torch.float32, False, "resident"), (100, 152, 208, torch.float32, False,
-                                                        "streamed"),
+    (100, 144, 208, torch.float32, True, "tf32x3"), (100, 152, 208, torch.float32, True,
+                                                     "tf32x3"),
+    (100, 144, 208, torch.float32, False, "tf32x3"), (100, 152, 208, torch.float32, False,
+                                                      "tf32x3"),
     (1, 1, 16, torch.float32, True, "resident"), (50, 400, 304, torch.bfloat16, False, "chunked"),
     # the user tower's D 400 in bf16: the resident backward's last T is 112, its forward's 128
     (112, 400, 208, torch.bfloat16, True, "resident"), (113, 400, 208, torch.bfloat16, True,
@@ -364,7 +364,8 @@ def test_pool_variant_at_each_boundary(t, d, a_pad, dtype, backward, expected):
     the backward's last T (112) and the forward's (128); past the resident
     kernel the streamed one where its layout fits (T 129, the bf16
     backward at D 408 or T 113, fp32 D 152), else, and for wider
-    attention, chunked."""
+    attention, chunked. In fp32, D a multiple of 4 (D 144 and 152; not D
+    1) takes the "tf32x3" kernels at any T and a_pad."""
     assert port.pool_variant(t, d, a_pad, dtype, backward) == expected
 
 
@@ -376,10 +377,10 @@ def test_pool_variant_at_each_boundary(t, d, a_pad, dtype, backward, expected):
     (512, 400, 208, torch.bfloat16, "streamed"), (1000, 400, 208, torch.bfloat16, "streamed"),
     # a_pad 256 and 272 at T 200
     (200, 64, 256, torch.bfloat16, "streamed"), (200, 64, 272, torch.bfloat16, "chunked"),
-    (200, 64, 256, torch.float32, "streamed"), (200, 64, 272, torch.float32, "chunked"),
+    (200, 64, 256, torch.float32, "tf32x3"), (200, 64, 272, torch.float32, "tf32x3"),
     # the widest D at T 200, A 208: bf16 416 (the backward's last), 432 (the forward's), fp32 176
     (200, 416, 208, torch.bfloat16, "streamed"), (200, 440, 208, torch.bfloat16, "chunked"),
-    (200, 176, 208, torch.float32, "streamed"), (200, 184, 208, torch.float32, "chunked"),
+    (200, 176, 208, torch.float32, "tf32x3"), (200, 184, 208, torch.float32, "tf32x3"),
 ])
 def test_pool_variant_past_the_resident_kernel(t, d, a_pad, dtype, expected, backward):
     """T3 past the resident kernel: the streamed kernel at every T past 128
@@ -387,7 +388,8 @@ def test_pool_variant_past_the_resident_kernel(t, d, a_pad, dtype, expected, bac
     to 256 where its layout fits (W_att, two 128-row chunks of round(o),
     the article's [T16] arrays): at T 200 and A 200 the widest D is 416 in
     the bf16 backward, 432 in its forward and 176 in fp32; a_pad 272 and the
-    next D past each take the chunked kernel."""
+    next D past each take the chunked kernel. fp32's rows (D a multiple of
+    4) take the "tf32x3" kernels."""
     assert port.pool_variant(t, d, a_pad, dtype, backward) == expected
 
 
@@ -403,8 +405,13 @@ def test_pool_variant_streamed_plan_limits(t, d, dtype, backward, last):
     direction's last D at T 200 streamed and the next width of 8 chunked
     (bf16 416 backward, 432 forward; fp32 176), and the bf16 backward's
     last T at D 400 (1,168; 1,169 rounds up to 1,184 rows of the [T16]
-    arrays)."""
-    assert port.pool_variant(t, d, 208, dtype, backward) == ("streamed" if last else "chunked")
+    arrays). fp32's rows, D a multiple of 4, take the "tf32x3" kernels
+    either side; the streamed plan's fp32 limit stays ``pool_plan_variant``'s."""
+    want = "streamed" if last else "chunked"
+    if dtype == torch.float32:
+        assert port.pool_plan_variant(t, d, 208, dtype, backward) == want
+        want = "tf32x3"
+    assert port.pool_variant(t, d, 208, dtype, backward) == want
 
 
 @pytest.mark.parametrize("din,dtype,expected", [
