@@ -129,6 +129,7 @@ from ..parallel.mesh import (ShardedTable, all_gather_rows, all_reduce_sum, all_
                              table_sharding)
 from ..serving import ScoreWindow, article_validity, encode_corpus, eval_mode, model_kind
 from ..serving import two_tower_scores
+from ..utils.logging import span
 from .adam import Adam
 from .checkpoint import CheckpointManager, restore_checkpoint
 from .dedup import dedup_capable, pad_dedup_to, prep_dedup_batch
@@ -259,10 +260,18 @@ def _pinned(raw: dict) -> dict:
             for k, v in raw.items()}
 
 
+class _End(NamedTuple):
+    """The prefetch worker's last item: the exception it raised, or None at
+    the items' end."""
+    error: Optional[BaseException]
+
+
 def _prefetched(items, depth: int):
-    """Run the generator ``items`` ``depth`` items ahead on a worker
-    thread. An exception in the worker is raised here, in order; a
-    consumer that stops early stops the worker."""
+    """Run the generator ``items`` of (kind, batch id, payload) ``depth``
+    items ahead on a worker thread (``prefetch``). An exception in the
+    worker is raised here, in order; a consumer that stops early stops the
+    worker. Spans: the worker's time blocked on a full queue
+    (``feed.full``), the consumer's wait for an item (``trainer.wait``)."""
     if depth <= 0:
         yield from items
         return
@@ -270,35 +279,48 @@ def _prefetched(items, depth: int):
     import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
-    done = object()
     stop = threading.Event()
 
     def worker():
         try:
             for item in items:
+                try:
+                    q.put_nowait(item)
+                    continue
+                except queue.Full:
+                    pass
                 # bounded put with a stop check, so a consumer that bails
                 # mid-epoch does not leave this thread blocked forever
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                with span("feed.full", item[1]):
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
                 if stop.is_set():
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer's thread
-            q.put((done, e))
+            q.put(_End(e))
             return
-        q.put((done, None))
+        q.put(_End(None))
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, daemon=True, name="prefetch")
     t.start()
     try:
         while True:
-            item = q.get()
-            if isinstance(item, tuple) and len(item) == 2 and item[0] is done:
-                if item[1] is not None:
-                    raise item[1]
+            try:
+                with span("trainer.wait") as s:
+                    item = q.get()
+                    if isinstance(item, _End):
+                        if item.error is not None:
+                            raise item.error
+                        # the end, whose wait is no batch's; no local holds
+                        # this exception, so no frame of the loop outlives it
+                        raise StopIteration
+                    if s is not None:
+                        s.batch = item[1]
+            except StopIteration:
                 break
             yield item
     finally:
@@ -422,6 +444,7 @@ class Trainer:
         self._micro = 0  # micro-batches accumulated toward the next update
         self._art_cache: Optional[tuple] = None  # (step_count, article vectors)
         self.history: list[dict[str, float]] = []
+        self._batch_no = 0  # the feed's batches taken (the spans' batch id)
 
     def _sparse_setup(self, model: torch.nn.Module, tables: dict) -> None:
         """Validate the sparse mode as the JAX trainer does; keep host
@@ -699,7 +722,7 @@ class Trainer:
         if self._micro == k:
             self.optimizer.step()
             if rows is not None:
-                with torch.profiler.record_function("rowwise_adam"):
+                with span("trainer.rowwise_adam"):
                     rowwise_adam(self._emb_table, self._emb_m, self._emb_v, batch["emb_uniq"],
                                  rows.grad, self.optimizer.param_groups[0]["lr"],
                                  self.step_count + 1)
@@ -860,7 +883,15 @@ class Trainer:
         and the copies to the card are issued by ``prepare`` on the stream
         that runs the step. ``epoch`` pins the feed's shuffle order (resume
         support); ``scalar_logger`` + ``log_every`` emit a
-        ``train/loss_step`` scalar every N steps (each one synchronises)."""
+        ``train/loss_step`` scalar every N steps (each one synchronises).
+
+        Spans (``utils/logging.span``), each with the batch's running number
+        (a scan group's: its first batch's): on the worker, ``feed.batch``
+        (one batch's host work: ``feed.next``, the feed's batch build;
+        ``feed.prep``, ``_prep_host``; ``feed.pin``, ``_pinned``) and
+        ``feed.pack`` (``pack_group``); on the loop's thread
+        ``trainer.prepare``, ``trainer.step`` and ``trainer.group``
+        (``run_group``), and ``_prefetched``'s."""
         it = train_feed.epoch() if epoch is None else train_feed.epoch(epoch=epoch)
         if steps_per_epoch is not None:
             it = itertools.islice(it, steps_per_epoch)
@@ -869,27 +900,47 @@ class Trainer:
         n_scan = self.config.scan_steps if self._scan else 1
 
         def work():
-            group = []
-            for raw in it:
+            group = []  # (batch id, host-prepped batch) of a scan group
+            while True:
+                b = self._batch_no
+                try:
+                    with span("feed.batch", b):
+                        with span("feed.next", b):
+                            raw = next(it)
+                        self._batch_no += 1
+                        with span("feed.prep", b):
+                            raw = self._prep_host(raw)
+                        if pin and n_scan == 1:
+                            with span("feed.pin", b):
+                                raw = _pinned(raw)
+                except StopIteration:
+                    break
                 if n_scan == 1:
-                    raw = self._prep_host(raw)
-                    yield "step", _pinned(raw) if pin else raw
+                    yield "step", b, raw
                     continue
-                group.append(raw)
+                group.append((b, raw))
                 if len(group) == n_scan:
-                    yield "scan", self.pack_group(group)
+                    with span("feed.pack", group[0][0]):
+                        packed = self.pack_group([r for _, r in group])
+                    yield "scan", group[0][0], packed
                     group = []
-            for raw in group:  # the remainder (< scan_steps): per step, as in JAX
-                raw = self._prep_host(raw)
-                yield "step", _pinned(raw) if pin else raw
+            for b, raw in group:  # the remainder (< scan_steps): per step, as in JAX
+                if pin:
+                    with span("feed.pin", b):
+                        raw = _pinned(raw)
+                yield "step", b, raw
 
         losses: list[torch.Tensor] = []
         last_logged = 0
-        for kind, payload in _prefetched(work(), self.config.prefetch):
+        for kind, b, payload in _prefetched(work(), self.config.prefetch):
             if kind == "scan":
-                losses.extend(self.run_group(payload).unbind(0))
+                with span("trainer.group", b):
+                    losses.extend(self.run_group(payload).unbind(0))
             else:
-                losses.append(self.step(self.prepare(payload)))
+                with span("trainer.prepare", b):
+                    batch = self.prepare(payload)
+                with span("trainer.step", b):
+                    losses.append(self.step(batch))
             # as JAX: once log_every steps have passed, the newest step's loss
             if (scalar_logger is not None and log_every
                     and len(losses) - last_logged >= log_every):
@@ -962,7 +1013,8 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             losses = self._run_epoch(train_feed, steps_per_epoch, epoch=epoch,
                                      scalar_logger=scalar_logger, log_every=log_every_steps)
-            mean_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            with span("trainer.epoch_end"):  # reading the loss synchronises
+                mean_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             record = {"epoch": epoch, "loss": mean_loss, "lr": lr}
             stop = False
             if validate:

@@ -8,6 +8,7 @@ checkpoints (full state, atomic saves, keep pruning from disk), a killed
 and resumed run bit-equal to an uninterrupted one with dropout on, resume
 from the epoch ``meta.json`` names, prefetch on and off bit-equal."""
 import json
+import threading
 
 import jax
 import numpy as np
@@ -334,6 +335,90 @@ def test_prefetch_forwards_a_worker_error(split):
     with pytest.raises(RuntimeError, match="feed failed"):
         tr.fit(feed, epochs=1)
     assert tr.step_count == 2
+
+
+# ---- spans ----------------------------------------------------------------
+
+def _traced_fit(tr, feed, **kw):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ebnerd_tpu_torch.utils import logging as plog
+
+    plog.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tr.fit(feed, **kw)
+    return {k: c for k, (c, _) in plog.span_totals().items()}, plog.span_records()
+
+
+def test_fit_spans_count_and_order_each_batch(split):
+    from ebnerd_tpu_torch.utils import logging as plog
+
+    tr = _port_trainer("nrms", split, dict(seed=0, dedup_articles=True))
+    feed = _port_feeds(split)[0]
+    count, records = _traced_fit(tr, feed, epochs=2, steps_per_epoch=3)
+    assert tr.step_count == 6
+    assert count["trainer.step"] == count["trainer.prepare"] == count["trainer.wait"] == 6
+    assert count["feed.batch"] == count["feed.prep"] == count["feed.next"] == 6
+    assert count["trainer.epoch_end"] == 2 and "feed.pin" not in count  # no pinning on the CPU
+    by = {}
+    for r in records:
+        by.setdefault(r["name"], {})[r["batch"]] = r
+    assert sorted(by["trainer.step"]) == sorted(by["feed.batch"]) == list(range(6))
+    for b, prep in by["trainer.prepare"].items():
+        assert by["feed.batch"][b]["end_ns"] <= prep["start_ns"] <= by["trainer.step"][b]["start_ns"]
+        assert by["trainer.wait"][b]["end_ns"] <= prep["start_ns"]
+    main = threading.current_thread().name
+    for name, rows in by.items():
+        for r in rows.values():
+            assert r["thread"] == ("prefetch" if name.startswith("feed.") else main), r
+            if name in ("feed.next", "feed.prep"):
+                assert r["parent"] == "feed.batch"
+    # the same fit without a profiler leaves nothing
+    plog.reset_spans()
+    tr.fit(feed, epochs=1, steps_per_epoch=3)
+    assert plog.span_totals() == {} and plog.span_records() == []
+
+
+def test_fit_spans_of_scan_groups(split):
+    tr = _port_trainer("nrms", split, dict(seed=0, dedup_articles=True, scan_steps=2))
+    count, records = _traced_fit(tr, _port_feeds(split)[0], epochs=2, steps_per_epoch=3)
+    # each epoch: one group of 2, then the remainder's step
+    assert count["feed.batch"] == count["feed.prep"] == 6
+    assert count["feed.pack"] == count["trainer.group"] == 2
+    assert count["trainer.step"] == count["trainer.prepare"] == 2 and count["trainer.wait"] == 4
+    groups = sorted(r["batch"] for r in records if r["name"] == "trainer.group")
+    steps = sorted(r["batch"] for r in records if r["name"] == "trainer.step")
+    assert groups == [0, 3] and steps == [2, 5]
+
+
+def test_fit_frees_its_state_on_return(split):
+    """Nothing of a finished ``fit`` (its best-weight snapshot, the last
+    batch) waits for the cyclic collector: the prefetch queue's end raises
+    no exception that a local of the loop holds."""
+    import gc
+    import weakref
+
+    tr = _port_trainer("nrms", split, dict(seed=0, dedup_articles=True))
+    held = []
+
+    class Snapshot(dict):
+        pass
+
+    def snapshot():
+        snap = Snapshot(tr.model.state_dict())
+        held.append(weakref.ref(snap))
+        return snap
+
+    tr._snapshot = snapshot
+    gc.collect()
+    gc.disable()
+    try:
+        for depth in (2, 0):
+            tr.config.prefetch = depth
+            tr.fit(_port_feeds(split)[0], epochs=1, steps_per_epoch=2)
+            assert held and held[-1]() is None, depth
+    finally:
+        gc.enable()
 
 
 # ---- checkpoints and resume -----------------------------------------------
