@@ -43,6 +43,17 @@ Phases:
        4-30, attention 8 and 16, n_valid inside the last block, dropout), in
        fp32 and bf16 (the whole backward where D % 8 == 0), with the fp32 and
        bf16 K2 tolerances and weights scaled by fan-in (see C2_SHAPES);
+     - ``[saved qkv]``: the backward reading the Q|K|V its forward kept
+       (``NewsEncoderFunction`` with a gradient to follow) at the benchmark
+       cells' encoder shapes (news [24,064, 30, 1,024] with 22,370 valid and
+       Philox dropout 0.2, user [16,384, 20, 400], user [16,384, 50, 400] on
+       the tiled route; fp32 and bf16; and the fp32 history-200 user tower
+       for its peak memory): every gradient against ``fused_news_encoder_bwd``
+       (the recompute) bit for bit, the Q|K|V counters (1 kept, 1 read, 0
+       recomputed a call), a retained graph's second backward recomputing
+       to the same gradients, a ``no_grad`` forward keeping nothing, each
+       path's peak memory, and K1 and the per-block kernel (T1-T3 and the
+       tiled backward) timed in turns against the recompute;
   4. the mask-check path of ``scripts/check_rng_dropout.py``: K1's Philox
      path against its external-mask path fed the dumped masks;
   5. NRMS two-tower serving at full width (250,002 x 1,024 vocabulary,
@@ -277,6 +288,8 @@ go to build/chip_smoke.json.
 Run: python3 chip_smoke.py
      python3 chip_smoke.py --gemm-only   (build, then K2's GEMM and reduction
                                           cases alone; prints their records)
+     python3 chip_smoke.py --saved-qkv-only  (build, then the [saved qkv] cases
+                                              alone; prints their records)
 (``--dist-worker RANK WORLD PORT DIR`` is one process of phase 14, which starts it.)
 """
 from __future__ import annotations
@@ -762,6 +775,198 @@ def block_case(name, n, t, din, peaks, gen, n_valid=None, drop=None, timed=True,
           + (f" ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
              f"({rec['bound_by']}) library: none; QKV product alone, torch.matmul "
              f"ms={rec['qkv_matmul_ms']:.4f}" if timed else ""), flush=True)
+    return rec
+
+
+# [saved qkv]: NewsEncoderFunction keeps K1's (or T1's) Q|K|V when a gradient will follow and
+# its backward reads it instead of computing it again; at the benchmark cells' encoder shapes:
+# name, N, T, Din, n_valid, dropout, timing iterations (the history-200 user tower in fp32
+# only, for its peak memory: never run at this width before)
+SAVED_QKV_SHAPES = (("news", 24_064, T, EMB, 22_370, "rng", 5), ("user", TRAIN_BS, H, D, None, None, 5),
+                    ("user_h50", TRAIN_BS, 50, D, None, None, 5))
+SAVED_QKV_H200 = ("user_h200", TRAIN_BS, 200, D, None, None, 2)
+
+
+def qkv_counts() -> dict:
+    """The Q|K|V counters: kept by K1 (``qkv_out``) or T1 (``tiled_forward``), read by the
+    per-block kernel or the tiled route's backward, or computed again there."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+
+    return {"kept_k1": ne.fused_news_encoder.saved_qkv.launches,
+            "kept_t1": ne.tiled_forward.saved_qkv.launches,
+            "saved": ne.launch_bwd_core.saved_qkv.launches + ne.tiled_bwd_core.saved_qkv.launches,
+            "recomputed": (ne.launch_bwd_core.recomputed_qkv.launches
+                           + ne.tiled_bwd_core.recomputed_qkv.launches)}
+
+
+def saved_qkv_case(name, n, t, din, n_valid, drop, iters, cdt, gen, timed=True) -> dict:
+    """One encoder shape: forward and backward through ``news_encoder`` (the
+    saved path) against ``fused_news_encoder_bwd`` (the recompute API, no
+    forward kept): every gradient bit for bit (else the largest gap against
+    BF16_REL_TOL / FP32_GRAD_REL of each tensor's scale, recorded), the
+    counters 1 kept, 1 read, 0 recomputed; a second backward over the
+    retained graph recomputes (1) and equals the first; a ``no_grad``
+    forward keeps nothing; peak memory of each path over its inputs; then
+    timed in turns (saved, recompute, recompute, saved): the whole forward
+    and backward, K1 with and without ``qkv_out`` and the per-block kernel
+    reading the kept Q|K|V (a fresh copy before each launch, untimed, and
+    made before the recompute's launches too) and computing it (on the
+    tiled route T1-T3 with and without keeping T1's output, and
+    ``tiled_bwd_core`` given it and not)."""
+    from ebnerd_tpu_torch.ops import news_encoder as ne
+    from ebnerd_tpu_torch.tools.kernel_phases import time_ms  # this one takes ``prep``
+    
+    d = HEADS * HEAD_DIM
+    nv = n if n_valid is None else n_valid
+    keep = KEEP if drop == "rng" else 1.0
+    kw = dict(num_heads=HEADS, compute_dtype=cdt, n_valid=n_valid, keep_prob=keep,
+              emb_keep_prob=keep, rng_seed=SEED64 if drop == "rng" else None)
+    x, ws = make_inputs(n, t, din, cdt, gen)
+    packed = ne.pack_weights(*ws, num_heads=HEADS, compute_dtype=cdt)
+    g = (torch.randn(n, d, generator=gen, device=DEV) * 1e-2).contiguous()
+    g[nv:] = 0
+    ins = [x.requires_grad_(True)] + [w.requires_grad_(True) for w in ws]
+    route = ne._route(packed, t, ne.padded_din(din, cdt))
+    names = ("dx", "dwq", "dwk", "dwv", "dw", "db", "dq")
+
+    def saved(retain=False):
+        for v in ins:
+            v.grad = None
+        out = ne.news_encoder(*ins, **kw, packed=packed)
+        out.backward(g, retain_graph=retain)
+        return out
+
+    def recompute():
+        with torch.no_grad():
+            ne.news_encoder(*ins, **kw, packed=packed)
+        return ne.fused_news_encoder_bwd(*(v.detach() for v in ins), g, **kw, packed=packed)
+
+    def peak_gb(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    c0 = qkv_counts()
+    peak_saved = peak_gb(lambda: saved())
+    c1 = qkv_counts()
+    got = [v.grad for v in ins]
+    for v in ins:
+        v.grad = None
+    peak_rec = peak_gb(recompute)
+    counted = {k: c1[k] - c0[k] for k in c0}
+    expect = {"kept_k1": int(route != "tiled"), "kept_t1": int(route == "tiled"), "saved": 1,
+              "recomputed": 0}
+    check(counted == expect, f"[saved qkv] {name} {cdt}: counters {counted}, expected {expect}")
+    ref = recompute()
+    rel = FP32_GRAD_REL if cdt == torch.float32 else BF16_REL_TOL
+    scales = grad_scales(dict(zip(names, ref)), "dw", ("db", "dq"))
+    equal, gaps = {}, {}
+    for nm, u, v in zip(names, got, ref):
+        check(u.shape == v.shape and u.dtype == v.dtype, f"[saved qkv] {name}: {nm} shape/dtype")
+        equal[nm] = bool(torch.equal(u, v))
+        gaps[nm] = [(u.float() - v.float()).abs().max().item(), scales[nm]]
+        check(bool(torch.isfinite(u).all()) and gaps[nm][0] <= rel * scales[nm],
+              f"[saved qkv] {name} {cdt}: {nm} saved vs recompute {gaps[nm]} > {rel} x scale")
+    del ref
+    # a second backward over a retained graph finds the Q|K|V gone and computes it again
+    c2 = qkv_counts()
+    out = saved(retain=True)
+    first = [v.grad for v in ins]
+    for v in ins:
+        v.grad = None
+    out.backward(g)
+    second = [v.grad for v in ins]
+    c3 = qkv_counts()
+    check(c3["saved"] - c2["saved"] == 1 and c3["recomputed"] - c2["recomputed"] == 1,
+          f"[saved qkv] {name}: a retained graph's two backwards counted {c2} -> {c3}")
+    retained_equal = all(torch.equal(u, v) for u, v in zip(first, second))
+    check(retained_equal or not all(equal.values()),
+          f"[saved qkv] {name}: the second backward differs from the first")
+    check(all(torch.equal(u, v) for u, v in zip(first, got)),
+          f"[saved qkv] {name}: two saved backwards differ")
+    del out, first, second
+    for v in ins:
+        v.grad = None
+    c4 = qkv_counts()
+    with torch.no_grad():
+        ne.news_encoder(*ins, **kw, packed=packed)
+    c5 = qkv_counts()
+    check(c5 == c4, f"[saved qkv] {name}: a no_grad forward kept its Q|K|V ({c4} -> {c5})")
+    del got
+    rec = {"case": name, "shape": [n, t, din], "dtype": str(cdt)[6:], "n_valid": nv,
+           "dropout": drop, "route": route, "counted": counted, "bit_equal": equal,
+           "gaps": gaps, "retained_equal": retained_equal,
+           "peak_gb": {"saved": peak_saved, "recompute": peak_rec}}
+    if timed:
+        xd = x.detach()
+        dropc = ne.dropout_config(n, t, d, keep, keep, SEED64 if drop == "rng" else None)
+        xin, _, drop_in = ne.kernel_input(xd, nv, dropc)
+        turns = {"saved": [], "recompute": []}
+        parts = {}
+        if route == "tiled":
+            fwd = {"saved": lambda: ne.tiled_forward(xin, packed, nv, drop_in, n=n, t=t,
+                                                     save_qkv=True),
+                   "recompute": lambda: ne.tiled_forward(xin, packed, nv, drop_in, n=n, t=t)}
+            kept = fwd["saved"]()[1]
+            bwd = {"saved": lambda: ne.tiled_bwd_core(xin, packed, g, nv, drop_in, n=n, t=t,
+                                                      qkv=kept),
+                   "recompute": lambda: ne.tiled_bwd_core(xin, packed, g, nv, drop_in, n=n,
+                                                          t=t)}
+            prep = {"saved": None, "recompute": None}
+            part_names = ("t1_t3", "tiled_bwd_core")
+        else:
+            kept = torch.empty(n * t, packed.wqkv.shape[1], dtype=cdt, device=DEV)
+            work = torch.empty_like(kept)
+            lib, lib_bwd = ne._library(), ne._library_bwd()
+            fwd = {"saved": lambda: ne.launch(lib, xin, packed, nv, drop_in, n=n, t=t,
+                                              qkv_out=kept),
+                   "recompute": lambda: ne.launch(lib, xin, packed, nv, drop_in, n=n, t=t)}
+            fwd["saved"]()
+            bwd = {"saved": lambda: ne.launch_bwd_core(lib_bwd, xin, packed, g, nv, drop_in, n=n,
+                                                       t=t, qkv=work),
+                   "recompute": lambda: ne.launch_bwd_core(lib_bwd, xin, packed, g, nv, drop_in,
+                                                           n=n, t=t)}
+            refill = lambda: work.copy_(kept)  # before either launch, as the saved one needs
+            prep = {"saved": refill, "recompute": refill}
+            part_names = ("k1", "block")
+        whole = {"saved": lambda: saved(), "recompute": recompute}
+        for p in ("saved", "recompute", "recompute", "saved"):
+            turns[p].append({"whole": time_ms(whole[p], iters),
+                             part_names[0]: time_ms(fwd[p], iters),
+                             part_names[1]: time_ms(bwd[p], iters, prep=prep[p])})
+        for p, runs in turns.items():
+            parts[p] = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+        rec["ms"] = parts
+        rec["turns"] = turns
+        del kept
+    print(f"[saved qkv] {name} {n}x{t}x{din} {str(cdt)[6:]} route {route} n_valid={nv} "
+          f"dropout={drop}: counters {counted}; bit-equal to the recompute: "
+          f"{all(equal.values())} ({', '.join(k for k, v in equal.items() if not v) or 'all'}"
+          f"{' differ' if not all(equal.values()) else ''}); largest gap / scale "
+          f"{max(e / max(s_, 1e-30) for e, s_ in gaps.values()):.2e}; retained backward equal "
+          f"{retained_equal}; peak GB saved {peak_saved:.3f} recompute {peak_rec:.3f}"
+          + ("; ms saved / recompute: " + ", ".join(
+              f"{k} {rec['ms']['saved'][k]:.3f} / {rec['ms']['recompute'][k]:.3f}"
+              for k in rec["ms"]["saved"]) if timed else ""), flush=True)
+    del x, ws, ins, packed, g
+    release()
+    return rec
+
+
+def saved_qkv_phase(gen) -> dict:
+    """[saved qkv]: ``saved_qkv_case`` at SAVED_QKV_SHAPES in fp32 and bf16,
+    then the fp32 history-200 user tower (SAVED_QKV_H200: correctness and
+    peak memory, the whole path timed)."""
+    t0 = time.perf_counter()
+    cases = [saved_qkv_case(*shape, cdt, gen) for cdt in (torch.float32, torch.bfloat16)
+             for shape in SAVED_QKV_SHAPES]
+    cases.append(saved_qkv_case(*SAVED_QKV_H200, torch.float32, gen))
+    rec = {"cases": cases, "seconds": time.perf_counter() - t0}
+    print(f"[saved qkv] {len(cases)} cases passed in {rec['seconds']:.1f} s", flush=True)
     return rec
 
 
@@ -1659,7 +1864,8 @@ def fp32_cli() -> dict:
         if hist is not None:
             check(trainer.model.hparams.history_size == hist and ne.route(
                 hist, HEAD_DIM, -(-ATT // 16) * 16) == "tiled" and n["tiled_qkv_tf32x3"]
-                >= 2 * rec["steps_per_epoch"] and n["tiled_qkv"] == 0,
+                >= rec["steps_per_epoch"] and n["tiled_qkv"] == 0,  # once a step: the
+                # backward reads the forward's Q|K|V
                 f"cli nrms_fp32 {key}: T1 not on the 3xTF32 kernel: {n}")
             k = tiled_names(hist, HEAD_DIM, torch.float32, D, ATT)
             check(k["t2"].endswith("_tf32x3") and k["t4"].endswith("_tf32x3")
@@ -1809,7 +2015,7 @@ def history_expect(staged_step, hist, cdt=torch.bfloat16) -> dict:
     fp32 = ({"news_encoder_fwd_tf32x3": 1, "news_encoder_bwd_block_tf32x3": 1}
             if cdt == torch.float32 else {})
     return dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1, **fp32,
-                **tiled_call(hist, HEAD_DIM, cdt))
+                **tiled_call(hist, HEAD_DIM, cdt, saved=True))
 
 
 def c3_kernel_cases(peaks, gen) -> dict:
@@ -1877,14 +2083,19 @@ def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_
     loss_k, loss_p, grad_errs = step_vs_plain(trainer, cmp, f"[{tag} train]")
     del cmp
 
-    losses, per_step = [], []
+    losses, per_step, qkv_steps = [], [], []
     for i in range(1, 1 + TRAIN_STEPS):
         reset_counts()
+        q0 = qkv_counts()
         losses.append(trainer.step(staged[i]).item())
         per_step.append(read_counts())
+        qkv_steps.append({k: v - q0[k] for k, v in qkv_counts().items()})
     for c in per_step:
         check(all(c[k] == expect[k] for k in keys or K12),
               f"[{tag} train] a step's launches {c}, expected {expect}")
+    # both towers' backwards read the Q|K|V their forwards kept
+    check(all(c["saved"] == 2 and c["recomputed"] == 0 for c in qkv_steps),
+          f"[{tag} train] a step's Q|K|V counts {qkv_steps}")
     check(all(math.isfinite(v) for v in losses), f"[{tag} train] non-finite losses {losses}")
     dt = timed_steps(trainer, staged, 1 + TRAIN_STEPS, WARM_STEPS)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1923,6 +2134,7 @@ def history_training(table, peaks, expect, hist=C3_HIST, tag="c3", cmp_bs=TRAIN_
             "loss_kernels": loss_k,
             "loss_plain": loss_p,
             "grad_errors": grad_errs, "losses": losses, "launches_per_step": per_step,
+            "qkv_per_step": qkv_steps,
             "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
             "step_ms": step_ms, "impressions_per_s": ips, "mfu_pct": mfu, "peak_mem_gb": peak,
             "uniq_frac": uniq_frac, "host_dedup_ms": prep_ms,
@@ -2031,13 +2243,14 @@ def tiled_names(t, hd, cdt, d, a) -> dict:
             "t3_bwd": "tiled_pool_bwd" + pool(True), "t4": "tiled_attention_bwd" + att(True)}
 
 
-def tiled_call(t, hd, cdt, d=D, a=ATT) -> dict:
+def tiled_call(t, hd, cdt, d=D, a=ATT, saved=False) -> dict:
     """The tiled kernels' launches in one forward and its backward on the
-    tiled route: T1 2, T2 2 and T4 1 in the kernel their rules give, T3 1 +
-    1 (``tiled_names``)."""
+    tiled route: T1 2 (1 with ``saved``: a training step's backward reads
+    the forward's Q|K|V), T2 2 and T4 1 in the kernel their rules give, T3
+    1 + 1 (``tiled_names``)."""
     k = tiled_names(t, hd, cdt, d, a)
     out = dict.fromkeys(TILED, 0)
-    out.update({k["t1"]: 2, k["t2"]: 2, k["t3"]: 1, k["t3_bwd"]: 1, k["t4"]: 1})
+    out.update({k["t1"]: 1 if saved else 2, k["t2"]: 2, k["t3"]: 1, k["t3_bwd"]: 1, k["t4"]: 1})
     return out
 
 
@@ -2282,7 +2495,7 @@ def c3b_forced(name, n, t, din, cdt, heads, hd, a, nv, gen) -> dict:
     g[nvv:] = 0
     inst = ne._forward(x, ws, *args, instance=True)
     tiled = ne._forward(x, ws, *args, force_tiled=True)
-    check(tiled[-1] and not inst[-1], f"c3b forced {name}: routes {tiled[-1]}, {inst[-1]}")
+    check(tiled[7] and not inst[7], f"c3b forced {name}: routes {tiled[7]}, {inst[7]}")
     gi = ne._backward(inst[1], inst[2], packed, g, n, t, nvv, inst[4], instance=True)
     gt = ne._backward(tiled[1], tiled[2], packed, g, n, t, nvv, tiled[4], force_tiled=True)
     qkv = ne.tiled_qkv(tiled[1], packed, ne.Dropout(), n=n, t=t, nv=nvv)
@@ -3216,7 +3429,7 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
     rec["timed_h200"].update(c3b_timed_h200_pool(peaks, gen))
     release()
     expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
-                  **tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16))
+                  **tiled_call(C3B_HIST, HEAD_DIM, torch.bfloat16, saved=True))
     keys = K12 + TILED
     rec["training"] = history_training(table, peaks, expect, hist=C3B_HIST, tag="c3b",
                                        cmp_bs=C3B_CMP_BS, keys=keys,
@@ -3235,7 +3448,7 @@ def c3b_phase(table, peaks, gen, staged_step) -> dict:
     release()
     # the streamed T2 and T4's path: the user tower at history 200
     expect = dict(staged_step, news_encoder_fwd=1, news_encoder_bwd_block=1,
-                  **tiled_call(C3B_H200, HEAD_DIM, torch.bfloat16))
+                  **tiled_call(C3B_H200, HEAD_DIM, torch.bfloat16, saved=True))
     rec["training_h200"] = history_training(
         table, peaks, expect, hist=C3B_H200, tag="c3b h200", cmp_bs=C3B_H200_CMP_BS, keys=keys,
         serve_counter=tiled_names(C3B_H200, HEAD_DIM, torch.bfloat16, D, ATT)["t1"])
@@ -6033,6 +6246,7 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         return dist_worker(int(args[1]), int(args[2]), int(args[3]), Path(args[4]))
     gemm_only = "--gemm-only" in args
+    saved_only = "--saved-qkv-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -6066,6 +6280,9 @@ def main(argv=None) -> int:
         for line in lines:
             print(f"[build] {name}: {line}", flush=True)
 
+    if saved_only:  # [saved qkv] alone (a quick call; not the contract's run)
+        print(json.dumps(saved_qkv_phase(torch.Generator(device=DEV).manual_seed(0))), flush=True)
+        return 0
     table, raws, preps, prep_ms = training_data()
     bucket, n_uniq = int(preps[0]["art_uniq"].shape[0]), int(preps[0]["n_uniq"])
     print(f"[data] first training batch: {n_uniq} unique articles in a bucket of {bucket}; "
@@ -6149,6 +6366,7 @@ def main(argv=None) -> int:
     ]
     record["block_cases"] = blocks
     record["c2"] = c2_phase(peaks, gen)
+    record["saved_qkv"] = saved_qkv_phase(gen)
     gemms, reds, masks = gemm_cases(n_uniq, bucket, peaks, gen)
     record["gemm"], record["reduce"], record["mask"] = gemms, reds, masks
     dump = mask_dump_case(peaks)

@@ -12,7 +12,10 @@
 //      tensor cores in 3xTF32 (news_encoder_common.cuh) over a cp.async
 //      pipeline of x and of the weight's TF32 split, the stream-0 Philox
 //      mask (csrc/philox.cuh) scaling each staged x chunk before the
-//      product, as the TPU kernel does before its QKV product;
+//      product, as the TPU kernel does before its QKV product. When a
+//      gradient will follow, each panel is also written to device memory
+//      (qkv_out), and the backward's per-block kernel reads it there
+//      instead of running this stage again;
 //   2. per-head self-attention of that group (bf16: wmma on 32 x 32 tiles,
 //      one warp per article and head, or in the wide instance mma.sync per
 //      article, head and 16-row query tile; fp32: 3xTF32 mma.sync per
@@ -85,6 +88,7 @@ struct FwdArgs {
   const float* b_att;
   const float* q_att;
   float* out;
+  void* qkv_out;  // [n * t, P] compute dtype: the Q|K|V panels kept for the backward, or null
   int n, t, din, d, heads, gh, a, a_pad, n_valid, nb, stages, cluster;
   float scale;
   philox::Dropout dr;
@@ -117,8 +121,12 @@ __global__ void __launch_bounds__(kCta, 1)
   const int n_valid = valid_at(p.n_valid, p.nv_dev, p.n);
   const bool active = g0 < n_valid;
   const int n_groups = (p.heads + p.gh - 1) / p.gh;
+  // where a valid block keeps each group's Q|K|V for the backward (null: not kept)
+  T* keep = active && p.qkv_out != nullptr
+                ? static_cast<T*>(p.qkv_out) + size_t(g0) * t * n_groups * kPanel
+                : nullptr;
 
-  // 1-2. per head group: QKV panel, then that group's attention
+  // 1-2. per head group: QKV panel (kept in qkv_out), then that group's attention
   if constexpr (kBf) {
     const int nk = (din + kQkvBK - 1) / kQkvBK;
     // the cluster's CTAs run the QKV stage together when its first block is valid
@@ -142,6 +150,9 @@ __global__ void __launch_bounds__(kCta, 1)
     for (int g = 0; g < n_groups; ++g) {
       if (NE_PHASES & 1) qkv_panel_wgmma(q, it, nk, reinterpret_cast<bf16*>(R), L.ldw);
       csync();
+      if (keep != nullptr)
+        store_panel<T, true>(reinterpret_cast<const T*>(R), L.ldw, keep + g * kPanel,
+                             n_groups * kPanel, rows);
       if (active && (NE_PHASES & 2))
         attention_group<T, kWide>(reinterpret_cast<const T*>(panel), L.ldw, o, L.ldf, na, t, hd, p.gh,
                            g * p.gh, min(p.gh, p.heads - g * p.gh), p.scale, R + L.panel);
@@ -168,6 +179,9 @@ __global__ void __launch_bounds__(kCta, 1)
           qkv_panel_fp32(xb, rows, din, wq + g * kPanel, n_groups * kPanel, L, R, ed);
       }
       csync();
+      if (keep != nullptr)
+        store_panel<T, true>(reinterpret_cast<const T*>(R), L.ldw, keep + g * kPanel,
+                             n_groups * kPanel, rows);
       if (NE_PHASES & 2) {
         if constexpr (kTc)
           attention_group_tf32<kWide ? 8 : 4>(reinterpret_cast<const float*>(R), L.ldw, o, L.ldf, na, t, hd,
@@ -310,6 +324,13 @@ long long news_encoder_smem_bytes(int t, int d, int heads, int a_pad, int is_bf1
 // products on the tensor cores in 3xTF32, 0 by FMA (the first stages, kept
 // for the widths too narrow for a TF32 tile and for timing); any other
 // value is refused.
+// qkv_out, when not null, is [n * t, ceil(heads / gh) * 256] in the compute
+// dtype: each block before n_valid writes there the Q|K|V panels of its
+// rows (round(x * mask) @ wqkv in the compute dtype, as the QKV stage left
+// them in shared memory, the layout of wqkv's columns), which the
+// backward's per-block kernel then reads instead of computing them again
+// (news_encoder_bwd_core's qkv_saved); the blocks past n_valid leave
+// their rows unwritten.
 // Requires t <= 64, d / heads <= 64, 3 * gh * hd <= 256, a_pad % 16 == 0,
 // a_pad <= 512, din % (16 / elem) == 0, din % 4 == 0 with Philox dropout,
 // 16-byte aligned pointers, and the block's shared memory within the
@@ -320,9 +341,9 @@ int news_encoder_fwd(const void* x, int x_rows, const void* wqkv, const void* w_
                      float scale, int is_bf16, unsigned seed_lo, unsigned seed_hi,
                      const void* seed_dev, unsigned thr_emb, unsigned thr_att, float inv_emb,
                      float inv_att, const void* ext_mask, float inv_ext, int stages, int cluster,
-                     int fp32_variant, void* stream) {
+                     int fp32_variant, void* qkv_out, void* stream) {
   const FwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
-                  static_cast<float*>(out), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
+                  static_cast<float*>(out), qkv_out, n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
                   cluster, scale,
                   philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
                   static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),

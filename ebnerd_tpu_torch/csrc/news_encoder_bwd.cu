@@ -10,10 +10,13 @@
 //
 // The kernels:
 //   1. news_encoder_bwd_kernel, one block per 64 rows, as the forward:
-//      recompute QKV panel by panel (bf16: the forward's QKV stage, TMA-fed
-//      wgmma, on the masked x, in clusters of 1 by its measured plan; fp32:
-//      the forward's 3xTF32 stage, drawing the stream-0 mask) and the
-//      attention, keeping the fp32 o; dropout on o; the pooling forward
+//      QKV panel by panel, either loaded from the Q|K|V the forward kept
+//      (training through the autograd function: K1 writes its panels, so
+//      the product runs once a step) or recomputed (bf16: the forward's
+//      QKV stage, TMA-fed wgmma, on the masked x, in clusters of 1 by its
+//      measured plan; fp32: the forward's 3xTF32 stage, drawing the
+//      stream-0 mask), and the attention again, keeping the fp32 o; dropout
+//      on o; the pooling forward
 //      (z, tanh, weights) and backward (dvals = round(o).round(g), datt,
 //      per-block partials of dq = round(tanh)^T round(datt) and db = sum
 //      dz); do = (w g + round(dz) round(W)^T) * mask, kept in the compute
@@ -76,7 +79,7 @@
 // into row chunks so that they fill the card too.
 // What is left: the dqkv round trip through device memory, the per-block
 // kernel's attention, pooling and attention backward on wmma, in series
-// with its QKV stage.
+// with its QKV stage (or, with the forward's Q|K|V, with the panels' loads).
 
 // Interface: plain C, bound from Python with ctypes
 // (ebnerd_tpu_torch/ops/news_encoder.py); each entry point launches on
@@ -676,6 +679,7 @@ struct BwdArgs {
   float* db_part;   // [blocks, a_pad]
   float* dq_part;   // [blocks, a_pad]
   int n, t, din, d, heads, gh, a, a_pad, n_valid, nb, stages, cluster, ldoc;
+  int saved;        // qkv holds the forward's Q|K|V (K1's qkv_out): loaded, not computed
   float scale;
   philox::Dropout dr;
   const float* ext_mask;
@@ -735,15 +739,19 @@ __global__ void __launch_bounds__(kCta, 1)
     for (int i = tid; i < lim * a_pad; i += kThreads) dz[i] = from_f<T>(0.f);
   };
 
-  // 1. recompute the forward: QKV panels (kept in the dqkv scratch) and o
-  // (each panel copied out of R before that group's attention)
+  // 1. recompute the forward: QKV panels and o. With the forward's Q|K|V
+  // saved (p.saved: K1 wrote it to qkv), each panel is loaded from there
+  // into R and the QKV stage does not run; else the stage computes it, and
+  // it is copied out of R into qkv (the dqkv scratch) before that group's
+  // attention. Either way phase 7 reads Q|K|V from qkv and writes dQ|dK|dV
+  // over it.
+  const bool stage = (NE_PHASES & 1) && !p.saved;  // the QKV stage runs
+  const bool load = (NE_PHASES & 1) && p.saved;    // the saved panels are loaded
   auto keep_panel = [&](int g) {
-    const T* panel = reinterpret_cast<const T*>(R);
-    for (int i = tid; i < rows * (kPanel / VE); i += kThreads) {
-      const int r = i / (kPanel / VE), c = (i % (kPanel / VE)) * VE;
-      *reinterpret_cast<uint4*>(qkv + size_t(r) * P + g * kPanel + c) =
-          *reinterpret_cast<const uint4*>(panel + r * L.ldw + c);
-    }
+    if (!p.saved) store_panel<T, false>(reinterpret_cast<const T*>(R), L.ldw, qkv + g * kPanel, P, rows);
+  };
+  auto load_saved = [&](int g) {
+    if (load) load_panel<T>(reinterpret_cast<T*>(R), L.ldw, qkv + g * kPanel, P, rows);
   };
   auto attend = [&](int g) {
     if (!(NE_PHASES & 2)) return;
@@ -764,7 +772,7 @@ __global__ void __launch_bounds__(kCta, 1)
     hop::cluster_sync();
     if (tid >= kThreads) {  // the producer warpgroup
       hop::regs_dec<40>();
-      if (tid == kThreads && run_qkv && (NE_PHASES & 1))
+      if (tid == kThreads && run_qkv && stage)  // saved: this warpgroup has nothing to feed
         qkv_produce(q, &xmap, &wmap, row0, n_groups, nk);
       return;
     }
@@ -773,13 +781,16 @@ __global__ void __launch_bounds__(kCta, 1)
     if (!run_qkv) return;
     int it = 0;
     for (int g = 0; g < n_groups; ++g) {
-      if (NE_PHASES & 1) qkv_panel_wgmma(q, it, nk, reinterpret_cast<bf16*>(R), L.ldw);
+      if (stage)
+        qkv_panel_wgmma(q, it, nk, reinterpret_cast<bf16*>(R), L.ldw);
+      else if (active)
+        load_saved(g);
       csync();
       if (active) {
         keep_panel(g);
         attend(g);
       }
-      if (NE_PHASES & 1)
+      if (stage)
         qkv_panel_done(q, it);  // the ring is free to refill
       else
         csync();
@@ -794,11 +805,13 @@ __global__ void __launch_bounds__(kCta, 1)
     const EmbDrop ed{dr.key, dr.thr_emb, dr.inv_emb, row0};
     const float* wq = static_cast<const float*>(p.wqkv);
     for (int g = 0; g < n_groups; ++g) {
-      if (NE_PHASES & 1) {
+      if (stage) {
         if constexpr (kTc)
           qkv_panel_tf32(xb, rows, din, wq + g * kPanel, P, L, R, ed);
         else
           qkv_panel_fp32(xb, rows, din, wq + g * kPanel, P, L, R, ed);
+      } else {
+        load_saved(g);
       }
       csync();
       keep_panel(g);
@@ -1658,6 +1671,12 @@ long long news_encoder_bwd_smem_bytes(int t, int d, int heads, int a_pad, int is
 // x_rows = n * t) the blocks past it write zero partials too, and zeros into
 // their rows below the 64-row edge after the last valid row; seed_dev: as
 // news_encoder_fwd; fp32_variant too (1: 3xTF32 on the tensor cores, 0: FMA).
+// qkv_saved: qkv already holds the forward's Q|K|V of the blocks before
+// n_valid (news_encoder_fwd's qkv_out, same x, weights and dropout): the
+// kernel loads each panel from there instead of running the QKV stage
+// (bf16: its producer warpgroup then exits at once), and writes dQ|dK|dV
+// over it as it does over its own copy; 0 computes it (and x, wqkv are
+// read).
 int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const void* w_att,
                           const void* b_att, const void* q_att, const void* g, void* qkv,
                           void* o_c, int ldoc, void* dz_c, void* db_part, void* dq_part, int n,
@@ -1666,11 +1685,11 @@ int news_encoder_bwd_core(const void* x, int x_rows, const void* wqkv, const voi
                           unsigned seed_hi, const void* seed_dev, unsigned thr_emb,
                           unsigned thr_att, float inv_emb, float inv_att, const void* ext_mask,
                           float inv_ext, int stages, int cluster, int fp32_variant,
-                          void* stream) {
+                          int qkv_saved, void* stream) {
   BwdArgs p{x, wqkv, w_att, static_cast<const float*>(b_att), static_cast<const float*>(q_att),
             static_cast<const float*>(g), qkv, o_c, dz_c, static_cast<float*>(db_part),
             static_cast<float*>(dq_part), n, t, din, d, heads, gh, a, a_pad, n_valid, 0, stages,
-            cluster, ldoc, scale, philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
+            cluster, ldoc, qkv_saved, scale, philox::Dropout{{seed_lo, seed_hi}, thr_emb, thr_att, inv_emb, inv_att},
             static_cast<const float*>(ext_mask), inv_ext, static_cast<const int*>(nv_dev),
             static_cast<const unsigned long long*>(seed_dev)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

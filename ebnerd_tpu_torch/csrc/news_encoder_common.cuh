@@ -46,7 +46,8 @@
 // Profiling switch: tools/kernel_phases.py builds variants of the forward
 // and of the backward's per-block kernel that leave phases out to see where
 // the time goes. Without all bits the result is wrong: such a build is for
-// timing only. Bit 0: the QKV product (recomputed in the backward), bit 1:
+// timing only. Bit 0: the QKV product (recomputed in the backward, or
+// there, with the forward's Q|K|V saved, the panels' load), bit 1:
 // the attention (recomputed), bit 2: the pooling product (forward) or the
 // pooling forward and backward (backward), bit 3: the backward's do
 // product, bit 4: the attention backward.
@@ -277,6 +278,39 @@ __device__ __forceinline__ void pipeline(int nk, Issue issue, Compute compute) {
   }
   cp_async_wait<0>();
   csync();
+}
+
+// One head group's Q|K|V panel, rows [0, rows), between region R
+// ([kRows][ldw], where the QKV stage leaves it) and the packed [rows, P]
+// Q|K|V in device memory (dst / src at the group's first column), 16 bytes
+// a copy. store_panel: K1 keeps it for the backward (kStream: evict-first
+// stores, read again only by a later kernel), K2's per-block kernel keeps
+// the one it recomputed; load_panel: K2's per-block kernel takes the one
+// K1 kept (cp.async, waited for; a csync must follow). On an H100, one TMA
+// bulk copy a row instead cost K1 in bf16 0.6 ms more at the news tower
+// (PERF.md).
+template <typename T, bool kStream>
+__device__ __forceinline__ void store_panel(const T* panel, int ldw, T* dst, int P, int rows) {
+  constexpr int kVecs = kPanel * int(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * (16 / int(sizeof(T)));
+    const uint4 v = *reinterpret_cast<const uint4*>(panel + r * ldw + c);
+    uint4* out = reinterpret_cast<uint4*>(dst + size_t(r) * P + c);
+    if constexpr (kStream)
+      __stcs(out, v);
+    else
+      *out = v;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void load_panel(T* panel, int ldw, const T* src, int P, int rows) {
+  constexpr int kVecs = kPanel * int(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * (16 / int(sizeof(T)));
+    cp_async16(panel + r * ldw + c, src + size_t(r) * P + c, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
 // The embedding-dropout mask (stream 0) of one block: rows of the block

@@ -16,7 +16,11 @@ from an external 0/1 ``drop_mask`` [N, T, D] with ``keep_prob``.
 a wgmma GEMM for dx and the weight gradients, and a fixed-order
 reduction). ``news_encoder`` is the differentiable entry point: on CUDA a
 ``torch.autograd.Function`` whose forward launches K1 and whose backward
-launches K2; on the CPU autograd of the plain version.
+launches K2; on the CPU autograd of the plain version. When a gradient will
+follow, K1 (or the tiled route's T1) also keeps the Q|K|V it computed, and
+the backward reads it instead of running the QKV product again: the product
+runs once a step, where the JAX package's custom VJP, which saves only x,
+runs it twice. ``fused_news_encoder_bwd``, with no forward, computes it.
 
 ``rng_seed`` and ``n_valid`` may be device tensors (a one-element int64
 seed, a one-element int32 count on x's device): the kernels then read them
@@ -399,7 +403,8 @@ def _pack_panels(parts, num_heads: int) -> torch.Tensor:
 
 
 def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: "Dropout",
-                       seed=None, keep_prob: float = 1.0) -> tuple:
+                       seed=None, keep_prob: float = 1.0,
+                       qkv: Optional[torch.Tensor] = None) -> tuple:
     """Plain version of the backward's per-block kernel (``launch_bwd_core``)
     on ``kernel_input``'s x [rows, Din] (no stream-0 mask left to draw),
     in fp32 from the rounded operands, rounding where the kernel does.
@@ -408,7 +413,9 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     round(dz) [rows, a_pad] in the compute dtype, and the per-block partials
     of db and dq [blocks, A] fp32 (the blocks of ``articles_per_block(T)``
     articles before nv). ``seed`` (64-bit) and
-    ``keep_prob`` regenerate the stream-1 mask when ``drop.thr_att``."""
+    ``keep_prob`` regenerate the stream-1 mask when ``drop.thr_att``.
+    ``qkv`` (the forward's Q|K|V, [>= rows, P] in the panel layout and the
+    compute dtype, as K1 keeps it) is taken instead of computing x Wqkv."""
     if drop.thr_emb:
         raise ValueError("bwd_core_reference takes x with its stream-0 mask applied")
     cdt = packed.wqkv.dtype
@@ -417,9 +424,12 @@ def bwd_core_reference(x, packed: "PackedWeights", g, *, t: int, nv: int, drop: 
     a, din = packed.b_att.shape[0], x.shape[1]
     hd, rows = d // heads, nv * t
     scale = 1.0 / math.sqrt(hd)
-    wq, wk, wv = (w.float() for w in unpack_qkv(packed.wqkv, heads, d))
-    xv = x[:rows].float()
-    q, k, v = (_round(xv @ w, cdt).reshape(nv, t, heads, hd) for w in (wq, wk, wv))
+    if qkv is None:
+        wq, wk, wv = (w.float() for w in unpack_qkv(packed.wqkv, heads, d))
+        xv = x[:rows].float()
+        q, k, v = (_round(xv @ w, cdt).reshape(nv, t, heads, hd) for w in (wq, wk, wv))
+    else:
+        q, k, v = (u.float().reshape(nv, t, heads, hd) for u in unpack_qkv(qkv[:rows], heads, d))
     probs = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k) * scale, dim=-1)
     o = torch.einsum("nhqk,nkhd->nqhd", _round(probs, cdt), v).reshape(nv, t, d)
     mask = torch.ones_like(o)
@@ -461,7 +471,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the forward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.news_encoder_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, f, i,
-                                     u, u, p, u, u, f, f, p, f, i, i, i, p]
+                                     u, u, p, u, u, f, f, p, f, i, i, i, p, p]
     lib.news_encoder_fwd.restype = i
     lib.news_encoder_smem_bytes.argtypes = [i] * 7
     lib.news_encoder_smem_bytes.restype = ctypes.c_longlong
@@ -474,7 +484,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward's C entry points on a loaded kernel library."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.news_encoder_bwd_core.argtypes = ([p, i] + [p] * 7 + [i] + [p] * 3 + [i] * 9
-                                          + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, i, p])
+                                          + [p, f, i, u, u, p, u, u, f, f, p, f, i, i, i, i, p])
     lib.news_encoder_bwd_core.restype = i
     lib.news_encoder_gemm.argtypes = [p, p, p, p] + [i] * 10 + [p, i, i, u, u, p, u, f, i, p]
     lib.news_encoder_gemm.restype = i
@@ -609,13 +619,16 @@ def fused_news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
 
 
 def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, emb_keep_prob,
-             rng_seed, drop_mask, force_tiled: bool = False, instance: bool = False) -> tuple:
+             rng_seed, drop_mask, force_tiled: bool = False, instance: bool = False,
+             save_qkv: bool = False) -> tuple:
     """The forward on a CUDA x [N, T, Din], K1 or the tiled route by
     ``_route`` (``force_tiled`` takes the tiled route at any shape,
     ``instance`` the wide instance at T 33-64):
-    (out, xin, keep, packed, drop, nv, nv_dev, tiled), with xin and keep
-    from ``kernel_input`` (what the backward needs), the packed weights, the
-    call's dropout, its valid article count and whether it went tiled."""
+    (out, xin, keep, packed, drop, nv, nv_dev, tiled, qkv), with xin and
+    keep from ``kernel_input`` (what the backward needs), the packed weights,
+    the call's dropout, its valid article count, whether it went tiled, and
+    with ``save_qkv`` the Q|K|V [N*T, P] that K1 (or T1) computed, for
+    ``_backward``'s ``qkv`` (else None)."""
     packed = _packed_for(x, weights, packed, num_heads, compute_dtype)
     n, t, _ = x.shape
     drop = dropout_config(n, t, weights[0].shape[1], keep_prob, emb_keep_prob, rng_seed,
@@ -624,11 +637,16 @@ def _forward(x, weights, packed, num_heads, compute_dtype, n_valid, keep_prob, e
     nv, nv_dev = _valid(n, n_valid, x.device)
     xin, keep, drop_in = kernel_input(x, nv, drop, nv_dev)
     tiled = _route(packed, t, xin.shape[1], force_tiled, instance) == "tiled"
+    qkv = None
     if tiled:
-        out = tiled_forward(xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
+        out = tiled_forward(xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev, save_qkv=save_qkv)
+        if save_qkv:
+            out, qkv = out
     else:
-        out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev)
-    return out, xin, keep, packed, drop, nv, nv_dev, tiled
+        if save_qkv:
+            qkv = torch.empty(n * t, packed.wqkv.shape[1], dtype=compute_dtype, device=x.device)
+        out = launch(_library(), xin, packed, nv, drop_in, n=n, t=t, nv_dev=nv_dev, qkv_out=qkv)
+    return out, xin, keep, packed, drop, nv, nv_dev, tiled, qkv
 
 
 def _n_valid(n: int, n_valid) -> int:
@@ -734,15 +752,20 @@ def _kernel_x(x, packed: PackedWeights, nv: int, n: int, t: int):
 
 
 def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int,
-           t: int, nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+           t: int, nv_dev: Optional[torch.Tensor] = None,
+           qkv_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the forward kernel library ``lib`` on the current stream, on x
     [rows, Din] from ``kernel_input`` for N articles of T tokens, ``nv``
     valid (or, with ``nv_dev``, the count that int32 device scalar holds;
     nv is then N), and count the launch (``_build.count``); raises if the
-    launch is refused. ``fused_news_encoder`` passes the library
-    built from ``csrc/news_encoder.cu``; the profiling tool passes variants
-    of it."""
+    launch is refused. ``qkv_out`` ([N*T, P] in the compute dtype, or None)
+    receives the Q|K|V panels of the valid blocks' rows for the backward's
+    per-block kernel (``launch_bwd_core``'s ``qkv``; counted on
+    ``fused_news_encoder.saved_qkv``). ``fused_news_encoder`` passes the
+    library built from ``csrc/news_encoder.cu``; the profiling tool passes
+    variants of it."""
     x_rows = _kernel_x(x, packed, nv, n, t)
+    _check_qkv(qkv_out, packed, n, t, x.device)
     din = x.shape[1]
     d, a_pad = packed.w_att.shape
     a = packed.b_att.shape[0]
@@ -764,11 +787,14 @@ def launch(lib: ctypes.CDLL, x, packed: PackedWeights, nv: int, drop: Dropout, *
             packed.b_att.data_ptr(), packed.q_att.data_ptr(), out.data_ptr(), n, t, din, d,
             packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev), scale, is_bf16,
             drop.seed_lo, drop.seed_hi, _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att,
-            drop.inv_emb, drop.inv_att, _ptr(ext), drop.inv_ext, stages, cluster, var, stream)
+            drop.inv_emb, drop.inv_att, _ptr(ext), drop.inv_ext, stages, cluster, var,
+            _ptr(qkv_out), stream)
     _check_launch(lib, err, "news_encoder_fwd", lib.news_encoder_error_string)
     _build.count(fused_news_encoder)
     if not is_bf16:
         _build.count(fused_news_encoder.tf32x3 if var else fused_news_encoder.fma)
+    if qkv_out is not None:
+        _build.count(fused_news_encoder.saved_qkv)
     return out
 
 
@@ -777,6 +803,19 @@ fused_news_encoder.launches = fused_news_encoder.captured = 0
 # cores, or the FMA stages (``fp32_variant``)
 fused_news_encoder.tf32x3 = _build.KernelCount()
 fused_news_encoder.fma = _build.KernelCount()
+# the launches that kept their Q|K|V for the backward (``qkv_out``)
+fused_news_encoder.saved_qkv = _build.KernelCount()
+
+
+def _check_qkv(qkv: Optional[torch.Tensor], packed: PackedWeights, n: int, t: int, dev) -> None:
+    """A Q|K|V buffer as K1 writes it and the per-block kernel reads it:
+    [N*T, P] contiguous, in the compute dtype, on x's device (or None)."""
+    if qkv is None:
+        return
+    shape = (n * t, packed.wqkv.shape[1])
+    if (tuple(qkv.shape) != shape or qkv.dtype != packed.wqkv.dtype or not qkv.is_contiguous()
+            or qkv.device != dev):
+        raise ValueError(f"qkv must be contiguous {packed.wqkv.dtype} {list(shape)} on {dev}")
 
 
 def _stream(dev) -> int:
@@ -1071,13 +1110,17 @@ def fused_news_encoder_bwd(x, wq, wk, wv, w_att, b_att, q_att, g, *, num_heads: 
 
 def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
               drop: Dropout, nv_dev: Optional[torch.Tensor] = None,
-              force_tiled: bool = False, instance: bool = False) -> tuple:
+              force_tiled: bool = False, instance: bool = False,
+              qkv: Optional[torch.Tensor] = None) -> tuple:
     """K2 on ``kernel_input``'s (xin, keep) for N articles of T tokens, nv
     valid (or, with ``nv_dev``, the count that device scalar holds, nv
     then N: the bucket's geometry), under the call's dropout ``drop``: the
     per-block kernel (or, by ``_route``, the tiled route's T1-T4;
     ``force_tiled`` takes it at any shape, ``instance`` the wide instance
-    at T 33-64), dx, dWqkv and dW products and the reductions."""
+    at T 33-64), dx, dWqkv and dW products and the reductions. ``qkv``,
+    the forward's Q|K|V (``_forward``'s ``save_qkv``), spares the QKV
+    product; the backward writes dQ|dK|dV over it (the per-block kernel)
+    or leaves it as it was (the tiled route)."""
     din, d = xin.shape[1], packed.w_att.shape[0]
     if g.dtype != torch.float32 or not g.is_contiguous() or tuple(g.shape) != (n, d):
         raise ValueError(f"g must be contiguous fp32 [{n}, {d}]")
@@ -1086,11 +1129,12 @@ def _backward(xin, keep, packed: PackedWeights, g, n: int, t: int, nv: int,
     drop_in = drop._replace(thr_emb=0, inv_emb=1.0) if masked else drop
     if _route(packed, t, din, force_tiled, instance) == "tiled":
         qkv, o_c, dz_c, db_part, dq_part = tiled_bwd_core(xin, packed, g, nv, drop_in, n=n, t=t,
-                                                          nv_dev=nv_dev)
+                                                          nv_dev=nv_dev, qkv=qkv)
         nv_blocks = nv  # one partial row per article
     else:
         qkv, o_c, dz_c, db_part, dq_part = launch_bwd_core(_library_bwd(), xin, packed, g, nv,
-                                                           drop_in, n=n, t=t, nv_dev=nv_dev)
+                                                           drop_in, n=n, t=t, nv_dev=nv_dev,
+                                                           qkv=qkv)
         nv_blocks = -(-nv // articles_per_block(t))
     _build.count(fused_news_encoder_bwd)
     a_pad, a, p_cols = packed.w_att.shape[1], packed.b_att.shape[0], packed.wqkv.shape[1]
@@ -1114,7 +1158,8 @@ fused_news_encoder_bwd.launches = fused_news_encoder_bwd.captured = 0
 
 
 def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop: Dropout, *,
-                    n: int, t: int, nv_dev: Optional[torch.Tensor] = None) -> tuple:
+                    n: int, t: int, nv_dev: Optional[torch.Tensor] = None,
+                    qkv: Optional[torch.Tensor] = None) -> tuple:
     """Launch the backward's per-block kernel from the library ``lib`` on
     the current stream, on x [rows, Din] from ``kernel_input``: (dqkv
     [N*T, P], round(o) [N*T, D], round(dz) [N*T, a_pad] in the compute
@@ -1123,11 +1168,16 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
     ``nv`` articles are left unwritten; with ``nv_dev``, the int32 device
     count the kernel reads, nv is N and the blocks past the count write zero
     partials and zero the rows the GEMMs' last k-tile reads). Raises if the
-    launch is refused.
+    launch is refused. ``qkv``, the forward's Q|K|V from ``launch``'s
+    ``qkv_out`` (same x, weights and dropout), is read instead of running
+    the QKV product again, and dQ|dK|dV come back in it (counted on
+    ``launch_bwd_core.saved_qkv``; without it on ``recomputed_qkv``).
     ``fused_news_encoder_bwd`` passes the
     library built from ``csrc/news_encoder_bwd.cu``; the profiling tool
     variants."""
     x_rows = _kernel_x(x, packed, nv, n, t)
+    _check_qkv(qkv, packed, n, t, x.device)
+    saved = qkv is not None
     din = x.shape[1]
     d, a_pad = packed.w_att.shape
     a = packed.b_att.shape[0]
@@ -1143,7 +1193,8 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
     n_blocks = -(-n // articles_per_block(t))
     p_cols = packed.wqkv.shape[1]
     dev = x.device
-    qkv = torch.empty(n * t, p_cols, dtype=cdt, device=dev)
+    if not saved:
+        qkv = torch.empty(n * t, p_cols, dtype=cdt, device=dev)
     o_c = torch.empty(n * t, o_width(d), dtype=cdt, device=dev)
     # the wide instance's do product reads whole 64-row tiles of round(dz): the last block's
     # reach past the N * T rows stays inside the allocation
@@ -1159,17 +1210,21 @@ def launch_bwd_core(lib: ctypes.CDLL, x, packed: PackedWeights, g, nv: int, drop
             n, t, din, d, packed.num_heads, packed.heads_per_group, a, a_pad, nv, _ptr(nv_dev),
             1.0 / math.sqrt(d // packed.num_heads), is_bf16, drop.seed_lo, drop.seed_hi,
             _ptr(drop.seed_dev), drop.thr_emb, drop.thr_att, drop.inv_emb, drop.inv_att, _ptr(ext),
-            drop.inv_ext, stages, cluster, var, _stream(dev))
+            drop.inv_ext, stages, cluster, var, int(saved), _stream(dev))
     _check_launch(lib, err, "news_encoder_bwd_core", lib.news_encoder_bwd_error_string)
     _build.count(launch_bwd_core)
     if not is_bf16:
         _build.count(launch_bwd_core.tf32x3 if var else launch_bwd_core.fma)
+    _build.count(launch_bwd_core.saved_qkv if saved else launch_bwd_core.recomputed_qkv)
     return qkv, o_c, dz_c, db_part, dq_part
 
 
 launch_bwd_core.launches = launch_bwd_core.captured = 0
 launch_bwd_core.tf32x3 = _build.KernelCount()  # as fused_news_encoder's
 launch_bwd_core.fma = _build.KernelCount()
+# the launches that read the forward's Q|K|V (``qkv``) and those that computed it again
+launch_bwd_core.saved_qkv = _build.KernelCount()
+launch_bwd_core.recomputed_qkv = _build.KernelCount()
 
 
 # ---- the tiled route (T1-T4, csrc/news_encoder_tiled.cu) ----
@@ -1701,24 +1756,40 @@ tiled_attention_bwd.streamed_tf32x3 = _build.KernelCount()
 
 
 def tiled_forward(x, packed: PackedWeights, nv: int, drop: Dropout, *, n: int, t: int,
-                  nv_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  nv_dev: Optional[torch.Tensor] = None, save_qkv: bool = False):
     """The tiled route's forward on ``kernel_input``'s x: T1, T2, T3 -> [N, D]
-    fp32 (the plain versions on the CPU)."""
+    fp32 (the plain versions on the CPU); with ``save_qkv``, (out, T1's
+    Q|K|V) for ``tiled_bwd_core``'s ``qkv`` (counted on
+    ``tiled_forward.saved_qkv``)."""
     qkv = tiled_qkv(x, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
     o, _ = tiled_attention(qkv, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
-    del qkv
-    return tiled_pool(o, packed, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    if not save_qkv:
+        del qkv
+        return tiled_pool(o, packed, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    _build.count(tiled_forward.saved_qkv)
+    return tiled_pool(o, packed, n=n, t=t, nv=nv, nv_dev=nv_dev), qkv
+
+
+tiled_forward.saved_qkv = _build.KernelCount()
 
 
 def tiled_bwd_core(x, packed: PackedWeights, g, nv: int, drop: Dropout, *, n: int, t: int,
-                   nv_dev: Optional[torch.Tensor] = None) -> tuple:
+                   nv_dev: Optional[torch.Tensor] = None,
+                   qkv: Optional[torch.Tensor] = None) -> tuple:
     """The tiled route in place of the per-block kernel (``launch_bwd_core``):
-    T1 and T2 recompute Q|K|V and round(o), T3's backward gives do,
+    T1 recomputes Q|K|V unless ``qkv`` brings the forward's (``tiled_forward``
+    with ``save_qkv``; counted on ``tiled_bwd_core.saved_qkv``, else on
+    ``recomputed_qkv``), T2 recomputes round(o), T3's backward gives do,
     round(dz) and the db and dq partials (one row per article), T4
     dQ|dK|dV. Returns (dqkv, round(o), round(dz), db_part, dq_part), each
     zero past the valid rows but the partials, which are zero past the valid
     articles (the plain versions on the CPU)."""
-    qkv = tiled_qkv(x, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
+    if qkv is None:
+        qkv = tiled_qkv(x, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev)
+        _build.count(tiled_bwd_core.recomputed_qkv)
+    else:
+        _check_qkv(qkv, packed, n, t, x.device)
+        _build.count(tiled_bwd_core.saved_qkv)
     o_c, stats = tiled_attention(qkv, packed, drop, n=n, t=t, nv=nv, nv_dev=nv_dev, backward=True)
     do, dz_c, db_part, dq_part = tiled_pool_bwd(o_c, packed, g, drop, n=n, t=t, nv=nv,
                                                 nv_dev=nv_dev)
@@ -1726,31 +1797,42 @@ def tiled_bwd_core(x, packed: PackedWeights, g, nv: int, drop: Dropout, *, n: in
     return dqkv, o_c, dz_c, db_part, dq_part
 
 
+tiled_bwd_core.saved_qkv = _build.KernelCount()
+tiled_bwd_core.recomputed_qkv = _build.KernelCount()
+
+
 class NewsEncoderFunction(torch.autograd.Function):
-    """The fused encoder on CUDA with its recompute backward: the forward
-    launches K1 on ``kernel_input``'s x (in bf16 with the embedding mask:
-    round(x * mask), drawn once here), the backward K2 with the same packed
-    weights and dropout, so the attention-output mask is regenerated bit
-    for bit. It keeps the kernels' x and the keep bits, not x. The seed,
+    """The fused encoder on CUDA with its backward: the forward launches K1
+    on ``kernel_input``'s x (in bf16 with the embedding mask: round(x *
+    mask), drawn once here), the backward K2 with the same packed weights
+    and dropout, so the attention-output mask is regenerated bit for bit.
+    It keeps the kernels' x and the keep bits, not x. When a gradient will
+    follow it also keeps the forward's Q|K|V, which the backward reads
+    instead of computing it again, and drops: K2 writes dQ|dK|dV over it, so
+    a second backward over a retained graph computes it again. The seed,
     ``n_valid`` and the mask get no gradient."""
 
     @staticmethod
     def forward(ctx, x, wq, wk, wv, w_att, b_att, q_att, packed, num_heads, compute_dtype,
                 n_valid, keep_prob, emb_keep_prob, rng_seed, drop_mask):
         _check_compute(compute_dtype)
-        out, xin, keep, packed, drop, nv, nv_dev, tiled = _forward(
+        # A gradient will follow when an input needs one and the call joined a graph: under
+        # no_grad needs_input_grad still reads the inputs' flags, but no edge is recorded
+        save = any(ctx.needs_input_grad[:7]) and bool(ctx.next_functions)
+        out, xin, keep, packed, drop, nv, nv_dev, tiled, qkv = _forward(
             x, (wq, wk, wv, w_att, b_att, q_att), packed, num_heads, compute_dtype, n_valid,
-            keep_prob, emb_keep_prob, rng_seed, drop_mask)
+            keep_prob, emb_keep_prob, rng_seed, drop_mask, save_qkv=save)
         ctx.save_for_backward(xin, keep)
         ctx.packed, ctx.shape, ctx.drop, ctx.nv_dev = packed, (*x.shape[:2], nv), drop, nv_dev
-        ctx.tiled = tiled
+        ctx.tiled, ctx.qkv = tiled, qkv
         return out
 
     @staticmethod
     def backward(ctx, g):
         xin, keep = ctx.saved_tensors
+        qkv, ctx.qkv = ctx.qkv, None
         grads = _backward(xin, keep, ctx.packed, g.contiguous().float(), *ctx.shape, ctx.drop,
-                          ctx.nv_dev, force_tiled=ctx.tiled)
+                          ctx.nv_dev, force_tiled=ctx.tiled, qkv=qkv)
         return (*grads,) + (None,) * 8
 
 
@@ -1759,8 +1841,9 @@ def news_encoder(x, wq, wk, wv, w_att, b_att, q_att, *, num_heads: int,
                  keep_prob: float = 1.0, emb_keep_prob: float = 1.0, drop_mask=None,
                  rng_seed=None, packed: Optional[PackedWeights] = None) -> torch.Tensor:
     """Differentiable fused news encoder (counterpart of the JAX custom VJP
-    ``news_encoder``): on CUDA the kernels (forward K1, recompute backward
-    K2); on the CPU the plain version, differentiated by autograd."""
+    ``news_encoder``): on CUDA the kernels (forward K1, keeping its Q|K|V
+    when a gradient will follow; backward K2, reading it); on the CPU the
+    plain version, differentiated by autograd."""
     kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, n_valid=n_valid,
               keep_prob=keep_prob, emb_keep_prob=emb_keep_prob, rng_seed=rng_seed,
               drop_mask=drop_mask)

@@ -13,7 +13,13 @@ outside the timing, as the training step does. A variant that leaves a
 phase out computes a wrong result and is timed only; the shipped builds
 are held against the plain version (K1's output, and K2's whole backward).
 Every variant is timed twice in one process on one card, in the order
-listed and then reversed.
+listed and then reversed. Each of the per-block kernel's variants is timed
+twice over: computing the forward's Q|K|V again (``ms``) and reading the
+Q|K|V that K1 kept (``ms_saved``: ``launch_bwd_core``'s ``qkv``, a fresh
+copy before each launch, untimed, made before the recompute's launches
+too; phase bit 0 then stands for the panels' load), each launch between
+its own CUDA events; the shipped build's two modes are held bit for bit
+against each other.
 
 ``--dtype float32`` times the fp32 instance instead (x, weights and the
 kernels' compute dtype in fp32, the stream-0 mask drawn in the kernels),
@@ -68,11 +74,26 @@ FP32_ATOL = 1e-4      # fp32: K1's max|kernel - plain|, and K2's gradients relat
 FP32_GRAD_REL = 1e-4  # scale, as in chip_smoke.py
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def time_ms(fn, iters: int, warmup: int = 2, prep=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls; with
+    ``prep``, of ``fn`` alone over ``iters`` calls, each after ``prep``
+    (untimed), CUDA events around each call."""
     for _ in range(warmup):
+        if prep:
+            prep()
         fn()
     torch.cuda.synchronize()
+    if prep:
+        pairs = []
+        for _ in range(iters):
+            prep()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -157,16 +178,40 @@ def main(argv=None) -> int:
             continue
         for kind in kinds:
             var = kinds[kind][1]
+            saved_times = None
             if kind == "fwd":
                 run = lambda name: ne.launch(libs[(kind, name)], xin, packed, nv, drop_in, n=n,
                                              t=t)
+                times = {name: [] for name in var}
+                for order in (list(var), list(var)[::-1]):
+                    for name in order:
+                        times[name].append(time_ms(lambda: run(name), args.iters))
             else:
-                run = lambda name: ne.launch_bwd_core(libs[(kind, name)], xin, packed, g, nv,
-                                                      drop_in, n=n, t=t)
-            times = {name: [] for name in var}
-            for order in (list(var), list(var)[::-1]):
-                for name in order:
-                    times[name].append(time_ms(lambda: run(name), args.iters))
+                # the Q|K|V K1 keeps (``qkv_out``), copied into ``work`` before each saved launch
+                kept = torch.empty(n * t, packed.wqkv.shape[1], dtype=cdt, device="cuda")
+                ne.launch(ne._library(), xin, packed, nv, drop_in, n=n, t=t, qkv_out=kept)
+                work = torch.empty_like(kept)
+                run = lambda name, qkv=None: ne.launch_bwd_core(
+                    libs[(kind, name)], xin, packed, g, nv, drop_in, n=n, t=t, qkv=qkv)
+                refill = lambda: work.copy_(kept)
+                times = {name: [] for name in var}
+                saved_times = {name: [] for name in var}
+                for order in (list(var), list(var)[::-1]):
+                    for name in order:
+                        times[name].append(time_ms(lambda: run(name), args.iters,
+                                                   prep=refill))
+                        saved_times[name].append(time_ms(lambda: run(name, work), args.iters,
+                                                         prep=refill))
+                rows, blocks = nv * t, -(-nv // ne.articles_per_block(t))
+                valid = lambda o: (o[0][:rows], o[1][:rows], o[2][:rows], o[3][:blocks],
+                                   o[4][:blocks])
+                refill()
+                same = all(torch.equal(u, v) for u, v in zip(valid(run("shipped", work)),
+                                                             valid(run("shipped"))))
+                if not same:
+                    raise RuntimeError(f"K2 block {shape}: reading the kept Q|K|V differs from "
+                                       f"computing it")
+                del kept, work
             err = None
             if kind == "fwd":  # the shipped build, held against the plain version
                 err = _check(f"K1 {shape}", run("shipped"),
@@ -186,6 +231,7 @@ def main(argv=None) -> int:
                 rec = {"kernel": kind, "shape": shape, "n_t_din": [n, t, din], "n_valid": nv,
                        "keep": keep, "dtype": args.dtype, "route": route, "variant": name,
                        "flags": list(flags), "ms": times[name],
+                       "ms_saved": saved_times[name] if saved_times else None,
                        "max_abs_err": err if name == "shipped" else None,
                        "qkv_matmul_ms": qkv_ms, "matmul_precision": precision, "card": card}
                 records.append(rec)

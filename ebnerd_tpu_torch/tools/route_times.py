@@ -77,7 +77,7 @@ def compare(name: str, n: int, t: int, din: int, nv: int, keep: float, iters: in
     def run(force):
         kw = {"force_tiled": force == "tiled", "instance": force == "wide"}
         f = ne._forward(x, ws, packed, HEADS, cdt, nv, keep, keep, seed, None, **kw)
-        return (f[0],) + tuple(ne._backward(f[1], f[2], packed, g, n, t, nv, f[4], **kw)), f[-1]
+        return (f[0],) + tuple(ne._backward(f[1], f[2], packed, g, n, t, nv, f[4], **kw)), f[7]
 
     first, tiled_a = run(None)
     second, tiled_b = run(other)

@@ -118,8 +118,10 @@ def _plain_kernels(monkeypatch, seen):
         seen.setdefault("mask", []).append((rows, width, None if x is None else x.shape[1]))
         return port.emb_mask_reference(rows, width, SEED, KEEP, x=x)
 
-    def fake_launch(lib, xin, packed, nv, drop, *, n, t, nv_dev=None):
+    def fake_launch(lib, xin, packed, nv, drop, *, n, t, nv_dev=None, qkv_out=None):
         seen.setdefault("launch", []).append((tuple(xin.shape), tuple(packed.wqkv.shape)))
+        if qkv_out is not None:  # the Q|K|V K1 keeps for the backward
+            qkv_out.copy_(port.tiled_qkv_reference(xin, packed, drop, n=n, t=t, nv=nv))
         width, d = xin.shape[1], packed.w_att.shape[0]
         a = packed.b_att.shape[0]
         xfull = xin.new_zeros(n * t, width)
@@ -133,13 +135,14 @@ def _plain_kernels(monkeypatch, seen):
             emb_keep_prob=KEEP if drop.thr_emb else 1.0,
             rng_seed=SEED if drop.thr_att or drop.thr_emb else None)
 
-    def fake_core(lib, x, packed, g, nv, drop, *, n, t, nv_dev=None):
+    def fake_core(lib, x, packed, g, nv, drop, *, n, t, nv_dev=None, qkv=None):
         seen.setdefault("core", []).append(tuple(x.shape))
+        seen.setdefault("saved", []).append(qkv is not None)
         if drop.thr_emb:  # fp32: the kernel draws the stream-0 mask itself
             x = x * philox.mask(SEED, philox.STREAM_EMB, x.shape[0], x.shape[1], KEEP)
             drop = drop._replace(thr_emb=0)
         qkv, o_c, dz_c, db_part, dq_part = port.bwd_core_reference(
-            x, packed, g, t=t, nv=nv, drop=drop, seed=SEED, keep_prob=KEEP)
+            x, packed, g, t=t, nv=nv, drop=drop, seed=SEED, keep_prob=KEEP, qkv=qkv)
         full = lambda v: torch.cat([v, v.new_zeros(n * t - v.shape[0], v.shape[1])])
         pad_a = lambda v: torch.nn.functional.pad(v, (0, packed.w_att.shape[1] - v.shape[1]))
         return full(qkv), full(o_c), full(dz_c), pad_a(db_part), pad_a(dq_part)
@@ -191,6 +194,7 @@ def test_wrapper_route_pads_and_cuts_back(monkeypatch, dtype, dropout):
     width = port.padded_din(din, dtype)
     k1_x, k1_w = seen["launch"][0]
     assert k1_x[1] == width and k1_w[0] == width and seen["core"][0][1] == width
+    assert seen["saved"] == [True]  # the backward read the Q|K|V the forward kept
     if dtype == torch.bfloat16 and dropout:
         assert seen["mask"] == [(nv * t, width, din)]
     else:

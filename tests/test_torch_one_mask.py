@@ -115,12 +115,13 @@ def test_function_draws_the_mask_once_and_keeps_it_for_the_backward(monkeypatch)
         calls["mask"].append(rows)
         return port.emb_mask_reference(rows, width, SEED, KEEP, x=x)
 
-    def fake_launch(lib, xin, packed_, nv_, drop, *, n, t, nv_dev=None):
-        calls["launch"].append((xin, drop))
+    def fake_launch(lib, xin, packed_, nv_, drop, *, n, t, nv_dev=None, qkv_out=None):
+        calls["launch"].append((xin, drop, qkv_out))
         return torch.zeros(n, heads * head_dim)
 
-    def fake_backward(xin, keep, packed_, g, n_, t_, nv_, drop, nv_dev=None, force_tiled=False):
-        calls["backward"].append((xin, keep, drop, (n_, t_, nv_)))
+    def fake_backward(xin, keep, packed_, g, n_, t_, nv_, drop, nv_dev=None, force_tiled=False,
+                      qkv=None):
+        calls["backward"].append((xin, keep, drop, (n_, t_, nv_), qkv))
         return tuple(torch.zeros_like(v) for v in [x] + ws)
 
     monkeypatch.setattr(port, "emb_mask", fake_mask)
@@ -136,10 +137,11 @@ def test_function_draws_the_mask_once_and_keeps_it_for_the_backward(monkeypatch)
     assert calls["mask"] == [nv * t]
     assert len(calls["launch"]) == 1  # launch counts K1 itself
     xm, _ = port.emb_mask_reference(nv * t, din, SEED, KEEP, x=x.reshape(n * t, din))
-    (k1_x, k1_drop), = calls["launch"]
+    (k1_x, k1_drop, k1_qkv), = calls["launch"]
     assert torch.equal(k1_x, xm) and k1_drop.thr_emb == 0 and k1_drop.thr_att != 0
-    (b_x, b_keep, b_drop, shape), = calls["backward"]
+    (b_x, b_keep, b_drop, shape, b_qkv), = calls["backward"]
     assert b_x is k1_x and shape == (n, t, nv)
+    assert k1_qkv is not None and b_qkv is k1_qkv  # the Q|K|V K1 kept
     assert torch.equal(b_keep, port.pack_bits(
         philox.mask(SEED, philox.STREAM_EMB, nv * t, din, KEEP) > 0))
     assert b_drop == port.dropout_config(n, t, heads * head_dim, KEEP, KEEP, SEED)
